@@ -1,0 +1,399 @@
+"""Smoke run of kubernetes_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py            # full SchedulingBasic, as the check runs it
+
+Phases (any failure exits non-zero; nothing is caught and ignored):
+1. build the three CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
+   one process per source, all at once);
+2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
+   Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
+3. place the 1000 initial and 10000 measured pods through
+   TorchBackend.run_batched in waves of 512, assuming each wave's winners
+   into the cache between waves; every pod must land and every kernel must
+   have launched (counts zeroed just before this phase, read just after);
+4. on one more full-width wave, run each kernel and its plain PyTorch
+   version on the card on the same inputs and require exact equality of
+   every output (K2 also with an all-rejecting and a 3-word tie stream);
+   then time both (CUDA events; the kernels alone by torch.profiler);
+5. hold the card's decisions against the CPU plain path on mixed clusters
+   of 16 to 1500 nodes (taints, affinity, images, ports, explicit spread,
+   an extended resource, three scoring strategies): equal bindings and
+   equal final rng state;
+then print the card, the timings, the kernels line and the result line.
+
+It imports nothing of the reference JAX package and never imports jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+# published peaks of one H100 SXM (dense): HBM3 3.35 TB/s, float32 outside
+# the tensor cores 67 TFLOP/s — the bound of each kernel is the larger of
+# its bytes over the first and its float32 operations over the second
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median of `reps` CUDA-event timings of fn() on the current stream."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> float | None:
+    """Median device duration of the CUDA kernel named `kernel` over `reps`
+    calls of fn(), from a torch.profiler (CUPTI) trace: the kernel alone,
+    without the wrapper's host time that CUDA events around the call
+    include. None when the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if kernel in e.name)
+    return times[len(times) // 2] if times else None
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_abs_err(pairs) -> float:
+    """Largest |kernel - plain| over every element of every output pair."""
+    return max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0.0 for a, b in pairs)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--nodes", type=int, default=5000)
+    ap.add_argument("--zones", type=int, default=8)
+    ap.add_argument("--init-pods", type=int, default=1000)
+    ap.add_argument("--pods", type=int, default=10000)
+    ap.add_argument("--wave", type=int, default=512)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import cuda, kernels
+    from kubernetes_tpu_torch.ops.planes import (
+        features_from_reference, pad_features, planes_from_reference,
+        stack_features, unpack_features)
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend, clone_tie_words
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    reports = cuda.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s, {len(reports)} libraries")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    # 2. cluster
+    t0 = time.perf_counter()
+    names = ResourceNames()
+    cache = Cache(names)
+    for i in range(args.nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(names, device="cuda")
+    rng = random.Random(args.seed)
+    print(f"cluster: {args.nodes} nodes, {args.zones} zones, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 3. the main path
+    def place(pods):
+        """run_batched in waves, assuming winners between waves; returns the
+        wall seconds of each wave (run_batched ends in a device→host copy,
+        so each wave's time includes its kernels)."""
+        walls = []
+        for w in range(0, len(pods), args.wave):
+            wave = pods[w: w + args.wave]
+            t = time.perf_counter()
+            got, _ = backend.run_batched(wave, snap, rng=rng, pad_to=args.wave)
+            walls.append(time.perf_counter() - t)
+            for pod, node in zip(wave, got):
+                if node is None:
+                    fail(f"{pod.meta.name} was not placed")
+                cache.assume_pod(pod, node)
+            cache.update_snapshot(snap)
+        return walls
+
+    init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
+    measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    place(init)
+    t1 = time.perf_counter()
+    phase0 = dict(backend.phase_s)
+    walls = place(measured)
+    t2 = time.perf_counter()
+    phases = {k: v - phase0[k] for k, v in backend.phase_s.items()}
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the main path: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} never launched on the main path")
+    placed = cache.pod_count()
+    if placed != args.init_pods + args.pods:
+        fail(f"{placed} pods in the cache, expected {args.init_pods + args.pods}")
+    n_waves = len(walls)
+    print(f"main path: {placed} pods placed; initial {t1 - t0:.3f} s; measured "
+          f"{args.pods} pods in {n_waves} waves, {t2 - t1:.3f} s = "
+          f"{args.pods / (t2 - t1):.1f} pods/s (incl. host assume + snapshot)")
+    wave_sorted = sorted(walls)
+    print(f"wave wall (run_batched): median {wave_sorted[len(walls) // 2] * 1e3:.2f} ms, "
+          f"max {wave_sorted[-1] * 1e3:.2f} ms, sum {sum(walls):.3f} s")
+    print("measured waves, host-clock seconds by run_batched phase: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+          + f"; outside run_batched (assume + snapshot) {t2 - t1 - sum(walls):.4f}")
+    print(f"upload: {backend.upload_stats}")
+    # the device mirror must equal host truth after one more sync
+    planes = backend.sync(snap)
+    dev_planes, _ = backend.device_inputs(planes)
+    host = planes.as_dict()
+    for k, t in dev_planes.items():
+        h = torch.from_numpy(host[k].view("int32") if host[k].dtype.name == "uint32" else host[k])
+        if not torch.equal(t.cpu(), h):
+            fail(f"device plane {k} differs from the host plane")
+    used = planes.used[: planes.n]
+    if (used > planes.alloc[: planes.n]).any():
+        fail("a node's requests exceed its allocatable")
+    print(f"pods per node: min {int(used[:, 3].min())} max {int(used[:, 3].max())}")
+
+    # 4. kernels vs plain versions on one full-width wave
+    cmp_pods = [scheduling_basic_pod(10**6 + i) for i in range(args.wave)]
+    for pod in cmp_pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features(
+        [backend.extractor.features(p, planes) for p in cmp_pods]), args.wave)
+    dev_planes, dev_tables = backend.device_inputs(planes)
+    cfg = backend.kernel_config(planes, feats)
+    packed_f, layout = features_from_reference(feats, "cuda")
+    words_np = clone_tie_words(random.Random(args.seed + 1),
+                               args.wave * kernels.MAX_TIE_DRAWS + kernels.MAX_TIE_DRAWS)
+    words = torch.from_numpy(words_np.view("int32")).cuda()
+    logtab = torch.from_numpy(kernels.log_weight_table(planes.nb)).cuda()
+    f_views = unpack_features(packed_f, layout)
+
+    k1 = kernels.static_parts(dev_planes, dev_tables, packed_f, layout)
+    k1_ref = kernels.static_parts_ref(dev_planes, dev_tables, f_views)
+    torch.cuda.synchronize()
+    err1 = max_abs_err((k1[k], k1_ref[k]) for k in k1)
+    for k in k1:
+        if not torch.equal(k1[k], k1_ref[k]):
+            fail(f"static_parts.{k} differs from its plain version")
+    k2 = kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout, words, 0, logtab)
+    k2_ref = kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, words, 0, logtab)
+    torch.cuda.synchronize()
+    err2 = max_abs_err(zip(k2, k2_ref))
+    for name, a, b in zip(("packed", "used", "nonzero_used", "sel_counts"), k2, k2_ref):
+        if not torch.equal(a, b):
+            fail(f"assign_scan {name} differs from its plain version")
+    winners = k2[0][: args.wave]
+    print(f"compare wave: {int((winners >= 0).sum())}/{args.wave} placed, "
+          f"tie words consumed {int(k2[0][-2])}, overflow {int(k2[0][-1])}")
+    if int((winners >= 0).sum()) != args.wave:
+        fail("the compare wave did not place every pod")
+    # the tie stream's edge cases on the same wave: every draw rejected
+    # (overflow), and a 3-word stream whose reads clamp to its last word
+    for label, edge in (("all-ones words", torch.full_like(words, -1)),
+                        ("3-word stream", words[:3].clone())):
+        got = kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout, edge, 0, logtab)
+        want = kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, edge, 0, logtab)
+        torch.cuda.synchronize()
+        err2 = max(err2, max_abs_err(zip(got, want)))
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"assign_scan with {label} differs from its plain version")
+        print(f"compare wave, {label}: tie words consumed {int(got[0][-2])}, "
+              f"overflow {int(got[0][-1])}")
+
+    # K3 on the rows that wave's placements dirty
+    for pod, w in zip(cmp_pods, winners.tolist()):
+        cache.assume_pod(pod, planes.node_names[w])
+    cache.update_snapshot(snap)
+    planes = backend.sync(snap)
+    idx_np = np.array(sorted(set(winners.tolist())), np.int32)
+    host = planes.as_dict()
+    rows = planes_from_reference({k: host[k][idx_np] for k in dev_planes}, "cuda")
+    idx = torch.from_numpy(idx_np).cuda()
+    k3 = {k: t.clone() for k, t in dev_planes.items()}
+    k3_ref = {k: t.clone() for k, t in dev_planes.items()}
+    kernels.scatter_rows(k3, rows, idx)
+    kernels.scatter_rows_ref(k3_ref, rows, idx)
+    torch.cuda.synchronize()
+    err3 = max_abs_err((k3[k], k3_ref[k]) for k in k3)
+    for k in k3:
+        if not torch.equal(k3[k], k3_ref[k]):
+            fail(f"scatter_rows plane {k} differs from its plain version")
+        h = host[k].view("int32") if host[k].dtype.name == "uint32" else host[k]
+        if not torch.equal(k3[k].cpu(), torch.from_numpy(np.ascontiguousarray(h))):
+            fail(f"scattered plane {k} differs from the host plane")
+    print(f"compare: static_parts, assign_scan, scatter_rows equal to their plain "
+          f"versions, tolerance 0 (exact; integer outputs) ({len(idx_np)} dirty rows)")
+
+    # timings on the same inputs
+    ms1 = time_ms(lambda: kernels.static_parts(dev_planes, dev_tables, packed_f, layout), 20)
+    ms1p = time_ms(lambda: kernels.static_parts_ref(dev_planes, dev_tables, f_views), 5)
+    ms2 = time_ms(lambda: kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout,
+                                              words, 0, logtab), 10)
+    ms2p = time_ms(lambda: kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, words,
+                                                   0, logtab), 1, warmup=0)
+    ms3 = time_ms(lambda: kernels.scatter_rows(k3, rows, idx), 50)
+    ms3p = time_ms(lambda: kernels.scatter_rows_ref(k3_ref, rows, idx), 20)
+    # the kernels alone (profiler); the event times above include the
+    # wrapper's host work between the two events
+    dev_ms = {
+        "static_parts": kernel_ms(lambda: kernels.static_parts(
+            dev_planes, dev_tables, packed_f, layout), "static_parts_kernel", 20),
+        "assign_scan": kernel_ms(lambda: kernels.assign_scan(
+            cfg, dev_planes, k1, packed_f, layout, words, 0, logtab),
+            "assign_scan_kernel", 5),
+        "scatter_rows": kernel_ms(lambda: kernels.scatter_rows(k3, rows, idx),
+                                  "scatter_rows_kernel", 50),
+    }
+    print(f"event ms around the wrapper calls: static_parts {ms1:.4f}, "
+          f"assign_scan {ms2:.4f}, scatter_rows {ms3:.4f}")
+    print(f"profiler kernel ms: {dev_ms}")
+    ms1 = dev_ms["static_parts"] if dev_ms["static_parts"] is not None else ms1
+    ms2 = dev_ms["assign_scan"] if dev_ms["assign_scan"] is not None else ms2
+    ms3 = dev_ms["scatter_rows"] if dev_ms["scatter_rows"] is not None else ms3
+
+    P, nb = args.wave, planes.nb
+    active = int(f_views["active"].sum())
+    b1 = (nbytes(*(dev_planes[k] for k in ("valid", "unsched", "group_id", "taints",
+                                            "prefer_taints", "port_words", "image_kib")))
+          + nbytes(*dev_tables.values()) + nbytes(packed_f) + nbytes(*k1.values()))
+    b2 = (active * nb * (1 + 4 + 4 + 4) + nbytes(dev_planes["alloc"], dev_planes["domain"])
+          + 2 * nbytes(dev_planes["used"], dev_planes["nonzero_used"], dev_planes["sel_counts"])
+          + nbytes(packed_f, words, logtab, k2[0]))
+    # float32 work of K2: balanced (~11 ops) and the spread cost (2 ops per
+    # constraint) per feasible node and pod; all nodes feasible here
+    f2 = active * planes.n * (11 + 2 * 2)
+    b3 = nbytes(idx) + 2 * nbytes(*rows.values())
+    rows_out = []
+    for name, src, repl, err, ms, msp, (bd, by) in (
+        ("static_parts", "kubernetes_tpu_torch/ops/csrc/static_parts.cu",
+         "kubernetes_tpu/ops/kernels.py:774", err1, ms1, ms1p, bound_ms(b1, 0)),
+        ("assign_scan", "kubernetes_tpu_torch/ops/csrc/assign_scan.cu",
+         "kubernetes_tpu/ops/kernels.py:1369", err2, ms2, ms2p, bound_ms(b2, f2)),
+        ("scatter_rows", "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
+         "kubernetes_tpu/scheduler/tpu/backend.py:58", err3, ms3, ms3p, bound_ms(b3, 0)),
+    ):
+        rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                         "launches": launches[name], "max_abs_err": err, "ms": ms,
+                         "plain_ms": msp, "bound_ms": bd, "bound_by": by,
+                         "library_ms": None})
+        print(f"{name}: {ms:.4f} ms (plain {msp:.3f} ms, bound {bd:.4f} ms by {by}), "
+              f"{launches[name]} launches on the main path")
+    # estimate: each measured wave runs K1 + K2 and one K3
+    busy = (ms1 + ms2 + ms3) * n_waves
+    print(f"device busy share of the measured waves ((K1 + K2 + K3 kernel time) "
+          f"x waves / wave wall): {busy / (sum(walls) * 1e3):.3f}")
+
+    # 5. small mixed cluster: card vs CPU plain path
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
+
+    cases = [(mixed_spec(7, 64, 120), pa) for pa in (
+        None, {"NodeResourcesFit": {"strategy": "MostAllocated"}},
+        {"NodeResourcesFit": {"strategy": "RequestedToCapacityRatio",
+                              "shape": [[0, 100], [50, 20], [100, 0]]}})]
+    # 16 nodes: one partly used ballot word; 300 and 1500 nodes: 512- and
+    # 2048-row buckets (the latter two 1024-node rounds with a ragged tail)
+    cases += [(mixed_spec(9, 16, 40), None), (mixed_spec(10, 300, 200), None),
+              (mixed_spec(8, 1500, 240), None)]
+    # a repeated RTC breakpoint and fit weights over an extended resource
+    cases.append((mixed_spec(11, 64, 120), {"NodeResourcesFit": {
+        "strategy": "RequestedToCapacityRatio",
+        "shape": [[0, 100], [40, 60], [40, 30], [100, 0]],
+        "resources": {"cpu": 1, "memory": 2, "example.com/dev": 3}}}))
+    for spec, pa in cases:
+        results = []
+        for device in ("cuda", "cpu"):
+            c = Cache(ResourceNames())
+            for n in build_nodes(spec, types, meta):
+                c.add_node(n)
+            s = Snapshot()
+            c.update_snapshot(s)
+            b = TorchBackend(c.names, plugin_args=pa, device=device)
+            # the 16-node case runs without an rng: 16 zero words, first
+            # max-score node, reads clamped past the stream
+            r = None if len(spec["nodes"]) == 16 else random.Random(3)
+            got_all = []
+            pods = build_pods(spec, types, meta)
+            for w in range(0, len(pods), 24):
+                wave = pods[w: w + 24]
+                got, _ = b.run_batched(wave, s, rng=r, pad_to=32)
+                for pod, node in zip(wave, got):
+                    if node is not None:
+                        c.assume_pod(pod, node)
+                c.update_snapshot(s)
+                got_all += got
+            results.append((got_all, r and r.getstate()))
+        if results[0] != results[1]:
+            fail(f"mixed cluster ({len(spec['nodes'])} nodes, {pa}): card and "
+                 "CPU plain path disagree")
+    print("mixed clusters: card == CPU plain path (64 nodes x 4 scoring "
+          "configs; 16 nodes without an rng; 300 and 1500 nodes)")
+
+    print(json.dumps({"kernels": rows_out}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,225 @@
+"""Core API object types: the Pod and Node subset the wave path schedules.
+
+Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
+Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
+subset is modeled; everything is a plain dataclass.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Mapping
+
+from .labels import LabelSelector, Requirement
+from .meta import ObjectMeta
+
+MAX_NODE_SCORE = 100  # staging/.../framework/interface.go MaxNodeScore
+
+# Taint effects
+NO_SCHEDULE = "NoSchedule"
+PREFER_NO_SCHEDULE = "PreferNoSchedule"
+NO_EXECUTE = "NoExecute"
+
+# TopologySpread whenUnsatisfiable
+DO_NOT_SCHEDULE = "DoNotSchedule"
+SCHEDULE_ANYWAY = "ScheduleAnyway"
+
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+
+
+# --- node selectors / affinity -------------------------------------------
+
+
+@dataclass(frozen=True)
+class NodeSelectorRequirement:
+    key: str
+    operator: str
+    values: tuple[str, ...] = ()
+
+    def matches(self, labels: Mapping[str, str]) -> bool:
+        return Requirement(self.key, self.operator, tuple(self.values)).matches(labels)
+
+
+@dataclass(frozen=True)
+class NodeSelectorTerm:
+    match_expressions: tuple[NodeSelectorRequirement, ...] = ()
+    match_fields: tuple[NodeSelectorRequirement, ...] = ()
+
+    def matches(self, node_labels: Mapping[str, str], node_fields: Mapping[str, str]) -> bool:
+        return all(r.matches(node_labels) for r in self.match_expressions) and all(
+            r.matches(node_fields) for r in self.match_fields
+        )
+
+
+@dataclass(frozen=True)
+class NodeSelector:
+    """OR of terms (each term an AND). Empty term list matches nothing."""
+
+    terms: tuple[NodeSelectorTerm, ...] = ()
+
+    def matches(self, node_labels: Mapping[str, str], node_fields: Mapping[str, str]) -> bool:
+        return any(t.matches(node_labels, node_fields) for t in self.terms)
+
+
+@dataclass(frozen=True)
+class PreferredSchedulingTerm:
+    weight: int
+    preference: NodeSelectorTerm
+
+
+@dataclass(frozen=True)
+class NodeAffinity:
+    required: NodeSelector | None = None
+    preferred: tuple[PreferredSchedulingTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class PodAffinityTerm:
+    label_selector: LabelSelector | None = None
+    topology_key: str = ""
+    namespaces: tuple[str, ...] = ()  # empty -> pod's own namespace
+
+
+@dataclass(frozen=True)
+class WeightedPodAffinityTerm:
+    weight: int
+    term: PodAffinityTerm
+
+
+@dataclass(frozen=True)
+class PodAffinity:
+    required: tuple[PodAffinityTerm, ...] = ()
+    preferred: tuple[WeightedPodAffinityTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class PodAntiAffinity:
+    required: tuple[PodAffinityTerm, ...] = ()
+    preferred: tuple[WeightedPodAffinityTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class Affinity:
+    node_affinity: NodeAffinity | None = None
+    pod_affinity: PodAffinity | None = None
+    pod_anti_affinity: PodAntiAffinity | None = None
+
+
+# --- taints / tolerations -------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Taint:
+    key: str
+    value: str = ""
+    effect: str = NO_SCHEDULE
+
+
+@dataclass(frozen=True)
+class Toleration:
+    key: str = ""  # empty key + Exists tolerates everything
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""  # empty -> all effects
+
+    def tolerates(self, taint: Taint) -> bool:
+        """Reference: component-helpers/scheduling/corev1 Toleration.ToleratesTaint."""
+        if self.effect and self.effect != taint.effect:
+            return False
+        if self.key and self.key != taint.key:
+            return False
+        if self.operator == "Exists":
+            return True
+        return self.value == taint.value
+
+
+# --- topology spread ------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TopologySpreadConstraint:
+    max_skew: int
+    topology_key: str
+    when_unsatisfiable: str  # DoNotSchedule | ScheduleAnyway
+    label_selector: LabelSelector | None = None
+    min_domains: int | None = None
+
+
+# --- containers / pod -----------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ContainerPort:
+    container_port: int
+    host_port: int = 0
+    protocol: str = "TCP"
+    host_ip: str = ""
+
+
+@dataclass
+class Container:
+    name: str = "c"
+    image: str = ""
+    requests: dict[str, object] = field(default_factory=dict)
+    ports: tuple[ContainerPort, ...] = ()
+
+
+@dataclass
+class PodSpec:
+    node_name: str = ""
+    scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    containers: list[Container] = field(default_factory=list)
+    init_containers: list[Container] = field(default_factory=list)
+    overhead: dict[str, object] = field(default_factory=dict)
+    node_selector: dict[str, str] = field(default_factory=dict)
+    affinity: Affinity | None = None
+    tolerations: tuple[Toleration, ...] = ()
+    topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
+    priority: int = 0
+
+
+@dataclass
+class Pod:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+    kind = "Pod"
+
+    @property
+    def is_scheduled(self) -> bool:
+        return bool(self.spec.node_name)
+
+    @property
+    def is_terminating(self) -> bool:
+        return self.meta.deletion_timestamp is not None
+
+
+# --- node -----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ContainerImage:
+    names: tuple[str, ...]
+    size_bytes: int
+
+
+@dataclass
+class NodeSpec:
+    unschedulable: bool = False
+    taints: tuple[Taint, ...] = ()
+
+
+@dataclass
+class NodeStatus:
+    capacity: dict[str, object] = field(default_factory=dict)
+    allocatable: dict[str, object] = field(default_factory=dict)
+    images: list[ContainerImage] = field(default_factory=list)
+
+
+@dataclass
+class Node:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NodeSpec = field(default_factory=NodeSpec)
+    status: NodeStatus = field(default_factory=NodeStatus)
+
+    kind = "Node"

@@ -1,0 +1,76 @@
+// Shared helpers and parameter blocks for the wave-path kernels.
+//
+// Every struct here has a ctypes twin in kubernetes_tpu_torch/ops/cuda.py
+// with the same field order; all scalars are int32 and all arrays fixed
+// size, so the two layouts agree without padding rules.
+//
+// Numerics (the bit-exact contract with the reference package):
+// - integer division is FLOOR division (jnp `//`); C/CUDA `/` truncates, so
+//   every division goes through floordiv() below;
+// - float32 lines use the explicitly rounded intrinsics (__fadd_rn,
+//   __fmul_rn, __fdiv_rn, __fsqrt_rn) and the build passes -fmad=false, so
+//   no a*b+c is contracted into an FMA and every op rounds as numpy/XLA do.
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define MAX_NODE_SCORE 100
+#define MAX_TIE_DRAWS 16
+
+__host__ __device__ inline int floordiv(int a, int b) {
+    int q = a / b;
+    int r = a % b;
+    return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__host__ __device__ inline int clampi(int x, int lo, int hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// K1 static_parts: dims + packed-feature column offsets
+struct StaticParams {
+    int P, Nb, T, Tp, W, I, A, G, F;
+    int f_tol_unsched, f_name_idx, f_aff_pin, f_tol, f_aff_sig, f_ports,
+        f_has_ports, f_tol_prefer, f_img_idx, f_num_containers;
+};
+
+#define SCAN_MAX_FIT 8
+#define SCAN_MAX_RTC 16
+#define SCAN_MAX_KEYS 16
+#define SCAN_MAX_SOFT 4
+#define SCAN_MAX_DOM 1024
+
+// K2 assign_scan: dims, feature offsets and the static KernelConfig
+struct ScanParams {
+    int P, Nb, R, K, S, F, MC, L, cursor0;
+    int f_req, f_nz_req, f_soft_active, f_soft_key, f_soft_sel, f_sig_match,
+        f_active;
+    int strategy;  // 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio
+    int n_fit;
+    int fit_col[SCAN_MAX_FIT];
+    int fit_w[SCAN_MAX_FIT];
+    int n_rtc;
+    int rtc_x[SCAN_MAX_RTC];
+    int rtc_y[SCAN_MAX_RTC];
+    int bal_a, bal_b;
+    int w_fit, w_bal, w_pts, w_img, w_taint, w_aff;
+    int n_soft;  // constraint slots traced (min(max_constraints, cfg.n_soft))
+    int topo_dk[SCAN_MAX_KEYS];
+};
+
+#define SCATTER_MAX_PLANES 16
+
+// K3 scatter_rows: one entry per plane
+struct ScatterParams {
+    int n_planes, n_rows;
+    int row_bytes[SCATTER_MAX_PLANES];
+    int dst_rows[SCATTER_MAX_PLANES];
+    long long dst[SCATTER_MAX_PLANES];
+    long long src[SCATTER_MAX_PLANES];
+};
+
+extern "C" const char* kernel_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
