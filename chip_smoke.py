@@ -1,6 +1,6 @@
 """Smoke run of kubernetes_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py            # full SchedulingBasic, as the check runs it
+    python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
 1. build the three CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
@@ -19,6 +19,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    of 16 to 1500 nodes (taints, affinity, images, ports, explicit spread,
    an extended resource, three scoring strategies): equal bindings and
    equal final rng state;
+6. the single-pod cycle at full width: scheduler_perf
+   TopologySpreading/5000Nodes_5000Pods in a fresh Cache — 5000 initial
+   pods through run_batched in waves, then 5000 app: spread pods (one
+   DoNotSchedule zone constraint) one at a time through
+   TorchSchedulingAlgorithm.schedule_pod (K4 + K3) with an assume and a
+   snapshot update after each; every pod must land, K4 must launch once
+   per measured pod, and the zone skew must end <= 1;
+7. K4 against its plain version on the card at full width, exact equality
+   of every output array, on a TopologySpreading pod, a SchedulingBasic
+   pod, pods with every IPA term kind on a mixed 5000-node cluster with
+   existing (anti)affinity pods, a pod that fits nowhere, and three pods
+   in one launch; then K4 and its plain version timed;
+8. the card against the CPU plain path through schedule_pod on mixed
+   clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
+   equal final rng state, equal FitError messages;
 then print the card, the timings, the kernels line and the result line.
 
 It imports nothing of the reference JAX package and never imports jax.
@@ -107,6 +122,14 @@ def main() -> None:
     ap.add_argument("--pods", type=int, default=10000)
     ap.add_argument("--wave", type=int, default=512)
     ap.add_argument("--seed", type=int, default=1)
+    # phases 6-8: TopologySpreading/5000Nodes_5000Pods, the K4 compare
+    # cluster, and how many card-vs-CPU cycle clusters (16, 64, 300, 1500)
+    ap.add_argument("--spread-nodes", type=int, default=5000)
+    ap.add_argument("--spread-init", type=int, default=5000)
+    ap.add_argument("--spread-pods", type=int, default=5000)
+    ap.add_argument("--ipa-nodes", type=int, default=5000)
+    ap.add_argument("--ipa-existing", type=int, default=2000)
+    ap.add_argument("--cycle-cases", type=int, default=4)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -115,7 +138,7 @@ def main() -> None:
     from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.ops import cuda, kernels
     from kubernetes_tpu_torch.ops.planes import (
-        features_from_reference, pad_features, planes_from_reference,
+        SLICE_PLANES, features_from_reference, pad_features, planes_from_reference,
         stack_features, unpack_features)
     from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
     from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend, clone_tie_words
@@ -180,8 +203,8 @@ def main() -> None:
     phases = {k: v - phase0[k] for k, v in backend.phase_s.items()}
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("static_parts", "assign_scan", "scatter_rows"):
+        if launches[k] <= 0:
             fail(f"kernel {k} never launched on the main path")
     placed = cache.pod_count()
     if placed != args.init_pods + args.pods:
@@ -265,10 +288,10 @@ def main() -> None:
     planes = backend.sync(snap)
     idx_np = np.array(sorted(set(winners.tolist())), np.int32)
     host = planes.as_dict()
-    rows = planes_from_reference({k: host[k][idx_np] for k in dev_planes}, "cuda")
+    rows = planes_from_reference({k: host[k][idx_np] for k in SLICE_PLANES}, "cuda")
     idx = torch.from_numpy(idx_np).cuda()
-    k3 = {k: t.clone() for k, t in dev_planes.items()}
-    k3_ref = {k: t.clone() for k, t in dev_planes.items()}
+    k3 = {k: dev_planes[k].clone() for k in SLICE_PLANES}
+    k3_ref = {k: dev_planes[k].clone() for k in SLICE_PLANES}
     kernels.scatter_rows(k3, rows, idx)
     kernels.scatter_rows_ref(k3_ref, rows, idx)
     torch.cuda.synchronize()
@@ -308,6 +331,13 @@ def main() -> None:
     ms1 = dev_ms["static_parts"] if dev_ms["static_parts"] is not None else ms1
     ms2 = dev_ms["assign_scan"] if dev_ms["assign_scan"] is not None else ms2
     ms3 = dev_ms["scatter_rows"] if dev_ms["scatter_rows"] is not None else ms3
+    # K3 as the single-pod cycle launches it: one dirty row of every plane
+    rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
+    ms3_row = kernel_ms(lambda: kernels.scatter_rows(k3, rows1, idx1),
+                        "scatter_rows_kernel", 50)
+    if ms3_row is None:
+        ms3_row = time_ms(lambda: kernels.scatter_rows(k3, rows1, idx1), 50)
+    print(f"scatter_rows on one dirty row: {ms3_row:.5f} ms")
 
     P, nb = args.wave, planes.nb
     active = int(f_views["active"].sum())
@@ -388,11 +418,349 @@ def main() -> None:
     print("mixed clusters: card == CPU plain path (64 nodes x 4 scoring "
           "configs; 16 nodes without an rng; 300 and 1500 nodes)")
 
+    # 6-8. the single-pod cycle (K4)
+    launches6, state6 = topology_spreading(args)
+    k4 = k4_against_plain(args, state6)
+    cycle_card_vs_cpu(args)
+    rows_out.append({"name": "fit_and_score", "route": "cuda",
+                     "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
+                     "replaces": "kubernetes_tpu/ops/kernels.py:754",
+                     "launches": launches6["fit_and_score"], **k4})
+    print(f"device busy share of the measured single-pod cycle ((K4 + one-row K3 "
+          f"kernel time) x pods / wall): "
+          f"{(k4['ms'] + ms3_row) * args.spread_pods / (state6['wall_s'] * 1e3):.4f}")
+
     print(json.dumps({"kernels": rows_out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# --------------------------------------------------------------------------
+# 6-8: the single-pod scheduling cycle
+# --------------------------------------------------------------------------
+
+
+def topology_spreading(args):
+    """6. scheduler_perf TopologySpreading/5000Nodes_5000Pods in a fresh
+    Cache: the initial pods through run_batched in waves (K1-K3), the
+    measured app: spread pods one at a time through schedule_pod (K4, K3),
+    assuming each and updating the snapshot as the scheduling loop does.
+    Returns (the path's launch counts, state for phase 7)."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import CycleState
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.testing.wrappers import (
+        scheduling_basic_node, scheduling_basic_pod, topology_spreading_pod)
+
+    t0 = time.perf_counter()
+    names = ResourceNames()
+    cache = Cache(names)
+    for i in range(args.spread_nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(names, device="cuda")
+    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+    print(f"TopologySpreading: {args.spread_nodes} nodes, {args.zones} zones, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    init = [scheduling_basic_pod(i) for i in range(args.spread_init)]
+    measured = [topology_spreading_pod(i) for i in range(args.spread_pods)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for w in range(0, len(init), args.wave):
+        wave = init[w: w + args.wave]
+        got, _ = backend.run_batched(wave, snap, rng=algo.rng, pad_to=args.wave)
+        for pod, node in zip(wave, got):
+            if node is None:
+                fail(f"initial pod {pod.meta.name} was not placed")
+            cache.assume_pod(pod, node)
+        cache.update_snapshot(snap)
+    t1 = time.perf_counter()
+    run0 = dict(backend.run_phase_s)
+    sched_s = assume_s = 0.0
+    for pod in measured:
+        a = time.perf_counter()
+        res = algo.schedule_pod(CycleState(), pod, snap)  # a FitError exits
+        b = time.perf_counter()
+        cache.assume_pod(pod, res.suggested_host)
+        cache.update_snapshot(snap)
+        sched_s += b - a
+        assume_s += time.perf_counter() - b
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the single-pod path: {launches}")
+    if launches["fit_and_score"] != args.spread_pods:
+        fail(f"fit_and_score launched {launches['fit_and_score']} times for "
+             f"{args.spread_pods} measured pods")
+    if launches["scatter_rows"] < 1:
+        fail("scatter_rows never launched on the single-pod path")
+    if cache.pod_count() != args.spread_init + args.spread_pods:
+        fail(f"{cache.pod_count()} pods in the cache")
+    per_zone = [0] * args.zones
+    for pod in measured:
+        node = cache._pod_nodes[pod.meta.key]
+        per_zone[int(node.split("-")[1]) % args.zones] += 1
+    print(f"app: spread pods per zone: {per_zone}")
+    if max(per_zone) - min(per_zone) > 1:
+        fail(f"zone skew {max(per_zone) - min(per_zone)} > 1")
+    wall = t2 - t1
+    phases = {k: v - run0[k] for k, v in backend.run_phase_s.items()}
+    print(f"single-pod path: {args.spread_init} initial pods in {t1 - t0:.3f} s "
+          f"(run_batched); {args.spread_pods} measured pods in {wall:.3f} s = "
+          f"{args.spread_pods / wall:.1f} pods/s incl. assume + snapshot "
+          f"(upstream threshold 85); schedule_pod alone {sched_s:.3f} s = "
+          f"{args.spread_pods / sched_s:.1f} pods/s")
+    print("measured pods, host-clock seconds by run phase: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+          + f"; schedule_pod outside run {sched_s - sum(phases.values()):.4f}"
+          + f"; assume + snapshot {assume_s:.4f}")
+    print("ms per measured pod: "
+          + ", ".join(f"{k} {v * 1e3 / args.spread_pods:.4f}" for k, v in phases.items())
+          + f", assume + snapshot {assume_s * 1e3 / args.spread_pods:.4f}")
+    print(f"upload: {backend.upload_stats}")
+    return launches, {"snap": snap, "backend": backend, "wall_s": wall}
+
+
+def _k4_case(backend, pods, snap):
+    """K4's inputs for a list of pods (one block each) on the backend's
+    current state."""
+    from kubernetes_tpu_torch.ops.planes import features_from_reference, stack_features
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = stack_features([backend.extractor.features(pod, planes) for pod in pods])
+    dev_planes, dev_tables = backend.device_inputs(planes)
+    cfg = backend.kernel_config(planes, feats)
+    packed_f, layout = features_from_reference(feats, "cuda")
+    return cfg, planes, dev_planes, dev_tables, packed_f, layout
+
+
+def _k4_compare(label, backend, pods, snap):
+    """Run K4 once for `pods` and its plain version for each pod on the
+    card on the same inputs; every output array must be equal. Returns
+    (max |kernel - plain|, feasible count of the first pod, inputs)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    case = _k4_case(backend, pods, snap)
+    cfg, planes, dev_planes, dev_tables, packed_f, layout = case
+    logtab = backend._logtab
+    nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
+    packed = kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout, logtab)
+    f_views = unpack_features(packed_f, layout)
+    err, feasible = 0.0, []
+    names = ["fails", "feasible", "insufficient", "too_many_pods", "total"]
+    for p in range(len(pods)):
+        got = kernels.unpack_fit_outputs(packed[p], planes.nb, nf, planes.r)
+        want = kernels.fit_and_score_ref(cfg, dev_planes, dev_tables, f_views, logtab, p)
+        torch.cuda.synchronize()
+        pairs = [(got[k], want[k]) for k in names]
+        pairs += [(got["per_plugin"][k], want["per_plugin"][k]) for k in kernels.PLUGIN_NAMES]
+        for (a, b), name in zip(pairs, names + list(kernels.PLUGIN_NAMES)):
+            if not torch.equal(a, b):
+                fail(f"fit_and_score {name} differs from its plain version ({label}, "
+                     f"pod {p})")
+        err = max(err, max_abs_err(pairs))
+        feasible.append(int(got["feasible"].sum()))
+    print(f"K4 == plain ({label}): {planes.n} nodes, feasible {feasible}, "
+          f"n_hard {cfg.n_hard} n_soft {cfg.n_soft} ipa aff/anti/pref "
+          f"{cfg.n_ipa_aff}/{cfg.n_ipa_anti}/{cfg.n_ipa_pref} existing anti/pref "
+          f"{int(cfg.ipa_existing_anti)}/{int(cfg.ipa_existing_pref)}")
+    return err, feasible[0], case
+
+
+def k4_work(cfg, planes, tables, f, packed_f, out_bytes):
+    """(bytes, float32 operations) K4 must spend on the first pod of `f`,
+    from what fit_and_score.cu reads for this pod and config: every element
+    it reads once and its packed output written once. Row planes count only
+    the columns the pod's active slots index (domain keys, selector
+    columns, IPA term columns); the port words, image columns, the existing
+    pods' term planes and the log table only when their gates are on; the
+    affinity tables only the pod's signature row. Operations: the balanced
+    score (~11) and 2 per active soft slot, per node row."""
+    nb = planes["valid"].shape[0]
+    K = planes["domain"].shape[1]
+    A, G = tables["aff_match"].shape
+    v = {k: t[0].tolist() for k, t in f.items()}
+    tkey = planes["ipa_term_key"].tolist()
+    col = nb * 4  # one int32 column of a row plane
+    b = nbytes(*(planes[k] for k in ("alloc", "used", "nonzero_used", "valid", "unsched",
+                                     "group_id", "taints", "prefer_taints", "ipa_term_key")))
+    b += packed_f[0].numel() * 4 + out_bytes
+    b += nb + G + 4 * G + 1  # aff_allow, aff_match and aff_pref rows, aff_has_pref
+    keys, sels, terms, n_soft_on = set(), set(), set(), 0
+    for kind, n in (("hard", cfg.n_hard), ("soft", cfg.n_soft)):
+        for c in range(min(cfg.max_constraints, n)):
+            if not v[f"{kind}_active"][c]:
+                continue
+            n_soft_on += kind == "soft"
+            if 0 <= v[f"{kind}_key"][c] < K:
+                keys.add(v[f"{kind}_key"][c])
+                sels.add(v[f"{kind}_sel"][c])
+    for kind, m, n in (("anti", cfg.max_ipa_terms, cfg.n_ipa_anti),
+                       ("aff", cfg.max_ipa_terms, cfg.n_ipa_aff),
+                       ("pref", cfg.max_ipa_pref, cfg.n_ipa_pref)):
+        for s in range(min(m, n)):
+            t = v[f"ipa_{kind}_t"][s]
+            if t >= 0 and 0 <= tkey[t] < K:
+                keys.add(tkey[t])
+                terms.add(t)
+    matched = [t for t, on in enumerate(v["ipa_match"]) if on and 0 <= tkey[t] < K]
+    ex_pref_add = cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing
+    for on in (cfg.ipa_existing_anti, ex_pref_add):
+        if on:
+            keys |= {tkey[t] for t in matched}
+            b += len(matched) * col  # ipa_anti / ipa_pref columns
+    b += (len(keys) + len(sels) + len(terms)) * col  # domain, sel_counts, ipa_counts
+    b += len({i for i in v["img_idx"] if i >= 0}) * col  # image_kib
+    if v["has_ports"]:
+        b += nbytes(planes["port_words"])
+    b += 4 * n_soft_on  # logtab
+    return b, nb * (11 + 2 * n_soft_on)
+
+
+def k4_against_plain(args, state):
+    """7. K4 against its plain version on the card at full width, exact
+    equality of every output: (a) a TopologySpreading measured pod on the
+    final state, (b) a SchedulingBasic pod (system-default soft spread),
+    (c) pods with every IPA term kind on a mixed cluster with existing
+    (anti)affinity pods, taints, ports and images, (d) a pod that fits
+    nowhere, (e) three of them in one launch (one block per pod). Then K4
+    and its plain version timed on (a)'s inputs."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
+    from kubernetes_tpu_torch.testing.wrappers import (
+        make_pod, scheduling_basic_pod, topology_spreading_pod)
+
+    backend, snap = state["backend"], state["snap"]
+    err, n_feas, case_a = _k4_compare("a: TopologySpreading pod", backend,
+                                      [topology_spreading_pod(10**6)], snap)
+    if n_feas == 0:
+        fail("the TopologySpreading compare pod fits nowhere")
+    e, _, _ = _k4_compare("b: SchedulingBasic pod", backend,
+                          [scheduling_basic_pod(10**6)], snap)
+    err = max(err, e)
+    e, n_feas, _ = _k4_compare("d: fits nowhere", backend,
+                               [make_pod("huge", cpu="100000", mem="50Mi")], snap)
+    if n_feas:
+        fail("the fits-nowhere pod found a node")
+    err = max(err, e)
+    # the pod grid dimension: three pods, one block each, one launch
+    e, _, _ = _k4_compare("e: three pods in one launch", backend,
+                          [topology_spreading_pod(10**6 + 1), scheduling_basic_pod(10**6 + 1),
+                           make_pod("huge2", cpu="100000", mem="50Mi")], snap)
+    err = max(err, e)
+
+    # (c) a mixed cluster at full width with existing (anti)affinity pods
+    t0 = time.perf_counter()
+    spec = mixed_spec(args.seed + 40, args.ipa_nodes, args.ipa_existing + 64,
+                      constraints=True)
+    cache = Cache(ResourceNames())
+    nodes = build_nodes(spec, types, meta)
+    for n in nodes:
+        cache.add_node(n)
+    pods = build_pods(spec, types, meta)
+    mixed = TorchBackend(cache.names, device="cuda")
+    for i, pod in enumerate(pods[: args.ipa_existing]):
+        mixed.extractor.register(pod)
+        cache.assume_pod(pod, nodes[(7 * i) % len(nodes)].meta.name)
+    msnap = Snapshot()
+    cache.update_snapshot(msnap)
+    kinds = set()
+    for pod in pods[args.ipa_existing:]:
+        s = spec["pods"][int(pod.meta.name[1:])]
+        k = {kind for kind in ("aff", "anti", "pref", "hard") if s[kind]}
+        if not k - kinds:
+            continue
+        kinds |= k
+        e, _, _ = _k4_compare(f"c: mixed {sorted(k)}", mixed, [pod], msnap)
+        err = max(err, e)
+    if not {"aff", "anti", "pref", "hard"} <= kinds:
+        fail(f"the mixed compare pods lack IPA/spread kinds: {kinds}")
+    print(f"mixed K4 compare cluster: {args.ipa_nodes} nodes, {args.ipa_existing} "
+          f"existing pods, {time.perf_counter() - t0:.1f} s")
+
+    # timings on (a)'s inputs: the main path's shape
+    cfg, planes, dev_planes, dev_tables, packed_f, layout = case_a
+    logtab = backend._logtab
+    f_views = unpack_features(packed_f, layout)
+    ms = time_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
+                                               layout, logtab), 50)
+    ms_p = time_ms(lambda: kernels.fit_and_score_ref(cfg, dev_planes, dev_tables,
+                                                     f_views, logtab), 10)
+    dev = kernel_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
+                                                  layout, logtab),
+                    "fit_and_score_kernel", 50)
+    print(f"fit_and_score: event ms around the wrapper {ms:.4f}, profiler kernel ms "
+          f"{dev}, plain {ms_p:.3f} ms")
+    nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
+    out_bytes = kernels.fit_output_bytes(planes.nb, nf, planes.r)[1]
+    b4, f4 = k4_work(cfg, dev_planes, dev_tables, f_views, packed_f, out_bytes)
+    bd, by = bound_ms(b4, f4)
+    ms_k = dev if dev is not None else ms
+    print(f"fit_and_score: {ms_k:.4f} ms (plain {ms_p:.3f} ms, bound {bd:.5f} ms by "
+          f"{by}, {b4} bytes)")
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bd,
+            "bound_by": by, "library_ms": None}
+
+
+def cycle_card_vs_cpu(args):
+    """8. The card against the CPU plain path through schedule_pod on mixed
+    clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
+    equal evaluated/feasible counts, equal final rng state, equal FitError
+    messages and failing plugins."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import CycleState, FitError
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
+
+    cases = [(16, 48), (64, 96), (300, 96), (1500, 96)]
+    for n_nodes, n_pods in cases[: args.cycle_cases]:
+        spec = mixed_spec(args.seed + n_nodes, n_nodes, n_pods, constraints=True)
+        results = []
+        for device in ("cuda", "cpu"):
+            cache = Cache(ResourceNames())
+            for n in build_nodes(spec, types, meta):
+                cache.add_node(n)
+            snap = Snapshot()
+            cache.update_snapshot(snap)
+            algo = TorchSchedulingAlgorithm(TorchBackend(cache.names, device=device),
+                                            rng=random.Random(5))
+            got = []
+            for pod in build_pods(spec, types, meta):
+                try:
+                    r = algo.schedule_pod(CycleState(), pod, snap)
+                except FitError as e:
+                    got.append(("FitError", e.error_message(),
+                                sorted(e.diagnosis.unschedulable_plugins)))
+                    continue
+                got.append((r.suggested_host, r.evaluated_nodes, r.feasible_nodes))
+                cache.assume_pod(pod, r.suggested_host)
+                cache.update_snapshot(snap)
+            results.append((got, algo.rng.getstate()))
+        if results[0] != results[1]:
+            fail(f"single-pod cycle, mixed {n_nodes} nodes: card and CPU plain "
+                 "path disagree")
+        errs = sum(1 for g in results[0][0] if g[0] == "FitError")
+        print(f"single-pod cycle, mixed {n_nodes} nodes, {n_pods} pods: card == CPU "
+              f"plain path ({n_pods - errs} placed, {errs} FitErrors)")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Core API object types: the Pod and Node subset the wave path schedules.
+"""Core API object types: the Pod and Node subset the port schedules.
 
 Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
 Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
@@ -179,9 +179,18 @@ class PodSpec:
 
 
 @dataclass
+class PodStatus:
+    """The part of core/v1 PodStatus the scheduling cycle reads: the node a
+    preemption nominated for the pod."""
+
+    nominated_node_name: str = ""
+
+
+@dataclass
 class Pod:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     spec: PodSpec = field(default_factory=PodSpec)
+    status: PodStatus = field(default_factory=PodStatus)
 
     kind = "Pod"
 

@@ -24,119 +24,14 @@
 // ballots in shared memory, and lets warp 0 do the prefix count, the
 // 16-word draw (one word per lane) and the winner's row update. The carry
 // planes are updated in place in device memory (copies the wrapper makes).
-#include "common.cuh"
+#include "scoring.cuh"
 
 #define NT 1024
 #define NWARPS (NT / 32)
-#define FULL 0xffffffffu
+#define FULL FULL_MASK
 
 // slots of the per-step block reduction
 #define RED_SLOTS 8
-
-// Reduce RED_SLOTS ints over the block: slot i takes the max when bit i of
-// maxmask is set, else the sum. Every thread gets the results in v.
-__device__ __forceinline__ void block_reduce(int (&v)[RED_SLOTS],
-                                             unsigned maxmask,
-                                             int (*red)[RED_SLOTS],
-                                             int* res) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < RED_SLOTS; ++i) {
-        const bool mx = (maxmask >> i) & 1u;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const int o = __shfl_xor_sync(FULL, v[i], off);
-            v[i] = mx ? max(v[i], o) : v[i] + o;
-        }
-    }
-    if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < RED_SLOTS; ++i) red[wid][i] = v[i];
-    }
-    __syncthreads();
-    if (wid == 0) {
-#pragma unroll
-        for (int i = 0; i < RED_SLOTS; ++i) {
-            const bool mx = (maxmask >> i) & 1u;
-            int x = red[lane][i];  // NWARPS == 32: every lane holds a warp
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                const int o = __shfl_xor_sync(FULL, x, off);
-                x = mx ? max(x, o) : x + o;
-            }
-            if (lane == 0) res[i] = x;
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RED_SLOTS; ++i) v[i] = res[i];
-}
-
-__device__ __forceinline__ int requested_for(const ScanParams& p, int col,
-                                             const int* used_row,
-                                             const int* nz_row,
-                                             const int* f) {
-    if (col == 0) return nz_row[0] + f[p.f_nz_req + 0];
-    if (col == 1) return nz_row[1] + f[p.f_nz_req + 1];
-    return used_row[col] + f[p.f_req + col];
-}
-
-__device__ __forceinline__ int strategy_score(const ScanParams& p,
-                                              int requested, int capacity) {
-    const int cap = max(capacity, 1);
-    if (p.strategy == 0) return floordiv((cap - requested) * MAX_NODE_SCORE, cap);
-    if (p.strategy == 1) return floordiv(requested * MAX_NODE_SCORE, cap);
-    // RequestedToCapacityRatio: the first segment whose right end covers
-    // util, else the last score; util at or below the first x takes y0
-    const int util = floordiv(requested * 100, cap);
-    int out = p.rtc_y[p.n_rtc - 1];
-    for (int i = 0; i + 1 < p.n_rtc; ++i) {
-        const int x0 = p.rtc_x[i], y0 = p.rtc_y[i];
-        const int x1 = p.rtc_x[i + 1], y1 = p.rtc_y[i + 1];
-        if (util <= x1) {
-            out = (x1 == x0) ? y1 : y0 + floordiv((y1 - y0) * (util - x0), x1 - x0);
-            break;
-        }
-    }
-    return util <= p.rtc_x[0] ? p.rtc_y[0] : out;
-}
-
-// NodeResourcesFit score * weight + BalancedAllocation score * weight
-__device__ __forceinline__ int fit_balanced(const ScanParams& p,
-                                            const int* alloc_row,
-                                            const int* used_row,
-                                            const int* nz_row, const int* f) {
-    int total = 0, tw = 0;
-    for (int i = 0; i < p.n_fit; ++i) {
-        const int col = p.fit_col[i], w = p.fit_w[i];
-        const int a = alloc_row[col];
-        if (a > 0) {
-            const int req = min(requested_for(p, col, used_row, nz_row, f), a);
-            total += strategy_score(p, req, a) * w;
-            tw += w;
-        }
-    }
-    const int fit = tw > 0 ? floordiv(total, max(tw, 1)) : 0;
-
-    // balanced_allocation.go:204-230 in float32, every op rounded as numpy
-    const int aa = alloc_row[p.bal_a], ab = alloc_row[p.bal_b];
-    const float fa = fminf(
-        __fdiv_rn(__int2float_rn(requested_for(p, p.bal_a, used_row, nz_row, f)),
-                  __int2float_rn(max(aa, 1))),
-        1.0f);
-    const float fb = fminf(
-        __fdiv_rn(__int2float_rn(requested_for(p, p.bal_b, used_row, nz_row, f)),
-                  __int2float_rn(max(ab, 1))),
-        1.0f);
-    const float mean = __fdiv_rn(__fadd_rn(fa, fb), 2.0f);
-    const float da = __fsub_rn(fa, mean), db = __fsub_rn(fb, mean);
-    const float var = __fdiv_rn(__fadd_rn(__fmul_rn(da, da), __fmul_rn(db, db)), 2.0f);
-    const float sd = __fsqrt_rn(var);
-    const int bal = (aa > 0 && ab > 0)
-                        ? __float2int_rz(__fmul_rn(__fsub_rn(1.0f, sd), 100.0f))
-                        : 0;
-    return fit * p.w_fit + bal * p.w_bal;
-}
 
 __global__ void __launch_bounds__(NT, 1) assign_scan_kernel(
     ScanParams p, const int* __restrict__ alloc, const int* __restrict__ domain,
@@ -198,14 +93,14 @@ __global__ void __launch_bounds__(NT, 1) assign_scan_kernel(
             bool fe = static_ok[row0 + n] != 0;
             if (fe) {
                 for (int r = 0; r < p.R; ++r) {
-                    const int req = f[p.f_req + r];
-                    if (r != 3 && req > 0 && req > a_row[r] - u_row[r]) fe = false;
+                    if (fit_insufficient(r, f[p.f_req + r], a_row[r], u_row[r])) fe = false;
                 }
-                if (u_row[3] + 1 > a_row[3]) fe = false;  // PODS column
+                if (too_many_pods(a_row, u_row)) fe = false;
             }
             feas_s[n] = fe;
             if (!fe) continue;
-            ew_s[n] = fit_balanced(p, a_row, u_row, nz_row, f);
+            ew_s[n] = fit_score(p, a_row, u_row, nz_row, f) * p.w_fit +
+                      balanced_score(p, a_row, u_row, nz_row, f) * p.w_bal;
             v[0] = max(v[0], taint_cnt[row0 + n]);
             v[1] = max(v[1], aff_raw[row0 + n]);
             v[2] += 1;
@@ -223,7 +118,7 @@ __global__ void __launch_bounds__(NT, 1) assign_scan_kernel(
                 }
             }
         }
-        block_reduce(v, 0x3u, red, res);
+        block_reduce<RED_SLOTS>(v, 0x3u, 0u, red, res);
         const int maxtc = v[0], maxaff = v[1];
         if (v[2] == 0) {  // nothing feasible: best = -1, not found
             if (tid == 0) out[pod] = -1;
@@ -259,36 +154,25 @@ __global__ void __launch_bounds__(NT, 1) assign_scan_kernel(
                 u[0] = max(u[0], raw);
                 u[1] = max(u[1], -raw);
             }
-            block_reduce(u, 0x3u, red, res);
+            block_reduce<RED_SLOTS>(u, 0x3u, 0u, red, res);
             mx = u[0];
             mn = -u[1];
         }
-        const int spread = mx - mn;
 
         // pass C: weighted total, best feasible score
         int b[RED_SLOTS] = {-1, 0, 0, 0, 0, 0, 0, 0};
         const bool has_pref = aff_has_pref[pod] != 0;
         for (int n = tid; n < p.Nb; n += NT) {
             if (!feas_s[n]) continue;
-            int pts = 0;
-            if (pts_on) {
-                pts = spread == 0
-                          ? MAX_NODE_SCORE
-                          : floordiv((mx - raw_s[n]) * MAX_NODE_SCORE, max(spread, 1));
-            }
-            const int tc = taint_cnt[row0 + n];
-            const int taint = maxtc > 0
-                                  ? MAX_NODE_SCORE - floordiv(tc * MAX_NODE_SCORE, max(maxtc, 1))
-                                  : MAX_NODE_SCORE;
-            const int ar = aff_raw[row0 + n];
-            const int aff = has_pref ? (maxaff > 0 ? floordiv(ar * MAX_NODE_SCORE, max(maxaff, 1)) : ar)
-                                     : 0;
+            const int pts = pts_on ? pts_normalized(raw_s[n], mx, mn) : 0;
+            const int taint = taint_normalized(taint_cnt[row0 + n], maxtc);
+            const int aff = has_pref ? affinity_normalized(aff_raw[row0 + n], maxaff) : 0;
             const int total = ew_s[n] + pts * p.w_pts + img[row0 + n] * p.w_img +
                               taint * p.w_taint + aff * p.w_aff;
             total_s[n] = total;
             b[0] = max(b[0], total);
         }
-        block_reduce(b, 0x1u, red, res);
+        block_reduce<RED_SLOTS>(b, 0x1u, 0u, red, res);
         const int best = b[0];
         if (best < 0) {
             if (tid == 0) out[pod] = -1;

@@ -1,4 +1,4 @@
-// Shared helpers and parameter blocks for the wave-path kernels.
+// Shared helpers and parameter blocks for the port's kernels.
 //
 // Every struct here has a ctypes twin in kubernetes_tpu_torch/ops/cuda.py
 // with the same field order; all scalars are int32 and all arrays fixed
@@ -57,6 +57,34 @@ struct ScanParams {
     int bal_a, bal_b;
     int w_fit, w_bal, w_pts, w_img, w_taint, w_aff;
     int n_soft;  // constraint slots traced (min(max_constraints, cfg.n_soft))
+    int topo_dk[SCAN_MAX_KEYS];
+};
+
+// K4 fit_and_score: dims, feature offsets, the static KernelConfig and the
+// traced slot counts (already capped by the feature widths)
+struct FitParams {
+    int P, Nb, R, K, S, T, Tp, W, I, Ta, A, G, F;
+    int MC;  // spread constraint slots per pod (feature width)
+    int NF;  // fails rows: 6 + 2 * MC + 3
+    int D;   // shared-memory words per domain table: max(1, max topo_dk)
+    int f_req, f_nz_req, f_name_idx, f_tol_unsched, f_aff_pin, f_tol,
+        f_tol_prefer, f_aff_sig, f_ports, f_has_ports, f_hard_active,
+        f_hard_key, f_hard_sel, f_hard_skew, f_hard_self, f_soft_active,
+        f_soft_key, f_soft_sel, f_img_idx, f_num_containers, f_ipa_match,
+        f_ipa_aff_t, f_ipa_aff_self, f_ipa_anti_t, f_ipa_pref_t, f_ipa_pref_w;
+    int strategy;  // 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio
+    int n_fit;
+    int fit_col[SCAN_MAX_FIT];
+    int fit_w[SCAN_MAX_FIT];
+    int n_rtc;
+    int rtc_x[SCAN_MAX_RTC];
+    int rtc_y[SCAN_MAX_RTC];
+    int bal_a, bal_b;
+    int w_fit, w_bal, w_taint, w_aff, w_pts, w_ipa, w_img;
+    int n_hard, n_soft, n_ipa_aff, n_ipa_anti, n_ipa_pref;
+    int ex_anti;      // existing pods carry required anti-affinity terms
+    int ex_pref;      // the InterPodAffinity score is computed at all
+    int ex_pref_add;  // ... and adds the existing pods' preferred terms
     int topo_dk[SCAN_MAX_KEYS];
 };
 

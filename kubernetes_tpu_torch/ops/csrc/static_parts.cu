@@ -16,7 +16,7 @@
 // one thread per (pod, node) on a 2-D grid (x = nodes, y = pods), so each
 // warp's stores are contiguous along the node axis; the plane rows a thread
 // reads are shared by every pod of the wave and hit L2 after the first.
-#include "common.cuh"
+#include "scoring.cuh"
 
 __global__ void static_parts_kernel(
     StaticParams p, const uint8_t* __restrict__ valid,
@@ -45,54 +45,22 @@ __global__ void static_parts_kernel(
     fail |= name_idx != -1 && n != name_idx;
     const int pin = f[p.f_aff_pin];
     fail |= pin != -1 && n != pin;
-    // TaintToleration filter: a NoSchedule/NoExecute taint the pod does not
-    // tolerate; ids are vocab ids < T, -1 pads
-    for (int j = 0; j < p.T; ++j) {
-        const int tid = taints[(size_t)n * p.T + j];
-        if (tid >= 0 && !f[p.f_tol + clampi(tid, 0, p.T - 1)]) fail = true;
-    }
+    // TaintToleration filter (NoSchedule/NoExecute)
+    fail |= untolerated_taint(p, taints + (size_t)n * p.T, f);
     // NodeAffinity required + nodeSelector: signature row over node groups,
     // AND the signature's node allowlist
     const int g = clampi(group_id[n], 0, p.G - 1);
     fail |= !(aff_match[(size_t)sig * p.G + g] &&
               aff_allow[(size_t)sig * p.Nb + n]);
-    // NodePorts: any used host-port bit the pod also wants
-    if (f[p.f_has_ports]) {
-        for (int j = 0; j < p.W; ++j) {
-            if (port_words[(size_t)n * p.W + j] & f[p.f_ports + j]) fail = true;
-        }
-    }
+    // NodePorts
+    fail |= ports_conflict(p, port_words + (size_t)n * p.W, f);
     const size_t o = (size_t)pod * p.Nb + n;
     static_ok[o] = valid[n] && !fail;
 
-    // TaintToleration score input: intolerable PreferNoSchedule taints
-    int cnt = 0;
-    for (int j = 0; j < p.Tp; ++j) {
-        const int tid = prefer_taints[(size_t)n * p.Tp + j];
-        if (tid >= 0 && !f[p.f_tol_prefer + clampi(tid, 0, p.Tp - 1)]) ++cnt;
-    }
-    taint_cnt[o] = cnt;
+    taint_cnt[o] = prefer_taint_count(p, prefer_taints + (size_t)n * p.Tp, f);
     // NodeAffinity preferred raw score (node_affinity.go:272)
     aff_raw[o] = aff_pref[(size_t)sig * p.G + g];
-
-    // ImageLocality (image_locality.go:93-105), totals in KiB
-    int total = 0;
-    for (int j = 0; j < 8; ++j) {
-        const int idx = f[p.f_img_idx + j];
-        if (idx >= 0) total += image_kib[(size_t)n * p.I + clampi(idx, 0, p.I - 1)];
-    }
-    const int min_kib = 23 * 1024;
-    const int max_thr = 1024 * 1024 * f[p.f_num_containers];
-    int score;
-    if (total < min_kib) {
-        score = 0;
-    } else if (total > max_thr) {
-        score = MAX_NODE_SCORE;
-    } else {
-        const int span = max(max_thr - min_kib, 1);
-        score = floordiv(MAX_NODE_SCORE * (total - min_kib), span);
-    }
-    img[o] = score;
+    img[o] = image_score(p, image_kib + (size_t)n * p.I, f);
 }
 
 // ptrs: valid, unsched, group_id, taints, prefer_taints, port_words,

@@ -1,11 +1,12 @@
-"""Build, load and launch the wave path's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel in csrc/ is compiled by nvcc into its own shared library with a
 plain C interface (no PyTorch headers: seconds, not minutes) and loaded with
 ctypes. The build happens at first use, from the sources in this checkout
 only, into `_build/` beside this file (listed in .gitignore); a library is
-named by a hash of its sources and flags, so an edited source rebuilds.
-build_all() starts one nvcc per source at once and waits for all of them.
+named by a hash of its source, every shared header in csrc/ and the flags,
+so an edited source or header rebuilds. build_all() starts one nvcc per
+source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no nvcc and no card.
@@ -23,11 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# kernel name -> source file; every source also includes common.cuh
+# kernel name -> source file; the sources include the shared headers
+# (csrc/*.cuh)
 SOURCES = {
     "static_parts": "static_parts.cu",
     "assign_scan": "assign_scan.cu",
     "scatter_rows": "scatter_rows.cu",
+    "fit_and_score": "fit_and_score.cu",
 }
 
 # -fmad=false: no a*b+c contraction (the float32 lines must round per op as
@@ -53,10 +56,13 @@ def nvcc_path() -> str:
                        "CUDA toolkit is installed")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    """The library's path, named by a hash of its source, every header in
+    csrc/ (any source may include any of them) and the flags."""
     h = hashlib.sha256()
-    for part in (SOURCES[name], "common.cuh"):
-        h.update((CSRC / part).read_bytes())
+    for part in [csrc / SOURCES[name]] + sorted(csrc.glob("*.cuh")):
+        h.update(part.name.encode())
+        h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -146,6 +152,29 @@ class ScanParams(ctypes.Structure):
         ("rtc_y", ctypes.c_int * MAX_RTC),
     ] + _ints("bal_a", "bal_b", "w_fit", "w_bal", "w_pts", "w_img",
               "w_taint", "w_aff", "n_soft") + [
+        ("topo_dk", ctypes.c_int * MAX_KEYS),
+    ]
+
+
+class FitParams(ctypes.Structure):
+    _fields_ = _ints(
+        "P", "Nb", "R", "K", "S", "T", "Tp", "W", "I", "Ta", "A", "G", "F",
+        "MC", "NF", "D",
+        "f_req", "f_nz_req", "f_name_idx", "f_tol_unsched", "f_aff_pin",
+        "f_tol", "f_tol_prefer", "f_aff_sig", "f_ports", "f_has_ports",
+        "f_hard_active", "f_hard_key", "f_hard_sel", "f_hard_skew",
+        "f_hard_self", "f_soft_active", "f_soft_key", "f_soft_sel",
+        "f_img_idx", "f_num_containers", "f_ipa_match", "f_ipa_aff_t",
+        "f_ipa_aff_self", "f_ipa_anti_t", "f_ipa_pref_t", "f_ipa_pref_w",
+        "strategy", "n_fit") + [
+        ("fit_col", ctypes.c_int * MAX_FIT),
+        ("fit_w", ctypes.c_int * MAX_FIT),
+        ("n_rtc", ctypes.c_int),
+        ("rtc_x", ctypes.c_int * MAX_RTC),
+        ("rtc_y", ctypes.c_int * MAX_RTC),
+    ] + _ints("bal_a", "bal_b", "w_fit", "w_bal", "w_taint", "w_aff", "w_pts",
+              "w_ipa", "w_img", "n_hard", "n_soft", "n_ipa_aff", "n_ipa_anti",
+              "n_ipa_pref", "ex_anti", "ex_pref", "ex_pref_add") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
     ]
 

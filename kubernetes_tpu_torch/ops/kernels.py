@@ -1,15 +1,17 @@
-"""Dense scheduling kernels of the wave path: plain PyTorch versions and the
-wrappers of their hand-written CUDA kernels.
+"""Dense scheduling kernels: plain PyTorch versions and the wrappers of
+their hand-written CUDA kernels.
 
 The reference package (kubernetes_tpu/ops/kernels.py) expresses the
 scheduler's filter and score plugins as vectorized int32/float32 arithmetic
-over the node axis and a wave of pods as a lax.scan. This module ports the
-slice the SchedulingBasic wave path runs:
+over the node axis and a wave of pods as a lax.scan. This module ports:
 
 - static_parts  (K1, csrc/static_parts.cu) — the vmapped _static_pod_parts
 - assign_scan   (K2, csrc/assign_scan.cu)  — _batched_assign_jit's scan,
   non-dedup tier, without hard spread constraints or inter-pod affinity
 - scatter_rows  (K3, csrc/scatter_rows.cu) — backend._scatter_rows_jit
+- fit_and_score (K4, csrc/fit_and_score.cu) — _fit_and_score_jit: one pod
+  against every node, every filter (hard spread and inter-pod affinity
+  included) and every score
 
 Each has a plain version beside it (`*_ref`) computing the same function
 with torch ops. A wrapper runs the plain version only when its tensors lie
@@ -56,7 +58,22 @@ _INT32_MAX = 2**31 - 1
 
 # launches of each CUDA kernel; every wrapper adds one where it launches its
 # kernel and nowhere else (reset_launches() zeroes them)
-LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0}
+LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
+            "fit_and_score": 0}
+
+# Filter mask rows (first-failure priority == host plugin order); the PTS
+# missing-key and skew rows (one per constraint slot) and the three
+# InterPodAffinity rows follow these
+FILTER_NAMES = (
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity",
+    "NodePorts", "NodeResourcesFit",
+)
+
+# per_plugin rows of fit_and_score, in the reference's summation order
+PLUGIN_NAMES = (
+    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "TaintToleration",
+    "NodeAffinity", "PodTopologySpread", "InterPodAffinity", "ImageLocality",
+)
 
 
 def reset_launches() -> None:
@@ -65,9 +82,10 @@ def reset_launches() -> None:
 
 
 class OutOfSlice(NotImplementedError):
-    """The wave asks for a kernel configuration this port does not run yet
-    (hard spread constraints, inter-pod affinity, signature dedup or
-    cross-wave reuse). Raised instead of computing an answer."""
+    """The caller asks for a configuration or a path this port does not run
+    yet (in the wave scan: hard spread constraints, inter-pod affinity,
+    signature dedup or cross-wave reuse; in the single-pod cycle: the host
+    framework's paths). Raised instead of computing an answer."""
 
 
 @dataclass(frozen=True)
@@ -117,14 +135,30 @@ class KernelConfig:
 
 
 def check_slice(cfg: KernelConfig) -> None:
-    """Raise OutOfSlice for any configuration the ported kernels do not
-    compute; everything that passes is computed bit-exactly."""
+    """The wave scan's gate (K1 + K2): raise OutOfSlice for any
+    configuration they do not compute; everything that passes is computed
+    bit-exactly."""
     if cfg.n_hard > 0:
         raise OutOfSlice(f"hard spread constraints (n_hard={cfg.n_hard})")
     if cfg.ipa_active:
         raise OutOfSlice("inter-pod affinity")
     if min(cfg.max_constraints, cfg.n_soft) > 4:
         raise OutOfSlice(f"{cfg.n_soft} soft spread constraint slots (max 4)")
+    _check_common(cfg)
+
+
+def check_fit_slice(cfg: KernelConfig) -> None:
+    """K4's gate: hard spread and inter-pod affinity are computed; raise
+    OutOfSlice only past the kernel's fixed slot and domain capacities."""
+    if cfg.max_constraints > 4:
+        raise OutOfSlice(f"{cfg.max_constraints} spread constraint slots (max 4)")
+    if cfg.max_ipa_terms > 4 or cfg.max_ipa_pref > 8:
+        raise OutOfSlice("inter-pod affinity term slots (max 4 required, "
+                         "8 preferred)")
+    _check_common(cfg)
+
+
+def _check_common(cfg: KernelConfig) -> None:
     if len(cfg.topo_domains) > 16 or any(d > 1024 for d in cfg.topo_domains):
         raise OutOfSlice(f"topology domains {cfg.topo_domains} (max 16 keys "
                          "of at most 1024 domains)")
@@ -331,7 +365,7 @@ def _fit_score(cfg, alloc, used, nz_used, req, nz_req):
         requested = torch.minimum(_requested_for(used, nz_used, req, nz_req, col), a)
         s = _strategy_score(cfg, requested, a)
         total = total + torch.where(ok, s * w, 0)
-        tw = tw + torch.where(ok, w, 0)
+        tw = tw + ok.to(torch.int32) * w
     return torch.where(tw > 0, floordiv(total, tw.clamp(min=1)), 0)
 
 
@@ -355,10 +389,57 @@ def _balanced_score(cfg, alloc, used, nz_used, req, nz_req):
     return torch.where(both, score, 0)
 
 
+def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int):
+    """One spread constraint's domain statistics (kernels.py:198):
+    (has_key [Nb], count_at_node [Nb], min_count, ndom), the last two
+    0-dim tensors. `mask` selects the participating nodes: every valid node
+    for the hard filter (PreFilter), the feasible nodes for the soft score
+    (PreScore). count_at_node means something only where mask & has_key.
+    Per-domain sums are exact int32 (index_add_); a key slot outside the
+    planes matches no node, as the reference's per-key select finds none."""
+    nb, dev = domain.shape[0], domain.device
+    if not 0 <= key_i < domain.shape[1]:
+        z = torch.zeros(nb, dtype=torch.int32, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return z.bool(), z, zero, zero
+    cnt = sel_counts[:, sel_i]
+    dom = domain[:, key_i]
+    has_key = dom >= 0
+    part = mask & has_key
+    dk = cfg.topo_domains[key_i]
+    if dk == 0:  # singleton key (hostname): the domain is the node
+        count = cnt
+        min_c = torch.where(part.any(), torch.where(part, cnt, _INT32_MAX).min(), 0)
+        ndom = part.sum()
+    else:
+        dom_c = dom.clamp(0, dk - 1).long()
+        seg = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
+            0, dom_c, torch.where(part, cnt, 0))
+        pc = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
+            0, dom_c, part.to(torch.int32))
+        present = pc > 0
+        count = seg[dom_c]
+        min_c = torch.where(present.any(), torch.where(present, seg, _INT32_MAX).min(), 0)
+        ndom = present.sum()
+    return has_key, count, min_c, ndom
+
+
+def _pts_normalize(raw, any_active, feasible):
+    """scoring.go:266-305: inverted min/max normalization over the feasible
+    set (kernels.py:614). int32 throughout: with no feasible node the
+    spread wraps as the reference's does."""
+    mx = torch.where(feasible, raw, -_INT32_MAX).max()
+    mn = torch.where(feasible, raw, _INT32_MAX).min()
+    spread = mx - mn
+    normed = torch.where(spread == 0, MAX_NODE_SCORE,
+                         floordiv((mx - raw) * MAX_NODE_SCORE, spread.clamp(min=1)))
+    return torch.where(any_active, normed, 0)
+
+
 def _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab):
     """podtopologyspread scoring.go:118-305 over the live feasible set:
     per-domain counts weighted by log(domains + 2), inverted min/max
-    normalization. Segment keys sum exactly in int32 (index_add_)."""
+    normalization."""
     nb = feasible.shape[0]
     dev = feasible.device
     if cfg.n_soft == 0:
@@ -368,32 +449,12 @@ def _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab):
     for c in range(min(cfg.max_constraints, cfg.n_soft)):
         if not bool(active[c]):
             continue  # the reference adds +0.0 for an inactive slot
-        k = int(f["soft_key"][p, c])
-        cnt = sel_counts[:, int(f["soft_sel"][p, c])]
-        dom = domain[:, k]
-        has_key = dom >= 0
-        part = feasible & has_key
-        dk = cfg.topo_domains[k]
-        if dk == 0:
-            count = cnt
-            nd = part.sum()
-        else:
-            dom_c = dom.clamp(0, dk - 1).long()
-            seg = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
-                0, dom_c, torch.where(part, cnt, 0))
-            pc = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
-                0, dom_c, part.to(torch.int32))
-            count = seg[dom_c]
-            nd = (pc > 0).sum()
+        has_key, count, _, nd = _pts_domain_stats(
+            cfg, domain, sel_counts, feasible, int(f["soft_key"][p, c]),
+            int(f["soft_sel"][p, c]))
         w = logtab[nd]
         cost = cost + torch.where(has_key, count.to(torch.float32) * w, 0.0)
-    raw = cost.to(torch.int32)
-    mx = torch.where(feasible, raw, -_INT32_MAX).max()
-    mn = torch.where(feasible, raw, _INT32_MAX).min()
-    spread = mx - mn
-    normed = torch.where(spread == 0, MAX_NODE_SCORE,
-                         floordiv((mx - raw) * MAX_NODE_SCORE, spread.clamp(min=1)))
-    return torch.where(active.any(), normed, 0)
+    return _pts_normalize(cost.to(torch.int32), active.any(), feasible)
 
 
 _POW2 = 2 ** torch.arange(32, dtype=torch.int64)
@@ -616,6 +677,362 @@ def scatter_rows(dst: dict, rows: dict, idx: torch.Tensor) -> None:
     if n:
         cuda.launch("scatter_rows", p, [idx.data_ptr()], _stream(device))
         LAUNCHES["scatter_rows"] += 1
+
+
+# --------------------------------------------------------------------------
+# K4 fit_and_score
+# --------------------------------------------------------------------------
+
+
+def _domain_sum_at_node(cfg, domain, k: int, col, part):
+    """kernels.py:303 — (has_key [Nb], at_node [Nb]): at_node[i] sums col
+    over the participating nodes of i's domain of key slot k; a singleton
+    key's domain sum is the node's own (masked) value."""
+    dk = cfg.topo_domains[k]
+    dom = domain[:, k]
+    has_key = dom >= 0
+    masked = torch.where(part & has_key, col, 0)
+    if dk == 0:
+        return has_key, masked
+    dom_c = dom.clamp(0, dk - 1).long()
+    seg = torch.zeros(dk, dtype=torch.int32, device=dom.device).index_add_(
+        0, dom_c, masked)
+    return has_key, seg[dom_c]
+
+
+def _ipa_term_stats(cfg, planes, t: int, part):
+    """kernels.py:328 — one interned term's (has_key [Nb], count_at_node
+    [Nb], anywhere): its matching-pod counts summed per domain of the term's
+    topology key over the participating nodes. The term slot is clamped
+    into the table (jnp.take of clip(t, 0)); a key slot outside the planes
+    (a stale -1) matches no node."""
+    tc = min(max(t, 0), planes["ipa_term_key"].shape[0] - 1)
+    cnt = planes["ipa_counts"][:, tc]
+    key_i = int(planes["ipa_term_key"][tc])
+    if not 0 <= key_i < len(cfg.topo_domains):
+        z = torch.zeros_like(cnt)
+        return z.bool(), z, False
+    has_key, at = _domain_sum_at_node(cfg, planes["domain"], key_i, cnt, part)
+    anywhere = bool(torch.where(part & has_key, cnt, 0).sum() > 0)
+    return has_key, at, anywhere
+
+
+def _existing_term_cols(cfg, planes, plane: str, fp):
+    """The existing pods' side (kernels.py:359-368, :419-429): for each
+    topology key slot k, the per-node sum of `plane` over the terms on key
+    k that match the incoming pod — the reference's float32 matvec, as an
+    exact int32 sum. Keys no matching term uses give an all-zero column and
+    are skipped (they add nothing)."""
+    tkey = planes["ipa_term_key"]
+    match = fp["ipa_match"] != 0
+    for k in range(len(cfg.topo_domains)):
+        w = (match & (tkey == k)).to(torch.int32)
+        if bool(w.any()):
+            yield k, (planes[plane] * w).sum(1, dtype=torch.int32)
+
+
+def _ipa_filters(cfg, planes, fp):
+    """InterPodAffinity's three checks (filtering.go:352-412, kernels.py:347):
+    (existing pods' anti-affinity, the pod's anti-affinity, the pod's
+    affinity) reject rows over every valid node."""
+    valid = planes["valid"]
+    fail1 = torch.zeros_like(valid)
+    fail2 = torch.zeros_like(valid)
+    fail3 = torch.zeros_like(valid)
+    if cfg.ipa_existing_anti:
+        for k, col in _existing_term_cols(cfg, planes, "ipa_anti", fp):
+            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, valid)
+            fail1 = fail1 | (has_key & (at > 0))
+    for s in range(min(cfg.max_ipa_terms, cfg.n_ipa_anti)):
+        t = int(fp["ipa_anti_t"][s])
+        if t < 0:
+            continue  # inactive slot
+        has_key, at, _ = _ipa_term_stats(cfg, planes, t, valid)
+        fail2 = fail2 | (has_key & (at > 0))
+    for s in range(min(cfg.max_ipa_terms, cfg.n_ipa_aff)):
+        t = int(fp["ipa_aff_t"][s])
+        if t < 0:
+            continue
+        has_key, at, anywhere = _ipa_term_stats(cfg, planes, t, valid)
+        # self-match bootstrap: a term that matches nowhere passes when the
+        # pod matches its own term
+        if anywhere or not bool(fp["ipa_aff_self"][s]):
+            fail3 = fail3 | ~(has_key & (at > 0))
+    return fail1, fail2, fail3
+
+
+def _ipa_score(cfg, planes, fp, feasible):
+    """InterPodAffinity score (scoring.go:81-257, kernels.py:396): weighted
+    preferred-term matches per domain over the feasible nodes, min/max
+    normalized; an all-equal spread scores 100 only when positive."""
+    nb = feasible.shape[0]
+    if cfg.n_ipa_pref == 0 and not cfg.ipa_existing_pref:
+        return torch.zeros(nb, dtype=torch.int32, device=feasible.device)
+    raw = torch.zeros(nb, dtype=torch.int32, device=feasible.device)
+    for s in range(min(cfg.max_ipa_pref, cfg.n_ipa_pref)):
+        t = int(fp["ipa_pref_t"][s])
+        if t < 0:
+            continue
+        has_key, at, _ = _ipa_term_stats(cfg, planes, t, feasible)
+        raw = raw + torch.where(has_key, int(fp["ipa_pref_w"][s]) * at, 0)
+    if cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing:
+        for k, col in _existing_term_cols(cfg, planes, "ipa_pref", fp):
+            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, feasible)
+            raw = raw + torch.where(has_key, at, 0)
+    mx = torch.where(feasible, raw, -_INT32_MAX).max()
+    mn = torch.where(feasible, raw, _INT32_MAX).min()
+    spread = mx - mn
+    return torch.where(
+        spread == 0, torch.where(mx > 0, MAX_NODE_SCORE, 0),
+        floordiv(MAX_NODE_SCORE * (raw - mn), spread.clamp(min=1)))
+
+
+def _taint_score(planes, fp, feasible):
+    """taint_toleration.go:180-215 (kernels.py:590): intolerable
+    PreferNoSchedule taints, inverted over the feasible set."""
+    ptid = planes["prefer_taints"]
+    tolp = (fp["tol_prefer"] != 0)[ptid.clamp(min=0).long()]
+    count = ((ptid >= 0) & ~tolp).sum(1, dtype=torch.int32)
+    max_count = torch.where(feasible, count, 0).max()
+    return torch.where(
+        max_count > 0,
+        MAX_NODE_SCORE - floordiv(count * MAX_NODE_SCORE, max_count.clamp(min=1)),
+        MAX_NODE_SCORE)
+
+
+def _node_affinity_score(planes, tables, fp, feasible):
+    """node_affinity.go:272 normalized to max 100 over the feasible set
+    (kernels.py:604); the raw value where that max is 0."""
+    sig = int(fp["aff_sig"])
+    raw = tables["aff_pref"][sig][planes["group_id"].long()]
+    mx = torch.where(feasible, raw, 0).max()
+    normed = torch.where(mx > 0, floordiv(raw * MAX_NODE_SCORE, mx.clamp(min=1)), raw)
+    return torch.where(tables["aff_has_pref"][sig], normed, 0)
+
+
+def filter_masks_ref(cfg: KernelConfig, planes: dict, tables: dict, fp: dict):
+    """Every filter plugin for one pod (kernels.py:442) → (fails [NF, Nb]
+    bool, feasible [Nb], insufficient [R, Nb], too_many_pods [Nb]). fails
+    rows: FILTER_NAMES, then the hard-spread missing-key rows and skew rows
+    (one per constraint slot), then the three InterPodAffinity rows. fp is
+    one pod's feature views (int32)."""
+    valid = planes["valid"]
+    nb = valid.shape[0]
+    iota = torch.arange(nb, dtype=torch.int32, device=valid.device)
+    f_unsched = planes["unsched"] & (fp["tol_unsched"] == 0)
+    f_name = (fp["name_idx"] != -1) & (iota != fp["name_idx"])
+    f_pin = (fp["aff_pin"] != -1) & (iota != fp["aff_pin"])
+    tid = planes["taints"]
+    tol = (fp["tol"] != 0)[tid.clamp(min=0).long()]
+    f_taint = ((tid >= 0) & ~tol).any(1)
+    sig = int(fp["aff_sig"])
+    gid = planes["group_id"].long()
+    f_aff = ~(tables["aff_match"][sig][gid] & tables["aff_allow"][sig])
+    conflict = (planes["port_words"] & fp["ports"][None]) != 0
+    f_ports = (fp["has_ports"] != 0) & conflict.any(1)
+    req = fp["req"]
+    free = planes["alloc"] - planes["used"]
+    insufficient = (req[None] > 0) & (req[None] > free)
+    insufficient[:, PODS] = False
+    too_many = planes["used"][:, PODS] + 1 > planes["alloc"][:, PODS]
+    f_fit = insufficient.any(1) | too_many
+    false_row = torch.zeros_like(valid)
+    missing, skewed = [], []
+    for c in range(cfg.max_constraints):
+        if c >= cfg.n_hard or not bool(fp["hard_active"][c]):
+            missing.append(false_row)
+            skewed.append(false_row)
+            continue
+        has_key, count, min_c, _ = _pts_domain_stats(
+            cfg, planes["domain"], planes["sel_counts"], valid,
+            int(fp["hard_key"][c]), int(fp["hard_sel"][c]))
+        skew = count + fp["hard_self"][c] - min_c
+        missing.append(~has_key)
+        skewed.append(has_key & (skew > fp["hard_skew"][c]))
+    ipa1, ipa2, ipa3 = _ipa_filters(cfg, planes, fp)
+    fails = torch.stack([f_unsched, f_name, f_taint, f_aff | f_pin, f_ports, f_fit]
+                        + missing + skewed + [ipa1, ipa2, ipa3])
+    feasible = valid & ~fails.any(0)
+    return fails, feasible, insufficient.T.contiguous(), too_many
+
+
+def scores_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict, p: int,
+               feasible, logtab):
+    """Every score plugin for pod p of the feature views f (kernels.py:731):
+    (weighted total [Nb], per-plugin scores) on every row, infeasible and
+    pad rows included."""
+    fp = {k: v[p] for k, v in f.items()}
+    alloc, used, nz = planes["alloc"], planes["used"], planes["nonzero_used"]
+    per = {
+        "NodeResourcesFit": _fit_score(cfg, alloc, used, nz, fp["req"], fp["nz_req"]),
+        "NodeResourcesBalancedAllocation": _balanced_score(
+            cfg, alloc, used, nz, fp["req"], fp["nz_req"]),
+        "TaintToleration": _taint_score(planes, fp, feasible),
+        "NodeAffinity": _node_affinity_score(planes, tables, fp, feasible),
+        "PodTopologySpread": _pts_score(cfg, planes["domain"], planes["sel_counts"],
+                                        feasible, f, p, logtab),
+        "InterPodAffinity": _ipa_score(cfg, planes, fp, feasible),
+        "ImageLocality": _image_score(planes, {k: v[p: p + 1] for k, v in f.items()})[0],
+    }
+    total = torch.zeros_like(per["NodeResourcesFit"])
+    for name in PLUGIN_NAMES:
+        total = total + per[name] * cfg.weight(name)
+    return total, per
+
+
+def fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict,
+                      logtab, p: int = 0) -> dict:
+    """Plain version of K4 (the reference's _fit_and_score_jit) for pod p of
+    the feature views f: fails, feasible, insufficient, too_many_pods,
+    total (-1 where infeasible) and per_plugin (every row, unmasked)."""
+    fp = {k: v[p] for k, v in f.items()}
+    fails, feasible, insufficient, too_many = filter_masks_ref(cfg, planes, tables, fp)
+    total, per = scores_ref(cfg, planes, tables, f, p, feasible, logtab)
+    return {"fails": fails, "feasible": feasible, "insufficient": insufficient,
+            "too_many_pods": too_many, "total": torch.where(feasible, total, -1),
+            "per_plugin": per}
+
+
+def fit_output_bytes(nb: int, n_fails: int, r: int) -> tuple[int, int]:
+    """(bool bytes, total bytes) of one pod's packed K4 output: fails,
+    feasible, insufficient and too_many_pods as bytes, then total and the
+    seven per_plugin rows as int32 (nb is a multiple of 8, so the int32
+    part starts aligned)."""
+    nbool = (n_fails + 1 + r + 1) * nb
+    return nbool, nbool + (1 + len(PLUGIN_NAMES)) * nb * 4
+
+
+def unpack_fit_outputs(row: torch.Tensor, nb: int, n_fails: int, r: int) -> dict:
+    """Views of one pod's packed K4 output (a [bytes] uint8 tensor) as the
+    output dict of fit_and_score_ref."""
+    nbool, _ = fit_output_bytes(nb, n_fails, r)
+    b = row[:nbool].view(torch.bool)
+    ints = row[nbool:].view(torch.int32).view(1 + len(PLUGIN_NAMES), nb)
+    o = n_fails * nb
+    return {
+        "fails": b[:o].view(n_fails, nb),
+        "feasible": b[o: o + nb],
+        "insufficient": b[o + nb: o + nb + r * nb].view(r, nb),
+        "too_many_pods": b[o + nb + r * nb: o + 2 * nb + r * nb],
+        "total": ints[0],
+        "per_plugin": {name: ints[1 + i] for i, name in enumerate(PLUGIN_NAMES)},
+    }
+
+
+def _pack_fit_outputs(out: dict) -> torch.Tensor:
+    """fit_and_score_ref's dict → one pod's packed bytes (the CPU side of
+    the K4 wrapper, so both devices hand back the same buffer)."""
+    parts = [out[k].reshape(-1).view(torch.uint8)
+             for k in ("fails", "feasible", "insufficient", "too_many_pods")]
+    parts.append(out["total"].view(torch.uint8))
+    parts += [out["per_plugin"][name].contiguous().view(torch.uint8)
+              for name in PLUGIN_NAMES]
+    return torch.cat(parts)
+
+
+def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
+                  packed_f: torch.Tensor, layout, logtab: torch.Tensor) -> torch.Tensor:
+    """K4 wrapper: one block per pod of the [P, F] packed features against
+    every node. Returns the packed outputs [P, bytes] uint8 (views by
+    unpack_fit_outputs) — the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors. planes holds the row planes and ipa_term_key."""
+    from .planes import unpack_features
+
+    check_fit_slice(cfg)
+    device = packed_f.device
+    nb, R = planes["alloc"].shape
+    nf = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
+    if device.type == "cpu":
+        f = unpack_features(packed_f, layout)
+        return torch.stack([
+            _pack_fit_outputs(fit_and_score_ref(cfg, planes, tables, f, logtab, p))
+            for p in range(packed_f.shape[0])])
+    if device.type != "cuda":
+        raise ValueError(f"fit_and_score runs on cpu or cuda, not {device}")
+    from . import cuda
+
+    P, F = packed_f.shape
+    K = planes["domain"].shape[1]
+    S = planes["sel_counts"].shape[1]
+    T = planes["taints"].shape[1]
+    Tp = planes["prefer_taints"].shape[1]
+    W = planes["port_words"].shape[1]
+    I = planes["image_kib"].shape[1]
+    Ta = planes["ipa_term_key"].shape[0]
+    A, G = tables["aff_match"].shape
+    i32, b8 = torch.int32, torch.bool
+    _check(packed_f, "packed features", device, i32)
+    for name, dt, shape in (
+        ("alloc", i32, (nb, R)), ("used", i32, (nb, R)),
+        ("nonzero_used", i32, (nb, 2)), ("valid", b8, (nb,)),
+        ("unsched", b8, (nb,)), ("group_id", i32, (nb,)),
+        ("taints", i32, (nb, T)), ("prefer_taints", i32, (nb, Tp)),
+        ("domain", i32, (nb, K)), ("sel_counts", i32, (nb, S)),
+        ("port_words", i32, (nb, W)), ("image_kib", i32, (nb, I)),
+        ("ipa_counts", i32, (nb, Ta)), ("ipa_anti", i32, (nb, Ta)),
+        ("ipa_pref", i32, (nb, Ta)), ("ipa_term_key", i32, (Ta,)),
+    ):
+        _check(planes[name], name, device, dt, shape)
+    for name, dt, shape in (
+        ("aff_match", b8, (A, G)), ("aff_pref", i32, (A, G)),
+        ("aff_allow", b8, (A, nb)), ("aff_has_pref", b8, (A,)),
+    ):
+        _check(tables[name], name, device, dt, shape)
+    _check(logtab, "logtab", device, torch.float32, (nb + 1,))
+    if len(cfg.topo_domains) != K:
+        raise ValueError(f"config has {len(cfg.topo_domains)} topology keys, "
+                         f"planes {K}")
+    if max(PODS, *(c for c, _ in cfg.fit_resources), *cfg.balanced_resources) >= R:
+        raise ValueError("config names a resource column beyond the planes")
+    mc = cfg.max_constraints
+    offs = _field_offsets(layout, {
+        "req": R, "nz_req": 2, "name_idx": 1, "tol_unsched": 1, "aff_pin": 1,
+        "tol": T, "tol_prefer": Tp, "aff_sig": 1, "ports": W, "has_ports": 1,
+        "hard_active": mc, "hard_key": mc, "hard_sel": mc, "hard_skew": mc,
+        "hard_self": mc, "soft_active": mc, "soft_key": mc, "soft_sel": mc,
+        "img_idx": 8, "num_containers": 1, "ipa_match": Ta,
+        "ipa_aff_t": cfg.max_ipa_terms, "ipa_aff_self": cfg.max_ipa_terms,
+        "ipa_anti_t": cfg.max_ipa_terms, "ipa_pref_t": cfg.max_ipa_pref,
+        "ipa_pref_w": cfg.max_ipa_pref})
+    p = cuda.FitParams(
+        P=P, Nb=nb, R=R, K=K, S=S, T=T, Tp=Tp, W=W, I=I, Ta=Ta, A=A, G=G, F=F,
+        MC=mc, NF=nf, D=max(1, *cfg.topo_domains),
+        strategy=_STRATEGY_CODE[cfg.strategy],
+        n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
+        bal_a=cfg.balanced_resources[0], bal_b=cfg.balanced_resources[1],
+        w_fit=cfg.weight("NodeResourcesFit"),
+        w_bal=cfg.weight("NodeResourcesBalancedAllocation"),
+        w_taint=cfg.weight("TaintToleration"),
+        w_aff=cfg.weight("NodeAffinity"),
+        w_pts=cfg.weight("PodTopologySpread"),
+        w_ipa=cfg.weight("InterPodAffinity"),
+        w_img=cfg.weight("ImageLocality"),
+        n_hard=min(mc, cfg.n_hard), n_soft=min(mc, cfg.n_soft),
+        n_ipa_aff=min(cfg.max_ipa_terms, cfg.n_ipa_aff),
+        n_ipa_anti=min(cfg.max_ipa_terms, cfg.n_ipa_anti),
+        n_ipa_pref=min(cfg.max_ipa_pref, cfg.n_ipa_pref),
+        ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
+        ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
+        **{f"f_{k}": v for k, v in offs.items()})
+    for i, (col, w) in enumerate(cfg.fit_resources):
+        p.fit_col[i], p.fit_w[i] = col, w
+    for i, (x, y) in enumerate(cfg.rtc_shape):
+        p.rtc_x[i], p.rtc_y[i] = x, y
+    for i, dk in enumerate(cfg.topo_domains):
+        p.topo_dk[i] = dk
+    _, per_pod = fit_output_bytes(nb, nf, R)
+    out = torch.empty((P, per_pod), dtype=torch.uint8, device=device)
+    ptrs = [planes[k].data_ptr() for k in (
+        "alloc", "used", "nonzero_used", "valid", "unsched", "group_id",
+        "taints", "prefer_taints", "domain", "sel_counts", "port_words",
+        "image_kib", "ipa_counts", "ipa_anti", "ipa_pref", "ipa_term_key")]
+    ptrs += [tables[k].data_ptr() for k in (
+        "aff_match", "aff_pref", "aff_allow", "aff_has_pref")]
+    ptrs += [packed_f.data_ptr(), logtab.data_ptr(), out.data_ptr()]
+    if P:
+        cuda.launch("fit_and_score", p, ptrs, _stream(device))
+        LAUNCHES["fit_and_score"] += 1
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -921,10 +921,12 @@ def pack_features(stacked: dict[str, np.ndarray]):
 SLICE_PLANES = (
     "alloc", "used", "nonzero_used", "valid", "unsched", "group_id",
     "taints", "prefer_taints", "domain", "sel_counts", "port_words",
-    "image_kib",
+    "image_kib", "ipa_counts", "ipa_anti", "ipa_pref",
 )
-"""The node planes the wave-path kernels read; the device mirror holds these
-(the IPA planes join it with the slice that ports inter-pod affinity)."""
+"""The row planes ([Nb, ...]) the kernels read; the device mirror holds
+these and repairs them by row scatter (K3). The global ipa_term_key table
+([Ta], not row-indexed) is mirrored beside them and re-uploaded whenever its
+host content moves."""
 
 _DEVICE_DTYPE = {
     np.dtype(np.int32): torch.int32,

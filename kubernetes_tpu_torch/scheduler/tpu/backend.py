@@ -1,10 +1,16 @@
-"""The device scheduling backend: planes, features and the wave kernels.
+"""The device scheduling backend: planes, features and the kernels.
 
-The port's counterpart of the reference package's TPUBackend
-(kubernetes_tpu/scheduler/tpu/backend.py) for the batched wave path: a pod
-wave is scored and placed greedily on the device in one K1 + K2 launch
-pair, with the device mirror of the node planes kept current by a full put
-on cold start and by the K3 row scatter afterwards.
+The port's counterpart of the reference package's TPUBackend and
+TPUSchedulingAlgorithm (kubernetes_tpu/scheduler/tpu/backend.py), for two
+paths:
+- the batched wave (run_batched): a pod wave is scored and placed greedily
+  on the device in one K1 + K2 launch pair;
+- the single-pod cycle (run, TorchSchedulingAlgorithm.schedule_pod): one
+  pod against every node in one K4 launch — every filter and score, hard
+  spread and inter-pod affinity included — and the per-node first-failure
+  diagnosis of a pod that fits nowhere, built from K4's rows.
+Both keep the device mirror of the node planes current by a full put on
+cold start and by the K3 row scatter afterwards.
 
 Bit-compatibility contract: with percentageOfNodesToScore=100 the host path
 evaluates every node and selects by (max total score, seeded-rng tie-break
@@ -15,31 +21,35 @@ Device: the backend runs on "cuda" unless the caller passes device="cpu",
 which runs the kernels' plain PyTorch versions (as the tests do). Without a
 card and without device="cpu" the constructor raises.
 
-Not in this slice (a later one, in the ROADMAP's order): the single-pod path
-(run / fit_and_score), hard spread constraints, inter-pod affinity,
-signature dedup and cross-wave reuse, the pipelined launch/collect pair,
-gang waves and the multi-device mesh. Configurations that need them raise
-OutOfSlice; pods the reference sends to its host path raise FallbackNeeded.
+Not in this slice (a later one, in the ROADMAP's order): hard spread and
+inter-pod affinity in the wave scan, signature dedup and cross-wave reuse,
+the pipelined launch/collect pair, the host framework with its fallback,
+hybrid and nominated-node paths and the circuit breaker, gang waves and the
+multi-device mesh. What needs them raises OutOfSlice; pods the reference
+sends to its host path raise FallbackNeeded.
 """
 
 from __future__ import annotations
 
+import random
 import time
 
 import numpy as np
 import torch
 
 from ...api.resource import ResourceNames
-from ...api.types import Pod
+from ...api.types import Pod, Taint
 from ...ops.kernels import (
+    FILTER_NAMES,
     MAX_TIE_DRAWS,
     ZERO_TIE_WORDS,
     KernelConfig,
     OutOfSlice,
     batched_assign,
-    check_slice,
+    fit_and_score,
     log_weight_table,
     scatter_rows,
+    unpack_fit_outputs,
 )
 from ...ops.planes import (
     SLICE_PLANES,
@@ -51,6 +61,29 @@ from ...ops.planes import (
     planes_from_reference,
     stack_features,
 )
+from ..framework.interface import (
+    UNSCHEDULABLE,
+    Diagnosis,
+    FitError,
+    NodeToStatus,
+    ScheduleResult,
+    Status,
+)
+from ..plugins.pod_topology_spread import PodTopologySpread
+
+# Reconstructed host-path messages + codes per filter mask row.
+_ROW_STATUS = {
+    "NodeUnschedulable": ("unresolvable", "node(s) were unschedulable"),
+    "NodeName": ("unresolvable", "node didn't match the requested node name"),
+    "NodeAffinity": ("unresolvable", "node(s) didn't match Pod's node affinity/selector"),
+    "NodePorts": ("unschedulable", "node(s) didn't have free ports for the requested pod ports"),
+}
+
+# the annotation naming node features a pod requires (NodeDeclaredFeatures)
+REQUIRED_FEATURES_ANNOTATION = "features.k8s.io/required"
+
+# the five arrays run() returns
+RUN_OUTPUTS = ("fails", "feasible", "insufficient", "too_many_pods", "total")
 
 
 def _mt_stream(rng_state) -> np.random.RandomState:
@@ -102,6 +135,9 @@ class TorchBackend:
                  device="cuda"):
         self.device = resolve_device(device)
         args = (plugin_args or {}).get("NodeResourcesFit", {})
+        ipa_args = (plugin_args or {}).get("InterPodAffinity", {})
+        self.ipa_ignore_preferred_existing = bool(
+            ipa_args.get("ignorePreferredTermsOfExistingPods", False))
         self.names = names
         self.builder = PlaneBuilder(names)
         self.extractor = PodFeatureExtractor(names, self.builder.vocabs)
@@ -115,10 +151,13 @@ class TorchBackend:
         self.rtc_shape = (
             tuple(sorted(tuple(p) for p in shape)) if shape else ((0, 0), (100, 100))
         )
-        # device mirror of the node planes (SLICE_PLANES) and the affinity
-        # tables; _pending_dirty holds the rows changed since the last
-        # upload (None = row tracking lost, a full put is owed)
+        # device mirror of the node row planes (SLICE_PLANES), of the global
+        # ipa_term_key table (with the host copy last uploaded) and of the
+        # affinity tables; _pending_dirty holds the rows changed since the
+        # last upload (None = row tracking lost, a full put is owed)
         self._device_planes: dict | None = None
+        self._device_term_key: torch.Tensor | None = None
+        self._uploaded_term_key: np.ndarray | None = None
         self._device_buckets: tuple | None = None
         self._pending_dirty: set[int] | None = set()
         self._device_tables: dict | None = None
@@ -137,13 +176,20 @@ class TorchBackend:
         # work plus the copy)
         self.phase_s = {"sync": 0.0, "features": 0.0, "upload": 0.0,
                         "launch": 0.0, "wait": 0.0}
+        # the phases of run(), summed over pods: as above, with the pod's
+        # kernel_config timed apart (config), upload = device_inputs (K3)
+        # + packed features, launch = K4 enqueue, wait = the one packed
+        # result copy
+        self.run_phase_s = {"sync": 0.0, "features": 0.0, "config": 0.0,
+                            "upload": 0.0, "launch": 0.0, "wait": 0.0}
 
     # -- config / planes -----------------------------------------------------
 
     def kernel_config(self, planes, feats=None) -> KernelConfig:
-        """The wave's KernelConfig, derived as the reference derives it (feats
-        tightens the constraint-slot counts). Raises OutOfSlice for any
-        configuration the ported kernels do not compute."""
+        """The KernelConfig of a pod (one feature dict) or a wave (stacked),
+        derived as the reference derives it: feats tightens the slot counts
+        to what the pods use. Each kernel wrapper holds it against its own
+        gate and raises OutOfSlice for what it does not compute."""
         mc = self.extractor.MAX_CONSTRAINTS
         n_hard = n_soft = mc
         n_ipa_aff = n_ipa_anti = self.extractor.MAX_IPA_TERMS
@@ -158,7 +204,7 @@ class TorchBackend:
                          and np.asarray(feats["ipa_anti_add"]).any())
         wave_pref = bool(feats is not None
                          and np.asarray(feats["ipa_pref_add"]).any())
-        cfg = KernelConfig(
+        return KernelConfig(
             strategy=self.strategy,
             fit_resources=self.fit_resources,
             rtc_shape=self.rtc_shape,
@@ -173,9 +219,8 @@ class TorchBackend:
             n_ipa_pref=n_ipa_pref,
             max_ipa_terms=self.extractor.MAX_IPA_TERMS,
             max_ipa_pref=self.extractor.MAX_IPA_PREF,
+            ipa_ignore_preferred_existing=self.ipa_ignore_preferred_existing,
         )
-        check_slice(cfg)
-        return cfg
 
     def sync(self, snapshot):
         """Refresh host planes from the snapshot (O(changed) by generation),
@@ -190,13 +235,18 @@ class TorchBackend:
         return planes
 
     def device_inputs(self, planes) -> tuple[dict, dict]:
-        """(node planes, affinity tables) mirrored on the device.
+        """(node planes + ipa_term_key, affinity tables) mirrored on the
+        device.
 
         Call AFTER feature extraction — features intern affinity signatures.
         A full put on cold start, a bucket reshape, lost row tracking, or a
         dirty set past half the cluster; otherwise the rows changed since
         the last upload travel in ONE packed host→device copy and K3
-        scatters them into every plane in one launch."""
+        scatters them into every row plane in one launch. ipa_term_key is
+        global, not row-indexed: a term interned mid-run moves its content
+        but not its shape, and a stale device copy would map the new term
+        to key slot -1 (K4 then rejects every node), so it is re-uploaded
+        whenever its host content differs from the copy last uploaded."""
         host = planes.as_dict()
         full = (
             self._device_planes is None
@@ -217,6 +267,11 @@ class TorchBackend:
             self.upload_stats["rows"] += len(idx)
         self._device_buckets = planes.bucket_sizes
         self._pending_dirty = set()
+        if (full or self._uploaded_term_key is None
+                or not np.array_equal(self._uploaded_term_key, planes.ipa_term_key)):
+            self._uploaded_term_key = planes.ipa_term_key.copy()
+            self._device_term_key = torch.from_numpy(self._uploaded_term_key).to(
+                self.device, copy=True)
         tables = self.extractor.affinity_tables(planes)
         if self._tables_src is not tables:
             self._device_tables = planes_from_reference(tables, self.device)
@@ -224,7 +279,8 @@ class TorchBackend:
         if self._logtab is None or self._logtab.shape[0] != planes.nb + 1:
             self._logtab = torch.from_numpy(log_weight_table(planes.nb)).to(
                 self.device)
-        return self._device_planes, self._device_tables
+        return ({**self._device_planes, "ipa_term_key": self._device_term_key},
+                self._device_tables)
 
     def _upload_rows(self, host: dict, idx: np.ndarray) -> dict:
         """Gather the dirty rows of every mirrored plane into one byte
@@ -301,3 +357,305 @@ class TorchBackend:
                 raise FallbackNeeded("tie-break draw overflow")
             advance_rng(rng, consumed)
         return [planes.node_names[w] if w >= 0 else None for w in winners], planes
+
+    # -- the single-pod cycle --------------------------------------------------
+
+    def run(self, pod: Pod, snapshot):
+        """One pod against the whole cluster in one K4 launch; returns
+        (planes, {fails, feasible, insufficient, too_many_pods, total} as
+        numpy). Raises FallbackNeeded when the pod is not kernelizable.
+
+        The kernel writes every output into one packed buffer, so the
+        results come back in ONE device→host copy (views of it)."""
+        t0 = time.perf_counter()
+        self.extractor.register(pod)
+        planes = self.sync(snapshot)
+        t1 = time.perf_counter()
+        f = self.extractor.features(pod, planes)
+        t2 = time.perf_counter()
+        cfg = self.kernel_config(planes, f)
+        t3 = time.perf_counter()
+        dev_planes, dev_tables = self.device_inputs(planes)
+        packed_f, layout = features_from_reference(stack_features([f]), self.device)
+        t4 = time.perf_counter()
+        packed = fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout,
+                               self._logtab)
+        t5 = time.perf_counter()
+        host = packed[0].cpu()
+        t6 = time.perf_counter()
+        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("config", t2, t3),
+                        ("upload", t3, t4), ("launch", t4, t5), ("wait", t5, t6)):
+            self.run_phase_s[k] += b - a
+        n_fails = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
+        out = unpack_fit_outputs(host, planes.nb, n_fails, planes.r)
+        return planes, {k: out[k].numpy() for k in RUN_OUTPUTS}
+
+    # -- the FitError diagnosis ----------------------------------------------
+
+    def _diagnosis_row_order(self) -> list[tuple[str, int]]:
+        """Filter rows in the host chain's first-failure order: the plugin
+        rows, then per constraint the spread missing-key and skew rows, then
+        InterPodAffinity's existing-anti, incoming-anti and incoming-affinity
+        rows (filtering.go:352-412)."""
+        c_max = self.extractor.MAX_CONSTRAINTS
+        order: list[tuple[str, int]] = [(nm, i) for i, nm in enumerate(FILTER_NAMES)]
+        for c in range(c_max):
+            order.append((f"pts_missing:{c}", len(FILTER_NAMES) + c))
+            order.append((f"pts_skew:{c}", len(FILTER_NAMES) + c_max + c))
+        base = len(FILTER_NAMES) + 2 * c_max
+        order.append(("ipa_existing_anti", base))
+        order.append(("ipa_anti", base + 1))
+        order.append(("ipa_aff", base + 2))
+        return order
+
+    def build_diagnosis(self, pod: Pod, planes, out) -> Diagnosis:
+        """Per-node first-failure statuses as the host filter chain would
+        have produced them (the first rejecting plugin wins), built lazily:
+        one vectorized argmax finds every node's first failing row; Status
+        objects materialize only for the nodes a consumer asks about."""
+        diagnosis = Diagnosis()
+        v = self.builder.vocabs
+        # tolerance per taint-vocab entry, for host-identical taint messages
+        tol = [
+            any(tl.tolerates(Taint(*v.taints.key(j))) for tl in pod.spec.tolerations)
+            for j in range(len(v.taints))
+        ]
+        lazy = _LazyKernelStatuses(self, planes, out, self._diagnosis_row_order(),
+                                   self._hard_constraint_keys(pod), tol)
+        diagnosis.node_to_status = lazy
+        diagnosis.unschedulable_plugins |= lazy.failing_plugins()
+        return diagnosis
+
+    def _hard_constraint_keys(self, pod: Pod) -> list[str]:
+        pts = PodTopologySpread(system_defaulting=self.extractor.system_default_spread)
+        return [c.topology_key for c in pts._constraints_for(pod, "DoNotSchedule")]
+
+    def _row_to_status(self, name: str, i: int, planes, out, hard_keys, tol) -> Status:
+        v = self.builder.vocabs
+        if name == "TaintToleration":
+            # the first *intolerable* taint, as the host filter's message
+            msg = "node(s) had untolerated taint"
+            for tid in planes.taints[i]:
+                if tid >= 0 and not tol[int(tid)]:
+                    key, val, _eff = v.taints.key(int(tid))
+                    msg = f"node(s) had untolerated taint {{{key}: {val}}}"
+                    break
+            return Status.unresolvable(msg, plugin="TaintToleration")
+        if name == "NodeResourcesFit":
+            reasons = []
+            if out["too_many_pods"][i]:
+                reasons.append("Too many pods")
+            for r in range(out["insufficient"].shape[0]):
+                if out["insufficient"][r, i]:
+                    rname = self.names.names[r] if r < self.names.width else f"res{r}"
+                    reasons.append(f"Insufficient {rname}")
+            return Status.unschedulable(*reasons, plugin="NodeResourcesFit")
+        if name.startswith("pts_missing:"):
+            c = int(name.split(":")[1])
+            key = hard_keys[c] if c < len(hard_keys) else "?"
+            return Status.unresolvable(
+                f"node(s) didn't have required label {key}", plugin="PodTopologySpread")
+        if name.startswith("pts_skew:"):
+            return Status.unschedulable(
+                "node(s) didn't match pod topology spread constraints",
+                plugin="PodTopologySpread")
+        if name == "ipa_existing_anti":
+            return Status.unschedulable(
+                "node(s) had pods with anti-affinity rules rejecting the pod",
+                plugin="InterPodAffinity")
+        if name == "ipa_anti":
+            return Status.unschedulable(
+                "node(s) didn't satisfy pod anti-affinity rules", plugin="InterPodAffinity")
+        if name == "ipa_aff":
+            return Status.unschedulable(
+                "node(s) didn't satisfy pod affinity rules", plugin="InterPodAffinity")
+        kind, msg = _ROW_STATUS[name]
+        ctor = Status.unresolvable if kind == "unresolvable" else Status.unschedulable
+        return ctor(msg, plugin=name)
+
+
+class _LazyKernelStatuses(NodeToStatus):
+    """NodeToStatus over K4's dense failure rows: one numpy argmax finds
+    every node's first failing row up front; Status objects materialize per
+    node on get() (memoized). Entries written by set() take precedence; no
+    caller of this slice writes any (preemption, which does, is not ported
+    yet)."""
+
+    # row name -> Status code kind mirrored from _row_to_status
+    _UNSCHEDULABLE_ROWS = ("NodePorts", "NodeResourcesFit", "pts_skew",
+                           "ipa_existing_anti", "ipa_anti", "ipa_aff")
+
+    def __init__(self, backend, planes, out, order, hard_keys, tol):
+        super().__init__()
+        self._backend = backend
+        self._planes = planes
+        self._out = out
+        self._hard_keys = hard_keys
+        self._tol = tol
+        self._memo: dict[int, Status] = {}
+        self._row_names = [name for name, _ in order]
+        fails = np.asarray(out["fails"])[:, : planes.n]
+        ordered = fails[[row for _, row in order], :]
+        self._first = np.argmax(ordered, axis=0)
+        # real (non-padding) infeasible nodes with a recorded failure row
+        self._failed = ordered.any(axis=0) & ~np.asarray(out["feasible"])[: planes.n]
+        self._index = planes.node_index
+
+    def failing_plugins(self) -> set:
+        out = set()
+        for r in np.unique(self._first[self._failed]):
+            name = self._row_names[int(r)]
+            if name.startswith("pts_"):
+                out.add("PodTopologySpread")
+            elif name.startswith("ipa_"):
+                out.add("InterPodAffinity")
+            else:
+                out.add(name)
+        return out
+
+    def get(self, node_name: str) -> Status:
+        st = self.node_to_status.get(node_name)
+        if st is not None:
+            return st
+        i = self._index.get(node_name)
+        if i is None or i >= len(self._first) or not self._failed[i]:
+            return self.absent_nodes_status
+        st = self._memo.get(i)
+        if st is None:
+            name = self._row_names[int(self._first[i])]
+            st = self._memo[i] = self._backend._row_to_status(
+                name, i, self._planes, self._out, self._hard_keys, self._tol)
+        return st
+
+    def unschedulable_name_set(self) -> set:
+        """Names whose status code is plain UNSCHEDULABLE (preemption's
+        candidate precheck), in one vectorized pass. Overlay entries take
+        precedence."""
+        rows =[r for r, name in enumerate(self._row_names)
+                if name.split(":")[0] in self._UNSCHEDULABLE_ROWS]
+        mask = self._failed & np.isin(self._first, rows)
+        names = {self._planes.node_names[i] for i in np.nonzero(mask)[0]}
+        for n, st in self.node_to_status.items():
+            if st.code == UNSCHEDULABLE:
+                names.add(n)
+            else:
+                names.discard(n)
+        return names
+
+    def fit_verdict_names(self) -> set:
+        """Names whose FIRST failing filter is NodeResourcesFit."""
+        fit_row = self._row_names.index("NodeResourcesFit")
+        mask = self._failed & (self._first == fit_row)
+        names = {self._planes.node_names[i] for i in np.nonzero(mask)[0]}
+        for n, st in self.node_to_status.items():
+            if st.plugin == "NodeResourcesFit":
+                names.add(n)
+            else:
+                names.discard(n)
+        return names
+
+    def aggregate_reasons(self) -> dict[str, int]:
+        """Vectorized FitError aggregation: the strings and counts that
+        materializing every node's Status would give."""
+        reasons: dict[str, int] = {}
+
+        def bump(msg: str, n: int) -> None:
+            if n:
+                reasons[msg] = reasons.get(msg, 0) + int(n)
+
+        first, failed = self._first, self._failed
+        for r, name in enumerate(self._row_names):
+            mask = failed & (first == r)
+            count = int(mask.sum())
+            if not count:
+                continue
+            if name == "NodeResourcesFit":
+                ins = np.asarray(self._out["insufficient"])[:, : len(mask)]
+                bump("Too many pods", int(
+                    (np.asarray(self._out["too_many_pods"])[: len(mask)] & mask).sum()))
+                for col in range(ins.shape[0]):
+                    rname = (self._backend.names.names[col]
+                             if col < self._backend.names.width else f"res{col}")
+                    bump(f"Insufficient {rname}", int((ins[col] & mask).sum()))
+            elif name == "TaintToleration":
+                # per-node FIRST intolerable taint id, then count per id
+                taints = np.asarray(self._planes.taints)[: len(mask)]
+                intol = np.zeros_like(taints, dtype=bool)
+                for j, ok in enumerate(self._tol):
+                    if not ok:
+                        intol |= taints == j
+                has = intol.any(axis=1)
+                tids = taints[np.arange(len(mask)), np.argmax(intol, axis=1)]
+                for tid in np.unique(tids[mask & has]):
+                    key, val, _eff = self._backend.builder.vocabs.taints.key(int(tid))
+                    bump(f"node(s) had untolerated taint {{{key}: {val}}}",
+                         int((tids == tid)[mask & has].sum()))
+                bump("node(s) had untolerated taint", int((mask & ~has).sum()))
+            else:
+                # constant-message rows: materialize ONE status for the text
+                st = self._backend._row_to_status(
+                    name, int(np.argmax(mask)), self._planes, self._out,
+                    self._hard_keys, self._tol)
+                for rr in st.reasons:
+                    bump(rr, count)
+        for st in self.node_to_status.values():
+            for rr in st.reasons:
+                bump(rr, 1)
+        return reasons
+
+
+class TorchSchedulingAlgorithm:
+    """schedulePod with K4 on the hot path: the kernel branch of the
+    reference's TPUSchedulingAlgorithm.schedule_pod (backend.py:1393-1454).
+
+    percentageOfNodesToScore is 100: K4 evaluates every node, and the
+    winner is the max total with the seeded rng's randrange over the tied
+    winners in node order, so decisions equal the host algorithm's.
+
+    The host framework is a later slice. The cases the reference hands to
+    it raise instead of computing an answer: a nominated pod (OutOfSlice),
+    a pod needing host compose (OutOfSlice) and a pod the extractor refuses
+    (FallbackNeeded, re-raised). The circuit breaker comes with the host
+    tier it falls back to. Before a FitError the reference also runs the
+    host PreFilter chain so preemption can reuse its state; that waits for
+    the framework.
+    """
+
+    def __init__(self, backend: TorchBackend, rng=None):
+        self.backend = backend
+        self.rng = rng or random.Random(0)  # seeded: deterministic tie-breaks
+        self.kernel_count = 0
+
+    def schedule_pod(self, state, pod: Pod, snapshot) -> ScheduleResult:
+        if snapshot.num_nodes() == 0:
+            raise FitError(pod, 0, Diagnosis())
+        if pod.status.nominated_node_name:
+            raise OutOfSlice("nominated node evaluation (_evaluate_nominated) "
+                             "is not ported yet")
+        if self._needs_host_compose(pod):
+            raise OutOfSlice("host-composed (hybrid) scheduling is not ported yet")
+        planes, out = self.backend.run(pod, snapshot)
+        self.kernel_count += 1
+        feasible_idx = np.flatnonzero(out["feasible"][: planes.n])
+        if feasible_idx.size == 0:
+            raise FitError(pod, snapshot.num_nodes(),
+                           self.backend.build_diagnosis(pod, planes, out))
+        if feasible_idx.size == 1:
+            return ScheduleResult(suggested_host=planes.node_names[int(feasible_idx[0])],
+                                  evaluated_nodes=planes.n, feasible_nodes=1)
+        totals = out["total"][feasible_idx]
+        winners = feasible_idx[totals == totals.max()]
+        win = int(winners[self.rng.randrange(winners.size)] if winners.size > 1
+                  else winners[0])
+        return ScheduleResult(suggested_host=planes.node_names[win],
+                              evaluated_nodes=planes.n,
+                              feasible_nodes=int(feasible_idx.size))
+
+    @staticmethod
+    def _needs_host_compose(pod: Pod) -> bool:
+        """Pods whose long-tail host stages must run on top of the kernel
+        (the reference's hybrid path). Of its triggers — volume claims,
+        resource claims, required node features, interested extenders —
+        the port's types carry only the required-features annotation."""
+        ann = pod.meta.annotations.get(REQUIRED_FEATURES_ANNOTATION, "")
+        return any(f.strip() for f in ann.split(","))

@@ -6,6 +6,15 @@ selectors, nodes whose pod count runs out, an extended resource that only
 some nodes offer, and explicit ScheduleAnyway spread over a third topology
 key ("rack", absent on some nodes) in place of the system defaults.
 
+With constraints=True the pods also carry what the single-pod kernel
+computes and the wave scan does not: DoNotSchedule spread over zone,
+hostname or rack, and inter-pod (anti)affinity — required affinity
+(including terms on a group label whose first pod matches only itself: the
+self-match bootstrap), required anti-affinity on hostname and zone keys,
+and preferred affinity and anti-affinity. Once placed, such pods are the
+existing pods whose terms the next pods meet. Those draws come from a second
+generator, so the other fields are the same with and without them.
+
 The workload is a plain spec (made with numpy from a seed); build_nodes /
 build_pods turn it into objects of whichever package's API types module is
 passed in, so one spec feeds this package and the reference alike.
@@ -19,7 +28,20 @@ MiB = 1 << 20
 EXT = "example.com/dev"  # an extended resource (a plane column past PODS)
 
 
-def mixed_spec(seed: int, n_nodes: int, n_pods: int) -> dict:
+_KEYS = {"zone": "topology.kubernetes.io/zone",
+         "hostname": "kubernetes.io/hostname", "rack": "rack"}
+
+
+def _term(crng, own: dict, keys) -> tuple:
+    """(selector labels, topology key name): a term on the pod's group label
+    half of the time, else on an app label."""
+    sel = ({"grp": own["grp"]} if crng.random() < 0.5
+           else {"app": str(crng.choice(["a", "b"]))})
+    return sel, str(crng.choice(keys))
+
+
+def mixed_spec(seed: int, n_nodes: int, n_pods: int,
+               constraints: bool = False) -> dict:
     rng = np.random.default_rng(seed)
     nodes = []
     for i in range(n_nodes):
@@ -57,6 +79,19 @@ def mixed_spec(seed: int, n_nodes: int, n_pods: int) -> dict:
             "dev": bool(rng.random() < 0.1),
             "spread_rack": bool(rng.random() < 0.15),
         })
+    if constraints:
+        crng = np.random.default_rng([seed, 7])
+        for s in pods:
+            s["grp"] = f"g{int(crng.integers(4))}"
+            s["hard"] = ((str(crng.choice(list(_KEYS))), int(crng.choice([1, 2])))
+                         if crng.random() < 0.3 else None)
+            s["aff"] = (_term(crng, s, ["zone", "hostname"])
+                        if crng.random() < 0.15 else None)
+            s["anti"] = (_term(crng, s, ["hostname", "zone"])
+                         if crng.random() < 0.15 else None)
+            s["pref"] = [(int(crng.integers(1, 50)), bool(crng.random() < 0.5))
+                         + _term(crng, s, ["zone", "hostname", "rack"])
+                         for _ in range(int(crng.choice([0, 0, 1, 2])))]
     return {"nodes": nodes, "pods": pods}
 
 
@@ -115,10 +150,13 @@ def build_pods(spec: dict, types, meta) -> list:
                 weight=s["prefer_ssd"], preference=types.NodeSelectorTerm(
                     match_expressions=(types.NodeSelectorRequirement(
                         "disk", "In", ("ssd",)),))),)
+        node_aff = (types.NodeAffinity(required=required, preferred=preferred)
+                    if required is not None or preferred else None)
+        pod_aff, pod_anti = _pod_affinity(s, types)
         affinity = None
-        if required is not None or preferred:
-            affinity = types.Affinity(node_affinity=types.NodeAffinity(
-                required=required, preferred=preferred))
+        if node_aff is not None or pod_aff is not None or pod_anti is not None:
+            affinity = types.Affinity(node_affinity=node_aff, pod_affinity=pod_aff,
+                                      pod_anti_affinity=pod_anti)
         ports = ((types.ContainerPort(container_port=s["port"],
                                       host_port=s["port"]),)
                  if s["port"] else ())
@@ -128,19 +166,46 @@ def build_pods(spec: dict, types, meta) -> list:
         c = types.Container(name="c", image=s["image"], requests=requests,
                             ports=ports)
         spread = ()
+        if s.get("hard") is not None:
+            key, skew = s["hard"]
+            spread += (types.TopologySpreadConstraint(
+                skew, _KEYS[key], "DoNotSchedule",
+                types.LabelSelector.of({"app": s["app"]})),)
         if s["spread_rack"]:
-            spread = (
+            spread += (
                 types.TopologySpreadConstraint(
                     1, "rack", "ScheduleAnyway", types.LabelSelector.of({"app": "a"})),
                 types.TopologySpreadConstraint(
                     2, "kubernetes.io/hostname", "ScheduleAnyway",
                     types.LabelSelector.of({"app": s["app"]})),
             )
+        labels = {"app": s["app"]}
+        if "grp" in s:
+            labels["grp"] = s["grp"]
         out.append(types.Pod(
             meta=meta.ObjectMeta(name=s["name"], namespace="default",
-                                 labels={"app": s["app"]}),
+                                 labels=labels),
             spec=types.PodSpec(containers=[c], affinity=affinity,
                                tolerations=tuple(tols),
                                topology_spread_constraints=spread),
         ))
     return out
+
+
+def _pod_affinity(s: dict, types):
+    """(PodAffinity | None, PodAntiAffinity | None) of a spec pod."""
+    def term(sel, key):
+        return types.PodAffinityTerm(label_selector=types.LabelSelector.of(sel),
+                                     topology_key=_KEYS[key])
+
+    req_aff = (term(*s["aff"]),) if s.get("aff") else ()
+    req_anti = (term(*s["anti"]),) if s.get("anti") else ()
+    pref_aff = tuple(types.WeightedPodAffinityTerm(w, term(sel, key))
+                     for w, anti, sel, key in s.get("pref", ()) if not anti)
+    pref_anti = tuple(types.WeightedPodAffinityTerm(w, term(sel, key))
+                      for w, anti, sel, key in s.get("pref", ()) if anti)
+    pod_aff = (types.PodAffinity(required=req_aff, preferred=pref_aff)
+               if req_aff or pref_aff else None)
+    pod_anti = (types.PodAntiAffinity(required=req_anti, preferred=pref_anti)
+                if req_anti or pref_anti else None)
+    return pod_aff, pod_anti

@@ -1,6 +1,8 @@
 """Fixture builders, modeled on pkg/scheduler/testing/wrappers.go, plus the
-scheduler_perf SchedulingBasic cluster (test/integration/scheduler_perf
-misc/performance-config.yaml SchedulingBasic, templates/pod-default.yaml)."""
+scheduler_perf SchedulingBasic and TopologySpreading clusters
+(test/integration/scheduler_perf misc/performance-config.yaml
+SchedulingBasic, topology_spreading/performance-config.yaml,
+templates/pod-default.yaml)."""
 
 from __future__ import annotations
 
@@ -85,3 +87,19 @@ def scheduling_basic_pod(i: int, namespace: str = "default") -> Pod:
             name="pause", image="registry.k8s.io/pause:3.10",
             requests={"cpu": "100m", "memory": "50Mi"})]),
     )
+
+
+# --- scheduler_perf TopologySpreading ----------------------------------------
+
+def topology_spreading_pod(i: int, namespace: str = "default") -> Pod:
+    """The measured pod of TopologySpreading: the pause container at 100m
+    and 50Mi, labelled app: spread, with one DoNotSchedule zone constraint
+    (maxSkew 1, selector app: spread)."""
+    pod = Pod(
+        meta=ObjectMeta(name=f"spread-{i}", namespace=namespace,
+                        labels={"app": "spread"}),
+        spec=PodSpec(containers=[Container(
+            name="pause", requests={"cpu": "100m", "memory": "50Mi"})]),
+    )
+    return with_spread(pod, max_skew=1, key=ZONE_LABEL, when="DoNotSchedule",
+                       selector=LabelSelector.of({"app": "spread"}))

@@ -286,7 +286,8 @@ def test_wrappers_dispatch_by_device():
     ref = tk.static_parts_ref(dplanes, dtables, unpack_features(packed_f, layout))
     for k in ref:
         assert torch.equal(out[k], ref[k])
-    assert tk.LAUNCHES == {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0}
+    assert tk.LAUNCHES == {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
+                           "fit_and_score": 0}
     with pytest.raises(ValueError):
         tk.static_parts(dplanes, dtables, packed_f.to("meta"), layout)
     with pytest.raises(ValueError):

@@ -125,7 +125,7 @@ def test_run_batched_matches_reference_backend(case):
 
 def test_imports_and_schedules_without_jax():
     """(d) with jax and the reference package made unimportable, the port
-    imports and schedules a wave on the CPU."""
+    imports, schedules a wave and runs one single-pod cycle on the CPU."""
     code = (
         "import sys, random\n"
         "sys.modules['jax'] = None\n"
@@ -142,6 +142,11 @@ def test_imports_and_schedules_without_jax():
         "got, _ = b.run_batched([scheduling_basic_pod(i) for i in range(8)], s,\n"
         "                       rng=random.Random(0), pad_to=16)\n"
         "assert all(got), got\n"
+        "from kubernetes_tpu_torch.scheduler.framework import CycleState\n"
+        "from kubernetes_tpu_torch.scheduler.tpu.backend import TorchSchedulingAlgorithm\n"
+        "from kubernetes_tpu_torch.testing.wrappers import topology_spreading_pod\n"
+        "r = TorchSchedulingAlgorithm(b).schedule_pod(CycleState(), topology_spreading_pod(0), s)\n"
+        "assert r.suggested_host and r.feasible_nodes == 16, r\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kubernetes_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('placed', len(got))\n"
