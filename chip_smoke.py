@@ -3,22 +3,27 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the three CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
+1. build the four CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
    one process per source, all at once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
    Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
-3. place the 1000 initial and 10000 measured pods through
-   TorchBackend.run_batched in waves of 512, assuming each wave's winners
-   into the cache between waves; every pod must land and every kernel must
-   have launched (counts zeroed just before this phase, read just after);
-4. on one more full-width wave, run each kernel and its plain PyTorch
-   version on the card on the same inputs and require exact equality of
-   every output (K2 also with an all-rejecting and a 3-word tie stream);
-   then time both (CUDA events; the kernels alone by torch.profiler);
+3. the main path: place the 1000 initial and 10000 measured pods through
+   TorchBackend.run_batched in waves of 512 (signature dedup on, the
+   reference's default), assuming each wave's winners into the cache
+   between waves; every pod must land and every kernel must have launched
+   (counts zeroed just before this phase, read just after); signatures per
+   wave and K2's full-tier and replay steps are printed;
+4. on one more full-width wave, run K1 (over the signature rows) and K2
+   and their plain PyTorch versions on the card on the same inputs, with
+   dedup and without, and require exact equality of every output (the
+   signature table and sig_scores included; K2 also with an all-rejecting
+   and a 3-word tie stream); K3 on that wave's dirty rows; then time them
+   (the kernels alone by torch.profiler, the plain versions by events);
 5. hold the card's decisions against the CPU plain path on mixed clusters
-   of 16 to 1500 nodes (taints, affinity, images, ports, explicit spread,
-   an extended resource, three scoring strategies): equal bindings and
-   equal final rng state;
+   of 16 to 1500 nodes (taints, affinity, images, ports, spread, hard
+   spread and inter-pod affinity, an extended resource, three scoring
+   strategies) through run_batched with dedup on: equal bindings and equal
+   final rng state;
 6. the single-pod cycle at full width: scheduler_perf
    TopologySpreading/5000Nodes_5000Pods in a fresh Cache — 5000 initial
    pods through run_batched in waves, then 5000 app: spread pods (one
@@ -26,12 +31,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    TorchSchedulingAlgorithm.schedule_pod (K4 + K3) with an assume and a
    snapshot update after each; every pod must land, K4 must launch once
    per measured pod, and the zone skew must end <= 1;
-7. K4 against its plain version on the card at full width, exact equality
+7. TopologySpreading through waves: a fresh Cache, the 5000 initial pods,
+   then the 5000 app: spread pods through run_batched in waves of 512
+   (hard spread in the scan, dedup on; counts zeroed before the measured
+   pods, read after); every pod must land and the zone skew end <= 1; K1
+   and K2 equal to their plain versions on one more full-width wave, both
+   tiers; K2 timed;
+8. inter-pod affinity in the scan: on a mixed 5000-node cluster with 2000
+   existing pods carrying (anti)affinity terms, one 512-pod wave of IPA
+   pods (required affinity with the self-match bootstrap, required
+   anti-affinity on hostname and zone, preferred terms both ways) and mixed
+   pods; K1 and K2 equal to their plain versions, both tiers; K2 timed;
+9. K4 against its plain version on the card at full width, exact equality
    of every output array, on a TopologySpreading pod, a SchedulingBasic
-   pod, pods with every IPA term kind on a mixed 5000-node cluster with
-   existing (anti)affinity pods, a pod that fits nowhere, and three pods
-   in one launch; then K4 and its plain version timed;
-8. the card against the CPU plain path through schedule_pod on mixed
+   pod, pods with every IPA term kind on phase 8's cluster, a pod that fits
+   nowhere, and three pods in one launch; then K4 and its plain version
+   timed;
+10. the card against the CPU plain path through schedule_pod on mixed
    clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
    equal final rng state, equal FitError messages;
 then print the card, the timings, the kernels line and the result line.
@@ -114,6 +130,154 @@ def max_abs_err(pairs) -> float:
                if a.numel() else 0.0 for a, b in pairs)
 
 
+def place_waves(backend, cache, snap, pods, wave, rng, label):
+    """run_batched in waves of `wave`, assuming winners between waves as the
+    scheduling loop does; returns the wall seconds of each wave
+    (run_batched ends in a device-to-host copy, so each wave's time
+    includes its kernels)."""
+    walls = []
+    for w in range(0, len(pods), wave):
+        chunk = pods[w: w + wave]
+        t = time.perf_counter()
+        got, _ = backend.run_batched(chunk, snap, rng=rng, pad_to=wave)
+        walls.append(time.perf_counter() - t)
+        for pod, node in zip(chunk, got):
+            if node is None:
+                fail(f"{label}: {pod.meta.name} was not placed")
+            cache.assume_pod(pod, node)
+        cache.update_snapshot(snap)
+    return walls
+
+
+def wave_inputs(backend, pods, snap, pad):
+    """One wave's kernel inputs on the card, as run_batched builds them:
+    planes, tables, config, packed features, signature groups."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops.planes import (
+        pack_features, pad_features, stack_features, unpack_features)
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features(
+        [backend.extractor.features(p, planes) for p in pods]), pad)
+    dp, dt = backend.device_inputs(planes)
+    rows, layout = pack_features(feats)
+    sig, uniq = backend._group_wave(rows, len(pods))
+    packed_f = torch.from_numpy(rows).cuda()
+    return SimpleNamespace(
+        cfg=backend.kernel_config(planes, feats), planes=planes, dp=dp, dt=dt,
+        packed_f=packed_f, layout=layout, fv=unpack_features(packed_f, layout),
+        sig=torch.from_numpy(sig).cuda(), uniq=torch.from_numpy(uniq).cuda(),
+        logtab=backend._logtab)
+
+
+def _flat(out, prefix=""):
+    for k, v in out.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def k1_call(w, dedup):
+    from kubernetes_tpu_torch.ops import kernels
+
+    return kernels.static_parts(w.dp, w.dt, w.packed_f, w.layout,
+                                rows=w.uniq if dedup else None)
+
+
+def k2_call(w, k1, words, dedup, plain=False):
+    """K2 on the wave's inputs (its plain version with plain=True)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    kw = dict(sig_ids=w.sig, uniq_idx=w.uniq) if dedup else {}
+    if plain:
+        return kernels.assign_scan_ref(w.cfg, w.dp, k1, w.fv, words, 0, w.logtab, **kw)
+    return kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0,
+                               w.logtab, **kw)
+
+
+def compare_wave(label, w, words, dedup):
+    """K1 (over the signature rows with dedup) and K2 against their plain
+    versions on the card on the same inputs: every output array exactly
+    equal. Returns (max |K1 - plain|, max |K2 - plain|, K1 out, K2 out)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    k1 = k1_call(w, dedup)
+    f1 = w.fv if not dedup else unpack_features(w.packed_f[w.uniq.long()], w.layout)
+    k1_ref = kernels.static_parts_ref(w.dp, w.dt, f1)
+    torch.cuda.synchronize()
+    for k in k1:
+        if not torch.equal(k1[k], k1_ref[k]):
+            fail(f"static_parts.{k} differs from its plain version ({label})")
+    got = k2_call(w, k1, words, dedup)
+    want = k2_call(w, k1, words, dedup, plain=True)
+    torch.cuda.synchronize()
+    g, r = dict(_flat(got)), dict(_flat(want))
+    if g.keys() != r.keys():
+        fail(f"assign_scan outputs {sorted(g)} vs plain {sorted(r)} ({label})")
+    for k in g:
+        if not torch.equal(g[k], r[k]):
+            fail(f"assign_scan {k} differs from its plain version ({label})")
+    return (max_abs_err((k1[k], k1_ref[k]) for k in k1),
+            max_abs_err((g[k], r[k]) for k in g), k1, got)
+
+
+def k2_work(w, k1, words, out, dedup):
+    """(bytes, float32 operations) K2 must spend on this wave, from what
+    this run's data needs: K1's rows of the signatures (dedup) or active
+    pods that take a step, read once; the node planes it reads (alloc,
+    domain, valid, the IPA term keys with IPA) and the carried planes read
+    and written once; features, tie words, log table and the packed
+    result; with dedup the signature table, sig_scores and groups written
+    once. Operations: per node the balanced score (~11) on each full-tier
+    step and 2 per active soft slot on every step."""
+    nb, n = w.planes.nb, w.planes.n
+    active = w.fv["active"] != 0
+    rows_read = int(w.sig.max()) + 1 if dedup else int(active.sum())
+    b = rows_read * (nb * (1 + 4 + 4 + 4) + 1)
+    b += nbytes(w.dp["alloc"], w.dp["domain"], w.dp["valid"])
+    carried = ["used", "nonzero_used", "sel_counts"]
+    if w.cfg.ipa_active:
+        carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
+        b += nbytes(w.dp["ipa_term_key"])
+    b += 2 * nbytes(*(w.dp[k] for k in carried))
+    b += nbytes(w.packed_f, words, w.logtab, out["packed"])
+    if dedup:
+        b += nbytes(out["sig_scores"], *out["sig_table"].values(), w.sig, w.uniq)
+    full = int(out["tiers"][0]) if dedup else int(active.sum())
+    soft_on = int(w.fv["soft_active"][active][:, : max(1, w.cfg.n_soft)].sum())
+    return b, n * (11 * full + 2 * soft_on)
+
+
+def time_k2(label, w, k1, words, out, dedup, reps):
+    """K2's profiler time, its plain version's event time and its bound on
+    this wave's inputs."""
+    ms = kernel_ms(lambda: k2_call(w, k1, words, dedup), "assign_scan_kernel", reps)
+    if ms is None:
+        fail("the profiler trace shows no device time for assign_scan")
+    plain = time_ms(lambda: k2_call(w, k1, words, dedup, plain=True), 1, warmup=0)
+    bd, by = bound_ms(*k2_work(w, k1, words, out, dedup))
+    tiers = out["tiers"].tolist() if dedup else "-"
+    print(f"assign_scan ({label}, dedup {'on' if dedup else 'off'}): {ms:.4f} ms "
+          f"(plain {plain:.1f} ms, bound {bd:.5f} ms by {by}); {w.planes.n} nodes, "
+          f"n_hard {w.cfg.n_hard} n_soft {w.cfg.n_soft} ipa {int(w.cfg.ipa_active)}, "
+          f"signatures {int(w.sig.max()) + 1}, tiers [full, replay] {tiers}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bd, "bound_by": by}
+
+
+def tie_words(seed, n_slots):
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.backend import clone_tie_words
+
+    words = clone_tie_words(random.Random(seed),
+                            n_slots * kernels.MAX_TIE_DRAWS + kernels.MAX_TIE_DRAWS)
+    return torch.from_numpy(words.view("int32")).cuda()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -122,8 +286,8 @@ def main() -> None:
     ap.add_argument("--pods", type=int, default=10000)
     ap.add_argument("--wave", type=int, default=512)
     ap.add_argument("--seed", type=int, default=1)
-    # phases 6-8: TopologySpreading/5000Nodes_5000Pods, the K4 compare
-    # cluster, and how many card-vs-CPU cycle clusters (16, 64, 300, 1500)
+    # phases 6-10: TopologySpreading/5000Nodes_5000Pods (both paths), the
+    # IPA cluster, and how many card-vs-CPU cycle clusters (16, 64, 300, 1500)
     ap.add_argument("--spread-nodes", type=int, default=5000)
     ap.add_argument("--spread-init", type=int, default=5000)
     ap.add_argument("--spread-pods", type=int, default=5000)
@@ -137,11 +301,9 @@ def main() -> None:
 
     from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.ops import cuda, kernels
-    from kubernetes_tpu_torch.ops.planes import (
-        SLICE_PLANES, features_from_reference, pad_features, planes_from_reference,
-        stack_features, unpack_features)
+    from kubernetes_tpu_torch.ops.planes import SLICE_PLANES, planes_from_reference
     from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
-    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend, clone_tie_words
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
     from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
 
     smi = subprocess.run(
@@ -150,6 +312,7 @@ def main() -> None:
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
@@ -173,32 +336,17 @@ def main() -> None:
     print(f"cluster: {args.nodes} nodes, {args.zones} zones, "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # 3. the main path
-    def place(pods):
-        """run_batched in waves, assuming winners between waves; returns the
-        wall seconds of each wave (run_batched ends in a device→host copy,
-        so each wave's time includes its kernels)."""
-        walls = []
-        for w in range(0, len(pods), args.wave):
-            wave = pods[w: w + args.wave]
-            t = time.perf_counter()
-            got, _ = backend.run_batched(wave, snap, rng=rng, pad_to=args.wave)
-            walls.append(time.perf_counter() - t)
-            for pod, node in zip(wave, got):
-                if node is None:
-                    fail(f"{pod.meta.name} was not placed")
-                cache.assume_pod(pod, node)
-            cache.update_snapshot(snap)
-        return walls
-
+    # 3. the main path (dedup on, the reference's default)
     init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
     measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
     kernels.reset_launches()
     t0 = time.perf_counter()
-    place(init)
+    place_waves(backend, cache, snap, init, args.wave, rng, "main path")
+    tiers0 = backend.tier_steps.tolist()
+    stats0 = dict(backend.dedup_stats)
     t1 = time.perf_counter()
     phase0 = dict(backend.phase_s)
-    walls = place(measured)
+    walls = place_waves(backend, cache, snap, measured, args.wave, rng, "main path")
     t2 = time.perf_counter()
     phases = {k: v - phase0[k] for k, v in backend.phase_s.items()}
     launches = dict(kernels.LAUNCHES)
@@ -210,9 +358,16 @@ def main() -> None:
     if placed != args.init_pods + args.pods:
         fail(f"{placed} pods in the cache, expected {args.init_pods + args.pods}")
     n_waves = len(walls)
+    tiers = [a - b for a, b in zip(backend.tier_steps.tolist(), tiers0)]
+    stats = {k: v - stats0[k] for k, v in backend.dedup_stats.items()}
     print(f"main path: {placed} pods placed; initial {t1 - t0:.3f} s; measured "
           f"{args.pods} pods in {n_waves} waves, {t2 - t1:.3f} s = "
           f"{args.pods / (t2 - t1):.1f} pods/s (incl. host assume + snapshot)")
+    print(f"signature dedup on the measured waves: {stats['signatures']} signatures in "
+          f"{stats['waves']} waves ({stats['signatures'] / max(stats['waves'], 1):.2f} per "
+          f"wave); K2 steps by tier [full, replay] {tiers}")
+    if stats["waves"] != n_waves or tiers[1] <= 0:
+        fail("the main path's waves did not run the signature replay tier")
     wave_sorted = sorted(walls)
     print(f"wave wall (run_batched): median {wave_sorted[len(walls) // 2] * 1e3:.2f} ms, "
           f"max {wave_sorted[-1] * 1e3:.2f} ms, sum {sum(walls):.3f} s")
@@ -233,65 +388,45 @@ def main() -> None:
         fail("a node's requests exceed its allocatable")
     print(f"pods per node: min {int(used[:, 3].min())} max {int(used[:, 3].max())}")
 
-    # 4. kernels vs plain versions on one full-width wave
+    # 4. kernels vs plain versions on one full-width wave, both tiers
     cmp_pods = [scheduling_basic_pod(10**6 + i) for i in range(args.wave)]
-    for pod in cmp_pods:
-        backend.extractor.register(pod)
-    planes = backend.sync(snap)
-    feats = pad_features(stack_features(
-        [backend.extractor.features(p, planes) for p in cmp_pods]), args.wave)
-    dev_planes, dev_tables = backend.device_inputs(planes)
-    cfg = backend.kernel_config(planes, feats)
-    packed_f, layout = features_from_reference(feats, "cuda")
-    words_np = clone_tie_words(random.Random(args.seed + 1),
-                               args.wave * kernels.MAX_TIE_DRAWS + kernels.MAX_TIE_DRAWS)
-    words = torch.from_numpy(words_np.view("int32")).cuda()
-    logtab = torch.from_numpy(kernels.log_weight_table(planes.nb)).cuda()
-    f_views = unpack_features(packed_f, layout)
-
-    k1 = kernels.static_parts(dev_planes, dev_tables, packed_f, layout)
-    k1_ref = kernels.static_parts_ref(dev_planes, dev_tables, f_views)
-    torch.cuda.synchronize()
-    err1 = max_abs_err((k1[k], k1_ref[k]) for k in k1)
-    for k in k1:
-        if not torch.equal(k1[k], k1_ref[k]):
-            fail(f"static_parts.{k} differs from its plain version")
-    k2 = kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout, words, 0, logtab)
-    k2_ref = kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, words, 0, logtab)
-    torch.cuda.synchronize()
-    err2 = max_abs_err(zip(k2, k2_ref))
-    for name, a, b in zip(("packed", "used", "nonzero_used", "sel_counts"), k2, k2_ref):
-        if not torch.equal(a, b):
-            fail(f"assign_scan {name} differs from its plain version")
-    winners = k2[0][: args.wave]
-    print(f"compare wave: {int((winners >= 0).sum())}/{args.wave} placed, "
-          f"tie words consumed {int(k2[0][-2])}, overflow {int(k2[0][-1])}")
+    w = wave_inputs(backend, cmp_pods, snap, args.wave)
+    words = tie_words(args.seed + 1, args.wave)
+    err1 = err2 = 0.0
+    out = {}
+    for dedup in (True, False):
+        e1, e2, k1, o = compare_wave(f"SchedulingBasic, dedup {dedup}", w, words, dedup)
+        err1, err2 = max(err1, e1), max(err2, e2)
+        out[dedup] = (k1, o)
+        # the tie stream's edge cases on the same wave: every draw rejected
+        # (overflow), and a 3-word stream whose reads clamp to its last word
+        for label, edge in (("all-ones words", torch.full_like(words, -1)),
+                            ("3-word stream", words[:3].clone())):
+            _, e, _, got = compare_wave(f"{label}, dedup {dedup}", w, edge, dedup)
+            err2 = max(err2, e)
+            print(f"compare wave, {label}, dedup {dedup}: tie words consumed "
+                  f"{int(got['packed'][-2])}, overflow {int(got['packed'][-1])}")
+    winners = out[True][1]["packed"][: args.wave]
+    if not torch.equal(winners, out[False][1]["packed"][: args.wave]):
+        fail("the compare wave's dedup and non-dedup winners differ")
+    print(f"compare wave: {int((winners >= 0).sum())}/{args.wave} placed, tie words "
+          f"consumed {int(out[True][1]['packed'][-2])}, signatures {int(w.sig.max()) + 1}, "
+          f"K2 tiers [full, replay] {out[True][1]['tiers'].tolist()}")
     if int((winners >= 0).sum()) != args.wave:
         fail("the compare wave did not place every pod")
-    # the tie stream's edge cases on the same wave: every draw rejected
-    # (overflow), and a 3-word stream whose reads clamp to its last word
-    for label, edge in (("all-ones words", torch.full_like(words, -1)),
-                        ("3-word stream", words[:3].clone())):
-        got = kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout, edge, 0, logtab)
-        want = kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, edge, 0, logtab)
-        torch.cuda.synchronize()
-        err2 = max(err2, max_abs_err(zip(got, want)))
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            fail(f"assign_scan with {label} differs from its plain version")
-        print(f"compare wave, {label}: tie words consumed {int(got[0][-2])}, "
-              f"overflow {int(got[0][-1])}")
 
     # K3 on the rows that wave's placements dirty
-    for pod, w in zip(cmp_pods, winners.tolist()):
-        cache.assume_pod(pod, planes.node_names[w])
+    planes = w.planes
+    for pod, win in zip(cmp_pods, winners.tolist()):
+        cache.assume_pod(pod, planes.node_names[win])
     cache.update_snapshot(snap)
     planes = backend.sync(snap)
     idx_np = np.array(sorted(set(winners.tolist())), np.int32)
     host = planes.as_dict()
     rows = planes_from_reference({k: host[k][idx_np] for k in SLICE_PLANES}, "cuda")
     idx = torch.from_numpy(idx_np).cuda()
-    k3 = {k: dev_planes[k].clone() for k in SLICE_PLANES}
-    k3_ref = {k: dev_planes[k].clone() for k in SLICE_PLANES}
+    k3 = {k: w.dp[k].clone() for k in SLICE_PLANES}
+    k3_ref = {k: w.dp[k].clone() for k in SLICE_PLANES}
     kernels.scatter_rows(k3, rows, idx)
     kernels.scatter_rows_ref(k3_ref, rows, idx)
     torch.cuda.synchronize()
@@ -302,61 +437,43 @@ def main() -> None:
         h = host[k].view("int32") if host[k].dtype.name == "uint32" else host[k]
         if not torch.equal(k3[k].cpu(), torch.from_numpy(np.ascontiguousarray(h))):
             fail(f"scattered plane {k} differs from the host plane")
-    print(f"compare: static_parts, assign_scan, scatter_rows equal to their plain "
-          f"versions, tolerance 0 (exact; integer outputs) ({len(idx_np)} dirty rows)")
+    print(f"compare: static_parts, assign_scan (both tiers), scatter_rows equal to their "
+          f"plain versions, tolerance 0 (exact; integer outputs) ({len(idx_np)} dirty rows)")
 
-    # timings on the same inputs
-    ms1 = time_ms(lambda: kernels.static_parts(dev_planes, dev_tables, packed_f, layout), 20)
-    ms1p = time_ms(lambda: kernels.static_parts_ref(dev_planes, dev_tables, f_views), 5)
-    ms2 = time_ms(lambda: kernels.assign_scan(cfg, dev_planes, k1, packed_f, layout,
-                                              words, 0, logtab), 10)
-    ms2p = time_ms(lambda: kernels.assign_scan_ref(cfg, dev_planes, k1, f_views, words,
-                                                   0, logtab), 1, warmup=0)
-    ms3 = time_ms(lambda: kernels.scatter_rows(k3, rows, idx), 50)
+    # timings on the same inputs: K1 as the main path calls it (over the
+    # signature rows) and over every pod; K2 with dedup (the main path) and
+    # without; K3 on the wave's dirty rows and on one row
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    f_sig = unpack_features(w.packed_f[w.uniq.long()], w.layout)
+    ms1 = kernel_ms(lambda: k1_call(w, True), "static_parts_kernel", 20)
+    ms1_all = kernel_ms(lambda: k1_call(w, False), "static_parts_kernel", 20)
+    ms1p = time_ms(lambda: kernels.static_parts_ref(w.dp, w.dt, f_sig), 5)
+    k2 = {dedup: time_k2("SchedulingBasic", w, out[dedup][0], words, out[dedup][1], dedup,
+                         5 if dedup else 3) for dedup in (True, False)}
+    ms3 = kernel_ms(lambda: kernels.scatter_rows(k3, rows, idx), "scatter_rows_kernel", 50)
     ms3p = time_ms(lambda: kernels.scatter_rows_ref(k3_ref, rows, idx), 20)
-    # the kernels alone (profiler); the event times above include the
-    # wrapper's host work between the two events
-    dev_ms = {
-        "static_parts": kernel_ms(lambda: kernels.static_parts(
-            dev_planes, dev_tables, packed_f, layout), "static_parts_kernel", 20),
-        "assign_scan": kernel_ms(lambda: kernels.assign_scan(
-            cfg, dev_planes, k1, packed_f, layout, words, 0, logtab),
-            "assign_scan_kernel", 5),
-        "scatter_rows": kernel_ms(lambda: kernels.scatter_rows(k3, rows, idx),
-                                  "scatter_rows_kernel", 50),
-    }
-    print(f"event ms around the wrapper calls: static_parts {ms1:.4f}, "
-          f"assign_scan {ms2:.4f}, scatter_rows {ms3:.4f}")
-    print(f"profiler kernel ms: {dev_ms}")
-    ms1 = dev_ms["static_parts"] if dev_ms["static_parts"] is not None else ms1
-    ms2 = dev_ms["assign_scan"] if dev_ms["assign_scan"] is not None else ms2
-    ms3 = dev_ms["scatter_rows"] if dev_ms["scatter_rows"] is not None else ms3
-    # K3 as the single-pod cycle launches it: one dirty row of every plane
     rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
     ms3_row = kernel_ms(lambda: kernels.scatter_rows(k3, rows1, idx1),
                         "scatter_rows_kernel", 50)
-    if ms3_row is None:
-        ms3_row = time_ms(lambda: kernels.scatter_rows(k3, rows1, idx1), 50)
-    print(f"scatter_rows on one dirty row: {ms3_row:.5f} ms")
+    if None in (ms1, ms1_all, ms3, ms3_row):
+        fail("the profiler trace shows no device time for a kernel")
+    print(f"static_parts over {len(w.uniq)} signature rows {ms1:.4f} ms, over "
+          f"{args.wave} pods {ms1_all:.4f} ms; scatter_rows on one dirty row "
+          f"{ms3_row:.5f} ms")
 
-    P, nb = args.wave, planes.nb
-    active = int(f_views["active"].sum())
-    b1 = (nbytes(*(dev_planes[k] for k in ("valid", "unsched", "group_id", "taints",
-                                            "prefer_taints", "port_words", "image_kib")))
-          + nbytes(*dev_tables.values()) + nbytes(packed_f) + nbytes(*k1.values()))
-    b2 = (active * nb * (1 + 4 + 4 + 4) + nbytes(dev_planes["alloc"], dev_planes["domain"])
-          + 2 * nbytes(dev_planes["used"], dev_planes["nonzero_used"], dev_planes["sel_counts"])
-          + nbytes(packed_f, words, logtab, k2[0]))
-    # float32 work of K2: balanced (~11 ops) and the spread cost (2 ops per
-    # constraint) per feasible node and pod; all nodes feasible here
-    f2 = active * planes.n * (11 + 2 * 2)
+    b1 = (nbytes(*(w.dp[k] for k in ("valid", "unsched", "group_id", "taints",
+                                      "prefer_taints", "port_words", "image_kib")))
+          + nbytes(*w.dt.values()) + len(w.uniq) * w.packed_f.shape[1] * 4
+          + nbytes(w.uniq, *out[True][0].values()))
     b3 = nbytes(idx) + 2 * nbytes(*rows.values())
     rows_out = []
     for name, src, repl, err, ms, msp, (bd, by) in (
         ("static_parts", "kubernetes_tpu_torch/ops/csrc/static_parts.cu",
          "kubernetes_tpu/ops/kernels.py:774", err1, ms1, ms1p, bound_ms(b1, 0)),
         ("assign_scan", "kubernetes_tpu_torch/ops/csrc/assign_scan.cu",
-         "kubernetes_tpu/ops/kernels.py:1369", err2, ms2, ms2p, bound_ms(b2, f2)),
+         "kubernetes_tpu/ops/kernels.py:1369", err2, k2[True]["ms"], k2[True]["plain_ms"],
+         (k2[True]["bound_ms"], k2[True]["bound_by"])),
         ("scatter_rows", "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
          "kubernetes_tpu/scheduler/tpu/backend.py:58", err3, ms3, ms3p, bound_ms(b3, 0)),
     ):
@@ -364,31 +481,33 @@ def main() -> None:
                          "launches": launches[name], "max_abs_err": err, "ms": ms,
                          "plain_ms": msp, "bound_ms": bd, "bound_by": by,
                          "library_ms": None})
-        print(f"{name}: {ms:.4f} ms (plain {msp:.3f} ms, bound {bd:.4f} ms by {by}), "
+        print(f"{name}: {ms:.4f} ms (plain {msp:.3f} ms, bound {bd:.5f} ms by {by}), "
               f"{launches[name]} launches on the main path")
     # estimate: each measured wave runs K1 + K2 and one K3
-    busy = (ms1 + ms2 + ms3) * n_waves
+    busy = (ms1 + k2[True]["ms"] + ms3) * n_waves
     print(f"device busy share of the measured waves ((K1 + K2 + K3 kernel time) "
           f"x waves / wave wall): {busy / (sum(walls) * 1e3):.3f}")
 
-    # 5. small mixed cluster: card vs CPU plain path
+    # 5. mixed clusters: card vs CPU plain path, hard spread and IPA in the waves
     import kubernetes_tpu_torch.api.meta as meta
     import kubernetes_tpu_torch.api.types as types
     from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
 
-    cases = [(mixed_spec(7, 64, 120), pa) for pa in (
+    cases = [(mixed_spec(7, 64, 120, constraints=True), pa) for pa in (
         None, {"NodeResourcesFit": {"strategy": "MostAllocated"}},
         {"NodeResourcesFit": {"strategy": "RequestedToCapacityRatio",
                               "shape": [[0, 100], [50, 20], [100, 0]]}})]
     # 16 nodes: one partly used ballot word; 300 and 1500 nodes: 512- and
     # 2048-row buckets (the latter two 1024-node rounds with a ragged tail)
-    cases += [(mixed_spec(9, 16, 40), None), (mixed_spec(10, 300, 200), None),
-              (mixed_spec(8, 1500, 240), None)]
+    cases += [(mixed_spec(9, 16, 40, constraints=True), None),
+              (mixed_spec(10, 300, 200, constraints=True), None),
+              (mixed_spec(8, 1500, 240, constraints=True), None)]
     # a repeated RTC breakpoint and fit weights over an extended resource
-    cases.append((mixed_spec(11, 64, 120), {"NodeResourcesFit": {
+    cases.append((mixed_spec(11, 64, 120, constraints=True), {"NodeResourcesFit": {
         "strategy": "RequestedToCapacityRatio",
         "shape": [[0, 100], [40, 60], [40, 30], [100, 0]],
         "resources": {"cpu": 1, "memory": 2, "example.com/dev": 3}}}))
+    t0 = time.perf_counter()
     for spec, pa in cases:
         results = []
         for device in ("cuda", "cpu"):
@@ -403,24 +522,30 @@ def main() -> None:
             r = None if len(spec["nodes"]) == 16 else random.Random(3)
             got_all = []
             pods = build_pods(spec, types, meta)
-            for w in range(0, len(pods), 24):
-                wave = pods[w: w + 24]
-                got, _ = b.run_batched(wave, s, rng=r, pad_to=32)
-                for pod, node in zip(wave, got):
+            for i in range(0, len(pods), 24):
+                chunk = pods[i: i + 24]
+                got, _ = b.run_batched(chunk, s, rng=r, pad_to=32)
+                for pod, node in zip(chunk, got):
                     if node is not None:
                         c.assume_pod(pod, node)
                 c.update_snapshot(s)
                 got_all += got
-            results.append((got_all, r and r.getstate()))
+            results.append((got_all, r and r.getstate(), b.tier_steps.tolist()))
         if results[0] != results[1]:
             fail(f"mixed cluster ({len(spec['nodes'])} nodes, {pa}): card and "
                  "CPU plain path disagree")
-    print("mixed clusters: card == CPU plain path (64 nodes x 4 scoring "
-          "configs; 16 nodes without an rng; 300 and 1500 nodes)")
+    print(f"mixed clusters with hard spread and IPA, dedup on: card == CPU plain path "
+          f"(64 nodes x 4 scoring configs; 16 nodes without an rng; 300 and 1500 "
+          f"nodes), {time.perf_counter() - t0:.1f} s")
 
-    # 6-8. the single-pod cycle (K4)
+    # 6-10. TopologySpreading (single-pod path, then waves), IPA, K4
     launches6, state6 = topology_spreading(args)
-    k4 = k4_against_plain(args, state6)
+    waves7 = spreading_waves(args)
+    print(f"TopologySpreading measured pods/s: waves {waves7['pods_s']:.1f} "
+          f"(run_batched alone {waves7['run_pods_s']:.1f}), single-pod path "
+          f"{state6['pods_s']:.1f}")
+    ipa8, cluster8 = ipa_wave(args)
+    k4 = k4_against_plain(args, state6, cluster8)
     cycle_card_vs_cpu(args)
     rows_out.append({"name": "fit_and_score", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
@@ -429,6 +554,14 @@ def main() -> None:
     print(f"device busy share of the measured single-pod cycle ((K4 + one-row K3 "
           f"kernel time) x pods / wall): "
           f"{(k4['ms'] + ms3_row) * args.spread_pods / (state6['wall_s'] * 1e3):.4f}")
+    print("assign_scan per configuration (profiler ms, plain ms, bound ms): "
+          + "; ".join(f"{k} {v['ms']:.4f} / {v['plain_ms']:.1f} / {v['bound_ms']:.5f}"
+                      for k, v in (("SchedulingBasic dedup", k2[True]),
+                                   ("SchedulingBasic no dedup", k2[False]),
+                                   ("TopologySpreading dedup", waves7["k2"]),
+                                   ("IPA wave dedup", ipa8))))
+    print(f"launches on the TopologySpreading wave path: {waves7['launches']}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -438,7 +571,7 @@ def main() -> None:
 
 
 # --------------------------------------------------------------------------
-# 6-8: the single-pod scheduling cycle
+# 6-10: TopologySpreading, inter-pod affinity, the single-pod cycle
 # --------------------------------------------------------------------------
 
 
@@ -524,7 +657,135 @@ def topology_spreading(args):
           + ", ".join(f"{k} {v * 1e3 / args.spread_pods:.4f}" for k, v in phases.items())
           + f", assume + snapshot {assume_s * 1e3 / args.spread_pods:.4f}")
     print(f"upload: {backend.upload_stats}")
-    return launches, {"snap": snap, "backend": backend, "wall_s": wall}
+    return launches, {"snap": snap, "backend": backend, "wall_s": wall,
+                      "pods_s": args.spread_pods / wall}
+
+
+def spreading_waves(args):
+    """7. TopologySpreading/5000Nodes_5000Pods through the wave path: a
+    fresh Cache, the initial pods, then the measured app: spread pods
+    through run_batched in waves (hard spread in the scan, dedup on),
+    assuming each wave; every pod must land and the zone skew end <= 1.
+    Then K1/K2 against their plain versions on one more full-width wave of
+    spread pods, both tiers, and K2 timed."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.wrappers import (
+        scheduling_basic_node, scheduling_basic_pod, topology_spreading_pod)
+
+    cache = Cache(ResourceNames())
+    for i in range(args.spread_nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(cache.names, device="cuda")
+    rng = random.Random(args.seed)
+    init = [scheduling_basic_pod(i) for i in range(args.spread_init)]
+    measured = [topology_spreading_pod(i) for i in range(args.spread_pods)]
+    place_waves(backend, cache, snap, init, args.wave, rng, "TopologySpreading waves")
+    tiers0 = backend.tier_steps.tolist()
+    stats0 = dict(backend.dedup_stats)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    walls = place_waves(backend, cache, snap, measured, args.wave, rng,
+                        "TopologySpreading waves")
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    for k in ("static_parts", "assign_scan"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} never launched on the TopologySpreading wave path")
+    if cache.pod_count() != args.spread_init + args.spread_pods:
+        fail(f"{cache.pod_count()} pods in the cache")
+    per_zone = [0] * args.zones
+    for pod in measured:
+        per_zone[int(cache._pod_nodes[pod.meta.key].split("-")[1]) % args.zones] += 1
+    if max(per_zone) - min(per_zone) > 1:
+        fail(f"zone skew {max(per_zone) - min(per_zone)} > 1 on the wave path")
+    tiers = [a - b for a, b in zip(backend.tier_steps.tolist(), tiers0)]
+    sigs = backend.dedup_stats["signatures"] - stats0["signatures"]
+    wall = t2 - t1
+    print(f"TopologySpreading through waves: {args.spread_pods} measured pods in "
+          f"{len(walls)} waves of {args.wave}, {wall:.3f} s = {args.spread_pods / wall:.1f} "
+          f"pods/s incl. assume + snapshot (run_batched alone "
+          f"{args.spread_pods / sum(walls):.1f}); pods per zone {per_zone}; "
+          f"{sigs} signatures; K2 steps [full, replay] {tiers}; launches {launches}")
+    # one more full-width wave of spread pods on the final state
+    w = wave_inputs(backend, [topology_spreading_pod(10**6 + i) for i in range(args.wave)],
+                    snap, args.wave)
+    if w.cfg.n_hard != 1:
+        fail(f"the spread compare wave has n_hard {w.cfg.n_hard}")
+    words = tie_words(args.seed + 2, args.wave)
+    outs = {dedup: compare_wave(f"TopologySpreading wave, dedup {dedup}", w, words, dedup)
+            for dedup in (True, False)}
+    k1, out = outs[True][2], outs[True][3]
+    print(f"TopologySpreading compare wave: K1, K2 == plain (both tiers); "
+          f"{int((out['packed'][:-2] >= 0).sum())}/{args.wave} placed")
+    return {"pods_s": args.spread_pods / wall, "run_pods_s": args.spread_pods / sum(walls),
+            "launches": launches,
+            "k2": time_k2("TopologySpreading", w, k1, words, out, True, 3)}
+
+
+def ipa_cluster(args):
+    """The mixed 5000-node cluster with existing (anti)affinity pods that
+    phases 8 and 9 share: (backend, snapshot, pods beyond the existing)."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
+
+    t0 = time.perf_counter()
+    spec = mixed_spec(args.seed + 40, args.ipa_nodes,
+                      args.ipa_existing + 64 + args.wave // 2, constraints=True)
+    cache = Cache(ResourceNames())
+    nodes = build_nodes(spec, types, meta)
+    for n in nodes:
+        cache.add_node(n)
+    pods = build_pods(spec, types, meta)
+    backend = TorchBackend(cache.names, device="cuda")
+    for i, pod in enumerate(pods[: args.ipa_existing]):
+        backend.extractor.register(pod)
+        cache.assume_pod(pod, nodes[(7 * i) % len(nodes)].meta.name)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    print(f"mixed IPA cluster: {args.ipa_nodes} nodes, {args.ipa_existing} existing "
+          f"pods, {time.perf_counter() - t0:.1f} s")
+    return backend, snap, spec, pods[args.ipa_existing:]
+
+
+def ipa_wave(args):
+    """8. Inter-pod affinity in the scan: on the mixed cluster, one
+    full-width wave interleaving the repeating IPA shapes of ipa_pods and
+    the cluster's own mixed pods (hard spread, affinity, anti-affinity,
+    preferred terms); K1 and K2 against their plain versions, both tiers;
+    K2 timed. Returns (K2 timing, the cluster for phase 9)."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import ipa_pods
+
+    cluster = ipa_cluster(args)
+    backend, snap, _spec, rest = cluster
+    half = args.wave // 2
+    shaped = ipa_pods(half, types, meta)
+    mixed = rest[64: 64 + half]
+    wave = [p for pair in zip(shaped, mixed) for p in pair]
+    w = wave_inputs(backend, wave, snap, args.wave)
+    if not (w.cfg.ipa_active and w.cfg.ipa_existing_anti and w.cfg.n_ipa_aff
+            and w.cfg.n_ipa_anti and w.cfg.n_ipa_pref):
+        fail(f"the IPA wave does not exercise every IPA term kind: {w.cfg}")
+    words = tie_words(args.seed + 3, args.wave)
+    outs = {dedup: compare_wave(f"IPA wave, dedup {dedup}", w, words, dedup)
+            for dedup in (True, False)}
+    k1, out = outs[True][2], outs[True][3]
+    print(f"IPA compare wave: K1, K2 == plain (both tiers); "
+          f"{int((out['packed'][:-2] >= 0).sum())}/{len(wave)} placed; n_hard "
+          f"{w.cfg.n_hard}, ipa aff/anti/pref {w.cfg.n_ipa_aff}/{w.cfg.n_ipa_anti}/"
+          f"{w.cfg.n_ipa_pref}, existing anti/pref {int(w.cfg.ipa_existing_anti)}/"
+          f"{int(w.cfg.ipa_existing_pref)}")
+    return time_k2("IPA wave", w, k1, words, out, True, 3), cluster
 
 
 def _k4_case(backend, pods, snap):
@@ -626,22 +887,16 @@ def k4_work(cfg, planes, tables, f, packed_f, out_bytes):
     return b, nb * (11 + 2 * n_soft_on)
 
 
-def k4_against_plain(args, state):
-    """7. K4 against its plain version on the card at full width, exact
+def k4_against_plain(args, state, cluster):
+    """9. K4 against its plain version on the card at full width, exact
     equality of every output: (a) a TopologySpreading measured pod on the
     final state, (b) a SchedulingBasic pod (system-default soft spread),
-    (c) pods with every IPA term kind on a mixed cluster with existing
-    (anti)affinity pods, taints, ports and images, (d) a pod that fits
-    nowhere, (e) three of them in one launch (one block per pod). Then K4
-    and its plain version timed on (a)'s inputs."""
-    import kubernetes_tpu_torch.api.meta as meta
-    import kubernetes_tpu_torch.api.types as types
-    from kubernetes_tpu_torch.api.resource import ResourceNames
+    (c) pods with every IPA term kind on phase 8's mixed cluster with
+    existing (anti)affinity pods, taints, ports and images, (d) a pod that
+    fits nowhere, (e) three of them in one launch (one block per pod). Then
+    K4 and its plain version timed on (a)'s inputs."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.planes import unpack_features
-    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
-    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
-    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
     from kubernetes_tpu_torch.testing.wrappers import (
         make_pod, scheduling_basic_pod, topology_spreading_pod)
 
@@ -664,23 +919,10 @@ def k4_against_plain(args, state):
                            make_pod("huge2", cpu="100000", mem="50Mi")], snap)
     err = max(err, e)
 
-    # (c) a mixed cluster at full width with existing (anti)affinity pods
-    t0 = time.perf_counter()
-    spec = mixed_spec(args.seed + 40, args.ipa_nodes, args.ipa_existing + 64,
-                      constraints=True)
-    cache = Cache(ResourceNames())
-    nodes = build_nodes(spec, types, meta)
-    for n in nodes:
-        cache.add_node(n)
-    pods = build_pods(spec, types, meta)
-    mixed = TorchBackend(cache.names, device="cuda")
-    for i, pod in enumerate(pods[: args.ipa_existing]):
-        mixed.extractor.register(pod)
-        cache.assume_pod(pod, nodes[(7 * i) % len(nodes)].meta.name)
-    msnap = Snapshot()
-    cache.update_snapshot(msnap)
+    # (c) phase 8's mixed cluster at full width with existing (anti)affinity pods
+    mixed, msnap, spec, rest = cluster
     kinds = set()
-    for pod in pods[args.ipa_existing:]:
+    for pod in rest:
         s = spec["pods"][int(pod.meta.name[1:])]
         k = {kind for kind in ("aff", "anti", "pref", "hard") if s[kind]}
         if not k - kinds:
@@ -690,8 +932,6 @@ def k4_against_plain(args, state):
         err = max(err, e)
     if not {"aff", "anti", "pref", "hard"} <= kinds:
         fail(f"the mixed compare pods lack IPA/spread kinds: {kinds}")
-    print(f"mixed K4 compare cluster: {args.ipa_nodes} nodes, {args.ipa_existing} "
-          f"existing pods, {time.perf_counter() - t0:.1f} s")
 
     # timings on (a)'s inputs: the main path's shape
     cfg, planes, dev_planes, dev_tables, packed_f, layout = case_a
@@ -718,7 +958,7 @@ def k4_against_plain(args, state):
 
 
 def cycle_card_vs_cpu(args):
-    """8. The card against the CPU plain path through schedule_pod on mixed
+    """10. The card against the CPU plain path through schedule_pod on mixed
     clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
     equal evaluated/feasible counts, equal final rng state, equal FitError
     messages and failing plugins."""

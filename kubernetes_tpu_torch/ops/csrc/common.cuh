@@ -31,7 +31,9 @@ __host__ __device__ inline int clampi(int x, int lo, int hi) {
 
 // K1 static_parts: dims + packed-feature column offsets
 struct StaticParams {
-    int P, Nb, T, Tp, W, I, A, G, F;
+    int P;        // output rows (pods, or signature rows with dedup)
+    int P_feats;  // rows of the packed feature buffer
+    int Nb, T, Tp, W, I, A, G, F;
     int f_tol_unsched, f_name_idx, f_aff_pin, f_tol, f_aff_sig, f_ports,
         f_has_ports, f_tol_prefer, f_img_idx, f_num_containers;
 };
@@ -40,13 +42,19 @@ struct StaticParams {
 #define SCAN_MAX_RTC 16
 #define SCAN_MAX_KEYS 16
 #define SCAN_MAX_SOFT 4
-#define SCAN_MAX_DOM 1024
 
 // K2 assign_scan: dims, feature offsets and the static KernelConfig
 struct ScanParams {
-    int P, Nb, R, K, S, F, MC, L, cursor0;
-    int f_req, f_nz_req, f_soft_active, f_soft_key, f_soft_sel, f_sig_match,
-        f_active;
+    int P, Nb, R, K, S, F, MC, L;
+    int Ta;  // IPA term columns (0 when inter-pod affinity is off)
+    int D;   // words per domain table: max(1, max topo_dk)
+    int G;   // signature rows (0: the non-dedup tier)
+    int CT;  // spread slots per signature table row: max(1, n_soft)
+    int cursor0;
+    int f_req, f_nz_req, f_soft_active, f_soft_key, f_soft_sel, f_hard_active,
+        f_hard_key, f_hard_sel, f_hard_skew, f_hard_self, f_sig_match, f_active,
+        f_ipa_match, f_ipa_anti_add, f_ipa_pref_add, f_ipa_aff_t, f_ipa_aff_self,
+        f_ipa_anti_t, f_ipa_pref_t, f_ipa_pref_w;
     int strategy;  // 0 LeastAllocated, 1 MostAllocated, 2 RequestedToCapacityRatio
     int n_fit;
     int fit_col[SCAN_MAX_FIT];
@@ -55,8 +63,14 @@ struct ScanParams {
     int rtc_x[SCAN_MAX_RTC];
     int rtc_y[SCAN_MAX_RTC];
     int bal_a, bal_b;
-    int w_fit, w_bal, w_pts, w_img, w_taint, w_aff;
-    int n_soft;  // constraint slots traced (min(max_constraints, cfg.n_soft))
+    int w_fit, w_bal, w_pts, w_ipa, w_img, w_taint, w_aff;
+    // traced slot counts (min(max_constraints, cfg.n_*), term slot caps)
+    int n_hard, n_soft, n_ipa_aff, n_ipa_anti, n_ipa_pref;
+    int ipa_active;   // the IPA planes ride the carry, filters and score on
+    int ex_anti;      // existing (or this wave's) pods carry anti-affinity terms
+    int ex_pref;      // the InterPodAffinity score is computed at all
+    int ex_pref_add;  // ... and adds the existing pods' preferred terms
+    int dom_carry;    // hard slots and a non-singleton key: carry dom_counts
     int topo_dk[SCAN_MAX_KEYS];
 };
 

@@ -36,41 +36,15 @@
 // multiplies by a one-hot float32 matrix at HIGHEST precision), in one
 // dynamic shared-memory pool of D-word tables reused between the filter
 // and score phases. The existing pods' [Nb, Ta] x [Ta] products are per-node
-// int32 loops over the term table. Numerics: scoring.cuh.
+// int32 loops over the term table. The slots and the InterPodAffinity
+// passes are scoring.cuh's, shared with K2; numerics as there.
 #include "scoring.cuh"
 
 #define NT 1024
 #define NWARPS (NT / 32)
 #define RED 16
-#define MAX_REQ_TERMS 4
-#define MAX_PREF_TERMS 8
 #define N_PLUGINS 7
 #define BIG 2147483647
-
-// one spread-constraint or IPA-term slot of the pod, resolved by thread 0
-struct Slot {
-    int on;   // traced and active
-    int key;  // topology key slot; -1 when outside the planes (no node has it)
-    int dk;   // 0 = singleton key (the domain is the node), else table size
-    int col;  // selector column (spread) or term column (IPA)
-    int a;    // spread: max skew; IPA affinity: matches itself; preferred: weight
-    int b;    // spread: the pod matches its own selector
-};
-
-// sum of `row[t]` over the terms on key slot k that match the pod: the
-// existing pods' side of the reference's [Nb, Ta] x [Ta] float32 matvec
-__device__ __forceinline__ int term_col(const FitParams& p, const int* row,
-                                        const int* f, const int* tkey, int k) {
-    int s = 0;
-    for (int t = 0; t < p.Ta; ++t) {
-        if (f[p.f_ipa_match + t] && tkey[t] == k) s = wadd(s, row[t]);
-    }
-    return s;
-}
-
-__device__ __forceinline__ int dom_at(const int* dom_row, const Slot& s) {
-    return s.key >= 0 ? dom_row[s.key] : -1;
-}
 
 __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
     FitParams p, const int* __restrict__ alloc, const int* __restrict__ used,
@@ -114,61 +88,19 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
     const int n_score_tables = base_xp + (p.ex_pref_add ? p.K : 0);
     auto table = [&](int i) { return pool + (size_t)i * D; };
 
-    if (tid == 0) {
-        int anys = 0;
-        for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
-            for (int kind = 0; kind < 2; ++kind) {
-                const int act = kind == 0 ? p.f_hard_active : p.f_soft_active;
-                const int fkey = kind == 0 ? p.f_hard_key : p.f_soft_key;
-                const int fsel = kind == 0 ? p.f_hard_sel : p.f_soft_sel;
-                Slot s = {0, -1, 0, 0, 0, 0};
-                if (c < p.MC) {
-                    if (kind == 1) anys |= f[act + c] != 0;
-                    s.on = c < (kind == 0 ? nh : ns) && f[act + c] != 0;
-                    const int key = f[fkey + c];
-                    s.key = (key >= 0 && key < p.K) ? key : -1;
-                    s.dk = s.key >= 0 ? p.topo_dk[s.key] : 0;
-                    s.col = clampi(f[fsel + c], 0, p.S - 1);
-                    if (kind == 0) {
-                        s.a = f[p.f_hard_skew + c];
-                        s.b = f[p.f_hard_self + c];
-                    }
-                }
-                (kind == 0 ? hard : soft)[c] = s;
-            }
+    if (tid < 32) {  // warp 0: the pod's slots, the key slots its matching terms use
+        pod_slots(p, f, ipa_term_key, true, hard, soft, anti, aff, pref);
+        const bool anys = any_column(f, p.f_soft_active, p.MC);
+        const int bits = matched_key_mask(p, f, ipa_term_key);
+        if (tid == 0) {
+            any_soft = anys;
+            exmask = bits;
         }
-        any_soft = anys;
-        for (int kind = 0; kind < 3; ++kind) {
-            const int n = kind == 2 ? MAX_PREF_TERMS : MAX_REQ_TERMS;
-            const int traced = kind == 0 ? na : (kind == 1 ? nfa : np);
-            const int ft = kind == 0 ? p.f_ipa_anti_t : (kind == 1 ? p.f_ipa_aff_t : p.f_ipa_pref_t);
-            Slot* dst = kind == 0 ? anti : (kind == 1 ? aff : pref);
-            for (int s = 0; s < n; ++s) {
-                const int t = f[ft + s];
-                Slot q = {0, -1, 0, 0, 0, 0};
-                q.on = s < traced && t >= 0;
-                // jnp.take of clip(t, 0): an inactive slot reads term 0
-                q.col = clampi(t, 0, p.Ta - 1);
-                const int key = ipa_term_key[q.col];
-                q.key = (key >= 0 && key < p.K) ? key : -1;
-                q.dk = q.key >= 0 ? p.topo_dk[q.key] : 0;
-                if (kind == 1) q.a = f[p.f_ipa_aff_self + s];
-                if (kind == 2) q.a = f[p.f_ipa_pref_w + s];
-                dst[s] = q;
-            }
-        }
-    }
-    if (tid < 32) {  // warp 0: key slots that some term matching the pod uses
-        unsigned bits = 0;
-        for (int t = tid; t < p.Ta; t += 32) {
-            const int k = ipa_term_key[t];
-            if (f[p.f_ipa_match + t] && k >= 0 && k < p.K) bits |= 1u << k;
-        }
-        bits = __reduce_or_sync(FULL_MASK, bits);
-        if (tid == 0) exmask = (int)bits;
     }
     for (int i = tid; i < n_filter_tables * D; i += NT) pool[i] = 0;
     __syncthreads();
+    const Ipa ipa = {anti, aff, pref, na, nfa, np, exmask, D, table(base_anti), table(base_pref),
+                     ipa_counts, ipa_anti, ipa_pref, ipa_term_key};
 
     const int sig = clampi(f[p.f_aff_sig], 0, p.A - 1);
     const int name_idx = f[p.f_name_idx], pin = f[p.f_aff_pin];
@@ -192,22 +124,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
                 atomicAdd(&table(nh + c)[dc], 1);
             }
         }
-        for (int s = 0; s < na + nfa; ++s) {
-            const Slot q = s < na ? anti[s] : aff[s - na];
-            const int d = dom_at(dom_row, q);
-            if (!q.on || d < 0) continue;
-            const int cnt = ipa_counts[(size_t)n * p.Ta + q.col];
-            if (s >= na) v[4 + s - na] = max(v[4 + s - na], cnt > 0 ? 1 : 0);
-            if (q.dk > 0) atomicAdd(&table(base_anti + s)[clampi(d, 0, q.dk - 1)], cnt);
-        }
-        if (p.ex_anti) {
-            for (int k = 0; k < p.K; ++k) {
-                const int dk = p.topo_dk[k], d = dom_row[k];
-                if (!((exmask >> k) & 1) || dk == 0 || d < 0) continue;
-                const int col = term_col(p, ipa_anti + (size_t)n * p.Ta, f, ipa_term_key, k);
-                if (col) atomicAdd(&table(base_xa + k)[clampi(d, 0, dk - 1)], col);
-            }
-        }
+        ipa_filter_stats(p, ipa, f, n, dom_row, v + 4);
     }
     block_reduce<RED>(v, 0xF0u, 0x0Fu, red, res);
     // the hard slots' min_count: over participating nodes for singleton
@@ -276,34 +193,8 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
             any |= miss || skew;
         }
         // InterPodAffinity (filtering.go:352-412)
-        bool ipa1 = false, ipa2 = false, ipa3 = false;
-        if (p.ex_anti) {
-            for (int k = 0; k < p.K && !ipa1; ++k) {
-                const int dk = p.topo_dk[k], d = dom_row[k];
-                if (!((exmask >> k) & 1) || d < 0) continue;
-                const int at = dk == 0 ? (vn ? term_col(p, ipa_anti + (size_t)n * p.Ta, f,
-                                                       ipa_term_key, k) : 0)
-                                       : table(base_xa + k)[clampi(d, 0, dk - 1)];
-                ipa1 = at > 0;
-            }
-        }
-        for (int s = 0; s < na + nfa; ++s) {
-            const bool is_aff = s >= na;
-            const Slot q = is_aff ? aff[s - na] : anti[s];
-            if (!q.on) continue;
-            // affinity self-match bootstrap: a term matching nowhere passes
-            // when the pod matches its own term
-            if (is_aff && !v[4 + s - na] && q.a) continue;
-            const int d = dom_at(dom_row, q);
-            int at = 0;
-            if (d >= 0) {
-                at = q.dk == 0 ? (vn ? ipa_counts[(size_t)n * p.Ta + q.col] : 0)
-                               : table(base_anti + s)[clampi(d, 0, q.dk - 1)];
-            }
-            const bool ok = d >= 0 && at > 0;
-            if (is_aff) ipa3 |= !ok;
-            else ipa2 |= ok;
-        }
+        bool ipa1, ipa2, ipa3;
+        ipa_filters_at(p, ipa, f, n, vn, dom_row, v + 4, ipa1, ipa2, ipa3);
         fails[(size_t)(p.NF - 3) * Nb + n] = ipa1;
         fails[(size_t)(p.NF - 2) * Nb + n] = ipa2;
         fails[(size_t)(p.NF - 1) * Nb + n] = ipa3;
@@ -334,21 +225,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
             atomicAdd(&table(c)[dc], sel_counts[(size_t)n * p.S + s.col]);
             atomicAdd(&table(ns + c)[dc], 1);
         }
-        for (int s = 0; s < np; ++s) {
-            const Slot q = pref[s];
-            const int d = dom_at(dom_row, q);
-            if (!q.on || q.dk == 0 || d < 0) continue;
-            atomicAdd(&table(base_pref + s)[clampi(d, 0, q.dk - 1)],
-                      ipa_counts[(size_t)n * p.Ta + q.col]);
-        }
-        if (p.ex_pref_add) {
-            for (int k = 0; k < p.K; ++k) {
-                const int dk = p.topo_dk[k], d = dom_row[k];
-                if (!((exmask >> k) & 1) || dk == 0 || d < 0) continue;
-                atomicAdd(&table(base_xp + k)[clampi(d, 0, dk - 1)],
-                          term_col(p, ipa_pref + (size_t)n * p.Ta, f, ipa_term_key, k));
-            }
-        }
+        ipa_score_stats(p, ipa, f, n, dom_row);
     }
     __syncthreads();
     // the soft slots' present-domain counts, then their log weights
@@ -392,25 +269,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
             }
         }
         if (ipa_on) {
-            int raw = 0;
-            for (int s = 0; s < np; ++s) {
-                const Slot q = pref[s];
-                const int d = dom_at(dom_row, q);
-                if (!q.on || d < 0) continue;
-                const int at = q.dk == 0 ? (fe ? ipa_counts[(size_t)n * p.Ta + q.col] : 0)
-                                         : table(base_pref + s)[clampi(d, 0, q.dk - 1)];
-                raw = wadd(raw, wmul(q.a, at));
-            }
-            if (p.ex_pref_add) {
-                for (int k = 0; k < p.K; ++k) {
-                    const int dk = p.topo_dk[k], d = dom_row[k];
-                    if (!((exmask >> k) & 1) || d < 0) continue;
-                    const int at = dk == 0 ? (fe ? term_col(p, ipa_pref + (size_t)n * p.Ta, f,
-                                                           ipa_term_key, k) : 0)
-                                           : table(base_xp + k)[clampi(d, 0, dk - 1)];
-                    raw = wadd(raw, at);
-                }
-            }
+            const int raw = ipa_raw_at(p, ipa, f, n, fe, dom_row);
             per[(size_t)5 * Nb + n] = raw;
             if (fe) {
                 mm[2] = max(mm[2], raw);

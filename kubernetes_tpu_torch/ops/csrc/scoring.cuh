@@ -2,7 +2,10 @@
 // assign_scan and K4 fit_and_score include this header, so each formula
 // has one definition. The helpers are templates over the kernel's params
 // struct; they read the same field names (f_* packed-feature offsets, the
-// scoring config) from each.
+// scoring config) from each. Besides the per-node formulas: the pod's
+// spread and inter-pod affinity slots, and the InterPodAffinity passes
+// (per-domain term sums over a participation mask, the three filters, the
+// raw score) that K2 and K4 both run.
 //
 // Numerics as in common.cuh: floordiv() for every integer division, the
 // rounded float32 intrinsics with -fmad=false, and the int32 lines that can
@@ -227,4 +230,237 @@ __device__ __forceinline__ int ipa_normalized(int raw, int mx, int mn) {
     const int spread = wsub(mx, mn);
     if (spread == 0) return mx > 0 ? MAX_NODE_SCORE : 0;
     return floordiv(wmul(MAX_NODE_SCORE, wsub(raw, mn)), max(spread, 1));
+}
+
+// --- the pod's spread and inter-pod affinity slots ----------------------------
+
+#define MAX_REQ_TERMS 4
+#define MAX_PREF_TERMS 8
+
+// one spread-constraint or IPA-term slot of the pod, resolved by thread 0
+struct Slot {
+    int on;   // traced and active
+    int key;  // topology key slot; -1 when outside the planes (no node has it)
+    int dk;   // 0 = singleton key (the domain is the node), else table size
+    int col;  // selector column (spread) or term column (IPA)
+    int a;    // spread: max skew; IPA affinity: matches itself; preferred: weight
+    int b;    // spread: the pod matches its own selector
+};
+
+__device__ __forceinline__ int dom_at(const int* dom_row, const Slot& s) {
+    return s.key >= 0 ? dom_row[s.key] : -1;
+}
+
+// spread constraint slot c of the pod (hard or soft); traced slots are the
+// first n_hard / n_soft of the MC feature columns
+template <typename P>
+__device__ __forceinline__ Slot spread_slot(const P& p, const int* f, bool hard, int c) {
+    Slot s = {0, -1, 0, 0, 0, 0};
+    if (c >= p.MC) return s;
+    const int act = hard ? p.f_hard_active : p.f_soft_active;
+    const int fkey = hard ? p.f_hard_key : p.f_soft_key;
+    const int fsel = hard ? p.f_hard_sel : p.f_soft_sel;
+    s.on = c < (hard ? p.n_hard : p.n_soft) && f[act + c] != 0;
+    const int key = f[fkey + c];
+    s.key = (key >= 0 && key < p.K) ? key : -1;
+    s.dk = s.key >= 0 ? p.topo_dk[s.key] : 0;
+    s.col = clampi(f[fsel + c], 0, p.S - 1);
+    if (hard) {
+        s.a = f[p.f_hard_skew + c];
+        s.b = f[p.f_hard_self + c];
+    }
+    return s;
+}
+
+// inter-pod affinity term slot s of the pod: kind 0 required
+// anti-affinity, 1 required affinity, 2 preferred
+template <typename P>
+__device__ __forceinline__ Slot ipa_slot(const P& p, const int* f, const int* ipa_term_key,
+                                         int kind, int s) {
+    const int traced = kind == 0 ? p.n_ipa_anti : (kind == 1 ? p.n_ipa_aff : p.n_ipa_pref);
+    const int t = f[(kind == 0 ? p.f_ipa_anti_t : (kind == 1 ? p.f_ipa_aff_t : p.f_ipa_pref_t)) + s];
+    Slot q = {0, -1, 0, 0, 0, 0};
+    q.on = s < traced && t >= 0;
+    // jnp.take of clip(t, 0): an inactive slot reads term 0
+    q.col = clampi(t, 0, p.Ta - 1);
+    const int key = ipa_term_key[q.col];
+    q.key = (key >= 0 && key < p.K) ? key : -1;
+    q.dk = q.key >= 0 ? p.topo_dk[q.key] : 0;
+    if (kind == 1) q.a = f[p.f_ipa_aff_self + s];
+    if (kind == 2) q.a = f[p.f_ipa_pref_w + s];
+    return q;
+}
+
+// every slot of the pod into the shared arrays, one slot per lane of warp 0
+// (lanes 0-3 hard, 4-7 soft, with IPA 8-11 anti, 12-15 affinity, 16-23
+// preferred): the slots' feature loads run in parallel, not as one chain.
+// Call from all of warp 0; the caller syncs before reading the arrays.
+template <typename P>
+__device__ __forceinline__ void pod_slots(const P& p, const int* f, const int* ipa_term_key,
+                                          bool ipa, Slot* hard, Slot* soft, Slot* anti,
+                                          Slot* aff, Slot* pref) {
+    const int l = threadIdx.x & 31;
+    if (l < 4) hard[l] = spread_slot(p, f, true, l);
+    else if (l < 8) soft[l - 4] = spread_slot(p, f, false, l - 4);
+    else if (ipa && l < 12) anti[l - 8] = ipa_slot(p, f, ipa_term_key, 0, l - 8);
+    else if (ipa && l < 16) aff[l - 12] = ipa_slot(p, f, ipa_term_key, 1, l - 12);
+    else if (ipa && l < 24) pref[l - 16] = ipa_slot(p, f, ipa_term_key, 2, l - 16);
+}
+
+// whether any of the pod's first n feature columns from `col` is set; call
+// from all 32 lanes of one warp, every lane gets the answer
+__device__ __forceinline__ bool any_column(const int* f, int col, int n) {
+    bool a = false;
+    for (int c = threadIdx.x & 31; c < n; c += 32) a |= f[col + c] != 0;
+    return __any_sync(FULL_MASK, a);
+}
+
+// key slots that some term matching the pod uses, as a bit mask; called by
+// all 32 lanes of one warp, every lane gets the mask
+template <typename P>
+__device__ __forceinline__ int matched_key_mask(const P& p, const int* f,
+                                                const int* ipa_term_key) {
+    unsigned bits = 0;
+    for (int t = threadIdx.x & 31; t < p.Ta; t += 32) {
+        const int k = ipa_term_key[t];
+        if (f[p.f_ipa_match + t] && k >= 0 && k < p.K) bits |= 1u << k;
+    }
+    return (int)__reduce_or_sync(FULL_MASK, bits);
+}
+
+// --- InterPodAffinity passes ---------------------------------------------------
+
+// sum of `row[t]` over the terms on key slot k that match the pod: the
+// existing pods' side of the reference's [Nb, Ta] x [Ta] float32 matvec
+template <typename P>
+__device__ __forceinline__ int term_col(const P& p, const int* row, const int* f,
+                                        const int* tkey, int k) {
+    int s = 0;
+    for (int t = 0; t < p.Ta; ++t) {
+        if (f[p.f_ipa_match + t] && tkey[t] == k) s = wadd(s, row[t]);
+    }
+    return s;
+}
+
+// One pod's inter-pod affinity state in a kernel: its slots (shared
+// arrays), the matched key mask, the carried planes and two D-word table
+// regions of shared memory. Filter tables: the na + nfa required terms,
+// then the existing pods' anti-affinity per key slot; score tables: the np
+// preferred terms, then the existing pods' preferred terms per key slot.
+struct Ipa {
+    const Slot* anti;
+    const Slot* aff;
+    const Slot* pref;
+    int na, nfa, np, exmask, D;
+    int* filt;
+    int* score;
+    const int* counts;  // ipa_counts [Nb, Ta]
+    const int* anti_p;  // ipa_anti [Nb, Ta]
+    const int* pref_p;  // ipa_pref [Nb, Ta]
+    const int* tkey;    // ipa_term_key [Ta]
+};
+
+// filter phase at a valid node: the required terms' per-domain sums and
+// "anywhere" flags (aff_any[s] is max-reduced by the caller), and the
+// existing pods' anti-affinity per key slot (filtering.go:352-412)
+template <typename P>
+__device__ __forceinline__ void ipa_filter_stats(const P& p, const Ipa& q, const int* f, int n,
+                                                 const int* dom_row, int* aff_any) {
+    for (int s = 0; s < q.na + q.nfa; ++s) {
+        const Slot t = s < q.na ? q.anti[s] : q.aff[s - q.na];
+        const int d = dom_at(dom_row, t);
+        if (!t.on || d < 0) continue;
+        const int cnt = q.counts[(size_t)n * p.Ta + t.col];
+        if (s >= q.na) aff_any[s - q.na] = max(aff_any[s - q.na], cnt > 0 ? 1 : 0);
+        if (t.dk > 0) atomicAdd(&q.filt[(size_t)s * q.D + clampi(d, 0, t.dk - 1)], cnt);
+    }
+    if (p.ex_anti) {
+        for (int k = 0; k < p.K; ++k) {
+            const int dk = p.topo_dk[k], d = dom_row[k];
+            if (!((q.exmask >> k) & 1) || dk == 0 || d < 0) continue;
+            const int col = term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k);
+            if (col) atomicAdd(&q.filt[(size_t)(q.na + q.nfa + k) * q.D + clampi(d, 0, dk - 1)], col);
+        }
+    }
+}
+
+// the three checks at node n (vn: n is valid): existing pods' anti-affinity,
+// the pod's anti-affinity, the pod's affinity with the self-match bootstrap
+template <typename P>
+__device__ __forceinline__ void ipa_filters_at(const P& p, const Ipa& q, const int* f, int n,
+                                               bool vn, const int* dom_row, const int* aff_any,
+                                               bool& ipa1, bool& ipa2, bool& ipa3) {
+    ipa1 = ipa2 = ipa3 = false;
+    if (p.ex_anti) {
+        for (int k = 0; k < p.K && !ipa1; ++k) {
+            const int dk = p.topo_dk[k], d = dom_row[k];
+            if (!((q.exmask >> k) & 1) || d < 0) continue;
+            const int at = dk == 0 ? (vn ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
+                                   : q.filt[(size_t)(q.na + q.nfa + k) * q.D + clampi(d, 0, dk - 1)];
+            ipa1 = at > 0;
+        }
+    }
+    for (int s = 0; s < q.na + q.nfa; ++s) {
+        const bool is_aff = s >= q.na;
+        const Slot t = is_aff ? q.aff[s - q.na] : q.anti[s];
+        if (!t.on) continue;
+        // a term matching nowhere passes when the pod matches its own term
+        if (is_aff && !aff_any[s - q.na] && t.a) continue;
+        const int d = dom_at(dom_row, t);
+        int at = 0;
+        if (d >= 0) {
+            at = t.dk == 0 ? (vn ? q.counts[(size_t)n * p.Ta + t.col] : 0)
+                           : q.filt[(size_t)s * q.D + clampi(d, 0, t.dk - 1)];
+        }
+        const bool ok = d >= 0 && at > 0;
+        if (is_aff) ipa3 |= !ok;
+        else ipa2 |= ok;
+    }
+}
+
+// score phase at a feasible node: the preferred terms' per-domain sums and
+// the existing pods' preferred terms per key slot (scoring.go:81-257)
+template <typename P>
+__device__ __forceinline__ void ipa_score_stats(const P& p, const Ipa& q, const int* f, int n,
+                                                const int* dom_row) {
+    for (int s = 0; s < q.np; ++s) {
+        const Slot t = q.pref[s];
+        const int d = dom_at(dom_row, t);
+        if (!t.on || t.dk == 0 || d < 0) continue;
+        atomicAdd(&q.score[(size_t)s * q.D + clampi(d, 0, t.dk - 1)],
+                  q.counts[(size_t)n * p.Ta + t.col]);
+    }
+    if (p.ex_pref_add) {
+        for (int k = 0; k < p.K; ++k) {
+            const int dk = p.topo_dk[k], d = dom_row[k];
+            if (!((q.exmask >> k) & 1) || dk == 0 || d < 0) continue;
+            atomicAdd(&q.score[(size_t)(q.np + k) * q.D + clampi(d, 0, dk - 1)],
+                      term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k));
+        }
+    }
+}
+
+// the raw InterPodAffinity score at node n (fe: n is feasible)
+template <typename P>
+__device__ __forceinline__ int ipa_raw_at(const P& p, const Ipa& q, const int* f, int n, bool fe,
+                                          const int* dom_row) {
+    int raw = 0;
+    for (int s = 0; s < q.np; ++s) {
+        const Slot t = q.pref[s];
+        const int d = dom_at(dom_row, t);
+        if (!t.on || d < 0) continue;
+        const int at = t.dk == 0 ? (fe ? q.counts[(size_t)n * p.Ta + t.col] : 0)
+                                 : q.score[(size_t)s * q.D + clampi(d, 0, t.dk - 1)];
+        raw = wadd(raw, wmul(t.a, at));
+    }
+    if (p.ex_pref_add) {
+        for (int k = 0; k < p.K; ++k) {
+            const int dk = p.topo_dk[k], d = dom_row[k];
+            if (!((q.exmask >> k) & 1) || d < 0) continue;
+            const int at = dk == 0 ? (fe ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
+                                   : q.score[(size_t)(q.np + k) * q.D + clampi(d, 0, dk - 1)];
+            raw = wadd(raw, at);
+        }
+    }
+    return raw;
 }

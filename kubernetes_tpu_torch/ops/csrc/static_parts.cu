@@ -1,6 +1,8 @@
 // K1 static_parts — replaces the vmapped _static_pod_parts of the reference
 // package (kubernetes_tpu/ops/kernels.py:_static_pod_parts, vmapped over the
-// wave's pods inside _batched_assign_core).
+// wave's pods inside _batched_assign_core, or with signature dedup over the
+// first-occurrence rows uniq_idx only). Output row i reads feature row
+// rows[i] when a row index is given, else feature row i.
 //
 // What it computes, per (pod, node): every filter and score input that does
 // not depend on the scan carry — NodeUnschedulable, NodeName, the
@@ -26,12 +28,15 @@ __global__ void static_parts_kernel(
     const uint8_t* __restrict__ aff_match, const int* __restrict__ aff_pref,
     const uint8_t* __restrict__ aff_allow,
     const uint8_t* __restrict__ aff_has_pref_table,
-    const int* __restrict__ feats, uint8_t* __restrict__ static_ok,
+    const int* __restrict__ feats, const int* __restrict__ rows,
+    uint8_t* __restrict__ static_ok,
     int* __restrict__ taint_cnt, int* __restrict__ aff_raw,
     int* __restrict__ img, uint8_t* __restrict__ aff_has_pref) {
     const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    const int pod = blockIdx.y;
-    const int* f = feats + (size_t)pod * p.F;
+    const int pod = blockIdx.y;  // output row
+    // the clamp only keeps a bad row index from reading out of bounds
+    const int row = rows ? clampi(rows[pod], 0, p.P_feats - 1) : pod;
+    const int* f = feats + (size_t)row * p.F;
     // aff_sig is an interned signature id < A; the clamp only keeps a bad
     // input from reading out of bounds
     const int sig = clampi(f[p.f_aff_sig], 0, p.A - 1);
@@ -65,7 +70,7 @@ __global__ void static_parts_kernel(
 
 // ptrs: valid, unsched, group_id, taints, prefer_taints, port_words,
 // image_kib, aff_match, aff_pref, aff_allow, aff_has_pref_table, feats,
-// static_ok, taint_cnt, aff_raw, img, aff_has_pref
+// rows (0 = none), static_ok, taint_cnt, aff_raw, img, aff_has_pref
 extern "C" int launch_static_parts(const StaticParams* p, void* const* ptrs,
                                    void* stream) {
     const int threads = 256;
@@ -75,7 +80,7 @@ extern "C" int launch_static_parts(const StaticParams* p, void* const* ptrs,
         (const int*)ptrs[2], (const int*)ptrs[3], (const int*)ptrs[4],
         (const int*)ptrs[5], (const int*)ptrs[6], (const uint8_t*)ptrs[7],
         (const int*)ptrs[8], (const uint8_t*)ptrs[9], (const uint8_t*)ptrs[10],
-        (const int*)ptrs[11], (uint8_t*)ptrs[12], (int*)ptrs[13],
-        (int*)ptrs[14], (int*)ptrs[15], (uint8_t*)ptrs[16]);
+        (const int*)ptrs[11], (const int*)ptrs[12], (uint8_t*)ptrs[13],
+        (int*)ptrs[14], (int*)ptrs[15], (int*)ptrs[16], (uint8_t*)ptrs[17]);
     return (int)cudaGetLastError();
 }

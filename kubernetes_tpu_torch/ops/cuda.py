@@ -125,7 +125,7 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int) ->
 
 # ctypes twins of the structs in csrc/common.cuh (same field order)
 
-MAX_FIT, MAX_RTC, MAX_KEYS, MAX_SOFT, MAX_DOM = 8, 16, 16, 4, 1024
+MAX_FIT, MAX_RTC, MAX_KEYS = 8, 16, 16
 MAX_PLANES = 16
 
 
@@ -134,24 +134,30 @@ def _ints(*names):
 
 
 class StaticParams(ctypes.Structure):
-    _fields_ = _ints("P", "Nb", "T", "Tp", "W", "I", "A", "G", "F",
+    _fields_ = _ints("P", "P_feats", "Nb", "T", "Tp", "W", "I", "A", "G", "F",
                      "f_tol_unsched", "f_name_idx", "f_aff_pin", "f_tol",
                      "f_aff_sig", "f_ports", "f_has_ports", "f_tol_prefer",
                      "f_img_idx", "f_num_containers")
 
 
 class ScanParams(ctypes.Structure):
-    _fields_ = _ints("P", "Nb", "R", "K", "S", "F", "MC", "L", "cursor0",
+    _fields_ = _ints("P", "Nb", "R", "K", "S", "F", "MC", "L", "Ta", "D", "G",
+                     "CT", "cursor0",
                      "f_req", "f_nz_req", "f_soft_active", "f_soft_key",
-                     "f_soft_sel", "f_sig_match", "f_active", "strategy",
-                     "n_fit") + [
+                     "f_soft_sel", "f_hard_active", "f_hard_key", "f_hard_sel",
+                     "f_hard_skew", "f_hard_self", "f_sig_match", "f_active",
+                     "f_ipa_match", "f_ipa_anti_add", "f_ipa_pref_add",
+                     "f_ipa_aff_t", "f_ipa_aff_self", "f_ipa_anti_t",
+                     "f_ipa_pref_t", "f_ipa_pref_w", "strategy", "n_fit") + [
         ("fit_col", ctypes.c_int * MAX_FIT),
         ("fit_w", ctypes.c_int * MAX_FIT),
         ("n_rtc", ctypes.c_int),
         ("rtc_x", ctypes.c_int * MAX_RTC),
         ("rtc_y", ctypes.c_int * MAX_RTC),
-    ] + _ints("bal_a", "bal_b", "w_fit", "w_bal", "w_pts", "w_img",
-              "w_taint", "w_aff", "n_soft") + [
+    ] + _ints("bal_a", "bal_b", "w_fit", "w_bal", "w_pts", "w_ipa", "w_img",
+              "w_taint", "w_aff", "n_hard", "n_soft", "n_ipa_aff", "n_ipa_anti",
+              "n_ipa_pref", "ipa_active", "ex_anti", "ex_pref", "ex_pref_add",
+              "dom_carry") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
     ]
 

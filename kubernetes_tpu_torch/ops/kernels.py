@@ -5,9 +5,11 @@ The reference package (kubernetes_tpu/ops/kernels.py) expresses the
 scheduler's filter and score plugins as vectorized int32/float32 arithmetic
 over the node axis and a wave of pods as a lax.scan. This module ports:
 
-- static_parts  (K1, csrc/static_parts.cu) — the vmapped _static_pod_parts
-- assign_scan   (K2, csrc/assign_scan.cu)  — _batched_assign_jit's scan,
-  non-dedup tier, without hard spread constraints or inter-pod affinity
+- static_parts  (K1, csrc/static_parts.cu) — the vmapped _static_pod_parts,
+  over the wave's pods or over its signature rows only
+- assign_scan   (K2, csrc/assign_scan.cu)  — _batched_assign_jit's scan:
+  the non-dedup tier and the signature two-tier replay, with hard spread
+  constraints and inter-pod affinity (cross-wave seeding aside)
 - scatter_rows  (K3, csrc/scatter_rows.cu) — backend._scatter_rows_jit
 - fit_and_score (K4, csrc/fit_and_score.cu) — _fit_and_score_jit: one pod
   against every node, every filter (hard spread and inter-pod affinity
@@ -83,9 +85,9 @@ def reset_launches() -> None:
 
 class OutOfSlice(NotImplementedError):
     """The caller asks for a configuration or a path this port does not run
-    yet (in the wave scan: hard spread constraints, inter-pod affinity,
-    signature dedup or cross-wave reuse; in the single-pod cycle: the host
-    framework's paths). Raised instead of computing an answer."""
+    yet (a slot or domain count past the kernels' fixed capacities;
+    cross-wave reuse of the signature table; in the single-pod cycle, the
+    host framework's paths). Raised instead of computing an answer."""
 
 
 @dataclass(frozen=True)
@@ -135,30 +137,27 @@ class KernelConfig:
 
 
 def check_slice(cfg: KernelConfig) -> None:
-    """The wave scan's gate (K1 + K2): raise OutOfSlice for any
-    configuration they do not compute; everything that passes is computed
-    bit-exactly."""
-    if cfg.n_hard > 0:
-        raise OutOfSlice(f"hard spread constraints (n_hard={cfg.n_hard})")
-    if cfg.ipa_active:
-        raise OutOfSlice("inter-pod affinity")
-    if min(cfg.max_constraints, cfg.n_soft) > 4:
-        raise OutOfSlice(f"{cfg.n_soft} soft spread constraint slots (max 4)")
+    """The wave scan's gate (K1 + K2): hard spread and inter-pod affinity
+    are computed; raise OutOfSlice only past the kernels' fixed slot and
+    domain capacities. Everything that passes is computed bit-exactly."""
+    traced = min(cfg.max_constraints, max(cfg.n_hard, cfg.n_soft))
+    if traced > 4:
+        raise OutOfSlice(f"{traced} spread constraint slots (max 4)")
     _check_common(cfg)
 
 
 def check_fit_slice(cfg: KernelConfig) -> None:
-    """K4's gate: hard spread and inter-pod affinity are computed; raise
-    OutOfSlice only past the kernel's fixed slot and domain capacities."""
+    """K4's gate: as the wave's, with the spread slot count taken from the
+    feature width (K4 writes a fails row per slot)."""
     if cfg.max_constraints > 4:
         raise OutOfSlice(f"{cfg.max_constraints} spread constraint slots (max 4)")
-    if cfg.max_ipa_terms > 4 or cfg.max_ipa_pref > 8:
-        raise OutOfSlice("inter-pod affinity term slots (max 4 required, "
-                         "8 preferred)")
     _check_common(cfg)
 
 
 def _check_common(cfg: KernelConfig) -> None:
+    if cfg.max_ipa_terms > 4 or cfg.max_ipa_pref > 8:
+        raise OutOfSlice("inter-pod affinity term slots (max 4 required, "
+                         "8 preferred)")
     if len(cfg.topo_domains) > 16 or any(d > 1024 for d in cfg.topo_domains):
         raise OutOfSlice(f"topology domains {cfg.topo_domains} (max 16 keys "
                          "of at most 1024 domains)")
@@ -263,19 +262,27 @@ def _stream(device) -> int:
 
 
 def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
-                 layout) -> dict:
+                 layout, rows: torch.Tensor | None = None) -> dict:
     """K1 wrapper: plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors. packed_f is the wave's [P, F] int32 feature buffer."""
+    tensors. packed_f is the wave's [P, F] int32 feature buffer; with rows
+    (int32 [G], signature dedup's uniq_idx) the outputs cover those feature
+    rows only, [G, ...], as the reference vmaps over uniq_f."""
     from .planes import unpack_features
 
     device = packed_f.device
     if device.type == "cpu":
-        return static_parts_ref(planes, tables, unpack_features(packed_f, layout))
+        f_rows = packed_f if rows is None else packed_f[rows.long()]
+        return static_parts_ref(planes, tables, unpack_features(f_rows, layout))
     if device.type != "cuda":
         raise ValueError(f"static_parts runs on cpu or cuda, not {device}")
     from . import cuda
 
     P, F = packed_f.shape
+    if rows is not None:
+        _check(rows, "rows", device, torch.int32)
+        if rows.dim() != 1:
+            raise ValueError("rows must be one-dimensional")
+    n_out = P if rows is None else rows.shape[0]
     nb = planes["valid"].shape[0]
     T = planes["taints"].shape[1]
     Tp = planes["prefer_taints"].shape[1]
@@ -299,23 +306,24 @@ def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
         "tol_unsched": 1, "name_idx": 1, "aff_pin": 1, "tol": T, "aff_sig": 1,
         "ports": W, "has_ports": 1, "tol_prefer": Tp, "img_idx": 8,
         "num_containers": 1})
-    p = cuda.StaticParams(P=P, Nb=nb, T=T, Tp=Tp, W=W, I=I, A=A, G=G, F=F,
-                          **{f"f_{k}": v for k, v in offs.items()})
+    p = cuda.StaticParams(P=n_out, P_feats=P, Nb=nb, T=T, Tp=Tp, W=W, I=I, A=A,
+                          G=G, F=F, **{f"f_{k}": v for k, v in offs.items()})
     out = {
-        "static_ok": torch.empty((P, nb), dtype=b8, device=device),
-        "taint_cnt": torch.empty((P, nb), dtype=i32, device=device),
-        "aff_raw": torch.empty((P, nb), dtype=i32, device=device),
-        "aff_has_pref": torch.empty((P,), dtype=b8, device=device),
-        "img": torch.empty((P, nb), dtype=i32, device=device),
+        "static_ok": torch.empty((n_out, nb), dtype=b8, device=device),
+        "taint_cnt": torch.empty((n_out, nb), dtype=i32, device=device),
+        "aff_raw": torch.empty((n_out, nb), dtype=i32, device=device),
+        "aff_has_pref": torch.empty((n_out,), dtype=b8, device=device),
+        "img": torch.empty((n_out, nb), dtype=i32, device=device),
     }
     ptrs = [planes[k].data_ptr() for k in (
         "valid", "unsched", "group_id", "taints", "prefer_taints",
         "port_words", "image_kib")]
     ptrs += [tables[k].data_ptr() for k in (
         "aff_match", "aff_pref", "aff_allow", "aff_has_pref")]
-    ptrs += [packed_f.data_ptr()] + [out[k].data_ptr() for k in (
+    ptrs += [packed_f.data_ptr(), 0 if rows is None else rows.data_ptr()]
+    ptrs += [out[k].data_ptr() for k in (
         "static_ok", "taint_cnt", "aff_raw", "img", "aff_has_pref")]
-    if P and nb:
+    if n_out and nb:
         cuda.launch("static_parts", p, ptrs, _stream(device))
         LAUNCHES["static_parts"] += 1
     return out
@@ -328,12 +336,13 @@ def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
 
 def _requested_for(used, nz_used, req, nz_req, col):
     """Requested-including-pod per node; cpu/mem use NonZero accounting
-    (resource_allocation.go:138)."""
+    (resource_allocation.go:138). req [R] / nz_req [2] for one pod, or one
+    request per row ([rows, R] / [rows, 2]) against broadcast node rows."""
     if col == CPU:
-        return nz_used[:, 0] + nz_req[0]
+        return nz_used[:, 0] + nz_req[..., 0]
     if col == MEM:
-        return nz_used[:, 1] + nz_req[1]
-    return used[:, col] + req[col]
+        return nz_used[:, 1] + nz_req[..., 1]
+    return used[:, col] + req[..., col]
 
 
 def _strategy_score(cfg: KernelConfig, requested, capacity):
@@ -389,19 +398,35 @@ def _balanced_score(cfg, alloc, used, nz_used, req, nz_req):
     return torch.where(both, score, 0)
 
 
-def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int):
+def _fit_fail(alloc, used, req):
+    """NodeResourcesFit's filter on the carried `used` (kernels.py:1068-1072;
+    on one node row it is _fit_filter_row, :914): [rows] bool. req is one
+    pod's [R], or one request per row [rows, R] against broadcast rows."""
+    insufficient = (req > 0) & (req > alloc - used)
+    insufficient[..., PODS] = False
+    too_many = used[:, PODS] + 1 > alloc[:, PODS]
+    return insufficient.any(-1) | too_many
+
+
+def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int,
+                      dseg: int = 0):
     """One spread constraint's domain statistics (kernels.py:198):
     (has_key [Nb], count_at_node [Nb], min_count, ndom), the last two
     0-dim tensors. `mask` selects the participating nodes: every valid node
     for the hard filter (PreFilter), the feasible nodes for the soft score
     (PreScore). count_at_node means something only where mask & has_key.
     Per-domain sums are exact int32 (index_add_); a key slot outside the
-    planes matches no node, as the reference's per-key select finds none."""
+    planes matches no node, as the reference's per-key select finds none.
+    With dseg > 0 also the per-domain (segment count, participant count)
+    tables padded to dseg, as the signature scan captures them: zeros for
+    a singleton key or a key outside the planes."""
     nb, dev = domain.shape[0], domain.device
+    zseg = torch.zeros(max(dseg, 1), dtype=torch.int32, device=dev)
+    tables = (zseg, zseg.clone()) if dseg else ()
     if not 0 <= key_i < domain.shape[1]:
         z = torch.zeros(nb, dtype=torch.int32, device=dev)
         zero = torch.zeros((), dtype=torch.int64, device=dev)
-        return z.bool(), z, zero, zero
+        return (z.bool(), z, zero, zero) + tables
     cnt = sel_counts[:, sel_i]
     dom = domain[:, key_i]
     has_key = dom >= 0
@@ -421,7 +446,9 @@ def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int):
         count = seg[dom_c]
         min_c = torch.where(present.any(), torch.where(present, seg, _INT32_MAX).min(), 0)
         ndom = present.sum()
-    return has_key, count, min_c, ndom
+        if dseg:
+            tables[0][:dk], tables[1][:dk] = seg, pc
+    return (has_key, count, min_c, ndom) + tables
 
 
 def _pts_normalize(raw, any_active, feasible):
@@ -436,24 +463,69 @@ def _pts_normalize(raw, any_active, feasible):
     return torch.where(any_active, normed, 0)
 
 
+def _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab,
+                    capture=None):
+    """podtopologyspread scoring.go:118-305 over the live feasible set
+    (kernels.py:630): per-domain counts weighted by log(domains + 2),
+    inverted min/max normalization. Returns (score [Nb], segs, pcs): with
+    capture = (slots, dseg), segs/pcs [slots, dseg] hold every traced
+    slot's per-domain tables (inactive slots too, from their key and
+    selector columns), as the signature scan captures them; else None."""
+    nb = feasible.shape[0]
+    dev = feasible.device
+    segs = pcs = None
+    if capture is not None:
+        segs = torch.zeros(capture, dtype=torch.int32, device=dev)
+        pcs = torch.zeros(capture, dtype=torch.int32, device=dev)
+    if cfg.n_soft == 0:
+        return torch.zeros(nb, dtype=torch.int32, device=dev), segs, pcs
+    active = f["soft_active"][p] != 0
+    cost = torch.zeros(nb, dtype=torch.float32, device=dev)
+    for c in range(min(cfg.max_constraints, cfg.n_soft)):
+        on = bool(active[c])
+        if not on and capture is None:
+            continue  # the reference adds +0.0 for an inactive slot
+        stats = _pts_domain_stats(
+            cfg, domain, sel_counts, feasible, int(f["soft_key"][p, c]),
+            int(f["soft_sel"][p, c]), dseg=0 if capture is None else capture[1])
+        if capture is not None:
+            segs[c], pcs[c] = stats[4], stats[5]
+        if on:
+            has_key, count, _, nd = stats[:4]
+            cost = cost + torch.where(has_key, count.to(torch.float32) * logtab[nd], 0.0)
+    return _pts_normalize(cost.to(torch.int32), active.any(), feasible), segs, pcs
+
+
 def _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab):
-    """podtopologyspread scoring.go:118-305 over the live feasible set:
-    per-domain counts weighted by log(domains + 2), inverted min/max
-    normalization."""
+    return _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab)[0]
+
+
+def _pts_score_carried(cfg, domain, sel_counts, feasible, f, p, logtab, segs, pcs):
+    """The spread score of a replayed step (kernels.py:673) from the
+    signature's carried per-domain tables: a singleton key reads the live
+    sel_counts and counts its domains over the feasible set, any other key
+    gathers from segs and counts the domains with pcs > 0. Against the
+    same feasible set it equals _pts_score_core bit for bit."""
     nb = feasible.shape[0]
     dev = feasible.device
     if cfg.n_soft == 0:
         return torch.zeros(nb, dtype=torch.int32, device=dev)
+    dseg = segs.shape[1]
     active = f["soft_active"][p] != 0
     cost = torch.zeros(nb, dtype=torch.float32, device=dev)
     for c in range(min(cfg.max_constraints, cfg.n_soft)):
-        if not bool(active[c]):
-            continue  # the reference adds +0.0 for an inactive slot
-        has_key, count, _, nd = _pts_domain_stats(
-            cfg, domain, sel_counts, feasible, int(f["soft_key"][p, c]),
-            int(f["soft_sel"][p, c]))
-        w = logtab[nd]
-        cost = cost + torch.where(has_key, count.to(torch.float32) * w, 0.0)
+        key_i = int(f["soft_key"][p, c])
+        if not bool(active[c]) or not 0 <= key_i < domain.shape[1]:
+            continue  # adds +0.0: no slot, or no node has the key
+        dom = domain[:, key_i]
+        has_key = dom >= 0
+        if cfg.topo_domains[key_i] == 0:
+            count = sel_counts[:, int(f["soft_sel"][p, c])]
+            nd = (feasible & has_key).sum()
+        else:
+            count = segs[c][dom.clamp(0, dseg - 1).long()]
+            nd = (pcs[c] > 0).sum()
+        cost = cost + torch.where(has_key, count.to(torch.float32) * logtab[nd], 0.0)
     return _pts_normalize(cost.to(torch.int32), active.any(), feasible)
 
 
@@ -466,99 +538,302 @@ def _bit_length(n: torch.Tensor) -> torch.Tensor:
     return (n >= _POW2.to(n.device)).sum()
 
 
-def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
-                    tie_words: torch.Tensor, cursor0: int, logtab: torch.Tensor):
-    """Plain version of K2: a Python loop over the wave's pods, mirroring
-    the reference's _assign_step (non-dedup branch, no hard spread, no IPA).
-    Returns (packed [P + 2] int32 = winners ++ [tie_consumed, tie_overflow],
-    used, nonzero_used, sel_counts) — the carry planes are new tensors."""
-    alloc = planes["alloc"]
+def dedup_fast_capable(cfg: KernelConfig) -> bool:
+    """Whether the two-tier signature replay applies (kernels.py:1253): it
+    does for every configuration the scan computes. The carry-dependent
+    masks the winner-column patch cannot track (hard spread, inter-pod
+    affinity) are recomputed each step and a replay is taken only where the
+    resident row's feasibility equals the live one."""
+    del cfg
+    return True
+
+
+def _dom_counts_init(cfg: KernelConfig, planes: dict):
+    """The hard-spread carry (kernels.py:820): dom_counts [K, Dmax, S], the
+    sum of sel_counts over each domain's valid nodes carrying the key, and
+    the static present [K, Dmax]; (None, None) without hard slots or
+    without a non-singleton key."""
+    dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
+    if dmax == 0 or cfg.n_hard == 0:
+        return None, None
+    valid, domain, sel = planes["valid"], planes["domain"], planes["sel_counts"]
+    K, dev = len(cfg.topo_domains), valid.device
+    counts = torch.zeros((K, dmax, sel.shape[1]), dtype=torch.int32, device=dev)
+    present = torch.zeros((K, dmax), dtype=torch.bool, device=dev)
+    for k, dk in enumerate(cfg.topo_domains):
+        if dk == 0:
+            continue
+        dom = domain[:, k]
+        part = valid & (dom >= 0)
+        dom_c = dom.clamp(0, dk - 1).long()
+        counts[k, :dk].index_add_(0, dom_c, torch.where(part[:, None], sel, 0))
+        present[k, :dk] = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
+            0, dom_c, part.to(torch.int32)) > 0
+    return counts, present
+
+
+def _pts_hard_carried(cfg, planes, sel_counts, dom_counts, present,
+                      key_i: int, sel_i: int):
+    """A hard constraint's (has_key, count_at_node, min_count) from the
+    carried dom_counts (kernels.py:855): a singleton key takes the min over
+    the valid nodes carrying it, any other key over its present domains."""
     domain = planes["domain"]
-    used = planes["used"].clone()
-    nz_used = planes["nonzero_used"].clone()
-    sel_counts = planes["sel_counts"].clone()
+    nb = domain.shape[0]
+    if not 0 <= key_i < domain.shape[1]:
+        z = torch.zeros(nb, dtype=torch.int32, device=domain.device)
+        return z.bool(), z, 0
+    dom = domain[:, key_i]
+    has_key = dom >= 0
+    if cfg.topo_domains[key_i] == 0:
+        cnt = sel_counts[:, sel_i]
+        part = planes["valid"] & has_key
+        return has_key, cnt, torch.where(
+            part.any(), torch.where(part, cnt, _INT32_MAX).min(), 0)
+    seg = dom_counts[key_i][:, sel_i]
+    pres = present[key_i]
+    return (has_key, seg[dom.clamp(0, dom_counts.shape[1] - 1).long()],
+            torch.where(pres.any(), torch.where(pres, seg, _INT32_MAX).min(), 0))
+
+
+def _live_fail(cfg, live: dict, fp: dict, dom_counts, present):
+    """The carry-dependent filters of a scan step (kernels.py:974-1003,
+    :1073-1094), OR-ed into one [Nb] reject row: each active hard spread
+    slot (missing key, or skew over maxSkew) and InterPodAffinity's three
+    checks. live holds the carried planes of this step."""
+    fail = torch.zeros_like(live["valid"])
+    for c in range(min(cfg.max_constraints, cfg.n_hard)):
+        if not bool(fp["hard_active"][c]):
+            continue
+        key_i, sel_i = int(fp["hard_key"][c]), int(fp["hard_sel"][c])
+        if dom_counts is not None:
+            has_key, count, min_c = _pts_hard_carried(
+                cfg, live, live["sel_counts"], dom_counts, present, key_i, sel_i)
+        else:
+            has_key, count, min_c, _ = _pts_domain_stats(
+                cfg, live["domain"], live["sel_counts"], live["valid"], key_i, sel_i)
+        skew = count + fp["hard_self"][c] - min_c
+        fail = fail | ~has_key | (skew > fp["hard_skew"][c])
+    if cfg.ipa_active:
+        for row in _ipa_filters(cfg, live, fp):
+            fail = fail | row
+    return fail
+
+
+def _finish_total(cfg, ew, pts, static: dict, s: int, feasible):
+    """kernels.py:887: the fit + balanced partial, the spread score and the
+    static raws of static row s normalized over the live feasible set."""
+    tc = static["taint_cnt"][s]
+    max_tc = torch.where(feasible, tc, 0).max()
+    taint = torch.where(max_tc > 0, MAX_NODE_SCORE - floordiv(
+        tc * MAX_NODE_SCORE, max_tc.clamp(min=1)), MAX_NODE_SCORE)
+    ar = static["aff_raw"][s]
+    mx_aff = torch.where(feasible, ar, 0).max()
+    aff = torch.where(mx_aff > 0, floordiv(ar * MAX_NODE_SCORE, mx_aff.clamp(min=1)), ar)
+    return (ew + pts * cfg.weight("PodTopologySpread")
+            + static["img"][s] * cfg.weight("ImageLocality")
+            + taint * cfg.weight("TaintToleration")
+            + torch.where(static["aff_has_pref"][s], aff, 0) * cfg.weight("NodeAffinity"))
+
+
+def _tie_draw(nw: int, words, cursor: int, draw_slots):
+    """CPython randrange(nw) on the cloned word stream: the top k =
+    nw.bit_length() bits of successive words, reject r >= nw, at most
+    MAX_TIE_DRAWS words, reads clamped to the stream's end. Returns
+    (r, new cursor, overflowed)."""
+    if nw <= 1:
+        return 0, cursor, False
+    k = _bit_length(torch.tensor(nw, dtype=torch.int64, device=words.device))
+    r = words[(cursor + draw_slots).clamp(0, words.shape[0] - 1)] >> (32 - k)
+    accept = r < nw
+    if not bool(accept.any()):
+        return 0, cursor + MAX_TIE_DRAWS, True
+    first = int(accept.to(torch.int32).argmax())
+    return int(r[first]), cursor + first + 1, False
+
+
+def _patch_rows(cfg, planes, live, tab, uf, static, win: int, sel_prev):
+    """kernels.py:1174-1237: after a placement at `win`, every resident
+    signature row takes that column's new fit score, fit filter and
+    feasibility (from the updated used row and the signature's own
+    request), and each traced soft slot's tables the winner's delta at its
+    domain of the slot's key. No soft_active check: the tables of an
+    inactive slot move too, as the reference's do."""
+    sl = slice(win, win + 1)
+    alloc_w, used_w, nz_w = planes["alloc"][sl], live["used"][sl], live["nonzero_used"][sl]
+    ew_w = (_fit_score(cfg, alloc_w, used_w, nz_w, uf["req"], uf["nz_req"])
+            * cfg.weight("NodeResourcesFit")
+            + _balanced_score(cfg, alloc_w, used_w, nz_w, uf["req"], uf["nz_req"])
+            * cfg.weight("NodeResourcesBalancedAllocation"))
+    ffit_w = _fit_fail(alloc_w, used_w, uf["req"])
+    feas_w = static["static_ok"][:, win] & ~ffit_w
+    ok = tab["valid"]
+    feas_old = tab["feas"][:, win].clone()
+    tab["ew"][:, win] = torch.where(ok, ew_w, tab["ew"][:, win])
+    tab["ffit"][:, win] = torch.where(ok, ffit_w, tab["ffit"][:, win])
+    tab["feas"][:, win] = torch.where(ok, feas_w, feas_old)
+    dseg = tab["segs"].shape[2]
+    sel_new = live["sel_counts"][win]
+    for c in range(min(cfg.max_constraints, cfg.n_soft)):
+        key_c = uf["soft_key"][:, c]
+        sel_c = uf["soft_sel"][:, c].long()
+        seg_d = (torch.where(feas_w, sel_new[sel_c], 0)
+                 - torch.where(feas_old, sel_prev[sel_c], 0))
+        pc_d = feas_w.to(torch.int32) - feas_old.to(torch.int32)
+        for k, dk in enumerate(cfg.topo_domains):
+            d = int(planes["domain"][win, k])
+            if dk == 0 or d < 0:
+                continue  # singleton keys replay from sel_counts directly
+            in_k = ok & (key_c == k)
+            d = min(d, dseg - 1)
+            tab["segs"][:, c, d] += torch.where(in_k, seg_d, 0)
+            tab["pcs"][:, c, d] += torch.where(in_k, pc_d, 0)
+
+
+def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
+                    tie_words: torch.Tensor, cursor0: int, logtab: torch.Tensor,
+                    sig_ids: torch.Tensor | None = None,
+                    uniq_idx: torch.Tensor | None = None) -> dict:
+    """Plain version of K2: a Python loop over the wave's pods following the
+    reference's _assign_step (kernels.py:925-1250) branch by branch.
+
+    Without sig_ids, the non-dedup tier: static row p for pod p. With
+    sig_ids [P] / uniq_idx [C] (signature dedup), static holds one row per
+    signature slot and the step is two-tier over a resident per-signature
+    table: a signature with a resident row whose feasibility equals the
+    live one (checked only with hard spread or IPA) replays it; else the
+    full tier recomputes and installs it. After each placement every
+    resident row is patched at the winner column.
+
+    Returns the reference's output dict: packed [P + 2] int32 = winners ++
+    [tie_consumed, tie_overflow]; the carried used, nonzero_used,
+    sel_counts and, with IPA, ipa_counts/ipa_anti/ipa_pref (new tensors);
+    with dedup also sig_scores [C, Nb], sig_table {ew, ffit, feas, segs,
+    pcs} and tiers [2] int32 (steps that took the full tier, replays)."""
+    alloc, domain = planes["alloc"], planes["domain"]
     dev = alloc.device
+    live = dict(planes)
+    carried = ["used", "nonzero_used", "sel_counts"]
+    if cfg.ipa_active:
+        carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
+    for k in carried:
+        live[k] = planes[k].clone()
+    dom_counts, present = _dom_counts_init(cfg, planes)
     # the words as unsigned values in int64 (torch lacks uint32 shifts)
     words = tie_words.to(torch.int64) & 0xFFFFFFFF
-    n_words = words.shape[0]
     draw_slots = torch.arange(MAX_TIE_DRAWS, dtype=torch.int64, device=dev)
     w_fit = cfg.weight("NodeResourcesFit")
     w_bal = cfg.weight("NodeResourcesBalancedAllocation")
+    gated = cfg.n_hard > 0 or cfg.ipa_active
+    fast = sig_ids is not None
+    if fast:
+        C, nb = uniq_idx.shape[0], alloc.shape[0]
+        ct = max(1, min(cfg.max_constraints, cfg.n_soft))
+        dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=1)
+        tab = {"ew": torch.zeros((C, nb), dtype=torch.int32, device=dev),
+               "ffit": torch.zeros((C, nb), dtype=torch.bool, device=dev),
+               "feas": torch.zeros((C, nb), dtype=torch.bool, device=dev),
+               "segs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
+               "pcs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
+               "valid": torch.zeros(C, dtype=torch.bool, device=dev)}
+        sig_scores = torch.full((C, nb), -1, dtype=torch.int32, device=dev)
+        uf = {k: v[uniq_idx.long()] for k, v in f.items()}
+        tiers = [0, 0]
     P = f["active"].shape[0]
     winners = []
     cursor, overflow = int(cursor0), False
     for p in range(P):
-        if not bool(f["active"][p]):
+        active = bool(f["active"][p])
+        if not fast and not active:
             winners.append(-1)  # pad slot: places nothing, draws nothing
             continue
-        req, nz_req = f["req"][p], f["nz_req"][p]
-        # dynamic filter: NodeResourcesFit on the carried `used`
-        insufficient = (req[None] > 0) & (req[None] > alloc - used)
-        insufficient[:, PODS] = False
-        too_many = used[:, PODS] + 1 > alloc[:, PODS]
-        feasible = static["static_ok"][p] & ~(insufficient.any(1) | too_many)
-        ew = (_fit_score(cfg, alloc, used, nz_used, req, nz_req) * w_fit
-              + _balanced_score(cfg, alloc, used, nz_used, req, nz_req) * w_bal)
-        pts = _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab)
-        # _finish_total: static raws normalized over the live feasible set
-        tc = static["taint_cnt"][p]
-        max_tc = torch.where(feasible, tc, 0).max()
-        taint = torch.where(max_tc > 0, MAX_NODE_SCORE - floordiv(
-            tc * MAX_NODE_SCORE, max_tc.clamp(min=1)), MAX_NODE_SCORE)
-        ar = static["aff_raw"][p]
-        mx_aff = torch.where(feasible, ar, 0).max()
-        aff = torch.where(mx_aff > 0, floordiv(ar * MAX_NODE_SCORE,
-                                               mx_aff.clamp(min=1)), ar)
-        total = (ew + pts * cfg.weight("PodTopologySpread")
-                 + static["img"][p] * cfg.weight("ImageLocality")
-                 + taint * cfg.weight("TaintToleration")
-                 + torch.where(static["aff_has_pref"][p], aff, 0)
-                 * cfg.weight("NodeAffinity"))
+        fp = {k: v[p] for k, v in f.items()}
+        s = int(sig_ids[p]) if fast else p
+        req, nz_req = fp["req"], fp["nz_req"]
+        used, nz_used = live["used"], live["nonzero_used"]
+        fail = _live_fail(cfg, live, fp, dom_counts, present)
+        replay = fast and bool(tab["valid"][s])
+        if replay and gated:
+            # the resident t_ffit column is exact, so this IS the full
+            # tier's feasibility; replay only where the row agrees with it
+            feas_live = static["static_ok"][s] & ~tab["ffit"][s] & ~fail
+            replay = torch.equal(feas_live, tab["feas"][s])
+        if replay:
+            feasible, ew = tab["feas"][s], tab["ew"][s]
+            pts = _pts_score_carried(cfg, domain, live["sel_counts"], feasible, f,
+                                     p, logtab, tab["segs"][s], tab["pcs"][s])
+        else:
+            f_fit = _fit_fail(alloc, used, req)
+            feasible = static["static_ok"][s] & ~f_fit & ~fail
+            ew = (_fit_score(cfg, alloc, used, nz_used, req, nz_req) * w_fit
+                  + _balanced_score(cfg, alloc, used, nz_used, req, nz_req) * w_bal)
+            pts, segs, pcs = _pts_score_core(
+                cfg, domain, live["sel_counts"], feasible, f, p, logtab,
+                capture=(ct, dmax) if fast else None)
+            if fast:
+                tab["ew"][s], tab["ffit"][s], tab["feas"][s] = ew, f_fit, feasible
+                tab["segs"][s], tab["pcs"][s] = segs, pcs
+                tab["valid"][s] = True
+        total = _finish_total(cfg, ew, pts, static, s, feasible)
+        if cfg.ipa_active:
+            total = total + _ipa_score(cfg, live, fp, feasible) * cfg.weight(
+                "InterPodAffinity")
+        if fast:
+            tiers[int(replay)] += 1
+            if not replay:
+                sig_scores[s] = torch.where(feasible, total, -1)
         best = int(torch.where(feasible, total, -1).max())
-        if best < 0:
+        if best < 0 or not active:
             winners.append(-1)
             continue
         mask = feasible & (total == best)
-        nw = mask.sum().to(torch.int64)
-        r_final = 0
-        if int(nw) > 1:
-            # CPython randrange(nw): top k = nw.bit_length() bits of each
-            # word, reject r >= nw, at most MAX_TIE_DRAWS words
-            k = _bit_length(nw)
-            idx = (cursor + draw_slots).clamp(0, n_words - 1)
-            r = words[idx] >> (32 - k)
-            accept = r < nw
-            if bool(accept.any()):
-                first = int(accept.to(torch.int32).argmax())
-                r_final = int(r[first])
-                cursor += first + 1
-            else:
-                cursor += MAX_TIE_DRAWS
-                overflow = True
-        win = int(torch.nonzero(mask)[r_final, 0])
+        r, cursor, over = _tie_draw(int(mask.sum()), words, cursor, draw_slots)
+        overflow |= over
+        win = int(torch.nonzero(mask)[r, 0])
+        sel_prev = live["sel_counts"][win].clone()
         used[win] += req
         nz_used[win] += nz_req
-        sel_counts[win] += f["sig_match"][p]
+        live["sel_counts"][win] += fp["sig_match"]
+        if dom_counts is not None:
+            for k, dk in enumerate(cfg.topo_domains):
+                d = int(domain[win, k])
+                if dk and 0 <= d < dom_counts.shape[1]:
+                    dom_counts[k, d] += fp["sig_match"]
+        if cfg.ipa_active:
+            live["ipa_counts"][win] += fp["ipa_match"]
+            live["ipa_anti"][win] += fp["ipa_anti_add"]
+            live["ipa_pref"][win] += fp["ipa_pref_add"]
+        if fast:
+            _patch_rows(cfg, planes, live, tab, uf, static, win, sel_prev)
         winners.append(win)
-    packed = torch.tensor(winners + [cursor, int(overflow)], dtype=torch.int32,
-                          device=dev)
-    return packed, used, nz_used, sel_counts
+    out = {"packed": torch.tensor(winners + [cursor, int(overflow)],
+                                  dtype=torch.int32, device=dev)}
+    out.update({k: live[k] for k in carried})
+    if fast:
+        out["sig_scores"] = sig_scores
+        out["sig_table"] = {k: tab[k] for k in ("ew", "ffit", "feas", "segs", "pcs")}
+        out["tiers"] = torch.tensor(tiers, dtype=torch.int32, device=dev)
+    return out
 
 
 def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
                 packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                cursor0: int, logtab: torch.Tensor):
-    """K2 wrapper: the greedy wave scan. Returns (packed [P + 2] int32,
-    used, nonzero_used, sel_counts); the carry planes are copies of the
-    inputs, which stay untouched."""
+                cursor0: int, logtab: torch.Tensor,
+                sig_ids: torch.Tensor | None = None,
+                uniq_idx: torch.Tensor | None = None) -> dict:
+    """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
+    The carry planes out are copies of the inputs, which stay untouched.
+    planes holds the row planes and, with IPA, ipa_term_key; static is
+    K1's output over the pods, or over the signature rows with dedup."""
     from .planes import unpack_features
 
     check_slice(cfg)
+    if (sig_ids is None) != (uniq_idx is None):
+        raise ValueError("sig_ids and uniq_idx go together")
     device = packed_f.device
     if device.type == "cpu":
         return assign_scan_ref(cfg, planes, static,
                                unpack_features(packed_f, layout), tie_words,
-                               cursor0, logtab)
+                               cursor0, logtab, sig_ids, uniq_idx)
     if device.type != "cuda":
         raise ValueError(f"assign_scan runs on cpu or cuda, not {device}")
     from . import cuda
@@ -567,20 +842,30 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     nb, R = planes["alloc"].shape
     K = planes["domain"].shape[1]
     S = planes["sel_counts"].shape[1]
+    Ta = planes["ipa_term_key"].shape[0] if cfg.ipa_active else 0
+    fast = sig_ids is not None
+    Ps = uniq_idx.shape[0] if fast else P  # static rows
     i32, b8 = torch.int32, torch.bool
     _check(packed_f, "packed features", device, i32)
-    for name, dt, shape in (
+    plane_specs = [
         ("alloc", i32, (nb, R)), ("used", i32, (nb, R)),
         ("nonzero_used", i32, (nb, 2)), ("domain", i32, (nb, K)),
-        ("sel_counts", i32, (nb, S)),
-    ):
+        ("sel_counts", i32, (nb, S)), ("valid", b8, (nb,)),
+    ]
+    if cfg.ipa_active:
+        plane_specs += [("ipa_counts", i32, (nb, Ta)), ("ipa_anti", i32, (nb, Ta)),
+                        ("ipa_pref", i32, (nb, Ta)), ("ipa_term_key", i32, (Ta,))]
+    for name, dt, shape in plane_specs:
         _check(planes[name], name, device, dt, shape)
     for name, dt, shape in (
-        ("static_ok", b8, (P, nb)), ("taint_cnt", i32, (P, nb)),
-        ("aff_raw", i32, (P, nb)), ("img", i32, (P, nb)),
-        ("aff_has_pref", b8, (P,)),
+        ("static_ok", b8, (Ps, nb)), ("taint_cnt", i32, (Ps, nb)),
+        ("aff_raw", i32, (Ps, nb)), ("img", i32, (Ps, nb)),
+        ("aff_has_pref", b8, (Ps,)),
     ):
         _check(static[name], name, device, dt, shape)
+    if fast:
+        _check(sig_ids, "sig_ids", device, i32, (P,))
+        _check(uniq_idx, "uniq_idx", device, i32)
     _check(tie_words, "tie_words", device, i32)
     _check(logtab, "logtab", device, torch.float32, (nb + 1,))
     if tie_words.numel() == 0:
@@ -591,23 +876,46 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     if max(PODS, *(c for c, _ in cfg.fit_resources), *cfg.balanced_resources) >= R:
         raise ValueError("config names a resource column beyond the planes")
     mc = next((w for n, _o, w, _d, _t in layout if n == "soft_active"), 0)
-    offs = _field_offsets(layout, {
-        "req": R, "nz_req": 2, "soft_active": mc, "soft_key": mc,
-        "soft_sel": mc, "sig_match": S, "active": 1})
-    if min(cfg.max_constraints, cfg.n_soft) > mc:
-        raise ValueError(f"config traces {cfg.n_soft} soft slots, features hold {mc}")
+    widths = {"req": R, "nz_req": 2, "soft_active": mc, "soft_key": mc,
+              "soft_sel": mc, "hard_active": mc, "hard_key": mc, "hard_sel": mc,
+              "hard_skew": mc, "hard_self": mc, "sig_match": S, "active": 1}
+    if cfg.ipa_active:
+        widths.update({"ipa_match": Ta, "ipa_anti_add": Ta, "ipa_pref_add": Ta,
+                       "ipa_aff_t": cfg.max_ipa_terms,
+                       "ipa_aff_self": cfg.max_ipa_terms,
+                       "ipa_anti_t": cfg.max_ipa_terms,
+                       "ipa_pref_t": cfg.max_ipa_pref,
+                       "ipa_pref_w": cfg.max_ipa_pref})
+    offs = {k: 0 for k in ("ipa_match", "ipa_anti_add", "ipa_pref_add", "ipa_aff_t",
+                           "ipa_aff_self", "ipa_anti_t", "ipa_pref_t", "ipa_pref_w")}
+    offs.update(_field_offsets(layout, widths))
+    if min(cfg.max_constraints, max(cfg.n_soft, cfg.n_hard)) > mc:
+        raise ValueError(f"config traces {max(cfg.n_soft, cfg.n_hard)} spread "
+                         f"slots, features hold {mc}")
+    dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
+    ct = max(1, min(cfg.max_constraints, cfg.n_soft))
     p = cuda.ScanParams(
-        P=P, Nb=nb, R=R, K=K, S=S, F=F, MC=mc, L=tie_words.numel(),
+        P=P, Nb=nb, R=R, K=K, S=S, F=F, MC=mc, L=tie_words.numel(), Ta=Ta,
+        D=max(1, dmax), G=Ps if fast else 0, CT=ct,
         cursor0=int(cursor0), strategy=_STRATEGY_CODE[cfg.strategy],
         n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
         bal_a=cfg.balanced_resources[0], bal_b=cfg.balanced_resources[1],
         w_fit=cfg.weight("NodeResourcesFit"),
         w_bal=cfg.weight("NodeResourcesBalancedAllocation"),
         w_pts=cfg.weight("PodTopologySpread"),
+        w_ipa=cfg.weight("InterPodAffinity"),
         w_img=cfg.weight("ImageLocality"),
         w_taint=cfg.weight("TaintToleration"),
         w_aff=cfg.weight("NodeAffinity"),
+        n_hard=min(cfg.max_constraints, cfg.n_hard),
         n_soft=min(cfg.max_constraints, cfg.n_soft),
+        n_ipa_aff=min(cfg.max_ipa_terms, cfg.n_ipa_aff),
+        n_ipa_anti=min(cfg.max_ipa_terms, cfg.n_ipa_anti),
+        n_ipa_pref=min(cfg.max_ipa_pref, cfg.n_ipa_pref),
+        ipa_active=int(cfg.ipa_active),
+        ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
+        ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
+        dom_carry=int(dmax > 0 and cfg.n_hard > 0),
         **{f"f_{k}": v for k, v in offs.items()})
     for i, (col, w) in enumerate(cfg.fit_resources):
         p.fit_col[i], p.fit_w[i] = col, w
@@ -615,26 +923,46 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
         p.rtc_x[i], p.rtc_y[i] = x, y
     for i, dk in enumerate(cfg.topo_domains):
         p.topo_dk[i] = dk
-    used = planes["used"].clone()
-    nz_used = planes["nonzero_used"].clone()
-    sel_counts = planes["sel_counts"].clone()
-    scratch = {
-        "feas": torch.empty(nb, dtype=torch.uint8, device=device),
-        "ew": torch.empty(nb, dtype=i32, device=device),
-        "raw": torch.empty(nb, dtype=i32, device=device),
-        "total": torch.empty(nb, dtype=i32, device=device),
-    }
-    packed = torch.empty(P + 2, dtype=i32, device=device)
-    ptrs = [planes["alloc"].data_ptr(), planes["domain"].data_ptr()]
+    out = {"packed": torch.empty(P + 2, dtype=i32, device=device)}
+    carried = ["used", "nonzero_used", "sel_counts"]
+    if cfg.ipa_active:
+        carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
+    for k in carried:
+        out[k] = planes[k].clone()
+    empty = torch.empty(0, dtype=i32, device=device)
+    dom = (torch.empty((K, dmax, S), dtype=i32, device=device) if p.dom_carry
+           else empty)
+    # ew, spread raw, IPA raw, total, feasible and reject rows; the domain
+    # presence [K, Dmax] with the hard-spread carry
+    scratch = torch.empty(6 * nb + (K * dmax if p.dom_carry else 0),
+                          dtype=i32, device=device)
+    if fast:
+        out["sig_scores"] = torch.full((Ps, nb), -1, dtype=i32, device=device)
+        tab = {"ew": torch.zeros((Ps, nb), dtype=i32, device=device),
+               "ffit": torch.zeros((Ps, nb), dtype=b8, device=device),
+               "feas": torch.zeros((Ps, nb), dtype=b8, device=device),
+               "segs": torch.zeros((Ps, ct, max(1, dmax)), dtype=i32, device=device),
+               "pcs": torch.zeros((Ps, ct, max(1, dmax)), dtype=i32, device=device)}
+        out["sig_table"] = tab
+        out["tiers"] = torch.zeros(2, dtype=i32, device=device)
+        t_valid = torch.zeros(Ps, dtype=b8, device=device)
+    ipa_ptrs = ([out[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref")]
+                + [planes["ipa_term_key"].data_ptr()] if cfg.ipa_active else [0] * 4)
+    ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
     ptrs += [static[k].data_ptr() for k in (
         "static_ok", "taint_cnt", "aff_raw", "img", "aff_has_pref")]
-    ptrs += [packed_f.data_ptr(), tie_words.data_ptr(), logtab.data_ptr(),
-             used.data_ptr(), nz_used.data_ptr(), sel_counts.data_ptr()]
-    ptrs += [scratch[k].data_ptr() for k in ("feas", "ew", "raw", "total")]
-    ptrs += [packed.data_ptr()]
+    ptrs += [packed_f.data_ptr(), tie_words.data_ptr(), logtab.data_ptr()]
+    ptrs += [out[k].data_ptr() for k in ("used", "nonzero_used", "sel_counts")]
+    ptrs += ipa_ptrs + [dom.data_ptr(), scratch.data_ptr(), out["packed"].data_ptr()]
+    if fast:
+        ptrs += [sig_ids.data_ptr(), uniq_idx.data_ptr(), t_valid.data_ptr()]
+        ptrs += [tab[k].data_ptr() for k in ("ew", "ffit", "feas", "segs", "pcs")]
+        ptrs += [out["sig_scores"].data_ptr(), out["tiers"].data_ptr()]
+    else:
+        ptrs += [0] * 10
     cuda.launch("assign_scan", p, ptrs, _stream(device))
     LAUNCHES["assign_scan"] += 1
-    return packed, used, nz_used, sel_counts
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1042,14 +1370,18 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
 
 def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
                    packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                   logtab: torch.Tensor, cursor_init: int = 0):
+                   logtab: torch.Tensor, cursor_init: int = 0,
+                   sig_ids: torch.Tensor | None = None,
+                   uniq_idx: torch.Tensor | None = None) -> dict:
     """Greedy assignment of one padded pod wave (the reference's
-    batched_assign with sig_ids=None): returns (packed [P + 2] int32 =
-    winners ++ [tie_consumed, tie_overflow], dict with the output
-    used/nonzero_used/sel_counts planes)."""
+    batched_assign): K1 over the pods, or with sig_ids/uniq_idx (signature
+    dedup: sig_ids [P] int32 group ids, uniq_idx [C] int32 first-occurrence
+    slots) over the signature rows only, then K2. Decisions, tie stream and
+    planes are the same with and without dedup. Returns assign_scan's
+    output dict: packed [P + 2] int32 = winners ++ [tie_consumed,
+    tie_overflow], the carried planes, and with dedup sig_scores,
+    sig_table and tiers."""
     check_slice(cfg)
-    static = static_parts(planes, tables, packed_f, layout)
-    packed, used, nz_used, sel_counts = assign_scan(
-        cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab)
-    return packed, {"used": used, "nonzero_used": nz_used,
-                    "sel_counts": sel_counts}
+    static = static_parts(planes, tables, packed_f, layout, rows=uniq_idx)
+    return assign_scan(cfg, planes, static, packed_f, layout, tie_words,
+                       cursor_init, logtab, sig_ids=sig_ids, uniq_idx=uniq_idx)

@@ -21,12 +21,13 @@ Device: the backend runs on "cuda" unless the caller passes device="cpu",
 which runs the kernels' plain PyTorch versions (as the tests do). Without a
 card and without device="cpu" the constructor raises.
 
-Not in this slice (a later one, in the ROADMAP's order): hard spread and
-inter-pod affinity in the wave scan, signature dedup and cross-wave reuse,
-the pipelined launch/collect pair, the host framework with its fallback,
-hybrid and nominated-node paths and the circuit breaker, gang waves and the
-multi-device mesh. What needs them raises OutOfSlice; pods the reference
-sends to its host path raise FallbackNeeded.
+The wave runs the reference's default tier: signature dedup on, hard
+spread and inter-pod affinity in the scan. Not in this slice (a later one,
+in the ROADMAP's order): cross-wave reuse of the signature table and the
+pipelined launch/collect pair that feeds it, the host framework with its
+fallback, hybrid and nominated-node paths and the circuit breaker, gang
+waves and the multi-device mesh. What needs them raises OutOfSlice; pods
+the reference sends to its host path raise FallbackNeeded.
 """
 
 from __future__ import annotations
@@ -57,10 +58,12 @@ from ...ops.planes import (
     PlaneBuilder,
     PodFeatureExtractor,
     features_from_reference,
+    pack_features,
     pad_features,
     planes_from_reference,
     stack_features,
 )
+from ...ops.vocab import next_pow2
 from ..framework.interface import (
     UNSCHEDULABLE,
     Diagnosis,
@@ -115,6 +118,23 @@ def advance_rng(rng, n_words: int) -> None:
     rng.setstate((version, tuple(int(x) for x in s[1]) + (int(s[2]),), gauss))
 
 
+def group_feature_rows(packed: np.ndarray):
+    """Group byte-identical packed feature rows (the wave-side analogue of
+    the framework's pod signature): returns (sig_ids [P] int32, uniq_idx [G]
+    int32 first-occurrence slots), group ids in first-appearance order.
+    Byte equality of the packed rows is the grouping ground truth: two rows
+    that agree byte for byte are the same kernel input by construction."""
+    ids = np.empty(packed.shape[0], np.int32)
+    groups: dict[bytes, int] = {}
+    uniq: list[int] = []
+    for i in range(packed.shape[0]):
+        gid = groups.setdefault(packed[i].tobytes(), len(uniq))
+        if gid == len(uniq):
+            uniq.append(i)
+        ids[i] = gid
+    return ids, np.asarray(uniq, np.int32)
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU; no silent fallback when there is no card."""
@@ -163,10 +183,15 @@ class TorchBackend:
         self._device_tables: dict | None = None
         self._tables_src: dict | None = None
         self._logtab: torch.Tensor | None = None
-        # signature dedup and cross-wave reuse come with a later slice; the
-        # switches exist so a caller that turns them on gets OutOfSlice
-        self.dedup_enabled = False
+        # signature dedup, on by default as in the reference; cross-wave
+        # reuse of the signature table comes with the pipelined launch
+        # (a later slice): turning it on raises OutOfSlice
+        self.dedup_enabled = True
         self.cross_wave_enabled = False
+        self.dedup_stats = {"pods": 0, "signatures": 0, "waves": 0}
+        # scan steps by tier over the dedup waves, [full, replay], summed on
+        # the device (read it only off the timed path)
+        self.tier_steps = torch.zeros(2, dtype=torch.int32, device=self.device)
         # upload counters: full puts, scatter launches, rows scattered
         self.upload_stats = {"full": 0, "scatter": 0, "rows": 0}
         # host-clock seconds per run_batched phase, summed over waves:
@@ -317,8 +342,8 @@ class TorchBackend:
 
         Returns (node names per pod or None, planes). The caller applies the
         same assumes host-side so cache and device state stay coherent."""
-        if self.dedup_enabled or self.cross_wave_enabled:
-            raise OutOfSlice("signature dedup / cross-wave reuse")
+        if self.cross_wave_enabled:
+            raise OutOfSlice("cross-wave reuse of the signature table")
         t0 = time.perf_counter()
         for pod in pods:
             self.extractor.register(pod)
@@ -335,14 +360,20 @@ class TorchBackend:
         cfg = self.kernel_config(planes, feats)
         tie_words = (ZERO_TIE_WORDS if rng is None else
                      clone_tie_words(rng, n_slots * MAX_TIE_DRAWS + MAX_TIE_DRAWS))
-        packed_f, layout = features_from_reference(feats, self.device)
+        rows, layout = pack_features(feats)
+        groups = self._group_wave(rows, len(pods))
+        packed_f = torch.from_numpy(rows).to(self.device)
+        sig_ids, uniq = (None, None) if groups is None else (
+            torch.from_numpy(g).to(self.device) for g in groups)
         words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
         t3 = time.perf_counter()
-        packed_dev, _out = batched_assign(cfg, dev_planes, dev_tables, packed_f,
-                                          layout, words, self._logtab)
+        out = batched_assign(cfg, dev_planes, dev_tables, packed_f, layout, words,
+                             self._logtab, sig_ids=sig_ids, uniq_idx=uniq)
+        if "tiers" in out:
+            self.tier_steps += out["tiers"]
         t4 = time.perf_counter()
         # ONE device→host copy: winners ++ [tie_consumed, tie_overflow]
-        packed = packed_dev.cpu().numpy()
+        packed = out["packed"].cpu().numpy()
         t5 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
                         ("launch", t3, t4), ("wait", t4, t5)):
@@ -357,6 +388,23 @@ class TorchBackend:
                 raise FallbackNeeded("tie-break draw overflow")
             advance_rng(rng, consumed)
         return [planes.node_names[w] if w >= 0 else None for w in winners], planes
+
+    def _group_wave(self, rows: np.ndarray, n_real: int):
+        """Signature-group a (possibly padded) packed feature batch: (sig_ids
+        [P], uniq_idx [G_pad]) for batched_assign, or None with dedup off.
+        uniq_idx is padded to a power of two (floor 8) by repeating the
+        first group's slot, as the reference pads it (backend.py:675-679);
+        only the first G rows are ever installed."""
+        if not self.dedup_enabled:
+            return None
+        sig_ids, uniq = group_feature_rows(rows)
+        self.dedup_stats["pods"] += n_real
+        self.dedup_stats["signatures"] += int(sig_ids[:n_real].max()) + 1
+        self.dedup_stats["waves"] += 1
+        gp = next_pow2(len(uniq), floor=8)
+        if gp > len(uniq):
+            uniq = np.concatenate([uniq, np.full(gp - len(uniq), uniq[0], np.int32)])
+        return sig_ids, uniq
 
     # -- the single-pod cycle --------------------------------------------------
 

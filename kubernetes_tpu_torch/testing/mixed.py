@@ -18,6 +18,10 @@ generator, so the other fields are the same with and without them.
 The workload is a plain spec (made with numpy from a seed); build_nodes /
 build_pods turn it into objects of whichever package's API types module is
 passed in, so one spec feeds this package and the reference alike.
+
+The wave functions below (dedup_nodes, dedup_pods, ipa_pods) make the
+signature-dedup waves the same way: a few pod shapes repeated, so that the
+scan replays resident signature rows, in either package's types.
 """
 
 from __future__ import annotations
@@ -209,3 +213,83 @@ def _pod_affinity(s: dict, types):
     pod_anti = (types.PodAntiAffinity(required=req_anti, preferred=pref_anti)
                 if req_anti or pref_anti else None)
     return pod_aff, pod_anti
+
+
+# --- signature-dedup waves ---------------------------------------------------
+
+
+def dedup_nodes(n: int, types, meta, cpu: str = "4", mem: str = "8Gi") -> list:
+    """n nodes n0.. of cpu/mem over two zones z0/z1 (the reference dedup
+    tests' make_cluster)."""
+    out = []
+    for i in range(n):
+        alloc = {"cpu": cpu, "memory": mem, "pods": 110, "ephemeral-storage": "100Gi"}
+        out.append(types.Node(
+            meta=meta.ObjectMeta(name=f"n{i}", namespace="", labels={
+                _KEYS["hostname"]: f"n{i}", _KEYS["zone"]: f"z{i % 2}"}),
+            spec=types.NodeSpec(),
+            status=types.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc))))
+    return out
+
+
+def _pod(types, meta, name, cpu, mem, labels, affinity=None, spread=()):
+    c = types.Container(name="c", requests={"cpu": cpu, "memory": mem})
+    return types.Pod(meta=meta.ObjectMeta(name=name, namespace="default",
+                                          labels=dict(labels)),
+                     spec=types.PodSpec(containers=[c], affinity=affinity,
+                                        topology_spread_constraints=spread))
+
+
+def dedup_pods(n: int, types, meta, spread: tuple | None = None) -> list:
+    """The reference dedup tests' mixed_pods: three signatures interleaved
+    a b c a b c ... (1 CPU/1Gi, 900m/900Mi, 800m/800Mi), so every clone run
+    is split by the other signatures' steps. spread = (max_skew, key name
+    of _KEYS) adds a DoNotSchedule constraint selecting the pod's own
+    labels."""
+    shapes = (("a", "1", "1Gi"), ("b", "900m", "900Mi"), ("c", "800m", "800Mi"))
+    out = []
+    for i in range(n):
+        app, cpu, mem = shapes[i % 3]
+        cons = ()
+        if spread is not None:
+            cons = (types.TopologySpreadConstraint(
+                spread[0], _KEYS[spread[1]], "DoNotSchedule",
+                types.LabelSelector.of({"app": app})),)
+        out.append(_pod(types, meta, f"{app}{i:02d}", cpu, mem, {"app": app},
+                        spread=cons))
+    return out
+
+
+def ipa_pods(n: int, types, meta) -> list:
+    """A wave of six repeating inter-pod affinity shapes: a plain web pod;
+    a db pod with required anti-affinity to db on hostname; a cache pod
+    with required affinity to cache on zone (the first one matches only
+    itself: the self-match bootstrap); a web pod preferring db and avoiding
+    web (preferred terms both ways); a batch pod with required
+    anti-affinity to batch on zone; and a db pod preferring cache."""
+    def term(app, key):
+        return types.PodAffinityTerm(label_selector=types.LabelSelector.of({"app": app}),
+                                     topology_key=_KEYS[key])
+
+    shapes = (
+        ("web", None),
+        ("db", types.Affinity(pod_anti_affinity=types.PodAntiAffinity(
+            required=(term("db", "hostname"),)))),
+        ("cache", types.Affinity(pod_affinity=types.PodAffinity(
+            required=(term("cache", "zone"),)))),
+        ("web", types.Affinity(
+            pod_affinity=types.PodAffinity(preferred=(
+                types.WeightedPodAffinityTerm(10, term("db", "zone")),)),
+            pod_anti_affinity=types.PodAntiAffinity(preferred=(
+                types.WeightedPodAffinityTerm(5, term("web", "hostname")),)))),
+        ("batch", types.Affinity(pod_anti_affinity=types.PodAntiAffinity(
+            required=(term("batch", "zone"),)))),
+        ("db", types.Affinity(pod_affinity=types.PodAffinity(preferred=(
+            types.WeightedPodAffinityTerm(20, term("cache", "hostname")),)))),
+    )
+    out = []
+    for i in range(n):
+        app, aff = shapes[i % len(shapes)]
+        out.append(_pod(types, meta, f"i{i:03d}", "250m", "256Mi", {"app": app},
+                        affinity=aff))
+    return out

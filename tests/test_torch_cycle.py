@@ -346,9 +346,23 @@ def test_scope_errors():
     assert algo.kernel_count == 0
     with pytest.raises(FitError):
         algo.schedule_pod(CycleState(), tw.scheduling_basic_pod(3), TSnapshot())
-    # the wave scan still refuses what only K4 computes
-    with pytest.raises(OutOfSlice, match="hard spread"):
-        algo.backend.run_batched([tw.topology_spreading_pod(0)], snap)
+    # the wave scan now computes hard spread too: the same spread pods
+    # through both packages' run_batched land on the same nodes
+    reference, port = _topology_spreading(8, 0, 6)
+    waves = []
+    for build, names, cache_cls, snap_cls, make in (
+            (reference, JNames, JCache, JSnapshot, TPUBackend),
+            (port, TNames, TCache, TSnapshot, lambda n: TorchBackend(n, device="cpu"))):
+        nodes, _, pods = build()
+        c = cache_cls(names())
+        for n in nodes:
+            c.add_node(n)
+        s = snap_cls()
+        c.update_snapshot(s)
+        rng = random.Random(4)
+        waves.append((make(c.names).run_batched(pods, s, rng=rng, pad_to=8)[0],
+                      rng.getstate()))
+    assert waves[1] == waves[0] and all(waves[1][0])
     got = algo.schedule_pod(CycleState(), tw.topology_spreading_pod(1), snap)
     assert got.feasible_nodes == 8 and algo.kernel_count == 1
 

@@ -286,20 +286,19 @@ def test_cases_reach_every_branch():
 
 def test_wrapper_dispatch_and_gate():
     """CPU tensors run the plain version and count no launch; a device
-    other than cpu/cuda raises; the K4 gate admits hard spread and IPA,
-    the wave gate still refuses them."""
+    other than cpu/cuda raises; the K4 gate and the wave gate both admit
+    hard spread and IPA and both refuse past the kernels' capacities."""
     cfg, planes, tables, f = _reference_inputs(*_hard_spread(), None)
     pcfg = tk.KernelConfig(**dataclasses.asdict(cfg))
     assert pcfg.n_hard == 1
-    tk.check_fit_slice(pcfg)
-    with pytest.raises(tk.OutOfSlice, match="hard spread"):
-        tk.check_slice(pcfg)
     ipa = dataclasses.replace(pcfg, n_hard=0, n_ipa_anti=1, ipa_existing_pref=True)
-    tk.check_fit_slice(ipa)
-    with pytest.raises(tk.OutOfSlice, match="inter-pod affinity"):
-        tk.check_slice(ipa)
-    with pytest.raises(tk.OutOfSlice):
-        tk.check_fit_slice(dataclasses.replace(pcfg, topo_domains=(2048, 0)))
+    for gate in (tk.check_fit_slice, tk.check_slice):
+        gate(pcfg)
+        gate(ipa)
+        with pytest.raises(tk.OutOfSlice):
+            gate(dataclasses.replace(pcfg, topo_domains=(2048, 0)))
+        with pytest.raises(tk.OutOfSlice, match="term slots"):
+            gate(dataclasses.replace(ipa, max_ipa_pref=9))
     tk.reset_launches()
     _port_outputs(cfg, planes, tables, f)
     assert tk.LAUNCHES["fit_and_score"] == 0

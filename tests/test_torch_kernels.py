@@ -128,9 +128,10 @@ def test_wave_scan_matches_reference(case):
     ref_static = _jax_static(cfg, arrays, feats)
     for k, v in ref_static.items():
         assert np.array_equal(static[k].numpy(), np.asarray(v)), k
-    packed, used, nz_used, sel_counts = tk.assign_scan(
-        pcfg, dplanes, static, packed_f, layout,
-        torch.from_numpy(words.view(np.int32)), 0, logtab)
+    out = tk.assign_scan(pcfg, dplanes, static, packed_f, layout,
+                         torch.from_numpy(words.view(np.int32)), 0, logtab)
+    packed, used, nz_used, sel_counts = (
+        out[k] for k in ("packed", "used", "nonzero_used", "sel_counts"))
     P = feats["active"].shape[0]
     assert packed[:P].tolist() == np.asarray(winners).tolist()
     assert int(packed[P]) == int(info["tie_consumed"])
@@ -295,10 +296,18 @@ def test_wrappers_dispatch_by_device():
 
 
 def test_out_of_slice_configs_raise():
+    """The wave gate admits hard spread and IPA and refuses only past the
+    kernels' capacities: 4 spread slots, 4 required and 8 preferred IPA
+    terms, 16 keys of at most 1024 domains."""
     for cfg in (tk.KernelConfig(n_hard=1, n_soft=2),
                 tk.KernelConfig(n_hard=0, n_ipa_aff=1),
                 tk.KernelConfig(n_hard=0, ipa_existing_anti=True),
-                tk.KernelConfig(n_hard=0, topo_domains=(2048, 0))):
+                tk.KernelConfig(n_hard=4, n_soft=4, topo_domains=(1024,) * 16),
+                tk.KernelConfig(n_hard=0, n_soft=2, topo_domains=(8, 0))):
+        tk.check_slice(cfg)
+    for cfg in (tk.KernelConfig(n_hard=0, topo_domains=(2048, 0)),
+                tk.KernelConfig(topo_domains=(8,) * 17),
+                tk.KernelConfig(max_constraints=5, n_hard=5, n_soft=0),
+                tk.KernelConfig(n_hard=0, max_ipa_terms=5, n_ipa_aff=1)):
         with pytest.raises(tk.OutOfSlice):
             tk.check_slice(cfg)
-    tk.check_slice(tk.KernelConfig(n_hard=0, n_soft=2, topo_domains=(8, 0)))

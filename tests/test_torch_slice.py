@@ -112,8 +112,9 @@ def test_run_batched_matches_reference_backend(case):
     jc.update_snapshot(js)
     tc.update_snapshot(ts)
     jb = TPUBackend(jn, plugin_args=pa)
-    assert jb.dedup_enabled  # the reference runs its default (dedup) tier
     tb = TorchBackend(tn, plugin_args=pa, device="cpu")
+    # both run their default tier: signature dedup on
+    assert jb.dedup_enabled and tb.dedup_enabled
     want = _drive(jb, jc, js, _waves(jpods, size), pad_to, seed)
     got = _drive(tb, tc, ts, _waves(tpods, size), pad_to, seed)
     assert got[0] == want[0]
@@ -121,6 +122,7 @@ def test_run_batched_matches_reference_backend(case):
     # later waves repair the device mirror by row scatter (a full put again
     # only where a new vocab entry reshaped the buckets)
     assert tb.upload_stats["full"] >= 1 and tb.upload_stats["scatter"] >= 2
+    assert tb.dedup_stats["waves"] == len(want[0])
 
 
 def test_imports_and_schedules_without_jax():
@@ -200,25 +202,46 @@ def _small_port_cluster():
 
 
 def test_out_of_slice_waves_raise():
-    """Hard spread, inter-pod affinity and dedup requests raise OutOfSlice;
-    a pod the reference sends to its host path raises FallbackNeeded."""
-    from kubernetes_tpu_torch.api.labels import LabelSelector
+    """Hard spread and inter-pod affinity pods, which earlier slices
+    refused, now schedule through the port's wave (dedup on) exactly as
+    through the reference's; cross-wave reuse still raises OutOfSlice and a
+    pod the reference sends to its host path raises FallbackNeeded."""
+    from kubernetes_tpu.api.labels import LabelSelector as JSel
+    from kubernetes_tpu_torch.api.labels import LabelSelector as TSel
 
+    def pods(types, sel, w):
+        hard = types.Pod(
+            meta=(jmeta if types is jtypes else tmeta).ObjectMeta(
+                name=f"h{w}", namespace="default", labels={"app": "x"}),
+            spec=types.PodSpec(containers=[types.Container(
+                name="c", requests={"cpu": "100m"})],
+                topology_spread_constraints=(types.TopologySpreadConstraint(
+                    1, "topology.kubernetes.io/zone", "DoNotSchedule",
+                    sel.of({"app": "x"})),)))
+        ipa = types.Pod(
+            meta=(jmeta if types is jtypes else tmeta).ObjectMeta(
+                name=f"i{w}", namespace="default", labels={"app": "y"}),
+            spec=types.PodSpec(
+                containers=[types.Container(name="c", requests={"cpu": "100m"})],
+                affinity=types.Affinity(pod_anti_affinity=types.PodAntiAffinity(
+                    required=(types.PodAffinityTerm(
+                        label_selector=sel.of({"app": "y"}),
+                        topology_key="kubernetes.io/hostname"),)))))
+        return [hard, ipa]
+
+    jn, jc, _ = _basic_reference(8, 0)
+    tn, tc, _ = _basic_port(8, 0)
+    js, ts = JSnapshot(), TSnapshot()
+    jc.update_snapshot(js)
+    tc.update_snapshot(ts)
+    want = _drive(TPUBackend(jn), jc, js, [pods(jtypes, JSel, w) for w in (0, 1)], 4, 9)
+    got = _drive(TorchBackend(tn, device="cpu"), tc, ts,
+                 [pods(ttypes, TSel, w) for w in (0, 1)], 4, 9)
+    assert got == want and all(all(w) for w in got[0])
     names, snap = _small_port_cluster()
-    b = TorchBackend(names, device="cpu")
-    hard = tw.with_spread(tw.make_pod("h", cpu="100m", labels={"app": "x"}))
-    with pytest.raises(OutOfSlice, match="hard spread"):
-        b.run_batched([hard], snap)
-    ipa = tw.make_pod("i", cpu="100m", labels={"app": "y"})
-    ipa.spec.affinity = ttypes.Affinity(pod_anti_affinity=ttypes.PodAntiAffinity(
-        required=(ttypes.PodAffinityTerm(
-            label_selector=LabelSelector.of({"app": "y"}),
-            topology_key="kubernetes.io/hostname"),)))
-    with pytest.raises(OutOfSlice, match="inter-pod affinity"):
-        TorchBackend(names, device="cpu").run_batched([ipa], snap)
     b2 = TorchBackend(names, device="cpu")
-    b2.dedup_enabled = True
-    with pytest.raises(OutOfSlice):
+    b2.cross_wave_enabled = True
+    with pytest.raises(OutOfSlice, match="cross-wave"):
         b2.run_batched([tw.make_pod("d", cpu="100m")], snap)
     port = tw.make_pod("p", cpu="100m")
     port.spec.containers[0] = ttypes.Container(
