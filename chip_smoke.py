@@ -50,6 +50,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 10. the card against the CPU plain path through schedule_pod on mixed
    clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
    equal final rng state, equal FitError messages;
+11. K5 against its plain version at full width: the SchedulingBasic
+   cluster with 1000 initial pods placed through waves, gangs of 4, 32 and
+   128 default pods in Required (8 zone rows) and Preferred (9 -> 16 rows)
+   mode, a gang no zone holds and a 3-word tie stream; every element of
+   the packed output equal; K5 (and K1 on the gang) timed;
+12. the gang path through try_gang_wave at gang.yaml's published shapes:
+   GangSchedulingTopologyRequired/500Nodes and
+   GangSchedulingTopologyPreferred/500Nodes (100 PodGroups of 4), then 16
+   gangs of 128 on 5000 nodes in Required mode, each gang's hosts assumed
+   before the next; every gang placed whole, each Required gang in one
+   zone, every member counted on the device side (counts zeroed before
+   each cell, read after); gang pods/s and ms per gang by phase;
+13. the card against the CPU plain path through try_gang_wave on a
+   600-node mixed cluster (hard spread, inter-pod affinity and host ports
+   among the members): equal hosts, winning rows, outcomes and rng state;
 then print the card, the timings, the kernels line and the result line.
 
 It imports nothing of the reference JAX package and never imports jax.
@@ -102,22 +117,40 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float | None:
+def kernel_ms(fn, kernel: str, reps: int) -> float:
     """Median device duration of the CUDA kernel named `kernel` over `reps`
     calls of fn(), from a torch.profiler (CUPTI) trace: the kernel alone,
     without the wrapper's host time that CUDA events around the call
-    include. None when the trace shows no such kernel."""
+    include."""
+    return kernels_ms(fn, (kernel,), reps)[kernel]
+
+
+def kernels_ms(fn, names, reps: int) -> dict:
+    """Median device duration of each named CUDA kernel over `reps` calls
+    of fn(), all from one torch.profiler trace. A name the trace lacks is
+    traced once more with four times the calls; if the trace still lacks
+    it, fail (the launch counts say whether it ran)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                   if kernel in e.name)
-    return times[len(times) // 2] if times else None
+    out = {}
+    for n_calls in (reps, 4 * reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = sorted({e.name for e in prof.events()})
+        for name in names:
+            times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                           if name in e.name)
+            if times and name not in out:
+                out[name] = times[len(times) // 2]
+        if len(out) == len(names):
+            return out
+        print(f"profiler trace of {n_calls} calls lacks {sorted(set(names) - set(out))}; "
+              f"it holds {seen[:8]}", flush=True)
+    fail(f"the profiler trace shows no device time for {sorted(set(names) - set(out))}")
 
 
 def nbytes(*ts) -> int:
@@ -257,8 +290,6 @@ def time_k2(label, w, k1, words, out, dedup, reps):
     """K2's profiler time, its plain version's event time and its bound on
     this wave's inputs."""
     ms = kernel_ms(lambda: k2_call(w, k1, words, dedup), "assign_scan_kernel", reps)
-    if ms is None:
-        fail("the profiler trace shows no device time for assign_scan")
     plain = time_ms(lambda: k2_call(w, k1, words, dedup, plain=True), 1, warmup=0)
     bd, by = bound_ms(*k2_work(w, k1, words, out, dedup))
     tiers = out["tiers"].tolist() if dedup else "-"
@@ -294,10 +325,21 @@ def main() -> None:
     ap.add_argument("--ipa-nodes", type=int, default=5000)
     ap.add_argument("--ipa-existing", type=int, default=2000)
     ap.add_argument("--cycle-cases", type=int, default=4)
+    # phases 11-13: K5 at full width, gang.yaml's cells, the card vs the CPU
+    ap.add_argument("--k5-nodes", type=int, default=5000)
+    ap.add_argument("--k5-sizes", default="4,32,128")
+    ap.add_argument("--gang-nodes", type=int, default=500)
+    ap.add_argument("--gang-groups", type=int, default=100)
+    ap.add_argument("--big-gang-nodes", type=int, default=5000)
+    ap.add_argument("--big-gang-groups", type=int, default=16)
+    ap.add_argument("--big-gang-size", type=int, default=128)
+    ap.add_argument("--mixed-gang-nodes", type=int, default=600)
+    ap.add_argument("--mixed-gangs", type=int, default=24)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    sys.stdout.reconfigure(line_buffering=True)  # in order with stderr in one log
 
     from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.ops import cuda, kernels
@@ -456,8 +498,6 @@ def main() -> None:
     rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
     ms3_row = kernel_ms(lambda: kernels.scatter_rows(k3, rows1, idx1),
                         "scatter_rows_kernel", 50)
-    if None in (ms1, ms1_all, ms3, ms3_row):
-        fail("the profiler trace shows no device time for a kernel")
     print(f"static_parts over {len(w.uniq)} signature rows {ms1:.4f} ms, over "
           f"{args.wave} pods {ms1_all:.4f} ms; scatter_rows on one dirty row "
           f"{ms3_row:.5f} ms")
@@ -561,6 +601,15 @@ def main() -> None:
                                    ("TopologySpreading dedup", waves7["k2"]),
                                    ("IPA wave dedup", ipa8))))
     print(f"launches on the TopologySpreading wave path: {waves7['launches']}")
+
+    # 11-13. gang waves
+    k5 = k5_against_plain(args)
+    launches12 = gang_cells(args)
+    gang_card_vs_cpu(args)
+    rows_out.append({"name": "gang_assign", "route": "cuda",
+                     "source": "kubernetes_tpu_torch/ops/csrc/gang_assign.cu",
+                     "replaces": "kubernetes_tpu/ops/kernels.py:1472",
+                     "launches": launches12["gang_assign"], **k5})
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -941,16 +990,15 @@ def k4_against_plain(args, state, cluster):
                                                layout, logtab), 50)
     ms_p = time_ms(lambda: kernels.fit_and_score_ref(cfg, dev_planes, dev_tables,
                                                      f_views, logtab), 10)
-    dev = kernel_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
-                                                  layout, logtab),
-                    "fit_and_score_kernel", 50)
+    ms_k = kernel_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
+                                                   layout, logtab),
+                     "fit_and_score_kernel", 50)
     print(f"fit_and_score: event ms around the wrapper {ms:.4f}, profiler kernel ms "
-          f"{dev}, plain {ms_p:.3f} ms")
+          f"{ms_k:.4f}, plain {ms_p:.3f} ms")
     nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
     out_bytes = kernels.fit_output_bytes(planes.nb, nf, planes.r)[1]
     b4, f4 = k4_work(cfg, dev_planes, dev_tables, f_views, packed_f, out_bytes)
     bd, by = bound_ms(b4, f4)
-    ms_k = dev if dev is not None else ms
     print(f"fit_and_score: {ms_k:.4f} ms (plain {ms_p:.3f} ms, bound {bd:.5f} ms by "
           f"{by}, {b4} bytes)")
     return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bd,
@@ -1001,6 +1049,360 @@ def cycle_card_vs_cpu(args):
         errs = sum(1 for g in results[0][0] if g[0] == "FitError")
         print(f"single-pod cycle, mixed {n_nodes} nodes, {n_pods} pods: card == CPU "
               f"plain path ({n_pods - errs} placed, {errs} FitErrors)")
+
+
+# --------------------------------------------------------------------------
+# 11-13: gang waves
+# --------------------------------------------------------------------------
+
+
+def gang_cluster(n_nodes, zones, device, init_pods=0, wave=512, seed=1):
+    """A SchedulingBasic-shaped cluster (the default node template, zones
+    round-robin as scheduler_perf's createNodes) with `init_pods` default
+    pods placed through run_batched, and the gang planner around it:
+    (cache, snapshot, handle, framework, backend, algorithm)."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import Framework, Handle
+    from kubernetes_tpu_torch.scheduler.plugins.topology_placement import (
+        TopologyPlacementGenerator)
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    cache = Cache(ResourceNames())
+    for i in range(n_nodes):
+        cache.add_node(scheduling_basic_node(i, zones))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(cache.names, device=device)
+    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(seed))
+    if init_pods:
+        place_waves(backend, cache, snap, [scheduling_basic_pod(10**7 + i)
+                                           for i in range(init_pods)],
+                    wave, algo.rng, "gang cluster")
+    handle = Handle(cache=cache, snapshot=snap)
+    fw = Framework([TopologyPlacementGenerator()], handle=handle)
+    return cache, snap, handle, fw, backend, algo
+
+
+def admit(handle, group, pods):
+    """A PodGroup and its members arrive: the object lookup and the cache's
+    gang accounting learn them, as the reference's informer handlers do."""
+    handle.store.add(group)
+    handle.cache.pod_group_states.set_group(group)
+    for pod in pods:
+        handle.cache.pod_group_states.pod_added(group.meta.key, pod.meta.key)
+    handle.cache.update_snapshot(handle.snapshot)
+
+
+def assume_gang(handle, group, pods, hosts):
+    for pod, node in zip(pods, hosts):
+        handle.cache.assume_pod(pod, node)
+        handle.cache.pod_group_states.pod_assumed(group.meta.key, pod.meta.key)
+    handle.cache.update_snapshot(handle.snapshot)
+
+
+def qpis(pods):
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(pod=p) for p in pods]
+
+
+def gang_inputs(backend, snap, pods, placements):
+    """K5's inputs for one gang on the card, as run_gang builds them."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops.planes import (
+        pack_features, pad_features, placement_masks, stack_features, unpack_features)
+    from kubernetes_tpu_torch.ops.vocab import next_pow2
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features([backend.extractor.features(p, planes) for p in pods]),
+                         next_pow2(len(pods), floor=4))
+    masks = placement_masks(planes, [list(p.node_names) for p in placements],
+                            next_pow2(len(placements), floor=2))
+    dp, dt = backend.device_inputs(planes)
+    rows, layout = pack_features(feats)
+    packed_f = torch.from_numpy(rows).cuda()
+    return SimpleNamespace(
+        cfg=backend.kernel_config(planes, feats), planes=planes, dp=dp, dt=dt,
+        packed_f=packed_f, layout=layout, fv=unpack_features(packed_f, layout),
+        masks=torch.from_numpy(masks).cuda(), logtab=backend._logtab)
+
+
+def k5_call(g, k1, words, nc, hf, plain=False):
+    from kubernetes_tpu_torch.ops import kernels
+
+    if plain:
+        return kernels.gang_assign_ref(g.cfg, g.dp, k1, g.fv, g.masks, words, g.logtab, nc, hf)
+    return kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks, words,
+                               g.logtab, nc, hf)
+
+
+def k5_work(g, k1, words, out, n_real):
+    """(bytes, float32 operations, bytes reckoned per row) K5 must spend on
+    this gang: every input read once (the planes it reads, K1's rows of the
+    active members, the features, masks, tie words and log table) and the
+    packed output written once; each row's carry is the kernel's own
+    scratch. Operations: per real row and mask node the balanced score
+    (~11) per active member and 2 per active soft slot. The per-row
+    reckoning counts, as k2_work does for one wave, each real row's scan
+    on its own: K1's rows, the planes and the carry read and written."""
+    active = g.fv["active"] != 0
+    n_act = int(active.sum())
+    nb = g.planes.nb
+    carried = ["used", "nonzero_used", "sel_counts"]
+    if g.cfg.ipa_active:
+        carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
+    planes = nbytes(*(g.dp[k] for k in ["alloc", "domain", "valid"] + carried))
+    if g.cfg.ipa_active:
+        planes += nbytes(g.dp["ipa_term_key"])
+    k1_rows = n_act * (nb * (1 + 4 + 4 + 4) + 1)
+    io = nbytes(g.packed_f, g.masks, words, g.logtab, out)
+    soft_on = int(g.fv["soft_active"][active][:, : max(1, g.cfg.n_soft)].sum())
+    mask_nodes = int(g.masks[:n_real].sum())
+    per_row = n_real * (k1_rows + planes + nbytes(*(g.dp[k] for k in carried))) + io
+    return planes + k1_rows + io, mask_nodes * (11 * n_act + 2 * soft_on), per_row
+
+
+def k5_against_plain(args):
+    """11. K5 against its plain version on the card at full width, every
+    element of the packed output equal; K5, its tail pick and K1 timed on
+    the largest Required gang. Returns the kernels-line numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import plan_gang
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import build_gangs, gang, gang_member
+
+    t0 = time.perf_counter()
+    cache, snap, handle, fw, backend, _algo = gang_cluster(
+        args.k5_nodes, args.zones, "cuda", init_pods=args.init_pods, wave=args.wave,
+        seed=args.seed)
+    print(f"K5 cluster: {args.k5_nodes} nodes, {args.init_pods} initial pods, "
+          f"{time.perf_counter() - t0:.1f} s")
+    sizes = [int(x) for x in args.k5_sizes.split(",")]
+    cases = [(size, mode, "rng") for size in sizes for mode in ("Required", "Preferred")]
+    cases += [(4, "Required", "fits nowhere"), (32, "Preferred", "3 words")]
+    err, timed = 0.0, None
+    for i, (size, mode, kind) in enumerate(cases):
+        cpu = "33" if kind == "fits nowhere" else "100m"
+        spec = {"nodes": [], "gangs": [gang(f"k5-{i}", mode, [
+            gang_member(f"k5-{i}-{j}", cpu=cpu) for j in range(size)])]}
+        group, pods = build_gangs(spec, types, meta)[0]
+        admit(handle, group, pods)
+        plan = plan_gang(handle, fw, qpis(pods))
+        nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
+        g = gang_inputs(backend, snap, pods, plan.gang_placements)
+        words = tie_words(args.seed + 10 + i, g.packed_f.shape[0])
+        if kind == "3 words":
+            words = words[:3].clone()
+        k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
+        got = k5_call(g, k1, words, nc, hf)
+        want = k5_call(g, k1, words, nc, hf, plain=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).nonzero()[0, 0])
+            fail(f"gang_assign differs from its plain version ({size} members, {mode}, "
+                 f"{kind}): first at element {bad}, {int(got[bad])} vs {int(want[bad])}")
+        err = max(err, max_abs_err([(got, want)]))
+        d, p = g.masks.shape[0], g.packed_f.shape[0]
+        tail = got[-3:].tolist()
+        placed = got[d * p + 2 * d: d * p + 3 * d].tolist()
+        overflow = got[d * p + d: d * p + 2 * d].tolist()
+        t = kernels_ms(lambda: k5_call(g, k1, words, nc, hf),
+                       ("gang_assign_kernel", "gang_pick_kernel"), 3)
+        print(f"K5 == plain: {size} members ({p} slots), {mode}, {kind}: {d} rows "
+              f"({nc} constrained, fallback {int(hf)}), [win_d, ok, n_active] {tail}, "
+              f"placed {placed}, overflow {overflow}; K5 {t['gang_assign_kernel']:.4f} ms "
+              f"+ pick {t['gang_pick_kernel']:.4f} ms")
+        if kind == "fits nowhere" and tail[1]:
+            fail("the gang no zone holds was admitted")
+        if kind == "rng" and not tail[1]:
+            fail(f"the {size}-member {mode} gang found no domain")
+        if kind == "rng" and mode == "Required" and size == max(sizes):
+            timed = (g, k1, words, nc, hf, got, nc + int(hf), size)
+    g, k1, words, nc, hf, out, n_real, size = timed
+    t = kernels_ms(lambda: (kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout),
+                            k5_call(g, k1, words, nc, hf)),
+                   ("static_parts_kernel", "gang_assign_kernel", "gang_pick_kernel"), 5)
+    ms, ms_pick, ms_k1 = (t["gang_assign_kernel"], t["gang_pick_kernel"],
+                          t["static_parts_kernel"])
+    plain = time_ms(lambda: k5_call(g, k1, words, nc, hf, plain=True), 1, warmup=0)
+    b5, f5, b5_rows = k5_work(g, k1, words, out, n_real)
+    bd, by = bound_ms(b5, f5)
+    print(f"gang_assign ({size} members, Required, {g.masks.shape[0]} rows, {g.planes.n} "
+          f"nodes): {ms:.4f} ms + pick {ms_pick:.4f} ms (plain {plain:.1f} ms, bound "
+          f"{bd:.5f} ms by {by}, {b5} bytes; reckoned per row {b5_rows} bytes, "
+          f"{bound_ms(b5_rows, f5)[0]:.5f} ms); static_parts on the gang {ms_k1:.4f} ms")
+    return {"max_abs_err": err, "ms": ms + ms_pick, "plain_ms": plain, "bound_ms": bd,
+            "bound_by": by, "library_ms": None}
+
+
+def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
+    """One gang.yaml-shaped cell through try_gang_wave on the card; returns
+    the cell's launch counts."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import plan_gang, try_gang_wave
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import build_gangs, perf_gang_spec
+
+    cache, snap, handle, fw, backend, algo = gang_cluster(n_nodes, zones, "cuda",
+                                                          seed=args.seed)
+    gangs = build_gangs(perf_gang_spec(0, zones, n_groups + 1, size, mode), types, meta)
+
+    host_s = {"admit": 0.0, "try_gang_wave": 0.0, "assume": 0.0}
+
+    def place(group, pods):
+        t0 = time.perf_counter()
+        admit(handle, group, pods)
+        t1 = time.perf_counter()
+        hosts = try_gang_wave(handle, fw, algo, group.meta.key, qpis(pods))
+        t2 = time.perf_counter()
+        if hosts is None:
+            fail(f"{label}: gang {group.meta.name} was not placed "
+                 f"({backend.gang_record.gang_outcome})")
+        if mode == "Required" and len({int(h.split("-")[1]) % zones for h in hosts}) != 1:
+            fail(f"{label}: Required gang {group.meta.name} spans zones")
+        assume_gang(handle, group, pods, hosts)
+        for k, a, b in (("admit", t0, t1), ("try_gang_wave", t1, t2),
+                        ("assume", t2, time.perf_counter())):
+            host_s[k] += b - a
+
+    place(*gangs[0])  # the first gang warms the path (the kernels are built)
+    phase0 = dict(backend.gang_phase_s)
+    totals0 = dict(backend.gang_pod_totals)
+    host0, upload0 = dict(host_s), dict(backend.upload_stats)
+    kernels.reset_launches()
+    walls = []
+    t0 = time.perf_counter()
+    for group, pods in gangs[1:]:
+        t = time.perf_counter()
+        place(group, pods)
+        walls.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_pods = n_groups * size
+    device = backend.gang_pod_totals.get("device", 0) - totals0.get("device", 0)
+    if device != n_pods or backend.gang_pod_totals.get("host", 0):
+        fail(f"{label}: gang pods by path {backend.gang_pod_totals}, expected "
+             f"{n_pods} more on the device")
+    for k in ("static_parts", "gang_assign"):
+        if launches[k] != n_groups:
+            fail(f"{label}: {k} launched {launches[k]} times for {n_groups} gangs")
+    phases = {k: (v - phase0[k]) * 1e3 / n_groups for k, v in backend.gang_phase_s.items()}
+    host = {k: (v - host0[k]) * 1e3 / n_groups for k, v in host_s.items()}
+    uploads = {k: v - upload0[k] for k, v in backend.upload_stats.items()}
+    walls.sort()
+    # one more gang's kernels, timed alone, for the busy share
+    extra = build_gangs(perf_gang_spec(0, zones, n_groups + 2, size, mode), types, meta)[-1]
+    admit(handle, *extra)
+    plan = plan_gang(handle, fw, qpis(extra[1]))
+    g = gang_inputs(backend, snap, extra[1], plan.gang_placements)
+    words = tie_words(args.seed, g.packed_f.shape[0])
+    k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
+    nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
+    ms = kernels_ms(lambda: (kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout),
+                             k5_call(g, k1, words, nc, hf)),
+                    ("static_parts_kernel", "gang_assign_kernel", "gang_pick_kernel"), 5)
+    ms1 = ms["static_parts_kernel"]
+    ms5 = ms["gang_assign_kernel"] + ms["gang_pick_kernel"]
+    print(f"{label}: {n_groups} gangs of {size} on {n_nodes} nodes, {mode}: {wall:.3f} s = "
+          f"{n_pods / wall:.1f} gang pods/s incl. assume + snapshot; ms per gang median "
+          f"{walls[len(walls) // 2] * 1e3:.3f}, max {walls[-1] * 1e3:.3f}; by run_gang phase "
+          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+          + f"; planner (try_gang_wave outside run_gang) "
+          f"{host['try_gang_wave'] - sum(phases.values()):.4f}, admit + snapshot "
+          f"{host['admit']:.4f}, assume + snapshot {host['assume']:.4f}; uploads {uploads}; "
+          f"K5 {ms5:.4f} ms (scan + pick) K1 {ms1:.4f} ms per gang; device busy share "
+          f"((K1 + K5) x gangs / wall) {(ms1 + ms5) * n_groups / (wall * 1e3):.4f}; "
+          f"launches {launches}")
+    return launches
+
+
+def gang_cells(args):
+    """12. gang.yaml's Required and Preferred 500Nodes cells, then the
+    5000-node Required cell of 128-member gangs; returns the summed launch
+    counts of the measured gangs."""
+    total = {}
+    for label, n_nodes, groups, size, mode in (
+        ("GangSchedulingTopologyRequired/500Nodes", args.gang_nodes, args.gang_groups, 4,
+         "Required"),
+        ("GangSchedulingTopologyPreferred/500Nodes", args.gang_nodes, args.gang_groups, 4,
+         "Preferred"),
+        (f"Required gangs of {args.big_gang_size}/{args.big_gang_nodes}Nodes",
+         args.big_gang_nodes, args.big_gang_groups, args.big_gang_size, "Required"),
+    ):
+        for k, v in gang_cell(label, n_nodes, args.zones, groups, size, mode, args).items():
+            total[k] = total.get(k, 0) + v
+    print(f"launches on the gang path (phase 12, measured gangs): {total}")
+    return total
+
+
+def gang_card_vs_cpu(args):
+    """13. The card against the CPU plain path through try_gang_wave on a
+    mixed cluster: equal hosts, winning rows, outcome strings and rng
+    state after every gang."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import Framework, Handle
+    from kubernetes_tpu_torch.scheduler.plugins.topology_placement import (
+        TopologyPlacementGenerator)
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import try_gang_wave
+    from kubernetes_tpu_torch.testing.mixed import build_gang_nodes, build_gangs, mixed_gang_spec
+
+    t0 = time.perf_counter()
+    spec = mixed_gang_spec(args.seed + 61, args.mixed_gang_nodes, args.zones,
+                           args.mixed_gangs, max_size=12)
+    results = []
+    for device in ("cuda", "cpu"):
+        cache = Cache(ResourceNames())
+        for n in build_gang_nodes(spec, types, meta):
+            cache.add_node(n)
+        snap = Snapshot()
+        cache.update_snapshot(snap)
+        handle = Handle(cache=cache, snapshot=snap)
+        fw = Framework([TopologyPlacementGenerator()], handle=handle)
+        backend = TorchBackend(cache.names, device=device)
+        algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+        rows = []
+        run_gang = backend.run_gang
+
+        def recording(*a, _run=run_gang, _rows=rows):
+            res = _run(*a)
+            _rows.append(None if res is None else res[1])
+            return res
+
+        backend.run_gang = recording
+        got = []
+        for group, pods in build_gangs(spec, types, meta):
+            admit(handle, group, pods)
+            hosts = try_gang_wave(handle, fw, algo, group.meta.key, qpis(pods))
+            got.append((hosts, backend.gang_record.gang_outcome, algo.rng.getstate()))
+            if hosts is not None:
+                assume_gang(handle, group, pods, hosts)
+        results.append((got, rows, dict(backend.gang_pod_totals)))
+    if results[0] != results[1]:
+        for i, (a, b) in enumerate(zip(results[0][0], results[1][0])):
+            if a != b:
+                fail(f"gang {i} of the mixed cluster: card and CPU plain path disagree "
+                     f"({a[:2]} vs {b[:2]})")
+        fail(f"mixed gangs: card and CPU disagree on winning rows or totals "
+             f"({results[0][1:]} vs {results[1][1:]})")
+    outcomes = [o.split(":")[0] for _h, o, _s in results[0][0]]
+    print(f"mixed gangs, {args.mixed_gang_nodes} nodes: card == CPU plain path through "
+          f"try_gang_wave ({outcomes.count('device')} placed, {outcomes.count('fallback')} "
+          f"fell back; winning rows {results[0][1]}), {time.perf_counter() - t0:.1f} s")
+    if not outcomes.count("device"):
+        fail("no mixed gang was placed")
 
 
 if __name__ == "__main__":

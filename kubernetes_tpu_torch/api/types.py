@@ -1,4 +1,5 @@
-"""Core API object types: the Pod and Node subset the port schedules.
+"""Core API object types: the Pod, Node and PodGroup subset the port
+schedules.
 
 Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
 Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
@@ -164,6 +165,17 @@ class Container:
     ports: tuple[ContainerPort, ...] = ()
 
 
+@dataclass(frozen=True)
+class SchedulingGroup:
+    """Gang membership (fork feature GenericWorkload).
+
+    Reference: staging/src/k8s.io/api/core/v1/types.go:4488 — pod.Spec points
+    at a PodGroup by name; all members share it.
+    """
+
+    pod_group_name: str
+
+
 @dataclass
 class PodSpec:
     node_name: str = ""
@@ -176,6 +188,7 @@ class PodSpec:
     tolerations: tuple[Toleration, ...] = ()
     topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
     priority: int = 0
+    scheduling_group: SchedulingGroup | None = None
 
 
 @dataclass
@@ -232,3 +245,45 @@ class Node:
     status: NodeStatus = field(default_factory=NodeStatus)
 
     kind = "Node"
+
+
+# --- pod group (gang) -----------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GangPolicy:
+    min_count: int = 0
+
+
+@dataclass(frozen=True)
+class TopologyConstraint:
+    key: str
+    mode: str = "Required"  # Required | Preferred
+
+
+@dataclass(frozen=True)
+class SchedulingConstraints:
+    topology: tuple[TopologyConstraint, ...] = ()
+
+
+@dataclass
+class PodGroupSpec:
+    policy: GangPolicy = field(default_factory=GangPolicy)
+    constraints: SchedulingConstraints = field(default_factory=SchedulingConstraints)
+
+
+@dataclass
+class PodGroupStatus:
+    all_pods_count: int = 0
+    scheduled_pods_count: int = 0
+
+
+@dataclass
+class PodGroup:
+    """Reference: staging/src/k8s.io/api/scheduling/v1alpha2/types.go:191."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodGroupSpec = field(default_factory=PodGroupSpec)
+    status: PodGroupStatus = field(default_factory=PodGroupStatus)
+
+    kind = "PodGroup"

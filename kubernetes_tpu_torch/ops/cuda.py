@@ -31,6 +31,7 @@ SOURCES = {
     "assign_scan": "assign_scan.cu",
     "scatter_rows": "scatter_rows.cu",
     "fit_and_score": "fit_and_score.cu",
+    "gang_assign": "gang_assign.cu",
 }
 
 # -fmad=false: no a*b+c contraction (the float32 lines must round per op as
@@ -160,6 +161,10 @@ class ScanParams(ctypes.Structure):
               "dom_carry") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
     ]
+
+
+class GangParams(ctypes.Structure):
+    _fields_ = [("scan", ScanParams)] + _ints("rows", "n_constrained", "has_fallback")
 
 
 class FitParams(ctypes.Structure):

@@ -14,6 +14,9 @@ over the node axis and a wave of pods as a lax.scan. This module ports:
 - fit_and_score (K4, csrc/fit_and_score.cu) — _fit_and_score_jit: one pod
   against every node, every filter (hard spread and inter-pod affinity
   included) and every score
+- gang_assign   (K5, csrc/gang_assign.cu)  — _gang_assign_jit with
+  _gang_placement_score: a gang's member scan over every placement mask at
+  once (K2's step, shared) and the all-or-nothing domain pick
 
 Each has a plain version beside it (`*_ref`) computing the same function
 with torch ops. A wrapper runs the plain version only when its tensors lie
@@ -61,7 +64,7 @@ _INT32_MAX = 2**31 - 1
 # launches of each CUDA kernel; every wrapper adds one where it launches its
 # kernel and nowhere else (reset_launches() zeroes them)
 LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
-            "fit_and_score": 0}
+            "fit_and_score": 0, "gang_assign": 0}
 
 # Filter mask rows (first-failure priority == host plugin order); the PTS
 # missing-key and skew rows (one per constraint slot) and the three
@@ -815,36 +818,20 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
     return out
 
 
-def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
-                packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                cursor0: int, logtab: torch.Tensor,
-                sig_ids: torch.Tensor | None = None,
-                uniq_idx: torch.Tensor | None = None) -> dict:
-    """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
-    The carry planes out are copies of the inputs, which stay untouched.
-    planes holds the row planes and, with IPA, ipa_term_key; static is
-    K1's output over the pods, or over the signature rows with dedup."""
-    from .planes import unpack_features
-
-    check_slice(cfg)
-    if (sig_ids is None) != (uniq_idx is None):
-        raise ValueError("sig_ids and uniq_idx go together")
-    device = packed_f.device
-    if device.type == "cpu":
-        return assign_scan_ref(cfg, planes, static,
-                               unpack_features(packed_f, layout), tie_words,
-                               cursor0, logtab, sig_ids, uniq_idx)
-    if device.type != "cuda":
-        raise ValueError(f"assign_scan runs on cpu or cuda, not {device}")
+def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
+                 packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
+                 logtab: torch.Tensor, n_static: int, G: int, cursor0: int):
+    """Check the inputs K2 and K5 share (the row planes, K1's n_static rows,
+    the packed features, tie words, log table) and build their ScanParams.
+    G is the signature row count (0: the non-dedup tier)."""
     from . import cuda
 
+    device = packed_f.device
     P, F = packed_f.shape
     nb, R = planes["alloc"].shape
     K = planes["domain"].shape[1]
     S = planes["sel_counts"].shape[1]
     Ta = planes["ipa_term_key"].shape[0] if cfg.ipa_active else 0
-    fast = sig_ids is not None
-    Ps = uniq_idx.shape[0] if fast else P  # static rows
     i32, b8 = torch.int32, torch.bool
     _check(packed_f, "packed features", device, i32)
     plane_specs = [
@@ -858,14 +845,11 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     for name, dt, shape in plane_specs:
         _check(planes[name], name, device, dt, shape)
     for name, dt, shape in (
-        ("static_ok", b8, (Ps, nb)), ("taint_cnt", i32, (Ps, nb)),
-        ("aff_raw", i32, (Ps, nb)), ("img", i32, (Ps, nb)),
-        ("aff_has_pref", b8, (Ps,)),
+        ("static_ok", b8, (n_static, nb)), ("taint_cnt", i32, (n_static, nb)),
+        ("aff_raw", i32, (n_static, nb)), ("img", i32, (n_static, nb)),
+        ("aff_has_pref", b8, (n_static,)),
     ):
         _check(static[name], name, device, dt, shape)
-    if fast:
-        _check(sig_ids, "sig_ids", device, i32, (P,))
-        _check(uniq_idx, "uniq_idx", device, i32)
     _check(tie_words, "tie_words", device, i32)
     _check(logtab, "logtab", device, torch.float32, (nb + 1,))
     if tie_words.numel() == 0:
@@ -893,10 +877,9 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
         raise ValueError(f"config traces {max(cfg.n_soft, cfg.n_hard)} spread "
                          f"slots, features hold {mc}")
     dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
-    ct = max(1, min(cfg.max_constraints, cfg.n_soft))
     p = cuda.ScanParams(
         P=P, Nb=nb, R=R, K=K, S=S, F=F, MC=mc, L=tie_words.numel(), Ta=Ta,
-        D=max(1, dmax), G=Ps if fast else 0, CT=ct,
+        D=max(1, dmax), G=G, CT=max(1, min(cfg.max_constraints, cfg.n_soft)),
         cursor0=int(cursor0), strategy=_STRATEGY_CODE[cfg.strategy],
         n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
         bal_a=cfg.balanced_resources[0], bal_b=cfg.balanced_resources[1],
@@ -923,6 +906,50 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
         p.rtc_x[i], p.rtc_y[i] = x, y
     for i, dk in enumerate(cfg.topo_domains):
         p.topo_dk[i] = dk
+    return p
+
+
+def _scratch_words(p) -> int:
+    """int32 words of one scan's scratch (scan_scratch_words in
+    csrc/scan_step.cuh): six node rows, and the domain presence [K, D]
+    with the hard-spread carry."""
+    return 6 * p.Nb + (p.K * p.D if p.dom_carry else 0)
+
+
+def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
+                packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
+                cursor0: int, logtab: torch.Tensor,
+                sig_ids: torch.Tensor | None = None,
+                uniq_idx: torch.Tensor | None = None) -> dict:
+    """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
+    The carry planes out are copies of the inputs, which stay untouched.
+    planes holds the row planes and, with IPA, ipa_term_key; static is
+    K1's output over the pods, or over the signature rows with dedup."""
+    from .planes import unpack_features
+
+    check_slice(cfg)
+    if (sig_ids is None) != (uniq_idx is None):
+        raise ValueError("sig_ids and uniq_idx go together")
+    device = packed_f.device
+    if device.type == "cpu":
+        return assign_scan_ref(cfg, planes, static,
+                               unpack_features(packed_f, layout), tie_words,
+                               cursor0, logtab, sig_ids, uniq_idx)
+    if device.type != "cuda":
+        raise ValueError(f"assign_scan runs on cpu or cuda, not {device}")
+    from . import cuda
+
+    P = packed_f.shape[0]
+    nb = planes["alloc"].shape[0]
+    fast = sig_ids is not None
+    Ps = uniq_idx.shape[0] if fast else P  # static rows
+    i32, b8 = torch.int32, torch.bool
+    if fast:
+        _check(sig_ids, "sig_ids", device, i32, (P,))
+        _check(uniq_idx, "uniq_idx", device, i32)
+    p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
+                     n_static=Ps, G=Ps if fast else 0, cursor0=cursor0)
+    K, S, dmax, ct = p.K, p.S, p.D, p.CT
     out = {"packed": torch.empty(P + 2, dtype=i32, device=device)}
     carried = ["used", "nonzero_used", "sel_counts"]
     if cfg.ipa_active:
@@ -932,17 +959,14 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     empty = torch.empty(0, dtype=i32, device=device)
     dom = (torch.empty((K, dmax, S), dtype=i32, device=device) if p.dom_carry
            else empty)
-    # ew, spread raw, IPA raw, total, feasible and reject rows; the domain
-    # presence [K, Dmax] with the hard-spread carry
-    scratch = torch.empty(6 * nb + (K * dmax if p.dom_carry else 0),
-                          dtype=i32, device=device)
+    scratch = torch.empty(_scratch_words(p), dtype=i32, device=device)
     if fast:
         out["sig_scores"] = torch.full((Ps, nb), -1, dtype=i32, device=device)
         tab = {"ew": torch.zeros((Ps, nb), dtype=i32, device=device),
                "ffit": torch.zeros((Ps, nb), dtype=b8, device=device),
                "feas": torch.zeros((Ps, nb), dtype=b8, device=device),
-               "segs": torch.zeros((Ps, ct, max(1, dmax)), dtype=i32, device=device),
-               "pcs": torch.zeros((Ps, ct, max(1, dmax)), dtype=i32, device=device)}
+               "segs": torch.zeros((Ps, ct, dmax), dtype=i32, device=device),
+               "pcs": torch.zeros((Ps, ct, dmax), dtype=i32, device=device)}
         out["sig_table"] = tab
         out["tiers"] = torch.zeros(2, dtype=i32, device=device)
         t_valid = torch.zeros(Ps, dtype=b8, device=device)
@@ -962,6 +986,137 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
         ptrs += [0] * 10
     cuda.launch("assign_scan", p, ptrs, _stream(device))
     LAUNCHES["assign_scan"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K5 gang_assign
+# --------------------------------------------------------------------------
+
+
+def gang_placement_score_ref(planes: dict, mask: torch.Tensor) -> torch.Tensor:
+    """The reference's _gang_placement_score (kernels.py:1448), the device
+    replica of TopologyPlacementGenerator.score_placement: the mean
+    free-capacity score (0-100, LeastAllocated shape, int32 floor math) of
+    the mask's nodes that have cpu or memory capacity, on the PRE-scan
+    planes. valid is not read. Returns an int32 scalar tensor."""
+    alloc, used = planes["alloc"], planes["used"]
+    score = torch.zeros(alloc.shape[0], dtype=torch.int32, device=alloc.device)
+    parts = torch.zeros_like(score)
+    for col in (CPU, MEM):
+        cap = alloc[:, col]
+        ok = cap > 0
+        req = torch.minimum(used[:, col], cap)
+        s = floordiv((cap - req) * MAX_NODE_SCORE, cap.clamp(min=1))
+        score = score + torch.where(ok, s, 0)
+        parts = parts + ok.to(torch.int32)
+    node_val = torch.where(parts > 0, floordiv(score, parts.clamp(min=1)), 0)
+    counted = mask & (parts > 0)
+    n = counted.sum(dtype=torch.int32)
+    total = torch.where(counted, node_val, 0).sum(dtype=torch.int32)
+    return torch.where(n > 0, floordiv(total, n.clamp(min=1)), 0).to(torch.int32)
+
+
+def gang_assign_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
+                    masks: torch.Tensor, tie_words: torch.Tensor, logtab: torch.Tensor,
+                    n_constrained: int, has_fallback: bool) -> torch.Tensor:
+    """Plain version of K5 (the reference's _gang_assign_jit,
+    kernels.py:1472-1543): for each mask row, K2's non-dedup scan
+    (assign_scan_ref) over the placement-narrowed snapshot — valid & mask,
+    and K1's static_ok (the one K1 output that reads valid) & mask — from
+    cursor 0 of the same tie stream; then per row the members placed, the
+    placement score on the pre-scan planes, and the all-or-nothing pick.
+
+    Returns the packed int32 vector [D*P + 4*D + 3]: winners [D, P] ++
+    consumed [D] ++ overflow [D] ++ placed [D] ++ score [D] ++ [win_d, ok,
+    n_active]."""
+    active = f["active"] != 0
+    n_active = int(active.sum())
+    winners, consumed, overflow, placed, scores = [], [], [], [], []
+    for mask in masks:
+        narrowed = dict(planes, valid=planes["valid"] & mask)
+        st = dict(static, static_ok=static["static_ok"] & mask[None])
+        packed = assign_scan_ref(cfg, narrowed, st, f, tie_words, 0, logtab)["packed"]
+        w = packed[:-2]
+        winners.append(w)
+        consumed.append(int(packed[-2]))
+        overflow.append(int(packed[-1]))
+        placed.append(int(((w >= 0) & active).sum()))
+        scores.append(int(gang_placement_score_ref(planes, mask)))
+    # host winner semantics: the first max of the score over the constrained
+    # rows where the whole gang placed without a draw overflow; only when
+    # none fits does the fallback row (index n_constrained) get the gang
+    key = [sc if pl == n_active and not ov else -1
+           for sc, pl, ov in zip(scores, placed, overflow)]
+    cbest, cwin = -1, 0
+    if n_constrained > 0:
+        ckey = [k if d < n_constrained else -1 for d, k in enumerate(key)]
+        cbest = max(ckey)
+        cwin = ckey.index(cbest)
+    if has_fallback:
+        fb_ok = placed[n_constrained] == n_active and not overflow[n_constrained]
+        win_d = cwin if cbest >= 0 else n_constrained
+        ok = cbest >= 0 or fb_ok
+    else:
+        win_d, ok = cwin, cbest >= 0
+    tail = torch.tensor(consumed + overflow + placed + scores + [win_d, int(ok), n_active],
+                        dtype=torch.int32, device=masks.device)
+    return torch.cat([torch.stack(winners).reshape(-1).to(torch.int32), tail])
+
+
+def gang_work_words(p) -> int:
+    """int32 words of one mask row's work slice in K5 (gang_work_words in
+    csrc/gang_assign.cu): the carry planes, the hard-spread domain counts
+    and the scan scratch."""
+    return (p.Nb * (p.R + 2 + p.S) + (3 * p.Nb * p.Ta if p.ipa_active else 0)
+            + (p.K * p.D * p.S if p.dom_carry else 0) + _scratch_words(p))
+
+
+def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
+                packed_f: torch.Tensor, layout, masks: torch.Tensor,
+                tie_words: torch.Tensor, logtab: torch.Tensor,
+                n_constrained: int, has_fallback: bool) -> torch.Tensor:
+    """K5 wrapper: whole-gang placement over a [D, Nb] bool stack of
+    placement masks in host placement order — rows [0, n_constrained) the
+    topology domains, row n_constrained (with has_fallback) the
+    unconstrained parent, the rest all-False padding. static is K1's output
+    over the gang's P members (one launch for every row). Returns the
+    packed int32 vector of gang_assign_ref; the planes stay untouched."""
+    from .planes import unpack_features
+
+    check_slice(cfg)
+    D = masks.shape[0]
+    if n_constrained < 0 or n_constrained + int(bool(has_fallback)) > D:
+        raise ValueError(f"{n_constrained} constrained rows and fallback "
+                         f"{bool(has_fallback)} do not fit {D} mask rows")
+    device = packed_f.device
+    if device.type == "cpu":
+        return gang_assign_ref(cfg, planes, static, unpack_features(packed_f, layout),
+                               masks, tie_words, logtab, n_constrained, has_fallback)
+    if device.type != "cuda":
+        raise ValueError(f"gang_assign runs on cpu or cuda, not {device}")
+    from . import cuda
+
+    P = packed_f.shape[0]
+    nb = planes["alloc"].shape[0]
+    p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
+                     n_static=P, G=0, cursor0=0)
+    _check(masks, "masks", device, torch.bool, (D, nb))
+    g = cuda.GangParams(scan=p, rows=D, n_constrained=int(n_constrained),
+                        has_fallback=int(bool(has_fallback)))
+    work = torch.empty(D * gang_work_words(p), dtype=torch.int32, device=device)
+    out = torch.empty(D * P + 4 * D + 3, dtype=torch.int32, device=device)
+    ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
+    ptrs += [static[k].data_ptr() for k in (
+        "static_ok", "taint_cnt", "aff_raw", "img", "aff_has_pref")]
+    ptrs += [packed_f.data_ptr(), tie_words.data_ptr(), logtab.data_ptr()]
+    ptrs += [planes[k].data_ptr() for k in ("used", "nonzero_used", "sel_counts")]
+    ptrs += ([planes[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref",
+                                             "ipa_term_key")]
+             if cfg.ipa_active else [0] * 4)
+    ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr()]
+    cuda.launch("gang_assign", g, ptrs, _stream(device))
+    LAUNCHES["gang_assign"] += 1
     return out
 
 

@@ -860,6 +860,24 @@ class PodFeatureExtractor:
         return tables
 
 
+def placement_masks(planes: Planes, node_name_lists: list[list[str]],
+                    n_rows: int | None = None) -> np.ndarray:
+    """[D, Nb] bool row-mask stack for the gang kernel, one row per
+    placement's node-name list in HOST PLACEMENT ORDER (the gang winner
+    tie-break is first-max over this order). Names missing from the plane
+    index are skipped — the host dry run skips snapshot misses the same
+    way. Rows beyond the given lists (shape padding up to `n_rows`) stay
+    all-False: an empty valid set places nobody and can never win."""
+    d = len(node_name_lists) if n_rows is None else max(n_rows, len(node_name_lists))
+    masks = np.zeros((d, planes.nb), np.bool_)
+    for row, names in enumerate(node_name_lists):
+        for nm in names:
+            i = planes.node_index.get(nm)
+            if i is not None:
+                masks[row, i] = True
+    return masks
+
+
 def stack_features(feats: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
     """Stack per-pod feature dicts into [P, ...] batched arrays."""
     if not feats:

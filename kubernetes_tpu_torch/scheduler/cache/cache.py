@@ -21,6 +21,7 @@ from ...api.resource import ResourceNames
 from ...api.types import Node, Pod
 from ..nodeinfo import NodeInfo, PodInfo, next_generation
 from .node_tree import NodeTree
+from .podgroup_state import PodGroupStates
 from .snapshot import Snapshot
 
 
@@ -44,6 +45,8 @@ class Cache:
         self._assumed_pods: set[str] = set()
         self._pod_states: dict[str, PodInfo] = {}  # pods known to the cache
         self._pod_nodes: dict[str, str] = {}  # pod key -> node name
+        # per-gang member accounting (podgroupstate.go); snapshotted below
+        self.pod_group_states = PodGroupStates()
 
     # -- generation list maintenance ---------------------------------------
 
@@ -217,6 +220,7 @@ class Cache:
                         snapshot.node_info_list[i] = snapshot.node_info_map[name]
                 if derived_dirty:
                     snapshot.rebuild_derived_lists()
+            snapshot.pod_group_states = self.pod_group_states.snapshot()
             snapshot.generation = latest
             return snapshot
 

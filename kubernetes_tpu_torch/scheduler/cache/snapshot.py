@@ -1,8 +1,10 @@
 """Per-cycle cluster snapshot with a change feed for O(changed) consumers.
 
 Reference: pkg/scheduler/backend/cache/snapshot.go:43 — nodeInfoMap/List plus
-derived lists. The gang-simulation extensions of the reference package
-(in-snapshot assume/forget, placements) are not part of the wave path.
+derived lists, and the Placement a gang may be packed into. The reference
+package's in-snapshot gang simulation (assume/forget, narrowing to a
+placement) belongs to its host pod-group cycle, which the port does not run:
+the gang kernel narrows by a mask instead.
 """
 
 from __future__ import annotations
@@ -14,6 +16,21 @@ from ..nodeinfo import NodeInfo
 _snapshot_uids = itertools.count(1)
 
 
+class Placement:
+    """A named subset of nodes a gang may be packed into.
+
+    Reference: snapshot placements + topologyaware/topology_placement.go.
+    No value equality: the gang planner's `placements != [parent]` test
+    compares identities, as the reference's does.
+    """
+
+    __slots__ = ("name", "node_names")
+
+    def __init__(self, name: str, node_names: list[str]):
+        self.name = name
+        self.node_names = node_names
+
+
 class Snapshot:
     def __init__(self) -> None:
         self.node_info_map: dict[str, NodeInfo] = {}
@@ -21,6 +38,8 @@ class Snapshot:
         self.have_pods_with_affinity_list: list[NodeInfo] = []
         self.have_pods_with_required_anti_affinity_list: list[NodeInfo] = []
         self.generation = 0
+        # the cache's per-gang member accounting at the last update
+        self.pod_group_states: dict[str, object] = {}
         # change feed for O(changed) consumers (the planes builder): every
         # node mutation appends its name; membership/order changes bump
         # membership_version (consumers must re-list). changelog_base is

@@ -1,10 +1,10 @@
 """Scheduler-framework result types: status codes, Status, the per-node
-failure map, FitError and ScheduleResult.
+failure map, FitError, ScheduleResult and the Plugin base.
 
 Reference: staging/src/k8s.io/kube-scheduler/framework/interface.go (`Code`,
 `Status`) and pkg/scheduler/framework/types.go (NodeToStatus, FitError,
-Diagnosis). A trimmed copy: the plugin interfaces come with the framework
-slice.
+Diagnosis). A trimmed copy: of the plugin extension points only the
+placement ones (gang scheduling) have a caller in the port yet.
 """
 
 from __future__ import annotations
@@ -57,9 +57,21 @@ class Status:
     def unresolvable(cls, *reasons: str, plugin: str = "") -> "Status":
         return cls(UNSCHEDULABLE_AND_UNRESOLVABLE, reasons, plugin)
 
+    @classmethod
+    def as_error(cls, err: Exception, plugin: str = "") -> "Status":
+        return cls(ERROR, (str(err),), plugin, err)
+
+    @classmethod
+    def skip(cls, plugin: str = "") -> "Status":
+        return cls(SKIP, (), plugin)
+
     @property
     def is_success(self) -> bool:
         return self.code == SUCCESS
+
+    @property
+    def is_skip(self) -> bool:
+        return self.code == SKIP
 
     @property
     def is_rejected(self) -> bool:
@@ -75,6 +87,10 @@ class Status:
 
     def __repr__(self) -> str:
         return f"Status({self.code_name}, {self.reasons}, plugin={self.plugin})"
+
+
+def status_of(s: "Status | None") -> Status:
+    return s if s is not None else Status()
 
 
 # --- results --------------------------------------------------------------
@@ -143,3 +159,17 @@ class ScheduleResult:
     suggested_host: str = ""
     evaluated_nodes: int = 0
     feasible_nodes: int = 0
+
+
+class Plugin:
+    """Base plugin. Of the reference's extension points the port calls the
+    placement ones (framework/runtime.py):
+
+    - generate_placements(state, pods, parent) -> (list[Placement], Status)
+    - score_placement(state, pods, placement) -> (int, Status)
+    """
+
+    name = "Plugin"
+
+    def __repr__(self) -> str:
+        return self.name

@@ -1,1 +1,2 @@
-"""Host plugin pieces the wave path's feature extraction reads."""
+"""Host plugin pieces: the spread defaults the feature extraction reads and
+the topology placement plugin the gang planner calls."""

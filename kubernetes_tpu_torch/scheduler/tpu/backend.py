@@ -1,15 +1,18 @@
 """The device scheduling backend: planes, features and the kernels.
 
 The port's counterpart of the reference package's TPUBackend and
-TPUSchedulingAlgorithm (kubernetes_tpu/scheduler/tpu/backend.py), for two
+TPUSchedulingAlgorithm (kubernetes_tpu/scheduler/tpu/backend.py), for three
 paths:
 - the batched wave (run_batched): a pod wave is scored and placed greedily
   on the device in one K1 + K2 launch pair;
 - the single-pod cycle (run, TorchSchedulingAlgorithm.schedule_pod): one
   pod against every node in one K4 launch — every filter and score, hard
   spread and inter-pod affinity included — and the per-node first-failure
-  diagnosis of a pod that fits nowhere, built from K4's rows.
-Both keep the device mirror of the node planes current by a full put on
+  diagnosis of a pod that fits nowhere, built from K4's rows;
+- the gang wave (run_gang, called by gangplanner.try_gang_wave): a whole
+  PodGroup scanned over every placement mask at once in one K1 + K5 launch
+  pair, all or nothing.
+All keep the device mirror of the node planes current by a full put on
 cold start and by the K3 row scatter afterwards.
 
 Bit-compatibility contract: with percentageOfNodesToScore=100 the host path
@@ -25,15 +28,17 @@ The wave runs the reference's default tier: signature dedup on, hard
 spread and inter-pod affinity in the scan. Not in this slice (a later one,
 in the ROADMAP's order): cross-wave reuse of the signature table and the
 pipelined launch/collect pair that feeds it, the host framework with its
-fallback, hybrid and nominated-node paths and the circuit breaker, gang
-waves and the multi-device mesh. What needs them raises OutOfSlice; pods
-the reference sends to its host path raise FallbackNeeded.
+fallback, hybrid and nominated-node paths and the circuit breaker (with
+the host pod-group cycle a gang falls back to), and the multi-device mesh.
+What needs them raises OutOfSlice; pods the reference sends to its host
+path raise FallbackNeeded.
 """
 
 from __future__ import annotations
 
 import random
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -48,8 +53,10 @@ from ...ops.kernels import (
     OutOfSlice,
     batched_assign,
     fit_and_score,
+    gang_assign,
     log_weight_table,
     scatter_rows,
+    static_parts,
     unpack_fit_outputs,
 )
 from ...ops.planes import (
@@ -60,6 +67,7 @@ from ...ops.planes import (
     features_from_reference,
     pack_features,
     pad_features,
+    placement_masks,
     planes_from_reference,
     stack_features,
 )
@@ -135,6 +143,18 @@ def group_feature_rows(packed: np.ndarray):
     return ids, np.asarray(uniq, np.int32)
 
 
+@dataclass
+class GangRecord:
+    """One gang wave's outcome: the four gang fields of the reference's
+    flight-recorder WaveRecord (flightrecorder.py:87-90). gang_outcome is
+    "device:<placement>" or "fallback:<reason>"."""
+
+    gang_groups: int = 0
+    gang_pods: int = 0
+    gang_fallback_pods: int = 0
+    gang_outcome: str | None = None
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU; no silent fallback when there is no card."""
@@ -207,6 +227,16 @@ class TorchBackend:
         # result copy
         self.run_phase_s = {"sync": 0.0, "features": 0.0, "config": 0.0,
                             "upload": 0.0, "launch": 0.0, "wait": 0.0}
+        # the phases of run_gang, summed over gangs: masks (the placement
+        # mask stack), upload = device_inputs + kernel_config + features,
+        # masks and tie words; kernel = K1 + K5 enqueue; wait = the one
+        # packed result copy
+        self.gang_phase_s = {"sync": 0.0, "features": 0.0, "masks": 0.0,
+                             "upload": 0.0, "kernel": 0.0, "wait": 0.0}
+        # gang members by path ("device": placed by run_gang, "host": handed
+        # to the host pod-group cycle), and the last gang wave's record
+        self.gang_pod_totals: dict[str, int] = {}
+        self.gang_record: GangRecord | None = None
 
     # -- config / planes -----------------------------------------------------
 
@@ -405,6 +435,99 @@ class TorchBackend:
         if gp > len(uniq):
             uniq = np.concatenate([uniq, np.full(gp - len(uniq), uniq[0], np.int32)])
         return sig_ids, uniq
+
+    # -- the gang wave ---------------------------------------------------------
+
+    def count_gang_pods(self, path: str, n: int) -> None:
+        """Count gang members routed down `path` ("device" or "host")."""
+        if n > 0:
+            self.gang_pod_totals[path] = self.gang_pod_totals.get(path, 0) + n
+
+    def run_gang(self, pods: list[Pod], snapshot, placements,
+                 n_constrained: int, has_fallback: bool, rng):
+        """Whole-PodGroup device placement: ONE K1 launch over the members
+        and ONE K5 launch scan the gang over every placement mask at once
+        (the reference's TPUBackend.run_gang, backend.py:684-812).
+
+        `placements` is the PlacementGenerate output in plugin order: rows
+        [0, n_constrained) the topology domains and, with has_fallback, row
+        n_constrained the unconstrained parent. Returns (hosts aligned with
+        `pods`, the winning placement row, the GangRecord), or None when the
+        gang must ride the host cycle (no feasible domain, tie overflow on a
+        real row, a member the extractor refuses). The live rng advances by
+        the winning row's tie draws ONLY on success."""
+        rec = GangRecord(gang_groups=1, gang_pods=len(pods))
+        self.gang_record = rec
+        t0 = time.perf_counter()
+        try:
+            for pod in pods:
+                self.extractor.register(pod)
+            planes = self.sync(snapshot)
+            t1 = time.perf_counter()
+            feats = stack_features(
+                [self.extractor.features_cached(p, planes) for p in pods])
+        except FallbackNeeded as e:
+            rec.gang_fallback_pods = len(pods)
+            rec.gang_outcome = f"fallback:{e}"
+            return None
+        pad_to = next_pow2(len(pods), floor=4)
+        if pad_to > len(pods):
+            feats = pad_features(feats, pad_to)
+        t2 = time.perf_counter()
+        # masks in host placement order; pad rows (pow2 shape) stay
+        # all-False and can never win (an empty valid set places nobody)
+        n_rows = next_pow2(len(placements), floor=2)
+        masks = placement_masks(planes, [list(p.node_names) for p in placements], n_rows)
+        t3 = time.perf_counter()
+        dev_planes, dev_tables = self.device_inputs(planes)
+        cfg = self.kernel_config(planes, feats)
+        # one frame covers the worst single row: every row replays the
+        # stream from cursor 0, as the host's dry runs restore the rng
+        tie_words = clone_tie_words(rng, pad_to * MAX_TIE_DRAWS + MAX_TIE_DRAWS)
+        rows, layout = pack_features(feats)
+        packed_f = torch.from_numpy(rows).to(self.device)
+        words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
+        dev_masks = torch.from_numpy(masks).to(self.device)
+        t4 = time.perf_counter()
+        static = static_parts(dev_planes, dev_tables, packed_f, layout)
+        packed_dev = gang_assign(cfg, dev_planes, static, packed_f, layout, dev_masks,
+                                 words, self._logtab, n_constrained, has_fallback)
+        t5 = time.perf_counter()
+        # ONE device→host copy carries the whole gang verdict
+        packed = packed_dev.cpu().numpy()
+        t6 = time.perf_counter()
+        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("masks", t2, t3),
+                        ("upload", t3, t4), ("kernel", t4, t5), ("wait", t5, t6)):
+            self.gang_phase_s[k] += b - a
+        d, p = n_rows, pad_to
+        winners = packed[: d * p].reshape(d, p)
+        consumed = packed[d * p: d * p + d]
+        overflow = packed[d * p + d: d * p + 2 * d]
+        placed = packed[d * p + 2 * d: d * p + 3 * d]
+        win_d, ok = int(packed[-3]), bool(packed[-2])
+        n_real = len(placements)
+        if overflow[:n_real].any():
+            # a truncated draw desynchronizes that row's verdict, not just
+            # its stream: the whole gang verdict is untrustworthy (a pad
+            # row's overflow does not count)
+            rec.gang_fallback_pods = len(pods)
+            rec.gang_outcome = "fallback:tie-break draw overflow"
+            return None
+        if not ok:
+            # the near miss: the row that placed the most members
+            near = int(np.argmax(placed[:n_real])) if n_real else -1
+            hint = ""
+            if near >= 0:
+                hint = (f" near={placements[near].name}"
+                        f" placed={int(placed[near])}/{len(pods)}")
+            rec.gang_fallback_pods = len(pods)
+            rec.gang_outcome = "fallback:no-domain" + hint
+            return None
+        hosts = [planes.node_names[int(w)] for w in winners[win_d][: len(pods)]]
+        advance_rng(rng, int(consumed[win_d]))
+        rec.gang_outcome = f"device:{placements[win_d].name}"
+        self.count_gang_pods("device", len(pods))
+        return hosts, win_d, rec
 
     # -- the single-pod cycle --------------------------------------------------
 
@@ -673,6 +796,7 @@ class TorchSchedulingAlgorithm:
         self.backend = backend
         self.rng = rng or random.Random(0)  # seeded: deterministic tie-breaks
         self.kernel_count = 0
+        self.fallback_count = 0  # gang members handed back to the host cycle
 
     def schedule_pod(self, state, pod: Pod, snapshot) -> ScheduleResult:
         if snapshot.num_nodes() == 0:

@@ -22,6 +22,14 @@ passed in, so one spec feeds this package and the reference alike.
 The wave functions below (dedup_nodes, dedup_pods, ipa_pods) make the
 signature-dedup waves the same way: a few pod shapes repeated, so that the
 scan replays resident signature rows, in either package's types.
+
+The gang functions at the end make PodGroup clusters the same way: a spec
+of nodes (zones round-robin, as scheduler_perf's createNodes labels them)
+and gangs (a PodGroup with an optional zone topology constraint and its
+members, as createPodGroups makes them), built by build_gangs into either
+package's types. gang_fuzz_spec replays the reference's seeded gang fuzz
+cases; mixed_gang_spec gives members hard spread, inter-pod affinity and
+host ports.
 """
 
 from __future__ import annotations
@@ -292,4 +300,182 @@ def ipa_pods(n: int, types, meta) -> list:
         app, aff = shapes[i % len(shapes)]
         out.append(_pod(types, meta, f"i{i:03d}", "250m", "256Mi", {"app": app},
                         affinity=aff))
+    return out
+
+
+# --- gangs ---------------------------------------------------------------------
+
+ZONE_KEY = _KEYS["zone"]
+
+
+def gang_node(name: str, zone: str | None, cpu: str = "32", mem: str = "64Gi",
+              pods: int = 110) -> dict:
+    return {"name": name, "zone": zone, "cpu": cpu, "mem": mem, "pods": pods}
+
+
+def gang_member(name: str, cpu: str = "100m", mem: str = "50Mi", **kinds) -> dict:
+    """A member spec: the harness's default pod (100m, 50Mi) unless given;
+    kinds: spread=(max_skew, key name), anti=key name (required
+    anti-affinity to the own group), aff=key name (preferred affinity to the
+    own group), port=host port."""
+    return {"name": name, "cpu": cpu, "mem": mem, **kinds}
+
+
+def gang(name: str, mode: str | None, members: list[dict],
+         key: str = ZONE_KEY, labelled: bool = False) -> dict:
+    """A PodGroup spec: minCount = the member count; mode Required /
+    Preferred adds a topology constraint on `key`, None adds none. The
+    members carry no labels (the harness's default pod), or with
+    `labelled` the label gang: <name>, which their spread and affinity
+    terms select."""
+    return {"name": name, "mode": mode, "key": key, "members": members,
+            "labelled": labelled}
+
+
+def perf_gang_spec(n_nodes: int, zones: int, n_groups: int, size: int,
+                   mode: str | None) -> dict:
+    """scheduler_perf's gang workloads (kubernetes_tpu/perf/configs/gang.yaml):
+    createNodes with the default node template (32 CPU, 64Gi, 110 pods),
+    zone-{i % zones}; createPodGroups of `size` default pods per group,
+    named group-{g}-{first pod's sequence number}, members pod-{i}."""
+    nodes = [gang_node(f"node-{i}", f"zone-{i % zones}") for i in range(n_nodes)]
+    gangs = []
+    for g in range(n_groups):
+        seq = g * size
+        gangs.append(gang(f"group-{g}-{seq}", mode,
+                          [gang_member(f"pod-{seq + i}") for i in range(size)]))
+    return {"nodes": nodes, "gangs": gangs}
+
+
+def gang_wave_spec(modes=("Required", "Preferred", None), sizes=(3, 2, 4),
+                   nodes: int = 12, zones: int = 3, cpu: str = "8",
+                   pod_cpu: str = "1") -> dict:
+    """The reference's gang-wave parity scenario (tests/test_gang_wave.py
+    _run): nodes n{i} of `cpu` / 16Gi in z{i % zones}, one gang per size."""
+    return {"nodes": [gang_node(f"n{i}", f"z{i % zones}", cpu=cpu, mem="16Gi")
+                      for i in range(nodes)],
+            "gangs": [gang(f"gang{g}", mode,
+                           [gang_member(f"gang{g}-{i}", cpu=pod_cpu, mem=None)
+                            for i in range(size)])
+                      for g, (size, mode) in enumerate(zip(sizes, modes))]}
+
+
+def gang_fuzz_spec(seed: int) -> dict:
+    """The gangs of the reference's seeded gang fuzz case
+    (tests/test_golden_fuzz.py gang_assignments): the same random.Random
+    draws in the same order; the plain pods between gangs are drawn and
+    left out."""
+    import random
+
+    rng = random.Random(seed)
+    nodes = [gang_node(f"n{i}", ("z0", "z1", "z2")[i % 3], cpu="8", mem="16Gi")
+             for i in range(12)]
+    gangs = []
+    for g in range(3):
+        size = rng.randint(2, 4)
+        roll = rng.random()
+        mode = "Required" if roll < 0.4 else ("Preferred" if roll < 0.7 else None)
+        members = [gang_member(f"gang{g}-{i}", cpu=rng.choice(("1", "2")), mem=None)
+                   for i in range(size)]
+        rng.randint(0, 3)  # the plain pods interleaved in the reference case
+        gangs.append(gang(f"gang{g}", mode, members))
+    return {"nodes": nodes, "gangs": gangs}
+
+
+def mixed_gang_spec(seed: int, n_nodes: int, zones: int, n_gangs: int,
+                    max_size: int = 6) -> dict:
+    """Mixed gangs on nodes of mixed sizes: members with hard zone or
+    hostname spread over their own group, required anti-affinity to their
+    group on hostname, preferred affinity to it on zone, or a host port; each
+    gang Required, Preferred or unconstrained, and about one in eight of
+    them too large for any node (20 CPU a member). Placed gangs become the
+    existing pods whose terms the next gangs meet."""
+    rng = np.random.default_rng(seed)
+    nodes = [gang_node(f"node-{i}", f"zone-{i % zones}",
+                       cpu=str(int(rng.choice([4, 8, 16]))),
+                       mem=f"{int(rng.choice([8, 16, 32]))}Gi",
+                       pods=int(rng.choice([8, 110], p=[0.2, 0.8])))
+             for i in range(n_nodes)]
+    gangs = []
+    for g in range(n_gangs):
+        mode = [None, "Required", "Preferred"][int(rng.integers(3))]
+        huge = bool(rng.random() < 0.125)
+        members = []
+        for i in range(int(rng.integers(2, max_size + 1))):
+            kind = str(rng.choice(["plain", "plain", "spread", "anti", "aff", "port"]))
+            extra = {}
+            if kind == "spread":
+                extra["spread"] = (int(rng.choice([1, 2])), str(rng.choice(["zone", "hostname"])))
+            elif kind in ("anti", "aff"):
+                extra[kind] = "hostname" if kind == "anti" else "zone"
+            elif kind == "port":
+                extra["port"] = 8080
+            cpu = str(rng.choice(["250m", "500m", "1", "2"]))
+            members.append(gang_member(
+                f"g{g}-{i}", cpu="20" if huge else cpu,
+                mem=str(rng.choice(["256Mi", "1Gi"])), **extra))
+        gangs.append(gang(f"g{g}", mode, members, labelled=True))
+    return {"nodes": nodes, "gangs": gangs}
+
+
+def build_gang_nodes(spec: dict, types, meta) -> list:
+    out = []
+    for s in spec["nodes"]:
+        labels = {_KEYS["hostname"]: s["name"]}
+        if s["zone"] is not None:
+            labels[ZONE_KEY] = s["zone"]
+        alloc = {"cpu": s["cpu"], "memory": s["mem"], "pods": s["pods"],
+                 "ephemeral-storage": "100Gi"}
+        out.append(types.Node(
+            meta=meta.ObjectMeta(name=s["name"], namespace="", labels=labels),
+            spec=types.NodeSpec(),
+            status=types.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc))))
+    return out
+
+
+def _gang_pod(types, meta, group: str, s: dict, labelled: bool):
+    sel = types.LabelSelector.of({"gang": group})
+
+    def term(key):
+        return types.PodAffinityTerm(label_selector=sel, topology_key=_KEYS[key])
+
+    affinity = None
+    if s.get("anti"):
+        affinity = types.Affinity(pod_anti_affinity=types.PodAntiAffinity(
+            required=(term(s["anti"]),)))
+    elif s.get("aff"):
+        affinity = types.Affinity(pod_affinity=types.PodAffinity(
+            preferred=(types.WeightedPodAffinityTerm(10, term(s["aff"])),)))
+    spread = ()
+    if s.get("spread"):
+        skew, key = s["spread"]
+        spread = (types.TopologySpreadConstraint(skew, _KEYS[key], "DoNotSchedule", sel),)
+    ports = ((types.ContainerPort(container_port=s["port"], host_port=s["port"]),)
+             if s.get("port") else ())
+    req = {"cpu": s["cpu"]}
+    if s["mem"] is not None:
+        req["memory"] = s["mem"]
+    return types.Pod(
+        meta=meta.ObjectMeta(name=s["name"], namespace="default",
+                             labels={"gang": group} if labelled else {}),
+        spec=types.PodSpec(
+            containers=[types.Container(name="c", requests=req, ports=ports)],
+            affinity=affinity, topology_spread_constraints=spread,
+            scheduling_group=types.SchedulingGroup(pod_group_name=group)))
+
+
+def build_gangs(spec: dict, types, meta) -> list:
+    """[(PodGroup, [member Pods])] of the given package, in spec order."""
+    out = []
+    for gs in spec["gangs"]:
+        constraints = types.SchedulingConstraints()
+        if gs["mode"] is not None:
+            constraints = types.SchedulingConstraints(topology=(
+                types.TopologyConstraint(key=gs["key"], mode=gs["mode"]),))
+        group = types.PodGroup(
+            meta=meta.ObjectMeta(name=gs["name"]),
+            spec=types.PodGroupSpec(policy=types.GangPolicy(min_count=len(gs["members"])),
+                                    constraints=constraints))
+        out.append((group, [_gang_pod(types, meta, gs["name"], m, gs["labelled"])
+                            for m in gs["members"]]))
     return out

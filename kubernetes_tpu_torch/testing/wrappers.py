@@ -16,6 +16,7 @@ from ..api.types import (
     NodeStatus,
     Pod,
     PodSpec,
+    SchedulingGroup,
     Taint,
     TopologySpreadConstraint,
 )
@@ -66,6 +67,11 @@ def with_spread(pod: Pod, max_skew: int = 1, key: str = ZONE_LABEL,
     pod.spec.topology_spread_constraints = tuple(
         pod.spec.topology_spread_constraints) + (
         TopologySpreadConstraint(max_skew, key, when, selector),)
+    return pod
+
+
+def with_gang(pod: Pod, group_name: str) -> Pod:
+    pod.spec.scheduling_group = SchedulingGroup(pod_group_name=group_name)
     return pod
 
 

@@ -127,7 +127,8 @@ def test_run_batched_matches_reference_backend(case):
 
 def test_imports_and_schedules_without_jax():
     """(d) with jax and the reference package made unimportable, the port
-    imports, schedules a wave and runs one single-pod cycle on the CPU."""
+    imports, schedules a wave, runs one single-pod cycle and places one gang
+    through try_gang_wave on the CPU."""
     code = (
         "import sys, random\n"
         "sys.modules['jax'] = None\n"
@@ -149,6 +150,21 @@ def test_imports_and_schedules_without_jax():
         "from kubernetes_tpu_torch.testing.wrappers import topology_spreading_pod\n"
         "r = TorchSchedulingAlgorithm(b).schedule_pod(CycleState(), topology_spreading_pod(0), s)\n"
         "assert r.suggested_host and r.feasible_nodes == 16, r\n"
+        "from types import SimpleNamespace\n"
+        "import kubernetes_tpu_torch.api.meta as M, kubernetes_tpu_torch.api.types as T\n"
+        "from kubernetes_tpu_torch.scheduler.framework import Framework, Handle\n"
+        "from kubernetes_tpu_torch.scheduler.plugins.topology_placement import (\n"
+        "    TopologyPlacementGenerator)\n"
+        "from kubernetes_tpu_torch.scheduler.tpu.gangplanner import try_gang_wave\n"
+        "from kubernetes_tpu_torch.testing.mixed import build_gangs, perf_gang_spec\n"
+        "h = Handle(cache=c, snapshot=s)\n"
+        "fw = Framework([TopologyPlacementGenerator()], handle=h)\n"
+        "group, members = build_gangs(perf_gang_spec(0, 8, 1, 4, 'Required'), T, M)[0]\n"
+        "h.store.add(group)\n"
+        "hosts = try_gang_wave(SimpleNamespace(snapshot=s), fw, TorchSchedulingAlgorithm(b),\n"
+        "                      group.meta.key, [SimpleNamespace(pod=p) for p in members])\n"
+        "assert len({int(n.split('-')[1]) % 8 for n in hosts}) == 1, hosts\n"
+        "assert b.gang_pod_totals == {'device': 4}, b.gang_pod_totals\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kubernetes_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('placed', len(got))\n"
