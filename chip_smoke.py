@@ -3,13 +3,13 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the four CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
+1. build the five CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
    one process per source, all at once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
    Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
-3. the main path: place the 1000 initial and 10000 measured pods through
-   TorchBackend.run_batched in waves of 512 (signature dedup on, the
-   reference's default), assuming each wave's winners into the cache
+3. the serial wave path: place the 1000 initial and 10000 measured pods
+   through TorchBackend.run_batched in waves of 512 (signature dedup on),
+   assuming each wave's winners into the cache
    between waves; every pod must land and every kernel must have launched
    (counts zeroed just before this phase, read just after); signatures per
    wave and K2's full-tier and replay steps are printed;
@@ -65,7 +65,34 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 13. the card against the CPU plain path through try_gang_wave on a
    600-node mixed cluster (hard spread, inter-pod affinity and host ports
    among the members): equal hosts, winning rows, outcomes and rng state;
-then print the card, the timings, the kernels line and the result line.
+(run after phase 5, as they reuse phase 3's results)
+14. the main path as the reference runs it by default: a fresh
+   SchedulingBasic cache, the same 1000 + 10000 pods through
+   kubernetes_tpu_torch/testing/pipeline.py at depth 2 (launch_batched
+   chained on the device carry, collect one wave behind, K2 seeded across
+   waves and reading its tie cursor on the device), the published traffic
+   unchanged; every pod must land with phase 3's bindings and rng state,
+   with chained launches and cross-wave hits; K1-K3 counted (zeroed
+   before the initial pods, read after the last collect; K1 and K2 must
+   have launched; K3 runs only where the carry is dropped and the mirror
+   repays its debt, which this traffic does not cause); then the carry
+   is dropped and the mirror checked against host truth; pods/s, host
+   seconds per launch/collect phase, each wave's launch and collect-wait
+   ms;
+15. K2 with the cross-wave seed against its plain version at full width,
+   on a wave chained on phase 14's carry and resident table (the natural
+   slot map and a crafted one: a hit, a miss, a rotation; a device cursor
+   with frame shift 5): every output equal; K2 timed with and without the
+   seed;
+16. the card against the CPU plain path through the pipelined loop on
+   mixed clusters of 16 to 1500 nodes (hard spread, IPA) with events
+   mid-stream (a node change, churn deletes, a host revert, a 3-word
+   all-ones tie frame): equal bindings, rng state, xwave_* counters and
+   loop outcomes;
+then print the card, the timings, the kernels line (K1 and K2 with their
+launches on the pipelined main path, K2 at its seeded shape; K3 with its
+launches on phase 3's serial path, where each wave's assumes reach the
+mirror through it, at that path's dirty-row shape) and the result line.
 
 It imports nothing of the reference JAX package and never imports jax.
 """
@@ -163,11 +190,11 @@ def max_abs_err(pairs) -> float:
                if a.numel() else 0.0 for a, b in pairs)
 
 
-def place_waves(backend, cache, snap, pods, wave, rng, label):
+def place_waves(backend, cache, snap, pods, wave, rng, label, bindings=None):
     """run_batched in waves of `wave`, assuming winners between waves as the
     scheduling loop does; returns the wall seconds of each wave
     (run_batched ends in a device-to-host copy, so each wave's time
-    includes its kernels)."""
+    includes its kernels). Each pod's node goes into `bindings`."""
     walls = []
     for w in range(0, len(pods), wave):
         chunk = pods[w: w + wave]
@@ -178,6 +205,8 @@ def place_waves(backend, cache, snap, pods, wave, rng, label):
             if node is None:
                 fail(f"{label}: {pod.meta.name} was not placed")
             cache.assume_pod(pod, node)
+            if bindings is not None:
+                bindings[pod.meta.key] = node
         cache.update_snapshot(snap)
     return walls
 
@@ -197,7 +226,7 @@ def wave_inputs(backend, pods, snap, pad):
         [backend.extractor.features(p, planes) for p in pods]), pad)
     dp, dt = backend.device_inputs(planes)
     rows, layout = pack_features(feats)
-    sig, uniq = backend._group_wave(rows, len(pods))
+    sig, uniq, _ = backend._group_wave(rows, len(pods))
     packed_f = torch.from_numpy(rows).cuda()
     return SimpleNamespace(
         cfg=backend.kernel_config(planes, feats), planes=planes, dp=dp, dt=dt,
@@ -335,6 +364,8 @@ def main() -> None:
     ap.add_argument("--big-gang-size", type=int, default=128)
     ap.add_argument("--mixed-gang-nodes", type=int, default=600)
     ap.add_argument("--mixed-gangs", type=int, default=24)
+    # phase 16: how many pipelined card-vs-CPU clusters (16, 64, 300, 1500)
+    ap.add_argument("--pipe-cases", type=int, default=4)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -383,13 +414,17 @@ def main() -> None:
     measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
     kernels.reset_launches()
     t0 = time.perf_counter()
-    place_waves(backend, cache, snap, init, args.wave, rng, "main path")
+    serial_bindings = {}
+    place_waves(backend, cache, snap, init, args.wave, rng, "main path", serial_bindings)
     tiers0 = backend.tier_steps.tolist()
     stats0 = dict(backend.dedup_stats)
     t1 = time.perf_counter()
     phase0 = dict(backend.phase_s)
-    walls = place_waves(backend, cache, snap, measured, args.wave, rng, "main path")
+    walls = place_waves(backend, cache, snap, measured, args.wave, rng, "main path",
+                        serial_bindings)
     t2 = time.perf_counter()
+    serial = {"bindings": serial_bindings, "rng": rng.getstate(),
+              "pods_s": args.pods / (t2 - t1)}
     phases = {k: v - phase0[k] for k, v in backend.phase_s.items()}
     launches = dict(kernels.LAUNCHES)
     print(f"launches on the main path: {launches}")
@@ -507,26 +542,12 @@ def main() -> None:
           + nbytes(*w.dt.values()) + len(w.uniq) * w.packed_f.shape[1] * 4
           + nbytes(w.uniq, *out[True][0].values()))
     b3 = nbytes(idx) + 2 * nbytes(*rows.values())
-    rows_out = []
-    for name, src, repl, err, ms, msp, (bd, by) in (
-        ("static_parts", "kubernetes_tpu_torch/ops/csrc/static_parts.cu",
-         "kubernetes_tpu/ops/kernels.py:774", err1, ms1, ms1p, bound_ms(b1, 0)),
-        ("assign_scan", "kubernetes_tpu_torch/ops/csrc/assign_scan.cu",
-         "kubernetes_tpu/ops/kernels.py:1369", err2, k2[True]["ms"], k2[True]["plain_ms"],
-         (k2[True]["bound_ms"], k2[True]["bound_by"])),
-        ("scatter_rows", "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
-         "kubernetes_tpu/scheduler/tpu/backend.py:58", err3, ms3, ms3p, bound_ms(b3, 0)),
-    ):
-        rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                         "launches": launches[name], "max_abs_err": err, "ms": ms,
-                         "plain_ms": msp, "bound_ms": bd, "bound_by": by,
-                         "library_ms": None})
-        print(f"{name}: {ms:.4f} ms (plain {msp:.3f} ms, bound {bd:.5f} ms by {by}), "
-              f"{launches[name]} launches on the main path")
     # estimate: each measured wave runs K1 + K2 and one K3
     busy = (ms1 + k2[True]["ms"] + ms3) * n_waves
     print(f"device busy share of the measured waves ((K1 + K2 + K3 kernel time) "
           f"x waves / wave wall): {busy / (sum(walls) * 1e3):.3f}")
+    print(f"serial main path (run_batched) kernels: static_parts {ms1:.4f} ms, "
+          f"assign_scan {k2[True]['ms']:.4f} ms, scatter_rows {ms3:.5f} ms; launches {launches}")
 
     # 5. mixed clusters: card vs CPU plain path, hard spread and IPA in the waves
     import kubernetes_tpu_torch.api.meta as meta
@@ -578,6 +599,30 @@ def main() -> None:
           f"(64 nodes x 4 scoring configs; 16 nodes without an rng; 300 and 1500 "
           f"nodes), {time.perf_counter() - t0:.1f} s")
 
+    # 14-16. streaming waves: the pipelined main path, seeded K2, card vs CPU
+    a = pipelined_main_path(args, serial)
+    seed = seeded_k2(args, a, ms1)
+    pipeline_card_vs_cpu(args)
+    rows_out = []
+    for name, src, repl, err, ms, msp, (bd, by), (n, path) in (
+        ("static_parts", "kubernetes_tpu_torch/ops/csrc/static_parts.cu",
+         "kubernetes_tpu/ops/kernels.py:774", err1, ms1, ms1p, bound_ms(b1, 0),
+         (a["launches"]["static_parts"], "the pipelined main path")),
+        ("assign_scan", "kubernetes_tpu_torch/ops/csrc/assign_scan.cu",
+         "kubernetes_tpu/ops/kernels.py:1369", max(err2, seed["max_abs_err"]),
+         seed["ms"], seed["plain_ms"], (seed["bound_ms"], seed["bound_by"]),
+         (a["launches"]["assign_scan"], "the pipelined main path")),
+        ("scatter_rows", "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
+         "kubernetes_tpu/scheduler/tpu/backend.py:58", err3, ms3, ms3p, bound_ms(b3, 0),
+         (launches["scatter_rows"], "the serial main path (phase 3)")),
+    ):
+        rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                         "launches": n, "max_abs_err": err, "ms": ms,
+                         "plain_ms": msp, "bound_ms": bd, "bound_by": by,
+                         "library_ms": None})
+        print(f"{name}: {ms:.4f} ms (plain {msp:.3f} ms, bound {bd:.5f} ms by {by}), "
+              f"{n} launches on {path}")
+
     # 6-10. TopologySpreading (single-pod path, then waves), IPA, K4
     launches6, state6 = topology_spreading(args)
     waves7 = spreading_waves(args)
@@ -617,6 +662,313 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# --------------------------------------------------------------------------
+# 14-16: streaming waves
+# --------------------------------------------------------------------------
+
+
+def run_pipelined(args):
+    """A fresh SchedulingBasic cluster; the initial pods, then the measured
+    pods, all through WavePipeline at depth 2. Returns the state and the
+    measured span's counters."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.testing.pipeline import WavePipeline
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    names = ResourceNames()
+    cache = Cache(names)
+    for i in range(args.nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(names, device="cuda")
+    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+    pipe = WavePipeline(backend, cache, snap, algo, depth=2)
+    init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
+    measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
+    pipe.schedule(init, args.wave)
+    pipe0, drv0, stats0 = dict(backend.pipe_phase_s), dict(pipe.phase_s), dict(backend.dedup_stats)
+    kinds0, log0 = dict(backend.pipe_stats), len(backend.wave_log)
+    t1 = time.perf_counter()
+    pipe.schedule(measured, args.wave)
+    wall = time.perf_counter() - t1
+    log = list(backend.wave_log)[log0:]
+    return {"backend": backend, "cache": cache, "snap": snap, "pipe": pipe, "algo": algo,
+            "wall_s": wall, "pods_s": args.pods / wall, "log": log,
+            "phases": {k: v - pipe0[k] for k, v in backend.pipe_phase_s.items()},
+            "loop": {k: v - drv0[k] for k, v in pipe.phase_s.items()},
+            "kinds": {k: v - kinds0[k] for k, v in backend.pipe_stats.items()},
+            "stats": {k: v - stats0[k] for k, v in backend.dedup_stats.items()}}
+
+
+def pipelined_main_path(args, serial):
+    """14 (a). The main path as the reference runs it by default
+    (run_pipelined: each wave launched on the device carry before the
+    previous one is collected; K2 seeded from the previous chained wave's
+    signature table, its tie cursor read on the device). Every pod must
+    land with the bindings and final rng state of phase 3's serial run;
+    chained launches and cross-wave hits must occur, and no resync (the
+    traffic changes nothing outside the waves). Counts are zeroed before
+    the initial pods and read after the last collect; then the carry is
+    dropped and the mirror must equal host truth. Returns the backend,
+    cache and snapshot for phase 15, the launch counts, the measured
+    waves' wall and their count."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_pod
+
+    kernels.reset_launches()
+    r = run_pipelined(args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    backend, cache, snap, pipe = r["backend"], r["cache"], r["snap"], r["pipe"]
+    # drop the carry: the mirror owes the carry's rows (a full put when they
+    # pass half the cluster), after which it must equal host truth
+    backend.invalidate_carry()
+    planes = backend.sync(snap)
+    dev_planes, _ = backend.device_inputs(planes)
+    host = planes.as_dict()
+    for k, t in dev_planes.items():
+        h = torch.from_numpy(host[k].view("int32") if host[k].dtype.name == "uint32" else host[k])
+        if not torch.equal(t.cpu(), h):
+            fail(f"pipelined path: device plane {k} differs from the host plane")
+    print(f"launches on the pipelined main path: {launches} (scatter_rows runs only "
+          f"where the carry is dropped)")
+    for k in ("static_parts", "assign_scan"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} never launched on the pipelined main path")
+    if cache.pod_count() != args.init_pods + args.pods or pipe.handed_back:
+        fail(f"pipelined path: {cache.pod_count()} pods in the cache, "
+             f"{len(pipe.handed_back)} handed back")
+    if pipe.bindings != serial["bindings"]:
+        diff = [k for k, v in serial["bindings"].items() if pipe.bindings.get(k) != v]
+        fail(f"pipelined bindings differ from the serial run's on {len(diff)} pods "
+             f"(first {diff[:3]})")
+    if r["algo"].rng.getstate() != serial["rng"]:
+        fail("pipelined final rng state differs from the serial run's")
+    kinds, stats = r["kinds"], r["stats"]
+    if kinds["chained"] <= 0 or stats["xwave_hits"] <= 0:
+        fail(f"no chained launch or cross-wave hit on the measured waves: {kinds}, {stats}")
+    if pipe.stats["resyncs"] or pipe.stats["fallback_waves"]:
+        fail(f"the published traffic resynced or fell back: {pipe.stats}")
+    log, phases, drv = r["log"], r["phases"], r["loop"]
+    n_waves = len(log)
+    print(f"pipelined main path: {cache.pod_count()} pods placed, bindings and rng equal "
+          f"to the serial run's; measured {args.pods} pods in {n_waves} waves, "
+          f"{r['wall_s']:.3f} s = {r['pods_s']:.1f} pods/s (serial run_batched, phase 3: "
+          f"{serial['pods_s']:.1f} pods/s) incl. host assume + snapshot")
+    print(f"measured launches {kinds}; cross-wave {stats}; upload {backend.upload_stats}; "
+          f"loop {pipe.stats}")
+    print("measured waves, host-clock seconds by launch/collect phase: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+          + "; loop: " + ", ".join(f"{k} {v:.4f}" for k, v in drv.items()))
+    print("ms per measured wave: "
+          + ", ".join(f"{k} {v * 1e3 / n_waves:.3f}" for k, v in phases.items())
+          + ", assume " + f"{drv['assume'] * 1e3 / n_waves:.3f}"
+          + ", snapshot " + f"{drv['snapshot'] * 1e3 / n_waves:.3f}")
+    print("per measured wave (chained, launch ms, collect wait ms): "
+          + " ".join(f"({int(e['chained'])},{e['launch_s'] * 1e3:.2f},{e['wait_s'] * 1e3:.2f})"
+                     for e in log))
+    waits = sorted(e["wait_s"] for e in log)
+    print(f"collect wait that remained per wave: median {waits[len(waits) // 2] * 1e3:.3f} ms, "
+          f"max {waits[-1] * 1e3:.3f} ms, sum {sum(waits):.4f} s")
+    # one more wave, collected, so phase 15 finds a live carry and table
+    pipe.schedule([scheduling_basic_pod(2 * 10**6 + i) for i in range(args.wave)], args.wave)
+    return {"backend": backend, "cache": cache, "snap": snap, "launches": launches,
+            "wall_s": r["wall_s"], "waves": n_waves,
+            "xwave_launches": kinds["xwave_launches"]}
+
+
+def chained_inputs(backend, pods, snap, pad):
+    """One wave's K2 inputs as a chained launch builds them: the carry over
+    the mirror, the signature groups, and the resident table with this
+    wave's slot map into it."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops.planes import (
+        pack_features, pad_features, stack_features, unpack_features)
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features(
+        [backend.extractor.features(p, planes) for p in pods]), pad)
+    dp, dt = backend._overlay(backend._carry)
+    rows, layout = pack_features(feats)
+    sig, uniq, sig_bytes = backend._group_wave(rows, len(pods))
+    cfg = backend.kernel_config(planes, feats)
+    cmap = backend.sig_cache.lookup((cfg, planes.bucket_sizes, len(uniq)), sig_bytes, len(uniq))
+    if cmap is None:
+        fail("the chained wave's signatures found no resident table")
+    packed_f = torch.from_numpy(rows).cuda()
+    return SimpleNamespace(
+        cfg=cfg, planes=planes, dp=dp, dt=dt, packed_f=packed_f, layout=layout,
+        fv=unpack_features(packed_f, layout), sig=torch.from_numpy(sig).cuda(),
+        uniq=torch.from_numpy(uniq).cuda(), logtab=backend._logtab,
+        table=backend.sig_cache.table, cmap=cmap)
+
+
+def seeded_k2(args, a, ms1):
+    """15 (b). K2 with the cross-wave seed against its plain version at full
+    width: a wave chained on phase 14's carry and resident table, with the
+    natural slot map and a crafted one (a hit, a miss, a rotation), the
+    cursor read from a device scalar minus a nonzero frame shift; every
+    output equal, sig_table, sig_scores and tiers included. Then K2 timed
+    with and without the seed on the same inputs."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_pod
+
+    pods = [scheduling_basic_pod(3 * 10**6 + i) for i in range(args.wave)]
+    w = chained_inputs(a["backend"], pods, a["snap"], args.wave)
+    k1 = k1_call(w, True)
+    frame = tie_words(args.seed + 7, 2 * args.wave)
+    cursor = torch.tensor(37, dtype=torch.int32, device="cuda")
+    g = len(w.cmap)
+    crafted = np.arange(g, dtype=np.int32)
+    crafted[2:] = np.roll(crafted[2:], -1)
+    crafted[1] = -1
+    err = 0.0
+    outs = {}
+    for label, cmap in (("natural", w.cmap), ("crafted", crafted)):
+        cm = torch.from_numpy(cmap).cuda()
+        kw = dict(sig_ids=w.sig, uniq_idx=w.uniq, frame_shift=5, carry_map=cm,
+                  sig_table=w.table)
+        got = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, frame, cursor,
+                                  w.logtab, **kw)
+        want = kernels.assign_scan_ref(w.cfg, w.dp, k1, w.fv, frame, cursor, w.logtab, **kw)
+        torch.cuda.synchronize()
+        gf, rf = dict(_flat(got)), dict(_flat(want))
+        if gf.keys() != rf.keys():
+            fail(f"seeded assign_scan outputs {sorted(gf)} vs plain {sorted(rf)}")
+        for k in gf:
+            if not torch.equal(gf[k], rf[k]):
+                fail(f"seeded assign_scan {k} differs from its plain version ({label} map)")
+        err = max(err, max_abs_err((gf[k], rf[k]) for k in gf))
+        outs[label] = (cm, got)
+        print(f"seeded K2 ({label} map {cmap.tolist()}): equal to its plain version on every "
+              f"output; tiers [full, replay] {got['tiers'].tolist()}, cursor start 32, "
+              f"consumed to {int(got['packed'][-2])}")
+    cm, out = outs["natural"]
+    seeded = dict(sig_ids=w.sig, uniq_idx=w.uniq, frame_shift=5, carry_map=cm,
+                  sig_table=w.table)
+    ms = kernel_ms(lambda: kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, frame,
+                                               cursor, w.logtab, **seeded),
+                   "assign_scan_kernel", 5)
+    ms_cold = kernel_ms(lambda: kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout,
+                                                    frame, 32, w.logtab, sig_ids=w.sig,
+                                                    uniq_idx=w.uniq),
+                        "assign_scan_kernel", 5)
+    plain = time_ms(lambda: kernels.assign_scan_ref(w.cfg, w.dp, k1, w.fv, frame, cursor,
+                                                    w.logtab, **seeded), 1, warmup=0)
+    table_b = nbytes(*w.table.values())
+    b, ops = k2_work(w, k1, frame, out, True)
+    bd, by = bound_ms(b + table_b + nbytes(cm, cursor), ops)
+    seed_bd, _ = bound_ms(table_b + nbytes(cm) + nbytes(*out["sig_table"].values()), 0)
+    print(f"assign_scan seeded (chained SchedulingBasic wave): {ms:.4f} ms, unseeded on the "
+          f"same inputs {ms_cold:.4f} ms (plain {plain:.1f} ms, bound {bd:.5f} ms by {by}); "
+          f"the seed alone: gathered table {table_b} bytes read, bound {seed_bd:.5f} ms by "
+          f"bytes; seeded launches on the pipelined main path {a['xwave_launches']}")
+    busy = (ms1 + ms) * a["waves"]
+    print(f"device busy share of the pipelined measured waves ((K1 + seeded K2 kernel time) "
+          f"x waves / wall): {busy / (a['wall_s'] * 1e3):.3f}")
+    return {"ms": ms, "ms_unseeded": ms_cold, "plain_ms": plain, "bound_ms": bd,
+            "bound_by": by, "max_abs_err": err}
+
+
+def pipeline_events(spec, pa, device, types, meta):
+    """The mixed cluster through testing/pipeline.py at depth 2 with events
+    mid-stream: a node grows (mark_external → NeedResync), bound pods are
+    deleted, the host reverts one winner (its successor poisoned), and one
+    launch gets a 3-word all-ones tie frame (overflow at collect); handed-
+    back pods re-run one at a time. Returns what the card and the CPU must
+    agree on."""
+    import kubernetes_tpu_torch.scheduler.tpu.backend as tb
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods
+    from kubernetes_tpu_torch.testing.pipeline import WavePipeline
+
+    c = Cache(ResourceNames())
+    nodes = build_nodes(spec, types, meta)
+    for n in nodes:
+        c.add_node(n)
+    s = Snapshot()
+    c.update_snapshot(s)
+    b = tb.TorchBackend(c.names, plugin_args=pa, device=device)
+    algo = tb.TorchSchedulingAlgorithm(b, rng=random.Random(3))
+    pipe = WavePipeline(b, c, s, algo, depth=2)
+    pods = build_pods(spec, types, meta)
+    cut = [len(pods) // 4, len(pods) // 2, 3 * len(pods) // 4]
+
+    def waves(chunk):
+        for i in range(0, len(chunk), 24):
+            pipe.submit(chunk[i: i + 24], 32)
+
+    waves(pods[: cut[0]])
+    n = nodes[3]
+    c.add_node(types.Node(meta=n.meta, spec=n.spec, status=types.NodeStatus(
+        capacity=dict(n.status.capacity), images=n.status.images,
+        allocatable=dict(n.status.allocatable, cpu="64"))))
+    pipe.external(poison=False)
+    waves(pods[cut[0]: cut[1]])
+    for pod in pods[:5]:
+        if pipe.bindings.get(pod.meta.key):
+            c.remove_pod(pod)
+    pipe.external(poison=False)
+    victim = pods[cut[1] + 1].meta.name
+    pipe.reject = lambda pod, host: pod.meta.name == victim
+    waves(pods[cut[1]: cut[2]])
+    real, calls = tb.clone_tie_words, []
+
+    def frame(rng, n_words):
+        calls.append(n_words)
+        return np.full(3, 0xFFFFFFFF, np.uint32) if len(calls) == 2 else real(rng, n_words)
+
+    tb.clone_tie_words = frame
+    try:
+        waves(pods[cut[2]:])
+        pipe.flush()
+    finally:
+        tb.clone_tie_words = real
+    for pod in list(pipe.handed_back):
+        pipe.schedule_one(pod)
+    return (pipe.bindings, algo.rng.getstate(),
+            {k: v for k, v in b.dedup_stats.items() if k.startswith("xwave")},
+            dict(pipe.stats), [p.meta.name for p in pipe.handed_back],
+            b.tier_steps.tolist(), dict(b.pipe_stats))
+
+
+def pipeline_card_vs_cpu(args):
+    """16 (c). The card against the CPU plain path through the pipelined
+    loop on mixed clusters of 16 to 1500 nodes (hard spread, IPA) with
+    the events of pipeline_events: equal bindings, rng state, xwave_*
+    counters, loop outcomes and handed-back pods."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import mixed_spec
+
+    cases = [(mixed_spec(9, 16, 40, constraints=True), None),
+             (mixed_spec(7, 64, 120, constraints=True), None),
+             (mixed_spec(10, 300, 200, constraints=True), None),
+             (mixed_spec(8, 1500, 240, constraints=True),
+              {"NodeResourcesFit": {"strategy": "MostAllocated"}})][: args.pipe_cases]
+    t0 = time.perf_counter()
+    for spec, pa in cases:
+        got = [pipeline_events(spec, pa, d, types, meta) for d in ("cuda", "cpu")]
+        if got[0] != got[1]:
+            which = [i for i, (x, y) in enumerate(zip(*got)) if x != y]
+            fail(f"pipelined mixed cluster ({len(spec['nodes'])} nodes): card and CPU "
+                 f"plain path disagree on result fields {which}")
+        stats = got[0][3]
+        print(f"pipelined mixed cluster, {len(spec['nodes'])} nodes: card == CPU plain path; "
+              f"loop {stats}, handed back {len(got[0][4])}, {got[0][2]}, launches "
+              f"{got[0][6]}")
+    print(f"pipelined card vs CPU with events: {len(cases)} clusters, "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # --------------------------------------------------------------------------

@@ -50,7 +50,10 @@ struct ScanParams {
     int D;   // words per domain table: max(1, max topo_dk)
     int G;   // signature rows (0: the non-dedup tier)
     int CT;  // spread slots per signature table row: max(1, n_soft)
-    int cursor0;
+    int cursor0;      // the tie cursor's start when no device cursor is given
+    int frame_shift;  // subtracted from the start cursor (host or device)
+    int xwave;        // seed the signature table from the previous wave's
+    int G_prev;       // ... table of G_prev rows (cross-wave reuse)
     int f_req, f_nz_req, f_soft_active, f_soft_key, f_soft_sel, f_hard_active,
         f_hard_key, f_hard_sel, f_hard_skew, f_hard_self, f_sig_match, f_active,
         f_ipa_match, f_ipa_anti_add, f_ipa_pref_add, f_ipa_aff_t, f_ipa_aff_self,

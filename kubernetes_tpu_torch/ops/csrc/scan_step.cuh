@@ -23,7 +23,9 @@
 // sig_scores row. After each placement every resident row is patched at
 // the winner column: fit score, fit filter and feasibility from the updated
 // used row and the signature's own request, and each traced soft slot's
-// per-domain tables by the winner's delta.
+// per-domain tables by the winner's delta. A chained wave seeds the table
+// from the previous wave's rows (p.xwave, the cross-wave reuse) in the
+// prologue, so its repeat signatures replay from their first step.
 //
 // Node validity is read in one place, node_valid(): with MASKED (K5) it is
 // valid & mask, the placement-narrowed snapshot of the reference's
@@ -109,6 +111,17 @@ struct ScanArgs {
     int* t_segs;
     int* t_pcs;
     int* sig_scores;
+    // the tie cursor's start in device memory (K2 of a chained wave: the
+    // predecessor's final cursor, its packed[P_prev]); nullptr: p.cursor0
+    const int* cursor_init;
+    // cross-wave reuse (p.xwave): slot map [G] into the previous wave's
+    // table of p.G_prev rows, which seeds t_* in the prologue
+    const int* carry_map;
+    const int* prev_ew;
+    const uint8_t* prev_ffit;
+    const uint8_t* prev_feas;
+    const int* prev_segs;
+    const int* prev_pcs;
 };
 
 // meaningful in thread 0: the tie words consumed up to the cursor, whether a
@@ -180,8 +193,37 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     int* fail_s = a.scratch + 5 * (size_t)Nb;
     int* present = a.scratch + 6 * (size_t)Nb;  // [K, D] with dom_carry
     auto table = [&](int i) { return pool + (size_t)i * D; };
-    ScanEnd end = {p.cursor0, 0, 0, 0};  // cursor meaningful in warp 0
-    int& cursor = end.cursor;
+    // the cursor starts at the predecessor's final cursor (device) or the
+    // host's, shifted into this wave's word frame
+    ScanEnd end = {(a.cursor_init ? a.cursor_init[0] : p.cursor0) - p.frame_shift, 0, 0, 0};
+    int& cursor = end.cursor;  // meaningful in warp 0
+
+    // prologue: the cross-wave seed of the signature table. Slot g copies
+    // row carry_map[g] of the previous wave's table where it is >= 0 (and
+    // is valid), else starts zeroed and invalid; every entry is written, so
+    // the caller need not clear the table
+    if (dedup && p.xwave) {
+        const size_t row_words = (size_t)p.CT * D;
+        for (size_t i = tid; i < (size_t)p.G * Nb; i += SCAN_NT) {
+            const int g = (int)(i / Nb), n = (int)(i % Nb);
+            const int c = a.carry_map[g];
+            const size_t o = (size_t)clampi(c, 0, p.G_prev - 1) * Nb + n;
+            const bool ok = c >= 0;
+            t_ew[i] = ok ? a.prev_ew[o] : 0;
+            t_ffit[i] = ok ? a.prev_ffit[o] : 0;
+            t_feas[i] = ok ? a.prev_feas[o] : 0;
+        }
+        for (size_t i = tid; i < (size_t)p.G * row_words; i += SCAN_NT) {
+            const int g = (int)(i / row_words);
+            const int c = a.carry_map[g];
+            const size_t o = (size_t)clampi(c, 0, p.G_prev - 1) * row_words + i % row_words;
+            const bool ok = c >= 0;
+            t_segs[i] = ok ? a.prev_segs[o] : 0;
+            t_pcs[i] = ok ? a.prev_pcs[o] : 0;
+        }
+        for (int g = tid; g < p.G; g += SCAN_NT) t_valid[g] = a.carry_map[g] >= 0;
+        __syncthreads();
+    }
 
     // prologue: the hard-spread carry, per key slot and domain the sum of
     // sel_counts over the domain's valid nodes, and the static presence

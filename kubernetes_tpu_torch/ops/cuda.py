@@ -143,7 +143,7 @@ class StaticParams(ctypes.Structure):
 
 class ScanParams(ctypes.Structure):
     _fields_ = _ints("P", "Nb", "R", "K", "S", "F", "MC", "L", "Ta", "D", "G",
-                     "CT", "cursor0",
+                     "CT", "cursor0", "frame_shift", "xwave", "G_prev",
                      "f_req", "f_nz_req", "f_soft_active", "f_soft_key",
                      "f_soft_sel", "f_hard_active", "f_hard_key", "f_hard_sel",
                      "f_hard_skew", "f_hard_self", "f_sig_match", "f_active",

@@ -692,10 +692,25 @@ def _patch_rows(cfg, planes, live, tab, uf, static, win: int, sel_prev):
             tab["pcs"][:, c, d] += torch.where(in_k, pc_d, 0)
 
 
+def _seed_table(carry_map: torch.Tensor, sig_table: dict) -> dict:
+    """The cross-wave seed (kernels.py:1314-1328): slot c copies row
+    carry_map[c] of the previous wave's table where it is >= 0 (valid),
+    and starts zeroed and invalid elsewhere. New tensors: the previous
+    table is never aliased."""
+    ok = carry_map >= 0
+    m = carry_map.long().clamp(0, sig_table["ew"].shape[0] - 1)
+    tab = {k: torch.where(ok.view((-1,) + (1,) * (v.dim() - 1)), v[m], torch.zeros_like(v[m]))
+           for k, v in sig_table.items()}
+    tab["valid"] = ok.clone()
+    return tab
+
+
 def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
-                    tie_words: torch.Tensor, cursor0: int, logtab: torch.Tensor,
+                    tie_words: torch.Tensor, cursor_init, logtab: torch.Tensor,
                     sig_ids: torch.Tensor | None = None,
-                    uniq_idx: torch.Tensor | None = None) -> dict:
+                    uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
+                    carry_map: torch.Tensor | None = None,
+                    sig_table: dict | None = None) -> dict:
     """Plain version of K2: a Python loop over the wave's pods following the
     reference's _assign_step (kernels.py:925-1250) branch by branch.
 
@@ -706,6 +721,12 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
     live one (checked only with hard spread or IPA) replays it; else the
     full tier recomputes and installs it. After each placement every
     resident row is patched at the winner column.
+
+    Cross-wave reuse (with dedup): carry_map [C] int32 and sig_table, the
+    previous chained wave's {ew, ffit, feas, segs, pcs}, seed the resident
+    table (_seed_table) instead of an empty one. The cursor starts at
+    cursor_init (an int, or a 0-d int32 tensor: the predecessor's final
+    cursor, packed[P_prev]) minus frame_shift.
 
     Returns the reference's output dict: packed [P + 2] int32 = winners ++
     [tie_consumed, tie_overflow]; the carried used, nonzero_used,
@@ -732,18 +753,21 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
         C, nb = uniq_idx.shape[0], alloc.shape[0]
         ct = max(1, min(cfg.max_constraints, cfg.n_soft))
         dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=1)
-        tab = {"ew": torch.zeros((C, nb), dtype=torch.int32, device=dev),
-               "ffit": torch.zeros((C, nb), dtype=torch.bool, device=dev),
-               "feas": torch.zeros((C, nb), dtype=torch.bool, device=dev),
-               "segs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
-               "pcs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
-               "valid": torch.zeros(C, dtype=torch.bool, device=dev)}
+        if carry_map is not None:
+            tab = _seed_table(carry_map, sig_table)
+        else:
+            tab = {"ew": torch.zeros((C, nb), dtype=torch.int32, device=dev),
+                   "ffit": torch.zeros((C, nb), dtype=torch.bool, device=dev),
+                   "feas": torch.zeros((C, nb), dtype=torch.bool, device=dev),
+                   "segs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
+                   "pcs": torch.zeros((C, ct, dmax), dtype=torch.int32, device=dev),
+                   "valid": torch.zeros(C, dtype=torch.bool, device=dev)}
         sig_scores = torch.full((C, nb), -1, dtype=torch.int32, device=dev)
         uf = {k: v[uniq_idx.long()] for k, v in f.items()}
         tiers = [0, 0]
     P = f["active"].shape[0]
     winners = []
-    cursor, overflow = int(cursor0), False
+    cursor, overflow = int(cursor_init) - int(frame_shift), False
     for p in range(P):
         active = bool(f["active"][p])
         if not fast and not active:
@@ -918,23 +942,36 @@ def _scratch_words(p) -> int:
 
 def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
                 packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                cursor0: int, logtab: torch.Tensor,
+                cursor_init, logtab: torch.Tensor,
                 sig_ids: torch.Tensor | None = None,
-                uniq_idx: torch.Tensor | None = None) -> dict:
+                uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
+                carry_map: torch.Tensor | None = None,
+                sig_table: dict | None = None) -> dict:
     """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
     The carry planes out are copies of the inputs, which stay untouched.
     planes holds the row planes and, with IPA, ipa_term_key; static is
-    K1's output over the pods, or over the signature rows with dedup."""
+    K1's output over the pods, or over the signature rows with dedup.
+
+    cursor_init is a host int or a 0-d int32 tensor on the device (a
+    chained wave's predecessor's packed[P_prev]), which the kernel reads
+    itself: no device-to-host copy. With carry_map [C] and sig_table (the
+    previous chained wave's table, with dedup only) the kernel seeds this
+    wave's table from it; the output table is new memory either way."""
     from .planes import unpack_features
 
     check_slice(cfg)
     if (sig_ids is None) != (uniq_idx is None):
         raise ValueError("sig_ids and uniq_idx go together")
+    if (carry_map is None) != (sig_table is None):
+        raise ValueError("carry_map and sig_table go together")
+    if carry_map is not None and sig_ids is None:
+        raise ValueError("cross-wave reuse needs signature dedup")
     device = packed_f.device
     if device.type == "cpu":
         return assign_scan_ref(cfg, planes, static,
                                unpack_features(packed_f, layout), tie_words,
-                               cursor0, logtab, sig_ids, uniq_idx)
+                               cursor_init, logtab, sig_ids, uniq_idx,
+                               frame_shift, carry_map, sig_table)
     if device.type != "cuda":
         raise ValueError(f"assign_scan runs on cpu or cuda, not {device}")
     from . import cuda
@@ -942,14 +979,32 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
     fast = sig_ids is not None
+    xwave = carry_map is not None
     Ps = uniq_idx.shape[0] if fast else P  # static rows
     i32, b8 = torch.int32, torch.bool
     if fast:
         _check(sig_ids, "sig_ids", device, i32, (P,))
         _check(uniq_idx, "uniq_idx", device, i32)
+    cursor_dev = isinstance(cursor_init, torch.Tensor)
+    if cursor_dev:
+        _check(cursor_init, "cursor_init", device, i32)
+        if cursor_init.numel() != 1:
+            raise ValueError("cursor_init must hold one word")
     p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
-                     n_static=Ps, G=Ps if fast else 0, cursor0=cursor0)
+                     n_static=Ps, G=Ps if fast else 0,
+                     cursor0=0 if cursor_dev else int(cursor_init))
+    p.frame_shift = int(frame_shift)
     K, S, dmax, ct = p.K, p.S, p.D, p.CT
+    if xwave:
+        g_prev = sig_table["ew"].shape[0]
+        _check(carry_map, "carry_map", device, i32, (Ps,))
+        for name, dt, shape in (("ew", i32, (g_prev, nb)), ("ffit", b8, (g_prev, nb)),
+                                ("feas", b8, (g_prev, nb)), ("segs", i32, (g_prev, ct, dmax)),
+                                ("pcs", i32, (g_prev, ct, dmax))):
+            _check(sig_table[name], f"sig_table.{name}", device, dt, shape)
+        if g_prev == 0:
+            raise ValueError("sig_table has no rows")
+        p.xwave, p.G_prev = 1, g_prev
     out = {"packed": torch.empty(P + 2, dtype=i32, device=device)}
     carried = ["used", "nonzero_used", "sel_counts"]
     if cfg.ipa_active:
@@ -962,14 +1017,16 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     scratch = torch.empty(_scratch_words(p), dtype=i32, device=device)
     if fast:
         out["sig_scores"] = torch.full((Ps, nb), -1, dtype=i32, device=device)
-        tab = {"ew": torch.zeros((Ps, nb), dtype=i32, device=device),
-               "ffit": torch.zeros((Ps, nb), dtype=b8, device=device),
-               "feas": torch.zeros((Ps, nb), dtype=b8, device=device),
-               "segs": torch.zeros((Ps, ct, dmax), dtype=i32, device=device),
-               "pcs": torch.zeros((Ps, ct, dmax), dtype=i32, device=device)}
+        # the seed writes every entry of a seeded table; a fresh one starts zeroed
+        alloc_tab = torch.empty if xwave else torch.zeros
+        tab = {"ew": alloc_tab((Ps, nb), dtype=i32, device=device),
+               "ffit": alloc_tab((Ps, nb), dtype=b8, device=device),
+               "feas": alloc_tab((Ps, nb), dtype=b8, device=device),
+               "segs": alloc_tab((Ps, ct, dmax), dtype=i32, device=device),
+               "pcs": alloc_tab((Ps, ct, dmax), dtype=i32, device=device)}
         out["sig_table"] = tab
         out["tiers"] = torch.zeros(2, dtype=i32, device=device)
-        t_valid = torch.zeros(Ps, dtype=b8, device=device)
+        t_valid = alloc_tab(Ps, dtype=b8, device=device)
     ipa_ptrs = ([out[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref")]
                 + [planes["ipa_term_key"].data_ptr()] if cfg.ipa_active else [0] * 4)
     ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
@@ -984,6 +1041,12 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
         ptrs += [out["sig_scores"].data_ptr(), out["tiers"].data_ptr()]
     else:
         ptrs += [0] * 10
+    ptrs.append(cursor_init.data_ptr() if cursor_dev else 0)
+    if xwave:
+        ptrs += [carry_map.data_ptr()] + [sig_table[k].data_ptr() for k in (
+            "ew", "ffit", "feas", "segs", "pcs")]
+    else:
+        ptrs += [0] * 6
     cuda.launch("assign_scan", p, ptrs, _stream(device))
     LAUNCHES["assign_scan"] += 1
     return out
@@ -1525,9 +1588,11 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
 
 def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
                    packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                   logtab: torch.Tensor, cursor_init: int = 0,
+                   logtab: torch.Tensor, cursor_init=0,
                    sig_ids: torch.Tensor | None = None,
-                   uniq_idx: torch.Tensor | None = None) -> dict:
+                   uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
+                   carry_map: torch.Tensor | None = None,
+                   sig_table: dict | None = None) -> dict:
     """Greedy assignment of one padded pod wave (the reference's
     batched_assign): K1 over the pods, or with sig_ids/uniq_idx (signature
     dedup: sig_ids [P] int32 group ids, uniq_idx [C] int32 first-occurrence
@@ -1535,8 +1600,17 @@ def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
     planes are the same with and without dedup. Returns assign_scan's
     output dict: packed [P + 2] int32 = winners ++ [tie_consumed,
     tie_overflow], the carried planes, and with dedup sig_scores,
-    sig_table and tiers."""
+    sig_table and tiers.
+
+    A chained wave (the pipelined launch) passes cursor_init as the
+    predecessor's final cursor (a 0-d device tensor) with the host's
+    frame_shift, and with cross-wave reuse carry_map [C] int32 (each
+    signature slot's row in the previous table, -1 a miss) and sig_table,
+    the previous chained wave's table, which must have been scored against
+    this wave's input planes (the backend's gate, SignatureScoreCache)."""
     check_slice(cfg)
     static = static_parts(planes, tables, packed_f, layout, rows=uniq_idx)
     return assign_scan(cfg, planes, static, packed_f, layout, tie_words,
-                       cursor_init, logtab, sig_ids=sig_ids, uniq_idx=uniq_idx)
+                       cursor_init, logtab, sig_ids=sig_ids, uniq_idx=uniq_idx,
+                       frame_shift=frame_shift, carry_map=carry_map,
+                       sig_table=sig_table)

@@ -972,6 +972,18 @@ def planes_from_reference(planes: dict[str, np.ndarray], device) -> dict[str, to
     return {k: _to_device(v, device) for k, v in planes.items()}
 
 
+def sig_table_from_reference(sig_table: dict, carry_map, device):
+    """A chained wave's cross-wave inputs from numpy (or the reference
+    package's device arrays, through np.asarray): the previous wave's
+    signature table {ew, ffit, feas, segs, pcs} → device tensors (uint32 →
+    int32 with the same bits, bool → bool), and carry_map → int32."""
+    table = planes_from_reference(
+        {k: np.array(v) for k, v in sig_table.items()}, device)
+    cmap = torch.from_numpy(np.ascontiguousarray(carry_map, dtype=np.int32)).to(
+        device, copy=True)
+    return table, cmap
+
+
 def features_from_reference(stacked: dict[str, np.ndarray], device):
     """A stacked [P, ...] feature batch → (packed [P, F] int32 device
     buffer, static layout): ONE host→device copy per wave."""

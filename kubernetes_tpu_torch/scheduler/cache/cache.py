@@ -133,6 +133,13 @@ class Cache:
             self._pod_states[key] = pi
             self._pod_nodes[key] = pod.spec.node_name
 
+    def remove_pod(self, pod: Pod) -> None:
+        """Informer deletes a pod (assumed or confirmed); a no-op for a pod
+        the cache does not hold."""
+        with self._mu:
+            if pod.meta.key in self._pod_states:
+                self._remove_pod_locked(pod.meta.key)
+
     def _remove_pod_locked(self, key: str) -> None:
         node_name = self._pod_nodes.pop(key)
         self._pod_states.pop(key)

@@ -12,8 +12,18 @@ paths:
 - the gang wave (run_gang, called by gangplanner.try_gang_wave): a whole
   PodGroup scanned over every placement mask at once in one K1 + K5 launch
   pair, all or nothing.
+- the streaming wave (launch_batched / collect): the reference's default
+  main path. A wave's K1 + K2 launch chains on the previous launch's
+  output planes (the device carry) while the host processes the previous
+  wave's results one wave behind; K2 reads the predecessor's final tie
+  cursor from the device and seeds its signature table from the previous
+  chained wave's resident rows (cross-wave reuse). Its uploads leave from
+  pinned host memory without blocking, and its one result copy is
+  enqueued right behind K2 with an event that collect waits on.
 All keep the device mirror of the node planes current by a full put on
-cold start and by the K3 row scatter afterwards.
+cold start and by the K3 row scatter afterwards. The carry is a second
+buffer beside that mirror: while it lives, the mirror owes the rows the
+carry owns (mirror debt), repaid by one K3 scatter when the carry dies.
 
 Bit-compatibility contract: with percentageOfNodesToScore=100 the host path
 evaluates every node and selects by (max total score, seeded-rng tie-break
@@ -25,17 +35,19 @@ which runs the kernels' plain PyTorch versions (as the tests do). Without a
 card and without device="cpu" the constructor raises.
 
 The wave runs the reference's default tier: signature dedup on, hard
-spread and inter-pod affinity in the scan. Not in this slice (a later one,
-in the ROADMAP's order): cross-wave reuse of the signature table and the
-pipelined launch/collect pair that feeds it, the host framework with its
+spread and inter-pod affinity in the scan, cross-wave reuse on. Not in
+this slice (a later one, in the ROADMAP's order): the scheduling loop
+itself (testing/pipeline.py stands in for it), the host framework with its
 fallback, hybrid and nominated-node paths and the circuit breaker (with
-the host pod-group cycle a gang falls back to), and the multi-device mesh.
-What needs them raises OutOfSlice; pods the reference sends to its host
-path raise FallbackNeeded.
+the host pod-group cycle a gang falls back to), the flight recorder and
+fault injection, and the multi-device mesh. What needs them raises
+OutOfSlice; pods the reference sends to its host path raise
+FallbackNeeded.
 """
 
 from __future__ import annotations
 
+import collections
 import random
 import time
 from dataclasses import dataclass
@@ -52,6 +64,7 @@ from ...ops.kernels import (
     KernelConfig,
     OutOfSlice,
     batched_assign,
+    dedup_fast_capable,
     fit_and_score,
     gang_assign,
     log_weight_table,
@@ -126,6 +139,13 @@ def advance_rng(rng, n_words: int) -> None:
     rng.setstate((version, tuple(int(x) for x in s[1]) + (int(s[2]),), gauss))
 
 
+class NeedResync(Exception):
+    """A pipelined launch cannot proceed on the device carry (an external
+    change touched node rows the carry does not account for, or the plane
+    buckets changed shape): the caller must drain the pipeline, after which
+    the next launch re-uploads from host truth."""
+
+
 def group_feature_rows(packed: np.ndarray):
     """Group byte-identical packed feature rows (the wave-side analogue of
     the framework's pod signature): returns (sig_ids [P] int32, uniq_idx [G]
@@ -141,6 +161,101 @@ def group_feature_rows(packed: np.ndarray):
             uniq.append(i)
         ids[i] = gid
     return ids, np.asarray(uniq, np.int32)
+
+
+class SignatureScoreCache:
+    """Host bookkeeping for the device-resident cross-wave score rows (the
+    reference's SignatureScoreCache, backend.py:160-221).
+
+    K2's dedup tier leaves a per-signature table (sig_table) on the device;
+    this cache keeps its signature-bytes → slot map and a shape/config key
+    so the NEXT chained wave can hand the table back (carry_map /
+    sig_table) and replay signatures already scored. The tensors never
+    travel to the host. The table's rows are scores against the carry
+    planes as of the end of the wave that made them, so they are handed
+    back only to a launch that chains on that carry; every carry
+    invalidation clears the cache too (TorchBackend.invalidate_carry)."""
+
+    def __init__(self):
+        self.slots: dict[bytes, int] = {}   # signature bytes → table slot
+        self.table: dict | None = None      # device tensors from sig_table
+        self.key: tuple | None = None       # (cfg, bucket_sizes, G_pad)
+        self.hits = 0                        # cumulative
+        self.misses = 0
+        self.evictions = 0
+
+    def clear(self) -> None:
+        self.slots = {}
+        self.table = None
+        self.key = None
+
+    def lookup(self, key, sig_bytes, g_pad: int):
+        """carry_map [g_pad] of this wave's signatures against the cached
+        table (slot gid replays cached slot carry_map[gid]; -1 a miss), or
+        None when the cache is cold or keyed differently."""
+        if self.table is None or key != self.key:
+            return None
+        m = np.full(g_pad, -1, np.int32)
+        for gid, b in enumerate(sig_bytes):
+            m[gid] = self.slots.get(b, -1)
+        return m
+
+    def store(self, key, table, sig_bytes) -> tuple[int, int, int]:
+        """Adopt a just-launched wave's table as the resident generation;
+        returns (hits, misses, evictions) of its signatures against the
+        previous generation. One generation only: signatures absent from
+        the new wave are evicted."""
+        warm = self.table is not None and key == self.key
+        hit = sum(1 for b in sig_bytes if b in self.slots) if warm else 0
+        miss = len(sig_bytes) - hit
+        evict = max(0, len(self.slots) - hit) if warm else len(self.slots)
+        self.slots = {}
+        for gid, b in enumerate(sig_bytes):
+            self.slots.setdefault(b, gid)  # first appearance wins
+        self.table = table
+        self.key = key
+        self.hits += hit
+        self.misses += miss
+        self.evictions += evict
+        return hit, miss, evict
+
+
+class InflightWave:
+    """A launched, not yet collected wave (the reference's InflightWave,
+    backend.py:223-256): device outputs, the pinned host copy of its packed
+    result with the event that says it arrived, and the pinned buffers of
+    its uploads, held until its copies are done."""
+
+    __slots__ = ("pods", "planes", "info", "pad", "cursor_base_host",
+                 "frame_shift", "poisoned", "sig_ids", "host_packed", "ready",
+                 "staged", "chained", "launch_s")
+
+    def __init__(self, pods, planes, info, pad, frame_shift, sig_ids=None):
+        self.pods = pods
+        self.planes = planes
+        self.info = info  # K2's outputs, on the device
+        self.pad = pad
+        self.sig_ids = sig_ids
+        # absolute tie-stream position where this wave's draws started, in
+        # this wave's word frame: known on the device at launch
+        # (cursor_init), on the host once the predecessor is collected
+        self.cursor_base_host: int | None = None
+        # words the live rng advanced between the predecessor's launch and
+        # this launch: converts the predecessor's final cursor into this
+        # wave's frame
+        self.frame_shift = frame_shift
+        self.poisoned = False
+        self.host_packed = None
+        self.ready = None
+        self.staged: list = []
+        self.chained = False
+        self.launch_s = 0.0
+
+    def mark_poisoned(self) -> None:
+        """The scheduling loop's poison hook: this wave's results must be
+        discarded at collect (host state diverged from what its kernel
+        assumed)."""
+        self.poisoned = True
 
 
 @dataclass
@@ -203,12 +318,36 @@ class TorchBackend:
         self._device_tables: dict | None = None
         self._tables_src: dict | None = None
         self._logtab: torch.Tensor | None = None
-        # signature dedup, on by default as in the reference; cross-wave
-        # reuse of the signature table comes with the pipelined launch
-        # (a later slice): turning it on raises OutOfSlice
+        # the streaming waves' carry (device buffer two, beside the mirror
+        # above): the last launched K2's output planes feed the next launch
+        # directly. _carry_rows: rows placed since the carry's base;
+        # _carry_anti/_carry_pref: the carry holds IPA anti/preferred terms
+        # the host planes may not show yet; _carry_external: an event
+        # outside the pipeline touched cluster state; _mirror_dirty: rows
+        # whose mirror values are stale because the carry holds their truth
+        self._carry: dict | None = None
+        self._carry_rows: set[int] = set()
+        self._carry_anti = False
+        self._carry_pref = False
+        self._carry_external = False
+        self._mirror_dirty: set[int] = set()
+        self._inflight: InflightWave | None = None  # the last launched wave
+        self._advanced_since_launch = 0  # rng words collected since then
+        # (carry, rows allowed dirty) of the wave being processed: single-pod
+        # re-runs in that window see state as of THAT wave, not the
+        # uncollected successor's
+        self._rerun_carry: tuple[dict, set[int]] | None = None
+        # pinned host buffers of uploads still in flight; a launch hands
+        # them to its InflightWave
+        self._staging: list[torch.Tensor] = []
+        # signature dedup and cross-wave reuse of the signature table, on
+        # by default as in the reference; decisions are the same either way
         self.dedup_enabled = True
-        self.cross_wave_enabled = False
-        self.dedup_stats = {"pods": 0, "signatures": 0, "waves": 0}
+        self.cross_wave_enabled = True
+        self.sig_cache = SignatureScoreCache()
+        self.dedup_stats = {"pods": 0, "signatures": 0, "waves": 0,
+                            "xwave_hits": 0, "xwave_misses": 0,
+                            "xwave_evictions": 0}
         # scan steps by tier over the dedup waves, [full, replay], summed on
         # the device (read it only off the timed path)
         self.tier_steps = torch.zeros(2, dtype=torch.int32, device=self.device)
@@ -221,6 +360,20 @@ class TorchBackend:
         # work plus the copy)
         self.phase_s = {"sync": 0.0, "features": 0.0, "upload": 0.0,
                         "launch": 0.0, "wait": 0.0}
+        # host-clock seconds per launch_batched / collect phase, summed over
+        # waves: sync, features, upload (carry overlay or device_inputs,
+        # kernel_config), dedup (grouping + cache lookup), tie (the word
+        # frame), launch (the staged copy, K1 + K2 and the result copy
+        # enqueued, the cache store), wait (collect's wait on the result
+        # event: what of the device's work the host did not hide), collect
+        # (the rest of collect)
+        self.pipe_phase_s = {"sync": 0.0, "features": 0.0, "upload": 0.0,
+                             "dedup": 0.0, "tie": 0.0, "launch": 0.0,
+                             "wait": 0.0, "collect": 0.0}
+        # launches by kind, and per collected wave (the last 4096): chained
+        # or not, host seconds in launch_batched and in collect's wait
+        self.pipe_stats = {"launches": 0, "chained": 0, "xwave_launches": 0}
+        self.wave_log: collections.deque = collections.deque(maxlen=4096)
         # the phases of run(), summed over pods: as above, with the pod's
         # kernel_config timed apart (config), upload = device_inputs (K3)
         # + packed features, launch = K4 enqueue, wait = the one packed
@@ -259,6 +412,13 @@ class TorchBackend:
                          and np.asarray(feats["ipa_anti_add"]).any())
         wave_pref = bool(feats is not None
                          and np.asarray(feats["ipa_pref_add"]).any())
+        # a pipelined wave may have placed the first anti/preferred-term
+        # pod on the device carry before the host planes show it: the
+        # statics stay on (_carry_anti/_carry_pref)
+        existing_anti = (bool(planes.ipa_anti[: planes.n].any()) or wave_anti
+                         or self._carry_anti)
+        existing_pref = (bool(planes.ipa_pref[: planes.n].any()) or wave_pref
+                         or self._carry_pref)
         return KernelConfig(
             strategy=self.strategy,
             fit_resources=self.fit_resources,
@@ -267,8 +427,8 @@ class TorchBackend:
             max_constraints=mc,
             n_hard=n_hard,
             n_soft=n_soft,
-            ipa_existing_anti=bool(planes.ipa_anti[: planes.n].any()) or wave_anti,
-            ipa_existing_pref=bool(planes.ipa_pref[: planes.n].any()) or wave_pref,
+            ipa_existing_anti=existing_anti,
+            ipa_existing_pref=existing_pref,
             n_ipa_aff=n_ipa_aff,
             n_ipa_anti=n_ipa_anti,
             n_ipa_pref=n_ipa_pref,
@@ -296,13 +456,9 @@ class TorchBackend:
         Call AFTER feature extraction — features intern affinity signatures.
         A full put on cold start, a bucket reshape, lost row tracking, or a
         dirty set past half the cluster; otherwise the rows changed since
-        the last upload travel in ONE packed host→device copy and K3
-        scatters them into every row plane in one launch. ipa_term_key is
-        global, not row-indexed: a term interned mid-run moves its content
-        but not its shape, and a stale device copy would map the new term
-        to key slot -1 (K4 then rejects every node), so it is re-uploaded
-        whenever its host content differs from the copy last uploaded."""
-        host = planes.as_dict()
+        the last upload (the mirror debt a dropped carry left included)
+        travel in ONE packed host→device copy from pinned memory and K3
+        scatters them into every row plane in one launch."""
         full = (
             self._device_planes is None
             or self._pending_dirty is None
@@ -310,32 +466,125 @@ class TorchBackend:
             or len(self._pending_dirty) > max(64, planes.n // 2)
         )
         if full:
-            self._device_planes = planes_from_reference(
-                {k: host[k] for k in SLICE_PLANES}, self.device)
-            self.upload_stats["full"] += 1
+            self._cold_start_upload(planes)
         elif self._pending_dirty:
             idx = np.array(sorted(self._pending_dirty), np.int32)
-            rows = self._upload_rows(host, idx)
-            scatter_rows(self._device_planes, rows,
-                         torch.from_numpy(idx).to(self.device))
+            rows = self._upload_rows(planes.as_dict(), idx)
+            scatter_rows(self._device_planes, rows, self._pinned_copy(idx))
             self.upload_stats["scatter"] += 1
             self.upload_stats["rows"] += len(idx)
         self._device_buckets = planes.bucket_sizes
         self._pending_dirty = set()
-        if (full or self._uploaded_term_key is None
-                or not np.array_equal(self._uploaded_term_key, planes.ipa_term_key)):
-            self._uploaded_term_key = planes.ipa_term_key.copy()
-            self._device_term_key = torch.from_numpy(self._uploaded_term_key).to(
-                self.device, copy=True)
+        self._fresh_term_key(planes)
+        self._refresh_tables(planes)
+        if self._logtab is None or self._logtab.shape[0] != planes.nb + 1:
+            self._logtab = torch.from_numpy(log_weight_table(planes.nb)).to(
+                self.device)
+        return self._overlay({})
+
+    def _cold_start_upload(self, planes) -> None:
+        """The full put of the node planes: cold start, bucket reshape, lost
+        row tracking, or a dirty set so large a put beats the scatter. The
+        mirror is then exact: no mirror debt remains."""
+        host = planes.as_dict()
+        self._device_planes = planes_from_reference(
+            {k: host[k] for k in SLICE_PLANES}, self.device)
+        self._uploaded_term_key = None
+        self._mirror_dirty = set()
+        self.upload_stats["full"] += 1
+
+    def _fresh_term_key(self, planes) -> None:
+        """Re-upload the global ipa_term_key table when its host content
+        moved (a term interned mid-run): it is not row-indexed, so the
+        scatter skips it, and a stale copy would map the new term to key
+        slot -1 (every node rejected). Called from every place that
+        assembles device inputs, the carry overlay included."""
+        if (self._uploaded_term_key is not None
+                and np.array_equal(self._uploaded_term_key, planes.ipa_term_key)):
+            return
+        self._uploaded_term_key = planes.ipa_term_key.copy()
+        self._device_term_key = torch.from_numpy(self._uploaded_term_key).to(
+            self.device, copy=True)
+
+    def _refresh_tables(self, planes) -> None:
         tables = self.extractor.affinity_tables(planes)
         if self._tables_src is not tables:
             self._device_tables = planes_from_reference(tables, self.device)
             self._tables_src = tables
-        if self._logtab is None or self._logtab.shape[0] != planes.nb + 1:
-            self._logtab = torch.from_numpy(log_weight_table(planes.nb)).to(
-                self.device)
-        return ({**self._device_planes, "ipa_term_key": self._device_term_key},
+
+    def _overlay(self, carry: dict) -> tuple[dict, dict]:
+        """The device inputs: the mirror with `carry`'s planes over it."""
+        return ({**self._device_planes, **carry, "ipa_term_key": self._device_term_key},
                 self._device_tables)
+
+    def _carry_view(self, planes) -> tuple[dict, dict]:
+        """Device inputs for a single-pod or gang cycle while the pipeline's
+        carry is live (the reference's _carry_view, backend.py:534-572).
+
+        In a wave's result-processing window (collect set _rerun_carry) the
+        cycle reads THAT wave's output planes, not the uncollected
+        successor's. Host assumes of the wave's own pods dirty exactly the
+        rows its outputs already hold, so those rows are consumable (the
+        mirror owes them); any other dirt, or no window and any dirt at
+        all, drops the carry and falls back to the mirror."""
+        if self._carry is not None:
+            compatible = (
+                not self._carry_external
+                and self._device_buckets == planes.bucket_sizes
+                and self._pending_dirty is not None
+            )
+            if compatible and self._rerun_carry is not None:
+                carry, allowed = self._rerun_carry
+                if not (self._pending_dirty - allowed):
+                    self._mirror_dirty |= self._pending_dirty
+                    self._pending_dirty = set()
+                    self._refresh_tables(planes)
+                    self._fresh_term_key(planes)
+                    return self._overlay(carry)
+            elif compatible and self._pending_dirty == set():
+                self._refresh_tables(planes)
+                self._fresh_term_key(planes)
+                return self._overlay(self._carry)
+            self.invalidate_carry()
+        return self.device_inputs(planes)
+
+    def _pinned_copy(self, a: np.ndarray) -> torch.Tensor:
+        """One host array on the backend's device. To a card: through a
+        pinned buffer and a non-blocking copy (a copy from pageable memory
+        would block the host until every kernel queued before it is done);
+        the buffer stays referenced in _staging until its wave is
+        collected. On the CPU: the array itself."""
+        a = np.ascontiguousarray(a)
+        if self.device.type != "cuda":
+            return torch.from_numpy(a)
+        host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+        host.numpy()[...] = a
+        self._staging.append(host)
+        return host.to(self.device, non_blocking=True)
+
+    def _stage(self, parts: list[np.ndarray]) -> list[torch.Tensor]:
+        """int32 (or uint32, same bits) arrays on the device through ONE
+        pinned copy; returns views of it shaped as the arrays."""
+        flat = np.concatenate(
+            [np.ascontiguousarray(a).view(np.int32).reshape(-1) for a in parts])
+        dev = self._pinned_copy(flat)
+        out, off = [], 0
+        for a in parts:
+            out.append(dev[off: off + a.size].view(a.shape))
+            off += a.size
+        return out
+
+    def _fetch_async(self, t: torch.Tensor):
+        """(host tensor, event): t's copy to pinned host memory enqueued
+        right behind the kernel that writes it, and the event collect waits
+        on. On the CPU: (t, None)."""
+        if self.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
 
     def _upload_rows(self, host: dict, idx: np.ndarray) -> dict:
         """Gather the dirty rows of every mirrored plane into one byte
@@ -350,7 +599,7 @@ class TorchBackend:
         buf = np.zeros(off, np.uint8)
         for o, b in parts:
             buf[o: o + b.size] = b
-        dev = torch.from_numpy(buf).to(self.device, copy=True)
+        dev = self._pinned_copy(buf)
         rows = {}
         for k in SLICE_PLANES:
             o, size = offs[k]
@@ -362,7 +611,11 @@ class TorchBackend:
 
     def run_batched(self, pods: list[Pod], snapshot, rng=None,
                     pad_to: int = 0):
-        """Greedy batched assignment of a pod wave on the device.
+        """Greedy batched assignment of a pod wave on the device, serially:
+        no chaining and no cross-wave reuse (the reference's run_batched,
+        backend.py:594-654). A live carry is dropped first (its mirror debt
+        folds into the next upload); a wave in flight must be collected
+        before.
 
         With rng (the scheduling algorithm's seeded random.Random) the wave's
         tie-breaks are bit-identical to the host path scheduling the same
@@ -372,8 +625,10 @@ class TorchBackend:
 
         Returns (node names per pod or None, planes). The caller applies the
         same assumes host-side so cache and device state stay coherent."""
-        if self.cross_wave_enabled:
-            raise OutOfSlice("cross-wave reuse of the signature table")
+        if self._inflight is not None:
+            raise RuntimeError("a pipelined wave is in flight: collect it first")
+        if self._carry is not None:
+            self.invalidate_carry()
         t0 = time.perf_counter()
         for pod in pods:
             self.extractor.register(pod)
@@ -392,10 +647,9 @@ class TorchBackend:
                      clone_tie_words(rng, n_slots * MAX_TIE_DRAWS + MAX_TIE_DRAWS))
         rows, layout = pack_features(feats)
         groups = self._group_wave(rows, len(pods))
-        packed_f = torch.from_numpy(rows).to(self.device)
-        sig_ids, uniq = (None, None) if groups is None else (
-            torch.from_numpy(g).to(self.device) for g in groups)
-        words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
+        staged = self._stage([rows, tie_words] + ([] if groups is None else list(groups[:2])))
+        packed_f, words = staged[:2]
+        sig_ids, uniq = (None, None) if groups is None else staged[2:]
         t3 = time.perf_counter()
         out = batched_assign(cfg, dev_planes, dev_tables, packed_f, layout, words,
                              self._logtab, sig_ids=sig_ids, uniq_idx=uniq)
@@ -404,6 +658,7 @@ class TorchBackend:
         t4 = time.perf_counter()
         # ONE device→host copy: winners ++ [tie_consumed, tie_overflow]
         packed = out["packed"].cpu().numpy()
+        self._staging = []
         t5 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
                         ("launch", t3, t4), ("wait", t4, t5)):
@@ -421,20 +676,244 @@ class TorchBackend:
 
     def _group_wave(self, rows: np.ndarray, n_real: int):
         """Signature-group a (possibly padded) packed feature batch: (sig_ids
-        [P], uniq_idx [G_pad]) for batched_assign, or None with dedup off.
-        uniq_idx is padded to a power of two (floor 8) by repeating the
-        first group's slot, as the reference pads it (backend.py:675-679);
-        only the first G rows are ever installed."""
+        [P], uniq_idx [G_pad], sig_bytes [G]) for batched_assign, or None
+        with dedup off. uniq_idx is padded to a power of two (floor 8) by
+        repeating the first group's slot, as the reference pads it
+        (backend.py:656-682); only the first G rows are ever installed.
+        sig_bytes holds the G groups' packed-row bytes: the cross-wave
+        cache's key material."""
         if not self.dedup_enabled:
             return None
         sig_ids, uniq = group_feature_rows(rows)
         self.dedup_stats["pods"] += n_real
         self.dedup_stats["signatures"] += int(sig_ids[:n_real].max()) + 1
         self.dedup_stats["waves"] += 1
+        sig_bytes = tuple(rows[i].tobytes() for i in uniq)
         gp = next_pow2(len(uniq), floor=8)
         if gp > len(uniq):
             uniq = np.concatenate([uniq, np.full(gp - len(uniq), uniq[0], np.int32)])
-        return sig_ids, uniq
+        return sig_ids, uniq, sig_bytes
+
+    # -- the streaming wave ----------------------------------------------------
+
+    def invalidate_carry(self) -> None:
+        """Drop the carry. The mirror stays valid except for the rows the
+        carry owned (_mirror_dirty), folded into _pending_dirty so the next
+        device_inputs repairs them with one K3 scatter; a full put is still
+        owed where row tracking itself was lost. The resident signature
+        rows are scores against the carry planes and die with it."""
+        self._carry = None
+        self._carry_rows = set()
+        self._carry_anti = self._carry_pref = False
+        self._carry_external = False
+        self._rerun_carry = None
+        if self._pending_dirty is not None:
+            self._pending_dirty |= self._mirror_dirty
+        self._mirror_dirty = set()
+        self.sig_cache.clear()
+
+    def mark_external(self) -> None:
+        """An event outside the pipeline's own writeback touched cluster
+        state (a node change, a foreign pod's add/update/delete, a host-path
+        assume or forget): the next launch drains and re-uploads. A no-op
+        while no carry is live."""
+        if self._carry is not None:
+            self._carry_external = True
+
+    def launch_batched(self, pods: list[Pod], snapshot, rng=None,
+                       pad_to: int = 0) -> InflightWave:
+        """Enqueue one wave's K1 + K2 without waiting for its result (the
+        reference's launch_batched, backend.py:832-1009).
+
+        K2's input planes are the previous launch's output planes, still on
+        the device, so consecutive launches chain with no host round trip
+        while the host processes the wave before. The tie words are the
+        live rng's next (2*pad+1)*MAX_TIE_DRAWS words; an uncollected
+        predecessor's final cursor reaches K2 as a device scalar, shifted
+        by the words collected since that predecessor's launch.
+
+        Raises NeedResync when the carry cannot absorb host-side changes
+        (the caller drains the pipeline, invalidates the carry and
+        retries), FallbackNeeded for a pod the extractor refuses."""
+        self._rerun_carry = None  # a new launch closes any re-run window
+        t0 = time.perf_counter()
+        for pod in pods:
+            self.extractor.register(pod)
+        planes = self.sync(snapshot)
+        t1 = time.perf_counter()
+        feats = stack_features(
+            [self.extractor.features_cached(p, planes) for p in pods])
+        if pad_to > len(pods):
+            feats = pad_features(feats, pad_to)
+        pad = max(pad_to, len(pods))
+        t2 = time.perf_counter()
+
+        prev = self._inflight
+        chained = False
+        if prev is not None and self._carry is None:
+            # a cycle dropped the carry while a wave is in flight: the host
+            # planes lack that wave's placements, so an upload from them
+            # would double-book nodes
+            raise NeedResync("carry dropped while a wave is in flight")
+        if self._carry is not None:
+            if self._carry_external:
+                raise NeedResync("external event touched cluster state")
+            if self._device_buckets != planes.bucket_sizes:
+                raise NeedResync("plane buckets changed under the carry")
+            if self._pending_dirty is None:
+                raise NeedResync("full plane rebuild required")
+            external = self._pending_dirty - self._carry_rows
+            if external:
+                raise NeedResync(f"{len(external)} externally-dirtied rows")
+            # the remaining dirty rows are our own collected binds, whose
+            # values the carry already holds: the mirror owes them instead
+            self._mirror_dirty |= self._pending_dirty
+            self._pending_dirty = set()
+            self._refresh_tables(planes)
+            self._fresh_term_key(planes)
+            dev_planes, dev_tables = self._overlay(self._carry)
+            # this wave chains on exactly the planes the resident score rows
+            # were scored against: cross-wave replay is sound
+            chained = True
+        else:
+            dev_planes, dev_tables = self.device_inputs(planes)
+        cfg = self.kernel_config(planes, feats)
+        t3 = time.perf_counter()
+
+        rows, layout = pack_features(feats)
+        groups = self._group_wave(rows, len(pods))
+        carry_map = sig_table = xw_key = None
+        if groups is not None and dedup_fast_capable(cfg):
+            xw_key = (cfg, planes.bucket_sizes, len(groups[1]))
+            if chained and self.cross_wave_enabled:
+                carry_map = self.sig_cache.lookup(xw_key, groups[2], len(groups[1]))
+                if carry_map is not None:
+                    sig_table = self.sig_cache.table
+        t4 = time.perf_counter()
+        frame_shift = self._advanced_since_launch
+        cursor_init = 0
+        tie_words = ZERO_TIE_WORDS
+        if rng is not None:
+            # the frame covers a whole predecessor and this wave
+            tie_words = clone_tie_words(rng, (2 * pad + 1) * MAX_TIE_DRAWS)
+            if prev is not None:
+                # the predecessor's final cursor, read by K2 on the device
+                cursor_init = prev.info["packed"][prev.info["packed"].shape[0] - 2]
+        t5 = time.perf_counter()
+
+        parts = [rows, tie_words]
+        if groups is not None:
+            parts += [groups[0], groups[1]]
+        if carry_map is not None:
+            parts.append(carry_map)
+        staged = self._stage(parts)
+        packed_f, words = staged[:2]
+        sig_ids = uniq = dev_map = None
+        if groups is not None:
+            sig_ids, uniq = staged[2:4]
+        if carry_map is not None:
+            dev_map = staged[4]
+        info = batched_assign(cfg, dev_planes, dev_tables, packed_f, layout, words,
+                              self._logtab, cursor_init=cursor_init,
+                              frame_shift=frame_shift if prev is not None else 0,
+                              sig_ids=sig_ids, uniq_idx=uniq,
+                              carry_map=dev_map, sig_table=sig_table)
+        host_packed, ready = self._fetch_async(info["packed"])
+        if "tiers" in info:
+            self.tier_steps += info["tiers"]
+        if xw_key is not None and "sig_table" in info:
+            if carry_map is None:
+                # nothing replayed (cold cache, fresh upload, reuse off):
+                # this wave's table starts a fresh generation
+                self.sig_cache.clear()
+            hit, miss, evict = self.sig_cache.store(xw_key, info["sig_table"], groups[2])
+            self.dedup_stats["xwave_hits"] += hit
+            self.dedup_stats["xwave_misses"] += miss
+            self.dedup_stats["xwave_evictions"] += evict
+        else:
+            self.sig_cache.clear()
+        # the next launch chains on these outputs
+        self._carry = {k: info[k] for k in ("used", "nonzero_used", "sel_counts")}
+        for k in ("ipa_counts", "ipa_anti", "ipa_pref"):
+            if k in info:
+                self._carry[k] = info[k]
+        self._carry_anti = self._carry_anti or bool(feats["ipa_anti_add"].any())
+        self._carry_pref = self._carry_pref or bool(feats["ipa_pref_add"].any())
+        fl = InflightWave(pods, planes, info, pad, frame_shift,
+                          sig_ids=None if groups is None else groups[0])
+        fl.host_packed, fl.ready = host_packed, ready
+        fl.staged, self._staging = self._staging, []
+        fl.chained = chained
+        if prev is None:
+            fl.cursor_base_host = 0
+        self._inflight = fl
+        self._advanced_since_launch = 0
+        t6 = time.perf_counter()
+        fl.launch_s = t6 - t0
+        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
+                        ("dedup", t3, t4), ("tie", t4, t5), ("launch", t5, t6)):
+            self.pipe_phase_s[k] += b - a
+        self.pipe_stats["launches"] += 1
+        self.pipe_stats["chained"] += int(chained)
+        self.pipe_stats["xwave_launches"] += int(carry_map is not None)
+        return fl
+
+    def collect(self, fl: InflightWave, rng=None):
+        """Wait for a launched wave's packed result (its event, not the
+        stream: a successor's kernels may run on), advance the live rng by
+        exactly the words it consumed, and absorb its placements into the
+        carry bookkeeping (the reference's collect, backend.py:1011-1074).
+        Returns (hosts, planes).
+
+        Raises FallbackNeeded for a poisoned wave or a tie-draw overflow:
+        results discarded, rng untouched, carry invalidated (the caller
+        must poison a successor launched on it)."""
+        t0 = time.perf_counter()
+        if fl.ready is not None:
+            fl.ready.synchronize()
+        packed = fl.host_packed.numpy()
+        fl.staged = []  # every copy of this wave is done
+        t1 = time.perf_counter()
+        try:
+            return self._absorb(fl, packed, rng)
+        finally:
+            t2 = time.perf_counter()
+            self.pipe_phase_s["wait"] += t1 - t0
+            self.pipe_phase_s["collect"] += t2 - t1
+            self.wave_log.append({"chained": fl.chained, "launch_s": fl.launch_s,
+                                  "wait_s": t1 - t0, "collect_s": t2 - t1})
+
+    def _absorb(self, fl: InflightWave, packed: np.ndarray, rng):
+        winners = packed[: len(fl.pods)]
+        final_abs, overflow = int(packed[-2]), bool(packed[-1])
+        if self._inflight is fl:
+            self._inflight = None
+        if fl.poisoned:
+            self.invalidate_carry()
+            raise FallbackNeeded("predecessor wave diverged host-side")
+        if rng is not None and overflow:
+            self.invalidate_carry()
+            raise FallbackNeeded("tie-break draw overflow")
+        if rng is not None:
+            if fl.cursor_base_host is None:
+                raise RuntimeError("wave collected before its predecessor")
+            own = final_abs - fl.cursor_base_host
+            # the live rng is past every wave collected before: advance it by
+            # exactly this wave's words
+            advance_rng(rng, own)
+            self._advanced_since_launch += own
+            succ = self._inflight
+            if succ is not None and succ.cursor_base_host is None:
+                # the successor's draws start where ours ended, in its frame
+                succ.cursor_base_host = final_abs - succ.frame_shift
+        win_rows = {int(w) for w in winners if w >= 0}
+        self._carry_rows.update(win_rows)
+        # open this wave's re-run window (see _carry_view)
+        if self._carry is not None:
+            carried = {k: fl.info[k] for k in self._carry if k in fl.info}
+            self._rerun_carry = (carried, win_rows)
+        hosts = [fl.planes.node_names[w] if w >= 0 else None for w in winners]
+        return hosts, fl.planes
 
     # -- the gang wave ---------------------------------------------------------
 
@@ -479,7 +958,9 @@ class TorchBackend:
         n_rows = next_pow2(len(placements), floor=2)
         masks = placement_masks(planes, [list(p.node_names) for p in placements], n_rows)
         t3 = time.perf_counter()
-        dev_planes, dev_tables = self.device_inputs(planes)
+        # inside a pipelined wave's re-run window the gang reads that wave's
+        # output planes (the carry); else the mirror
+        dev_planes, dev_tables = self._carry_view(planes)
         cfg = self.kernel_config(planes, feats)
         # one frame covers the worst single row: every row replays the
         # stream from cursor 0, as the host's dry runs restore the rng
@@ -495,6 +976,7 @@ class TorchBackend:
         t5 = time.perf_counter()
         # ONE device→host copy carries the whole gang verdict
         packed = packed_dev.cpu().numpy()
+        self._staging = []
         t6 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("masks", t2, t3),
                         ("upload", t3, t4), ("kernel", t4, t5), ("wait", t5, t6)):
@@ -536,6 +1018,9 @@ class TorchBackend:
         (planes, {fails, feasible, insufficient, too_many_pods, total} as
         numpy). Raises FallbackNeeded when the pod is not kernelizable.
 
+        The device inputs come from _carry_view: in a pipelined wave's
+        re-run window the pod reads that wave's output planes, as the
+        reference's run does (ROADMAP C10 names what that view holds).
         The kernel writes every output into one packed buffer, so the
         results come back in ONE device→host copy (views of it)."""
         t0 = time.perf_counter()
@@ -544,18 +1029,22 @@ class TorchBackend:
         t1 = time.perf_counter()
         f = self.extractor.features(pod, planes)
         t2 = time.perf_counter()
-        cfg = self.kernel_config(planes, f)
+        # before kernel_config: dropping the carry clears its IPA statics
+        dev_planes, dev_tables = self._carry_view(planes)
         t3 = time.perf_counter()
-        dev_planes, dev_tables = self.device_inputs(planes)
-        packed_f, layout = features_from_reference(stack_features([f]), self.device)
+        cfg = self.kernel_config(planes, f)
         t4 = time.perf_counter()
+        packed_f, layout = features_from_reference(stack_features([f]), self.device)
+        t5 = time.perf_counter()
         packed = fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout,
                                self._logtab)
-        t5 = time.perf_counter()
-        host = packed[0].cpu()
         t6 = time.perf_counter()
-        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("config", t2, t3),
-                        ("upload", t3, t4), ("launch", t4, t5), ("wait", t5, t6)):
+        host = packed[0].cpu()
+        self._staging = []
+        t7 = time.perf_counter()
+        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
+                        ("config", t3, t4), ("upload", t4, t5), ("launch", t5, t6),
+                        ("wait", t6, t7)):
             self.run_phase_s[k] += b - a
         n_fails = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
         out = unpack_fit_outputs(host, planes.nb, n_fails, planes.r)

@@ -207,7 +207,8 @@ def test_group_wave_pads_uniq_to_pow2(case):
     assert (uniq[g:] == uniq[0]).all()
     assert backend.dedup_stats == {"pods": n_real,
                                    "signatures": int(sig_ids[:n_real].max()) + 1,
-                                   "waves": 1}
+                                   "waves": 1, "xwave_hits": 0, "xwave_misses": 0,
+                                   "xwave_evictions": 0}
     backend.dedup_enabled = False
     assert backend._group_wave(pack_features(feats)[0], n_real) is None
 

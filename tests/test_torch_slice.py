@@ -24,7 +24,6 @@ from kubernetes_tpu.scheduler.cache.cache import Cache as JCache
 from kubernetes_tpu.scheduler.cache.snapshot import Snapshot as JSnapshot
 from kubernetes_tpu.scheduler.tpu.backend import TPUBackend
 from kubernetes_tpu_torch.api.resource import ResourceNames as TNames
-from kubernetes_tpu_torch.ops.kernels import OutOfSlice
 from kubernetes_tpu_torch.ops.planes import FallbackNeeded
 from kubernetes_tpu_torch.scheduler.cache import Cache as TCache
 from kubernetes_tpu_torch.scheduler.cache import Snapshot as TSnapshot
@@ -220,8 +219,9 @@ def _small_port_cluster():
 def test_out_of_slice_waves_raise():
     """Hard spread and inter-pod affinity pods, which earlier slices
     refused, now schedule through the port's wave (dedup on) exactly as
-    through the reference's; cross-wave reuse still raises OutOfSlice and a
-    pod the reference sends to its host path raises FallbackNeeded."""
+    through the reference's; cross-wave reuse (on by default) leaves the
+    serial run_batched unchained and a pod the reference sends to its host
+    path raises FallbackNeeded."""
     from kubernetes_tpu.api.labels import LabelSelector as JSel
     from kubernetes_tpu_torch.api.labels import LabelSelector as TSel
 
@@ -256,9 +256,11 @@ def test_out_of_slice_waves_raise():
     assert got == want and all(all(w) for w in got[0])
     names, snap = _small_port_cluster()
     b2 = TorchBackend(names, device="cpu")
-    b2.cross_wave_enabled = True
-    with pytest.raises(OutOfSlice, match="cross-wave"):
-        b2.run_batched([tw.make_pod("d", cpu="100m")], snap)
+    assert b2.cross_wave_enabled
+    for i in range(2):
+        b2.run_batched([tw.make_pod(f"d{i}", cpu="100m")], snap)
+    assert b2._carry is None and b2.sig_cache.table is None
+    assert b2.dedup_stats["xwave_hits"] == b2.dedup_stats["xwave_misses"] == 0
     port = tw.make_pod("p", cpu="100m")
     port.spec.containers[0] = ttypes.Container(
         name="c", requests={"cpu": "100m"},
