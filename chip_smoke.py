@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the five CUDA kernels from kubernetes_tpu_torch/ops/csrc (nvcc,
-   one process per source, all at once);
+1. build the six CUDA libraries (seven kernels) from
+   kubernetes_tpu_torch/ops/csrc (nvcc, one process per source, all at once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
    Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
 3. the serial wave path: place the 1000 initial and 10000 measured pods
@@ -89,10 +89,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    mid-stream (a node change, churn deletes, a host revert, a 3-word
    all-ones tie frame): equal bindings, rng state, xwave_* counters and
    loop outcomes;
+17. K6 (sharded_assign: the scan over n node shards, one block of a
+   thread-block cluster each) at every --mesh-shards count against K2 and
+   at the largest against its plain version on the card, on phase 4's
+   SchedulingBasic wave, phase 7's TopologySpreading wave, phase 8's IPA
+   wave (dedup on) and phase 15's chained, seeded wave: every output
+   equal; K6 timed per shard count beside K2;
+18. the mesh main path: phase 14's run (the same 1000 + 10000 pods through
+   WavePipeline at depth 2) over TorchBackend(context=MeshContext(
+   scheduler_mesh(8))): bindings and rng equal to phase 3's, K1 and K6
+   launched (counts zeroed before, read after), K2 not; pods/s beside
+   phase 14's, per-wave launch and collect-wait ms;
+19. K7 (wave_fit_and_score, the pods x nodes matrix) at dryrun_multichip's
+   shape: 5000 nodes, 512 pods with a zone hard spread, on a (wave 2,
+   nodes 4) mesh: equal to its plain version and row by row to K4; then
+   the same pods through sharded_batched_assign (8 shards) equal to
+   batched_assign on every output, all placed;
+   phases 17-19 run under a watchdog (--phase-timeout) that fails the run
+   when a phase does not end, as a kernel hung at a cluster barrier would;
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 3's serial path, where each wave's assumes reach the
-mirror through it, at that path's dirty-row shape) and the result line.
+mirror through it, at that path's dirty-row shape; K6 with its launches
+on the mesh main path, at 8 shards on the chained seeded wave; K7 with
+its launch in phase 19) and the result line.
 
 It imports nothing of the reference JAX package and never imports jax.
 """
@@ -101,9 +121,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -113,6 +135,31 @@ import torch
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+class watchdog:
+    """A phase that has not ended after `seconds` fails the run: a kernel
+    whose blocks wait at a cluster barrier one of them skipped never
+    returns, and torch.cuda.synchronize() would wait for ever. The process
+    exits (code 3) from the timer's thread."""
+
+    def __init__(self, label: str, seconds: float):
+        self.label, self.seconds = label, seconds
+
+    def _fire(self):
+        print(f"chip_smoke: FAIL: {self.label} did not end within {self.seconds:.0f} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+    def __enter__(self):
+        self.timer = threading.Timer(self.seconds, self._fire)
+        self.timer.daemon = True
+        self.timer.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
+        return False
 
 
 # published peaks of one H100 SXM (dense): HBM3 3.35 TB/s, float32 outside
@@ -153,31 +200,43 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
 
 
 def kernels_ms(fn, names, reps: int) -> dict:
-    """Median device duration of each named CUDA kernel over `reps` calls
-    of fn(), all from one torch.profiler trace. A name the trace lacks is
-    traced once more with four times the calls; if the trace still lacks
-    it, fail (the launch counts say whether it ran)."""
+    """Median device duration of each named CUDA kernel over calls of fn(),
+    from torch.profiler (CUPTI) traces. The H100's traces lose kernel
+    records: a trace of a few calls may keep 2 of 3 launches of a kernel,
+    or none, while it holds every cudaLaunchKernel. So the records of up
+    to four traces, of reps, 4 reps, 16 reps and 64 reps calls, are pooled
+    until every name has one. A name none of them holds is timed with CUDA
+    events instead: the whole call less the traced kernels is booked to
+    the first such name and 0 to the others, and the line says so (the
+    launch counts say whether each kernel ran)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    out = {}
-    for n_calls in (reps, 4 * reps):
+    times = {name: [] for name in names}
+    for n_calls in (reps, 4 * reps, 16 * reps, 64 * reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n_calls):
                 fn()
             torch.cuda.synchronize()
-        seen = sorted({e.name for e in prof.events()})
+        events = prof.events()
         for name in names:
-            times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                           if name in e.name)
-            if times and name not in out:
-                out[name] = times[len(times) // 2]
-        if len(out) == len(names):
-            return out
-        print(f"profiler trace of {n_calls} calls lacks {sorted(set(names) - set(out))}; "
-              f"it holds {seen[:8]}", flush=True)
-    fail(f"the profiler trace shows no device time for {sorted(set(names) - set(out))}")
+            times[name] += [e.time_range.elapsed_us() / 1e3 for e in events if name in e.name]
+        missing = sorted(name for name in names if not times[name])
+        if not missing:
+            break
+        print(f"profiler trace of {n_calls} calls lacks {missing}; it holds "
+              f"{sorted({e.name for e in events})[:8]}", flush=True)
+    out = {name: sorted(t)[len(t) // 2] for name, t in times.items() if t}
+    if missing:
+        whole = time_ms(fn, 4 * reps)
+        rest = max(whole - sum(out.values()), 0.0)
+        print(f"the profiler traces hold no record of {missing}: CUDA events around the "
+              f"whole call give {whole:.4f} ms; {rest:.4f} ms of it, less the traced "
+              f"kernels, is booked to {missing[0]}", flush=True)
+        out.update({name: 0.0 for name in missing})
+        out[missing[0]] = rest
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -366,6 +425,14 @@ def main() -> None:
     ap.add_argument("--mixed-gangs", type=int, default=24)
     # phase 16: how many pipelined card-vs-CPU clusters (16, 64, 300, 1500)
     ap.add_argument("--pipe-cases", type=int, default=4)
+    # phases 17-19: K6's shard counts (K6 vs K2 at each, vs its plain
+    # version at the largest, which phase 18's mesh main path runs); K7's
+    # matrix at dryrun_multichip's shape
+    ap.add_argument("--mesh-shards", default="1,2,4,8")
+    ap.add_argument("--matrix-nodes", type=int, default=5000)
+    ap.add_argument("--matrix-pods", type=int, default=512)
+    # a phase that runs past this fails the run (a hung cluster barrier)
+    ap.add_argument("--phase-timeout", type=float, default=420.0)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -549,6 +616,9 @@ def main() -> None:
     print(f"serial main path (run_batched) kernels: static_parts {ms1:.4f} ms, "
           f"assign_scan {k2[True]['ms']:.4f} ms, scatter_rows {ms3:.5f} ms; launches {launches}")
 
+    cell4 = ("SchedulingBasic wave", w, out[True][0], words, 0,
+             dict(sig_ids=w.sig, uniq_idx=w.uniq))
+
     # 5. mixed clusters: card vs CPU plain path, hard spread and IPA in the waves
     import kubernetes_tpu_torch.api.meta as meta
     import kubernetes_tpu_torch.api.types as types
@@ -629,7 +699,7 @@ def main() -> None:
     print(f"TopologySpreading measured pods/s: waves {waves7['pods_s']:.1f} "
           f"(run_batched alone {waves7['run_pods_s']:.1f}), single-pod path "
           f"{state6['pods_s']:.1f}")
-    ipa8, cluster8 = ipa_wave(args)
+    ipa8, cluster8, cell8 = ipa_wave(args)
     k4 = k4_against_plain(args, state6, cluster8)
     cycle_card_vs_cpu(args)
     rows_out.append({"name": "fit_and_score", "route": "cuda",
@@ -655,6 +725,26 @@ def main() -> None:
                      "source": "kubernetes_tpu_torch/ops/csrc/gang_assign.cu",
                      "replaces": "kubernetes_tpu/ops/kernels.py:1472",
                      "launches": launches12["gang_assign"], **k5})
+
+    # 17-19. node shards on one card: K6 against its plain version and K2,
+    # the mesh main path, K7's matrix
+    t_mesh = time.perf_counter()
+    shards = sorted(int(n) for n in args.mesh_shards.split(","))
+    with watchdog("phase 17 (K6 against its plain version and K2)", args.phase_timeout):
+        k6 = k6_against_plain_and_k2(args, shards, [cell4, waves7["cell"], cell8,
+                                                      seed["cell"]])
+    with watchdog("phase 18 (the mesh main path)", args.phase_timeout):
+        launches18 = mesh_main_path(args, serial, a, max(shards))
+    with watchdog("phase 19 (K7, the pods x nodes matrix)", args.phase_timeout):
+        k7 = wave_matrix(args, max(shards))
+    rows_out.append({"name": "sharded_assign", "route": "cuda",
+                     "source": "kubernetes_tpu_torch/ops/csrc/sharded_assign.cu",
+                     "replaces": "kubernetes_tpu/parallel/mesh.py:159",
+                     "launches": launches18["sharded_assign"], **k6})
+    rows_out.append({"name": "wave_fit_and_score", "route": "cuda",
+                     "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
+                     "replaces": "kubernetes_tpu/parallel/mesh.py:262", **k7})
+    print(f"phases 17-19: {time.perf_counter() - t_mesh:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -669,10 +759,11 @@ def main() -> None:
 # --------------------------------------------------------------------------
 
 
-def run_pipelined(args):
+def run_pipelined(args, context=None):
     """A fresh SchedulingBasic cluster; the initial pods, then the measured
-    pods, all through WavePipeline at depth 2. Returns the state and the
-    measured span's counters."""
+    pods, all through WavePipeline at depth 2 over a TorchBackend with
+    `context` (None: the local one). Returns the state and the measured
+    span's counters."""
     from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
     from kubernetes_tpu_torch.scheduler.tpu.backend import (
@@ -686,7 +777,7 @@ def run_pipelined(args):
         cache.add_node(scheduling_basic_node(i, args.zones))
     snap = Snapshot()
     cache.update_snapshot(snap)
-    backend = TorchBackend(names, device="cuda")
+    backend = TorchBackend(names, device="cuda", context=context)
     algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
     pipe = WavePipeline(backend, cache, snap, algo, depth=2)
     init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
@@ -779,7 +870,7 @@ def pipelined_main_path(args, serial):
     # one more wave, collected, so phase 15 finds a live carry and table
     pipe.schedule([scheduling_basic_pod(2 * 10**6 + i) for i in range(args.wave)], args.wave)
     return {"backend": backend, "cache": cache, "snap": snap, "launches": launches,
-            "wall_s": r["wall_s"], "waves": n_waves,
+            "wall_s": r["wall_s"], "pods_s": r["pods_s"], "waves": n_waves,
             "xwave_launches": kinds["xwave_launches"]}
 
 
@@ -876,7 +967,8 @@ def seeded_k2(args, a, ms1):
     print(f"device busy share of the pipelined measured waves ((K1 + seeded K2 kernel time) "
           f"x waves / wall): {busy / (a['wall_s'] * 1e3):.3f}")
     return {"ms": ms, "ms_unseeded": ms_cold, "plain_ms": plain, "bound_ms": bd,
-            "bound_by": by, "max_abs_err": err}
+            "bound_by": by, "max_abs_err": err,
+            "cell": ("chained seeded SchedulingBasic wave", w, k1, frame, cursor, seeded)}
 
 
 def pipeline_events(spec, pa, device, types, meta):
@@ -1125,7 +1217,9 @@ def spreading_waves(args):
           f"{int((out['packed'][:-2] >= 0).sum())}/{args.wave} placed")
     return {"pods_s": args.spread_pods / wall, "run_pods_s": args.spread_pods / sum(walls),
             "launches": launches,
-            "k2": time_k2("TopologySpreading", w, k1, words, out, True, 3)}
+            "k2": time_k2("TopologySpreading", w, k1, words, out, True, 3),
+            "cell": ("TopologySpreading wave", w, k1, words, 0,
+                     dict(sig_ids=w.sig, uniq_idx=w.uniq))}
 
 
 def ipa_cluster(args):
@@ -1186,7 +1280,8 @@ def ipa_wave(args):
           f"{w.cfg.n_hard}, ipa aff/anti/pref {w.cfg.n_ipa_aff}/{w.cfg.n_ipa_anti}/"
           f"{w.cfg.n_ipa_pref}, existing anti/pref {int(w.cfg.ipa_existing_anti)}/"
           f"{int(w.cfg.ipa_existing_pref)}")
-    return time_k2("IPA wave", w, k1, words, out, True, 3), cluster
+    return (time_k2("IPA wave", w, k1, words, out, True, 3), cluster,
+            ("IPA wave", w, k1, words, 0, dict(sig_ids=w.sig, uniq_idx=w.uniq)))
 
 
 def _k4_case(backend, pods, snap):
@@ -1755,6 +1850,208 @@ def gang_card_vs_cpu(args):
           f"fell back; winning rows {results[0][1]}), {time.perf_counter() - t0:.1f} s")
     if not outcomes.count("device"):
         fail("no mixed gang was placed")
+
+
+
+# --------------------------------------------------------------------------
+# 17-19: node shards on one card (the mesh)
+# --------------------------------------------------------------------------
+
+
+def k6_call(w, k1, words, cursor, kw, n, plain=False):
+    """K6 on a wave's inputs over n node shards (its plain version with
+    plain=True)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    if plain:
+        return kernels.sharded_assign_ref(w.cfg, w.dp, k1, w.fv, words, cursor, w.logtab,
+                                          n, **kw)
+    return kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, words, cursor,
+                                  w.logtab, n, **kw)
+
+
+def k6_against_plain_and_k2(args, shards, cells):
+    """17. K6 at full width on phase 4's SchedulingBasic wave, phase 7's
+    TopologySpreading wave and phase 8's IPA wave (signature dedup on), and
+    on phase 15's chained, seeded wave: at every shard count every output
+    equal to K2's on the same inputs, at the largest also to K6's plain
+    version on the card (sharded_assign_ref). Then K6 timed per shard count
+    beside K2 (profiler), the plain version at the largest count (events)
+    and the bound (bytes moved once: K2's work). Returns the kernels-line
+    numbers of the chained wave (the mesh main path's shape)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    n_max = max(shards)
+    out = {}
+    for label, w, k1, words, cursor, kw in cells:
+        k2 = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, cursor,
+                                 w.logtab, **kw)
+        torch.cuda.synchronize()
+        ref = dict(_flat(k2))
+        err = 0.0
+        for n in shards:
+            got = dict(_flat(k6_call(w, k1, words, cursor, kw, n)))
+            torch.cuda.synchronize()
+            if got.keys() != ref.keys():
+                fail(f"sharded_assign outputs {sorted(got)} vs assign_scan {sorted(ref)}")
+            for k in ref:
+                if not torch.equal(got[k], ref[k]):
+                    fail(f"sharded_assign {k} at {n} shards differs from assign_scan ({label})")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = dict(_flat(k6_call(w, k1, words, cursor, kw, n_max, plain=True)))
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain = ev[0].elapsed_time(ev[1])
+        for k in ref:
+            if not torch.equal(got[k], want[k]):
+                fail(f"sharded_assign {k} at {n_max} shards differs from its plain version "
+                     f"({label})")
+        err = max_abs_err((got[k], want[k]) for k in ref)
+        ms = {n: kernel_ms(lambda n=n: k6_call(w, k1, words, cursor, kw, n),
+                           "sharded_assign_kernel", 3) for n in shards}
+        ms_k2 = kernel_ms(lambda: kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout,
+                                                      words, cursor, w.logtab, **kw),
+                          "assign_scan_kernel", 3)
+        b, ops = k2_work(w, k1, words, k2, True)
+        if "sig_table" in kw:
+            b += nbytes(*kw["sig_table"].values(), kw["carry_map"])
+        bd, by = bound_ms(b, ops)
+        print(f"sharded_assign ({label}): equal to assign_scan at {shards} shards and to "
+              f"its plain version at {n_max}; profiler ms by shard count "
+              + ", ".join(f"{n}: {v:.4f}" for n, v in ms.items())
+              + f"; assign_scan {ms_k2:.4f} ms; plain ({n_max} shards) {plain:.1f} ms; "
+              f"bound {bd:.5f} ms by {by}; tiers [full, replay] {k2['tiers'].tolist()}")
+        out[label] = {"max_abs_err": err, "ms": ms[n_max], "plain_ms": plain,
+                      "bound_ms": bd, "bound_by": by, "library_ms": None}
+    return out["chained seeded SchedulingBasic wave"]
+
+
+def mesh_main_path(args, serial, a14, n_shards):
+    """18. The main path on the mesh: phase 14's pipelined SchedulingBasic
+    run (the same 1000 + 10000 pods, waves of 512, seed 1) through
+    WavePipeline at depth 2 over TorchBackend(context=MeshContext(
+    scheduler_mesh(n_shards))). Counts zeroed before, read after: K1 and K6
+    must have launched and K2 not at all. Bindings and the final rng state
+    must equal phase 3's (which phase 14 equals); pods/s beside phase 14's
+    from this call, per-wave launch and collect-wait ms."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh
+
+    kernels.reset_launches()
+    r = run_pipelined(args, context=MeshContext(scheduler_mesh(n_shards)))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the mesh main path ({n_shards} node shards): {launches}")
+    if launches["static_parts"] <= 0 or launches["sharded_assign"] <= 0:
+        fail("K1 or K6 never launched on the mesh main path")
+    if launches["assign_scan"]:
+        fail("K2 launched on the mesh main path")
+    pipe, algo = r["pipe"], r["algo"]
+    if pipe.bindings != serial["bindings"] or algo.rng.getstate() != serial["rng"]:
+        fail("the mesh main path's bindings or rng state differ from phase 3's")
+    if pipe.stats["resyncs"] or pipe.stats["fallback_waves"] or pipe.handed_back:
+        fail(f"the mesh main path resynced or fell back: {pipe.stats}")
+    log = r["log"]
+    waits = sorted(e["wait_s"] for e in log)
+    print(f"mesh main path: bindings and rng equal to phase 3's and 14's; measured "
+          f"{args.pods} pods in {len(log)} waves, {r['wall_s']:.3f} s = {r['pods_s']:.1f} "
+          f"pods/s (phase 14, one block: {a14['pods_s']:.1f} pods/s, same call); "
+          f"launches {r['kinds']}; cross-wave {r['stats']}")
+    n_waves = len(log)
+    print("mesh main path, ms per measured wave: "
+          + ", ".join(f"{k} {v * 1e3 / n_waves:.3f}" for k, v in r["phases"].items())
+          + f", assume {r['loop']['assume'] * 1e3 / n_waves:.3f}"
+          + f", snapshot {r['loop']['snapshot'] * 1e3 / n_waves:.3f}")
+    print("mesh main path per measured wave (chained, launch ms, collect wait ms): "
+          + " ".join(f"({int(e['chained'])},{e['launch_s'] * 1e3:.2f},{e['wait_s'] * 1e3:.2f})"
+                     for e in log))
+    print(f"mesh main path collect wait: median {waits[len(waits) // 2] * 1e3:.3f} ms, "
+          f"max {waits[-1] * 1e3:.3f} ms")
+    return launches
+
+
+def wave_matrix(args, n_shards):
+    """19. K7 at dryrun_multichip's shape (__graft_entry__.py:124-185), at
+    full width: a SchedulingBasic cluster of --matrix-nodes nodes with one
+    pod each, --matrix-pods pods of 1 CPU / 2Gi each with a zone hard
+    spread (maxSkew 2). The matrix through parallel.wave_fit_and_score on
+    a (wave 2) mesh must equal K7's plain version, and each row K4's
+    feasible and total for that pod; then the pods through
+    sharded_batched_assign on n_shards shards: every output equal to
+    batched_assign's (K1 + K2) and every pod placed, as the dryrun
+    asserts. Returns the kernels-line numbers of K7."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import (
+        scheduler_mesh, sharded_batched_assign, wave_fit_and_score)
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.wrappers import (
+        make_pod, scheduling_basic_node, scheduling_basic_pod, with_spread)
+
+    cache = Cache(ResourceNames())
+    for i in range(args.matrix_nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+        cache.assume_pod(scheduling_basic_pod(5 * 10**6 + i), f"node-{i}")
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(cache.names, device="cuda")
+    pods = [with_spread(make_pod(f"wave-{i}", cpu="1", mem="2Gi", labels={"app": "wave"}),
+                        max_skew=2, key="topology.kubernetes.io/zone", when="DoNotSchedule")
+            for i in range(args.matrix_pods)]
+    w = wave_inputs(backend, pods, snap, len(pods))
+    mesh = scheduler_mesh(8, wave=2)  # dryrun_multichip(8)'s axes: 2 x 4
+    kernels.reset_launches()
+    feasible, total = wave_fit_and_score(w.cfg, mesh, w.dp, w.dt, w.packed_f, w.layout,
+                                         w.logtab)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["wave_fit_and_score"] != 1:
+        fail(f"the matrix did not launch K7 once: {launches}")
+    want_f, want_t = kernels.wave_fit_and_score_ref(w.cfg, w.dp, w.dt, w.fv, w.logtab)
+    torch.cuda.synchronize()
+    if not (torch.equal(feasible, want_f) and torch.equal(total, want_t)):
+        fail("wave_fit_and_score differs from its plain version")
+    err = max_abs_err([(feasible, want_f), (total, want_t)])
+    nf = len(kernels.FILTER_NAMES) + 2 * w.cfg.max_constraints + 3
+    k4 = kernels.fit_and_score(w.cfg, w.dp, w.dt, w.packed_f, w.layout, w.logtab)
+    torch.cuda.synchronize()
+    for p in range(len(pods)):
+        row = kernels.unpack_fit_outputs(k4[p], w.planes.nb, nf, w.planes.r)
+        if not (torch.equal(row["feasible"], feasible[p])
+                and torch.equal(row["total"], total[p])):
+            fail(f"wave_fit_and_score row {p} differs from fit_and_score's")
+    n_feasible = int(feasible.sum())
+    ms = kernel_ms(lambda: wave_fit_and_score(w.cfg, mesh, w.dp, w.dt, w.packed_f, w.layout,
+                                              w.logtab), "fit_and_score_kernel<false>", 5)
+    ms_k4 = kernel_ms(lambda: kernels.fit_and_score(w.cfg, w.dp, w.dt, w.packed_f, w.layout,
+                                                    w.logtab), "fit_and_score_kernel<true>", 5)
+    plain = time_ms(lambda: kernels.wave_fit_and_score_ref(w.cfg, w.dp, w.dt, w.fv, w.logtab),
+                    1, warmup=0)
+    nb, P = w.planes.nb, len(pods)
+    b0, ops0 = k4_work(w.cfg, w.dp, w.dt, w.fv, w.packed_f, nb * 5)
+    bd, by = bound_ms(b0 + (P - 1) * (w.packed_f.shape[1] * 4 + nb * 5), P * ops0)
+    print(f"wave_fit_and_score ({args.matrix_nodes} nodes x {P} zone-spread pods, mesh "
+          f"{mesh.shape}): equal to its plain version and row by row to fit_and_score; "
+          f"{n_feasible} feasible pairs; {ms:.4f} ms (fit_and_score on the same {P} pods "
+          f"{ms_k4:.4f} ms; plain {plain:.1f} ms; bound {bd:.5f} ms by {by})")
+    # the dryrun's second program: the scan over the same pods on the shards
+    words = tie_words(args.seed + 9, P)
+    scan_mesh = scheduler_mesh(n_shards)
+    got = sharded_batched_assign(w.cfg, scan_mesh, w.dp, w.dt, w.packed_f, w.layout, words,
+                                 w.logtab)
+    ref = kernels.batched_assign(w.cfg, w.dp, w.dt, w.packed_f, w.layout, words, w.logtab)
+    torch.cuda.synchronize()
+    g, r = dict(_flat(got)), dict(_flat(ref))
+    if g.keys() != r.keys() or not all(torch.equal(g[k], r[k]) for k in r):
+        fail("sharded_batched_assign differs from batched_assign on the matrix pods")
+    if int((got["packed"][:P] >= 0).sum()) != P:
+        fail("the matrix pods did not all place on the shards")
+    print(f"sharded_batched_assign ({n_shards} shards) on the matrix pods: every output "
+          f"equal to batched_assign's, {P}/{P} placed")
+    return {"launches": launches["wave_fit_and_score"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bd, "bound_by": by, "library_ms": None}
 
 
 if __name__ == "__main__":

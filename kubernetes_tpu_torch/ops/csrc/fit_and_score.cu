@@ -19,9 +19,8 @@
 // fraction of a microsecond of memory time at 3.35 TB/s; what costs is the
 // chain of passes over the node axis with block-wide reductions between
 // them. Design: one thread block of 1024 threads per pod (grid.x = P; the
-// single-pod path launches one block, the vmapped wave scorer of the
-// reference is the same kernel with more blocks), five strided passes over
-// the nodes:
+// single-pod path launches one block, K7 below one per pod of the wave),
+// five strided passes over the nodes:
 //   A. domain statistics over the valid nodes: hard-spread per-domain
 //      counts and participants, required IPA term counts per domain and
 //      "anywhere", the existing pods' anti-affinity per key slot;
@@ -38,6 +37,17 @@
 // and score phases. The existing pods' [Nb, Ta] x [Ta] products are per-node
 // int32 loops over the term table. The slots and the InterPodAffinity
 // passes are scoring.cuh's, shared with K2; numerics as there.
+//
+// K7 wave_fit_and_score — replaces _wave_fit_and_score_jit of the
+// reference package (kubernetes_tpu/parallel/mesh.py:262), the vmap over
+// pods of filter_masks + scores: the pods x nodes feasibility and total
+// matrix against one snapshot, no assumes between the pods. It is this
+// kernel's device code with FULL = false: the same grid of one block per
+// pod (the reference's wave axis splits the pods; on one card the blocks
+// spread over the SMs, and the node axis is not split), writing only
+// feasible [P, Nb] and total [P, Nb] (-1 where infeasible); the spread and
+// IPA raw rows go to a scratch buffer instead of per_plugin. Bound as K4:
+// latency per block, with P blocks in flight at once.
 #include "scoring.cuh"
 
 #define NT 1024
@@ -46,6 +56,7 @@
 #define N_PLUGINS 7
 #define BIG 2147483647
 
+template <bool FULL>
 __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
     FitParams p, const int* __restrict__ alloc, const int* __restrict__ used,
     const int* __restrict__ nonzero_used, const uint8_t* __restrict__ valid,
@@ -59,7 +70,8 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
     const uint8_t* __restrict__ aff_allow,
     const uint8_t* __restrict__ aff_has_pref, const int* __restrict__ feats,
     const float* __restrict__ logtab, uint8_t* __restrict__ out,
-    long long per_pod) {
+    long long per_pod, uint8_t* __restrict__ feas_out, int* __restrict__ total_out,
+    int* __restrict__ raw_out) {
     extern __shared__ int pool[];
     __shared__ Slot hard[SCAN_MAX_SOFT], soft[SCAN_MAX_SOFT];
     __shared__ Slot anti[MAX_REQ_TERMS], aff[MAX_REQ_TERMS], pref[MAX_PREF_TERMS];
@@ -71,13 +83,17 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
     const int pod = blockIdx.x;
     const int Nb = p.Nb, D = p.D;
     const int* f = feats + (size_t)pod * p.F;
-    uint8_t* o = out + (size_t)pod * per_pod;
+    // FULL (K4): one packed buffer per pod. Else (K7): feasible and total
+    // rows of the matrix, the spread and IPA raw rows in scratch
+    uint8_t* o = FULL ? out + (size_t)pod * per_pod : nullptr;
     uint8_t* fails = o;
-    uint8_t* feas = fails + (size_t)p.NF * Nb;
-    uint8_t* insuf = feas + Nb;
-    uint8_t* toomany = insuf + (size_t)p.R * Nb;
-    int* total = reinterpret_cast<int*>(toomany + Nb);
-    int* per = total + Nb;  // row j = PLUGIN_NAMES[j]
+    uint8_t* feas = FULL ? fails + (size_t)p.NF * Nb : feas_out + (size_t)pod * Nb;
+    uint8_t* insuf = FULL ? feas + Nb : nullptr;
+    uint8_t* toomany = FULL ? insuf + (size_t)p.R * Nb : nullptr;
+    int* total = FULL ? reinterpret_cast<int*>(toomany + Nb) : total_out + (size_t)pod * Nb;
+    int* per = FULL ? total + Nb : nullptr;  // row j = PLUGIN_NAMES[j]
+    int* raw_pts = FULL ? per + (size_t)4 * Nb : raw_out + (size_t)pod * 2 * Nb;
+    int* raw_ipa = FULL ? per + (size_t)5 * Nb : raw_out + (size_t)pod * 2 * Nb + Nb;
 
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
@@ -164,15 +180,15 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
         bool ins_any = false;
         for (int r = 0; r < p.R; ++r) {
             const bool ins = fit_insufficient(r, f[p.f_req + r], a_row[r], u_row[r]);
-            insuf[(size_t)r * Nb + n] = ins;
+            if (FULL) insuf[(size_t)r * Nb + n] = ins;
             ins_any |= ins;
         }
         const bool tm = too_many_pods(a_row, u_row);
-        toomany[n] = tm;
+        if (FULL) toomany[n] = tm;
         row[5] = ins_any || tm;
         bool any = false;
         for (int r = 0; r < 6; ++r) {
-            fails[(size_t)r * Nb + n] = row[r];
+            if (FULL) fails[(size_t)r * Nb + n] = row[r];
             any |= row[r];
         }
         for (int c = 0; c < p.MC; ++c) {
@@ -188,16 +204,20 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
                     skew = count + s.b - hmin[c] > s.a;
                 }
             }
-            fails[(size_t)(6 + c) * Nb + n] = miss;
-            fails[(size_t)(6 + p.MC + c) * Nb + n] = skew;
+            if (FULL) {
+                fails[(size_t)(6 + c) * Nb + n] = miss;
+                fails[(size_t)(6 + p.MC + c) * Nb + n] = skew;
+            }
             any |= miss || skew;
         }
         // InterPodAffinity (filtering.go:352-412)
         bool ipa1, ipa2, ipa3;
         ipa_filters_at(p, ipa, f, n, vn, dom_row, v + 4, ipa1, ipa2, ipa3);
-        fails[(size_t)(p.NF - 3) * Nb + n] = ipa1;
-        fails[(size_t)(p.NF - 2) * Nb + n] = ipa2;
-        fails[(size_t)(p.NF - 1) * Nb + n] = ipa3;
+        if (FULL) {
+            fails[(size_t)(p.NF - 3) * Nb + n] = ipa1;
+            fails[(size_t)(p.NF - 2) * Nb + n] = ipa2;
+            fails[(size_t)(p.NF - 1) * Nb + n] = ipa3;
+        }
         const bool fe = vn && !(any || ipa1 || ipa2 || ipa3);
         feas[n] = fe;
         if (!fe) continue;
@@ -262,7 +282,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
                 cost = __fadd_rn(cost, __fmul_rn(__int2float_rn(count), wlog[c]));
             }
             const int raw = __float2int_rz(cost);
-            per[(size_t)4 * Nb + n] = raw;
+            raw_pts[n] = raw;
             if (fe) {
                 mm[0] = max(mm[0], raw);
                 mm[1] = min(mm[1], raw);
@@ -270,7 +290,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
         }
         if (ipa_on) {
             const int raw = ipa_raw_at(p, ipa, f, n, fe, dom_row);
-            per[(size_t)5 * Nb + n] = raw;
+            raw_ipa[n] = raw;
             if (fe) {
                 mm[2] = max(mm[2], raw);
                 mm[3] = min(mm[3], raw);
@@ -292,37 +312,39 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(
         sc[2] = taint_normalized(prefer_taint_count(p, prefer_taints + (size_t)n * p.Tp, f),
                                  maxtc);
         sc[3] = has_pref ? affinity_normalized(aff_pref[(size_t)sig * p.G + g], maxaff) : 0;
-        sc[4] = pts_on ? pts_normalized(per[(size_t)4 * Nb + n], mm[0], mm[1]) : 0;
-        sc[5] = ipa_on ? ipa_normalized(per[(size_t)5 * Nb + n], mm[2], mm[3]) : 0;
+        sc[4] = pts_on ? pts_normalized(raw_pts[n], mm[0], mm[1]) : 0;
+        sc[5] = ipa_on ? ipa_normalized(raw_ipa[n], mm[2], mm[3]) : 0;
         sc[6] = image_score(p, image_kib + (size_t)n * p.I, f);
         const int wt[N_PLUGINS] = {p.w_fit, p.w_bal, p.w_taint, p.w_aff,
                                    p.w_pts, p.w_ipa, p.w_img};
         int tot = 0;
         for (int j = 0; j < N_PLUGINS; ++j) {
-            per[(size_t)j * Nb + n] = sc[j];
+            if (FULL) per[(size_t)j * Nb + n] = sc[j];
             tot = wadd(tot, wmul(sc[j], wt[j]));
         }
         total[n] = feas[n] ? tot : -1;
     }
 }
 
-// ptrs: alloc, used, nonzero_used, valid, unsched, group_id, taints,
-// prefer_taints, domain, sel_counts, port_words, image_kib, ipa_counts,
-// ipa_anti, ipa_pref, ipa_term_key, aff_match, aff_pref, aff_allow,
-// aff_has_pref, feats, logtab, out
-extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs,
-                                    void* stream) {
+// the dynamic shared memory of one block: the filter or the score tables
+inline size_t fit_smem_bytes(const FitParams* p) {
     const int filter_tables = 2 * p->n_hard + p->n_ipa_anti + p->n_ipa_aff +
                               (p->ex_anti ? p->K : 0);
     const int score_tables = 2 * p->n_soft + p->n_ipa_pref + (p->ex_pref_add ? p->K : 0);
     const int tables = max(max(filter_tables, score_tables), 1);
-    const size_t dyn = (size_t)tables * p->D * sizeof(int);
+    return (size_t)tables * p->D * sizeof(int);
+}
+
+template <bool FULL>
+int launch_fit(const FitParams* p, void* const* ptrs, void* stream, uint8_t* out,
+               uint8_t* feas_out, int* total_out, int* raw_out) {
+    const size_t dyn = fit_smem_bytes(p);
     cudaError_t err = cudaFuncSetAttribute(
-        fit_and_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+        fit_and_score_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (err != cudaSuccess) return (int)err;
     const long long per_pod =
         (long long)(p->NF + p->R + 2) * p->Nb + (long long)(1 + N_PLUGINS) * p->Nb * 4;
-    fit_and_score_kernel<<<p->P, NT, dyn, (cudaStream_t)stream>>>(
+    fit_and_score_kernel<FULL><<<p->P, NT, dyn, (cudaStream_t)stream>>>(
         *p, (const int*)ptrs[0], (const int*)ptrs[1], (const int*)ptrs[2],
         (const uint8_t*)ptrs[3], (const uint8_t*)ptrs[4], (const int*)ptrs[5],
         (const int*)ptrs[6], (const int*)ptrs[7], (const int*)ptrs[8],
@@ -330,6 +352,21 @@ extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs,
         (const int*)ptrs[12], (const int*)ptrs[13], (const int*)ptrs[14],
         (const int*)ptrs[15], (const uint8_t*)ptrs[16], (const int*)ptrs[17],
         (const uint8_t*)ptrs[18], (const uint8_t*)ptrs[19], (const int*)ptrs[20],
-        (const float*)ptrs[21], (uint8_t*)ptrs[22], per_pod);
+        (const float*)ptrs[21], out, per_pod, feas_out, total_out, raw_out);
     return (int)cudaGetLastError();
+}
+
+// ptrs: alloc, used, nonzero_used, valid, unsched, group_id, taints,
+// prefer_taints, domain, sel_counts, port_words, image_kib, ipa_counts,
+// ipa_anti, ipa_pref, ipa_term_key, aff_match, aff_pref, aff_allow,
+// aff_has_pref, feats, logtab, then K4: out; K7: feasible, total, raw
+extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs,
+                                    void* stream) {
+    return launch_fit<true>(p, ptrs, stream, (uint8_t*)ptrs[22], nullptr, nullptr, nullptr);
+}
+
+extern "C" int launch_wave_fit_and_score(const FitParams* p, void* const* ptrs,
+                                         void* stream) {
+    return launch_fit<false>(p, ptrs, stream, nullptr, (uint8_t*)ptrs[22], (int*)ptrs[23],
+                             (int*)ptrs[24]);
 }

@@ -108,7 +108,8 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     block_reduce<2>(v, 0u, 0u, sred, sres);  // ends in a barrier: the copies are in
     const int pscore = v[0] > 0 ? floordiv(v[1], v[0]) : 0;
 
-    const ScanEnd end = scan_block<true>(p, a);
+    BlockComm comm(p.Nb);
+    const ScanEnd end = scan_block<true>(p, a, comm);
     __syncthreads();
     if (threadIdx.x == 0) {
         int placed = 0;

@@ -1,7 +1,8 @@
-// The greedy pod scan of one thread block, shared by K2 assign_scan (one
-// block over the wave) and K5 gang_assign (one block per placement mask):
-// the reference's _assign_step (kubernetes_tpu/ops/kernels.py:925-1250) in
-// a loop over the pods, both tiers, with hard spread and inter-pod affinity.
+// The greedy pod scan, shared by K2 assign_scan (one block over the wave),
+// K5 gang_assign (one block per placement mask) and K6 sharded_assign (one
+// cluster of n blocks over the wave, each block a node shard): the
+// reference's _assign_step (kubernetes_tpu/ops/kernels.py:925-1250) in a
+// loop over the pods, both tiers, with hard spread and inter-pod affinity.
 //
 // Per pod: the NodeResourcesFit filter on the carried `used` plane, the
 // hard PodTopologySpread filter on the carried per-domain selector counts
@@ -47,14 +48,39 @@
 // does the prefix count and the 16-word draw (one word per lane); the whole
 // block applies the winner's row adds and patches the signature rows (one
 // thread per row). Carry planes are updated in place (the callers' copies).
+//
+// The reduction scope is a template policy, the reference's comm
+// (kernels.py:81-131). BlockComm: one block owns every node; its reductions
+// are block_reduce and its domain tables live in the block's own shared
+// memory (K2, K5). ClusterComm (K6): block r of a cluster of n owns the
+// node range [r*Nb/n, (r+1)*Nb/n) of every plane, of the scratch rows and
+// of the signature table's columns, and makes its passes over that range
+// only. Each reduction is the block reduction, then an exchange of the n
+// block partials through distributed shared memory between cluster
+// barriers, folded in rank order (max, min or a wrapping int32 sum: the
+// result does not depend on the order, and no float32 sum crosses a
+// shard). The per-domain tables are one set in rank 0's shared memory that
+// every block adds into (DSMEM atomics) and reads. The tie pick gathers the
+// n tie counts; every block makes the same draw and the block whose prefix
+// range holds it finds its node. Replicated state has one copy: the
+// hard-spread domain counts and presence in device memory, the signature
+// table's segs/pcs/valid (written by rank 0), the winner's row adds and
+// signature-row patch (made by the winner's owner, then a cluster barrier).
+// Every branch that contains a barrier is decided from replicated or
+// cluster-reduced values, so every block takes it.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "scoring.cuh"
+
+namespace cg = cooperative_groups;
 
 #define SCAN_NT 1024
 #define SCAN_NWARPS (SCAN_NT / 32)
 #define SCAN_RED 8
 #define SCAN_BIG 2147483647
+#define SCAN_MAX_SHARDS 8
 
 // shared-memory pool words: the larger of the filter phase's tables (the
 // required IPA terms, the existing pods' anti-affinity per key slot) and the
@@ -77,6 +103,105 @@ __host__ __device__ inline size_t scan_smem_bytes(const ScanParams& p) {
 __host__ __device__ inline size_t scan_scratch_words(const ScanParams& p) {
     return 6 * (size_t)p.Nb + (p.dom_carry ? (size_t)p.K * p.D : 0);
 }
+
+// One block owns the whole node axis (K2, K5).
+struct BlockComm {
+    static constexpr bool kCluster = false;
+    int lo, hi;  // the node range this block makes its passes over
+    __device__ explicit BlockComm(int nb) : lo(0), hi(nb) {}
+    __device__ int rank() const { return 0; }
+    // the shared-memory domain tables the block adds into and reads
+    __device__ int* tables(int* local) const { return local; }
+    // the tables' previous readers are done (one block: its own barriers)
+    __device__ void release() const {}
+    __device__ void sync() const { __syncthreads(); }
+    __device__ void step_end() const {}
+    template <int N>
+    __device__ void reduce(int (&v)[N], unsigned maxmask, unsigned minmask, int* red,
+                           int* res) {
+        block_reduce<N>(v, maxmask, minmask, reinterpret_cast<int(*)[N]>(red), res);
+    }
+    __device__ int sync_or(int x) { return __syncthreads_or(x); }
+};
+
+// A cluster of n blocks, block r owning nodes [lo, hi) (K6). xch is a
+// shared [2][SCAN_RED] array of partial slots (double-buffered by parity:
+// a slot is rewritten only after a later barrier has passed every peer's
+// read of it) and xres a shared [SCAN_RED] broadcast array, both declared
+// in the kernel so that every block has them at the same address.
+struct ClusterComm {
+    static constexpr bool kCluster = true;
+    int lo, hi, r, n;
+    int* xch;
+    int* xres;
+    int parity;
+    __device__ int rank() const { return r; }
+    __device__ int* tables(int* local) const {
+        return cg::this_cluster().map_shared_rank(local, 0);
+    }
+    __device__ void release() const { cg::this_cluster().sync(); }
+    __device__ void sync() const { cg::this_cluster().sync(); }
+    // the winner's owner updated the replicated state: publish it
+    __device__ void step_end() const { cg::this_cluster().sync(); }
+    // every thread holds this block's reduced v: fold the n blocks' values
+    template <int N>
+    __device__ void exchange(int (&v)[N], unsigned maxmask, unsigned minmask) {
+        cg::cluster_group cl = cg::this_cluster();
+        int* slot = xch + parity * SCAN_RED;
+        if (threadIdx.x == 0) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) slot[i] = v[i];
+        }
+        cl.sync();
+        if (threadIdx.x < N) {
+            const int i = threadIdx.x;
+            const bool mx = (maxmask >> i) & 1u, mn = (minmask >> i) & 1u;
+            int x = *cl.map_shared_rank(slot + i, 0);
+            for (int q = 1; q < n; ++q) {
+                const int o = *cl.map_shared_rank(slot + i, q);
+                x = mx ? max(x, o) : (mn ? min(x, o) : wadd(x, o));
+            }
+            xres[i] = x;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[i] = xres[i];
+        parity ^= 1;
+    }
+    template <int N>
+    __device__ void reduce(int (&v)[N], unsigned maxmask, unsigned minmask, int* red,
+                           int* res) {
+        block_reduce<N>(v, maxmask, minmask, reinterpret_cast<int(*)[N]>(red), res);
+        exchange<N>(v, maxmask, minmask);
+    }
+    __device__ int sync_or(int x) {
+        int v[1] = {__syncthreads_or(x)};
+        exchange<1>(v, 1u, 0u);
+        return v[0];
+    }
+    // the blocks' tie counts (this block's in `mine`, read by thread 0):
+    // the total and this block's prefix, in every thread
+    __device__ void ties(int mine, int& total, int& prefix) {
+        cg::cluster_group cl = cg::this_cluster();
+        int* slot = xch + parity * SCAN_RED;
+        if (threadIdx.x == 0) slot[0] = mine;
+        cl.sync();
+        if (threadIdx.x == 0) {
+            int t = 0, pre = 0;
+            for (int q = 0; q < n; ++q) {
+                const int c = *cl.map_shared_rank(slot, q);
+                if (q < r) pre += c;
+                t += c;
+            }
+            xres[0] = t;
+            xres[1] = pre;
+        }
+        __syncthreads();
+        total = xres[0];
+        prefix = xres[1];
+        parity ^= 1;
+    }
+};
 
 struct ScanArgs {
     const int* alloc;
@@ -124,20 +249,72 @@ struct ScanArgs {
     const int* prev_pcs;
 };
 
+// ScanArgs from K2's and K6's pointer list: alloc, domain, valid,
+// static_ok, taint_cnt, aff_raw, img, aff_has_pref, feats, tie_words,
+// logtab, used, nonzero_used, sel_counts, ipa_counts, ipa_anti, ipa_pref,
+// ipa_term_key, dom_counts, scratch, out, then with dedup sig_ids,
+// uniq_idx, t_valid, t_ew, t_ffit, t_feas, t_segs, t_pcs, sig_scores,
+// tiers (0 without), then the device cursor (0: the host's p->cursor0),
+// then with p->xwave carry_map and the previous table's ew, ffit, feas,
+// segs, pcs (0 without)
+inline ScanArgs scan_args(void* const* ptrs) {
+    ScanArgs a = {};
+    a.alloc = (const int*)ptrs[0];
+    a.domain = (const int*)ptrs[1];
+    a.valid = (const uint8_t*)ptrs[2];
+    a.mask = nullptr;
+    a.static_ok = (const uint8_t*)ptrs[3];
+    a.taint_cnt = (const int*)ptrs[4];
+    a.aff_raw = (const int*)ptrs[5];
+    a.img = (const int*)ptrs[6];
+    a.aff_has_pref = (const uint8_t*)ptrs[7];
+    a.feats = (const int*)ptrs[8];
+    a.tie_words = (const unsigned*)ptrs[9];
+    a.logtab = (const float*)ptrs[10];
+    a.used = (int*)ptrs[11];
+    a.nonzero_used = (int*)ptrs[12];
+    a.sel_counts = (int*)ptrs[13];
+    a.ipa_counts = (int*)ptrs[14];
+    a.ipa_anti = (int*)ptrs[15];
+    a.ipa_pref = (int*)ptrs[16];
+    a.ipa_term_key = (const int*)ptrs[17];
+    a.dom_counts = (int*)ptrs[18];
+    a.scratch = (int*)ptrs[19];
+    a.winners = (int*)ptrs[20];
+    a.sig_ids = (const int*)ptrs[21];
+    a.uniq_idx = (const int*)ptrs[22];
+    a.t_valid = (uint8_t*)ptrs[23];
+    a.t_ew = (int*)ptrs[24];
+    a.t_ffit = (uint8_t*)ptrs[25];
+    a.t_feas = (uint8_t*)ptrs[26];
+    a.t_segs = (int*)ptrs[27];
+    a.t_pcs = (int*)ptrs[28];
+    a.sig_scores = (int*)ptrs[29];
+    a.cursor_init = (const int*)ptrs[31];
+    a.carry_map = (const int*)ptrs[32];
+    a.prev_ew = (const int*)ptrs[33];
+    a.prev_ffit = (const uint8_t*)ptrs[34];
+    a.prev_feas = (const uint8_t*)ptrs[35];
+    a.prev_segs = (const int*)ptrs[36];
+    a.prev_pcs = (const int*)ptrs[37];
+    return a;
+}
+
 // meaningful in thread 0: the tie words consumed up to the cursor, whether a
 // draw ran out of words, and with dedup the steps by tier
 struct ScanEnd {
     int cursor, overflow, n_full, n_replay;
 };
 
-template <bool MASKED>
-__device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArgs& a) {
+template <bool MASKED, typename Comm>
+__device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArgs& a,
+                                              Comm& comm) {
     extern __shared__ int pool[];  // domain tables, then the tie ballots
     __shared__ Slot hard[SCAN_MAX_SOFT], soft[SCAN_MAX_SOFT];
     __shared__ Slot anti[MAX_REQ_TERMS], aff[MAX_REQ_TERMS], pref[MAX_PREF_TERMS];
-    __shared__ int exmask, any_soft, any_hard, win_sh;
+    __shared__ int exmask, any_soft, any_hard, win_sh, tie_sh;
     __shared__ int ndom[SCAN_MAX_SOFT];  // soft slots' domains with a participant
-    __shared__ int red[SCAN_NWARPS][SCAN_RED];
+    __shared__ int red[SCAN_NWARPS * SCAN_RED];
     __shared__ int res[SCAN_RED];
 
     const int* __restrict__ alloc = a.alloc;
@@ -177,6 +354,10 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
 
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     const int Nb = p.Nb, D = p.D, S = p.S;
+    // this block's node range (the whole axis but under ClusterComm) and
+    // whether it writes the replicated state
+    const int lo = comm.lo, hi = comm.hi, nbl = hi - lo;
+    const bool lead = comm.rank() == 0;
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
     const bool dedup = p.G > 0;
@@ -184,7 +365,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     const int filter_tables = na + nfa + (p.ex_anti ? p.K : 0);
     const int score_tables = 2 * ns + np + (p.ex_pref_add ? p.K : 0);
     unsigned* ballots = reinterpret_cast<unsigned*>(pool + scan_pool_words(p));
-    const int nwords = (Nb + 31) / 32;
+    const int nwords = (nbl + 31) / 32;
     int* ew_s = a.scratch;
     int* raw_s = a.scratch + (size_t)Nb;
     int* iraw_s = a.scratch + 2 * (size_t)Nb;
@@ -192,7 +373,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     int* feas_s = a.scratch + 4 * (size_t)Nb;
     int* fail_s = a.scratch + 5 * (size_t)Nb;
     int* present = a.scratch + 6 * (size_t)Nb;  // [K, D] with dom_carry
-    auto table = [&](int i) { return pool + (size_t)i * D; };
+    int* tabs = comm.tables(pool);  // the domain tables every block adds into
+    auto table = [&](int i) { return tabs + (size_t)i * D; };
     // the cursor starts at the predecessor's final cursor (device) or the
     // host's, shifted into this wave's word frame
     ScanEnd end = {(a.cursor_init ? a.cursor_init[0] : p.cursor0) - p.frame_shift, 0, 0, 0};
@@ -204,34 +386,39 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     // the caller need not clear the table
     if (dedup && p.xwave) {
         const size_t row_words = (size_t)p.CT * D;
-        for (size_t i = tid; i < (size_t)p.G * Nb; i += SCAN_NT) {
-            const int g = (int)(i / Nb), n = (int)(i % Nb);
+        for (size_t i = tid; i < (size_t)p.G * nbl; i += SCAN_NT) {
+            const int g = (int)(i / nbl), n = lo + (int)(i % nbl);
             const int c = a.carry_map[g];
             const size_t o = (size_t)clampi(c, 0, p.G_prev - 1) * Nb + n;
+            const size_t t = (size_t)g * Nb + n;
             const bool ok = c >= 0;
-            t_ew[i] = ok ? a.prev_ew[o] : 0;
-            t_ffit[i] = ok ? a.prev_ffit[o] : 0;
-            t_feas[i] = ok ? a.prev_feas[o] : 0;
+            t_ew[t] = ok ? a.prev_ew[o] : 0;
+            t_ffit[t] = ok ? a.prev_ffit[o] : 0;
+            t_feas[t] = ok ? a.prev_feas[o] : 0;
         }
-        for (size_t i = tid; i < (size_t)p.G * row_words; i += SCAN_NT) {
-            const int g = (int)(i / row_words);
-            const int c = a.carry_map[g];
-            const size_t o = (size_t)clampi(c, 0, p.G_prev - 1) * row_words + i % row_words;
-            const bool ok = c >= 0;
-            t_segs[i] = ok ? a.prev_segs[o] : 0;
-            t_pcs[i] = ok ? a.prev_pcs[o] : 0;
+        if (lead) {
+            for (size_t i = tid; i < (size_t)p.G * row_words; i += SCAN_NT) {
+                const int g = (int)(i / row_words);
+                const int c = a.carry_map[g];
+                const size_t o = (size_t)clampi(c, 0, p.G_prev - 1) * row_words + i % row_words;
+                const bool ok = c >= 0;
+                t_segs[i] = ok ? a.prev_segs[o] : 0;
+                t_pcs[i] = ok ? a.prev_pcs[o] : 0;
+            }
+            for (int g = tid; g < p.G; g += SCAN_NT) t_valid[g] = a.carry_map[g] >= 0;
         }
-        for (int g = tid; g < p.G; g += SCAN_NT) t_valid[g] = a.carry_map[g] >= 0;
-        __syncthreads();
+        comm.sync();
     }
 
     // prologue: the hard-spread carry, per key slot and domain the sum of
     // sel_counts over the domain's valid nodes, and the static presence
     if (p.dom_carry) {
-        for (size_t i = tid; i < (size_t)p.K * D * S; i += SCAN_NT) dom_counts[i] = 0;
-        for (int i = tid; i < p.K * D; i += SCAN_NT) present[i] = 0;
-        __syncthreads();
-        for (int n = tid; n < Nb; n += SCAN_NT) {
+        if (lead) {
+            for (size_t i = tid; i < (size_t)p.K * D * S; i += SCAN_NT) dom_counts[i] = 0;
+            for (int i = tid; i < p.K * D; i += SCAN_NT) present[i] = 0;
+        }
+        comm.sync();
+        for (int n = lo + tid; n < hi; n += SCAN_NT) {
             if (!node_valid(n)) continue;
             for (int k = 0; k < p.K; ++k) {
                 const int dk = p.topo_dk[k], d = domain[(size_t)n * p.K + k];
@@ -243,7 +430,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                               sel_counts[(size_t)n * S + s]);
             }
         }
-        __syncthreads();
+        comm.sync();
     }
 
     for (int pod = 0; pod < p.P; ++pod) {
@@ -253,11 +440,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // and draws nothing; with dedup it is its own signature and still
         // takes its tier (table row and sig_scores row)
         if (!dedup && !active) {
-            if (tid == 0) out[pod] = -1;
+            if (lead && tid == 0) out[pod] = -1;
             continue;
         }
         const int sid = dedup ? clampi(sig_ids[pod], 0, p.G - 1) : pod;  // static row
         const size_t srow = (size_t)sid * Nb;
+        const bool resident = dedup && t_valid[sid] != 0;
         if (wid == 0) {  // the pod's slots, the key slots its matching terms use
             pod_slots(p, f, ipa_term_key, p.ipa_active, hard, soft, anti, aff, pref);
             const bool anys = any_column(f, p.f_soft_active, p.MC);
@@ -283,8 +471,11 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         int hmin[SCAN_MAX_SOFT] = {0, 0, 0, 0};
         int aff_any[MAX_REQ_TERMS] = {0, 0, 0, 0};
         if (has_fail) {
-            for (int i = tid; i < filter_tables * D; i += SCAN_NT) pool[i] = 0;
-            __syncthreads();
+            comm.release();
+            if (lead) {
+                for (int i = tid; i < filter_tables * D; i += SCAN_NT) tabs[i] = 0;
+            }
+            comm.sync();
             int v[SCAN_RED];
             for (int i = 0; i < SCAN_RED; ++i) v[i] = i < 4 ? SCAN_BIG : 0;
             if (p.dom_carry) {  // a non-singleton key: over the present domains
@@ -297,7 +488,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     }
                 }
             }
-            for (int n = tid; n < Nb; n += SCAN_NT) {
+            for (int n = lo + tid; n < hi; n += SCAN_NT) {
                 if (!node_valid(n)) continue;
                 const int* dom_row = domain + (size_t)n * p.K;
                 for (int c = 0; c < nh; ++c) {  // a singleton key: over the nodes
@@ -307,7 +498,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                 }
                 if (p.ipa_active) ipa_filter_stats(p, ipa, f, n, dom_row, v + 4);
             }
-            block_reduce<SCAN_RED>(v, 0xF0u, 0x0Fu, red, res);
+            comm.template reduce<SCAN_RED>(v, 0xF0u, 0x0Fu, red, res);
             for (int c = 0; c < SCAN_MAX_SOFT; ++c) hmin[c] = v[c] == SCAN_BIG ? 0 : v[c];
             for (int s = 0; s < MAX_REQ_TERMS; ++s) aff_any[s] = v[4 + s];
         }
@@ -315,10 +506,10 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // G. the live reject mask (hard spread, IPA) and, for a resident
         // signature under hard spread or IPA, the replay gate: the row's
         // feasibility must equal the live one on every node row
-        const bool check = dedup && gated && t_valid[sid];
+        const bool check = gated && resident;
         int mismatch = 0;
         if (has_fail || check) {
-            for (int n = tid; n < Nb; n += SCAN_NT) {
+            for (int n = lo + tid; n < hi; n += SCAN_NT) {
                 bool fail = false;
                 if (has_fail) {
                     const int* dom_row = domain + (size_t)n * p.K;
@@ -349,29 +540,32 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                 }
             }
         }
-        const int refused = __syncthreads_or(mismatch);
-        const bool replay = dedup && t_valid[sid] && !refused;
+        const int refused = comm.sync_or(mismatch);
+        const bool replay = resident && !refused;
         const bool capture = dedup && !replay;
 
         // A. feasibility, fit + balanced, the static normalizers' maxima and
         // the feasible-set statistics (soft spread per domain: accumulated
         // by the full tier, loaded from the resident row by a replay; the
         // preferred IPA terms)
-        for (int i = tid; i < score_tables * D; i += SCAN_NT) {
-            int val = 0;
-            if (replay && i < 2 * ns * D) {
-                const int c = (i / D) % ns;
-                val = (i < ns * D ? t_segs : t_pcs)[((size_t)sid * p.CT + c) * D + i % D];
-                // a replay's domain count: the table's entries with pcs > 0
-                if (i >= ns * D && val > 0 && soft[c].on && soft[c].dk > 0)
-                    atomicAdd(&ndom[c], 1);
+        comm.release();
+        if (lead) {
+            for (int i = tid; i < score_tables * D; i += SCAN_NT) {
+                int val = 0;
+                if (replay && i < 2 * ns * D) {
+                    const int c = (i / D) % ns;
+                    val = (i < ns * D ? t_segs : t_pcs)[((size_t)sid * p.CT + c) * D + i % D];
+                    // a replay's domain count: the table's entries with pcs > 0
+                    if (i >= ns * D && val > 0 && soft[c].on && soft[c].dk > 0)
+                        atomicAdd(&ndom[c], 1);
+                }
+                tabs[i] = val;
             }
-            pool[i] = val;
         }
-        __syncthreads();
+        comm.sync();
         int w[SCAN_RED];  // max taint count, max aff raw, feasible count, singleton nd[4]
         for (int i = 0; i < SCAN_RED; ++i) w[i] = 0;
-        for (int n = tid; n < Nb; n += SCAN_NT) {
+        for (int n = lo + tid; n < hi; n += SCAN_NT) {
             const int* dom_row = domain + (size_t)n * p.K;
             bool fe;
             int ew = 0;
@@ -417,9 +611,14 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             }
             if (p.ipa_active) ipa_score_stats(p, ipa, f, n, dom_row);
         }
-        block_reduce<SCAN_RED>(w, 0x3u, 0u, red, res);
+        comm.template reduce<SCAN_RED>(w, 0x3u, 0u, red, res);
+        // each soft slot's domains with a participant, complete after the
+        // reduction's barriers; under ClusterComm every block counted those
+        // whose first participant it added (or, in a replay, rank 0 all)
+        int nd[SCAN_MAX_SOFT] = {ndom[0], ndom[1], ndom[2], ndom[3]};
+        if constexpr (Comm::kCluster) comm.template exchange<SCAN_MAX_SOFT>(nd, 0u, 0u);
         const int maxtc = w[0], maxaff = w[1];
-        if (capture) {  // install the signature's spread tables, then the row
+        if (capture && lead) {  // install the signature's spread tables, then the row
             for (int i = tid; i < p.CT * D; i += SCAN_NT) {
                 const int c = i / D, d = i % D;
                 const bool on = c < ns && soft[c].dk > 0;
@@ -429,12 +628,11 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             if (tid == 0) t_valid[sid] = 1;
         }
         // the soft slots' log weights: a singleton key's domains counted in
-        // A, another key's domains with a participant (ndom, complete after
-        // the reduction's barriers)
+        // A, another key's domains with a participant
         float wlog[SCAN_MAX_SOFT];
         for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
             const bool on = c < ns && soft[c].on;
-            wlog[c] = on ? logtab[soft[c].dk == 0 ? w[3 + c] : ndom[c]] : 0.0f;
+            wlog[c] = on ? logtab[soft[c].dk == 0 ? w[3 + c] : nd[c]] : 0.0f;
         }
 
         // B. the spread and IPA raw scores, their max/min over the feasible set
@@ -443,7 +641,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         int mm[SCAN_RED];  // spread max, min, IPA max, min
         for (int i = 0; i < SCAN_RED; ++i) mm[i] = (i & 1) ? SCAN_BIG : -SCAN_BIG;
         if (pts_on || ipa_on) {
-            for (int n = tid; n < Nb; n += SCAN_NT) {
+            for (int n = lo + tid; n < hi; n += SCAN_NT) {
                 if (!feas_s[n]) continue;
                 const int* dom_row = domain + (size_t)n * p.K;
                 if (pts_on) {
@@ -470,14 +668,14 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     mm[3] = min(mm[3], raw);
                 }
             }
-            block_reduce<SCAN_RED>(mm, 0x55u, 0xAAu, red, res);
+            comm.template reduce<SCAN_RED>(mm, 0x55u, 0xAAu, red, res);
         }
 
         // C. weighted total, best feasible score; the full tier exports the
         // signature's feasibility-gated score row
         int b[SCAN_RED] = {-1, 0, 0, 0, 0, 0, 0, 0};
         const bool has_pref = a.aff_has_pref[sid] != 0;
-        for (int n = tid; n < Nb; n += SCAN_NT) {
+        for (int n = lo + tid; n < hi; n += SCAN_NT) {
             if (!feas_s[n]) {
                 if (capture) sig_scores[srow + n] = -1;
                 continue;
@@ -493,37 +691,50 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             if (capture) sig_scores[srow + n] = total;
             b[0] = max(b[0], total);
         }
-        block_reduce<SCAN_RED>(b, 0x1u, 0u, red, res);
+        comm.template reduce<SCAN_RED>(b, 0x1u, 0u, red, res);
         if (tid == 0 && dedup) (replay ? end.n_replay : end.n_full) += 1;
         const int best = b[0];
         if (best < 0 || !active) {  // nothing feasible, or a pad slot
-            if (tid == 0) out[pod] = -1;
+            if (lead && tid == 0) out[pod] = -1;
             continue;
         }
 
-        // D. the tie set as ballots, one word per 32 consecutive nodes
-        for (int base = 0; base < Nb; base += SCAN_NT) {
-            const int n = base + tid;
-            const bool tie = n < Nb && feas_s[n] && total_s[n] == best;
+        // D. the tie set as ballots, one word per 32 consecutive nodes of
+        // this block's range
+        for (int base = 0; base < nbl; base += SCAN_NT) {
+            const int j = base + tid, n = lo + j;
+            const bool tie = j < nbl && feas_s[n] && total_s[n] == best;
             const unsigned bits = __ballot_sync(FULL_MASK, tie);
             const int word = (base >> 5) + wid;
             if (lane == 0 && word < nwords) ballots[word] = bits;
         }
         __syncthreads();
 
+        // per-lane contiguous word ranges of warp 0, prefix-counted in node
+        // order; under ClusterComm the blocks' counts are gathered (node
+        // order is rank-major) and every block makes the same draw
+        const int chunk = (nwords + 31) / 32;
+        const int wlo = min(lane * chunk, nwords), whi = min(wlo + chunk, nwords);
+        int cnt = 0, incl = 0;
         if (wid == 0) {
-            // per-lane contiguous word ranges, prefix-counted in node order
-            const int chunk = (nwords + 31) / 32;
-            const int lo = min(lane * chunk, nwords), hi = min(lo + chunk, nwords);
-            int cnt = 0;
-            for (int i = lo; i < hi; ++i) cnt += __popc(ballots[i]);
-            int incl = cnt;
+            for (int i = wlo; i < whi; ++i) cnt += __popc(ballots[i]);
+            incl = cnt;
 #pragma unroll
             for (int off = 1; off < 32; off <<= 1) {
                 const int o = __shfl_up_sync(FULL_MASK, incl, off);
                 if (lane >= off) incl += o;
             }
-            const int nw = __shfl_sync(FULL_MASK, incl, 31);
+            if (lane == 31) tie_sh = incl;
+        }
+        int nw_all = 0, prefix = 0;
+        if constexpr (Comm::kCluster) {
+            __syncthreads();
+            comm.ties(tie_sh, nw_all, prefix);
+            if (tid == 0) win_sh = -1;  // set by the owner's lane below
+            __syncthreads();
+        }
+        if (wid == 0) {
+            const int nw = Comm::kCluster ? nw_all : __shfl_sync(FULL_MASK, incl, 31);
             // CPython randrange(nw): k = nw.bit_length(), the top k bits of
             // successive 32-bit words, reject r >= nw (at most 16 words)
             int r_final = 0;
@@ -542,17 +753,19 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     end.overflow = 1;
                 }
             }
-            // the lane whose range holds tie number r_final finds its node
+            // the lane whose range holds tie number r_final (of this block:
+            // r_final minus the blocks before it) finds its node
+            const int r_loc = r_final - prefix;
             const int excl = incl - cnt;
-            if (r_final >= excl && r_final < incl) {
-                int rem = r_final - excl;
+            if (r_loc >= excl && r_loc < incl) {
+                int rem = r_loc - excl;
                 int win = -1;
-                for (int i = lo; i < hi && win < 0; ++i) {
+                for (int i = wlo; i < whi && win < 0; ++i) {
                     unsigned bits = ballots[i];
                     const int c = __popc(bits);
                     if (rem < c) {
                         for (int j = 0; j < rem; ++j) bits &= bits - 1;
-                        win = i * 32 + __ffs(bits) - 1;
+                        win = lo + i * 32 + __ffs(bits) - 1;
                     } else {
                         rem -= c;
                     }
@@ -564,8 +777,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         __syncthreads();
 
         // the winner's row: used, nonzero_used, sel_counts, its domains'
-        // carried counts and its IPA plane rows
+        // carried counts and its IPA plane rows, by the block that owns it
         const int win = win_sh;
+        if (win < 0) {  // another block of the cluster owns the winner
+            comm.step_end();
+            continue;
+        }
         for (int r = tid; r < p.R; r += SCAN_NT) used[(size_t)win * p.R + r] += f[p.f_req + r];
         if (tid < 2) nonzero_used[(size_t)win * 2 + tid] += f[p.f_nz_req + tid];
         for (int s = tid; s < S; s += SCAN_NT) sel_counts[(size_t)win * S + s] += f[p.f_sig_match + s];
@@ -622,6 +839,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             }
             __syncthreads();
         }
+        comm.step_end();
     }
     return end;
 }

@@ -24,15 +24,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# kernel name -> source file; the sources include the shared headers
-# (csrc/*.cuh)
+# library name -> source file; the sources include the shared headers
+# (csrc/*.cuh). A library exports launch_<kernel> for its kernels: each
+# its own, and fit_and_score also K7's launch_wave_fit_and_score
 SOURCES = {
     "static_parts": "static_parts.cu",
     "assign_scan": "assign_scan.cu",
     "scatter_rows": "scatter_rows.cu",
     "fit_and_score": "fit_and_score.cu",
     "gang_assign": "gang_assign.cu",
+    "sharded_assign": "sharded_assign.cu",
 }
+
+# a launcher's own code (beside CUDA's error codes): K6's cluster of n
+# blocks cannot be resident at once on this card
+CLUSTER_DOES_NOT_FIT = -2
 
 # -fmad=false: no a*b+c contraction (the float32 lines must round per op as
 # numpy and XLA do); -prec-div/-prec-sqrt spell out the IEEE defaults, and
@@ -104,23 +110,28 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, f"launch_{name}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
 
 
-def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int) -> None:
-    """Call launch_<name>(&params, ptrs, stream); raise on a refused launch."""
-    lib = load(name)
+def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
+           lib: str | None = None) -> None:
+    """Call launch_<name>(&params, ptrs, stream) of library `lib` (default:
+    the library of the same name); raise on a refused launch."""
+    dll = load(lib or name)
+    fn = getattr(dll, f"launch_{name}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
-    code = getattr(lib, f"launch_{name}")(
-        ctypes.addressof(params), ctypes.addressof(arr), stream)
+    code = fn(ctypes.addressof(params), ctypes.addressof(arr), stream)
+    if code == CLUSTER_DOES_NOT_FIT:
+        raise RuntimeError(f"{name}: a cluster of {getattr(params, 'n_shards', '?')} "
+                           "blocks cannot be resident on this card "
+                           "(cudaOccupancyMaxActiveClusters is 0)")
     if code != 0:
-        msg = lib.kernel_error_string(code).decode()
+        msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
@@ -165,6 +176,10 @@ class ScanParams(ctypes.Structure):
 
 class GangParams(ctypes.Structure):
     _fields_ = [("scan", ScanParams)] + _ints("rows", "n_constrained", "has_fallback")
+
+
+class ShardParams(ctypes.Structure):
+    _fields_ = [("scan", ScanParams)] + _ints("n_shards")
 
 
 class FitParams(ctypes.Structure):

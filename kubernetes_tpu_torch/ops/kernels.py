@@ -9,7 +9,8 @@ over the node axis and a wave of pods as a lax.scan. This module ports:
   over the wave's pods or over its signature rows only
 - assign_scan   (K2, csrc/assign_scan.cu)  — _batched_assign_jit's scan:
   the non-dedup tier and the signature two-tier replay, with hard spread
-  constraints and inter-pod affinity (cross-wave seeding aside)
+  constraints and inter-pod affinity, the chained wave's cross-wave seed of
+  the signature table and its device tie cursor
 - scatter_rows  (K3, csrc/scatter_rows.cu) — backend._scatter_rows_jit
 - fit_and_score (K4, csrc/fit_and_score.cu) — _fit_and_score_jit: one pod
   against every node, every filter (hard spread and inter-pod affinity
@@ -17,9 +18,16 @@ over the node axis and a wave of pods as a lax.scan. This module ports:
 - gang_assign   (K5, csrc/gang_assign.cu)  — _gang_assign_jit with
   _gang_placement_score: a gang's member scan over every placement mask at
   once (K2's step, shared) and the all-or-nothing domain pick
+- sharded_assign (K6, csrc/sharded_assign.cu) — parallel/mesh.py's
+  _sharded_assign_jit: K2's scan with the node axis cut into 1, 2, 4 or 8
+  shards, one block of a thread-block cluster each (K2's step, shared)
+- wave_fit_and_score (K7, csrc/fit_and_score.cu) — parallel/mesh.py's
+  _wave_fit_and_score_jit: the pods x nodes feasible / total matrix, K4's
+  device code with one block per pod
 
 Each has a plain version beside it (`*_ref`) computing the same function
-with torch ops. A wrapper runs the plain version only when its tensors lie
+with torch ops; the plain versions take the reference's reduction scope
+(LocalComm, or ShardComm for node shards). A wrapper runs the plain version only when its tensors lie
 on the CPU; on CUDA tensors it launches the kernel or raises. The plain
 versions are the CPU tests' subject and the chip smoke run's oracle.
 
@@ -64,7 +72,11 @@ _INT32_MAX = 2**31 - 1
 # launches of each CUDA kernel; every wrapper adds one where it launches its
 # kernel and nowhere else (reset_launches() zeroes them)
 LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
-            "fit_and_score": 0, "gang_assign": 0}
+            "fit_and_score": 0, "gang_assign": 0, "sharded_assign": 0,
+            "wave_fit_and_score": 0}
+
+# K6's node-shard counts: the blocks of one portable thread-block cluster
+CLUSTER_SHARDS = (1, 2, 4, 8)
 
 # Filter mask rows (first-failure priority == host plugin order); the PTS
 # missing-key and skew rows (one per constraint slot) and the three
@@ -88,9 +100,106 @@ def reset_launches() -> None:
 
 class OutOfSlice(NotImplementedError):
     """The caller asks for a configuration or a path this port does not run
-    yet (a slot or domain count past the kernels' fixed capacities;
-    cross-wave reuse of the signature table; in the single-pod cycle, the
-    host framework's paths). Raised instead of computing an answer."""
+    yet: a slot or domain count past the kernels' fixed capacities, or in
+    the single-pod cycle one of the host framework's paths (a nominated
+    pod, a pod the host composes). Raised instead of computing an answer."""
+
+
+# --------------------------------------------------------------------------
+# reduction scope: the whole node axis, or node shards
+# --------------------------------------------------------------------------
+#
+# The reference routes every cross-node reduction of its kernels through a
+# comm object (kubernetes_tpu/ops/kernels.py:81-131): LocalComm on one
+# device, AxisComm inside a shard_map over the nodes axis, where each
+# reduction becomes a psum/pmax/pmin of shard partials and the winner pick
+# one all_gather of per-shard tie counts. The plain versions here take the
+# same argument. Their tensors always hold the whole node axis; ShardComm
+# cuts it into n equal, contiguous shard ranges, reduces each range first
+# and then folds the n partials in shard order, as K6's cluster of n CTAs
+# does on the card. Every reduction is a max, a min or an int32 sum, so the
+# result is the same whatever the shard count: the sharded scan equals the
+# unsharded one bit for bit (float32 is summed only per node).
+
+
+class LocalComm:
+    """The whole node axis as one shard: plain reductions."""
+
+    n_shards = 1
+
+    def vmax(self, x: torch.Tensor) -> torch.Tensor:
+        return x.max()
+
+    def vmin(self, x: torch.Tensor) -> torch.Tensor:
+        return x.min()
+
+    def vsum(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dtype=torch.int64)
+
+    def seg(self, idx: torch.Tensor, vals: torch.Tensor, size: int) -> torch.Tensor:
+        """Per-segment int32 sums of vals [Nb, ...] by segment id idx [Nb]."""
+        out = torch.zeros((size,) + tuple(vals.shape[1:]), dtype=torch.int32,
+                          device=vals.device)
+        return out.index_add_(0, idx, vals.to(torch.int32))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Each shard's sum of x [Nb] (the reference's all_gather of the
+        per-shard tie counts): [n_shards] int64."""
+        return x.sum(dtype=torch.int64)[None]
+
+    def publish(self, col: torch.Tensor, row: int) -> int:
+        """col[row] as every shard learns it from the row's owner."""
+        return int(col[row])
+
+
+class ShardComm(LocalComm):
+    """n_shards contiguous node ranges of equal size (the reference's
+    AxisComm over the nodes axis): every reduction runs per range, then
+    across the ranges in shard order."""
+
+    def __init__(self, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"{n_shards} node shards")
+        self.n_shards = int(n_shards)
+
+    def _ranges(self, x: torch.Tensor) -> torch.Tensor:
+        nb = x.shape[0]
+        if nb % self.n_shards:
+            raise ValueError(f"node bucket {nb} not divisible by "
+                             f"{self.n_shards} node shards")
+        return x.reshape((self.n_shards, nb // self.n_shards) + tuple(x.shape[1:]))
+
+    def _fold(self, parts, op):
+        out = parts[0]
+        for r in range(1, self.n_shards):
+            out = op(out, parts[r])
+        return out
+
+    def vmax(self, x):
+        return self._fold([r.max() for r in self._ranges(x)], torch.maximum)
+
+    def vmin(self, x):
+        return self._fold([r.min() for r in self._ranges(x)], torch.minimum)
+
+    def vsum(self, x):
+        return self._fold([r.sum(dtype=torch.int64) for r in self._ranges(x)],
+                          torch.add)
+
+    def seg(self, idx, vals, size):
+        parts = [LocalComm.seg(self, i, v, size)
+                 for i, v in zip(self._ranges(idx), self._ranges(vals))]
+        return self._fold(parts, torch.add)
+
+    def gather(self, x):
+        return torch.stack([r.sum(dtype=torch.int64) for r in self._ranges(x)])
+
+    def publish(self, col, row):
+        # the owner adds col[row] + 1, every other shard 0 (kernels.py:1162)
+        iota = torch.arange(col.shape[0], device=col.device)
+        return int(self.vsum(torch.where(iota == row, col.to(torch.int64) + 1, 0))) - 1
+
+
+LOCAL_COMM = LocalComm()
 
 
 @dataclass(frozen=True)
@@ -173,8 +282,18 @@ def _check_common(cfg: KernelConfig) -> None:
 def log_weight_table(nb: int) -> np.ndarray:
     """float32 log(n + 2) for n in [0, nb]: PodTopologySpread's
     topologyNormalizingWeight for a domain count n, computed once with numpy
-    (np.log of a float32), as the host plugin computes it. The reference
-    kernel's jnp.log differs from it by one ulp at some n; see the tests."""
+    (np.log of a float32), as the host plugin computes it
+    (kubernetes_tpu/scheduler/plugins/pod_topology_spread.py:242).
+
+    The one exception to bit-exactness with the reference kernel: its
+    jnp.log differs from this table by one ulp at 527 values of n + 2 in
+    2..20001 (the first 37, 49, 179, 217), and where count * weight lands
+    next to an integer the spread score differs. On 47 nodes with 379, 389
+    and 374 matching pods on n0, n1 and the rest, n0 scores 67 here and in
+    the host plugin, 65 in JAX fit_and_score (tests/test_torch_fit.py,
+    test_spread_log_weight_follows_the_host_plugin). jnp.log is XLA's on
+    the platform it runs on; the host plugin's value is the one a port
+    can pin."""
     return np.log(np.arange(2, nb + 3, dtype=np.float32))
 
 
@@ -412,7 +531,7 @@ def _fit_fail(alloc, used, req):
 
 
 def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int,
-                      dseg: int = 0):
+                      dseg: int = 0, comm=LOCAL_COMM):
     """One spread constraint's domain statistics (kernels.py:198):
     (has_key [Nb], count_at_node [Nb], min_count, ndom), the last two
     0-dim tensors. `mask` selects the participating nodes: every valid node
@@ -437,14 +556,13 @@ def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int,
     dk = cfg.topo_domains[key_i]
     if dk == 0:  # singleton key (hostname): the domain is the node
         count = cnt
-        min_c = torch.where(part.any(), torch.where(part, cnt, _INT32_MAX).min(), 0)
-        ndom = part.sum()
+        min_c = torch.where(comm.vmax(part),
+                            comm.vmin(torch.where(part, cnt, _INT32_MAX)), 0)
+        ndom = comm.vsum(part)
     else:
         dom_c = dom.clamp(0, dk - 1).long()
-        seg = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
-            0, dom_c, torch.where(part, cnt, 0))
-        pc = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
-            0, dom_c, part.to(torch.int32))
+        seg = comm.seg(dom_c, torch.where(part, cnt, 0), dk)
+        pc = comm.seg(dom_c, part, dk)
         present = pc > 0
         count = seg[dom_c]
         min_c = torch.where(present.any(), torch.where(present, seg, _INT32_MAX).min(), 0)
@@ -454,12 +572,12 @@ def _pts_domain_stats(cfg, domain, sel_counts, mask, key_i: int, sel_i: int,
     return (has_key, count, min_c, ndom) + tables
 
 
-def _pts_normalize(raw, any_active, feasible):
+def _pts_normalize(raw, any_active, feasible, comm=LOCAL_COMM):
     """scoring.go:266-305: inverted min/max normalization over the feasible
     set (kernels.py:614). int32 throughout: with no feasible node the
     spread wraps as the reference's does."""
-    mx = torch.where(feasible, raw, -_INT32_MAX).max()
-    mn = torch.where(feasible, raw, _INT32_MAX).min()
+    mx = comm.vmax(torch.where(feasible, raw, -_INT32_MAX))
+    mn = comm.vmin(torch.where(feasible, raw, _INT32_MAX))
     spread = mx - mn
     normed = torch.where(spread == 0, MAX_NODE_SCORE,
                          floordiv((mx - raw) * MAX_NODE_SCORE, spread.clamp(min=1)))
@@ -467,7 +585,7 @@ def _pts_normalize(raw, any_active, feasible):
 
 
 def _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab,
-                    capture=None):
+                    capture=None, comm=LOCAL_COMM):
     """podtopologyspread scoring.go:118-305 over the live feasible set
     (kernels.py:630): per-domain counts weighted by log(domains + 2),
     inverted min/max normalization. Returns (score [Nb], segs, pcs): with
@@ -490,20 +608,23 @@ def _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab,
             continue  # the reference adds +0.0 for an inactive slot
         stats = _pts_domain_stats(
             cfg, domain, sel_counts, feasible, int(f["soft_key"][p, c]),
-            int(f["soft_sel"][p, c]), dseg=0 if capture is None else capture[1])
+            int(f["soft_sel"][p, c]), dseg=0 if capture is None else capture[1],
+            comm=comm)
         if capture is not None:
             segs[c], pcs[c] = stats[4], stats[5]
         if on:
             has_key, count, _, nd = stats[:4]
             cost = cost + torch.where(has_key, count.to(torch.float32) * logtab[nd], 0.0)
-    return _pts_normalize(cost.to(torch.int32), active.any(), feasible), segs, pcs
+    return _pts_normalize(cost.to(torch.int32), active.any(), feasible, comm), segs, pcs
 
 
-def _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab):
-    return _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab)[0]
+def _pts_score(cfg, domain, sel_counts, feasible, f, p, logtab, comm=LOCAL_COMM):
+    return _pts_score_core(cfg, domain, sel_counts, feasible, f, p, logtab,
+                           comm=comm)[0]
 
 
-def _pts_score_carried(cfg, domain, sel_counts, feasible, f, p, logtab, segs, pcs):
+def _pts_score_carried(cfg, domain, sel_counts, feasible, f, p, logtab, segs, pcs,
+                       comm=LOCAL_COMM):
     """The spread score of a replayed step (kernels.py:673) from the
     signature's carried per-domain tables: a singleton key reads the live
     sel_counts and counts its domains over the feasible set, any other key
@@ -524,12 +645,12 @@ def _pts_score_carried(cfg, domain, sel_counts, feasible, f, p, logtab, segs, pc
         has_key = dom >= 0
         if cfg.topo_domains[key_i] == 0:
             count = sel_counts[:, int(f["soft_sel"][p, c])]
-            nd = (feasible & has_key).sum()
+            nd = comm.vsum(feasible & has_key)
         else:
             count = segs[c][dom.clamp(0, dseg - 1).long()]
             nd = (pcs[c] > 0).sum()
         cost = cost + torch.where(has_key, count.to(torch.float32) * logtab[nd], 0.0)
-    return _pts_normalize(cost.to(torch.int32), active.any(), feasible)
+    return _pts_normalize(cost.to(torch.int32), active.any(), feasible, comm)
 
 
 _POW2 = 2 ** torch.arange(32, dtype=torch.int64)
@@ -551,7 +672,7 @@ def dedup_fast_capable(cfg: KernelConfig) -> bool:
     return True
 
 
-def _dom_counts_init(cfg: KernelConfig, planes: dict):
+def _dom_counts_init(cfg: KernelConfig, planes: dict, comm=LOCAL_COMM):
     """The hard-spread carry (kernels.py:820): dom_counts [K, Dmax, S], the
     sum of sel_counts over each domain's valid nodes carrying the key, and
     the static present [K, Dmax]; (None, None) without hard slots or
@@ -569,14 +690,13 @@ def _dom_counts_init(cfg: KernelConfig, planes: dict):
         dom = domain[:, k]
         part = valid & (dom >= 0)
         dom_c = dom.clamp(0, dk - 1).long()
-        counts[k, :dk].index_add_(0, dom_c, torch.where(part[:, None], sel, 0))
-        present[k, :dk] = torch.zeros(dk, dtype=torch.int32, device=dev).index_add_(
-            0, dom_c, part.to(torch.int32)) > 0
+        counts[k, :dk] = comm.seg(dom_c, torch.where(part[:, None], sel, 0), dk)
+        present[k, :dk] = comm.seg(dom_c, part, dk) > 0
     return counts, present
 
 
 def _pts_hard_carried(cfg, planes, sel_counts, dom_counts, present,
-                      key_i: int, sel_i: int):
+                      key_i: int, sel_i: int, comm=LOCAL_COMM):
     """A hard constraint's (has_key, count_at_node, min_count) from the
     carried dom_counts (kernels.py:855): a singleton key takes the min over
     the valid nodes carrying it, any other key over its present domains."""
@@ -591,14 +711,14 @@ def _pts_hard_carried(cfg, planes, sel_counts, dom_counts, present,
         cnt = sel_counts[:, sel_i]
         part = planes["valid"] & has_key
         return has_key, cnt, torch.where(
-            part.any(), torch.where(part, cnt, _INT32_MAX).min(), 0)
+            comm.vmax(part), comm.vmin(torch.where(part, cnt, _INT32_MAX)), 0)
     seg = dom_counts[key_i][:, sel_i]
     pres = present[key_i]
     return (has_key, seg[dom.clamp(0, dom_counts.shape[1] - 1).long()],
             torch.where(pres.any(), torch.where(pres, seg, _INT32_MAX).min(), 0))
 
 
-def _live_fail(cfg, live: dict, fp: dict, dom_counts, present):
+def _live_fail(cfg, live: dict, fp: dict, dom_counts, present, comm=LOCAL_COMM):
     """The carry-dependent filters of a scan step (kernels.py:974-1003,
     :1073-1094), OR-ed into one [Nb] reject row: each active hard spread
     slot (missing key, or skew over maxSkew) and InterPodAffinity's three
@@ -610,27 +730,28 @@ def _live_fail(cfg, live: dict, fp: dict, dom_counts, present):
         key_i, sel_i = int(fp["hard_key"][c]), int(fp["hard_sel"][c])
         if dom_counts is not None:
             has_key, count, min_c = _pts_hard_carried(
-                cfg, live, live["sel_counts"], dom_counts, present, key_i, sel_i)
+                cfg, live, live["sel_counts"], dom_counts, present, key_i, sel_i, comm)
         else:
             has_key, count, min_c, _ = _pts_domain_stats(
-                cfg, live["domain"], live["sel_counts"], live["valid"], key_i, sel_i)
+                cfg, live["domain"], live["sel_counts"], live["valid"], key_i, sel_i,
+                comm=comm)
         skew = count + fp["hard_self"][c] - min_c
         fail = fail | ~has_key | (skew > fp["hard_skew"][c])
     if cfg.ipa_active:
-        for row in _ipa_filters(cfg, live, fp):
+        for row in _ipa_filters(cfg, live, fp, comm):
             fail = fail | row
     return fail
 
 
-def _finish_total(cfg, ew, pts, static: dict, s: int, feasible):
+def _finish_total(cfg, ew, pts, static: dict, s: int, feasible, comm=LOCAL_COMM):
     """kernels.py:887: the fit + balanced partial, the spread score and the
     static raws of static row s normalized over the live feasible set."""
     tc = static["taint_cnt"][s]
-    max_tc = torch.where(feasible, tc, 0).max()
+    max_tc = comm.vmax(torch.where(feasible, tc, 0))
     taint = torch.where(max_tc > 0, MAX_NODE_SCORE - floordiv(
         tc * MAX_NODE_SCORE, max_tc.clamp(min=1)), MAX_NODE_SCORE)
     ar = static["aff_raw"][s]
-    mx_aff = torch.where(feasible, ar, 0).max()
+    mx_aff = comm.vmax(torch.where(feasible, ar, 0))
     aff = torch.where(mx_aff > 0, floordiv(ar * MAX_NODE_SCORE, mx_aff.clamp(min=1)), ar)
     return (ew + pts * cfg.weight("PodTopologySpread")
             + static["img"][s] * cfg.weight("ImageLocality")
@@ -654,7 +775,8 @@ def _tie_draw(nw: int, words, cursor: int, draw_slots):
     return int(r[first]), cursor + first + 1, False
 
 
-def _patch_rows(cfg, planes, live, tab, uf, static, win: int, sel_prev):
+def _patch_rows(cfg, planes, live, tab, uf, static, win: int, sel_prev,
+                comm=LOCAL_COMM):
     """kernels.py:1174-1237: after a placement at `win`, every resident
     signature row takes that column's new fit score, fit filter and
     feasibility (from the updated used row and the signature's own
@@ -683,9 +805,11 @@ def _patch_rows(cfg, planes, live, tab, uf, static, win: int, sel_prev):
                  - torch.where(feas_old, sel_prev[sel_c], 0))
         pc_d = feas_w.to(torch.int32) - feas_old.to(torch.int32)
         for k, dk in enumerate(cfg.topo_domains):
-            d = int(planes["domain"][win, k])
-            if dk == 0 or d < 0:
+            if dk == 0:
                 continue  # singleton keys replay from sel_counts directly
+            d = comm.publish(planes["domain"][:, k], win)
+            if d < 0:
+                continue
             in_k = ok & (key_c == k)
             d = min(d, dseg - 1)
             tab["segs"][:, c, d] += torch.where(in_k, seg_d, 0)
@@ -710,9 +834,11 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
                     sig_ids: torch.Tensor | None = None,
                     uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
                     carry_map: torch.Tensor | None = None,
-                    sig_table: dict | None = None) -> dict:
+                    sig_table: dict | None = None, comm=LOCAL_COMM) -> dict:
     """Plain version of K2: a Python loop over the wave's pods following the
-    reference's _assign_step (kernels.py:925-1250) branch by branch.
+    reference's _assign_step (kernels.py:925-1250) branch by branch. With
+    comm=ShardComm(n) it is the plain version of K6 (sharded_assign_ref):
+    every pass over the nodes reduces per shard range, then across shards.
 
     Without sig_ids, the non-dedup tier: static row p for pod p. With
     sig_ids [P] / uniq_idx [C] (signature dedup), static holds one row per
@@ -741,7 +867,7 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
         carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
     for k in carried:
         live[k] = planes[k].clone()
-    dom_counts, present = _dom_counts_init(cfg, planes)
+    dom_counts, present = _dom_counts_init(cfg, planes, comm)
     # the words as unsigned values in int64 (torch lacks uint32 shifts)
     words = tie_words.to(torch.int64) & 0xFFFFFFFF
     draw_slots = torch.arange(MAX_TIE_DRAWS, dtype=torch.int64, device=dev)
@@ -777,17 +903,18 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
         s = int(sig_ids[p]) if fast else p
         req, nz_req = fp["req"], fp["nz_req"]
         used, nz_used = live["used"], live["nonzero_used"]
-        fail = _live_fail(cfg, live, fp, dom_counts, present)
+        fail = _live_fail(cfg, live, fp, dom_counts, present, comm)
         replay = fast and bool(tab["valid"][s])
         if replay and gated:
             # the resident t_ffit column is exact, so this IS the full
             # tier's feasibility; replay only where the row agrees with it
+            # on every shard (kernels.py:1012-1016)
             feas_live = static["static_ok"][s] & ~tab["ffit"][s] & ~fail
-            replay = torch.equal(feas_live, tab["feas"][s])
+            replay = not bool(comm.vsum(feas_live != tab["feas"][s]))
         if replay:
             feasible, ew = tab["feas"][s], tab["ew"][s]
             pts = _pts_score_carried(cfg, domain, live["sel_counts"], feasible, f,
-                                     p, logtab, tab["segs"][s], tab["pcs"][s])
+                                     p, logtab, tab["segs"][s], tab["pcs"][s], comm)
         else:
             f_fit = _fit_fail(alloc, used, req)
             feasible = static["static_ok"][s] & ~f_fit & ~fail
@@ -795,42 +922,51 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
                   + _balanced_score(cfg, alloc, used, nz_used, req, nz_req) * w_bal)
             pts, segs, pcs = _pts_score_core(
                 cfg, domain, live["sel_counts"], feasible, f, p, logtab,
-                capture=(ct, dmax) if fast else None)
+                capture=(ct, dmax) if fast else None, comm=comm)
             if fast:
                 tab["ew"][s], tab["ffit"][s], tab["feas"][s] = ew, f_fit, feasible
                 tab["segs"][s], tab["pcs"][s] = segs, pcs
                 tab["valid"][s] = True
-        total = _finish_total(cfg, ew, pts, static, s, feasible)
+        total = _finish_total(cfg, ew, pts, static, s, feasible, comm)
         if cfg.ipa_active:
-            total = total + _ipa_score(cfg, live, fp, feasible) * cfg.weight(
+            total = total + _ipa_score(cfg, live, fp, feasible, comm) * cfg.weight(
                 "InterPodAffinity")
         if fast:
             tiers[int(replay)] += 1
             if not replay:
                 sig_scores[s] = torch.where(feasible, total, -1)
-        best = int(torch.where(feasible, total, -1).max())
+        best = int(comm.vmax(torch.where(feasible, total, -1)))
         if best < 0 or not active:
             winners.append(-1)
             continue
+        # the winner pick (kernels.py:1116-1150): each shard's tie count,
+        # the global count, the replicated draw, the shard whose prefix
+        # range holds it and its local index; node order is shard-major
         mask = feasible & (total == best)
-        r, cursor, over = _tie_draw(int(mask.sum()), words, cursor, draw_slots)
+        ties = comm.gather(mask)
+        r, cursor, over = _tie_draw(int(ties.sum()), words, cursor, draw_slots)
         overflow |= over
-        win = int(torch.nonzero(mask)[r, 0])
+        prefix = torch.cumsum(ties, 0) - ties
+        owner = int(((prefix <= r) & (r < prefix + ties)).to(torch.int32).argmax())
+        nb_local = mask.shape[0] // comm.n_shards
+        local = mask[owner * nb_local: (owner + 1) * nb_local]
+        win = owner * nb_local + int(torch.nonzero(local)[r - int(prefix[owner]), 0])
         sel_prev = live["sel_counts"][win].clone()
         used[win] += req
         nz_used[win] += nz_req
         live["sel_counts"][win] += fp["sig_match"]
         if dom_counts is not None:
+            # replicated: every shard learns the winner's domain ids
             for k, dk in enumerate(cfg.topo_domains):
-                d = int(domain[win, k])
-                if dk and 0 <= d < dom_counts.shape[1]:
+                d = comm.publish(domain[:, k], win) if dk else -1
+                if 0 <= d < dom_counts.shape[1]:
                     dom_counts[k, d] += fp["sig_match"]
         if cfg.ipa_active:
             live["ipa_counts"][win] += fp["ipa_match"]
             live["ipa_anti"][win] += fp["ipa_anti_add"]
             live["ipa_pref"][win] += fp["ipa_pref_add"]
         if fast:
-            _patch_rows(cfg, planes, live, tab, uf, static, win, sel_prev)
+            _patch_rows(cfg, planes, live, tab, uf, static, win, sel_prev, comm)
         winners.append(win)
     out = {"packed": torch.tensor(winners + [cursor, int(overflow)],
                                   dtype=torch.int32, device=dev)}
@@ -957,6 +1093,57 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     itself: no device-to-host copy. With carry_map [C] and sig_table (the
     previous chained wave's table, with dedup only) the kernel seeds this
     wave's table from it; the output table is new memory either way."""
+    return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
+                   logtab, None, sig_ids, uniq_idx, frame_shift, carry_map, sig_table)
+
+
+def sharded_assign_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
+                       tie_words: torch.Tensor, cursor_init, logtab: torch.Tensor,
+                       n_shards: int, sig_ids: torch.Tensor | None = None,
+                       uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
+                       carry_map: torch.Tensor | None = None,
+                       sig_table: dict | None = None) -> dict:
+    """Plain version of K6: the plain scan with the node axis cut into
+    n_shards ranges (ShardComm), as the reference's _sharded_assign_jit runs
+    _batched_assign_core under AxisComm. Same outputs as assign_scan_ref;
+    node indices (winners, sig_scores columns) are global."""
+    return assign_scan_ref(cfg, planes, static, f, tie_words, cursor_init, logtab,
+                           sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
+                           comm=ShardComm(n_shards))
+
+
+def check_shards(n_shards: int, nb: int) -> None:
+    """K6's shard count: the blocks of one cluster, dividing the bucket."""
+    if n_shards not in CLUSTER_SHARDS:
+        raise ValueError(f"{n_shards} node shards: a shard is one block of a "
+                         f"thread-block cluster, which holds 1, 2, 4 or 8 "
+                         f"(the portable cluster sizes)")
+    if nb % n_shards:
+        raise ValueError(f"node bucket {nb} not divisible by {n_shards} node shards")
+
+
+def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
+                   packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
+                   cursor_init, logtab: torch.Tensor, n_shards: int,
+                   sig_ids: torch.Tensor | None = None,
+                   uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
+                   carry_map: torch.Tensor | None = None,
+                   sig_table: dict | None = None) -> dict:
+    """K6 wrapper: assign_scan's inputs and output dict over n_shards node
+    shards, one block of a thread-block cluster each (the plain version,
+    sharded_assign_ref, for CPU tensors). The chained-wave arguments are
+    K2's: cursor_init as a device tensor, frame_shift, carry_map and
+    sig_table."""
+    check_shards(n_shards, planes["alloc"].shape[0])
+    return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
+                   logtab, n_shards, sig_ids, uniq_idx, frame_shift, carry_map,
+                   sig_table)
+
+
+def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab,
+            n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table) -> dict:
+    """K2 (n_shards None) or K6: the checks, the plain version on the CPU,
+    else the outputs' allocation and the launch."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -967,13 +1154,15 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     if carry_map is not None and sig_ids is None:
         raise ValueError("cross-wave reuse needs signature dedup")
     device = packed_f.device
+    kernel = "assign_scan" if n_shards is None else "sharded_assign"
     if device.type == "cpu":
         return assign_scan_ref(cfg, planes, static,
                                unpack_features(packed_f, layout), tie_words,
                                cursor_init, logtab, sig_ids, uniq_idx,
-                               frame_shift, carry_map, sig_table)
+                               frame_shift, carry_map, sig_table,
+                               comm=LOCAL_COMM if n_shards is None else ShardComm(n_shards))
     if device.type != "cuda":
-        raise ValueError(f"assign_scan runs on cpu or cuda, not {device}")
+        raise ValueError(f"{kernel} runs on cpu or cuda, not {device}")
     from . import cuda
 
     P = packed_f.shape[0]
@@ -1047,8 +1236,12 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
             "ew", "ffit", "feas", "segs", "pcs")]
     else:
         ptrs += [0] * 6
-    cuda.launch("assign_scan", p, ptrs, _stream(device))
-    LAUNCHES["assign_scan"] += 1
+    if n_shards is None:
+        cuda.launch("assign_scan", p, ptrs, _stream(device))
+    else:
+        cuda.launch("sharded_assign", cuda.ShardParams(scan=p, n_shards=n_shards), ptrs,
+                    _stream(device))
+    LAUNCHES[kernel] += 1
     return out
 
 
@@ -1230,7 +1423,7 @@ def scatter_rows(dst: dict, rows: dict, idx: torch.Tensor) -> None:
 # --------------------------------------------------------------------------
 
 
-def _domain_sum_at_node(cfg, domain, k: int, col, part):
+def _domain_sum_at_node(cfg, domain, k: int, col, part, comm=LOCAL_COMM):
     """kernels.py:303 — (has_key [Nb], at_node [Nb]): at_node[i] sums col
     over the participating nodes of i's domain of key slot k; a singleton
     key's domain sum is the node's own (masked) value."""
@@ -1241,12 +1434,10 @@ def _domain_sum_at_node(cfg, domain, k: int, col, part):
     if dk == 0:
         return has_key, masked
     dom_c = dom.clamp(0, dk - 1).long()
-    seg = torch.zeros(dk, dtype=torch.int32, device=dom.device).index_add_(
-        0, dom_c, masked)
-    return has_key, seg[dom_c]
+    return has_key, comm.seg(dom_c, masked, dk)[dom_c]
 
 
-def _ipa_term_stats(cfg, planes, t: int, part):
+def _ipa_term_stats(cfg, planes, t: int, part, comm=LOCAL_COMM):
     """kernels.py:328 — one interned term's (has_key [Nb], count_at_node
     [Nb], anywhere): its matching-pod counts summed per domain of the term's
     topology key over the participating nodes. The term slot is clamped
@@ -1258,8 +1449,8 @@ def _ipa_term_stats(cfg, planes, t: int, part):
     if not 0 <= key_i < len(cfg.topo_domains):
         z = torch.zeros_like(cnt)
         return z.bool(), z, False
-    has_key, at = _domain_sum_at_node(cfg, planes["domain"], key_i, cnt, part)
-    anywhere = bool(torch.where(part & has_key, cnt, 0).sum() > 0)
+    has_key, at = _domain_sum_at_node(cfg, planes["domain"], key_i, cnt, part, comm)
+    anywhere = bool(comm.vsum(torch.where(part & has_key, cnt, 0)) > 0)
     return has_key, at, anywhere
 
 
@@ -1277,7 +1468,7 @@ def _existing_term_cols(cfg, planes, plane: str, fp):
             yield k, (planes[plane] * w).sum(1, dtype=torch.int32)
 
 
-def _ipa_filters(cfg, planes, fp):
+def _ipa_filters(cfg, planes, fp, comm=LOCAL_COMM):
     """InterPodAffinity's three checks (filtering.go:352-412, kernels.py:347):
     (existing pods' anti-affinity, the pod's anti-affinity, the pod's
     affinity) reject rows over every valid node."""
@@ -1287,19 +1478,19 @@ def _ipa_filters(cfg, planes, fp):
     fail3 = torch.zeros_like(valid)
     if cfg.ipa_existing_anti:
         for k, col in _existing_term_cols(cfg, planes, "ipa_anti", fp):
-            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, valid)
+            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, valid, comm)
             fail1 = fail1 | (has_key & (at > 0))
     for s in range(min(cfg.max_ipa_terms, cfg.n_ipa_anti)):
         t = int(fp["ipa_anti_t"][s])
         if t < 0:
             continue  # inactive slot
-        has_key, at, _ = _ipa_term_stats(cfg, planes, t, valid)
+        has_key, at, _ = _ipa_term_stats(cfg, planes, t, valid, comm)
         fail2 = fail2 | (has_key & (at > 0))
     for s in range(min(cfg.max_ipa_terms, cfg.n_ipa_aff)):
         t = int(fp["ipa_aff_t"][s])
         if t < 0:
             continue
-        has_key, at, anywhere = _ipa_term_stats(cfg, planes, t, valid)
+        has_key, at, anywhere = _ipa_term_stats(cfg, planes, t, valid, comm)
         # self-match bootstrap: a term that matches nowhere passes when the
         # pod matches its own term
         if anywhere or not bool(fp["ipa_aff_self"][s]):
@@ -1307,7 +1498,7 @@ def _ipa_filters(cfg, planes, fp):
     return fail1, fail2, fail3
 
 
-def _ipa_score(cfg, planes, fp, feasible):
+def _ipa_score(cfg, planes, fp, feasible, comm=LOCAL_COMM):
     """InterPodAffinity score (scoring.go:81-257, kernels.py:396): weighted
     preferred-term matches per domain over the feasible nodes, min/max
     normalized; an all-equal spread scores 100 only when positive."""
@@ -1319,44 +1510,46 @@ def _ipa_score(cfg, planes, fp, feasible):
         t = int(fp["ipa_pref_t"][s])
         if t < 0:
             continue
-        has_key, at, _ = _ipa_term_stats(cfg, planes, t, feasible)
+        has_key, at, _ = _ipa_term_stats(cfg, planes, t, feasible, comm)
         raw = raw + torch.where(has_key, int(fp["ipa_pref_w"][s]) * at, 0)
     if cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing:
         for k, col in _existing_term_cols(cfg, planes, "ipa_pref", fp):
-            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, feasible)
+            has_key, at = _domain_sum_at_node(cfg, planes["domain"], k, col, feasible,
+                                              comm)
             raw = raw + torch.where(has_key, at, 0)
-    mx = torch.where(feasible, raw, -_INT32_MAX).max()
-    mn = torch.where(feasible, raw, _INT32_MAX).min()
+    mx = comm.vmax(torch.where(feasible, raw, -_INT32_MAX))
+    mn = comm.vmin(torch.where(feasible, raw, _INT32_MAX))
     spread = mx - mn
     return torch.where(
         spread == 0, torch.where(mx > 0, MAX_NODE_SCORE, 0),
         floordiv(MAX_NODE_SCORE * (raw - mn), spread.clamp(min=1)))
 
 
-def _taint_score(planes, fp, feasible):
+def _taint_score(planes, fp, feasible, comm=LOCAL_COMM):
     """taint_toleration.go:180-215 (kernels.py:590): intolerable
     PreferNoSchedule taints, inverted over the feasible set."""
     ptid = planes["prefer_taints"]
     tolp = (fp["tol_prefer"] != 0)[ptid.clamp(min=0).long()]
     count = ((ptid >= 0) & ~tolp).sum(1, dtype=torch.int32)
-    max_count = torch.where(feasible, count, 0).max()
+    max_count = comm.vmax(torch.where(feasible, count, 0))
     return torch.where(
         max_count > 0,
         MAX_NODE_SCORE - floordiv(count * MAX_NODE_SCORE, max_count.clamp(min=1)),
         MAX_NODE_SCORE)
 
 
-def _node_affinity_score(planes, tables, fp, feasible):
+def _node_affinity_score(planes, tables, fp, feasible, comm=LOCAL_COMM):
     """node_affinity.go:272 normalized to max 100 over the feasible set
     (kernels.py:604); the raw value where that max is 0."""
     sig = int(fp["aff_sig"])
     raw = tables["aff_pref"][sig][planes["group_id"].long()]
-    mx = torch.where(feasible, raw, 0).max()
+    mx = comm.vmax(torch.where(feasible, raw, 0))
     normed = torch.where(mx > 0, floordiv(raw * MAX_NODE_SCORE, mx.clamp(min=1)), raw)
     return torch.where(tables["aff_has_pref"][sig], normed, 0)
 
 
-def filter_masks_ref(cfg: KernelConfig, planes: dict, tables: dict, fp: dict):
+def filter_masks_ref(cfg: KernelConfig, planes: dict, tables: dict, fp: dict,
+                     comm=LOCAL_COMM):
     """Every filter plugin for one pod (kernels.py:442) → (fails [NF, Nb]
     bool, feasible [Nb], insufficient [R, Nb], too_many_pods [Nb]). fails
     rows: FILTER_NAMES, then the hard-spread missing-key rows and skew rows
@@ -1391,11 +1584,11 @@ def filter_masks_ref(cfg: KernelConfig, planes: dict, tables: dict, fp: dict):
             continue
         has_key, count, min_c, _ = _pts_domain_stats(
             cfg, planes["domain"], planes["sel_counts"], valid,
-            int(fp["hard_key"][c]), int(fp["hard_sel"][c]))
+            int(fp["hard_key"][c]), int(fp["hard_sel"][c]), comm=comm)
         skew = count + fp["hard_self"][c] - min_c
         missing.append(~has_key)
         skewed.append(has_key & (skew > fp["hard_skew"][c]))
-    ipa1, ipa2, ipa3 = _ipa_filters(cfg, planes, fp)
+    ipa1, ipa2, ipa3 = _ipa_filters(cfg, planes, fp, comm)
     fails = torch.stack([f_unsched, f_name, f_taint, f_aff | f_pin, f_ports, f_fit]
                         + missing + skewed + [ipa1, ipa2, ipa3])
     feasible = valid & ~fails.any(0)
@@ -1403,7 +1596,7 @@ def filter_masks_ref(cfg: KernelConfig, planes: dict, tables: dict, fp: dict):
 
 
 def scores_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict, p: int,
-               feasible, logtab):
+               feasible, logtab, comm=LOCAL_COMM):
     """Every score plugin for pod p of the feature views f (kernels.py:731):
     (weighted total [Nb], per-plugin scores) on every row, infeasible and
     pad rows included."""
@@ -1413,11 +1606,11 @@ def scores_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict, p: int,
         "NodeResourcesFit": _fit_score(cfg, alloc, used, nz, fp["req"], fp["nz_req"]),
         "NodeResourcesBalancedAllocation": _balanced_score(
             cfg, alloc, used, nz, fp["req"], fp["nz_req"]),
-        "TaintToleration": _taint_score(planes, fp, feasible),
-        "NodeAffinity": _node_affinity_score(planes, tables, fp, feasible),
+        "TaintToleration": _taint_score(planes, fp, feasible, comm),
+        "NodeAffinity": _node_affinity_score(planes, tables, fp, feasible, comm),
         "PodTopologySpread": _pts_score(cfg, planes["domain"], planes["sel_counts"],
-                                        feasible, f, p, logtab),
-        "InterPodAffinity": _ipa_score(cfg, planes, fp, feasible),
+                                        feasible, f, p, logtab, comm),
+        "InterPodAffinity": _ipa_score(cfg, planes, fp, feasible, comm),
         "ImageLocality": _image_score(planes, {k: v[p: p + 1] for k, v in f.items()})[0],
     }
     total = torch.zeros_like(per["NodeResourcesFit"])
@@ -1427,13 +1620,14 @@ def scores_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict, p: int,
 
 
 def fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict,
-                      logtab, p: int = 0) -> dict:
+                      logtab, p: int = 0, comm=LOCAL_COMM) -> dict:
     """Plain version of K4 (the reference's _fit_and_score_jit) for pod p of
     the feature views f: fails, feasible, insufficient, too_many_pods,
     total (-1 where infeasible) and per_plugin (every row, unmasked)."""
     fp = {k: v[p] for k, v in f.items()}
-    fails, feasible, insufficient, too_many = filter_masks_ref(cfg, planes, tables, fp)
-    total, per = scores_ref(cfg, planes, tables, f, p, feasible, logtab)
+    fails, feasible, insufficient, too_many = filter_masks_ref(cfg, planes, tables, fp,
+                                                               comm)
+    total, per = scores_ref(cfg, planes, tables, f, p, feasible, logtab, comm)
     return {"fails": fails, "feasible": feasible, "insufficient": insufficient,
             "too_many_pods": too_many, "total": torch.where(feasible, total, -1),
             "per_plugin": per}
@@ -1497,6 +1691,72 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
         raise ValueError(f"fit_and_score runs on cpu or cuda, not {device}")
     from . import cuda
 
+    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf)
+    _, per_pod = fit_output_bytes(nb, nf, R)
+    out = torch.empty((packed_f.shape[0], per_pod), dtype=torch.uint8, device=device)
+    if packed_f.shape[0]:
+        cuda.launch("fit_and_score", p, ptrs + [out.data_ptr()], _stream(device))
+        LAUNCHES["fit_and_score"] += 1
+    return out
+
+
+def wave_fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict,
+                           logtab) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7 (the reference's _wave_fit_and_score_jit): K4's
+    plain version for every pod of the feature views f against the same
+    planes, keeping (feasible [P, Nb] bool, total [P, Nb] int32, -1 where
+    infeasible)."""
+    outs = [fit_and_score_ref(cfg, planes, tables, f, logtab, p)
+            for p in range(f["active"].shape[0])]
+    nb = planes["valid"].shape[0]
+    dev = planes["valid"].device
+    if not outs:
+        return (torch.zeros((0, nb), dtype=torch.bool, device=dev),
+                torch.zeros((0, nb), dtype=torch.int32, device=dev))
+    return (torch.stack([o["feasible"] for o in outs]),
+            torch.stack([o["total"] for o in outs]).to(torch.int32))
+
+
+def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
+                       packed_f: torch.Tensor, layout,
+                       logtab: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 wrapper: the pods x nodes matrix, every pod of the [P, F] packed
+    features against the same planes with no assumes between them ->
+    (feasible [P, Nb] bool, total [P, Nb] int32, -1 where infeasible). The
+    plain version for CPU tensors, the kernel (K4's device code, one block
+    per pod, only these two outputs) for CUDA tensors."""
+    from .planes import unpack_features
+
+    check_fit_slice(cfg)
+    device = packed_f.device
+    if device.type == "cpu":
+        return wave_fit_and_score_ref(cfg, planes, tables,
+                                      unpack_features(packed_f, layout), logtab)
+    if device.type != "cuda":
+        raise ValueError(f"wave_fit_and_score runs on cpu or cuda, not {device}")
+    from . import cuda
+
+    nf = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
+    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf)
+    P, nb = packed_f.shape[0], planes["alloc"].shape[0]
+    feasible = torch.empty((P, nb), dtype=torch.bool, device=device)
+    total = torch.empty((P, nb), dtype=torch.int32, device=device)
+    raw = torch.empty((P, 2, nb), dtype=torch.int32, device=device)
+    if P:
+        cuda.launch("wave_fit_and_score", p,
+                    ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr()],
+                    _stream(device), lib="fit_and_score")
+        LAUNCHES["wave_fit_and_score"] += 1
+    return feasible, total
+
+
+def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.Tensor,
+                layout, logtab: torch.Tensor, nf: int):
+    """Check K4's and K7's inputs; their FitParams and input pointers."""
+    from . import cuda
+
+    device = packed_f.device
+    nb, R = planes["alloc"].shape
     P, F = packed_f.shape
     K = planes["domain"].shape[1]
     S = planes["sel_counts"].shape[1]
@@ -1566,19 +1826,13 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
         p.rtc_x[i], p.rtc_y[i] = x, y
     for i, dk in enumerate(cfg.topo_domains):
         p.topo_dk[i] = dk
-    _, per_pod = fit_output_bytes(nb, nf, R)
-    out = torch.empty((P, per_pod), dtype=torch.uint8, device=device)
     ptrs = [planes[k].data_ptr() for k in (
         "alloc", "used", "nonzero_used", "valid", "unsched", "group_id",
         "taints", "prefer_taints", "domain", "sel_counts", "port_words",
         "image_kib", "ipa_counts", "ipa_anti", "ipa_pref", "ipa_term_key")]
     ptrs += [tables[k].data_ptr() for k in (
         "aff_match", "aff_pref", "aff_allow", "aff_has_pref")]
-    ptrs += [packed_f.data_ptr(), logtab.data_ptr(), out.data_ptr()]
-    if P:
-        cuda.launch("fit_and_score", p, ptrs, _stream(device))
-        LAUNCHES["fit_and_score"] += 1
-    return out
+    return p, ptrs + [packed_f.data_ptr(), logtab.data_ptr()]
 
 
 # --------------------------------------------------------------------------
@@ -1592,11 +1846,14 @@ def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
                    sig_ids: torch.Tensor | None = None,
                    uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
                    carry_map: torch.Tensor | None = None,
-                   sig_table: dict | None = None) -> dict:
+                   sig_table: dict | None = None, n_shards: int | None = None) -> dict:
     """Greedy assignment of one padded pod wave (the reference's
     batched_assign): K1 over the pods, or with sig_ids/uniq_idx (signature
     dedup: sig_ids [P] int32 group ids, uniq_idx [C] int32 first-occurrence
-    slots) over the signature rows only, then K2. Decisions, tie stream and
+    slots) over the signature rows only, then K2; with n_shards, K6 over
+    that many node shards (the reference's sharded_batched_assign; K1's
+    outputs do not depend on the sharding: the reference's
+    _static_pod_parts uses its comm only for the global node index). Decisions, tie stream and
     planes are the same with and without dedup. Returns assign_scan's
     output dict: packed [P + 2] int32 = winners ++ [tie_consumed,
     tie_overflow], the carried planes, and with dedup sig_scores,
@@ -1609,8 +1866,9 @@ def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
     the previous chained wave's table, which must have been scored against
     this wave's input planes (the backend's gate, SignatureScoreCache)."""
     check_slice(cfg)
+    if n_shards is not None:
+        check_shards(n_shards, planes["alloc"].shape[0])
     static = static_parts(planes, tables, packed_f, layout, rows=uniq_idx)
-    return assign_scan(cfg, planes, static, packed_f, layout, tie_words,
-                       cursor_init, logtab, sig_ids=sig_ids, uniq_idx=uniq_idx,
-                       frame_shift=frame_shift, carry_map=carry_map,
-                       sig_table=sig_table)
+    return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
+                   logtab, n_shards, sig_ids, uniq_idx, frame_shift, carry_map,
+                   sig_table)

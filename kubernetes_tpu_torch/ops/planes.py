@@ -955,6 +955,8 @@ _DEVICE_DTYPE = {
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a gathered jax array: torch wants a writable one
+        a = a.copy()
     dt = _DEVICE_DTYPE.get(a.dtype)
     if dt is None:
         raise TypeError(f"no device dtype for plane dtype {a.dtype}")
@@ -968,15 +970,19 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 def planes_from_reference(planes: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     """numpy planes or affinity tables (this package's Planes.as_dict() or
     affinity_tables(), or the reference package's, which are byte-equal)
-    → device tensors, dtypes mapped as the module docstring states."""
+    → device tensors, dtypes mapped as the module docstring states. An
+    array of the reference's node-sharded outputs (carry planes,
+    sig_scores) gathers to numpy here and becomes one contiguous tensor:
+    the port keeps every plane whole, whatever its shard count."""
     return {k: _to_device(v, device) for k, v in planes.items()}
 
 
 def sig_table_from_reference(sig_table: dict, carry_map, device):
     """A chained wave's cross-wave inputs from numpy (or the reference
-    package's device arrays, through np.asarray): the previous wave's
-    signature table {ew, ffit, feas, segs, pcs} → device tensors (uint32 →
-    int32 with the same bits, bool → bool), and carry_map → int32."""
+    package's device arrays, node-sharded columns included, gathered
+    through np.array): the previous wave's signature table {ew, ffit, feas,
+    segs, pcs} → contiguous device tensors (uint32 → int32 with the same
+    bits, bool → bool), and carry_map → int32."""
     table = planes_from_reference(
         {k: np.array(v) for k, v in sig_table.items()}, device)
     cmap = torch.from_numpy(np.ascontiguousarray(carry_map, dtype=np.int32)).to(

@@ -63,9 +63,7 @@ from ...ops.kernels import (
     ZERO_TIE_WORDS,
     KernelConfig,
     OutOfSlice,
-    batched_assign,
     dedup_fast_capable,
-    fit_and_score,
     gang_assign,
     log_weight_table,
     scatter_rows,
@@ -81,7 +79,6 @@ from ...ops.planes import (
     pack_features,
     pad_features,
     placement_masks,
-    planes_from_reference,
     stack_features,
 )
 from ...ops.vocab import next_pow2
@@ -287,8 +284,18 @@ class TorchBackend:
     """Planes + features + device-state bookkeeping for one cluster."""
 
     def __init__(self, names: ResourceNames, plugin_args: dict | None = None,
-                 device="cuda"):
+                 device="cuda", context=None):
+        from ...parallel.mesh import context_from_env
+
         self.device = resolve_device(device)
+        # the execution-context seam (parallel/mesh.py): LocalContext (K1 +
+        # K2) or a MeshContext over node shards (K1 + K6), chosen once
+        # (KUBE_TPU_MESH_DEVICES when none is passed); every upload and
+        # kernel entry goes through it
+        self._ctx = context if context is not None else context_from_env(device=self.device)
+        if self._ctx.device != self.device:
+            raise ValueError(f"the context runs on {self._ctx.device}, the "
+                             f"backend on {self.device}")
         args = (plugin_args or {}).get("NodeResourcesFit", {})
         ipa_args = (plugin_args or {}).get("InterPodAffinity", {})
         self.ipa_ignore_preferred_existing = bool(
@@ -478,8 +485,7 @@ class TorchBackend:
         self._fresh_term_key(planes)
         self._refresh_tables(planes)
         if self._logtab is None or self._logtab.shape[0] != planes.nb + 1:
-            self._logtab = torch.from_numpy(log_weight_table(planes.nb)).to(
-                self.device)
+            self._logtab = self._ctx.put_replicated(log_weight_table(planes.nb))
         return self._overlay({})
 
     def _cold_start_upload(self, planes) -> None:
@@ -487,8 +493,7 @@ class TorchBackend:
         row tracking, or a dirty set so large a put beats the scatter. The
         mirror is then exact: no mirror debt remains."""
         host = planes.as_dict()
-        self._device_planes = planes_from_reference(
-            {k: host[k] for k in SLICE_PLANES}, self.device)
+        self._device_planes = {k: self._ctx.put(host[k], k) for k in SLICE_PLANES}
         self._uploaded_term_key = None
         self._mirror_dirty = set()
         self.upload_stats["full"] += 1
@@ -503,13 +508,12 @@ class TorchBackend:
                 and np.array_equal(self._uploaded_term_key, planes.ipa_term_key)):
             return
         self._uploaded_term_key = planes.ipa_term_key.copy()
-        self._device_term_key = torch.from_numpy(self._uploaded_term_key).to(
-            self.device, copy=True)
+        self._device_term_key = self._ctx.put(self._uploaded_term_key, "ipa_term_key")
 
     def _refresh_tables(self, planes) -> None:
         tables = self.extractor.affinity_tables(planes)
         if self._tables_src is not tables:
-            self._device_tables = planes_from_reference(tables, self.device)
+            self._device_tables = {k: self._ctx.put(v, k) for k, v in tables.items()}
             self._tables_src = tables
 
     def _overlay(self, carry: dict) -> tuple[dict, dict]:
@@ -560,7 +564,7 @@ class TorchBackend:
         host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
         host.numpy()[...] = a
         self._staging.append(host)
-        return host.to(self.device, non_blocking=True)
+        return self._ctx.put_replicated(host)
 
     def _stage(self, parts: list[np.ndarray]) -> list[torch.Tensor]:
         """int32 (or uint32, same bits) arrays on the device through ONE
@@ -651,8 +655,9 @@ class TorchBackend:
         packed_f, words = staged[:2]
         sig_ids, uniq = (None, None) if groups is None else staged[2:]
         t3 = time.perf_counter()
-        out = batched_assign(cfg, dev_planes, dev_tables, packed_f, layout, words,
-                             self._logtab, sig_ids=sig_ids, uniq_idx=uniq)
+        out = self._ctx.batched_assign(cfg, dev_planes, dev_tables, packed_f, layout,
+                                       words, self._logtab, sig_ids=sig_ids,
+                                       uniq_idx=uniq)
         if "tiers" in out:
             self.tier_steps += out["tiers"]
         t4 = time.perf_counter()
@@ -813,11 +818,10 @@ class TorchBackend:
             sig_ids, uniq = staged[2:4]
         if carry_map is not None:
             dev_map = staged[4]
-        info = batched_assign(cfg, dev_planes, dev_tables, packed_f, layout, words,
-                              self._logtab, cursor_init=cursor_init,
-                              frame_shift=frame_shift if prev is not None else 0,
-                              sig_ids=sig_ids, uniq_idx=uniq,
-                              carry_map=dev_map, sig_table=sig_table)
+        info = self._ctx.batched_assign(
+            cfg, dev_planes, dev_tables, packed_f, layout, words, self._logtab,
+            cursor_init=cursor_init, frame_shift=frame_shift if prev is not None else 0,
+            sig_ids=sig_ids, uniq_idx=uniq, carry_map=dev_map, sig_table=sig_table)
         host_packed, ready = self._fetch_async(info["packed"])
         if "tiers" in info:
             self.tier_steps += info["tiers"]
@@ -1036,8 +1040,8 @@ class TorchBackend:
         t4 = time.perf_counter()
         packed_f, layout = features_from_reference(stack_features([f]), self.device)
         t5 = time.perf_counter()
-        packed = fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout,
-                               self._logtab)
+        packed = self._ctx.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout,
+                                         self._logtab)
         t6 = time.perf_counter()
         host = packed[0].cpu()
         self._staging = []

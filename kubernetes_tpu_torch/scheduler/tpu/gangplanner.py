@@ -127,6 +127,10 @@ def try_gang_wave(sched, fw, algo, gk: str, qpis: list):
 
     if not qpis or sched.snapshot.num_nodes() == 0:
         return host_path()
+    if backend._ctx.n_shards != 1:
+        # the reference's mesh gate (gangplanner.py:143): placement masks
+        # are not sharded over the node axis, so K5 does not run on a mesh
+        return host_path()
     if len(qpis) > MAX_GANG_MEMBERS:
         return host_path()
     if not all(_member_device_eligible(algo, q.pod) for q in qpis):

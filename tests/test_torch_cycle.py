@@ -7,8 +7,10 @@ each package's types.
 Compared exactly: the five arrays run returns; ScheduleResults and the
 final seeded rng state; for pods that fit nowhere the FitError message,
 failing plugins, the preemption name sets and every node's status (code,
-reasons, plugin). Clusters stay under 35 nodes (ROADMAP C1). Also the
-cycle's scope errors and device rules.
+reasons, plugin). The spread domain counts stay off the points where the
+JAX kernel's log weight differs from the host plugin's, which the port
+follows (tests/test_torch_fit.py shows the difference). Also the cycle's
+scope errors and device rules.
 """
 
 import random

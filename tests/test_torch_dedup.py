@@ -9,9 +9,9 @@ groups, and hands both sides the same numpy arrays. Every output array is
 compared exactly — winners, tie words consumed, overflow, the carried
 planes, the IPA planes, sig_scores and the whole sig_table (the entries of
 inactive spread slots included): all are integers or bools, so the
-tolerance is zero. Clusters stay under 35 nodes, so no hostname domain
-count reaches the points where the reference kernel's log weight differs
-from the host plugin's table (ROADMAP C1).
+tolerance is zero. The spread domain counts stay off the points where
+the JAX kernel's log weight differs from the host plugin's, which the port
+follows (tests/test_torch_fit.py shows the difference).
 """
 
 import dataclasses

@@ -8,9 +8,11 @@ Each case builds a cluster and one pod in the reference package's types
 TestInterPodAffinityParity, plus hard-spread and seeded mixed cases); the
 reference backend turns them into planes, tables and features, and both
 sides get the same numpy arrays. Every output is an integer or a bool, so
-the tolerance is zero. Clusters stay under 35 nodes, so no spread domain
-count reaches the points where the reference kernel's log weight differs
-from the host plugin's table (ROADMAP C1).
+the tolerance is zero. The cases' spread domain counts stay off the
+points where the reference kernel's log weight (jnp.log) differs from the
+host plugin's (np.log of a float32) by one ulp; the port follows the host
+plugin, and test_spread_log_weight_follows_the_host_plugin holds it to
+the host plugin on a 47-node cluster where the JAX kernel's score differs.
 """
 
 import dataclasses
@@ -389,3 +391,58 @@ def test_param_structs_match_the_headers():
         scalars = {ctypes.c_int, ctypes.c_longlong}
         assert all((t if not hasattr(t, "_length_") else t._type_) in scalars
                    for _, t in cls._fields_), name
+
+
+def _log_weight_cluster():
+    """47 nodes with room for 500 pods each; 379, 389 and 374 pods of
+    app=w on n0, on n1 and on each other node; the pod spreads over
+    hostname with ScheduleAnyway. Every node is feasible, so the spread
+    score weighs each count by log(47 + 2), one of the points where
+    np.log of a float32 and the JAX kernel's jnp.log differ by one ulp."""
+    nodes = [make_node(f"n{i}", cpu="1000", mem="1000Gi", pods=500)
+             for i in range(47)]
+    counts = [379, 389] + [374] * 45
+    existing = [make_pod(f"e{i}-{j}", cpu="1m", node_name=f"n{i}", labels={"app": "w"})
+                for i, c in enumerate(counts) for j in range(c)]
+    pod = with_spread(make_pod("p", cpu="1m", labels={"app": "w"}), max_skew=1,
+                      key=HOST, when="ScheduleAnyway")
+    return nodes, existing, pod
+
+
+def test_spread_log_weight_follows_the_host_plugin():
+    """ROADMAP C1, shown rather than avoided: on the 47-node cluster the
+    port's PodTopologySpread score on n0 is the reference host plugin's
+    (np.log of a float32), 67, where the reference's JAX fit_and_score
+    (jnp.log) gives 65; every node's spread score equals the host
+    plugin's, run through the reference framework."""
+    from kubernetes_tpu.scheduler.framework.cycle_state import CycleState
+    from kubernetes_tpu.scheduler.framework.runtime import Framework
+    from kubernetes_tpu.scheduler.plugins.pod_topology_spread import PodTopologySpread
+
+    nodes, existing, pod = _log_weight_cluster()
+    cfg, planes, tables, f = _reference_inputs(nodes, existing, pod)
+    got = _port_outputs(cfg, planes, tables, f)
+    want = jk.fit_and_score(cfg, {**planes.as_dict(), **tables}, f)
+    pts = got["per_plugin"]["PodTopologySpread"].numpy()
+    jax_pts = np.asarray(want["per_plugin"]["PodTopologySpread"])
+    assert int(pts[0]) == 67 and int(jax_pts[0]) == 65
+    assert not np.array_equal(got["total"].numpy(), np.asarray(want["total"]))
+
+    names = ResourceNames()
+    cache = Cache(names)
+    for n in nodes:
+        cache.add_node(n)
+    for p in existing:
+        cache.add_pod(p)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    fw = Framework([PodTopologySpread()], {"PodTopologySpread": 1})
+    state = CycleState()
+    infos = snap.list_nodes()
+    assert fw.run_pre_score_plugins(state, pod, infos).is_success
+    scores, st = fw.run_score_plugins(state, pod, infos)
+    assert st.is_success
+    host = {s.name: s.total_score for s in scores}
+    rows = {name: i for i, name in enumerate(planes.node_names) if name}
+    assert host["n0"] == 67
+    assert all(host[name] == int(pts[i]) for name, i in rows.items())

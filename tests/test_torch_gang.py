@@ -4,8 +4,10 @@ package's JAX gang_assign, _gang_placement_score, plan_gang and
 TPUBackend.run_gang over the same clusters, built from one spec in each
 package's types.
 
-Every comparison is exact: all outputs are int32 or bool. Clusters stay
-under 35 nodes (ROADMAP C1). The JAX gang program compiles once per kernel
+Every comparison is exact: all outputs are int32 or bool. The spread
+domain counts stay off the points where the JAX kernel's log weight
+differs from the host plugin's, which the port follows
+(tests/test_torch_fit.py shows the difference). The JAX gang program compiles once per kernel
 configuration, member count, row count, constrained-row count and fallback
 flag, so the kernel cases share a few shapes.
 """

@@ -288,7 +288,8 @@ def test_wrappers_dispatch_by_device():
     for k in ref:
         assert torch.equal(out[k], ref[k])
     assert tk.LAUNCHES == {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
-                           "fit_and_score": 0, "gang_assign": 0}
+                           "fit_and_score": 0, "gang_assign": 0, "sharded_assign": 0,
+                           "wave_fit_and_score": 0}
     with pytest.raises(ValueError):
         tk.static_parts(dplanes, dtables, packed_f.to("meta"), layout)
     with pytest.raises(ValueError):

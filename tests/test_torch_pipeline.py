@@ -16,9 +16,11 @@ same inputs.
 - the golden triple on the port: pipelined, serial (depth 1) and dedup
   off give equal bindings and rng state.
 
-Every comparison is exact (integers and bools: tolerance 0). Clusters stay
-under 35 nodes where hostname domains are counted (ROADMAP C1) and at a few
-hundred nodes for the SchedulingBasic shape.
+Every comparison is exact (integers and bools: tolerance 0). The spread
+domain counts stay off the points where the JAX kernel's log weight
+differs from the host plugin's, which the port follows
+(tests/test_torch_fit.py shows the difference); the SchedulingBasic shape
+runs at a few hundred nodes.
 """
 
 import dataclasses
@@ -761,17 +763,21 @@ def test_scan_params_twin_matches_the_header():
 
 def test_assign_scan_source_header_names_the_seed():
     """K2's source header says what it replaces, the seed included, and no
-    longer calls the seed unported; its launcher reads the eight pointers
-    the wrapper appends for the device cursor and the seed."""
+    longer calls the seed unported; its launcher reads (through scan_args
+    in scan_step.cuh, which K6's launcher shares) the eight pointers the
+    wrapper appends for the device cursor and the seed."""
     from pathlib import Path
 
     from kubernetes_tpu_torch.ops import cuda
 
-    src = (Path(cuda.__file__).parent / "csrc" / "assign_scan.cu").read_text()
+    csrc = Path(cuda.__file__).parent / "csrc"
+    src = (csrc / "assign_scan.cu").read_text()
     header = src.split("#include", 1)[0]
     assert "not ported" not in header
     assert ":1308-1328" in header
-    assert "ptrs[37]" in src and "ptrs[38]" not in src
+    assert "scan_args(ptrs)" in src
+    step = (csrc / "scan_step.cuh").read_text()
+    assert "ptrs[37]" in step and "ptrs[38]" not in step
 
 
 def test_port_pipeline_modules_import_no_jax():

@@ -126,8 +126,9 @@ def test_run_batched_matches_reference_backend(case):
 
 def test_imports_and_schedules_without_jax():
     """(d) with jax and the reference package made unimportable, the port
-    imports, schedules a wave, runs one single-pod cycle and places one gang
-    through try_gang_wave on the CPU."""
+    imports, schedules a wave, runs one single-pod cycle, places one gang
+    through try_gang_wave and schedules a wave on a 4-shard mesh context on
+    the CPU."""
     code = (
         "import sys, random\n"
         "sys.modules['jax'] = None\n"
@@ -164,6 +165,11 @@ def test_imports_and_schedules_without_jax():
         "                      group.meta.key, [SimpleNamespace(pod=p) for p in members])\n"
         "assert len({int(n.split('-')[1]) % 8 for n in hosts}) == 1, hosts\n"
         "assert b.gang_pod_totals == {'device': 4}, b.gang_pod_totals\n"
+        "from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh\n"
+        "m = TorchBackend(c.names, device='cpu', context=MeshContext(scheduler_mesh(4, device='cpu')))\n"
+        "got4, _ = m.run_batched([scheduling_basic_pod(100 + i) for i in range(8)], s,\n"
+        "                        rng=random.Random(0), pad_to=16)\n"
+        "assert all(got4), got4\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kubernetes_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('placed', len(got))\n"
@@ -190,6 +196,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     """(e) an AST scan of every module of the port and of chip_smoke.py."""
     files = sorted((REPO / "kubernetes_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert REPO / "kubernetes_tpu_torch" / "parallel" / "mesh.py" in files
     bad = []
     for f in files:
         for mod in _imported_roots(f):
