@@ -105,7 +105,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    nodes 4) mesh: equal to its plain version and row by row to K4; then
    the same pods through sharded_batched_assign (8 shards) equal to
    batched_assign on every output, all placed;
-   phases 17-19 run under a watchdog (--phase-timeout) that fails the run
+20. the scan step's latency: nvcc's -Xptxas -v registers, spills and shared
+   memory for every instance of assign_scan_kernel, gang_assign_kernel and
+   sharded_assign_kernel; K2's microseconds per step on phase 4's, 7's, 8's
+   and 15's waves (their tiers beside), K5's per member at each --k5-sizes
+   gang, Required and Preferred (phase 11's), and K6's on phase 15's wave at
+   the largest shard count; beside each, the latency floor: a kernel that
+   makes the scan's counted barriers, folds, cluster barriers, exchanges
+   and tie picks (the scan reports them) over the same steps with no node
+   work (scan_floor, csrc/assign_scan.cu);
+   phases 17-20 run under a watchdog (--phase-timeout) that fails the run
    when a phase does not end, as a kernel hung at a cluster barrier would;
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
@@ -460,7 +469,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s, {len(reports)} libraries")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # 2. cluster
@@ -718,7 +727,7 @@ def main() -> None:
     print(f"launches on the TopologySpreading wave path: {waves7['launches']}")
 
     # 11-13. gang waves
-    k5 = k5_against_plain(args)
+    k5, cells11 = k5_against_plain(args)
     launches12 = gang_cells(args)
     gang_card_vs_cpu(args)
     rows_out.append({"name": "gang_assign", "route": "cuda",
@@ -737,6 +746,10 @@ def main() -> None:
         launches18 = mesh_main_path(args, serial, a, max(shards))
     with watchdog("phase 19 (K7, the pods x nodes matrix)", args.phase_timeout):
         k7 = wave_matrix(args, max(shards))
+    with watchdog("phase 20 (the scan step's latency)", args.phase_timeout):
+        step_latency(reports, [(cell4, k2[True]["ms"]), (waves7["cell"], waves7["k2"]["ms"]),
+                               (cell8, ipa8["ms"]), (seed["cell"], seed["ms"])],
+                     cells11, max(shards), k6["ms"])
     rows_out.append({"name": "sharded_assign", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/sharded_assign.cu",
                      "replaces": "kubernetes_tpu/parallel/mesh.py:159",
@@ -744,7 +757,7 @@ def main() -> None:
     rows_out.append({"name": "wave_fit_and_score", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
                      "replaces": "kubernetes_tpu/parallel/mesh.py:262", **k7})
-    print(f"phases 17-19: {time.perf_counter() - t_mesh:.1f} s")
+    print(f"phases 17-20: {time.perf_counter() - t_mesh:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -1634,7 +1647,7 @@ def k5_against_plain(args):
     sizes = [int(x) for x in args.k5_sizes.split(",")]
     cases = [(size, mode, "rng") for size in sizes for mode in ("Required", "Preferred")]
     cases += [(4, "Required", "fits nowhere"), (32, "Preferred", "3 words")]
-    err, timed = 0.0, None
+    err, timed, cells = 0.0, None, []
     for i, (size, mode, kind) in enumerate(cases):
         cpu = "33" if kind == "fits nowhere" else "100m"
         spec = {"nodes": [], "gangs": [gang(f"k5-{i}", mode, [
@@ -1672,6 +1685,9 @@ def k5_against_plain(args):
             fail(f"the {size}-member {mode} gang found no domain")
         if kind == "rng" and mode == "Required" and size == max(sizes):
             timed = (g, k1, words, nc, hf, got, nc + int(hf), size)
+        if kind == "rng":
+            cells.append((f"{size} members, {mode}", g, k1, words, nc, hf,
+                          t["gang_assign_kernel"], size))
     g, k1, words, nc, hf, out, n_real, size = timed
     t = kernels_ms(lambda: (kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout),
                             k5_call(g, k1, words, nc, hf)),
@@ -1685,8 +1701,8 @@ def k5_against_plain(args):
           f"nodes): {ms:.4f} ms + pick {ms_pick:.4f} ms (plain {plain:.1f} ms, bound "
           f"{bd:.5f} ms by {by}, {b5} bytes; reckoned per row {b5_rows} bytes, "
           f"{bound_ms(b5_rows, f5)[0]:.5f} ms); static_parts on the gang {ms_k1:.4f} ms")
-    return {"max_abs_err": err, "ms": ms + ms_pick, "plain_ms": plain, "bound_ms": bd,
-            "bound_by": by, "library_ms": None}
+    return ({"max_abs_err": err, "ms": ms + ms_pick, "plain_ms": plain, "bound_ms": bd,
+             "bound_by": by, "library_ms": None}, cells)
 
 
 def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
@@ -1925,6 +1941,98 @@ def k6_against_plain_and_k2(args, shards, cells):
         out[label] = {"max_abs_err": err, "ms": ms[n_max], "plain_ms": plain,
                       "bound_ms": bd, "bound_by": by, "library_ms": None}
     return out["chained seeded SchedulingBasic wave"]
+
+
+def ptxas_entries(reports, kernels_wanted):
+    """{entry: (registers, stack, spill stores, spill loads, smem)} for every
+    entry function of the build logs whose name holds one of
+    kernels_wanted (nvcc -Xptxas -v prints each entry's lines in order)."""
+    import re
+
+    out, entry = {}, None
+    for log in reports.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1) if any(k in m.group(1) for k in kernels_wanted) else None
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(entry, {}).update(
+                    stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                    spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m:
+                out.setdefault(entry, {}).update(registers=int(m.group(1)),
+                                                 smem=int(m.group(2)))
+    return out
+
+
+def floor_ms(syncs, span, n_blocks=1):
+    """The latency floor of a scan's counted synchronisations (profiler)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    return kernel_ms(lambda: kernels.scan_floor(syncs, span, n_blocks), "scan_floor_kernel", 5)
+
+
+STEP_PHASES = ("slots barrier", "filters + table setup", "A pass", "A fold", "B",
+               "C pass + publish", "pick + draw", "adds + patch")
+
+
+def phase_split(syncs, ms, steps):
+    """The scan's per-step time split by phase: thread 0's clock cycles per
+    phase (the kernel's own marks) as shares of the measured time."""
+    cyc = syncs.tolist()[5:]
+    total = max(sum(cyc), 1)
+    return "per step by phase (us, thread 0's clock shares of the measured time): " + ", ".join(
+        f"{name} {ms * 1e3 / steps * c / total:.2f}" for name, c in zip(STEP_PHASES, cyc))
+
+
+def step_latency(reports, k2_cells, k5_cells, n_shards, k6_ms):
+    """20. The scan step's latency: ptxas's registers, spills and shared
+    memory for K2's, K5's and K6's instances; microseconds per step (K2,
+    K6) or per member (K5) beside the latency floor of the same counted
+    synchronisations with no node work."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    entries = ptxas_entries(reports, ("assign_scan_kernel", "gang_assign_kernel",
+                                      "sharded_assign_kernel"))
+    for name, e in sorted(entries.items()):
+        print(f"ptxas {name}: {e.get('registers')} registers, {e.get('stack')} bytes stack, "
+              f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes spill stores/loads, "
+              f"{e.get('smem')} bytes static smem")
+    syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    for (label, w, k1, words, cursor, kw), ms in k2_cells:
+        out = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, cursor,
+                                  w.logtab, syncs=syncs, **kw)
+        torch.cuda.synchronize()
+        steps = w.packed_f.shape[0]
+        fl = floor_ms(syncs, w.planes.nb)
+        print(f"K2 step ({label}): {ms * 1e3 / steps:.2f} us per step over {steps} steps, "
+              f"tiers [full, replay] {out['tiers'].tolist()}; latency floor "
+              f"{fl * 1e3 / steps:.2f} us per step ({fl:.4f} ms; counted barriers, folds, "
+              f"picks {syncs.tolist()[:2] + syncs.tolist()[4:5]}); {phase_split(syncs, ms, steps)}")
+        if label == "chained seeded SchedulingBasic wave":
+            kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, words, cursor,
+                                   w.logtab, n_shards, syncs=syncs, **kw)
+            torch.cuda.synchronize()
+            fl6 = floor_ms(syncs, w.planes.nb // n_shards, n_shards)
+            print(f"K6 step ({label}, {n_shards} shards): {k6_ms * 1e3 / steps:.2f} us per "
+                  f"step; latency floor {fl6 * 1e3 / steps:.2f} us per step ({fl6:.4f} ms; "
+                  f"counted barriers, folds, cluster barriers, exchanges, picks "
+                  f"{syncs.tolist()[:5]})")
+    for label, g, k1, words, nc, hf, ms, size in k5_cells:
+        kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks, words, g.logtab,
+                            nc, hf, syncs=syncs)
+        torch.cuda.synchronize()
+        fl = floor_ms(syncs, g.planes.nb)
+        print(f"K5 member step ({label}, {g.masks.shape[0]} rows): {ms * 1e3 / size:.2f} us "
+              f"per member; latency floor {fl * 1e3 / size:.2f} us per member ({fl:.4f} ms; "
+              f"row 0's counted barriers, folds, picks {syncs.tolist()[:2] + syncs.tolist()[4:5]}); "
+              f"{phase_split(syncs, ms, size)}")
 
 
 def mesh_main_path(args, serial, a14, n_shards):

@@ -16,15 +16,19 @@
 // [rows], placed [rows], score [rows], then [win_d, ok, n_active].
 //
 // What bounds it on an H100: latency, as K2 — each row is a serial chain of
-// member steps, each a handful of dependent block-wide reductions. Design:
-// one 1024-thread block per mask row (grid = rows), the rows' chains in
+// member steps, each a few dependent block-wide reductions. Design: one
+// 1024-thread block per mask row (grid = rows), the rows' chains in
 // parallel on separate SMs. Each block copies the pre-scan carry planes
-// into its own slice of a [rows, ...] device work buffer, reduces its
-// placement score, runs scan_block<MASKED>() of scan_step.cuh (K2's step,
-// shared, with validity narrowed by the row's mask), and writes its row's
-// outputs. K1 runs once over the members, not per row: its static_ok is
-// the only K1 output that reads valid, and scan_block narrows it by the
-// mask. A one-block tail launch makes the pick.
+// into its own slice of a [rows, ...] device work buffer and runs
+// scan_block<MASKED>() of scan_step.cuh (K2's step, shared), which first
+// builds the ascending list of the row's mask nodes in shared memory and
+// then walks only that list (a zone row of a 5000-node cluster holds ~1/8
+// of the 8192 slots), each thread owning NPT list positions, one barrier
+// per reduction. The placement
+// score on the pre-scan planes walks the same list. K1 runs once over the
+// members, not per row: its static_ok is the only K1 output that reads
+// valid, and the walk holds only the mask's nodes. A one-block tail launch
+// makes the pick.
 #include "scan_step.cuh"
 
 #define GANG_CPU_COL 0
@@ -37,28 +41,31 @@ struct GangParams {
     int has_fallback;   // row n_constrained is the unconstrained parent
 };
 
-// int32 words of one row's work slice: the carry planes, the hard-spread
-// domain counts and the scan scratch
+// int32 words of one row's work slice: the carry planes and the
+// hard-spread domain counts
 __host__ __device__ inline size_t gang_work_words(const ScanParams& p) {
     const size_t nb = (size_t)p.Nb;
     return nb * p.R + nb * 2 + nb * p.S + (p.ipa_active ? 3 * nb * p.Ta : 0)
-           + (p.dom_carry ? (size_t)p.K * p.D * p.S : 0) + scan_scratch_words(p);
+           + (p.dom_carry ? (size_t)p.K * p.D * p.S : 0);
 }
 
 __device__ __forceinline__ void copy_words(int* dst, const int* src, size_t n) {
     for (size_t i = threadIdx.x; i < n; i += SCAN_NT) dst[i] = src[i];
 }
 
+template <int NPT, bool GATED>
 __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     GangParams g, ScanArgs base, const uint8_t* __restrict__ masks, int* work, int* out) {
-    __shared__ int sred[SCAN_NWARPS][2];
-    __shared__ int sres[2];
+    __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
+    __shared__ ScanSyncs syncs;
+    extern __shared__ int dyn[];
     const ScanParams& p = g.scan;
     const int d = blockIdx.x;
     const size_t nb = (size_t)p.Nb;
     const uint8_t* mask = masks + (size_t)d * nb;
 
-    // this row's carry, from the pre-scan planes
+    // this row's carry, from the pre-scan planes (the scan's prologue
+    // passes a barrier before it reads them)
     ScanArgs a = base;
     a.mask = mask;
     int* w = work + (size_t)d * gang_work_words(p);
@@ -80,18 +87,21 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
         copy_words(a.ipa_anti, base.ipa_anti, nb * p.Ta);
         copy_words(a.ipa_pref, base.ipa_pref, nb * p.Ta);
     }
-    if (p.dom_carry) {
-        a.dom_counts = w;
-        w += (size_t)p.K * p.D * p.S;
-    }
-    a.scratch = w;
+    if (p.dom_carry) a.dom_counts = w;
     a.winners = out + (size_t)d * p.P;
 
-    // the placement score on the pre-scan planes: per node the mean of the
-    // cpu and memory free shares over the columns with capacity, then the
-    // mean over the mask's nodes that have such a column
+    if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
+    BlockComm comm = {0, p.Nb, red, 0, &syncs};
+    const ScanEnd end = scan_block<true, NPT, GATED>(p, a, comm);
+
+    // the placement score on the pre-scan planes, over the mask's list: per
+    // node the mean of the cpu and memory free shares over the columns with
+    // capacity, then the mean over the mask's nodes that have such a column
+    const unsigned short* list =
+        reinterpret_cast<const unsigned short*>(dyn + scan_smem(p, p.Nb, true).list);
     int v[2] = {0, 0};  // counted nodes, their score sum
-    for (int n = threadIdx.x; n < p.Nb; n += SCAN_NT) {
+    for (int i = threadIdx.x; i < end.walked; i += SCAN_NT) {
+        const int n = list[i];
         int score = 0, parts = 0;
         for (int col = GANG_CPU_COL; col <= GANG_MEM_COL; ++col) {
             const int cap = base.alloc[(size_t)n * p.R + col];
@@ -100,17 +110,13 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
             score = wadd(score, floordiv(wmul(cap - req, MAX_NODE_SCORE), cap));
             parts += 1;
         }
-        if (mask[n] && parts > 0) {
+        if (parts > 0) {
             v[0] += 1;
             v[1] = wadd(v[1], floordiv(score, parts));
         }
     }
-    block_reduce<2>(v, 0u, 0u, sred, sres);  // ends in a barrier: the copies are in
+    fold_block<2>(v, 0u, 0u, red[comm.par]);
     const int pscore = v[0] > 0 ? floordiv(v[1], v[0]) : 0;
-
-    BlockComm comm(p.Nb);
-    const ScanEnd end = scan_block<true>(p, a, comm);
-    __syncthreads();
     if (threadIdx.x == 0) {
         int placed = 0;
         for (int i = 0; i < p.P; ++i)
@@ -120,6 +126,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
         rows_out[g.rows + d] = end.overflow;
         rows_out[2 * g.rows + d] = placed;
         rows_out[3 * g.rows + d] = pscore;
+        if (d == 0) write_syncs(base.syncs, end.syncs, end.phase_cycles);
     }
 }
 
@@ -162,12 +169,10 @@ __global__ void gang_pick_kernel(GangParams g, const int* __restrict__ feats, in
 // ptrs: alloc, domain, valid, static_ok, taint_cnt, aff_raw, img,
 // aff_has_pref, feats, tie_words, logtab, used, nonzero_used, sel_counts,
 // ipa_counts, ipa_anti, ipa_pref, ipa_term_key (the pre-scan planes, read
-// only; IPA pointers 0 without IPA), masks, work, out
+// only; IPA pointers 0 without IPA), masks, work, out, then the sync counts
+// and phase cycles of row 0's scan (0: not wanted)
 extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* stream) {
-    const size_t dyn = scan_smem_bytes(g->scan);
-    cudaError_t err = cudaFuncSetAttribute(
-        gang_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (err != cudaSuccess) return (int)err;
+    const size_t dyn = scan_smem_bytes(g->scan, g->scan.Nb, true);
     ScanArgs a = {};
     a.alloc = (const int*)ptrs[0];
     a.domain = (const int*)ptrs[1];
@@ -187,10 +192,18 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     a.ipa_anti = (int*)ptrs[15];
     a.ipa_pref = (int*)ptrs[16];
     a.ipa_term_key = (const int*)ptrs[17];
+    a.syncs = (int*)ptrs[21];
     cudaStream_t s = (cudaStream_t)stream;
-    gang_assign_kernel<<<g->rows, SCAN_NT, dyn, s>>>(
-        *g, a, (const uint8_t*)ptrs[18], (int*)ptrs[19], (int*)ptrs[20]);
-    err = cudaGetLastError();
+    cudaError_t err = (cudaError_t)scan_dispatch(g->scan.Nb, scan_gated(g->scan),
+                                                 [&](auto npt, auto gated) {
+        auto kernel = gang_assign_kernel<decltype(npt)::value, decltype(gated)::value>;
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+        if (e != cudaSuccess) return (int)e;
+        kernel<<<g->rows, SCAN_NT, dyn, s>>>(*g, a, (const uint8_t*)ptrs[18], (int*)ptrs[19],
+                                            (int*)ptrs[20]);
+        return (int)cudaGetLastError();
+    });
     if (err != cudaSuccess) return (int)err;
     gang_pick_kernel<<<1, 32, 0, s>>>(*g, (const int*)ptrs[8], (int*)ptrs[20]);
     return (int)cudaGetLastError();

@@ -135,6 +135,22 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
+def launch_floor(counts: list[int], npt: int, n_blocks: int, out_ptr: int,
+                 stream: int) -> None:
+    """launch_scan_floor of the assign_scan library (csrc/assign_scan.cu):
+    the latency floor of a scan's counted synchronisations."""
+    dll = load("assign_scan")
+    fn = dll.launch_scan_floor
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    arr = (ctypes.c_int * 5)(*counts)
+    code = fn(ctypes.addressof(arr), npt, n_blocks, out_ptr, stream)
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"scan_floor launch failed: CUDA error {code} ({msg})")
+
+
 # ctypes twins of the structs in csrc/common.cuh (same field order)
 
 MAX_FIT, MAX_RTC, MAX_KEYS = 8, 16, 16

@@ -383,6 +383,40 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# a scan's sync output (csrc/scan_step.cuh write_syncs): the counted block
+# barriers, folds, cluster barriers, exchanges and tie picks, then thread
+# 0's thousands of clock cycles in each of the step's 8 phases
+SCAN_SYNC_WORDS = 5 + 8
+
+
+def _syncs_ptr(syncs, device) -> int:
+    """The pointer of a scan's sync output (int32 [SCAN_SYNC_WORDS]), or 0."""
+    if syncs is None:
+        return 0
+    _check(syncs, "syncs", device, torch.int32, (SCAN_SYNC_WORDS,))
+    return syncs.data_ptr()
+
+
+def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1) -> None:
+    """The latency floor of a scan (CUDA only, a measurement yardstick that
+    no path runs): one launch that makes the counted synchronisations a
+    scan wrote into `syncs` (assign_scan's, gang_assign's or
+    sharded_assign's), its tie picks over the ballots of a block walking
+    `span` node slots, with no node work; on one block, or on a cluster of
+    n_blocks (K6's shard count)."""
+    from . import cuda
+
+    if syncs.device.type != "cuda":
+        raise ValueError("scan_floor runs on cuda only")
+    _check(syncs, "syncs", syncs.device, torch.int32, (SCAN_SYNC_WORDS,))
+    npt = 8
+    while npt * SCAN_THREADS < span:
+        npt *= 2
+    sink = torch.empty(1, dtype=torch.int32, device=syncs.device)
+    cuda.launch_floor([int(x) for x in syncs.tolist()[:5]], npt, n_blocks, sink.data_ptr(),
+                      _stream(syncs.device))
+
+
 def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
                  layout, rows: torch.Tensor | None = None) -> dict:
     """K1 wrapper: plain version for CPU tensors, the CUDA kernel for CUDA
@@ -1069,11 +1103,54 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
     return p
 
 
-def _scratch_words(p) -> int:
-    """int32 words of one scan's scratch (scan_scratch_words in
-    csrc/scan_step.cuh): six node rows, and the domain presence [K, D]
-    with the hard-spread carry."""
-    return 6 * p.Nb + (p.K * p.D if p.dom_carry else 0)
+# a scanning block's threads, and the node slots it walks at most: each
+# thread owns up to 16 positions (SCAN_NT, SCAN_MAX_NPT in
+# csrc/scan_step.cuh)
+SCAN_THREADS = 1024
+SCAN_MAX_SLOTS = SCAN_THREADS * 16
+
+
+def _check_span(kernel: str, span: int) -> None:
+    """A scanning block of K2, K5 or K6 has an instance for up to 16 node
+    slots per thread: a bucket (K6: a shard) past that is refused before
+    the launch, never computed wrong."""
+    if span > SCAN_MAX_SLOTS:
+        raise OutOfSlice(f"{kernel}: {span} node slots per block, the scan walks at "
+                         f"most {SCAN_MAX_SLOTS}")
+
+
+def live_extent(planes: dict, sig_table: dict | None = None,
+                carry_map: torch.Tensor | None = None, lo: int = 0,
+                hi: int | None = None) -> int:
+    """The node rows K2 (and each K6 shard, over [lo, hi)) walks: one past
+    the last row of the range that any input marks live — valid, a nonzero
+    alloc, used or nonzero_used entry, or (a chained wave) a feasible entry
+    in a row of the previous table that carry_map seeds. Past it every node
+    is invalid with all-zero rows (K1's static_ok, which includes valid, is
+    False there), so the scan's answer there is fixed: nothing is feasible
+    or participates, and a captured table row holds ew 0, ffit True, feas
+    False and sig_scores -1. Returns the extent relative to lo. The kernel
+    computes the same in its prologue (scan_step.cuh); this plain version
+    states the rule for the tests."""
+    hi = planes["alloc"].shape[0] if hi is None else hi
+    live = planes["valid"][lo:hi].clone()
+    for k in ("alloc", "used", "nonzero_used"):
+        live |= (planes[k][lo:hi] != 0).any(dim=1)
+    if sig_table is not None and carry_map is not None:
+        rows = carry_map[carry_map >= 0].long()
+        if rows.numel():
+            live |= sig_table["feas"][rows][:, lo:hi].any(dim=0)
+    idx = torch.nonzero(live).flatten()
+    return int(idx[-1]) + 1 if idx.numel() else 0
+
+
+def mask_node_lists(masks: torch.Tensor) -> list[torch.Tensor]:
+    """The node list K5's block for each mask row walks: the row's mask
+    nodes in ascending order (the kernel builds it in shared memory with a
+    ballot and a prefix count). Ascending order keeps the tie ballots and
+    the draw in node order, so a scan over the list picks the nodes a scan
+    over every slot picks."""
+    return [torch.nonzero(m).flatten() for m in masks]
 
 
 def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
@@ -1082,7 +1159,8 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
                 sig_ids: torch.Tensor | None = None,
                 uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
                 carry_map: torch.Tensor | None = None,
-                sig_table: dict | None = None) -> dict:
+                sig_table: dict | None = None,
+                syncs: torch.Tensor | None = None) -> dict:
     """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
     The carry planes out are copies of the inputs, which stay untouched.
     planes holds the row planes and, with IPA, ipa_term_key; static is
@@ -1092,9 +1170,15 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
     chained wave's predecessor's packed[P_prev]), which the kernel reads
     itself: no device-to-host copy. With carry_map [C] and sig_table (the
     previous chained wave's table, with dedup only) the kernel seeds this
-    wave's table from it; the output table is new memory either way."""
+    wave's table from it; the output table is new memory either way.
+
+    syncs (CUDA only: an int32 [SCAN_SYNC_WORDS] tensor) receives the
+    scan's counted synchronisations (block barriers, folds, cluster
+    barriers, exchanges, tie picks), which scan_floor replays with no node
+    work, and thread 0's clock cycles by step phase."""
     return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
-                   logtab, None, sig_ids, uniq_idx, frame_shift, carry_map, sig_table)
+                   logtab, None, sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
+                   syncs)
 
 
 def sharded_assign_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
@@ -1128,20 +1212,22 @@ def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
                    sig_ids: torch.Tensor | None = None,
                    uniq_idx: torch.Tensor | None = None, frame_shift: int = 0,
                    carry_map: torch.Tensor | None = None,
-                   sig_table: dict | None = None) -> dict:
+                   sig_table: dict | None = None,
+                   syncs: torch.Tensor | None = None) -> dict:
     """K6 wrapper: assign_scan's inputs and output dict over n_shards node
     shards, one block of a thread-block cluster each (the plain version,
     sharded_assign_ref, for CPU tensors). The chained-wave arguments are
     K2's: cursor_init as a device tensor, frame_shift, carry_map and
-    sig_table."""
+    sig_table; syncs as K2's (rank 0's counts)."""
     check_shards(n_shards, planes["alloc"].shape[0])
     return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
                    logtab, n_shards, sig_ids, uniq_idx, frame_shift, carry_map,
-                   sig_table)
+                   sig_table, syncs)
 
 
 def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab,
-            n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table) -> dict:
+            n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
+            syncs=None) -> dict:
     """K2 (n_shards None) or K6: the checks, the plain version on the CPU,
     else the outputs' allocation and the launch."""
     from .planes import unpack_features
@@ -1167,6 +1253,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
 
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
+    _check_span(kernel, nb // (n_shards or 1))
     fast = sig_ids is not None
     xwave = carry_map is not None
     Ps = uniq_idx.shape[0] if fast else P  # static rows
@@ -1203,7 +1290,6 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     empty = torch.empty(0, dtype=i32, device=device)
     dom = (torch.empty((K, dmax, S), dtype=i32, device=device) if p.dom_carry
            else empty)
-    scratch = torch.empty(_scratch_words(p), dtype=i32, device=device)
     if fast:
         out["sig_scores"] = torch.full((Ps, nb), -1, dtype=i32, device=device)
         # the seed writes every entry of a seeded table; a fresh one starts zeroed
@@ -1223,7 +1309,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
         "static_ok", "taint_cnt", "aff_raw", "img", "aff_has_pref")]
     ptrs += [packed_f.data_ptr(), tie_words.data_ptr(), logtab.data_ptr()]
     ptrs += [out[k].data_ptr() for k in ("used", "nonzero_used", "sel_counts")]
-    ptrs += ipa_ptrs + [dom.data_ptr(), scratch.data_ptr(), out["packed"].data_ptr()]
+    ptrs += ipa_ptrs + [dom.data_ptr(), out["packed"].data_ptr()]
     if fast:
         ptrs += [sig_ids.data_ptr(), uniq_idx.data_ptr(), t_valid.data_ptr()]
         ptrs += [tab[k].data_ptr() for k in ("ew", "ffit", "feas", "segs", "pcs")]
@@ -1236,6 +1322,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
             "ew", "ffit", "feas", "segs", "pcs")]
     else:
         ptrs += [0] * 6
+    ptrs.append(_syncs_ptr(syncs, device))
     if n_shards is None:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
@@ -1322,22 +1409,25 @@ def gang_assign_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
 
 def gang_work_words(p) -> int:
     """int32 words of one mask row's work slice in K5 (gang_work_words in
-    csrc/gang_assign.cu): the carry planes, the hard-spread domain counts
-    and the scan scratch."""
+    csrc/gang_assign.cu): the carry planes and the hard-spread domain
+    counts."""
     return (p.Nb * (p.R + 2 + p.S) + (3 * p.Nb * p.Ta if p.ipa_active else 0)
-            + (p.K * p.D * p.S if p.dom_carry else 0) + _scratch_words(p))
+            + (p.K * p.D * p.S if p.dom_carry else 0))
 
 
 def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                 packed_f: torch.Tensor, layout, masks: torch.Tensor,
                 tie_words: torch.Tensor, logtab: torch.Tensor,
-                n_constrained: int, has_fallback: bool) -> torch.Tensor:
+                n_constrained: int, has_fallback: bool,
+                syncs: torch.Tensor | None = None) -> torch.Tensor:
     """K5 wrapper: whole-gang placement over a [D, Nb] bool stack of
     placement masks in host placement order — rows [0, n_constrained) the
     topology domains, row n_constrained (with has_fallback) the
     unconstrained parent, the rest all-False padding. static is K1's output
     over the gang's P members (one launch for every row). Returns the
-    packed int32 vector of gang_assign_ref; the planes stay untouched."""
+    packed int32 vector of gang_assign_ref; the planes stay untouched.
+    syncs (CUDA only) receives row 0's counted synchronisations, as
+    assign_scan's."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -1355,6 +1445,7 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
 
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
+    _check_span("gang_assign", nb)
     p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
                      n_static=P, G=0, cursor0=0)
     _check(masks, "masks", device, torch.bool, (D, nb))
@@ -1370,7 +1461,7 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
     ptrs += ([planes[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref",
                                              "ipa_term_key")]
              if cfg.ipa_active else [0] * 4)
-    ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr()]
+    ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device)]
     cuda.launch("gang_assign", g, ptrs, _stream(device))
     LAUNCHES["gang_assign"] += 1
     return out

@@ -36,6 +36,7 @@ from kubernetes_tpu_torch.testing.mixed import (
     mixed_spec,
 )
 from tests.test_torch_pipeline import _Side, _waves_of, _wrappers
+from tests.test_torch_pipeline import _own_process_state  # noqa: F401 (autouse)
 
 
 class _MeshBase:

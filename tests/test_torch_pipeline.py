@@ -24,9 +24,11 @@ runs at a few hundred nodes.
 """
 
 import dataclasses
+import os
 import random
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,7 @@ from kubernetes_tpu.scheduler.tpu.backend import (
     clone_tie_words,
 )
 from kubernetes_tpu.store import Store
+from kubernetes_tpu.utils import faultinject
 from kubernetes_tpu_torch.api.resource import ResourceNames as TNames
 from kubernetes_tpu_torch.ops import kernels as tk
 from kubernetes_tpu_torch.ops.planes import (
@@ -80,6 +83,41 @@ from kubernetes_tpu_torch.testing.mixed import (
 )
 from kubernetes_tpu_torch.testing.pipeline import WavePipeline
 from tests.test_torch_dedup import _case as _dedup_case
+
+
+_DEVICE_PUT = jax.device_put
+
+
+def _device_put_copy(x, *args, **kwargs):
+    """jax.device_put of private copies of the numpy leaves: on the CPU
+    backend device_put may alias a 64-byte-aligned numpy array instead of
+    copying it (ROADMAP C12), and the reference's backend puts its plane
+    builder's arrays, which the builder rewrites in place, into its device
+    mirror."""
+    x = jax.tree.map(lambda a: np.array(a, copy=True) if isinstance(a, np.ndarray) else a, x)
+    return _DEVICE_PUT(x, *args, **kwargs)
+
+
+@pytest.fixture(autouse=True)
+def _own_process_state(monkeypatch):
+    """Every test here starts from the process state it sets itself, not
+    from what an earlier test in the same worker left: the reference's
+    process-wide fault registry (fired by TPUBackend.launch_batched and
+    collect) disarmed and reset, no KUBE_TPU_* knob in the environment (the
+    reference reads some of them, e.g. KUBE_TPU_MESH_DEVICES, when its
+    backend is built; the port's context_from_env reads the same one), and
+    the reference's device mirror holding copies of its host planes rather
+    than, depending on where the allocator put them, aliases (C12)."""
+    reg = faultinject.registry()
+    reg.disarm()
+    reg.reset(seed=0)
+    for name in [k for k in os.environ if k.startswith("KUBE_TPU_")]:
+        monkeypatch.delenv(name)
+    monkeypatch.setattr(jax, "device_put", _device_put_copy)
+    yield
+    reg.disarm()
+    reg.reset(seed=0)
+
 
 # --------------------------------------------------------------------------
 # K2 with the cross-wave seed and the device cursor
