@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    dedup and without, and require exact equality of every output (the
    signature table and sig_scores included; K2 also with an all-rejecting
    and a 3-word tie stream); K3 on that wave's dirty rows; then time them
-   (the kernels alone by torch.profiler, the plain versions by events);
+   (the kernels alone by torch.profiler, the plain versions by events),
+   and an empty kernel launched with K1's and K3's grid and block shapes
+   (their launch floor);
 5. hold the card's decisions against the CPU plain path on mixed clusters
    of 16 to 1500 nodes (taints, affinity, images, ports, spread, hard
    spread and inter-pod affinity, an extended resource, three scoring
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    DoNotSchedule zone constraint) one at a time through
    TorchSchedulingAlgorithm.schedule_pod (K4 + K3) with an assume and a
    snapshot update after each; every pod must land, K4 must launch once
-   per measured pod, and the zone skew must end <= 1;
+   per measured pod, and the zone skew must end <= 1; pods/s and the run
+   phases' ms per pod (`wait`: K4 behind the result copy);
 7. TopologySpreading through waves: a fresh Cache, the 5000 initial pods,
    then the 5000 app: spread pods through run_batched in waves of 512
    (hard spread in the scan, dedup on; counts zeroed before the measured
@@ -43,10 +46,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    anti-affinity on hostname and zone, preferred terms both ways) and mixed
    pods; K1 and K2 equal to their plain versions, both tiers; K2 timed;
 9. K4 against its plain version on the card at full width, exact equality
-   of every output array, on a TopologySpreading pod, a SchedulingBasic
+   of every output array at every cluster size (1, 2, 4, 8, 16 blocks per
+   pod) and across them, on a TopologySpreading pod, a SchedulingBasic
    pod, pods with every IPA term kind on phase 8's cluster, a pod that fits
-   nowhere, and three pods in one launch; then K4 and its plain version
-   timed;
+   nowhere, three pods in one launch, and (--k4-buckets) empty clusters of
+   5, 9000 and 17000 nodes (buckets of 8, 16384 and 32768 rows); then K4
+   timed at every cluster size beside its plain version on the first
+   three and, on the first, thread 0's clock split by phase and the
+   latency floor (the same counted barriers, folds, exchanges and table
+   folds with no node work);
 10. the card against the CPU plain path through schedule_pod on mixed
    clusters of 16 to 1500 nodes with hard spread and IPA: equal results,
    equal final rng state, equal FitError messages;
@@ -102,20 +110,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    phase 14's, per-wave launch and collect-wait ms;
 19. K7 (wave_fit_and_score, the pods x nodes matrix) at dryrun_multichip's
    shape: 5000 nodes, 512 pods with a zone hard spread, on a (wave 2,
-   nodes 4) mesh: equal to its plain version and row by row to K4; then
+   nodes 4) mesh: equal to its plain version and row by row to K4, and at
+   1, 2 and 4 blocks per pod equal to the plain version, each timed beside
+   its latency floor; then
    the same pods through sharded_batched_assign (8 shards) equal to
    batched_assign on every output, all placed;
 20. the scan step's latency: nvcc's -Xptxas -v registers, spills and shared
-   memory for every instance of assign_scan_kernel, gang_assign_kernel and
-   sharded_assign_kernel; K2's microseconds per step on phase 4's, 7's, 8's
+   memory for every instance of assign_scan_kernel, gang_assign_kernel,
+   sharded_assign_kernel and fit_and_score_kernel; K2's microseconds per
+   step on phase 4's, 7's, 8's
    and 15's waves (their tiers beside), K5's per member at each --k5-sizes
    gang, Required and Preferred (phase 11's), and K6's on phase 15's wave at
    the largest shard count; beside each, the latency floor: a kernel that
    makes the scan's counted barriers, folds, cluster barriers, exchanges
    and tie picks (the scan reports them) over the same steps with no node
    work (scan_floor, csrc/assign_scan.cu);
-   phases 17-20 run under a watchdog (--phase-timeout) that fails the run
-   when a phase does not end, as a kernel hung at a cluster barrier would;
+   phases 6, 9, 10 and 17-20 run under a watchdog (--phase-timeout) that
+   fails the run when a phase does not end, as a kernel hung at a cluster
+   barrier would;
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 3's serial path, where each wave's assumes reach the
@@ -422,6 +434,9 @@ def main() -> None:
     ap.add_argument("--ipa-nodes", type=int, default=5000)
     ap.add_argument("--ipa-existing", type=int, default=2000)
     ap.add_argument("--cycle-cases", type=int, default=4)
+    # phase 9: K4 on clusters of these node counts (buckets of 8, 16384 and
+    # 32768 rows) besides the full-width cases
+    ap.add_argument("--k4-buckets", default="5,9000,17000")
     # phases 11-13: K5 at full width, gang.yaml's cells, the card vs the CPU
     ap.add_argument("--k5-nodes", type=int, default=5000)
     ap.add_argument("--k5-sizes", default="4,32,128")
@@ -609,6 +624,18 @@ def main() -> None:
     rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
     ms3_row = kernel_ms(lambda: kernels.scatter_rows(k3, rows1, idx1),
                         "scatter_rows_kernel", 50)
+    # the launch floor of K1 and K3: an empty kernel on each one's grid
+    k1_cols = (w.planes.nb + 255) // 256
+    for label, lib, grid, threads in (
+            ("K1 over the signature rows", "static_parts", (k1_cols, len(w.uniq)), 256),
+            ("K1 over 128 gang members", "static_parts", (k1_cols, 128), 256),
+            ("K3 on the wave's dirty rows", "scatter_rows",
+             ((len(idx_np) + 127) // 128, len(rows)), 128),
+            ("K3 on one row", "scatter_rows", (1, len(rows)), 128)):
+        ems = kernel_ms(lambda: cuda.launch_empty(lib, grid, threads,
+                                                  torch.cuda.current_stream().cuda_stream),
+                        "empty_kernel", 50)
+        print(f"empty kernel launched as {label} (grid {grid}, {threads} threads): {ems:.5f} ms")
     print(f"static_parts over {len(w.uniq)} signature rows {ms1:.4f} ms, over "
           f"{args.wave} pods {ms1_all:.4f} ms; scatter_rows on one dirty row "
           f"{ms3_row:.5f} ms")
@@ -703,14 +730,17 @@ def main() -> None:
               f"{n} launches on {path}")
 
     # 6-10. TopologySpreading (single-pod path, then waves), IPA, K4
-    launches6, state6 = topology_spreading(args)
+    with watchdog("phase 6 (the single-pod cycle)", args.phase_timeout):
+        launches6, state6 = topology_spreading(args)
     waves7 = spreading_waves(args)
     print(f"TopologySpreading measured pods/s: waves {waves7['pods_s']:.1f} "
           f"(run_batched alone {waves7['run_pods_s']:.1f}), single-pod path "
           f"{state6['pods_s']:.1f}")
     ipa8, cluster8, cell8 = ipa_wave(args)
-    k4 = k4_against_plain(args, state6, cluster8)
-    cycle_card_vs_cpu(args)
+    with watchdog("phase 9 (K4 against its plain version)", args.phase_timeout):
+        k4 = k4_against_plain(args, state6, cluster8)
+    with watchdog("phase 10 (the single-pod cycle, card vs CPU)", args.phase_timeout):
+        cycle_card_vs_cpu(args)
     rows_out.append({"name": "fit_and_score", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
                      "replaces": "kubernetes_tpu/ops/kernels.py:754",
@@ -1313,9 +1343,11 @@ def _k4_case(backend, pods, snap):
 
 
 def _k4_compare(label, backend, pods, snap):
-    """Run K4 once for `pods` and its plain version for each pod on the
-    card on the same inputs; every output array must be equal. Returns
-    (max |kernel - plain|, feasible count of the first pod, inputs)."""
+    """Run K4 once for `pods` at every cluster size it has and its plain
+    version for each pod on the card on the same inputs; every output array
+    must be equal to the plain version's, and the packed outputs equal
+    across the cluster sizes. Returns (max |kernel - plain|, feasible count
+    of the first pod, inputs)."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.planes import unpack_features
 
@@ -1323,27 +1355,73 @@ def _k4_compare(label, backend, pods, snap):
     cfg, planes, dev_planes, dev_tables, packed_f, layout = case
     logtab = backend._logtab
     nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
-    packed = kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout, logtab)
     f_views = unpack_features(packed_f, layout)
-    err, feasible = 0.0, []
+    want = [kernels.fit_and_score_ref(cfg, dev_planes, dev_tables, f_views, logtab, p)
+            for p in range(len(pods))]
+    err, feasible, first = 0.0, [], None
     names = ["fails", "feasible", "insufficient", "too_many_pods", "total"]
-    for p in range(len(pods)):
-        got = kernels.unpack_fit_outputs(packed[p], planes.nb, nf, planes.r)
-        want = kernels.fit_and_score_ref(cfg, dev_planes, dev_tables, f_views, logtab, p)
+    for n in kernels.FIT_CLUSTERS:
+        packed = kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout, logtab,
+                                       cluster=n)
         torch.cuda.synchronize()
-        pairs = [(got[k], want[k]) for k in names]
-        pairs += [(got["per_plugin"][k], want["per_plugin"][k]) for k in kernels.PLUGIN_NAMES]
-        for (a, b), name in zip(pairs, names + list(kernels.PLUGIN_NAMES)):
-            if not torch.equal(a, b):
-                fail(f"fit_and_score {name} differs from its plain version ({label}, "
-                     f"pod {p})")
-        err = max(err, max_abs_err(pairs))
-        feasible.append(int(got["feasible"].sum()))
-    print(f"K4 == plain ({label}): {planes.n} nodes, feasible {feasible}, "
+        if first is None:
+            first = packed
+        elif not torch.equal(packed, first):
+            fail(f"fit_and_score on a cluster of {n} differs from a cluster of "
+                 f"{kernels.FIT_CLUSTERS[0]} ({label})")
+        for p in range(len(pods)):
+            got = kernels.unpack_fit_outputs(packed[p], planes.nb, nf, planes.r)
+            pairs = [(got[k], want[p][k]) for k in names]
+            pairs += [(got["per_plugin"][k], want[p]["per_plugin"][k])
+                      for k in kernels.PLUGIN_NAMES]
+            for (x, y), name in zip(pairs, names + list(kernels.PLUGIN_NAMES)):
+                if not torch.equal(x, y):
+                    fail(f"fit_and_score {name} differs from its plain version ({label}, "
+                         f"pod {p}, cluster of {n})")
+            err = max(err, max_abs_err(pairs))
+            if n == kernels.FIT_CLUSTERS[0]:
+                feasible.append(int(got["feasible"].sum()))
+    print(f"K4 == plain ({label}) at clusters of {list(kernels.FIT_CLUSTERS)}, equal across "
+          f"them: {planes.n} nodes, feasible {feasible}, "
           f"n_hard {cfg.n_hard} n_soft {cfg.n_soft} ipa aff/anti/pref "
           f"{cfg.n_ipa_aff}/{cfg.n_ipa_anti}/{cfg.n_ipa_pref} existing anti/pref "
           f"{int(cfg.ipa_existing_anti)}/{int(cfg.ipa_existing_pref)}")
     return err, feasible[0], case
+
+
+def _k4_time(label, backend, case, reps=50):
+    """Profiler ms of K4 on `case` at every cluster size, and the plain
+    version's event ms: {cluster: ms}, plain ms."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    cfg, planes, dev_planes, dev_tables, packed_f, layout = case
+    logtab = backend._logtab
+    f_views = unpack_features(packed_f, layout)
+    ms = {n: kernel_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
+                                                     layout, logtab, cluster=n),
+                       "fit_and_score_kernel", reps) for n in kernels.FIT_CLUSTERS}
+    plain = time_ms(lambda: kernels.fit_and_score_ref(cfg, dev_planes, dev_tables, f_views,
+                                                      logtab), 10)
+    print(f"fit_and_score ({label}) profiler ms by cluster size: "
+          + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + f"; plain {plain:.3f} ms")
+    return ms, plain
+
+
+def fit_split(syncs, ms):
+    """K4's or K7's time split by phase: thread 0's clock cycles per phase
+    (its view of the critical path; every thread meets it at the barriers)
+    as shares of the measured time, with the counts."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    sv = syncs.tolist()
+    cyc = sv[kernels.FIT_COUNTS:]
+    total = max(sum(cyc), 1)
+    return ("by phase (us, thread 0's clock shares of the measured time): "
+            + ", ".join(f"{name} {ms * 1e3 * c / total:.2f}"
+                        for name, c in zip(kernels.FIT_PHASE_NAMES, cyc) if c)
+            + f"; counted block barriers, folds, cluster barriers, exchanges, table folds, "
+              f"table words {sv[:kernels.FIT_COUNTS]}")
 
 
 def k4_work(cfg, planes, tables, f, packed_f, out_bytes):
@@ -1398,31 +1476,40 @@ def k4_work(cfg, planes, tables, f, packed_f, out_bytes):
 
 def k4_against_plain(args, state, cluster):
     """9. K4 against its plain version on the card at full width, exact
-    equality of every output: (a) a TopologySpreading measured pod on the
-    final state, (b) a SchedulingBasic pod (system-default soft spread),
-    (c) pods with every IPA term kind on phase 8's mixed cluster with
-    existing (anti)affinity pods, taints, ports and images, (d) a pod that
-    fits nowhere, (e) three of them in one launch (one block per pod). Then
-    K4 and its plain version timed on (a)'s inputs."""
+    equality of every output at every cluster size (and across them): (a)
+    a TopologySpreading measured pod on the final state, (b) a
+    SchedulingBasic pod (system-default soft spread), (c) pods with every
+    IPA term kind on phase 8's mixed cluster with existing (anti)affinity
+    pods, taints, ports and images, (d) a pod that fits nowhere, (e) three
+    of them in one launch (one cluster per pod), and a spread pod and a
+    default pod on empty clusters of each --k4-buckets node count (every
+    bucket size K4 may be handed, 8 rows to past 16384). Then K4 timed at every
+    cluster size on (a), (b) and (c) beside the plain version, and on (a)
+    thread 0's clock split by phase and the latency floor (fit_floor: the
+    same counted barriers, folds, exchanges and table folds with no node
+    work) at each size."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.planes import unpack_features
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
     from kubernetes_tpu_torch.testing.wrappers import (
-        make_pod, scheduling_basic_pod, topology_spreading_pod)
+        make_pod, scheduling_basic_node, scheduling_basic_pod, topology_spreading_pod)
 
     backend, snap = state["backend"], state["snap"]
     err, n_feas, case_a = _k4_compare("a: TopologySpreading pod", backend,
                                       [topology_spreading_pod(10**6)], snap)
     if n_feas == 0:
         fail("the TopologySpreading compare pod fits nowhere")
-    e, _, _ = _k4_compare("b: SchedulingBasic pod", backend,
-                          [scheduling_basic_pod(10**6)], snap)
+    e, _, case_b = _k4_compare("b: SchedulingBasic pod", backend,
+                               [scheduling_basic_pod(10**6)], snap)
     err = max(err, e)
     e, n_feas, _ = _k4_compare("d: fits nowhere", backend,
                                [make_pod("huge", cpu="100000", mem="50Mi")], snap)
     if n_feas:
         fail("the fits-nowhere pod found a node")
     err = max(err, e)
-    # the pod grid dimension: three pods, one block each, one launch
+    # the pod grid dimension: three pods, one cluster each, one launch
     e, _, _ = _k4_compare("e: three pods in one launch", backend,
                           [topology_spreading_pod(10**6 + 1), scheduling_basic_pod(10**6 + 1),
                            make_pod("huge2", cpu="100000", mem="50Mi")], snap)
@@ -1430,37 +1517,63 @@ def k4_against_plain(args, state, cluster):
 
     # (c) phase 8's mixed cluster at full width with existing (anti)affinity pods
     mixed, msnap, spec, rest = cluster
-    kinds = set()
+    kinds, cases_c = set(), {}
     for pod in rest:
         s = spec["pods"][int(pod.meta.name[1:])]
         k = {kind for kind in ("aff", "anti", "pref", "hard") if s[kind]}
         if not k - kinds:
             continue
         kinds |= k
-        e, _, _ = _k4_compare(f"c: mixed {sorted(k)}", mixed, [pod], msnap)
+        e, _, case = _k4_compare(f"c: mixed {sorted(k)}", mixed, [pod], msnap)
+        cases_c[str(sorted(k))] = (mixed, case)
         err = max(err, e)
     if not {"aff", "anti", "pref", "hard"} <= kinds:
         fail(f"the mixed compare pods lack IPA/spread kinds: {kinds}")
 
-    # timings on (a)'s inputs: the main path's shape
+    # every bucket K4 may be handed: a few nodes up to past 16384 rows
+    for n_nodes in (int(x) for x in args.k4_buckets.split(",") if x):
+        bcache = Cache(ResourceNames())
+        for i in range(n_nodes):
+            bcache.add_node(scheduling_basic_node(i, args.zones))
+        bsnap = Snapshot()
+        bcache.update_snapshot(bsnap)
+        e, n_feas, _ = _k4_compare(f"bucket of {n_nodes} nodes", TorchBackend(
+            bcache.names, device="cuda"), [topology_spreading_pod(10**6 + 2),
+                                           scheduling_basic_pod(10**6 + 2)], bsnap)
+        if n_feas != n_nodes:
+            fail(f"the spread pod fits {n_feas} of {n_nodes} empty nodes")
+        err = max(err, e)
+
+    # timings on (a)'s inputs, the main path's shape, at every cluster size;
+    # (b) and (c) beside their plain versions
     cfg, planes, dev_planes, dev_tables, packed_f, layout = case_a
     logtab = backend._logtab
     f_views = unpack_features(packed_f, layout)
     ms = time_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
                                                layout, logtab), 50)
-    ms_p = time_ms(lambda: kernels.fit_and_score_ref(cfg, dev_planes, dev_tables,
-                                                     f_views, logtab), 10)
-    ms_k = kernel_ms(lambda: kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
-                                                   layout, logtab),
-                     "fit_and_score_kernel", 50)
+    by_c, ms_p = _k4_time("a: TopologySpreading pod", backend, case_a)
+    ms_k = by_c[kernels.FIT_CLUSTER]
+    _k4_time("b: SchedulingBasic pod", backend, case_b, 20)
+    for label, (m_backend, m_case) in cases_c.items():
+        _k4_time(f"c: mixed {label}", m_backend, m_case, 20)
     print(f"fit_and_score: event ms around the wrapper {ms:.4f}, profiler kernel ms "
-          f"{ms_k:.4f}, plain {ms_p:.3f} ms")
+          f"{ms_k:.4f} (a cluster of {kernels.FIT_CLUSTER}), plain {ms_p:.3f} ms")
+    syncs = torch.zeros(kernels.FIT_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    for n in kernels.FIT_CLUSTERS:
+        kernels.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout, logtab,
+                              cluster=n, syncs=syncs)
+        torch.cuda.synchronize()
+        fl = kernel_ms(lambda: kernels.fit_floor(syncs, 1, n), "fit_floor_kernel", 20)
+        print(f"K4 (a) on a cluster of {n}: {by_c[n] * 1e3:.2f} us; latency floor "
+              f"{fl * 1e3:.2f} us; {fit_split(syncs, by_c[n])}")
+        if n == kernels.FIT_CLUSTER:
+            floor = fl
     nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
     out_bytes = kernels.fit_output_bytes(planes.nb, nf, planes.r)[1]
     b4, f4 = k4_work(cfg, dev_planes, dev_tables, f_views, packed_f, out_bytes)
     bd, by = bound_ms(b4, f4)
     print(f"fit_and_score: {ms_k:.4f} ms (plain {ms_p:.3f} ms, bound {bd:.5f} ms by "
-          f"{by}, {b4} bytes)")
+          f"{by}, {b4} bytes; latency floor {floor:.5f} ms)")
     return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bd,
             "bound_by": by, "library_ms": None}
 
@@ -1999,7 +2112,7 @@ def step_latency(reports, k2_cells, k5_cells, n_shards, k6_ms):
     from kubernetes_tpu_torch.ops import kernels
 
     entries = ptxas_entries(reports, ("assign_scan_kernel", "gang_assign_kernel",
-                                      "sharded_assign_kernel"))
+                                      "sharded_assign_kernel", "fit_and_score_kernel"))
     for name, e in sorted(entries.items()):
         print(f"ptxas {name}: {e.get('registers')} registers, {e.get('stack')} bytes stack, "
               f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes spill stores/loads, "
@@ -2131,18 +2244,36 @@ def wave_matrix(args, n_shards):
                 and torch.equal(row["total"], total[p])):
             fail(f"wave_fit_and_score row {p} differs from fit_and_score's")
     n_feasible = int(feasible.sum())
+    # every cluster size K7 has: equal to the plain version, timed
+    by_c = {}
+    syncs = torch.zeros(kernels.FIT_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    for n in kernels.WAVE_FIT_CLUSTERS:
+        got_f, got_t = kernels.wave_fit_and_score(w.cfg, w.dp, w.dt, w.packed_f, w.layout,
+                                                  w.logtab, cluster=n, syncs=syncs)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_f, want_f) and torch.equal(got_t, want_t)):
+            fail(f"wave_fit_and_score on {n} blocks per pod differs from its plain version")
+        by_c[n] = kernel_ms(lambda: kernels.wave_fit_and_score(
+            w.cfg, w.dp, w.dt, w.packed_f, w.layout, w.logtab, cluster=n),
+            "fit_and_score_kernel<false", 5)
+        fl = kernel_ms(lambda: kernels.fit_floor(syncs, len(pods), n, wave=True),
+                       "fit_floor_kernel", 5)
+        print(f"K7 on {n} blocks per pod: {by_c[n]:.4f} ms; latency floor {fl:.4f} ms "
+              f"({len(pods)} pods); pod 0 {fit_split(syncs, by_c[n])}")
     ms = kernel_ms(lambda: wave_fit_and_score(w.cfg, mesh, w.dp, w.dt, w.packed_f, w.layout,
-                                              w.logtab), "fit_and_score_kernel<false>", 5)
+                                              w.logtab), "fit_and_score_kernel<false", 5)
     ms_k4 = kernel_ms(lambda: kernels.fit_and_score(w.cfg, w.dp, w.dt, w.packed_f, w.layout,
-                                                    w.logtab), "fit_and_score_kernel<true>", 5)
+                                                    w.logtab), "fit_and_score_kernel<true", 5)
     plain = time_ms(lambda: kernels.wave_fit_and_score_ref(w.cfg, w.dp, w.dt, w.fv, w.logtab),
                     1, warmup=0)
     nb, P = w.planes.nb, len(pods)
     b0, ops0 = k4_work(w.cfg, w.dp, w.dt, w.fv, w.packed_f, nb * 5)
     bd, by = bound_ms(b0 + (P - 1) * (w.packed_f.shape[1] * 4 + nb * 5), P * ops0)
     print(f"wave_fit_and_score ({args.matrix_nodes} nodes x {P} zone-spread pods, mesh "
-          f"{mesh.shape}): equal to its plain version and row by row to fit_and_score; "
-          f"{n_feasible} feasible pairs; {ms:.4f} ms (fit_and_score on the same {P} pods "
+          f"{mesh.shape}): equal to its plain version (at {list(kernels.WAVE_FIT_CLUSTERS)} "
+          f"blocks per pod) and row by row to fit_and_score; "
+          f"{n_feasible} feasible pairs; {ms:.4f} ms at {kernels.WAVE_FIT_CLUSTER} "
+          f"(fit_and_score on the same {P} pods "
           f"{ms_k4:.4f} ms; plain {plain:.1f} ms; bound {bd:.5f} ms by {by})")
     # the dryrun's second program: the scan over the same pods on the shards
     words = tie_words(args.seed + 9, P)

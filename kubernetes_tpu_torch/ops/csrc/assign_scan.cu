@@ -72,16 +72,17 @@ extern "C" int launch_assign_scan(const ScanParams* p, void* const* ptrs,
 // The latency floor: n.fold single-barrier folds of two slots, n.bar bare
 // block barriers, n.pick tie picks over NPT ballots (publish, barrier, the
 // best, the tie count and the column/warp/bit search), and, in a cluster,
-// n.csync cluster barriers and n.xch exchanges (publish, cluster barrier,
-// every warp reading the peers' slots). One block, or one cluster of
+// n.csync cluster barriers and n.xch exchanges (ClusterComm::exchange:
+// publish, cluster barrier, warp 0 reading the peers' slots, a block
+// barrier). One block, or one cluster of
 // n_blocks; out[0] keeps the values alive.
 template <bool CLUSTER>
 __global__ void __launch_bounds__(SCAN_NT, 1) scan_floor_kernel(ScanSyncs n, int npt, int* out) {
     __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
     __shared__ unsigned pk[2][SCAN_NWARPS][SCAN_MAX_NPT + 1];
-    __shared__ int xch[2 * SCAN_RED];
+    __shared__ int xch[3 * SCAN_RED];
     const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    int acc = threadIdx.x, par = 0, xpar = 0;
+    int acc = threadIdx.x, par = 0;
     for (int i = 0; i < n.fold; ++i) {
         int v[2] = {acc, acc};
         fold_block<2>(v, 0x1u, 0x2u, red[par]);
@@ -127,13 +128,12 @@ __global__ void __launch_bounds__(SCAN_NT, 1) scan_floor_kernel(ScanSyncs n, int
             cl.sync();
             acc += 1;
         }
+        ScanSyncs counts = {};
+        ClusterComm comm = {0, 0, (int)cl.block_rank(), nb, red, 0, xch, 0, &counts};
         for (int i = 0; i < n.xch; ++i) {
-            int* slot = xch + xpar * SCAN_RED;
-            if (threadIdx.x == 0) slot[0] = acc;
-            cl.sync();
-            const int x = lane < nb ? *cl.map_shared_rank(slot, lane) : 0;
-            acc += __reduce_max_sync(FULL_MASK, x) & 1;
-            xpar ^= 1;
+            int v[1] = {acc};
+            comm.template exchange<1>(v, 1u, 0u);
+            acc += v[0] & 1;
         }
         cl.sync();  // no block leaves while a peer may still read its slots
     }

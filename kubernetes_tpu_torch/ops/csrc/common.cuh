@@ -103,6 +103,7 @@ struct FitParams {
     int ex_pref;      // the InterPodAffinity score is computed at all
     int ex_pref_add;  // ... and adds the existing pods' preferred terms
     int topo_dk[SCAN_MAX_KEYS];
+    int cluster;  // blocks per pod: one thread-block cluster of 1, 2, 4, 8 or 16
 };
 
 #define SCATTER_MAX_PLANES 16
@@ -115,6 +116,16 @@ struct ScatterParams {
     long long dst[SCATTER_MAX_PLANES];
     long long src[SCATTER_MAX_PLANES];
 };
+
+// A kernel that does nothing, launched with a kernel's grid and block
+// shape: the launch floor that kernel's time stands on (every library has
+// it, as it has kernel_error_string)
+__global__ void empty_kernel() {}
+
+extern "C" int launch_empty(int gx, int gy, int threads, void* stream) {
+    empty_kernel<<<dim3(gx, gy), threads, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
 
 extern "C" const char* kernel_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

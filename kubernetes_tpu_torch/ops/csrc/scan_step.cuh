@@ -90,7 +90,8 @@
 // includes valid (and so is read as is on the mask's nodes).
 //
 // The reduction scope is a template policy, the reference's comm
-// (kernels.py:81-131). BlockComm: one block owns every node; its domain
+// (kernels.py:81-131), in comm.cuh (shared with K4 and K7). BlockComm: one
+// block owns every node; its domain
 // tables live in the block's own shared memory (K2, K5). ClusterComm (K6):
 // block r of a cluster of n owns the node range [r*Nb/n, (r+1)*Nb/n) of
 // every plane and of the signature table's columns, and walks that range's
@@ -111,18 +112,11 @@
 // cluster-reduced values, so every block takes it.
 #pragma once
 
-#include <cooperative_groups.h>
-
 #include <type_traits>
 
+#include "comm.cuh"
 #include "scoring.cuh"
 
-namespace cg = cooperative_groups;
-
-#define SCAN_NT 1024
-#define SCAN_NWARPS (SCAN_NT / 32)
-#define SCAN_RED 10
-#define SCAN_BIG 2147483647
 #define SCAN_MAX_SHARDS 8
 // owned positions per thread: 8 (a bucket of up to 8192 node slots) or 16
 // (up to 16384)
@@ -191,13 +185,6 @@ __host__ __device__ inline size_t scan_smem_bytes(const ScanParams& p, int span,
     return (size_t)(w > 0 ? w : 1) * sizeof(int);
 }
 
-// The counted synchronisations of one scan (thread 0): block barriers,
-// single-barrier folds, cluster barriers, cluster exchanges and tie picks.
-// The latency-floor kernel replays these counts with no node work.
-struct ScanSyncs {
-    int bar, fold, csync, xch, pick;
-};
-
 // Thread 0's clock, split by step phase (its view of the critical path:
 // every thread meets it at the barriers): the slots barrier, the filter
 // phases and table setup, A's node pass, A's fold, B, C's node pass with
@@ -206,168 +193,6 @@ struct ScanSyncs {
 // sync counts' output.
 #define SCAN_PHASES 8
 #define SCAN_SYNC_WORDS (5 + SCAN_PHASES)
-
-// one warp's reduction of x: max, min or a wrapping int32 sum
-template <int OP>
-__device__ __forceinline__ int warp_op(int x) {
-    if constexpr (OP == 1) return __reduce_max_sync(FULL_MASK, x);
-    else if constexpr (OP == 2) return __reduce_min_sync(FULL_MASK, x);
-    else return (int)__reduce_add_sync(FULL_MASK, (unsigned)x);
-}
-
-__device__ __forceinline__ int fold_op(int x, unsigned maxmask, unsigned minmask, int i) {
-    if ((maxmask >> i) & 1u) return warp_op<1>(x);
-    if ((minmask >> i) & 1u) return warp_op<2>(x);
-    return warp_op<0>(x);
-}
-
-// the identity of slot i's fold
-__device__ __forceinline__ int fold_id(unsigned maxmask, unsigned minmask, int i) {
-    return ((maxmask >> i) & 1u) ? -SCAN_BIG - 1 : (((minmask >> i) & 1u) ? SCAN_BIG : 0);
-}
-
-// The block fold of N ints in ONE barrier: every warp reduces its values
-// (slot i takes the max when bit i of maxmask is set, the min when bit i of
-// minmask is, else the wrapping sum), lane 0 writes them to red[wid], and
-// after the barrier every warp folds the SCAN_NWARPS warps' partials itself
-// (lane l reads warp l's). red is one parity of a double-buffered
-// [2][SCAN_NWARPS][SCAN_RED] array: a fold's buffer is rewritten two folds
-// later, after a barrier every reader has passed.
-template <int N>
-__device__ __forceinline__ void fold_block(int (&v)[N], unsigned maxmask, unsigned minmask,
-                                           int (*red)[SCAN_RED]) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = fold_op(v[i], maxmask, minmask, i);
-    if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) red[wid][i] = v[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-        v[i] = fold_op(lane < SCAN_NWARPS ? red[lane][i] : fold_id(maxmask, minmask, i),
-                       maxmask, minmask, i);
-}
-
-// One block owns the whole node axis (K2, K5).
-// counts one synchronisation (thread 0, into the block's shared counts)
-__device__ __forceinline__ void tick(int& c) {
-    if (threadIdx.x == 0) ++c;
-}
-
-struct BlockComm {
-    static constexpr bool kCluster = false;
-    int lo, hi;  // the node range this block walks
-    int (*red)[SCAN_NWARPS][SCAN_RED];
-    int par;
-    ScanSyncs* n;  // the synchronisations so far (shared; thread 0 counts)
-    __device__ int rank() const { return 0; }
-    // the shared-memory domain tables the block adds into and reads
-    __device__ int* tables(int* local) const { return local; }
-    __device__ void sync() {
-        tick(n->bar);
-        __syncthreads();
-    }
-    template <int N>
-    __device__ void reduce(int (&v)[N], unsigned maxmask, unsigned minmask) {
-        tick(n->fold);
-        fold_block<N>(v, maxmask, minmask, red[par]);
-        par ^= 1;
-    }
-    // this block's fold only (the same under both policies)
-    template <int N>
-    __device__ void reduce_local(int (&v)[N], unsigned maxmask, unsigned minmask) {
-        reduce<N>(v, maxmask, minmask);
-    }
-    __device__ int sync_or(int x) {
-        tick(n->bar);
-        return __syncthreads_or(x);
-    }
-    // the blocks' best score and tie count: the block's own
-    __device__ void pick(int bb, int bc, int& best, int& ties, int& prefix) {
-        best = bb;
-        ties = bc;
-        prefix = 0;
-    }
-};
-
-// A cluster of n blocks, block r owning nodes [lo, hi) (K6). xch is a
-// shared [2][SCAN_RED] array of exchange slots (double-buffered by parity:
-// a slot is rewritten only after a later cluster barrier has passed every
-// peer's read of it), declared in the kernel so that every block has it at
-// the same address.
-struct ClusterComm {
-    static constexpr bool kCluster = true;
-    int lo, hi, r, nb;
-    int (*red)[SCAN_NWARPS][SCAN_RED];
-    int par;
-    int* xch;
-    int xpar;
-    ScanSyncs* n;
-    __device__ int rank() const { return r; }
-    __device__ int* tables(int* local) const {
-        return cg::this_cluster().map_shared_rank(local, 0);
-    }
-    __device__ void sync() {
-        tick(n->csync);
-        cg::this_cluster().sync();
-    }
-    // every thread holds this block's v: every warp folds the n blocks'
-    __device__ int* publish(const int* v, int cnt) {
-        int* slot = xch + xpar * SCAN_RED;
-        if (threadIdx.x == 0) {
-            for (int i = 0; i < cnt; ++i) slot[i] = v[i];
-        }
-        tick(n->xch);
-        cg::this_cluster().sync();
-        xpar ^= 1;
-        return slot;
-    }
-    template <int N>
-    __device__ void exchange(int (&v)[N], unsigned maxmask, unsigned minmask) {
-        cg::cluster_group cl = cg::this_cluster();
-        int* slot = publish(v, N);
-        const int lane = threadIdx.x & 31;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            const int x = lane < nb ? *cl.map_shared_rank(slot + i, lane)
-                                    : fold_id(maxmask, minmask, i);
-            v[i] = fold_op(x, maxmask, minmask, i);
-        }
-    }
-    template <int N>
-    __device__ void reduce_local(int (&v)[N], unsigned maxmask, unsigned minmask) {
-        tick(n->fold);
-        fold_block<N>(v, maxmask, minmask, red[par]);
-        par ^= 1;
-    }
-    template <int N>
-    __device__ void reduce(int (&v)[N], unsigned maxmask, unsigned minmask) {
-        reduce_local<N>(v, maxmask, minmask);
-        exchange<N>(v, maxmask, minmask);
-    }
-    __device__ int sync_or(int x) {
-        tick(n->bar);
-        int v[1] = {__syncthreads_or(x)};
-        exchange<1>(v, 1u, 0u);
-        return v[0];
-    }
-    // every block's (best, tie count) in rank order: the cluster's best, its
-    // tie count and the ties of the blocks before this one, in every thread
-    __device__ void pick(int bb, int bc, int& best, int& ties, int& prefix) {
-        cg::cluster_group cl = cg::this_cluster();
-        const int mine[2] = {bb, bc};
-        int* slot = publish(mine, 2);
-        const int lane = threadIdx.x & 31;
-        const int qb = lane < nb ? *cl.map_shared_rank(slot, lane) : -SCAN_BIG - 1;
-        const int qc = lane < nb ? *cl.map_shared_rank(slot + 1, lane) : 0;
-        best = __reduce_max_sync(FULL_MASK, qb);
-        const int c = qb == best ? qc : 0;
-        ties = (int)__reduce_add_sync(FULL_MASK, (unsigned)c);
-        prefix = (int)__reduce_add_sync(FULL_MASK, (unsigned)(lane < r ? c : 0));
-    }
-};
 
 struct ScanArgs {
     const int* alloc;

@@ -28,47 +28,6 @@ __device__ __forceinline__ int wmul(int a, int b) {
     return (int)((unsigned)a * (unsigned)b);
 }
 
-// Reduce N ints over a block of exactly 1024 threads (32 warps): slot i
-// takes the max when bit i of maxmask is set, the min when bit i of minmask
-// is set, else the wrapping sum. red is a [32][N] and res an [N] shared
-// array; every thread gets the results in v. Contains two __syncthreads().
-template <int N>
-__device__ __forceinline__ void block_reduce(int (&v)[N], unsigned maxmask,
-                                             unsigned minmask, int (*red)[N],
-                                             int* res) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-        const bool mx = (maxmask >> i) & 1u, mn = (minmask >> i) & 1u;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const int o = __shfl_xor_sync(FULL_MASK, v[i], off);
-            v[i] = mx ? max(v[i], o) : (mn ? min(v[i], o) : wadd(v[i], o));
-        }
-    }
-    if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) red[wid][i] = v[i];
-    }
-    __syncthreads();
-    if (wid == 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-            const bool mx = (maxmask >> i) & 1u, mn = (minmask >> i) & 1u;
-            int x = red[lane][i];  // 32 warps: every lane holds a warp's value
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                const int o = __shfl_xor_sync(FULL_MASK, x, off);
-                x = mx ? max(x, o) : (mn ? min(x, o) : wadd(x, o));
-            }
-            if (lane == 0) res[i] = x;
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = res[i];
-}
-
 // --- filters ---------------------------------------------------------------
 
 // NodeResourcesFit (fit.go:673-760): resource r is short on the node; the
@@ -360,26 +319,51 @@ struct Ipa {
     const int* tkey;    // ipa_term_key [Ta]
 };
 
-// filter phase at a valid node: the required terms' per-domain sums and
+// How a pass adds into a per-domain table: add(table, word, value, on).
+// AtomicAdd: one shared-memory atomic per adding lane (K2). WarpAdd (K4):
+// the lanes of a warp that add into one word fold their values first
+// (__match_any_sync, then __reduce_add_sync over the peers) and one lane
+// adds the sum, so a warp makes one atomic per distinct word; every lane
+// of the warp must call it, on or not.
+struct AtomicAdd {
+    __device__ __forceinline__ void operator()(int* t, int i, int v, bool on) const {
+        if (on) atomicAdd(t + i, v);
+    }
+};
+struct WarpAdd {
+    __device__ __forceinline__ void operator()(int* t, int i, int v, bool on) const {
+        const unsigned act = __ballot_sync(FULL_MASK, on);
+        if (!on) return;
+        const unsigned peers = __match_any_sync(act, i);
+        const int s = (int)__reduce_add_sync(peers, (unsigned)v);
+        if ((int)(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(t + i, s);
+    }
+};
+
+// filter phase at a valid node (live: the caller's node is one; a lane
+// with live false adds nothing): the required terms' per-domain sums and
 // "anywhere" flags (aff_any[s] is max-reduced by the caller), and the
 // existing pods' anti-affinity per key slot (filtering.go:352-412)
-template <typename P>
+template <typename P, typename Add = AtomicAdd>
 __device__ __forceinline__ void ipa_filter_stats(const P& p, const Ipa& q, const int* f, int n,
-                                                 const int* dom_row, int* aff_any) {
+                                                 const int* dom_row, int* aff_any,
+                                                 Add add = {}, bool live = true) {
     for (int s = 0; s < q.na + q.nfa; ++s) {
         const Slot t = s < q.na ? q.anti[s] : q.aff[s - q.na];
         const int d = dom_at(dom_row, t);
-        if (!t.on || d < 0) continue;
-        const int cnt = q.counts[(size_t)n * p.Ta + t.col];
-        if (s >= q.na) aff_any[s - q.na] = max(aff_any[s - q.na], cnt > 0 ? 1 : 0);
-        if (t.dk > 0) atomicAdd(&q.filt[(size_t)s * q.D + clampi(d, 0, t.dk - 1)], cnt);
+        const bool on = live && t.on && d >= 0;
+        const int cnt = on ? q.counts[(size_t)n * p.Ta + t.col] : 0;
+        if (on && s >= q.na) aff_any[s - q.na] = max(aff_any[s - q.na], cnt > 0 ? 1 : 0);
+        if (t.dk > 0) add(q.filt + (size_t)s * q.D, clampi(d, 0, t.dk - 1), cnt, on);
     }
     if (p.ex_anti) {
         for (int k = 0; k < p.K; ++k) {
             const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || dk == 0 || d < 0) continue;
-            const int col = term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k);
-            if (col) atomicAdd(&q.filt[(size_t)(q.na + q.nfa + k) * q.D + clampi(d, 0, dk - 1)], col);
+            if (!((q.exmask >> k) & 1) || dk == 0) continue;
+            const bool on = live && d >= 0;
+            const int col = on ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0;
+            add(q.filt + (size_t)(q.na + q.nfa + k) * q.D, clampi(d, 0, dk - 1), col,
+                on && col != 0);
         }
     }
 }
@@ -418,24 +402,28 @@ __device__ __forceinline__ void ipa_filters_at(const P& p, const Ipa& q, const i
     }
 }
 
-// score phase at a feasible node: the preferred terms' per-domain sums and
-// the existing pods' preferred terms per key slot (scoring.go:81-257)
-template <typename P>
+// score phase at a feasible node (live: the caller's node is one): the
+// preferred terms' per-domain sums and the existing pods' preferred terms
+// per key slot (scoring.go:81-257)
+template <typename P, typename Add = AtomicAdd>
 __device__ __forceinline__ void ipa_score_stats(const P& p, const Ipa& q, const int* f, int n,
-                                                const int* dom_row) {
+                                                const int* dom_row, Add add = {},
+                                                bool live = true) {
     for (int s = 0; s < q.np; ++s) {
         const Slot t = q.pref[s];
+        if (!t.on || t.dk == 0) continue;
         const int d = dom_at(dom_row, t);
-        if (!t.on || t.dk == 0 || d < 0) continue;
-        atomicAdd(&q.score[(size_t)s * q.D + clampi(d, 0, t.dk - 1)],
-                  q.counts[(size_t)n * p.Ta + t.col]);
+        const bool on = live && d >= 0;
+        add(q.score + (size_t)s * q.D, clampi(d, 0, t.dk - 1),
+            on ? q.counts[(size_t)n * p.Ta + t.col] : 0, on);
     }
     if (p.ex_pref_add) {
         for (int k = 0; k < p.K; ++k) {
             const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || dk == 0 || d < 0) continue;
-            atomicAdd(&q.score[(size_t)(q.np + k) * q.D + clampi(d, 0, dk - 1)],
-                      term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k));
+            if (!((q.exmask >> k) & 1) || dk == 0) continue;
+            const bool on = live && d >= 0;
+            add(q.score + (size_t)(q.np + k) * q.D, clampi(d, 0, dk - 1),
+                on ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0, on);
         }
     }
 }

@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     ShardParams sp, ScanArgs a, int* out, int* tiers) {
     // the fold and exchange slots, at the same address in every block
     __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
-    __shared__ int xch[2 * SCAN_RED];
+    __shared__ int xch[3 * SCAN_RED];
     __shared__ ScanSyncs syncs;
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
     cg::cluster_group cl = cg::this_cluster();

@@ -37,7 +37,8 @@ SOURCES = {
 }
 
 # a launcher's own code (beside CUDA's error codes): K6's cluster of n
-# blocks cannot be resident at once on this card
+# blocks, or K4's and K7's cluster of one pod, cannot be resident at once on
+# this card
 CLUSTER_DOES_NOT_FIT = -2
 
 # -fmad=false: no a*b+c contraction (the float32 lines must round per op as
@@ -127,9 +128,9 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
     arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
     code = fn(ctypes.addressof(params), ctypes.addressof(arr), stream)
     if code == CLUSTER_DOES_NOT_FIT:
-        raise RuntimeError(f"{name}: a cluster of {getattr(params, 'n_shards', '?')} "
-                           "blocks cannot be resident on this card "
-                           "(cudaOccupancyMaxActiveClusters is 0)")
+        n = getattr(params, "n_shards", None) or getattr(params, "cluster", "?")
+        raise RuntimeError(f"{name}: a cluster of {n} blocks cannot be resident on this "
+                           "card (cudaOccupancyMaxActiveClusters is 0)")
     if code != 0:
         msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
@@ -149,6 +150,40 @@ def launch_floor(counts: list[int], npt: int, n_blocks: int, out_ptr: int,
     if code != 0:
         msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"scan_floor launch failed: CUDA error {code} ({msg})")
+
+
+def launch_empty(lib: str, grid: tuple[int, int], threads: int, stream: int) -> None:
+    """launch_empty of library `lib` (csrc/common.cuh): a kernel that does
+    nothing, on a kernel's grid and block shape — the launch floor beside
+    that kernel's time (a measurement yardstick that no path runs)."""
+    dll = load(lib)
+    fn = dll.launch_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(grid[0], grid[1], threads, stream)
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {code} ({msg})")
+
+
+def launch_fit_floor(counts: list[int], n_pods: int, cluster: int, threads: int,
+                     cluster_policy: bool, out_ptr: int, stream: int) -> None:
+    """launch_fit_floor of the fit_and_score library (csrc/fit_and_score.cu):
+    the latency floor of a K4 or K7 launch's counted synchronisations."""
+    dll = load("fit_and_score")
+    fn = dll.launch_fit_floor
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    arr = (ctypes.c_int * len(counts))(*counts)
+    code = fn(ctypes.addressof(arr), n_pods, cluster, threads, int(cluster_policy), out_ptr,
+              stream)
+    if code == CLUSTER_DOES_NOT_FIT:
+        raise RuntimeError(f"fit_floor: a cluster of {cluster} blocks cannot be resident "
+                           "on this card (cudaOccupancyMaxActiveClusters is 0)")
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"fit_floor launch failed: CUDA error {code} ({msg})")
 
 
 # ctypes twins of the structs in csrc/common.cuh (same field order)
@@ -218,6 +253,7 @@ class FitParams(ctypes.Structure):
               "w_ipa", "w_img", "n_hard", "n_soft", "n_ipa_aff", "n_ipa_anti",
               "n_ipa_pref", "ex_anti", "ex_pref", "ex_pref_add") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
+        ("cluster", ctypes.c_int),
     ]
 
 

@@ -14,7 +14,9 @@ over the node axis and a wave of pods as a lax.scan. This module ports:
 - scatter_rows  (K3, csrc/scatter_rows.cu) — backend._scatter_rows_jit
 - fit_and_score (K4, csrc/fit_and_score.cu) — _fit_and_score_jit: one pod
   against every node, every filter (hard spread and inter-pod affinity
-  included) and every score
+  included) and every score; one pod is a thread-block cluster of
+  FIT_CLUSTER blocks, each owning a share of the live rows and of the
+  padding (fit_partition)
 - gang_assign   (K5, csrc/gang_assign.cu)  — _gang_assign_jit with
   _gang_placement_score: a gang's member scan over every placement mask at
   once (K2's step, shared) and the all-or-nothing domain pick
@@ -23,7 +25,7 @@ over the node axis and a wave of pods as a lax.scan. This module ports:
   shards, one block of a thread-block cluster each (K2's step, shared)
 - wave_fit_and_score (K7, csrc/fit_and_score.cu) — parallel/mesh.py's
   _wave_fit_and_score_jit: the pods x nodes feasible / total matrix, K4's
-  device code with one block per pod
+  device code with WAVE_FIT_CLUSTER blocks per pod
 
 Each has a plain version beside it (`*_ref`) computing the same function
 with torch ops; the plain versions take the reference's reduction scope
@@ -117,8 +119,10 @@ class OutOfSlice(NotImplementedError):
 # same argument. Their tensors always hold the whole node axis; ShardComm
 # cuts it into n equal, contiguous shard ranges, reduces each range first
 # and then folds the n partials in shard order, as K6's cluster of n CTAs
-# does on the card. Every reduction is a max, a min or an int32 sum, so the
-# result is the same whatever the shard count: the sharded scan equals the
+# does on the card; under fit_split it takes K4's partition instead (each
+# block a share of the live rows and a share of the padding). Every
+# reduction is a max, a min or an int32 sum, so the result is the same
+# whatever the shard count or partition: the sharded scan equals the
 # unsharded one bit for bit (float32 is summed only per node).
 
 
@@ -151,18 +155,27 @@ class LocalComm:
         """col[row] as every shard learns it from the row's owner."""
         return int(col[row])
 
+    def fit_split(self, valid: torch.Tensor) -> "LocalComm":
+        """This scope over K4's partition of the node axis (one block)."""
+        return self
+
 
 class ShardComm(LocalComm):
     """n_shards contiguous node ranges of equal size (the reference's
     AxisComm over the nodes axis): every reduction runs per range, then
-    across the ranges in shard order."""
+    across the ranges in shard order. With `parts`, shard r holds the row
+    ranges parts[r] instead (K4's partition, fit_split): possibly uneven,
+    possibly empty."""
 
-    def __init__(self, n_shards: int):
+    def __init__(self, n_shards: int, parts=None):
         if n_shards < 1:
             raise ValueError(f"{n_shards} node shards")
         self.n_shards = int(n_shards)
+        self.parts = parts
 
-    def _ranges(self, x: torch.Tensor) -> torch.Tensor:
+    def _ranges(self, x: torch.Tensor):
+        if self.parts is not None:
+            return [torch.cat([x[a:b] for a, b in part]) for part in self.parts]
         nb = x.shape[0]
         if nb % self.n_shards:
             raise ValueError(f"node bucket {nb} not divisible by "
@@ -171,15 +184,16 @@ class ShardComm(LocalComm):
 
     def _fold(self, parts, op):
         out = parts[0]
-        for r in range(1, self.n_shards):
-            out = op(out, parts[r])
+        for part in parts[1:]:
+            out = op(out, part)
         return out
 
     def vmax(self, x):
-        return self._fold([r.max() for r in self._ranges(x)], torch.maximum)
+        # a shard with no rows adds the identity: it drops out
+        return self._fold([r.max() for r in self._ranges(x) if r.numel()], torch.maximum)
 
     def vmin(self, x):
-        return self._fold([r.min() for r in self._ranges(x)], torch.minimum)
+        return self._fold([r.min() for r in self._ranges(x) if r.numel()], torch.minimum)
 
     def vsum(self, x):
         return self._fold([r.sum(dtype=torch.int64) for r in self._ranges(x)],
@@ -198,8 +212,38 @@ class ShardComm(LocalComm):
         iota = torch.arange(col.shape[0], device=col.device)
         return int(self.vsum(torch.where(iota == row, col.to(torch.int64) + 1, 0))) - 1
 
+    def fit_split(self, valid):
+        """n_shards blocks over K4's partition of the node axis, as the
+        kernel cuts it for this `valid` (fit_partition)."""
+        parts = fit_partition(valid.shape[0], valid_extent(valid), self.n_shards)
+        return ShardComm(self.n_shards, [((lo, hi), (plo, phi))
+                                         for lo, hi, plo, phi in parts])
+
 
 LOCAL_COMM = LocalComm()
+
+
+def valid_extent(valid: torch.Tensor) -> int:
+    """One past the last valid row: K4's live extent (an invalid row joins
+    none of its reductions; fit_and_score.cu finds it in its prologue)."""
+    idx = torch.nonzero(valid).flatten()
+    return int(idx[-1]) + 1 if idx.numel() else 0
+
+
+def fit_partition(nb: int, extent: int, n_blocks: int) -> list[tuple[int, int, int, int]]:
+    """K4's and K7's rows per block of one pod's cluster of n_blocks
+    (csrc/fit_and_score.cu): block r owns the live rows [lo, hi) =
+    [r * extent // n_blocks, (r + 1) * extent // n_blocks) and the padding
+    rows [plo, phi) past the extent that bring it to ceil(nb / n_blocks)
+    rows at most, so every block walks live rows once the extent reaches
+    n_blocks. Together the blocks own every row once."""
+    q = -(-nb // n_blocks)
+    out = []
+    for r in range(n_blocks):
+        lo, hi = r * extent // n_blocks, (r + 1) * extent // n_blocks
+        out.append((lo, hi, extent + min(r * q - lo, nb - extent),
+                    extent + min((r + 1) * q - hi, nb - extent)))
+    return out
 
 
 @dataclass(frozen=True)
@@ -1714,7 +1758,10 @@ def fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict,
                       logtab, p: int = 0, comm=LOCAL_COMM) -> dict:
     """Plain version of K4 (the reference's _fit_and_score_jit) for pod p of
     the feature views f: fails, feasible, insufficient, too_many_pods,
-    total (-1 where infeasible) and per_plugin (every row, unmasked)."""
+    total (-1 where infeasible) and per_plugin (every row, unmasked). Under
+    ShardComm(C) every reduction runs over the kernel's cluster of C blocks
+    (fit_split): the answer is the same for every C."""
+    comm = comm.fit_split(planes["valid"])
     fp = {k: v[p] for k, v in f.items()}
     fails, feasible, insufficient, too_many = filter_masks_ref(cfg, planes, tables, fp,
                                                                comm)
@@ -1761,15 +1808,54 @@ def _pack_fit_outputs(out: dict) -> torch.Tensor:
     return torch.cat(parts)
 
 
+# K4's sync output (csrc/fit_and_score.cu): the counted block barriers,
+# folds, cluster barriers, exchanges, table folds and their words, then
+# thread 0's clock cycles in each of the kernel's phases (pod 0, block 0):
+# the prologue, A's pass, A's fold, the hard minima, B's pass (fused, C's
+# adds), B's fold, C's own pass and fold, the soft domain counts, D's pass,
+# D's fold, E's pass and the exit fence
+FIT_COUNTS = 6
+FIT_PHASE_NAMES = ("prologue", "A pass", "A fold", "hard min", "B pass", "B fold", "C",
+                   "soft domains", "D pass", "D fold", "E pass", "exit")
+FIT_SYNC_WORDS = FIT_COUNTS + len(FIT_PHASE_NAMES)
+
+# blocks per pod (one thread-block cluster): K4's and K7's, measured on the
+# main path's shapes (PERF.md §5g); the kernels take 1, 2, 4, 8 or 16 (K7:
+# 1, 2 or 4)
+FIT_CLUSTER = 16
+WAVE_FIT_CLUSTER = 1
+FIT_CLUSTERS = (1, 2, 4, 8, 16)
+WAVE_FIT_CLUSTERS = (1, 2, 4)
+# K4's block (FIT_NT in csrc/fit_and_score.cu; K7's is SCAN_THREADS)
+FIT_THREADS = 512
+
+
+def _fit_syncs_ptr(syncs, device) -> int:
+    if syncs is None:
+        return 0
+    _check(syncs, "syncs", device, torch.int32, (FIT_SYNC_WORDS,))
+    return syncs.data_ptr()
+
+
 def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
-                  packed_f: torch.Tensor, layout, logtab: torch.Tensor) -> torch.Tensor:
-    """K4 wrapper: one block per pod of the [P, F] packed features against
-    every node. Returns the packed outputs [P, bytes] uint8 (views by
+                  packed_f: torch.Tensor, layout, logtab: torch.Tensor,
+                  cluster: int | None = None,
+                  syncs: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 wrapper: each pod of the [P, F] packed features against every
+    node, one thread-block cluster of `cluster` blocks per pod (default
+    FIT_CLUSTER). Returns the packed outputs [P, bytes] uint8 (views by
     unpack_fit_outputs) — the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors. planes holds the row planes and ipa_term_key."""
+    kernel for CUDA tensors (it raises when the card cannot hold the
+    cluster). planes holds the row planes and ipa_term_key. syncs (CUDA
+    only: an int32 [FIT_SYNC_WORDS] tensor) receives pod 0's counted
+    synchronisations and thread 0's clock by phase."""
     from .planes import unpack_features
 
     check_fit_slice(cfg)
+    cluster = FIT_CLUSTER if cluster is None else cluster
+    if cluster not in FIT_CLUSTERS:
+        raise ValueError(f"fit_and_score runs on a cluster of {FIT_CLUSTERS} blocks, "
+                         f"not {cluster}")
     device = packed_f.device
     nb, R = planes["alloc"].shape
     nf = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
@@ -1782,22 +1868,23 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
         raise ValueError(f"fit_and_score runs on cpu or cuda, not {device}")
     from . import cuda
 
-    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf)
+    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf, cluster)
     _, per_pod = fit_output_bytes(nb, nf, R)
     out = torch.empty((packed_f.shape[0], per_pod), dtype=torch.uint8, device=device)
     if packed_f.shape[0]:
-        cuda.launch("fit_and_score", p, ptrs + [out.data_ptr()], _stream(device))
+        cuda.launch("fit_and_score", p,
+                    ptrs + [out.data_ptr(), _fit_syncs_ptr(syncs, device)], _stream(device))
         LAUNCHES["fit_and_score"] += 1
     return out
 
 
 def wave_fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dict,
-                           logtab) -> tuple[torch.Tensor, torch.Tensor]:
+                           logtab, comm=LOCAL_COMM) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K7 (the reference's _wave_fit_and_score_jit): K4's
     plain version for every pod of the feature views f against the same
-    planes, keeping (feasible [P, Nb] bool, total [P, Nb] int32, -1 where
-    infeasible)."""
-    outs = [fit_and_score_ref(cfg, planes, tables, f, logtab, p)
+    planes (under comm, as K7's blocks per pod), keeping (feasible [P, Nb]
+    bool, total [P, Nb] int32, -1 where infeasible)."""
+    outs = [fit_and_score_ref(cfg, planes, tables, f, logtab, p, comm)
             for p in range(f["active"].shape[0])]
     nb = planes["valid"].shape[0]
     dev = planes["valid"].device
@@ -1809,16 +1896,22 @@ def wave_fit_and_score_ref(cfg: KernelConfig, planes: dict, tables: dict, f: dic
 
 
 def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
-                       packed_f: torch.Tensor, layout,
-                       logtab: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                       packed_f: torch.Tensor, layout, logtab: torch.Tensor,
+                       cluster: int | None = None,
+                       syncs: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 wrapper: the pods x nodes matrix, every pod of the [P, F] packed
     features against the same planes with no assumes between them ->
     (feasible [P, Nb] bool, total [P, Nb] int32, -1 where infeasible). The
-    plain version for CPU tensors, the kernel (K4's device code, one block
-    per pod, only these two outputs) for CUDA tensors."""
+    plain version for CPU tensors, the kernel (K4's device code, `cluster`
+    blocks per pod, default WAVE_FIT_CLUSTER, only these two outputs) for
+    CUDA tensors; syncs as K4's."""
     from .planes import unpack_features
 
     check_fit_slice(cfg)
+    cluster = WAVE_FIT_CLUSTER if cluster is None else cluster
+    if cluster not in WAVE_FIT_CLUSTERS:
+        raise ValueError(f"wave_fit_and_score runs on {WAVE_FIT_CLUSTERS} blocks per pod, "
+                         f"not {cluster}")
     device = packed_f.device
     if device.type == "cpu":
         return wave_fit_and_score_ref(cfg, planes, tables,
@@ -1828,21 +1921,41 @@ def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
     from . import cuda
 
     nf = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
-    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf)
+    p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf, cluster)
     P, nb = packed_f.shape[0], planes["alloc"].shape[0]
     feasible = torch.empty((P, nb), dtype=torch.bool, device=device)
     total = torch.empty((P, nb), dtype=torch.int32, device=device)
     raw = torch.empty((P, 2, nb), dtype=torch.int32, device=device)
     if P:
         cuda.launch("wave_fit_and_score", p,
-                    ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr()],
+                    ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr(),
+                            _fit_syncs_ptr(syncs, device)],
                     _stream(device), lib="fit_and_score")
         LAUNCHES["wave_fit_and_score"] += 1
     return feasible, total
 
 
+def fit_floor(syncs: torch.Tensor, n_pods: int = 1, cluster: int = FIT_CLUSTER,
+              wave: bool = False) -> None:
+    """The latency floor of a K4 launch (wave: K7's) (CUDA only, a
+    measurement yardstick that no path runs): one launch on n_pods pods of
+    `cluster` blocks of the kernel's size that makes the counted
+    synchronisations a launch wrote into `syncs` (per pod: block barriers,
+    folds, cluster barriers, exchanges, table folds over their words), with
+    no node work."""
+    from . import cuda
+
+    if syncs.device.type != "cuda":
+        raise ValueError("fit_floor runs on cuda only")
+    _check(syncs, "syncs", syncs.device, torch.int32, (FIT_SYNC_WORDS,))
+    sink = torch.empty(1, dtype=torch.int32, device=syncs.device)
+    cuda.launch_fit_floor([int(x) for x in syncs.tolist()[:FIT_COUNTS]], n_pods, cluster,
+                          SCAN_THREADS if wave else FIT_THREADS, not (wave and cluster == 1),
+                          sink.data_ptr(), _stream(syncs.device))
+
+
 def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.Tensor,
-                layout, logtab: torch.Tensor, nf: int):
+                layout, logtab: torch.Tensor, nf: int, cluster: int):
     """Check K4's and K7's inputs; their FitParams and input pointers."""
     from . import cuda
 
@@ -1910,7 +2023,7 @@ def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.T
         n_ipa_pref=min(cfg.max_ipa_pref, cfg.n_ipa_pref),
         ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
         ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
-        **{f"f_{k}": v for k, v in offs.items()})
+        cluster=cluster, **{f"f_{k}": v for k, v in offs.items()})
     for i, (col, w) in enumerate(cfg.fit_resources):
         p.fit_col[i], p.fit_w[i] = col, w
     for i, (x, y) in enumerate(cfg.rtc_shape):

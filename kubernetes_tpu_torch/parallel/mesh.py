@@ -141,7 +141,7 @@ def sharded_fit_and_score(cfg: KernelConfig, mesh: SchedulerMesh, planes: dict,
     """One pod against the node-sharded cluster: K4 over the whole node
     axis (in the reference the same _fit_and_score_jit program over sharded
     planes). Returns fit_and_score's packed outputs."""
-    del mesh  # one block per pod already reads every shard
+    del mesh  # K4 already cuts the node axis over its cluster's blocks
     return _k.fit_and_score(cfg, planes, tables, packed_f, layout, logtab)
 
 
