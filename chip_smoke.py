@@ -17,10 +17,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    and their plain PyTorch versions on the card on the same inputs, with
    dedup and without, and require exact equality of every output (the
    signature table and sig_scores included; K2 also with an all-rejecting
-   and a 3-word tie stream); K3 on that wave's dirty rows; then time them
-   (the kernels alone by torch.profiler, the plain versions by events),
-   and an empty kernel launched with K1's and K3's grid and block shapes
-   (their launch floor);
+   and a 3-word tie stream); K1 also over 128 of the wave's pods and on
+   crafted planes that reach each of its kernel instances and branches
+   (runtime widths with node rows and records in shared memory or read
+   from device memory; one-entry rows in registers; affinity tables in
+   shared memory, read per pod, or one signature's entries per lane; planes
+   aligned for 4-node vectors or one element off their allocation; with
+   and without a rows map); K3 on that wave's dirty rows, on one of them
+   and on a crafted set (a duplicate, indices past the end and a negative
+   one) into planes that start one row past their allocation, every plane
+   equal and the guard rows untouched; then time them (the kernels alone
+   by torch.profiler, the plain versions by events): K1 at 8 signature
+   rows, 128 rows and 512 pods, each beside an empty launch of its grid,
+   its store floor (K1's 13 bytes per (row, node) written in K1's layout
+   by a kernel that reads nothing) and its bytes over the card's rate;
+   K3 on one, 4 and 128 rows and on the wave's dirty rows, each beside an
+   empty launch of its grid;
 5. hold the card's decisions against the CPU plain path on mixed clusters
    of 16 to 1500 nodes (taints, affinity, images, ports, spread, hard
    spread and inter-pod affinity, an extended resource, three scoring
@@ -32,7 +44,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    DoNotSchedule zone constraint) one at a time through
    TorchSchedulingAlgorithm.schedule_pod (K4 + K3) with an assume and a
    snapshot update after each; every pod must land, K4 must launch once
-   per measured pod, and the zone skew must end <= 1; pods/s and the run
+   per measured pod (counts zeroed after the initial pods, read after the
+   measured ones), and the zone skew must end <= 1; pods/s and the run
    phases' ms per pod (`wait`: K4 behind the result copy);
 7. TopologySpreading through waves: a fresh Cache, the 5000 initial pods,
    then the 5000 app: spread pods through run_batched in waves of 512
@@ -62,14 +75,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    cluster with 1000 initial pods placed through waves, gangs of 4, 32 and
    128 default pods in Required (8 zone rows) and Preferred (9 -> 16 rows)
    mode, a gang no zone holds and a 3-word tie stream; every element of
-   the packed output equal; K5 (and K1 on the gang) timed;
+   the packed output equal, and K1 on each gang equal to its plain
+   version; K5 (and K1 on the gang) timed;
 12. the gang path through try_gang_wave at gang.yaml's published shapes:
    GangSchedulingTopologyRequired/500Nodes and
    GangSchedulingTopologyPreferred/500Nodes (100 PodGroups of 4), then 16
    gangs of 128 on 5000 nodes in Required mode, each gang's hosts assumed
    before the next; every gang placed whole, each Required gang in one
    zone, every member counted on the device side (counts zeroed before
-   each cell, read after); gang pods/s and ms per gang by phase;
+   each cell, read after); gang pods/s and ms per gang by phase; K1 on
+   each cell's gang beside its floors as in phase 4;
 13. the card against the CPU plain path through try_gang_wave on a
    600-node mixed cluster (hard spread, inter-pod affinity and host ports
    among the members): equal hosts, winning rows, outcomes and rng state;
@@ -130,8 +145,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    barrier would;
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
-launches on phase 3's serial path, where each wave's assumes reach the
-mirror through it, at that path's dirty-row shape; K6 with its launches
+launches on phase 6's single-pod path, where each assume dirties one
+mirror row and K3 launches most, at that path's one-row shape; K6 with its launches
 on the mesh main path, at 8 shards on the chained seeded wave; K7 with
 its launch in phase 19) and the result line.
 
@@ -368,6 +383,196 @@ def compare_wave(label, w, words, dedup):
             max_abs_err((g[k], r[k]) for k in g), k1, got)
 
 
+def k1_compare(label, dp, dt, packed_f, layout, rows=None):
+    """K1 against its plain version on the card on the same inputs: every
+    output exactly equal. Returns max |K1 - plain|."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    got = kernels.static_parts(dp, dt, packed_f, layout, rows=rows)
+    f = unpack_features(packed_f if rows is None else packed_f[rows.long()], layout)
+    want = kernels.static_parts_ref(dp, dt, f)
+    torch.cuda.synchronize()
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            fail(f"static_parts.{k} differs from its plain version ({label})")
+    return max_abs_err((got[k], want[k]) for k in want)
+
+
+def k1_shape(label, dp, dt, packed_f, layout, rows=None, reps=20):
+    """K1 at one shape: its profiler time beside an empty launch of its
+    grid, the store floor (a kernel that writes K1's 13 bytes per (row,
+    node) in K1's layout and reads nothing) and its bytes over the card's
+    rate (the node planes and tables read once, the feature rows, the
+    outputs written once)."""
+    from kubernetes_tpu_torch.ops import cuda, kernels
+
+    out = kernels.static_parts(dp, dt, packed_f, layout, rows=rows)
+    n_out, nb = out["static_ok"].shape
+    plan = kernels.static_plan(n_out, nb, dp["taints"].shape[1], dp["prefer_taints"].shape[1],
+                               dp["port_words"].shape[1], dp["image_kib"].shape[1],
+                               *dt["aff_match"].shape)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = kernel_ms(lambda: kernels.static_parts(dp, dt, packed_f, layout, rows=rows),
+                   "static_parts_kernel", reps)
+    empty = kernel_ms(lambda: cuda.launch_empty("static_parts", plan.grid, plan.threads,
+                                                stream), "empty_kernel", 50)
+    store = kernel_ms(lambda: kernels.static_store_floor(out), "static_store_floor_kernel",
+                      reps)
+    b = (nbytes(*(dp[k] for k in ("valid", "unsched", "group_id", "taints",
+                                   "prefer_taints", "port_words", "image_kib")))
+         + nbytes(*dt.values()) + n_out * packed_f.shape[1] * 4
+         + (nbytes(rows) if rows is not None else 0) + nbytes(*out.values()))
+    out_bytes = nbytes(out["static_ok"], out["taint_cnt"], out["aff_raw"], out["img"])
+    bd, by = bound_ms(b, 0)
+    A, G = dt["aff_match"].shape
+    inst = ("runtime widths" if not plan.mw else f"rows of {plan.mw} in registers") + (
+        ", tables in shared memory" if plan.tab else
+        ", one signature's entries in registers" if A == 1 else ", tables per pod")
+    print(f"static_parts at {label} ({n_out} x {nb}; {inst}, A x G {A} x {G}): {ms:.5f} ms; "
+          f"empty launch of its grid {plan.grid} x {plan.threads} threads {empty:.5f} ms; "
+          f"store floor "
+          f"{store:.5f} ms; bound {bd:.5f} ms by {by} ({b} bytes; outputs alone "
+          f"{bound_ms(out_bytes, 0)[0]:.5f} ms)")
+    return {"ms": ms, "empty_ms": empty, "store_ms": store, "bound_ms": bd, "bytes": b}
+
+
+def _one_off(t):
+    """t's copy one element past a fresh allocation: a pointer no 4-node
+    vector load or store may take."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+# (T, Tp, W, I, A, G, planes one element off): runtime widths with node rows
+# and records in shared memory and tables staged; tables per pod; node rows
+# from device memory; rows and records from device memory; unaligned
+# planes (no 4-node vectors); one-entry rows in registers with the tables
+# staged, one signature's entries per lane, tables per pod, and unaligned
+# with one signature or staged tables (tests/test_torch_static_scatter.py
+# holds the plan of each against the instance it names)
+K1_CRAFTED = ((8, 16, 4, 8, 4, 64, False), (2, 2, 1, 2, 3, 2048, False),
+              (200, 3, 2, 2, 2, 16, False), (4096, 4096, 4096, 2, 2, 16, False),
+              (3, 2, 2, 3, 2, 16, True), (1, 1, 1, 1, 4, 64, False),
+              (1, 1, 1, 1, 1, 8192, False), (1, 1, 1, 1, 3, 2048, False),
+              (1, 1, 1, 1, 1, 8192, True), (1, 1, 1, 1, 4, 64, True))
+
+
+def k1_crafted(seed):
+    """K1 against its plain version on crafted planes (K1_CRAFTED) that
+    reach every kernel instance of csrc/static_parts.cu and the branches
+    inside them: 1000 nodes in a 1024-row bucket, 37 pods (a ragged last
+    chunk), with and without a rows map of 16 rows. Returns max |K1 -
+    plain|."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import pack_features, planes_from_reference
+
+    rng = np.random.default_rng(seed)
+    nb, n, P = 1024, 1000, 37
+    err = 0.0
+    for T, Tp, W, I, A, G, off in K1_CRAFTED:
+        live = np.arange(nb) < n
+
+        def ids(width):
+            return np.where(live[:, None] & (rng.random((nb, width)) < 0.3),
+                            rng.integers(0, width, (nb, width)), -1).astype(np.int32)
+
+        planes = {
+            "valid": live & (rng.random(nb) < 0.95), "unsched": rng.random(nb) < 0.05,
+            "group_id": rng.integers(0, G, nb).astype(np.int32), "taints": ids(T),
+            "prefer_taints": ids(Tp),
+            "port_words": (rng.integers(0, 2**32, (nb, W), dtype=np.uint64)
+                           & rng.integers(0, 2**32, (nb, W), dtype=np.uint64)).astype(np.uint32),
+            "image_kib": np.where(rng.random((nb, I)) < 0.5,
+                                  rng.integers(0, 2 << 20, (nb, I)), 0).astype(np.int32),
+        }
+        tables = {
+            "aff_match": rng.random((A, G)) < 0.8, "aff_pref": rng.integers(0, 100, (A, G)).astype(np.int32),
+            "aff_allow": rng.random((A, nb)) < 0.9, "aff_has_pref": rng.random(A) < 0.5,
+        }
+        feats = {
+            "tol_unsched": rng.random(P) < 0.5,
+            "name_idx": np.where(rng.random(P) < 0.1, rng.integers(0, n, P), -1).astype(np.int32),
+            "aff_pin": np.where(rng.random(P) < 0.1, rng.integers(0, n, P), -1).astype(np.int32),
+            "tol": rng.random((P, T)) < 0.5, "aff_sig": rng.integers(0, A, P).astype(np.int32),
+            "ports": (rng.integers(0, 2**32, (P, W), dtype=np.uint64)
+                      & rng.integers(0, 2**32, (P, W), dtype=np.uint64)).astype(np.uint32),
+            "has_ports": rng.random(P) < 0.5, "tol_prefer": rng.random((P, Tp)) < 0.5,
+            "img_idx": np.where(rng.random((P, 8)) < 0.4, rng.integers(0, I, (P, 8)), -1
+                                ).astype(np.int32),
+            "num_containers": rng.integers(1, 4, P).astype(np.int32),
+        }
+        packed, layout = pack_features(feats)
+        dp = planes_from_reference(planes, "cuda")
+        dt = planes_from_reference(tables, "cuda")
+        packed_f = torch.from_numpy(packed).cuda()
+        if off:
+            dp = {k: _one_off(v) for k, v in dp.items()}
+            dt = {k: _one_off(v) for k, v in dt.items()}
+            packed_f = _one_off(packed_f)
+        rows = torch.from_numpy(rng.choice(P, 16, replace=False).astype(np.int32)).cuda()
+        label = (f"crafted T {T} Tp {Tp} W {W} I {I}, A x G {A} x {G}"
+                 + (", planes one element off" if off else ""))
+        for r in (None, rows):
+            err = max(err, k1_compare(f"{label}, rows map {r is not None}", dp, dt, packed_f,
+                                      layout, rows=r))
+        plan = kernels.static_plan(P, nb, T, Tp, W, I, A, G)
+        print(f"static_parts {label}: equal to its plain version with and without a rows "
+              f"map (mw {plan.mw}, tables in shared memory {plan.tab}, pitch {plan.pitch}, "
+              f"record ints {plan.rec})")
+    return err
+
+
+def k3_compare(label, dst, rows, idx, base=None):
+    """K3 against its plain version on the card: every plane exactly equal.
+    With base (and dst None) each plane is a copy of base's inside a buffer
+    with a guard row before and after it, so the plane's rows start one row
+    off the allocation (unaligned for the byte planes); the guards must
+    come through untouched. Returns max |K3 - plain|."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    guarded = {}
+    if base is not None:
+        dst = {}
+        for k, t in base.items():
+            buf = torch.full((t.shape[0] + 2,) + tuple(t.shape[1:]), 7, dtype=t.dtype,
+                             device=t.device)
+            buf[1:-1] = t
+            guarded[k] = buf
+            dst[k] = buf[1:-1]
+    want = {k: v.clone() for k, v in dst.items()}
+    kernels.scatter_rows(dst, rows, idx)
+    kernels.scatter_rows_ref(want, rows, idx)
+    torch.cuda.synchronize()
+    for k in dst:
+        if not torch.equal(dst[k], want[k]):
+            fail(f"scatter_rows plane {k} differs from its plain version ({label})")
+        if k in guarded and not (torch.equal(guarded[k][0], torch.full_like(guarded[k][0], 7))
+                                 and torch.equal(guarded[k][-1],
+                                                 torch.full_like(guarded[k][-1], 7))):
+            fail(f"scatter_rows wrote outside plane {k} ({label})")
+    return max_abs_err((dst[k], want[k]) for k in dst)
+
+
+def k3_shape(label, dst, rows, idx, reps=50):
+    """K3 at one shape: its profiler time beside an empty launch of its
+    grid, and its bytes over the card's rate (the index and the rows read
+    once, the rows written once)."""
+    from kubernetes_tpu_torch.ops import cuda, kernels
+
+    plan = kernels.scatter_plan(dst, rows, idx.numel())
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = kernel_ms(lambda: kernels.scatter_rows(dst, rows, idx), "scatter_rows_kernel", reps)
+    empty = kernel_ms(lambda: cuda.launch_empty("scatter_rows", plan.grid, plan.threads,
+                                                stream), "empty_kernel", 50)
+    bd, by = bound_ms(nbytes(idx) + 2 * nbytes(*rows.values()), 0)
+    print(f"scatter_rows on {label}: {ms:.5f} ms; empty launch of its grid {plan.grid} x "
+          f"{plan.threads} threads {empty:.5f} ms; bound {bd:.6f} ms by {by}; "
+          f"{plan.n_threads} threads")
+    return {"ms": ms, "empty_ms": empty, "bound_ms": bd, "bound_by": by}
+
+
 def k2_work(w, k1, words, out, dedup):
     """(bytes, float32 operations) K2 must spend on this wave, from what
     this run's data needs: K1's rows of the signatures (dedup) or active
@@ -583,7 +788,8 @@ def main() -> None:
     if int((winners >= 0).sum()) != args.wave:
         fail("the compare wave did not place every pod")
 
-    # K3 on the rows that wave's placements dirty
+    # K3 on the rows that wave's placements dirty, on one of them, and on a
+    # crafted set (a duplicate, indices past the end and a negative one)
     planes = w.planes
     for pod, win in zip(cmp_pods, winners.tolist()):
         cache.assume_pod(pod, planes.node_names[win])
@@ -594,57 +800,54 @@ def main() -> None:
     rows = planes_from_reference({k: host[k][idx_np] for k in SLICE_PLANES}, "cuda")
     idx = torch.from_numpy(idx_np).cuda()
     k3 = {k: w.dp[k].clone() for k in SLICE_PLANES}
-    k3_ref = {k: w.dp[k].clone() for k in SLICE_PLANES}
-    kernels.scatter_rows(k3, rows, idx)
-    kernels.scatter_rows_ref(k3_ref, rows, idx)
-    torch.cuda.synchronize()
-    err3 = max_abs_err((k3[k], k3_ref[k]) for k in k3)
+    err3 = k3_compare("the wave's dirty rows", k3, rows, idx)
     for k in k3:
-        if not torch.equal(k3[k], k3_ref[k]):
-            fail(f"scatter_rows plane {k} differs from its plain version")
         h = host[k].view("int32") if host[k].dtype.name == "uint32" else host[k]
         if not torch.equal(k3[k].cpu(), torch.from_numpy(np.ascontiguousarray(h))):
             fail(f"scattered plane {k} differs from the host plane")
+    rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
+    err3 = max(err3, k3_compare("one row", {k: w.dp[k].clone() for k in SLICE_PLANES},
+                                rows1, idx1))
+    nb = planes.nb
+    pick = np.array([idx_np[0], idx_np[1], idx_np[0], idx_np[2], idx_np[3], idx_np[2]],
+                    np.int32)
+    crafted = torch.tensor([idx_np[0], idx_np[1], idx_np[0], nb, -1, nb + 1000],
+                           dtype=torch.int32, device="cuda")
+    rows_c = planes_from_reference({k: host[k][pick] for k in SLICE_PLANES}, "cuda")
+    err3 = max(err3, k3_compare("a duplicate, two indices past the end, a negative one",
+                                None, rows_c, crafted,
+                                base={k: w.dp[k] for k in SLICE_PLANES}))
     print(f"compare: static_parts, assign_scan (both tiers), scatter_rows equal to their "
-          f"plain versions, tolerance 0 (exact; integer outputs) ({len(idx_np)} dirty rows)")
+          f"plain versions, tolerance 0 (exact; integer outputs) ({len(idx_np)} dirty rows; "
+          f"K3 also on one row and on the crafted set, every plane)")
 
     # timings on the same inputs: K1 as the main path calls it (over the
-    # signature rows) and over every pod; K2 with dedup (the main path) and
-    # without; K3 on the wave's dirty rows and on one row
+    # signature rows), over 128 of the wave's pods (the gang path's widest
+    # shape) and over every pod; K2 with dedup (the main path) and without;
+    # K3 on one row (the single-pod path), on 4 and 128 rows (the gang
+    # path's) and on the wave's dirty rows; each kernel beside the empty
+    # launch of its grid, K1 also beside its store floor
     from kubernetes_tpu_torch.ops.planes import unpack_features
 
     f_sig = unpack_features(w.packed_f[w.uniq.long()], w.layout)
-    ms1 = kernel_ms(lambda: k1_call(w, True), "static_parts_kernel", 20)
-    ms1_all = kernel_ms(lambda: k1_call(w, False), "static_parts_kernel", 20)
+    packed128 = w.packed_f[:128].contiguous()
+    err1 = max(err1, k1_compare("128 of the wave's pods", w.dp, w.dt, packed128, w.layout),
+               k1_crafted(args.seed))
+    k1_sig = k1_shape(f"{len(w.uniq)} signature rows", w.dp, w.dt, w.packed_f, w.layout,
+                      rows=w.uniq)
+    k1_shape("128 rows", w.dp, w.dt, packed128, w.layout)
+    k1_shape(f"{args.wave} pods (dedup off)", w.dp, w.dt, w.packed_f, w.layout)
+    ms1 = k1_sig["ms"]
     ms1p = time_ms(lambda: kernels.static_parts_ref(w.dp, w.dt, f_sig), 5)
     k2 = {dedup: time_k2("SchedulingBasic", w, out[dedup][0], words, out[dedup][1], dedup,
                          5 if dedup else 3) for dedup in (True, False)}
-    ms3 = kernel_ms(lambda: kernels.scatter_rows(k3, rows, idx), "scatter_rows_kernel", 50)
-    ms3p = time_ms(lambda: kernels.scatter_rows_ref(k3_ref, rows, idx), 20)
-    rows1, idx1 = {k: v[:1] for k, v in rows.items()}, idx[:1]
-    ms3_row = kernel_ms(lambda: kernels.scatter_rows(k3, rows1, idx1),
-                        "scatter_rows_kernel", 50)
-    # the launch floor of K1 and K3: an empty kernel on each one's grid
-    k1_cols = (w.planes.nb + 255) // 256
-    for label, lib, grid, threads in (
-            ("K1 over the signature rows", "static_parts", (k1_cols, len(w.uniq)), 256),
-            ("K1 over 128 gang members", "static_parts", (k1_cols, 128), 256),
-            ("K3 on the wave's dirty rows", "scatter_rows",
-             ((len(idx_np) + 127) // 128, len(rows)), 128),
-            ("K3 on one row", "scatter_rows", (1, len(rows)), 128)):
-        ems = kernel_ms(lambda: cuda.launch_empty(lib, grid, threads,
-                                                  torch.cuda.current_stream().cuda_stream),
-                        "empty_kernel", 50)
-        print(f"empty kernel launched as {label} (grid {grid}, {threads} threads): {ems:.5f} ms")
-    print(f"static_parts over {len(w.uniq)} signature rows {ms1:.4f} ms, over "
-          f"{args.wave} pods {ms1_all:.4f} ms; scatter_rows on one dirty row "
-          f"{ms3_row:.5f} ms")
-
-    b1 = (nbytes(*(w.dp[k] for k in ("valid", "unsched", "group_id", "taints",
-                                      "prefer_taints", "port_words", "image_kib")))
-          + nbytes(*w.dt.values()) + len(w.uniq) * w.packed_f.shape[1] * 4
-          + nbytes(w.uniq, *out[True][0].values()))
-    b3 = nbytes(idx) + 2 * nbytes(*rows.values())
+    k3_row = k3_shape("one row", k3, rows1, idx1)
+    for n in (4, 128):
+        k3_shape(f"{n} rows", k3, {k: v[:n] for k, v in rows.items()}, idx[:n])
+    ms3 = k3_shape(f"the wave's {len(idx_np)} dirty rows", k3, rows, idx)["ms"]
+    ms3_row = k3_row["ms"]
+    ms3p_row = time_ms(lambda: kernels.scatter_rows_ref(k3, rows1, idx1), 20)
+    b1 = k1_sig["bytes"]
     # estimate: each measured wave runs K1 + K2 and one K3
     busy = (ms1 + k2[True]["ms"] + ms3) * n_waves
     print(f"device busy share of the measured waves ((K1 + K2 + K3 kernel time) "
@@ -718,9 +921,6 @@ def main() -> None:
          "kubernetes_tpu/ops/kernels.py:1369", max(err2, seed["max_abs_err"]),
          seed["ms"], seed["plain_ms"], (seed["bound_ms"], seed["bound_by"]),
          (a["launches"]["assign_scan"], "the pipelined main path")),
-        ("scatter_rows", "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
-         "kubernetes_tpu/scheduler/tpu/backend.py:58", err3, ms3, ms3p, bound_ms(b3, 0),
-         (launches["scatter_rows"], "the serial main path (phase 3)")),
     ):
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                          "launches": n, "max_abs_err": err, "ms": ms,
@@ -741,6 +941,17 @@ def main() -> None:
         k4 = k4_against_plain(args, state6, cluster8)
     with watchdog("phase 10 (the single-pod cycle, card vs CPU)", args.phase_timeout):
         cycle_card_vs_cpu(args)
+    # K3 at the single-pod path's shape (one dirty row), where it launches most
+    rows_out.append({"name": "scatter_rows", "route": "cuda",
+                     "source": "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
+                     "replaces": "kubernetes_tpu/scheduler/tpu/backend.py:58",
+                     "launches": launches6["scatter_rows"], "max_abs_err": err3,
+                     "ms": ms3_row, "plain_ms": ms3p_row, "bound_ms": k3_row["bound_ms"],
+                     "bound_by": k3_row["bound_by"], "library_ms": None})
+    print(f"scatter_rows: {ms3_row:.5f} ms on one row (plain {ms3p_row:.3f} ms, bound "
+          f"{k3_row['bound_ms']:.6f} ms by {k3_row['bound_by']}), "
+          f"{launches6['scatter_rows']} launches on the single-pod path (phase 6), "
+          f"{launches['scatter_rows']} on the serial main path (phase 3)")
     rows_out.append({"name": "fit_and_score", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
                      "replaces": "kubernetes_tpu/ops/kernels.py:754",
@@ -1140,7 +1351,6 @@ def topology_spreading(args):
 
     init = [scheduling_basic_pod(i) for i in range(args.spread_init)]
     measured = [topology_spreading_pod(i) for i in range(args.spread_pods)]
-    kernels.reset_launches()
     t0 = time.perf_counter()
     for w in range(0, len(init), args.wave):
         wave = init[w: w + args.wave]
@@ -1153,6 +1363,7 @@ def topology_spreading(args):
     t1 = time.perf_counter()
     run0 = dict(backend.run_phase_s)
     sched_s = assume_s = 0.0
+    kernels.reset_launches()  # the measured pods' launches alone
     for pod in measured:
         a = time.perf_counter()
         res = algo.schedule_pod(CycleState(), pod, snap)  # a FitError exits
@@ -1163,7 +1374,7 @@ def topology_spreading(args):
         assume_s += time.perf_counter() - b
     t2 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
-    print(f"launches on the single-pod path: {launches}")
+    print(f"launches on the single-pod path (the measured pods): {launches}")
     if launches["fit_and_score"] != args.spread_pods:
         fail(f"fit_and_score launched {launches['fit_and_score']} times for "
              f"{args.spread_pods} measured pods")
@@ -1773,6 +1984,7 @@ def k5_against_plain(args):
         words = tie_words(args.seed + 10 + i, g.packed_f.shape[0])
         if kind == "3 words":
             words = words[:3].clone()
+        k1_compare(f"{size} members, {mode}, {kind}", g.dp, g.dt, g.packed_f, g.layout)
         k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
         got = k5_call(g, k1, words, nc, hf)
         want = k5_call(g, k1, words, nc, hf, plain=True)
@@ -1887,6 +2099,7 @@ def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
                     ("static_parts_kernel", "gang_assign_kernel", "gang_pick_kernel"), 5)
     ms1 = ms["static_parts_kernel"]
     ms5 = ms["gang_assign_kernel"] + ms["gang_pick_kernel"]
+    k1_shape(f"{label}'s gang of {size}", g.dp, g.dt, g.packed_f, g.layout)
     print(f"{label}: {n_groups} gangs of {size} on {n_nodes} nodes, {mode}: {wall:.3f} s = "
           f"{n_pods / wall:.1f} gang pods/s incl. assume + snapshot; ms per gang median "
           f"{walls[len(walls) // 2] * 1e3:.3f}, max {walls[-1] * 1e3:.3f}; by run_gang phase "

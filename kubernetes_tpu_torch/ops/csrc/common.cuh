@@ -14,6 +14,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define MAX_NODE_SCORE 100
@@ -29,13 +30,25 @@ __host__ __device__ inline int clampi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// K1 static_parts: dims + packed-feature column offsets
+// K1 static_parts: dims + packed-feature column offsets, and the launch
+// plan of kubernetes_tpu_torch/ops/kernels.py static_plan
 struct StaticParams {
     int P;        // output rows (pods, or signature rows with dedup)
     int P_feats;  // rows of the packed feature buffer
     int Nb, T, Tp, W, I, A, G, F;
     int f_tol_unsched, f_name_idx, f_aff_pin, f_tol, f_aff_sig, f_ports,
         f_has_ports, f_tol_prefer, f_img_idx, f_num_containers;
+    int threads;  // per block: 32 x its warps, each warp its own rows
+    int chunk;    // output rows per block, taken by its warps in turn
+    int mw;       // kernel instance: rows of at most mw (1, 2) entries in
+                  // registers; 0: runtime widths
+    int rec;      // ints per staged pod record (0: read the feature rows)
+    int tab;      // aff_match and aff_pref staged in shared memory
+    int pitch_t, pitch_tp, pitch_w;  // mw 0: shared-memory row pitch of the
+                                     // tile's taints, prefer_taints,
+                                     // port_words (0: read them from
+                                     // device memory)
+    int vec;      // 4-node vector loads and stores (Nb % 4 == 0, aligned)
 };
 
 #define SCAN_MAX_FIT 8
@@ -108,11 +121,19 @@ struct FitParams {
 
 #define SCATTER_MAX_PLANES 16
 
-// K3 scatter_rows: one entry per plane
+// K3 scatter_rows: one entry per plane, and the copy plan of
+// kubernetes_tpu_torch/ops/kernels.py scatter_plan (an even number of ints
+// before the pointers, so the pointers are 8-byte aligned on both sides)
 struct ScatterParams {
     int n_planes, n_rows;
+    int n_threads;  // the flat thread space: n_planes << part_log
+    int block;      // threads per block
+    int part_log;   // log2 of each plane's part (a warp or more)
+    int lane_log;   // log2 of the lanes per dirty row
     int row_bytes[SCATTER_MAX_PLANES];
     int dst_rows[SCATTER_MAX_PLANES];
+    int width[SCATTER_MAX_PLANES];  // bytes per copy: 16, 8, 4 or 1
+    int units[SCATTER_MAX_PLANES];  // copies per row: row_bytes / width
     long long dst[SCATTER_MAX_PLANES];
     long long src[SCATTER_MAX_PLANES];
 };

@@ -166,6 +166,21 @@ def launch_empty(lib: str, grid: tuple[int, int], threads: int, stream: int) -> 
         raise RuntimeError(f"empty kernel launch failed: CUDA error {code} ({msg})")
 
 
+def launch_store_floor(n_rows: int, nb: int, ptrs: list[int], stream: int) -> None:
+    """launch_static_store_floor of the static_parts library
+    (csrc/static_parts.cu): K1's output bytes written in K1's layout with
+    nothing read — the practical byte bound beside K1."""
+    dll = load("static_parts")
+    fn = dll.launch_static_store_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    code = fn(n_rows, nb, ctypes.addressof(arr), stream)
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"static_store_floor launch failed: CUDA error {code} ({msg})")
+
+
 def launch_fit_floor(counts: list[int], n_pods: int, cluster: int, threads: int,
                      cluster_policy: bool, out_ptr: int, stream: int) -> None:
     """launch_fit_floor of the fit_and_score library (csrc/fit_and_score.cu):
@@ -200,7 +215,8 @@ class StaticParams(ctypes.Structure):
     _fields_ = _ints("P", "P_feats", "Nb", "T", "Tp", "W", "I", "A", "G", "F",
                      "f_tol_unsched", "f_name_idx", "f_aff_pin", "f_tol",
                      "f_aff_sig", "f_ports", "f_has_ports", "f_tol_prefer",
-                     "f_img_idx", "f_num_containers")
+                     "f_img_idx", "f_num_containers", "threads", "chunk", "mw", "rec",
+                     "tab", "pitch_t", "pitch_tp", "pitch_w", "vec")
 
 
 class ScanParams(ctypes.Structure):
@@ -258,9 +274,11 @@ class FitParams(ctypes.Structure):
 
 
 class ScatterParams(ctypes.Structure):
-    _fields_ = _ints("n_planes", "n_rows") + [
+    _fields_ = _ints("n_planes", "n_rows", "n_threads", "block", "part_log", "lane_log") + [
         ("row_bytes", ctypes.c_int * MAX_PLANES),
         ("dst_rows", ctypes.c_int * MAX_PLANES),
+        ("width", ctypes.c_int * MAX_PLANES),
+        ("units", ctypes.c_int * MAX_PLANES),
         ("dst", ctypes.c_longlong * MAX_PLANES),
         ("src", ctypes.c_longlong * MAX_PLANES),
     ]

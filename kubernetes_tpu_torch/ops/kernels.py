@@ -41,6 +41,7 @@ and the tie-break word stream consumed exactly as CPython randrange does.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -461,6 +462,107 @@ def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1) -> None:
                       _stream(syncs.device))
 
 
+# K1's launch (csrc/static_parts.cu): nodes per lane, nodes per block (a
+# warp's lanes), warps per block (each takes its own rows), the rows a warp
+# takes at most before the launch adds blocks instead (the records one
+# pass stages), the blocks a launch aims for, the widest vocabulary whose
+# node rows ride in registers (the kernel instance MW = 1: one entry),
+# the affinity-table entries staged in shared memory (in all, and a
+# thread's share of the one staging pass), and the shared memory a block
+# plans with (what a block takes without opting in)
+K1_NPT = 4
+K1_TILE = 32 * K1_NPT
+K1_WARPS = 2
+K1_RPW = 4  # the kernel's records per pass (csrc K1_RPW)
+K1_TARGET_BLOCKS = 256
+K1_REG_WIDTH = 1
+K1_TAB = 1024
+K1_TAB_PER_THREAD = 8  # csrc K1_TAB_PER_THREAD; the launcher refuses more
+K1_SMEM = 48 * 1024
+
+
+@dataclass(frozen=True)
+class StaticPlan:
+    """K1's launch: threads per block (32 per warp), output rows per block
+    (its warps take them in turn), the kernel instance (mw: node rows of at
+    most mw entries in registers, 0 runtime widths), ints per staged pod
+    record (0: the feature rows are read from device memory), whether the
+    affinity tables sit in shared memory, the mw-0 instance's
+    shared-memory row pitch of the tile's taints, prefer_taints and
+    port_words (0: read from device memory), the grid (node tiles, row
+    chunks) and the shared-memory bytes."""
+
+    threads: int
+    chunk: int
+    mw: int
+    rec: int
+    tab: bool
+    pitch: tuple[int, int, int]
+    grid: tuple[int, int]
+    smem: int
+
+
+def static_plan(n_out: int, nb: int, T: int, Tp: int, W: int, I: int, A: int,
+                G: int) -> StaticPlan:
+    """K1's launch plan; launch_static_parts (csrc/static_parts.cu) takes
+    the grid and the shared memory from the same formulas. A block owns a
+    tile of K1_TILE consecutive nodes (K1_NPT per lane) and a chunk of
+    output rows, which its warps take in turn. mw: K1_REG_WIDTH when it
+    holds the taint, prefer-taint, port and image vocabularies (each record
+    3 * mw + 14 ints), else 0: records of T + Tp + W + 14 ints and the
+    tile's node rows in shared memory at an odd pitch (a warp's reads hit
+    32 banks) when they fit K1_SMEM beside one record, else read from
+    device memory. The affinity tables (2 * A * G ints) sit in shared
+    memory up to K1_TAB entries and K1_TAB_PER_THREAD a thread (one
+    staging pass). warps: K1_WARPS, at most one per row. chunk: whole rounds of the warps, enough that the grid holds about
+    K1_TARGET_BLOCKS blocks but at most K1_RPW rows a warp, and at most the
+    records the rest of K1_SMEM holds (an mw-0 record too wide for it is
+    read from device memory)."""
+    w = min(K1_WARPS, max(1, n_out))
+    words = K1_SMEM // 4
+    tab = A * G <= min(K1_TAB, K1_TAB_PER_THREAD * 32 * w)
+    if tab:
+        words -= 2 * A * G
+    mw = K1_REG_WIDTH if max(T, Tp, W, I) <= K1_REG_WIDTH else 0
+    pitch = (0, 0, 0)
+    if mw:
+        rec = 3 * mw + 14
+    else:
+        rec = T + Tp + W + 14  # tol, tol_prefer, ports, img_idx, 6 scalars
+        if K1_TILE * ((T | 1) + (Tp | 1) + (W | 1)) + rec <= words:
+            pitch = (T | 1, Tp | 1, W | 1)
+    room = words - K1_TILE * sum(pitch)
+    if rec > room:
+        rec = 0
+    tiles = -(-nb // K1_TILE)
+    c = w * min(K1_RPW, -(-n_out * tiles // (K1_TARGET_BLOCKS * w)))
+    if rec:
+        c = min(c, room // rec)
+    c = max(1, min(c, n_out))
+    return StaticPlan(threads=32 * w, chunk=c, mw=mw, rec=rec, tab=tab, pitch=pitch,
+                      grid=(tiles, -(-n_out // c)),
+                      smem=(2 * A * G * tab + K1_TILE * sum(pitch) + c * rec) * 4)
+
+
+def static_store_floor(out: dict) -> None:
+    """The store floor beside K1 (CUDA only, a measurement yardstick that no
+    path runs): K1's static_ok, taint_cnt, aff_raw and img written in K1's
+    layout by a kernel that reads nothing."""
+    from . import cuda
+
+    ok = out["static_ok"]
+    if ok.device.type != "cuda":
+        raise ValueError("static_store_floor runs on cuda only")
+    n_out, nb = ok.shape
+    if nb % 4:
+        raise ValueError(f"static_store_floor writes 4 nodes a thread; {nb} nodes")
+    for k, dt in (("static_ok", torch.bool), ("taint_cnt", torch.int32),
+                  ("aff_raw", torch.int32), ("img", torch.int32)):
+        _check(out[k], k, ok.device, dt, (n_out, nb))
+    cuda.launch_store_floor(n_out, nb, [out[k].data_ptr() for k in (
+        "static_ok", "taint_cnt", "aff_raw", "img")], _stream(ok.device))
+
+
 def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
                  layout, rows: torch.Tensor | None = None) -> dict:
     """K1 wrapper: plain version for CPU tensors, the CUDA kernel for CUDA
@@ -506,8 +608,6 @@ def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
         "tol_unsched": 1, "name_idx": 1, "aff_pin": 1, "tol": T, "aff_sig": 1,
         "ports": W, "has_ports": 1, "tol_prefer": Tp, "img_idx": 8,
         "num_containers": 1})
-    p = cuda.StaticParams(P=n_out, P_feats=P, Nb=nb, T=T, Tp=Tp, W=W, I=I, A=A,
-                          G=G, F=F, **{f"f_{k}": v for k, v in offs.items()})
     out = {
         "static_ok": torch.empty((n_out, nb), dtype=b8, device=device),
         "taint_cnt": torch.empty((n_out, nb), dtype=i32, device=device),
@@ -515,6 +615,20 @@ def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
         "aff_has_pref": torch.empty((n_out,), dtype=b8, device=device),
         "img": torch.empty((n_out, nb), dtype=i32, device=device),
     }
+    plan = static_plan(n_out, nb, T, Tp, W, I, A, G)
+    # 4-node vectors: 4-byte bool rows, 16-byte int32 rows (and, one entry
+    # a row, the node planes' rows)
+    vec = nb % K1_NPT == 0 and all(t.data_ptr() % a == 0 for t, a in (
+        (planes["valid"], 4), (planes["unsched"], 4), (planes["group_id"], 16),
+        (planes["taints"], 16), (planes["prefer_taints"], 16), (planes["port_words"], 16),
+        (planes["image_kib"], 16), (tables["aff_allow"], 4), (out["static_ok"], 4),
+        (out["taint_cnt"], 16), (out["aff_raw"], 16), (out["img"], 16)))
+    p = cuda.StaticParams(P=n_out, P_feats=P, Nb=nb, T=T, Tp=Tp, W=W, I=I, A=A,
+                          G=G, F=F, **{f"f_{k}": v for k, v in offs.items()},
+                          threads=plan.threads, chunk=plan.chunk, mw=plan.mw,
+                          rec=plan.rec, tab=int(plan.tab), pitch_t=plan.pitch[0],
+                          pitch_tp=plan.pitch[1],
+                          pitch_w=plan.pitch[2], vec=int(vec))
     ptrs = [planes[k].data_ptr() for k in (
         "valid", "unsched", "group_id", "taints", "prefer_taints",
         "port_words", "image_kib")]
@@ -1526,8 +1640,86 @@ def scatter_rows_ref(dst: dict, rows: dict, idx: torch.Tensor) -> None:
         t[idx[ok].long()] = rows[k][ok]
 
 
+# K3's launch: up to SCATTER_ONE_BLOCK threads the copy is one block;
+# past it, blocks of SCATTER_BLOCK threads
+SCATTER_ONE_BLOCK = 1024
+SCATTER_BLOCK = 128
+
+
+@dataclass(frozen=True)
+class ScatterPlan:
+    """K3's launch: per plane the copy width in bytes and the copies per
+    row; log2 of the lanes per row and of each plane's part of the flat
+    thread space; the thread space, the threads per block and the grid."""
+
+    width: tuple[int, ...]
+    units: tuple[int, ...]
+    lane_log: int
+    part_log: int
+    n_threads: int
+    threads: int
+    grid: tuple[int, int]
+
+
+@functools.lru_cache(maxsize=1024)
+def _scatter_plan(row_bytes: tuple, dst_rows: tuple, align: tuple, n_rows: int) -> ScatterPlan:
+    width, units = [], []
+    for nb, rows, a in zip(row_bytes, dst_rows, align):
+        w = next(w for w in (16, 8, 4, 1) if nb % w == 0 and a % w == 0)
+        width.append(w)
+        units.append(nb // w if rows else 0)
+    most = max(units, default=0)
+    lane_log = min(5, (most - 1).bit_length()) if most else 0
+    part_log = max(5, ((n_rows << lane_log) - 1).bit_length())
+    t = len(row_bytes) << part_log
+    block = t if t <= SCATTER_ONE_BLOCK else SCATTER_BLOCK
+    return ScatterPlan(tuple(width), tuple(units), lane_log, part_log, t, block,
+                       (-(-t // block), 1))
+
+
+def _scatter_planes(dst: dict, rows: dict, n_rows: int, device) -> tuple:
+    """One pass over the planes, checked: per plane its row bytes, its
+    rows, both pointers and their common alignment (at most 16)."""
+    rb, dr, dp, sp, al = [], [], [], [], []
+    for k, t in dst.items():
+        r = rows[k]
+        if not (t.device == device and r.device == device and r.dtype == t.dtype
+                and t.is_contiguous() and r.is_contiguous() and r.shape[0] == n_rows
+                and r.shape[1:] == t.shape[1:]):
+            _check(t, k, device, t.dtype)
+            _check(r, f"rows[{k}]", device, t.dtype, (n_rows,) + tuple(t.shape[1:]))
+        m = t.shape[0]
+        d, s = t.data_ptr(), r.data_ptr()
+        rb.append(t.nbytes // m if m else 0)
+        dr.append(m)
+        dp.append(d)
+        sp.append(s)
+        a = d | s
+        al.append(min(16, a & -a) if a else 16)
+    return rb, dr, dp, sp, al
+
+
+def scatter_plan(dst: dict, rows: dict, n_rows: int) -> ScatterPlan:
+    """K3's copy plan over the planes in dst's order (csrc/scatter_rows.cu
+    reads it from ScatterParams; its launch takes the grid by the same
+    formula). Per plane: the widest copy of 16, 8, 4 or 1 bytes that
+    divides the row and both planes' pointers, and its copies per row (0
+    for a plane with no rows). Every row takes the same lanes, the power of
+    two at or above the most copies of any plane's row, at most a warp (so
+    one lane per row, 32 rows a warp, when every row is one copy), and
+    every plane the same part of the flat thread space, the power of two
+    at or above rows x lanes, at least a warp: a thread's row comes from
+    these two sizes alone, its plane from its part. The grid: one block of
+    the whole space up to SCATTER_ONE_BLOCK threads (one dirty row over
+    every plane), else blocks of SCATTER_BLOCK."""
+    device = next(iter(dst.values())).device if dst else None
+    rb, dr, _, _, al = _scatter_planes(dst, rows, n_rows, device)
+    return _scatter_plan(tuple(rb), tuple(dr), tuple(al), n_rows)
+
+
 def scatter_rows(dst: dict, rows: dict, idx: torch.Tensor) -> None:
-    """K3 wrapper: one launch scatters every plane's rows in place."""
+    """K3 wrapper: one launch scatters every plane's rows in place. The
+    host's part is one checked pass over the planes and a cached plan."""
     device = idx.device
     if device.type == "cpu":
         scatter_rows_ref(dst, rows, idx)
@@ -1536,21 +1728,26 @@ def scatter_rows(dst: dict, rows: dict, idx: torch.Tensor) -> None:
         raise ValueError(f"scatter_rows runs on cpu or cuda, not {device}")
     from . import cuda
 
-    if len(dst) > cuda.MAX_PLANES:
-        raise ValueError(f"{len(dst)} planes; the kernel takes {cuda.MAX_PLANES}")
+    m = len(dst)
+    if m > cuda.MAX_PLANES:
+        raise ValueError(f"{m} planes; the kernel takes {cuda.MAX_PLANES}")
     _check(idx, "idx", device, torch.int32)
     n = idx.numel()
-    p = cuda.ScatterParams(n_planes=len(dst), n_rows=n)
-    for i, (k, t) in enumerate(dst.items()):
-        _check(t, k, device, t.dtype)
-        _check(rows[k], f"rows[{k}]", device, t.dtype, (n,) + tuple(t.shape[1:]))
-        p.row_bytes[i] = t[0].numel() * t.element_size() if t.shape[0] else 0
-        p.dst_rows[i] = t.shape[0]
-        p.dst[i] = t.data_ptr()
-        p.src[i] = rows[k].data_ptr()
-    if n:
-        cuda.launch("scatter_rows", p, [idx.data_ptr()], _stream(device))
-        LAUNCHES["scatter_rows"] += 1
+    rb, dr, dp, sp, al = _scatter_planes(dst, rows, n, device)
+    if not n:
+        return
+    plan = _scatter_plan(tuple(rb), tuple(dr), tuple(al), n)
+    p = cuda.ScatterParams(n_planes=m, n_rows=n, n_threads=plan.n_threads,
+                           block=plan.threads, part_log=plan.part_log,
+                           lane_log=plan.lane_log)
+    p.row_bytes[:m] = rb
+    p.dst_rows[:m] = dr
+    p.width[:m] = plan.width
+    p.units[:m] = plan.units
+    p.dst[:m] = dp
+    p.src[:m] = sp
+    cuda.launch("scatter_rows", p, [idx.data_ptr()], _stream(device))
+    LAUNCHES["scatter_rows"] += 1
 
 
 # --------------------------------------------------------------------------
