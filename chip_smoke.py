@@ -140,9 +140,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    makes the scan's counted barriers, folds, cluster barriers, exchanges
    and tie picks (the scan reports them) over the same steps with no node
    work (scan_floor, csrc/assign_scan.cu);
-   phases 6, 9, 10 and 17-20 run under a watchdog (--phase-timeout) that
+21. the host tier around K4 and K5, each part run on the card and with
+   device="cpu" in the same call, the card's decisions (bindings, counts,
+   rotation index, rng state, FitError messages) equal to the CPU's:
+   (a) SchedulingNodeDeclaredFeatures/1000Nodes (500 plain nodes, 500
+   labelled node-class: featured declaring NUMAAlignment; 1000 pods of
+   500m requiring it) one pod at a time through schedule_pod (K4 and the
+   host NodeDeclaredFeatures tail, the hybrid route) with an assume and a
+   snapshot update after each: every pod on a featured node,
+   kernel_count +1000, fallback_count +0, K4 launched once per pod;
+   pods/s and ms per pod split into run (K4) and the host stage
+   (--ndf-cpu-pods cuts the CPU run's pods, never the nodes, and says so);
+   (b) phase 2's 5000 nodes, each filled with a priority-0 pod of 31 CPU,
+   four freed for priority-100 preemptors nominated onto them: pods that
+   outrank every nomination (kernel route), pods of 31 CPU the
+   nominations outrank (hybrid route, two-pass protection: none takes a
+   nominee), the preemptors (nominee fast path, each on its nominee,
+   fallback_count +1 each); (c) on that cluster, pods the extractor
+   refuses (a hostIP port, 5 spread constraints) through the host
+   algorithm, fallback_count counting exactly them; (d) gang.yaml's
+   GangSchedulingTopologyRequired/500Nodes cluster (zone-3 declaring the
+   feature) and its 100 PodGroups of 4 through PodGroupCycle on the device
+   path (K1 + K5), one more gang with a member requiring the feature
+   (declined by try_gang_wave, placed whole in zone-3 by the host cycle's
+   per-member K4 runs on placement-narrowed snapshots) and one more plain
+   gang;
+   phases 6, 9, 10 and 17-21 run under a watchdog (--phase-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
-   barrier would;
+   barrier would; every phase that builds a TorchSchedulingAlgorithm
+   fails if its gang planner met an error (a failed K1/K5 build or launch
+   raises on the card; on the CPU the group would go to the host cycle);
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 6's single-pod path, where each assume dirties one
@@ -283,6 +310,16 @@ def max_abs_err(pairs) -> float:
     """Largest |kernel - plain| over every element of every output pair."""
     return max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0.0 for a, b in pairs)
+
+
+def default_framework(names, plugin_args=None, handle=None):
+    """The port's default scheduling profile (plugins in the reference's
+    order and weights) over a cluster's resource names."""
+    from kubernetes_tpu_torch.scheduler.framework import Framework
+    from kubernetes_tpu_torch.scheduler.plugins import DEFAULT_WEIGHTS, default_plugins
+
+    return Framework(default_plugins(names, args=plugin_args or {}), dict(DEFAULT_WEIGHTS),
+                     handle=handle)
 
 
 def place_waves(backend, cache, snap, pods, wave, rng, label, bindings=None):
@@ -660,6 +697,12 @@ def main() -> None:
     ap.add_argument("--mesh-shards", default="1,2,4,8")
     ap.add_argument("--matrix-nodes", type=int, default=5000)
     ap.add_argument("--matrix-pods", type=int, default=512)
+    # phase 21: SchedulingNodeDeclaredFeatures/1000Nodes (half the nodes
+    # featured) and its measured pods; the CPU comparison run's pod count
+    # (cut only if the CPU run does not fit the phase's time)
+    ap.add_argument("--ndf-nodes", type=int, default=1000)
+    ap.add_argument("--ndf-pods", type=int, default=1000)
+    ap.add_argument("--ndf-cpu-pods", type=int, default=1000)
     # a phase that runs past this fails the run (a hung cluster barrier)
     ap.add_argument("--phase-timeout", type=float, default=420.0)
     args = ap.parse_args()
@@ -999,6 +1042,8 @@ def main() -> None:
                      "source": "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
                      "replaces": "kubernetes_tpu/parallel/mesh.py:262", **k7})
     print(f"phases 17-20: {time.perf_counter() - t_mesh:.1f} s")
+    with watchdog("phase 21 (the host tier)", args.phase_timeout):
+        host_tier(args)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -1032,7 +1077,8 @@ def run_pipelined(args, context=None):
     snap = Snapshot()
     cache.update_snapshot(snap)
     backend = TorchBackend(names, device="cuda", context=context)
-    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+    algo = TorchSchedulingAlgorithm(default_framework(names), backend,
+                                    rng=random.Random(args.seed))
     pipe = WavePipeline(backend, cache, snap, algo, depth=2)
     init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
     measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
@@ -1042,6 +1088,7 @@ def run_pipelined(args, context=None):
     t1 = time.perf_counter()
     pipe.schedule(measured, args.wave)
     wall = time.perf_counter() - t1
+    check_tier("the pipelined main path", algo)
     log = list(backend.wave_log)[log0:]
     return {"backend": backend, "cache": cache, "snap": snap, "pipe": pipe, "algo": algo,
             "wall_s": wall, "pods_s": args.pods / wall, "log": log,
@@ -1245,7 +1292,7 @@ def pipeline_events(spec, pa, device, types, meta):
     s = Snapshot()
     c.update_snapshot(s)
     b = tb.TorchBackend(c.names, plugin_args=pa, device=device)
-    algo = tb.TorchSchedulingAlgorithm(b, rng=random.Random(3))
+    algo = tb.TorchSchedulingAlgorithm(default_framework(c.names, pa), b, rng=random.Random(3))
     pipe = WavePipeline(b, c, s, algo, depth=2)
     pods = build_pods(spec, types, meta)
     cut = [len(pods) // 4, len(pods) // 2, 3 * len(pods) // 4]
@@ -1282,6 +1329,7 @@ def pipeline_events(spec, pa, device, types, meta):
         tb.clone_tie_words = real
     for pod in list(pipe.handed_back):
         pipe.schedule_one(pod)
+    check_tier(f"pipelined mixed cluster on {device}", algo)
     return (pipe.bindings, algo.rng.getstate(),
             {k: v for k, v in b.dedup_stats.items() if k.startswith("xwave")},
             dict(pipe.stats), [p.meta.name for p in pipe.handed_back],
@@ -1345,7 +1393,8 @@ def topology_spreading(args):
     snap = Snapshot()
     cache.update_snapshot(snap)
     backend = TorchBackend(names, device="cuda")
-    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+    algo = TorchSchedulingAlgorithm(default_framework(names), backend,
+                                    rng=random.Random(args.seed))
     print(f"TopologySpreading: {args.spread_nodes} nodes, {args.zones} zones, "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1404,6 +1453,7 @@ def topology_spreading(args):
           + ", ".join(f"{k} {v * 1e3 / args.spread_pods:.4f}" for k, v in phases.items())
           + f", assume + snapshot {assume_s * 1e3 / args.spread_pods:.4f}")
     print(f"upload: {backend.upload_stats}")
+    check_tier("phase 6", algo)
     return launches, {"snap": snap, "backend": backend, "wall_s": wall,
                       "pods_s": args.spread_pods / wall}
 
@@ -1813,7 +1863,8 @@ def cycle_card_vs_cpu(args):
                 cache.add_node(n)
             snap = Snapshot()
             cache.update_snapshot(snap)
-            algo = TorchSchedulingAlgorithm(TorchBackend(cache.names, device=device),
+            algo = TorchSchedulingAlgorithm(default_framework(cache.names),
+                                            TorchBackend(cache.names, device=device),
                                             rng=random.Random(5))
             got = []
             for pod in build_pods(spec, types, meta):
@@ -1826,6 +1877,7 @@ def cycle_card_vs_cpu(args):
                 got.append((r.suggested_host, r.evaluated_nodes, r.feasible_nodes))
                 cache.assume_pod(pod, r.suggested_host)
                 cache.update_snapshot(snap)
+            check_tier(f"phase 10 on {device}", algo)
             results.append((got, algo.rng.getstate()))
         if results[0] != results[1]:
             fail(f"single-pod cycle, mixed {n_nodes} nodes: card and CPU plain "
@@ -1860,13 +1912,13 @@ def gang_cluster(n_nodes, zones, device, init_pods=0, wave=512, seed=1):
     snap = Snapshot()
     cache.update_snapshot(snap)
     backend = TorchBackend(cache.names, device=device)
-    algo = TorchSchedulingAlgorithm(backend, rng=random.Random(seed))
+    handle = Handle(cache=cache, snapshot=snap)
+    fw = Framework([TopologyPlacementGenerator()], handle=handle)
+    algo = TorchSchedulingAlgorithm(fw, backend, rng=random.Random(seed))
     if init_pods:
         place_waves(backend, cache, snap, [scheduling_basic_pod(10**7 + i)
                                            for i in range(init_pods)],
                     wave, algo.rng, "gang cluster")
-    handle = Handle(cache=cache, snapshot=snap)
-    fw = Framework([TopologyPlacementGenerator()], handle=handle)
     return cache, snap, handle, fw, backend, algo
 
 
@@ -2110,6 +2162,7 @@ def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
           f"K5 {ms5:.4f} ms (scan + pick) K1 {ms1:.4f} ms per gang; device busy share "
           f"((K1 + K5) x gangs / wall) {(ms1 + ms5) * n_groups / (wall * 1e3):.4f}; "
           f"launches {launches}")
+    check_tier(label, algo)
     return launches
 
 
@@ -2161,7 +2214,7 @@ def gang_card_vs_cpu(args):
         handle = Handle(cache=cache, snapshot=snap)
         fw = Framework([TopologyPlacementGenerator()], handle=handle)
         backend = TorchBackend(cache.names, device=device)
-        algo = TorchSchedulingAlgorithm(backend, rng=random.Random(args.seed))
+        algo = TorchSchedulingAlgorithm(fw, backend, rng=random.Random(args.seed))
         rows = []
         run_gang = backend.run_gang
 
@@ -2178,6 +2231,7 @@ def gang_card_vs_cpu(args):
             got.append((hosts, backend.gang_record.gang_outcome, algo.rng.getstate()))
             if hosts is not None:
                 assume_gang(handle, group, pods, hosts)
+        check_tier(f"phase 13 on {device}", algo)
         results.append((got, rows, dict(backend.gang_pod_totals)))
     if results[0] != results[1]:
         for i, (a, b) in enumerate(zip(results[0][0], results[1][0])):
@@ -2504,6 +2558,308 @@ def wave_matrix(args, n_shards):
           f"equal to batched_assign's, {P}/{P} placed")
     return {"launches": launches["wave_fit_and_score"], "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bd, "bound_by": by, "library_ms": None}
+
+
+
+# --------------------------------------------------------------------------
+# 21: the host tier around K4 and K5
+# --------------------------------------------------------------------------
+
+
+FEATURE = "NUMAAlignment"
+NDF_ANNOTATION = "features.k8s.io/required"
+
+
+def check_tier(label, algo):
+    """The gang planner's catch-all must have met no error: on the card it
+    raises one (a failed K1/K5 build or launch), on the CPU it would send
+    the group to the host cycle."""
+    if algo.backend.gang_errors:
+        fail(f"{label}: the gang planner degraded {algo.backend.gang_errors} errors to "
+             f"the host cycle, the last: {algo.backend.gang_last_error}")
+
+
+def tier_side(nodes, device, seed):
+    """A cache over `nodes`, the default profile with a handle over the
+    cache and snapshot, a nominator and TorchSchedulingAlgorithm on
+    `device`."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import Handle
+    from kubernetes_tpu_torch.scheduler.queue import Nominator
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+
+    cache = Cache(ResourceNames())
+    for n in nodes:
+        cache.add_node(n)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    handle = Handle(cache=cache, snapshot=snap)
+    fw = default_framework(cache.names, handle=handle)
+    nominator = Nominator()
+    algo = TorchSchedulingAlgorithm(fw, TorchBackend(cache.names, device=device),
+                                    rng=random.Random(seed), nominator=nominator)
+    return TierSide(cache, snap, handle, fw, algo, nominator)
+
+
+class TierSide:
+    def __init__(self, cache, snap, handle, fw, algo, nominator):
+        self.cache, self.snap, self.handle, self.fw = cache, snap, handle, fw
+        self.algo, self.nominator = algo, nominator
+
+    def schedule(self, pod):
+        """schedule_pod: a comparable record of the result or FitError, the
+        rotation index and the counters after it."""
+        from kubernetes_tpu_torch.scheduler.framework import CycleState, FitError
+
+        algo = self.algo
+        try:
+            r = algo.schedule_pod(CycleState(), pod, self.snap)
+        except FitError as e:
+            rec = ("fit", e.error_message(), sorted(e.diagnosis.unschedulable_plugins))
+        else:
+            rec = (r.suggested_host, r.evaluated_nodes, r.feasible_nodes)
+            self.cache.assume_pod(pod, r.suggested_host)
+            self.cache.update_snapshot(self.snap)
+        return rec + (algo.next_start_node_index, algo.kernel_count, algo.fallback_count)
+
+
+def ndf_cell(args, device, n_pods):
+    """(a) SchedulingNodeDeclaredFeatures/1000Nodes
+    (kubernetes_tpu/perf/configs/nodedeclaredfeatures.yaml:33-35): plain
+    nodes, then nodes labelled node-class: featured declaring
+    NUMAAlignment (the default node template, zones round-robin), then
+    measured pods of 500m requiring it, one at a time through schedule_pod
+    (K4 + the host NodeDeclaredFeatures tail) with an assume and a snapshot
+    update after each."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+
+    n_plain = n_feat = args.ndf_nodes // 2
+    nodes = [make_node(f"node-{i}", zone=f"zone-{i % args.zones}") for i in range(n_plain)]
+    nodes += [make_node(f"node-{i}", zone=f"zone-{i % args.zones}",
+                        labels={"node-class": "featured"}, declared_features=(FEATURE,))
+              for i in range(n_plain, n_plain + n_feat)]
+    side = tier_side(nodes, device, args.seed)
+    pods = []
+    for i in range(n_pods):
+        p = make_pod(f"pod-{i}", cpu="500m")
+        p.meta.annotations[NDF_ANNOTATION] = FEATURE
+        pods.append(p)
+    backend = side.algo.backend
+    run0, k0, f0 = dict(backend.run_phase_s), side.algo.kernel_count, side.algo.fallback_count
+    kernels.reset_launches()
+    log, sched_s = [], 0.0
+    t0 = time.perf_counter()
+    for pod in pods:
+        a = time.perf_counter()
+        rec = side.schedule(pod)
+        sched_s += time.perf_counter() - a
+        log.append(rec)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for pod, rec in zip(pods, log):
+        if rec[0] == "fit" or int(rec[0].split("-")[1]) < n_plain:
+            fail(f"(a) {device}: {pod.meta.name} placed on {rec[0]}, not a featured node")
+    kc, fc = side.algo.kernel_count - k0, side.algo.fallback_count - f0
+    if (kc, fc) != (n_pods, 0):
+        fail(f"(a) {device}: kernel_count +{kc}, fallback_count +{fc}; expected "
+             f"+{n_pods}, +0")
+    check_tier(f"(a) {device}", side.algo)
+    run = {k: v - run0[k] for k, v in backend.run_phase_s.items()}
+    return {"log": log, "rng": side.algo.rng.getstate(), "launches": launches,
+            "wall_s": wall, "sched_s": sched_s, "run": run, "side": side}
+
+
+def nominated_cell(args, device):
+    """(b) nominated pods, then (c) the host route, on SchedulingBasic's
+    cluster: every node filled with a priority-0 pod of 31 CPU, four of them
+    freed for priority-100 preemptors nominated onto them through the
+    nominator. Then: pods that outrank every nomination (kernel route),
+    pods of 31 CPU that the nominations outrank (hybrid route with the
+    two-pass treatment: none may take a nominee), the preemptors (nominee
+    fast path), and pods the extractor refuses (host route)."""
+    from kubernetes_tpu_torch.testing.wrappers import (
+        make_pod, scheduling_basic_node, with_spread)
+    from kubernetes_tpu_torch.api.types import Container, ContainerPort
+
+    side = tier_side([scheduling_basic_node(i, args.zones) for i in range(args.nodes)],
+                     device, args.seed)
+    fillers = [make_pod(f"filler-{i}", cpu="31", mem="1Gi") for i in range(args.nodes)]
+    for i, p in enumerate(fillers):
+        side.cache.assume_pod(p, f"node-{i}")
+    nominees = [f"node-{i * (args.nodes // 4)}" for i in range(4)]
+    preemptors = []
+    for k, node in enumerate(nominees):
+        side.cache.remove_pod(fillers[int(node.split("-")[1])])
+        pre = make_pod(f"preemptor-{k}", cpu="31", mem="1Gi")
+        pre.spec.priority = 100
+        side.nominator.add_nominated_pod(pre, node)
+        preemptors.append(pre)
+    side.cache.update_snapshot(side.snap)
+    parts = {}
+
+    def run(label, pods):
+        a = time.perf_counter()
+        k0, f0 = side.algo.kernel_count, side.algo.fallback_count
+        recs = [side.schedule(p) for p in pods]
+        parts[label] = {"recs": recs, "s": time.perf_counter() - a,
+                        "kernel": side.algo.kernel_count - k0,
+                        "fallback": side.algo.fallback_count - f0}
+        return recs
+
+    vips = []
+    for i in range(8):
+        p = make_pod(f"vip-{i}", cpu="100m", mem="64Mi")
+        p.spec.priority = 200
+        vips.append(p)
+    run("outrank", vips)
+    run("outranked", [make_pod(f"low-{i}", cpu="31", mem="1Gi") for i in range(8)])
+    for pre, node in zip(preemptors, nominees):
+        pre.status.nominated_node_name = node
+    recs = run("preemptors", preemptors)
+    for pre in preemptors:
+        side.nominator.delete_nominated_pod_if_exists(pre)
+    refused = []
+    for i in range(2):
+        p = make_pod(f"port-{i}", cpu="100m")
+        p.spec.containers[0] = Container(name="c", requests={"cpu": "100m"}, ports=(
+            ContainerPort(80, host_port=80, host_ip=f"10.0.0.{i}"),))
+        refused.append(p)
+    for i in range(2):
+        p = make_pod(f"spread-{i}", cpu="100m", labels={"app": "s"})
+        for k in range(5):
+            with_spread(p, max_skew=k + 1, when="DoNotSchedule",
+                        key="topology.kubernetes.io/zone" if k % 2 else
+                        "kubernetes.io/hostname")
+        refused.append(p)
+    run("host route", refused)
+    want = {"outrank": (8, 0), "outranked": (8, 0), "preemptors": (0, 4),
+            "host route": (0, 4)}
+    for label, (kc, fc) in want.items():
+        got = (parts[label]["kernel"], parts[label]["fallback"])
+        if got != (kc, fc):
+            fail(f"(b/c) {device} {label}: kernel_count, fallback_count +{got}; expected "
+                 f"+{(kc, fc)}")
+    lows = parts["outranked"]["recs"]
+    if any(r[0] != "fit" for r in lows):
+        fail(f"(b) {device}: an outranked pod took a nominee: {[r[0] for r in lows]}")
+    if [r[0] for r in recs] != nominees:
+        fail(f"(b) {device}: preemptors landed on {[r[0] for r in recs]}, not {nominees}")
+    if any(r[0] == "fit" for r in parts["host route"]["recs"] + parts["outrank"]["recs"]):
+        fail(f"(b/c) {device}: a pod of the kernel or host route was not placed")
+    check_tier(f"(b/c) {device}", side.algo)
+    return {"parts": parts, "rng": side.algo.rng.getstate()}
+
+
+def gang_tier_cell(args, device):
+    """(d) gang.yaml's GangSchedulingTopologyRequired/500Nodes cluster (the
+    default node template over the zones; zone-3's nodes declare the
+    feature) and its 100 PodGroups of 4 through PodGroupCycle: the plain
+    gangs on the device path (K1 + K5), then one gang whose second member
+    requires the feature (try_gang_wave declines it; the host cycle places
+    it whole in zone-3 through per-member K4 runs on placement-narrowed
+    snapshots), then one more plain gang."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.schedule_one import PodGroupCycle
+    from kubernetes_tpu_torch.testing.mixed import build_gangs, perf_gang_spec
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node
+
+    nodes = [scheduling_basic_node(i, args.zones) for i in range(args.gang_nodes)]
+    for i, n in enumerate(nodes):
+        if i % args.zones == 3:
+            n.status.declared_features = (FEATURE,)
+    side = tier_side(nodes, device, args.seed)
+    cycle = PodGroupCycle(side.snap, side.fw, side.algo, side.cache.names)
+    n = args.gang_groups
+    gangs = build_gangs(perf_gang_spec(0, args.zones, n + 2, 4, "Required"), types, meta)
+    gangs[n][1][1].meta.annotations[NDF_ANNOTATION] = FEATURE
+    backend = side.algo.backend
+    log, ndf_launches = [], None
+    t0 = time.perf_counter()
+    for g, (group, pods) in enumerate(gangs):
+        admit(side.handle, group, pods)
+        if g == n:
+            kernels.reset_launches()
+            totals0 = dict(backend.gang_pod_totals)
+        out = cycle.schedule_pod_group(group.meta.key, qpis(pods))
+        if out[0] != "success":
+            fail(f"(d) {device}: gang {group.meta.name} not placed: {out}")
+        hosts = [r.suggested_host for _q, _st, r, _pi in out[1]]
+        if len({int(h.split("-")[1]) % args.zones for h in hosts}) != 1:
+            fail(f"(d) {device}: Required gang {group.meta.name} spans zones: {hosts}")
+        if g == n:
+            ndf_launches = dict(kernels.LAUNCHES)
+            host = backend.gang_pod_totals.get("host", 0) - totals0.get("host", 0)
+            if host != 4 or {int(h.split("-")[1]) % args.zones for h in hosts} != {3}:
+                fail(f"(d) {device}: the declared-features gang went {hosts}, "
+                     f"{host} members counted on the host side")
+        assume_gang(side.handle, group, pods, hosts)
+        log.append((group.meta.name, hosts))
+    wall = time.perf_counter() - t0
+    if backend.gang_pod_totals.get("device", 0) != 4 * (n + 1):
+        fail(f"(d) {device}: gang pods by path {backend.gang_pod_totals}")
+    check_tier(f"(d) {device}", side.algo)
+    return {"log": log, "rng": side.algo.rng.getstate(), "wall_s": wall,
+            "counts": (side.algo.kernel_count, side.algo.fallback_count,
+                       dict(backend.gang_pod_totals)),
+            "ndf_launches": ndf_launches}
+
+
+def host_tier(args):
+    """21. The host tier (see the module docstring); returns the launch
+    counts of (a) on the card."""
+    n_cpu = min(args.ndf_cpu_pods, args.ndf_pods)
+    t0 = time.perf_counter()
+    card = ndf_cell(args, "cuda", args.ndf_pods)
+    cpu = ndf_cell(args, "cpu", n_cpu)
+    if n_cpu < args.ndf_pods:
+        print(f"(a) the CPU run is cut to the first {n_cpu} of {args.ndf_pods} pods "
+              f"(the node count is not cut)")
+    if card["log"][:n_cpu] != cpu["log"] or (n_cpu == args.ndf_pods
+                                              and card["rng"] != cpu["rng"]):
+        fail("(a) the card's bindings, rng or rotation differ from the CPU run's")
+    la = card["launches"]
+    if la["fit_and_score"] != args.ndf_pods:
+        fail(f"(a) fit_and_score launched {la['fit_and_score']} times for "
+             f"{args.ndf_pods} pods")
+    run_s = sum(card["run"].values())
+    host_s = card["sched_s"] - run_s
+    n = args.ndf_pods
+    print(f"(a) SchedulingNodeDeclaredFeatures/{args.ndf_nodes}Nodes: {n} pods, every one on "
+          f"a featured node, card == CPU ({n_cpu} pods); {card['wall_s']:.3f} s = "
+          f"{n / card['wall_s']:.1f} pods/s incl. assume + snapshot; schedule_pod "
+          f"{card['sched_s'] * 1e3 / n:.4f} ms per pod = run (K4) "
+          f"{run_s * 1e3 / n:.4f} + host stage {host_s * 1e3 / n:.4f}; run phases ms per "
+          f"pod: " + ", ".join(f"{k} {v * 1e3 / n:.4f}" for k, v in card["run"].items())
+          + f"; launches {la}; CPU run {cpu['wall_s']:.1f} s")
+    bc = [nominated_cell(args, d) for d in ("cuda", "cpu")]
+    if any(bc[0]["parts"][k]["recs"] != bc[1]["parts"][k]["recs"] for k in bc[0]["parts"]) \
+            or bc[0]["rng"] != bc[1]["rng"]:
+        fail("(b/c) the card's decisions differ from the CPU run's")
+    parts = bc[0]["parts"]
+    print(f"(b) nominated pods on {args.nodes} nodes (every node filled, 4 nominees), "
+          f"card == CPU: " + "; ".join(
+              f"{k}: {len(v['recs'])} pods, kernel +{v['kernel']}, fallback +{v['fallback']}, "
+              f"{v['s'] * 1e3 / len(v['recs']):.2f} ms per pod"
+              for k, v in parts.items() if k != "host route"))
+    v = parts["host route"]
+    print(f"(c) the host route: {len(v['recs'])} pods the extractor refuses (a hostIP "
+          f"port, 5 spread constraints), fallback +{v['fallback']}, "
+          f"{v['s'] * 1e3 / len(v['recs']):.2f} ms per pod on the card's side")
+    gangs = [gang_tier_cell(args, d) for d in ("cuda", "cpu")]
+    if any(gangs[0][k] != gangs[1][k] for k in ("log", "rng", "counts")):
+        fail("(d) the card's gang placements differ from the CPU run's")
+    print(f"(d) {args.gang_groups + 2} gangs of 4 on {args.gang_nodes} nodes, card == CPU: "
+          f"the declared-features gang in zone-3 through the host cycle "
+          f"(launches {gangs[0]['ndf_launches']}), the others on the device path; counts "
+          f"(kernel, fallback, gang pods by path) {gangs[0]['counts']}; "
+          f"{gangs[0]['wall_s']:.3f} s on the card's side")
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return la
 
 
 if __name__ == "__main__":

@@ -188,6 +188,7 @@ class PodSpec:
     tolerations: tuple[Toleration, ...] = ()
     topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
     priority: int = 0
+    scheduling_gates: tuple[str, ...] = ()
     scheduling_group: SchedulingGroup | None = None
 
 
@@ -236,6 +237,8 @@ class NodeStatus:
     capacity: dict[str, object] = field(default_factory=dict)
     allocatable: dict[str, object] = field(default_factory=dict)
     images: list[ContainerImage] = field(default_factory=list)
+    # node features the node declares (NodeDeclaredFeatures)
+    declared_features: tuple[str, ...] = ()
 
 
 @dataclass

@@ -1,15 +1,27 @@
-"""Scheduler-framework result types: status codes, Status, the per-node
-failure map, FitError, ScheduleResult and the Plugin base.
+"""Scheduler-framework public plugin API: status codes and plugin interfaces.
 
-Reference: staging/src/k8s.io/kube-scheduler/framework/interface.go (`Code`,
-`Status`) and pkg/scheduler/framework/types.go (NodeToStatus, FitError,
-Diagnosis). A trimmed copy: of the plugin extension points only the
-placement ones (gang scheduling) have a caller in the port yet.
+Reference: staging/src/k8s.io/kube-scheduler/framework/interface.go — `Code`
+(7 statuses), `Status`, and the extension-point interfaces (PreEnqueue :442,
+QueueSort :454, PreFilter :508, Filter :537, PostFilter :566, PreScore :593,
+Score :614, Reserve :631, PreBind :647, PostBind :664, Permit :675, Bind :688,
+SignPlugin :735, PlacementGenerate :762, PlacementScore :787). Python plugins
+implement these by defining the corresponding methods; the runtime discovers
+extension points by hasattr (duck typing replaces Go interface assertions).
+A copy of the reference package's module
+(kubernetes_tpu/scheduler/framework/interface.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Any
+
+if TYPE_CHECKING:
+    from ..nodeinfo import NodeInfo
+    from ...api.types import Pod
+
+MAX_NODE_SCORE = 100
+MIN_NODE_SCORE = 0
 
 # --- status codes (interface.go Code) -------------------------------------
 
@@ -49,6 +61,7 @@ class Status:
         self.plugin = plugin
         self.error = error
 
+    # constructors mirroring framework.NewStatus / AsStatus
     @classmethod
     def unschedulable(cls, *reasons: str, plugin: str = "") -> "Status":
         return cls(UNSCHEDULABLE, reasons, plugin)
@@ -65,6 +78,14 @@ class Status:
     def skip(cls, plugin: str = "") -> "Status":
         return cls(SKIP, (), plugin)
 
+    @classmethod
+    def wait(cls, plugin: str = "") -> "Status":
+        return cls(WAIT, (), plugin)
+
+    @classmethod
+    def pending(cls, *reasons: str, plugin: str = "") -> "Status":
+        return cls(PENDING, reasons, plugin)
+
     @property
     def is_success(self) -> bool:
         return self.code == SUCCESS
@@ -72,6 +93,10 @@ class Status:
     @property
     def is_skip(self) -> bool:
         return self.code == SKIP
+
+    @property
+    def is_wait(self) -> bool:
+        return self.code == WAIT
 
     @property
     def is_rejected(self) -> bool:
@@ -97,6 +122,43 @@ def status_of(s: "Status | None") -> Status:
 
 
 @dataclass
+class PreFilterResult:
+    """Narrows the candidate node set (interface.go PreFilterResult)."""
+
+    node_names: set[str] | None = None  # None = all nodes
+
+    def merge(self, other: "PreFilterResult") -> "PreFilterResult":
+        if self.node_names is None:
+            return PreFilterResult(other.node_names)
+        if other.node_names is None:
+            return PreFilterResult(self.node_names)
+        return PreFilterResult(self.node_names & other.node_names)
+
+    @property
+    def all_nodes(self) -> bool:
+        return self.node_names is None
+
+
+@dataclass
+class PostFilterResult:
+    nominated_node_name: str = ""
+    nominating_mode: str = "ModeOverride"  # ModeNoop | ModeOverride
+
+
+@dataclass
+class NodeScore:
+    name: str
+    score: int
+
+
+@dataclass
+class NodePluginScores:
+    name: str
+    scores: list[tuple[str, int]] = field(default_factory=list)  # (plugin, weighted)
+    total_score: int = 0
+
+
+@dataclass
 class NodeToStatus:
     """Per-node filter failure map with an absent-node default.
 
@@ -106,8 +168,7 @@ class NodeToStatus:
     """
 
     node_to_status: dict[str, Status] = field(default_factory=dict)
-    absent_nodes_status: Status = field(
-        default_factory=lambda: Status(UNSCHEDULABLE_AND_UNRESOLVABLE))
+    absent_nodes_status: Status = field(default_factory=lambda: Status(UNSCHEDULABLE_AND_UNRESOLVABLE))
 
     def get(self, node_name: str) -> Status:
         return self.node_to_status.get(node_name, self.absent_nodes_status)
@@ -116,22 +177,33 @@ class NodeToStatus:
         self.node_to_status[node_name] = status
 
     def aggregate_reasons(self) -> dict[str, int]:
-        """reason string -> node count (FitError's message body)."""
+        """reason string -> node count (FitError's message body). Subclasses
+        backed by dense kernel rows aggregate vectorized instead of
+        materializing a Status per node."""
         reasons: dict[str, int] = {}
         for st in self.node_to_status.values():
             for r in st.reasons:
                 reasons[r] = reasons.get(r, 0) + 1
         return reasons
 
+    def nodes_with_code(self, code: int, snapshot) -> list:
+        out = []
+        for ni in snapshot.list_nodes():
+            if self.get(ni.name).code == code:
+                out.append(ni)
+        return out
+
 
 class FitError(Exception):
-    """Scheduling failed: no node fits (framework/types.go FitError). The
-    message is built lazily (error_message / __str__)."""
+    """Scheduling failed: no node fits (framework/types.go FitError)."""
 
     def __init__(self, pod, num_all_nodes: int, diagnosis: "Diagnosis"):
         self.pod = pod
         self.num_all_nodes = num_all_nodes
         self.diagnosis = diagnosis
+        # message building is LAZY (__str__): a preemption-heavy workload
+        # raises a FitError per pod per attempt, and walking every node's
+        # status to format a message nobody may read was a top cost
         super().__init__()
 
     def __str__(self) -> str:
@@ -159,12 +231,29 @@ class ScheduleResult:
     suggested_host: str = ""
     evaluated_nodes: int = 0
     feasible_nodes: int = 0
+    nominating_info: PostFilterResult | None = None
 
 
 class Plugin:
-    """Base plugin. Of the reference's extension points the port calls the
-    placement ones (framework/runtime.py):
+    """Base plugin. Subclasses define extension-point methods:
 
+    - pre_enqueue(pod) -> Status
+    - less(pod_info_a, pod_info_b) -> bool                       (QueueSort)
+    - events_to_register() -> list[ClusterEventWithHint]
+    - pre_filter(state, pod, nodes) -> (PreFilterResult|None, Status)
+    - pre_filter_extensions() -> self | None  (add_pod/remove_pod)
+    - filter(state, pod, node_info) -> Status
+    - post_filter(state, pod, node_to_status) -> (PostFilterResult|None, Status)
+    - pre_score(state, pod, nodes) -> Status
+    - score(state, pod, node_info) -> (int, Status)
+    - normalize_score(state, pod, scores) -> Status
+    - reserve(state, pod, node_name) -> Status / unreserve(...)
+    - permit(state, pod, node_name) -> (Status, timeout_seconds)
+    - pre_bind(state, pod, node_name) -> Status
+    - pre_bind_pre_flight(state, pod, node_name) -> Status
+    - bind(state, pod, node_name) -> Status
+    - post_bind(state, pod, node_name) -> None
+    - sign(pod) -> str | None                                     (SignPlugin)
     - generate_placements(state, pods, parent) -> (list[Placement], Status)
     - score_placement(state, pods, placement) -> (int, Status)
     """
@@ -173,3 +262,38 @@ class Plugin:
 
     def __repr__(self) -> str:
         return self.name
+
+
+@dataclass
+class WaitingPod:
+    """A pod parked at Permit (runtime/waiting_pods_map.go). Deciders
+    (allow/reject) signal the condition so WaitOnPermit blocks on a real
+    wakeup instead of polling (framework.go:2034 blocks on a channel)."""
+
+    pod: Any
+    pending_plugins: dict[str, float] = field(default_factory=dict)  # plugin -> deadline
+    decision: Status | None = None
+
+    def __post_init__(self):
+        import threading
+
+        self._cond = threading.Condition()
+
+    def allow(self, plugin: str) -> None:
+        with self._cond:
+            self.pending_plugins.pop(plugin, None)
+            if not self.pending_plugins and self.decision is None:
+                self.decision = Status()
+            self._cond.notify_all()
+
+    def reject(self, plugin: str, msg: str) -> None:
+        with self._cond:
+            self.decision = Status.unschedulable(msg, plugin=plugin)
+            self._cond.notify_all()
+
+    def wait_for_decision(self, timeout: float) -> Status | None:
+        """Block until a decision lands or timeout elapses."""
+        with self._cond:
+            if self.decision is None and timeout > 0:
+                self._cond.wait(timeout)
+            return self.decision

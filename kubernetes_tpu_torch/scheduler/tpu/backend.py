@@ -35,20 +35,20 @@ which runs the kernels' plain PyTorch versions (as the tests do). Without a
 card and without device="cpu" the constructor raises.
 
 The wave runs the reference's default tier: signature dedup on, hard
-spread and inter-pod affinity in the scan, cross-wave reuse on. Not in
+spread and inter-pod affinity in the scan, cross-wave reuse on. Around
+K4 the single-pod cycle has the reference's host tier
+(TorchSchedulingAlgorithm): the hybrid route, the nominee fast path, the
+host algorithm for pods the extractor refuses (FallbackNeeded). Not in
 this slice (a later one, in the ROADMAP's order): the scheduling loop
-itself (testing/pipeline.py stands in for it), the host framework with its
-fallback, hybrid and nominated-node paths and the circuit breaker (with
-the host pod-group cycle a gang falls back to), the flight recorder and
-fault injection, and the multi-device mesh. What needs them raises
-OutOfSlice; pods the reference sends to its host path raise
-FallbackNeeded.
+itself (testing/pipeline.py stands in for it) with the circuit breaker
+that reads its device waves, the volume, DRA and extender host stages,
+preemption, the flight recorder and fault injection. What the kernels do not compute
+raises OutOfSlice, which no route sends to the host.
 """
 
 from __future__ import annotations
 
 import collections
-import random
 import time
 from dataclasses import dataclass
 
@@ -62,7 +62,6 @@ from ...ops.kernels import (
     MAX_TIE_DRAWS,
     ZERO_TIE_WORDS,
     KernelConfig,
-    OutOfSlice,
     dedup_fast_capable,
     gang_assign,
     log_weight_table,
@@ -86,11 +85,27 @@ from ..framework.interface import (
     UNSCHEDULABLE,
     Diagnosis,
     FitError,
+    NodePluginScores,
     NodeToStatus,
     ScheduleResult,
     Status,
 )
+from ..plugins.node_declared_features import infer_required_features
 from ..plugins.pod_topology_spread import PodTopologySpread
+from ..schedule_one import SchedulingAlgorithm, num_feasible_nodes_to_find
+
+# Plugins K4 fully models. On the hybrid path these are skipped host-side
+# (their work already happened on the device) while the long-tail plugins
+# (NodeDeclaredFeatures here; the volume and DRA plugins in the reference)
+# run on the kernel-pruned node set.
+KERNEL_FILTER_PLUGINS = frozenset({
+    "NodeUnschedulable", "NodeName", "TaintToleration", "NodeAffinity",
+    "NodePorts", "NodeResourcesFit", "PodTopologySpread", "InterPodAffinity",
+})
+KERNEL_SCORE_PLUGINS = frozenset({
+    "NodeResourcesFit", "NodeResourcesBalancedAllocation", "TaintToleration",
+    "NodeAffinity", "PodTopologySpread", "InterPodAffinity", "ImageLocality",
+})
 
 # Reconstructed host-path messages + codes per filter mask row.
 _ROW_STATUS = {
@@ -99,9 +114,6 @@ _ROW_STATUS = {
     "NodeAffinity": ("unresolvable", "node(s) didn't match Pod's node affinity/selector"),
     "NodePorts": ("unschedulable", "node(s) didn't have free ports for the requested pod ports"),
 }
-
-# the annotation naming node features a pod requires (NodeDeclaredFeatures)
-REQUIRED_FEATURES_ANNOTATION = "features.k8s.io/required"
 
 # the five arrays run() returns
 RUN_OUTPUTS = ("fails", "feasible", "insufficient", "too_many_pods", "total")
@@ -397,6 +409,10 @@ class TorchBackend:
         # to the host pod-group cycle), and the last gang wave's record
         self.gang_pod_totals: dict[str, int] = {}
         self.gang_record: GangRecord | None = None
+        # errors the gang planner's catch-all degraded to the host cycle
+        # (a failed K1/K5 build or launch among them), and the last message
+        self.gang_errors = 0
+        self.gang_last_error = ""
 
     # -- config / planes -----------------------------------------------------
 
@@ -1141,9 +1157,9 @@ class TorchBackend:
 class _LazyKernelStatuses(NodeToStatus):
     """NodeToStatus over K4's dense failure rows: one numpy argmax finds
     every node's first failing row up front; Status objects materialize per
-    node on get() (memoized). Entries written by set() take precedence; no
-    caller of this slice writes any (preemption, which does, is not ported
-    yet)."""
+    node on get() (memoized). Overlays written via set() — the hybrid
+    path's host-stage verdicts, preemption's — take precedence (they are
+    more specific)."""
 
     # row name -> Status code kind mirrored from _row_to_status
     _UNSCHEDULABLE_ROWS = ("NodePorts", "NodeResourcesFit", "pts_skew",
@@ -1157,6 +1173,8 @@ class _LazyKernelStatuses(NodeToStatus):
         self._hard_keys = hard_keys
         self._tol = tol
         self._memo: dict[int, Status] = {}
+        self._unsched_names = None
+        self._fit_names = None
         self._row_names = [name for name, _ in order]
         fails = np.asarray(out["fails"])[:, : planes.n]
         ordered = fails[[row for _, row in order], :]
@@ -1177,6 +1195,11 @@ class _LazyKernelStatuses(NodeToStatus):
                 out.add(name)
         return out
 
+    def set(self, node_name: str, status: Status) -> None:
+        super().set(node_name, status)
+        self._unsched_names = None  # overlays invalidate the bulk caches
+        self._fit_names = None
+
     def get(self, node_name: str) -> Status:
         st = self.node_to_status.get(node_name)
         if st is not None:
@@ -1193,9 +1216,11 @@ class _LazyKernelStatuses(NodeToStatus):
 
     def unschedulable_name_set(self) -> set:
         """Names whose status code is plain UNSCHEDULABLE (preemption's
-        candidate precheck), in one vectorized pass. Overlay entries take
-        precedence."""
-        rows =[r for r, name in enumerate(self._row_names)
+        candidate precheck), in one vectorized pass, cached until the next
+        overlay. Overlay entries take precedence."""
+        if self._unsched_names is not None:
+            return self._unsched_names
+        rows = [r for r, name in enumerate(self._row_names)
                 if name.split(":")[0] in self._UNSCHEDULABLE_ROWS]
         mask = self._failed & np.isin(self._first, rows)
         names = {self._planes.node_names[i] for i in np.nonzero(mask)[0]}
@@ -1204,10 +1229,15 @@ class _LazyKernelStatuses(NodeToStatus):
                 names.add(n)
             else:
                 names.discard(n)
+        self._unsched_names = names
         return names
 
     def fit_verdict_names(self) -> set:
-        """Names whose FIRST failing filter is NodeResourcesFit."""
+        """Names whose FIRST failing filter is NodeResourcesFit (the
+        batched victims-search precondition), cached until the next
+        overlay."""
+        if self._fit_names is not None:
+            return self._fit_names
         fit_row = self._row_names.index("NodeResourcesFit")
         mask = self._failed & (self._first == fit_row)
         names = {self._planes.node_names[i] for i in np.nonzero(mask)[0]}
@@ -1216,6 +1246,7 @@ class _LazyKernelStatuses(NodeToStatus):
                 names.add(n)
             else:
                 names.discard(n)
+        self._fit_names = names
         return names
 
     def aggregate_reasons(self) -> dict[str, int]:
@@ -1268,41 +1299,78 @@ class _LazyKernelStatuses(NodeToStatus):
         return reasons
 
 
-class TorchSchedulingAlgorithm:
-    """schedulePod with K4 on the hot path: the kernel branch of the
-    reference's TPUSchedulingAlgorithm.schedule_pod (backend.py:1393-1454).
+class TorchSchedulingAlgorithm(SchedulingAlgorithm):
+    """schedulePod with K4 on the hot path: a copy of the reference's
+    TPUSchedulingAlgorithm (kubernetes_tpu/scheduler/tpu/backend.py:
+    1346-1763), less the volume wave plans.
 
-    percentageOfNodesToScore is 100: K4 evaluates every node, and the
-    winner is the max total with the seeded rng's randrange over the tied
-    winners in node order, so decisions equal the host algorithm's.
-
-    The host framework is a later slice. The cases the reference hands to
-    it raise instead of computing an answer: a nominated pod (OutOfSlice),
-    a pod needing host compose (OutOfSlice) and a pod the extractor refuses
-    (FallbackNeeded, re-raised). The circuit breaker comes with the host
-    tier it falls back to. Before a FitError the reference also runs the
-    host PreFilter chain so preemption can reuse its state; that waits for
-    the framework.
+    Inherits select_host (seeded-rng tie-break) and the host algorithm for
+    the host tier, so decisions match the host algorithm bit-for-bit at
+    percentageOfNodesToScore=100. The routes:
+    - kernel: K4 over every node, the winner the max total with the seeded
+      rng's randrange over the tied winners in node order;
+    - hybrid (`_schedule_hybrid`): K4's feasibility and totals, with the
+      host chain's remaining plugins (NodeDeclaredFeatures, and the
+      two-pass nominated-pod filter on nodes holding nominations of equal
+      or higher priority) on the kernel-feasible nodes;
+    - nominee fast path (`_evaluate_nominated`): a preemptor's nominated
+      node checked host-side first;
+    - host tier (`super().schedule_pod`): a pod the extractor refuses
+      (FallbackNeeded). The reference's circuit breaker, which also routes
+      here, comes with the scheduling loop that records device outcomes.
+    OutOfSlice (a pod the extractor accepts whose shapes pass the kernels'
+    capacities) is never routed to the host: it propagates.
     """
 
-    def __init__(self, backend: TorchBackend, rng=None):
+    def __init__(self, framework, backend: TorchBackend, rng=None,
+                 nominator=None, host_tail_percentage: int = 0,
+                 extenders: list | None = None):
+        super().__init__(framework, percentage_of_nodes_to_score=100,
+                         rng=rng, nominator=nominator, extenders=extenders)
         self.backend = backend
-        self.rng = rng or random.Random(0)  # seeded: deterministic tie-breaks
+        self.fallback_count = 0
         self.kernel_count = 0
-        self.fallback_count = 0  # gang members handed back to the host cycle
+        # the kernel evaluates every node, so the kernel path stays at
+        # 100%; the hybrid path's host tail follows the reference's own
+        # adaptive sampling (numFeasibleNodesToFind + rotation + early
+        # exit, schedule_one.go:775,862) at this percentage (0 = the
+        # adaptive 50-nodes/125 formula; under 100 nodes every node)
+        self.host_tail_percentage = host_tail_percentage
+
+    @property
+    def on_card(self) -> bool:
+        return self.backend.device.type != "cpu"
 
     def schedule_pod(self, state, pod: Pod, snapshot) -> ScheduleResult:
         if snapshot.num_nodes() == 0:
             raise FitError(pod, 0, Diagnosis())
+        pre_filter_done = None
         if pod.status.nominated_node_name:
-            raise OutOfSlice("nominated node evaluation (_evaluate_nominated) "
-                             "is not ported yet")
-        if self._needs_host_compose(pod):
-            raise OutOfSlice("host-composed (hybrid) scheduling is not ported yet")
-        planes, out = self.backend.run(pod, snapshot)
+            # evaluateNominatedNode fast path (schedule_one.go:718): try the
+            # nominee host-side (ONE node); when it no longer fits, fall
+            # through to the kernel/hybrid cycle
+            res, pre_filter_done = self._evaluate_nominated(state, pod, snapshot)
+            if res is not None:
+                self.fallback_count += 1  # host-path decision
+                return res
+        hybrid = (self._needs_host_compose(pod)
+                  or self._has_relevant_nominations(pod))
+        try:
+            planes, out = self.backend.run(pod, snapshot)
+        except FallbackNeeded:
+            self.fallback_count += 1
+            return super().schedule_pod(state, pod, snapshot)
         self.kernel_count += 1
+        if hybrid:
+            return self._schedule_hybrid(state, pod, snapshot, planes, out,
+                                         pre_filter_done=pre_filter_done)
+
         feasible_idx = np.flatnonzero(out["feasible"][: planes.n])
         if feasible_idx.size == 0:
+            # populate the cycle state through the host PreFilter chain
+            # before raising: preemption's victim dry run re-runs Filter
+            # plugins against this state (preemption.go SelectVictimsOnNode)
+            self.fw.run_pre_filter_plugins(state, pod, snapshot.list_nodes())
             raise FitError(pod, snapshot.num_nodes(),
                            self.backend.build_diagnosis(pod, planes, out))
         if feasible_idx.size == 1:
@@ -1316,11 +1384,184 @@ class TorchSchedulingAlgorithm:
                               evaluated_nodes=planes.n,
                               feasible_nodes=int(feasible_idx.size))
 
-    @staticmethod
-    def _needs_host_compose(pod: Pod) -> bool:
+    def _needs_host_compose(self, pod: Pod) -> bool:
         """Pods whose long-tail host stages must run on top of the kernel
-        (the reference's hybrid path). Of its triggers — volume claims,
+        (the hybrid path). Of the reference's triggers — volume claims,
         resource claims, required node features, interested extenders —
-        the port's types carry only the required-features annotation."""
-        ann = pod.meta.annotations.get(REQUIRED_FEATURES_ANNOTATION, "")
-        return any(f.strip() for f in ann.split(","))
+        the port's types carry the required features; the others come
+        with A4b."""
+        return bool(infer_required_features(pod))
+
+    def wave_eligible(self, pod: Pod) -> bool:
+        """Fully-kernel pods ride the batched wave (the reference's, less
+        its node-neutral volume plans)."""
+        if self._must_fall_back(pod) or self._has_relevant_nominations(pod):
+            return False
+        return not self._needs_host_compose(pod)
+
+    def _has_relevant_nominations(self, pod: Pod) -> bool:
+        """Any nominated pod (≥ priority) that must be simulated during
+        this pod's filtering (schedule_one.go:1190)?"""
+        if self.nominator is None:
+            return False
+        top = self.nominator.max_nominated_priority(exclude_key=pod.meta.key)
+        return top is not None and top >= pod.spec.priority
+
+    def _schedule_hybrid(self, state, pod: Pod, snapshot, planes,
+                         out, pre_filter_done=None) -> ScheduleResult:
+        """Kernel feasibility/scores ∩ host long-tail plugins.
+
+        K4 already filtered and scored the dense plugins over every node;
+        the host chain runs only the remaining plugins (skip sets) on the
+        kernel-feasible nodes, and their weighted scores add onto the
+        kernel totals. Node order is snapshot order in both, and selection
+        goes through the same select_host rng draw."""
+        fw = self.fw
+        nodes = snapshot.list_nodes()
+        if pre_filter_done is not None:
+            # PreFilter already ran this cycle (nominee fast path)
+            pre_result, st = pre_filter_done
+        else:
+            pre_result, st = fw.run_pre_filter_plugins(state, pod, nodes)
+        if not st.is_success:
+            if st.is_rejected:
+                d = Diagnosis()
+                d.pre_filter_msg = st.message()
+                if st.plugin:
+                    d.unschedulable_plugins.add(st.plugin)
+                raise FitError(pod, snapshot.num_nodes(), d)
+            raise RuntimeError(f"prefilter failed: {st.reasons}")
+        allowed = None
+        if pre_result is not None and pre_result.node_names is not None:
+            allowed = set(pre_result.node_names)
+        # dense plugins already ran on the device: skip their host Filter.
+        # Keep the UNPOLLUTED PreFilter skip set aside — preemption's victim
+        # dry run re-runs the FULL host filter chain against this state and
+        # must not inherit kernel skips
+        prefilter_skips = set(state.skip_filter_plugins)
+        state.skip_filter_plugins = prefilter_skips | set(KERNEL_FILTER_PLUGINS)
+        # host-failure statuses only; the kernel's per-node failure rows are
+        # materialized lazily at the FitError site
+        diagnosis = Diagnosis()
+        feasible_mask = out["feasible"]
+        node_index = planes.node_index
+        # the host long-tail stage follows findNodesThatPassFilters:775:
+        # rotate the start index, evaluate kernel-feasible nodes in rotated
+        # order, early-exit at numFeasibleNodesToFind
+        host_nodes = (nodes if allowed is None
+                      else [ni for ni in nodes if ni.name in allowed])
+        num_all = len(host_nodes)
+        num_to_find = num_feasible_nodes_to_find(self.host_tail_percentage, num_all)
+        start = self.next_start_node_index % num_all if num_all else 0
+        survivors: list[tuple[int, object]] = []
+        evaluated = num_all
+        pos = 0
+        done = False
+        while pos < num_all and not done:
+            # chunk of kernel-feasible candidates, in rotated order
+            chunk: list[tuple[int, object, int]] = []
+            want = max(num_to_find - len(survivors), 1)
+            while pos < num_all and len(chunk) < want:
+                ni = host_nodes[(start + pos) % num_all]
+                ki = node_index.get(ni.name)
+                pos += 1
+                if ki is not None and feasible_mask[ki]:
+                    chunk.append((ki, ni, pos))  # pos = evaluated-if-last
+            if not chunk:
+                break
+            noms = [self._nominated_pod_infos(pod, ni) for _, ni, _ in chunk]
+            if any(noms):
+                sts = []
+                for (ki, ni, _), npis in zip(chunk, noms):
+                    if npis:
+                        # two-pass nominated treatment (schedule_one.go:1190).
+                        # Pass 1 — WITH nominated pods assumed — needs the
+                        # FULL chain on an unpolluted state clone: the
+                        # kernel verdict didn't model them. Pass 2 — the
+                        # bare node — keeps the kernel skips: out["feasible"]
+                        # already IS the bare-node dense verdict.
+                        state.skip_filter_plugins = prefilter_skips
+                        state_clone = state.clone()
+                        state.skip_filter_plugins = prefilter_skips | set(
+                            KERNEL_FILTER_PLUGINS)
+                        ni_with = ni.clone()
+                        for npi in npis:
+                            ni_with.add_pod(npi)
+                            fw.run_pre_filter_extension_add_pod(
+                                state_clone, pod, npi, ni_with)
+                        host_st = fw.run_filter_plugins(state_clone, pod, ni_with)
+                        if host_st.is_success:
+                            host_st = fw.run_filter_plugins(state, pod, ni)
+                    else:
+                        host_st = fw.run_filter_plugins(state, pod, ni)
+                    sts.append(host_st)
+            else:
+                sts = fw.run_filter_plugins_batch(state, pod, [ni for _, ni, _ in chunk])
+            for (ki, ni, at), host_st in zip(chunk, sts):
+                if host_st.is_success:
+                    survivors.append((ki, ni))
+                    if len(survivors) >= num_to_find:
+                        evaluated = at
+                        done = True
+                        break
+                else:
+                    diagnosis.node_to_status.set(ni.name, host_st)
+                    if host_st.plugin:
+                        diagnosis.unschedulable_plugins.add(host_st.plugin)
+        self.next_start_node_index = (start + evaluated) % num_all if num_all else 0
+        if not survivors:
+            state.skip_filter_plugins = prefilter_skips  # see above
+            # materialize the kernel's per-node failure rows now, then
+            # overlay the host-stage verdicts, which are more specific
+            full = self.backend.build_diagnosis(pod, planes, out)
+            full.node_to_status.node_to_status.update(
+                diagnosis.node_to_status.node_to_status)
+            full.unschedulable_plugins |= diagnosis.unschedulable_plugins
+            if allowed is not None:
+                full.node_to_status.absent_nodes_status = Status.unresolvable(
+                    "node(s) didn't satisfy plugin prefilter result")
+            raise FitError(pod, snapshot.num_nodes(), full)
+        node_infos = [ni for _, ni in survivors]
+        # kernel-covered score plugins are pre-seeded into the skip set so
+        # their host PreScore never runs: their weighted scores are already
+        # in the kernel total (counting them host-side too would double them)
+        st = fw.run_pre_score_plugins(state, pod, node_infos,
+                                      skip=set(KERNEL_SCORE_PLUGINS))
+        if not st.is_success:
+            raise RuntimeError(f"prescore failed: {st.reasons}")
+        host_scores, st = fw.run_score_plugins(state, pod, node_infos)
+        if not st.is_success:
+            raise RuntimeError(f"score failed: {st.reasons}")
+        combined = []
+        for (i, ni), host in zip(survivors, host_scores):
+            combined.append(NodePluginScores(
+                name=ni.name, scores=host.scores,
+                total_score=int(out["total"][i]) + host.total_score))
+        host_name, _ = self.select_host(combined)
+        return ScheduleResult(suggested_host=host_name, evaluated_nodes=planes.n,
+                              feasible_nodes=len(survivors))
+
+    def _must_fall_back(self, pod: Pod) -> bool:
+        # a preemptor revisiting its own nomination is handled per pod
+        # (nominee first in schedule_pod), never batched in a wave
+        return bool(pod.status.nominated_node_name)
+
+    def _evaluate_nominated(self, state, pod: Pod, snapshot):
+        """Host-side nominee check. Returns (result, pre_filter_done):
+        result is a ScheduleResult when the nominee still fits, else None;
+        pre_filter_done is the (pre_result, status) pair from the PreFilter
+        pass, so the hybrid continuation does not run it again."""
+        ni = snapshot.get(pod.status.nominated_node_name)
+        if ni is None:
+            return None, None
+        pre_done = self.fw.run_pre_filter_plugins(state, pod, snapshot.list_nodes())
+        pre_result, st = pre_done
+        if not st.is_success:
+            return None, pre_done  # the main cycle diagnoses this
+        if (pre_result is not None and pre_result.node_names is not None
+                and ni.name not in pre_result.node_names):
+            return None, pre_done
+        if self._filter_one(state, pod, ni, Diagnosis()):
+            return ScheduleResult(suggested_host=ni.name, evaluated_nodes=1,
+                                  feasible_nodes=1), pre_done
+        return None, pre_done

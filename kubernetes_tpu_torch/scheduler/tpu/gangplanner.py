@@ -14,23 +14,27 @@ every domain mask at once.
 
 Fallback contract: the device path handles only the success case. Every
 odd case — no feasible domain in Required mode, tie-word overflow, plugin
-error status, host-compose members, nominated pods, too many domains or
-members — returns None with the rng and snapshot untouched, and the host
-pod-group cycle takes the group.
-
-The port has no host tier yet, so three of the reference's gates wait for
-it: the circuit breaker's check, the nominated-pods check
-(_has_relevant_nominations) and the catch-all around run_gang that
-degrades any error to the host cycle. Without the catch-all a K5 build or
-launch failure raises; FallbackNeeded from run_gang still becomes None.
+error status, host-compose members, nominated pods or members a
+nomination outranks, too many domains or members — returns None with the
+rng and snapshot untouched, and the host pod-group cycle (schedule_one.py
+PodGroupCycle) takes the group. OutOfSlice (a gang the kernels do not
+compute) always raises. Any other error from run_gang is counted on the
+backend (gang_errors, gang_last_error beside gang_pod_totals); on the CPU,
+where the plain versions run, the group then goes to the host cycle as in
+the reference, and on the card the error raises, so a failed K1/K5 build
+or launch never hides behind the host tier.
 """
 
 from __future__ import annotations
 
-from ...ops.planes import FallbackNeeded
+import logging
+
+from ...ops.kernels import OutOfSlice
 from ..cache.snapshot import Placement
 from ..framework.cycle_state import CycleState
 from .backend import TorchSchedulingAlgorithm
+
+_log = logging.getLogger("kubernetes_tpu_torch.gangplanner")
 
 # program-shape guards: a gang spanning more domains than this (pow2-padded
 # mask rows) or more members than this rides the host cycle
@@ -58,9 +62,12 @@ class GangPlan:
 
 def _member_device_eligible(algo, pod) -> bool:
     """Is this member's decision fully modeled by the gang kernel? A
-    nominated pod or one needing a host stage sends the whole group to the
-    host cycle: a gang must not split across tiers."""
+    nominated pod, one a nomination outranks (the nominated-pod simulation)
+    or one needing a host stage sends the whole group to the host cycle: a
+    gang must not split across tiers."""
     if pod.status.nominated_node_name:
+        return False
+    if algo._has_relevant_nominations(pod):
         return False
     if algo._needs_host_compose(pod):
         return False
@@ -91,8 +98,7 @@ def plan_gang(sched, fw, qpis) -> GangPlan | None:
             return None  # the host cycle reproduces the error status
         narrowed = placements != [parent]
         for p in fw.placement_generate_plugins:
-            mode = getattr(p, "topology_mode", lambda _p: None)(pods)
-            required = required or mode == "Required"
+            required = required or p.topology_mode(pods) == "Required"
     if placements is not None and narrowed:
         constrained = list(placements)
         if required:
@@ -110,7 +116,7 @@ def try_gang_wave(sched, fw, algo, gk: str, qpis: list):
     """Attempt whole-gang device placement; returns hosts aligned with
     `qpis` on success, else None (the host cycle takes the group).
 
-    sched is what the scheduler exposes (its `snapshot`), fw the profile's
+    sched is what the scheduler exposes (its `snapshot`; PodGroupCycle), fw the profile's
     Framework, algo its TorchSchedulingAlgorithm, gk the group's key (the
     reference logs it) and qpis the queued members (each with `.pod`),
     sorted by priority then queue time. Every None path leaves the rng,
@@ -143,8 +149,17 @@ def try_gang_wave(sched, fw, algo, gk: str, qpis: list):
             [q.pod for q in qpis], sched.snapshot, plan.gang_placements,
             plan.gang_n_constrained, plan.gang_has_fallback, algo.rng,
         )
-    except FallbackNeeded:
-        res = None
+    except OutOfSlice:
+        raise
+    except Exception as e:  # noqa: BLE001 — the reference's degrade, on the CPU only
+        backend.gang_errors += 1
+        backend.gang_last_error = f"{type(e).__name__}: {e}"
+        if algo.on_card:
+            raise
+        _log.error("gang wave failed; host cycle takes the group %s (%d members): %s",
+                   gk, len(qpis), e)
+        algo.fallback_count += len(qpis)
+        return host_path()
     if res is None:
         algo.fallback_count += len(qpis)
         return host_path()

@@ -46,7 +46,8 @@ def make_pod(name: str, namespace: str = "default", cpu: str | None = None,
 
 def make_node(name: str, cpu: str = "32", mem: str = "64Gi", pods: int = 110,
               labels: dict | None = None, taints: tuple[Taint, ...] = (),
-              unschedulable: bool = False, zone: str | None = None) -> Node:
+              unschedulable: bool = False, zone: str | None = None,
+              declared_features: tuple[str, ...] = ()) -> Node:
     lab = dict(labels or {})
     lab.setdefault(HOSTNAME_LABEL, name)
     if zone is not None:
@@ -55,7 +56,8 @@ def make_node(name: str, cpu: str = "32", mem: str = "64Gi", pods: int = 110,
     return Node(
         meta=ObjectMeta(name=name, namespace="", labels=lab),
         spec=NodeSpec(unschedulable=unschedulable, taints=taints),
-        status=NodeStatus(capacity=dict(alloc), allocatable=dict(alloc)),
+        status=NodeStatus(capacity=dict(alloc), allocatable=dict(alloc),
+                          declared_features=tuple(declared_features)),
     )
 
 

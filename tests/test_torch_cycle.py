@@ -34,11 +34,13 @@ from kubernetes_tpu.scheduler.tpu.backend import TPUBackend, TPUSchedulingAlgori
 from kubernetes_tpu.store import Store
 from kubernetes_tpu_torch.api.labels import LabelSelector
 from kubernetes_tpu_torch.api.resource import ResourceNames as TNames
-from kubernetes_tpu_torch.ops.kernels import OutOfSlice
 from kubernetes_tpu_torch.ops.planes import FallbackNeeded
 from kubernetes_tpu_torch.scheduler.cache import Cache as TCache
 from kubernetes_tpu_torch.scheduler.cache import Snapshot as TSnapshot
 from kubernetes_tpu_torch.scheduler.framework import CycleState, FitError
+from kubernetes_tpu_torch.scheduler.framework import Framework as TFramework
+from kubernetes_tpu_torch.scheduler.plugins.registry import DEFAULT_WEIGHTS as TDEFAULT_WEIGHTS
+from kubernetes_tpu_torch.scheduler.plugins.registry import default_plugins as tdefault_plugins
 from kubernetes_tpu_torch.scheduler.tpu.backend import (
     RUN_OUTPUTS,
     TorchBackend,
@@ -107,8 +109,10 @@ class _Pair:
         self.jalgo = TPUSchedulingAlgorithm(
             fw, TPUBackend(self.jcache.names, plugin_args=plugin_args),
             rng=random.Random(0))
+        tfw = TFramework(tdefault_plugins(self.tcache.names, args=plugin_args or {}),
+                         dict(TDEFAULT_WEIGHTS))
         self.talgo = TorchSchedulingAlgorithm(
-            TorchBackend(self.tcache.names, plugin_args=plugin_args, device="cpu"),
+            tfw, TorchBackend(self.tcache.names, plugin_args=plugin_args, device="cpu"),
             rng=random.Random(0))
 
     def assume(self, i, node):
@@ -320,32 +324,41 @@ def test_diagnosis_matches_reference():
 
 
 def test_scope_errors():
-    """The reference's host-path cases raise instead of computing an
-    answer: a nominated pod and a pod needing host compose raise
-    OutOfSlice, a pod the extractor refuses re-raises FallbackNeeded; no
-    nodes raise FitError."""
+    """The reference's host-path cases take its routes: a nominated pod
+    lands on its nominee through the host fast path, a pod needing host
+    compose runs K4 and the host NodeDeclaredFeatures tail (here: no node
+    declares the feature, so a FitError), a pod the extractor refuses goes
+    to the host algorithm (FallbackNeeded is not re-raised); no nodes raise
+    FitError."""
     names = TNames()
     cache = TCache(names)
     for i in range(8):
         cache.add_node(tw.scheduling_basic_node(i))
     snap = TSnapshot()
     cache.update_snapshot(snap)
-    algo = TorchSchedulingAlgorithm(TorchBackend(names, device="cpu"))
+    algo = TorchSchedulingAlgorithm(
+        TFramework(tdefault_plugins(names), dict(TDEFAULT_WEIGHTS)),
+        TorchBackend(names, device="cpu"))
     nominated = tw.scheduling_basic_pod(0)
     nominated.status.nominated_node_name = "node-1"
-    with pytest.raises(OutOfSlice, match="nominated"):
-        algo.schedule_pod(CycleState(), nominated, snap)
+    got = algo.schedule_pod(CycleState(), nominated, snap)
+    assert (got.suggested_host, got.evaluated_nodes) == ("node-1", 1)
+    assert (algo.kernel_count, algo.fallback_count) == (0, 1)
     compose = tw.scheduling_basic_pod(1)
     compose.meta.annotations["features.k8s.io/required"] = "FeatureX"
-    with pytest.raises(OutOfSlice, match="hybrid"):
+    with pytest.raises(FitError) as err:
         algo.schedule_pod(CycleState(), compose, snap)
+    assert err.value.diagnosis.unschedulable_plugins == {"NodeDeclaredFeatures"}
+    assert (algo.kernel_count, algo.fallback_count) == (1, 1)
     port = tw.make_pod("p", cpu="100m")
     port.spec.containers[0] = ttypes.Container(
         name="c", requests={"cpu": "100m"},
         ports=(ttypes.ContainerPort(80, host_port=80, host_ip="10.0.0.1"),))
     with pytest.raises(FallbackNeeded, match="hostIP"):
-        algo.schedule_pod(CycleState(), port, snap)
-    assert algo.kernel_count == 0
+        algo.backend.run(port, snap)
+    got = algo.schedule_pod(CycleState(), port, snap)
+    assert got.suggested_host and got.feasible_nodes == 8
+    assert (algo.kernel_count, algo.fallback_count) == (1, 2)
     with pytest.raises(FitError):
         algo.schedule_pod(CycleState(), tw.scheduling_basic_pod(3), TSnapshot())
     # the wave scan now computes hard spread too: the same spread pods
@@ -366,10 +379,10 @@ def test_scope_errors():
                       rng.getstate()))
     assert waves[1] == waves[0] and all(waves[1][0])
     got = algo.schedule_pod(CycleState(), tw.topology_spreading_pod(1), snap)
-    assert got.feasible_nodes == 8 and algo.kernel_count == 1
+    assert got.feasible_nodes == 8 and algo.kernel_count == 2
 
 
 def test_algorithm_needs_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TorchSchedulingAlgorithm(TorchBackend(TNames()))
+        TorchSchedulingAlgorithm(TFramework([]), TorchBackend(TNames()))

@@ -403,7 +403,7 @@ def test_try_gang_wave_counts_and_leaves_state_on_fallback():
     for m in spec["gangs"][1]["members"]:
         m["cpu"] = "5"  # one per 8-CPU node: no zone of four nodes holds nine
     side = _Port(build_gang_nodes(spec, ttypes, tmeta))
-    algo = TorchSchedulingAlgorithm(side.backend, rng=random.Random(4))
+    algo = TorchSchedulingAlgorithm(side.fw, side.backend, rng=random.Random(4))
     (g0, fits), (g1, too_big) = build_gangs(spec, ttypes, tmeta)
     side.add_group(g0, fits)
     hosts = tplanner.try_gang_wave(side, side.fw, algo, g0.meta.key, _qpis(fits))

@@ -345,7 +345,7 @@ def test_gang_wave_declines_on_a_mesh():
         else:
             side.backend = TorchBackend(side.names, device="cpu", context=tmesh.MeshContext(
                 tmesh.scheduler_mesh(4, device="cpu")))
-            algo = TorchSchedulingAlgorithm(side.backend, rng=random.Random(9))
+            algo = TorchSchedulingAlgorithm(side.fw, side.backend, rng=random.Random(9))
             totals = lambda: side.backend.gang_pod_totals  # noqa: E731
             planner = tplanner
         group, pods = build_gangs(spec, types, meta)[0]

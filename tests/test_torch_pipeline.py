@@ -66,6 +66,9 @@ from kubernetes_tpu_torch.ops.planes import (
 from kubernetes_tpu_torch.scheduler.cache import Cache as TCache
 from kubernetes_tpu_torch.scheduler.cache import Snapshot as TSnapshot
 from kubernetes_tpu_torch.scheduler.framework import FitError as TFitError
+from kubernetes_tpu_torch.scheduler.framework import Framework as TFramework
+from kubernetes_tpu_torch.scheduler.plugins.registry import DEFAULT_WEIGHTS as TDEFAULT_WEIGHTS
+from kubernetes_tpu_torch.scheduler.plugins.registry import default_plugins as tdefault_plugins
 from kubernetes_tpu_torch.scheduler.tpu import backend as tbackend
 from kubernetes_tpu_torch.scheduler.tpu.backend import (
     SignatureScoreCache,
@@ -369,7 +372,9 @@ class _Side:
             errors = dict(need_resync=JNeedResync, fallback=JFallbackNeeded,
                           fit_error=JFitError, new_state=JCS)
         else:
-            self.algo = TorchSchedulingAlgorithm(self.backend, rng=rng)
+            fw = TFramework(tdefault_plugins(names, args=plugin_args),
+                            dict(TDEFAULT_WEIGHTS))
+            self.algo = TorchSchedulingAlgorithm(fw, self.backend, rng=rng)
             errors = {}
         self.pipe = WavePipeline(self.backend, self.cache, self.snapshot, self.algo,
                                  depth=depth, **errors)

@@ -126,9 +126,10 @@ def test_run_batched_matches_reference_backend(case):
 
 def test_imports_and_schedules_without_jax():
     """(d) with jax and the reference package made unimportable, the port
-    imports, schedules a wave, runs one single-pod cycle, places one gang
-    through try_gang_wave and schedules a wave on a 4-shard mesh context on
-    the CPU."""
+    imports (the host tier's modules too), schedules a wave, runs one
+    single-pod cycle on the kernel route and one on the hybrid route,
+    places one gang through PodGroupCycle's device wave (try_gang_wave)
+    and schedules a wave on a 4-shard mesh context on the CPU."""
     code = (
         "import sys, random\n"
         "sys.modules['jax'] = None\n"
@@ -136,8 +137,12 @@ def test_imports_and_schedules_without_jax():
         "from kubernetes_tpu_torch.api.resource import ResourceNames\n"
         "from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot\n"
         "from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend\n"
-        "from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod\n"
+        "from kubernetes_tpu_torch.testing.wrappers import (\n"
+        "    make_node, scheduling_basic_node, scheduling_basic_pod)\n"
         "import kubernetes_tpu_torch.ops.cuda\n"
+        "import kubernetes_tpu_torch.scheduler.framework.events\n"
+        "import kubernetes_tpu_torch.scheduler.plugins.registry\n"
+        "import kubernetes_tpu_torch.utils.clock, kubernetes_tpu_torch.utils.envknob\n"
         "c = Cache(ResourceNames())\n"
         "[c.add_node(scheduling_basic_node(i)) for i in range(16)]\n"
         "s = Snapshot(); c.update_snapshot(s)\n"
@@ -145,11 +150,22 @@ def test_imports_and_schedules_without_jax():
         "got, _ = b.run_batched([scheduling_basic_pod(i) for i in range(8)], s,\n"
         "                       rng=random.Random(0), pad_to=16)\n"
         "assert all(got), got\n"
-        "from kubernetes_tpu_torch.scheduler.framework import CycleState\n"
+        "from kubernetes_tpu_torch.scheduler.framework import CycleState, Framework\n"
+        "from kubernetes_tpu_torch.scheduler.plugins import DEFAULT_WEIGHTS, default_plugins\n"
+        "from kubernetes_tpu_torch.scheduler.queue import Nominator\n"
         "from kubernetes_tpu_torch.scheduler.tpu.backend import TorchSchedulingAlgorithm\n"
         "from kubernetes_tpu_torch.testing.wrappers import topology_spreading_pod\n"
-        "r = TorchSchedulingAlgorithm(b).schedule_pod(CycleState(), topology_spreading_pod(0), s)\n"
+        "dfw = Framework(default_plugins(c.names), DEFAULT_WEIGHTS)\n"
+        "algo = TorchSchedulingAlgorithm(dfw, b, nominator=Nominator())\n"
+        "r = algo.schedule_pod(CycleState(), topology_spreading_pod(0), s)\n"
         "assert r.suggested_host and r.feasible_nodes == 16, r\n"
+        "ndf = scheduling_basic_pod(99)\n"
+        "ndf.meta.annotations['features.k8s.io/required'] = 'NUMAAlignment'\n"
+        "c.add_node(make_node('featured', declared_features=('NUMAAlignment',)))\n"
+        "c.update_snapshot(s)\n"
+        "r = algo.schedule_pod(CycleState(), ndf, s)\n"
+        "assert r.suggested_host == 'featured' and algo.kernel_count == 2, r\n"
+        "from kubernetes_tpu_torch.scheduler.schedule_one import PodGroupCycle\n"
         "from types import SimpleNamespace\n"
         "import kubernetes_tpu_torch.api.meta as M, kubernetes_tpu_torch.api.types as T\n"
         "from kubernetes_tpu_torch.scheduler.framework import Framework, Handle\n"
@@ -161,8 +177,10 @@ def test_imports_and_schedules_without_jax():
         "fw = Framework([TopologyPlacementGenerator()], handle=h)\n"
         "group, members = build_gangs(perf_gang_spec(0, 8, 1, 4, 'Required'), T, M)[0]\n"
         "h.store.add(group)\n"
-        "hosts = try_gang_wave(SimpleNamespace(snapshot=s), fw, TorchSchedulingAlgorithm(b),\n"
-        "                      group.meta.key, [SimpleNamespace(pod=p) for p in members])\n"
+        "out = PodGroupCycle(s, fw, TorchSchedulingAlgorithm(fw, b), c.names).schedule_pod_group(\n"
+        "    group.meta.key, [SimpleNamespace(pod=p) for p in members])\n"
+        "assert out[0] == 'success', out\n"
+        "hosts = [r.suggested_host for _q, _st, r, _pi in out[1]]\n"
         "assert len({int(n.split('-')[1]) % 8 for n in hosts}) == 1, hosts\n"
         "assert b.gang_pod_totals == {'device': 4}, b.gang_pod_totals\n"
         "from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh\n"
