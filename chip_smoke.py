@@ -165,7 +165,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    (declined by try_gang_wave, placed whole in zone-3 by the host cycle's
    per-member K4 runs on placement-narrowed snapshots) and one more plain
    gang;
-   phases 6, 9, 10 and 17-21 run under a watchdog (--phase-timeout) that
+22. the store-driven loop: (a) the same SchedulingBasic/5000Nodes_10000Pods
+   (5000 nodes, 1000 initial + 10000 measured pods, seed 1, waves of 512)
+   written into the port's Store and scheduled by the port's Scheduler
+   (Profile(backend="tpu", wave_size=512): store -> informer ->
+   SchedulingQueue -> ScheduleOneLoop's wave pipeline -> DefaultBinder's
+   batched bind into the store) at KUBE_TPU_PIPELINE_DEPTH 1, at depth 2
+   and at depth 2 over an 8-shard MeshContext (KUBE_TPU_MESH_DEVICES=8):
+   every pod bound in the store with phase 3's bindings and final rng
+   state, launch counts zeroed before the measured pods and read after
+   (K1 and K2, or K1 and K6 on the mesh), measured pods/s with the card's
+   name and power limit beside phases 3, 14 and 18's rates from this
+   call, and the loop's phase_profile split; each run follows the
+   stand-in (WavePipeline at the same depth and context, bindings equal to
+   phase 3's) and prints the loop's own host cost per wave beside it; both
+   run after a full collection with the earlier phases' objects frozen
+   out of the collector (gc.freeze); (b) a mixed loop stream, the
+   card against device="cpu": the golden bursts (three interleaved
+   signatures) plain, with hard zone spread, and IPA-active on 8 shards,
+   with node churn between bursts, bound-pod deletes, a gang trailer and
+   capacity-exhaustion FitErrors: equal bindings, PodScheduled=False
+   diagnoses and rng state, the K1-K6 launch counts printed;
+   phases 6, 9, 10 and 17-22 run under a watchdog (--phase-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -183,6 +204,7 @@ It imports nothing of the reference JAX package and never imports jax.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import random
@@ -703,6 +725,8 @@ def main() -> None:
     ap.add_argument("--ndf-nodes", type=int, default=1000)
     ap.add_argument("--ndf-pods", type=int, default=1000)
     ap.add_argument("--ndf-cpu-pods", type=int, default=1000)
+    # phase 22 (b): the mixed loop stream's cluster (4 zones of 4-CPU nodes)
+    ap.add_argument("--loop-nodes", type=int, default=40)
     # a phase that runs past this fails the run (a hung cluster barrier)
     ap.add_argument("--phase-timeout", type=float, default=420.0)
     args = ap.parse_args()
@@ -1027,7 +1051,7 @@ def main() -> None:
         k6 = k6_against_plain_and_k2(args, shards, [cell4, waves7["cell"], cell8,
                                                       seed["cell"]])
     with watchdog("phase 18 (the mesh main path)", args.phase_timeout):
-        launches18 = mesh_main_path(args, serial, a, max(shards))
+        launches18, pods_s18 = mesh_main_path(args, serial, a, max(shards))
     with watchdog("phase 19 (K7, the pods x nodes matrix)", args.phase_timeout):
         k7 = wave_matrix(args, max(shards))
     with watchdog("phase 20 (the scan step's latency)", args.phase_timeout):
@@ -1044,6 +1068,11 @@ def main() -> None:
     print(f"phases 17-20: {time.perf_counter() - t_mesh:.1f} s")
     with watchdog("phase 21 (the host tier)", args.phase_timeout):
         host_tier(args)
+    with watchdog("phase 22 (the store-driven loop)", args.phase_timeout):
+        store_loop(args, serial, {"phase 3 (serial run_batched)": serial["pods_s"],
+                                  "phase 14 (WavePipeline, depth 2)": a["pods_s"],
+                                  f"phase 18 (WavePipeline, {max(shards)} shards)": pods_s18},
+                   smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -1058,9 +1087,9 @@ def main() -> None:
 # --------------------------------------------------------------------------
 
 
-def run_pipelined(args, context=None):
+def run_pipelined(args, context=None, depth=2):
     """A fresh SchedulingBasic cluster; the initial pods, then the measured
-    pods, all through WavePipeline at depth 2 over a TorchBackend with
+    pods, all through WavePipeline at `depth` over a TorchBackend with
     `context` (None: the local one). Returns the state and the measured
     span's counters."""
     from kubernetes_tpu_torch.api.resource import ResourceNames
@@ -1079,7 +1108,7 @@ def run_pipelined(args, context=None):
     backend = TorchBackend(names, device="cuda", context=context)
     algo = TorchSchedulingAlgorithm(default_framework(names), backend,
                                     rng=random.Random(args.seed))
-    pipe = WavePipeline(backend, cache, snap, algo, depth=2)
+    pipe = WavePipeline(backend, cache, snap, algo, depth=depth)
     init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
     measured = [scheduling_basic_pod(args.init_pods + i) for i in range(args.pods)]
     pipe.schedule(init, args.wave)
@@ -2422,7 +2451,8 @@ def mesh_main_path(args, serial, a14, n_shards):
     scheduler_mesh(n_shards))). Counts zeroed before, read after: K1 and K6
     must have launched and K2 not at all. Bindings and the final rng state
     must equal phase 3's (which phase 14 equals); pods/s beside phase 14's
-    from this call, per-wave launch and collect-wait ms."""
+    from this call, per-wave launch and collect-wait ms. Returns the launch
+    counts and the measured pods/s."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh
 
@@ -2456,7 +2486,7 @@ def mesh_main_path(args, serial, a14, n_shards):
                      for e in log))
     print(f"mesh main path collect wait: median {waits[len(waits) // 2] * 1e3:.3f} ms, "
           f"max {waits[-1] * 1e3:.3f} ms")
-    return launches
+    return launches, r["pods_s"]
 
 
 def wave_matrix(args, n_shards):
@@ -2860,6 +2890,245 @@ def host_tier(args):
           f"{gangs[0]['wall_s']:.3f} s on the card's side")
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
     return la
+
+
+# --------------------------------------------------------------------------
+# 22: the store-driven loop
+# --------------------------------------------------------------------------
+
+
+class StrictClock:
+    """Wall-clock seconds that never repeat: each reading is at least 1 us
+    past the last, so pods the informer queues in one pump keep their
+    store order in the queue (PrioritySort orders equal priorities by queue
+    time) on the card and on the CPU alike."""
+
+    def __init__(self):
+        self._last = 0.0
+
+    def now(self) -> float:
+        self._last = max(time.time(), self._last + 1e-6)
+        return self._last
+
+    def sleep(self, seconds: float) -> None:
+        time.sleep(seconds)
+
+    def wait_for(self, waiter, timeout: float):
+        return waiter(timeout)
+
+
+def loop_scheduler(store, device, wave, seed, gates=None):
+    """The port's Scheduler over `store`, one device profile."""
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+
+    s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)], seed=seed,
+                  clock=StrictClock(), device=device, feature_gates=gates or {})
+    s.start()
+    return s
+
+
+def check_loop(label, s):
+    """The breaker saw no device failure (none is injected on the card) and
+    the gang planner met no error."""
+    algo = s.algorithms["default-scheduler"]
+    check_tier(label, algo)
+    if algo.breaker.state != "closed" or algo.breaker.consecutive_failures:
+        fail(f"{label}: the circuit breaker left CLOSED: {algo.breaker.snapshot()}")
+    if s.loop._inflight_wave is not None:
+        fail(f"{label}: a wave is left in flight")
+
+
+def loop_basic_run(args, serial, depth, shards):
+    """22 (a), one run: SchedulingBasic through the port's Scheduler at
+    pipeline `depth` over `shards` node shards (0: the local context).
+    Returns the measured span's numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = str(depth)
+    if shards:
+        os.environ["KUBE_TPU_MESH_DEVICES"] = str(shards)
+    try:
+        store = Store()
+        for i in range(args.nodes):
+            store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+        s = loop_scheduler(store, "cuda", args.wave, args.seed)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+        os.environ.pop("KUBE_TPU_MESH_DEVICES", None)
+    algo = s.algorithms["default-scheduler"]
+    if s.loop.pipeline_depth != depth or algo.backend._ctx.n_shards != max(shards, 1):
+        fail(f"the loop runs at depth {s.loop.pipeline_depth} on "
+             f"{algo.backend._ctx.n_shards} shards, not {depth} on {shards}")
+    for i in range(args.init_pods):
+        store.create(scheduling_basic_pod(i), copy_return=False)
+    s.schedule_pending()
+    t0 = time.perf_counter()
+    for i in range(args.pods):
+        store.create(scheduling_basic_pod(args.init_pods + i), copy_return=False)
+    create_s = time.perf_counter() - t0
+    prof0 = s.loop.phase_profile.copy()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    n = s.schedule_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"phase 22 (a), depth {depth}, {shards or 1} shards", s)
+    bound = {p.meta.key: p.spec.node_name for p in store.pods()}
+    if n != args.pods or not all(bound.values()):
+        fail(f"phase 22 (a): {n} pods scheduled, "
+             f"{sum(1 for v in bound.values() if not v)} unbound")
+    if bound != serial["bindings"]:
+        diff = [k for k, v in serial["bindings"].items() if bound.get(k) != v]
+        fail(f"phase 22 (a) depth {depth}, {shards or 1} shards: bindings differ from "
+             f"phase 3's on {len(diff)} pods (first {diff[:3]})")
+    if algo.rng.getstate() != serial["rng"]:
+        fail(f"phase 22 (a) depth {depth}, {shards or 1} shards: final rng state differs "
+             f"from phase 3's")
+    if launches["static_parts"] <= 0:
+        fail("phase 22 (a): K1 never launched")
+    scan = "sharded_assign" if shards else "assign_scan"
+    other = "assign_scan" if shards else "sharded_assign"
+    if launches[scan] <= 0 or launches[other]:
+        fail(f"phase 22 (a): launches {launches}: {scan} must launch and {other} not")
+    prof = {k: v - prof0[k] for k, v in s.loop.phase_profile.items()}
+    return {"pods_s": args.pods / wall, "wall_s": wall, "create_s": create_s,
+            "launches": launches, "prof": prof}
+
+
+def loop_stream(args, device, variant):
+    """22 (b), one side: the golden bursts through the port's Scheduler on
+    `device`. variant "plain", "spread" (hard zone spread) or "ipa_mesh8"
+    (IPA-active waves on 8 node shards). Between bursts: 4 fresh nodes
+    (churn), then the deletion of 10 bound pods; a PodGroup of 3 rides as a
+    trailer behind the second burst; the last burst exceeds what is left
+    (capacity-exhaustion FitErrors). Returns what the card and the CPU
+    must agree on, and the launch counts."""
+    import kubernetes_tpu_torch.testing.wrappers as w
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import GangPolicy, PodGroup, PodGroupSpec
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.mixed import burst_pods
+
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    if variant == "ipa_mesh8":
+        os.environ["KUBE_TPU_MESH_DEVICES"] = "8"
+    try:
+        store = Store()
+        nodes, zones = args.loop_nodes, 4
+        for i in range(nodes):
+            store.create(w.make_node(f"n{i}", cpu="4", mem="8Gi", zone=f"z{i % zones}"))
+        s = loop_scheduler(store, device, 16, 11)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+        os.environ.pop("KUBE_TPU_MESH_DEVICES", None)
+    spread, ipa = variant == "spread", variant == "ipa_mesh8"
+    per = nodes * 4 // 3  # a burst fills about a third of the cluster
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for k in range(4):
+        if k:
+            for j in range(4):
+                store.create(w.make_node(f"cn{k}-{j}", cpu="4", mem="8Gi",
+                                         zone=f"z{j % zones}"))
+            bound = sorted((p for p in store.pods() if p.spec.node_name),
+                           key=lambda p: p.meta.name)
+            for p in bound[:10]:
+                store.delete("Pod", p.meta.key)
+        for p in burst_pods(w, k * per, (k + 1) * per + (per if k == 3 else 0),
+                            spread=spread, ipa=ipa):
+            store.create(p)
+        if k == 1:
+            store.create(PodGroup(meta=ObjectMeta(name=f"g{k}"),
+                                  spec=PodGroupSpec(policy=GangPolicy(min_count=3))))
+            for i in range(3):
+                store.create(w.with_gang(w.make_pod(f"gang{k}-{i}", cpu="500m", mem="512Mi"),
+                                         f"g{k}"))
+        s.schedule_pending()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"phase 22 (b) {variant} on {device}", s)
+    s.event_recorder.flush()
+    placed = {p.meta.name: p.spec.node_name for p in store.pods()}
+    diags = {p.meta.name: f"{c.reason}: {c.message}" for p in store.pods()
+             for c in p.status.conditions if c.type == "PodScheduled" and c.status == "False"}
+    algo = s.algorithms["default-scheduler"]
+    return ({"placed": placed, "diags": diags, "rng": algo.rng.getstate(),
+             "counts": (algo.kernel_count, algo.fallback_count),
+             "gangs": dict(algo.backend.gang_pod_totals)},
+            launches, wall)
+
+
+def collected(fn, *a):
+    """fn(*a) after a full collection, with every object alive before it
+    frozen out of the collector's generations: the objects phases 1-21
+    left behind do not weigh on the collections the measured run
+    triggers, so runs late in this process compare with each other."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return fn(*a)
+    finally:
+        gc.unfreeze()
+
+
+def store_loop(args, serial, rates, smi):
+    """22. The store-driven loop on the card: (a) SchedulingBasic through
+    the port's Scheduler at depth 1, depth 2 and depth 2 on 8 shards, each
+    equal to phase 3's bindings and rng, each after the stand-in
+    (WavePipeline) at the same depth and context, for the loop's own host
+    cost per wave; (b) the mixed loop stream, card against device="cpu"."""
+    from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh
+
+    t0 = time.perf_counter()
+    runs = [("depth 1", 1, 0), ("depth 2", 2, 0), ("depth 2, 8 shards", 2, 8)]
+    for label, depth, shards in runs:
+        ctx = MeshContext(scheduler_mesh(shards)) if shards else None
+        stand = collected(run_pipelined, args, ctx, depth)
+        if stand["pipe"].bindings != serial["bindings"]:
+            fail(f"phase 22 (a) stand-in at {label}: bindings differ from phase 3's")
+        stand_waves, stand_wall = len(stand["log"]), stand["wall_s"]
+        del stand, ctx
+        r = collected(loop_basic_run, args, serial, depth, shards)
+        prof = r["prof"]
+        waves = max(int(prof.get("waves", 0)), 1)
+        split = ", ".join(f"{k} {v * 1e3 / waves:.3f}" for k, v in prof.items()
+                          if k != "waves")
+        print(f"(a) SchedulingBasic through the port's Scheduler, {label}: every pod bound, "
+              f"bindings and rng equal to phase 3's; measured {args.pods} pods in {waves} "
+              f"waves, {r['wall_s']:.3f} s = {r['pods_s']:.1f} pods/s on {smi} "
+              f"(store writes of the measured pods before it: {r['create_s']:.3f} s); "
+              f"launches {r['launches']}")
+        print(f"(a) {label}: loop phase_profile, host ms per wave: {split}; "
+              f"outside the loop's phases "
+              f"{(r['wall_s'] - sum(v for k, v in prof.items() if k != 'waves')) * 1e3 / waves:.3f}")
+        print(f"(a) {label}: the stand-in (WavePipeline, same depth and context, just "
+              f"before) {args.pods / stand_wall:.1f} pods/s, {stand_wall * 1e3 / stand_waves:.3f} "
+              f"ms per wave; the loop's own host cost "
+              f"{(r['wall_s'] - stand_wall) * 1e3 / waves:.3f} ms per wave "
+              f"({(r['wall_s'] - stand_wall) * 1e6 / args.pods:.1f} us per pod)")
+    print("(a) rates of the same traffic in this call (pods/s): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    for variant in ("plain", "spread", "ipa_mesh8"):
+        card, la, wall_c = loop_stream(args, "cuda", variant)
+        cpu, _, wall_p = loop_stream(args, "cpu", variant)
+        if card != cpu:
+            which = [k for k in card if card[k] != cpu[k]]
+            fail(f"phase 22 (b) {variant}: card and CPU differ on {which}")
+        n_bound = sum(1 for v in card["placed"].values() if v)
+        if not card["diags"] or n_bound == 0:
+            fail(f"phase 22 (b) {variant}: the stream must bind pods and leave FitErrors")
+        if variant != "ipa_mesh8" and not card["gangs"].get("device"):
+            fail(f"phase 22 (b) {variant}: the gang trailer did not take the device path")
+        print(f"(b) mixed loop stream, {variant}: card == CPU ({len(card['placed'])} pods, "
+              f"{n_bound} bound, {len(card['diags'])} FitErrors; kernel/fallback counts "
+              f"{card['counts']}, gang members by path {card['gangs']}); launches on the card "
+              f"{la}; {wall_c:.2f} s on the card, {wall_p:.2f} s on the CPU")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,19 @@
-"""Object metadata — the subset of metav1.ObjectMeta the wave path reads.
+"""Object metadata — the subset of metav1.ObjectMeta the scheduler and the
+store read.
 
 Reference: staging/src/k8s.io/apimachinery/pkg/apis/meta/v1/types.go.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import itertools
+from dataclasses import dataclass, field, replace
+
+_uid_counter = itertools.count(1)
+
+
+def new_uid() -> str:
+    return f"uid-{next(_uid_counter)}"
 
 
 @dataclass
@@ -16,8 +24,15 @@ class ObjectMeta:
     labels: dict[str, str] = field(default_factory=dict)
     annotations: dict[str, str] = field(default_factory=dict)
     deletion_timestamp: float | None = None
+    # stamped by the store on every write
+    resource_version: int = 0
+    creation_timestamp: float = 0.0
 
     @property
     def key(self) -> str:
         """namespace/name cache key (client-go cache.MetaNamespaceKeyFunc)."""
         return f"{self.namespace}/{self.name}" if self.namespace else self.name
+
+    def copy(self) -> "ObjectMeta":
+        return replace(self, labels=dict(self.labels),
+                       annotations=dict(self.annotations))

@@ -3,11 +3,13 @@ schedules.
 
 Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
 Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
-subset is modeled; everything is a plain dataclass.
+subset is modeled; everything is a plain dataclass, treated as immutable
+once written to the store.
 """
 
 from __future__ import annotations
 
+import copy as copy_mod
 from dataclasses import dataclass, field
 from typing import Mapping
 
@@ -193,11 +195,21 @@ class PodSpec:
 
 
 @dataclass
+class PodCondition:
+    type: str  # "PodScheduled", ...
+    status: str  # "True"/"False"/"Unknown"
+    reason: str = ""
+    message: str = ""
+
+
+@dataclass
 class PodStatus:
-    """The part of core/v1 PodStatus the scheduling cycle reads: the node a
-    preemption nominated for the pod."""
+    """The part of core/v1 PodStatus the scheduler reads and writes: the
+    node a preemption nominated for the pod, and the PodScheduled
+    condition of a pod that fits nowhere."""
 
     nominated_node_name: str = ""
+    conditions: list[PodCondition] = field(default_factory=list)
 
 
 @dataclass
@@ -290,3 +302,76 @@ class PodGroup:
     status: PodGroupStatus = field(default_factory=PodGroupStatus)
 
     kind = "PodGroup"
+
+
+# --- fast deepcopy hooks --------------------------------------------------
+#
+# The store isolates what it holds by deepcopying objects on every write
+# (store/store.py); generic copy.deepcopy recurses through every field of a
+# Pod. These hooks keep the copy semantics while sharing the immutable
+# fragments: every frozen dataclass here holds only str/int/tuples of
+# frozen values, so returning self is a correct deepcopy.
+
+
+def _identity_deepcopy(self, memo):
+    return self
+
+
+for _frozen in (
+    NodeSelectorRequirement, NodeSelectorTerm, NodeSelector,
+    PreferredSchedulingTerm, NodeAffinity, PodAffinityTerm,
+    WeightedPodAffinityTerm, PodAffinity, PodAntiAffinity, Affinity,
+    Taint, Toleration, TopologySpreadConstraint, ContainerPort,
+    SchedulingGroup, ContainerImage, GangPolicy, TopologyConstraint,
+    SchedulingConstraints,
+):
+    _frozen.__deepcopy__ = _identity_deepcopy  # type: ignore[attr-defined]
+
+
+def _container_deepcopy(self: Container, memo) -> Container:
+    # keep in sync with Container's fields: a dropped field would silently
+    # truncate every object that passes through the store
+    return Container(self.name, self.image, dict(self.requests), self.ports)
+
+
+def _podspec_deepcopy(self: PodSpec, memo) -> PodSpec:
+    s = copy_mod.copy(self)  # shallow: immutable/str fields carried over
+    s.containers = [_container_deepcopy(c, memo) for c in self.containers]
+    s.init_containers = [_container_deepcopy(c, memo) for c in self.init_containers]
+    s.overhead = dict(self.overhead)
+    s.node_selector = dict(self.node_selector)
+    return s
+
+
+def _podstatus_deepcopy(self: PodStatus, memo) -> PodStatus:
+    s = copy_mod.copy(self)
+    s.conditions = [copy_mod.copy(c) for c in self.conditions]
+    return s
+
+
+def _pod_deepcopy(self: Pod, memo) -> Pod:
+    return Pod(meta=self.meta.copy(),
+               spec=_podspec_deepcopy(self.spec, memo),
+               status=_podstatus_deepcopy(self.status, memo))
+
+
+def _nodestatus_deepcopy(self: NodeStatus, memo) -> NodeStatus:
+    s = copy_mod.copy(self)
+    s.capacity = dict(self.capacity)
+    s.allocatable = dict(self.allocatable)
+    s.images = list(self.images)  # ContainerImage is frozen: share entries
+    return s
+
+
+def _node_deepcopy(self: Node, memo) -> Node:
+    return Node(meta=self.meta.copy(),
+                spec=copy_mod.copy(self.spec),  # taints tuple shared (frozen)
+                status=_nodestatus_deepcopy(self.status, memo))
+
+
+Container.__deepcopy__ = _container_deepcopy  # type: ignore[attr-defined]
+PodSpec.__deepcopy__ = _podspec_deepcopy  # type: ignore[attr-defined]
+PodStatus.__deepcopy__ = _podstatus_deepcopy  # type: ignore[attr-defined]
+Pod.__deepcopy__ = _pod_deepcopy  # type: ignore[attr-defined]
+NodeStatus.__deepcopy__ = _nodestatus_deepcopy  # type: ignore[attr-defined]
+Node.__deepcopy__ = _node_deepcopy  # type: ignore[attr-defined]

@@ -7,6 +7,7 @@ libraries are compiled at first launch (ops/cuda.py).
 
 from .vocab import ClusterVocabs, Vocab, next_pow2
 from .planes import (
+    DeviceFlakeError,
     FallbackNeeded,
     Planes,
     PlaneBuilder,
@@ -21,7 +22,7 @@ from .planes import (
 from .kernels import KernelConfig, OutOfSlice, batched_assign
 
 __all__ = [
-    "ClusterVocabs", "Vocab", "next_pow2", "FallbackNeeded", "Planes",
+    "ClusterVocabs", "Vocab", "next_pow2", "DeviceFlakeError", "FallbackNeeded", "Planes",
     "PlaneBuilder", "PodFeatureExtractor", "features_from_reference",
     "pack_features", "pad_features", "planes_from_reference",
     "stack_features", "unpack_features", "KernelConfig", "OutOfSlice",

@@ -102,10 +102,13 @@ def reset_launches() -> None:
 
 
 class OutOfSlice(NotImplementedError):
-    """The caller asks for a configuration or a path this port does not run
-    yet: a slot or domain count past the kernels' fixed capacities, or in
-    the single-pod cycle one of the host framework's paths (a nominated
-    pod, a pod the host composes). Raised instead of computing an answer."""
+    """The caller asks for what this port does not compute yet: a slot or
+    domain count past the kernels' fixed capacities (topology keys of more
+    than 1024 domains, scan buckets past 16384 node slots, more than 8
+    scored resources or 16 shape points: ROADMAP B1-B3), or HTTP extenders
+    until A4b. Raised instead of computing an answer, and never routed to
+    the host tier. A nominated pod and a pod the host composes do not raise
+    it: they take the nominee fast path and the hybrid route."""
 
 
 # --------------------------------------------------------------------------

@@ -447,6 +447,19 @@ class FallbackNeeded(Exception):
     the caller must run the host scheduling path for this pod (the same
     pods the reference package sends to its host path)."""
 
+    # set by DeviceFlakeError: the circuit breaker counts only those
+    device_flake = False
+
+
+class DeviceFlakeError(FallbackNeeded):
+    """An injected failure of the device path (the tpu.launch and
+    tpu.collect fault points; reference ops/planes.py:449-459). Handled
+    like FallbackNeeded — the wave's pods re-run per pod — and also counted
+    as a circuit-breaker failure. A real error on the card (a failed build
+    or launch, a CUDA error) is never wrapped in it: it raises."""
+
+    device_flake = True
+
 
 class PodFeatureExtractor:
     """Resolves one Pod against the vocabularies into fixed-shape arrays.

@@ -91,6 +91,29 @@ class Cache:
                 self._node_tree.add_node(node)
             item.info.set_node(node)
 
+    def update_node(self, old: Node, new: Node) -> None:
+        self.add_node(new)
+
+    def remove_node(self, node: Node) -> None:
+        with self._mu:
+            item = self._nodes.get(node.meta.name)
+            if item is None:
+                return
+            self._node_tree.remove_node(node)
+            # keep the item while pods still reference it (the reference
+            # keeps a node-less NodeInfo until its pods drain); bump the
+            # generation so the snapshot notices the removal
+            item.info.node = None
+            item.info.generation = next_generation()
+            if not item.info.pods:
+                self._unlink(item)
+                del self._nodes[node.meta.name]
+
+    def get_node_info(self, name: str) -> NodeInfo | None:
+        with self._mu:
+            item = self._nodes.get(name)
+            return item.info if item else None
+
     def node_count(self) -> int:
         with self._mu:
             return sum(1 for it in self._nodes.values() if it.info.node is not None)
@@ -110,6 +133,22 @@ class Cache:
             self._pod_states[key] = pi
             self._pod_nodes[key] = node_name
             self._assumed_pods.add(key)
+
+    def forget_pod(self, pod: Pod) -> None:
+        """Revert an assume that failed to bind."""
+        with self._mu:
+            key = pod.meta.key
+            if key not in self._assumed_pods:
+                return
+            self._remove_pod_locked(key)
+
+    def is_assumed_key(self, key: str) -> bool:
+        with self._mu:
+            return key in self._assumed_pods
+
+    def is_assumed_pod(self, pod: Pod) -> bool:
+        with self._mu:
+            return pod.meta.key in self._assumed_pods
 
     def add_pod(self, pod: Pod) -> None:
         """Informer confirms a scheduled pod (Added state)."""
@@ -133,6 +172,19 @@ class Cache:
             self._pod_states[key] = pi
             self._pod_nodes[key] = pod.spec.node_name
 
+    def update_pod(self, old: Pod, new: Pod) -> None:
+        with self._mu:
+            key = new.meta.key
+            if key in self._pod_states and not (key in self._assumed_pods):
+                self._remove_pod_locked(key)
+            if key not in self._pod_states:
+                pi = PodInfo(new, self.names)
+                item = self._touch(new.spec.node_name)
+                item.info.add_pod(pi)
+                item.info.generation = next_generation()
+                self._pod_states[key] = pi
+                self._pod_nodes[key] = new.spec.node_name
+
     def remove_pod(self, pod: Pod) -> None:
         """Informer deletes a pod (assumed or confirmed); a no-op for a pod
         the cache does not hold."""
@@ -152,6 +204,10 @@ class Cache:
             if item.info.node is None and not item.info.pods:
                 self._unlink(item)
                 del self._nodes[node_name]
+
+    def assumed_pod_count(self) -> int:
+        with self._mu:
+            return len(self._assumed_pods)
 
     def pod_count(self) -> int:
         with self._mu:

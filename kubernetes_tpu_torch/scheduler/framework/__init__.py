@@ -2,8 +2,9 @@
 
 Reference: staging/src/k8s.io/kube-scheduler/framework (public API) +
 pkg/scheduler/framework/runtime (the plugin runner). The handle its
-plugins read (Handle, ObjectLookup) stands in for the reference
-scheduler's until the loop and store are ported.
+plugins read (Handle): the Scheduler fills it with its store, cache,
+snapshot and queue; tests that build a framework alone give it an
+ObjectLookup in place of the store.
 """
 
 from . import events  # noqa: F401

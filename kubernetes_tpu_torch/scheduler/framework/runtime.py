@@ -12,10 +12,10 @@ and the framework takes the handle its stateful plugins read.
 
 The handle (the reference's scheduler.py Handle) gives a plugin the
 cluster state it reads: the cache (live gang member accounting), the
-snapshot, the queue and framework (GangScheduling's Permit), and `store`,
-which stands in for the reference's Store with its read side only
-(try_get by kind and key) over the PodGroups and bound Pods a caller has
-added.
+snapshot, the queue and framework (GangScheduling's Permit), and `store`:
+the Scheduler's Store, or, where a framework runs without one, an
+ObjectLookup holding the read side only (try_get by kind and key) over the
+PodGroups and bound Pods a caller has added.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Small in-tree plugins: PrioritySort, NodeName, NodeUnschedulable, NodePorts,
-SchedulingGates, TaintToleration, ImageLocality.
+SchedulingGates, TaintToleration, ImageLocality, DefaultBinder.
 
 Reference: pkg/scheduler/framework/plugins/{queuesort,nodename,
-nodeunschedulable,nodeports,schedulinggates,tainttoleration,imagelocality}.
-A copy of the reference package's module; its DefaultBinder binds through
-the store, which the port does not have yet.
+nodeunschedulable,nodeports,schedulinggates,tainttoleration,imagelocality,
+defaultbinder}. A copy of the reference package's module.
 """
 
 from __future__ import annotations
@@ -235,3 +234,22 @@ class ImageLocality(Plugin):
                 // (max_threshold - self.MIN_THRESHOLD)
             )
         return score, Status()
+
+
+class DefaultBinder(Plugin):
+    """defaultbinder — POST pods/binding against the store."""
+
+    name = "DefaultBinder"
+
+    def __init__(self, store):
+        self._store = store
+
+    def bind(self, state, pod: Pod, node_name: str) -> Status:
+        from ...store.store import ConflictError, NotFoundError
+
+        try:
+            # the binding subresource, the reference's API shape
+            self._store.bind_pod(pod.meta.key, node_name)
+        except (NotFoundError, ConflictError) as e:
+            return Status.as_error(e, self.name)
+        return Status()

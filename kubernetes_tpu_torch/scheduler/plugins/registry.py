@@ -7,11 +7,12 @@ w2, NodeResourcesFit w1, NodeResourcesBalancedAllocation w1, ImageLocality w1).
 
 A copy of the reference package's registry
 (kubernetes_tpu/scheduler/plugins/registry.py:44-100): the same weights,
-and the same order and feature gates for the plugins the port has. Not in
+and the same order and feature gates for the plugins the port has.
+DefaultBinder, which binds through a store, is in the list when a store is
+passed (the Scheduler passes its own), at the reference's position. Not in
 the list yet: VolumeRestrictions, NodeVolumeLimits, VolumeBinding and
-VolumeZone (they need the storage API), DynamicResources (the DRA API),
-DefaultBinder (the store) and DefaultPreemption (PostFilter, which the
-scheduling loop runs). For a pod without volumes or resource claims the
+VolumeZone (they need the storage API), DynamicResources (the DRA API) and
+DefaultPreemption (A6b). For a pod without volumes or resource claims the
 volume and DRA plugins Skip or pass, and DefaultPreemption acts only after
 a FitError, so the profile decides such pods as the reference's full one
 does (tests/test_torch_host_plugins.py holds that).
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 from ...api.resource import ResourceNames
 from .basics import (
+    DefaultBinder,
     ImageLocality,
     NodeName,
     NodePorts,
@@ -46,8 +48,10 @@ DEFAULT_WEIGHTS = {
 }
 
 
-def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None = None):
-    """The default-profile plugin list, in extension-point order."""
+def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None = None,
+                    store=None):
+    """The default-profile plugin list, in extension-point order; with
+    DefaultBinder over `store` when one is given."""
     args = args or {}
     fit_args = args.get("NodeResourcesFit", {})
     ipa_args = args.get("InterPodAffinity", {})
@@ -71,6 +75,8 @@ def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None 
         BalancedAllocation(names),
         ImageLocality(),
     ]
+    if store is not None:
+        plugins.append(DefaultBinder(store))
     gates = feature_gates or {}
     if gates.get("NodeDeclaredFeatures", True):
         from .node_declared_features import NodeDeclaredFeatures

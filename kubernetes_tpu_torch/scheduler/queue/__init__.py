@@ -1,5 +1,5 @@
-"""Scheduling queue pieces (reference: pkg/scheduler/backend/queue/). The
-port has the nominator; the queue that holds it comes with the
-scheduling loop."""
+"""Scheduling queue (reference: pkg/scheduler/backend/queue/): the
+three-tier SchedulingQueue and the Nominator it holds."""
 
 from .nominator import Nominator  # noqa: F401
+from .scheduling_queue import QueuedPodInfo, SchedulingQueue  # noqa: F401

@@ -3,7 +3,7 @@
 Reference: backend/queue/nominator.go. A copy of the nominator half of the
 reference package's SchedulingQueue
 (kubernetes_tpu/scheduler/queue/scheduling_queue.py:530-578), as a class
-of its own that the port's queue will hold. The scheduling algorithm reads
+of its own that the port's SchedulingQueue holds and answers for. The scheduling algorithm reads
 it to simulate nominated pods of equal or higher priority while filtering
 (schedule_one.go:1190 addNominatedPods).
 """

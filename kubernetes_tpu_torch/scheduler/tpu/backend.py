@@ -38,11 +38,13 @@ The wave runs the reference's default tier: signature dedup on, hard
 spread and inter-pod affinity in the scan, cross-wave reuse on. Around
 K4 the single-pod cycle has the reference's host tier
 (TorchSchedulingAlgorithm): the hybrid route, the nominee fast path, the
-host algorithm for pods the extractor refuses (FallbackNeeded). Not in
-this slice (a later one, in the ROADMAP's order): the scheduling loop
-itself (testing/pipeline.py stands in for it) with the circuit breaker
-that reads its device waves, the volume, DRA and extender host stages,
-preemption, the flight recorder and fault injection. What the kernels do not compute
+host algorithm for pods the extractor refuses (FallbackNeeded), and the
+circuit breaker the scheduling loop (schedule_one.ScheduleOneLoop) feeds
+with its device waves' outcomes. The breaker reads injected faults only:
+the tpu.launch and tpu.collect points raise DeviceFlakeError, and a real
+error on the card raises out of the loop. Not in this slice (a later one,
+in the ROADMAP's order): the volume, DRA and extender host stages,
+preemption and the device telemetry. What the kernels do not compute
 raises OutOfSlice, which no route sends to the host.
 """
 
@@ -71,6 +73,7 @@ from ...ops.kernels import (
 )
 from ...ops.planes import (
     SLICE_PLANES,
+    DeviceFlakeError,
     FallbackNeeded,
     PlaneBuilder,
     PodFeatureExtractor,
@@ -81,6 +84,7 @@ from ...ops.planes import (
     stack_features,
 )
 from ...ops.vocab import next_pow2
+from ...utils import faultinject
 from ..framework.interface import (
     UNSCHEDULABLE,
     Diagnosis,
@@ -235,12 +239,13 @@ class InflightWave:
     result with the event that says it arrived, and the pinned buffers of
     its uploads, held until its copies are done."""
 
-    __slots__ = ("pods", "planes", "info", "pad", "cursor_base_host",
+    __slots__ = ("pods", "qpis", "planes", "info", "pad", "cursor_base_host",
                  "frame_shift", "poisoned", "sig_ids", "host_packed", "ready",
                  "staged", "chained", "launch_s")
 
     def __init__(self, pods, planes, info, pad, frame_shift, sig_ids=None):
         self.pods = pods
+        self.qpis = None  # the queued pod infos, set by the scheduling loop
         self.planes = planes
         self.info = info  # K2's outputs, on the device
         self.pad = pad
@@ -296,10 +301,12 @@ class TorchBackend:
     """Planes + features + device-state bookkeeping for one cluster."""
 
     def __init__(self, names: ResourceNames, plugin_args: dict | None = None,
-                 device="cuda", context=None):
+                 device="cuda", context=None, recorder=None):
         from ...parallel.mesh import context_from_env
 
         self.device = resolve_device(device)
+        # the scheduler's flight recorder (breaker transitions), or None
+        self.recorder = recorder
         # the execution-context seam (parallel/mesh.py): LocalContext (K1 +
         # K2) or a MeshContext over node shards (K1 + K6), chosen once
         # (KUBE_TPU_MESH_DEVICES when none is passed); every upload and
@@ -755,7 +762,14 @@ class TorchBackend:
 
         Raises NeedResync when the carry cannot absorb host-side changes
         (the caller drains the pipeline, invalidates the carry and
-        retries), FallbackNeeded for a pod the extractor refuses."""
+        retries), FallbackNeeded for a pod the extractor refuses, and
+        DeviceFlakeError for an injected launch fault."""
+        try:
+            # before any state is touched: an injected launch flake leaves
+            # the carry, the in-flight frame and the rng as they were
+            faultinject.fire("tpu.launch")
+        except faultinject.FaultInjected as e:
+            raise DeviceFlakeError(f"injected launch fault: {e}") from e
         self._rerun_carry = None  # a new launch closes any re-run window
         t0 = time.perf_counter()
         for pod in pods:
@@ -885,9 +899,17 @@ class TorchBackend:
         carry bookkeeping (the reference's collect, backend.py:1011-1074).
         Returns (hosts, planes).
 
-        Raises FallbackNeeded for a poisoned wave or a tie-draw overflow:
-        results discarded, rng untouched, carry invalidated (the caller
-        must poison a successor launched on it)."""
+        Raises FallbackNeeded for a poisoned wave or a tie-draw overflow,
+        and DeviceFlakeError for an injected collect fault: results
+        discarded, rng untouched, carry invalidated (the caller must poison
+        a successor launched on it)."""
+        try:
+            faultinject.fire("tpu.collect")
+        except faultinject.FaultInjected as e:
+            if self._inflight is fl:
+                self._inflight = None
+            self.invalidate_carry()
+            raise DeviceFlakeError(f"injected collect fault: {e}") from e
         t0 = time.perf_counter()
         if fl.ready is not None:
             fl.ready.synchronize()
@@ -1316,10 +1338,15 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
     - nominee fast path (`_evaluate_nominated`): a preemptor's nominated
       node checked host-side first;
     - host tier (`super().schedule_pod`): a pod the extractor refuses
-      (FallbackNeeded). The reference's circuit breaker, which also routes
-      here, comes with the scheduling loop that records device outcomes.
+      (FallbackNeeded), and every pod while the circuit breaker is OPEN
+      and cooling (`device_blocked()`).
     OutOfSlice (a pod the extractor accepts whose shapes pass the kernels'
     capacities) is never routed to the host: it propagates.
+
+    The breaker counts the device failures the scheduling loop records:
+    DeviceFlakeError, which only an injected tpu.launch or tpu.collect
+    fault raises. On the card a kernel error raises instead, so it never
+    trips the breaker and never sends pods to the host tier.
     """
 
     def __init__(self, framework, backend: TorchBackend, rng=None,
@@ -1327,9 +1354,15 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
                  extenders: list | None = None):
         super().__init__(framework, percentage_of_nodes_to_score=100,
                          rng=rng, nominator=nominator, extenders=extenders)
+        from .circuitbreaker import CircuitBreaker
+
         self.backend = backend
         self.fallback_count = 0
         self.kernel_count = 0
+        # degradation ladder rung 3: after N consecutive device failures
+        # (DeviceFlakeError — benign fallbacks don't count) waves bypass
+        # the device and ride the host tier until probe waves succeed
+        self.breaker = CircuitBreaker(on_transition=self._on_breaker_transition)
         # the kernel evaluates every node, so the kernel path stays at
         # 100%; the hybrid path's host tail follows the reference's own
         # adaptive sampling (numFeasibleNodesToFind + rotation + early
@@ -1341,9 +1374,26 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
     def on_card(self) -> bool:
         return self.backend.device.type != "cpu"
 
+    def _on_breaker_transition(self, old: str, new: str, reason: str) -> None:
+        from .circuitbreaker import OPEN
+
+        if new == OPEN:
+            # trip: per-pod host scheduling is about to change cluster
+            # state outside the wave writeback, so the resident cross-wave
+            # score rows cannot be trusted past this point (the carry's own
+            # NeedResync checks handle the planes)
+            self.backend.sig_cache.clear()
+        if self.backend.recorder is not None:
+            self.backend.recorder.breaker_transition(old, new, reason)
+
     def schedule_pod(self, state, pod: Pod, snapshot) -> ScheduleResult:
         if snapshot.num_nodes() == 0:
             raise FitError(pod, 0, Diagnosis())
+        if self.breaker.device_blocked():
+            # breaker OPEN and cooling: no device round trip, straight to
+            # the host tier (a pure read, no state change)
+            self.fallback_count += 1
+            return super().schedule_pod(state, pod, snapshot)
         pre_filter_done = None
         if pod.status.nominated_node_name:
             # evaluateNominatedNode fast path (schedule_one.go:718): try the
@@ -1398,6 +1448,18 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
         if self._must_fall_back(pod) or self._has_relevant_nominations(pod):
             return False
         return not self._needs_host_compose(pod)
+
+    # the reference's node-neutral volume wave plans (backend.py:1513-1533):
+    # wave_eligible admits no claim pod until A4b, so there is never a plan
+
+    def take_wave_plan(self, pod_key: str):
+        return None
+
+    def revert_wave_plan(self, pod: Pod) -> None:
+        pass
+
+    def safe_revert_volumes(self, plan) -> None:
+        pass
 
     def _has_relevant_nominations(self, pod: Pod) -> bool:
         """Any nominated pod (≥ priority) that must be simulated during

@@ -15,7 +15,8 @@ every domain mask at once.
 Fallback contract: the device path handles only the success case. Every
 odd case — no feasible domain in Required mode, tie-word overflow, plugin
 error status, host-compose members, nominated pods or members a
-nomination outranks, too many domains or members — returns None with the
+nomination outranks, an open circuit breaker, too many domains or
+members — returns None with the
 rng and snapshot untouched, and the host pod-group cycle (schedule_one.py
 PodGroupCycle) takes the group. OutOfSlice (a gang the kernels do not
 compute) always raises. Any other error from run_gang is counted on the
@@ -136,6 +137,8 @@ def try_gang_wave(sched, fw, algo, gk: str, qpis: list):
     if backend._ctx.n_shards != 1:
         # the reference's mesh gate (gangplanner.py:143): placement masks
         # are not sharded over the node axis, so K5 does not run on a mesh
+        return host_path()
+    if algo.breaker.device_blocked():
         return host_path()
     if len(qpis) > MAX_GANG_MEMBERS:
         return host_path()

@@ -1,0 +1,17 @@
+"""Versioned state store + watch bus — the etcd/apiserver-storage equivalent.
+
+Reference: staging/src/k8s.io/apiserver/pkg/storage/etcd3/store.go (CRUD with
+revisions), watcher (event.go), and the watch cache. A copy of the reference
+package's store (kubernetes_tpu/store/).
+"""
+
+from .store import (  # noqa: F401
+    ADDED,
+    DELETED,
+    MODIFIED,
+    AlreadyExistsError,
+    ConflictError,
+    Event,
+    NotFoundError,
+    Store,
+)

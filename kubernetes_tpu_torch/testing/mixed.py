@@ -30,6 +30,10 @@ members, as createPodGroups makes them), built by build_gangs into either
 package's types. gang_fuzz_spec replays the reference's seeded gang fuzz
 cases; mixed_gang_spec gives members hard spread, inter-pod affinity and
 host ports.
+
+burst_pods makes the scheduling loop's streamed bursts (the reference's
+tests/test_pipeline_golden.py mixed_pods) from either package's
+testing.wrappers module.
 """
 
 from __future__ import annotations
@@ -479,3 +483,29 @@ def build_gangs(spec: dict, types, meta) -> list:
         out.append((group, [_gang_pod(types, meta, gs["name"], m, gs["labelled"])
                             for m in gs["members"]]))
     return out
+
+
+def burst_pods(w, lo: int, hi: int, spread: bool = False, ipa: bool = False) -> list:
+    """Pods lo..hi-1 of three interleaved signatures (a, b, c), built with
+    `w`, either package's testing.wrappers module: every clone run is split
+    across other signatures' steps, so the dedup tier re-enters mid-wave.
+    With `spread` each pod carries a DoNotSchedule zone constraint (maxSkew
+    5); with `ipa` every third pod carries required zone pod affinity to
+    app=a (every sixth anti-affinity instead)."""
+    pods = []
+    for i in range(lo, hi):
+        kind = i % 3
+        if kind == 0:
+            p = w.make_pod(f"a{i:02d}", cpu="1", mem="1Gi", labels={"app": "a"})
+        elif kind == 1:
+            p = w.make_pod(f"b{i:02d}", cpu="900m", mem="900Mi", labels={"app": "b"})
+        else:
+            p = w.make_pod(f"c{i:02d}", cpu="800m", mem="800Mi", labels={"app": "c"})
+        if spread:
+            p = w.with_spread(p, max_skew=5, key="topology.kubernetes.io/zone",
+                              when="DoNotSchedule")
+        if ipa and kind == 0:
+            p = w.with_pod_affinity(p, "app", "a", "topology.kubernetes.io/zone",
+                                    anti=(i % 6 == 0))
+        pods.append(p)
+    return pods

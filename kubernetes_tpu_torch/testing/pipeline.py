@@ -1,9 +1,13 @@
 """The streaming-wave loop: pipelined launch/collect over a Cache and a
-Snapshot, the stand-in for the scheduling loop's wave pipeline until that
-loop is ported (the reference's ScheduleOneLoop._pipeline_wave,
-_complete_wave, _flush_wave_pipeline and _poison_successor,
-kubernetes_tpu/scheduler/schedule_one.py:593-872), with no queue and no
-framework.
+Snapshot, with no queue, no framework and no store — a stand-in for the
+scheduling loop's wave pipeline (the reference's
+ScheduleOneLoop._pipeline_wave, _complete_wave, _flush_wave_pipeline and
+_poison_successor, kubernetes_tpu/scheduler/schedule_one.py:593-872; the
+port's copy is scheduler/schedule_one.py ScheduleOneLoop). It drives both
+packages' backends wave by wave in tests/test_torch_pipeline.py and
+chip_smoke.py's phases 14-18. Unlike the loop, `external(poison=True)`
+poisons the wave in flight whether or not a carry is live (the loop keeps
+the reference's gate: ROADMAP C11).
 
 Per wave: update the snapshot, launch wave k+1 on the device carry, then
 collect wave k and assume its winners into the cache while k+1 runs. A

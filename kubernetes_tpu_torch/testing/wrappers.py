@@ -9,12 +9,16 @@ from __future__ import annotations
 from ..api.labels import LabelSelector
 from ..api.meta import ObjectMeta
 from ..api.types import (
+    Affinity,
     Container,
     ContainerPort,
     Node,
     NodeSpec,
     NodeStatus,
     Pod,
+    PodAffinity,
+    PodAffinityTerm,
+    PodAntiAffinity,
     PodSpec,
     SchedulingGroup,
     Taint,
@@ -28,7 +32,7 @@ HOSTNAME_LABEL = "kubernetes.io/hostname"
 def make_pod(name: str, namespace: str = "default", cpu: str | None = None,
              mem: str | None = None, labels: dict | None = None,
              node_name: str = "", image: str = "",
-             host_ports: tuple[int, ...] = ()) -> Pod:
+             host_ports: tuple[int, ...] = (), priority: int = 0) -> Pod:
     req: dict = {}
     if cpu is not None:
         req["cpu"] = cpu
@@ -40,7 +44,7 @@ def make_pod(name: str, namespace: str = "default", cpu: str | None = None,
     )
     return Pod(
         meta=ObjectMeta(name=name, namespace=namespace, labels=dict(labels or {})),
-        spec=PodSpec(containers=[c], node_name=node_name),
+        spec=PodSpec(containers=[c], node_name=node_name, priority=priority),
     )
 
 
@@ -69,6 +73,32 @@ def with_spread(pod: Pod, max_skew: int = 1, key: str = ZONE_LABEL,
     pod.spec.topology_spread_constraints = tuple(
         pod.spec.topology_spread_constraints) + (
         TopologySpreadConstraint(max_skew, key, when, selector),)
+    return pod
+
+
+def with_pod_affinity(pod: Pod, key: str, value: str, topology_key: str,
+                      anti: bool = False) -> Pod:
+    """One required (anti-)affinity term to pods labelled key=value."""
+    term = PodAffinityTerm(
+        label_selector=LabelSelector.of({key: value}), topology_key=topology_key
+    )
+    aff = pod.spec.affinity or Affinity()
+    if anti:
+        pa = aff.pod_anti_affinity or PodAntiAffinity()
+        pod.spec.affinity = Affinity(
+            node_affinity=aff.node_affinity,
+            pod_affinity=aff.pod_affinity,
+            pod_anti_affinity=PodAntiAffinity(required=tuple(pa.required) + (term,),
+                                              preferred=pa.preferred),
+        )
+    else:
+        pa = aff.pod_affinity or PodAffinity()
+        pod.spec.affinity = Affinity(
+            node_affinity=aff.node_affinity,
+            pod_affinity=PodAffinity(required=tuple(pa.required) + (term,),
+                                     preferred=pa.preferred),
+            pod_anti_affinity=aff.pod_anti_affinity,
+        )
     return pod
 
 
