@@ -195,7 +195,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    NodeDeclaredFeatures'; pods/s, the loop's host us per pod by phase and
    the launches printed; a cell that does not end within --phase-timeout
    is stopped and fails the run;
-   phases 6, 9, 10 and 17-22 run under a watchdog (--phase-timeout) that
+24. DefaultPreemption: (a) scheduler_perf
+   PreemptionAsync/5000Nodes_AsyncAPICallsEnabled (--preempt-workload) at
+   full width through the port's WorkloadExecutor(wave_size=512) on the
+   card: 5000 nodes, 20000 priority-0 victims of 3 CPU / 1Gi and
+   priority-100 preemptors of 25 CPU / 2Gi, evictions on the async
+   dispatcher; the preemptors cut from 5000 to --preempt-pods (1000: the
+   host's cost per preemptor grows with the backlog, and the workload's
+   5000 do not end within the run's limit); every preemptor bound, every
+   evicted pod of lower priority than the preemptor on its node, no node
+   over its CPU, memory or pod count; K4 launched at least once per preemptor and K1 and K2 launched
+   in the measured span (counts zeroed where the harness starts
+   collecting, read where it stops); preemptors/s beside upstream's
+   threshold, PostFilter calls, candidates per call, nodes decided by the
+   batched victim scan and by the per-node path, evictions, launches and
+   the dry run's host ms per preemptor (DefaultPreemption's methods
+   wrapped to count and time them); (b) PreemptionBasic/20Nodes and
+   /500Nodes (--preempt-cpu-workloads; synchronous evictions) on the card
+   and with device="cpu" on a virtual clock: bindings, nominations,
+   evictions, rng state and kernel/fallback counts equal;
+   phases 6, 9, 10, 17-22 and 24 (b) run under a watchdog (--phase-timeout;
+   24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -736,6 +756,17 @@ def main() -> None:
     ap.add_argument("--ndf-cpu-pods", type=int, default=1000)
     # phase 22 (b): the mixed loop stream's cluster (4 zones of 4-CPU nodes)
     ap.add_argument("--loop-nodes", type=int, default=40)
+    # phase 24: the full-width preemption workload, and the workloads run
+    # on the card and on the CPU (comma-separated, misc.json's names)
+    ap.add_argument("--preempt-workload", default="PreemptionAsync/5000Nodes_AsyncAPICallsEnabled")
+    # its preemptors, cut from the workload's 5000: the host cost per
+    # preemptor grows with the backlog (tools/preemption_scaling.py), and
+    # 2000 already take more than 300 s (PERF.md §5m)
+    ap.add_argument("--preempt-pods", type=int, default=1000)
+    ap.add_argument("--preempt-cpu-workloads",
+                    default="PreemptionBasic/20Nodes,PreemptionBasic/500Nodes")
+    # phase 24 (a) may run past --phase-timeout
+    ap.add_argument("--preempt-timeout", type=float, default=600.0)
     # a phase that runs past this fails the run (a hung cluster barrier)
     ap.add_argument("--phase-timeout", type=float, default=420.0)
     args = ap.parse_args()
@@ -1083,6 +1114,11 @@ def main() -> None:
                                   f"phase 18 (WavePipeline, {max(shards)} shards)": pods_s18},
                    smi)
     bench_cells(args)
+    with watchdog("phase 24 (a) (DefaultPreemption at full width)", args.preempt_timeout):
+        preemption_full_width(args, smi)
+    with watchdog("phase 24 (b) (DefaultPreemption, the card against the CPU)",
+                  args.phase_timeout):
+        preemption_card_vs_cpu(args)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -3186,6 +3222,261 @@ def bench_cells(args):
               f"p99 {line['sli_p99_s']} s; launches {line['launches']}; host us per "
               f"measured pod: {phases}; {time.perf_counter() - t1:.1f} s")
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# 24: DefaultPreemption
+# --------------------------------------------------------------------------
+
+
+class PreemptionProbe:
+    """Counts and host-clock seconds of DefaultPreemption's steps, by
+    wrapping the plugin's methods for the duration of a run (the plugin
+    itself keeps no counters): PostFilter calls and seconds, the executor's
+    seconds and victims, candidates ranked (_candidate_rank runs once per
+    candidate), nodes the batched scan decided and nodes the per-node
+    path searched."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.scheduler.plugins import default_preemption as dp
+
+        self.dp = dp
+        self.n = {"post_filter": 0, "post_filter_s": 0.0, "executor_s": 0.0,
+                  "victims": 0, "candidates": 0, "batched_nodes": 0, "per_node": 0}
+        self._saved = []
+
+    def _wrap(self, owner, name, make):
+        orig = owner.__dict__[name]
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        dp, n = self.dp, self.n
+
+        def post_filter(orig):
+            def wrapped(plugin, state, pod, statuses):
+                t0 = time.perf_counter()
+                try:
+                    return orig(plugin, state, pod, statuses)
+                finally:
+                    n["post_filter"] += 1
+                    n["post_filter_s"] += time.perf_counter() - t0
+            return wrapped
+
+        def prepare(orig):
+            def wrapped(executor, candidate, preemptor, pdbs):
+                t0 = time.perf_counter()
+                try:
+                    return orig(executor, candidate, preemptor, pdbs)
+                finally:
+                    n["executor_s"] += time.perf_counter() - t0
+                    n["victims"] += len(candidate.victims)
+            return wrapped
+
+        def batch(orig):
+            def wrapped(plugin, *a):
+                out = orig(plugin, *a)
+                n["batched_nodes"] += len(out)
+                return out
+            return wrapped
+
+        def per_node(orig):
+            def wrapped(plugin, *a, **kw):
+                n["per_node"] += 1
+                return orig(plugin, *a, **kw)
+            return wrapped
+
+        def rank(orig):
+            def wrapped(c):
+                n["candidates"] += 1
+                return orig.__func__(c)
+            return staticmethod(wrapped)
+
+        self._wrap(dp.DefaultPreemption, "post_filter", post_filter)
+        self._wrap(dp.PreemptionExecutor, "prepare_candidate", prepare)
+        self._wrap(dp.DefaultPreemption, "_batch_select_victims", batch)
+        self._wrap(dp.DefaultPreemption, "_select_victims_on_node", per_node)
+        self._wrap(dp.DefaultPreemption, "_candidate_rank", rank)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+
+class VirtualClock:
+    """The scheduler's clock for runs the card and the CPU must decide
+    alike: each reading 1 us past the last, so no backoff expires within a
+    run and an idle queue pops its backoff pods by expiry (wall-clock
+    expiry would make two runs at different speeds pop in different
+    orders)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.utils import clock
+
+        self._cls, self._now = clock.Clock, clock.Clock.now
+        clock.Clock.now = lambda _self: self._tick()
+        return self
+
+    def _tick(self):
+        self.t += 1e-6
+        return self.t
+
+    def __exit__(self, *exc):
+        self._cls.now = self._now
+        return False
+
+
+def preemption_run(workload, device, wave, measure_pods=None):
+    """One scheduler_perf Preemption workload through the port's
+    WorkloadExecutor on `device` (with `measure_pods` preemptors in place
+    of the workload's count when given), the launches counted over the
+    measured span (zeroed where the harness starts collecting, read where
+    it stops), every eviction recorded. Returns the run's facts."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf.harness import WorkloadExecutor, load_config
+
+    case_name, wl_name = workload.split("/")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cases = load_config(os.path.join(root, "kubernetes_tpu_torch/perf/configs/misc.json"))
+    case = next(c for c in cases if c["name"] == case_name)
+    wl = next(w for w in case["workloads"] if w["name"] == wl_name)
+    if measure_pods is not None:
+        wl = dict(wl, params=dict(wl["params"], measurePods=measure_pods))
+
+    class Executor(WorkloadExecutor):
+        def _start_collecting(self):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            super()._start_collecting()
+
+        def _stop_collecting(self):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            self.launches = dict(kernels.LAUNCHES)
+            super()._stop_collecting()
+
+    ex = Executor(case, wl, wave_size=wave, device=device)
+    evicted = []
+    delete = ex.store.delete
+
+    def recorded_delete(kind, key):
+        out = delete(kind, key)
+        if kind == "Pod":
+            evicted.append(out)
+        return out
+
+    ex.store.delete = recorded_delete
+    with PreemptionProbe() as probe:
+        result = ex.run()
+    algo = ex.scheduler.algorithms["default-scheduler"]
+    check_loop(f"phase 24 {workload} on {device}", ex.scheduler)
+    pods = ex.store.pods()
+    return {"result": result, "pods": pods, "nodes": ex.store.nodes(), "evicted": evicted,
+            "launches": ex.launches, "probe": dict(probe.n), "rng": algo.rng.getstate(),
+            "counts": (algo.kernel_count, algo.fallback_count),
+            "span_s": ex.collect_stopped_at - ex.collect_started_at,
+            "phases": {k: v - ex.profile_at_start.get(k, 0)
+                       for k, v in ex.profile_at_stop.items()},
+            "params": wl["params"]}
+
+
+def check_preemption(label, r):
+    """Every preemptor bound, every evicted pod of lower priority than the
+    preemptor on its node, no node over its CPU, memory or pod count (the
+    port's Cache over the store's final objects)."""
+    from kubernetes_tpu_torch.api.resource import CPU, MEM, PODS, ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+
+    pres = [p for p in r["pods"] if p.spec.priority > 0]
+    if len(pres) != r["params"]["measurePods"] or not all(p.spec.node_name for p in pres):
+        fail(f"{label}: {sum(1 for p in pres if p.spec.node_name)} of "
+             f"{r['params']['measurePods']} preemptors bound")
+    on_node = {p.spec.node_name: p.spec.priority for p in pres}
+    for v in r["evicted"]:
+        if v.spec.priority >= on_node.get(v.spec.node_name, -1):
+            fail(f"{label}: {v.meta.key} (priority {v.spec.priority}) evicted from "
+                 f"{v.spec.node_name}, whose preemptor has priority "
+                 f"{on_node.get(v.spec.node_name)}")
+    cache = Cache(ResourceNames())
+    for n in r["nodes"]:
+        cache.add_node(n)
+    for p in r["pods"]:
+        cache.add_pod(p)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    for ni in snap.list_nodes():
+        if (ni.requested[CPU] > ni.allocatable[CPU] or ni.requested[MEM] > ni.allocatable[MEM]
+                or len(ni.pods) > ni.allocatable[PODS]):
+            fail(f"{label}: node {ni.name} over capacity: {len(ni.pods)} pods, "
+                 f"requested {list(ni.requested.v)} of {list(ni.allocatable.v)}")
+
+
+def preemption_full_width(args, smi):
+    """24 (a). PreemptionAsync at full width through the port's
+    WorkloadExecutor on the card: its invariants, launches and rates."""
+    t0 = time.perf_counter()
+    label = f"phase 24 (a) {args.preempt_workload}"
+    r = collected(preemption_run, args.preempt_workload, "cuda", args.wave, args.preempt_pods)
+    check_preemption(label, r)
+    pres = r["params"]["measurePods"]
+    la, pr = r["launches"], r["probe"]
+    if la["fit_and_score"] < pres:
+        fail(f"{label}: K4 launched {la['fit_and_score']} times for {pres} preemptors")
+    if la["static_parts"] <= 0 or la["assign_scan"] <= 0:
+        fail(f"{label}: K1 and K2 must launch in the measured span: {la}")
+    if pr["post_filter"] < pres or not r["evicted"]:
+        fail(f"{label}: {pr['post_filter']} PostFilter calls, {len(r['evicted'])} evictions")
+    dry_s = pr["post_filter_s"] - pr["executor_s"]
+    print(f"(24a) {args.preempt_workload}: {pres} preemptors bound over "
+          f"{r['params']['initNodes']} nodes and {r['params']['initPods']} victims, "
+          f"{r['result'].throughput} preemptors/s (harness average; {pres / r['span_s']:.1f} "
+          f"over the measured span of {r['span_s']:.3f} s) on {smi}; upstream threshold "
+          f"{r['result'].threshold}")
+    print(f"(24a) PostFilter calls {pr['post_filter']}, candidates per call "
+          f"{pr['candidates'] / pr['post_filter']:.1f}, nodes decided by the batched scan "
+          f"{pr['batched_nodes']}, by the per-node path {pr['per_node']}; evictions "
+          f"{len(r['evicted'])} (victims chosen {pr['victims']}); kernel/fallback counts "
+          f"{r['counts']}; launches in the measured span {la}")
+    print(f"(24a) host ms per preemptor: dry run {dry_s * 1e3 / pres:.3f}, executor "
+          f"{pr['executor_s'] * 1e3 / pres:.3f}; per PostFilter call: dry run "
+          f"{dry_s * 1e3 / pr['post_filter']:.3f}; the loop's stopwatches over the "
+          f"measured span, s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["phases"].items())
+          + f"; phase 24 (a) {time.perf_counter() - t0:.1f} s")
+
+
+def preemption_card_vs_cpu(args):
+    """24 (b). PreemptionBasic runs (synchronous evictions) on the card and
+    with device="cpu" on the virtual clock: bindings, nominations,
+    evictions, rng and counts equal."""
+    t0 = time.perf_counter()
+    for workload in args.preempt_cpu_workloads.split(","):
+        out = {}
+        for device in ("cuda", "cpu"):
+            with VirtualClock():
+                t1 = time.perf_counter()
+                r = collected(preemption_run, workload, device, args.wave)
+                wall = time.perf_counter() - t1
+            check_preemption(f"phase 24 (b) {workload} on {device}", r)
+            out[device] = ({p.meta.key: (p.spec.node_name, p.status.nominated_node_name)
+                            for p in r["pods"]},
+                           sorted(v.meta.key for v in r["evicted"]), r["rng"], r["counts"])
+            print(f"(24b) {workload} on {device}: {r['params']['measurePods']} preemptors "
+                  f"bound, {len(r['evicted'])} evictions, {r['probe']['post_filter']} "
+                  f"PostFilter calls, launches {r['launches']}, {wall:.2f} s")
+        if out["cuda"] != out["cpu"]:
+            which = [n for n, a, b in zip(("bindings and nominations", "evictions", "rng",
+                                           "counts"), out["cuda"], out["cpu"]) if a != b]
+            fail(f"phase 24 (b) {workload}: card and CPU differ on {which}")
+        print(f"(24b) {workload}: card == CPU (bindings, nominations, evictions, rng, "
+              f"kernel/fallback counts)")
+    print(f"phase 24 (b): {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Core API object types: the Pod, Node and PodGroup subset the port
-schedules.
+"""Core API object types: the Pod, Node, PodGroup and
+PodDisruptionBudget subset the port schedules.
 
 Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
 Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
@@ -190,6 +190,7 @@ class PodSpec:
     tolerations: tuple[Toleration, ...] = ()
     topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
     priority: int = 0
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     scheduling_gates: tuple[str, ...] = ()
     scheduling_group: SchedulingGroup | None = None
 
@@ -302,6 +303,48 @@ class PodGroup:
     status: PodGroupStatus = field(default_factory=PodGroupStatus)
 
     kind = "PodGroup"
+
+
+# --- disruption budgets -----------------------------------------------------
+
+
+@dataclass
+class PodDisruptionBudgetSpec:
+    """policy/v1 PodDisruptionBudgetSpec (scheduling-relevant subset).
+
+    Exactly one of min_available / max_unavailable is meaningful; both are
+    absolute counts (the reference also accepts percentages, which the
+    disruption controller resolves before the scheduler reads them)."""
+
+    selector: LabelSelector | None = None  # None matches nothing
+    min_available: int | None = None
+    max_unavailable: int | None = None
+
+
+@dataclass
+class PodDisruptionBudgetStatus:
+    """policy/v1 PodDisruptionBudgetStatus: the scheduler reads only
+    disruptions_allowed and disrupted_pods (default_preemption.go:380
+    filterPodsWithPDBViolation)."""
+
+    disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+    # pod name -> eviction time; a disruption already recorded does not
+    # count against the budget again
+    disrupted_pods: dict = field(default_factory=dict)
+
+
+@dataclass
+class PodDisruptionBudget:
+    """Reference: staging/src/k8s.io/api/policy/v1/types.go."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodDisruptionBudgetSpec = field(default_factory=PodDisruptionBudgetSpec)
+    status: PodDisruptionBudgetStatus = field(default_factory=PodDisruptionBudgetStatus)
+
+    kind = "PodDisruptionBudget"
 
 
 # --- fast deepcopy hooks --------------------------------------------------

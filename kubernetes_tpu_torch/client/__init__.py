@@ -1,9 +1,10 @@
 """Client runtime: shared informers over the store.
 
 Reference: staging/src/k8s.io/client-go tools/cache (Reflector, DeltaFIFO,
-SharedIndexInformer). A copy of the reference package's informer
-(kubernetes_tpu/client/informer.py); its workqueue and leader election are
-not copied.
+SharedIndexInformer) and util/workqueue. Copies of the reference package's
+informer and workqueue (kubernetes_tpu/client/informer.py, workqueue.py);
+its leader election is not copied.
 """
 
 from .informer import InformerFactory, SharedInformer  # noqa: F401
+from .workqueue import WorkQueue  # noqa: F401

@@ -12,7 +12,8 @@ and the framework takes the handle its stateful plugins read.
 
 The handle (the reference's scheduler.py Handle) gives a plugin the
 cluster state it reads: the cache (live gang member accounting), the
-snapshot, the queue and framework (GangScheduling's Permit), and `store`:
+snapshot, the queue and framework (GangScheduling's Permit), the async
+dispatcher (DefaultPreemption's evictions), and `store`:
 the Scheduler's Store, or, where a framework runs without one, an
 ObjectLookup holding the read side only (try_get by kind and key) over the
 PodGroups and bound Pods a caller has added.
@@ -63,6 +64,9 @@ class Handle:
     snapshot: Any = None
     queue: Any = None
     framework: Any = None
+    # async API pipeline (SchedulerAsyncAPICalls): preemption's executor
+    # routes evictions through it so PostFilter never blocks on API writes
+    api_dispatcher: Any = None
 
 
 DEFAULT_PERMIT_TIMEOUT = 600.0  # maxTimeout in RunPermitPlugins

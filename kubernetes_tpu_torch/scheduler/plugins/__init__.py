@@ -9,6 +9,7 @@ from .basics import (  # noqa: F401
     SchedulingGates,
     TaintToleration,
 )
+from .default_preemption import DefaultPreemption  # noqa: F401
 from .gang_scheduling import GangScheduling  # noqa: F401
 from .interpod_affinity import InterPodAffinity  # noqa: F401
 from .node_affinity import NodeAffinity  # noqa: F401

@@ -7,15 +7,15 @@ w2, NodeResourcesFit w1, NodeResourcesBalancedAllocation w1, ImageLocality w1).
 
 A copy of the reference package's registry
 (kubernetes_tpu/scheduler/plugins/registry.py:44-100): the same weights,
-and the same order and feature gates for the plugins the port has.
-DefaultBinder, which binds through a store, is in the list when a store is
-passed (the Scheduler passes its own), at the reference's position. Not in
-the list yet: VolumeRestrictions, NodeVolumeLimits, VolumeBinding and
-VolumeZone (they need the storage API), DynamicResources (the DRA API) and
-DefaultPreemption (A6b). For a pod without volumes or resource claims the
-volume and DRA plugins Skip or pass, and DefaultPreemption acts only after
-a FitError, so the profile decides such pods as the reference's full one
-does (tests/test_torch_host_plugins.py holds that).
+and the same order and feature gates for the plugins the port has, with
+DefaultPreemption last behind its gate (on by default). DefaultBinder,
+which binds through a store, is in the list when a store is passed (the
+Scheduler passes its own), at the reference's position. Not in the list
+yet: VolumeRestrictions, NodeVolumeLimits, VolumeBinding and VolumeZone
+(they need the storage API) and DynamicResources (the DRA API), all
+ROADMAP A4b. For a pod without volumes or resource claims those plugins
+Skip or pass, so the profile decides such pods as the reference's full
+one does (tests/test_torch_host_plugins.py holds that).
 """
 
 from __future__ import annotations
@@ -93,4 +93,8 @@ def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None 
         from .topology_placement import TopologyPlacementGenerator
 
         plugins.append(TopologyPlacementGenerator())
+    if gates.get("DefaultPreemption", True):
+        from .default_preemption import DefaultPreemption
+
+        plugins.append(DefaultPreemption(names))
     return plugins

@@ -192,6 +192,10 @@ class Scheduler:
             self.api_cacher = APICacher(store, self.api_dispatcher)
             # event flushes ride the dispatcher too
             self.event_recorder.dispatcher = self.api_dispatcher
+        for handle in handles:
+            # DefaultPreemption's evictions ride it (reference
+            # scheduler.py:235-236)
+            handle.api_dispatcher = self.api_dispatcher
 
         self.loop = ScheduleOneLoop(
             self.cache,

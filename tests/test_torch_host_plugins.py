@@ -397,22 +397,23 @@ def test_num_feasible_nodes_to_find_matches_reference():
 
 @pytest.mark.parametrize("pct", [100, 0])
 def test_default_profile_matches_reference_full_profile(pct):
-    """The port's default profile (no volume, DRA, binder or preemption
-    plugins) decides pods without volumes or claims as the reference's full
-    default profile does; its plugin order is the reference's with those
-    plugins left out."""
+    """The port's default profile (no volume, DRA or binder plugins)
+    decides pods without volumes or claims as the reference's full default
+    profile does; its plugin order is the reference's with those plugins
+    left out, DefaultPreemption last."""
     spec = dict(mixed_spec(57, 120, 60, constraints=True), seed=57)
     want = _drive_host(_host_side(spec, "jax", pct, features=False))
     got = _drive_host(_host_side(spec, "port", pct, features=False))
     assert got == want
     absent = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
-              "DynamicResources", "DefaultBinder", "DefaultPreemption"}
+              "DynamicResources", "DefaultBinder"}
     ref = [p.name for p in jdefault_plugins(Store(), JNames())]
     assert set(ref) >= absent
     assert [p.name for p in tdefault_plugins(TNames())] == [n for n in ref if n not in absent]
+    assert ref[-1] == "DefaultPreemption"
     assert TWEIGHTS == JWEIGHTS
     for gates in ({"NodeDeclaredFeatures": False}, {"GangScheduling": False},
-                  {"TopologyAwareWorkloadScheduling": False}):
+                  {"TopologyAwareWorkloadScheduling": False}, {"DefaultPreemption": False}):
         ref = [p.name for p in jdefault_plugins(Store(), JNames(), gates)]
         assert [p.name for p in tdefault_plugins(TNames(), gates)] == [
             n for n in ref if n not in absent]

@@ -95,7 +95,7 @@ FEATURE = "NUMAAlignment"
 # the reference's default plugins the port's profile leaves to A4b and the
 # scheduling loop; for pods without volumes or claims they Skip or score 0
 NOT_PORTED = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
-              "DynamicResources", "DefaultPreemption", "DefaultBinder"}
+              "DynamicResources", "DefaultBinder"}
 
 
 class _Side:

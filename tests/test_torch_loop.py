@@ -460,15 +460,15 @@ def test_extenders_and_disabled_kernel_plugins_raise():
 
 def test_default_profile_binds_through_the_store():
     """With a store the default profile ends in DefaultBinder at the
-    reference's position (the reference's order less its volume, DRA and
-    preemption plugins), and the loop's wave bind is the store's batched
-    binding."""
+    reference's position (the reference's order less its volume and DRA
+    plugins, DefaultPreemption last), and the loop's wave bind is the
+    store's batched binding."""
     from kubernetes_tpu.scheduler.plugins.registry import default_plugins as jdefault
     from kubernetes_tpu_torch.scheduler.plugins.basics import DefaultBinder
     from kubernetes_tpu_torch.scheduler.plugins.registry import default_plugins as tdefault
 
     absent = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
-              "DynamicResources", "DefaultPreemption"}
+              "DynamicResources"}
     store = TStore()
     ref = [p.name for p in jdefault(JStore(), JNames())]
     got = tdefault(TNames(), store=store)

@@ -10,9 +10,13 @@ versions): equal bindings (pod key → node), equal `scheduled`, equal final
 tie-break rng state (tolerance 0: names and integers). The port reads its
 JSON copies of the configs, the reference its YAML.
 
-Left out: PreemptionBasic and PreemptionAsync. The port has no PostFilter
-yet (ROADMAP A6b), so a preemptor that needs a victim stays pending where
-the reference evicts one.
+PreemptionBasic and PreemptionAsync run with both packages'
+DefaultPreemption in the profile. Their 20Nodes workloads put two 3-CPU
+victims on each 32-CPU node, which leaves room for every 25-CPU
+preemptor: nothing is evicted, no eviction rides the dispatcher's
+threads, and both compare exactly (the reference's own bindings did not
+move over repeated runs). tests/test_torch_preemption_perf.py runs them
+at a density that evicts.
 
 Both packages' schedulers run on one virtual clock whose every reading is
 1 µs past the last. The queues order equal priorities by queue time and
@@ -44,8 +48,6 @@ REPO = Path(__file__).resolve().parent.parent
 JCONFIGS = REPO / "kubernetes_tpu" / "perf" / "configs"
 TCONFIGS = REPO / "kubernetes_tpu_torch" / "perf" / "configs"
 
-PREEMPTION = {"PreemptionBasic", "PreemptionAsync"}  # A6b: no PostFilter yet
-
 
 def _short(config: str) -> list[tuple[str, str, str]]:
     return [(config, case["name"], wl["name"])
@@ -54,7 +56,7 @@ def _short(config: str) -> list[tuple[str, str, str]]:
 
 
 PARITY = [w for c in ("misc", "topology_spreading", "gang", "nodedeclaredfeatures",
-                      "event_handling") for w in _short(c) if w[1] not in PREEMPTION]
+                      "event_handling") for w in _short(c)]
 PARITY += [w for w in _short("volumes") if w[1] == "SchedulingSecrets"]
 A4B = [w for c in ("volumes", "dra") for w in _short(c) if w[1] != "SchedulingSecrets"]
 
