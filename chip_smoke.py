@@ -214,8 +214,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    /500Nodes (--preempt-cpu-workloads; synchronous evictions) on the card
    and with device="cpu" on a virtual clock: bindings, nominations,
    evictions, rng state and kernel/fallback counts equal;
-   phases 6, 9, 10, 17-22 and 24 (b) run under a watchdog (--phase-timeout;
-   24 (a) under --preempt-timeout) that
+25. the storage, DRA and extender half of the host tier, through the
+   port's StorageWorkloadExecutor (testing/storage_workloads.py) and
+   Scheduler on the card: (a) SchedulingWFFCVolumes/5000Nodes_2000Pods at
+   full size (5000 nodes, 2000 measured pods with a 5Gi
+   WaitForFirstConsumer claim each over 10Gi volumes; node-neutral volume
+   plans, so every pod on the wave route, K1 and K2 launched); (b)
+   SchedulingCSIPVs/5000Nodes_5000Pods at full size (CSINode attach
+   limits of 39; the hybrid route: K4 once per pod, K3); (c)
+   SchedulingWithResourceClaims/5000pods_500nodes at full size (500 nodes
+   of 10 devices, 2500 initial and 2500 measured pods; the hybrid route
+   with DynamicResources' allocation); (d) an extender stream over 500
+   nodes: 1024 pods in blocks of 64,
+   every other block interested in an in-process extender with
+   HTTPExtender's interface (filter, prioritize; a second run as binder);
+   (e) volumes.json's and dra.json's short workloads and (d) at 256 pods
+   over 40 nodes, on the card and with device="cpu" on
+   the virtual clock: bindings, volume bindings, device allocations and
+   rng equal. Every run is checked from the store (every pod bound, every
+   claim bound to one volume of its class, access modes and capacity, no
+   volume bound twice, no node over its CSI attach limit, every allocated
+   device on its pod's node and none allocated twice); each prints
+   pods/s, K1-K4's launches in its measured span and the pods by route
+   (wave, hybrid, kernel, host);
+   phases 6, 9, 10, 17-22, 24 (b) and each of 25 (a)-(e) run under a
+   watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -1119,6 +1142,10 @@ def main() -> None:
     with watchdog("phase 24 (b) (DefaultPreemption, the card against the CPU)",
                   args.phase_timeout):
         preemption_card_vs_cpu(args)
+    storage_full_width(args, smi)
+    with watchdog("phase 25 (e) (volumes, DRA and extenders, the card against the CPU)",
+                  args.phase_timeout):
+        storage_card_vs_cpu(args)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -3477,6 +3504,398 @@ def preemption_card_vs_cpu(args):
         print(f"(24b) {workload}: card == CPU (bindings, nominations, evictions, rng, "
               f"kernel/fallback counts)")
     print(f"phase 24 (b): {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# 25: the storage, DRA and extender half of the host tier
+# --------------------------------------------------------------------------
+
+K1_K4 = ("static_parts", "assign_scan", "scatter_rows", "fit_and_score")
+# volumes.json's and dra.json's short workloads, run on the card and the CPU
+# the extender stream's nodes and pods at full width, and its size card vs CPU
+EXT_NODES, EXT_PODS = 500, 1024
+EXT_CPU_NODES, EXT_CPU_PODS = 40, 256
+STORAGE_SHORT = ("volumes.json:SchedulingWFFCVolumes/20Nodes",
+                 "volumes.json:SchedulingInTreePVs/5Nodes",
+                 "volumes.json:SchedulingCSIPVs/5Nodes",
+                 "volumes.json:SchedulingMigratedInTreePVs/5Nodes",
+                 "dra.json:SchedulingWithResourceClaims/20Nodes")
+
+
+class RouteProbe:
+    """The per-pod cycle's routes, by wrapping TorchSchedulingAlgorithm for
+    the duration of a run: schedule_pod calls (the per-pod cycle: kernel,
+    hybrid or host) and _schedule_hybrid calls. With the algorithm's
+    counters read at the same instants, the pods the waves placed are its
+    kernel count less the per-pod cycles that ran K4."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.scheduler.tpu import backend
+
+        self.cls = backend.TorchSchedulingAlgorithm
+        self.n = {"per_pod": 0, "hybrid": 0}
+
+    def __enter__(self):
+        cls, n = self.cls, self.n
+        self._saved = (cls.schedule_pod, cls._schedule_hybrid)
+        schedule_pod, hybrid = self._saved
+
+        def counted_schedule_pod(algo, *a, **kw):
+            n["per_pod"] += 1
+            return schedule_pod(algo, *a, **kw)
+
+        def counted_hybrid(algo, *a, **kw):
+            n["hybrid"] += 1
+            return hybrid(algo, *a, **kw)
+
+        cls.schedule_pod, cls._schedule_hybrid = counted_schedule_pod, counted_hybrid
+        return self
+
+    def snapshot(self, algo):
+        return dict(self.n, kernel=algo.kernel_count, host=algo.fallback_count)
+
+    def __exit__(self, *exc):
+        self.cls.schedule_pod, self.cls._schedule_hybrid = self._saved
+        return False
+
+
+def route_shares(a, b):
+    """Pods by route between two RouteProbe snapshots."""
+    d = {k: b[k] - a[k] for k in a}
+    per_pod_k4 = d["per_pod"] - d["host"]
+    return {"wave": d["kernel"] - per_pod_k4, "hybrid": d["hybrid"],
+            "kernel": per_pod_k4 - d["hybrid"], "host": d["host"]}
+
+
+def fmt_routes(r):
+    total = max(sum(r.values()), 1)
+    return ", ".join(f"{k} {v} ({100.0 * v / total:.1f} %)" for k, v in r.items())
+
+
+def check_storage(label, store):
+    """From the store: every pod bound; every claim bound to one volume of
+    its class, access modes and capacity, no volume bound twice; no node
+    over its CSI attach limit; every allocated device on its pod's node and
+    no device allocated twice."""
+    from kubernetes_tpu_torch.api.storage import pod_claim_names
+
+    pods = store.pods()
+    unbound = [p.meta.key for p in pods if not p.spec.node_name]
+    if unbound:
+        fail(f"{label}: {len(unbound)} of {len(pods)} pods unbound, e.g. {unbound[:3]}")
+    pvs = {v.meta.name: v for v in store.list("PersistentVolume")[0]}
+    pvcs = {c.meta.key: c for c in store.list("PersistentVolumeClaim")[0]}
+    claimed = set()
+    for c in pvcs.values():
+        pv = pvs.get(c.spec.volume_name)
+        if c.status.phase != "Bound" or pv is None or pv.spec.claim_ref != c.meta.key:
+            fail(f"{label}: claim {c.meta.key} not bound to a volume that names it "
+                 f"({c.status.phase}, {c.spec.volume_name!r})")
+        if (pv.spec.storage_class_name != c.spec.storage_class_name
+                or not set(c.spec.access_modes) <= set(pv.spec.access_modes)
+                or pv.storage_capacity < c.requested_storage):
+            fail(f"{label}: claim {c.meta.key} bound to {pv.meta.name} of another class, "
+                 f"access mode or a smaller capacity")
+        if pv.meta.name in claimed:
+            fail(f"{label}: volume {pv.meta.name} bound twice")
+        claimed.add(pv.meta.name)
+    attached: dict = {}
+    for p in pods:
+        for name in pod_claim_names(p):
+            pv = pvs[pvcs[f"{p.meta.namespace}/{name}"].spec.volume_name]
+            if pv.spec.csi_driver:
+                attached.setdefault((p.spec.node_name, pv.spec.csi_driver), set()).add(
+                    pv.meta.name)
+    limits = {c.meta.name: c for c in store.list("CSINode")[0]}
+    for (node, driver), vols in attached.items():
+        limit = limits[node].limit_for(driver) if node in limits else 0
+        if limit and len(vols) > limit:
+            fail(f"{label}: node {node} holds {len(vols)} {driver} volumes, limit {limit}")
+    where = {}
+    for sl in store.list("ResourceSlice")[0]:
+        pool = sl.pool if sl.all_nodes else f"{sl.node_name}/{sl.pool}"
+        for dev in sl.devices:
+            where[(sl.driver, pool, dev.name)] = sl.node_name
+    node_of = {p.meta.key: p.spec.node_name for p in pods}
+    taken = set()
+    for c in store.list("ResourceClaim")[0]:
+        a = c.status.allocation
+        if a is None or not c.status.reserved_for:
+            fail(f"{label}: claim {c.meta.key} not allocated and reserved")
+        for key in c.status.reserved_for:
+            if node_of.get(key) != a.node_name:
+                fail(f"{label}: claim {c.meta.key} allocated on {a.node_name}, its pod "
+                     f"{key} on {node_of.get(key)}")
+        for d in a.devices:
+            k = (d.driver, d.pool, d.device)
+            if where.get(k) != a.node_name or k in taken:
+                fail(f"{label}: device {k} of {c.meta.key} not on {a.node_name} or taken twice")
+            taken.add(k)
+    return {"pods": len(pods), "claims": len(pvcs), "csi": sum(map(len, attached.values())),
+            "devices": len(taken)}
+
+
+def storage_run(workload, device, wave):
+    """One volumes.json or dra.json workload ("config:case/workload") through
+    the port's StorageWorkloadExecutor on `device`; the launches and routes
+    counted over the measured span (zeroed where the harness starts
+    collecting, read where it stops)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf.harness import load_config
+    from kubernetes_tpu_torch.testing.storage_workloads import StorageWorkloadExecutor
+
+    config, name = workload.split(":")
+    case_name, wl_name = name.split("/")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cases = load_config(os.path.join(root, "kubernetes_tpu_torch/perf/configs", config))
+    case = next(c for c in cases if c["name"] == case_name)
+    wl = next(w for w in case["workloads"] if w["name"] == wl_name)
+    probe = RouteProbe()
+
+    class Executor(StorageWorkloadExecutor):
+        def _start_collecting(self):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            self.routes_at_start = probe.snapshot(self.scheduler.algorithms["default-scheduler"])
+            super()._start_collecting()
+
+        def _stop_collecting(self):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            self.launches = dict(kernels.LAUNCHES)
+            self.routes = route_shares(self.routes_at_start, probe.snapshot(
+                self.scheduler.algorithms["default-scheduler"]))
+            super()._stop_collecting()
+
+    with probe:
+        ex = Executor(case, wl, wave_size=wave, device=device)
+        t0 = time.perf_counter()
+        result = ex.run()
+        wall = time.perf_counter() - t0
+    check_loop(f"phase 25 {workload} on {device}", ex.scheduler)
+    algo = ex.scheduler.algorithms["default-scheduler"]
+    return {"ex": ex, "result": result, "wall": wall, "params": wl["params"],
+            "launches": ex.launches, "routes": ex.routes,
+            "span_s": ex.collect_stopped_at - ex.collect_started_at,
+            "rng": algo.rng.getstate(), "counts": (algo.kernel_count, algo.fallback_count)}
+
+
+def storage_outcome(store):
+    """Bindings, volume bindings and device allocations, comparable across
+    devices (a provisioned volume by its claim)."""
+    pods = {p.meta.key: p.spec.node_name for p in store.pods()}
+    pvcs = {c.meta.key: c.spec.volume_name for c in store.list("PersistentVolumeClaim")[0]}
+    pvs = {v.meta.name: v.spec.claim_ref for v in store.list("PersistentVolume")[0]}
+    claims = {c.meta.key: (c.status.allocation.node_name,
+                           [(d.request, d.driver, d.pool, d.device)
+                            for d in c.status.allocation.devices],
+                           tuple(c.status.reserved_for))
+              for c in store.list("ResourceClaim")[0] if c.status.allocation is not None}
+    return pods, pvcs, pvs, claims
+
+
+def storage_cell(label, workload, args, smi, needs=()):
+    """25 (a)-(c): one workload on the card, its store checks, launches,
+    routes and rates."""
+    t0 = time.perf_counter()
+    r = collected(storage_run, workload, "cuda", args.wave)
+    facts = check_storage(f"phase 25 {label}", r["ex"].store)
+    measured = r["params"]["measurePods"]
+    la, routes = r["launches"], r["routes"]
+    missing = [k for k in needs if la[k] <= 0]
+    if missing:
+        fail(f"phase 25 {label}: {missing} never launched in the measured span ({la})")
+    per_pod = routes["hybrid"] + routes["kernel"]
+    if per_pod and la["fit_and_score"] < per_pod:
+        fail(f"phase 25 {label}: K4 launched {la['fit_and_score']} times for {per_pod} "
+             f"per-pod cycles")
+    if routes["host"]:
+        fail(f"phase 25 {label}: {routes['host']} pods took the host algorithm")
+    print(f"(25{label}) {workload} {r['params']}: {measured} measured pods, "
+          f"{r['result'].throughput} pods/s (harness average; {measured / r['span_s']:.1f} over "
+          f"the measured span of {r['span_s']:.3f} s) on {smi}; upstream threshold "
+          f"{r['result'].threshold}; {facts}")
+    print(f"(25{label}) launches in the measured span: "
+          + ", ".join(f"{k} {la[k]}" for k in K1_K4)
+          + f"; pods by route: {fmt_routes(routes)}; run {r['wall']:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return r
+
+
+class InProcessExtender:
+    """The HTTPExtender interface answered in this process (the HTTP wire
+    format is the CPU tests' business): interested in pods with a limit on
+    example.com/foo; filter drops every node whose index is a multiple of
+    7; prioritize scores node i (37 i mod 11) at weight 2; as a binder it
+    writes the binding into the store."""
+
+    name = "in-process"
+    MANAGED = "example.com/foo"
+
+    def __init__(self, store, binder=False):
+        self.store, self.binder = store, binder
+        self.calls = {"filter": 0, "prioritize": 0, "bind": 0}
+
+    def is_ignorable(self):
+        return False
+
+    def is_binder(self):
+        return self.binder
+
+    def is_filter(self):
+        return True
+
+    def is_prioritizer(self):
+        return True
+
+    def is_interested(self, pod):
+        return any(self.MANAGED in c.limits for c in pod.spec.containers)
+
+    @staticmethod
+    def index(name):
+        return int(name.rsplit("-", 1)[1])
+
+    def filter(self, pod, nodes):
+        self.calls["filter"] += 1
+        keep = [ni for ni in nodes if self.index(ni.name) % 7]
+        return keep, {ni.name: "reserved by the extender" for ni in nodes
+                      if not self.index(ni.name) % 7}, {}
+
+    def prioritize(self, pod, nodes):
+        self.calls["prioritize"] += 1
+        return {ni.name: (37 * self.index(ni.name)) % 11 for ni in nodes}, 2
+
+    def bind(self, pod, node_name):
+        from kubernetes_tpu_torch.scheduler.framework.interface import Status
+
+        self.calls["bind"] += 1
+        self.store.bind_pod(pod.meta.key, node_name)
+        return Status()
+
+
+def extender_stream(n_nodes, n_pods, device, wave, binder, seed):
+    """25 (d): blocks of 64 plain pods and 64 pods the extender is
+    interested in over n_nodes SchedulingBasic nodes, through the port's
+    Scheduler with the in-process extender (filter and prioritize; and
+    bind when `binder`). Returns the store, the launches and routes over
+    the measured pods, the rate and the extender's calls."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    store = Store()
+    for i in range(n_nodes):
+        store.create(scheduling_basic_node(i), copy_return=False)
+    ext = InProcessExtender(store, binder=binder)
+    s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)], seed=seed,
+                  clock=StrictClock(), device=device, extenders=[ext])
+    s.start()
+    algo = s.algorithms["default-scheduler"]
+    interested = []
+    for i in range(n_pods):
+        pod = scheduling_basic_pod(i)
+        if (i // 64) % 2:
+            pod.spec.containers[0].limits = {InProcessExtender.MANAGED: "1"}
+            interested.append(pod.meta.key)
+        store.create(pod, copy_return=False)
+    s.pump()
+    with RouteProbe() as probe:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        a = probe.snapshot(algo)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            s.schedule_pending()
+            s.pump()
+            if all(p.spec.node_name for p in store.pods()):
+                break
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        routes = route_shares(a, probe.snapshot(algo))
+    check_loop(f"phase 25 (d) on {device}", s)
+    for key in interested:
+        node = store.get("Pod", key).spec.node_name
+        if node and not InProcessExtender.index(node) % 7:
+            fail(f"phase 25 (d): {key} on {node}, which the extender filtered out")
+    return {"store": store, "launches": launches, "routes": routes, "wall": wall,
+            "calls": dict(ext.calls), "interested": len(interested), "rng": algo.rng.getstate()}
+
+
+def storage_full_width(args, smi):
+    """25 (a)-(d) on the card at full width, each under the watchdog."""
+    t0 = time.perf_counter()
+    for label, workload, needs in (
+            ("(a)", "volumes.json:SchedulingWFFCVolumes/5000Nodes_2000Pods",
+             ("static_parts", "assign_scan")),
+            ("(b)", "volumes.json:SchedulingCSIPVs/5000Nodes_5000Pods",
+             ("fit_and_score", "scatter_rows")),
+            ("(c)", "dra.json:SchedulingWithResourceClaims/5000pods_500nodes",
+             ("fit_and_score", "scatter_rows"))):
+        with watchdog(f"phase 25 {label} ({workload})", args.phase_timeout):
+            storage_cell(f" {label}", workload, args, smi, needs=needs)
+    for binder in (False, True):
+        t1 = time.perf_counter()
+        with watchdog(f"phase 25 (d) (the extender stream{', binder' if binder else ''})",
+                      args.phase_timeout):
+            r = collected(extender_stream, EXT_NODES, EXT_PODS, "cuda", args.wave,
+                          binder, args.seed)
+        facts = check_storage("phase 25 (d)", r["store"])
+        la, routes = r["launches"], r["routes"]
+        if la["fit_and_score"] < r["interested"] or la["assign_scan"] <= 0:
+            fail(f"phase 25 (d): K4 {la['fit_and_score']} launches for {r['interested']} "
+                 f"interested pods, K2 {la['assign_scan']}")
+        if routes["hybrid"] < r["interested"] or (binder and r["calls"]["bind"] != r["interested"]):
+            fail(f"phase 25 (d): routes {routes}, extender calls {r['calls']} for "
+                 f"{r['interested']} interested pods")
+        print(f"(25 (d)) extender stream{' (binder)' if binder else ''}: {EXT_PODS} pods "
+              f"({r['interested']} interested) over {EXT_NODES} nodes, "
+              f"{EXT_PODS / r['wall']:.1f} pods/s on {smi}; extender calls {r['calls']}; "
+              f"launches " + ", ".join(f"{k} {la[k]}" for k in K1_K4)
+              + f"; pods by route: {fmt_routes(routes)}; {facts}; "
+              f"{time.perf_counter() - t1:.1f} s")
+    print(f"phase 25 (a)-(d): {time.perf_counter() - t0:.1f} s")
+
+
+def storage_card_vs_cpu(args):
+    """25 (e): the short workloads of volumes.json and dra.json, and the
+    extender stream at a short size, on the card and with device="cpu" on
+    the virtual clock: bindings, volume bindings, device allocations and
+    rng equal."""
+    t0 = time.perf_counter()
+    for workload in STORAGE_SHORT:
+        out, launches = {}, {}
+        for device in ("cuda", "cpu"):
+            with VirtualClock():
+                r = collected(storage_run, workload, device, 32)
+            check_storage(f"phase 25 (e) {workload} on {device}", r["ex"].store)
+            out[device] = storage_outcome(r["ex"].store) + (r["rng"], r["counts"])
+            launches[device] = r["launches"]
+        if out["cuda"] != out["cpu"]:
+            which = [n for n, a, b in zip(("bindings", "claims", "volumes", "devices", "rng",
+                                           "counts"), out["cuda"], out["cpu"]) if a != b]
+            fail(f"phase 25 (e) {workload}: card and CPU differ on {which}")
+        card = launches["cuda"]
+        print(f"(25 (e)) {workload}: card == CPU ({len(out['cpu'][0])} pods, "
+              f"{len(out['cpu'][1])} claims, {len(out['cpu'][3])} resource claims; "
+              f"launches on the card " + ", ".join(f"{k} {card[k]}" for k in K1_K4) + ")")
+    for binder in (False, True):
+        out = {}
+        for device in ("cuda", "cpu"):
+            with VirtualClock():
+                r = extender_stream(EXT_CPU_NODES, EXT_CPU_PODS, device, 32, binder,
+                                    args.seed)
+            out[device] = (storage_outcome(r["store"])[0], r["calls"], r["rng"])
+        if out["cuda"] != out["cpu"]:
+            fail(f"phase 25 (e) extender stream (binder {binder}): card and CPU differ")
+        print(f"(25 (e)) extender stream{' (binder)' if binder else ''}, "
+              f"{EXT_CPU_PODS} pods over {EXT_CPU_NODES} nodes: card == CPU "
+              f"(bindings, extender calls {out['cpu'][1]}, rng)")
+    print(f"phase 25 (e): {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -17,6 +17,14 @@ def new_uid() -> str:
 
 
 @dataclass
+class OwnerReference:
+    kind: str
+    name: str
+    uid: str
+    controller: bool = False
+
+
+@dataclass
 class ObjectMeta:
     name: str = ""
     namespace: str = "default"
@@ -27,6 +35,9 @@ class ObjectMeta:
     # stamped by the store on every write
     resource_version: int = 0
     creation_timestamp: float = 0.0
+    # who owns the object: VolumeBinding reads a generic ephemeral claim's
+    # owner pod (ephemeral.VolumeIsForPod)
+    owner_references: list[OwnerReference] = field(default_factory=list)
 
     @property
     def key(self) -> str:
@@ -35,4 +46,5 @@ class ObjectMeta:
 
     def copy(self) -> "ObjectMeta":
         return replace(self, labels=dict(self.labels),
-                       annotations=dict(self.annotations))
+                       annotations=dict(self.annotations),
+                       owner_references=list(self.owner_references))

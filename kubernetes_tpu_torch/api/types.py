@@ -165,6 +165,8 @@ class Container:
     image: str = ""
     requests: dict[str, object] = field(default_factory=dict)
     ports: tuple[ContainerPort, ...] = ()
+    # read by an HTTP extender's managed-resources interest test
+    limits: dict[str, object] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -182,6 +184,7 @@ class SchedulingGroup:
 class PodSpec:
     node_name: str = ""
     scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    volumes: tuple = ()  # tuple[storage.Volume, ...]
     containers: list[Container] = field(default_factory=list)
     init_containers: list[Container] = field(default_factory=list)
     overhead: dict[str, object] = field(default_factory=dict)
@@ -193,6 +196,7 @@ class PodSpec:
     preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     scheduling_gates: tuple[str, ...] = ()
     scheduling_group: SchedulingGroup | None = None
+    resource_claims: tuple = ()  # tuple[dra.PodResourceClaim, ...]
 
 
 @dataclass
@@ -374,7 +378,8 @@ for _frozen in (
 def _container_deepcopy(self: Container, memo) -> Container:
     # keep in sync with Container's fields: a dropped field would silently
     # truncate every object that passes through the store
-    return Container(self.name, self.image, dict(self.requests), self.ports)
+    return Container(self.name, self.image, dict(self.requests), self.ports,
+                     dict(self.limits))
 
 
 def _podspec_deepcopy(self: PodSpec, memo) -> PodSpec:

@@ -105,10 +105,14 @@ class OutOfSlice(NotImplementedError):
     """The caller asks for what this port does not compute yet: a slot or
     domain count past the kernels' fixed capacities (topology keys of more
     than 1024 domains, scan buckets past 16384 node slots, more than 8
-    scored resources or 16 shape points: ROADMAP B1-B3), or HTTP extenders
-    until A4b. Raised instead of computing an answer, and never routed to
-    the host tier. A nominated pod and a pod the host composes do not raise
-    it: they take the nominee fast path and the hybrid route."""
+    scored resources or 16 shape points: ROADMAP B1-B3), or an op the
+    scheduler_perf harness does not build (perf/harness.py; the volume and
+    claim templates, CSI nodes and resource slices are
+    testing/storage_workloads.py's). Raised instead of computing an answer,
+    and never routed to the host tier. A nominated pod and a pod the host
+    composes (volumes, resource claims, required features, an interested
+    extender) do not raise it: they take the nominee fast path and the
+    hybrid route."""
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,7 @@ derived lists; fork extensions AssumePod/ForgetPod (:278-361) used by the
 pod-group cycle so a gang's earlier pods occupy resources for later siblings
 without touching the live cache, and Assume/ForgetPlacement (:363-424) which
 narrow the visible node list to a placement's nodes. A copy of the
-reference package's module, less the volume bookkeeping.
+reference package's module.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class Snapshot:
         self.node_info_list: list[NodeInfo] = []
         self.have_pods_with_affinity_list: list[NodeInfo] = []
         self.have_pods_with_required_anti_affinity_list: list[NodeInfo] = []
+        self.used_pvc_set: set[str] = set()
         self.generation = 0
         # gang simulation bookkeeping
         self._assumed: list[tuple[str, str]] = []  # (pod_key, node_name)

@@ -18,6 +18,7 @@ from ..api.resource import (
     nonzero_request_vec,
     pod_request_vec,
 )
+from ..api.storage import pod_claim_names
 from ..api.types import Node, Pod, PodAffinityTerm
 
 _generation = itertools.count(1)
@@ -56,6 +57,7 @@ class PodInfo:
         "request",
         "nonzero_request",
         "ports",
+        "pvc_keys",
         "required_affinity_terms",
         "required_anti_affinity_terms",
         "preferred_affinity_terms",
@@ -71,6 +73,9 @@ class PodInfo:
             for p in c.ports:
                 if p.host_port > 0:
                     self.ports.append((p.host_ip or "0.0.0.0", p.protocol, p.host_port))
+        self.pvc_keys = [
+            f"{pod.meta.namespace}/{name}" for name in pod_claim_names(pod)
+        ]
         aff = pod.spec.affinity
         ns = pod.meta.namespace
         self.required_affinity_terms = (
@@ -121,6 +126,7 @@ class NodeInfo:
         "allocatable",
         "used_ports",
         "image_sizes",
+        "pvc_ref_counts",
         "generation",
         "names",
     )
@@ -136,6 +142,7 @@ class NodeInfo:
         self.allocatable = ResourceVec(names.width)
         self.used_ports: dict[tuple[str, str, int], int] = {}
         self.image_sizes: dict[str, int] = {}
+        self.pvc_ref_counts: dict[str, int] = {}
         self.generation = 0
         if node is not None:
             self.set_node(node)
@@ -164,6 +171,8 @@ class NodeInfo:
         self.nonzero_requested.add(pi.nonzero_request)
         for port in pi.ports:
             self.used_ports[port] = self.used_ports.get(port, 0) + 1
+        for k in pi.pvc_keys:
+            self.pvc_ref_counts[k] = self.pvc_ref_counts.get(k, 0) + 1
         if pi.has_affinity_constraints:
             self.pods_with_affinity.append(pi)
         if pi.has_required_anti_affinity:
@@ -182,6 +191,12 @@ class NodeInfo:
                 self.used_ports.pop(port, None)
             else:
                 self.used_ports[port] = n
+        for k in pi.pvc_keys:
+            n = self.pvc_ref_counts.get(k, 0) - 1
+            if n <= 0:
+                self.pvc_ref_counts.pop(k, None)
+            else:
+                self.pvc_ref_counts[k] = n
         self.pods_with_affinity = [p for p in self.pods_with_affinity if p.key != key]
         self.pods_with_required_anti_affinity = [
             p for p in self.pods_with_required_anti_affinity if p.key != key
@@ -200,6 +215,7 @@ class NodeInfo:
         ni.allocatable = self.allocatable.clone()
         ni.used_ports = dict(self.used_ports)
         ni.image_sizes = dict(self.image_sizes)
+        ni.pvc_ref_counts = dict(self.pvc_ref_counts)
         ni.generation = self.generation
         return ni
 

@@ -17,9 +17,7 @@ stays numpy on the host, as there: the kernels' part is the FitError
 diagnosis it reads (K4's per-node failure rows, through the bulk name sets
 of the backend's _LazyKernelStatuses). Where the port differs: the
 PodDisruptionBudgets are listed with Store.list (the same copies the
-reference's iter_kind makes), and the port's pods carry no volumes or
-resource claims until ROADMAP A4b, so _pod_resource_only has no claim
-check yet.
+reference's iter_kind makes).
 """
 
 from __future__ import annotations
@@ -478,7 +476,10 @@ class DefaultPreemption(Plugin):
         NodeDeclaredFeatures sits BEFORE NodeResourcesFit in the host chain
         but has no kernel row — a kernel NodeResourcesFit verdict cannot
         prove it passed, so a features-requiring pod must take the
-        full-chain path."""
+        full-chain path. So must a pod with volume or resource claims: the
+        volume plugins and DynamicResources have no kernel row either."""
+        from ...api.storage import pod_claim_names
+
         aff = pod.spec.affinity
         if aff is not None and (aff.pod_affinity is not None
                                 or aff.pod_anti_affinity is not None):
@@ -489,8 +490,8 @@ class DefaultPreemption(Plugin):
         if any(c.when_unsatisfiable == "DoNotSchedule"
                for c in pod.spec.topology_spread_constraints):
             return False
-        # the reference refuses pods with volume claims or resource claims
-        # here; the port's PodSpec carries neither until ROADMAP A4b
+        if pod_claim_names(pod) or pod.spec.resource_claims:
+            return False
         from .node_declared_features import infer_required_features
 
         if infer_required_features(pod):

@@ -6,16 +6,18 @@ plugin set + weights at pkg/scheduler/apis/config/v1/default_plugins.go:29-73
 w2, NodeResourcesFit w1, NodeResourcesBalancedAllocation w1, ImageLocality w1).
 
 A copy of the reference package's registry
-(kubernetes_tpu/scheduler/plugins/registry.py:44-100): the same weights,
-and the same order and feature gates for the plugins the port has, with
-DefaultPreemption last behind its gate (on by default). DefaultBinder,
-which binds through a store, is in the list when a store is passed (the
-Scheduler passes its own), at the reference's position. Not in the list
-yet: VolumeRestrictions, NodeVolumeLimits, VolumeBinding and VolumeZone
-(they need the storage API) and DynamicResources (the DRA API), all
-ROADMAP A4b. For a pod without volumes or resource claims those plugins
-Skip or pass, so the profile decides such pods as the reference's full
-one does (tests/test_torch_host_plugins.py holds that).
+(kubernetes_tpu/scheduler/plugins/registry.py:44-100): the same plugins,
+order, weights and feature gates. The plugins that read or write the
+store join the list when a store is passed (the Scheduler passes its
+own), each at the reference's position: VolumeRestrictions,
+NodeVolumeLimits, VolumeBinding and VolumeZone between NodeResourcesFit
+and PodTopologySpread, DynamicResources before PodTopologySpread behind
+its DynamicResourceAllocation gate (on by default), and DefaultBinder
+after ImageLocality. Without a store (a framework built around a bare
+snapshot) the list is the reference's less those six; for a pod without
+volumes or resource claims the volume plugins and DynamicResources Skip,
+so such a profile decides that pod as the full one does
+(tests/test_torch_host_plugins.py holds both).
 """
 
 from __future__ import annotations
@@ -35,6 +37,12 @@ from .interpod_affinity import InterPodAffinity
 from .node_affinity import NodeAffinity
 from .node_resources import BalancedAllocation, NodeResourcesFit
 from .pod_topology_spread import PodTopologySpread
+from .volumes import (
+    NodeVolumeLimits,
+    VolumeBinding,
+    VolumeRestrictions,
+    VolumeZone,
+)
 
 DEFAULT_WEIGHTS = {
     "TaintToleration": 3,
@@ -50,8 +58,9 @@ DEFAULT_WEIGHTS = {
 
 def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None = None,
                     store=None):
-    """The default-profile plugin list, in extension-point order; with
-    DefaultBinder over `store` when one is given."""
+    """The default-profile plugin list, in extension-point order; with the
+    volume plugins, DynamicResources and DefaultBinder over `store` when
+    one is given."""
     args = args or {}
     fit_args = args.get("NodeResourcesFit", {})
     ipa_args = args.get("InterPodAffinity", {})
@@ -69,6 +78,8 @@ def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None 
             resource_weights=fit_args.get("resources"),
             shape=fit_args.get("shape"),
         ),
+        *((VolumeRestrictions(store), NodeVolumeLimits(store),
+           VolumeBinding(store), VolumeZone(store)) if store is not None else ()),
         PodTopologySpread(),
         InterPodAffinity(ignore_preferred_terms_of_existing_pods=ipa_args.get(
             "ignorePreferredTermsOfExistingPods", False)),
@@ -85,6 +96,11 @@ def default_plugins(names: ResourceNames, feature_gates=None, args: dict | None 
         idx = next(i for i, p in enumerate(plugins)
                    if p.name == "NodeResourcesFit")
         plugins.insert(idx, NodeDeclaredFeatures())
+    if store is not None and gates.get("DynamicResourceAllocation", True):
+        from .dynamic_resources import DynamicResources
+
+        idx = next(i for i, p in enumerate(plugins) if p.name == "PodTopologySpread")
+        plugins.insert(idx, DynamicResources(store))
     if gates.get("GangScheduling", True):
         from .gang_scheduling import GangScheduling
 

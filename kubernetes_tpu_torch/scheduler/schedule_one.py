@@ -13,8 +13,8 @@ reference package's module (kubernetes_tpu/scheduler/schedule_one.py):
   BatchCache the Scheduler sets as `batch` when that gate is on; off by
   default, as in the reference). The device algorithm
   (`tpu/backend.py TorchSchedulingAlgorithm`) is its subclass and falls
-  back to it. HTTP extenders are not ported: a non-empty extender list
-  raises OutOfSlice (A4b).
+  back to it. HTTP extenders (`extender.py`) prune the feasible set after
+  the in-tree filters and add their weighted scores to the totals.
 - `PodGroupCycle`, the pod-group (gang) algorithm over one snapshot: the
   device gang wave when the planner admits the group, else the host cycle
   — placement enumeration, a dry run per placement on a narrowed snapshot,
@@ -106,14 +106,13 @@ class SchedulingAlgorithm:
         nominator=None,
         extenders: list | None = None,
     ):
-        if extenders:
-            raise OutOfSlice("extenders: A4b")
         self.fw = framework
         self.percentage = percentage_of_nodes_to_score
         self.next_start_node_index = 0
         self.rng = rng or random.Random(0)  # seeded: deterministic tie-breaks
         self.nominator = nominator  # queue, for nominated-pod protection
         self.batch = None  # BatchCache when OpportunisticBatching is on
+        self.extenders = list(extenders or [])
 
     # -- filtering -----------------------------------------------------------
 
@@ -152,6 +151,14 @@ class SchedulingAlgorithm:
                 f"[{', '.join(sorted(diagnosis.unschedulable_plugins)) or 'prefilter'}]"
             )
         feasible = self._find_nodes_that_pass_filters(state, pod, nodes, diagnosis)
+        if self.extenders and feasible:
+            # findNodesThatPassExtenders (schedule_one.go:890): after the
+            # in-tree filters, on their feasible set
+            from .extender import find_nodes_that_pass_extenders
+
+            feasible = find_nodes_that_pass_extenders(
+                self.extenders, pod, feasible, diagnosis
+            )
         return feasible, diagnosis
 
     def _filter_one(self, state, pod, ni: NodeInfo, diagnosis: Diagnosis) -> bool:
@@ -214,6 +221,16 @@ class SchedulingAlgorithm:
         scores, st = self.fw.run_score_plugins(state, pod, nodes)
         if not st.is_success:
             raise RuntimeError(f"score failed: {st.reasons}")
+        if self.extenders:
+            from .extender import extender_scores
+
+            ext = extender_scores(self.extenders, pod, nodes)
+            if ext:
+                for nps in scores:
+                    bonus = ext.get(nps.name, 0)
+                    if bonus:
+                        nps.scores.append(("extenders", bonus))
+                        nps.total_score += bonus
         return scores
 
     def select_host(self, node_scores: list, count: int = 1) -> tuple[str, list]:
@@ -877,6 +894,17 @@ class ScheduleOneLoop:
                     continue
                 fw = self.framework_for_pod(qpi.pod)
                 state = CycleState()
+                vol_plan = algo.take_wave_plan(qpi.pod.meta.key)
+                if vol_plan is not None:
+                    # the node-neutral volume decision made at wave
+                    # admission: seed the cycle state so Reserve and
+                    # PreBind run the normal VolumeBinding flow against the
+                    # selected host
+                    from .plugins.volumes import VolumeBinding, _BindingState, _ClaimsToBind
+
+                    bs = _BindingState(_ClaimsToBind())
+                    bs.per_node[host] = vol_plan
+                    state.write(VolumeBinding.STATE_KEY, bs)
                 result = ScheduleResult(
                     suggested_host=host, evaluated_nodes=planes.n,
                     feasible_nodes=1,
@@ -885,6 +913,8 @@ class ScheduleOneLoop:
                     state, fw, qpi, result, from_wave=True
                 )
                 if not status.is_success:
+                    if vol_plan is not None:
+                        algo.safe_revert_volumes(vol_plan)
                     self._handle_scheduling_failure(
                         fw, qpi, status, self.queue.moved_count
                     )
@@ -1254,10 +1284,17 @@ class ScheduleOneLoop:
             self.cache.pod_group_states.pod_scheduled(gk, pod.meta.key)
 
     def _bind(self, state, fw: Framework, pod: Pod, host: str) -> Status:
-        """bind:1136 — with SchedulerAsyncAPICalls the store write goes
-        through the dispatcher (DefaultBinder via APICacher.bind_pod); else
-        the bind plugins. The binder extenders of the reference
-        (schedule_one.go:1160) come with A4b."""
+        """bind:1136 — an interested binder extender takes precedence over
+        the bind plugins (extendersBinding, schedule_one.go:1160); with
+        SchedulerAsyncAPICalls the store write goes through the dispatcher
+        (DefaultBinder via APICacher.bind_pod); else the bind plugins."""
+        for ext in self.algorithms[fw.profile_name].extenders:
+            if ext.is_binder() and ext.is_interested(pod):
+                # the webhook owns the binding API write (extender.go
+                # Bind:362). Until its update lands in the store the pod
+                # stays assumed in the cache; if the webhook never writes,
+                # the assume expires and the pod is retried
+                return ext.bind(pod, host)
         if self.api_cacher is not None:
             from .api_dispatcher import CallSkippedError
 

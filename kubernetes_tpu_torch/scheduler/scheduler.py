@@ -18,10 +18,14 @@ caller passes "cpu"; without a card and without device="cpu" the
 constructor raises). The reference's backend="host" profile, the plain
 host algorithm alone, is not a profile of the port.
 
+HTTP extenders (`extenders`: ExtenderConfig or HTTPExtender objects, or
+objects with HTTPExtender's interface) filter, prioritize and bind the pods
+they are interested in; such pods take the hybrid route around K4.
+
 Not in this slice, each queued in ROADMAP: the crash-recovery reconcile
 (`reconcile`, `adopt_shard`: A13; `start()` syncs the informers only), the
-warm start (A9), HTTP extenders (A4b: a non-empty list raises OutOfSlice),
-the fleet's shard filter (A13) and the metrics registry and tracer (A6c).
+warm start (A9), the fleet's shard filter (A13) and the metrics registry
+and tracer (A6c).
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ from ..api.resource import ResourceNames
 from ..api.types import DEFAULT_SCHEDULER_NAME, Node, Pod
 from ..client.informer import InformerFactory
 from ..config.types import validate_profiles
-from ..ops.kernels import OutOfSlice
 from ..store.store import ADDED, DELETED, MODIFIED, Store
 from .cache import Cache, Snapshot
+from .extender import ExtenderConfig, HTTPExtender
 from .framework import events as ev
 from .framework.events import ClusterEvent
 from .framework.runtime import Framework, Handle
@@ -96,8 +100,6 @@ class Scheduler:
         from ..utils.clock import Clock
         from .tpu.flightrecorder import FlightRecorder
 
-        if extenders:
-            raise OutOfSlice("extenders: A4b")
         profiles = profiles or [Profile()]
         errs = validate_profiles(profiles)
         if errs:
@@ -119,6 +121,9 @@ class Scheduler:
         self.cache = Cache(self.names)
         self.snapshot = Snapshot()
         self.feature_gates = dict(feature_gates or {})
+        # a config becomes an HTTPExtender; anything else is taken as one
+        self.extenders = [HTTPExtender(e) if isinstance(e, ExtenderConfig) else e
+                          for e in (extenders or [])]
 
         self.wave_size = max(p.wave_size for p in profiles)
         self.frameworks: dict[str, Framework] = {}
@@ -151,6 +156,7 @@ class Scheduler:
             self.algorithms[prof.name] = TorchSchedulingAlgorithm(
                 fw, backend, rng=random.Random(seed),
                 host_tail_percentage=prof.percentage_of_nodes_to_score,
+                extenders=self.extenders,
             )
             pre_enqueue = fw.pre_enqueue_plugins  # last profile wins (single-profile typical)
             hint_map.update(fw.queueing_hint_map())
@@ -224,7 +230,7 @@ class Scheduler:
         self.informers.informer("PodGroup").add_handler(self._on_podgroup_event)
         # dynamic handlers for the event resources the plugins' hints
         # register (eventhandlers.go:481 — only kinds some hint listens to
-        # get informers); the port's profile has none of these kinds yet
+        # get informers): the volume plugins' and DynamicResources' kinds
         registered = {
             h.event.resource
             for hints in hint_map.values()

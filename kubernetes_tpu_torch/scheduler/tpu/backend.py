@@ -35,17 +35,20 @@ which runs the kernels' plain PyTorch versions (as the tests do). Without a
 card and without device="cpu" the constructor raises.
 
 The wave runs the reference's default tier: signature dedup on, hard
-spread and inter-pod affinity in the scan, cross-wave reuse on. Around
-K4 the single-pod cycle has the reference's host tier
-(TorchSchedulingAlgorithm): the hybrid route, the nominee fast path, the
-host algorithm for pods the extractor refuses (FallbackNeeded), and the
-circuit breaker the scheduling loop (schedule_one.ScheduleOneLoop) feeds
-with its device waves' outcomes. The breaker reads injected faults only:
-the tpu.launch and tpu.collect points raise DeviceFlakeError, and a real
-error on the card raises out of the loop. Not in this slice (a later one,
-in the ROADMAP's order): the volume, DRA and extender host stages,
-preemption and the device telemetry. What the kernels do not compute
-raises OutOfSlice, which no route sends to the host.
+spread and inter-pod affinity in the scan, cross-wave reuse on, and pods
+whose volume decision is node-neutral ride it with their volume plan
+applied at the wave's finish. Around K4 the single-pod cycle has the
+reference's host tier (TorchSchedulingAlgorithm): the hybrid route (the
+volume plugins, DynamicResources, NodeDeclaredFeatures and HTTP extenders
+on K4's feasible nodes), the nominee fast path, the host algorithm for
+pods the extractor refuses (FallbackNeeded), and the circuit breaker the
+scheduling loop (schedule_one.ScheduleOneLoop) feeds with its device
+waves' outcomes. The breaker reads injected faults only: the tpu.launch
+and tpu.collect points raise DeviceFlakeError, and a real error on the
+card raises out of the loop. A FitError's cycle state is left fit for
+DefaultPreemption's dry run. Not in this slice (ROADMAP A6c): the device
+telemetry. What the kernels do not compute raises OutOfSlice, which no
+route sends to the host.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from ...api.resource import ResourceNames
+from ...api.storage import pod_claim_names
 from ...api.types import Pod, Taint
 from ...ops.kernels import (
     FILTER_NAMES,
@@ -85,6 +89,7 @@ from ...ops.planes import (
 )
 from ...ops.vocab import next_pow2
 from ...utils import faultinject
+from ..extender import extender_scores, find_nodes_that_pass_extenders
 from ..framework.interface import (
     UNSCHEDULABLE,
     Diagnosis,
@@ -96,6 +101,7 @@ from ..framework.interface import (
 )
 from ..plugins.node_declared_features import infer_required_features
 from ..plugins.pod_topology_spread import PodTopologySpread
+from ..plugins.volumes import VolumeBinding
 from ..schedule_one import SchedulingAlgorithm, num_feasible_nodes_to_find
 
 # Plugins K4 fully models. On the hybrid path these are skipped host-side
@@ -1332,9 +1338,11 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
     - kernel: K4 over every node, the winner the max total with the seeded
       rng's randrange over the tied winners in node order;
     - hybrid (`_schedule_hybrid`): K4's feasibility and totals, with the
-      host chain's remaining plugins (NodeDeclaredFeatures, and the
-      two-pass nominated-pod filter on nodes holding nominations of equal
-      or higher priority) on the kernel-feasible nodes;
+      host chain's remaining plugins (the volume plugins, DynamicResources,
+      NodeDeclaredFeatures, and the two-pass nominated-pod filter on nodes
+      holding nominations of equal or higher priority) on the
+      kernel-feasible nodes, then the interested extenders' filter and
+      weighted scores;
     - nominee fast path (`_evaluate_nominated`): a preemptor's nominated
       node checked host-side first;
     - host tier (`super().schedule_pod`): a pod the extractor refuses
@@ -1363,6 +1371,10 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
         # (DeviceFlakeError — benign fallbacks don't count) waves bypass
         # the device and ride the host tier until probe waves succeed
         self.breaker = CircuitBreaker(on_transition=self._on_breaker_transition)
+        # pod key -> the node-neutral volume plan assumed at wave admission,
+        # popped at the wave's finish (take_wave_plan) or reverted when the
+        # pod re-runs per pod (revert_wave_plan)
+        self._wave_plans: dict = {}
         # the kernel evaluates every node, so the kernel path stays at
         # 100%; the hybrid path's host tail follows the reference's own
         # adaptive sampling (numFeasibleNodesToFind + rotation + early
@@ -1435,31 +1447,71 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
                               feasible_nodes=int(feasible_idx.size))
 
     def _needs_host_compose(self, pod: Pod) -> bool:
-        """Pods whose long-tail host stages must run on top of the kernel
-        (the hybrid path). Of the reference's triggers — volume claims,
-        resource claims, required node features, interested extenders —
-        the port's types carry the required features; the others come
-        with A4b."""
-        return bool(infer_required_features(pod))
+        """Pods whose long-tail stages (volume plugins, DRA, declared
+        features, HTTP extenders) must run host-side on top of the kernel's
+        dense feasibility and scores: the hybrid path, not a fallback."""
+        if pod_claim_names(pod) or pod.spec.resource_claims:
+            return True
+        if infer_required_features(pod):
+            return True
+        # extenders ride on the feasible set exactly as in the host path
+        # (filter after the in-tree plugins, prioritize added to totals)
+        return any(e.is_interested(pod) for e in self.extenders)
 
     def wave_eligible(self, pod: Pod) -> bool:
-        """Fully-kernel pods ride the batched wave (the reference's, less
-        its node-neutral volume plans)."""
+        """Fully-kernel pods ride the batched wave, and so do claim pods
+        whose volume decision is provably node-neutral
+        (VolumeBinder.node_neutral_volumes): their host volume stage
+        collapses to a per-pod constant the wave's finish applies after
+        node selection. Admitting such a pod assumes its plan in the binder
+        at once (stashed in _wave_plans), so the next pod's neutrality
+        check sees this pod's chosen volume: the sequential-greedy rule the
+        wave keeps for resources, kept for volumes."""
         if self._must_fall_back(pod) or self._has_relevant_nominations(pod):
             return False
-        return not self._needs_host_compose(pod)
+        if pod.spec.resource_claims or infer_required_features(pod):
+            return False
+        if any(e.is_interested(pod) for e in self.extenders):
+            return False
+        if pod_claim_names(pod):
+            binder = self._volume_binder()
+            if binder is None:
+                return False
+            plan = binder.node_neutral_volumes(pod)
+            if plan is None:
+                return False
+            binder.assume_pod_volumes(plan)
+            self._wave_plans[pod.meta.key] = plan
+        return True
 
-    # the reference's node-neutral volume wave plans (backend.py:1513-1533):
-    # wave_eligible admits no claim pod until A4b, so there is never a plan
-
-    def take_wave_plan(self, pod_key: str):
+    def _volume_binder(self):
+        for p in self.fw.reserve_plugins:
+            if isinstance(p, VolumeBinding):
+                return p.binder
         return None
 
+    def take_wave_plan(self, pod_key: str):
+        """Pop the stashed node-neutral volume plan (the wave's finish)."""
+        return self._wave_plans.pop(pod_key, None)
+
     def revert_wave_plan(self, pod: Pod) -> None:
-        pass
+        """Release a stashed plan's binder assumes: every wave path that
+        re-runs the pod per pod (a launch fallback, a poisoned carry, a
+        kernel FitError) calls this first, or the assumed PV stays
+        reserved."""
+        plan = self._wave_plans.pop(pod.meta.key, None)
+        if plan is not None:
+            self.safe_revert_volumes(plan)
 
     def safe_revert_volumes(self, plan) -> None:
-        pass
+        """Revert only the assumes that still belong to this plan's claims:
+        a later pod may have re-assumed the same PV."""
+        binder = self._volume_binder()
+        if binder is None:
+            return
+        for pv_key, pvc_key in plan.static_bindings:
+            if binder.assumed.get(pv_key) == pvc_key:
+                binder.assumed.pop(pv_key, None)
 
     def _has_relevant_nominations(self, pod: Pod) -> bool:
         """Any nominated pod (≥ priority) that must be simulated during
@@ -1571,6 +1623,16 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
                     if host_st.plugin:
                         diagnosis.unschedulable_plugins.add(host_st.plugin)
         self.next_start_node_index = (start + evaluated) % num_all if num_all else 0
+        if survivors and self.extenders:
+            # extenders prune after the in-tree filters
+            # (findNodesThatPassExtenders, schedule_one.go:890), here on the
+            # kernel ∩ host feasible set
+            interested = [e for e in self.extenders if e.is_interested(pod)]
+            if interested:
+                kept = find_nodes_that_pass_extenders(
+                    interested, pod, [ni for _, ni in survivors], diagnosis)
+                kept_names = {ni.name for ni in kept}
+                survivors = [(i, ni) for i, ni in survivors if ni.name in kept_names]
         if not survivors:
             state.skip_filter_plugins = prefilter_skips  # see above
             # materialize the kernel's per-node failure rows now, then
@@ -1594,11 +1656,15 @@ class TorchSchedulingAlgorithm(SchedulingAlgorithm):
         host_scores, st = fw.run_score_plugins(state, pod, node_infos)
         if not st.is_success:
             raise RuntimeError(f"score failed: {st.reasons}")
+        ext_bonus: dict[str, int] = {}
+        if self.extenders:
+            ext_bonus = extender_scores(self.extenders, pod, node_infos) or {}
         combined = []
         for (i, ni), host in zip(survivors, host_scores):
             combined.append(NodePluginScores(
                 name=ni.name, scores=host.scores,
-                total_score=int(out["total"][i]) + host.total_score))
+                total_score=(int(out["total"][i]) + host.total_score
+                             + ext_bonus.get(ni.name, 0))))
         host_name, _ = self.select_host(combined)
         return ScheduleResult(suggested_host=host_name, evaluated_nodes=planes.n,
                               feasible_nodes=len(survivors))

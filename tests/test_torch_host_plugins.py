@@ -12,7 +12,8 @@ hosts, evaluated and feasible counts, the rotation index, the seeded rng
 state and the FitError diagnosis, at percentageOfNodesToScore 100 and at
 the adaptive percentage; and the port's default profile against the
 reference's full profile (volume, DRA, binder and preemption plugins
-included) on pods without volumes or claims.
+included) on pods without volumes or claims, with the port's store-backed
+plugins and without them.
 """
 
 import random
@@ -59,6 +60,7 @@ from kubernetes_tpu_torch.scheduler.plugins.registry import default_plugins as t
 from kubernetes_tpu_torch.scheduler.queue import Nominator
 from kubernetes_tpu_torch.scheduler.schedule_one import SchedulingAlgorithm as TAlgorithm
 from kubernetes_tpu_torch.scheduler.schedule_one import num_feasible_nodes_to_find
+from kubernetes_tpu_torch.store import Store as TStore
 from kubernetes_tpu_torch.testing.mixed import build_nodes, build_pods, mixed_spec
 
 FEATURE = "NUMAAlignment"
@@ -318,14 +320,17 @@ def _nominate(nominator, pods, nodes, pkg):
         nominator.add_nominated_pod(pod, node, info(pod, names))
 
 
-def _host_side(spec, pkg, percentage, features=True):
+def _host_side(spec, pkg, percentage, features=True, store=False):
+    """The cluster and a host algorithm over the default profile; the
+    port's with the store-backed plugins when `store` is set."""
     c = _Cluster(spec, pkg, features=features)
     if pkg == "jax":
         fw = JFramework(jdefault_plugins(Store(), c.names), dict(JWEIGHTS))
         nominator = SchedulingQueue(lambda a, b: a.timestamp < b.timestamp)
         algo = JAlgorithm(fw, percentage, rng=random.Random(5), nominator=nominator)
     else:
-        fw = TFramework(tdefault_plugins(c.names), dict(TWEIGHTS))
+        fw = TFramework(tdefault_plugins(c.names, store=TStore() if store else None),
+                        dict(TWEIGHTS))
         nominator = Nominator()
         algo = TAlgorithm(fw, percentage, rng=random.Random(5), nominator=nominator)
     types, meta = (jtypes, jmeta) if pkg == "jax" else (ttypes, tmeta)
@@ -397,14 +402,18 @@ def test_num_feasible_nodes_to_find_matches_reference():
 
 @pytest.mark.parametrize("pct", [100, 0])
 def test_default_profile_matches_reference_full_profile(pct):
-    """The port's default profile (no volume, DRA or binder plugins)
-    decides pods without volumes or claims as the reference's full default
-    profile does; its plugin order is the reference's with those plugins
-    left out, DefaultPreemption last."""
+    """The port's default profile decides pods without volumes or claims as
+    the reference's full default profile does, with a store (the volume
+    plugins, DynamicResources and DefaultBinder in it; its plugin list
+    against the reference's: test_torch_storage_loop.py) and without one
+    (those six left out, the order otherwise the reference's,
+    DefaultPreemption last)."""
     spec = dict(mixed_spec(57, 120, 60, constraints=True), seed=57)
     want = _drive_host(_host_side(spec, "jax", pct, features=False))
     got = _drive_host(_host_side(spec, "port", pct, features=False))
     assert got == want
+    full = _drive_host(_host_side(spec, "port", pct, features=False, store=True))
+    assert full == want
     absent = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
               "DynamicResources", "DefaultBinder"}
     ref = [p.name for p in jdefault_plugins(Store(), JNames())]

@@ -92,8 +92,9 @@ from kubernetes_tpu_torch.testing.mixed import (
 
 NDF = "features.k8s.io/required"
 FEATURE = "NUMAAlignment"
-# the reference's default plugins the port's profile leaves to A4b and the
-# scheduling loop; for pods without volumes or claims they Skip or score 0
+# the reference's default plugins that read the store, which the port's
+# profile holds only when given one (the frameworks here have none); for
+# pods without volumes or claims they Skip or score 0
 NOT_PORTED = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
               "DynamicResources", "DefaultBinder"}
 
@@ -499,8 +500,8 @@ def test_out_of_slice_is_not_routed_to_the_host():
     over a "rack" key of 1025 domains, two nodes in one (K4 holds at most
     1024 domains per key; the reference computes any count), on the kernel
     route and on the hybrid route. A pod the extractor refuses on the same
-    cluster takes the host algorithm. A non-empty extender list raises
-    OutOfSlice too."""
+    cluster takes the host algorithm. A non-empty extender list is
+    accepted (extenders are ported)."""
     names = TNames()
     cache = TCache(names)
     for i in range(1026):
@@ -526,9 +527,9 @@ def test_out_of_slice_is_not_routed_to_the_host():
     side = SimpleNamespace(types=ttypes, pkg="port")
     got = algo.schedule_pod(TCycleState(), _refused_pods(side)[0], snap)
     assert got.suggested_host and (algo.kernel_count, algo.fallback_count) == (0, 1)
-    # HTTP extenders are not ported: a non-empty list refuses to construct
-    with pytest.raises(OutOfSlice, match="extenders"):
-        TorchSchedulingAlgorithm(algo.fw, algo.backend, extenders=[object()])
+    # HTTP extenders are ported: the algorithm holds them
+    ext = object()
+    assert TorchSchedulingAlgorithm(algo.fw, algo.backend, extenders=[ext]).extenders == [ext]
 
 
 def test_lazy_kernel_statuses_set_overlays():

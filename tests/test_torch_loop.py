@@ -36,12 +36,10 @@ import kubernetes_tpu.testing.wrappers as jw
 import kubernetes_tpu_torch.api.meta as tmeta
 import kubernetes_tpu_torch.api.types as ttypes
 import kubernetes_tpu_torch.testing.wrappers as tw
-from kubernetes_tpu.api.resource import ResourceNames as JNames
 from kubernetes_tpu.scheduler import Profile as JProfile
 from kubernetes_tpu.scheduler import Scheduler as JScheduler
 from kubernetes_tpu.store.store import Store as JStore
 from kubernetes_tpu.utils import faultinject as jfi
-from kubernetes_tpu_torch.api.resource import ResourceNames as TNames
 from kubernetes_tpu_torch.scheduler.scheduler import Profile as TProfile
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler as TScheduler
 from kubernetes_tpu_torch.scheduler.tpu import backend as tbackend
@@ -448,10 +446,15 @@ def test_profile_validation(bad, message):
 
 
 def test_extenders_and_disabled_kernel_plugins_raise():
-    from kubernetes_tpu_torch.ops.kernels import OutOfSlice
+    """Disabling a kernel-modeled plugin raises; extenders no longer do:
+    an ExtenderConfig becomes an HTTPExtender shared by every profile's
+    algorithm (tests/test_torch_extender.py drives them)."""
+    from kubernetes_tpu_torch.scheduler.extender import ExtenderConfig, HTTPExtender
 
-    with pytest.raises(OutOfSlice, match="A4b"):
-        TScheduler(TStore(), extenders=[object()], device="cpu")
+    s = TScheduler(TStore(), extenders=[ExtenderConfig(url_prefix="http://127.0.0.1:1")],
+                   device="cpu")
+    assert [type(e) for e in s.extenders] == [HTTPExtender]
+    assert s.algorithms["default-scheduler"].extenders == s.extenders
     with pytest.raises(ValueError, match="kernel-modeled plugins"):
         TScheduler(TStore(), profiles=[TProfile(backend="tpu",
                                                 disabled_plugins=("NodePorts",))],
@@ -459,20 +462,12 @@ def test_extenders_and_disabled_kernel_plugins_raise():
 
 
 def test_default_profile_binds_through_the_store():
-    """With a store the default profile ends in DefaultBinder at the
-    reference's position (the reference's order less its volume and DRA
-    plugins, DefaultPreemption last), and the loop's wave bind is the
-    store's batched binding."""
-    from kubernetes_tpu.scheduler.plugins.registry import default_plugins as jdefault
+    """With a store the default profile binds through DefaultBinder, and the
+    loop's wave bind is the store's batched binding (the profile's plugin
+    list against the reference's: test_torch_storage_loop.py)."""
     from kubernetes_tpu_torch.scheduler.plugins.basics import DefaultBinder
-    from kubernetes_tpu_torch.scheduler.plugins.registry import default_plugins as tdefault
 
-    absent = {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone",
-              "DynamicResources"}
     store = TStore()
-    ref = [p.name for p in jdefault(JStore(), JNames())]
-    got = tdefault(TNames(), store=store)
-    assert [p.name for p in got] == [n for n in ref if n not in absent]
     s = TScheduler(store, profiles=[TProfile(backend="tpu", wave_size=8)], device="cpu")
     fw = s.frameworks["default-scheduler"]
     assert [type(p) for p in fw.bind_plugins] == [DefaultBinder]

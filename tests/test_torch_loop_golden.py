@@ -199,8 +199,8 @@ def test_wave_exports_per_signature_node_hints(monkeypatch):
     tfw, jfw = ts.frameworks["default-scheduler"], js.frameworks["default-scheduler"]
     sig = tfw.sign_pod(tpods[0])
     assert sig is not None and sig in ts.batch_cache.entries
-    # the signature strings differ by the reference's volume and DRA
-    # plugins' (empty) fragments (A4b); the entries pod by pod do not
+    # the same profile, so the same signature strings and entries
+    assert [tfw.sign_pod(p) for p in tpods] == [jfw.sign_pod(p) for p in jpods]
     got = [ts.batch_cache.entries[tfw.sign_pod(p)].ordered_nodes for p in tpods]
     want = [js.batch_cache.entries[jfw.sign_pod(p)].ordered_nodes for p in jpods]
     assert got == want
