@@ -237,8 +237,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    device on its pod's node and none allocated twice); each prints
    pods/s, K1-K4's launches in its measured span and the pods by route
    (wave, hybrid, kernel, host);
-   phases 6, 9, 10, 17-22, 24 (b) and each of 25 (a)-(e) run under a
-   watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
+26. the telemetry the loop and the backend write (the wave recorder's
+   records, the pod latency ledger, the stall profiler, the device
+   telemetry, SchedulerMetrics and the tracer): (a) phase 22's
+   SchedulingBasic/5000Nodes_10000Pods through the port's Scheduler at
+   depth 2 with async API calls, once with every part on (a
+   SchedulerMetrics, a tracer with an in-memory exporter) and once with
+   every part off (the ledger, profiler and device telemetry disabled, no
+   metrics, no tracer): bindings and rng equal, K1 and K2 launched in each
+   measured span (counts zeroed before, read after); pods/s of both, the
+   wave records, wave-size histogram, pipeline_overlap_ratio, the ledger's
+   per-segment p50/p99, the stall coverage and guilty reason, transfer
+   bytes by plane and direction, compiles and their seconds per kernel,
+   and the ledger's memory watermark beside torch.cuda.max_memory_allocated;
+   (b) SchedulingNodeDeclaredFeatures/1000Nodes through the Scheduler
+   with metrics on and every part off, then once more with a probe that
+   counts and times every Framework._timed call: bindings and rng equal,
+   K4 launched once per pod; the host tail split by extension point and
+   plugin, the sampled histogram sums scaled by their sample share
+   (samples over calls) beside the probe's every-call times; (c)
+   GangSchedulingTopologyRequired/500Nodes (100 PodGroups of 4) through
+   the Scheduler: a "device:" gang record per group, K5 launched per
+   group, the recorder's gang pods all on the device side; then the
+   golden bursts with the tpu.launch point armed (three flakes open the
+   breaker) and with the tpu.collect point armed after one clean collect
+   (records closed with "injected: ..."): every pod bound, the breaker
+   opened, fallback/<plugin> time in the recorder; (d) short
+   SchedulingBasic, NDF and gang workloads on the card and with
+   device="cpu": every non-timing field of every wave record, each pod's
+   ledger edge sequence, the plugin observations per (plugin, extension
+   point) and the compiles per kernel equal;
+   phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e) and of 26 (a)-(d)
+   run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -1146,6 +1176,7 @@ def main() -> None:
     with watchdog("phase 25 (e) (volumes, DRA and extenders, the card against the CPU)",
                   args.phase_timeout):
         storage_card_vs_cpu(args)
+    telemetry_phase(args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -2207,7 +2238,7 @@ def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
         t2 = time.perf_counter()
         if hosts is None:
             fail(f"{label}: gang {group.meta.name} was not placed "
-                 f"({backend.gang_record.gang_outcome})")
+                 f"({backend.recorder.records()[-1].gang_outcome})")
         if mode == "Required" and len({int(h.split("-")[1]) % zones for h in hosts}) != 1:
             fail(f"{label}: Required gang {group.meta.name} spans zones")
         assume_gang(handle, group, pods, hosts)
@@ -2217,7 +2248,7 @@ def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
 
     place(*gangs[0])  # the first gang warms the path (the kernels are built)
     phase0 = dict(backend.gang_phase_s)
-    totals0 = dict(backend.gang_pod_totals)
+    totals0 = dict(backend.recorder.gang_pod_totals)
     host0, upload0 = dict(host_s), dict(backend.upload_stats)
     kernels.reset_launches()
     walls = []
@@ -2229,9 +2260,9 @@ def gang_cell(label, n_nodes, zones, n_groups, size, mode, args):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n_pods = n_groups * size
-    device = backend.gang_pod_totals.get("device", 0) - totals0.get("device", 0)
-    if device != n_pods or backend.gang_pod_totals.get("host", 0):
-        fail(f"{label}: gang pods by path {backend.gang_pod_totals}, expected "
+    device = backend.recorder.gang_pod_totals.get("device", 0) - totals0.get("device", 0)
+    if device != n_pods or backend.recorder.gang_pod_totals.get("host", 0):
+        fail(f"{label}: gang pods by path {backend.recorder.gang_pod_totals}, expected "
              f"{n_pods} more on the device")
     for k in ("static_parts", "gang_assign"):
         if launches[k] != n_groups:
@@ -2330,11 +2361,11 @@ def gang_card_vs_cpu(args):
         for group, pods in build_gangs(spec, types, meta):
             admit(handle, group, pods)
             hosts = try_gang_wave(handle, fw, algo, group.meta.key, qpis(pods))
-            got.append((hosts, backend.gang_record.gang_outcome, algo.rng.getstate()))
+            got.append((hosts, backend.recorder.records()[-1].gang_outcome, algo.rng.getstate()))
             if hosts is not None:
                 assume_gang(handle, group, pods, hosts)
         check_tier(f"phase 13 on {device}", algo)
-        results.append((got, rows, dict(backend.gang_pod_totals)))
+        results.append((got, rows, dict(backend.recorder.gang_pod_totals)))
     if results[0] != results[1]:
         for i, (a, b) in enumerate(zip(results[0][0], results[1][0])):
             if a != b:
@@ -2887,7 +2918,7 @@ def gang_tier_cell(args, device):
         admit(side.handle, group, pods)
         if g == n:
             kernels.reset_launches()
-            totals0 = dict(backend.gang_pod_totals)
+            totals0 = dict(backend.recorder.gang_pod_totals)
         out = cycle.schedule_pod_group(group.meta.key, qpis(pods))
         if out[0] != "success":
             fail(f"(d) {device}: gang {group.meta.name} not placed: {out}")
@@ -2896,19 +2927,19 @@ def gang_tier_cell(args, device):
             fail(f"(d) {device}: Required gang {group.meta.name} spans zones: {hosts}")
         if g == n:
             ndf_launches = dict(kernels.LAUNCHES)
-            host = backend.gang_pod_totals.get("host", 0) - totals0.get("host", 0)
+            host = backend.recorder.gang_pod_totals.get("host", 0) - totals0.get("host", 0)
             if host != 4 or {int(h.split("-")[1]) % args.zones for h in hosts} != {3}:
                 fail(f"(d) {device}: the declared-features gang went {hosts}, "
                      f"{host} members counted on the host side")
         assume_gang(side.handle, group, pods, hosts)
         log.append((group.meta.name, hosts))
     wall = time.perf_counter() - t0
-    if backend.gang_pod_totals.get("device", 0) != 4 * (n + 1):
-        fail(f"(d) {device}: gang pods by path {backend.gang_pod_totals}")
+    if backend.recorder.gang_pod_totals.get("device", 0) != 4 * (n + 1):
+        fail(f"(d) {device}: gang pods by path {backend.recorder.gang_pod_totals}")
     check_tier(f"(d) {device}", side.algo)
     return {"log": log, "rng": side.algo.rng.getstate(), "wall_s": wall,
             "counts": (side.algo.kernel_count, side.algo.fallback_count,
-                       dict(backend.gang_pod_totals)),
+                       dict(backend.recorder.gang_pod_totals)),
             "ndf_launches": ndf_launches}
 
 
@@ -3132,7 +3163,7 @@ def loop_stream(args, device, variant):
     algo = s.algorithms["default-scheduler"]
     return ({"placed": placed, "diags": diags, "rng": algo.rng.getstate(),
              "counts": (algo.kernel_count, algo.fallback_count),
-             "gangs": dict(algo.backend.gang_pod_totals)},
+             "gangs": dict(s.flight_recorder.gang_pod_totals)},
             launches, wall)
 
 
@@ -3896,6 +3927,484 @@ def storage_card_vs_cpu(args):
               f"{EXT_CPU_PODS} pods over {EXT_CPU_NODES} nodes: card == CPU "
               f"(bindings, extender calls {out['cpu'][1]}, rng)")
     print(f"phase 25 (e): {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# 26: the telemetry the loop and the backend write
+# --------------------------------------------------------------------------
+
+# every non-timing field of a wave record (WaveRecord.to_dict() less the
+# clocks, the phases and the stall attribution drawn from them)
+RECORD_TIMING = ("started_at", "duration_s", "overlap_s", "phases", "stall_by_reason",
+                 "stall_coverage", "stall_dominant", "profile")
+TELEMETRY_PARTS_OFF = ("pod_ledger", "stall_profiler", "device_telemetry")
+
+
+def telemetry_scheduler(store, device, wave, seed, on, gates=None, async_api=False):
+    """The port's Scheduler with every telemetry part on (a SchedulerMetrics,
+    a tracer with an in-memory exporter, the recorder's ledger, profiler and
+    device telemetry) or every part off."""
+    from kubernetes_tpu_torch.scheduler.metrics import SchedulerMetrics
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.utils.tracing import InMemoryExporter, Tracer
+
+    kw = {}
+    if on:
+        kw = {"metrics": SchedulerMetrics(),
+              "tracer": Tracer("chip_smoke", InMemoryExporter(capacity=4096))}
+    s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)], seed=seed,
+                  clock=StrictClock(), device=device, feature_gates=gates or {},
+                  async_api_calls=async_api, **kw)
+    for part in TELEMETRY_PARTS_OFF:
+        getattr(s.flight_recorder, part).enabled = on
+    s.start()
+    return s
+
+
+def telemetry_view(s):
+    """What the card and the CPU must agree on: every non-timing field of
+    every wave record, each completed pod's ledger edge sequence, the
+    plugin observations per (plugin, extension point) and the compiles per
+    kernel."""
+    fr = s.flight_recorder
+    records = [{k: v for k, v in r.to_dict().items() if k not in RECORD_TIMING}
+               for r in fr.records()]
+    ledger = [(e.key, tuple(e.stamps)) for e in fr.pod_ledger._completed]
+    obs = ({k: st.count for k, st in s.metrics.plugin_execution_duration.values.items()}
+           if s.metrics is not None else {})
+    compiles = fr.device_telemetry.snapshot()["compiles"]["by_kernel"]
+    return {"records": records, "ledger": ledger, "observations": obs,
+            "compiles": compiles}
+
+
+def sb_telemetry_run(args, on):
+    """26 (a), one run: SchedulingBasic/5000Nodes_10000Pods through the
+    port's Scheduler at depth 2 with async API calls (the benchmark cell's
+    loop), every telemetry part on or off."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        store = Store()
+        for i in range(args.nodes):
+            store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+        s = telemetry_scheduler(store, "cuda", args.wave, args.seed, on, async_api=True)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    for i in range(args.init_pods):
+        store.create(scheduling_basic_pod(i), copy_return=False)
+    s.schedule_pending()
+    for i in range(args.pods):
+        store.create(scheduling_basic_pod(args.init_pods + i), copy_return=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    n = s.schedule_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"phase 26 (a), telemetry {'on' if on else 'off'}", s)
+    bound = {p.meta.key: p.spec.node_name for p in store.pods()}
+    if n != args.pods or not all(bound.values()):
+        fail(f"phase 26 (a): {n} pods scheduled, "
+             f"{sum(1 for v in bound.values() if not v)} unbound")
+    if launches["static_parts"] <= 0 or launches["assign_scan"] <= 0:
+        fail(f"phase 26 (a): K1 and K2 must launch in the measured span: {launches}")
+    out = {"bindings": bound, "rng": s.algorithms["default-scheduler"].rng.getstate(),
+           "pods_s": args.pods / wall, "launches": launches, "s": s,
+           "max_allocated": torch.cuda.max_memory_allocated()}
+    if s.api_dispatcher is not None:
+        s.api_dispatcher.close()
+    return out
+
+
+def on_off_runs(run, args, label):
+    """`run(args, on)` four times, on, off, off, on (one pair each way: a
+    run's place in the process moves its rate), every run's bindings and
+    rng equal to the first's. Returns the first on run, the first off run
+    and the four rates."""
+    runs = []
+    for on in (True, False, False, True):
+        r = collected(run, args, on)
+        if runs and (r["bindings"] != runs[0]["bindings"] or r["rng"] != runs[0]["rng"]):
+            diff = [k for k, v in runs[0]["bindings"].items() if r["bindings"].get(k) != v]
+            fail(f"{label}: telemetry on and off differ: {len(diff)} bindings (first "
+                 f"{diff[:3]}), rng equal {r['rng'] == runs[0]['rng']}")
+        if len(runs) >= 2:
+            r.pop("s")  # keep the first on and off runs' schedulers only
+        runs.append(r)
+    rates = [r["pods_s"] for r in runs]
+    return runs[0], runs[1], rates
+
+
+def on_off_line(rates):
+    on = (rates[0] + rates[3]) / 2
+    off = (rates[1] + rates[2]) / 2
+    return (f"telemetry on {rates[0]:.1f}, {rates[3]:.1f} pods/s, off {rates[1]:.1f}, "
+            f"{rates[2]:.1f} pods/s (on, off, off, on; cost of the means "
+            f"{(1 - on / off) * 100:.2f} %)")
+
+
+def sb_telemetry(args, smi):
+    """26 (a): SchedulingBasic at full width with every telemetry part on
+    and off (on, off, off, on): identical bindings and rng; the first on
+    run's telemetry printed."""
+    from kubernetes_tpu_torch.scheduler.tpu.stallprofiler import critical_path
+
+    on, off, rates = on_off_runs(sb_telemetry_run, args, "phase 26 (a)")
+    s = on["s"]
+    fr = s.flight_recorder
+    recs = fr.records()
+    if not recs or fr.pod_ledger.completed_total < args.pods:
+        fail(f"phase 26 (a): {len(recs)} wave records, "
+             f"{fr.pod_ledger.completed_total} ledger entries")
+    if off["s"].flight_recorder.pod_ledger.completed_total:
+        fail("phase 26 (a): the ledger stamped with its part off")
+    print(f"(26 (a)) SchedulingBasic through the port's Scheduler (depth 2, async API "
+          f"calls) on {smi}: {on_off_line(rates)}; bindings and rng equal; launches on "
+          f"{on['launches']}, off {off['launches']}")
+    stalls = critical_path([r.to_dict() for r in recs])
+    print(f"(26 (a)) wave records {len(recs)} (of {int(fr.phase_snapshot()['waves'])} "
+          f"launched); wave sizes {fr.wave_size_histogram()}; pipeline_overlap_ratio "
+          f"{fr.pipeline_overlap_ratio()}; stall coverage min "
+          f"{fr.stall_profiler.summary()['coverage_min']}, guilty {stalls['guilty']} "
+          f"(share {stalls['guilty_share']}), stall s {stalls['stall_s']}")
+    segs = fr.pod_ledger.segment_quantiles()
+    print("(26 (a)) pod ledger, ms p50/p99 (n): " + "; ".join(
+        f"{k} {v['p50'] * 1e3:.3f}/{v['p99'] * 1e3:.3f} ({v['n']})" for k, v in segs.items()))
+    tel = fr.device_telemetry.snapshot()
+    print(f"(26 (a)) transfers: upload {tel['transfers']['upload']}, fetch "
+          f"{tel['transfers']['fetch']}")
+    print(f"(26 (a)) compiles {tel['compiles']['by_kernel']}, seconds "
+          f"{tel['compiles']['seconds_by_kernel']}, shapes {tel['compiles']['distinct_shapes']}")
+    print(f"(26 (a)) memory: ledger watermark {tel['memory']['watermark_bytes']} B, live "
+          f"{tel['memory']['live_bytes']} B by group {tel['memory']['resident_bytes']}; "
+          f"torch.cuda.memory_allocated {tel['memory'].get('torch_memory_allocated')} B, "
+          f"max_memory_allocated over the measured span {on['max_allocated']} B")
+    spans = s.tracer.exporter.find("wave/")
+    if not spans or not s.metrics.wave_duration.count():
+        fail("phase 26 (a): no wave span or wave metric")
+    print(f"(26 (a)) spans exported: {len(s.tracer.exporter.last())} roots, "
+          f"{len(spans)} wave/<id> (the exporter keeps its last {s.tracer.exporter.capacity})")
+
+
+class TimedProbe:
+    """Counts and times every Framework._timed call by (plugin, extension
+    point): the calls the 1-in-10 sample chose from, and each plugin's
+    whole time (two clock reads a call more than the sample takes)."""
+
+    def __init__(self, fw):
+        self.calls, self.secs = {}, {}
+        inner = fw._timed
+
+        def timed(point, plugin, fn):
+            key = (plugin, point)
+            t0 = time.perf_counter()
+            try:
+                return inner(point, plugin, fn)
+            finally:
+                self.secs[key] = self.secs.get(key, 0.0) + time.perf_counter() - t0
+                self.calls[key] = self.calls.get(key, 0) + 1
+
+        fw._timed = timed
+
+
+def ndf_telemetry_run(args, on, probe=False):
+    """26 (b), one run: SchedulingNodeDeclaredFeatures/1000Nodes through the
+    port's Scheduler: 500 plain and 500 featured nodes, 1000 pods of 500m
+    requiring NUMAAlignment (the hybrid route: K4 and the host tail)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+
+    store = Store()
+    n_plain = args.ndf_nodes // 2
+    for i in range(args.ndf_nodes):
+        featured = i >= n_plain
+        store.create(make_node(f"node-{i}", zone=f"zone-{i % args.zones}",
+                               labels={"node-class": "featured"} if featured else None,
+                               declared_features=(FEATURE,) if featured else ()),
+                     copy_return=False)
+    s = telemetry_scheduler(store, "cuda", args.wave, args.seed, on,
+                            gates={"NodeDeclaredFeatures": True})
+    fw = s.frameworks["default-scheduler"]
+    tp = TimedProbe(fw) if probe else None
+    for i in range(args.ndf_pods):
+        p = make_pod(f"pod-{i}", cpu="500m")
+        p.meta.annotations[NDF_ANNOTATION] = FEATURE
+        store.create(p, copy_return=False)
+    algo = s.algorithms["default-scheduler"]
+    run0, cycle0 = dict(algo.backend.run_phase_s), s.loop.phase_profile["cycle"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s.schedule_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"phase 26 (b), telemetry {'on' if on else 'off'}", s)
+    bound = {p.meta.key: p.spec.node_name for p in store.pods()}
+    if not all(bound.values()) or any(int(v.split("-")[1]) < n_plain for v in bound.values()):
+        fail("phase 26 (b): a pod unbound or on a plain node")
+    if launches["fit_and_score"] < args.ndf_pods:
+        fail(f"phase 26 (b): K4 launched {launches['fit_and_score']} times for "
+             f"{args.ndf_pods} pods")
+    run = sum(v - run0[k] for k, v in algo.backend.run_phase_s.items())
+    return {"bindings": bound, "rng": algo.rng.getstate(), "pods_s": args.ndf_pods / wall,
+            "launches": launches, "s": s, "probe": tp,
+            "cycle_s": s.loop.phase_profile["cycle"] - cycle0, "run_s": run}
+
+
+def ndf_telemetry(args, smi):
+    """26 (b): NDF at full width with SchedulerMetrics on and every part
+    off: identical bindings and rng; the host tail split by extension point
+    and plugin from the sampled plugin histograms (each sum scaled by its
+    sample share: the samples over the calls, counted in a third run with
+    a probe on Framework._timed, which also times every call: the
+    unsampled split beside the sampled one)."""
+    on, _off, rates = on_off_runs(ndf_telemetry_run, args, "phase 26 (b)")
+    counted = collected(ndf_telemetry_run, args, True, True)
+    if counted["bindings"] != on["bindings"] or counted["rng"] != on["rng"]:
+        fail("phase 26 (b): telemetry on and the counting run differ")
+    print(f"(26 (b)) NodeDeclaredFeatures/1000Nodes through the port's Scheduler on {smi}: "
+          f"{on_off_line(rates)}; bindings and rng equal; launches on {on['launches']}")
+    hist = on["s"].metrics.plugin_execution_duration
+    probe = counted["probe"]
+    n = args.ndf_pods
+    rows = []
+    for key, calls in probe.calls.items():
+        st = hist.values.get(key)
+        count, total = (st.count, st.total) if st is not None else (0, 0.0)
+        est = total * calls / count if count else 0.0
+        rows.append((key[1], key[0], est, count, calls, probe.secs[key]))
+    rows.sort(key=lambda r: -r[5])
+    cycle_us = on["cycle_s"] * 1e6 / n
+    run_us = on["run_s"] * 1e6 / n
+    print(f"(26 (b)) per pod: cycle {cycle_us:.1f} us, of it K4's run {run_us:.1f} us, the "
+          f"rest (host) {cycle_us - run_us:.1f} us; plugin time: sampled sums scaled by the "
+          f"sample share {sum(r[2] for r in rows) * 1e6 / n:.1f} us, every call timed "
+          f"(the counting run) {sum(r[5] for r in rows) * 1e6 / n:.1f} us")
+    print("(26 (b)) host time by extension point and plugin, us per pod: sampled and "
+          "scaled (samples / calls), every call timed:")
+    for point, plugin, est, count, calls, secs in rows:
+        print(f"(26 (b))   {point:>10} {plugin:<34} {est * 1e6 / n:9.2f} ({count} / {calls})"
+              f" {secs * 1e6 / n:9.2f}")
+    unsampled = sorted(f"{r[1]}/{r[0]}" for r in rows if not r[3])
+    if unsampled:
+        print(f"(26 (b)) called but never sampled: {unsampled}")
+
+
+def gang_telemetry_run(args, device, groups):
+    """26 (c), the gang: GangSchedulingTopologyRequired/500Nodes (gang.yaml:
+    500 nodes, PodGroups of 4 default pods, Required zone topology) through
+    the port's Scheduler with the gang gates on."""
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import (
+        GangPolicy, PodGroup, PodGroupSpec, SchedulingConstraints, TopologyConstraint)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod, with_gang
+
+    store = Store()
+    for i in range(args.gang_nodes):
+        store.create(make_node(f"node-{i}", zone=f"zone-{i % args.zones}"),
+                     copy_return=False)
+    s = telemetry_scheduler(store, device, args.wave, args.seed, True,
+                            gates={"GenericWorkload": True,
+                                   "TopologyAwareWorkloadScheduling": True})
+    topo = SchedulingConstraints(topology=(TopologyConstraint(
+        key="topology.kubernetes.io/zone", mode="Required"),))
+    for g in range(groups):
+        store.create(PodGroup(meta=ObjectMeta(name=f"group-{g}"),
+                              spec=PodGroupSpec(policy=GangPolicy(min_count=4),
+                                                constraints=topo)), copy_return=False)
+        for m in range(4):
+            store.create(with_gang(make_pod(f"group-{g}-{m}", cpu="100m", mem="50Mi"),
+                                   f"group-{g}"), copy_return=False)
+    kernels.reset_launches()
+    s.schedule_pending()
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"phase 26 (c) gangs on {device}", s)
+    bound = {p.meta.name: p.spec.node_name for p in store.pods()}
+    if not all(bound.values()):
+        fail(f"phase 26 (c) gangs on {device}: unbound pods")
+    return {"bindings": bound, "rng": s.algorithms["default-scheduler"].rng.getstate(),
+            "launches": launches, "s": s}
+
+
+def breaker_telemetry_run(args, device, point, start_after, times):
+    """26 (c), the breaker: the golden bursts through the port's Scheduler
+    with the `point` fault armed (`times` transient faults after
+    `start_after` clean passes)."""
+    import kubernetes_tpu_torch.testing.wrappers as w
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.mixed import burst_pods
+    from kubernetes_tpu_torch.utils import faultinject
+
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        store = Store()
+        for i in range(args.loop_nodes):
+            store.create(w.make_node(f"n{i}", cpu="32", mem="64Gi", zone=f"z{i % 4}"))
+        reg = faultinject.registry()
+        reg.reset(seed=0)
+        reg.register(faultinject.FaultSpec(point, mode=faultinject.ERROR, transient=True,
+                                           start_after=start_after, times=times))
+        reg.arm()
+        try:
+            s = telemetry_scheduler(store, device, 16, 3, True)
+            for p in burst_pods(w, 0, 160):
+                store.create(p)
+            s.schedule_pending()
+        finally:
+            reg.disarm()
+            reg.reset(seed=0)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    bound = {p.meta.name: p.spec.node_name for p in store.pods()}
+    if not all(bound.values()):
+        fail(f"phase 26 (c) {point} on {device}: unbound pods")
+    fr = s.flight_recorder
+    if not any(new == "open" for _old, new, _why in fr.breaker_events):
+        fail(f"phase 26 (c) {point} on {device}: the breaker never opened "
+             f"({fr.breaker_events})")
+    fallback = {k: v for k, v in fr.phase_snapshot().items() if k.startswith("fallback/")}
+    if not fallback:
+        fail(f"phase 26 (c) {point} on {device}: no fallback/<plugin> time")
+    return {"bindings": bound, "rng": s.algorithms["default-scheduler"].rng.getstate(),
+            "s": s, "fallback": fallback}
+
+
+def gang_breaker_telemetry(args):
+    """26 (c): the gang records on the recorder, and breaker-OPEN waves'
+    fallback attribution."""
+    t0 = time.perf_counter()
+    g = collected(gang_telemetry_run, args, "cuda", args.gang_groups)
+    fr = g["s"].flight_recorder
+    gangs = [r for r in fr.records() if r.gang_groups]
+    device = fr.gang_pod_totals.get("device", 0)
+    if device != 4 * args.gang_groups or len(gangs) != args.gang_groups \
+            or any(not r.gang_outcome.startswith("device:") for r in gangs) \
+            or g["launches"]["gang_assign"] < args.gang_groups:
+        fail(f"phase 26 (c): {len(gangs)} gang records, gang pods by path "
+             f"{fr.gang_pod_totals}, launches {g['launches']}")
+    comp = fr.device_telemetry.snapshot()["compiles"]
+    print(f"(26 (c)) GangSchedulingTopologyRequired/{args.gang_nodes}Nodes, "
+          f"{args.gang_groups} PodGroups of 4 through the port's Scheduler: {len(gangs)} gang "
+          f"records, outcomes {sorted({r.gang_outcome.split(':')[0] for r in gangs})}, gang "
+          f"pods by path {fr.gang_pod_totals}; launches {g['launches']}; compiles "
+          f"{comp['by_kernel']}, seconds {comp['seconds_by_kernel']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for point, start_after, times in (("tpu.launch", 0, 3), ("tpu.collect", 1, 3)):
+        r = breaker_telemetry_run(args, "cuda", point, start_after, times)
+        fr = r["s"].flight_recorder
+        reasons = sorted({rec.fallback_reason for rec in fr.records() if rec.fallback_reason})
+        if point == "tpu.collect" and not any(x.startswith("injected:") for x in reasons):
+            fail(f"phase 26 (c) {point}: no wave record carries its fallback reason "
+                 f"({reasons})")
+        top = sorted(r["fallback"].items(), key=lambda kv: -kv[1])[:6]
+        print(f"(26 (c)) {point} armed ({times} faults after {start_after} clean): breaker "
+              f"{[(o, n) for o, n, _ in fr.breaker_events]}; {len(fr.records())} wave "
+              f"records, fallback reasons {reasons}; fallback time by plugin, ms "
+              + ", ".join(f"{k[9:]} {v * 1e3:.2f}" for k, v in top))
+    print(f"phase 26 (c): {time.perf_counter() - t0:.1f} s")
+
+
+def telemetry_card_vs_cpu(args):
+    """26 (d): a short SchedulingBasic, NDF and gang workload on the card
+    and with device="cpu": every non-timing field of every wave record,
+    each pod's ledger edge sequence, the observations per (plugin,
+    extension point) and the compiles per kernel equal."""
+    import kubernetes_tpu_torch.testing.wrappers as w
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    t0 = time.perf_counter()
+
+    def sb(device):
+        os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+        try:
+            store = Store()
+            for i in range(TEL_CPU_NODES):
+                store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+            s = telemetry_scheduler(store, device, 64, args.seed, True)
+        finally:
+            os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+        for i in range(TEL_CPU_PODS):
+            store.create(scheduling_basic_pod(i), copy_return=False)
+        s.schedule_pending()
+        return s, store
+
+    def ndf(device):
+        store = Store()
+        for i in range(TEL_CPU_NODES):
+            featured = i % 2 == 1
+            store.create(w.make_node(f"node-{i}", zone=f"zone-{i % args.zones}",
+                                     declared_features=(FEATURE,) if featured else ()))
+        s = telemetry_scheduler(store, device, 64, args.seed, True,
+                                gates={"NodeDeclaredFeatures": True})
+        for i in range(TEL_CPU_PODS // 4):
+            p = w.make_pod(f"pod-{i}", cpu="500m")
+            if i % 3:
+                p.meta.annotations[NDF_ANNOTATION] = FEATURE
+            store.create(p)
+        s.schedule_pending()
+        return s, store
+
+    def gang(device):
+        r = gang_telemetry_run(SimpleArgs(args, gang_nodes=TEL_CPU_NODES), device, 12)
+        return r["s"], None
+
+    for label, fn in (("SchedulingBasic", sb), ("NodeDeclaredFeatures", ndf),
+                      ("GangSchedulingTopologyRequired", gang)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            s, _ = fn(device)
+            check_loop(f"phase 26 (d) {label} on {device}", s)
+            out[device] = (telemetry_view(s),
+                           s.algorithms["default-scheduler"].rng.getstate())
+        if out["cuda"] != out["cpu"]:
+            which = [k for k in out["cuda"][0] if out["cuda"][0][k] != out["cpu"][0][k]]
+            fail(f"phase 26 (d) {label}: card and CPU differ on {which or 'rng'}")
+        view = out["cuda"][0]
+        print(f"(26 (d)) {label}: card == CPU ({len(view['records'])} wave records, "
+              f"{len(view['ledger'])} ledger entries, {sum(view['observations'].values())} "
+              f"plugin samples over {len(view['observations'])} (plugin, point) keys, "
+              f"compiles {view['compiles']})")
+    print(f"phase 26 (d): {time.perf_counter() - t0:.1f} s")
+
+
+# 26 (d)'s short cluster and pods
+TEL_CPU_NODES = 48
+TEL_CPU_PODS = 256
+
+
+class SimpleArgs:
+    """args with some values replaced."""
+
+    def __init__(self, args, **kw):
+        self.__dict__.update(vars(args))
+        self.__dict__.update(kw)
+
+
+def telemetry_phase(args, smi):
+    """26. The telemetry on the card: (a) SchedulingBasic, (b) NDF, (c) a
+    gang and breaker-OPEN waves, (d) card == CPU."""
+    t0 = time.perf_counter()
+    with watchdog("phase 26 (a) (SchedulingBasic with the telemetry on and off)",
+                  args.phase_timeout):
+        sb_telemetry(args, smi)
+    with watchdog("phase 26 (b) (NodeDeclaredFeatures with the telemetry on and off)",
+                  args.phase_timeout):
+        ndf_telemetry(args, smi)
+    with watchdog("phase 26 (c) (a gang and breaker-OPEN waves)", args.phase_timeout):
+        gang_breaker_telemetry(args)
+    with watchdog("phase 26 (d) (the telemetry, card against the CPU)", args.phase_timeout):
+        telemetry_card_vs_cpu(args)
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,10 @@ SCHEDULE_ANYWAY = "ScheduleAnyway"
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 
+# Pod phases (the pod latency ledger's status_ack edge: Running)
+PENDING = "Pending"
+RUNNING = "Running"
+
 
 # --- node selectors / affinity -------------------------------------------
 
@@ -210,11 +214,13 @@ class PodCondition:
 @dataclass
 class PodStatus:
     """The part of core/v1 PodStatus the scheduler reads and writes: the
-    node a preemption nominated for the pod, and the PodScheduled
-    condition of a pod that fits nowhere."""
+    node a preemption nominated for the pod, the PodScheduled condition of
+    a pod that fits nowhere, and the phase a kubelet reports (Running
+    closes the pod latency ledger's status_ack edge)."""
 
     nominated_node_name: str = ""
     conditions: list[PodCondition] = field(default_factory=list)
+    phase: str = PENDING
 
 
 @dataclass

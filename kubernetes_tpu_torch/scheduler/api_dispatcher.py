@@ -14,8 +14,9 @@ Semantics preserved:
 - `parallelism` worker threads drain the queue; callers can wait on a future
 
 A copy of the reference package's module
-(kubernetes_tpu/scheduler/api_dispatcher.py) less its metrics, tracing and
-flight-recorder hooks.
+(kubernetes_tpu/scheduler/api_dispatcher.py): with its metrics, an
+`api/<call>` span per execution and the retry counts it gives the wave
+recorder; its retry policy's knobs are constants.
 """
 
 from __future__ import annotations
@@ -80,9 +81,12 @@ class APICall:
 class APIDispatcher:
     """Queue + workers (api_dispatcher.go APIDispatcher)."""
 
-    def __init__(self, parallelism: int = 16,
-                 retry_policy: RetryPolicy | None = None):
+    def __init__(self, parallelism: int = 16, metrics=None, tracer=None,
+                 retry_policy: RetryPolicy | None = None, recorder=None):
         self.parallelism = parallelism
+        self.metrics = metrics
+        self.tracer = tracer  # optional utils.tracing.Tracer: span per call
+        self.recorder = recorder  # optional WaveRecorder: retry counts
         self.retry_policy = retry_policy or _default_retry_policy()
         self._retry_rng = random.Random(0xD15)  # jitter only, never decisions
         self._queued: dict[str, APICall] = {}  # object key -> pending call
@@ -148,6 +152,8 @@ class APIDispatcher:
                 else:
                     self._queued[call.object_key] = call
                     self._order.put(call.object_key)
+                if self.metrics is not None:
+                    self.metrics.async_api_pending.set(len(self._queued))
         if rejected:
             # terminal, not silent: a caller that waits on call.done after
             # shutdown must wake with an error, exactly like close() treats
@@ -186,6 +192,8 @@ class APIDispatcher:
                 if pending is not None and pending.relevance < relevance:
                     del self._queued[key]
                     dropped.append(pending)
+                    if self.metrics is not None:
+                        self.metrics.async_api_pending.set(len(self._queued))
         # outside the lock (on_finish may re-enter the dispatcher): a
         # superseded call never ran, so its waiters must observe
         # CallSkippedError — done.set() alone would read as success
@@ -224,6 +232,8 @@ class APIDispatcher:
                     call = self._queued.pop(key, None)
                     if call is not None:
                         self._executing.add(key)
+                    if self.metrics is not None:
+                        self.metrics.async_api_pending.set(len(self._queued))
             if call is None:
                 continue
             try:
@@ -246,7 +256,14 @@ class APIDispatcher:
 
         def attempt():
             faultinject.fire("dispatcher.execute")
-            call.execute()
+            if self.tracer is not None:
+                # worker threads get their own span stacks (thread-local),
+                # so each api/<type> call exports as its own root span
+                with self.tracer.span(f"api/{call.call_type}",
+                                      object_key=call.object_key):
+                    call.execute()
+            else:
+                call.execute()
 
         def on_backoff(attempt_no: int, delay_s: float) -> None:
             stats["attempts"] = attempt_no + 1
@@ -271,7 +288,21 @@ class APIDispatcher:
             with self._lock:
                 self.exec_seconds += time.perf_counter() - t0
                 self.retries += stats["attempts"] - 1
+        if stats["attempts"] > 1:
+            if self.recorder is not None:
+                self.recorder.note_retries(stats["attempts"] - 1)
+            if self.metrics is not None:
+                self.metrics.async_api_retries.observe(
+                    stats["attempts"], call.call_type
+                )
+                self.metrics.async_api_backoff_seconds.observe(
+                    stats["backoff_s"], call.call_type
+                )
         call.error = err
+        if self.metrics is not None:
+            self.metrics.async_api_calls.inc(
+                call.call_type, "error" if err else "success"
+            )
         if call.on_finish is not None:
             call.on_finish(err)
         call.done.set()
@@ -320,6 +351,8 @@ class APIDispatcher:
             abandoned = list(self._queued.values())
             self._queued.clear()
             self._parked.clear()
+            if self.metrics is not None:
+                self.metrics.async_api_pending.set(0)
         # outside the lock: on_finish may re-enter the dispatcher
         for call in abandoned:
             err = DispatcherClosedError(

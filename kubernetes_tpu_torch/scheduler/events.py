@@ -9,8 +9,7 @@ same way and flushes batches to the store, so the hot binding path only
 appends to a list.
 
 A copy of the reference package's module (kubernetes_tpu/scheduler/events.py)
-less its metrics and its branches for store facades other than the port's
-Store.
+less its branches for store facades other than the port's Store.
 """
 
 from __future__ import annotations
@@ -60,6 +59,9 @@ class EventRecorder:
         self._flush_seq = 0
         self._last_flush = float("-inf")  # monotonic
         self._last_gc = time.monotonic()
+        # optional SchedulerMetrics (the Scheduler wires its own): every
+        # disposition, aggregation and GC prune is counted
+        self.metrics = None
 
     def event(self, obj, etype: str, reason: str, message: str,
               correlation: str | None = None) -> None:
@@ -114,6 +116,8 @@ class EventRecorder:
                     reporting_controller=self.component,
                 )
             flush_now = len(self._pending) >= self._max_buffer
+        if self.metrics is not None and hasattr(self.metrics, "event_recorded"):
+            self.metrics.event_recorded(aggregated)
         if flush_now:
             self.flush()
 
@@ -187,4 +191,6 @@ class EventRecorder:
                 pruned += 1
         except Exception:  # noqa: BLE001
             pass
+        if self.metrics is not None and hasattr(self.metrics, "events_pruned"):
+            self.metrics.events_pruned(pruned)
         return pruned

@@ -18,8 +18,7 @@ The device kernels subsume this for wave-eligible pods (a wave of
 identical pods is one K2 scan over its signatures); this host cache
 accelerates the long-tail pods that take the host path, and the loop warms
 it from each wave's per-signature score rows. A copy of the reference
-package's module (kubernetes_tpu/scheduler/framework/batch.py) less its
-metrics.
+package's module (kubernetes_tpu/scheduler/framework/batch.py).
 """
 
 from __future__ import annotations
@@ -28,6 +27,11 @@ import time
 from dataclasses import dataclass, field
 
 MAX_BATCH_AGE = 0.5  # seconds (batch.go maxBatchAge:56)
+
+HIT = "hit"
+MISS = "miss"
+STALE = "stale"
+EXHAUSTED = "exhausted"
 
 
 @dataclass
@@ -41,14 +45,21 @@ class _BatchEntry:
 class BatchCache:
     max_age: float = MAX_BATCH_AGE
     entries: dict[str, _BatchEntry] = field(default_factory=dict)
+    metrics: object | None = None
+
+    def _record(self, result: str) -> None:
+        if self.metrics is not None:
+            self.metrics.batch_attempts.inc(result)
 
     def has_fresh(self, signature: str) -> bool:
         """Cheap pre-check so callers skip PreFilter setup on a sure miss."""
         entry = self.entries.get(signature)
         if entry is None:
+            self._record(MISS)
             return False
         if time.monotonic() - entry.created > self.max_age:
             del self.entries[signature]
+            self._record(STALE)
             return False
         return True
 
@@ -56,24 +67,40 @@ class BatchCache:
         """batch.go GetNodeHint:63 — the current hint node if it still passes
         Filter; otherwise advance down the list. filter_fn(node_name) -> bool
         runs the real Filter chain against the live snapshot."""
-        entry = self.entries.get(signature)
-        if entry is None:
-            return None
-        if time.monotonic() - entry.created > self.max_age:
+        t0 = time.perf_counter()
+        try:
+            entry = self.entries.get(signature)
+            if entry is None:
+                self._record(MISS)
+                return None
+            if time.monotonic() - entry.created > self.max_age:
+                del self.entries[signature]
+                self._record(STALE)
+                return None
+            while entry.next_index < len(entry.ordered_nodes):
+                node = entry.ordered_nodes[entry.next_index]
+                if filter_fn(node):
+                    self._record(HIT)
+                    return node
+                entry.next_index += 1
             del self.entries[signature]
+            self._record(EXHAUSTED)
             return None
-        while entry.next_index < len(entry.ordered_nodes):
-            node = entry.ordered_nodes[entry.next_index]
-            if filter_fn(node):
-                return node
-            entry.next_index += 1
-        del self.entries[signature]
-        return None
+        finally:
+            if self.metrics is not None:
+                self.metrics.get_node_hint_duration.observe(
+                    time.perf_counter() - t0
+                )
 
     def store_schedule_results(self, signature: str, ordered_nodes: list[str]) -> None:
         """batch.go StoreScheduleResults:97 — cache the sorted node list from
         a full scoring pass."""
+        t0 = time.perf_counter()
         self.entries[signature] = _BatchEntry(list(ordered_nodes), time.monotonic())
+        if self.metrics is not None:
+            self.metrics.store_schedule_results_duration.observe(
+                time.perf_counter() - t0
+            )
 
     def flush(self) -> None:
         """Cluster events that change node shape invalidate every entry

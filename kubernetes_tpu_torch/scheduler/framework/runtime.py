@@ -6,9 +6,11 @@ RunPreFilterPlugins :907, RunFilterPlugins :1078, RunScorePlugins :1320 with
 its 3 passes, RunPermitPlugins :1923, WaitOnPermit :2034, SignPod :857). A
 copy of the reference package's Framework
 (kubernetes_tpu/scheduler/framework/runtime.py:40-513): every extension
-point, run sequentially on the host. `_timed` is a plain call (the
-reference samples plugin latency into metrics the port does not have yet),
-and the framework takes the handle its stateful plugins read.
+point, run sequentially on the host. `_timed` samples about one plugin
+call in ten into `metrics.observe_plugin` (the reference's LCG sample) and
+times every call for an installed `plugin_observer` (the wave recorder's
+fallback attribution), and the framework takes the handle its stateful
+plugins read.
 
 The handle (the reference's scheduler.py Handle) gives a plugin the
 cluster state it reads: the cache (live gang member accounting), the
@@ -21,6 +23,7 @@ PodGroups and bound Pods a caller has added.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
@@ -82,10 +85,12 @@ class Framework:
         profile_name: str = "default-scheduler",
         clock=None,
         handle: Handle | None = None,
+        metrics=None,
     ):
         self.profile_name = profile_name
         self.plugins = list(plugins)
         self.weights = dict(weights or {})
+        self.metrics = metrics
         self.clock = clock or Clock()
         self.handle = handle
         if handle is not None:
@@ -116,6 +121,11 @@ class Framework:
         self.placement_generate_plugins = having("generate_placements")
         self.placement_score_plugins = having("score_placement")
         self._waiting_pods: dict[str, WaitingPod] = {}
+        self._metric_tick = 1  # 10% plugin-metric sampling LCG state
+        # optional UNSAMPLED per-call observer (point, plugin, seconds) —
+        # installed transiently by the wave recorder's fallback
+        # attribution so host-fallback scheduling is attributable per plugin
+        self.plugin_observer = None
 
     # -- queue wiring -------------------------------------------------------
 
@@ -135,9 +145,33 @@ class Framework:
     # -- timing helper ------------------------------------------------------
 
     def _timed(self, point: str, plugin: str, fn: Callable[[], Any]) -> Any:
-        """The reference samples plugin latency here into its metrics; the
-        port has no metrics yet, so this is a plain call."""
-        return fn()
+        obs = self.plugin_observer
+        if obs is not None:
+            # attribution window open (host-fallback path): time EVERY call
+            # — the window is rare and short, and regressions there need
+            # full per-plugin accounting, not a 10% sample
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                dt = time.perf_counter() - t0
+                obs(point, plugin, dt)
+                if self.metrics is not None:
+                    self.metrics.observe_plugin(point, plugin, dt)
+        if self.metrics is None:
+            return fn()
+        # sample ~1-in-10 like the reference (pluginMetricsSamplePercent=10,
+        # schedule_one.go:50-51,130). An LCG step, not a modulo tick: a
+        # deterministic tick aliases with fixed per-pod call patterns and
+        # would starve specific plugins of samples forever
+        self._metric_tick = (self._metric_tick * 1103515245 + 12345) & 0x7FFFFFFF
+        if self._metric_tick % 10:
+            return fn()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            self.metrics.observe_plugin(point, plugin, time.perf_counter() - t0)
 
     # -- extension points ---------------------------------------------------
 

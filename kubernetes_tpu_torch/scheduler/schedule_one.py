@@ -27,9 +27,18 @@ reference package's module (kubernetes_tpu/scheduler/schedule_one.py):
   pod-group cycle's queue pops and result submission, and the binding
   cycle through the framework's binder or the async dispatcher.
 
-The reference's per-wave flight records, pod latency ledger, stall
-profiler and slow-cycle spans are the telemetry slice's (A6c); their call
-sites are marked so. The fleet's shard gate is A13's.
+The loop writes the reference's telemetry into its wave recorder
+(tpu/waverecorder.py): the phase stopwatches and spans, one `wave/<id>`
+span per completed wave with the wave record closed after its binds, the
+pod latency ledger's wave_admission, kernel_verdict, gang_wait,
+bind_dispatch and bind_commit stamps, the stall profiler's gap marks
+(queue_empty, capacity_gate, flush) and the async bind wait
+(bind_backpressure), per-plugin fallback attribution around every wave
+that falls back to per-pod cycles, `metrics.pod_scheduled` /
+`pod_unschedulable`, and a slow-cycle trace of any per-pod or pod-group
+cycle over 100 ms. The wave controller's latency guard observes each
+recorded wave (opt-in, off by default). No decision reads any of it. The
+fleet's shard gate is A13's.
 """
 
 from __future__ import annotations
@@ -58,8 +67,16 @@ from .nodeinfo import NodeInfo, PodInfo
 from .queue.scheduling_queue import QueuedPodInfo
 from ..utils import faultinject
 from ..utils.envknob import int_env
+from ..utils.tracing import Span, threshold_log_exporter
 
 _log = logging.getLogger("kubernetes_tpu_torch.scheduler")
+
+# slow-cycle diagnosis (utiltrace LogIfLong, schedule_one.go:570-571):
+# steps are span events, formatted and logged (to the
+# "kubernetes_tpu_torch.trace" logger) only when the cycle breaches the
+# threshold
+_SLOW_CYCLE_THRESHOLD_S = 0.1
+_slow_cycle_export = threshold_log_exporter(_SLOW_CYCLE_THRESHOLD_S)
 
 MIN_FEASIBLE_NODES_TO_FIND = 100  # schedule_one.go:56
 MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND = 5  # schedule_one.go:62
@@ -561,9 +578,10 @@ class ScheduleOneLoop:
         api_cacher=None,
         pod_group_cycles: bool = True,
         recorder=None,
+        metrics=None,
     ):
-        from .tpu.flightrecorder import FlightRecorder
         from .tpu.wavecontroller import WaveSizeController
+        from .tpu.waverecorder import WaveRecorder
 
         self.names = names or ResourceNames()
         self.cache = cache
@@ -572,6 +590,7 @@ class ScheduleOneLoop:
         self.algorithms = algorithms
         self.store = store
         self.snapshot = snapshot
+        self.metrics = metrics
         self.async_binding = async_binding
         self.event_recorder = event_recorder
         self.api_cacher = api_cacher  # SchedulerAsyncAPICalls path
@@ -579,7 +598,8 @@ class ScheduleOneLoop:
         self._binding_threads: list = []
         # host seconds per loop phase: phase_profile IS the recorder's
         # phase_totals dict (the same object)
-        self.recorder = recorder if recorder is not None else FlightRecorder()
+        self.recorder = recorder if recorder is not None else WaveRecorder(
+            metrics=metrics)
         self.phase_profile = self.recorder.phase_totals
         # the launched-but-unprocessed batched wave: (algo, InflightWave).
         # While its kernels run on the device, the host processes the
@@ -639,16 +659,34 @@ class ScheduleOneLoop:
             return
         # whole-gang cycle (ScheduleOne, schedule_one.go:77)
         if pod.spec.scheduling_group is not None and self.pod_group_cycles:
+            sp = Span(name="SchedulingPodGroup", start=_time.perf_counter(),
+                      attributes={"pod": pod.meta.key})
             self.schedule_pod_group(qpi, fw)
+            sp.end = _time.perf_counter()
+            _slow_cycle_export(sp)
             return
-        # A6c: the pod ledger's wave_admission / kernel_verdict stamps
+        sp = Span(name="Scheduling", start=_time.perf_counter(),
+                  attributes={"pod": pod.meta.key,
+                              "scheduler": fw.profile_name})
+        # ledger: a per-pod cycle is this pod's "wave" admission
+        ledger = self.recorder.pod_ledger
+        ledger.stamp(pod.meta.key, "wave_admission")
         state = CycleState()
         scheduling_cycle = self.queue.moved_count
         result, status = self._scheduling_cycle(state, fw, qpi)
+        sp.event("Computing pod placement done" if status.is_success
+                 else "Scheduling attempt failed")
         if not status.is_success:
             self._handle_scheduling_failure(fw, qpi, status, scheduling_cycle)
+            sp.event("Failure handled (requeue + condition)")
+            sp.end = _time.perf_counter()
+            _slow_cycle_export(sp)
             return
+        ledger.stamp(pod.meta.key, "kernel_verdict")
         self._dispatch_binding(state, fw, qpi, result)
+        sp.event("Binding dispatched")
+        sp.end = _time.perf_counter()
+        _slow_cycle_export(sp)
 
     def _dispatch_binding(self, state, fw: Framework, qpi: QueuedPodInfo,
                           result: ScheduleResult) -> None:
@@ -688,6 +726,7 @@ class ScheduleOneLoop:
         # store state) picks the next wave's pow2 target within the cap
         active, _, _ = self.queue.pending_pods()
         target = self.wave_controller.next_size(active, cap=max_pods)
+        clipped = self.wave_controller.last_clipped
         with self.recorder.phase("pop"):
             while len(wave) < target:
                 qpi = self.queue.pop(
@@ -717,6 +756,7 @@ class ScheduleOneLoop:
                     break
                 wave_algo = algo
                 wave.append(qpi)
+                self.recorder.pod_ledger.stamp(pod.meta.key, "wave_admission")
                 if len(wave) == PROBE_WAVE_PODS and algo.breaker.probing():
                     # HALF_OPEN: probe the recovering device with a small
                     # wave; the rest of the queue waits for the verdict
@@ -724,8 +764,14 @@ class ScheduleOneLoop:
                     break
 
         if not wave:
-            # A6c: the stall profiler marks the drained wave's gap
-            # (queue_empty), and below the capacity_gate and flush gaps
+            # nothing to prep a successor from: whatever is in flight sat
+            # (and drains now) because the queue ran dry — the stall
+            # profiler attributes its open gap to queue_empty
+            infl = self._inflight_wave
+            if infl is not None or trailer is not None:
+                self.recorder.stall_profiler.mark_gap(
+                    infl[1].record if infl is not None else None,
+                    "queue_empty")
             processed = self._flush_wave_pipeline()
             if trailer is not None:
                 with self.recorder.phase("cycle"):
@@ -740,9 +786,21 @@ class ScheduleOneLoop:
         while pad_to < len(wave):
             pad_to <<= 1
         processed = self._pipeline_wave(wave_algo, wave, min(pad_to, max_pods))
+        if clipped:
+            # the controller wanted more slots than the per-call cap
+            # allowed: the launched wave sits in flight while the clipped
+            # backlog waits for the next call — attribute its gap
+            infl = self._inflight_wave
+            if infl is not None:
+                self.recorder.stall_profiler.mark_gap(
+                    infl[1].record, "capacity_gate")
         if trailer is not None:
             # the trailer (gang/hybrid/nominated pod) must run strictly
             # after the wave that preceded it in queue order
+            infl = self._inflight_wave
+            if infl is not None:
+                self.recorder.stall_profiler.mark_gap(
+                    infl[1].record, "flush")
             processed += self._flush_wave_pipeline()
             with self.recorder.phase("cycle"):
                 self.schedule_pod_info(trailer)
@@ -764,6 +822,7 @@ class ScheduleOneLoop:
             # incompatible in-flight wave (another profile, another pad —
             # the tie-word frame assumes equal pads — or a poisoned
             # carry): drain before launching
+            self.recorder.stall_profiler.mark_gap(infl[1].record, "flush")
             processed += self._flush_wave_pipeline()
 
         breaker = algo.breaker
@@ -772,9 +831,12 @@ class ScheduleOneLoop:
             # what is in flight (strict queue order) and run the wave per
             # pod; schedule_pod's device_blocked() routes each pod to the
             # host tier while the breaker cools
+            infl = self._inflight_wave
+            self.recorder.stall_profiler.mark_gap(
+                infl[1].record if infl is not None else None, "flush")
             processed += self._flush_wave_pipeline()
-            # A6c: the fallback attribution times these host cycles by plugin
-            with self.recorder.phase("finish"):
+            with self.recorder.phase("finish"), self.recorder.fallback_attribution(
+                    self.framework_for_pod(wave[0].pod)):
                 for qpi in wave:
                     algo.revert_wave_plan(qpi.pod)
                     self.schedule_pod_info(qpi)
@@ -794,6 +856,9 @@ class ScheduleOneLoop:
                 break
             except NeedResync:
                 # drain the pipeline, re-upload from host truth, retry once
+                infl = self._inflight_wave
+                self.recorder.stall_profiler.mark_gap(
+                    infl[1].record if infl is not None else None, "flush")
                 processed += self._flush_wave_pipeline()
                 algo.backend.invalidate_carry()
                 with self.recorder.phase("snapshot"):
@@ -811,9 +876,13 @@ class ScheduleOneLoop:
                 # no device verdict either way (resync exhaustion, benign
                 # fallback): release a half-open probe slot
                 breaker.record_benign()
+            infl = self._inflight_wave
+            self.recorder.stall_profiler.mark_gap(
+                infl[1].record if infl is not None else None, "flush")
             processed += self._flush_wave_pipeline()
             algo.fallback_count += len(wave)
-            with self.recorder.phase("finish"):
+            with self.recorder.phase("finish"), self.recorder.fallback_attribution(
+                    self.framework_for_pod(wave[0].pod)):
                 for qpi in wave:
                     algo.revert_wave_plan(qpi.pod)
                     self.schedule_pod_info(qpi)
@@ -843,95 +912,122 @@ class ScheduleOneLoop:
         batched bind."""
         from ..ops.planes import FallbackNeeded
 
-        # A6c: one wave/<id> trace span around this, the ledger's
-        # kernel_verdict stamps and the wave record's close
         rec = self.recorder
         wave = fl.qpis
+        record = fl.record
         breaker = algo.breaker
-        try:
-            with rec.phase("kernel"):
-                hosts, planes = algo.backend.collect(fl, rng=algo.rng)
-        except FallbackNeeded as e:
-            # tie-draw overflow, poisoned carry, or an injected device
-            # flake: results discarded, pods re-run per pod against live
-            # state; a successor launched on the bad carry is poisoned too
-            if e.device_flake:
-                breaker.record_failure(str(e))
-            else:
-                breaker.record_benign()
-            self._poison_successor(algo)
-            algo.fallback_count += len(wave)
-            with rec.phase("finish"):
-                for qpi in wave:
-                    algo.revert_wave_plan(qpi.pod)
-                    self.schedule_pod_info(qpi)
-            if breaker.device_blocked() and e.device_flake:
-                # the flake tripped the breaker OPEN: drain the (poisoned)
-                # successor now rather than holding it in flight through
-                # the cooldown — its pods reroute to the host tier in
-                # queue order right behind this wave's
-                return len(wave) + self._flush_wave_pipeline()
-            return len(wave)
-        # the device round-tripped a full wave: the breaker's success
-        # signal (host-side bind outcomes are another failure domain)
-        breaker.record_success()
-        algo.kernel_count += len(wave)
-        # crash point: the wave is collected but none of its per-pod finish
-        # cycles has run
-        faultinject.fire("loop.wave")
         invalidated = False
-        batch: list[tuple] = []
-        with rec.phase("finish"):
-            self._export_wave_signatures(algo, fl, planes)
-            for qpi, host in zip(wave, hosts):
-                if invalidated or host is None:
-                    # host=None re-runs reproduce the FitError (no rng
-                    # draws, no state change — safe under a live
-                    # successor); invalidated pods re-run because the
-                    # carry diverged
-                    algo.revert_wave_plan(qpi.pod)
-                    self.schedule_pod_info(qpi)
-                    continue
-                fw = self.framework_for_pod(qpi.pod)
-                state = CycleState()
-                vol_plan = algo.take_wave_plan(qpi.pod.meta.key)
-                if vol_plan is not None:
-                    # the node-neutral volume decision made at wave
-                    # admission: seed the cycle state so Reserve and
-                    # PreBind run the normal VolumeBinding flow against the
-                    # selected host
-                    from .plugins.volumes import VolumeBinding, _BindingState, _ClaimsToBind
-
-                    bs = _BindingState(_ClaimsToBind())
-                    bs.per_node[host] = vol_plan
-                    state.write(VolumeBinding.STATE_KEY, bs)
-                result = ScheduleResult(
-                    suggested_host=host, evaluated_nodes=planes.n,
-                    feasible_nodes=1,
-                )
-                result, status = self._finish_scheduling_cycle(
-                    state, fw, qpi, result, from_wave=True
-                )
-                if not status.is_success:
-                    if vol_plan is not None:
-                        algo.safe_revert_volumes(vol_plan)
-                    self._handle_scheduling_failure(
-                        fw, qpi, status, self.queue.moved_count
-                    )
-                    # the kernel placed this pod but the host reverted it:
-                    # the carry (and any successor computed from it) is wrong
-                    self._poison_successor(algo)
-                    invalidated = True
-                    continue
-                if (fw.waiting_pod(qpi.pod.meta.key) is not None
-                        or not self._default_bind_only(fw)):
-                    self._dispatch_binding(state, fw, qpi, result)
+        # one root span per wave: collect/finish/bind phases nest under it
+        # (launch-side phases were children of the launching call's spans)
+        with rec.tracer.span(
+            f"wave/{record.wave_id if record is not None else 0}",
+            pods=len(wave),
+        ):
+            try:
+                with rec.phase("kernel"):
+                    hosts, planes = algo.backend.collect(fl, rng=algo.rng)
+            except FallbackNeeded as e:
+                # tie-draw overflow, poisoned carry, or an injected device
+                # flake: results discarded, pods re-run per pod against
+                # live state; a successor launched on the bad carry is
+                # poisoned too. The backend already closed the wave's
+                # record with the fallback reason.
+                if e.device_flake:
+                    breaker.record_failure(str(e))
                 else:
-                    batch.append((state, fw, qpi, result))
-        with rec.phase("bind"):
-            self._bind_wave(batch)
-        # A6c: the wave controller's (opt-in) latency guard observes the
-        # wave record's duration
+                    breaker.record_benign()
+                self._poison_successor(algo)
+                algo.fallback_count += len(wave)
+                with rec.phase("finish"), rec.fallback_attribution(
+                        self.framework_for_pod(wave[0].pod)):
+                    for qpi in wave:
+                        algo.revert_wave_plan(qpi.pod)
+                        self.schedule_pod_info(qpi)
+                if breaker.device_blocked() and e.device_flake:
+                    # the flake tripped the breaker OPEN: drain the
+                    # (poisoned) successor now rather than holding it in
+                    # flight through the cooldown — its pods reroute to the
+                    # host tier in queue order right behind this wave's
+                    infl = self._inflight_wave
+                    rec.stall_profiler.mark_gap(
+                        infl[1].record if infl is not None else None, "flush")
+                    return len(wave) + self._flush_wave_pipeline()
+                return len(wave)
+            # the device round-tripped a full wave: the breaker's success
+            # signal (host-side bind outcomes are another failure domain)
+            breaker.record_success()
+            algo.kernel_count += len(wave)
+            # crash point: the wave is collected but none of its per-pod
+            # finish cycles has run
+            faultinject.fire("loop.wave")
+            batch: list[tuple] = []
+            with rec.phase("finish", record):
+                exported = self._export_wave_signatures(algo, fl, planes)
+                if record is not None:
+                    record.cache_exports = exported
+                ledger = rec.pod_ledger
+                wave_id = record.wave_id if record is not None else None
+                for qpi, host in zip(wave, hosts):
+                    if host is not None and not invalidated:
+                        # the kernel picked this pod's node; the wave_id is
+                        # the exemplar link to the wave/<id> span
+                        ledger.stamp(qpi.pod.meta.key, "kernel_verdict",
+                                     wave_id=wave_id)
+                    if invalidated or host is None:
+                        # host=None re-runs reproduce the FitError (no rng
+                        # draws, no state change — safe under a live
+                        # successor); invalidated pods re-run because the
+                        # carry diverged
+                        algo.revert_wave_plan(qpi.pod)
+                        self.schedule_pod_info(qpi)
+                        continue
+                    fw = self.framework_for_pod(qpi.pod)
+                    state = CycleState()
+                    vol_plan = algo.take_wave_plan(qpi.pod.meta.key)
+                    if vol_plan is not None:
+                        # the node-neutral volume decision made at wave
+                        # admission: seed the cycle state so Reserve and
+                        # PreBind run the normal VolumeBinding flow against
+                        # the selected host
+                        from .plugins.volumes import VolumeBinding, _BindingState, _ClaimsToBind
+
+                        bs = _BindingState(_ClaimsToBind())
+                        bs.per_node[host] = vol_plan
+                        state.write(VolumeBinding.STATE_KEY, bs)
+                    result = ScheduleResult(
+                        suggested_host=host, evaluated_nodes=planes.n,
+                        feasible_nodes=1,
+                    )
+                    result, status = self._finish_scheduling_cycle(
+                        state, fw, qpi, result, from_wave=True
+                    )
+                    if not status.is_success:
+                        if vol_plan is not None:
+                            algo.safe_revert_volumes(vol_plan)
+                        self._handle_scheduling_failure(
+                            fw, qpi, status, self.queue.moved_count
+                        )
+                        # the kernel placed this pod but the host reverted
+                        # it: the carry (and any successor computed from
+                        # it) is wrong
+                        self._poison_successor(algo)
+                        invalidated = True
+                        continue
+                    if (fw.waiting_pod(qpi.pod.meta.key) is not None
+                            or not self._default_bind_only(fw)):
+                        self._dispatch_binding(state, fw, qpi, result)
+                    else:
+                        batch.append((state, fw, qpi, result))
+            with rec.phase("bind", record):
+                self._bind_wave(batch)
+        if record is not None:
+            rec.end_wave(
+                record,
+                fallback_reason="host revert: carry poisoned"
+                if invalidated else None,
+            )
+            # feed the wave controller's (opt-in) latency guard
+            self.wave_controller.observe(record.duration_s)
         return len(wave)
 
     def _export_wave_signatures(self, algo, fl, planes) -> int:
@@ -946,7 +1042,9 @@ class ScheduleOneLoop:
         sig_scores = fl.info.get("sig_scores")
         if batch is None or sig_scores is None or fl.sig_ids is None:
             return 0
-        rows = sig_scores.cpu().numpy()
+        # the per-signature score rows' device→host copy, through the
+        # backend's accounted seam (the "scores" plane)
+        rows = algo.backend.telemetry.accounted_fetch("scores", sig_scores).numpy()
         seen: set[int] = set()
         exported = 0
         for pod, gid in zip(fl.pods, fl.sig_ids):
@@ -1004,6 +1102,8 @@ class ScheduleOneLoop:
         if not ready:
             return
         bindings = [(q.pod.meta.key, r.suggested_host) for _, _, q, r in ready]
+        for key, _host in bindings:
+            self.recorder.pod_ledger.stamp(key, "bind_dispatch")
         if self.api_cacher is not None:
             # the dispatcher worker only parks the outcome; every queue/
             # cache/pipeline mutation happens on the scheduling thread when
@@ -1248,8 +1348,14 @@ class ScheduleOneLoop:
     ) -> None:
         pod = qpi.pod
         host = result.suggested_host
-        # A6c: the ledger's gang_wait and bind_dispatch stamps
+        # the gang Permit wait is the dominant binding-cycle stall for gang
+        # members: its own ledger segment
+        gang_waiting = fw.waiting_pod(pod.meta.key) is not None
+        if gang_waiting:
+            self.recorder.pod_ledger.stamp(pod.meta.key, "gang_wait_start")
         st = fw.wait_on_permit(pod)
+        if gang_waiting:
+            self.recorder.pod_ledger.stamp(pod.meta.key, "gang_wait_end")
         if not st.is_success:
             self._handle_binding_failure(state, fw, qpi, host, st)
             return
@@ -1257,6 +1363,7 @@ class ScheduleOneLoop:
         if not st.is_success:
             self._handle_binding_failure(state, fw, qpi, host, st)
             return
+        self.recorder.pod_ledger.stamp(pod.meta.key, "bind_dispatch")
         st = self._bind(state, fw, pod, host)
         if not st.is_success and not st.is_skip:
             self._handle_binding_failure(state, fw, qpi, host, st)
@@ -1267,13 +1374,18 @@ class ScheduleOneLoop:
                         correlation: str | None = None) -> None:
         """Post-bind tail shared by the per-pod cycle and the wave batch."""
         pod = qpi.pod
-        # A6c: the ledger's bind_commit stamp closes the pod's entry
+        # ledger: the bind is durable — close the entry (a status_ack, when
+        # a kubelet reports the pod Running, lands on the retained entry)
+        self.recorder.pod_ledger.stamp(pod.meta.key, "bind_commit")
+        self.recorder.pod_ledger.complete(pod.meta.key)
         fw.run_post_bind_plugins(state, pod, host)
         # the pod leaves the cycle for good: stop in-flight event tracking
         # only now (a done() before bind would drop events a bind failure
         # needs)
         self.queue.done(qpi.key, qpi.inflight_token)
         self.queue.delete_nominated_pod_if_exists(pod)
+        if self.metrics is not None:
+            self.metrics.pod_scheduled(qpi)
         if self.event_recorder is not None:
             self.event_recorder.event(pod, "Normal", "Scheduled",
                                       f"bound to {host}",
@@ -1303,21 +1415,24 @@ class ScheduleOneLoop:
             except CallSkippedError as e:
                 return Status.as_error(e)
             # the budget (BIND_WAIT_S) is burned in short slices so
-            # a stalled dispatcher is logged while it stalls (A6c: the
-            # stall profiler books the wait as bind_backpressure)
+            # a stalled dispatcher is logged while it stalls
             deadline = _time.monotonic() + BIND_WAIT_S
-            while not call.done.wait(
-                timeout=min(_BIND_WAIT_SLICE_S,
-                            max(0.0, deadline - _time.monotonic()))
-            ):
-                remaining = deadline - _time.monotonic()
-                if remaining <= 0:
-                    return Status.as_error(TimeoutError(
-                        f"async bind of {pod.meta.key} timed out after "
-                        f"{BIND_WAIT_S}s"
-                    ))
-                _log.error("async bind of %s to %s still pending; %.1f s left",
-                           pod.meta.key, host, remaining)
+            # the dispatcher in-flight wait is pipeline backpressure: the
+            # loop cannot prep a successor while it sits here, so the time
+            # lands on the stall profiler's cumulative bind_backpressure
+            with self.recorder.stall_profiler.stall(None, "bind_backpressure"):
+                while not call.done.wait(
+                    timeout=min(_BIND_WAIT_SLICE_S,
+                                max(0.0, deadline - _time.monotonic()))
+                ):
+                    remaining = deadline - _time.monotonic()
+                    if remaining <= 0:
+                        return Status.as_error(TimeoutError(
+                            f"async bind of {pod.meta.key} timed out after "
+                            f"{BIND_WAIT_S}s"
+                        ))
+                    _log.error("async bind of %s to %s still pending; %.1f s left",
+                               pod.meta.key, host, remaining)
             if call.error is not None:
                 return Status.as_error(call.error)
             return Status()
@@ -1354,6 +1469,8 @@ class ScheduleOneLoop:
             )
         _log.debug("Unable to schedule pod %s; waiting: %s", qpi.key,
                    status.message())
+        if self.metrics is not None:
+            self.metrics.pod_unschedulable(qpi)
 
     # -- API writeback ----------------------------------------------------------------
 
@@ -1412,6 +1529,9 @@ class ScheduleOneLoop:
 
     def wait_for_bindings(self) -> None:
         # a launched-but-uncollected wave holds popped pods: never leave it
+        infl = self._inflight_wave
+        if infl is not None:
+            self.recorder.stall_profiler.mark_gap(infl[1].record, "flush")
         self._flush_wave_pipeline()
         for t in self._binding_threads:
             t.join(timeout=5)

@@ -22,10 +22,19 @@ HTTP extenders (`extenders`: ExtenderConfig or HTTPExtender objects, or
 objects with HTTPExtender's interface) filter, prioritize and bind the pods
 they are interested in; such pods take the hybrid route around K4.
 
+Telemetry, as the reference wires it: one wave recorder
+(`flight_recorder`, tpu/waverecorder.py) shared by the loop, every backend
+and the dispatcher — phase stopwatches, wave records, the pod latency
+ledger the event handlers stamp (watch_arrival, queue_admission,
+status_ack), the stall profiler and the device telemetry; `metrics` (a
+SchedulerMetrics) reaches the frameworks' sampled plugin timings, the
+batch cache, the dispatcher, the event recorder and the loop; `tracer`
+(utils.tracing.Tracer) gets the phase, wave and api spans. Both are off
+(None) by default, and no decision reads any of it.
+
 Not in this slice, each queued in ROADMAP: the crash-recovery reconcile
 (`reconcile`, `adopt_shard`: A13; `start()` syncs the informers only), the
-warm start (A9), the fleet's shard filter (A13) and the metrics registry
-and tracer (A6c).
+warm start (A9) and the fleet's shard filter (A13).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import random
 from dataclasses import dataclass, field
 
 from ..api.resource import ResourceNames
-from ..api.types import DEFAULT_SCHEDULER_NAME, Node, Pod
+from ..api.types import DEFAULT_SCHEDULER_NAME, RUNNING, Node, Pod
 from ..client.informer import InformerFactory
 from ..config.types import validate_profiles
 from ..store.store import ADDED, DELETED, MODIFIED, Store
@@ -89,16 +98,18 @@ class Scheduler:
         names: ResourceNames | None = None,
         feature_gates: dict | None = None,
         clock=None,
+        metrics=None,
         seed: int = 0,
         async_binding: bool = False,
         async_api_calls: bool = False,
         parallelism: int = 16,
         event_recorder=None,
         extenders: list | None = None,
+        tracer=None,
         device="cuda",
     ):
         from ..utils.clock import Clock
-        from .tpu.flightrecorder import FlightRecorder
+        from .tpu.waverecorder import WaveRecorder
 
         profiles = profiles or [Profile()]
         errs = validate_profiles(profiles)
@@ -107,9 +118,13 @@ class Scheduler:
         self.store = store
         self.names = names or ResourceNames()
         self.clock = clock or Clock()
-        # one flight recorder shared by the loop and every device backend:
-        # the loop's phase stopwatches and the breakers' transitions
-        self.flight_recorder = FlightRecorder()
+        self.metrics = metrics
+        self.tracer = tracer
+        # one wave recorder shared by the loop, every device backend and
+        # the dispatcher: the phase stopwatches, per-wave records, the pod
+        # ledger, the stall profiler, the device telemetry and the
+        # slow-wave watchdog live here
+        self.flight_recorder = WaveRecorder(tracer=tracer, metrics=metrics)
         if event_recorder is None:
             # every scheduler emits Scheduled/FailedScheduling events
             # (schedule_one.go:1174,1273); the recorder buffers + aggregates
@@ -118,6 +133,10 @@ class Scheduler:
 
             event_recorder = EventRecorder(store)
         self.event_recorder = event_recorder
+        if metrics is not None and getattr(event_recorder, "metrics", None) is None:
+            # spill/aggregation/GC visibility: the recorder lands counters
+            # on the shared registry
+            event_recorder.metrics = metrics
         self.cache = Cache(self.names)
         self.snapshot = Snapshot()
         self.feature_gates = dict(feature_gates or {})
@@ -148,7 +167,7 @@ class Scheduler:
             handle = Handle(store=store, cache=self.cache, snapshot=self.snapshot)
             handles.append(handle)
             fw = Framework(plugins, prof.weights, profile_name=prof.name,
-                           clock=self.clock, handle=handle)
+                           clock=self.clock, handle=handle, metrics=metrics)
             self.frameworks[prof.name] = fw
             backend = TorchBackend(self.names, plugin_args=prof.plugin_args,
                                    device=device, recorder=self.flight_recorder)
@@ -180,7 +199,7 @@ class Scheduler:
         if self.feature_gates.get("OpportunisticBatching", False):
             from .framework.batch import BatchCache
 
-            self.batch_cache = BatchCache()
+            self.batch_cache = BatchCache(metrics=metrics)
         for algo in self.algorithms.values():
             # the queue is the one nominator (algo.nominator = self.queue,
             # reference scheduler.py:214-216)
@@ -193,7 +212,9 @@ class Scheduler:
         if async_api_calls:
             from .api_dispatcher import APICacher, APIDispatcher
 
-            self.api_dispatcher = APIDispatcher(parallelism)
+            self.api_dispatcher = APIDispatcher(parallelism, metrics=metrics,
+                                                tracer=tracer,
+                                                recorder=self.flight_recorder)
             self.api_dispatcher.run()
             self.api_cacher = APICacher(store, self.api_dispatcher)
             # event flushes ride the dispatcher too
@@ -210,6 +231,7 @@ class Scheduler:
             self.algorithms,
             store,
             self.snapshot,
+            metrics=metrics,
             async_binding=async_binding,
             event_recorder=event_recorder,
             names=self.names,
@@ -257,6 +279,7 @@ class Scheduler:
 
     def _on_pod_event(self, etype: str, old: Pod | None, new: Pod) -> None:
         gk = self._group_key(new)
+        ledger = self.flight_recorder.pod_ledger
         if etype == ADDED:
             if new.is_scheduled:
                 if not self.cache.is_assumed_pod(new):
@@ -269,9 +292,14 @@ class Scheduler:
                     ClusterEvent(ev.ASSIGNED_POD, ev.ADD), None, new
                 )
             else:
+                # ledger edges: the informer delivered the pod, then it
+                # entered the scheduling queue (the informer segment spans
+                # PodInfo construction + queue admission)
+                ledger.stamp(new.meta.key, "watch_arrival")
                 if gk:
                     self.cache.pod_group_states.pod_added(gk, new.meta.key)
                 self.queue.add(new, PodInfo(new, self.names))
+                ledger.stamp(new.meta.key, "queue_admission")
                 self.queue.move_all_to_active_or_backoff(
                     ClusterEvent(ev.UNSCHEDULED_POD, ev.ADD), None, new
                 )
@@ -290,6 +318,11 @@ class Scheduler:
                 else:
                     # update of a placed pod (labels/scale-down) changes the
                     # node planes outside the wave pipeline's writeback
+                    if (old is not None and old.status.phase != RUNNING
+                            and new.status.phase == RUNNING):
+                        # a kubelet reported the pod up: the ledger's last
+                        # edge
+                        ledger.stamp(new.meta.key, "status_ack")
                     self._mark_external()
                     self.cache.update_pod(old, new)
                     action = self._pod_update_actions(old, new)
@@ -307,6 +340,9 @@ class Scheduler:
         elif etype == DELETED:
             if gk:
                 self.cache.pod_group_states.pod_removed(gk, new.meta.key)
+            if self.metrics is not None and hasattr(self.metrics, "forget_pod"):
+                self.metrics.forget_pod(new.meta.key)
+            ledger.forget(new.meta.key)
             if new.is_scheduled:
                 self._mark_external()
                 self.cache.remove_pod(new)
@@ -408,6 +444,10 @@ class Scheduler:
                 # cadence-gated (and dispatcher-offloaded when async API
                 # calls are on): the per-iteration cost here is a clock read
                 self.event_recorder.maybe_flush()
+            if self.metrics is not None and hasattr(self.metrics,
+                                                    "update_queue_gauges"):
+                active, backoff, unsched = self.queue.pending_pods()
+                self.metrics.update_queue_gauges(active, backoff, unsched)
         return n
 
     def schedule_pending(self, max_cycles: int = 100_000) -> int:

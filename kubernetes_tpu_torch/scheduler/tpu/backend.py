@@ -46,16 +46,29 @@ scheduling loop (schedule_one.ScheduleOneLoop) feeds with its device
 waves' outcomes. The breaker reads injected faults only: the tpu.launch
 and tpu.collect points raise DeviceFlakeError, and a real error on the
 card raises out of the loop. A FitError's cycle state is left fit for
-DefaultPreemption's dry run. Not in this slice (ROADMAP A6c): the device
-telemetry. What the kernels do not compute raises OutOfSlice, which no
-route sends to the host.
+DefaultPreemption's dry run. What the kernels do not compute raises
+OutOfSlice, which no route sends to the host.
+
+Telemetry (the reference's, backend.py:474-643, :707-913): every backend
+writes into a wave recorder (waverecorder.WaveRecorder; the Scheduler's,
+or one of its own). A streaming wave and a gang wave each leave a
+WaveRecord — pods, pad, dedup and cross-wave outcome, fallback reason,
+phases, transfer bytes — closed at collect (or by the loop) with the
+reference's fallback reasons. The device telemetry counts every upload
+and fetch by plane at its seam (`accounted_put`, `accounted_fetch`, or
+the accounting-only entries for the pinned staging copies and the wave's
+asynchronous result copy), a compile span per kernel entry point keyed
+by its static configuration, and the resident buffer groups. None of it
+adds a copy, a synchronisation or an rng draw. The phase dicts
+(`phase_s`, `pipe_phase_s`, `run_phase_s`, `gang_phase_s`) keep their
+own keys: the records take the same clock readings under the reference's
+wave-phase names.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -90,6 +103,8 @@ from ...ops.planes import (
 from ...ops.vocab import next_pow2
 from ...utils import faultinject
 from ..extender import extender_scores, find_nodes_that_pass_extenders
+from .devicetelemetry import tree_nbytes
+from .waverecorder import WaveRecord, WaveRecorder
 from ..framework.interface import (
     UNSCHEDULABLE,
     Diagnosis,
@@ -127,6 +142,16 @@ _ROW_STATUS = {
 
 # the five arrays run() returns
 RUN_OUTPUTS = ("fails", "feasible", "insufficient", "too_many_pods", "total")
+
+
+def _bucket_label(bucket_sizes) -> str:
+    """Compact shape label for the compile tracker's metrics series."""
+    return "nb" + "x".join(str(b) for b in bucket_sizes)
+
+
+def _wave_label(bucket_sizes, pad: int, uniq) -> str:
+    g = len(uniq) if uniq is not None else 0
+    return f"pad{pad}/g{g}/{_bucket_label(bucket_sizes)}"
 
 
 def _mt_stream(rng_state) -> np.random.RandomState:
@@ -247,7 +272,7 @@ class InflightWave:
 
     __slots__ = ("pods", "qpis", "planes", "info", "pad", "cursor_base_host",
                  "frame_shift", "poisoned", "sig_ids", "host_packed", "ready",
-                 "staged", "chained", "launch_s")
+                 "staged", "chained", "launch_s", "record")
 
     def __init__(self, pods, planes, info, pad, frame_shift, sig_ids=None):
         self.pods = pods
@@ -270,24 +295,13 @@ class InflightWave:
         self.staged: list = []
         self.chained = False
         self.launch_s = 0.0
+        self.record: WaveRecord | None = None  # the wave's flight record
 
     def mark_poisoned(self) -> None:
         """The scheduling loop's poison hook: this wave's results must be
         discarded at collect (host state diverged from what its kernel
         assumed)."""
         self.poisoned = True
-
-
-@dataclass
-class GangRecord:
-    """One gang wave's outcome: the four gang fields of the reference's
-    flight-recorder WaveRecord (flightrecorder.py:87-90). gang_outcome is
-    "device:<placement>" or "fallback:<reason>"."""
-
-    gang_groups: int = 0
-    gang_pods: int = 0
-    gang_fallback_pods: int = 0
-    gang_outcome: str | None = None
 
 
 def resolve_device(device) -> torch.device:
@@ -311,8 +325,14 @@ class TorchBackend:
         from ...parallel.mesh import context_from_env
 
         self.device = resolve_device(device)
-        # the scheduler's flight recorder (breaker transitions), or None
-        self.recorder = recorder
+        # the scheduler's wave recorder (wave records, device telemetry,
+        # breaker transitions, gang routing), or one of the backend's own
+        self.recorder = recorder if recorder is not None else WaveRecorder()
+        # the accounted host<->device seam: transfer ledger, compile
+        # tracker, memory watermark (the recorder's)
+        self.telemetry = self.recorder.device_telemetry
+        if self.device.type == "cuda":
+            self.telemetry.device = self.device
         # the execution-context seam (parallel/mesh.py): LocalContext (K1 +
         # K2) or a MeshContext over node shards (K1 + K6), chosen once
         # (KUBE_TPU_MESH_DEVICES when none is passed); every upload and
@@ -418,10 +438,6 @@ class TorchBackend:
         # packed result copy
         self.gang_phase_s = {"sync": 0.0, "features": 0.0, "masks": 0.0,
                              "upload": 0.0, "kernel": 0.0, "wait": 0.0}
-        # gang members by path ("device": placed by run_gang, "host": handed
-        # to the host pod-group cycle), and the last gang wave's record
-        self.gang_pod_totals: dict[str, int] = {}
-        self.gang_record: GangRecord | None = None
         # errors the gang planner's catch-all degraded to the host cycle
         # (a failed K1/K5 build or launch among them), and the last message
         self.gang_errors = 0
@@ -485,7 +501,7 @@ class TorchBackend:
                 self._pending_dirty.update(dirty)
         return planes
 
-    def device_inputs(self, planes) -> tuple[dict, dict]:
+    def device_inputs(self, planes, rec=None) -> tuple[dict, dict]:
         """(node planes + ipa_term_key, affinity tables) mirrored on the
         device.
 
@@ -494,40 +510,54 @@ class TorchBackend:
         dirty set past half the cluster; otherwise the rows changed since
         the last upload (the mirror debt a dropped carry left included)
         travel in ONE packed host→device copy from pinned memory and K3
-        scatters them into every row plane in one launch."""
+        scatters them into every row plane in one launch. The bytes land
+        on the device telemetry (and on `rec`, a wave's record)."""
         full = (
             self._device_planes is None
             or self._pending_dirty is None
             or self._device_buckets != planes.bucket_sizes
             or len(self._pending_dirty) > max(64, planes.n // 2)
         )
+        tel = self.telemetry
         if full:
-            self._cold_start_upload(planes)
+            self._cold_start_upload(planes, rec)
+            # the only upload that changes the mirror's size
+            tel.note_resident("planes", tree_nbytes(self._device_planes), rec)
         elif self._pending_dirty:
             idx = np.array(sorted(self._pending_dirty), np.int32)
-            rows = self._upload_rows(planes.as_dict(), idx)
-            scatter_rows(self._device_planes, rows, self._pinned_copy(idx))
+            rows = self._upload_rows(planes.as_dict(), idx, rec)
+            tel.account_upload("delta_idx", idx.nbytes, rec)
+            # K3's first use at these planes' shapes and a pow2 bucket of
+            # rows (the reference pads its scatter index to one)
+            n = next_pow2(len(idx), floor=8)
+            with tel.compile_span("scatter_rows", ("scatter", planes.bucket_sizes, n),
+                                  label=f"rows{n}", record=rec):
+                scatter_rows(self._device_planes, rows, self._pinned_copy(idx))
             self.upload_stats["scatter"] += 1
             self.upload_stats["rows"] += len(idx)
         self._device_buckets = planes.bucket_sizes
         self._pending_dirty = set()
-        self._fresh_term_key(planes)
-        self._refresh_tables(planes)
+        self._fresh_term_key(planes, rec)
+        self._refresh_tables(planes, rec)
         if self._logtab is None or self._logtab.shape[0] != planes.nb + 1:
-            self._logtab = self._ctx.put_replicated(log_weight_table(planes.nb))
+            table = log_weight_table(planes.nb)
+            tel.account_upload("log_weights", table.nbytes, rec)
+            self._logtab = self._ctx.put_replicated(table)
         return self._overlay({})
 
-    def _cold_start_upload(self, planes) -> None:
+    def _cold_start_upload(self, planes, rec=None) -> None:
         """The full put of the node planes: cold start, bucket reshape, lost
         row tracking, or a dirty set so large a put beats the scatter. The
         mirror is then exact: no mirror debt remains."""
         host = planes.as_dict()
-        self._device_planes = {k: self._ctx.put(host[k], k) for k in SLICE_PLANES}
+        self._device_planes = self.telemetry.accounted_put(
+            "node_planes", {k: host[k] for k in SLICE_PLANES}, put=self._ctx.put,
+            record=rec)
         self._uploaded_term_key = None
         self._mirror_dirty = set()
         self.upload_stats["full"] += 1
 
-    def _fresh_term_key(self, planes) -> None:
+    def _fresh_term_key(self, planes, rec=None) -> None:
         """Re-upload the global ipa_term_key table when its host content
         moved (a term interned mid-run): it is not row-indexed, so the
         scatter skips it, and a stale copy would map the new term to key
@@ -538,12 +568,16 @@ class TorchBackend:
             return
         self._uploaded_term_key = planes.ipa_term_key.copy()
         self._device_term_key = self._ctx.put(self._uploaded_term_key, "ipa_term_key")
+        self.telemetry.account_upload("ipa_term_key", self._uploaded_term_key.nbytes, rec)
 
-    def _refresh_tables(self, planes) -> None:
+    def _refresh_tables(self, planes, rec=None) -> None:
         tables = self.extractor.affinity_tables(planes)
         if self._tables_src is not tables:
-            self._device_tables = {k: self._ctx.put(v, k) for k, v in tables.items()}
+            self._device_tables = self.telemetry.accounted_put(
+                "affinity_tables", tables, put=self._ctx.put, record=rec)
             self._tables_src = tables
+            self.telemetry.note_resident(
+                "tables", tree_nbytes(self._device_tables), rec)
 
     def _overlay(self, carry: dict) -> tuple[dict, dict]:
         """The device inputs: the mirror with `carry`'s planes over it."""
@@ -619,7 +653,7 @@ class TorchBackend:
         ev.record()
         return host, ev
 
-    def _upload_rows(self, host: dict, idx: np.ndarray) -> dict:
+    def _upload_rows(self, host: dict, idx: np.ndarray, rec=None) -> dict:
         """Gather the dirty rows of every mirrored plane into one byte
         buffer (16-byte aligned per plane), copy it to the device once, and
         return per-plane views of it in the device planes' dtypes."""
@@ -632,6 +666,7 @@ class TorchBackend:
         buf = np.zeros(off, np.uint8)
         for o, b in parts:
             buf[o: o + b.size] = b
+        self.telemetry.account_upload("delta_rows", buf.nbytes, rec)
         dev = self._pinned_copy(buf)
         rows = {}
         for k in SLICE_PLANES:
@@ -680,18 +715,27 @@ class TorchBackend:
                      clone_tie_words(rng, n_slots * MAX_TIE_DRAWS + MAX_TIE_DRAWS))
         rows, layout = pack_features(feats)
         groups = self._group_wave(rows, len(pods))
-        staged = self._stage([rows, tie_words] + ([] if groups is None else list(groups[:2])))
+        parts = [rows, tie_words] + ([] if groups is None else list(groups[:2]))
+        self.telemetry.account_upload("features", sum(a.nbytes for a in parts))
+        staged = self._stage(parts)
         packed_f, words = staged[:2]
         sig_ids, uniq = (None, None) if groups is None else staged[2:]
         t3 = time.perf_counter()
-        out = self._ctx.batched_assign(cfg, dev_planes, dev_tables, packed_f, layout,
-                                       words, self._logtab, sig_ids=sig_ids,
-                                       uniq_idx=uniq)
+        with self.telemetry.compile_span(
+                "batched_assign",
+                (cfg, planes.bucket_sizes, n_slots,
+                 0 if groups is None else len(groups[1]), rng is not None,
+                 False, False, self._ctx.n_shards),
+                label=_wave_label(planes.bucket_sizes, n_slots,
+                                  None if groups is None else groups[1])):
+            out = self._ctx.batched_assign(cfg, dev_planes, dev_tables, packed_f, layout,
+                                           words, self._logtab, sig_ids=sig_ids,
+                                           uniq_idx=uniq)
         if "tiers" in out:
             self.tier_steps += out["tiers"]
         t4 = time.perf_counter()
         # ONE device→host copy: winners ++ [tie_consumed, tie_overflow]
-        packed = out["packed"].cpu().numpy()
+        packed = self.telemetry.accounted_fetch("results", out["packed"]).numpy()
         self._staging = []
         t5 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
@@ -735,7 +779,10 @@ class TorchBackend:
         carry owned (_mirror_dirty), folded into _pending_dirty so the next
         device_inputs repairs them with one K3 scatter; a full put is still
         owed where row tracking itself was lost. The resident signature
-        rows are scores against the carry planes and die with it."""
+        rows are scores against the carry planes and die with it. Dropping
+        a live carry counts on the recorder (the open records' windows)."""
+        if self._carry is not None:
+            self.recorder.carry_invalidated()
         self._carry = None
         self._carry_rows = set()
         self._carry_anti = self._carry_pref = False
@@ -745,6 +792,8 @@ class TorchBackend:
             self._pending_dirty |= self._mirror_dirty
         self._mirror_dirty = set()
         self.sig_cache.clear()
+        self.telemetry.note_resident("carry", 0)
+        self.telemetry.note_resident("sig_table", 0)
 
     def mark_external(self) -> None:
         """An event outside the pipeline's own writeback touched cluster
@@ -769,7 +818,11 @@ class TorchBackend:
         Raises NeedResync when the carry cannot absorb host-side changes
         (the caller drains the pipeline, invalidates the carry and
         retries), FallbackNeeded for a pod the extractor refuses, and
-        DeviceFlakeError for an injected launch fault."""
+        DeviceFlakeError for an injected launch fault.
+
+        The wave's record opens here (fl.record) and closes at collect on
+        a fallback, else in the loop after the wave's binds; a NeedResync
+        closes it with "resync: <why>"."""
         try:
             # before any state is touched: an injected launch flake leaves
             # the carry, the in-flight frame and the rng as they were
@@ -777,6 +830,7 @@ class TorchBackend:
         except faultinject.FaultInjected as e:
             raise DeviceFlakeError(f"injected launch fault: {e}") from e
         self._rerun_carry = None  # a new launch closes any re-run window
+        rec = self.recorder.begin_wave(pods=len(pods))
         t0 = time.perf_counter()
         for pod in pods:
             self.extractor.register(pod)
@@ -787,37 +841,45 @@ class TorchBackend:
         if pad_to > len(pods):
             feats = pad_features(feats, pad_to)
         pad = max(pad_to, len(pods))
+        rec.pad = pad
         t2 = time.perf_counter()
 
         prev = self._inflight
         chained = False
-        if prev is not None and self._carry is None:
-            # a cycle dropped the carry while a wave is in flight: the host
-            # planes lack that wave's placements, so an upload from them
-            # would double-book nodes
-            raise NeedResync("carry dropped while a wave is in flight")
-        if self._carry is not None:
-            if self._carry_external:
-                raise NeedResync("external event touched cluster state")
-            if self._device_buckets != planes.bucket_sizes:
-                raise NeedResync("plane buckets changed under the carry")
-            if self._pending_dirty is None:
-                raise NeedResync("full plane rebuild required")
-            external = self._pending_dirty - self._carry_rows
-            if external:
-                raise NeedResync(f"{len(external)} externally-dirtied rows")
-            # the remaining dirty rows are our own collected binds, whose
-            # values the carry already holds: the mirror owes them instead
-            self._mirror_dirty |= self._pending_dirty
-            self._pending_dirty = set()
-            self._refresh_tables(planes)
-            self._fresh_term_key(planes)
-            dev_planes, dev_tables = self._overlay(self._carry)
-            # this wave chains on exactly the planes the resident score rows
-            # were scored against: cross-wave replay is sound
-            chained = True
-        else:
-            dev_planes, dev_tables = self.device_inputs(planes)
+        try:
+            if prev is not None and self._carry is None:
+                # a cycle dropped the carry while a wave is in flight: the
+                # host planes lack that wave's placements, so an upload
+                # from them would double-book nodes
+                raise NeedResync("carry dropped while a wave is in flight")
+            if self._carry is not None:
+                if self._carry_external:
+                    raise NeedResync("external event touched cluster state")
+                if self._device_buckets != planes.bucket_sizes:
+                    raise NeedResync("plane buckets changed under the carry")
+                if self._pending_dirty is None:
+                    raise NeedResync("full plane rebuild required")
+                external = self._pending_dirty - self._carry_rows
+                if external:
+                    raise NeedResync(f"{len(external)} externally-dirtied rows")
+                # the remaining dirty rows are our own collected binds,
+                # whose values the carry already holds: the mirror owes
+                # them instead
+                self._mirror_dirty |= self._pending_dirty
+                self._pending_dirty = set()
+                self._refresh_tables(planes, rec)
+                self._fresh_term_key(planes, rec)
+                dev_planes, dev_tables = self._overlay(self._carry)
+                # this wave chains on exactly the planes the resident score
+                # rows were scored against: cross-wave replay is sound
+                chained = True
+            else:
+                dev_planes, dev_tables = self.device_inputs(planes, rec)
+        except NeedResync as e:
+            # the caller drains and retries; this attempt's record closes
+            self.recorder.wave_phases(rec, (("sync", t0, t1), ("features", t1, t2)))
+            self.recorder.end_wave(rec, fallback_reason=f"resync: {e}")
+            raise
         cfg = self.kernel_config(planes, feats)
         t3 = time.perf_counter()
 
@@ -830,6 +892,9 @@ class TorchBackend:
                 carry_map = self.sig_cache.lookup(xw_key, groups[2], len(groups[1]))
                 if carry_map is not None:
                     sig_table = self.sig_cache.table
+        self.recorder.note_launch(
+            rec, signatures=0 if groups is None else int(groups[0][: len(pods)].max()) + 1,
+            dedup=groups is not None)
         t4 = time.perf_counter()
         frame_shift = self._advanced_since_launch
         cursor_init = 0
@@ -847,6 +912,7 @@ class TorchBackend:
             parts += [groups[0], groups[1]]
         if carry_map is not None:
             parts.append(carry_map)
+        self.telemetry.account_upload("features", sum(a.nbytes for a in parts), rec)
         staged = self._stage(parts)
         packed_f, words = staged[:2]
         sig_ids = uniq = dev_map = None
@@ -854,10 +920,18 @@ class TorchBackend:
             sig_ids, uniq = staged[2:4]
         if carry_map is not None:
             dev_map = staged[4]
-        info = self._ctx.batched_assign(
-            cfg, dev_planes, dev_tables, packed_f, layout, words, self._logtab,
-            cursor_init=cursor_init, frame_shift=frame_shift if prev is not None else 0,
-            sig_ids=sig_ids, uniq_idx=uniq, carry_map=dev_map, sig_table=sig_table)
+        with self.telemetry.compile_span(
+                "batched_assign",
+                (cfg, planes.bucket_sizes, pad,
+                 0 if groups is None else len(groups[1]), rng is not None,
+                 carry_map is not None, sig_table is not None, self._ctx.n_shards),
+                label=_wave_label(planes.bucket_sizes, pad,
+                                  None if groups is None else groups[1]),
+                record=rec):
+            info = self._ctx.batched_assign(
+                cfg, dev_planes, dev_tables, packed_f, layout, words, self._logtab,
+                cursor_init=cursor_init, frame_shift=frame_shift if prev is not None else 0,
+                sig_ids=sig_ids, uniq_idx=uniq, carry_map=dev_map, sig_table=sig_table)
         host_packed, ready = self._fetch_async(info["packed"])
         if "tiers" in info:
             self.tier_steps += info["tiers"]
@@ -870,6 +944,7 @@ class TorchBackend:
             self.dedup_stats["xwave_hits"] += hit
             self.dedup_stats["xwave_misses"] += miss
             self.dedup_stats["xwave_evictions"] += evict
+            self.recorder.note_cross_wave(rec, hit, miss, evict)
         else:
             self.sig_cache.clear()
         # the next launch chains on these outputs
@@ -879,11 +954,17 @@ class TorchBackend:
                 self._carry[k] = info[k]
         self._carry_anti = self._carry_anti or bool(feats["ipa_anti_add"].any())
         self._carry_pref = self._carry_pref or bool(feats["ipa_pref_add"].any())
+        # the carry overlay and the resident score table now hold device
+        # memory: fold the new live total into the wave's high-water mark
+        self.telemetry.note_resident("carry", tree_nbytes(self._carry))
+        self.telemetry.note_resident("sig_table", tree_nbytes(self.sig_cache.table))
+        self.telemetry.stamp_watermark(rec)
         fl = InflightWave(pods, planes, info, pad, frame_shift,
                           sig_ids=None if groups is None else groups[0])
         fl.host_packed, fl.ready = host_packed, ready
         fl.staged, self._staging = self._staging, []
         fl.chained = chained
+        fl.record = rec
         if prev is None:
             fl.cursor_base_host = 0
         self._inflight = fl
@@ -893,9 +974,18 @@ class TorchBackend:
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
                         ("dedup", t3, t4), ("tie", t4, t5), ("launch", t5, t6)):
             self.pipe_phase_s[k] += b - a
+        self.recorder.wave_phases(rec, (
+            ("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
+            ("dedup", t3, t4), ("tie", t4, t5), ("dispatch", t5, t6)))
         self.pipe_stats["launches"] += 1
         self.pipe_stats["chained"] += int(chained)
         self.pipe_stats["xwave_launches"] += int(carry_map is not None)
+        # pipeline overlap: with a predecessor in flight every host prep
+        # phase above ran while the device executed it (hidden time)
+        self.recorder.note_pipeline(rec, overlapped=prev is not None)
+        # the stall profiler's double-buffer handoff bit (a chained launch
+        # vs a launch into an idle device)
+        self.recorder.stall_profiler.note_handoff(rec, chained=prev is not None)
         return fl
 
     def collect(self, fl: InflightWave, rng=None):
@@ -908,13 +998,17 @@ class TorchBackend:
         Raises FallbackNeeded for a poisoned wave or a tie-draw overflow,
         and DeviceFlakeError for an injected collect fault: results
         discarded, rng untouched, carry invalidated (the caller must poison
-        a successor launched on it)."""
+        a successor launched on it). Each of these closes the wave's record
+        with its fallback reason."""
+        rec = fl.record
         try:
             faultinject.fire("tpu.collect")
         except faultinject.FaultInjected as e:
             if self._inflight is fl:
                 self._inflight = None
             self.invalidate_carry()
+            if rec is not None:
+                self.recorder.end_wave(rec, fallback_reason=f"injected: {e}")
             raise DeviceFlakeError(f"injected collect fault: {e}") from e
         t0 = time.perf_counter()
         if fl.ready is not None:
@@ -922,6 +1016,9 @@ class TorchBackend:
         packed = fl.host_packed.numpy()
         fl.staged = []  # every copy of this wave is done
         t1 = time.perf_counter()
+        # the result copy enqueued at launch has landed: count its bytes
+        self.telemetry.account_fetch("results", packed.nbytes, rec)
+        self.recorder.wave_phases(rec, (("wait", t0, t1),))
         try:
             return self._absorb(fl, packed, rng)
         finally:
@@ -936,11 +1033,18 @@ class TorchBackend:
         final_abs, overflow = int(packed[-2]), bool(packed[-1])
         if self._inflight is fl:
             self._inflight = None
+        rec = fl.record
         if fl.poisoned:
             self.invalidate_carry()
+            if rec is not None:
+                self.recorder.end_wave(
+                    rec, fallback_reason="poisoned: predecessor diverged")
             raise FallbackNeeded("predecessor wave diverged host-side")
         if rng is not None and overflow:
             self.invalidate_carry()
+            if rec is not None:
+                self.recorder.end_wave(
+                    rec, fallback_reason="overflow: tie-break draw overflow")
             raise FallbackNeeded("tie-break draw overflow")
         if rng is not None:
             if fl.cursor_base_host is None:
@@ -965,11 +1069,6 @@ class TorchBackend:
 
     # -- the gang wave ---------------------------------------------------------
 
-    def count_gang_pods(self, path: str, n: int) -> None:
-        """Count gang members routed down `path` ("device" or "host")."""
-        if n > 0:
-            self.gang_pod_totals[path] = self.gang_pod_totals.get(path, 0) + n
-
     def run_gang(self, pods: list[Pod], snapshot, placements,
                  n_constrained: int, has_fallback: bool, rng):
         """Whole-PodGroup device placement: ONE K1 launch over the members
@@ -979,12 +1078,15 @@ class TorchBackend:
         `placements` is the PlacementGenerate output in plugin order: rows
         [0, n_constrained) the topology domains and, with has_fallback, row
         n_constrained the unconstrained parent. Returns (hosts aligned with
-        `pods`, the winning placement row, the GangRecord), or None when the
-        gang must ride the host cycle (no feasible domain, tie overflow on a
-        real row, a member the extractor refuses). The live rng advances by
-        the winning row's tie draws ONLY on success."""
-        rec = GangRecord(gang_groups=1, gang_pods=len(pods))
-        self.gang_record = rec
+        `pods`, the winning placement row, the gang wave's record), or None
+        when the gang must ride the host cycle (no feasible domain, tie
+        overflow on a real row, a member the extractor refuses). The live
+        rng advances by the winning row's tie draws ONLY on success. Every
+        return closes the record (gang_outcome "device:<placement>" or
+        "fallback:<reason>"); the recorder counts the device members."""
+        rec = self.recorder.begin_wave(pods=len(pods))
+        rec.gang_groups = 1
+        rec.gang_pods = len(pods)
         t0 = time.perf_counter()
         try:
             for pod in pods:
@@ -996,6 +1098,7 @@ class TorchBackend:
         except FallbackNeeded as e:
             rec.gang_fallback_pods = len(pods)
             rec.gang_outcome = f"fallback:{e}"
+            self.recorder.end_wave(rec, fallback_reason=str(e))
             return None
         pad_to = next_pow2(len(pods), floor=4)
         if pad_to > len(pods):
@@ -1014,21 +1117,32 @@ class TorchBackend:
         # stream from cursor 0, as the host's dry runs restore the rng
         tie_words = clone_tie_words(rng, pad_to * MAX_TIE_DRAWS + MAX_TIE_DRAWS)
         rows, layout = pack_features(feats)
+        tel = self.telemetry
+        tel.account_upload("features", rows.nbytes + tie_words.nbytes, rec)
+        tel.account_upload("gang_masks", masks.nbytes, rec)
         packed_f = torch.from_numpy(rows).to(self.device)
         words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
         dev_masks = torch.from_numpy(masks).to(self.device)
         t4 = time.perf_counter()
-        static = static_parts(dev_planes, dev_tables, packed_f, layout)
-        packed_dev = gang_assign(cfg, dev_planes, static, packed_f, layout, dev_masks,
-                                 words, self._logtab, n_constrained, has_fallback)
+        with tel.compile_span(
+                "gang_assign",
+                (cfg, planes.bucket_sizes, pad_to, n_rows, int(n_constrained),
+                 bool(has_fallback), self._ctx.n_shards),
+                label=f"gang{pad_to}/d{n_rows}/{_bucket_label(planes.bucket_sizes)}",
+                record=rec):
+            static = static_parts(dev_planes, dev_tables, packed_f, layout)
+            packed_dev = gang_assign(cfg, dev_planes, static, packed_f, layout, dev_masks,
+                                     words, self._logtab, n_constrained, has_fallback)
         t5 = time.perf_counter()
         # ONE device→host copy carries the whole gang verdict
-        packed = packed_dev.cpu().numpy()
+        packed = tel.accounted_fetch("results", packed_dev, rec).numpy()
         self._staging = []
         t6 = time.perf_counter()
-        for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("masks", t2, t3),
-                        ("upload", t3, t4), ("kernel", t4, t5), ("wait", t5, t6)):
+        marks = (("sync", t0, t1), ("features", t1, t2), ("masks", t2, t3),
+                 ("upload", t3, t4), ("kernel", t4, t5), ("wait", t5, t6))
+        for k, a, b in marks:
             self.gang_phase_s[k] += b - a
+        self.recorder.wave_phases(rec, marks)
         d, p = n_rows, pad_to
         winners = packed[: d * p].reshape(d, p)
         consumed = packed[d * p: d * p + d]
@@ -1042,6 +1156,8 @@ class TorchBackend:
             # row's overflow does not count)
             rec.gang_fallback_pods = len(pods)
             rec.gang_outcome = "fallback:tie-break draw overflow"
+            self.recorder.end_wave(
+                rec, fallback_reason="gang tie-break draw overflow")
             return None
         if not ok:
             # the near miss: the row that placed the most members
@@ -1052,11 +1168,14 @@ class TorchBackend:
                         f" placed={int(placed[near])}/{len(pods)}")
             rec.gang_fallback_pods = len(pods)
             rec.gang_outcome = "fallback:no-domain" + hint
+            self.recorder.end_wave(
+                rec, fallback_reason="gang: no feasible domain")
             return None
         hosts = [planes.node_names[int(w)] for w in winners[win_d][: len(pods)]]
         advance_rng(rng, int(consumed[win_d]))
         rec.gang_outcome = f"device:{placements[win_d].name}"
-        self.count_gang_pods("device", len(pods))
+        self.recorder.end_wave(rec)
+        self.recorder.count_gang_pods("device", len(pods))
         return hosts, win_d, rec
 
     # -- the single-pod cycle --------------------------------------------------
@@ -1083,11 +1202,15 @@ class TorchBackend:
         cfg = self.kernel_config(planes, f)
         t4 = time.perf_counter()
         packed_f, layout = features_from_reference(stack_features([f]), self.device)
+        self.telemetry.account_upload("features", packed_f.nbytes)
         t5 = time.perf_counter()
-        packed = self._ctx.fit_and_score(cfg, dev_planes, dev_tables, packed_f, layout,
-                                         self._logtab)
+        with self.telemetry.compile_span(
+                "fit_and_score", (cfg, planes.bucket_sizes, self._ctx.n_shards),
+                label=_bucket_label(planes.bucket_sizes)):
+            packed = self._ctx.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
+                                             layout, self._logtab)
         t6 = time.perf_counter()
-        host = packed[0].cpu()
+        host = self.telemetry.accounted_fetch("scores", packed[0])
         self._staging = []
         t7 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),

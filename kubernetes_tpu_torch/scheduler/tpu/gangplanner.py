@@ -20,7 +20,7 @@ members — returns None with the
 rng and snapshot untouched, and the host pod-group cycle (schedule_one.py
 PodGroupCycle) takes the group. OutOfSlice (a gang the kernels do not
 compute) always raises. Any other error from run_gang is counted on the
-backend (gang_errors, gang_last_error beside gang_pod_totals); on the CPU,
+backend (gang_errors, gang_last_error; the recorder keeps gang_pod_totals); on the CPU,
 where the plain versions run, the group then goes to the host cycle as in
 the reference, and on the card the error raises, so a failed K1/K5 build
 or launch never hides behind the host tier.
@@ -122,14 +122,15 @@ def try_gang_wave(sched, fw, algo, gk: str, qpis: list):
     reference logs it) and qpis the queued members (each with `.pod`),
     sorted by priority then queue time. Every None path leaves the rng,
     snapshot and cache untouched and counts the members on the "host" side
-    of the backend's gang_pod_totals; run_gang counts the "device" side on
-    success."""
+    of the wave recorder's gang_pod_totals; run_gang counts the "device"
+    side on success."""
     if not isinstance(algo, TorchSchedulingAlgorithm):
         return None
     backend = algo.backend
+    recorder = backend.recorder
 
     def host_path():
-        backend.count_gang_pods("host", len(qpis))
+        recorder.count_gang_pods("host", len(qpis))
         return None
 
     if not qpis or sched.snapshot.num_nodes() == 0:

@@ -274,3 +274,8 @@ def fire(point: str) -> bool:
         return False
     return r.fire(point)
 
+
+
+def fired_total() -> int:
+    """Faults fired since the last reset (the wave records' window base)."""
+    return _REGISTRY.fired_total

@@ -327,7 +327,7 @@ class _Port:
         self.handle.store.add(pod)
 
     def outcome(self):
-        return self.backend.gang_record.gang_outcome
+        return self.backend.recorder.records()[-1].gang_outcome
 
 
 def _qpis(pods):
@@ -408,20 +408,20 @@ def test_try_gang_wave_counts_and_leaves_state_on_fallback():
     side.add_group(g0, fits)
     hosts = tplanner.try_gang_wave(side, side.fw, algo, g0.meta.key, _qpis(fits))
     assert hosts and len({int(h[1:]) % 3 for h in hosts}) == 1
-    assert side.backend.gang_pod_totals == {"device": 3} and algo.kernel_count == 3
+    assert side.backend.recorder.gang_pod_totals == {"device": 3} and algo.kernel_count == 3
     state = algo.rng.getstate()
     side.add_group(g1, too_big)
     assert tplanner.try_gang_wave(side, side.fw, algo, g1.meta.key, _qpis(too_big)) is None
     assert algo.rng.getstate() == state and algo.fallback_count == 9
-    assert side.backend.gang_pod_totals == {"device": 3, "host": 9}
-    assert side.backend.gang_record.gang_outcome.startswith("fallback:no-domain near=")
+    assert side.backend.recorder.gang_pod_totals == {"device": 3, "host": 9}
+    record = side.backend.recorder.records()[-1]
+    assert record.gang_outcome.startswith("fallback:no-domain near=")
     # past the member cap: the host path, no kernel launch
-    record = side.backend.gang_record
     many = _qpis(too_big * 15)
     assert len(many) > tplanner.MAX_GANG_MEMBERS
     assert tplanner.try_gang_wave(side, side.fw, algo, g1.meta.key, many) is None
-    assert side.backend.gang_record is record
-    assert side.backend.gang_pod_totals["host"] == 9 + len(many)
+    assert side.backend.recorder.records()[-1] is record
+    assert side.backend.recorder.gang_pod_totals["host"] == 9 + len(many)
 
 
 # --------------------------------------------------------------------------

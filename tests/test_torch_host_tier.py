@@ -161,9 +161,7 @@ class _Side:
         self.cache.update_snapshot(self.snapshot)
 
     def gang_totals(self):
-        if self.pkg == "jax":
-            return dict(self.backend.recorder.gang_pod_totals)
-        return dict(self.backend.gang_pod_totals)
+        return dict(self.backend.recorder.gang_pod_totals)
 
 
 def _sides(build, **kw):

@@ -404,9 +404,7 @@ def test_open_breaker_sends_a_gang_to_the_host_cycle(monkeypatch):
         for i in range(3):
             store.create(side.w.with_gang(side.w.make_pod(f"g{i}", cpu="1", mem="1Gi"), "g"))
         s.schedule_pending()
-        totals = (algo.backend.gang_pod_totals if name == "port"
-                  else s.flight_recorder.gang_pod_totals)
-        out[name] = (outcome(store, s), dict(totals))
+        out[name] = (outcome(store, s), dict(s.flight_recorder.gang_pod_totals))
     assert out["port"] == out["jax"]
     assert out["port"][1] == {"host": 3}
 
@@ -511,7 +509,7 @@ def test_port_scheduler_runs_without_jax():
         "    s.schedule_pending()\n"
         "    bound = [p for p in st.pods() if p.spec.node_name]\n"
         "    assert len(bound) == 22, len(bound)\n"
-        "    assert s.algorithms['default-scheduler'].backend.gang_pod_totals == {'device': 2}\n"
+        "    assert s.flight_recorder.gang_pod_totals == {'device': 2}\n"
         "    if s.api_dispatcher is not None:\n"
         "        s.api_dispatcher.close()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kubernetes_tpu.'))\n"

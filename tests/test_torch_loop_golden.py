@@ -112,7 +112,7 @@ def test_golden_triple_matches_reference(config, mode, monkeypatch):
         assert backend._ctx.n_shards == 8
     if config == "gang_registered_absent":
         # no gang popped: the gang path never counted a member
-        assert backend.gang_pod_totals == {}
+        assert backend.recorder.gang_pod_totals == {}
     assert s.loop.phase_profile["waves"] == want[3].loop.phase_profile["waves"]
     assert s.loop._inflight_wave is None
 

@@ -182,7 +182,7 @@ def test_imports_and_schedules_without_jax():
         "assert out[0] == 'success', out\n"
         "hosts = [r.suggested_host for _q, _st, r, _pi in out[1]]\n"
         "assert len({int(n.split('-')[1]) % 8 for n in hosts}) == 1, hosts\n"
-        "assert b.gang_pod_totals == {'device': 4}, b.gang_pod_totals\n"
+        "assert b.recorder.gang_pod_totals == {'device': 4}, b.recorder.gang_pod_totals\n"
         "from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh\n"
         "m = TorchBackend(c.names, device='cpu', context=MeshContext(scheduler_mesh(4, device='cpu')))\n"
         "got4, _ = m.run_batched([scheduling_basic_pod(100 + i) for i in range(8)], s,\n"
