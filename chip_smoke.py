@@ -267,8 +267,37 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    device="cpu": every non-timing field of every wave record, each pod's
    ledger edge sequence, the plugin observations per (plugin, extension
    point) and the compiles per kernel equal;
-   phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e) and of 26 (a)-(d)
-   run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
+27. the restart path: (a) SchedulingBasic's cluster with its initial pods
+   already bound and a backlog of RESTART_WAVES waves, through a
+   Scheduler started cold and warm (warm_start=True: the libraries
+   loaded, K1-K5 launched at every static configuration the waves meet),
+   each in a fresh process (cold, warm, warm, cold, and a warm one whose
+   backlog arrives after start(); the processes start and import at once
+   and then run one at a time), so every first use is paid in the run
+   that counts it: start() seconds, start() to the first bind, the first
+   uses at start and in all, compile_count_since_warm() after the waves,
+   the warmup's launches and summary; every warm run skips nothing, every
+   warm run with its backlog pending at start() meets no first use after
+   its warmup, and every run binds alike and leaves the same rng; (b)
+   CRASH armed at loop.wave on the measured pods' CRASH_WAVE-th wave, then
+   a fresh Scheduler(warm_start=True) over the same store: its reconcile
+   stats, every pod bound exactly once (a bind ledger on the store), no
+   node past its cpu, memory or pod count; the same run at --loop-nodes
+   nodes, and two crashes that leave state on the crashed instance, which
+   then reconciles itself (loop.bind_commit on a SchedulingBasic stream:
+   the landed binds adopted; gang.permit on
+   PodGroups of 4 with Required zone topology: the assumed members
+   forgotten and requeued, their permit quorum entries reverted), each on
+   the card and with device="cpu": equal bindings, stats, restart records
+   and rng, every sweep expected to act having acted; (c) two FleetMembers
+   over one store and one card, each Scheduler with its own TorchBackend,
+   in two threads: member 1 crashes after FLEET_CRASH_WAVES waves and
+   member 0 adopts its shard when the lease (FLEET_LEASE s) expires:
+   pods/s, failover latency, shard_adopt_ records, each member's launches
+   (kernels.thread_launches), every pod bound once, member 0's device
+   mirror equal to its host planes;
+   phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e), of 26 (a)-(d) and
+   of 27 (a)-(c) run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -764,7 +793,9 @@ def tie_words(seed, n_slots):
     return torch.from_numpy(words.view("int32")).cuda()
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """chip_smoke's arguments; their defaults are the run's full sizes (the
+    tools that run one phase alone take them from here)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--zones", type=int, default=8)
@@ -822,10 +853,19 @@ def main() -> None:
     ap.add_argument("--preempt-timeout", type=float, default=600.0)
     # a phase that runs past this fails the run (a hung cluster barrier)
     ap.add_argument("--phase-timeout", type=float, default=420.0)
-    args = ap.parse_args()
+    # phase 27 (a)'s fresh process: one cold or warm start (JSON spec)
+    ap.add_argument("--restart-child", default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def main() -> None:
+    args = build_parser().parse_args()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    if args.restart_child is not None:
+        restart_child_main(json.loads(args.restart_child))
+        return
     sys.stdout.reconfigure(line_buffering=True)  # in order with stderr in one log
 
     from kubernetes_tpu_torch.api.resource import ResourceNames
@@ -1177,6 +1217,7 @@ def main() -> None:
                   args.phase_timeout):
         storage_card_vs_cpu(args)
     telemetry_phase(args, smi)
+    restart_phase(args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -4405,6 +4446,604 @@ def telemetry_phase(args, smi):
     with watchdog("phase 26 (d) (the telemetry, card against the CPU)", args.phase_timeout):
         telemetry_card_vs_cpu(args)
     print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# 27: the restart path: warm start, crash recovery, the fleet
+# --------------------------------------------------------------------------
+
+
+def bind_ledger(store):
+    """Wrap the store's bind path with the double-bind oracle: each pod
+    key's bind count, and the perf_counter time of the first bind."""
+    ledger = {"binds": {}, "first": None}
+    lock = threading.Lock()
+    orig_pods, orig_pod = store.bind_pods, store.bind_pod
+
+    def note(keys):
+        with lock:
+            if keys and ledger["first"] is None:
+                ledger["first"] = time.perf_counter()
+            for k in keys:
+                ledger["binds"][k] = ledger["binds"].get(k, 0) + 1
+
+    def bind_pods(bindings):
+        out = orig_pods(bindings)
+        note([k for (k, _n), st in zip(bindings, out) if st == "bound"])
+        return out
+
+    def bind_pod(key, node_name):
+        obj = orig_pod(key, node_name)
+        note([key])
+        return obj
+
+    store.bind_pods, store.bind_pod = bind_pods, bind_pod
+    return ledger
+
+
+def check_restart(label, store, ledger, scheds=()):
+    """Every pod bound exactly once, no node past its cpu, memory or pod
+    count, every listed scheduler left with no assume and an empty queue."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops.planes import PlaneBuilder
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+
+    pods = store.pods()
+    unbound = [p.meta.key for p in pods if not p.spec.node_name]
+    if unbound:
+        fail(f"{label}: {len(unbound)} pods unbound (first {unbound[:3]})")
+    twice = {k: n for k, n in ledger["binds"].items() if n != 1}
+    if twice:
+        fail(f"{label}: pods bound more than once: {list(twice.items())[:3]}")
+    names = ResourceNames()
+    cache = Cache(names)
+    for n in store.nodes():
+        cache.add_node(n)
+    for p in pods:
+        cache.add_pod(p)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    planes = PlaneBuilder(names).sync(snap)
+    over = (planes.used[: planes.n] > planes.alloc[: planes.n]).any(axis=1)
+    if over.any():
+        fail(f"{label}: {int(over.sum())} nodes past their cpu, memory or pod count")
+    for s in scheds:
+        if s.cache.assumed_pod_count() or sum(s.queue.pending_pods()):
+            fail(f"{label}: {s.cache.assumed_pod_count()} assumes and "
+                 f"{s.queue.pending_pods()} queued pods left")
+    return int(planes.used[: planes.n, 3].max())
+
+
+def digest(obj) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
+
+
+# phase 27's sizes: the backlog of (a)'s starts in waves of --wave, the
+# measured wave (b)'s crash fires on, (c)'s lease in seconds and the waves
+# its member 1 runs before it crashes
+RESTART_WAVES = 10
+CRASH_WAVE = 10
+FLEET_LEASE = 5.0
+FLEET_CRASH_WAVES = 3
+
+# 27 (a)'s children in the order they run: cold, warm, warm, cold, then a
+# warm start over an empty backlog (the pods arrive after start(): its warm
+# pods cannot take a pending pod's shape, ROADMAP C16)
+RESTART_CHILDREN = ({"warm": False}, {"warm": True}, {"warm": True}, {"warm": False},
+                    {"warm": True, "late_backlog": True})
+
+
+def restart_child_main(spec):
+    """27 (a)'s child process: import, say "ready", and run its start only
+    when the parent writes "go" (the parent starts every child at once, so
+    their interpreter starts overlap, and runs them one at a time); a
+    parent that ended without a word leaves it nothing to do."""
+    import kubernetes_tpu_torch.scheduler.scheduler  # noqa: F401
+    import kubernetes_tpu_torch.testing.wrappers  # noqa: F401
+
+    spec["ready_s"] = time.time() - spec["t_spawn"]
+    print("ready", flush=True)
+    if sys.stdin.readline().strip() == "go":
+        print(json.dumps(restart_child_run(spec)), flush=True)
+
+
+def restart_child_run(spec):
+    """27 (a), in a fresh process: SchedulingBasic's cluster with its
+    initial pods already bound (a restart over a running cluster) and a
+    backlog of `waves` waves of pods, created before start() or, with
+    `late_backlog`, just after it; Scheduler(warm_start=spec["warm"])
+    started and driven until the backlog is bound. Returns the times,
+    compile counts, launches and hashes."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    device, nodes, init = spec["device"], spec["nodes"], spec["init"]
+    late = spec.get("late_backlog", False)
+    backlog = spec["waves"] * spec["wave"]
+    t0 = time.perf_counter()
+    store = Store()
+    for i in range(nodes):
+        store.create(scheduling_basic_node(i, spec["zones"]), copy_return=False)
+    for i in range(init):
+        pod = scheduling_basic_pod(i)
+        pod.spec.node_name = f"node-{i % nodes}"
+        store.create(pod, copy_return=False)
+
+    def create_backlog():
+        for i in range(backlog):
+            store.create(scheduling_basic_pod(init + i), copy_return=False)
+
+    if not late:
+        create_backlog()
+    ledger = bind_ledger(store)
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=spec["wave"])],
+                      seed=spec["seed"], clock=StrictClock(), device=device,
+                      warm_start=spec["warm"])
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    setup_s = time.perf_counter() - t0
+    tele = s.flight_recorder.device_telemetry
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    s.start()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    start_launches = dict(kernels.LAUNCHES)
+    start_compiles = tele.compile_count()
+    start_seconds = dict(tele.snapshot()["compiles"]["seconds_by_kernel"])
+    kernels.reset_launches()
+    arrived = t1
+    if late:
+        create_backlog()
+        arrived = time.perf_counter()
+    n = s.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    label = f"phase 27 (a), warm {spec['warm']}{', late backlog' if late else ''}"
+    check_loop(label, s)
+    check_restart(label, store, ledger, [s])
+    if n != backlog:
+        fail(f"{label}: {n} pods scheduled of a backlog of {backlog}")
+    bound = sorted((p.meta.key, p.spec.node_name) for p in store.pods())
+    snap = tele.snapshot()["compiles"]
+    summary = None
+    if spec["warm"]:
+        (summary,) = s.warmup_summaries
+        summary = {k: v for k, v in summary.items() if k != "cache_dir"}
+    return {"warm": spec["warm"], "late": late, "ready_s": spec["ready_s"],
+            "setup_s": setup_s, "start_s": t2 - t1,
+            "backlog_after_start_s": arrived - t2 if late else None,
+            "first_bind_s": ledger["first"] - arrived,
+            "drain_s": t3 - arrived, "waves": s.flight_recorder.phase_totals["waves"],
+            "summary": summary, "start_launches": start_launches,
+            "wave_launches": dict(kernels.LAUNCHES),
+            "compiles_after_start": start_compiles, "compiles": tele.compile_count(),
+            "since_warm": tele.compile_count_since_warm(),
+            "start_compile_s": start_seconds,
+            "compile_s": snap["seconds_by_kernel"],
+            "bindings": digest(bound), "rng": digest(
+                s.algorithms["default-scheduler"].rng.getstate())}
+
+
+def restart_children(args, smi):
+    """27 (a): two cold and two warm Schedulers and a warm one whose backlog
+    comes after start(), each in a fresh process, so every first use
+    (library load, module load, first launch, pinned staging) is paid in
+    the run that counts it; the libraries phase 1 built are on disk. Every
+    child starts at once and imports; they then run one at a time."""
+    script = os.path.abspath(__file__)
+    procs = []
+    try:
+        for kind in RESTART_CHILDREN:
+            spec = dict(kind, device="cuda", nodes=args.nodes, zones=args.zones,
+                        init=args.init_pods, waves=RESTART_WAVES, wave=args.wave,
+                        seed=args.seed, t_spawn=time.time())
+            procs.append((kind, subprocess.Popen(
+                [sys.executable, script, "--restart-child", json.dumps(spec)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for kind, proc in procs:
+            said = []
+            for line in proc.stdout:
+                if line.strip() == "ready":
+                    break
+                said.append(line)
+            else:
+                proc.wait()
+                fail(f"phase 27 (a) child {kind} exited {proc.returncode} before it was "
+                     f"ready:\n{''.join(said)[-4000:]}")
+        runs = []
+        for kind, proc in procs:
+            out, _ = proc.communicate("go\n", timeout=args.phase_timeout)
+            if proc.returncode != 0:
+                fail(f"phase 27 (a) child {kind} exited {proc.returncode}:\n{out[-6000:]}")
+            r = json.loads(out.strip().splitlines()[-1])
+            runs.append(r)
+            name = ("warm, backlog after start()" if r["late"]
+                    else "warm" if r["warm"] else "cold")
+            arrival = ("start()" if not r["late"] else
+                       f"the backlog's last create ({r['backlog_after_start_s']:.4f} s of "
+                       f"creates after start())")
+            print(f"phase 27 (a) {name} ({smi}): process start and imports (all children "
+                  f"at once) {r['ready_s']:.3f} s, store {r['setup_s']:.3f} s, start() "
+                  f"{r['start_s']:.4f} s, {arrival} to first bind {r['first_bind_s']:.4f} s, "
+                  f"the backlog {RESTART_WAVES * args.wave} pods in {r['drain_s']:.4f} s "
+                  f"({r['waves']} waves); first uses at start {r['compiles_after_start']}, "
+                  f"in all {r['compiles']}, since warm {r['since_warm']}; launches in start() "
+                  f"{r['start_launches']}, in the waves {r['wave_launches']}; first-use s by "
+                  f"kernel at start {r['start_compile_s']}, in all {r['compile_s']}; "
+                  f"bindings {r['bindings']}, rng {r['rng']}")
+            if r["warm"]:
+                print(f"phase 27 (a) warmup summary: {r['summary']}")
+    finally:
+        for _kind, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r in runs:
+        if r["bindings"] != runs[0]["bindings"] or r["rng"] != runs[0]["rng"]:
+            fail("phase 27 (a): the warm and cold runs bind differently or leave another rng")
+        if r["warm"]:
+            if r["summary"]["skipped"]:
+                fail(f"phase 27 (a): the warmup skipped {r['summary']['skipped']}")
+            if r["since_warm"] != 0 and not r["late"]:
+                fail(f"phase 27 (a): {r['since_warm']} first uses after the warm start")
+            for k in ("static_parts", "assign_scan", "scatter_rows", "fit_and_score",
+                      "gang_assign"):
+                if r["start_launches"][k] <= 0:
+                    fail(f"phase 27 (a): the warmup never launched {k}")
+    cold = [r for r in runs if not r["warm"]]
+    warm = [r for r in runs if r["warm"] and not r["late"]]
+    mean = lambda rs, k: sum(r[k] for r in rs) / len(rs)  # noqa: E731
+    print(f"phase 27 (a) ({smi}): start() cold {mean(cold, 'start_s'):.4f} s, warm "
+          f"{mean(warm, 'start_s'):.4f} s; start() to first bind cold "
+          f"{mean(cold, 'first_bind_s'):.4f} s, warm {mean(warm, 'first_bind_s'):.4f} s; "
+          f"backlog drain cold {mean(cold, 'drain_s'):.4f} s, warm {mean(warm, 'drain_s'):.4f} s")
+    return runs
+
+
+def crash_restart_run(device, nodes, zones, init, pods, wave, seed, crash_wave):
+    """27 (b), one run: SchedulingBasic through the port's Scheduler A at
+    depth 2, CRASH armed at `loop.wave` on the measured pods' crash_wave-th
+    wave; A's informers stopped (no drain, no flush), then a fresh
+    Scheduler(warm_start=True) B over the same store binds the rest.
+    Returns B's reconcile stats, the bindings and the numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+    from kubernetes_tpu_torch.utils import faultinject
+
+    def scheduler(warm):
+        os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+        try:
+            return Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)],
+                             seed=seed, clock=StrictClock(), device=device, warm_start=warm)
+        finally:
+            os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+
+    store = Store()
+    for i in range(nodes):
+        store.create(scheduling_basic_node(i, zones), copy_return=False)
+    ledger = bind_ledger(store)
+    a = scheduler(False)
+    a.start()
+    for i in range(init):
+        store.create(scheduling_basic_pod(i), copy_return=False)
+    a.schedule_pending()
+    for i in range(pods):
+        store.create(scheduling_basic_pod(init + i), copy_return=False)
+    reg = faultinject.registry()
+    reg.reset(seed=11)
+    reg.register(faultinject.FaultSpec("loop.wave", mode=faultinject.CRASH, times=1,
+                                       start_after=crash_wave - 1))
+    reg.arm()
+    try:
+        a.schedule_pending()
+        fail("phase 27 (b): the armed loop.wave crash never fired")
+    except faultinject.SchedulerCrashed:
+        pass
+    finally:
+        reg.disarm()
+        reg.reset(seed=0)
+    a.informers.stop_all()
+    a_bound = sum(1 for p in store.pods() if p.spec.node_name)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    ledger["first"] = None
+    t0 = time.perf_counter()
+    b = scheduler(True)
+    stats = []
+    reconcile = b.reconcile
+    b.reconcile = lambda **kw: stats.append(reconcile(**kw)) or stats[-1]
+    b.start()
+    t1 = time.perf_counter()
+    start_launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    n = b.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    label = f"phase 27 (b) on {device}"
+    check_loop(label, b)
+    max_pods = check_restart(label, store, ledger, [b])
+    (summary,) = b.warmup_summaries
+    return {"bindings": {p.meta.key: p.spec.node_name for p in store.pods()},
+            "stats": stats, "restart_events": list(b.flight_recorder.restart_events),
+            "rng": b.algorithms["default-scheduler"].rng.getstate(),
+            "a_bound": a_bound, "b_bound": n, "start_s": t1 - t0,
+            "first_bind_s": ledger["first"] - t0 if ledger["first"] else None,
+            "drain_s": t2 - t1, "since_warm": b.flight_recorder.device_telemetry
+            .compile_count_since_warm(), "skipped": summary["skipped"],
+            "start_launches": start_launches, "launches": dict(kernels.LAUNCHES),
+            "max_pods": max_pods}
+
+
+def self_reconcile_run(device, point, nodes, seed):
+    """27 (b), a crash that leaves state on the crashed Scheduler, which then
+    reconciles itself (the reference's TestBindCommitGap): at
+    loop.bind_commit on a SchedulingBasic stream (704 pods, waves of 64,
+    the crash at the 4th wave's commit, after its store binds), or at
+    gang.permit on 24 PodGroups of 4 with Required zone topology through
+    the gang waves (K1 + K5; the crash at the 6th gang, its members assumed
+    and none dispatched). Returns the reconcile stats, the bindings, the
+    restart records and the rng."""
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import (
+        GangPolicy, PodGroup, PodGroupSpec, SchedulingConstraints, TopologyConstraint)
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import (
+        make_node, make_pod, scheduling_basic_node, scheduling_basic_pod, with_gang)
+    from kubernetes_tpu_torch.utils import faultinject
+
+    store = Store()
+    if point == "loop.bind_commit":
+        gates, start_after = None, 3
+        for i in range(nodes):
+            store.create(scheduling_basic_node(i, 4), copy_return=False)
+        for i in range(704):
+            store.create(scheduling_basic_pod(i), copy_return=False)
+    else:
+        gates, start_after = {"GenericWorkload": True,
+                              "TopologyAwareWorkloadScheduling": True}, 5
+        for i in range(nodes):
+            store.create(make_node(f"node-{i}", zone=f"zone-{i % 4}"), copy_return=False)
+        topo = SchedulingConstraints(topology=(TopologyConstraint(
+            key="topology.kubernetes.io/zone", mode="Required"),))
+        for g in range(24):
+            store.create(PodGroup(meta=ObjectMeta(name=f"group-{g}"),
+                                  spec=PodGroupSpec(policy=GangPolicy(min_count=4),
+                                                    constraints=topo)), copy_return=False)
+            for m in range(4):
+                store.create(with_gang(make_pod(f"group-{g}-{m}", cpu="100m", mem="50Mi"),
+                                       f"group-{g}"), copy_return=False)
+    ledger = bind_ledger(store)
+    s = loop_scheduler(store, device, 64, seed, gates)
+    label = f"phase 27 (b) {point} on {device}"
+    reg = faultinject.registry()
+    reg.reset(seed=11)
+    reg.register(faultinject.FaultSpec(point, mode=faultinject.CRASH, times=1,
+                                       start_after=start_after))
+    reg.arm()
+    kernels.reset_launches()
+    try:
+        s.schedule_pending()
+        fail(f"{label}: the armed crash never fired")
+    except faultinject.SchedulerCrashed:
+        pass
+    finally:
+        reg.disarm()
+        reg.reset(seed=0)
+    landed = sum(1 for p in store.pods() if p.spec.node_name)
+    assumed = s.cache.assumed_pod_count()
+    stats = s.reconcile()
+    s.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check_loop(label, s)
+    check_restart(label, store, ledger, [s])
+    return {"bindings": {p.meta.key: p.spec.node_name for p in store.pods()},
+            "stats": stats, "restart_events": list(s.flight_recorder.restart_events),
+            "rng": s.algorithms["default-scheduler"].rng.getstate(), "landed": landed,
+            "assumed": assumed, "launches": dict(kernels.LAUNCHES)}
+
+
+def crash_restart(args, smi):
+    """27 (b): the crash and restart at full width, then at the small size,
+    and the two crashes a Scheduler reconciles on itself, each on the card
+    and on the CPU: equal bindings, stats, records and rng."""
+    r = crash_restart_run("cuda", args.nodes, args.zones, args.init_pods, args.pods,
+                          args.wave, args.seed, CRASH_WAVE)
+    print(f"phase 27 (b) ({smi}): A bound {r['a_bound']} pods before the crash at its "
+          f"measured wave {CRASH_WAVE}; B's reconcile {r['stats']}, restart records "
+          f"{r['restart_events']}; B: start() {r['start_s']:.4f} s (warm, skipped "
+          f"{r['skipped']}), construction to first bind {r['first_bind_s']:.4f} s, "
+          f"{r['b_bound']} pods in {r['drain_s']:.4f} s = {r['b_bound'] / r['drain_s']:.1f} "
+          f"pods/s, first uses after warm {r['since_warm']}; launches in B's start() "
+          f"{r['start_launches']}, in its waves {r['launches']}; every pod bound once, "
+          f"at most {r['max_pods']} pods a node")
+    if r["since_warm"] != 0 or r["skipped"]:
+        fail(f"phase 27 (b): after B's warm start {r['since_warm']} first uses, skipped "
+             f"{r['skipped']}")
+    if r["launches"]["static_parts"] <= 0 or r["launches"]["assign_scan"] <= 0:
+        fail(f"phase 27 (b): K1 and K2 must launch in B's waves: {r['launches']}")
+    small = {}
+    for device in ("cuda", "cpu"):
+        small[device] = crash_restart_run(device, args.loop_nodes, 4, 64, 640, 64, args.seed, 4)
+    c, h = small["cuda"], small["cpu"]
+    for k in ("bindings", "stats", "restart_events", "rng", "a_bound", "b_bound"):
+        if c[k] != h[k]:
+            fail(f"phase 27 (b): the small run's {k} differ between the card and the CPU")
+    print(f"phase 27 (b) small ({args.loop_nodes} nodes, 704 pods, waves of 64): card == "
+          f"CPU (bindings, reconcile stats {c['stats']}, restart records, rng); A bound "
+          f"{c['a_bound']}, B {c['b_bound']}")
+    # the sweeps at work: crashes that leave assumes and quorum entries on
+    # the instance that reconciles
+    for point, acted, needs in (
+            ("loop.bind_commit", ("adopted",), ("static_parts", "assign_scan")),
+            ("gang.permit", ("forgotten", "requeued", "permit_cleared"),
+             ("static_parts", "gang_assign"))):
+        runs = {d: self_reconcile_run(d, point, args.loop_nodes, args.seed)
+                for d in ("cuda", "cpu")}
+        c, h = runs["cuda"], runs["cpu"]
+        for k in ("bindings", "stats", "restart_events", "rng", "landed", "assumed"):
+            if c[k] != h[k]:
+                fail(f"phase 27 (b) {point}: the {k} differ between the card and the CPU")
+        idle = [k for k in acted if not c["stats"].get(k)]
+        if idle:
+            fail(f"phase 27 (b) {point}: reconcile left {idle} at zero: {c['stats']}")
+        if not all(c["launches"][k] > 0 for k in needs):
+            fail(f"phase 27 (b) {point}: {needs} must launch on the card: {c['launches']}")
+        print(f"phase 27 (b) {point} on the crashed instance ({args.loop_nodes} nodes): "
+              f"card == CPU (bindings, reconcile stats {c['stats']}, restart records "
+              f"{c['restart_events']}, rng); {c['landed']} pods bound and {c['assumed']} "
+              f"assumed at the crash; launches on the card {c['launches']}")
+    return r
+
+
+def fleet_failover(args, smi):
+    """27 (c): two FleetMembers over one store and one card, each Scheduler
+    with its own TorchBackend, driven from two threads (each its own loop:
+    elect_once, pump, one wave); member 1 crashes after --fleet-crash-waves
+    waves, member 0 adopts its shard when the lease expires. Every pod
+    bound exactly once, no node past its capacity; member 0's device
+    mirror equal to its host planes afterwards."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.fleet import FleetMember
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    store = Store()
+    for i in range(args.nodes):
+        store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+    ledger = bind_ledger(store)
+    members = []
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        for i in range(2):
+            s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=args.wave)],
+                          seed=args.seed + i, clock=StrictClock(), device="cuda")
+            m = FleetMember(s, 2, f"scheduler-{i}", preferred_shard=i,
+                            lease_duration=FLEET_LEASE,
+                            renew_deadline=FLEET_LEASE * 2 / 3, retry_period=0.05)
+            m.start()
+            members.append(m)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    for m in members:
+        m.elect_once()
+    if [m.owned_shards() for m in members] != [{0}, {1}]:
+        fail(f"phase 27 (c): ownership {[m.owned_shards() for m in members]}")
+    total = args.init_pods + args.pods
+    for i in range(total):
+        pod = scheduling_basic_pod(i)
+        pod.meta.uid = pod.meta.name
+        store.create(pod, copy_return=False)
+    # admit the pods and renew both leases just before the threads start:
+    # a lease that lapsed while the pods were created would be taken over
+    # by the peer, a failover this run does not test
+    for m in members:
+        m.scheduler.pump()
+        m.elect_once()
+    barrier = threading.Barrier(2)
+    out = [{}, {}]
+    errors = []
+
+    def drive(i, m):
+        s = m.scheduler
+        try:
+            base = kernels.thread_launches()
+            barrier.wait(timeout=60)
+            t0 = time.perf_counter()
+            waves = 0
+            while time.perf_counter() - t0 < args.phase_timeout:
+                m.elect_once()
+                s.pump()
+                n = s.loop.schedule_wave(args.wave, timeout=0.0)
+                waves += n > 0
+                if i == 1 and waves >= FLEET_CRASH_WAVES:
+                    m.crash()
+                    break
+                if n == 0:
+                    if len(ledger["binds"]) >= total:
+                        break
+                    time.sleep(0.002)
+            if i == 0:
+                s.loop.wait_for_bindings()
+                s.pump()
+            out[i].update(waves=waves, wall=time.perf_counter() - t0, launches={
+                k: v - base.get(k, 0) for k, v in kernels.thread_launches().items()})
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=drive, args=(i, m)) for i, m in enumerate(members)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors:
+        fail(f"phase 27 (c): {errors}")
+    m0 = members[0]
+    check_loop("phase 27 (c), member 0", m0.scheduler)
+    max_pods = check_restart("phase 27 (c)", store, ledger, [m0.scheduler])
+    if m0.owned_shards() != {0, 1}:
+        fail(f"phase 27 (c): member 0 owns {m0.owned_shards()} after the failover")
+    fr = m0.scheduler.flight_recorder
+    failovers = [e for e in fr.fleet_events if e[0] == "failover"]
+    adopt = [(k, n) for k, n in fr.restart_events if k.startswith("shard_adopt_")]
+    if len(failovers) != 1 or failovers[0][1] != 1:
+        # a member whose rounds outlast the lease loses its own shard to the
+        # peer: a longer --fleet-lease keeps this run to the one failover
+        fail(f"phase 27 (c): failover records {failovers} (member 0 must adopt shard 1 "
+             f"once and keep shard 0; lease {FLEET_LEASE} s)")
+    for i, o in enumerate(out):
+        if o["launches"].get("static_parts", 0) <= 0 or o["launches"].get("assign_scan", 0) <= 0:
+            fail(f"phase 27 (c): member {i} launched {o['launches']}")
+    # member 0's device mirror against its host planes
+    backend = m0.scheduler.algorithms["default-scheduler"].backend
+    backend.invalidate_carry()
+    m0.scheduler.cache.update_snapshot(m0.scheduler.snapshot)
+    planes = backend.sync(m0.scheduler.snapshot)
+    dev_planes, _ = backend.device_inputs(planes)
+    host = planes.as_dict()
+    for k, t in dev_planes.items():
+        h = host[k].view("int32") if host[k].dtype.name == "uint32" else host[k]
+        if not torch.equal(t.cpu(), torch.from_numpy(np.ascontiguousarray(h))):
+            fail(f"phase 27 (c): member 0's device plane {k} differs from its host plane")
+    wall = out[0]["wall"]
+    print(f"phase 27 (c) ({smi}): {total} pods through two members in {wall:.3f} s = "
+          f"{total / wall:.1f} pods/s; member 1 crashed after {out[1]['waves']} waves "
+          f"({out[1]['wall']:.3f} s); lease {FLEET_LEASE} s, failover latency (lease "
+          f"deadline to adoption) {failovers[0][2]:.4f} s; member 0 {out[0]['waves']} waves; "
+          f"shard_adopt_ records {adopt}; launches by member (thread): member 0 "
+          f"{out[0]['launches']}, member 1 {out[1]['launches']}; every pod bound once, at "
+          f"most {max_pods} pods a node; member 0's mirror equal to its host planes")
+    return out, failovers[0][2]
+
+
+def restart_phase(args, smi):
+    """27. The restart path on the card: (a) cold and warm start in fresh
+    processes, (b) crash and restart, (c) fleet failover."""
+    t0 = time.perf_counter()
+    with watchdog("phase 27 (a) (cold and warm start)", args.phase_timeout * 2):
+        restart_children(args, smi)
+    with watchdog("phase 27 (b) (crash and restart)", args.phase_timeout):
+        crash_restart(args, smi)
+    with watchdog("phase 27 (c) (fleet failover)", args.phase_timeout):
+        fleet_failover(args, smi)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 Reference: staging/src/k8s.io/client-go tools/cache (Reflector, DeltaFIFO,
 SharedIndexInformer) and util/workqueue. Copies of the reference package's
-informer and workqueue (kubernetes_tpu/client/informer.py, workqueue.py);
-its leader election is not copied.
+informer, workqueue and leader election (kubernetes_tpu/client/informer.py,
+workqueue.py, leaderelection.py).
 """
 
 from .informer import InformerFactory, SharedInformer  # noqa: F401

@@ -42,6 +42,7 @@ and the tie-break word stream consumed exactly as CPython randrange does.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -73,10 +74,14 @@ ZERO_TIE_WORDS = np.zeros(MAX_TIE_DRAWS, np.uint32)
 _INT32_MAX = 2**31 - 1
 
 # launches of each CUDA kernel; every wrapper adds one where it launches its
-# kernel and nowhere else (reset_launches() zeroes them)
+# kernel and nowhere else (count_launch; reset_launches() zeroes them). The
+# count is taken under a lock, and each thread also keeps its own
+# (thread_launches()): schedulers in several threads launch on one card
 LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
             "fit_and_score": 0, "gang_assign": 0, "sharded_assign": 0,
             "wave_fit_and_score": 0}
+_LAUNCH_LOCK = threading.Lock()
+_THREAD_LAUNCHES = threading.local()
 
 # K6's node-shard counts: the blocks of one portable thread-block cluster
 CLUSTER_SHARDS = (1, 2, 4, 8)
@@ -97,8 +102,26 @@ PLUGIN_NAMES = (
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero the global counts and the calling thread's."""
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+    _THREAD_LAUNCHES.counts = {}
+
+
+def count_launch(kernel: str) -> None:
+    """One launch of `kernel`: the global count and the calling thread's."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
+    counts = getattr(_THREAD_LAUNCHES, "counts", None)
+    if counts is None:
+        counts = _THREAD_LAUNCHES.counts = {}
+    counts[kernel] = counts.get(kernel, 0) + 1
+
+
+def thread_launches() -> dict:
+    """The calling thread's launches by kernel since its last reset."""
+    return dict(getattr(_THREAD_LAUNCHES, "counts", None) or {})
 
 
 class OutOfSlice(NotImplementedError):
@@ -646,7 +669,7 @@ def static_parts(planes: dict, tables: dict, packed_f: torch.Tensor,
         "static_ok", "taint_cnt", "aff_raw", "img", "aff_has_pref")]
     if n_out and nb:
         cuda.launch("static_parts", p, ptrs, _stream(device))
-        LAUNCHES["static_parts"] += 1
+        count_launch("static_parts")
     return out
 
 
@@ -1493,7 +1516,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     else:
         cuda.launch("sharded_assign", cuda.ShardParams(scan=p, n_shards=n_shards), ptrs,
                     _stream(device))
-    LAUNCHES[kernel] += 1
+    count_launch(kernel)
     return out
 
 
@@ -1628,7 +1651,7 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
              if cfg.ipa_active else [0] * 4)
     ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device)]
     cuda.launch("gang_assign", g, ptrs, _stream(device))
-    LAUNCHES["gang_assign"] += 1
+    count_launch("gang_assign")
     return out
 
 
@@ -1754,7 +1777,7 @@ def scatter_rows(dst: dict, rows: dict, idx: torch.Tensor) -> None:
     p.dst[:m] = dp
     p.src[:m] = sp
     cuda.launch("scatter_rows", p, [idx.data_ptr()], _stream(device))
-    LAUNCHES["scatter_rows"] += 1
+    count_launch("scatter_rows")
 
 
 # --------------------------------------------------------------------------
@@ -2078,7 +2101,7 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
     if packed_f.shape[0]:
         cuda.launch("fit_and_score", p,
                     ptrs + [out.data_ptr(), _fit_syncs_ptr(syncs, device)], _stream(device))
-        LAUNCHES["fit_and_score"] += 1
+        count_launch("fit_and_score")
     return out
 
 
@@ -2135,7 +2158,7 @@ def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
                     ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr(),
                             _fit_syncs_ptr(syncs, device)],
                     _stream(device), lib="fit_and_score")
-        LAUNCHES["wave_fit_and_score"] += 1
+        count_launch("wave_fit_and_score")
     return feasible, total
 
 

@@ -209,6 +209,13 @@ class Cache:
         with self._mu:
             return len(self._assumed_pods)
 
+    def assumed_pods(self) -> list[Pod]:
+        """The pod objects currently assumed-but-unconfirmed — the set a
+        startup reconciliation must resolve against store truth (each one
+        is a bind that may have half-applied before a crash)."""
+        with self._mu:
+            return [self._pod_states[k].pod for k in self._assumed_pods]
+
     def pod_count(self) -> int:
         with self._mu:
             return len(self._pod_states)

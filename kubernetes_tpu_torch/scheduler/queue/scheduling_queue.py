@@ -15,8 +15,9 @@ recorded and replayed when the pod comes back unschedulable, so concurrent
 cluster changes are never lost (active_queue.go:378-450).
 
 A copy of the reference package's queue
-(kubernetes_tpu/scheduler/queue/scheduling_queue.py) less the fleet's
-shard gate and prune (A13). The queue is the scheduler's one nominator, as
+(kubernetes_tpu/scheduler/queue/scheduling_queue.py), with the fleet's
+shard gate at admission (`shard_filter`, installed by scheduler/fleet.py)
+and `prune` for a lost shard. The queue is the scheduler's one nominator, as
 in the reference: it holds a Nominator (nominator.py) and answers its
 calls, and a deleted pod leaves both.
 """
@@ -91,6 +92,11 @@ class _InFlightPod:
 
 
 class SchedulingQueue:
+    # fleet ownership predicate at queue admission (installed by
+    # scheduler/fleet.py, its one writer): None = admit everything. A
+    # non-owned pod never enters any tier.
+    shard_filter = None
+
     def __init__(
         self,
         less_fn: Callable[[QueuedPodInfo, QueuedPodInfo], bool],
@@ -207,6 +213,9 @@ class SchedulingQueue:
     def add(self, pod: Pod, pod_info: PodInfo | None = None) -> None:
         from ...api.resource import ResourceNames
 
+        sf = self.shard_filter
+        if sf is not None and not sf(pod):
+            return  # a peer's shard: its owner queues it
         with self._mu:
             pi = pod_info or PodInfo(pod, ResourceNames())
             qpi = QueuedPodInfo(pi, self._clock.now())
@@ -480,6 +489,28 @@ class SchedulingQueue:
                 qpi.timestamp = self._clock.now()
                 self._active.add(qpi)
             self._mu.notify_all()
+
+    def prune(self, keep: Callable[[Pod], bool]) -> int:
+        """Drop every QUEUED pod failing `keep` from all three tiers (a
+        fleet member losing a shard lease calls this before its next pop —
+        the new owner requeues the pods from store truth). In-flight pods
+        are left alone: their cycle resolves through the pop-side shard
+        gate and the store's CAS, never by yanking state mid-cycle."""
+        removed = 0
+        with self._mu:
+            for heap in (self._active, self._backoff, self._error_backoff):
+                for key in list(heap.keys()):
+                    qpi = heap.get(key)
+                    if qpi is not None and not keep(qpi.pod):
+                        heap.delete(key)
+                        self.nominator.delete_nominated_pod_if_exists(qpi.pod)
+                        removed += 1
+            for key in [k for k, q in self._unschedulable.items()
+                        if not keep(q.pod)]:
+                qpi = self._unschedulable.pop(key)
+                self.nominator.delete_nominated_pod_if_exists(qpi.pod)
+                removed += 1
+        return removed
 
     def _flush_backoff_locked(self) -> None:
         now = self._clock.now()

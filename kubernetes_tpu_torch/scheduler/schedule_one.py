@@ -37,8 +37,9 @@ bind_dispatch and bind_commit stamps, the stall profiler's gap marks
 that falls back to per-pod cycles, `metrics.pod_scheduled` /
 `pod_unschedulable`, and a slow-cycle trace of any per-pod or pod-group
 cycle over 100 ms. The wave controller's latency guard observes each
-recorded wave (opt-in, off by default). No decision reads any of it. The
-fleet's shard gate is A13's.
+recorded wave (opt-in, off by default). No decision reads any of it. A
+fleet member's pop-side shard gate (`shard_filter`, installed by
+scheduler/fleet.py) drops a pod whose shard moved before it is packed.
 """
 
 from __future__ import annotations
@@ -564,6 +565,11 @@ class ScheduleOneLoop:
     K2 on the device carry while the host assumes and binds wave k.
     """
 
+    # fleet ownership predicate on the pop side (installed by
+    # scheduler/fleet.py, its one writer): catches pods whose shard lease
+    # moved after queue admission
+    shard_filter = None
+
     def __init__(
         self,
         cache,
@@ -628,7 +634,14 @@ class ScheduleOneLoop:
         return self.profiles.get(pod.spec.scheduler_name)
 
     def _skip_pod_schedule(self, fw: Framework, pod: Pod) -> bool:
-        """skipPodSchedule:546 — deleted or already-assumed pods."""
+        """skipPodSchedule:546 — deleted or already-assumed pods; in a
+        fleet, also pods whose shard this member no longer holds (the
+        lease moved between queue admission and this pop). A wave pop
+        asks before the pod is packed, so a gated pod takes no slot and
+        no tie word."""
+        sf = self.shard_filter
+        if sf is not None and not sf(pod):
+            return True
         if pod.is_terminating:
             return True
         if not self.store.contains("Pod", pod.meta.key):

@@ -32,9 +32,14 @@ batch cache, the dispatcher, the event recorder and the loop; `tracer`
 (utils.tracing.Tracer) gets the phase, wave and api spans. Both are off
 (None) by default, and no decision reads any of it.
 
-Not in this slice, each queued in ROADMAP: the crash-recovery reconcile
-(`reconcile`, `adopt_shard`: A13; `start()` syncs the informers only), the
-warm start (A9) and the fleet's shard filter (A13).
+The restart path, as in the reference: `start()` syncs the informers,
+then `reconcile()` resolves what a crashed predecessor left half-applied
+against store truth (assumed pods, half-bound gangs, stale permit
+quorums), and with `warm_start=True` `_run_warmup()` builds and loads the
+kernel libraries and launches every kernel once per static configuration
+the waves will meet (scheduler/tpu/warmup.py), so the first real wave pays
+no first use. A fleet member (scheduler/fleet.py) installs `shard_filter`
+and calls `adopt_shard` when it takes a shard over.
 """
 
 from __future__ import annotations
@@ -91,6 +96,12 @@ def _apply_plugin_set(plugins: list, prof: Profile) -> list:
 
 
 class Scheduler:
+    # fleet ownership predicate (installed by scheduler/fleet.py, its one
+    # writer). None = own every pod, the single-scheduler default. When
+    # set, _on_pod_event ignores non-owned unbound pods at admission; the
+    # queue and loop carry the same predicate on their own gates.
+    shard_filter = None
+
     def __init__(
         self,
         store: Store,
@@ -107,6 +118,7 @@ class Scheduler:
         extenders: list | None = None,
         tracer=None,
         device="cuda",
+        warm_start: bool = False,
     ):
         from ..utils.clock import Clock
         from .tpu.waverecorder import WaveRecorder
@@ -118,6 +130,10 @@ class Scheduler:
         self.store = store
         self.names = names or ResourceNames()
         self.clock = clock or Clock()
+        # warm start (scheduler/tpu/warmup.py): start() ends by building the
+        # kernels and launching each once per static configuration. Off by
+        # default; decisions are the same either way
+        self.warm_start = warm_start
         self.metrics = metrics
         self.tracer = tracer
         # one wave recorder shared by the loop, every device backend and
@@ -292,6 +308,12 @@ class Scheduler:
                     ClusterEvent(ev.ASSIGNED_POD, ev.ADD), None, new
                 )
             else:
+                # fleet gate: a peer's pod never enters this member's queue
+                # (its owner admits it; the bound-pod branches above stay
+                # ungated so every member's cache mirrors all occupancy)
+                sf = self.shard_filter
+                if sf is not None and not sf(new):
+                    return
                 # ledger edges: the informer delivered the pod, then it
                 # entered the scheduling queue (the informer segment spans
                 # PodInfo construction + queue admission)
@@ -422,10 +444,177 @@ class Scheduler:
     # -- run -----------------------------------------------------------------
 
     def start(self) -> None:
-        """Sync the informers (initial list). The reference then reconciles
-        state a crashed predecessor left behind and, with warm_start,
-        pre-builds its kernels; those come with A13 and A9."""
+        """Sync the informers (initial list), then reconcile half-applied
+        state a previous incarnation may have left behind; with warm_start,
+        end by building the kernels and launching each at the static
+        configurations the waves will meet, so the first real wave pays no
+        first use."""
         self.informers.start_all()
+        self.reconcile(shard_pred=self.shard_filter)
+        if self.warm_start:
+            self._run_warmup()
+
+    def _run_warmup(self) -> list[dict]:
+        """Warm every profile's backend against the live node planes (after
+        the informer sync: bucket sizes come from the synced cache), with
+        warm pods shaped like the oldest pending pod this member owns, if
+        any. Returns each backend's warmup summary."""
+        from .tpu.warmup import warm_backend
+
+        self.cache.update_snapshot(self.snapshot)
+        sf = self.shard_filter
+        template = next((p for p in self.store.list_refs("Pod")
+                         if not p.is_scheduled and (sf is None or sf(p))), None)
+        self.warmup_summaries = [
+            warm_backend(algo.backend, self.snapshot, self.wave_size,
+                         template=template)
+            for algo in self.algorithms.values()]
+        return self.warmup_summaries
+
+    def reconcile(self, shard_pred=None, kind_prefix: str = "") -> dict:
+        """Startup crash recovery: resolve every piece of mid-flight state a
+        previous incarnation may have left behind against store truth. Three
+        sweeps (the reference's reconcile, scheduler.py:469-601):
+
+        1. Assumed-but-unconfirmed pods (orphaned assumes from in-flight
+           waves, dispatcher calls lost between prepare and commit). Store
+           truth decides: bound → adopt; gone → forget; unbound → forget +
+           requeue (the bind never happened).
+        2. Half-bound PodGroups (a crash between members' binds):
+           all-or-nothing across restart — when the members can still reach
+           quorum, activate the pending remainder for the gang cycle; when
+           they cannot, release (delete) every landed member.
+        3. Stale gang Permit quorum state: group-state `assumed` entries
+           backed by neither a live cache assume nor a store bind revert
+           to unscheduled, or are promoted to scheduled when the bind
+           landed.
+
+        Every outcome lands on the recorder's restart_events and the
+        scheduler_restart_recoveries_total{kind} series; gang/permit kinds
+        appear in the returned stats only when non-zero. A sweep that
+        changed occupancy drops any live device carry.
+
+        `shard_pred` scopes every sweep to one fleet member's ownership
+        (None = own everything): a member never forgets or requeues a
+        peer's in-flight pod. `kind_prefix` namespaces the recorded kinds
+        (the fleet's adoption records "shard_adopt_*")."""
+        stats = {"adopted": 0, "forgotten": 0, "requeued": 0}
+        for pod in self.cache.assumed_pods():
+            if shard_pred is not None and not shard_pred(pod):
+                continue  # a peer's in-flight assume: not ours to resolve
+            key = pod.meta.key
+            cur = self.store.try_get("Pod", key)
+            if cur is None:
+                self.cache.forget_pod(pod)
+                stats["forgotten"] += 1
+                continue
+            if cur.spec.node_name:
+                # the bind landed (possibly on another node than assumed):
+                # add_pod confirms a matching assume, re-places a divergent one
+                self.cache.add_pod(cur)
+                stats["adopted"] += 1
+                continue
+            # half-applied: assumed in the cache, the store write never landed
+            self.cache.forget_pod(pod)
+            stats["forgotten"] += 1
+            # clear any stale in-flight queue record surviving the crash
+            # (token None clears unconditionally), then requeue
+            self.queue.done(key)
+            self.queue.add(cur, PodInfo(cur, self.names))
+            stats["requeued"] += 1
+
+        # -- sweep 2: half-bound PodGroups against store truth ------------
+        gang_adopt = gang_release = 0
+        members: dict[str, list] = {}
+        for p in self.store.list_refs("Pod"):
+            gk = self._group_key(p)
+            if gk is not None:
+                members.setdefault(gk, []).append(p)
+        for g in self.store.list_refs("PodGroup"):
+            gk = g.meta.key
+            mem = members.get(gk, [])
+            # gangs shard by group key: one member decides the whole gang
+            if shard_pred is not None and mem and not shard_pred(mem[0]):
+                continue
+            bound = [p for p in mem if p.spec.node_name]
+            if not bound or len(bound) >= g.spec.policy.min_count:
+                continue  # the whole gang landed, or nothing did
+            if len(mem) >= g.spec.policy.min_count:
+                # salvageable: the pending remainder can still reach quorum
+                self.queue.activate([p for p in mem if not p.spec.node_name])
+                gang_adopt += 1
+            else:
+                # the remainder can never reach quorum: release the landed
+                for p in bound:
+                    try:
+                        self.store.delete("Pod", p.meta.key)
+                    except Exception:  # noqa: BLE001 — a racing deletion
+                        pass
+                gang_release += 1
+
+        # -- sweep 3: stale gang Permit quorum state ----------------------
+        permit_cleared = 0
+        live_assumes = {p.meta.key for p in self.cache.assumed_pods()}
+        for gk, gstate in self.cache.pod_group_states.snapshot().items():
+            mem = members.get(gk, [])
+            if shard_pred is not None and mem and not shard_pred(mem[0]):
+                continue  # a peer's gang quorum state
+            for key in gstate.assumed:
+                if key in live_assumes:
+                    continue  # a real assume: sweep 1 owns its fate
+                cur = self.store.try_get("Pod", key)
+                if cur is not None and cur.spec.node_name:
+                    # the bind landed but the quorum state never advanced
+                    self.cache.pod_group_states.pod_scheduled(gk, key)
+                else:
+                    # the assume died with the old incarnation
+                    self.cache.pod_group_states.pod_unassumed(gk, key)
+                permit_cleared += 1
+
+        if gang_adopt:
+            stats["gang_adopt"] = gang_adopt
+        if gang_release:
+            stats["gang_release"] = gang_release
+        if permit_cleared:
+            stats["permit_cleared"] = permit_cleared
+        for kind, n in stats.items():
+            self.flight_recorder.restart_recovery(kind_prefix + kind, n)
+        if stats["adopted"] or stats["forgotten"] or gang_release:
+            # node occupancy changed under any live device carry
+            self._mark_external()
+        return stats
+
+    def adopt_shard(self, shard_pred, kind_prefix: str = "shard_adopt_") -> dict:
+        """Fleet shard adoption (scheduler/fleet.py calls this when a
+        member acquires a shard — at boot, or after a dead peer's lease
+        expired): the reconcile() sweeps scoped to the shard, plus a
+        requeue pass for the shard's pending pods this member's admission
+        gate had been filtering out while a peer owned them. Outcomes
+        count on restart_recoveries{kind="<kind_prefix>*"}."""
+        stats = self.reconcile(shard_pred=shard_pred, kind_prefix=kind_prefix)
+        pending = 0
+        for pod in self.store.list_refs("Pod"):
+            if pod.is_scheduled or not shard_pred(pod):
+                continue
+            key = pod.meta.key
+            if self.queue.has_pod(key) or self.cache.is_assumed_pod(pod):
+                continue
+            # register gang membership first: the admission gate skipped
+            # pod_added while a peer owned this shard, and the gang cycle
+            # pops siblings from gstate.unscheduled
+            gk = self._group_key(pod)
+            if gk is not None:
+                self.cache.pod_group_states.pod_added(gk, key)
+            # clear any stale in-flight record, then admit through the
+            # queue's own gate (the shard is owned now, so it passes)
+            self.queue.done(key)
+            self.queue.add(pod, PodInfo(pod, self.names))
+            pending += 1
+        if pending:
+            stats["pending"] = pending
+            self.flight_recorder.restart_recovery(kind_prefix + "pending",
+                                                  pending)
+        return stats
 
     def pump(self) -> int:
         """Drain informer events (deterministic single-thread mode)."""

@@ -137,6 +137,10 @@ class DeviceTelemetry:
         # memory watermark: group -> currently resident bytes
         self._resident: dict[str, int] = {}
         self._watermark = 0
+        # warm-start baseline: the compile count at the end of the warmup
+        # phase (scheduler/tpu/warmup.py); compile_count_since_warm() is
+        # the warm start's "no first use left" check
+        self._warm_compile_base = 0
 
     # -- emission (every name literal, declared in LEDGER_SERIES) ------------
 
@@ -263,6 +267,18 @@ class DeviceTelemetry:
     def compiled_shapes(self, kernel: str) -> list[str]:
         with self._lock:
             return sorted(self._shapes.get(kernel, ()))
+
+    def mark_warm(self) -> None:
+        """Take the compile count as the warm baseline (called once, at
+        the end of the backend's warmup phase)."""
+        with self._lock:
+            self._warm_compile_base = sum(self._compiles.values())
+
+    def compile_count_since_warm(self) -> int:
+        """First uses paid after the warmup: a warm Scheduler re-entering
+        service keeps this at 0."""
+        with self._lock:
+            return sum(self._compiles.values()) - self._warm_compile_base
 
     # -- memory watermark ----------------------------------------------------
 

@@ -23,8 +23,10 @@ hook. A slow-wave watchdog (off unless KUBE_TPU_SLOW_WAVE_S is set) arms
 a timer per open wave and attaches a `utils.pprof.take_profile` sample of
 every thread to a wave still open past its deadline.
 
-Left out until the items that need them (ROADMAP A13): the reference's
-`restart_recovery`, `shard_ownership` and `shard_failover` records.
+Restart and fleet records, as in the reference: `restart_recovery` keeps
+each outcome of `Scheduler.reconcile`/`adopt_shard` in `restart_events`,
+`shard_ownership` and `shard_failover` the fleet member's lease
+transitions in `fleet_events`; each lands on its SchedulerMetrics series.
 
 All recording is HOST-SIDE ONLY: phases close after device results are
 collected, nothing here runs inside a kernel, and no decision reads it,
@@ -216,6 +218,17 @@ class WaveRecorder(FlightRecorder):
         self.wave_sizes: dict[int, int] = {}
         self.slow_wave_captures = 0
         self._watchdogs: dict[int, threading.Timer] = {}
+        # crash-restart reconcile outcomes (kind, count), bounded: one entry
+        # per recovery kind per reconcile pass, not per pod
+        self.restart_events: "collections.deque[tuple]" = collections.deque(
+            maxlen=64
+        )
+        # fleet shard ownership/failover transitions: ("ownership", owned,
+        # fleet_size) on acquire/release, ("failover", shard, latency_s) on
+        # a dead peer's shard adoption; bounded
+        self.fleet_events: "collections.deque[tuple]" = collections.deque(
+            maxlen=64
+        )
 
     # -- phase stopwatches (span-backed) --------------------------------------
 
@@ -384,6 +397,38 @@ class WaveRecorder(FlightRecorder):
         m = self.metrics
         if m is not None and hasattr(m, "partition_detected"):
             m.partition_detected(kind, latency_s)
+
+    def restart_recovery(self, kind: str, n: int = 1) -> None:
+        """A startup reconcile resolved n pieces of mid-flight crash state
+        of `kind` (adopted/forgotten/requeued/gang_adopt/gang_release/
+        permit_cleared, with the fleet's shard_adopt_/shard_acquire_
+        prefixes); lands the restart-recovery counter on the metrics
+        registry. Scheduler.reconcile's outcome sink."""
+        if n <= 0:
+            return
+        with self._lock:
+            self.restart_events.append((kind, n))
+        m = self.metrics
+        if m is not None and hasattr(m, "restart_recovery"):
+            m.restart_recovery(kind, n)
+
+    def shard_ownership(self, owned: int, fleet_size: int) -> None:
+        """This fleet member's shard count changed (lease acquired or
+        lost); lands the ownership gauges on the metrics registry."""
+        with self._lock:
+            self.fleet_events.append(("ownership", owned, fleet_size))
+        m = self.metrics
+        if m is not None and hasattr(m, "fleet_ownership"):
+            m.fleet_ownership(owned, fleet_size)
+
+    def shard_failover(self, shard: int, latency_s: float) -> None:
+        """A dead peer's shard adopted (lease expiry -> takeover latency);
+        lands the failover counter and latency histogram."""
+        with self._lock:
+            self.fleet_events.append(("failover", shard, latency_s))
+        m = self.metrics
+        if m is not None and hasattr(m, "fleet_failover"):
+            m.fleet_failover(shard, latency_s)
 
     def end_wave(self, rec: WaveRecord,
                  fallback_reason: str | None = None) -> WaveRecord:

@@ -19,7 +19,8 @@ replays the same fault schedule.
 A copy of the reference package's module
 (kubernetes_tpu/utils/faultinject.py), with the points the port fires:
 the store's writes and watch delivery, the dispatcher's calls, the wave
-launch/collect pair and the scheduling loop's crash points. The registry
+launch/collect pair, the leader elector's lease round and the
+scheduling loop's crash points. The registry
 is disarmed by default, and nothing but a test arms it.
 """
 
@@ -86,6 +87,10 @@ FAULT_POINTS = (
     "tpu.collect",
     "watch.deliver",
     "watch.partition",
+    # one leader-election CAS round (acquire or renew): ERROR/LATENCY model
+    # a flaky or slow coordination write, PARTITION a window where every
+    # renewal is lost — seeded lease loss and renew storms for the fleet
+    "lease.renew",
     # crash points on the main scheduling thread: unlike tpu.* (whose
     # FaultInjected raises are caught locally and wrapped as device
     # flakes) these propagate up through schedule_pending
