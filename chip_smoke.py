@@ -200,9 +200,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    full width through the port's WorkloadExecutor(wave_size=512) on the
    card: 5000 nodes, 20000 priority-0 victims of 3 CPU / 1Gi and
    priority-100 preemptors of 25 CPU / 2Gi, evictions on the async
-   dispatcher; the preemptors cut from 5000 to --preempt-pods (1000: the
-   host's cost per preemptor grows with the backlog, and the workload's
-   5000 do not end within the run's limit); every preemptor bound, every
+   dispatcher; the preemptors cut in depth (never width) from 5000 to
+   --preempt-pods (500: the host's cost per preemptor grows with the
+   backlog, and the run's 1200 s limit holds phases 1-28 only so: 1000
+   preemptors took 188 s of a run whose phases 1-27 took 1142.7 s uncut,
+   and a slower host needed ~1470 s for phases 1-26, PERF.md §5p; the
+   full depth: tools/preemption_scaling.py --pods 5000); every preemptor
+   bound, every
    evicted pod of lower priority than the preemptor on its node, no node
    over its CPU, memory or pod count; K4 launched at least once per preemptor and K1 and K2 launched
    in the measured span (counts zeroed where the harness starts
@@ -220,11 +224,18 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    full size (5000 nodes, 2000 measured pods with a 5Gi
    WaitForFirstConsumer claim each over 10Gi volumes; node-neutral volume
    plans, so every pod on the wave route, K1 and K2 launched); (b)
-   SchedulingCSIPVs/5000Nodes_5000Pods at full size (CSINode attach
-   limits of 39; the hybrid route: K4 once per pod, K3); (c)
-   SchedulingWithResourceClaims/5000pods_500nodes at full size (500 nodes
-   of 10 devices, 2500 initial and 2500 measured pods; the hybrid route
-   with DynamicResources' allocation); (d) an extender stream over 500
+   SchedulingCSIPVs/5000Nodes_5000Pods at full width and half its depth
+   (5000 nodes with CSINode attach limits of 39; 2500 initial and 2500
+   measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
+   K4 once per pod, K3); (c) dra.json's SchedulingWithResourceClaims/
+   500Nodes (500 nodes of 10 devices, 1000 measured pods with a claim
+   each; the hybrid route with DynamicResources' allocation) in place of
+   its 5000pods_500nodes workload on the same 500 nodes (DRA_CUT). Both
+   cuts keep the run inside its 1200 s limit (25 (b) 213.5 s and (c)
+   142.7 s uncut in a run whose phases 1-27 took 1142.7 s; ~1470 s for
+   phases 1-26 on a slower host; PERF.md §5p); every check stays,
+   and `python3 tools/entrypoint_phase.py --full-depth` runs 25 (a)-(d)
+   uncut; (d) an extender stream over 500
    nodes: 1024 pods in blocks of 64,
    every other block interested in an in-process extender with
    HTTPExtender's interface (filter, prioritize; a second run as binder);
@@ -296,8 +307,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    pods/s, failover latency, shard_adopt_ records, each member's launches
    (kernels.thread_launches), every pod bound once, member 0's device
    mirror equal to its host planes;
-   phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e), of 26 (a)-(d) and
-   of 27 (a)-(c) run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
+28. the entry point and the chaos rungs: (a) a KubeSchedulerConfiguration
+   file (one device profile in waves of --wave, SchedulerAsyncAPICalls on,
+   leader election on) loaded with load_config_file, and SchedulerServer
+   (serve(0), run(block=False), warm start at its default) over
+   SchedulingBasic's cluster with its --init-pods + --pods pods all
+   pending before run(): every pod bound exactly once, bindings and rng
+   equal to a plain Scheduler with the same profile and seed driven by
+   schedule_pending, compile_count_since_warm() 0, K1 and K2 launched;
+   every route of the mux GET (/healthz ok, /readyz 200, /metrics and
+   /debug/podlatency counting every pod, /debug/devicetelemetry showing
+   K1 + K2's uses, the JSON pages parsing); CacheDebugger.compare() and
+   compare_carry() (the carry copied off the card) empty; SIGUSR2 dumps
+   the cache; start() seconds, start() to the first bind and pods/s
+   printed; then `python -m kubernetes_tpu_torch.cmd.scheduler --config
+   FILE --port 0` in a child process answers /healthz and /readyz and
+   exits 0 on SIGTERM. (b) the chaos rungs of testing/chaos.py on the
+   card: run_soak (seed 7) on --nodes nodes in waves of --wave, 6 rounds
+   of CHAOS_ROUND_PODS (2048) pods (at 512 a round the breaker never
+   recovers, in either package), the breaker tripped and recovered on
+   K2's collects; run_gang_soak, run_restart_soak and run_fleet_soak at
+   their defaults; each report ok, K1 and K2 (K5 in the gang and restart
+   soaks) launched, the restart soak with no first use after a warm
+   start and no double bind; faults fired, wall clock and launches
+   printed. `python3 tools/entrypoint_phase.py` runs phase 28 alone;
+   phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e), of 26 (a)-(d), of
+   27 (a)-(c) and of 28 (a)-(b) run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
@@ -843,10 +878,14 @@ def build_parser() -> argparse.ArgumentParser:
     # phase 24: the full-width preemption workload, and the workloads run
     # on the card and on the CPU (comma-separated, misc.json's names)
     ap.add_argument("--preempt-workload", default="PreemptionAsync/5000Nodes_AsyncAPICallsEnabled")
-    # its preemptors, cut from the workload's 5000: the host cost per
-    # preemptor grows with the backlog (tools/preemption_scaling.py), and
-    # 2000 already take more than 300 s (PERF.md §5m)
-    ap.add_argument("--preempt-pods", type=int, default=1000)
+    # its preemptors, cut in depth from the workload's 5000 (never in
+    # width: its 5000 nodes and 20000 victims stay): the host cost per
+    # preemptor grows with the backlog, 2000 already take more than 300 s
+    # (PERF.md §5m), and 1000 took 188 s of the run's 1200 s limit, which
+    # phases 1-27 all but filled (1142.7 s; ~1470 s for 1-26 on a slower
+    # host; PERF.md §5p). The full depth runs alone:
+    # tools/preemption_scaling.py --pods 5000
+    ap.add_argument("--preempt-pods", type=int, default=500)
     ap.add_argument("--preempt-cpu-workloads",
                     default="PreemptionBasic/20Nodes,PreemptionBasic/500Nodes")
     # phase 24 (a) may run past --phase-timeout
@@ -1218,6 +1257,7 @@ def main() -> None:
         storage_card_vs_cpu(args)
     telemetry_phase(args, smi)
     restart_phase(args, smi)
+    entrypoint_phase(args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -3707,11 +3747,12 @@ def check_storage(label, store):
             "devices": len(taken)}
 
 
-def storage_run(workload, device, wave):
+def storage_run(workload, device, wave, depth=None):
     """One volumes.json or dra.json workload ("config:case/workload") through
-    the port's StorageWorkloadExecutor on `device`; the launches and routes
-    counted over the measured span (zeroed where the harness starts
-    collecting, read where it stops)."""
+    the port's StorageWorkloadExecutor on `device`, its params overridden
+    by `depth` (pod counts); the launches and routes counted over the
+    measured span (zeroed where the harness starts collecting, read where
+    it stops)."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.perf.harness import load_config
     from kubernetes_tpu_torch.testing.storage_workloads import StorageWorkloadExecutor
@@ -3722,6 +3763,8 @@ def storage_run(workload, device, wave):
     cases = load_config(os.path.join(root, "kubernetes_tpu_torch/perf/configs", config))
     case = next(c for c in cases if c["name"] == case_name)
     wl = next(w for w in case["workloads"] if w["name"] == wl_name)
+    if depth:
+        wl = dict(wl, params={**wl["params"], **depth})
     probe = RouteProbe()
 
     class Executor(StorageWorkloadExecutor):
@@ -3767,11 +3810,11 @@ def storage_outcome(store):
     return pods, pvcs, pvs, claims
 
 
-def storage_cell(label, workload, args, smi, needs=()):
-    """25 (a)-(c): one workload on the card, its store checks, launches,
-    routes and rates."""
+def storage_cell(label, workload, args, smi, needs=(), depth=None):
+    """25 (a)-(c): one workload on the card (at `depth`'s pod counts), its
+    store checks, launches, routes and rates."""
     t0 = time.perf_counter()
-    r = collected(storage_run, workload, "cuda", args.wave)
+    r = collected(storage_run, workload, "cuda", args.wave, depth)
     facts = check_storage(f"phase 25 {label}", r["ex"].store)
     measured = r["params"]["measurePods"]
     la, routes = r["launches"], r["routes"]
@@ -3898,18 +3941,33 @@ def extender_stream(n_nodes, n_pods, device, wave, binder, seed):
             "calls": dict(ext.calls), "interested": len(interested), "rng": algo.rng.getstate()}
 
 
-def storage_full_width(args, smi):
-    """25 (a)-(d) on the card at full width, each under the watchdog."""
+# 25 (b) and (c) at a smaller depth, never a smaller width, to keep the
+# whole run inside its 1200 s limit (phases 1-27 took 1142.7 s uncut, 25
+# (b) 213.5 s and (c) 142.7 s of it; ~1470 s for phases 1-26 on a slower
+# host; PERF.md §5p): (b) SchedulingCSIPVs/5000Nodes_5000Pods on its
+# 5000 nodes with 2500 initial and 2500 measured pods in place of 5000 and
+# 5000; (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
+# 10 devices, 1000 measured claim pods), the 500 nodes of the
+# 5000pods_500nodes workload it stands for. The full depth runs alone:
+# tools/entrypoint_phase.py --full-depth
+CSI_DEPTH = {"initPods": 2500, "measurePods": 2500}
+DRA_CUT = "dra.json:SchedulingWithResourceClaims/500Nodes"
+
+
+def storage_full_width(args, smi, full_depth=False):
+    """25 (a)-(d) on the card at full width (25 (b), (c) at the depth
+    above unless `full_depth`), each under the watchdog."""
     t0 = time.perf_counter()
-    for label, workload, needs in (
+    for label, workload, needs, depth in (
             ("(a)", "volumes.json:SchedulingWFFCVolumes/5000Nodes_2000Pods",
-             ("static_parts", "assign_scan")),
+             ("static_parts", "assign_scan"), None),
             ("(b)", "volumes.json:SchedulingCSIPVs/5000Nodes_5000Pods",
-             ("fit_and_score", "scatter_rows")),
-            ("(c)", "dra.json:SchedulingWithResourceClaims/5000pods_500nodes",
-             ("fit_and_score", "scatter_rows"))):
-        with watchdog(f"phase 25 {label} ({workload})", args.phase_timeout):
-            storage_cell(f" {label}", workload, args, smi, needs=needs)
+             ("fit_and_score", "scatter_rows"), None if full_depth else CSI_DEPTH),
+            ("(c)", "dra.json:SchedulingWithResourceClaims/5000pods_500nodes"
+             if full_depth else DRA_CUT, ("fit_and_score", "scatter_rows"), None)):
+        with watchdog(f"phase 25 {label} ({workload}, depth {depth or 'full'})",
+                      args.phase_timeout):
+            storage_cell(f" {label}", workload, args, smi, needs=needs, depth=depth)
     for binder in (False, True):
         t1 = time.perf_counter()
         with watchdog(f"phase 25 (d) (the extender stream{', binder' if binder else ''})",
@@ -5044,6 +5102,296 @@ def restart_phase(args, smi):
     with watchdog("phase 27 (c) (fleet failover)", args.phase_timeout):
         fleet_failover(args, smi)
     print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# 28: the entry point (SchedulerServer) and the chaos rungs
+# --------------------------------------------------------------------------
+
+# 28 (b)'s breaker rung at SchedulingBasic's width: 5000 nodes, waves of
+# --wave, CHAOS_ROUNDS rounds of CHAOS_ROUND_PODS pods. At 512 pods a round
+# each round is one wave: the collect burst (the 7th-10th collects) lands
+# in the last rounds and both packages end with the breaker open (no
+# recovery, report not ok), so each round gets four waves' pods
+CHAOS_ROUNDS = 6
+CHAOS_ROUND_PODS = 2048
+
+
+def entry_document(args):
+    """28 (a)'s KubeSchedulerConfiguration: one device profile in waves of
+    --wave, async API calls on, leader election on (the lease taken on the
+    first round)."""
+    return {"apiVersion": "kubescheduler.config.tpu.io/v1",
+            "kind": "KubeSchedulerConfiguration",
+            "profiles": [{"schedulerName": "default-scheduler", "backend": "tpu",
+                          "waveSize": args.wave}],
+            "featureGates": {"SchedulerAsyncAPICalls": True},
+            "leaderElection": {"leaderElect": True, "leaseDurationSeconds": 15,
+                               "renewDeadlineSeconds": 10, "retryPeriodSeconds": 0.5}}
+
+
+def sb_pending_store(args):
+    """SchedulingBasic's cluster in the port's Store with its initial and
+    measured pods (--init-pods + --pods) all pending, in creation order."""
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    store = Store()
+    for i in range(args.nodes):
+        store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+    for i in range(args.init_pods + args.pods):
+        store.create(scheduling_basic_pod(i), copy_return=False)
+    return store
+
+
+def http_get(port, path, timeout=60.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def wait_for(label, cond, timeout):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"{label}: not reached within {timeout:.0f} s")
+        time.sleep(0.01)
+
+
+def entry_server(args, smi, config_path):
+    """28 (a): SchedulingBasic through SchedulerServer built from a config
+    file, against a plain Scheduler with the same profile and seed."""
+    from kubernetes_tpu_torch.cmd.scheduler import SchedulerServer
+    from kubernetes_tpu_torch.config import load_config_file
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.utils.featuregate import FeatureGate
+
+    n = args.init_pods + args.pods
+    cfg = load_config_file(config_path)
+    gates = FeatureGate()
+    gates.set_from_map(cfg.feature_gates)
+
+    # the plain Scheduler: the profile and the gates the server builds,
+    # seed 0 (the server's), cold, driven by schedule_pending
+    store = sb_pending_store(args)
+    plain = Scheduler(store, profiles=[Profile(wave_size=args.wave)],
+                      feature_gates=gates.as_map(), async_api_calls=True, seed=0,
+                      clock=StrictClock(), device="cuda")
+    plain.start()
+    t0 = time.perf_counter()
+    plain.schedule_pending()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check_loop("phase 28 (a) plain Scheduler", plain)
+    want = {p.meta.key: p.spec.node_name for p in store.pods()}
+    want_rng = plain.algorithms["default-scheduler"].rng.getstate()
+    plain.api_dispatcher.close()
+    del plain, store
+    gc.collect()
+
+    store = sb_pending_store(args)
+    ledger = bind_ledger(store)
+    srv = SchedulerServer(store, cfg, clock=StrictClock())
+    if not srv.scheduler.warm_start or srv.elector is None:
+        fail("phase 28 (a): the server must warm-start and elect a leader")
+    port = srv.serve(0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv.run(block=False)
+    try:
+        if not srv.wait_ready(args.phase_timeout):
+            fail("phase 28 (a): start() did not return")
+        t_ready = time.perf_counter()
+        if http_get(port, "/readyz")[0] != 200:
+            fail("phase 28 (a): /readyz is not 200 after start()")
+        wait_for("phase 28 (a): every pod bound",
+                 lambda: srv.error is not None or len(ledger["binds"]) >= n, args.phase_timeout)
+        if srv.error is not None:
+            raise srv.error
+        t_bound = time.perf_counter()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+
+        def attempts():
+            body = http_get(port, "/metrics")[1]
+            for line in body.splitlines():
+                if line.startswith('scheduler_schedule_attempts_total{result="scheduled"'):
+                    return float(line.rsplit(" ", 1)[1])
+            return 0.0
+
+        wait_for("phase 28 (a): /metrics counts every pod", lambda: attempts() >= n, 60)
+        wait_for("phase 28 (a): the ledger closes every pod",
+                 lambda: json.loads(http_get(port, "/debug/podlatency")[1])["summary"]
+                 ["pods_completed"] >= n, 60)
+        pages = {}
+        for path in ("/healthz", "/readyz", "/metrics", "/configz", "/statusz", "/flagz",
+                     "/debug/pprof/profile?seconds=0.2", "/debug/flightrecorder?last=4",
+                     "/debug/podlatency?last=3&slowest=2", "/debug/devicetelemetry",
+                     "/debug/stalls?last=3", "/debug/traces?last=8"):
+            code, body = http_get(port, path)
+            if code != 200:
+                fail(f"phase 28 (a): GET {path} answered {code}: {body[:200]}")
+            pages[path.split("?")[0]] = body
+        if pages["/healthz"] != "ok":
+            fail(f"phase 28 (a): /healthz said {pages['/healthz']!r}")
+        if attempts() != n:
+            fail(f"phase 28 (a): /metrics counts {attempts()} scheduled attempts, not {n}")
+        latency = json.loads(pages["/debug/podlatency"])
+        if latency["summary"]["pods_completed"] != n:
+            fail(f"phase 28 (a): /debug/podlatency completed {latency['summary']}")
+        tele = json.loads(pages["/debug/devicetelemetry"])
+        if tele["compiles"]["by_kernel"].get("batched_assign", 0) <= 0:
+            fail(f"phase 28 (a): no K1 + K2 use on /debug/devicetelemetry: {tele['compiles']}")
+        for path in ("/configz", "/statusz", "/debug/flightrecorder", "/debug/stalls",
+                     "/debug/traces"):
+            json.loads(pages[path])
+        if launches["static_parts"] <= 0 or launches["assign_scan"] <= 0:
+            fail(f"phase 28 (a): K1 and K2 must launch under the server: {launches}")
+    finally:
+        srv.shutdown()
+    s = srv.scheduler
+    check_loop("phase 28 (a) SchedulerServer", s)
+    check_restart("phase 28 (a)", store, ledger, [])
+    got = {p.meta.key: p.spec.node_name for p in store.pods()}
+    if got != want or s.algorithms["default-scheduler"].rng.getstate() != want_rng:
+        diff = sum(1 for k in want if got.get(k) != want[k])
+        fail(f"phase 28 (a): the server's bindings ({diff} differ) or rng differ from the "
+             "plain Scheduler's")
+    since = s.flight_recorder.device_telemetry.compile_count_since_warm()
+    if since != 0:
+        fail(f"phase 28 (a): {since} first uses after the warmup")
+    # the debugger, between waves: the cache against the store, the carry
+    # read off the card against planes rebuilt from the cache
+    s.pump()
+    if srv.backend._carry is None:
+        fail("phase 28 (a): no device carry to compare")
+    s.cache.update_snapshot(s.loop.snapshot)
+    issues = srv.debugger.compare()
+    carry = srv.debugger.compare_carry(s.loop.snapshot)
+    if issues or carry:
+        fail(f"phase 28 (a): CacheDebugger found {issues[:3]} {carry[:3]}")
+    dumped = []
+    srv.debugger.log = dumped.append
+    import signal
+
+    os.kill(os.getpid(), signal.SIGUSR2)
+    wait_for("phase 28 (a): SIGUSR2's dump", lambda: len(dumped) >= 1, 10)
+    dump = dumped[0].splitlines()
+    if sum(1 for line in dump if line.startswith("  node ")) != args.nodes:
+        fail(f"phase 28 (a): the SIGUSR2 dump lists {len(dump)} lines")
+    first = ledger["first"] - t0
+    print(f"(28a) SchedulerServer over SchedulingBasic ({args.nodes} nodes, {n} pods pending "
+          f"before run(), waves of {args.wave}, leader election, warm start) on {smi}: "
+          f"start() {t_ready - t0:.4f} s (run() to ready: the elector's first round runs "
+          f"it), start() to the first bind {first:.4f} s, {n / (t_bound - t_ready):.1f} "
+          f"pods/s from ready to the last bind ({t_bound - t_ready:.3f} s); the plain "
+          f"Scheduler {n / plain_s:.1f} pods/s; bindings and rng equal; since warm 0; "
+          f"launches (warmup and waves) {launches}; warmup {s.warmup_summaries[0]['compiles']} "
+          f"first uses")
+    print(f"(28a) routes answered: {sorted(pages)}; /metrics {n} scheduled attempts, "
+          f"/debug/podlatency {n} completed, /debug/devicetelemetry compiles "
+          f"{tele['compiles']['by_kernel']}; CacheDebugger compare() and compare_carry() "
+          f"empty ({args.nodes} carry rows read off the card); SIGUSR2 dump: {dump[0]!r}, "
+          f"{len(dump)} lines, last {dump[-1]!r}")
+
+
+def entry_child(args, config_path):
+    """28 (a), last: `python -m kubernetes_tpu_torch.cmd.scheduler --config
+    FILE --port 0` in a child process answers /healthz and /readyz and
+    exits 0 on SIGTERM."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler",
+                              "--config", config_path, "--port", "0"], cwd=root,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        if not line.startswith("serving on 127.0.0.1:"):
+            fail(f"phase 28 (a) child: {line!r} {child.stderr.read()[-2000:]}")
+        port = int(line.rsplit(":", 1)[1])
+        wait_for("phase 28 (a) child: /readyz 200",
+                 lambda: child.poll() is not None or http_get(port, "/readyz")[0] == 200, 180)
+        if child.poll() is not None:
+            fail(f"phase 28 (a) child exited {child.returncode}: {child.stderr.read()[-2000:]}")
+        t_ready = time.perf_counter()
+        health = http_get(port, "/healthz")
+        if health != (200, "ok"):
+            fail(f"phase 28 (a) child: /healthz {health}")
+        child.send_signal(signal.SIGTERM)
+        _out, err = child.communicate(timeout=60)
+        if child.returncode != 0:
+            fail(f"phase 28 (a) child exited {child.returncode} on SIGTERM: {err[-2000:]}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    print(f"(28a) child `python -m kubernetes_tpu_torch.cmd.scheduler --config FILE --port 0`:"
+          f" /readyz 200 {t_ready - t0:.2f} s after spawn, /healthz ok, exit 0 on SIGTERM "
+          f"{time.perf_counter() - t_ready:.2f} s later")
+
+
+def chaos_rungs(args, smi):
+    """28 (b): the seeded soaks on the card; each report ok, the breaker
+    cycled on K2 collects, K5 in the gang and restart soaks."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing import chaos
+
+    rungs = (
+        ("run_soak", dict(seed=7, rounds=CHAOS_ROUNDS, pods_per_round=CHAOS_ROUND_PODS,
+                          nodes=args.nodes, wave_size=args.wave),
+         ("static_parts", "assign_scan")),
+        ("run_gang_soak", dict(seed=7), ("static_parts", "gang_assign")),
+        ("run_restart_soak", dict(seed=7), ("static_parts", "gang_assign")),
+        ("run_fleet_soak", dict(seed=7), ("static_parts", "assign_scan")),
+    )
+    for name, kw, needs in rungs:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = getattr(chaos, name)(device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        la = dict(kernels.LAUNCHES)
+        if not report.ok:
+            fail(f"phase 28 (b) {name}: {report.render()}")
+        missing = [k for k in needs if la[k] <= 0]
+        if missing:
+            fail(f"phase 28 (b) {name}: {missing} never launched ({la})")
+        if name == "run_soak" and (report.breaker_trips < 1 or report.breaker_recoveries < 1
+                                   or report.leaked_assumes):
+            fail(f"phase 28 (b) {name}: {report.render()}")
+        if name == "run_restart_soak" and (report.warm_compiles or report.double_binds):
+            fail(f"phase 28 (b) {name}: {report.render()}")
+        print(f"(28b) {report.render()}")
+        print(f"(28b) {name}({', '.join(f'{k}={v}' for k, v in kw.items())}) on {smi}: "
+              f"faults fired {report.faults_fired}, wall {wall:.2f} s, launches {la}")
+
+
+def entrypoint_phase(args, smi):
+    """28. The entry point and the chaos rungs on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scheduler-config.json")
+        with open(path, "w") as f:
+            json.dump(entry_document(args), f)
+        with watchdog("phase 28 (a) (SchedulerServer)", args.phase_timeout):
+            entry_server(args, smi, path)
+            entry_child(args, path)
+    t1 = time.perf_counter()
+    with watchdog("phase 28 (b) (the chaos rungs)", args.phase_timeout):
+        chaos_rungs(args, smi)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, "
+          f"(b) {time.perf_counter() - t1:.1f} s)")
 
 
 if __name__ == "__main__":

@@ -29,9 +29,12 @@ SCHEDULE_ANYWAY = "ScheduleAnyway"
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 
-# Pod phases (the pod latency ledger's status_ack edge: Running)
+# Pod phases (the pod latency ledger's status_ack edge: Running; the
+# hollow kubelet's runs end in Succeeded)
 PENDING = "Pending"
 RUNNING = "Running"
+SUCCEEDED = "Succeeded"
+FAILED = "Failed"
 
 
 # --- node selectors / affinity -------------------------------------------
@@ -201,6 +204,7 @@ class PodSpec:
     scheduling_gates: tuple[str, ...] = ()
     scheduling_group: SchedulingGroup | None = None
     resource_claims: tuple = ()  # tuple[dra.PodResourceClaim, ...]
+    restart_policy: str = "Always"  # the hollow kubelet's run-to-completion
 
 
 @dataclass
@@ -221,6 +225,8 @@ class PodStatus:
     nominated_node_name: str = ""
     conditions: list[PodCondition] = field(default_factory=list)
     phase: str = PENDING
+    start_time: float | None = None  # set by the hollow kubelet
+    pod_ip: str = ""  # set by the hollow kubelet once the sandbox has a network
 
 
 @dataclass
@@ -256,9 +262,18 @@ class NodeSpec:
 
 
 @dataclass
+class NodeCondition:
+    type: str  # "Ready", ...
+    status: str = "True"
+
+
+@dataclass
 class NodeStatus:
     capacity: dict[str, object] = field(default_factory=dict)
     allocatable: dict[str, object] = field(default_factory=dict)
+    # the node agent's Ready condition, which the lifecycle controller
+    # turns Unknown when its lease goes stale
+    conditions: list[NodeCondition] = field(default_factory=list)
     images: list[ContainerImage] = field(default_factory=list)
     # node features the node declares (NodeDeclaredFeatures)
     declared_features: tuple[str, ...] = ()

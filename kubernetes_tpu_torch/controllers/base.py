@@ -5,30 +5,42 @@ informers feed keys into a rate-limited workqueue; workers pop keys and
 reconcile actual state toward desired state, requeueing on error.
 
 A copy of the part of the reference package's Controller
-(kubernetes_tpu/controllers/base.py) that DisruptionController needs: the
-handlers, the workqueue and the deterministic sync_once drive. Left out:
-the threaded run(), the clocked queue of time-driven controllers, the
-ControllerManager and the controller.reconcile fault point.
+(kubernetes_tpu/controllers/base.py) that the port's controllers need:
+the handlers, the workqueue (on an injectable clock for time-driven
+controllers), the controller.reconcile fault point and the deterministic
+sync_once drive. Left out: the threaded run() and the ControllerManager,
+which no path of the port runs.
 """
 
 from __future__ import annotations
 
 from ..client.informer import InformerFactory
 from ..client.workqueue import WorkQueue
+from ..utils import faultinject
 
 
 class Controller:
     """Subclasses set `watches` (kinds whose events enqueue keys) and
     implement `reconcile(key) -> None` (raise to retry with backoff) and
-    `key_of(kind, obj) -> str | None` (None = ignore event)."""
+    `key_of(kind, obj) -> str | None` (None = ignore event).
+
+    Time-driven controllers set `clocked_queue = True`: their workqueue's
+    delayed-add timers tick on the controller's `clock` (injectable), the
+    shared pattern for staleness/TTL self-requeues."""
 
     name = "controller"
     watches: tuple[str, ...] = ()
+    clocked_queue = False
 
-    def __init__(self, store, informers: InformerFactory | None = None):
+    def __init__(self, store, informers: InformerFactory | None = None,
+                 clock=None):
+        from ..utils.clock import Clock
+
         self.store = store
         self.informers = informers or InformerFactory(store)
-        self.queue = WorkQueue()
+        self.clock = clock or Clock()
+        self.queue = (WorkQueue(clock=self.clock.now) if self.clocked_queue
+                      else WorkQueue())
         self._started = False
         for kind in self.watches:
             self.informers.informer(kind).add_handler(
@@ -68,8 +80,14 @@ class Controller:
             if key is None:
                 break
             try:
-                self.reconcile(key)
-                self.queue.forget(key)
+                # chaos: a reconcile that never ran (DROP — requeued with
+                # backoff, the item is NOT lost) or crashed mid-flight
+                # (ERROR — caught below, same backoff path as a real panic)
+                if faultinject.fire("controller.reconcile"):
+                    self.queue.add_rate_limited(key)
+                else:
+                    self.reconcile(key)
+                    self.queue.forget(key)
             except Exception:  # noqa: BLE001 - controller retries with backoff
                 self.queue.add_rate_limited(key)
             finally:

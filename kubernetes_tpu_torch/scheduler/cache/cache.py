@@ -114,6 +114,12 @@ class Cache:
             item = self._nodes.get(name)
             return item.info if item else None
 
+    def node_names(self) -> list[str]:
+        """The cached nodes' names in the node tree's zone round-robin
+        order (the cache debugger's dump and comparer read them)."""
+        with self._mu:
+            return self._node_tree.list()
+
     def node_count(self) -> int:
         with self._mu:
             return sum(1 for it in self._nodes.values() if it.info.node is not None)

@@ -15,3 +15,13 @@ from .store import (  # noqa: F401
     NotFoundError,
     Store,
 )
+
+
+def try_delete(store: Store, kind: str, key: str):
+    """store.delete for objects that may already be gone (the reference
+    store's try_delete; controller and kubelet delete races are benign):
+    None instead of NotFoundError."""
+    try:
+        return store.delete(kind, key)
+    except NotFoundError:
+        return None

@@ -19,8 +19,8 @@ replays the same fault schedule.
 A copy of the reference package's module
 (kubernetes_tpu/utils/faultinject.py), with the points the port fires:
 the store's writes and watch delivery, the dispatcher's calls, the wave
-launch/collect pair, the leader elector's lease round and the
-scheduling loop's crash points. The registry
+launch/collect pair, the leader elector's lease round, the scheduling
+loop's crash points, the hollow kubelet's and the controllers'. The registry
 is disarmed by default, and nothing but a test arms it.
 """
 
@@ -87,6 +87,17 @@ FAULT_POINTS = (
     "tpu.collect",
     "watch.deliver",
     "watch.partition",
+    # the hollow kubelet's sync loop and lease heartbeat, and the
+    # controllers' reconciles (controller.reconcile in the base's drive,
+    # controller.lifecycle in the node lifecycle controller); kubelet.pleg
+    # and controller.workloads are the reference's points of modules the
+    # port does not copy, declared so one schedule registers on both
+    "kubelet.sync",
+    "kubelet.lease",
+    "kubelet.pleg",
+    "controller.reconcile",
+    "controller.lifecycle",
+    "controller.workloads",
     # one leader-election CAS round (acquire or renew): ERROR/LATENCY model
     # a flaky or slow coordination write, PARTITION a window where every
     # renewal is lost — seeded lease loss and renew storms for the fleet
@@ -98,6 +109,8 @@ FAULT_POINTS = (
     "loop.bind_commit",
     "gang.permit",
 )
+# the reference's older name for the same tuple
+POINTS = FAULT_POINTS
 
 
 @dataclass
@@ -246,6 +259,9 @@ class FaultRegistry:
         return dropped
 
     # -- introspection -----------------------------------------------------
+
+    def points(self) -> tuple[str, ...]:
+        return POINTS
 
     def snapshot(self) -> dict:
         with self._mu:
