@@ -3,8 +3,9 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the six CUDA libraries (seven kernels) from
-   kubernetes_tpu_torch/ops/csrc (nvcc, one process per source, all at once);
+1. build the seven CUDA libraries of the seven kernels (K5's one-block
+   and per-row cluster instances apart) from kubernetes_tpu_torch/ops/csrc
+   (nvcc, one process per library, all at once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
    Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
 3. the serial wave path: place the 1000 initial and 10000 measured pods
@@ -332,11 +333,53 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    start and no double bind; faults fired, wall clock and launches
    printed. `python3 tools/entrypoint_phase.py` runs phase 28 alone;
    phases 6, 9, 10, 17-22, 24 (b), each of 25 (a)-(e), of 26 (a)-(d), of
-   27 (a)-(c) and of 28 (a)-(b) run under a watchdog (--phase-timeout; 24 (a) under --preempt-timeout) that
+   27 (a)-(c), of 28 (a)-(b) and of 29 (a)-(e) run under a watchdog
+   (--phase-timeout; 24 (a) under --preempt-timeout) that
    fails the run when a phase does not end, as a kernel hung at a cluster
    barrier would; every phase that builds a TorchSchedulingAlgorithm
    fails if its gang planner met an error (a failed K1/K5 build or launch
    raises on the card; on the CPU the group would go to the host cycle);
+29. the wave and gang scans past one block's 16384 node slots (the launch
+   plan, kernels.scan_plan: a bucket past one block runs a thread-block
+   cluster of blocks of at most 16384 slots, K2 through K6's cluster
+   kernel, K5 a cluster per mask row): (e) the card's cap
+   (kernels.scan_limits: the largest cluster one GPC holds), launched once
+   at its full span (every row a live node) through K1 + K2, K1 + K6 on 8
+   shards and K5, each equal to its plain version, K5 with a population
+   below a row's count reporting the truncated row, and one bucket past it
+   refused with OutOfSlice before any launch by each; (b) the reference's
+   scale-out sweep (bench_multichip.py run_sweep) over the port's
+   synthetic_cluster(n, n_zones=8) at SCALE_SWEEP nodes (25000, 50000,
+   100000: buckets 32768 to 131072) on LocalContext (K2) and on
+   MeshContext(8) (K6): SCALE_BURSTS bursts of --wave pods each,
+   SCALE_CHURN churned rows between bursts, placements equal across the
+   two, uploads per warm burst flat (max/min <= 1.1), and after the first
+   burst a chained, seeded wave (dedup on, a device cursor with frame
+   shift 5) through K1 and K2 equal to their plain versions on every
+   output (the plain version timed on that one call), K2 timed beside its
+   latency floor at the plan's block count; (c) gang.yaml's GangSchedulingTopologyPreferred shape (PodGroups of 4)
+   on the sweep's SCALE_NODES cluster and 128-member Preferred gangs on
+   its largest (8 zone rows and the whole-cluster fallback row, a cluster
+   of blocks per row), K1 and K5 equal to their plain versions on the
+   first gang of each, then SCALE_GANG_GROUPS (20: cut in depth from
+   gang.json's 100 PodGroups, `python3 tools/scale_phase.py --full-depth`
+   runs them all) and SCALE_BIG_GANGS gangs placed whole through
+   try_gang_wave; (a) scheduler_perf
+   SchedulingBasic's workload template at initNodes SCALE_NODES (bucket
+   65536) with its 1000 initial and 10000 measured pods through the
+   port's harness (WorkloadExecutor, waves of --wave), warmed once its
+   nodes exist, on LocalContext and over MeshContext(8) in the same call:
+   every pod bound once, compile_count_since_warm() 0, K2's cluster route
+   (its block count from the first-use labels), bindings and rng equal,
+   pods/s beside phase 22 (a)'s; (d) a mixed loop stream on
+   SCALE_CPU_NODES nodes (bucket 32768) on the card and with
+   device="cpu": plain, hard zone spread and IPA-active bursts, node
+   churn, bound-pod deletes, a gang trailer and pods no node holds
+   (capacity FitErrors), bursts of SCALE_BURST (32: cut in depth from 64,
+   `tools/scale_phase.py --full-depth` runs 64), its Scheduler on a LogicalClock (failed pods
+   retried at the same points on both): bindings, PodScheduled=False
+   diagnoses, rng and the kernel and fallback counts equal. `python3
+   tools/scale_phase.py` runs phase 29 alone;
 then print the card, the timings, the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 6's single-pod path, where each assume dirties one
@@ -1241,7 +1284,7 @@ def main() -> None:
     with watchdog("phase 21 (the host tier)", args.phase_timeout):
         host_tier(args)
     with watchdog("phase 22 (the store-driven loop)", args.phase_timeout):
-        store_loop(args, serial, {"phase 3 (serial run_batched)": serial["pods_s"],
+        rates22 = store_loop(args, serial, {"phase 3 (serial run_batched)": serial["pods_s"],
                                   "phase 14 (WavePipeline, depth 2)": a["pods_s"],
                                   f"phase 18 (WavePipeline, {max(shards)} shards)": pods_s18},
                    smi)
@@ -1258,6 +1301,7 @@ def main() -> None:
     telemetry_phase(args, smi)
     restart_phase(args, smi)
     entrypoint_phase(args, smi)
+    scale_phase(args, smi, rates22["depth 2"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows_out}))
@@ -3102,12 +3146,31 @@ class StrictClock:
         return waiter(timeout)
 
 
-def loop_scheduler(store, device, wave, seed, gates=None):
-    """The port's Scheduler over `store`, one device profile."""
+class LogicalClock(StrictClock):
+    """Seconds that pass only as the run reads them (1 us a reading) and as
+    it advances them: a failed pod's backoff expires where the run says,
+    not where the host's speed puts it, so the card and the CPU retry the
+    same pods at the same points."""
+
+    def __init__(self):
+        super().__init__()
+        self._last = time.time()
+
+    def now(self) -> float:
+        self._last += 1e-6
+        return self._last
+
+    def advance(self, seconds: float) -> None:
+        self._last += seconds
+
+
+def loop_scheduler(store, device, wave, seed, gates=None, clock=None):
+    """The port's Scheduler over `store`, one device profile, reading
+    `clock` (a StrictClock by default)."""
     from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
 
     s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)], seed=seed,
-                  clock=StrictClock(), device=device, feature_gates=gates or {})
+                  clock=clock or StrictClock(), device=device, feature_gates=gates or {})
     s.start()
     return s
 
@@ -3266,11 +3329,13 @@ def store_loop(args, serial, rates, smi):
     the port's Scheduler at depth 1, depth 2 and depth 2 on 8 shards, each
     equal to phase 3's bindings and rng, each after the stand-in
     (WavePipeline) at the same depth and context, for the loop's own host
-    cost per wave; (b) the mixed loop stream, card against device="cpu"."""
+    cost per wave; (b) the mixed loop stream, card against device="cpu".
+    Returns (a)'s measured pods/s by run."""
     from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh
 
     t0 = time.perf_counter()
     runs = [("depth 1", 1, 0), ("depth 2", 2, 0), ("depth 2, 8 shards", 2, 8)]
+    measured = {}
     for label, depth, shards in runs:
         ctx = MeshContext(scheduler_mesh(shards)) if shards else None
         stand = collected(run_pipelined, args, ctx, depth)
@@ -3279,6 +3344,7 @@ def store_loop(args, serial, rates, smi):
         stand_waves, stand_wall = len(stand["log"]), stand["wall_s"]
         del stand, ctx
         r = collected(loop_basic_run, args, serial, depth, shards)
+        measured[label] = r["pods_s"]
         prof = r["prof"]
         waves = max(int(prof.get("waves", 0)), 1)
         split = ", ".join(f"{k} {v * 1e3 / waves:.3f}" for k, v in prof.items()
@@ -3314,6 +3380,7 @@ def store_loop(args, serial, rates, smi):
               f"{card['counts']}, gang members by path {card['gangs']}); launches on the card "
               f"{la}; {wall_c:.2f} s on the card, {wall_p:.2f} s on the CPU")
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return measured
 
 
 # --------------------------------------------------------------------------
@@ -5392,6 +5459,710 @@ def entrypoint_phase(args, smi):
         chaos_rungs(args, smi)
     print(f"phase 28: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, "
           f"(b) {time.perf_counter() - t1:.1f} s)")
+
+
+
+# --------------------------------------------------------------------------
+# 29: the wave and gang scans past one block's 16384 node slots
+# --------------------------------------------------------------------------
+
+
+def scan_plan_line(kernel, cfg, dp, n_shards=None, population=None):
+    """The launch plan of a scan over these planes on the card: (blocks,
+    npt, node slots a block walks)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    blocks, npt = kernels.scan_plan_for(kernel, cfg, dp, n_shards, population)
+    nb = dp["alloc"].shape[0]
+    span = nb // blocks
+    return blocks, npt, span if population is None else min(span, max(1, population))
+
+
+def equal_outputs(label, got, want):
+    """Every output of a kernel equal to its plain version's; returns the
+    max |kernel - plain| (0)."""
+    g, r = dict(_flat(got)), dict(_flat(want))
+    if g.keys() != r.keys():
+        fail(f"{label}: outputs {sorted(g)} vs plain {sorted(r)}")
+    for k in g:
+        if not torch.equal(g[k], r[k]):
+            fail(f"{label}: {k} differs from its plain version")
+    return max_abs_err((g[k], r[k]) for k in g)
+
+
+# phase 29's sizes. (a) SchedulingBasic's template at initNodes SCALE_NODES
+# (bucket 65536) with its initial and measured pods; (b) the reference's
+# scale-out sweep (bench_multichip.py run_sweep: bursts of the wave,
+# SCALE_CHURN churned rows between them) at SCALE_SWEEP nodes; (c)
+# gang.yaml's Preferred shape (PodGroups of 4) on SCALE_NODES and
+# SCALE_BIG_GANGS 128-member Preferred gangs on the sweep's largest cluster;
+# (d) the card against the CPU on SCALE_CPU_NODES; (e) the cap's launch with
+# SCALE_CAP_PODS pods. SCALE_GANG_GROUPS is cut in depth from gang.json's
+# 100 to 20 (each gang re-plans 50000 nodes on the host) for chip_smoke's
+# time limit, as (d)'s SCALE_BURST is; `python3 tools/scale_phase.py
+# --full-depth` runs both uncut.
+SCALE_NODES = 50000
+SCALE_INIT_PODS = 1000
+SCALE_PODS = 10000
+SCALE_SWEEP = (25000, 50000, 100000)
+SCALE_BURSTS = 4
+SCALE_CHURN = 64
+SCALE_GANG_GROUPS = 20
+SCALE_BIG_GANGS = 3
+SCALE_CPU_NODES = 25000
+SCALE_CAP_PODS = 16
+
+
+def scale_k2(label, backend, snap, wave, seed):
+    """29 (b), one sweep point: a chained, seeded wave (dedup on, the
+    carry and resident table of the wave the backend just collected, a
+    device cursor with frame shift 5) through K1 and K2 against their plain
+    versions on the card: every output equal. K2 timed (the cluster route
+    runs K6's kernel) beside its latency floor at the plan's block count,
+    and its plain version; then K6 over 8 shards on the same inputs, equal
+    to the plain version and timed. Returns the numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    pods = [make_pod(f"k2-{label}-{i}", cpu="500m", mem="512Mi", labels={"app": f"g{i % 4}"})
+            for i in range(wave)]
+    w = chained_inputs(backend, pods, snap, wave)
+    k1 = k1_call(w, True)
+    err1 = k1_compare(f"29 (b) {label}", w.dp, w.dt, w.packed_f, w.layout, rows=w.uniq)
+    frame = tie_words(seed, 2 * wave)
+    cursor = torch.tensor(37, dtype=torch.int32, device="cuda")
+    cm = torch.from_numpy(w.cmap).cuda()
+    kw = dict(sig_ids=w.sig, uniq_idx=w.uniq, frame_shift=5, carry_map=cm, sig_table=w.table)
+    syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    got = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, frame, cursor, w.logtab,
+                              syncs=syncs, **kw)
+    # the plain version timed on the comparison's own call (host clock)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = kernels.assign_scan_ref(w.cfg, w.dp, k1, w.fv, frame, cursor, w.logtab, **kw)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    err2 = equal_outputs(f"29 (b) {label}: seeded assign_scan", got, want)
+    blocks, npt, span = scan_plan_line("assign_scan", w.cfg, w.dp)
+    name = "assign_scan_kernel" if blocks == 1 else "sharded_assign_kernel"
+    ms = kernel_ms(lambda: kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, frame,
+                                               cursor, w.logtab, **kw), name, 3)
+    fl = floor_ms(syncs, span, blocks)
+    b, ops = k2_work(w, k1, frame, got, True)
+    bd, by = bound_ms(b + nbytes(*w.table.values()) + nbytes(cm, cursor), ops)
+    print(f"29 (b) K2 at {w.planes.n} nodes (bucket {w.planes.nb}): plan {blocks} blocks of "
+          f"{span} slots, NPT {npt}; the chained seeded wave of {wave} equal to its plain "
+          f"version on every output (K1 too); tiers [full, replay] {got['tiers'].tolist()}; "
+          f"{ms:.4f} ms per wave ({ms * 1e3 / wave:.2f} us per step), latency floor "
+          f"{fl:.4f} ms (counted barriers, folds, cluster barriers, exchanges, picks "
+          f"{syncs.tolist()[:5]}), plain {plain:.1f} ms (one call, host clock), bound "
+          f"{bd:.5f} ms by {by}")
+    # K6 over 8 shards on the same inputs: every output equal to the plain
+    # version (the answer does not depend on the block count)
+    got6 = kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, frame, cursor,
+                                  w.logtab, 8, syncs=syncs, **kw)
+    torch.cuda.synchronize()
+    err6 = equal_outputs(f"29 (b) {label}: seeded sharded_assign, 8 shards", got6, want)
+    blocks6, _, span6 = scan_plan_line("sharded_assign", w.cfg, w.dp, 8)
+    ms6 = kernel_ms(lambda: kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, frame,
+                                                   cursor, w.logtab, 8, **kw),
+                    "sharded_assign_kernel", 3)
+    fl6 = floor_ms(syncs, span6, blocks6)
+    print(f"29 (b) K6 at {w.planes.n} nodes, 8 shards: {blocks6} blocks of {span6} slots; "
+          f"the same wave equal to the plain version on every output; {ms6:.4f} ms per wave, "
+          f"latency floor {fl6:.4f} ms")
+    return {"nodes": w.planes.n, "nb": w.planes.nb, "blocks": blocks, "ms": ms, "floor_ms": fl,
+            "plain_ms": plain, "bound_ms": bd, "bound_by": by, "k6_ms": ms6,
+            "k6_floor_ms": fl6, "k6_blocks": blocks6, "max_abs_err": max(err1, err2, err6)}
+
+
+def sweep_point(args, n_nodes, smi):
+    """29 (b), one node count: the reference's run_sweep protocol
+    (bench_multichip.py:79-160) over the port's synthetic_cluster(n,
+    n_zones=8) on LocalContext (K2) and on MeshContext(8) (K6): bursts of
+    --wave pods, each launched and collected (NeedResync: drop the carry
+    and relaunch), then SCALE_CHURN running pods on a rotating slice of
+    nodes and mark_external. Placements equal across the two, uploads per
+    warm burst flat (max/min <= 1.1) on each; K2 against its plain version
+    after the first burst. Returns (K2's numbers, the cache, snapshot and
+    local backend for 29 (c))."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import LocalContext, MeshContext, scheduler_mesh
+    from kubernetes_tpu_torch.scheduler.tpu.backend import NeedResync, TorchBackend
+    from kubernetes_tpu_torch.testing import synthetic_cluster
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    t0 = time.perf_counter()
+    names = ResourceNames()
+    cache, snap = synthetic_cluster(n_nodes, n_zones=8, names=names)
+    sides = {"LocalContext": TorchBackend(names, device="cuda", context=LocalContext("cuda")),
+             "MeshContext(8)": TorchBackend(names, device="cuda",
+                                            context=MeshContext(scheduler_mesh(8, device="cuda")))}
+    rngs = {k: random.Random(0) for k in sides}
+    uploads = {k: [] for k in sides}
+    walls = {k: [] for k in sides}
+    launches = {k: {} for k in sides}
+    placed = 0
+    k2 = None
+    t_build = time.perf_counter() - t0
+    seq = 0
+    for b in range(SCALE_BURSTS):
+        pods = [make_pod(f"b{b}-p{i}", cpu="500m", mem="512Mi", labels={"app": f"g{i % 4}"})
+                for i in range(args.wave)]
+        hosts = {}
+        for k, backend in sides.items():
+            up0 = backend.telemetry.summary()["upload_bytes_total"]
+            before = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            try:
+                fl = backend.launch_batched(pods, snap, rng=rngs[k], pad_to=args.wave)
+            except NeedResync:
+                backend.invalidate_carry()
+                fl = backend.launch_batched(pods, snap, rng=rngs[k], pad_to=args.wave)
+            hosts[k], _ = backend.collect(fl, rng=rngs[k])
+            walls[k].append(time.perf_counter() - t)
+            uploads[k].append(backend.telemetry.summary()["upload_bytes_total"] - up0)
+            for name, v in kernels.LAUNCHES.items():
+                launches[k][name] = launches[k].get(name, 0) + v - before[name]
+        if hosts["LocalContext"] != hosts["MeshContext(8)"]:
+            fail(f"29 (b) {n_nodes} nodes, burst {b}: placements differ between LocalContext "
+                 f"and MeshContext(8)")
+        placed += sum(1 for h in hosts["LocalContext"] if h)
+        if b == 0:
+            k2 = scale_k2(f"{n_nodes}", sides["LocalContext"], snap, args.wave, args.seed + b)
+        for j in range(SCALE_CHURN):
+            cache.add_pod(make_pod(f"churn-{seq}", cpu="100m", mem="64Mi",
+                                   node_name=f"node-{(b * SCALE_CHURN + j) % n_nodes}"))
+            seq += 1
+        snap = cache.update_snapshot(snap)
+        for backend in sides.values():
+            backend.mark_external()
+    if placed != args.wave * SCALE_BURSTS:
+        fail(f"29 (b) {n_nodes} nodes: {placed} of {args.wave * SCALE_BURSTS} pods placed")
+    local, mesh = launches["LocalContext"], launches["MeshContext(8)"]
+    if not (local["assign_scan"] and not local["sharded_assign"] and mesh["sharded_assign"]
+            and not mesh["assign_scan"] and local["static_parts"] and local["scatter_rows"]):
+        fail(f"29 (b) {n_nodes} nodes: launches {launches}: K1, K2 and K3 on LocalContext, "
+             f"K6 on the mesh")
+    ratios = {}
+    for k in sides:
+        warm = uploads[k][1:] or uploads[k]
+        ratios[k] = max(warm) / max(min(warm), 1)
+        if not min(warm) or ratios[k] > 1.1:
+            fail(f"29 (b) {n_nodes} nodes, {k}: uploads per burst {uploads[k]} are not flat "
+                 f"(max/min {ratios[k]:.3f} > 1.1)")
+    for k in sides:
+        ws = walls[k][1:] or walls[k]
+        print(f"29 (b) sweep {n_nodes} nodes, {k}: {SCALE_BURSTS} bursts of {args.wave}; "
+              f"ms per burst (launch + collect) cold {walls[k][0] * 1e3:.2f}, warm median "
+              f"{sorted(ws)[len(ws) // 2] * 1e3:.2f}; uploads by burst {uploads[k]} (warm "
+              f"max/min {ratios[k]:.3f}); launches {launches[k]}")
+    print(f"29 (b) sweep {n_nodes} nodes: placements equal between LocalContext (K2, plan "
+          f"{k2['blocks']} blocks) and MeshContext(8) (K6); build {t_build:.1f} s, point "
+          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    k2["launches"] = local["assign_scan"]
+    return k2, cache, snap, sides["LocalContext"]
+
+
+def scale_gang_against_plain(label, backend, snap, handle, fw, pods, seed):
+    """K1 and K5 on one gang's plan against their plain versions on the
+    card, every element equal; K5 timed. Returns the numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import plan_gang
+
+    plan = plan_gang(handle, fw, qpis(pods))
+    nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
+    g = gang_inputs(backend, snap, pods, plan.gang_placements)
+    words = tie_words(seed, g.packed_f.shape[0])
+    err1 = k1_compare(f"29 (c) {label}", g.dp, g.dt, g.packed_f, g.layout)
+    k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
+    population = int(g.masks.sum(dim=1).max())
+    got = kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks, words, g.logtab,
+                              nc, hf, population=population)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = k5_call(g, k1, words, nc, hf, plain=True)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    if not torch.equal(got, want):
+        bad = int((got != want).nonzero()[0, 0])
+        fail(f"29 (c) {label}: gang_assign differs from its plain version at element {bad}: "
+             f"{int(got[bad])} vs {int(want[bad])}")
+    blocks, npt, walk = scan_plan_line("gang_assign", g.cfg, g.dp, population=population)
+    t = kernels_ms(lambda: kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks,
+                                               words, g.logtab, nc, hf, population=population),
+                   ("gang_assign_kernel", "gang_pick_kernel"), 3)
+    ms = t["gang_assign_kernel"] + t["gang_pick_kernel"]
+    d, p = g.masks.shape[0], g.packed_f.shape[0]
+    rows = g.masks.sum(dim=1).tolist()
+    bd, by = bound_ms(*k5_work(g, k1, words, got, nc + int(hf))[:2])
+    print(f"29 (c) {label}: K5 == plain on every element ({d} rows, {nc} constrained, "
+          f"fallback {int(hf)}; mask nodes per row {rows}); per-row m {blocks} blocks of "
+          f"{g.planes.nb // blocks} slots walking at most {walk} nodes (NPT {npt}); "
+          f"[win_d, ok, n_active] {got[-3:].tolist()}; K5 {ms:.4f} ms (scan + pick) for "
+          f"{p} members, plain {plain:.1f} ms (one call, host clock), bound {bd:.5f} ms by "
+          f"{by}")
+    if not bool(got[-2]):
+        fail(f"29 (c) {label}: the gang found no placement")
+    return {"blocks": blocks, "ms": ms, "plain_ms": plain, "bound_ms": bd, "bound_by": by,
+            "max_abs_err": max(err1, max_abs_err([(got, want)])), "members": p}
+
+
+def gang_planner(cache, snap, backend, seed):
+    """The gang planner around a cluster's cache and a backend:
+    (handle, framework, algorithm)."""
+    from kubernetes_tpu_torch.scheduler.framework import Framework, Handle
+    from kubernetes_tpu_torch.scheduler.plugins.topology_placement import (
+        TopologyPlacementGenerator)
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchSchedulingAlgorithm
+
+    handle = Handle(cache=cache, snapshot=snap)
+    fw = Framework([TopologyPlacementGenerator()], handle=handle)
+    return handle, fw, TorchSchedulingAlgorithm(fw, backend, rng=random.Random(seed))
+
+
+def scale_gangs(args, clusters):
+    """29 (c). gang.yaml's GangSchedulingTopologyPreferred shape (PodGroups
+    of 4, Preferred zone topology) on the sweep's SCALE_NODES cluster, and
+    128-member Preferred gangs on its largest (8 zone rows and the
+    whole-cluster fallback row), each through the sweep's LocalContext
+    backend: K5 against its plain version on the first gang of each, then
+    SCALE_GANG_GROUPS gangs of 4 and SCALE_BIG_GANGS of 128 placed whole
+    through try_gang_wave (the device path, K1 + K5). `clusters` maps the
+    sweep's node counts to (cache, snapshot, backend)."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import try_gang_wave
+    from kubernetes_tpu_torch.testing import synthetic_cluster
+    from kubernetes_tpu_torch.testing.mixed import build_gangs, gang, gang_member, perf_gang_spec
+
+    out = {}
+    t0 = time.perf_counter()
+    if SCALE_NODES not in clusters:
+        names = ResourceNames()
+        cache, snap = synthetic_cluster(SCALE_NODES, n_zones=args.zones, names=names)
+        clusters[SCALE_NODES] = (cache, snap, TorchBackend(names, device="cuda"))
+    big = max(clusters)
+    spec = {"nodes": [], "gangs": [
+        gang(f"big-{i}", "Preferred", [gang_member(f"big-{i}-{j}", cpu="100m")
+                                       for j in range(128)])
+        for i in range(SCALE_BIG_GANGS)]}
+    cells = [(f"GangSchedulingTopologyPreferred/{SCALE_NODES}Nodes", SCALE_NODES,
+              build_gangs(perf_gang_spec(0, args.zones, SCALE_GANG_GROUPS, 4,
+                                         "Preferred"), types, meta)),
+             (f"Preferred gangs of 128/{big}Nodes", big, build_gangs(spec, types, meta))]
+    for label, n, gangs in cells:
+        t1 = time.perf_counter()
+        c, sn, be = clusters[n]
+        be.invalidate_carry()
+        h, f, al = gang_planner(c, sn, be, args.seed)
+        group, pods = gangs[0]
+        admit(h, group, pods)
+        out[label] = scale_gang_against_plain(label, be, h.snapshot, h, f, pods, args.seed + 3)
+        kernels.reset_launches()
+        totals0 = dict(be.recorder.gang_pod_totals)
+        t2 = time.perf_counter()
+        for i, (group, pods) in enumerate(gangs):
+            if i:  # the first gang was admitted for the comparison
+                admit(h, group, pods)
+            hosts = try_gang_wave(h, f, al, group.meta.key, qpis(pods))
+            if hosts is None:
+                fail(f"29 (c) {label}: gang {group.meta.name} was not placed "
+                     f"({be.recorder.records()[-1].gang_outcome})")
+            assume_gang(h, group, pods, hosts)
+        wall = time.perf_counter() - t2
+        launches = dict(kernels.LAUNCHES)
+        n_pods = sum(len(p) for _, p in gangs)
+        device = be.recorder.gang_pod_totals.get("device", 0) - totals0.get("device", 0)
+        if device != n_pods or launches["gang_assign"] != len(gangs):
+            fail(f"29 (c) {label}: {device} of {n_pods} gang pods on the device path, "
+                 f"launches {launches}")
+        check_tier(f"29 (c) {label}", al)
+        out[label]["launches"] = launches["gang_assign"]
+        print(f"29 (c) {label}: {len(gangs)} gangs placed whole through try_gang_wave in "
+              f"{wall:.3f} s ({n_pods / wall:.1f} gang pods/s); launches {launches}; cell "
+              f"{time.perf_counter() - t1:.1f} s")
+    print(f"29 (c): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def scale_harness_run(args, shards):
+    """29 (a), one run: scheduler_perf SchedulingBasic's workload template
+    (misc.json's 5000Nodes_10000Pods workload, its params at initNodes
+    SCALE_NODES, initPods SCALE_INIT_PODS, measurePods SCALE_PODS)
+    through the port's harness, WorkloadExecutor(wave_size=--wave) on the
+    card, on LocalContext or over `shards` node shards
+    (KUBE_TPU_MESH_DEVICES). Its Scheduler reads a StrictClock (readings
+    never repeat, so equal-priority pods keep their store order in both
+    runs) and is warmed (scheduler/tpu/warmup.py: the libraries loaded, the
+    kernels launched at every static configuration the waves meet, warm
+    pods shaped like the workload's pod template) once its nodes exist.
+    Returns the run's bindings, rng, launches and rates."""
+    from pathlib import Path
+
+    import kubernetes_tpu_torch.utils.clock as clock_mod
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf.harness import WorkloadExecutor, load_config
+    from kubernetes_tpu_torch.perf.templates import pod_from_manifest
+    from kubernetes_tpu_torch.scheduler.tpu.warmup import warm_backend
+
+    root = Path(__file__).resolve().parent
+    case = next(c for c in load_config(root / "kubernetes_tpu_torch/perf/configs/misc.json")
+                if c["name"] == "SchedulingBasic")
+    workload = dict(next(w for w in case["workloads"] if w["name"] == "5000Nodes_10000Pods"))
+    workload["params"] = dict(workload["params"], initNodes=SCALE_NODES,
+                              initPods=SCALE_INIT_PODS, measurePods=SCALE_PODS)
+    workload["name"] = f"{SCALE_NODES}Nodes_{SCALE_PODS}Pods"
+    saved = clock_mod.Clock
+    clock_mod.Clock = StrictClock
+    if shards:
+        os.environ["KUBE_TPU_MESH_DEVICES"] = str(shards)
+    try:
+        ex = WorkloadExecutor(case, workload, wave_size=args.wave, device="cuda", seed=args.seed)
+    finally:
+        clock_mod.Clock = saved
+        os.environ.pop("KUBE_TPU_MESH_DEVICES", None)
+    s = ex.scheduler
+    algo = s.algorithms["default-scheduler"]
+    if algo.backend._ctx.n_shards != max(shards, 1):
+        fail(f"29 (a): the harness's backend runs {algo.backend._ctx.n_shards} shards")
+    create_nodes = ex._op_createNodes
+    warm = {}
+
+    def create_then_warm(op):
+        create_nodes(op)
+        s.cache.update_snapshot(s.snapshot)
+        t = time.perf_counter()
+        warm["summary"] = warm_backend(algo.backend, s.snapshot, s.wave_size,
+                                       template=pod_from_manifest(ex.pod_template,
+                                                                  "warm-template"))
+        warm["s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+
+    ex._op_createNodes = create_then_warm
+    t0 = time.perf_counter()
+    result = ex.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"29 (a) {shards or 1} shards", s)
+    bound = {p.meta.key: p.spec.node_name for p in ex.store.pods()}
+    n_pods = SCALE_INIT_PODS + SCALE_PODS
+    if len(bound) != n_pods or not all(bound.values()):
+        fail(f"29 (a): {sum(1 for v in bound.values() if v)} of {n_pods} pods bound")
+    since = s.flight_recorder.device_telemetry.compile_count_since_warm()
+    if since or warm["summary"]["skipped"]:
+        fail(f"29 (a) {shards or 1} shards: {since} first uses after the warmup, skipped "
+             f"{warm['summary']['skipped']}")
+    span_s = ex.collect_stopped_at - ex.collect_started_at
+    # the scan's block count, from the first-use labels ("/c<blocks>" past
+    # one block: backend._blocks_label)
+    labels = s.flight_recorder.device_telemetry.compiled_shapes("batched_assign")
+    blocks = max((int(lb.rsplit("/c", 1)[1]) for lb in labels if "/c" in lb), default=1)
+    return {"bindings": bound, "rng": algo.rng.getstate(), "launches": launches,
+            "pods_s": SCALE_PODS / span_s, "throughput": result.throughput,
+            "wall_s": wall, "warm_s": warm["s"], "nb": algo.backend._device_planes[
+                "alloc"].shape[0], "blocks": blocks}
+
+
+def scale_scheduler(args, smi, rate22=None):
+    """29 (a). SchedulingBasic at SCALE_NODES nodes through the harness on
+    LocalContext (K1 + K2's cluster route) and over MeshContext(8) (K1 +
+    K6): every pod bound once, no first use after the warmup, bindings and
+    rng equal; pods/s beside phase 22 (a)'s 5000-node rate."""
+    t0 = time.perf_counter()
+    local = collected(scale_harness_run, args, 0)
+    nb, blocks = local.pop("nb"), local.pop("blocks")
+    la = local["launches"]
+    if not (la["static_parts"] and la["assign_scan"]) or la["sharded_assign"]:
+        fail(f"29 (a) LocalContext: launches {la}: K1 and K2 (cluster route) must launch, "
+             f"K6 not")
+    mesh = collected(scale_harness_run, args, 8)
+    lm = mesh["launches"]
+    if not (lm["static_parts"] and lm["sharded_assign"]) or lm["assign_scan"]:
+        fail(f"29 (a) MeshContext(8): launches {lm}: K1 and K6 must launch, K2 not")
+    if local["bindings"] != mesh["bindings"]:
+        diff = [k for k, v in local["bindings"].items() if mesh["bindings"].get(k) != v]
+        fail(f"29 (a): bindings differ between LocalContext and MeshContext(8) on "
+             f"{len(diff)} pods (first {diff[:3]})")
+    if local["rng"] != mesh["rng"]:
+        fail("29 (a): the final rng state differs between LocalContext and MeshContext(8)")
+    if blocks < 2:
+        fail(f"29 (a): the waves at bucket {nb} ran {blocks} block, not K2's cluster route")
+    beside = (f"; phase 22 (a) at 5000 nodes in this call {rate22:.1f} pods/s" if rate22
+              else "; phase 22 (a) not run in this call")
+    print(f"29 (a) SchedulingBasic at {SCALE_NODES} nodes (bucket {nb}) through the "
+          f"harness: {SCALE_INIT_PODS} + {SCALE_PODS} pods bound once each, "
+          f"compile_count_since_warm() 0 on both; bindings and rng equal between LocalContext "
+          f"(K2's cluster route, plan {blocks} blocks) and MeshContext(8) (K6, "
+          f"{nb // 8} slots a shard); measured {local['pods_s']:.1f} pods/s on LocalContext "
+          f"(harness Average {local['throughput']:.1f}), {mesh['pods_s']:.1f} on the mesh"
+          f"{beside}; warmup {local['warm_s']:.2f} s / {mesh['warm_s']:.2f} s; launches "
+          f"{la} / {lm}; {time.perf_counter() - t0:.1f} s on {smi}")
+    return local
+
+
+
+def scale_stream(args, device):
+    """29 (d), one side: a mixed loop stream through the port's Scheduler on
+    `device` over SCALE_CPU_NODES nodes of 4 CPU in 4 zones: phase 22
+    (b)'s golden bursts (three interleaved signatures) of SCALE_BURST pods,
+    plain, then with hard zone spread, then IPA-active with SCALE_TOO_BIG
+    pods of 5 CPU that no node holds (capacity FitErrors); 4 fresh nodes
+    and the deletion of 10 bound pods between bursts, a PodGroup of 3
+    behind the second burst. The pods that fail come last: each failed
+    attempt diagnoses every node on the host (~150 ms at 25000 nodes), and
+    no later event retries them. The Scheduler reads a LogicalClock that
+    moves SCALE_RETRY_S past the queue's largest backoff before each later
+    burst: every failed pod is retried there and nowhere else. Returns what
+    the card and the CPU must agree on (the kernel and fallback counts
+    among it), the launch counts and the wall seconds."""
+    import kubernetes_tpu_torch.testing.wrappers as w
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import GangPolicy, PodGroup, PodGroupSpec
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.mixed import burst_pods
+
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        store = Store()
+        zones = 4
+        for i in range(SCALE_CPU_NODES):
+            store.create(w.make_node(f"n{i}", cpu="4", mem="8Gi", zone=f"z{i % zones}"),
+                         copy_return=False)
+        clock = LogicalClock()
+        s = loop_scheduler(store, device, 64, 11, clock=clock)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    per = SCALE_BURST
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for k, (spread, ipa) in enumerate(((False, False), (True, False), (False, True))):
+        if k:
+            clock.advance(SCALE_RETRY_S)
+            for j in range(4):
+                store.create(w.make_node(f"cn{k}-{j}", cpu="4", mem="8Gi",
+                                         zone=f"z{j % zones}"))
+            bound = sorted((p for p in store.pods() if p.spec.node_name),
+                           key=lambda p: p.meta.name)
+            for p in bound[:10]:
+                store.delete("Pod", p.meta.key)
+        for p in burst_pods(w, k * per, (k + 1) * per, spread=spread, ipa=ipa):
+            store.create(p)
+        if k == 1:
+            store.create(PodGroup(meta=ObjectMeta(name=f"g{k}"),
+                                  spec=PodGroupSpec(policy=GangPolicy(min_count=3))))
+            for i in range(3):
+                store.create(w.with_gang(w.make_pod(f"gang{k}-{i}", cpu="500m", mem="512Mi"),
+                                         f"g{k}"))
+        if k == 2:
+            for i in range(SCALE_TOO_BIG):
+                store.create(w.make_pod(f"big{i}", cpu="5", mem="1Gi", labels={"app": "big"}))
+        s.schedule_pending()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_loop(f"29 (d) on {device}", s)
+    s.event_recorder.flush()
+    placed = {p.meta.name: p.spec.node_name for p in store.pods()}
+    diags = {p.meta.name: f"{c.reason}: {c.message}" for p in store.pods()
+             for c in p.status.conditions if c.type == "PodScheduled" and c.status == "False"}
+    algo = s.algorithms["default-scheduler"]
+    return ({"placed": placed, "diags": diags, "rng": algo.rng.getstate(),
+             "gangs": dict(s.flight_recorder.gang_pod_totals),
+             "counts": (algo.kernel_count, algo.fallback_count)}, launches, wall)
+
+
+# 29 (d)'s pods a burst (cut in depth from phase 22 (b)'s 64 to 32 for
+# chip_smoke's time limit: each failed attempt diagnoses every node on the
+# host; `python3 tools/scale_phase.py --full-depth` runs 64), the pods of 5
+# CPU in its last burst, and the seconds its clock moves before each later
+# burst (past the queue's largest backoff, 10 s)
+SCALE_BURST = 32
+SCALE_TOO_BIG = 4
+SCALE_RETRY_S = 11.0
+
+
+def scale_card_vs_cpu(args):
+    """29 (d). The mixed loop stream on the card and with device="cpu":
+    bindings, PodScheduled=False diagnoses, rng state and the kernel and
+    fallback counts equal."""
+    t0 = time.perf_counter()
+    card, la, wall_c = scale_stream(args, "cuda")
+    cpu, _, wall_p = scale_stream(args, "cpu")
+    if card != cpu:
+        which = [k for k in card if card[k] != cpu[k]]
+        fail(f"29 (d): card and CPU differ on {which}")
+    n_bound = sum(1 for v in card["placed"].values() if v)
+    big = [f"big{i}" for i in range(SCALE_TOO_BIG)]
+    if (not all("Insufficient cpu" in card["diags"].get(p, "") for p in big) or not n_bound
+            or not card["gangs"].get("device")):
+        fail(f"29 (d): the stream must bind pods, leave capacity FitErrors on the pods no "
+             f"node holds and take the gang path ({n_bound} bound, FitErrors on "
+             f"{sorted(card['diags'])}, gangs {card['gangs']})")
+    if not la["assign_scan"] or la["sharded_assign"]:
+        fail(f"29 (d): launches {la}: K2's cluster route must launch")
+    print(f"29 (d) mixed loop stream on {SCALE_CPU_NODES} nodes (plain, hard zone spread "
+          f"and IPA-active bursts, churn, deletes, a gang trailer, pods no node holds): "
+          f"card == CPU ({len(card['placed'])} pods, {n_bound} bound, {len(card['diags'])} "
+          f"FitErrors; kernel/fallback counts {card['counts']}; gang members by path "
+          f"{card['gangs']}); launches K1-K6 on the card {la}; {wall_c:.2f} s on the card, "
+          f"{wall_p:.2f} s on the CPU; {time.perf_counter() - t0:.1f} s")
+
+
+def tiled_planes(dp, dt, nb):
+    """A bucket of nb node rows whose every row is a live node: dp's first
+    rows (a small synthetic cluster's planes) repeated, and the node axis of
+    the affinity tables likewise."""
+    n = int(dp["valid"].sum())
+    idx = torch.arange(nb, device="cuda") % n
+    planes = {k: (v.index_select(0, idx) if k != "ipa_term_key" else v)
+              for k, v in dp.items()}
+    tables = {k: (v.index_select(1, idx) if v.dim() == 2 and k == "aff_allow" else v)
+              for k, v in dt.items()}
+    return planes, tables
+
+
+def scale_cap(args):
+    """29 (e). The plan's cap: the card's largest cluster (scan_limits) of
+    16384-slot blocks, launched once at its full span (every row a live
+    node) through K1 + K2 (the cluster route), K6 on 8 shards and K5 (one
+    Preferred gang, its fallback row over every node) against their plain
+    versions, and K5 with a population below its fallback row's count
+    reporting the truncated row; one bucket past it refused with
+    OutOfSlice by each, before any launch (every launch count still 0).
+    Returns the cap."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import (
+        pack_features, pad_features, stack_features, unpack_features)
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing import synthetic_cluster
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    t0 = time.perf_counter()
+    lim = kernels.scan_limits("cuda")
+    cap = lim["max_blocks"]
+    top = cap * kernels.SCAN_MAX_SLOTS
+    print(f"29 (e) scan_limits: {lim} (the plan's budget {kernels.SCAN_SMEM_BUDGET} dynamic "
+          f"bytes a block, reserve {kernels.SCAN_STATIC_RESERVE}); the cap is {cap} blocks "
+          f"= {top} node slots")
+    names = ResourceNames()
+    cache, snap = synthetic_cluster(512, n_zones=8, names=names)
+    backend = TorchBackend(names, device="cuda")
+    pods = [make_pod(f"cap-{i}", cpu="500m", mem="512Mi", labels={"app": f"g{i % 4}"})
+            for i in range(SCALE_CAP_PODS)]
+    for p in pods:
+        backend.extractor.register(p)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features([backend.extractor.features(p, planes) for p in pods]),
+                         SCALE_CAP_PODS)
+    cfg = backend.kernel_config(planes, feats)
+    dp0, dt0 = backend.device_inputs(planes)
+    rows, layout = pack_features(feats)
+    packed_f = torch.from_numpy(rows).cuda()
+    words = tie_words(args.seed, SCALE_CAP_PODS)
+    err = 0.0
+    for nb, refuse in ((top, False), (2 * top, True)):
+        dp, dt = tiled_planes(dp0, dt0, nb)
+        logtab = torch.from_numpy(kernels.log_weight_table(nb)).cuda()
+        masks = torch.ones((2, nb), dtype=torch.bool, device="cuda")
+        masks[1] = False
+        calls = {
+            "K1 + K2": lambda: kernels.batched_assign(cfg, dp, dt, packed_f, layout, words,
+                                                      logtab),
+            "K1 + K6 (8 shards)": lambda: kernels.batched_assign(cfg, dp, dt, packed_f, layout,
+                                                                 words, logtab, n_shards=8),
+            "K5": lambda: kernels.gang_assign(cfg, dp, kernels.static_parts_ref(
+                dp, dt, unpack_features(packed_f, layout)), packed_f, layout, masks, words, logtab, 0,
+                True, population=nb),
+        }
+        for label, call in calls.items():
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            if refuse:
+                try:
+                    call()
+                except kernels.OutOfSlice as e:
+                    if any(kernels.LAUNCHES.values()):
+                        fail(f"29 (e) {label} at {nb} slots launched {kernels.LAUNCHES} "
+                             f"before refusing")
+                    print(f"29 (e) {label} at {nb} node slots: OutOfSlice before any launch "
+                          f"({e})")
+                    continue
+                fail(f"29 (e) {label} at {nb} node slots was not refused")
+            got = call()
+            torch.cuda.synchronize()
+            f = unpack_features(packed_f, layout)
+            st = kernels.static_parts_ref(dp, dt, f)
+            if label == "K5":
+                want = kernels.gang_assign_ref(cfg, dp, st, f, masks, words, logtab, 0, True)
+                if not torch.equal(got, want):
+                    fail(f"29 (e) K5 at {nb} node slots differs from its plain version")
+                err = max(err, max_abs_err([(got, want)]))
+                # a population below the fallback row's count: its blocks'
+                # lists would hold part of the row; the row reports it
+                short = kernels.gang_assign(cfg, dp, st, packed_f, layout, masks, words, logtab,
+                                            0, True, population=nb // 64)
+                d, p = masks.shape[0], packed_f.shape[0]
+                ov = short[d * p + d: d * p + 2 * d].tolist()
+                try:
+                    kernels.check_gang_rows(ov)
+                except ValueError:
+                    pass
+                else:
+                    fail(f"29 (e) K5 at {nb} node slots with population {nb // 64}: overflow "
+                         f"words {ov}, the truncated row not reported")
+                print(f"29 (e) K5 at {nb} node slots with population {nb // 64} (below the "
+                      f"fallback row's {nb}): overflow words {ov}, refused by check_gang_rows")
+            else:
+                want = kernels.assign_scan_ref(cfg, dp, st, f, words, 0, logtab)
+                err = max(err, equal_outputs(f"29 (e) {label} at {nb} node slots", got, want))
+            print(f"29 (e) {label} at {nb} node slots ({cap} blocks of the cluster"
+                  f"{', per row' if label == 'K5' else ''}): equal to its plain version; "
+                  f"launches {dict((k, v) for k, v in kernels.LAUNCHES.items() if v)}")
+    print(f"29 (e): {time.perf_counter() - t0:.1f} s")
+    return cap, err
+
+
+def scale_phase(args, smi, rate22=None):
+    """29. The wave and gang scans past one block's 16384 node slots: (e)
+    the cap first (the new instances' first launches), (b) the sweep, (c)
+    the gangs, (a) SchedulingBasic through the harness at SCALE_NODES,
+    (d) the card against the CPU. Returns K2's and K5's numbers at the
+    sweep's points."""
+    t0 = time.perf_counter()
+    with watchdog("phase 29 (e) (the plan's cap)", args.phase_timeout):
+        cap, err = scale_cap(args)
+    k2, clusters = {}, {}
+    with watchdog("phase 29 (b) (the scale-out sweep)", args.phase_timeout):
+        for n in SCALE_SWEEP:
+            k2[n], cache, snap, local = sweep_point(args, n, smi)
+            if n in (SCALE_NODES, max(SCALE_SWEEP)):
+                clusters[n] = (cache, snap, local)
+            del cache, snap, local
+    with watchdog("phase 29 (c) (gangs past one block)", args.phase_timeout):
+        k5 = scale_gangs(args, clusters)
+    del clusters
+    gc.collect()
+    with watchdog("phase 29 (a) (SchedulingBasic through the harness)", args.phase_timeout):
+        scale_scheduler(args, smi, rate22)
+    with watchdog("phase 29 (d) (the card against the CPU)", args.phase_timeout):
+        scale_card_vs_cpu(args)
+    print("29 K2 per chained wave of " + str(args.wave) + " (ms, floor ms, blocks; K6 on 8 "
+          "shards ms, floor ms, blocks): "
+          + "; ".join(f"{v['nb']} slots {v['ms']:.4f}, {v['floor_ms']:.4f}, {v['blocks']}; "
+                      f"{v['k6_ms']:.4f}, {v['k6_floor_ms']:.4f}, {v['k6_blocks']}"
+                      for v in k2.values())
+          + f"; cap {cap} blocks; max |kernel - plain| "
+          f"{max([err] + [v['max_abs_err'] for v in k2.values()])}")
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s on {smi}")
+    return k2, k5
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@
 // carry planes are updated in place in device memory (copies the wrapper
 // makes).
 //
+// A bucket past one block's 16384 slots (or past its shared memory: the
+// launch plan, scan_plan in ops/kernels.py) takes the cluster route: K2's
+// wrapper launches K6's kernel (sharded_assign.cu, the same step under
+// ClusterComm) over that many blocks of one thread-block cluster, each
+// owning a range of the bucket; the launches count as assign_scan's.
+//
 // scan_floor_kernel, beside it, is the latency floor of such a scan: the
 // same counts of barriers, folds, cluster barriers, exchanges and tie picks
 // as a scan reported, with no node work.
@@ -141,7 +147,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) scan_floor_kernel(ScanSyncs n, int
 }
 
 // the floor of a scan's counted synchronisations (syncs [5] as
-// write_syncs leaves them) over one block, or a cluster of n_blocks (2-8)
+// write_syncs leaves them) over one block, or a cluster of n_blocks (2-16)
 extern "C" int launch_scan_floor(const int* syncs, int npt, int n_blocks, int* out,
                                  void* stream) {
     const ScanSyncs n = {syncs[0], syncs[1], syncs[2], syncs[3], syncs[4]};
@@ -150,7 +156,12 @@ extern "C" int launch_scan_floor(const int* syncs, int npt, int n_blocks, int* o
         scan_floor_kernel<false><<<1, SCAN_NT, 0, (cudaStream_t)stream>>>(n, npt, out);
         return (int)cudaGetLastError();
     }
-    if (n_blocks > SCAN_MAX_SHARDS) return (int)cudaErrorInvalidValue;
+    if (n_blocks > SCAN_MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+    if (n_blocks > 8) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            scan_floor_kernel<true>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(n_blocks, 1, 1);
     cfg.blockDim = dim3(SCAN_NT, 1, 1);

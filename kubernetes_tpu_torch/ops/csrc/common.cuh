@@ -56,7 +56,8 @@ struct StaticParams {
 #define SCAN_MAX_KEYS 16
 #define SCAN_MAX_SOFT 4
 
-// K2 assign_scan: dims, feature offsets and the static KernelConfig
+// K2 assign_scan (and K5, K6): dims, feature offsets and the static
+// KernelConfig
 struct ScanParams {
     int P, Nb, R, K, S, F, MC, L;
     int Ta;  // IPA term columns (0 when inter-pod affinity is off)
@@ -88,6 +89,7 @@ struct ScanParams {
     int ex_pref_add;  // ... and adds the existing pods' preferred terms
     int dom_carry;    // hard slots and a non-singleton key: carry dom_counts
     int topo_dk[SCAN_MAX_KEYS];
+    int walk;  // K5: the most mask nodes one block walks (0: its whole range)
 };
 
 // K4 fit_and_score: dims, feature offsets, the static KernelConfig and the

@@ -17,18 +17,24 @@
 //
 // What bounds it on an H100: latency, as K2 — each row is a serial chain of
 // member steps, each a few dependent block-wide reductions. Design: one
-// 1024-thread block per mask row (grid = rows), the rows' chains in
-// parallel on separate SMs. Each block copies the pre-scan carry planes
-// into its own slice of a [rows, ...] device work buffer and runs
+// 1024-thread block per mask row, or past one block's slots one
+// thread-block cluster of m blocks per row (grid = rows x m; m from the
+// launch plan on the largest row's mask population, scan_plan in
+// ops/kernels.py: eight zone rows of 6250 nodes keep one block each, a
+// fallback row over a 50000-node cluster takes four), the rows' chains in
+// parallel on separate SMs. Each block copies its range of the pre-scan
+// carry planes into the row's slice of a [rows, ...] device work buffer
+// (the cluster shares the slice: a block reads only its own range's rows,
+// and the hard-spread domain counts are the row's, as K6's) and runs
 // scan_block<MASKED>() of scan_step.cuh (K2's step, shared), which first
-// builds the ascending list of the row's mask nodes in shared memory and
+// builds the ascending list of its range's mask nodes in shared memory and
 // then walks only that list (a zone row of a 5000-node cluster holds ~1/8
 // of the 8192 slots), each thread owning NPT list positions, one barrier
-// per reduction. The placement
-// score on the pre-scan planes walks the same list. K1 runs once over the
-// members, not per row: its static_ok is the only K1 output that reads
-// valid, and the walk holds only the mask's nodes. A one-block tail launch
-// makes the pick.
+// per reduction (and one cluster exchange in a cluster). The placement
+// score on the pre-scan planes walks the same list and folds over the
+// cluster as an int32 sum. K1 runs once over the members, not per row: its
+// static_ok is the only K1 output that reads valid, and the walk holds only
+// the mask's nodes. A one-block tail launch makes the pick.
 #include "scan_step.cuh"
 
 #define GANG_CPU_COL 0
@@ -39,6 +45,7 @@ struct GangParams {
     int rows;           // mask rows (pow2-padded placements)
     int n_constrained;  // rows [0, n_constrained) are topology domains
     int has_fallback;   // row n_constrained is the unconstrained parent
+    int blocks;         // blocks per row: 1, or a cluster of 2-16 dividing Nb
 };
 
 // int32 words of one row's work slice: the carry planes and the
@@ -53,19 +60,42 @@ __device__ __forceinline__ void copy_words(int* dst, const int* src, size_t n) {
     for (size_t i = threadIdx.x; i < n; i += SCAN_NT) dst[i] = src[i];
 }
 
-template <int NPT, bool GATED>
+// returned by the launcher when a row's cluster cannot be co-resident
+#define GANG_CLUSTER_DOES_NOT_FIT (-2)
+// a row's overflow word when one of its blocks held more mask nodes than
+// its list's slots (the launch's population below the row's count): the
+// row never wins, and the caller raises (kernels.GANG_LIST_TRUNCATED)
+#define GANG_LIST_TRUNCATED 2
+
+template <typename Comm>
+__device__ __forceinline__ Comm gang_comm(int lo, int hi, int r, int m,
+                                          int (*red)[SCAN_NWARPS][SCAN_RED], int* xch,
+                                          ScanSyncs* syncs) {
+    if constexpr (Comm::kCluster) return Comm{lo, hi, r, m, red, 0, xch, 0, syncs};
+    else return Comm{lo, hi, red, 0, syncs};
+}
+
+template <int NPT, bool GATED, typename Comm>
 __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     GangParams g, ScanArgs base, const uint8_t* __restrict__ masks, int* work, int* out) {
+    // the fold and exchange slots, at the same address in every block
     __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
+    __shared__ int xch[3 * SCAN_RED];
     __shared__ ScanSyncs syncs;
     extern __shared__ int dyn[];
     const ScanParams& p = g.scan;
-    const int d = blockIdx.x;
+    // mask row d; this block's rank r of the row's m and its node range
+    const int m = g.blocks;
+    const int d = blockIdx.x / m;
+    int r = 0;
+    if constexpr (Comm::kCluster) r = (int)cg::this_cluster().block_rank();
+    const int nbl = p.Nb / m, lo = r * nbl, hi = lo + nbl;
     const size_t nb = (size_t)p.Nb;
     const uint8_t* mask = masks + (size_t)d * nb;
 
-    // this row's carry, from the pre-scan planes (the scan's prologue
-    // passes a barrier before it reads them)
+    // this row's carry, from the pre-scan planes: this block's range of
+    // rows (the scan's prologue passes a barrier before it reads them, and
+    // a block reads only its own range's rows)
     ScanArgs a = base;
     a.mask = mask;
     int* w = work + (size_t)d * gang_work_words(p);
@@ -75,33 +105,37 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     w += nb * 2;
     a.sel_counts = w;
     w += nb * p.S;
-    copy_words(a.used, base.used, nb * p.R);
-    copy_words(a.nonzero_used, base.nonzero_used, nb * 2);
-    copy_words(a.sel_counts, base.sel_counts, nb * p.S);
+    const size_t l0 = (size_t)lo, rows = (size_t)nbl;
+    copy_words(a.used + l0 * p.R, base.used + l0 * p.R, rows * p.R);
+    copy_words(a.nonzero_used + l0 * 2, base.nonzero_used + l0 * 2, rows * 2);
+    copy_words(a.sel_counts + l0 * p.S, base.sel_counts + l0 * p.S, rows * p.S);
     if (p.ipa_active) {
         a.ipa_counts = w;
         a.ipa_anti = w + nb * p.Ta;
         a.ipa_pref = w + 2 * nb * p.Ta;
         w += 3 * nb * p.Ta;
-        copy_words(a.ipa_counts, base.ipa_counts, nb * p.Ta);
-        copy_words(a.ipa_anti, base.ipa_anti, nb * p.Ta);
-        copy_words(a.ipa_pref, base.ipa_pref, nb * p.Ta);
+        const size_t o = l0 * p.Ta, n = rows * p.Ta;
+        copy_words(a.ipa_counts + o, base.ipa_counts + o, n);
+        copy_words(a.ipa_anti + o, base.ipa_anti + o, n);
+        copy_words(a.ipa_pref + o, base.ipa_pref + o, n);
     }
     if (p.dom_carry) a.dom_counts = w;
     a.winners = out + (size_t)d * p.P;
 
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
-    BlockComm comm = {0, p.Nb, red, 0, &syncs};
+    Comm comm = gang_comm<Comm>(lo, hi, r, m, red, xch, &syncs);
     const ScanEnd end = scan_block<true, NPT, GATED>(p, a, comm);
 
     // the placement score on the pre-scan planes, over the mask's list: per
     // node the mean of the cpu and memory free shares over the columns with
     // capacity, then the mean over the mask's nodes that have such a column
-    const unsigned short* list =
-        reinterpret_cast<const unsigned short*>(dyn + scan_smem(p, p.Nb, true).list);
-    int v[2] = {0, 0};  // counted nodes, their score sum
+    // (the counts and sums fold over the cluster: int32 sums; whether any
+    // block's list was truncated, a max)
+    const unsigned short* list = reinterpret_cast<const unsigned short*>(
+        dyn + scan_smem(p, scan_slots(p, nbl, true), true).list);
+    int v[3] = {0, 0, end.truncated};  // counted nodes, their score sum, truncated
     for (int i = threadIdx.x; i < end.walked; i += SCAN_NT) {
-        const int n = list[i];
+        const int n = lo + (int)list[i];
         int score = 0, parts = 0;
         for (int col = GANG_CPU_COL; col <= GANG_MEM_COL; ++col) {
             const int cap = base.alloc[(size_t)n * p.R + col];
@@ -115,19 +149,22 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
             v[1] = wadd(v[1], floordiv(score, parts));
         }
     }
-    fold_block<2>(v, 0u, 0u, red[comm.par]);
+    // (a cluster's exchange barrier also publishes every block's winners)
+    comm.template reduce<3>(v, 0x4u, 0u);
     const int pscore = v[0] > 0 ? floordiv(v[1], v[0]) : 0;
-    if (threadIdx.x == 0) {
+    if (r == 0 && threadIdx.x == 0) {
         int placed = 0;
         for (int i = 0; i < p.P; ++i)
             placed += a.winners[i] >= 0 && base.feats[(size_t)i * p.F + p.f_active] != 0;
         int* rows_out = out + (size_t)g.rows * p.P;
         rows_out[d] = end.cursor;
-        rows_out[g.rows + d] = end.overflow;
+        rows_out[g.rows + d] = v[2] ? GANG_LIST_TRUNCATED : end.overflow;
         rows_out[2 * g.rows + d] = placed;
         rows_out[3 * g.rows + d] = pscore;
         if (d == 0) write_syncs(base.syncs, end.syncs, end.phase_cycles);
     }
+    // no block leaves while a peer may still read its shared memory
+    if constexpr (Comm::kCluster) cg::this_cluster().sync();
 }
 
 // the all-or-nothing pick (kernels.py:1515-1533): a row's key is its score
@@ -166,13 +203,67 @@ __global__ void gang_pick_kernel(GangParams g, const int* __restrict__ feats, in
     tail[2] = n_active;
 }
 
+// one launch of the rows: m = 1 one block per row (BlockComm), else one
+// cluster of m blocks per row (ClusterComm), refused when such a cluster
+// cannot be resident rather than launched smaller
+template <int NPT, bool GATED, typename Comm>
+int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_t dyn,
+                cudaStream_t s) {
+    auto kernel = gang_assign_kernel<NPT, GATED, Comm>;
+    const int m = g->blocks;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+    if (Comm::kCluster && m > 8) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(g->rows * m, 1, 1);
+    cfg.blockDim = dim3(SCAN_NT, 1, 1);
+    cfg.dynamicSmemBytes = dyn;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = m;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = Comm::kCluster ? 1 : 0;
+    if (Comm::kCluster) {
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+        if (e != cudaSuccess) return (int)e;
+        if (clusters < 1) return GANG_CLUSTER_DOES_NOT_FIT;
+    }
+    e = cudaLaunchKernelEx(&cfg, kernel, *g, a, (const uint8_t*)ptrs[18], (int*)ptrs[19],
+                           (int*)ptrs[20]);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
 // ptrs: alloc, domain, valid, static_ok, taint_cnt, aff_raw, img,
 // aff_has_pref, feats, tie_words, logtab, used, nonzero_used, sel_counts,
 // ipa_counts, ipa_anti, ipa_pref, ipa_term_key (the pre-scan planes, read
 // only; IPA pointers 0 without IPA), masks, work, out, then the sync counts
 // and phase cycles of row 0's scan (0: not wanted)
+//
+// The file builds twice (ops/cuda.py DEFINES): without GANG_CLUSTER the
+// library launches one block per row (m = 1), with it one cluster of m
+// blocks per row (m > 1); each library refuses the other's launches. Two
+// libraries compile side by side in half the time of one with both.
 extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* stream) {
-    const size_t dyn = scan_smem_bytes(g->scan, g->scan.Nb, true);
+    const int m = g->blocks, nb = g->scan.Nb;
+#ifdef GANG_CLUSTER
+    constexpr bool cluster = true;
+#else
+    constexpr bool cluster = false;
+#endif
+    if (m < 1 || m > SCAN_MAX_BLOCKS || (m & (m - 1)) || nb % m || nb / m > SCAN_MAX_RANGE
+        || (m > 1) != cluster)
+        return (int)cudaErrorInvalidValue;
+    const int slots = scan_slots(g->scan, nb / m, true);
+    const size_t dyn = scan_smem_bytes(g->scan, slots, true);
     ScanArgs a = {};
     a.alloc = (const int*)ptrs[0];
     a.domain = (const int*)ptrs[1];
@@ -194,17 +285,16 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     a.ipa_term_key = (const int*)ptrs[17];
     a.syncs = (int*)ptrs[21];
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = (cudaError_t)scan_dispatch(g->scan.Nb, scan_gated(g->scan),
-                                                 [&](auto npt, auto gated) {
-        auto kernel = gang_assign_kernel<decltype(npt)::value, decltype(gated)::value>;
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-        if (e != cudaSuccess) return (int)e;
-        kernel<<<g->rows, SCAN_NT, dyn, s>>>(*g, a, (const uint8_t*)ptrs[18], (int*)ptrs[19],
-                                            (int*)ptrs[20]);
-        return (int)cudaGetLastError();
+    const int err = scan_dispatch(slots, scan_gated(g->scan), [&](auto npt, auto gated) {
+        constexpr int N = decltype(npt)::value;
+        constexpr bool G = decltype(gated)::value;
+#ifdef GANG_CLUSTER
+        return launch_rows<N, G, ClusterComm>(g, a, ptrs, dyn, s);
+#else
+        return launch_rows<N, G, BlockComm>(g, a, ptrs, dyn, s);
+#endif
     });
-    if (err != cudaSuccess) return (int)err;
+    if (err != 0) return err;
     gang_pick_kernel<<<1, 32, 0, s>>>(*g, (const int*)ptrs[8], (int*)ptrs[20]);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// The greedy pod scan, shared by K2 assign_scan (one block over the wave),
-// K5 gang_assign (one block per placement mask) and K6 sharded_assign (one
-// cluster of n blocks over the wave, each block a node shard): the
+// The greedy pod scan, shared by K2 assign_scan (one block over the wave,
+// or past one block's slots a cluster of blocks), K5 gang_assign (one
+// block, or one cluster, per placement mask) and K6 sharded_assign (one
+// cluster of blocks over the wave, each block a node range): the
 // reference's _assign_step (kubernetes_tpu/ops/kernels.py:925-1250) in a
 // loop over the pods, both tiers, with hard spread and inter-pod affinity.
 //
@@ -38,12 +39,16 @@
 //   table row feasible there. Past it every node is invalid with zero
 //   planes, so the plain version's answer there is fixed: a capture writes
 //   the padding constants (ew 0, ffit 1, feas 0; sig_scores stays -1). K5
-//   walks the ascending list of its mask's nodes, built once per block
-//   (ballot + prefix) in shared memory; node order, and so the tie ballots
-//   and the draw, is unchanged.
+//   walks the ascending list of its mask's nodes in its range, built once
+//   per block (ballot + prefix) in shared memory as uint16 positions
+//   relative to the range's start (a block's range is at most 65536
+//   slots), at most p.walk of them; node order, and so the tie ballots and
+//   the draw, is unchanged.
 // - Thread t of the block's 1024 owns positions t, t + 1024, ..., NPT of
 //   them (NPT a template parameter: 8 for up to 8192 node slots, 16 past
-//   that). A second template flag, GATED, compiles the filter phases (hard
+//   that; a wider bucket takes a cluster of blocks, the launch plan of
+//   scan_plan in ops/kernels.py). A second template flag, GATED, compiles
+//   the filter phases (hard
 //   spread, inter-pod affinity) only into the instance that runs them.
 //   Each pass is an unrolled loop over the owned positions whose loads
 //   issue together (the replay pass branches on no loaded value).
@@ -92,7 +97,8 @@
 // The reduction scope is a template policy, the reference's comm
 // (kernels.py:81-131), in comm.cuh (shared with K4 and K7). BlockComm: one
 // block owns every node; its domain
-// tables live in the block's own shared memory (K2, K5). ClusterComm (K6):
+// tables live in the block's own shared memory (K2, K5 up to one block's
+// slots). ClusterComm (K6; K2 and each K5 row past one block's slots):
 // block r of a cluster of n owns the node range [r*Nb/n, (r+1)*Nb/n) of
 // every plane and of the signature table's columns, and walks that range's
 // live extent only. Each reduction is the block fold, then an exchange of
@@ -103,7 +109,9 @@
 // every block adds into (DSMEM atomics) and reads; they are reloaded on
 // every replay (no kept tables across the cluster). The tie pick exchanges
 // each block's best and tie count; every block makes the same draw and the
-// block whose prefix range holds it finds its node. Replicated state has
+// block whose prefix range holds it finds its node (under MASKED each block
+// walks its own range's mask nodes, and the placement score's walk folds
+// over the cluster as an int32 sum). Replicated state has
 // one copy: the hard-spread domain counts in device memory and the domain
 // presence bits in rank 0's shared memory, the signature table's
 // segs/pcs/valid (written by rank 0), the winner's row adds and
@@ -117,11 +125,17 @@
 #include "comm.cuh"
 #include "scoring.cuh"
 
-#define SCAN_MAX_SHARDS 8
-// owned positions per thread: 8 (a bucket of up to 8192 node slots) or 16
-// (up to 16384)
+// the blocks of one scanning cluster at most: 16 is a non-portable cluster
+// size (cudaFuncAttributeNonPortableClusterSizeAllowed past 8); whether the
+// card holds one is asked once (scan_limits, sharded_assign.cu)
+#define SCAN_MAX_BLOCKS 16
+// owned positions per thread: 8 (a block's range of up to 8192 node slots)
+// or 16 (up to 16384)
 #define SCAN_MIN_NPT 8
 #define SCAN_MAX_NPT 16
+// a block's range of node slots at most under MASKED: its node list holds
+// uint16 positions relative to the range's start
+#define SCAN_MAX_RANGE 65536
 
 // the smallest power-of-two NPT (from SCAN_MIN_NPT) whose SCAN_NT * NPT
 // positions cover `span` node slots, or 0 past SCAN_MAX_NPT
@@ -131,6 +145,13 @@ __host__ __device__ inline int scan_npt(int span) {
     return npt <= SCAN_MAX_NPT ? npt : 0;
 }
 
+// the positions a block walks at most, which size its shared memory: its
+// range of `span` node slots, or under MASKED the launch's bound on any
+// block's mask nodes (p.walk, when set)
+__host__ __device__ inline int scan_slots(const ScanParams& p, int span, bool masked) {
+    return masked && p.walk > 0 && p.walk < span ? p.walk : span;
+}
+
 // whether a scan runs the filter phases (hard spread or inter-pod
 // affinity): the GATED instance; the other compiles without them
 __host__ __device__ inline bool scan_gated(const ScanParams& p) {
@@ -138,8 +159,8 @@ __host__ __device__ inline bool scan_gated(const ScanParams& p) {
 }
 
 // fn(std::integral_constant<int, NPT>, std::bool_constant<GATED>) for the
-// instance covering `span` node slots; cudaErrorInvalidValue past
-// SCAN_MAX_NPT (the wrappers refuse such a bucket first)
+// instance covering `span` positions; cudaErrorInvalidValue past
+// SCAN_MAX_NPT (the wrappers' plan never asks for one)
 template <typename F>
 inline int scan_dispatch(int span, bool gated, F&& fn) {
     const int npt = scan_npt(span);
@@ -156,9 +177,10 @@ inline int scan_dispatch(int span, bool gated, F&& fn) {
 // anti-affinity per key slot) and the score phase's IPA tables (the
 // preferred terms, the existing pods' preferred terms per key slot), the
 // domain presence bits [K, D] of the hard-spread carry, by owned position
-// the partial-then-whole total and the spread and IPA raw scores, (MASKED)
-// the mask's node list as uint16, and the winner's rows after its adds
-// (used, alloc, nonzero_used, sel_counts) for the patch.
+// (`span` of them: scan_slots) the partial-then-whole total and the spread
+// and IPA raw scores, (MASKED) the mask's node list as uint16, and the
+// winner's rows after its adds (used, alloc, nonzero_used, sel_counts) for
+// the patch. ops/kernels.py scan_smem_words mirrors it for the launch plan.
 struct ScanSmem {
     int soft, uni, present, ew, raw, iraw, list, wrow, words;
 };
@@ -297,6 +319,7 @@ inline ScanArgs scan_args(void* const* ptrs) {
 struct ScanEnd {
     int cursor, overflow, n_full, n_replay;
     int walked;  // positions walked: the live extent, or the mask list's length
+    int truncated;  // MASKED: the range held more mask nodes than the list's slots
     ScanSyncs syncs;
     const long long* phase_cycles;  // [SCAN_PHASES], shared (thread 0's)
 };
@@ -359,9 +382,10 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
 
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     const int Nb = p.Nb, D = p.D, S = p.S, K = p.K;
-    // this block's node range (the whole axis but under ClusterComm) and
-    // whether it writes the replicated state
+    // this block's node range (the whole axis but under ClusterComm), the
+    // positions it walks at most, and whether it writes the replicated state
     const int lo = comm.lo, span = comm.hi - comm.lo;
+    const int slots = scan_slots(p, span, MASKED);
     const bool lead = comm.rank() == 0;
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
@@ -375,7 +399,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     const int filter_tables = na + nfa + (p.ex_anti ? K : 0);
     const int score_tables = np + (p.ex_pref_add ? K : 0);
     const int union_words = (filter_tables > score_tables ? filter_tables : score_tables) * D;
-    const ScanSmem lay = scan_smem(p, span, MASKED);
+    const ScanSmem lay = scan_smem(p, slots, MASKED);
     int* tabs = comm.tables(dyn);  // the domain tables every block adds into
     int* soft_t = tabs + lay.soft;
     int* uni_t = tabs + lay.uni;
@@ -396,14 +420,14 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     auto seg = [&](int c) { return soft_t + (size_t)c * D; };
     auto pcs = [&](int c) { return soft_t + (size_t)(ns + c) * D; };
     auto node_at = [&](int i) -> int {
-        if constexpr (MASKED) return (int)list[i];
+        if constexpr (MASKED) return lo + (int)list[i];
         else return lo + i;
     };
     // the one place the scan reads node validity (see the header comment)
     auto node_valid = [&](int n) -> bool { return a.valid[n] != 0; };
     auto present_at = [&](int w) -> bool { return (present[w >> 5] >> (w & 31)) & 1u; };
 
-    ScanEnd end = {0, 0, 0, 0, 0, {0, 0, 0, 0, 0}, clock_s};  // tiers counted in thread 0
+    ScanEnd end = {0, 0, 0, 0, 0, 0, {0, 0, 0, 0, 0}, clock_s};  // tiers counted in thread 0
     // thread 0 books the cycles since its last mark to phase k
     auto mark = [&](int k) {
         if (tid == 0) {
@@ -417,11 +441,15 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     }
     // every thread keeps the cursor: every warp makes the same draws
     int cursor = (a.cursor_init ? a.cursor_init[0] : p.cursor0) - p.frame_shift;
-    int overflow = 0;
+    int overflow = 0, truncated = 0;
 
     // prologue: the nodes this block walks. MASKED: the ascending list of
-    // the mask's nodes (each warp a contiguous run of 32-node words, counted,
-    // prefix-summed and written in order). Else the live extent of the range
+    // the mask's nodes in the range, relative to lo (each warp a contiguous
+    // run of 32-node words, counted, prefix-summed and written in order; the
+    // plan bounds a block's mask nodes by slots from the caller's
+    // population, and a list never writes past them: a range holding more
+    // is reported as truncated, never walked in part unseen). Else the live
+    // extent of the range
     // (see the header comment), with the cross-wave seed of the signature
     // table first, since a seeded feasible column counts as live.
     int last = -1;
@@ -476,10 +504,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             const int n = w * 32 + lane;
             const bool in = n < span && a.mask[lo + n] != 0;
             const unsigned b = __ballot_sync(FULL_MASK, in);
-            if (in) list[base + __popc(b & ((1u << lane) - 1u))] = (unsigned short)(lo + n);
+            const int at = base + __popc(b & ((1u << lane) - 1u));
+            if (in && at < slots) list[at] = (unsigned short)n;
             base += __popc(b);
         }
-        cnt = v[0];
+        cnt = min(v[0], slots);
+        truncated = v[0] > slots;
         tick(comm.n->fold);
     } else {
 #pragma unroll
@@ -1192,6 +1222,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     end.cursor = cursor;
     end.overflow = overflow;
     end.walked = cnt;
+    end.truncated = truncated;
     end.syncs = *comm.n;
     return end;
 }

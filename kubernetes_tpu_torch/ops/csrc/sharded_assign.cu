@@ -5,14 +5,18 @@
 //
 // What it computes: exactly K2's outputs (the greedy wave scan, both tiers,
 // hard spread, inter-pod affinity, the cross-wave seed and the device
-// cursor) with the node axis cut into n shards. On one card a node shard is
-// one block of a thread-block cluster of n blocks (n = 1, 2, 4 or 8, the
-// portable cluster sizes): block r owns nodes [r*Nb/n, (r+1)*Nb/n) of every
+// cursor) with the node axis cut into n ranges. On one card a node shard is
+// one block of a thread-block cluster of n blocks, or, where a shard passes
+// one block's 16384 slots, m blocks (the launch plan, scan_plan in
+// ops/kernels.py, picks n = shards x m: 1, 2, 4, 8 or 16, the last a
+// non-portable size): block r owns nodes [r*Nb/n, (r+1)*Nb/n) of every
 // plane and of the signature table's columns, and the reference's psum,
 // pmax, pmin, all_gather and axis_index become exchanges through
 // distributed shared memory after cluster barriers (ClusterComm in
 // scan_step.cuh, which runs K2's step code). Every cross-shard reduction is
-// a max, a min or an int32 sum, so the result equals K2's bit for bit.
+// a max, a min or an int32 sum, so the result equals K2's bit for bit
+// whatever the block count. K2's wrapper launches this kernel too (its
+// cluster route) for a bucket past one block's slots.
 //
 // What bounds it on an H100: latency, as K2: each pod step is a chain of
 // dependent reductions, each a block fold followed by a cluster barrier
@@ -30,7 +34,7 @@
 
 struct ShardParams {
     ScanParams scan;
-    int n_shards;  // cluster size: 1, 2, 4 or 8, dividing Nb
+    int blocks;  // cluster size: 1, 2, 4, 8 or 16, dividing Nb
 };
 
 template <int NPT, bool GATED>
@@ -60,31 +64,42 @@ __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     cl.sync();
 }
 
+// the cluster launch of one instance over n blocks with `dyn` bytes each
+template <typename K>
+cudaLaunchConfig_t cluster_config(K kernel, int n, size_t dyn, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr, cudaError_t& err) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err == cudaSuccess && n > 8)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n, 1, 1);
+    cfg.blockDim = dim3(SCAN_NT, 1, 1);
+    cfg.dynamicSmemBytes = dyn;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
 // ptrs: as scan_args() in scan_step.cuh reads them (K2's list)
 extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
                                      void* stream) {
-    const int n = sp->n_shards;
-    if (n < 1 || n > SCAN_MAX_SHARDS || sp->scan.Nb % n) return (int)cudaErrorInvalidValue;
+    const int n = sp->blocks;
+    if (n < 1 || n > SCAN_MAX_BLOCKS || (n & (n - 1)) || sp->scan.Nb % n)
+        return (int)cudaErrorInvalidValue;
     const int span = sp->scan.Nb / n;
     const size_t dyn = scan_smem_bytes(sp->scan, span, false);
     const ScanArgs a = scan_args(ptrs);
     return scan_dispatch(span, scan_gated(sp->scan), [&](auto npt, auto gated) {
         auto kernel = sharded_assign_kernel<decltype(npt)::value, decltype(gated)::value>;
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-        if (err != cudaSuccess) return (int)err;
-        cudaLaunchConfig_t cfg = {};
-        cfg.gridDim = dim3(n, 1, 1);
-        cfg.blockDim = dim3(SCAN_NT, 1, 1);
-        cfg.dynamicSmemBytes = dyn;
-        cfg.stream = (cudaStream_t)stream;
         cudaLaunchAttribute attr[1];
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = n;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg.attrs = attr;
-        cfg.numAttrs = 1;
+        cudaError_t err;
+        cudaLaunchConfig_t cfg = cluster_config(kernel, n, dyn, (cudaStream_t)stream, attr, err);
+        if (err != cudaSuccess) return (int)err;
         int clusters = 0;
         err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
         if (err != cudaSuccess) return (int)err;
@@ -93,4 +108,40 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
         if (err != cudaSuccess) return (int)err;
         return (int)cudaGetLastError();
     });
+}
+
+// What the scan's launch plan needs from this card, asked once: out[0] the
+// largest cluster of scanning blocks (16, else 8, 4, 2, 1; 0 none) that
+// one GPC holds with `dyn` bytes of dynamic shared memory each
+// (cudaOccupancyMaxActiveClusters on the widest instance); out[1] the
+// largest static shared memory of this library's scan instances; out[2]
+// the shared memory a block may opt into on this card
+extern "C" int scan_limits(int dyn, int* out) {
+    auto widest = sharded_assign_kernel<SCAN_MAX_NPT, true>;
+    out[0] = 0;
+    for (int n = SCAN_MAX_BLOCKS; n >= 1 && out[0] == 0; n /= 2) {
+        cudaLaunchAttribute attr[1];
+        cudaError_t err;
+        cudaLaunchConfig_t cfg = cluster_config(widest, n, (size_t)dyn, nullptr, attr, err);
+        if (err != cudaSuccess) return (int)err;
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, widest, &cfg);
+        if (err != cudaSuccess) return (int)err;
+        if (clusters >= 1) out[0] = n;
+    }
+    const void* kernels[4] = {(const void*)sharded_assign_kernel<8, false>,
+                              (const void*)sharded_assign_kernel<8, true>,
+                              (const void*)sharded_assign_kernel<16, false>,
+                              (const void*)sharded_assign_kernel<16, true>};
+    out[1] = 0;
+    for (const void* k : kernels) {
+        cudaFuncAttributes fa;
+        cudaError_t err = cudaFuncGetAttributes(&fa, k);
+        if (err != cudaSuccess) return (int)err;
+        if ((int)fa.sharedSizeBytes > out[1]) out[1] = (int)fa.sharedSizeBytes;
+    }
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaDeviceGetAttribute(&out[2], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }

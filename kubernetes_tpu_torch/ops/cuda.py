@@ -6,7 +6,7 @@ ctypes. The build happens at first use, from the sources in this checkout
 only, into `_build/` beside this file (listed in .gitignore); a library is
 named by a hash of its source, every shared header in csrc/ and the flags,
 so an edited source or header rebuilds. build_all() starts one nvcc per
-source at once and waits for all of them.
+library at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no nvcc and no card.
@@ -26,19 +26,24 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # library name -> source file; the sources include the shared headers
 # (csrc/*.cuh). A library exports launch_<kernel> for its kernels: each
-# its own, and fit_and_score also K7's launch_wave_fit_and_score
+# its own, and fit_and_score also K7's launch_wave_fit_and_score.
+# gang_assign.cu builds twice (DEFINES): its one-block instances and its
+# per-row cluster instances, two nvcc processes side by side, each as long
+# as the other scans' builds
 SOURCES = {
     "static_parts": "static_parts.cu",
     "assign_scan": "assign_scan.cu",
     "scatter_rows": "scatter_rows.cu",
     "fit_and_score": "fit_and_score.cu",
     "gang_assign": "gang_assign.cu",
+    "gang_assign_cluster": "gang_assign.cu",
     "sharded_assign": "sharded_assign.cu",
 }
+DEFINES = {"gang_assign_cluster": ("-DGANG_CLUSTER",)}
 
-# a launcher's own code (beside CUDA's error codes): K6's cluster of n
-# blocks, or K4's and K7's cluster of one pod, cannot be resident at once on
-# this card
+# a launcher's own code (beside CUDA's error codes): the scan's cluster of
+# n blocks (K2's cluster route, K5's per row, K6), or K4's and K7's cluster
+# of one pod, cannot be resident at once on this card
 CLUSTER_DOES_NOT_FIT = -2
 
 # -fmad=false: no a*b+c contraction (the float32 lines must round per op as
@@ -71,7 +76,7 @@ def _lib_path(name: str, csrc: Path = CSRC) -> Path:
     for part in [csrc / SOURCES[name]] + sorted(csrc.glob("*.cuh")):
         h.update(part.name.encode())
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + DEFINES.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -86,7 +91,8 @@ def build_all() -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *DEFINES.get(name, ()), "-o", str(tmp),
+               str(CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -128,7 +134,7 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
     arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
     code = fn(ctypes.addressof(params), ctypes.addressof(arr), stream)
     if code == CLUSTER_DOES_NOT_FIT:
-        n = getattr(params, "n_shards", None) or getattr(params, "cluster", "?")
+        n = getattr(params, "blocks", None) or getattr(params, "cluster", "?")
         raise RuntimeError(f"{name}: a cluster of {n} blocks cannot be resident on this "
                            "card (cudaOccupancyMaxActiveClusters is 0)")
     if code != 0:
@@ -150,6 +156,24 @@ def launch_floor(counts: list[int], npt: int, n_blocks: int, out_ptr: int,
     if code != 0:
         msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"scan_floor launch failed: CUDA error {code} ({msg})")
+
+
+def scan_limits(dyn: int) -> dict:
+    """scan_limits of the sharded_assign library (csrc/sharded_assign.cu):
+    the largest cluster of scanning blocks this card holds with `dyn`
+    dynamic shared-memory bytes each (cudaOccupancyMaxActiveClusters), the
+    largest static shared memory of the scan's instances, and the shared
+    memory a block may opt into."""
+    dll = load("sharded_assign")
+    fn = dll.scan_limits
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    code = fn(int(dyn), ctypes.addressof(out))
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"scan_limits failed: CUDA error {code} ({msg})")
+    return {"max_blocks": out[0], "static_smem": out[1], "smem_optin": out[2]}
 
 
 def launch_empty(lib: str, grid: tuple[int, int], threads: int, stream: int) -> None:
@@ -238,15 +262,17 @@ class ScanParams(ctypes.Structure):
               "n_ipa_pref", "ipa_active", "ex_anti", "ex_pref", "ex_pref_add",
               "dom_carry") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
+        ("walk", ctypes.c_int),
     ]
 
 
 class GangParams(ctypes.Structure):
-    _fields_ = [("scan", ScanParams)] + _ints("rows", "n_constrained", "has_fallback")
+    _fields_ = [("scan", ScanParams)] + _ints("rows", "n_constrained", "has_fallback",
+                                               "blocks")
 
 
 class ShardParams(ctypes.Structure):
-    _fields_ = [("scan", ScanParams)] + _ints("n_shards")
+    _fields_ = [("scan", ScanParams)] + _ints("blocks")
 
 
 class FitParams(ctypes.Structure):

@@ -84,6 +84,7 @@ _LAUNCH_LOCK = threading.Lock()
 _THREAD_LAUNCHES = threading.local()
 
 # K6's node-shard counts: the blocks of one portable thread-block cluster
+# (a shard past one block's slots takes several: scan_plan)
 CLUSTER_SHARDS = (1, 2, 4, 8)
 
 # Filter mask rows (first-failure priority == host plugin order); the PTS
@@ -127,8 +128,11 @@ def thread_launches() -> dict:
 class OutOfSlice(NotImplementedError):
     """The caller asks for what this port does not compute yet: a slot or
     domain count past the kernels' fixed capacities (topology keys of more
-    than 1024 domains, scan buckets past 16384 node slots, more than 8
-    scored resources or 16 shape points: ROADMAP B1-B3), or an op the
+    than 1024 domains, more than 8 scored resources or 16 shape points:
+    ROADMAP B1, B3), a scan bucket past the largest thread-block cluster
+    the card holds (scan_plan: 16 blocks of 16384 node slots where the card
+    holds a cluster of 16, else 8; fewer slots a block where the scan's
+    shared memory is wider), or an op the
     scheduler_perf harness does not build (perf/harness.py; the volume and
     claim templates, CSI nodes and resource slices are
     testing/storage_workloads.py's). Raised instead of computing an answer,
@@ -478,15 +482,13 @@ def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1) -> None:
     scan wrote into `syncs` (assign_scan's, gang_assign's or
     sharded_assign's), its tie picks over the ballots of a block walking
     `span` node slots, with no node work; on one block, or on a cluster of
-    n_blocks (K6's shard count)."""
+    n_blocks (the launch plan's blocks, 2-16)."""
     from . import cuda
 
     if syncs.device.type != "cuda":
         raise ValueError("scan_floor runs on cuda only")
     _check(syncs, "syncs", syncs.device, torch.int32, (SCAN_SYNC_WORDS,))
-    npt = 8
-    while npt * SCAN_THREADS < span:
-        npt *= 2
+    npt = scan_npt(span)
     sink = torch.empty(1, dtype=torch.int32, device=syncs.device)
     cuda.launch_floor([int(x) for x in syncs.tolist()[:5]], npt, n_blocks, sink.data_ptr(),
                       _stream(syncs.device))
@@ -1200,6 +1202,25 @@ def assign_scan_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
     return out
 
 
+def _cfg_scan_fields(cfg: KernelConfig) -> dict:
+    """The ScanParams fields the KernelConfig fixes: topology keys and
+    domain-table width, traced slot counts, the IPA flags and the
+    hard-spread carry (shared by the launch and its plan)."""
+    dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
+    return dict(
+        K=len(cfg.topo_domains), D=max(1, dmax),
+        CT=max(1, min(cfg.max_constraints, cfg.n_soft)),
+        n_hard=min(cfg.max_constraints, cfg.n_hard),
+        n_soft=min(cfg.max_constraints, cfg.n_soft),
+        n_ipa_aff=min(cfg.max_ipa_terms, cfg.n_ipa_aff),
+        n_ipa_anti=min(cfg.max_ipa_terms, cfg.n_ipa_anti),
+        n_ipa_pref=min(cfg.max_ipa_pref, cfg.n_ipa_pref),
+        ipa_active=int(cfg.ipa_active),
+        ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
+        ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
+        dom_carry=int(dmax > 0 and cfg.n_hard > 0))
+
+
 def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
                  packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
                  logtab: torch.Tensor, n_static: int, G: int, cursor0: int):
@@ -1258,10 +1279,8 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
     if min(cfg.max_constraints, max(cfg.n_soft, cfg.n_hard)) > mc:
         raise ValueError(f"config traces {max(cfg.n_soft, cfg.n_hard)} spread "
                          f"slots, features hold {mc}")
-    dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
     p = cuda.ScanParams(
-        P=P, Nb=nb, R=R, K=K, S=S, F=F, MC=mc, L=tie_words.numel(), Ta=Ta,
-        D=max(1, dmax), G=G, CT=max(1, min(cfg.max_constraints, cfg.n_soft)),
+        P=P, Nb=nb, R=R, S=S, F=F, MC=mc, L=tie_words.numel(), Ta=Ta, G=G,
         cursor0=int(cursor0), strategy=_STRATEGY_CODE[cfg.strategy],
         n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
         bal_a=cfg.balanced_resources[0], bal_b=cfg.balanced_resources[1],
@@ -1271,16 +1290,7 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
         w_ipa=cfg.weight("InterPodAffinity"),
         w_img=cfg.weight("ImageLocality"),
         w_taint=cfg.weight("TaintToleration"),
-        w_aff=cfg.weight("NodeAffinity"),
-        n_hard=min(cfg.max_constraints, cfg.n_hard),
-        n_soft=min(cfg.max_constraints, cfg.n_soft),
-        n_ipa_aff=min(cfg.max_ipa_terms, cfg.n_ipa_aff),
-        n_ipa_anti=min(cfg.max_ipa_terms, cfg.n_ipa_anti),
-        n_ipa_pref=min(cfg.max_ipa_pref, cfg.n_ipa_pref),
-        ipa_active=int(cfg.ipa_active),
-        ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
-        ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
-        dom_carry=int(dmax > 0 and cfg.n_hard > 0),
+        w_aff=cfg.weight("NodeAffinity"), **_cfg_scan_fields(cfg),
         **{f"f_{k}": v for k, v in offs.items()})
     for i, (col, w) in enumerate(cfg.fit_resources):
         p.fit_col[i], p.fit_w[i] = col, w
@@ -1291,20 +1301,137 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
     return p
 
 
-# a scanning block's threads, and the node slots it walks at most: each
-# thread owns up to 16 positions (SCAN_NT, SCAN_MAX_NPT in
-# csrc/scan_step.cuh)
+# a scanning block's threads and the positions each owns (SCAN_NT,
+# SCAN_MIN_NPT, SCAN_MAX_NPT in csrc/scan_step.cuh): one block walks at most
+# SCAN_MAX_SLOTS node slots, and scan_plan cuts a wider bucket into the
+# blocks of one thread-block cluster, at most SCAN_MAX_BLOCKS (csrc
+# SCAN_MAX_BLOCKS; 16 is a non-portable cluster size). K5's node list holds
+# uint16 positions relative to a block's range, so a K5 block's range is at
+# most SCAN_MAX_RANGE slots.
 SCAN_THREADS = 1024
-SCAN_MAX_SLOTS = SCAN_THREADS * 16
+SCAN_MIN_NPT, SCAN_MAX_NPT = 8, 16
+SCAN_MAX_SLOTS = SCAN_THREADS * SCAN_MAX_NPT
+SCAN_MAX_BLOCKS = 16
+SCAN_MAX_RANGE = 65536
+# the shared memory a block may opt into on an H100 (232,448 bytes), less a
+# reserve for the scan kernels' static shared memory (ptxas: 8304 bytes in
+# K6's widest instance; scan_limits checks it on the card): the dynamic
+# bytes a plan gives a block at most
+SCAN_SMEM_OPTIN = 232448
+SCAN_STATIC_RESERVE = 10240
+SCAN_SMEM_BUDGET = SCAN_SMEM_OPTIN - SCAN_STATIC_RESERVE
+SCAN_KERNELS = ("assign_scan", "sharded_assign", "gang_assign")
 
 
-def _check_span(kernel: str, span: int) -> None:
-    """A scanning block of K2, K5 or K6 has an instance for up to 16 node
-    slots per thread: a bucket (K6: a shard) past that is refused before
-    the launch, never computed wrong."""
-    if span > SCAN_MAX_SLOTS:
-        raise OutOfSlice(f"{kernel}: {span} node slots per block, the scan walks at "
-                         f"most {SCAN_MAX_SLOTS}")
+def scan_npt(slots: int) -> int:
+    """The positions per thread of the instance covering `slots` positions
+    (csrc scan_npt): 8 or 16, or 0 past one block."""
+    npt = SCAN_MIN_NPT
+    while npt * SCAN_THREADS < slots:
+        npt *= 2
+    return npt if npt <= SCAN_MAX_NPT else 0
+
+
+def scan_smem_words(p, slots: int, masked: bool) -> int:
+    """int32 words of one scanning block's dynamic shared memory (csrc
+    scan_smem, field for field) for ScanParams-like `p` walking `slots`
+    positions: the soft spread tables, the union of the filter and score
+    IPA tables, the hard-spread presence bits, three words per position at
+    most (the total, the spread and IPA raw scores), the mask's uint16 node
+    list (K5) and the winner's rows."""
+    filt = p.n_ipa_anti + p.n_ipa_aff + (p.K if p.ex_anti else 0)
+    score = p.n_ipa_pref + (p.K if p.ex_pref_add else 0)
+    ipa_raw = p.n_ipa_pref > 0 or (p.ipa_active and p.ex_pref)
+    return (2 * p.n_soft * p.D + max(filt, score) * p.D
+            + ((p.K * p.D + 31) // 32 if p.dom_carry else 0)
+            + slots + (slots if p.n_soft > 0 else 0) + (slots if ipa_raw else 0)
+            + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S)
+
+
+@functools.lru_cache(maxsize=1024)
+def scan_plan(kernel: str, cfg: KernelConfig, nb: int, n_shards: int | None = None, *,
+              R: int, S: int, population: int | None = None,
+              max_blocks: int | None = None) -> tuple[int, int]:
+    """The launch of a scan over a bucket of nb node slots: (blocks, npt).
+
+    blocks is a power of two, at least n_shards (K6's shards; 1 for K2 and
+    K5), and each block owns nb / blocks contiguous rows: the smallest such
+    count whose block walks at most SCAN_MAX_SLOTS positions within
+    SCAN_SMEM_BUDGET bytes of shared memory (scan_smem_words for this
+    configuration's widths R and S). K5 (gang_assign) walks the mask's
+    nodes: a block holds min(nb / blocks, population) positions, population
+    the most nodes any mask row holds, and a range of at most SCAN_MAX_RANGE
+    slots. npt is the instance's positions per thread. One block (K2, K5) or
+    the shard count (K6) is the plan up to 16384 slots in the configurations
+    the port runs; past it the blocks form one thread-block cluster.
+
+    max_blocks is the card's largest cluster (scan_limits); past it, and
+    wherever no block count fits, raise OutOfSlice. None: no cap (the plain
+    versions have none). Memoized: a wave's backend, batched_assign and the
+    launch read one plan."""
+    from . import cuda
+
+    if kernel not in SCAN_KERNELS:
+        raise ValueError(f"no scan kernel {kernel!r}")
+    masked = kernel == "gang_assign"
+    p = cuda.ScanParams(R=R, S=S, **_cfg_scan_fields(cfg))
+    blocks = n_shards or 1
+    while True:
+        span = nb // blocks
+        if span < 1 or nb % blocks:
+            raise OutOfSlice(f"{kernel}: no cluster of blocks covers a bucket of {nb} node "
+                             f"slots within a block's shared memory")
+        slots = span if not masked else max(1, min(span, span if population is None
+                                                     else population))
+        npt = scan_npt(slots)
+        if (npt and 4 * scan_smem_words(p, slots, masked) <= SCAN_SMEM_BUDGET
+                and (not masked or span <= SCAN_MAX_RANGE)):
+            break
+        blocks *= 2
+    if max_blocks is not None and blocks > max_blocks:
+        raise OutOfSlice(f"{kernel}: a bucket of {nb} node slots needs a cluster of {blocks} "
+                         f"blocks of {span} slots; this card holds {max_blocks}")
+    return blocks, npt
+
+
+_SCAN_LIMITS: dict = {}
+
+
+def scan_limits(device) -> dict:
+    """The card's answer to what the launch plan needs (csrc/sharded_assign.cu
+    scan_limits), asked once per card: the largest cluster of scanning
+    blocks one GPC holds with a full shared-memory budget each
+    (cudaOccupancyMaxActiveClusters: 16 where the card holds a non-portable
+    cluster of 16, else 8), the scan's largest static shared memory and the
+    card's opt-in shared memory per block. Raises where the plan's budget
+    does not hold on this card."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lim = _SCAN_LIMITS.get(idx)
+    if lim is None:
+        from . import cuda
+
+        with torch.cuda.device(idx):
+            lim = cuda.scan_limits(SCAN_SMEM_BUDGET)
+        if (lim["static_smem"] > SCAN_STATIC_RESERVE or lim["smem_optin"] < SCAN_SMEM_OPTIN
+                or lim["max_blocks"] < 1):
+            raise RuntimeError(f"the scan's launch plan does not hold on this card: {lim} "
+                               f"(static reserve {SCAN_STATIC_RESERVE}, opt-in "
+                               f"{SCAN_SMEM_OPTIN} bytes)")
+        _SCAN_LIMITS[idx] = lim
+    return lim
+
+
+def scan_plan_for(kernel: str, cfg: KernelConfig, planes: dict, n_shards: int | None = None,
+                  population: int | None = None) -> tuple[int, int]:
+    """scan_plan at these planes' bucket and widths, capped by the card's
+    largest cluster where the planes lie on a card (on the CPU the plain
+    versions run, with no cap)."""
+    nb, R = planes["alloc"].shape
+    dev = planes["alloc"].device
+    cap = scan_limits(dev)["max_blocks"] if dev.type == "cuda" else None
+    return scan_plan(kernel, cfg, nb, n_shards, R=R, S=planes["sel_counts"].shape[1],
+                     population=population, max_blocks=cap)
 
 
 def live_extent(planes: dict, sig_table: dict | None = None,
@@ -1341,6 +1468,19 @@ def mask_node_lists(masks: torch.Tensor) -> list[torch.Tensor]:
     return [torch.nonzero(m).flatten() for m in masks]
 
 
+def mask_block_lists(masks: torch.Tensor, blocks: int) -> list[list[torch.Tensor]]:
+    """K5's node lists under a launch of `blocks` blocks per mask row (the
+    plan's per-row cluster): block r of a row walks the ascending mask nodes
+    of its range [r * Nb / blocks, (r + 1) * Nb / blocks), held as uint16
+    positions relative to the range's start (the kernel builds them in
+    shared memory with a ballot and a prefix count; int32 here). Rank order
+    is node order, so the cluster's tie pick counts the nodes in the order a
+    scan over every slot does."""
+    span = masks.shape[1] // blocks
+    return [[torch.nonzero(m[r * span:(r + 1) * span]).flatten().to(torch.int32)
+             for r in range(blocks)] for m in masks]
+
+
 def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
                 packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
                 cursor_init, logtab: torch.Tensor,
@@ -1349,7 +1489,9 @@ def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
                 carry_map: torch.Tensor | None = None,
                 sig_table: dict | None = None,
                 syncs: torch.Tensor | None = None) -> dict:
-    """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref.
+    """K2 wrapper: the greedy wave scan, the output dict of assign_scan_ref,
+    on one block, or past one block's slots on the launch plan's cluster of
+    blocks (scan_plan; K6's cluster kernel, counted as assign_scan's).
     The carry planes out are copies of the inputs, which stay untouched.
     planes holds the row planes and, with IPA, ipa_term_key; static is
     K1's output over the pods, or over the signature rows with dedup.
@@ -1403,7 +1545,8 @@ def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
                    sig_table: dict | None = None,
                    syncs: torch.Tensor | None = None) -> dict:
     """K6 wrapper: assign_scan's inputs and output dict over n_shards node
-    shards, one block of a thread-block cluster each (the plain version,
+    shards, one block of a thread-block cluster each, or several where a
+    shard passes one block's slots (scan_plan) (the plain version,
     sharded_assign_ref, for CPU tensors). The chained-wave arguments are
     K2's: cursor_init as a device tensor, frame_shift, carry_map and
     sig_table; syncs as K2's (rank 0's counts)."""
@@ -1415,9 +1558,11 @@ def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
 
 def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab,
             n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
-            syncs=None) -> dict:
+            syncs=None, blocks=None) -> dict:
     """K2 (n_shards None) or K6: the checks, the plain version on the CPU,
-    else the outputs' allocation and the launch."""
+    else the outputs' allocation and the launch: one block (K2), or the
+    plan's cluster of blocks (K2 past one block's slots, K6); `blocks` the
+    plan's, where the caller has it."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -1441,7 +1586,8 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
 
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
-    _check_span(kernel, nb // (n_shards or 1))
+    if blocks is None:
+        blocks, _ = scan_plan_for(kernel, cfg, planes, n_shards)
     fast = sig_ids is not None
     xwave = carry_map is not None
     Ps = uniq_idx.shape[0] if fast else P  # static rows
@@ -1511,10 +1657,11 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     else:
         ptrs += [0] * 6
     ptrs.append(_syncs_ptr(syncs, device))
-    if n_shards is None:
+    if n_shards is None and blocks == 1:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
-        cuda.launch("sharded_assign", cuda.ShardParams(scan=p, n_shards=n_shards), ptrs,
+        # K6's cluster kernel: the shards' blocks, or K2's cluster route
+        cuda.launch("sharded_assign", cuda.ShardParams(scan=p, blocks=blocks), ptrs,
                     _stream(device))
     count_launch(kernel)
     return out
@@ -1607,7 +1754,8 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                 packed_f: torch.Tensor, layout, masks: torch.Tensor,
                 tie_words: torch.Tensor, logtab: torch.Tensor,
                 n_constrained: int, has_fallback: bool,
-                syncs: torch.Tensor | None = None) -> torch.Tensor:
+                syncs: torch.Tensor | None = None,
+                population: int | None = None) -> torch.Tensor:
     """K5 wrapper: whole-gang placement over a [D, Nb] bool stack of
     placement masks in host placement order — rows [0, n_constrained) the
     topology domains, row n_constrained (with has_fallback) the
@@ -1615,7 +1763,15 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
     over the gang's P members (one launch for every row). Returns the
     packed int32 vector of gang_assign_ref; the planes stay untouched.
     syncs (CUDA only) receives row 0's counted synchronisations, as
-    assign_scan's."""
+    assign_scan's. population is the most nodes any mask row holds (the
+    caller builds the masks on the host and knows it; else it is counted
+    here, one device-to-host copy): it sizes each row's blocks, one, or past
+    one block's slots a thread-block cluster per row (scan_plan). It must
+    not be below a row's count: a block's list holds that many nodes. On
+    the CPU a population below a row's count raises ValueError; on a card
+    (where checking it would cost a device-to-host copy) such a row's
+    overflow word reads GANG_LIST_TRUNCATED and the row never wins, and the
+    reader of the output raises (check_gang_rows)."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -1625,6 +1781,9 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                          f"{bool(has_fallback)} do not fit {D} mask rows")
     device = packed_f.device
     if device.type == "cpu":
+        if population is not None and D and population < int(masks.sum(dim=1).max()):
+            raise ValueError(f"population {population} is below a mask row's "
+                             f"{int(masks.sum(dim=1).max())} nodes")
         return gang_assign_ref(cfg, planes, static, unpack_features(packed_f, layout),
                                masks, tie_words, logtab, n_constrained, has_fallback)
     if device.type != "cuda":
@@ -1633,12 +1792,15 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
 
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
-    _check_span("gang_assign", nb)
+    _check(masks, "masks", device, torch.bool, (D, nb))
+    if population is None:
+        population = int(masks.sum(dim=1).max()) if D else 0
+    blocks, _ = scan_plan_for("gang_assign", cfg, planes, population=population)
     p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
                      n_static=P, G=0, cursor0=0)
-    _check(masks, "masks", device, torch.bool, (D, nb))
+    p.walk = max(1, min(nb // blocks, int(population)))
     g = cuda.GangParams(scan=p, rows=D, n_constrained=int(n_constrained),
-                        has_fallback=int(bool(has_fallback)))
+                        has_fallback=int(bool(has_fallback)), blocks=blocks)
     work = torch.empty(D * gang_work_words(p), dtype=torch.int32, device=device)
     out = torch.empty(D * P + 4 * D + 3, dtype=torch.int32, device=device)
     ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
@@ -1650,9 +1812,27 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                                              "ipa_term_key")]
              if cfg.ipa_active else [0] * 4)
     ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device)]
-    cuda.launch("gang_assign", g, ptrs, _stream(device))
+    # the per-row cluster instances are a library of their own (ops/cuda.py)
+    cuda.launch("gang_assign", g, ptrs, _stream(device),
+                lib="gang_assign_cluster" if blocks > 1 else None)
     count_launch("gang_assign")
     return out
+
+
+# a row's overflow word in gang_assign's output when the launch's population
+# was below the row's mask count (csrc/gang_assign.cu): a caller's error,
+# never a tie-draw overflow (which reads 1)
+GANG_LIST_TRUNCATED = 2
+
+
+def check_gang_rows(overflow) -> None:
+    """Raise where gang_assign's per-row overflow words (host values) report
+    a truncated node list: the launch's population was below a mask row's
+    count, so that row's verdict is void."""
+    bad = [d for d, v in enumerate(overflow) if int(v) == GANG_LIST_TRUNCATED]
+    if bad:
+        raise ValueError(f"gang_assign rows {bad}: the launch's population is below the "
+                         f"row's mask count")
 
 
 # --------------------------------------------------------------------------
@@ -2299,7 +2479,12 @@ def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
     check_slice(cfg)
     if n_shards is not None:
         check_shards(n_shards, planes["alloc"].shape[0])
+    blocks = None
+    if packed_f.device.type == "cuda":
+        # a bucket past the card's largest cluster is refused before K1
+        blocks, _ = scan_plan_for("assign_scan" if n_shards is None else "sharded_assign",
+                                  cfg, planes, n_shards)
     static = static_parts(planes, tables, packed_f, layout, rows=uniq_idx)
     return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
                    logtab, n_shards, sig_ids, uniq_idx, frame_shift, carry_map,
-                   sig_table)
+                   sig_table, blocks=blocks)

@@ -7,11 +7,14 @@ whose only cross-shard traffic is the scalar and segment collectives of
 AxisComm (_sharded_assign_jit), and the pods x nodes matrix a vmap over the
 wave axis (_wave_fit_and_score_jit). On one H100 a node shard is one block
 of a thread-block cluster: `scheduler_mesh(n)` describes n // wave node
-shards, which must be a cluster size (1, 2, 4 or 8). The planes stay one
-contiguous tensor each; block r of K6 owns the node range [r*Nb/n,
-(r+1)*Nb/n) of every plane and of the signature table's columns, and the
-collectives are exchanges through distributed shared memory. The decisions
-equal the unsharded scan's bit for bit, as the reference's do.
+shards, which must be a cluster size (1, 2, 4 or 8). A shard past one
+block's 16384 node slots takes m blocks of the same cluster, n * m from the
+launch plan (ops/kernels.py scan_plan): MeshContext(2) over 50000 nodes
+runs 4 blocks. The planes stay one contiguous tensor each; block r of K6's
+cluster of c blocks owns the node range [r*Nb/c, (r+1)*Nb/c) of every plane
+and of the signature table's columns, and the collectives are exchanges
+through distributed shared memory. The decisions equal the unsharded
+scan's bit for bit whatever the block count, as the reference's do.
 
 The backend holds one context for its life and routes every plane upload
 and kernel entry through it: LocalContext runs K1 + K2 and K4 as before the

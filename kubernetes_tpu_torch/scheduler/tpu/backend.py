@@ -81,9 +81,11 @@ from ...ops.kernels import (
     MAX_TIE_DRAWS,
     ZERO_TIE_WORDS,
     KernelConfig,
+    check_gang_rows,
     dedup_fast_capable,
     gang_assign,
     log_weight_table,
+    scan_plan_for,
     scatter_rows,
     static_parts,
     unpack_fit_outputs,
@@ -149,9 +151,14 @@ def _bucket_label(bucket_sizes) -> str:
     return "nb" + "x".join(str(b) for b in bucket_sizes)
 
 
-def _wave_label(bucket_sizes, pad: int, uniq) -> str:
+def _wave_label(bucket_sizes, pad: int, uniq, blocks: int = 1) -> str:
     g = len(uniq) if uniq is not None else 0
-    return f"pad{pad}/g{g}/{_bucket_label(bucket_sizes)}"
+    return f"pad{pad}/g{g}/{_bucket_label(bucket_sizes)}" + _blocks_label(blocks)
+
+
+def _blocks_label(blocks: int) -> str:
+    """A scan past one block's slots runs a cluster of blocks: "/c<blocks>"."""
+    return f"/c{blocks}" if blocks > 1 else ""
 
 
 def _mt_stream(rng_state) -> np.random.RandomState:
@@ -720,14 +727,15 @@ class TorchBackend:
         staged = self._stage(parts)
         packed_f, words = staged[:2]
         sig_ids, uniq = (None, None) if groups is None else staged[2:]
+        blocks = self._scan_blocks(cfg, dev_planes)
         t3 = time.perf_counter()
         with self.telemetry.compile_span(
                 "batched_assign",
                 (cfg, planes.bucket_sizes, n_slots,
                  0 if groups is None else len(groups[1]), rng is not None,
-                 False, False, self._ctx.n_shards),
+                 False, False, self._ctx.n_shards, blocks),
                 label=_wave_label(planes.bucket_sizes, n_slots,
-                                  None if groups is None else groups[1])):
+                                  None if groups is None else groups[1], blocks)):
             out = self._ctx.batched_assign(cfg, dev_planes, dev_tables, packed_f, layout,
                                            words, self._logtab, sig_ids=sig_ids,
                                            uniq_idx=uniq)
@@ -751,6 +759,14 @@ class TorchBackend:
                 raise FallbackNeeded("tie-break draw overflow")
             advance_rng(rng, consumed)
         return [planes.node_names[w] if w >= 0 else None for w in winners], planes
+
+    def _scan_blocks(self, cfg: KernelConfig, dev_planes: dict) -> int:
+        """The launch plan's blocks for this wave's scan (K2, or K6 over the
+        context's shards): part of the first-use signature, since a new
+        block count is a new kernel instance. On a card a bucket past its
+        largest cluster raises OutOfSlice here, before any launch."""
+        n = self._ctx.n_shards if self._ctx.is_sharded else None
+        return scan_plan_for("sharded_assign" if n else "assign_scan", cfg, dev_planes, n)[0]
 
     def _group_wave(self, rows: np.ndarray, n_real: int):
         """Signature-group a (possibly padded) packed feature batch: (sig_ids
@@ -920,13 +936,14 @@ class TorchBackend:
             sig_ids, uniq = staged[2:4]
         if carry_map is not None:
             dev_map = staged[4]
+        blocks = self._scan_blocks(cfg, dev_planes)
         with self.telemetry.compile_span(
                 "batched_assign",
                 (cfg, planes.bucket_sizes, pad,
                  0 if groups is None else len(groups[1]), rng is not None,
-                 carry_map is not None, sig_table is not None, self._ctx.n_shards),
+                 carry_map is not None, sig_table is not None, self._ctx.n_shards, blocks),
                 label=_wave_label(planes.bucket_sizes, pad,
-                                  None if groups is None else groups[1]),
+                                  None if groups is None else groups[1], blocks),
                 record=rec):
             info = self._ctx.batched_assign(
                 cfg, dev_planes, dev_tables, packed_f, layout, words, self._logtab,
@@ -1123,16 +1140,23 @@ class TorchBackend:
         packed_f = torch.from_numpy(rows).to(self.device)
         words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
         dev_masks = torch.from_numpy(masks).to(self.device)
+        # the masks are host arrays: their largest row sizes K5's blocks per
+        # row with no device round trip (on a card a bucket past its
+        # largest cluster raises OutOfSlice here, before any launch)
+        population = int(masks.sum(axis=1).max()) if n_rows else 0
+        blocks = scan_plan_for("gang_assign", cfg, dev_planes, population=population)[0]
         t4 = time.perf_counter()
         with tel.compile_span(
                 "gang_assign",
                 (cfg, planes.bucket_sizes, pad_to, n_rows, int(n_constrained),
-                 bool(has_fallback), self._ctx.n_shards),
-                label=f"gang{pad_to}/d{n_rows}/{_bucket_label(planes.bucket_sizes)}",
+                 bool(has_fallback), self._ctx.n_shards, blocks),
+                label=(f"gang{pad_to}/d{n_rows}/{_bucket_label(planes.bucket_sizes)}"
+                       + _blocks_label(blocks)),
                 record=rec):
             static = static_parts(dev_planes, dev_tables, packed_f, layout)
             packed_dev = gang_assign(cfg, dev_planes, static, packed_f, layout, dev_masks,
-                                     words, self._logtab, n_constrained, has_fallback)
+                                     words, self._logtab, n_constrained, has_fallback,
+                                     population=population)
         t5 = time.perf_counter()
         # ONE device→host copy carries the whole gang verdict
         packed = tel.accounted_fetch("results", packed_dev, rec).numpy()
@@ -1150,6 +1174,7 @@ class TorchBackend:
         placed = packed[d * p + 2 * d: d * p + 3 * d]
         win_d, ok = int(packed[-3]), bool(packed[-2])
         n_real = len(placements)
+        check_gang_rows(overflow)
         if overflow[:n_real].any():
             # a truncated draw desynchronizes that row's verdict, not just
             # its stream: the whole gang verdict is untrustworthy (a pad

@@ -218,7 +218,9 @@ class DeviceTelemetry:
         """Wrap a kernel entry point; first-seen signature == first use.
 
         `signature` is the call site's static configuration and bucket
-        shapes (the reference's jit cache key), never a tensor identity,
+        shapes (the reference's jit cache key) and, for the scans, the
+        launch plan's block count (a cluster of another size is another
+        kernel instance), never a tensor identity,
         so the first call with a fresh signature is the configuration's
         first use — on a card the library build when it is not built yet,
         its load and the first launch — and its wall time is recorded as

@@ -13,8 +13,12 @@ bucket), the single-pod `run` (K4), the K3 scatter row buckets and the
 gang shapes the workload uses (K1 + K5), all inside a named `warmup`
 recorder phase, so a warm Scheduler's steady state runs with
 `compile_count_since_warm() == 0`: no compile span (the telemetry's
-first-use tracker, keyed on each call site's static configuration) opens
-after it.
+first-use tracker, keyed on each call site's static configuration and
+the scan's launch plan) opens after it. The warm launches take the real
+path at the store's node bucket, so they run the instance the plan picks
+there (`ops.kernels.scan_plan`): K2's single block up to 16384 slots, its
+cluster route past them, and K5's per-row blocks for each warmed gang
+shape (a fallback row over every node takes a cluster past 16384 nodes).
 
 A copy of the reference package's module
 (kubernetes_tpu/scheduler/tpu/warmup.py) for torch, with three departures:

@@ -112,13 +112,19 @@ def test_live_extent_rule():
 
 
 def test_scan_refuses_a_block_past_its_slots():
-    """A bucket (or a K6 shard) wider than the scan's instances cover is
-    refused with OutOfSlice before any launch; up to the cap it passes."""
-    tk._check_span("assign_scan", tk.SCAN_MAX_SLOTS)
-    with pytest.raises(tk.OutOfSlice, match="node slots per block"):
-        tk._check_span("assign_scan", tk.SCAN_MAX_SLOTS + 1)
-    with pytest.raises(tk.OutOfSlice):
-        tk._check_span("gang_assign", 2 * tk.SCAN_MAX_SLOTS)
+    """A bucket (or a K6 shard) past the largest thread-block cluster the
+    card holds is refused by the launch plan with OutOfSlice, before any
+    launch; up to that cap the plan cuts it into blocks of at most
+    SCAN_MAX_SLOTS node slots, and one block takes up to SCAN_MAX_SLOTS."""
+    cfg = tk.KernelConfig()
+    assert tk.scan_plan("assign_scan", cfg, tk.SCAN_MAX_SLOTS, R=4, S=8, max_blocks=8) == (1, 16)
+    for cap in (8, 16):
+        top = cap * tk.SCAN_MAX_SLOTS
+        assert tk.scan_plan("assign_scan", cfg, top, R=4, S=8, max_blocks=cap) == (cap, 16)
+        with pytest.raises(tk.OutOfSlice, match="needs a cluster of"):
+            tk.scan_plan("assign_scan", cfg, 2 * top, R=4, S=8, max_blocks=cap)
+        with pytest.raises(tk.OutOfSlice, match="needs a cluster of"):
+            tk.scan_plan("gang_assign", cfg, 2 * top, R=4, S=8, max_blocks=cap)
 
 
 GANG_CASES = ["mixed-existing", "pads-3-words"]

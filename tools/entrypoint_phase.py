@@ -5,7 +5,7 @@ the card), at its full sizes, after building the kernels.
     python3 tools/entrypoint_phase.py --full-depth # phase 25 (a)-(d) uncut
 
 A short call after a change to the entry point or the soaks: it builds the
-six libraries (`cuda.build_all`) and runs `chip_smoke.entrypoint_phase` —
+seven libraries (`cuda.build_all`) and runs `chip_smoke.entrypoint_phase` —
 SchedulerServer from a configuration file over SchedulingBasic's cluster
 against a plain Scheduler, its mux, the CacheDebugger, the server's CLI in
 a child process, and the four seeded soaks — without phases 1-27. The
