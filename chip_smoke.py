@@ -3,9 +3,11 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the seven CUDA libraries of the seven kernels (K5's one-block
-   and per-row cluster instances apart) from kubernetes_tpu_torch/ops/csrc
-   (nvcc, one process per library, all at once);
+1. build the ten CUDA libraries of the seven kernels (K5's one-block and
+   per-row cluster instances apart; K4/K7's, K5's and K6's instances whose
+   domain tables live in device memory apart) from
+   kubernetes_tpu_torch/ops/csrc (nvcc, one process per library, all at
+   once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
    Cache: 5000 nodes of 32 CPU / 64Gi / 110 pods over 8 zones;
 3. the serial wave path: place the 1000 initial and 10000 measured pods
@@ -202,11 +204,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    card: 5000 nodes, 20000 priority-0 victims of 3 CPU / 1Gi and
    priority-100 preemptors of 25 CPU / 2Gi, evictions on the async
    dispatcher; the preemptors cut in depth (never width) from 5000 to
-   --preempt-pods (500: the host's cost per preemptor grows with the
-   backlog, and the run's 1200 s limit holds phases 1-28 only so: 1000
-   preemptors took 188 s of a run whose phases 1-27 took 1142.7 s uncut,
-   and a slower host needed ~1470 s for phases 1-26, PERF.md §5p; the
-   full depth: tools/preemption_scaling.py --pods 5000); every preemptor
+   --preempt-pods (100: the host's cost per preemptor grows with the
+   backlog, and the run's 1200 s limit holds phases 1-30 only so: 500
+   preemptors took 74.4 s of a run of 949.7 s before phase 30 joined it,
+   PERF.md §5s; the full depth: tools/preemption_scaling.py --pods 5000,
+   the cut's: --pods 100); every preemptor
    bound, every
    evicted pod of lower priority than the preemptor on its node, no node
    over its CPU, memory or pod count; K4 launched at least once per preemptor and K1 and K2 launched
@@ -225,16 +227,18 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    full size (5000 nodes, 2000 measured pods with a 5Gi
    WaitForFirstConsumer claim each over 10Gi volumes; node-neutral volume
    plans, so every pod on the wave route, K1 and K2 launched); (b)
-   SchedulingCSIPVs/5000Nodes_5000Pods at full width and half its depth
-   (5000 nodes with CSINode attach limits of 39; 2500 initial and 2500
-   measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
+   SchedulingCSIPVs/5000Nodes_5000Pods at full width and a fifth of its
+   depth (5000 nodes with CSINode attach limits of 39; 1000 initial and
+   1000 measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
    K4 once per pod, K3); (c) dra.json's SchedulingWithResourceClaims/
-   500Nodes (500 nodes of 10 devices, 1000 measured pods with a claim
-   each; the hybrid route with DynamicResources' allocation) in place of
-   its 5000pods_500nodes workload on the same 500 nodes (DRA_CUT). Both
+   500Nodes (500 nodes of 10 devices, 500 of its 1000 measured pods with
+   a claim each, DRA_DEPTH; the hybrid route with DynamicResources'
+   allocation) in place of its 5000pods_500nodes workload on the same 500
+   nodes (DRA_CUT). Both
    cuts keep the run inside its 1200 s limit (25 (b) 213.5 s and (c)
-   142.7 s uncut in a run whose phases 1-27 took 1142.7 s; ~1470 s for
-   phases 1-26 on a slower host; PERF.md §5p); every check stays,
+   142.7 s uncut in a run whose phases 1-27 took 1142.7 s, and (b) 89.7 s
+   at 2500 pods in a run of 949.7 s before phase 30 joined it; PERF.md
+   §5p, §5s); every check stays,
    and `python3 tools/entrypoint_phase.py --full-depth` runs 25 (a)-(d)
    uncut; (d) an extender stream over 500
    nodes: 1024 pods in blocks of 64,
@@ -256,7 +260,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    depth 2 with async API calls, once with every part on (a
    SchedulerMetrics, a tracer with an in-memory exporter) and once with
    every part off (the ledger, profiler and device telemetry disabled, no
-   metrics, no tracer): bindings and rng equal, K1 and K2 launched in each
+   metrics, no tracer; TELEMETRY_RUNS, cut in depth from the pairs each
+   way, on, off, off, on, that `python3 tools/telemetry_phase.py
+   --full-depth` runs, and (b) alike): bindings and rng equal, K1 and K2 launched in each
    measured span (counts zeroed before, read after); pods/s of both, the
    wave records, wave-size histogram, pipeline_overlap_ratio, the ledger's
    per-segment p50/p99, the stall coverage and guilty reason, transfer
@@ -283,8 +289,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    already bound and a backlog of RESTART_WAVES waves, through a
    Scheduler started cold and warm (warm_start=True: the libraries
    loaded, K1-K5 launched at every static configuration the waves meet),
-   each in a fresh process (cold, warm, warm, cold, and a warm one whose
-   backlog arrives after start(); the processes start and import at once
+   each in a fresh process (RESTART_CHILDREN: cold, warm and a warm one
+   whose backlog arrives after start(), cut in depth from cold, warm,
+   warm, cold, late for the run's limit, which `python3
+   tools/restart_phase.py --full-depth` runs; the processes start and import at once
    and then run one at a time), so every first use is paid in the run
    that counts it: start() seconds, start() to the first bind, the first
    uses at start and in all, compile_count_since_warm() after the waves,
@@ -380,7 +388,37 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    retried at the same points on both): bindings, PodScheduled=False
    diagnoses, rng and the kernel and fallback counts equal. `python3
    tools/scale_phase.py` runs phase 29 alone;
-then print the card, the timings, the kernels line (K1 and K2 with their
+30. topology keys of more than 1024 domains: nodes labelled rack:
+   r{i // nodes a rack} (RACK_A 5000 nodes in 1250 racks, topo_dk 2048,
+   one block; RACK_B 50000 in 1250 racks, a cluster of blocks; RACK_C
+   100000 in 5556 racks, 8192, the reference's segment_sum width),
+   TopologySpreading's pod with its DoNotSchedule constraint on rack and
+   phase 8's IPA pods given required anti-affinity by rack against their
+   own app; every kernel on its plan and, within
+   kernels.tables_in_device_memory(), on the GTAB instance whose domain
+   tables live in a device-memory scratch, equal to its plain version on
+   every output: (a) at RACK_A K4 at every cluster size on a rack-spread
+   and a rack anti-affinity pod (K4 at 16 blocks timed on both instances
+   beside its floor and bound), K1 + K5 on gangs of 4 and 128 spread by
+   rack and placed by zone (Required, Preferred), K7 on --wave
+   rack-spread pods, and K1 + K2 and K6 on 8 shards on a wave of --wave
+   rack-spread pods (both tiers) and on a mixed wave over RACK_EXISTING
+   pods with anti-affinity by rack (dedup on; K2 timed with dedup on, on
+   both instances, beside its floor and bound); (b) at RACK_B the two
+   waves through K2's cluster route and K6, and K4 on the rack pods; (c)
+   at RACK_C K5 on a 128-member Preferred gang and the two waves
+   (untimed, cut in depth for the run's limit: RACK_TIME_C; `python3
+   tools/domains_phase.py --full-depth` times them), the scratch's and the
+   signature
+   table's bytes printed; (d) RACK_LOOP_PODS rack-spread pods through
+   the port's Scheduler (warm start on) over a store of RACK_B's nodes
+   on LocalContext and MeshContext(8): every pod bound, rack skew <= 1,
+   bindings and rng equal, no first use after the warmup, pods/s; (e)
+   RACK_CPU_PODS over RACK_A's nodes on a LogicalClock, the card against
+   device="cpu": bindings, rng, kernel/fallback counts equal. `python3
+   tools/domains_phase.py` runs phase 30 alone;
+then print the card, the timings, the seconds of every phase (1 the
+build), the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 6's single-pod path, where each assume dirties one
 mirror row and K3 launches most, at that path's one-row shape; K6 with its launches
@@ -393,6 +431,7 @@ It imports nothing of the reference JAX package and never imports jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -404,6 +443,24 @@ import time
 
 import numpy as np
 import torch
+
+
+# seconds by phase ("1" the build), printed before the last line
+PHASE_S: dict = {}
+
+
+def took(phase: str, t0: float) -> None:
+    """Book the seconds since t0 to `phase`."""
+    PHASE_S[phase] = PHASE_S.get(phase, 0.0) + time.perf_counter() - t0
+
+
+def timed(phase: str, fn, *a, **kw):
+    """fn(*a, **kw), its seconds booked to `phase`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        took(phase, t0)
 
 
 def fail(msg: str) -> None:
@@ -924,11 +981,10 @@ def build_parser() -> argparse.ArgumentParser:
     # its preemptors, cut in depth from the workload's 5000 (never in
     # width: its 5000 nodes and 20000 victims stay): the host cost per
     # preemptor grows with the backlog, 2000 already take more than 300 s
-    # (PERF.md §5m), and 1000 took 188 s of the run's 1200 s limit, which
-    # phases 1-27 all but filled (1142.7 s; ~1470 s for 1-26 on a slower
-    # host; PERF.md §5p). The full depth runs alone:
+    # (PERF.md §5m), and 500 took 74.4 s of a run of 949.7 s before phase
+    # 30 joined it (PERF.md §5s). The full depth runs alone:
     # tools/preemption_scaling.py --pods 5000
-    ap.add_argument("--preempt-pods", type=int, default=500)
+    ap.add_argument("--preempt-pods", type=int, default=100)
     ap.add_argument("--preempt-cpu-workloads",
                     default="PreemptionBasic/20Nodes,PreemptionBasic/500Nodes")
     # phase 24 (a) may run past --phase-timeout
@@ -968,6 +1024,7 @@ def main() -> None:
     # 1. build
     t0 = time.perf_counter()
     reports = cuda.build_all()
+    took("1", t0)
     print(f"build: {time.perf_counter() - t0:.1f} s, {len(reports)} libraries")
     for name, log in reports.items():
         for line in log.splitlines():
@@ -986,6 +1043,8 @@ def main() -> None:
     rng = random.Random(args.seed)
     print(f"cluster: {args.nodes} nodes, {args.zones} zones, "
           f"{time.perf_counter() - t0:.1f} s")
+    took("2", t0)
+    t_ph = time.perf_counter()
 
     # 3. the main path (dedup on, the reference's default)
     init = [scheduling_basic_pod(i) for i in range(args.init_pods)]
@@ -1042,6 +1101,8 @@ def main() -> None:
     if (used > planes.alloc[: planes.n]).any():
         fail("a node's requests exceed its allocatable")
     print(f"pods per node: min {int(used[:, 3].min())} max {int(used[:, 3].max())}")
+    took("3", t_ph)
+    t_ph = time.perf_counter()
 
     # 4. kernels vs plain versions on one full-width wave, both tiers
     cmp_pods = [scheduling_basic_pod(10**6 + i) for i in range(args.wave)]
@@ -1139,6 +1200,7 @@ def main() -> None:
 
     cell4 = ("SchedulingBasic wave", w, out[True][0], words, 0,
              dict(sig_ids=w.sig, uniq_idx=w.uniq))
+    took("4", t_ph)
 
     # 5. mixed clusters: card vs CPU plain path, hard spread and IPA in the waves
     import kubernetes_tpu_torch.api.meta as meta
@@ -1160,6 +1222,7 @@ def main() -> None:
         "shape": [[0, 100], [40, 60], [40, 30], [100, 0]],
         "resources": {"cpu": 1, "memory": 2, "example.com/dev": 3}}}))
     t0 = time.perf_counter()
+    t_ph = t0
     for spec, pa in cases:
         results = []
         for device in ("cuda", "cpu"):
@@ -1189,11 +1252,12 @@ def main() -> None:
     print(f"mixed clusters with hard spread and IPA, dedup on: card == CPU plain path "
           f"(64 nodes x 4 scoring configs; 16 nodes without an rng; 300 and 1500 "
           f"nodes), {time.perf_counter() - t0:.1f} s")
+    took("5", t_ph)
 
     # 14-16. streaming waves: the pipelined main path, seeded K2, card vs CPU
-    a = pipelined_main_path(args, serial)
-    seed = seeded_k2(args, a, ms1)
-    pipeline_card_vs_cpu(args)
+    a = timed("14", pipelined_main_path, args, serial)
+    seed = timed("15", seeded_k2, args, a, ms1)
+    timed("16", pipeline_card_vs_cpu, args)
     rows_out = []
     for name, src, repl, err, ms, msp, (bd, by), (n, path) in (
         ("static_parts", "kubernetes_tpu_torch/ops/csrc/static_parts.cu",
@@ -1213,16 +1277,16 @@ def main() -> None:
 
     # 6-10. TopologySpreading (single-pod path, then waves), IPA, K4
     with watchdog("phase 6 (the single-pod cycle)", args.phase_timeout):
-        launches6, state6 = topology_spreading(args)
-    waves7 = spreading_waves(args)
+        launches6, state6 = timed("6", topology_spreading, args)
+    waves7 = timed("7", spreading_waves, args)
     print(f"TopologySpreading measured pods/s: waves {waves7['pods_s']:.1f} "
           f"(run_batched alone {waves7['run_pods_s']:.1f}), single-pod path "
           f"{state6['pods_s']:.1f}")
-    ipa8, cluster8, cell8 = ipa_wave(args)
+    ipa8, cluster8, cell8 = timed("8", ipa_wave, args)
     with watchdog("phase 9 (K4 against its plain version)", args.phase_timeout):
-        k4 = k4_against_plain(args, state6, cluster8)
+        k4 = timed("9", k4_against_plain, args, state6, cluster8)
     with watchdog("phase 10 (the single-pod cycle, card vs CPU)", args.phase_timeout):
-        cycle_card_vs_cpu(args)
+        timed("10", cycle_card_vs_cpu, args)
     # K3 at the single-pod path's shape (one dirty row), where it launches most
     rows_out.append({"name": "scatter_rows", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/scatter_rows.cu",
@@ -1250,9 +1314,9 @@ def main() -> None:
     print(f"launches on the TopologySpreading wave path: {waves7['launches']}")
 
     # 11-13. gang waves
-    k5, cells11 = k5_against_plain(args)
-    launches12 = gang_cells(args)
-    gang_card_vs_cpu(args)
+    k5, cells11 = timed("11", k5_against_plain, args)
+    launches12 = timed("12", gang_cells, args)
+    timed("13", gang_card_vs_cpu, args)
     rows_out.append({"name": "gang_assign", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/gang_assign.cu",
                      "replaces": "kubernetes_tpu/ops/kernels.py:1472",
@@ -1263,16 +1327,16 @@ def main() -> None:
     t_mesh = time.perf_counter()
     shards = sorted(int(n) for n in args.mesh_shards.split(","))
     with watchdog("phase 17 (K6 against its plain version and K2)", args.phase_timeout):
-        k6 = k6_against_plain_and_k2(args, shards, [cell4, waves7["cell"], cell8,
-                                                      seed["cell"]])
+        k6 = timed("17", k6_against_plain_and_k2, args, shards,
+                   [cell4, waves7["cell"], cell8, seed["cell"]])
     with watchdog("phase 18 (the mesh main path)", args.phase_timeout):
-        launches18, pods_s18 = mesh_main_path(args, serial, a, max(shards))
+        launches18, pods_s18 = timed("18", mesh_main_path, args, serial, a, max(shards))
     with watchdog("phase 19 (K7, the pods x nodes matrix)", args.phase_timeout):
-        k7 = wave_matrix(args, max(shards))
+        k7 = timed("19", wave_matrix, args, max(shards))
     with watchdog("phase 20 (the scan step's latency)", args.phase_timeout):
-        step_latency(reports, [(cell4, k2[True]["ms"]), (waves7["cell"], waves7["k2"]["ms"]),
-                               (cell8, ipa8["ms"]), (seed["cell"], seed["ms"])],
-                     cells11, max(shards), k6["ms"])
+        timed("20", step_latency, reports,
+              [(cell4, k2[True]["ms"]), (waves7["cell"], waves7["k2"]["ms"]),
+               (cell8, ipa8["ms"]), (seed["cell"], seed["ms"])], cells11, max(shards), k6["ms"])
     rows_out.append({"name": "sharded_assign", "route": "cuda",
                      "source": "kubernetes_tpu_torch/ops/csrc/sharded_assign.cu",
                      "replaces": "kubernetes_tpu/parallel/mesh.py:159",
@@ -1282,27 +1346,30 @@ def main() -> None:
                      "replaces": "kubernetes_tpu/parallel/mesh.py:262", **k7})
     print(f"phases 17-20: {time.perf_counter() - t_mesh:.1f} s")
     with watchdog("phase 21 (the host tier)", args.phase_timeout):
-        host_tier(args)
+        timed("21", host_tier, args)
     with watchdog("phase 22 (the store-driven loop)", args.phase_timeout):
-        rates22 = store_loop(args, serial, {"phase 3 (serial run_batched)": serial["pods_s"],
-                                  "phase 14 (WavePipeline, depth 2)": a["pods_s"],
-                                  f"phase 18 (WavePipeline, {max(shards)} shards)": pods_s18},
-                   smi)
-    bench_cells(args)
+        rates22 = timed("22", store_loop, args, serial,
+                        {"phase 3 (serial run_batched)": serial["pods_s"],
+                         "phase 14 (WavePipeline, depth 2)": a["pods_s"],
+                         f"phase 18 (WavePipeline, {max(shards)} shards)": pods_s18}, smi)
+    timed("23", bench_cells, args)
     with watchdog("phase 24 (a) (DefaultPreemption at full width)", args.preempt_timeout):
-        preemption_full_width(args, smi)
+        timed("24", preemption_full_width, args, smi)
     with watchdog("phase 24 (b) (DefaultPreemption, the card against the CPU)",
                   args.phase_timeout):
-        preemption_card_vs_cpu(args)
-    storage_full_width(args, smi)
+        timed("24", preemption_card_vs_cpu, args)
+    timed("25", storage_full_width, args, smi)
     with watchdog("phase 25 (e) (volumes, DRA and extenders, the card against the CPU)",
                   args.phase_timeout):
-        storage_card_vs_cpu(args)
-    telemetry_phase(args, smi)
-    restart_phase(args, smi)
-    entrypoint_phase(args, smi)
-    scale_phase(args, smi, rates22["depth 2"])
+        timed("25", storage_card_vs_cpu, args)
+    timed("26", telemetry_phase, args, smi)
+    timed("27", restart_phase, args, smi)
+    timed("28", entrypoint_phase, args, smi)
+    timed("29", scale_phase, args, smi, rates22["depth 2"])
+    timed("30", domains_phase, args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print("phase seconds (1 is the build): " + json.dumps(
+        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 31))}))
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -2609,11 +2676,12 @@ def ptxas_entries(reports, kernels_wanted):
     return out
 
 
-def floor_ms(syncs, span, n_blocks=1):
+def floor_ms(syncs, span, n_blocks=1, cluster=None):
     """The latency floor of a scan's counted synchronisations (profiler)."""
     from kubernetes_tpu_torch.ops import kernels
 
-    return kernel_ms(lambda: kernels.scan_floor(syncs, span, n_blocks), "scan_floor_kernel", 5)
+    return kernel_ms(lambda: kernels.scan_floor(syncs, span, n_blocks, cluster),
+                     "scan_floor_kernel", 5)
 
 
 STEP_PHASES = ("slots barrier", "filters + table setup", "A pass", "A fold", "B",
@@ -4011,14 +4079,18 @@ def extender_stream(n_nodes, n_pods, device, wave, binder, seed):
 # 25 (b) and (c) at a smaller depth, never a smaller width, to keep the
 # whole run inside its 1200 s limit (phases 1-27 took 1142.7 s uncut, 25
 # (b) 213.5 s and (c) 142.7 s of it; ~1470 s for phases 1-26 on a slower
-# host; PERF.md §5p): (b) SchedulingCSIPVs/5000Nodes_5000Pods on its
-# 5000 nodes with 2500 initial and 2500 measured pods in place of 5000 and
+# host; (b) 89.7 s at 2500 pods in a run of 949.7 s before phase 30 joined
+# it; PERF.md §5p, §5s): (b) SchedulingCSIPVs/5000Nodes_5000Pods on its
+# 5000 nodes with 1000 initial and 1000 measured pods in place of 5000 and
 # 5000; (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
 # 10 devices, 1000 measured claim pods), the 500 nodes of the
 # 5000pods_500nodes workload it stands for. The full depth runs alone:
 # tools/entrypoint_phase.py --full-depth
-CSI_DEPTH = {"initPods": 2500, "measurePods": 2500}
+CSI_DEPTH = {"initPods": 1000, "measurePods": 1000}
 DRA_CUT = "dra.json:SchedulingWithResourceClaims/500Nodes"
+# and its measured claim pods halved (1000 -> 500; 25.9 s of a run of 933.0
+# s with phase 30, PERF.md §5s)
+DRA_DEPTH = {"measurePods": 500}
 
 
 def storage_full_width(args, smi, full_depth=False):
@@ -4031,7 +4103,8 @@ def storage_full_width(args, smi, full_depth=False):
             ("(b)", "volumes.json:SchedulingCSIPVs/5000Nodes_5000Pods",
              ("fit_and_score", "scatter_rows"), None if full_depth else CSI_DEPTH),
             ("(c)", "dra.json:SchedulingWithResourceClaims/5000pods_500nodes"
-             if full_depth else DRA_CUT, ("fit_and_score", "scatter_rows"), None)):
+             if full_depth else DRA_CUT, ("fit_and_score", "scatter_rows"),
+             None if full_depth else DRA_DEPTH)):
         with watchdog(f"phase 25 {label} ({workload}, depth {depth or 'full'})",
                       args.phase_timeout):
             storage_cell(f" {label}", workload, args, smi, needs=needs, depth=depth)
@@ -4187,13 +4260,21 @@ def sb_telemetry_run(args, on):
     return out
 
 
+# 26 (a)'s and (b)'s runs with the telemetry on and off, in order: one of
+# each, cut in depth from the pairs each way (on, off, off, on: a run's
+# place in the process moves its rate) for chip_smoke's time limit (phase
+# 26 took 95.4 s of a run of 949.7 s before phase 30 joined it, PERF.md
+# §5s); `python3 tools/telemetry_phase.py --full-depth` runs the pairs
+TELEMETRY_RUNS = (True, False)
+TELEMETRY_RUNS_FULL = (True, False, False, True)
+
+
 def on_off_runs(run, args, label):
-    """`run(args, on)` four times, on, off, off, on (one pair each way: a
-    run's place in the process moves its rate), every run's bindings and
+    """`run(args, on)` for each of TELEMETRY_RUNS, every run's bindings and
     rng equal to the first's. Returns the first on run, the first off run
-    and the four rates."""
+    and the rates in run order."""
     runs = []
-    for on in (True, False, False, True):
+    for on in TELEMETRY_RUNS:
         r = collected(run, args, on)
         if runs and (r["bindings"] != runs[0]["bindings"] or r["rng"] != runs[0]["rng"]):
             diff = [k for k, v in runs[0]["bindings"].items() if r["bindings"].get(k) != v]
@@ -4207,16 +4288,18 @@ def on_off_runs(run, args, label):
 
 
 def on_off_line(rates):
-    on = (rates[0] + rates[3]) / 2
-    off = (rates[1] + rates[2]) / 2
-    return (f"telemetry on {rates[0]:.1f}, {rates[3]:.1f} pods/s, off {rates[1]:.1f}, "
-            f"{rates[2]:.1f} pods/s (on, off, off, on; cost of the means "
+    ons = [r for r, on in zip(rates, TELEMETRY_RUNS) if on]
+    offs = [r for r, on in zip(rates, TELEMETRY_RUNS) if not on]
+    on, off = sum(ons) / len(ons), sum(offs) / len(offs)
+    order = ", ".join("on" if x else "off" for x in TELEMETRY_RUNS)
+    return (f"telemetry on {', '.join(f'{r:.1f}' for r in ons)} pods/s, off "
+            f"{', '.join(f'{r:.1f}' for r in offs)} pods/s ({order}; cost of the means "
             f"{(1 - on / off) * 100:.2f} %)")
 
 
 def sb_telemetry(args, smi):
     """26 (a): SchedulingBasic at full width with every telemetry part on
-    and off (on, off, off, on): identical bindings and rng; the first on
+    and off (TELEMETRY_RUNS): identical bindings and rng; the first on
     run's telemetry printed."""
     from kubernetes_tpu_torch.scheduler.tpu.stallprofiler import critical_path
 
@@ -4655,9 +4738,14 @@ FLEET_CRASH_WAVES = 3
 
 # 27 (a)'s children in the order they run: cold, warm, warm, cold, then a
 # warm start over an empty backlog (the pods arrive after start(): its warm
-# pods cannot take a pending pod's shape, ROADMAP C16)
-RESTART_CHILDREN = ({"warm": False}, {"warm": True}, {"warm": True}, {"warm": False},
-                    {"warm": True, "late_backlog": True})
+# pods cannot take a pending pod's shape, ROADMAP C16). chip_smoke runs one
+# cold, one warm and the late backlog (RESTART_CHILDREN), cut in depth for
+# its time limit (phase 27 took 77.7 s of a run of 933.0 s with phase 30,
+# PERF.md §5s); `python3 tools/restart_phase.py --full-depth` runs all five
+RESTART_CHILDREN_FULL = ({"warm": False}, {"warm": True}, {"warm": True}, {"warm": False},
+                         {"warm": True, "late_backlog": True})
+RESTART_CHILDREN = (RESTART_CHILDREN_FULL[0], RESTART_CHILDREN_FULL[1],
+                    RESTART_CHILDREN_FULL[4])
 
 
 def restart_child_main(spec):
@@ -4759,8 +4847,9 @@ def restart_child_run(spec):
 
 
 def restart_children(args, smi):
-    """27 (a): two cold and two warm Schedulers and a warm one whose backlog
-    comes after start(), each in a fresh process, so every first use
+    """27 (a): the RESTART_CHILDREN Schedulers (cold, warm, and a warm one
+    whose backlog comes after start()), each in a fresh process, so every
+    first use
     (library load, module load, first launch, pinned staging) is paid in
     the run that counts it; the libraries phase 1 built are on disk. Every
     child starts at once and imports; they then run one at a time."""
@@ -5675,7 +5764,7 @@ def scale_gang_against_plain(label, backend, snap, handle, fw, pods, seed):
     nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
     g = gang_inputs(backend, snap, pods, plan.gang_placements)
     words = tie_words(seed, g.packed_f.shape[0])
-    err1 = k1_compare(f"29 (c) {label}", g.dp, g.dt, g.packed_f, g.layout)
+    err1 = k1_compare(f"{label}", g.dp, g.dt, g.packed_f, g.layout)
     k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
     population = int(g.masks.sum(dim=1).max())
     got = kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks, words, g.logtab,
@@ -5687,7 +5776,7 @@ def scale_gang_against_plain(label, backend, snap, handle, fw, pods, seed):
     plain = (time.perf_counter() - t) * 1e3
     if not torch.equal(got, want):
         bad = int((got != want).nonzero()[0, 0])
-        fail(f"29 (c) {label}: gang_assign differs from its plain version at element {bad}: "
+        fail(f"{label}: gang_assign differs from its plain version at element {bad}: "
              f"{int(got[bad])} vs {int(want[bad])}")
     blocks, npt, walk = scan_plan_line("gang_assign", g.cfg, g.dp, population=population)
     t = kernels_ms(lambda: kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks,
@@ -5697,14 +5786,14 @@ def scale_gang_against_plain(label, backend, snap, handle, fw, pods, seed):
     d, p = g.masks.shape[0], g.packed_f.shape[0]
     rows = g.masks.sum(dim=1).tolist()
     bd, by = bound_ms(*k5_work(g, k1, words, got, nc + int(hf))[:2])
-    print(f"29 (c) {label}: K5 == plain on every element ({d} rows, {nc} constrained, "
+    print(f"{label}: K5 == plain on every element ({d} rows, {nc} constrained, "
           f"fallback {int(hf)}; mask nodes per row {rows}); per-row m {blocks} blocks of "
           f"{g.planes.nb // blocks} slots walking at most {walk} nodes (NPT {npt}); "
           f"[win_d, ok, n_active] {got[-3:].tolist()}; K5 {ms:.4f} ms (scan + pick) for "
           f"{p} members, plain {plain:.1f} ms (one call, host clock), bound {bd:.5f} ms by "
           f"{by}")
     if not bool(got[-2]):
-        fail(f"29 (c) {label}: the gang found no placement")
+        fail(f"{label}: the gang found no placement")
     return {"blocks": blocks, "ms": ms, "plain_ms": plain, "bound_ms": bd, "bound_by": by,
             "max_abs_err": max(err1, max_abs_err([(got, want)])), "members": p}
 
@@ -5762,7 +5851,8 @@ def scale_gangs(args, clusters):
         h, f, al = gang_planner(c, sn, be, args.seed)
         group, pods = gangs[0]
         admit(h, group, pods)
-        out[label] = scale_gang_against_plain(label, be, h.snapshot, h, f, pods, args.seed + 3)
+        out[label] = scale_gang_against_plain(f"29 (c) {label}", be, h.snapshot, h, f, pods,
+                                              args.seed + 3)
         kernels.reset_launches()
         totals0 = dict(be.recorder.gang_pod_totals)
         t2 = time.perf_counter()
@@ -6163,6 +6253,510 @@ def scale_phase(args, smi, rate22=None):
           f"{max([err] + [v['max_abs_err'] for v in k2.values()])}")
     print(f"phase 29: {time.perf_counter() - t0:.1f} s on {smi}")
     return k2, k5
+
+
+
+# --------------------------------------------------------------------------
+# 30: topology keys of more than 1024 domains (racks)
+# --------------------------------------------------------------------------
+
+# phase 30's clusters, (nodes, nodes a rack), the nodes labelled
+# rack: r{i // nodes a rack} beside zone-{i % 8} and their hostname: (a) one
+# block, 1250 racks (topo_dk 2048, the reference's one-hot matmul width);
+# (b) a cluster of blocks, 1250 racks (2048); (c) 5556 racks (8192, the
+# reference's segment_sum width). RACK_EXISTING pods carrying required
+# anti-affinity by rack join each cluster before its mixed wave; (d)
+# RACK_LOOP_PODS rack-spread pods through the Scheduler on (b)'s shape; (e)
+# RACK_CPU_PODS on (a)'s, the card against the CPU.
+RACK_A = (5000, 4)
+RACK_B = (50000, 40)
+RACK_C = (100000, 18)
+RACK_EXISTING = 2000
+RACK_LOOP_PODS = 5000
+RACK_CPU_PODS = 1024
+RACK_KEY = "rack"
+# whether (c)'s K2 and K5 are timed: not in chip_smoke (cut in depth for its
+# time limit: the profiler's calls cost the phase ~10 s; their times are
+# the cluster route's of (b) at more slots); `python3 tools/domains_phase.py
+# --full-depth` times them
+RACK_TIME_C = False
+
+
+def rack_node(i, per, zones=8):
+    """scheduler_perf's default node (32 CPU, 64Gi, 110 pods) in
+    zone-{i % zones}, labelled rack: r{i // per}."""
+    from kubernetes_tpu_torch.testing.wrappers import make_node
+
+    return make_node(f"node-{i}", zone=f"zone-{i % zones}", labels={RACK_KEY: f"r{i // per}"})
+
+
+def rack_spread_pod(i):
+    """TopologySpreading's measured pod (scheduler_perf, phase 6) with its
+    DoNotSchedule constraint's topologyKey set to rack, nothing else
+    changed."""
+    from dataclasses import replace
+
+    from kubernetes_tpu_torch.testing.wrappers import topology_spreading_pod
+
+    pod = topology_spreading_pod(i)
+    pod.spec.topology_spread_constraints = tuple(
+        replace(c, topology_key=RACK_KEY) for c in pod.spec.topology_spread_constraints)
+    return pod
+
+
+def rack_anti_term(app):
+    import kubernetes_tpu_torch.api.types as types
+
+    return types.PodAffinityTerm(label_selector=types.LabelSelector.of({"app": app}),
+                                 topology_key=RACK_KEY)
+
+
+def rack_anti_pods(n):
+    """Phase 8's IPA pods (testing/mixed.py ipa_pods), each given required
+    anti-affinity by rack against its own app label."""
+    from dataclasses import replace
+
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.mixed import ipa_pods
+
+    pods = ipa_pods(n, types, meta)
+    for pod in pods:
+        aff = pod.spec.affinity or types.Affinity()
+        anti = aff.pod_anti_affinity or types.PodAntiAffinity()
+        anti = replace(anti, required=tuple(anti.required)
+                       + (rack_anti_term(pod.meta.labels["app"]),))
+        pod.spec.affinity = replace(aff, pod_anti_affinity=anti)
+    return pods
+
+
+def rack_existing(cache, backend, snap, n_nodes, count):
+    """`count` running pods with required anti-affinity by rack against
+    their own app label (16 apps), assumed round-robin on the nodes; the
+    snapshot updated."""
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    for i in range(count):
+        app = f"ex{i % 16}"
+        pod = make_pod(f"ex-{i}", cpu="250m", mem="256Mi", labels={"app": app})
+        pod.spec.affinity = types.Affinity(pod_anti_affinity=types.PodAntiAffinity(
+            required=(rack_anti_term(app),)))
+        backend.extractor.register(pod)
+        cache.assume_pod(pod, f"node-{(7 * i) % n_nodes}")
+    cache.update_snapshot(snap)
+
+
+def rack_cluster(n, per, device="cuda"):
+    """(cache, snapshot, backend) of n rack-labelled nodes."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+
+    names = ResourceNames()
+    cache = Cache(names)
+    for i in range(n):
+        cache.add_node(rack_node(i, per))
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    return cache, snap, TorchBackend(names, device=device)
+
+
+def rack_scan_time(w, k1, words, kw, out, dedup, gtab):
+    """K2's profiler ms on this wave at its plan (gtab: the GTAB instance,
+    forced), its latency floor at the plan's blocks and its bound."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    ctx = kernels.tables_in_device_memory() if gtab else contextlib.nullcontext()
+    with ctx:
+        plan = kernels.scan_plan_for("assign_scan", w.cfg, w.dp)
+        name = ("assign_scan_kernel" if plan.blocks == 1 and not plan.gtab
+                else "sharded_assign_kernel")
+        syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+        kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0, w.logtab,
+                            syncs=syncs, **kw)
+        torch.cuda.synchronize()
+        ms = kernel_ms(lambda: kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words,
+                                                   0, w.logtab, **kw), name, 3)
+        span = w.planes.nb // plan.blocks
+        fl = floor_ms(syncs, span, plan.blocks, cluster=plan.blocks > 1 or plan.gtab)
+    bd, by = bound_ms(*k2_work(w, k1, words, out, dedup))
+    return {"ms": ms, "floor_ms": fl, "bound_ms": bd, "bound_by": by, "blocks": plan.blocks,
+            "gtab": plan.gtab, "syncs": syncs.tolist()[:5]}
+
+
+def rack_scan(label, w, words, dedup, shards=8, timed=False):
+    """K1, then K2 at its plan and K6 on `shards` shards, each also on the
+    GTAB instance (tables_in_device_memory: their domain tables in a
+    device-memory scratch), against one plain version on the card: every
+    output equal. With `timed`, K2 on its plan and on the GTAB instance
+    timed beside their floors and bound. Returns the numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    err = k1_compare(f"30 {label}", w.dp, w.dt, w.packed_f, w.layout,
+                     rows=w.uniq if dedup else None)
+    k1 = k1_call(w, dedup)
+    kw = dict(sig_ids=w.sig, uniq_idx=w.uniq) if dedup else {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = kernels.assign_scan_ref(w.cfg, w.dp, k1, w.fv, words, 0, w.logtab, **kw)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    routes = []
+    for gtab in (False, True):
+        with kernels.tables_in_device_memory() if gtab else contextlib.nullcontext():
+            plan = kernels.scan_plan_for("assign_scan", w.cfg, w.dp)
+            got = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0, w.logtab,
+                                      **kw)
+            err = max(err, equal_outputs(f"30 {label}: K2 ({plan.blocks} blocks, tables in "
+                                         f"{'device' if plan.gtab else 'shared'} memory)",
+                                         got, want))
+            routes.append(f"K2 {plan.blocks} blocks {'device' if plan.gtab else 'shared'}")
+            if shards:
+                plan6 = kernels.scan_plan_for("sharded_assign", w.cfg, w.dp, shards)
+                got6 = kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0,
+                                              w.logtab, shards, **kw)
+                err = max(err, equal_outputs(f"30 {label}: K6 on {shards} shards "
+                                             f"({plan6.blocks} blocks, tables in "
+                                             f"{'device' if plan6.gtab else 'shared'} memory)",
+                                             got6, want))
+                routes.append(f"K6 {plan6.blocks} blocks "
+                              f"{'device' if plan6.gtab else 'shared'}")
+    placed = int((want["packed"][:-2] >= 0).sum())
+    scratch = 4 * kernels.scan_table_words(kernels._scan_params(
+        w.cfg, w.dp, k1, w.packed_f, w.layout, words, w.logtab,
+        n_static=k1["static_ok"].shape[0], G=k1["static_ok"].shape[0] if dedup else 0,
+        cursor0=0))
+    sig_bytes = nbytes(want["sig_table"]["segs"], want["sig_table"]["pcs"]) if dedup else 0
+    out = {"max_abs_err": err, "plain_ms": plain}
+    line = (f"30 {label}, dedup {'on' if dedup else 'off'}: {w.planes.n} nodes (bucket "
+            f"{w.planes.nb}), topo_domains {w.cfg.topo_domains}, n_hard {w.cfg.n_hard} n_soft "
+            f"{w.cfg.n_soft} ipa anti {w.cfg.n_ipa_anti} existing anti "
+            f"{int(w.cfg.ipa_existing_anti)}; K1 and {', '.join(routes)} equal to the plain "
+            f"version on every output; {placed}/{w.packed_f.shape[0]} placed; plain "
+            f"{plain:.1f} ms (one call, host clock); domain tables {scratch} bytes (the GTAB "
+            f"scratch), signature table segs + pcs {sig_bytes} bytes")
+    if timed and dedup:  # the main path's tier
+        for gtab in (False, True):
+            t2 = rack_scan_time(w, k1, words, kw, want, dedup, gtab)
+            out["gtab" if gtab else "shared"] = t2
+            line += (f"; K2 {'device' if t2['gtab'] else 'shared'}-memory tables on "
+                     f"{t2['blocks']} blocks {t2['ms']:.4f} ms ({t2['ms'] * 1e3 / w.packed_f.shape[0]:.2f} "
+                     f"us per step), latency floor {t2['floor_ms']:.4f} ms (syncs "
+                     f"{t2['syncs']}), bound {t2['bound_ms']:.5f} ms by {t2['bound_by']}")
+    print(line)
+    return out
+
+
+def rack_waves(label, cache, snap, backend, n, args, shards, both_tiers, timed):
+    """30's two waves on one cluster: a wave of --wave rack-spread pods (with
+    both_tiers, dedup on and off), then RACK_EXISTING pods with
+    anti-affinity by rack join the cluster and a mixed wave (half
+    rack-spread, half phase 8's IPA pods anti-affine by rack; dedup on)
+    follows. Returns {wave: rack_scan's numbers per tier}."""
+    out = {}
+    t0 = time.perf_counter()
+    pods = [rack_spread_pod(i) for i in range(args.wave)]
+    w = wave_inputs(backend, pods, snap, args.wave)
+    if max(w.cfg.topo_domains) < 2048 or not w.cfg.n_hard:
+        fail(f"30 {label}: the rack-spread wave's config {w.cfg.topo_domains}, n_hard "
+             f"{w.cfg.n_hard}")
+    words = tie_words(args.seed + 30, args.wave)
+    out["spread"] = {d: rack_scan(f"{label} rack-spread wave", w, words, d, shards, timed)
+                     for d in ((True, False) if both_tiers else (True,))}
+    rack_existing(cache, backend, snap, n, RACK_EXISTING)
+    half = args.wave // 2
+    mixed = [p for pair in zip([rack_spread_pod(args.wave + i) for i in range(half)],
+                               rack_anti_pods(half)) for p in pair]
+    w = wave_inputs(backend, mixed, snap, args.wave)
+    if not (w.cfg.ipa_existing_anti and w.cfg.n_ipa_anti and w.cfg.n_hard):
+        fail(f"30 {label}: the mixed wave does not run the rack filters: {w.cfg}")
+    words = tie_words(args.seed + 31, args.wave)
+    out["mixed"] = {True: rack_scan(f"{label} mixed wave", w, words, True, shards, timed)}
+    print(f"30 {label}: both waves {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def rack_k4(label, backend, snap, pods, time_it=False):
+    """K4 against its plain version at every cluster size on each pod, on
+    its plan and on the GTAB instance; with time_it, K4 at FIT_CLUSTER
+    blocks timed on both beside its latency floor and bound. Returns
+    (max |kernel - plain|, {route: (ms, floor ms, bound ms, by)})."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    err, times = 0.0, {}
+    for gtab in (False, True):
+        with kernels.tables_in_device_memory() if gtab else contextlib.nullcontext():
+            e, _, case = _k4_compare(f"30 {label}{', device-memory tables' if gtab else ''}",
+                                     backend, pods, snap)
+            err = max(err, e)
+            if not time_it:
+                continue
+            cfg, planes, dp, dt, packed_f, layout = case
+            one = packed_f[:1].contiguous()
+            n = kernels.FIT_CLUSTER
+            ms = kernel_ms(lambda: kernels.fit_and_score(cfg, dp, dt, one, layout,
+                                                         backend._logtab, cluster=n),
+                           "fit_and_score_kernel", 20)
+            syncs = torch.zeros(kernels.FIT_SYNC_WORDS, dtype=torch.int32, device="cuda")
+            kernels.fit_and_score(cfg, dp, dt, one, layout, backend._logtab, cluster=n,
+                                  syncs=syncs)
+            torch.cuda.synchronize()
+            fl = kernel_ms(lambda: kernels.fit_floor(syncs, 1, n), "fit_floor_kernel", 20)
+            nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
+            out_bytes = kernels.fit_output_bytes(planes.nb, nf, planes.r)[1]
+            bd, by = bound_ms(*k4_work(cfg, dp, dt, unpack_features(one, layout), one,
+                                       out_bytes))
+            times["device" if gtab else "shared"] = (ms, fl, bd, by)
+            print(f"30 {label}: K4 on a cluster of {n}, tables in "
+                  f"{'device' if gtab else 'shared'} memory: {ms * 1e3:.2f} us per pod, "
+                  f"latency floor {fl * 1e3:.2f} us, bound {bd * 1e3:.3f} us by {by}")
+    return err, times
+
+
+def rack_gangs(label, cache, snap, backend, shapes, seed, timed=True):
+    """K5 on gangs whose members spread by rack (maxSkew 1, DoNotSchedule)
+    and are placed by zone, one per (size, mode) of `shapes`: K1 and K5 on
+    its plan and on the GTAB instance against one plain version, every
+    element equal; with `timed` each timed beside its bound. Returns the
+    plan's numbers of the last gang."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import plan_gang
+    from kubernetes_tpu_torch.testing.mixed import build_gangs, gang, gang_member
+
+    out = None
+    for size, mode in shapes:
+        name = f"rg{size}{mode[0]}"
+        spec = {"nodes": [], "gangs": [gang(name, mode, [
+            gang_member(f"{name}-{j}", spread=(1, RACK_KEY)) for j in range(size)],
+            labelled=True)]}
+        group, pods = build_gangs(spec, types, meta)[0]
+        backend.invalidate_carry()
+        h, f, _ = gang_planner(cache, snap, backend, seed)
+        admit(h, group, pods)
+        plan = plan_gang(h, f, qpis(pods))
+        nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
+        g = gang_inputs(backend, h.snapshot, pods, plan.gang_placements)
+        words = tie_words(seed, g.packed_f.shape[0])
+        err = k1_compare(f"30 {label} gang of {size}", g.dp, g.dt, g.packed_f, g.layout)
+        k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
+        pop = int(g.masks.sum(dim=1).max())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = k5_call(g, k1, words, nc, hf, plain=True)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        bd, by = bound_ms(*k5_work(g, k1, words, want, nc + int(hf))[:2])
+        line = (f"30 {label} gang of {size}, {mode}, members spread by rack: {g.masks.shape[0]} "
+                f"rows ({nc} constrained, fallback {int(hf)}), plain {plain:.1f} ms (one call, "
+                f"host clock), bound {bd:.5f} ms by {by}")
+        for gtab in (False, True):
+            with kernels.tables_in_device_memory() if gtab else contextlib.nullcontext():
+                plan_k5 = kernels.scan_plan_for("gang_assign", g.cfg, g.dp, population=pop)
+                call = lambda: kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks,
+                                                   words, g.logtab, nc, hf, population=pop)
+                got = call()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    bad = int((got != want).nonzero()[0, 0])
+                    fail(f"30 {label} gang of {size}, {mode}: gang_assign (tables in "
+                         f"{'device' if plan_k5.gtab else 'shared'} memory) differs from its "
+                         f"plain version at element {bad}")
+                if not bool(got[-2]):
+                    fail(f"30 {label} gang of {size}, {mode}: the gang found no placement")
+                ms = float("nan")
+                if timed:
+                    t2 = kernels_ms(call, ("gang_assign_kernel", "gang_pick_kernel"), 3)
+                    ms = t2["gang_assign_kernel"] + t2["gang_pick_kernel"]
+            err = max(err, max_abs_err([(got, want)]))
+            line += (f"; K5 == plain, {plan_k5.blocks} blocks a row, tables in "
+                     f"{'device' if plan_k5.gtab else 'shared'} memory: {ms:.4f} ms")
+            if not gtab:
+                out = {"ms": ms, "plain_ms": plain, "bound_ms": bd, "bound_by": by,
+                       "max_abs_err": err, "members": size}
+        out["max_abs_err"] = err
+        print(line)
+    return out
+
+
+def rack_k7(label, backend, snap, n_pods, seed):
+    """K7 on n_pods rack-spread pods at one block per pod (WAVE_FIT_CLUSTER)
+    against its plain version, on its plan and on the GTAB instance; each
+    timed. Returns max |kernel - plain| and the ms of the plan's."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    pods = [rack_spread_pod(10**5 + i) for i in range(n_pods)]
+    w = wave_inputs(backend, pods, snap, n_pods)
+    want_f, want_t = kernels.wave_fit_and_score_ref(w.cfg, w.dp, w.dt, w.fv, w.logtab)
+    err, ms0 = 0.0, None
+    for gtab in (False, True):
+        with kernels.tables_in_device_memory() if gtab else contextlib.nullcontext():
+            got_f, got_t = kernels.wave_fit_and_score(w.cfg, w.dp, w.dt, w.packed_f, w.layout,
+                                                      w.logtab)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_f, want_f) and torch.equal(got_t, want_t)):
+                fail(f"30 {label}: wave_fit_and_score (tables in "
+                     f"{'device' if gtab else 'shared'} memory) differs from its plain version")
+            err = max(err, max_abs_err([(got_t, want_t)]))
+            ms = kernel_ms(lambda: kernels.wave_fit_and_score(w.cfg, w.dp, w.dt, w.packed_f,
+                                                              w.layout, w.logtab),
+                           "fit_and_score_kernel", 3)
+            ms0 = ms if ms0 is None else ms0
+            print(f"30 {label}: K7 on {n_pods} rack-spread pods x {w.planes.n} nodes equal to "
+                  f"its plain version, tables in {'device' if gtab else 'shared'} memory: "
+                  f"{ms:.4f} ms ({int(want_f.sum())} feasible pairs)")
+    return err, ms0
+
+
+def rack_skew(store):
+    """max - min of the rack-spread pods bound per rack over every rack."""
+    by_node = {node.meta.name: node.meta.labels[RACK_KEY] for node in store.list_refs("Node")}
+    racks = dict.fromkeys(by_node.values(), 0)
+    for p in store.pods():
+        if p.meta.labels.get("app") == "spread" and p.spec.node_name:
+            racks[by_node[p.spec.node_name]] += 1
+    return max(racks.values()) - min(racks.values())
+
+
+def rack_loop_run(n_nodes, per, n_pods, device, shards, clock, wave, warm=True):
+    """(d), (e): the port's Scheduler (warm start on) over a store it fills
+    with n_nodes rack nodes and n_pods rack-spread pods pending before
+    start(); schedule_pending. Returns what the contexts and devices must
+    agree on and the run's numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+
+    store = Store()
+    for i in range(n_nodes):
+        store.create(rack_node(i, per), copy_return=False)
+    for i in range(n_pods):
+        store.create(rack_spread_pod(i), copy_return=False)
+    if shards:
+        os.environ["KUBE_TPU_MESH_DEVICES"] = str(shards)
+    try:
+        s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)], seed=5,
+                      clock=clock, device=device, warm_start=warm)
+    finally:
+        os.environ.pop("KUBE_TPU_MESH_DEVICES", None)
+    t0 = time.perf_counter()
+    s.start()
+    start_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    s.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check_loop(f"30 loop on {device}, {shards or 1} shards", s)
+    bound = {p.meta.key: p.spec.node_name for p in store.pods()}
+    algo = s.algorithms["default-scheduler"]
+    return {"bindings": bound, "rng": algo.rng.getstate(),
+            "counts": (algo.kernel_count, algo.fallback_count),
+            "since": s.flight_recorder.device_telemetry.compile_count_since_warm() if warm else 0,
+            "skew": rack_skew(store), "launches": dict(kernels.LAUNCHES),
+            "pods_s": n_pods / wall, "start_s": start_s}
+
+
+def rack_loop(args, smi):
+    """30 (d). RACK_LOOP_PODS rack-spread pods through the port's Scheduler
+    over RACK_B's store on LocalContext and on MeshContext(8): every pod
+    bound, the final rack skew at most 1, bindings and rng equal across the
+    two, no first use after the warmup; pods/s."""
+    n, per = RACK_B
+    runs = {}
+    for shards in (0, 8):
+        r = collected(rack_loop_run, n, per, RACK_LOOP_PODS, "cuda", shards, StrictClock(),
+                      args.wave)
+        label = f"MeshContext({shards})" if shards else "LocalContext"
+        if not all(r["bindings"].values()) or r["skew"] > 1 or r["since"]:
+            fail(f"30 (d) {label}: {sum(1 for v in r['bindings'].values() if v)} of "
+                 f"{len(r['bindings'])} bound, rack skew {r['skew']}, first uses after the "
+                 f"warmup {r['since']}")
+        la = r["launches"]
+        k = "sharded_assign" if shards else "assign_scan"
+        if not (la["static_parts"] and la[k]):
+            fail(f"30 (d) {label}: launches {la}")
+        runs[label] = r
+        print(f"30 (d) {RACK_LOOP_PODS} rack-spread pods over {n} nodes in {n // per} racks, "
+              f"{label}: every pod bound, rack skew {r['skew']}, compile_count_since_warm() "
+              f"0; start() {r['start_s']:.2f} s, {r['pods_s']:.1f} pods/s on {smi}; "
+              f"launches {la}")
+    a, b = runs.values()
+    if a["bindings"] != b["bindings"] or a["rng"] != b["rng"]:
+        fail("30 (d): bindings or rng differ between LocalContext and MeshContext(8)")
+    print("30 (d): bindings and rng equal between LocalContext and MeshContext(8)")
+    return runs["LocalContext"]["pods_s"]
+
+
+def rack_card_vs_cpu(args):
+    """30 (e). RACK_CPU_PODS rack-spread pods through the Scheduler over
+    RACK_A's store on a LogicalClock, on the card and with device="cpu":
+    bindings, rng and kernel/fallback counts equal."""
+    n, per = RACK_A
+    card = collected(rack_loop_run, n, per, RACK_CPU_PODS, "cuda", 0, LogicalClock(), args.wave,
+                     False)
+    cpu = collected(rack_loop_run, n, per, RACK_CPU_PODS, "cpu", 0, LogicalClock(), args.wave,
+                    False)
+    for k in ("bindings", "rng", "counts"):
+        if card[k] != cpu[k]:
+            fail(f"30 (e): the card and the CPU differ on {k}")
+    print(f"30 (e) {RACK_CPU_PODS} rack-spread pods over {n} nodes in {n // per} racks: card "
+          f"== CPU (bindings, rng, kernel/fallback counts {card['counts']}), rack skew "
+          f"{card['skew']}; {card['pods_s']:.1f} pods/s on the card, {cpu['pods_s']:.1f} on "
+          f"the CPU")
+
+
+def domains_phase(args, smi):
+    """30. Topology keys of more than 1024 domains: (a) one block at RACK_A,
+    (b) a cluster of blocks at RACK_B, (c) the segment_sum width at RACK_C,
+    (d) the Scheduler at RACK_B on both contexts, (e) the card against the
+    CPU. Returns the kernels' numbers."""
+    t0 = time.perf_counter()
+    res = {}
+    with watchdog("phase 30 (a) (racks on one block)", args.phase_timeout):
+        t = time.perf_counter()
+        n, per = RACK_A
+        cache, snap, backend = rack_cluster(n, per)
+        # K4, K5 and K7 on the cluster before its existing pods join
+        e4, k4 = rack_k4("(a) rack-spread pod", backend, snap, [rack_spread_pod(10**6)],
+                         time_it=True)
+        k5 = rack_gangs("(a)", cache, snap, backend, ((4, "Required"), (4, "Preferred"),
+                                                      (128, "Required"), (128, "Preferred")),
+                        args.seed)
+        e7, k7_ms = rack_k7("(a)", backend, snap, args.wave, args.seed)
+        res["a"] = rack_waves("(a)", cache, snap, backend, n, args, 8, True, True)
+        e4b, _ = rack_k4("(a) rack anti-affinity pod", backend, snap, rack_anti_pods(2)[1:])
+        res["a_k4"], res["a_k5"], res["a_k7"] = k4, k5, k7_ms
+        res["a_err"] = max(e4, e4b, e7)
+        print(f"30 (a): {time.perf_counter() - t:.1f} s")
+    for key, (n, per) in (("b", RACK_B), ("c", RACK_C)):
+        with watchdog(f"phase 30 ({key}) (racks at {n} nodes)", args.phase_timeout):
+            t = time.perf_counter()
+            cache, snap, backend = rack_cluster(n, per)
+            print(f"30 ({key}): {n} nodes in {-(-n // per)} racks built in "
+                  f"{time.perf_counter() - t:.1f} s")
+            if key == "c":
+                res["c_k5"] = rack_gangs(f"({key})", cache, snap, backend, ((128, "Preferred"),),
+                                         args.seed, timed=RACK_TIME_C)
+            res[key] = rack_waves(f"({key})", cache, snap, backend, n, args, 8, False,
+                                  key == "b" or RACK_TIME_C)
+            if key == "b":
+                e, _ = rack_k4(f"({key}) rack pods", backend, snap,
+                               [rack_spread_pod(10**6)] + rack_anti_pods(2)[1:])
+                res["b_err"] = e
+            del cache, snap, backend
+            gc.collect()
+            print(f"30 ({key}): {time.perf_counter() - t:.1f} s")
+    with watchdog("phase 30 (d) (the Scheduler over racks)", args.phase_timeout):
+        res["d_pods_s"] = rack_loop(args, smi)
+    with watchdog("phase 30 (e) (racks, the card against the CPU)", args.phase_timeout):
+        rack_card_vs_cpu(args)
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s on {smi}")
+    return res
 
 
 if __name__ == "__main__":

@@ -32,7 +32,10 @@
 // launch plan, scan_plan in ops/kernels.py) takes the cluster route: K2's
 // wrapper launches K6's kernel (sharded_assign.cu, the same step under
 // ClusterComm) over that many blocks of one thread-block cluster, each
-// owning a range of the bucket; the launches count as assign_scan's.
+// owning a range of the bucket; the launches count as assign_scan's. So do
+// the domain tables past shared memory (a key of thousands of domains):
+// K6's GTAB instance, tables in a device-memory scratch, on the plan's
+// blocks (one included).
 //
 // scan_floor_kernel, beside it, is the latency floor of such a scan: the
 // same counts of barriers, folds, cluster barriers, exchanges and tie picks
@@ -46,7 +49,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) assign_scan_kernel(
     __shared__ ScanSyncs syncs;
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
     BlockComm comm = {0, p.Nb, red, 0, &syncs};
-    const ScanEnd end = scan_block<false, NPT, GATED>(p, a, comm);
+    const ScanEnd end = scan_block<false, NPT, GATED, false>(p, a, comm);
     if (threadIdx.x == 0) {
         out[p.P] = end.cursor;
         out[p.P + 1] = end.overflow;
@@ -65,7 +68,7 @@ extern "C" int launch_assign_scan(const ScanParams* p, void* const* ptrs,
     int* out = (int*)ptrs[19];
     int* tiers = (int*)ptrs[29];
     const size_t dyn = scan_smem_bytes(*p, p->Nb, false);
-    return scan_dispatch(p->Nb, scan_gated(*p), [&](auto npt, auto gated) {
+    return scan_dispatch(p->Nb, scan_gated(*p), p->gtab != 0, [&](auto npt, auto gated, auto) {
         auto kernel = assign_scan_kernel<decltype(npt)::value, decltype(gated)::value>;
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
@@ -147,12 +150,14 @@ __global__ void __launch_bounds__(SCAN_NT, 1) scan_floor_kernel(ScanSyncs n, int
 }
 
 // the floor of a scan's counted synchronisations (syncs [5] as
-// write_syncs leaves them) over one block, or a cluster of n_blocks (2-16)
-extern "C" int launch_scan_floor(const int* syncs, int npt, int n_blocks, int* out,
-                                 void* stream) {
+// write_syncs leaves them) over one block, or (cluster) a cluster of
+// n_blocks (1-16: a cluster of one block is the GTAB instance's one-block
+// route, whose exchanges the floor makes too)
+extern "C" int launch_scan_floor(const int* syncs, int npt, int n_blocks, int cluster,
+                                 int* out, void* stream) {
     const ScanSyncs n = {syncs[0], syncs[1], syncs[2], syncs[3], syncs[4]};
     if (npt < 1 || npt > SCAN_MAX_NPT) return (int)cudaErrorInvalidValue;
-    if (n_blocks <= 1) {
+    if (!cluster) {
         scan_floor_kernel<false><<<1, SCAN_NT, 0, (cudaStream_t)stream>>>(n, npt, out);
         return (int)cudaGetLastError();
     }

@@ -51,6 +51,17 @@ struct StaticParams {
     int vec;      // 4-node vector loads and stores (Nb % 4 == 0, aligned)
 };
 
+// A scan or fit library compiles the instances of one table placement:
+// with -DSCAN_GMEM (ops/cuda.py DEFINES) the GTAB instances, their domain
+// tables in a device-memory scratch, else those with the tables in shared
+// memory. Two libraries compile side by side in half the time of one with
+// both.
+#ifdef SCAN_GMEM
+#define SCAN_GTAB_LIB true
+#else
+#define SCAN_GTAB_LIB false
+#endif
+
 #define SCAN_MAX_FIT 8
 #define SCAN_MAX_RTC 16
 #define SCAN_MAX_KEYS 16
@@ -61,7 +72,7 @@ struct StaticParams {
 struct ScanParams {
     int P, Nb, R, K, S, F, MC, L;
     int Ta;  // IPA term columns (0 when inter-pod affinity is off)
-    int D;   // words per domain table: max(1, max topo_dk)
+    int D;   // words per slot table (a slot's key varies): max(1, max topo_dk)
     int G;   // signature rows (0: the non-dedup tier)
     int CT;  // spread slots per signature table row: max(1, n_soft)
     int cursor0;      // the tie cursor's start when no device cursor is given
@@ -89,7 +100,14 @@ struct ScanParams {
     int ex_pref_add;  // ... and adds the existing pods' preferred terms
     int dom_carry;    // hard slots and a non-singleton key: carry dom_counts
     int topo_dk[SCAN_MAX_KEYS];
+    // the tables kept per key slot (the existing pods' anti-affinity and
+    // preferred terms, the hard-spread presence bits) hold key k's dk words
+    // at topo_off[k]: topo_words = sum of topo_dk in all
+    int topo_off[SCAN_MAX_KEYS];
+    int topo_words;
     int walk;  // K5: the most mask nodes one block walks (0: its whole range)
+    int gtab;  // the domain tables live in a device-memory scratch (the
+               // instance for tables past shared memory: scan_plan)
 };
 
 // K4 fit_and_score: dims, feature offsets, the static KernelConfig and the
@@ -98,7 +116,7 @@ struct FitParams {
     int P, Nb, R, K, S, T, Tp, W, I, Ta, A, G, F;
     int MC;  // spread constraint slots per pod (feature width)
     int NF;  // fails rows: 6 + 2 * MC + 3
-    int D;   // shared-memory words per domain table: max(1, max topo_dk)
+    int D;   // words per slot table: max(1, max topo_dk)
     int f_req, f_nz_req, f_name_idx, f_tol_unsched, f_aff_pin, f_tol,
         f_tol_prefer, f_aff_sig, f_ports, f_has_ports, f_hard_active,
         f_hard_key, f_hard_sel, f_hard_skew, f_hard_self, f_soft_active,
@@ -118,7 +136,11 @@ struct FitParams {
     int ex_pref;      // the InterPodAffinity score is computed at all
     int ex_pref_add;  // ... and adds the existing pods' preferred terms
     int topo_dk[SCAN_MAX_KEYS];
+    int topo_off[SCAN_MAX_KEYS];  // as ScanParams: key k's per-key tables
+    int topo_words;
     int cluster;  // blocks per pod: one thread-block cluster of 1, 2, 4, 8 or 16
+    int gtab;     // the domain tables live in a device-memory scratch, one set
+                  // per pod (fit_gtab in ops/kernels.py)
 };
 
 #define SCATTER_MAX_PLANES 16

@@ -138,38 +138,46 @@ struct FitArgs {
     int* total_out;     // K7: [P, Nb]
     int* raw_out;       // K7: [P, 2, Nb] state of positions past the registers
     int* syncs;         // [FIT_COUNTS + FIT_PHASES] or nullptr
+    int* tables;        // GTAB: [P, fit_smem().tables] the pods' domain tables
 };
 
 // The dynamic shared memory of one block, in int32 words: the filter
-// tables (the hard slots' selector sums and participants, the required IPA
-// terms, the existing pods' anti-affinity per key slot) and the score
-// tables (the soft slots' sums and participants, the preferred terms, the
-// existing pods' preferred terms per key slot), side by side when fused;
-// the folded copies a cluster reads when its fold gathers (small tables;
-// else the tables fold in place); the pod's feature row; then, when it
-// fits, the rows of the node planes at the thread's register positions
-// (alloc, used, nonzero_used, group_id, taints, prefer_taints, port_words,
-// image_kib, domain, sel_counts: `row` words each), copied in while A runs.
+// tables (the hard slots' selector sums and participants and the required
+// IPA terms, D words each, then the existing pods' anti-affinity per key
+// slot, key k's topo_dk[k] words at topo_off[k]) and the score tables (the
+// soft slots' sums and participants, the preferred terms, the existing
+// pods' preferred terms per key slot), side by side when fused; the folded
+// copies a cluster reads when its fold gathers (small tables; else the
+// tables fold in place); the pod's feature row; then, when it fits, the
+// rows of the node planes at the thread's register positions (alloc, used,
+// nonzero_used, group_id, taints, prefer_taints, port_words, image_kib,
+// domain, sel_counts: `row` words each), copied in while A runs. In the
+// GTAB instance (tables past shared memory: fit_gtab in ops/kernels.py)
+// the tables are one set per pod in a device-memory scratch, `tables`
+// words, fused and read where every block of the cluster added into them
+// (no copies, no fold), and shared memory starts at the feature row.
 struct FitSmem {
-    int filt_words, score_words, score, rfilt, rscore, feat, row, stage, words;
+    int filt_words, score_words, score, rfilt, rscore, tables, feat, row, stage, words;
     bool fused, staged;
 };
 
 __host__ __device__ inline FitSmem fit_smem(const FitParams& p, int npt, int nt) {
     FitSmem s;
-    s.filt_words = (2 * p.n_hard + p.n_ipa_anti + p.n_ipa_aff + (p.ex_anti ? p.K : 0)) * p.D;
-    s.score_words = (2 * p.n_soft + p.n_ipa_pref + (p.ex_pref_add ? p.K : 0)) * p.D;
-    s.fused = (size_t)(s.filt_words + s.score_words) * sizeof(int) <= FIT_FUSED_SMEM;
+    s.filt_words = (2 * p.n_hard + p.n_ipa_anti + p.n_ipa_aff) * p.D +
+                   (p.ex_anti ? p.topo_words : 0);
+    s.score_words = (2 * p.n_soft + p.n_ipa_pref) * p.D + (p.ex_pref_add ? p.topo_words : 0);
+    s.fused = p.gtab || (size_t)(s.filt_words + s.score_words) * sizeof(int) <= FIT_FUSED_SMEM;
     s.score = s.fused ? s.filt_words : 0;
-    int end = s.fused ? s.filt_words + s.score_words
-                      : (s.filt_words > s.score_words ? s.filt_words : s.score_words);
+    s.tables = s.fused ? s.filt_words + s.score_words
+                       : (s.filt_words > s.score_words ? s.filt_words : s.score_words);
+    int end = p.gtab ? 0 : s.tables;
     s.rfilt = 0;
-    if (s.fused && ClusterComm::gathers(s.filt_words, p.cluster)) {
+    if (!p.gtab && s.fused && ClusterComm::gathers(s.filt_words, p.cluster)) {
         s.rfilt = end;
         end += s.filt_words;
     }
     s.rscore = s.score;
-    if (s.fused && ClusterComm::gathers(s.score_words, p.cluster)) {
+    if (!p.gtab && s.fused && ClusterComm::gathers(s.score_words, p.cluster)) {
         s.rscore = end;
         end += s.score_words;
     }
@@ -240,7 +248,7 @@ struct FitNode {
     int pt, x, y;
 };
 
-template <bool FULL, int NT, int NPT, class Comm>
+template <bool FULL, int NT, int NPT, bool GTAB, class Comm>
 __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitArgs a) {
     extern __shared__ int pool[];
     __shared__ Slot hard[SCAN_MAX_SOFT], soft[SCAN_MAX_SOFT];
@@ -289,11 +297,14 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
     const FitSmem lay = fit_smem(p, NPT, NT);
-    // the tables this block adds into, and the folded ones it reads
-    int* filt = pool;
-    int* score = pool + lay.score;
-    int* rfilt = pool + lay.rfilt;
-    int* rscore = pool + lay.rscore;
+    // the tables this block adds into, and the folded ones it reads: the
+    // pod's set in the scratch (GTAB: every block adds into it and reads
+    // it), else this block's own in shared memory
+    int* tabs = GTAB ? a.tables + (size_t)pod * lay.tables : pool;
+    int* filt = tabs;
+    int* score = tabs + lay.score;
+    int* rfilt = tabs + lay.rfilt;
+    int* rscore = tabs + lay.rscore;
     auto hcnt = [&](int c) { return rfilt + (size_t)c * D; };
     auto hpcs = [&](int c) { return rfilt + (size_t)(nh + c) * D; };
     auto scnt = [&](int c) { return rscore + (size_t)c * D; };
@@ -315,10 +326,17 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         }
     }
     const int table_words = lay.fused ? lay.filt_words + lay.score_words : lay.filt_words;
-    for (int i = tid; i < table_words; i += NT) pool[i] = 0;
+    if (GTAB) {  // the pod's set, each block a slice
+        const int per = (table_words + C - 1) / C;
+        for (int i = r * per + tid; i < min(table_words, (r + 1) * per); i += NT) tabs[i] = 0;
+    } else {
+        for (int i = tid; i < table_words; i += NT) pool[i] = 0;
+    }
     int ev[1] = {extent_part(a.valid, Nb)};
     copy_async_wait();
     comm.template reduce_local<1>(ev, 1u, 0u);
+    // GTAB: every block's clears before any block's adds
+    if (GTAB) comm.sync();
     const int E = ev[0];
     const int* f = fsm;  // from here on, the feature row in shared memory
     const int exmask = exmask_s;
@@ -452,7 +470,9 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         timer.mark(1);
 #pragma unroll
         for (int s = 0; s < MAX_REQ_TERMS; ++s) v[4 + s] = any_aff[s];
-        if (tab_a) comm.template reduce_tables<8>(v, 0xF0u, 0x0Fu, filt, rfilt, lay.filt_words);
+        // (GTAB: the reduction's barrier publishes every block's adds)
+        if (tab_a && !GTAB)
+            comm.template reduce_tables<8>(v, 0xF0u, 0x0Fu, filt, rfilt, lay.filt_words);
         else comm.template reduce<8>(v, 0xF0u, 0x0Fu);
 #pragma unroll
         for (int s = 0; s < MAX_REQ_TERMS; ++s) any_aff[s] = v[4 + s];
@@ -596,7 +616,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         }
     }
     timer.mark(4);
-    if (tab_c && lay.fused)
+    if (tab_c && lay.fused && !GTAB)
         comm.template reduce_tables<6>(w, 0x3u, 0u, score, rscore, lay.score_words);
     else comm.template reduce<6>(w, 0x3u, 0u);
     const int maxtc = w[0], maxaff = w[1];
@@ -881,8 +901,8 @@ int launch_clusters(K kernel, int P, int C, int threads, size_t dyn, void* strea
 template <bool FULL, int NT, int NPT, class Comm>
 int launch_npt(const FitParams* p, const FitArgs& a, void* stream) {
     const size_t dyn = (size_t)fit_smem(*p, NPT, NT).words * sizeof(int);
-    return launch_clusters<Comm>(fit_and_score_kernel<FULL, NT, NPT, Comm>, p->P, p->cluster,
-                                 NT, dyn, stream, *p, a);
+    return launch_clusters<Comm>(fit_and_score_kernel<FULL, NT, NPT, SCAN_GTAB_LIB, Comm>,
+                                 p->P, p->cluster, NT, dyn, stream, *p, a);
 }
 
 inline int fit_npt(const FitParams* p, int nt, int max_npt) {
@@ -922,14 +942,21 @@ inline FitArgs fit_args(void* const* ptrs) {
 // ptrs: alloc, used, nonzero_used, valid, unsched, group_id, taints,
 // prefer_taints, domain, sel_counts, port_words, image_kib, ipa_counts,
 // ipa_anti, ipa_pref, ipa_term_key, aff_match, aff_pref, aff_allow,
-// aff_has_pref, feats, logtab, then K4: out, syncs (0: none); K7:
-// feasible, total, raw, syncs
+// aff_has_pref, feats, logtab, then K4: out, syncs (0: none), tables; K7:
+// feasible, total, raw, syncs, tables (the GTAB scratch, 0 without).
+//
+// The file builds twice (ops/cuda.py DEFINES): with -DSCAN_GMEM its
+// instances keep the domain tables in the device-memory scratch (GTAB),
+// else in shared memory; each library refuses the other's launches.
 extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs, void* stream) {
     const int C = p->cluster;
-    if (C < 1 || C > FIT_MAX_CLUSTER || (C & (C - 1))) return (int)cudaErrorInvalidValue;
+    if (C < 1 || C > FIT_MAX_CLUSTER || (C & (C - 1)) || (p->gtab != 0) != SCAN_GTAB_LIB ||
+        (p->gtab && !ptrs[24]))
+        return (int)cudaErrorInvalidValue;
     FitArgs a = fit_args(ptrs);
     a.out = (uint8_t*)ptrs[22];
     a.syncs = (int*)ptrs[23];
+    a.tables = (int*)ptrs[24];
     switch (fit_npt(p, FIT_NT, 4)) {
         case 1: return launch_npt<true, FIT_NT, 1, ClusterComm>(p, a, stream);
         case 2: return launch_npt<true, FIT_NT, 2, ClusterComm>(p, a, stream);
@@ -939,12 +966,15 @@ extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs, void*
 
 extern "C" int launch_wave_fit_and_score(const FitParams* p, void* const* ptrs, void* stream) {
     const int C = p->cluster;
-    if (C != 1 && C != 2 && C != 4) return (int)cudaErrorInvalidValue;
+    if ((C != 1 && C != 2 && C != 4) || (p->gtab != 0) != SCAN_GTAB_LIB ||
+        (p->gtab && !ptrs[26]))
+        return (int)cudaErrorInvalidValue;
     FitArgs a = fit_args(ptrs);
     a.feas_out = (uint8_t*)ptrs[22];
     a.total_out = (int*)ptrs[23];
     a.raw_out = (int*)ptrs[24];
     a.syncs = (int*)ptrs[25];
+    a.tables = (int*)ptrs[26];
     // one position per thread in registers, the rest through the outputs:
     // many pods in flight keep the card busy, and a register array past
     // one position spills at 64 registers a thread

@@ -22,7 +22,9 @@
 // launch plan on the largest row's mask population, scan_plan in
 // ops/kernels.py: eight zone rows of 6250 nodes keep one block each, a
 // fallback row over a 50000-node cluster takes four), the rows' chains in
-// parallel on separate SMs. Each block copies its range of the pre-scan
+// parallel on separate SMs (domain tables past shared memory: a cluster of
+// m >= 1 blocks per row with the row's tables in its work slice, the GTAB
+// instance of scan_step.cuh). Each block copies its range of the pre-scan
 // carry planes into the row's slice of a [rows, ...] device work buffer
 // (the cluster shares the slice: a block reads only its own range's rows,
 // and the hard-spread domain counts are the row's, as K6's) and runs
@@ -48,12 +50,13 @@ struct GangParams {
     int blocks;         // blocks per row: 1, or a cluster of 2-16 dividing Nb
 };
 
-// int32 words of one row's work slice: the carry planes and the
-// hard-spread domain counts
+// int32 words of one row's work slice: the carry planes, the hard-spread
+// domain counts and, in the GTAB instance, the row's domain tables
 __host__ __device__ inline size_t gang_work_words(const ScanParams& p) {
     const size_t nb = (size_t)p.Nb;
     return nb * p.R + nb * 2 + nb * p.S + (p.ipa_active ? 3 * nb * p.Ta : 0)
-           + (p.dom_carry ? (size_t)p.K * p.D * p.S : 0);
+           + (p.dom_carry ? (size_t)p.K * p.D * p.S : 0)
+           + (p.gtab ? (size_t)scan_smem(p, 1, true).tables : 0);
 }
 
 __device__ __forceinline__ void copy_words(int* dst, const int* src, size_t n) {
@@ -75,7 +78,7 @@ __device__ __forceinline__ Comm gang_comm(int lo, int hi, int r, int m,
     else return Comm{lo, hi, red, 0, syncs};
 }
 
-template <int NPT, bool GATED, typename Comm>
+template <int NPT, bool GATED, bool GTAB, typename Comm>
 __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     GangParams g, ScanArgs base, const uint8_t* __restrict__ masks, int* work, int* out) {
     // the fold and exchange slots, at the same address in every block
@@ -119,12 +122,16 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
         copy_words(a.ipa_anti + o, base.ipa_anti + o, n);
         copy_words(a.ipa_pref + o, base.ipa_pref + o, n);
     }
-    if (p.dom_carry) a.dom_counts = w;
+    if (p.dom_carry) {
+        a.dom_counts = w;
+        w += (size_t)p.K * p.D * p.S;
+    }
+    if (GTAB) a.tables = w;
     a.winners = out + (size_t)d * p.P;
 
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
     Comm comm = gang_comm<Comm>(lo, hi, r, m, red, xch, &syncs);
-    const ScanEnd end = scan_block<true, NPT, GATED>(p, a, comm);
+    const ScanEnd end = scan_block<true, NPT, GATED, GTAB>(p, a, comm);
 
     // the placement score on the pre-scan planes, over the mask's list: per
     // node the mean of the cpu and memory free shares over the columns with
@@ -206,10 +213,10 @@ __global__ void gang_pick_kernel(GangParams g, const int* __restrict__ feats, in
 // one launch of the rows: m = 1 one block per row (BlockComm), else one
 // cluster of m blocks per row (ClusterComm), refused when such a cluster
 // cannot be resident rather than launched smaller
-template <int NPT, bool GATED, typename Comm>
+template <int NPT, bool GATED, bool GTAB, typename Comm>
 int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_t dyn,
                 cudaStream_t s) {
-    auto kernel = gang_assign_kernel<NPT, GATED, Comm>;
+    auto kernel = gang_assign_kernel<NPT, GATED, GTAB, Comm>;
     const int m = g->blocks;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)dyn);
@@ -248,10 +255,13 @@ int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_
 // only; IPA pointers 0 without IPA), masks, work, out, then the sync counts
 // and phase cycles of row 0's scan (0: not wanted)
 //
-// The file builds twice (ops/cuda.py DEFINES): without GANG_CLUSTER the
-// library launches one block per row (m = 1), with it one cluster of m
-// blocks per row (m > 1); each library refuses the other's launches. Two
-// libraries compile side by side in half the time of one with both.
+// The file builds three times (ops/cuda.py DEFINES): without GANG_CLUSTER
+// the library launches one block per row (m = 1), with it one cluster of m
+// blocks per row (m > 1), and with GANG_CLUSTER and SCAN_GMEM a cluster of
+// m blocks per row (m >= 1) whose domain tables live in the row's work
+// slice (the GTAB instances, for tables past shared memory); each library
+// refuses the others' launches. Libraries compile side by side in the time
+// of one.
 extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* stream) {
     const int m = g->blocks, nb = g->scan.Nb;
 #ifdef GANG_CLUSTER
@@ -260,7 +270,7 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     constexpr bool cluster = false;
 #endif
     if (m < 1 || m > SCAN_MAX_BLOCKS || (m & (m - 1)) || nb % m || nb / m > SCAN_MAX_RANGE
-        || (m > 1) != cluster)
+        || (!SCAN_GTAB_LIB && (m > 1) != cluster))
         return (int)cudaErrorInvalidValue;
     const int slots = scan_slots(g->scan, nb / m, true);
     const size_t dyn = scan_smem_bytes(g->scan, slots, true);
@@ -285,13 +295,15 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     a.ipa_term_key = (const int*)ptrs[17];
     a.syncs = (int*)ptrs[21];
     cudaStream_t s = (cudaStream_t)stream;
-    const int err = scan_dispatch(slots, scan_gated(g->scan), [&](auto npt, auto gated) {
+    const int err = scan_dispatch(slots, scan_gated(g->scan), g->scan.gtab != 0,
+                                  [&](auto npt, auto gated, auto gtab) {
         constexpr int N = decltype(npt)::value;
         constexpr bool G = decltype(gated)::value;
+        constexpr bool T = decltype(gtab)::value;
 #ifdef GANG_CLUSTER
-        return launch_rows<N, G, ClusterComm>(g, a, ptrs, dyn, s);
+        return launch_rows<N, G, T, ClusterComm>(g, a, ptrs, dyn, s);
 #else
-        return launch_rows<N, G, BlockComm>(g, a, ptrs, dyn, s);
+        return launch_rows<N, G, T, BlockComm>(g, a, ptrs, dyn, s);
 #endif
     });
     if (err != 0) return err;

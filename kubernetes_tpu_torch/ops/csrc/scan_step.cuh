@@ -82,11 +82,32 @@
 // previous step's patch), the normalizers' maxima, the spread scores'
 // range, and the totals and draw.
 //
-// Per-domain sums are int32 shared-memory atomics (exact; the reference
-// used one-hot float matmuls at HIGHEST precision); the hard-spread domain
-// counts [K, D, S] are carried in device memory, built once per scan over
-// the valid nodes and bumped at each placement. Carry planes are updated in
-// place (the callers' copies).
+// Per-domain sums are int32 atomics (exact; the reference used one-hot
+// float matmuls up to 2048 domains and segment_sum past them); the
+// hard-spread domain counts [K, D, S] are carried in device memory, built
+// once per scan over the valid nodes and bumped at each placement. Carry
+// planes are updated in place (the callers' copies).
+//
+// The domain tables: a slot's tables (soft spread, the pod's IPA terms)
+// are D words each, D the widest key's domain count, since the slot's key
+// varies by pod; the tables kept per key slot (the existing pods'
+// anti-affinity and preferred terms, the hard-spread presence bits) hold
+// key k's topo_dk[k] words at topo_off[k] (host-computed offsets), so
+// zone, hostname and a rack key of 8192 domains take 8 + 8192 words, not
+// 4 x 8192. They live in shared memory (the block's own, or rank 0's under
+// ClusterComm) wherever the launch plan (scan_plan in ops/kernels.py) finds
+// a block count whose shared memory holds them beside the positions; past
+// that (a key of thousands of domains with several slots or IPA terms) the
+// GTAB instance keeps them in a device-memory scratch that the wrapper
+// allocates on the launch's stream (one set per launch, or per mask row in
+// K5), reached through the same pointers: the int32 atomics take a generic
+// address, and at these sizes (well under 1 MB) the scratch stays resident
+// in L2. GTAB runs under ClusterComm only (a cluster of one block
+// included), so its tables follow the cluster's rules: rank 0 clears them,
+// every block adds into them, and the cluster barriers that order today's
+// DSMEM adds (barrier.cluster.arrive has release and barrier.cluster.wait
+// acquire semantics at cluster scope, which the PTX memory model applies to
+// every state space, global memory included) order these too.
 //
 // Node validity is read in one place, node_valid(): with MASKED (K5) the
 // walk holds only the mask's nodes, so valid there is valid & mask, the
@@ -158,42 +179,51 @@ __host__ __device__ inline bool scan_gated(const ScanParams& p) {
     return p.n_hard > 0 || p.ipa_active;
 }
 
-// fn(std::integral_constant<int, NPT>, std::bool_constant<GATED>) for the
-// instance covering `span` positions; cudaErrorInvalidValue past
-// SCAN_MAX_NPT (the wrappers' plan never asks for one)
+// fn(std::integral_constant<int, NPT>, std::bool_constant<GATED>,
+// std::bool_constant<GTAB>) for the instance covering `span` positions with
+// its tables where `gtab` puts them; cudaErrorInvalidValue past
+// SCAN_MAX_NPT or for the other library's table placement (the wrappers'
+// plan never asks for either)
 template <typename F>
-inline int scan_dispatch(int span, bool gated, F&& fn) {
+inline int scan_dispatch(int span, bool gated, bool gtab, F&& fn) {
+    constexpr std::bool_constant<SCAN_GTAB_LIB> g{};
     const int npt = scan_npt(span);
-    if (npt == 8 && gated) return fn(std::integral_constant<int, 8>{}, std::true_type{});
-    if (npt == 8) return fn(std::integral_constant<int, 8>{}, std::false_type{});
-    if (npt == 16 && gated) return fn(std::integral_constant<int, 16>{}, std::true_type{});
-    if (npt == 16) return fn(std::integral_constant<int, 16>{}, std::false_type{});
+    if (gtab != SCAN_GTAB_LIB) return (int)cudaErrorInvalidValue;
+    if (npt == 8 && gated) return fn(std::integral_constant<int, 8>{}, std::true_type{}, g);
+    if (npt == 8) return fn(std::integral_constant<int, 8>{}, std::false_type{}, g);
+    if (npt == 16 && gated) return fn(std::integral_constant<int, 16>{}, std::true_type{}, g);
+    if (npt == 16) return fn(std::integral_constant<int, 16>{}, std::false_type{}, g);
     return (int)cudaErrorInvalidValue;
 }
 
-// The dynamic shared memory of one scanning block, in int32 words: the soft
-// spread tables (segments then participants, ns tables each), the union of
-// the filter phase's tables (the required IPA terms, the existing pods'
-// anti-affinity per key slot) and the score phase's IPA tables (the
-// preferred terms, the existing pods' preferred terms per key slot), the
-// domain presence bits [K, D] of the hard-spread carry, by owned position
-// (`span` of them: scan_slots) the partial-then-whole total and the spread
-// and IPA raw scores, (MASKED) the mask's node list as uint16, and the
-// winner's rows after its adds (used, alloc, nonzero_used, sel_counts) for
-// the patch. ops/kernels.py scan_smem_words mirrors it for the launch plan.
+// The domain tables of one scan, in int32 words: the soft spread tables
+// (segments then participants, ns tables of D words each), the union of
+// the filter phase's tables (the required IPA terms, D words each, then the
+// existing pods' anti-affinity per key slot, topo_words in all) and the
+// score phase's IPA tables (the preferred terms, then the existing pods'
+// preferred terms per key slot), and the domain presence bits of the
+// hard-spread carry (topo_words bits). Then a scanning block's dynamic
+// shared memory: the tables (but in the GTAB instance, whose tables are
+// its scratch's `tables` words), by owned position (`span` of them:
+// scan_slots) the partial-then-whole total and the spread and IPA raw
+// scores, (MASKED) the mask's node list as uint16, and the winner's rows
+// after its adds (used, alloc, nonzero_used, sel_counts) for the patch.
+// ops/kernels.py scan_smem_words and scan_table_words mirror it for the
+// launch plan.
 struct ScanSmem {
-    int soft, uni, present, ew, raw, iraw, list, wrow, words;
+    int soft, uni, present, tables, ew, raw, iraw, list, wrow, words;
 };
 
 __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, bool masked) {
-    const int filt = p.n_ipa_anti + p.n_ipa_aff + (p.ex_anti ? p.K : 0);
-    const int score = p.n_ipa_pref + (p.ex_pref_add ? p.K : 0);
+    const int filt = (p.n_ipa_anti + p.n_ipa_aff) * p.D + (p.ex_anti ? p.topo_words : 0);
+    const int score = p.n_ipa_pref * p.D + (p.ex_pref_add ? p.topo_words : 0);
     const bool ipa_raw = p.n_ipa_pref > 0 || (p.ipa_active && p.ex_pref);
     ScanSmem s;
     s.soft = 0;
     s.uni = s.soft + 2 * p.n_soft * p.D;
-    s.present = s.uni + (filt > score ? filt : score) * p.D;
-    s.ew = s.present + (p.dom_carry ? (p.K * p.D + 31) / 32 : 0);
+    s.present = s.uni + (filt > score ? filt : score);
+    s.tables = s.present + (p.dom_carry ? (p.topo_words + 31) / 32 : 0);
+    s.ew = p.gtab ? 0 : s.tables;
     s.raw = s.ew + span;
     s.iraw = s.raw + (p.n_soft > 0 ? span : 0);
     s.list = s.iraw + (ipa_raw ? span : 0);
@@ -237,6 +267,7 @@ struct ScanArgs {
     int* ipa_pref;
     const int* ipa_term_key;
     int* dom_counts;  // [K, D, S] with dom_carry
+    int* tables;      // the GTAB instance's domain tables (scan_smem's words)
     int* winners;     // [P]
     // signature dedup (G > 0) only
     const int* sig_ids;
@@ -269,7 +300,8 @@ struct ScanArgs {
 // t_valid, t_ew, t_ffit, t_feas, t_segs, t_pcs, sig_scores, tiers (0
 // without), then the device cursor (0: the host's p->cursor0), then with
 // p->xwave carry_map and the previous table's ew, ffit, feas, segs, pcs (0
-// without), then the sync counts [5] (0: not wanted)
+// without), then the sync counts [5] (0: not wanted); K6's launcher reads
+// one more, the GTAB scratch (sharded_assign.cu)
 inline ScanArgs scan_args(void* const* ptrs) {
     ScanArgs a = {};
     a.alloc = (const int*)ptrs[0];
@@ -337,10 +369,11 @@ __device__ __forceinline__ void write_syncs(int* dst, const ScanSyncs& s,
     for (int k = 0; k < SCAN_PHASES; ++k) dst[5 + k] = (int)(phase_cycles[k] / 1000);
 }
 
-template <bool MASKED, int NPT, bool GATED, typename Comm>
+template <bool MASKED, int NPT, bool GATED, bool GTAB, typename Comm>
 __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArgs& a,
                                               Comm& comm) {
     static_assert(NPT >= 1 && NPT <= SCAN_MAX_NPT, "owned positions per thread");
+    static_assert(!GTAB || Comm::kCluster, "device-memory tables run under ClusterComm");
     // K2 and K5 keep a replay's soft tables across steps; K6 reloads them
     constexpr bool kKeep = !Comm::kCluster;
     extern __shared__ int dyn[];
@@ -396,14 +429,16 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     const bool ipa_on = GATED && (np > 0 || (p.ipa_active && p.ex_pref));  // the IPA score
     const bool ipa_acc = GATED && (np > 0 || (p.ipa_active && p.ex_pref_add));  // its tables
     const bool dom_carry = GATED && p.dom_carry;
-    const int filter_tables = na + nfa + (p.ex_anti ? K : 0);
-    const int score_tables = np + (p.ex_pref_add ? K : 0);
-    const int union_words = (filter_tables > score_tables ? filter_tables : score_tables) * D;
     const ScanSmem lay = scan_smem(p, slots, MASKED);
-    int* tabs = comm.tables(dyn);  // the domain tables every block adds into
+    // the union of the filter and score IPA tables (scan_smem)
+    const int union_words = lay.present - lay.uni;
+    // the domain tables every block adds into: the scratch (GTAB), else
+    // shared memory (rank 0's under ClusterComm)
+    int* tabs = GTAB ? a.tables : comm.tables(dyn);
     int* soft_t = tabs + lay.soft;
     int* uni_t = tabs + lay.uni;
-    unsigned* present = reinterpret_cast<unsigned*>(comm.tables(dyn + lay.present));
+    unsigned* present = reinterpret_cast<unsigned*>(GTAB ? a.tables + lay.present
+                                                         : comm.tables(dyn + lay.present));
     int* raw_s = dyn + lay.raw;
     int* iraw_s = dyn + lay.iraw;
     unsigned short* list = reinterpret_cast<unsigned short*>(dyn + lay.list);
@@ -427,6 +462,24 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     auto node_valid = [&](int n) -> bool { return a.valid[n] != 0; };
     auto present_at = [&](int w) -> bool { return (present[w >> 5] >> (w & 31)) & 1u; };
 
+    // the words [a, b) of an n-word table pass (clear, reload, install)
+    // this block makes: rank 0's all of them where the tables are its
+    // shared memory; under GTAB each block its share of the scratch
+    auto share = [&](size_t n, size_t& a, size_t& b) {
+        if constexpr (GTAB) {
+            const size_t per = (n + comm.nb - 1) / comm.nb;
+            a = min(n, (size_t)comm.r * per);
+            b = min(n, a + per);
+        } else {
+            a = 0;
+            b = lead ? n : 0;
+        }
+    };
+    auto clear_words = [&](int* t, size_t n) {
+        size_t a, b;
+        share(n, a, b);
+        for (size_t i = a + tid; i < b; i += SCAN_NT) t[i] = 0;
+    };
     ScanEnd end = {0, 0, 0, 0, 0, 0, {0, 0, 0, 0, 0}, clock_s};  // tiers counted in thread 0
     // thread 0 books the cycles since its last mark to phase k
     auto mark = [&](int k) {
@@ -532,12 +585,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     // prologue: the tables start cleared; with the hard-spread carry, per
     // key slot and domain the sum of sel_counts over the domain's valid
     // nodes, and the domains' presence bits
-    if (lead) {
-        for (int i = tid; i < lay.raw; i += SCAN_NT) tabs[i] = 0;
-        if (dom_carry) {
-            for (size_t i = tid; i < (size_t)K * D * S; i += SCAN_NT) dom_counts[i] = 0;
-        }
-    }
+    clear_words(tabs, lay.tables);
+    if (dom_carry) clear_words(dom_counts, (size_t)K * D * S);
     if (tid < SCAN_MAX_SOFT) ndom_keep[tid] = 0;
     comm.sync();
     if (dom_carry) {
@@ -551,7 +600,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                 const int dk = p.topo_dk[k], d = domain[(size_t)n * K + k];
                 if (dk == 0 || d < 0) continue;
                 const int dc = clampi(d, 0, dk - 1);
-                atomicOr(&present[(k * D + dc) >> 5], 1u << ((k * D + dc) & 31));
+                const int bit = p.topo_off[k] + dc;
+                atomicOr(&present[bit >> 5], 1u << (bit & 31));
                 for (int s = 0; s < S; ++s)
                     atomicAdd(&dom_counts[((size_t)k * D + dc) * S + s],
                               sel_counts[(size_t)n * S + s]);
@@ -714,9 +764,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         int aff_any[MAX_REQ_TERMS] = {0, 0, 0, 0};
         if (has_fail) {
             if (!union_clear) {
-                if (lead) {
-                    for (int i = tid; i < union_words; i += SCAN_NT) uni_t[i] = 0;
-                }
+                clear_words(uni_t, union_words);
                 comm.sync();
             }
             union_clear = false;
@@ -729,8 +777,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     if (c >= nh) continue;
                     const Slot s = hard[c];
                     if (!s.on || s.dk == 0) continue;
-                    for (int d = tid; d < D; d += SCAN_NT) {
-                        if (present_at(s.key * D + d))
+                    for (int d = tid; d < s.dk; d += SCAN_NT) {
+                        if (present_at(p.topo_off[s.key] + d))
                             v[c] = min(v[c], dom_counts[((size_t)s.key * D + d) * S + s.col]);
                     }
                 }
@@ -816,23 +864,20 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         const bool clear_soft = acc_soft && !soft_clear;
         const bool clear_union = ipa_acc && !union_clear;
         int nd_load[SCAN_MAX_SOFT] = {0, 0, 0, 0};
-        if (lead) {
-            if (clear_soft) {
-                for (int i = tid; i < 2 * ns * D; i += SCAN_NT) soft_t[i] = 0;
-            }
-            if (clear_union) {
-                for (int i = tid; i < union_words; i += SCAN_NT) uni_t[i] = 0;
-            }
-            if (reload) {
-                for (int i = tid; i < 2 * ns * D; i += SCAN_NT) {
-                    const int c = (i / D) % ns;
-                    const int val = (i < ns * D ? t_segs : t_pcs)[((size_t)sid * p.CT + c) * D + i % D];
-                    soft_t[i] = val;
-                    // a replay's domain count: the table's entries with pcs > 0
-                    if (i >= ns * D && val > 0) {
+        if (clear_soft) clear_words(soft_t, (size_t)2 * ns * D);
+        if (clear_union) clear_words(uni_t, union_words);
+        if (reload) {
+            size_t a, b;
+            share((size_t)2 * ns * D, a, b);
+            for (int i = (int)a + tid; i < (int)b; i += SCAN_NT) {
+                const int c = (i / D) % ns;
+                const int val = (i < ns * D ? t_segs : t_pcs)[((size_t)sid * p.CT + c) * D + i % D];
+                soft_t[i] = val;
+                // a replay's domain count: the table's entries with pcs > 0
+                // (each block counts its words; the cluster's fold sums them)
+                if (i >= ns * D && val > 0) {
 #pragma unroll
-                        for (int q = 0; q < SCAN_MAX_SOFT; ++q) nd_load[q] += q == c;
-                    }
+                    for (int q = 0; q < SCAN_MAX_SOFT; ++q) nd_load[q] += q == c;
                 }
             }
         }
@@ -964,14 +1009,16 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
 #pragma unroll
             for (int c = 0; c < SCAN_MAX_SOFT; ++c) ndom_keep[c] = w[6 + c];
         }
-        if (capture && lead) {  // install the signature's spread tables, then the row
-            for (int i = tid; i < p.CT * D; i += SCAN_NT) {
+        if (capture) {  // install the signature's spread tables, then the row
+            size_t a, b;
+            share((size_t)p.CT * D, a, b);
+            for (int i = (int)a + tid; i < (int)b; i += SCAN_NT) {
                 const int c = i / D, d = i % D;
                 const bool on = c < ns && soft[c].dk > 0;
                 t_segs[(size_t)sid * p.CT * D + i] = on ? seg(c)[d] : 0;
                 t_pcs[(size_t)sid * p.CT * D + i] = on ? pcs(c)[d] : 0;
             }
-            if (tid == 0) t_valid[sid] = 1;
+            if (lead && tid == 0) t_valid[sid] = 1;
         }
         // the soft slots' log weights: a singleton key's domains counted in
         // A, another key's domains with a participant
@@ -1191,15 +1238,11 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // next step's filter phase, and the soft tables when the next step
         // is surely a full tier (no dedup, or its signature not resident)
         if (GATED) {
-            if (lead) {
-                for (int i = tid; i < union_words; i += SCAN_NT) uni_t[i] = 0;
-            }
+            clear_words(uni_t, union_words);
             union_clear = true;
         }
         if (ns > 0 && nxt < p.P && !ahead_res && !soft_clear) {
-            if (lead) {
-                for (int i = tid; i < 2 * ns * D; i += SCAN_NT) soft_t[i] = 0;
-            }
+            clear_words(soft_t, (size_t)2 * ns * D);
             soft_clear = true;
             tab_sid = -1;
         }

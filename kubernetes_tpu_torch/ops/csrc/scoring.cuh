@@ -302,10 +302,12 @@ __device__ __forceinline__ int term_col(const P& p, const int* row, const int* f
 }
 
 // One pod's inter-pod affinity state in a kernel: its slots (shared
-// arrays), the matched key mask, the carried planes and two D-word table
-// regions of shared memory. Filter tables: the na + nfa required terms,
-// then the existing pods' anti-affinity per key slot; score tables: the np
-// preferred terms, then the existing pods' preferred terms per key slot.
+// arrays), the matched key mask, the carried planes and two table regions
+// (shared memory, or the device-memory scratch of the instance for tables
+// past it). Filter tables: the na + nfa required terms of D words each,
+// then the existing pods' anti-affinity per key slot, key k's topo_dk[k]
+// words at topo_off[k]; score tables: the np preferred terms, then the
+// existing pods' preferred terms per key slot, laid out alike.
 struct Ipa {
     const Slot* anti;
     const Slot* aff;
@@ -319,8 +321,9 @@ struct Ipa {
     const int* tkey;    // ipa_term_key [Ta]
 };
 
-// How a pass adds into a per-domain table: add(table, word, value, on).
-// AtomicAdd: one shared-memory atomic per adding lane (K2). WarpAdd (K4):
+// How a pass adds into a per-domain table: add(table, word, value, on),
+// on shared or device memory alike (int32 atomics on a generic address).
+// AtomicAdd: one atomic per adding lane (K2). WarpAdd (K4):
 // the lanes of a warp that add into one word fold their values first
 // (__match_any_sync, then __reduce_add_sync over the peers) and one lane
 // adds the sum, so a warp makes one atomic per distinct word; every lane
@@ -362,7 +365,7 @@ __device__ __forceinline__ void ipa_filter_stats(const P& p, const Ipa& q, const
             if (!((q.exmask >> k) & 1) || dk == 0) continue;
             const bool on = live && d >= 0;
             const int col = on ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0;
-            add(q.filt + (size_t)(q.na + q.nfa + k) * q.D, clampi(d, 0, dk - 1), col,
+            add(q.filt + (size_t)(q.na + q.nfa) * q.D + p.topo_off[k], clampi(d, 0, dk - 1), col,
                 on && col != 0);
         }
     }
@@ -380,7 +383,8 @@ __device__ __forceinline__ void ipa_filters_at(const P& p, const Ipa& q, const i
             const int dk = p.topo_dk[k], d = dom_row[k];
             if (!((q.exmask >> k) & 1) || d < 0) continue;
             const int at = dk == 0 ? (vn ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
-                                   : q.filt[(size_t)(q.na + q.nfa + k) * q.D + clampi(d, 0, dk - 1)];
+                                   : q.filt[(size_t)(q.na + q.nfa) * q.D + p.topo_off[k] +
+                                            clampi(d, 0, dk - 1)];
             ipa1 = at > 0;
         }
     }
@@ -422,7 +426,7 @@ __device__ __forceinline__ void ipa_score_stats(const P& p, const Ipa& q, const 
             const int dk = p.topo_dk[k], d = dom_row[k];
             if (!((q.exmask >> k) & 1) || dk == 0) continue;
             const bool on = live && d >= 0;
-            add(q.score + (size_t)(q.np + k) * q.D, clampi(d, 0, dk - 1),
+            add(q.score + (size_t)q.np * q.D + p.topo_off[k], clampi(d, 0, dk - 1),
                 on ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0, on);
         }
     }
@@ -446,7 +450,8 @@ __device__ __forceinline__ int ipa_raw_at(const P& p, const Ipa& q, const int* f
             const int dk = p.topo_dk[k], d = dom_row[k];
             if (!((q.exmask >> k) & 1) || d < 0) continue;
             const int at = dk == 0 ? (fe ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
-                                   : q.score[(size_t)(q.np + k) * q.D + clampi(d, 0, dk - 1)];
+                                   : q.score[(size_t)q.np * q.D + p.topo_off[k] +
+                                             clampi(d, 0, dk - 1)];
             raw = wadd(raw, at);
         }
     }

@@ -16,7 +16,11 @@
 // scan_step.cuh, which runs K2's step code). Every cross-shard reduction is
 // a max, a min or an int32 sum, so the result equals K2's bit for bit
 // whatever the block count. K2's wrapper launches this kernel too (its
-// cluster route) for a bucket past one block's slots.
+// cluster route) for a bucket past one block's slots, and for domain tables
+// past shared memory. The file builds twice (ops/cuda.py DEFINES): with
+// -DSCAN_GMEM its instances keep the domain tables in a device-memory
+// scratch (the GTAB instances of scan_step.cuh, on any cluster size, one
+// block included), else in rank 0's shared memory.
 //
 // What bounds it on an H100: latency, as K2: each pod step is a chain of
 // dependent reductions, each a block fold followed by a cluster barrier
@@ -37,7 +41,7 @@ struct ShardParams {
     int blocks;  // cluster size: 1, 2, 4, 8 or 16, dividing Nb
 };
 
-template <int NPT, bool GATED>
+template <int NPT, bool GATED, bool GTAB>
 __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     ShardParams sp, ScanArgs a, int* out, int* tiers) {
     // the fold and exchange slots, at the same address in every block
@@ -50,7 +54,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     const int r = (int)cl.block_rank(), n = (int)cl.num_blocks();
     const int nbl = p.Nb / n;
     ClusterComm comm = {r * nbl, (r + 1) * nbl, r, n, red, 0, xch, 0, &syncs};
-    const ScanEnd end = scan_block<false, NPT, GATED>(p, a, comm);
+    const ScanEnd end = scan_block<false, NPT, GATED, GTAB>(p, a, comm);
     if (r == 0 && threadIdx.x == 0) {
         out[p.P] = end.cursor;
         out[p.P + 1] = end.overflow;
@@ -85,7 +89,9 @@ cudaLaunchConfig_t cluster_config(K kernel, int n, size_t dyn, cudaStream_t stre
     return cfg;
 }
 
-// ptrs: as scan_args() in scan_step.cuh reads them (K2's list)
+// ptrs: as scan_args() in scan_step.cuh reads them (K2's list), then the
+// GTAB instance's device-memory scratch (scan_smem's `tables` words; 0
+// where the tables live in shared memory)
 extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
                                      void* stream) {
     const int n = sp->blocks;
@@ -93,9 +99,13 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
         return (int)cudaErrorInvalidValue;
     const int span = sp->scan.Nb / n;
     const size_t dyn = scan_smem_bytes(sp->scan, span, false);
-    const ScanArgs a = scan_args(ptrs);
-    return scan_dispatch(span, scan_gated(sp->scan), [&](auto npt, auto gated) {
-        auto kernel = sharded_assign_kernel<decltype(npt)::value, decltype(gated)::value>;
+    ScanArgs a = scan_args(ptrs);
+    a.tables = (int*)ptrs[38];
+    if (sp->scan.gtab && a.tables == nullptr) return (int)cudaErrorInvalidValue;
+    return scan_dispatch(span, scan_gated(sp->scan), sp->scan.gtab != 0,
+                         [&](auto npt, auto gated, auto gtab) {
+        auto kernel = sharded_assign_kernel<decltype(npt)::value, decltype(gated)::value,
+                                            decltype(gtab)::value>;
         cudaLaunchAttribute attr[1];
         cudaError_t err;
         cudaLaunchConfig_t cfg = cluster_config(kernel, n, dyn, (cudaStream_t)stream, attr, err);
@@ -114,10 +124,12 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
 // largest cluster of scanning blocks (16, else 8, 4, 2, 1; 0 none) that
 // one GPC holds with `dyn` bytes of dynamic shared memory each
 // (cudaOccupancyMaxActiveClusters on the widest instance); out[1] the
-// largest static shared memory of this library's scan instances; out[2]
-// the shared memory a block may opt into on this card
+// largest static shared memory of this library's scan instances (each
+// library's table placement: ops/cuda.py asks both); out[2] the shared
+// memory a block may opt into on this card
 extern "C" int scan_limits(int dyn, int* out) {
-    auto widest = sharded_assign_kernel<SCAN_MAX_NPT, true>;
+    constexpr bool G = SCAN_GTAB_LIB;
+    auto widest = sharded_assign_kernel<SCAN_MAX_NPT, true, G>;
     out[0] = 0;
     for (int n = SCAN_MAX_BLOCKS; n >= 1 && out[0] == 0; n /= 2) {
         cudaLaunchAttribute attr[1];
@@ -129,10 +141,10 @@ extern "C" int scan_limits(int dyn, int* out) {
         if (err != cudaSuccess) return (int)err;
         if (clusters >= 1) out[0] = n;
     }
-    const void* kernels[4] = {(const void*)sharded_assign_kernel<8, false>,
-                              (const void*)sharded_assign_kernel<8, true>,
-                              (const void*)sharded_assign_kernel<16, false>,
-                              (const void*)sharded_assign_kernel<16, true>};
+    const void* kernels[4] = {(const void*)sharded_assign_kernel<8, false, G>,
+                              (const void*)sharded_assign_kernel<8, true, G>,
+                              (const void*)sharded_assign_kernel<16, false, G>,
+                              (const void*)sharded_assign_kernel<16, true, G>};
     out[1] = 0;
     for (const void* k : kernels) {
         cudaFuncAttributes fa;

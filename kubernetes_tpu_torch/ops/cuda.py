@@ -27,19 +27,28 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # library name -> source file; the sources include the shared headers
 # (csrc/*.cuh). A library exports launch_<kernel> for its kernels: each
 # its own, and fit_and_score also K7's launch_wave_fit_and_score.
-# gang_assign.cu builds twice (DEFINES): its one-block instances and its
-# per-row cluster instances, two nvcc processes side by side, each as long
-# as the other scans' builds
+# gang_assign.cu builds three times (DEFINES): its one-block instances, its
+# per-row cluster instances and (-DSCAN_GMEM) the per-row clusters whose
+# domain tables live in device memory; sharded_assign.cu and
+# fit_and_score.cu build twice, the second time with those tables (the
+# GTAB instances, for keys of thousands of domains). Each is an nvcc
+# process of its own, side by side, each as long as the other scans' builds
 SOURCES = {
     "static_parts": "static_parts.cu",
     "assign_scan": "assign_scan.cu",
     "scatter_rows": "scatter_rows.cu",
     "fit_and_score": "fit_and_score.cu",
+    "fit_and_score_gmem": "fit_and_score.cu",
     "gang_assign": "gang_assign.cu",
     "gang_assign_cluster": "gang_assign.cu",
+    "gang_assign_gmem": "gang_assign.cu",
     "sharded_assign": "sharded_assign.cu",
+    "sharded_assign_gmem": "sharded_assign.cu",
 }
-DEFINES = {"gang_assign_cluster": ("-DGANG_CLUSTER",)}
+DEFINES = {"gang_assign_cluster": ("-DGANG_CLUSTER",),
+           "gang_assign_gmem": ("-DGANG_CLUSTER", "-DSCAN_GMEM"),
+           "sharded_assign_gmem": ("-DSCAN_GMEM",),
+           "fit_and_score_gmem": ("-DSCAN_GMEM",)}
 
 # a launcher's own code (beside CUDA's error codes): the scan's cluster of
 # n blocks (K2's cluster route, K5's per row, K6), or K4's and K7's cluster
@@ -143,37 +152,43 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
 
 
 def launch_floor(counts: list[int], npt: int, n_blocks: int, out_ptr: int,
-                 stream: int) -> None:
+                 stream: int, cluster: bool = False) -> None:
     """launch_scan_floor of the assign_scan library (csrc/assign_scan.cu):
-    the latency floor of a scan's counted synchronisations."""
+    the latency floor of a scan's counted synchronisations, on one block or
+    (cluster) a thread-block cluster of n_blocks."""
     dll = load("assign_scan")
     fn = dll.launch_scan_floor
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     arr = (ctypes.c_int * 5)(*counts)
-    code = fn(ctypes.addressof(arr), npt, n_blocks, out_ptr, stream)
+    code = fn(ctypes.addressof(arr), npt, n_blocks, int(cluster), out_ptr, stream)
     if code != 0:
         msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"scan_floor launch failed: CUDA error {code} ({msg})")
 
 
 def scan_limits(dyn: int) -> dict:
-    """scan_limits of the sharded_assign library (csrc/sharded_assign.cu):
-    the largest cluster of scanning blocks this card holds with `dyn`
-    dynamic shared-memory bytes each (cudaOccupancyMaxActiveClusters), the
-    largest static shared memory of the scan's instances, and the shared
-    memory a block may opt into."""
-    dll = load("sharded_assign")
-    fn = dll.scan_limits
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 3)()
-    code = fn(int(dyn), ctypes.addressof(out))
-    if code != 0:
-        msg = dll.kernel_error_string(code).decode()
-        raise RuntimeError(f"scan_limits failed: CUDA error {code} ({msg})")
-    return {"max_blocks": out[0], "static_smem": out[1], "smem_optin": out[2]}
+    """scan_limits of the sharded_assign libraries (csrc/sharded_assign.cu,
+    both table placements): the largest cluster of scanning blocks this
+    card holds with `dyn` dynamic shared-memory bytes each
+    (cudaOccupancyMaxActiveClusters; the smaller of the two libraries'),
+    the largest static shared memory of the scan's instances, and the
+    shared memory a block may opt into."""
+    lims = []
+    for lib in ("sharded_assign", "sharded_assign_gmem"):
+        dll = load(lib)
+        fn = dll.scan_limits
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 3)()
+        code = fn(int(dyn), ctypes.addressof(out))
+        if code != 0:
+            msg = dll.kernel_error_string(code).decode()
+            raise RuntimeError(f"scan_limits of {lib} failed: CUDA error {code} ({msg})")
+        lims.append(tuple(out))
+    return {"max_blocks": min(x[0] for x in lims), "static_smem": max(x[1] for x in lims),
+            "smem_optin": min(x[2] for x in lims)}
 
 
 def launch_empty(lib: str, grid: tuple[int, int], threads: int, stream: int) -> None:
@@ -262,8 +277,8 @@ class ScanParams(ctypes.Structure):
               "n_ipa_pref", "ipa_active", "ex_anti", "ex_pref", "ex_pref_add",
               "dom_carry") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
-        ("walk", ctypes.c_int),
-    ]
+        ("topo_off", ctypes.c_int * MAX_KEYS),
+    ] + _ints("topo_words", "walk", "gtab")
 
 
 class GangParams(ctypes.Structure):
@@ -295,8 +310,8 @@ class FitParams(ctypes.Structure):
               "w_ipa", "w_img", "n_hard", "n_soft", "n_ipa_aff", "n_ipa_anti",
               "n_ipa_pref", "ex_anti", "ex_pref", "ex_pref_add") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
-        ("cluster", ctypes.c_int),
-    ]
+        ("topo_off", ctypes.c_int * MAX_KEYS),
+    ] + _ints("topo_words", "cluster", "gtab")
 
 
 class ScatterParams(ctypes.Structure):

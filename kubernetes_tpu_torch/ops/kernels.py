@@ -126,13 +126,15 @@ def thread_launches() -> dict:
 
 
 class OutOfSlice(NotImplementedError):
-    """The caller asks for what this port does not compute yet: a slot or
-    domain count past the kernels' fixed capacities (topology keys of more
-    than 1024 domains, more than 8 scored resources or 16 shape points:
-    ROADMAP B1, B3), a scan bucket past the largest thread-block cluster
-    the card holds (scan_plan: 16 blocks of 16384 node slots where the card
-    holds a cluster of 16, else 8; fewer slots a block where the scan's
-    shared memory is wider), or an op the
+    """The caller asks for what this port does not compute yet: a slot
+    count past the kernels' fixed capacities (more than 16 topology keys,
+    more than 4 spread constraint slots, 4 required or 8 preferred
+    inter-pod affinity term slots, more than 8 scored resources or 16
+    shape points: ROADMAP B3, B4; a key of any number of domains is
+    computed), a scan bucket past the largest thread-block cluster the card
+    holds (scan_plan: 16 blocks of 16384 node slots where the card holds a
+    cluster of 16, else 8; fewer slots a block where the scan's shared
+    memory is wider), or an op the
     scheduler_perf harness does not build (perf/harness.py; the volume and
     claim templates, CSI nodes and resource slices are
     testing/storage_workloads.py's). Raised instead of computing an answer,
@@ -329,8 +331,9 @@ class KernelConfig:
 
 def check_slice(cfg: KernelConfig) -> None:
     """The wave scan's gate (K1 + K2): hard spread and inter-pod affinity
-    are computed; raise OutOfSlice only past the kernels' fixed slot and
-    domain capacities. Everything that passes is computed bit-exactly."""
+    are computed, over keys of any number of domains; raise OutOfSlice only
+    past the kernels' fixed slot capacities. Everything that passes is
+    computed bit-exactly."""
     traced = min(cfg.max_constraints, max(cfg.n_hard, cfg.n_soft))
     if traced > 4:
         raise OutOfSlice(f"{traced} spread constraint slots (max 4)")
@@ -349,13 +352,26 @@ def _check_common(cfg: KernelConfig) -> None:
     if cfg.max_ipa_terms > 4 or cfg.max_ipa_pref > 8:
         raise OutOfSlice("inter-pod affinity term slots (max 4 required, "
                          "8 preferred)")
-    if len(cfg.topo_domains) > 16 or any(d > 1024 for d in cfg.topo_domains):
-        raise OutOfSlice(f"topology domains {cfg.topo_domains} (max 16 keys "
-                         "of at most 1024 domains)")
+    # any number of domains a key: past shared memory the tables take a
+    # device-memory scratch (scan_plan, fit_gtab)
+    if len(cfg.topo_domains) > SCAN_MAX_KEYS:
+        raise OutOfSlice(f"{len(cfg.topo_domains)} topology keys (max {SCAN_MAX_KEYS}: "
+                         "ROADMAP B4)")
     if cfg.strategy not in _STRATEGY_CODE:
         raise OutOfSlice(f"scoring strategy {cfg.strategy!r}")
     if not 1 <= len(cfg.fit_resources) <= 8 or not 1 <= len(cfg.rtc_shape) <= 16:
-        raise OutOfSlice("fit resources (1..8) or rtc shape (1..16 points)")
+        raise OutOfSlice("fit resources (1..8) or rtc shape (1..16 points): ROADMAP B3")
+
+
+def topo_layout(topo_domains) -> tuple[list[int], int]:
+    """The per-key tables' layout (csrc/common.cuh topo_off, topo_words):
+    key k's topo_dk[k] words start at the sum of the keys' before it (a
+    singleton key, 0, takes none); the words of all keys."""
+    offs, at = [], 0
+    for dk in topo_domains:
+        offs.append(at)
+        at += max(0, int(dk))
+    return offs, at
 
 
 def log_weight_table(nb: int) -> np.ndarray:
@@ -476,13 +492,15 @@ def _syncs_ptr(syncs, device) -> int:
     return syncs.data_ptr()
 
 
-def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1) -> None:
+def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1,
+               cluster: bool | None = None) -> None:
     """The latency floor of a scan (CUDA only, a measurement yardstick that
     no path runs): one launch that makes the counted synchronisations a
     scan wrote into `syncs` (assign_scan's, gang_assign's or
     sharded_assign's), its tie picks over the ballots of a block walking
     `span` node slots, with no node work; on one block, or on a cluster of
-    n_blocks (the launch plan's blocks, 2-16)."""
+    n_blocks (the launch plan's blocks, 2-16; cluster=True for a cluster of
+    one block, the GTAB instance's one-block route)."""
     from . import cuda
 
     if syncs.device.type != "cuda":
@@ -491,7 +509,8 @@ def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1) -> None:
     npt = scan_npt(span)
     sink = torch.empty(1, dtype=torch.int32, device=syncs.device)
     cuda.launch_floor([int(x) for x in syncs.tolist()[:5]], npt, n_blocks, sink.data_ptr(),
-                      _stream(syncs.device))
+                      _stream(syncs.device),
+                      cluster=n_blocks > 1 if cluster is None else cluster)
 
 
 # K1's launch (csrc/static_parts.cu): nodes per lane, nodes per block (a
@@ -1208,7 +1227,7 @@ def _cfg_scan_fields(cfg: KernelConfig) -> dict:
     hard-spread carry (shared by the launch and its plan)."""
     dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
     return dict(
-        K=len(cfg.topo_domains), D=max(1, dmax),
+        K=len(cfg.topo_domains), D=max(1, dmax), topo_words=topo_layout(cfg.topo_domains)[1],
         CT=max(1, min(cfg.max_constraints, cfg.n_soft)),
         n_hard=min(cfg.max_constraints, cfg.n_hard),
         n_soft=min(cfg.max_constraints, cfg.n_soft),
@@ -1296,8 +1315,8 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
         p.fit_col[i], p.fit_w[i] = col, w
     for i, (x, y) in enumerate(cfg.rtc_shape):
         p.rtc_x[i], p.rtc_y[i] = x, y
-    for i, dk in enumerate(cfg.topo_domains):
-        p.topo_dk[i] = dk
+    for i, (dk, off) in enumerate(zip(cfg.topo_domains, topo_layout(cfg.topo_domains)[0])):
+        p.topo_dk[i], p.topo_off[i] = dk, off
     return p
 
 
@@ -1321,6 +1340,32 @@ SCAN_SMEM_OPTIN = 232448
 SCAN_STATIC_RESERVE = 10240
 SCAN_SMEM_BUDGET = SCAN_SMEM_OPTIN - SCAN_STATIC_RESERVE
 SCAN_KERNELS = ("assign_scan", "sharded_assign", "gang_assign")
+SCAN_MAX_KEYS = 16  # csrc SCAN_MAX_KEYS: topology keys a launch holds
+# whether the plans (scan_plan, fit_gtab) keep the domain tables in shared
+# memory wherever they fit there: the default. tables_in_device_memory()
+# clears it for a while, so that every plan takes the GTAB instances (the
+# tables in a device-memory scratch) on any shape
+_smem_tables = True
+
+
+class tables_in_device_memory:
+    """Within this context every scan and fit plan takes its GTAB instance,
+    whose domain tables live in a device-memory scratch, even where shared
+    memory holds them (chip_smoke's phase 30 holds those instances against
+    the plain versions on small shapes too). Not thread-safe: a measurement
+    switch, not a setting of the scheduler."""
+
+    def __enter__(self):
+        global _smem_tables
+        _smem_tables = False
+        scan_plan.cache_clear()
+        return self
+
+    def __exit__(self, *exc):
+        global _smem_tables
+        _smem_tables = True
+        scan_plan.cache_clear()
+        return False
 
 
 def scan_npt(slots: int) -> int:
@@ -1332,38 +1377,87 @@ def scan_npt(slots: int) -> int:
     return npt if npt <= SCAN_MAX_NPT else 0
 
 
+def scan_table_words(p) -> int:
+    """int32 words of a scan's domain tables (csrc scan_smem's `tables`)
+    for ScanParams-like `p`: the soft spread tables (D words a slot), the
+    union of the filter and score IPA tables (D words a term slot, then
+    the per-key tables, topo_words) and the hard-spread presence bits
+    (topo_words bits). In shared memory, or the GTAB instance's scratch."""
+    filt = (p.n_ipa_anti + p.n_ipa_aff) * p.D + (p.topo_words if p.ex_anti else 0)
+    score = p.n_ipa_pref * p.D + (p.topo_words if p.ex_pref_add else 0)
+    return (2 * p.n_soft * p.D + max(filt, score)
+            + ((p.topo_words + 31) // 32 if p.dom_carry else 0))
+
+
 def scan_smem_words(p, slots: int, masked: bool) -> int:
     """int32 words of one scanning block's dynamic shared memory (csrc
     scan_smem, field for field) for ScanParams-like `p` walking `slots`
-    positions: the soft spread tables, the union of the filter and score
-    IPA tables, the hard-spread presence bits, three words per position at
-    most (the total, the spread and IPA raw scores), the mask's uint16 node
-    list (K5) and the winner's rows."""
-    filt = p.n_ipa_anti + p.n_ipa_aff + (p.K if p.ex_anti else 0)
-    score = p.n_ipa_pref + (p.K if p.ex_pref_add else 0)
+    positions: the domain tables (scan_table_words; not in the GTAB
+    instance, p.gtab, whose tables live in device memory), three words per
+    position at most (the total, the spread and IPA raw scores), the mask's
+    uint16 node list (K5) and the winner's rows."""
     ipa_raw = p.n_ipa_pref > 0 or (p.ipa_active and p.ex_pref)
-    return (2 * p.n_soft * p.D + max(filt, score) * p.D
-            + ((p.K * p.D + 31) // 32 if p.dom_carry else 0)
+    return ((0 if p.gtab else scan_table_words(p))
             + slots + (slots if p.n_soft > 0 else 0) + (slots if ipa_raw else 0)
             + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S)
+
+
+class ScanPlan(tuple):
+    """A scan's launch plan, (blocks, npt) as a tuple, and `gtab`: whether
+    its domain tables live in a device-memory scratch (the GTAB instance,
+    K6's kernel for K2 and K6, K5's gang_assign_gmem library) rather than
+    in shared memory."""
+
+    def __new__(cls, blocks: int, npt: int, gtab: bool = False):
+        plan = super().__new__(cls, (blocks, npt))
+        plan.gtab = bool(gtab)
+        return plan
+
+    @property
+    def blocks(self) -> int:
+        return self[0]
+
+
+def _scan_blocks(p, nb: int, blocks: int, masked: bool, population) -> tuple[int, int]:
+    """The fewest power-of-two blocks from `blocks` whose block walks at
+    most SCAN_MAX_SLOTS positions within SCAN_SMEM_BUDGET bytes (p's
+    layout, p.gtab included) and (K5) a range of at most SCAN_MAX_RANGE
+    slots: (blocks, npt), or (0, 0) where no count covers the bucket."""
+    while True:
+        span = nb // blocks
+        if span < 1 or nb % blocks:
+            return 0, 0
+        slots = span if not masked else max(1, min(span, span if population is None
+                                                     else population))
+        npt = scan_npt(slots)
+        if (npt and 4 * scan_smem_words(p, slots, masked) <= SCAN_SMEM_BUDGET
+                and (not masked or span <= SCAN_MAX_RANGE)):
+            return blocks, npt
+        blocks *= 2
 
 
 @functools.lru_cache(maxsize=1024)
 def scan_plan(kernel: str, cfg: KernelConfig, nb: int, n_shards: int | None = None, *,
               R: int, S: int, population: int | None = None,
-              max_blocks: int | None = None) -> tuple[int, int]:
-    """The launch of a scan over a bucket of nb node slots: (blocks, npt).
+              max_blocks: int | None = None) -> ScanPlan:
+    """The launch of a scan over a bucket of nb node slots: (blocks, npt),
+    and `gtab`, where the domain tables live (ScanPlan).
 
     blocks is a power of two, at least n_shards (K6's shards; 1 for K2 and
     K5), and each block owns nb / blocks contiguous rows: the smallest such
     count whose block walks at most SCAN_MAX_SLOTS positions within
     SCAN_SMEM_BUDGET bytes of shared memory (scan_smem_words for this
-    configuration's widths R and S). K5 (gang_assign) walks the mask's
-    nodes: a block holds min(nb / blocks, population) positions, population
-    the most nodes any mask row holds, and a range of at most SCAN_MAX_RANGE
-    slots. npt is the instance's positions per thread. One block (K2, K5) or
-    the shard count (K6) is the plan up to 16384 slots in the configurations
-    the port runs; past it the blocks form one thread-block cluster.
+    configuration's widths R and S), the domain tables among them. K5
+    (gang_assign) walks the mask's nodes: a block holds min(nb / blocks,
+    population) positions, population the most nodes any mask row holds,
+    and a range of at most SCAN_MAX_RANGE slots. npt is the instance's
+    positions per thread. One block (K2, K5) or the shard count (K6) is the
+    plan up to 16384 slots in the configurations the port runs; past it the
+    blocks form one thread-block cluster. Where no count up to
+    SCAN_MAX_BLOCKS holds the tables in shared memory (a key of thousands
+    of domains with several slots or terms), the plan takes the GTAB
+    instance (gtab True): the same count rule with the tables in a
+    device-memory scratch, on K6's cluster kernel (one block included).
 
     max_blocks is the card's largest cluster (scan_limits); past it, and
     wherever no block count fits, raise OutOfSlice. None: no cap (the plain
@@ -1375,23 +1469,18 @@ def scan_plan(kernel: str, cfg: KernelConfig, nb: int, n_shards: int | None = No
         raise ValueError(f"no scan kernel {kernel!r}")
     masked = kernel == "gang_assign"
     p = cuda.ScanParams(R=R, S=S, **_cfg_scan_fields(cfg))
-    blocks = n_shards or 1
-    while True:
-        span = nb // blocks
-        if span < 1 or nb % blocks:
-            raise OutOfSlice(f"{kernel}: no cluster of blocks covers a bucket of {nb} node "
-                             f"slots within a block's shared memory")
-        slots = span if not masked else max(1, min(span, span if population is None
-                                                     else population))
-        npt = scan_npt(slots)
-        if (npt and 4 * scan_smem_words(p, slots, masked) <= SCAN_SMEM_BUDGET
-                and (not masked or span <= SCAN_MAX_RANGE)):
-            break
-        blocks *= 2
+    blocks, npt = _scan_blocks(p, nb, n_shards or 1, masked, population)
+    gtab = not (0 < blocks <= SCAN_MAX_BLOCKS and _smem_tables)
+    if gtab:
+        p.gtab = 1
+        blocks, npt = _scan_blocks(p, nb, n_shards or 1, masked, population)
+    if not blocks:
+        raise OutOfSlice(f"{kernel}: no cluster of blocks covers a bucket of {nb} node "
+                         f"slots within a block's shared memory")
     if max_blocks is not None and blocks > max_blocks:
         raise OutOfSlice(f"{kernel}: a bucket of {nb} node slots needs a cluster of {blocks} "
-                         f"blocks of {span} slots; this card holds {max_blocks}")
-    return blocks, npt
+                         f"blocks of {nb // blocks} slots; this card holds {max_blocks}")
+    return ScanPlan(blocks, npt, gtab)
 
 
 _SCAN_LIMITS: dict = {}
@@ -1423,7 +1512,7 @@ def scan_limits(device) -> dict:
 
 
 def scan_plan_for(kernel: str, cfg: KernelConfig, planes: dict, n_shards: int | None = None,
-                  population: int | None = None) -> tuple[int, int]:
+                  population: int | None = None) -> ScanPlan:
     """scan_plan at these planes' bucket and widths, capped by the card's
     largest cluster where the planes lie on a card (on the CPU the plain
     versions run, with no cap)."""
@@ -1558,11 +1647,12 @@ def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
 
 def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab,
             n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
-            syncs=None, blocks=None) -> dict:
+            syncs=None, plan=None) -> dict:
     """K2 (n_shards None) or K6: the checks, the plain version on the CPU,
     else the outputs' allocation and the launch: one block (K2), or the
-    plan's cluster of blocks (K2 past one block's slots, K6); `blocks` the
-    plan's, where the caller has it."""
+    plan's cluster of blocks (K2 past one block's slots, K6), with the
+    domain tables in a device-memory scratch where the plan says (gtab,
+    K6's GTAB instance); `plan` the plan, where the caller has it."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -1586,8 +1676,9 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
 
     P = packed_f.shape[0]
     nb = planes["alloc"].shape[0]
-    if blocks is None:
-        blocks, _ = scan_plan_for(kernel, cfg, planes, n_shards)
+    if plan is None:
+        plan = scan_plan_for(kernel, cfg, planes, n_shards)
+    blocks = plan.blocks
     fast = sig_ids is not None
     xwave = carry_map is not None
     Ps = uniq_idx.shape[0] if fast else P  # static rows
@@ -1604,6 +1695,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
                      n_static=Ps, G=Ps if fast else 0,
                      cursor0=0 if cursor_dev else int(cursor_init))
     p.frame_shift = int(frame_shift)
+    p.gtab = int(plan.gtab)
     K, S, dmax, ct = p.K, p.S, p.D, p.CT
     if xwave:
         g_prev = sig_table["ew"].shape[0]
@@ -1657,12 +1749,18 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     else:
         ptrs += [0] * 6
     ptrs.append(_syncs_ptr(syncs, device))
-    if n_shards is None and blocks == 1:
+    # the GTAB instance's tables: allocated here on the launch's device and
+    # stream, cleared by the kernel
+    scratch = (torch.empty(scan_table_words(p), dtype=i32, device=device) if plan.gtab
+               else None)
+    ptrs.append(0 if scratch is None else scratch.data_ptr())
+    if n_shards is None and blocks == 1 and not plan.gtab:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
-        # K6's cluster kernel: the shards' blocks, or K2's cluster route
+        # K6's cluster kernel: the shards' blocks, K2's cluster route, or
+        # (gtab) the instance whose tables live in device memory
         cuda.launch("sharded_assign", cuda.ShardParams(scan=p, blocks=blocks), ptrs,
-                    _stream(device))
+                    _stream(device), lib="sharded_assign_gmem" if plan.gtab else None)
     count_launch(kernel)
     return out
 
@@ -1744,10 +1842,11 @@ def gang_assign_ref(cfg: KernelConfig, planes: dict, static: dict, f: dict,
 
 def gang_work_words(p) -> int:
     """int32 words of one mask row's work slice in K5 (gang_work_words in
-    csrc/gang_assign.cu): the carry planes and the hard-spread domain
-    counts."""
+    csrc/gang_assign.cu): the carry planes, the hard-spread domain counts
+    and, in the GTAB instance (p.gtab), the row's domain tables."""
     return (p.Nb * (p.R + 2 + p.S) + (3 * p.Nb * p.Ta if p.ipa_active else 0)
-            + (p.K * p.D * p.S if p.dom_carry else 0))
+            + (p.K * p.D * p.S if p.dom_carry else 0)
+            + (scan_table_words(p) if p.gtab else 0))
 
 
 def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
@@ -1795,10 +1894,12 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
     _check(masks, "masks", device, torch.bool, (D, nb))
     if population is None:
         population = int(masks.sum(dim=1).max()) if D else 0
-    blocks, _ = scan_plan_for("gang_assign", cfg, planes, population=population)
+    plan = scan_plan_for("gang_assign", cfg, planes, population=population)
+    blocks = plan.blocks
     p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
                      n_static=P, G=0, cursor0=0)
     p.walk = max(1, min(nb // blocks, int(population)))
+    p.gtab = int(plan.gtab)
     g = cuda.GangParams(scan=p, rows=D, n_constrained=int(n_constrained),
                         has_fallback=int(bool(has_fallback)), blocks=blocks)
     work = torch.empty(D * gang_work_words(p), dtype=torch.int32, device=device)
@@ -1812,9 +1913,10 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                                              "ipa_term_key")]
              if cfg.ipa_active else [0] * 4)
     ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device)]
-    # the per-row cluster instances are a library of their own (ops/cuda.py)
-    cuda.launch("gang_assign", g, ptrs, _stream(device),
-                lib="gang_assign_cluster" if blocks > 1 else None)
+    # the per-row cluster instances, and those whose tables live in each
+    # row's work slice (gtab), are libraries of their own (ops/cuda.py)
+    lib = "gang_assign_gmem" if plan.gtab else ("gang_assign_cluster" if blocks > 1 else None)
+    cuda.launch("gang_assign", g, ptrs, _stream(device), lib=lib)
     count_launch("gang_assign")
     return out
 
@@ -2237,6 +2339,69 @@ WAVE_FIT_CLUSTERS = (1, 2, 4)
 FIT_THREADS = 512
 
 
+# csrc/fit_and_score.cu's layout constants (FIT_FUSED_SMEM, FIT_STAGE_SMEM)
+# and comm.cuh's COMM_GATHER_WORDS, for fit_smem_words
+FIT_FUSED_SMEM = 160 * 1024
+FIT_STAGE_SMEM = 200 * 1024
+COMM_GATHER_WORDS = 16384
+
+
+def fit_npt(nb: int, cluster: int, wave: bool = False) -> int:
+    """The positions per thread of K4's instance (csrc fit_npt: the
+    smallest of 1, 2, 4 whose FIT_THREADS * npt cover ceil(nb / cluster)
+    rows, else 4) or K7's (one)."""
+    if wave:
+        return 1
+    rows, npt = -(-nb // cluster), 1
+    while npt < 4 and npt * FIT_THREADS < rows:
+        npt *= 2
+    return npt
+
+
+def fit_smem_words(p, npt: int, nt: int) -> tuple[int, int]:
+    """(table words, dynamic shared-memory words) of one K4 or K7 block
+    (csrc fit_smem, field for field) for FitParams-like `p` at npt
+    positions per thread of nt threads: the filter and score tables (D
+    words a slot or term, topo_words for each per-key set), side by side
+    when they fit FIT_FUSED_SMEM or in the GTAB instance (p.gtab: one set
+    per pod in a device-memory scratch, none of it in shared memory), the
+    folded copies a small table's cluster fold gathers into, the feature
+    row, and the staged node rows when all of it fits FIT_STAGE_SMEM."""
+    filt = ((2 * p.n_hard + p.n_ipa_anti + p.n_ipa_aff) * p.D
+            + (p.topo_words if p.ex_anti else 0))
+    score = (2 * p.n_soft + p.n_ipa_pref) * p.D + (p.topo_words if p.ex_pref_add else 0)
+    fused = bool(p.gtab) or 4 * (filt + score) <= FIT_FUSED_SMEM
+    tables = filt + score if fused else max(filt, score)
+    end = 0 if p.gtab else tables
+    for words in (filt, score):
+        if not p.gtab and fused and p.cluster > 1 and words * p.cluster <= COMM_GATHER_WORDS:
+            end += words
+    stage = end + p.F
+    row = 2 * p.R + 3 + p.T + p.Tp + p.W + p.I + p.K + p.S
+    staged = 4 * (stage + row * npt * nt) <= FIT_STAGE_SMEM
+    return tables, max(1, stage + row * npt * nt if staged else stage)
+
+
+def fit_gtab(p, wave: bool = False) -> bool:
+    """Whether a K4 (wave: K7) launch of FitParams-like `p` at its cluster
+    size takes the GTAB instance: its shared-memory layout (fit_smem_words)
+    does not fit SCAN_SMEM_BUDGET bytes (a key of thousands of domains with
+    several slots or terms), or tables_in_device_memory() is on."""
+    q = type(p).from_buffer_copy(p)
+    q.gtab = 0
+    nt = SCAN_THREADS if wave else FIT_THREADS
+    words = fit_smem_words(q, fit_npt(p.Nb, p.cluster, wave), nt)[1]
+    return not _smem_tables or 4 * words > SCAN_SMEM_BUDGET
+
+
+def _fit_scratch(p, P: int, device):
+    """The GTAB instance's domain tables, one set per pod (allocated here
+    on the launch's device and stream, cleared by the kernel), or None."""
+    if not p.gtab:
+        return None
+    return torch.empty(P * fit_smem_words(p, 1, 1)[0], dtype=torch.int32, device=device)
+
+
 def _fit_syncs_ptr(syncs, device) -> int:
     if syncs is None:
         return 0
@@ -2276,11 +2441,15 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
     from . import cuda
 
     p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf, cluster)
+    p.gtab = int(fit_gtab(p))
     _, per_pod = fit_output_bytes(nb, nf, R)
     out = torch.empty((packed_f.shape[0], per_pod), dtype=torch.uint8, device=device)
     if packed_f.shape[0]:
+        scratch = _fit_scratch(p, packed_f.shape[0], device)
         cuda.launch("fit_and_score", p,
-                    ptrs + [out.data_ptr(), _fit_syncs_ptr(syncs, device)], _stream(device))
+                    ptrs + [out.data_ptr(), _fit_syncs_ptr(syncs, device),
+                            0 if scratch is None else scratch.data_ptr()],
+                    _stream(device), lib="fit_and_score_gmem" if p.gtab else None)
         count_launch("fit_and_score")
     return out
 
@@ -2329,15 +2498,18 @@ def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
 
     nf = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
     p, ptrs = _fit_inputs(cfg, planes, tables, packed_f, layout, logtab, nf, cluster)
+    p.gtab = int(fit_gtab(p, wave=True))
     P, nb = packed_f.shape[0], planes["alloc"].shape[0]
     feasible = torch.empty((P, nb), dtype=torch.bool, device=device)
     total = torch.empty((P, nb), dtype=torch.int32, device=device)
     raw = torch.empty((P, 2, nb), dtype=torch.int32, device=device)
     if P:
+        scratch = _fit_scratch(p, P, device)
         cuda.launch("wave_fit_and_score", p,
                     ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr(),
-                            _fit_syncs_ptr(syncs, device)],
-                    _stream(device), lib="fit_and_score")
+                            _fit_syncs_ptr(syncs, device),
+                            0 if scratch is None else scratch.data_ptr()],
+                    _stream(device), lib="fit_and_score_gmem" if p.gtab else "fit_and_score")
         count_launch("wave_fit_and_score")
     return feasible, total
 
@@ -2435,8 +2607,9 @@ def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.T
         p.fit_col[i], p.fit_w[i] = col, w
     for i, (x, y) in enumerate(cfg.rtc_shape):
         p.rtc_x[i], p.rtc_y[i] = x, y
-    for i, dk in enumerate(cfg.topo_domains):
-        p.topo_dk[i] = dk
+    offs, p.topo_words = topo_layout(cfg.topo_domains)
+    for i, (dk, off) in enumerate(zip(cfg.topo_domains, offs)):
+        p.topo_dk[i], p.topo_off[i] = dk, off
     ptrs = [planes[k].data_ptr() for k in (
         "alloc", "used", "nonzero_used", "valid", "unsched", "group_id",
         "taints", "prefer_taints", "domain", "sel_counts", "port_words",
@@ -2479,12 +2652,12 @@ def batched_assign(cfg: KernelConfig, planes: dict, tables: dict,
     check_slice(cfg)
     if n_shards is not None:
         check_shards(n_shards, planes["alloc"].shape[0])
-    blocks = None
+    plan = None
     if packed_f.device.type == "cuda":
         # a bucket past the card's largest cluster is refused before K1
-        blocks, _ = scan_plan_for("assign_scan" if n_shards is None else "sharded_assign",
-                                  cfg, planes, n_shards)
+        plan = scan_plan_for("assign_scan" if n_shards is None else "sharded_assign",
+                             cfg, planes, n_shards)
     static = static_parts(planes, tables, packed_f, layout, rows=uniq_idx)
     return _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init,
                    logtab, n_shards, sig_ids, uniq_idx, frame_shift, carry_map,
-                   sig_table, blocks=blocks)
+                   sig_table, plan=plan)

@@ -28,10 +28,10 @@ A copy of the reference package's module
   first chains on the previous bucket's carry, so the cold-carry launch of
   those buckets, which the first real wave after start() makes, is never
   warmed (its compile_count_since_warm() is 1 after that wave);
-- the warm pods take the namespace and labels of a pending pod when the
-  caller passes one (`template`; Scheduler._run_warmup passes the oldest
-  pending pod in the store), else the reference's label-less pods in
-  `default`. System-default spread interns a (namespace, selector) pair
+- the warm pods take the namespace, labels, topology spread constraints
+  and affinity of a pending pod when the caller passes one (`template`;
+  Scheduler._run_warmup passes the oldest pending pod in the store), else
+  the reference's label-less pods in `default`. System-default spread interns a (namespace, selector) pair
   per label set: label-less warm pods intern one that labelled traffic
   never uses, so SchedulingBasic's `app: perf` pods grow the selector
   bucket on their first wave and meet plane shapes the warmup never
@@ -71,22 +71,34 @@ DEFAULT_GANG_SHAPES = ((4, 0, True),)
 
 
 def _warm_pods(n: int, template=None):
-    """Synthetic pods with a plain-pod kernel configuration — the same cfg
-    wave traffic launches with. They ride the real register path, so they
-    must intern the SAME vocab entries traffic will: a namespace or label
-    set traffic never uses would grow a vocabulary bucket traffic never
-    grows. With a template pod they take its namespace and labels, else
-    they are label-less in `default`."""
+    """Synthetic pods with the kernel configuration wave traffic launches
+    with. They ride the real register path, so they must intern the SAME
+    vocab entries traffic will: a namespace or label set traffic never uses
+    would grow a vocabulary bucket traffic never grows. With a template pod
+    they take its namespace, labels, topology spread constraints and
+    affinity (so a backlog spread or anti-affine by a key of thousands of
+    domains warms the launch plan its waves pick: the slot counts and the
+    domain tables' placement), else they are label-less plain pods in
+    `default`."""
+    from dataclasses import replace
+
     from ...testing.wrappers import make_pod
 
     namespace, labels = "default", None
     if template is not None:
         namespace, labels = template.meta.namespace, template.meta.labels
-    return [
+    pods = [
         make_pod(f"warm-{i}", namespace=namespace, cpu="100m", mem="128Mi",
                  labels=labels)
         for i in range(n)
     ]
+    if template is not None and (template.spec.topology_spread_constraints
+                                 or template.spec.affinity is not None):
+        for pod in pods:
+            pod.spec = replace(pod.spec, affinity=template.spec.affinity,
+                               topology_spread_constraints=template.spec
+                               .topology_spread_constraints)
+    return pods
 
 
 def _pow2_buckets(top: int) -> list[int]:

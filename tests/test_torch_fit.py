@@ -297,8 +297,10 @@ def test_wrapper_dispatch_and_gate():
     for gate in (tk.check_fit_slice, tk.check_slice):
         gate(pcfg)
         gate(ipa)
-        with pytest.raises(tk.OutOfSlice):
-            gate(dataclasses.replace(pcfg, topo_domains=(2048, 0)))
+        # a key of 2048 domains is computed; 17 keys are past the capacity
+        gate(dataclasses.replace(pcfg, topo_domains=(2048, 0)))
+        with pytest.raises(tk.OutOfSlice, match="topology keys"):
+            gate(dataclasses.replace(pcfg, topo_domains=(8,) * 17))
         with pytest.raises(tk.OutOfSlice, match="term slots"):
             gate(dataclasses.replace(ipa, max_ipa_pref=9))
     tk.reset_launches()

@@ -482,6 +482,11 @@ def _refused_pods(side):
     return out
 
 
+# NodeResourcesFit scoring nine resources: one past the kernels' 8 (B3)
+NINE_SCORED = {"NodeResourcesFit": {"resources": {
+    "cpu": 1, "memory": 1, **{f"example.com/r{i}": 1 for i in range(7)}}}}
+
+
 def test_fallback_needed_goes_to_the_host_algorithm():
     sides = _sides(_basic_nodes(12))
     for pod in _refused_pods(sides[1]):
@@ -494,32 +499,32 @@ def test_fallback_needed_goes_to_the_host_algorithm():
 
 def test_out_of_slice_is_not_routed_to_the_host():
     """A pod the extractor accepts whose shapes K4's gate refuses raises
-    OutOfSlice from schedule_pod with fallback_count unchanged: spread
-    over a "rack" key of 1025 domains, two nodes in one (K4 holds at most
-    1024 domains per key; the reference computes any count), on the kernel
+    OutOfSlice from schedule_pod with fallback_count unchanged: a backend
+    scoring nine resources (NodeResourcesFit's `resources`; K4 holds at
+    most 8, ROADMAP B3; the reference computes any count), on the kernel
     route and on the hybrid route. A pod the extractor refuses on the same
     cluster takes the host algorithm. A non-empty extender list is
     accepted (extenders are ported)."""
     names = TNames()
     cache = TCache(names)
-    for i in range(1026):
+    for i in range(24):
         cache.add_node(tw.make_node(f"node-{i}", zone=f"zone-{i % 4}",
-                                    labels={"rack": f"r{i % 1025}"}))
+                                    labels={"rack": f"r{i % 12}"}))
     snap = TSnapshot()
     cache.update_snapshot(snap)
     algo = TorchSchedulingAlgorithm(
         TFramework(tdefault_plugins(names), dict(TWEIGHTS)),
-        TorchBackend(names, device="cpu"), nominator=Nominator())
+        TorchBackend(names, device="cpu", plugin_args=NINE_SCORED), nominator=Nominator())
 
     def racked(i):
         return tw.with_spread(tw.scheduling_basic_pod(i), max_skew=1, key="rack",
                               when="ScheduleAnyway")
 
-    with pytest.raises(OutOfSlice, match="1024"):
+    with pytest.raises(OutOfSlice, match="fit resources"):
         algo.schedule_pod(TCycleState(), racked(0), snap)
     needy = racked(1)
     needy.meta.annotations[NDF] = FEATURE
-    with pytest.raises(OutOfSlice, match="1024"):
+    with pytest.raises(OutOfSlice, match="fit resources"):
         algo.schedule_pod(TCycleState(), needy, snap)
     assert (algo.kernel_count, algo.fallback_count) == (0, 0)
     side = SimpleNamespace(types=ttypes, pkg="port")
@@ -758,31 +763,29 @@ def test_gang_gates_and_catch_all(monkeypatch):
 @pytest.mark.parametrize("route", ["device", "host"])
 @pytest.mark.parametrize("mode", ["Required", "Preferred"])
 def test_out_of_slice_gang_is_not_routed_to_the_host(mode, route):
-    """Gang members spread over a "rack" key of 1025 domains, two nodes in
-    one, all in zone-0 (K1/K5 and K4 hold at most 1024 domains per key; the
-    reference computes any count): OutOfSlice raises from
-    schedule_pod_group on the device route (K5's gate inside run_gang) and
-    on the host route (K4's gate in zone-0's dry run of a gang with a
-    declared-features member, after zone-1's dry run found no node for
-    it), with every assume, placement and the rng restored and no member
-    counted on the device route."""
-    spec = {"nodes": [gang_node(f"node-{i}", f"zone-{int(i >= 1026)}", cpu="4")
-                      for i in range(1027)],
+    """Gang members spread by rack on a backend scoring nine resources (K1/K5
+    and K4 hold at most 8, ROADMAP B3; the reference computes any count):
+    OutOfSlice raises from schedule_pod_group on the device route (K5's
+    gate inside run_gang) and on the host route (K4's gate in a dry run of
+    a gang with a declared-features member), with every assume, placement
+    and the rng restored and no member counted on the device route."""
+    spec = {"nodes": [gang_node(f"node-{i}", f"zone-{int(i >= 30)}", cpu="4")
+                      for i in range(31)],
             "gangs": [gang("g0", mode, [gang_member(f"m{i}", cpu="1", spread=(1, "rack"))
                                         for i in range(3)], labelled=True)]}
     nodes = build_gang_nodes(spec, ttypes, tmeta)
     for i, n in enumerate(nodes):
-        n.meta.labels["rack"] = f"r{i % 1025}"
-    side = _Side("port", nodes)
+        n.meta.labels["rack"] = f"r{i % 15}"
+    side = _Side("port", nodes, plugin_args=NINE_SCORED)
     group, members = build_gangs(spec, ttypes, tmeta)[0]
     if route == "host":
         members[1].meta.annotations[NDF] = FEATURE
     side.add_group(group, members)
     rng = side.algo.rng.getstate()
-    with pytest.raises(OutOfSlice, match="1024"):
+    with pytest.raises(OutOfSlice, match="fit resources"):
         PodGroupCycle(side.snapshot, side.fw, side.algo, side.names).schedule_pod_group(
             group.meta.key, [SimpleNamespace(pod=p) for p in members])
-    assert side.snapshot.num_nodes() == 1027
+    assert side.snapshot.num_nodes() == 31
     assert not any(ni.pods for ni in side.snapshot.list_nodes())
     assert side.algo.rng.getstate() == rng
     assert side.algo.fallback_count == 0 and side.backend.gang_errors == 0

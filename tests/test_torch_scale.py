@@ -113,8 +113,9 @@ def _config(name):
         return _port_config(nodes, [], [tw.topology_spreading_pod(i) for i in range(16)])
     if name == "IPA wave":
         return _port_config(*_ipa_wave())
-    # the widest the gates pass: 16 keys of 1024 domains, four hard and four
-    # soft slots, every IPA term slot and both existing-term flags
+    # the widest configuration the gates passed before keys of more than
+    # 1024 domains were computed: 16 keys of 1024 domains, four hard and
+    # four soft slots, every IPA term slot and both existing-term flags
     return (tk.KernelConfig(topo_domains=(1024,) * 16, n_hard=4, n_soft=4,
                             ipa_existing_anti=True, ipa_existing_pref=True, n_ipa_aff=4,
                             n_ipa_anti=4, n_ipa_pref=8), 16, 256)
@@ -123,11 +124,12 @@ def _config(name):
 CONFIGS = ["SchedulingBasic", "TopologySpreading", "IPA wave", "widest"]
 
 
-def _fits(cfg, R, S, nb, blocks, masked, population):
+def _fits(cfg, R, S, nb, blocks, masked, population, gtab=False):
     """Whether a block of `blocks` over nb slots fits: its positions within
-    one block's instances, its shared memory within the budget, and (K5)
-    its range within the uint16 list."""
-    p = cuda.ScanParams(R=R, S=S, **tk._cfg_scan_fields(cfg))
+    one block's instances, its shared memory (the domain tables among it,
+    but in the GTAB instance) within the budget, and (K5) its range within
+    the uint16 list."""
+    p = cuda.ScanParams(R=R, S=S, gtab=int(gtab), **tk._cfg_scan_fields(cfg))
     span = nb // blocks
     slots = span if not masked else max(1, min(span, population))
     return (tk.scan_npt(slots) > 0
@@ -158,16 +160,23 @@ def test_scan_plan_covers_every_bucket_within_shared_memory(name):
                 if masked and n_shards:
                     continue
                 for pop in pops:
-                    blocks, npt = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S,
-                                               population=pop)
+                    plan = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S, population=pop)
+                    blocks, npt = plan
                     low = n_shards or 1
                     assert blocks >= low and blocks & (blocks - 1) == 0 and nb % blocks == 0
-                    assert _fits(cfg, R, S, nb, blocks, masked, pop or nb)
+                    assert _fits(cfg, R, S, nb, blocks, masked, pop or nb, plan.gtab)
                     if blocks > low:
-                        assert not _fits(cfg, R, S, nb, blocks // 2, masked, pop or nb)
+                        assert not _fits(cfg, R, S, nb, blocks // 2, masked, pop or nb,
+                                         plan.gtab)
+                    # the tables leave shared memory only where no count up
+                    # to the largest cluster holds them there
+                    assert plan.gtab == (not any(
+                        _fits(cfg, R, S, nb, b, masked, pop or nb)
+                        for b in (1, 2, 4, 8, 16) if low <= b <= nb))
                     span = nb // blocks
                     slots = span if not masked else max(1, min(span, pop))
                     assert npt == tk.scan_npt(slots) and npt * tk.SCAN_THREADS >= slots
+                    p.gtab = int(plan.gtab)
                     words = tk.scan_smem_words(p, slots, masked)
                     assert 4 * words + tk.SCAN_STATIC_RESERVE <= tk.SCAN_SMEM_OPTIN
                     if name != "widest" and nb <= tk.SCAN_MAX_SLOTS and not masked:
@@ -186,6 +195,146 @@ def test_scan_plan_covers_every_bucket_within_shared_memory(name):
             assert tk.scan_plan("assign_scan", cfg, nb, R=R, S=S) == (blocks, 16)
             assert tk.scan_plan("sharded_assign", cfg, nb, 8, R=R, S=S)[0] == max(8, blocks)
         assert tk.scan_plan("sharded_assign", cfg, 65536, 2, R=R, S=S)[0] == 4
+
+
+# configurations with a rack key of 1250 or 5556 domains (topo_dk 2048 and
+# 8192) beside zone and hostname, as phase 30 of chip_smoke runs them: a
+# wave spread by rack (TopologySpreading's DoNotSchedule constraint on
+# rack), the mixed wave (and anti-affinity by rack over existing pods with
+# such terms), and every slot at once
+RACK_CONFIGS = {
+    f"rack {what} {dk}": (tk.KernelConfig(topo_domains=(16, 0, dk), **kw), 4, 8)
+    for dk in (2048, 8192) for what, kw in (
+        ("spread", dict(n_hard=1, n_soft=0)),
+        ("mixed", dict(n_hard=1, n_soft=0, n_ipa_anti=1, ipa_existing_anti=True)),
+        ("every slot", dict(n_hard=4, n_soft=4, n_ipa_aff=4, n_ipa_anti=4, n_ipa_pref=8,
+                            ipa_existing_anti=True, ipa_existing_pref=True)))}
+
+
+def _plan_before(cfg, R, S, kernel, nb, n_shards, population):
+    """The plan as it was before the per-key tables and the GTAB instance:
+    every table set kept per key slot K x D words, the tables always in
+    shared memory; (blocks, npt), or None past every count."""
+    p = cuda.ScanParams(R=R, S=S, **tk._cfg_scan_fields(cfg))
+    masked = kernel == "gang_assign"
+    filt = p.n_ipa_anti + p.n_ipa_aff + (p.K if p.ex_anti else 0)
+    score = p.n_ipa_pref + (p.K if p.ex_pref_add else 0)
+    ipa_raw = p.n_ipa_pref > 0 or (p.ipa_active and p.ex_pref)
+    blocks = n_shards or 1
+    while blocks <= nb and nb % blocks == 0:
+        span = nb // blocks
+        slots = span if not masked else max(1, min(span, population or span))
+        words = (2 * p.n_soft * p.D + max(filt, score) * p.D
+                 + ((p.K * p.D + 31) // 32 if p.dom_carry else 0)
+                 + slots + (slots if p.n_soft > 0 else 0) + (slots if ipa_raw else 0)
+                 + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S)
+        if (tk.scan_npt(slots) and 4 * words <= tk.SCAN_SMEM_BUDGET
+                and (not masked or span <= tk.SCAN_MAX_RANGE)):
+            return blocks, tk.scan_npt(slots)
+        blocks *= 2
+    return None
+
+
+@pytest.mark.parametrize("name", CONFIGS + list(RACK_CONFIGS))
+def test_plans_keep_shared_memory_where_it_holds_the_tables(name):
+    """Every configuration the gates passed before keeps its plan on a card
+    of 16 blocks: the same blocks and NPT, its tables in shared memory (the
+    per-key tables only shrink them). A rack configuration takes the GTAB
+    instance, its tables in device memory, exactly where no count of up to
+    16 blocks holds them in shared memory (_fits on the new layout)."""
+    cfg, R, S = RACK_CONFIGS[name] if name in RACK_CONFIGS else _config(name)
+    gtabs = []
+    for nb in BUCKETS:
+        for kernel, n_shards, pops in (("assign_scan", None, [None]),
+                                       ("sharded_assign", 8, [None]),
+                                       ("gang_assign", None, [nb, max(1, nb // 8)])):
+            if n_shards and n_shards > nb:
+                continue
+            for pop in pops:
+                low = n_shards or 1
+                try:
+                    plan = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S, population=pop,
+                                        max_blocks=16)
+                except tk.OutOfSlice:
+                    plan = None
+                if name in CONFIGS:
+                    before = _plan_before(cfg, R, S, kernel, nb, n_shards, pop)
+                    if before is None or before[0] > 16:
+                        assert plan is None or plan.gtab
+                    else:
+                        assert plan == before and not plan.gtab, (kernel, nb, pop)
+                    continue
+                shared = any(_fits(cfg, R, S, nb, b, kernel == "gang_assign", pop or nb)
+                             for b in (1, 2, 4, 8, 16) if low <= b <= nb)
+                if plan is not None:
+                    assert plan.gtab == (not shared)
+                    gtabs.append((kernel, nb, plan.gtab))
+                else:
+                    assert not shared
+    if name in RACK_CONFIGS:
+        got = {(k, nb): g for k, nb, g in gtabs}
+        # 5000 nodes (bucket 8192): a rack-spread wave keeps its one
+        # block's shared memory; 100000 nodes at 8192 domains with every
+        # slot: the tables take device memory
+        if "spread" in name:
+            assert got[("assign_scan", 8192)] is False
+            assert tk.scan_plan("assign_scan", cfg, 8192, R=R, S=S) == (1, 8)
+        if name == "rack every slot 8192":
+            assert got[("assign_scan", 131072)] is True
+            assert got[("sharded_assign", 131072)] is True
+
+
+def test_tables_in_device_memory_forces_the_gtab_instance():
+    """Within kernels.tables_in_device_memory() every scan plan takes the
+    GTAB instance at the block count of its positions alone; outside it the
+    plan is back (the memoized plans are dropped both ways)."""
+    cfg, R, S = _config("TopologySpreading")
+    shared = tk.scan_plan("assign_scan", cfg, 8192, R=R, S=S)
+    assert shared == (1, 8) and not shared.gtab
+    with tk.tables_in_device_memory():
+        forced = tk.scan_plan("assign_scan", cfg, 8192, R=R, S=S)
+        gang = tk.scan_plan("gang_assign", cfg, 8192, R=R, S=S, population=700)
+        assert forced == (1, 8) and forced.gtab and gang.gtab
+        assert forced.blocks == 1
+    again = tk.scan_plan("assign_scan", cfg, 8192, R=R, S=S)
+    assert again == shared and not again.gtab
+
+
+def test_per_key_tables_and_the_gtab_layouts():
+    """The per-key tables take each key's own words (topo_layout); the
+    GTAB instance's shared memory holds no table (scan_smem_words,
+    fit_smem_words), K5's work slice holds the row's tables
+    (gang_work_words), and K4 takes the GTAB instance exactly where its
+    shared layout passes the budget (fit_gtab)."""
+    offs, words = tk.topo_layout((8, 0, 8192, 16))
+    assert offs == [0, 8, 8, 8200] and words == 8216
+    cfg = tk.KernelConfig(topo_domains=(8, 0, 8192), n_hard=4, n_soft=4, n_ipa_anti=4,
+                          n_ipa_aff=4, n_ipa_pref=8, ipa_existing_anti=True,
+                          ipa_existing_pref=True)
+    p = cuda.ScanParams(R=4, S=8, Nb=8192, Ta=6, **tk._cfg_scan_fields(cfg))
+    assert p.topo_words == 8200 and p.D == 8192
+    tables = tk.scan_table_words(p)
+    assert tables == 2 * 4 * 8192 + max(8 * 8192 + 8200, 8 * 8192 + 8200) + (8200 + 31) // 32
+    positions = tk.scan_smem_words(p, 1000, True)
+    p.gtab = 1
+    assert tk.scan_smem_words(p, 1000, True) == positions - tables
+    work = tk.gang_work_words(p)
+    p.gtab = 0
+    assert work == tk.gang_work_words(p) + tables
+    f = cuda.FitParams(Nb=8192, cluster=16, R=4, K=3, S=8, F=200, D=8192, n_hard=1,
+                       topo_words=8200)
+    t, dyn = tk.fit_smem_words(f, 1, tk.FIT_THREADS)
+    assert t == 2 * 8192 and dyn > t and not tk.fit_gtab(f)
+    f.n_hard, f.n_soft, f.n_ipa_anti, f.ex_anti = 4, 4, 4, 1
+    assert tk.fit_gtab(f) and tk.fit_gtab(f, wave=True)
+    f.gtab = 1
+    t2, dyn2 = tk.fit_smem_words(f, 1, tk.FIT_THREADS)
+    # the feature row and the staged node rows only (2R + 3 + K + S words a row)
+    assert t2 == (8 + 4) * 8192 + 8200 + 8 * 8192 and dyn2 == 200 + (2 * 4 + 3 + 3 + 8) * 512
+    with tk.tables_in_device_memory():
+        f.n_hard, f.n_soft, f.n_ipa_anti, f.ex_anti, f.gtab = 1, 0, 0, 0, 0
+        assert tk.fit_gtab(f)
+    assert not tk.fit_gtab(f)
 
 
 def test_scan_plan_mirrors_the_launch_parameters():
@@ -252,6 +401,7 @@ def test_scan_plan_refuses_unknown_kernels_and_undivided_buckets():
     with pytest.raises(ValueError, match="no scan kernel"):
         tk.scan_plan("fit_and_score", cfg, 1024, R=4, S=8)
     # the widest configuration past 16 blocks is refused at any card cap
+    # (its tables in device memory, its positions 16384 a block: 32 blocks)
     wide, R, S = _config("widest")
     blocks, _ = tk.scan_plan("assign_scan", wide, 524288, R=R, S=S)
     assert blocks > tk.SCAN_MAX_BLOCKS
