@@ -399,14 +399,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    tables live in a device-memory scratch, equal to its plain version on
    every output: (a) at RACK_A K4 at every cluster size on a rack-spread
    and a rack anti-affinity pod (K4 at 16 blocks timed on both instances
-   beside its floor and bound), K1 + K5 on gangs of 4 and 128 spread by
+   beside its floor and bound), K1 + K5 on gangs of 4 and RACK_BIG_GANG
+   (32: cut in depth from 128, `python3 tools/domains_phase.py
+   --full-depth` runs 128) spread by
    rack and placed by zone (Required, Preferred), K7 on --wave
    rack-spread pods, and K1 + K2 and K6 on 8 shards on a wave of --wave
    rack-spread pods (both tiers) and on a mixed wave over RACK_EXISTING
    pods with anti-affinity by rack (dedup on; K2 timed with dedup on, on
    both instances, beside its floor and bound); (b) at RACK_B the two
    waves through K2's cluster route and K6, and K4 on the rack pods; (c)
-   at RACK_C K5 on a 128-member Preferred gang and the two waves
+   at RACK_C K5 on a RACK_BIG_GANG-member Preferred gang and the two waves
    (untimed, cut in depth for the run's limit: RACK_TIME_C; `python3
    tools/domains_phase.py --full-depth` times them), the scratch's and the
    signature
@@ -417,6 +419,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    RACK_CPU_PODS over RACK_A's nodes on a LogicalClock, the card against
    device="cpu": bindings, rng, kernel/fallback counts equal. `python3
    tools/domains_phase.py` runs phase 30 alone;
+31. any number of scored resources, shape points and topology keys
+   (testing/capacity.py's fleet at CAP_NODES 5000 nodes, 1000 of them
+   H100 nodes under MIG's mixed strategy; CAP_CONFIGS: ten scored
+   resources under LeastAllocated and under a 21-point
+   RequestedToCapacityRatio shape over 4 keys, 20 keys (K 32) under the
+   latter, 40 keys (K 64) under the default profile; the key slots
+   asserted): (a) each configuration through K1, K2 (both tiers, seeded
+   and chained), K6 on 8 shards, K7, K4 at every cluster size and K5 on
+   gangs in both modes against their plain versions, every output equal
+   (the K 32 configuration on the GTAB instances too), on waves of
+   CAP_CMP_PODS pods, gangs of CAP_GANG and CAP_K7_PODS K7 pods (cut in
+   depth from 512, 32 and 64 for the run's limit: the plain scan takes
+   11-50 ms a step at these widths; `python3 tools/capacity_phase.py
+   --full-depth` runs them uncut); (b) CAP_LOOP_PODS pods carrying every
+   role on the high key slots through the Scheduler (warm start, depth 2)
+   on the K 32 fleet: every pod bound, no first use after the warmup;
+   CAP_CPU_PODS (64: cut from 512, the CPU half schedules 12-20 pods/s)
+   on a LogicalClock, the card against device="cpu": bindings, rng and
+   counts equal; (c) K2 on a wave of --wave pods per wave and per step,
+   K4 per pod at 16 blocks, K5 per gang and K7 on each configuration, K2
+   and K4 beside phase 20's step times. `python3 tools/capacity_phase.py` runs phase 31 alone;
 then print the card, the timings, the seconds of every phase (1 the
 build), the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
@@ -1367,9 +1390,14 @@ def main() -> None:
     timed("28", entrypoint_phase, args, smi)
     timed("29", scale_phase, args, smi, rates22["depth 2"])
     timed("30", domains_phase, args, smi)
+    steps = {"SchedulingBasic K2": k2[True]["ms"] * 1e3 / cell4[1].packed_f.shape[0],
+             "TopologySpreading K2": waves7["k2"]["ms"] * 1e3
+             / waves7["cell"][1].packed_f.shape[0],
+             "K4 (a)": k4["ms"] * 1e3}
+    timed("31", capacity_phase, args, smi, steps)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("phase seconds (1 is the build): " + json.dumps(
-        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 31))}))
+        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 32))}))
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -5588,13 +5616,14 @@ def equal_outputs(label, got, want):
 # (d) the card against the CPU on SCALE_CPU_NODES; (e) the cap's launch with
 # SCALE_CAP_PODS pods. SCALE_GANG_GROUPS is cut in depth from gang.json's
 # 100 to 20 (each gang re-plans 50000 nodes on the host) for chip_smoke's
-# time limit, as (d)'s SCALE_BURST is; `python3 tools/scale_phase.py
-# --full-depth` runs both uncut.
+# time limit, as (d)'s SCALE_BURST and (b)'s SCALE_BURSTS (4 to 3: two
+# warm bursts still show the uploads flat) are; `python3
+# tools/scale_phase.py --full-depth` runs them uncut.
 SCALE_NODES = 50000
 SCALE_INIT_PODS = 1000
 SCALE_PODS = 10000
 SCALE_SWEEP = (25000, 50000, 100000)
-SCALE_BURSTS = 4
+SCALE_BURSTS = 3
 SCALE_CHURN = 64
 SCALE_GANG_GROUPS = 20
 SCALE_BIG_GANGS = 3
@@ -6275,6 +6304,11 @@ RACK_EXISTING = 2000
 RACK_LOOP_PODS = 5000
 RACK_CPU_PODS = 1024
 RACK_KEY = "rack"
+# the members of (a)'s and (c)'s larger rack gangs: cut in depth from 128
+# for the run's limit (their plain versions scan every member on every mask
+# row: ~20 s of a run at 128); `python3 tools/domains_phase.py
+# --full-depth` runs 128
+RACK_BIG_GANG = 32
 # whether (c)'s K2 and K5 are timed: not in chip_smoke (cut in depth for its
 # time limit: the profiler's calls cost the phase ~10 s; their times are
 # the cluster route's of (b) at more slots); `python3 tools/domains_phase.py
@@ -6724,8 +6758,9 @@ def domains_phase(args, smi):
         # K4, K5 and K7 on the cluster before its existing pods join
         e4, k4 = rack_k4("(a) rack-spread pod", backend, snap, [rack_spread_pod(10**6)],
                          time_it=True)
+        big = RACK_BIG_GANG
         k5 = rack_gangs("(a)", cache, snap, backend, ((4, "Required"), (4, "Preferred"),
-                                                      (128, "Required"), (128, "Preferred")),
+                                                      (big, "Required"), (big, "Preferred")),
                         args.seed)
         e7, k7_ms = rack_k7("(a)", backend, snap, args.wave, args.seed)
         res["a"] = rack_waves("(a)", cache, snap, backend, n, args, 8, True, True)
@@ -6740,8 +6775,9 @@ def domains_phase(args, smi):
             print(f"30 ({key}): {n} nodes in {-(-n // per)} racks built in "
                   f"{time.perf_counter() - t:.1f} s")
             if key == "c":
-                res["c_k5"] = rack_gangs(f"({key})", cache, snap, backend, ((128, "Preferred"),),
-                                         args.seed, timed=RACK_TIME_C)
+                res["c_k5"] = rack_gangs(f"({key})", cache, snap, backend,
+                                         ((RACK_BIG_GANG, "Preferred"),), args.seed,
+                                         timed=RACK_TIME_C)
             res[key] = rack_waves(f"({key})", cache, snap, backend, n, args, 8, False,
                                   key == "b" or RACK_TIME_C)
             if key == "b":
@@ -6756,6 +6792,427 @@ def domains_phase(args, smi):
     with watchdog("phase 30 (e) (racks, the card against the CPU)", args.phase_timeout):
         rack_card_vs_cpu(args)
     print(f"phase 30: {time.perf_counter() - t0:.1f} s on {smi}")
+    return res
+
+
+
+# --------------------------------------------------------------------------
+# 31: any number of scored resources, shape points and topology keys
+# --------------------------------------------------------------------------
+
+# phase 31's configurations over testing/capacity.py's H100 fleet at
+# SchedulingBasic's 5000 nodes (1000 of them H100 nodes under MIG's mixed
+# strategy; ten scored resources): name -> (NodeResourcesFit profile,
+# topology keys). The two profiles past the parameter block's 8 scored
+# resources (LeastAllocated, and RequestedToCapacityRatio over a 21-point
+# shape, past its 16 points) over 4 keys; 20 keys (K 32: the traffic on
+# slots 16-19) under the RequestedToCapacityRatio profile; 40 keys (K 64:
+# slots 33-36) under the default profile. (b) CAP_LOOP_PODS of the loop's
+# pods through the Scheduler on the K 32 fleet, CAP_CPU_PODS of them the
+# card against the CPU. Cut in depth for the run's time limit, the widths
+# kept: the kernels are held against the plain versions on waves of
+# CAP_CMP_PODS (the plain scan takes 11-50 ms a step at these widths on an
+# H100) and gangs of CAP_GANG, K7 on CAP_K7_PODS pods, and timed on waves
+# of --wave; CAP_CPU_PODS is cut from 512 (the CPU half schedules 12-20
+# pods/s). `python3 tools/capacity_phase.py --full-depth` holds them at
+# 512 pods, gangs of 32, 64 K7 pods and 512 CPU pods.
+CAP_NODES = 5000
+CAP_CONFIGS = {"least10": ("least", 4), "rtc21": ("rtc", 4), "k32": ("rtc", 20),
+               "k64": (None, 40)}
+CAP_LOOP = "k32"
+CAP_LOOP_PODS = 2048
+CAP_CMP_PODS = 32
+CAP_CPU_PODS = 64
+CAP_GANG = 8
+CAP_K7_PODS = 8
+
+
+def cap_args(profile):
+    from kubernetes_tpu_torch.testing import capacity
+
+    return {"least": capacity.least_allocated_args, "rtc": capacity.rtc_args,
+            None: lambda: None}[profile]()
+
+
+def cap_slots(label, vocabs, n_keys):
+    """The fleet's keys hold their KEYS slots (the anchors' terms intern
+    them in order) and the traffic's roles sit past the parameter block's
+    16 slots (K 32) and one mask word's 32 (K 64). Returns {role: slot}."""
+    from kubernetes_tpu_torch.testing import capacity
+
+    got = [vocabs.topo_keys.get(k) for k in capacity.KEYS[n_keys]]
+    roles = {r: s for r, (_k, s) in capacity.key_slots(n_keys).items()}
+    if got != list(range(n_keys)) or min(roles.values()) < {4: 0, 20: 16, 40: 32}[n_keys]:
+        fail(f"{label}: key slots {got}, roles {roles}")
+    return roles
+
+
+def cap_cluster(name, device="cuda"):
+    """(cache, snapshot, backend) of configuration `name`'s fleet, its
+    anchors running and synced."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing import capacity
+
+    profile, n_keys = CAP_CONFIGS[name]
+    names = ResourceNames()
+    cache = Cache(names)
+    for node in capacity.capacity_nodes(CAP_NODES, n_keys, types, meta):
+        cache.add_node(node)
+    for pod, node in capacity.anchor_pods(CAP_NODES, n_keys, types, meta):
+        cache.assume_pod(pod, node)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    backend = TorchBackend(names, device=device, plugin_args=cap_args(profile))
+    backend.sync(snap)
+    return cache, snap, backend
+
+
+def cap_config_line(name, cfg, roles):
+    """The configuration reaches past the parameter block (launch tables
+    in use); its widths as a line."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    vals = kernels.launch_table_values(cfg)
+    if vals is None:
+        fail(f"31 {name}: the configuration stays within the parameter block")
+    return (f"{cfg.strategy} over {len(cfg.fit_resources)} resources, {len(cfg.rtc_shape)} "
+            f"shape points, K {len(cfg.topo_domains)} (roles on slots {roles}), launch tables "
+            f"{4 * len(vals)} bytes; n_hard {cfg.n_hard} n_soft {cfg.n_soft} ipa anti/pref "
+            f"{cfg.n_ipa_anti}/{cfg.n_ipa_pref} existing anti/pref "
+            f"{int(cfg.ipa_existing_anti)}/{int(cfg.ipa_existing_pref)}")
+
+
+def cap_k2(name, w, words, gtab):
+    """K1 and K2 on both tiers and K6 on 8 shards (dedup on) against the
+    plain versions; with gtab K2 and K6 on the GTAB instance too. Returns
+    the numbers."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    err = k1_compare(f"31 {name}", w.dp, w.dt, w.packed_f, w.layout, rows=w.uniq)
+    err = max(err, k1_compare(f"31 {name} (every pod)", w.dp, w.dt, w.packed_f, w.layout))
+    out, routes = {}, []
+    for dedup in (True, False):
+        k1 = k1_call(w, dedup)
+        kw = dict(sig_ids=w.sig, uniq_idx=w.uniq) if dedup else {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = k2_call(w, k1, words, dedup, plain=True)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        for forced in ((False, True) if gtab and dedup else (False,)):
+            with kernels.tables_in_device_memory() if forced else contextlib.nullcontext():
+                plan = kernels.scan_plan_for("assign_scan", w.cfg, w.dp)
+                place = f"{plan.blocks} blocks, {'device' if plan.gtab else 'shared'} memory"
+                err = max(err, equal_outputs(f"31 {name}: K2 dedup {dedup} ({place})",
+                                             k2_call(w, k1, words, dedup), want))
+                routes.append(f"K2 dedup {'on' if dedup else 'off'} ({place})")
+                if dedup:
+                    got6 = kernels.sharded_assign(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0,
+                                                  w.logtab, 8, **kw)
+                    err = max(err, equal_outputs(f"31 {name}: K6 on 8 shards ({place})", got6,
+                                                 want))
+                    routes.append(f"K6 8 shards ({place})")
+        if dedup:
+            out["plain_ms"] = plain
+            out["placed"] = int((want["packed"][:-2] >= 0).sum())
+            out["tiers"] = want["tiers"].tolist()
+    out["max_abs_err"] = err
+    out["routes"] = routes
+    return out
+
+
+def cap_k2_time(w, words):
+    """K2 (dedup on) on a wave of --wave pods timed per wave beside its
+    latency floor and bound (the output not compared: K2 equals its plain
+    version on the configuration's compared waves)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    k1 = k1_call(w, True)
+    plan = kernels.scan_plan_for("assign_scan", w.cfg, w.dp)
+    kname = "assign_scan_kernel" if plan.blocks == 1 else "sharded_assign_kernel"
+    syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    out = kernels.assign_scan(w.cfg, w.dp, k1, w.packed_f, w.layout, words, 0, w.logtab,
+                              syncs=syncs, sig_ids=w.sig, uniq_idx=w.uniq)
+    torch.cuda.synchronize()
+    ms = kernel_ms(lambda: k2_call(w, k1, words, True), kname, 3)
+    bd, by = bound_ms(*k2_work(w, k1, words, out, True))
+    return {"ms": ms, "floor_ms": floor_ms(syncs, w.planes.nb // plan.blocks, plan.blocks),
+            "bound_ms": bd, "bound_by": by, "steps_tiers": out["tiers"].tolist()}
+
+
+def cap_seeded(name, backend, snap, pods, pods2, seed):
+    """K2 seeded and chained against its plain version: `pods` launched
+    and collected through the backend (the carry and resident table),
+    then `pods2` chained on them with a device cursor and frame shift 5;
+    every output equal, K6 on 8 shards too."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    rng = random.Random(seed)
+    fl = backend.launch_batched(pods, snap, rng=rng, pad_to=len(pods))
+    hosts, _ = backend.collect(fl, rng=rng)
+    c = chained_inputs(backend, pods2, snap, len(pods2))
+    k1 = k1_call(c, True)
+    frame = tie_words(seed + 311, 2 * len(pods2))
+    cursor = torch.tensor(37, dtype=torch.int32, device="cuda")
+    kw = dict(sig_ids=c.sig, uniq_idx=c.uniq, frame_shift=5,
+              carry_map=torch.from_numpy(c.cmap).cuda(), sig_table=c.table)
+    want = kernels.assign_scan_ref(c.cfg, c.dp, k1, c.fv, frame, cursor, c.logtab, **kw)
+    err = equal_outputs(f"31 {name}: seeded chained K2",
+                        kernels.assign_scan(c.cfg, c.dp, k1, c.packed_f, c.layout, frame, cursor,
+                                            c.logtab, **kw), want)
+    err = max(err, equal_outputs(f"31 {name}: seeded chained K6, 8 shards",
+                                 kernels.sharded_assign(c.cfg, c.dp, k1, c.packed_f, c.layout,
+                                                        frame, cursor, c.logtab, 8, **kw), want))
+    backend.invalidate_carry()
+    return err, sum(1 for h in hosts if h), want["tiers"].tolist()
+
+
+def cap_k7(name, w, gtab):
+    """K7 at one block per pod on the wave's first CAP_K7_PODS pods against
+    its plain version (and on the GTAB instance with gtab). Returns (max
+    |kernel - plain|, ms)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    pf = w.packed_f[:CAP_K7_PODS].contiguous()
+    want_f, want_t = kernels.wave_fit_and_score_ref(w.cfg, w.dp, w.dt,
+                                                    unpack_features(pf, w.layout), w.logtab)
+    for forced in ((False, True) if gtab else (False,)):
+        with kernels.tables_in_device_memory() if forced else contextlib.nullcontext():
+            got_f, got_t = kernels.wave_fit_and_score(w.cfg, w.dp, w.dt, pf, w.layout, w.logtab)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_f, want_f) and torch.equal(got_t, want_t)):
+                fail(f"31 {name}: wave_fit_and_score (tables in "
+                     f"{'device' if forced else 'shared'} memory) differs from its plain "
+                     f"version")
+    ms = kernel_ms(lambda: kernels.wave_fit_and_score(w.cfg, w.dp, w.dt, pf, w.layout,
+                                                      w.logtab), "fit_and_score_kernel", 3)
+    return max_abs_err([(got_t, want_t)]), ms
+
+
+def cap_k4(name, backend, snap, pods, gtab, timed):
+    """K4 on one pod of each traffic kind at every cluster size it plans
+    (and on the GTAB instance with gtab); with timed, the pod carrying
+    every role timed at FIT_CLUSTER blocks. Returns (max |kernel - plain|,
+    us per pod or None)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    err, us = 0.0, None
+    for forced in ((False, True) if gtab else (False,)):
+        with kernels.tables_in_device_memory() if forced else contextlib.nullcontext():
+            e, _, case = _k4_compare(f"31 {name}{', device-memory tables' if forced else ''}",
+                                     backend, pods, snap)
+            err = max(err, e)
+    if timed:
+        cfg, _planes, dp, dt, packed_f, layout = case
+        one = packed_f[-1:].contiguous()
+        us = 1e3 * kernel_ms(lambda: kernels.fit_and_score(cfg, dp, dt, one, layout,
+                                                           backend._logtab,
+                                                           cluster=kernels.FIT_CLUSTER),
+                             "fit_and_score_kernel", 20)
+    return err, us
+
+
+def cap_gang(name, cache, snap, backend, mode, seed, gtab):
+    """K1 and K5 on a gang of CAP_GANG (members spread by the hard key,
+    half of them MIG pods), placed by zone in `mode`, against the plain
+    versions (and on the GTAB instance with gtab); the gang must place.
+    Returns (max |kernel - plain|, K5's ms on its plan: scan and pick)."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.tpu.gangplanner import plan_gang
+    from kubernetes_tpu_torch.testing import capacity
+
+    n_keys = CAP_CONFIGS[name][1]
+    group, pods = capacity.capacity_gang(f"cg-{mode[0]}", mode, CAP_GANG, n_keys, types, meta)
+    h, f, _ = gang_planner(cache, snap, backend, seed)
+    admit(h, group, pods)
+    plan = plan_gang(h, f, qpis(pods))
+    nc, hf = plan.gang_n_constrained, plan.gang_has_fallback
+    g = gang_inputs(backend, h.snapshot, pods, plan.gang_placements)
+    words = tie_words(seed, g.packed_f.shape[0])
+    err = k1_compare(f"31 {name} gang", g.dp, g.dt, g.packed_f, g.layout)
+    k1 = kernels.static_parts(g.dp, g.dt, g.packed_f, g.layout)
+    pop = int(g.masks.sum(dim=1).max())
+    want = k5_call(g, k1, words, nc, hf, plain=True)
+    for forced in ((False, True) if gtab else (False,)):
+        with kernels.tables_in_device_memory() if forced else contextlib.nullcontext():
+            got = kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks, words,
+                                      g.logtab, nc, hf, population=pop)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or not bool(got[-2]):
+                fail(f"31 {name}: gang_assign on a gang of {CAP_GANG}, {mode} (tables in "
+                     f"{'device' if forced else 'shared'} memory) differs from its plain "
+                     f"version or places nothing")
+            err = max(err, max_abs_err([(got, want)]))
+    t = kernels_ms(lambda: kernels.gang_assign(g.cfg, g.dp, k1, g.packed_f, g.layout, g.masks,
+                                               words, g.logtab, nc, hf, population=pop),
+                   ("gang_assign_kernel", "gang_pick_kernel"), 3)
+    return err, t["gang_assign_kernel"] + t["gang_pick_kernel"]
+
+
+def cap_kernels(name, args, gtab):
+    """31 (a), one configuration at CAP_NODES nodes: a wave of CAP_CMP_PODS
+    capacity pods through K1, K2 (both tiers), K6 (8 shards) and K7, and K4
+    on one pod of each kind, against their plain versions; gangs of
+    CAP_GANG in both modes through K1 and K5; a seeded wave chained on the
+    first one's carry. With gtab every kernel on the GTAB instance too.
+    (c) K2 on a wave of --wave pods and K4 on the pod carrying every role
+    timed. Returns the numbers."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.testing import capacity
+
+    t0 = time.perf_counter()
+    n_keys, n = CAP_CONFIGS[name][1], CAP_CMP_PODS
+    cache, snap, backend = cap_cluster(name)
+    roles = cap_slots(f"31 {name}", backend.builder.vocabs, n_keys)
+    pods = capacity.capacity_pods(0, n, n_keys, types, meta)
+    w = wave_inputs(backend, pods, snap, n)
+    line = cap_config_line(name, w.cfg, roles)
+    out = cap_k2(name, w, tie_words(args.seed + 310, n), gtab)
+    e7, out["k7_ms"] = cap_k7(name, w, gtab)
+    e4, out["k4_us"] = cap_k4(name, backend, snap,
+                              capacity.capacity_pods(2 * n, 2 * n + 8, n_keys, types, meta),
+                              gtab, True)
+    k5 = {mode: cap_gang(name, cache, snap, backend, mode, args.seed, gtab)
+          for mode in ("Required", "Preferred")}
+    e5 = max(e for e, _ms in k5.values())
+    out["k5_ms"] = {mode: ms for mode, (_e, ms) in k5.items()}
+    # (c) the wave of --wave pods (the same kinds; its config checked equal)
+    big = capacity.capacity_pods(10**5, 10**5 + args.wave, n_keys, types, meta)
+    wt = wave_inputs(backend, big, snap, args.wave)
+    if wt.cfg != w.cfg:
+        fail(f"31 {name}: the timed wave's config differs from the compared wave's")
+    out.update(cap_k2_time(wt, tie_words(args.seed + 312, args.wave)))
+    es, placed, tiers = cap_seeded(name, backend, snap, pods,
+                                   capacity.capacity_pods(n, 2 * n, n_keys, types, meta),
+                                   args.seed)
+    out["max_abs_err"] = max(out["max_abs_err"], e7, e4, e5, es)
+    print(f"31 (a) {name}: {CAP_NODES} nodes (bucket {w.planes.nb}), {line}; K1, "
+          f"{', '.join(out['routes'])}, K7 ({CAP_K7_PODS} pods{', GTAB too' if gtab else ''}), "
+          f"K4 (8 pods, every cluster size{', GTAB too' if gtab else ''}), K5 (gangs of "
+          f"{CAP_GANG}, Required and Preferred{', GTAB too' if gtab else ''}) and the seeded "
+          f"chained K2 and K6 on waves of {n} equal to their plain versions on every output; "
+          f"{out['placed']}/{n} placed, tiers {out['tiers']}, chained wave tiers {tiers} "
+          f"after {placed} placed through the backend; plain K2 {out['plain_ms']:.1f} ms (one "
+          f"call, host clock); K7 {out['k7_ms']:.4f} ms; K5 Required / Preferred "
+          f"{out['k5_ms']['Required']:.4f} / {out['k5_ms']['Preferred']:.4f} ms; (c) K2 on "
+          f"{args.wave} pods "
+          f"{out['ms']:.4f} ms per wave ({out['ms'] * 1e3 / args.wave:.2f} us per step, tiers "
+          f"{out['steps_tiers']}), latency floor {out['floor_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.5f} ms by {out['bound_by']}; K4 {out['k4_us']:.2f} us per pod at "
+          f"16 blocks; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cap_loop_run(n_pods, device, clock, wave, warm):
+    """(b): the port's Scheduler (RequestedToCapacityRatio over the ten
+    resources, depth 2) over a store holding CAP_LOOP's fleet, its anchors
+    bound and n_pods of capacity.wide_pod pending before start();
+    schedule_pending. Returns what the devices must agree on and the
+    run's numbers."""
+    import kubernetes_tpu_torch.api.meta as meta
+    import kubernetes_tpu_torch.api.types as types
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing import capacity
+
+    profile, n_keys = CAP_CONFIGS[CAP_LOOP]
+    store = Store()
+    for node in capacity.capacity_nodes(CAP_NODES, n_keys, types, meta):
+        store.create(node, copy_return=False)
+    for pod, node in capacity.anchor_pods(CAP_NODES, n_keys, types, meta):
+        pod.spec.node_name = node
+        store.create(pod, copy_return=False)
+    for i in range(n_pods):
+        store.create(capacity.wide_pod(i, n_keys, types, meta), copy_return=False)
+    os.environ["KUBE_TPU_PIPELINE_DEPTH"] = "2"
+    try:
+        s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave,
+                                               plugin_args=cap_args(profile))],
+                      seed=7, clock=clock, device=device, warm_start=warm)
+    finally:
+        os.environ.pop("KUBE_TPU_PIPELINE_DEPTH", None)
+    t0 = time.perf_counter()
+    s.start()
+    start_s = time.perf_counter() - t0
+    algo = s.algorithms["default-scheduler"]
+    if not warm:
+        # the planes synced before the first wave, as warm start syncs
+        # them: the anchors' terms intern the keys in KEYS order
+        s.cache.update_snapshot(s.snapshot)
+        algo.backend.sync(s.snapshot)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    s.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check_loop(f"31 loop on {device}", s)
+    roles = cap_slots(f"31 (b) on {device}", algo.backend.builder.vocabs, n_keys)
+    bound = {p.meta.key: p.spec.node_name for p in store.pods() if p.meta.name[0] == "w"}
+    return {"bindings": bound, "rng": algo.rng.getstate(), "roles": roles,
+            "counts": (algo.kernel_count, algo.fallback_count),
+            "since": s.flight_recorder.device_telemetry.compile_count_since_warm() if warm else 0,
+            "launches": dict(kernels.LAUNCHES), "pods_s": n_pods / wall, "start_s": start_s}
+
+
+def cap_loop(args, smi):
+    """31 (b): CAP_LOOP_PODS pods through the Scheduler with warm start on:
+    every pod bound, no first use after the warmup, K1 and K2 launched;
+    then CAP_CPU_PODS on a LogicalClock on the card and with device="cpu":
+    bindings, rng and counts equal. Returns the loop's pods/s."""
+    r = collected(cap_loop_run, CAP_LOOP_PODS, "cuda", StrictClock(), args.wave, True)
+    la = r["launches"]
+    if not all(r["bindings"].values()) or r["since"] or not (la["static_parts"]
+                                                            and la["assign_scan"]):
+        fail(f"31 (b): {sum(1 for v in r['bindings'].values() if v)} of {len(r['bindings'])} "
+             f"bound, first uses after the warmup {r['since']}, launches {la}")
+    print(f"31 (b) {CAP_LOOP_PODS} pods (every role on slots {r['roles']}) over {CAP_NODES} "
+          f"nodes, RequestedToCapacityRatio over ten resources, depth 2, warm start: every pod "
+          f"bound, compile_count_since_warm() 0; start() {r['start_s']:.2f} s, "
+          f"{r['pods_s']:.1f} pods/s on {smi}; launches {la}")
+    card = collected(cap_loop_run, CAP_CPU_PODS, "cuda", LogicalClock(), args.wave, False)
+    cpu = collected(cap_loop_run, CAP_CPU_PODS, "cpu", LogicalClock(), args.wave, False)
+    for k in ("bindings", "rng", "counts"):
+        if card[k] != cpu[k]:
+            fail(f"31 (b): the card and the CPU differ on {k}")
+    print(f"31 (b) {CAP_CPU_PODS} pods: card == CPU (bindings, rng, kernel/fallback counts "
+          f"{card['counts']}); {card['pods_s']:.1f} pods/s on the card, {cpu['pods_s']:.1f} on "
+          f"the CPU")
+    return r["pods_s"]
+
+
+def capacity_phase(args, smi, ref=None):
+    """31. Any number of scored resources, shape points and topology keys:
+    (a) every configuration of CAP_CONFIGS through K1, K2, K4, K5, K6 and K7
+    against the plain versions (CAP_LOOP's on the GTAB instances too), (b)
+    the Scheduler on CAP_LOOP's fleet and the card against the CPU, (c) K2
+    per wave and per step and K4 per pod on the wide configurations beside
+    phase 20's (`ref`: {label: us} from this call, or None when phase 20
+    did not run). Returns the numbers by configuration."""
+    t0 = time.perf_counter()
+    res = {}
+    for name in CAP_CONFIGS:
+        with watchdog(f"phase 31 (a) ({name})", args.phase_timeout):
+            res[name] = cap_kernels(name, args, gtab=name == CAP_LOOP)
+            gc.collect()
+    with watchdog("phase 31 (b) (the Scheduler on the wide fleet)", args.phase_timeout):
+        res["loop_pods_s"] = cap_loop(args, smi)
+    base = (", ".join(f"{k} {v:.2f}" for k, v in ref.items()) if ref
+            else "phase 20 not run in this call")
+    print("31 (c) K2 us per step / ms per wave, K4 us per pod at 16 blocks: "
+          + "; ".join(f"{k} {v['ms'] * 1e3 / args.wave:.2f} / {v['ms']:.4f}, {v['k4_us']:.2f}"
+                      for k, v in res.items() if isinstance(v, dict))
+          + f"; beside phase 20's ({base}) on {smi}")
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s on {smi}")
     return res
 
 

@@ -2,7 +2,9 @@
 //
 // Every struct here has a ctypes twin in kubernetes_tpu_torch/ops/cuda.py
 // with the same field order; all scalars are int32 and all arrays fixed
-// size, so the two layouts agree without padding rules.
+// size, so the two layouts agree without padding rules. The fixed arrays
+// do not bound what a launch computes: a configuration past them passes
+// its tables beside the block (the launch tables, below).
 //
 // Numerics (the bit-exact contract with the reference package):
 // - integer division is FLOOR division (jnp `//`); C/CUDA `/` truncates, so
@@ -142,6 +144,69 @@ struct FitParams {
     int gtab;     // the domain tables live in a device-memory scratch, one set
                   // per pod (fit_gtab in ops/kernels.py)
 };
+
+// The launch tables past the parameter block. ScanParams and FitParams
+// hold the first SCAN_MAX_FIT scored resources, SCAN_MAX_RTC shape points
+// and SCAN_MAX_KEYS key slots by value, so a configuration within them
+// launches with the same parameter bytes as ever. A configuration past any
+// of them also passes the whole of its tables in one small int32 device
+// tensor (the wrapper's, uploaded once per KernelConfig: launch_tables in
+// ops/kernels.py): fit_col [n_fit], fit_w [n_fit], rtc_x [n_rtc], rtc_y
+// [n_rtc], topo_dk [K], topo_off [K], launch_table_words(p) words; nullptr
+// within them. Each block stages them at the start of its dynamic shared
+// memory (stage_launch_tables: the kernels' layouts start after them,
+// scan_smem and fit_smem count them), so no device pointer stays live in
+// the kernels. Every entry is read through these accessors: below the cap
+// from the parameter block, past it from the staged copy (a branch on the
+// index alone, uniform over the grid).
+template <typename P>
+__host__ __device__ inline int launch_table_words(const P& p) {
+    return p.n_fit > SCAN_MAX_FIT || p.n_rtc > SCAN_MAX_RTC || p.K > SCAN_MAX_KEYS
+               ? 2 * (p.n_fit + p.n_rtc + p.K)
+               : 0;
+}
+
+// the kernels' dynamic shared memory (every extern __shared__ array starts
+// at the same address): the staged launch tables at its start
+extern __shared__ int dyn_smem[];
+
+// copy the launch tables (n words) to the start of dynamic shared memory;
+// the caller's next block barrier publishes them
+__device__ __forceinline__ void stage_launch_tables(const int* lt, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dyn_smem[i] = lt[i];
+}
+
+template <typename P>
+__device__ __forceinline__ int fit_col_at(const P& p, int i) {
+    return i < SCAN_MAX_FIT ? p.fit_col[i] : dyn_smem[i];
+}
+template <typename P>
+__device__ __forceinline__ int fit_w_at(const P& p, int i) {
+    return i < SCAN_MAX_FIT ? p.fit_w[i] : dyn_smem[p.n_fit + i];
+}
+template <typename P>
+__device__ __forceinline__ int rtc_x_at(const P& p, int i) {
+    return i < SCAN_MAX_RTC ? p.rtc_x[i] : dyn_smem[2 * p.n_fit + i];
+}
+template <typename P>
+__device__ __forceinline__ int rtc_y_at(const P& p, int i) {
+    return i < SCAN_MAX_RTC ? p.rtc_y[i] : dyn_smem[2 * p.n_fit + p.n_rtc + i];
+}
+template <typename P>
+__device__ __forceinline__ int topo_dk_at(const P& p, int k) {
+    return k < SCAN_MAX_KEYS ? p.topo_dk[k] : dyn_smem[2 * (p.n_fit + p.n_rtc) + k];
+}
+template <typename P>
+__device__ __forceinline__ int topo_off_at(const P& p, int k) {
+    return k < SCAN_MAX_KEYS ? p.topo_off[k]
+                             : dyn_smem[2 * (p.n_fit + p.n_rtc) + p.K + k];
+}
+
+// words of a matched-key mask over K key slots: one bit a slot. Up to 32
+// slots the mask is one word, kept where it always was (a register, one
+// shared int); past them the kernels keep key_words(K) words in dynamic
+// shared memory (scan_smem's and fit_smem's `keys`).
+__host__ __device__ inline int key_words(int K) { return (K + 31) / 32; }
 
 #define SCATTER_MAX_PLANES 16
 

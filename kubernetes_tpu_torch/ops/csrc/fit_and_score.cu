@@ -139,16 +139,22 @@ struct FitArgs {
     int* raw_out;       // K7: [P, 2, Nb] state of positions past the registers
     int* syncs;         // [FIT_COUNTS + FIT_PHASES] or nullptr
     int* tables;        // GTAB: [P, fit_smem().tables] the pods' domain tables
+    const int* lt;      // the launch tables past the parameter block (common.cuh)
 };
 
-// The dynamic shared memory of one block, in int32 words: the filter
+// The dynamic shared memory of one block, in int32 words: the staged
+// launch tables (launch_table_words, 0 within the parameter block's caps;
+// the offsets below but feat's onwards are from the tables' base past
+// them), the filter
 // tables (the hard slots' selector sums and participants and the required
 // IPA terms, D words each, then the existing pods' anti-affinity per key
 // slot, key k's topo_dk[k] words at topo_off[k]) and the score tables (the
 // soft slots' sums and participants, the preferred terms, the existing
 // pods' preferred terms per key slot), side by side when fused; the folded
 // copies a cluster reads when its fold gathers (small tables; else the
-// tables fold in place); the pod's feature row; then, when it fits, the
+// tables fold in place); the pod's feature row; past 32 key slots the
+// matched key mask (key_words(K) words; one word stays in the static
+// exmask_s); then, when it fits, the
 // rows of the node planes at the thread's register positions (alloc, used,
 // nonzero_used, group_id, taints, prefer_taints, port_words, image_kib,
 // domain, sel_counts: `row` words each), copied in while A runs. In the
@@ -157,12 +163,14 @@ struct FitArgs {
 // words, fused and read where every block of the cluster added into them
 // (no copies, no fold), and shared memory starts at the feature row.
 struct FitSmem {
-    int filt_words, score_words, score, rfilt, rscore, tables, feat, row, stage, words;
+    int lt, filt_words, score_words, score, rfilt, rscore, tables, feat, keys, row, stage,
+        words;
     bool fused, staged;
 };
 
 __host__ __device__ inline FitSmem fit_smem(const FitParams& p, int npt, int nt) {
     FitSmem s;
+    s.lt = launch_table_words(p);
     s.filt_words = (2 * p.n_hard + p.n_ipa_anti + p.n_ipa_aff) * p.D +
                    (p.ex_anti ? p.topo_words : 0);
     s.score_words = (2 * p.n_soft + p.n_ipa_pref) * p.D + (p.ex_pref_add ? p.topo_words : 0);
@@ -181,8 +189,9 @@ __host__ __device__ inline FitSmem fit_smem(const FitParams& p, int npt, int nt)
         s.rscore = end;
         end += s.score_words;
     }
-    s.feat = end;
-    s.stage = s.feat + p.F;
+    s.feat = s.lt + end;
+    s.keys = s.feat + p.F;
+    s.stage = s.keys + (key_words(p.K) > 1 ? key_words(p.K) : 0);
     s.row = 2 * p.R + 3 + p.T + p.Tp + p.W + p.I + p.K + p.S;
     const long long staged = (long long)s.stage + (long long)s.row * npt * nt;
     s.staged = staged * (long long)sizeof(int) <= FIT_STAGE_SMEM;
@@ -253,7 +262,8 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     extern __shared__ int pool[];
     __shared__ Slot hard[SCAN_MAX_SOFT], soft[SCAN_MAX_SOFT];
     __shared__ Slot anti[MAX_REQ_TERMS], aff[MAX_REQ_TERMS], pref[MAX_PREF_TERMS];
-    __shared__ int exmask_s, any_soft_s;
+    __shared__ unsigned exmask_s;  // the matched key mask up to 32 key slots
+    __shared__ int any_soft_s;
     __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
     __shared__ int xch[3 * SCAN_RED];
     __shared__ ScanSyncs syncs;
@@ -297,10 +307,16 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
     const FitSmem lay = fit_smem(p, NPT, NT);
+    // the launch tables past the parameter block, staged before warp 0
+    // resolves the pod's slots
+    if (lay.lt) {
+        stage_launch_tables(a.lt, lay.lt);
+        __syncthreads();
+    }
     // the tables this block adds into, and the folded ones it reads: the
     // pod's set in the scratch (GTAB: every block adds into it and reads
     // it), else this block's own in shared memory
-    int* tabs = GTAB ? a.tables + (size_t)pod * lay.tables : pool;
+    int* tabs = GTAB ? a.tables + (size_t)pod * lay.tables : pool + lay.lt;
     int* filt = tabs;
     int* score = tabs + lay.score;
     int* rfilt = tabs + lay.rfilt;
@@ -314,23 +330,21 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     // device memory while its feature row is copied in, the tables
     // cleared, the live extent; one fold publishes them all
     int* fsm = pool + lay.feat;
+    unsigned* km = key_words(p.K) > 1 ? reinterpret_cast<unsigned*>(pool + lay.keys) : &exmask_s;
     for (int i = tid; i < p.F; i += NT) copy_async(fsm + i, fg + i, 1);
     if (wid == 0) {
         pod_slots(p, fg, a.ipa_term_key, true, hard, soft, anti, aff, pref);
     } else if (wid == 1) {
         const bool anys = any_column(fg, p.f_soft_active, p.MC);
-        const int bits = matched_key_mask(p, fg, a.ipa_term_key);
-        if (lane == 0) {
-            any_soft_s = anys;
-            exmask_s = bits;
-        }
+        matched_key_mask(p, fg, a.ipa_term_key, km);
+        if (lane == 0) any_soft_s = anys;
     }
     const int table_words = lay.fused ? lay.filt_words + lay.score_words : lay.filt_words;
     if (GTAB) {  // the pod's set, each block a slice
         const int per = (table_words + C - 1) / C;
         for (int i = r * per + tid; i < min(table_words, (r + 1) * per); i += NT) tabs[i] = 0;
     } else {
-        for (int i = tid; i < table_words; i += NT) pool[i] = 0;
+        for (int i = tid; i < table_words; i += NT) tabs[i] = 0;
     }
     int ev[1] = {extent_part(a.valid, Nb)};
     copy_async_wait();
@@ -339,8 +353,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     if (GTAB) comm.sync();
     const int E = ev[0];
     const int* f = fsm;  // from here on, the feature row in shared memory
-    const int exmask = exmask_s;
-    const Ipa ipa = {anti, aff, pref, na, nfa, np, exmask, D, rfilt + (size_t)2 * nh * D,
+    const Ipa ipa = {anti, aff, pref, na, nfa, np, km[0], lay.keys, D, rfilt + (size_t)2 * nh * D,
                      rscore + (size_t)2 * ns * D, a.ipa_counts, a.ipa_anti, a.ipa_pref,
                      a.ipa_term_key};
     Ipa ipa_add = ipa;  // where the IPA passes add
@@ -410,14 +423,15 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         pref_on |= pref[s].on != 0;
         pref_tab |= pref[s].on && pref[s].dk > 0;
     }
-    bool ex_anti_tab = false, ex_pref_on = false, ex_pref_tab = false;
+    bool ex_any = false, ex_anti_tab = false, ex_pref_on = false, ex_pref_tab = false;
     for (int k = 0; k < p.K; ++k) {
-        if (!((exmask >> k) & 1)) continue;
-        ex_anti_tab |= p.ex_anti && p.topo_dk[k] > 0;
+        if (!ex_key(ipa, k)) continue;
+        ex_any = true;
+        ex_anti_tab |= p.ex_anti && topo_dk_at(p, k) > 0;
         ex_pref_on |= p.ex_pref_add != 0;
-        ex_pref_tab |= p.ex_pref_add && p.topo_dk[k] > 0;
+        ex_pref_tab |= p.ex_pref_add && topo_dk_at(p, k) > 0;
     }
-    const bool need_a = hard_on || req_on || (p.ex_anti && exmask != 0);
+    const bool need_a = hard_on || req_on || (p.ex_anti && ex_any);
     const bool tab_a = hard_tab || req_tab || ex_anti_tab;
     const bool pts_on = ns > 0 && any_soft_s;
     const bool ipa_on = pref_on || ex_pref_on;
@@ -625,7 +639,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     // C, when the score tables share the filter tables' memory: a pass of
     // its own over the feasible nodes after the filter tables' last read
     if (tab_c && !lay.fused) {
-        for (int i = tid; i < lay.score_words; i += NT) pool[i] = 0;
+        for (int i = tid; i < lay.score_words; i += NT) tabs[i] = 0;
         tick(syncs.bar);
         __syncthreads();
         auto pass_c = [&](int j, bool fe) {
@@ -943,7 +957,8 @@ inline FitArgs fit_args(void* const* ptrs) {
 // prefer_taints, domain, sel_counts, port_words, image_kib, ipa_counts,
 // ipa_anti, ipa_pref, ipa_term_key, aff_match, aff_pref, aff_allow,
 // aff_has_pref, feats, logtab, then K4: out, syncs (0: none), tables; K7:
-// feasible, total, raw, syncs, tables (the GTAB scratch, 0 without).
+// feasible, total, raw, syncs, tables (the GTAB scratch, 0 without); then
+// both the launch tables (common.cuh; 0 within the parameter block's).
 //
 // The file builds twice (ops/cuda.py DEFINES): with -DSCAN_GMEM its
 // instances keep the domain tables in the device-memory scratch (GTAB),
@@ -957,6 +972,7 @@ extern "C" int launch_fit_and_score(const FitParams* p, void* const* ptrs, void*
     a.out = (uint8_t*)ptrs[22];
     a.syncs = (int*)ptrs[23];
     a.tables = (int*)ptrs[24];
+    a.lt = (const int*)ptrs[25];
     switch (fit_npt(p, FIT_NT, 4)) {
         case 1: return launch_npt<true, FIT_NT, 1, ClusterComm>(p, a, stream);
         case 2: return launch_npt<true, FIT_NT, 2, ClusterComm>(p, a, stream);
@@ -975,6 +991,7 @@ extern "C" int launch_wave_fit_and_score(const FitParams* p, void* const* ptrs, 
     a.raw_out = (int*)ptrs[24];
     a.syncs = (int*)ptrs[25];
     a.tables = (int*)ptrs[26];
+    a.lt = (const int*)ptrs[27];
     // one position per thread in registers, the rest through the outputs:
     // many pods in flight keep the card busy, and a register array past
     // one position spills at 64 registers a thread

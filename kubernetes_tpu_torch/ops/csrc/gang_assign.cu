@@ -253,7 +253,8 @@ int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_
 // aff_has_pref, feats, tie_words, logtab, used, nonzero_used, sel_counts,
 // ipa_counts, ipa_anti, ipa_pref, ipa_term_key (the pre-scan planes, read
 // only; IPA pointers 0 without IPA), masks, work, out, then the sync counts
-// and phase cycles of row 0's scan (0: not wanted)
+// and phase cycles of row 0's scan (0: not wanted), then the launch tables
+// (common.cuh; 0 within the parameter block's)
 //
 // The file builds three times (ops/cuda.py DEFINES): without GANG_CLUSTER
 // the library launches one block per row (m = 1), with it one cluster of m
@@ -294,6 +295,7 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     a.ipa_pref = (int*)ptrs[16];
     a.ipa_term_key = (const int*)ptrs[17];
     a.syncs = (int*)ptrs[21];
+    a.lt = (const int*)ptrs[22];
     cudaStream_t s = (cudaStream_t)stream;
     const int err = scan_dispatch(slots, scan_gated(g->scan), g->scan.gtab != 0,
                                   [&](auto npt, auto gated, auto gtab) {

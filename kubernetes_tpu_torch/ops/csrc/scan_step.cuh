@@ -203,15 +203,18 @@ inline int scan_dispatch(int span, bool gated, bool gtab, F&& fn) {
 // score phase's IPA tables (the preferred terms, then the existing pods'
 // preferred terms per key slot), and the domain presence bits of the
 // hard-spread carry (topo_words bits). Then a scanning block's dynamic
-// shared memory: the tables (but in the GTAB instance, whose tables are
-// its scratch's `tables` words), by owned position (`span` of them:
+// shared memory: the staged launch tables (launch_table_words, 0 within
+// the parameter block's caps), the tables (but in the GTAB instance, whose
+// tables are its scratch's `tables` words), by owned position (`span` of them:
 // scan_slots) the partial-then-whole total and the spread and IPA raw
-// scores, (MASKED) the mask's node list as uint16, and the winner's rows
-// after its adds (used, alloc, nonzero_used, sel_counts) for the patch.
+// scores, (MASKED) the mask's node list as uint16, the winner's rows after
+// its adds (used, alloc, nonzero_used, sel_counts) for the patch, and past
+// 32 key slots the matched key masks of the step's two slot buffers
+// (key_words(K) words each; one word stays in the static s_flags).
 // ops/kernels.py scan_smem_words and scan_table_words mirror it for the
 // launch plan.
 struct ScanSmem {
-    int soft, uni, present, tables, ew, raw, iraw, list, wrow, words;
+    int lt, soft, uni, present, tables, ew, raw, iraw, list, wrow, keys, words;
 };
 
 __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, bool masked) {
@@ -219,16 +222,19 @@ __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, boo
     const int score = p.n_ipa_pref * p.D + (p.ex_pref_add ? p.topo_words : 0);
     const bool ipa_raw = p.n_ipa_pref > 0 || (p.ipa_active && p.ex_pref);
     ScanSmem s;
-    s.soft = 0;
+    s.lt = launch_table_words(p);
+    s.soft = 0;  // the tables' offsets are from their base (dynamic shared
+                 // memory past the launch tables, or the GTAB scratch)
     s.uni = s.soft + 2 * p.n_soft * p.D;
     s.present = s.uni + (filt > score ? filt : score);
     s.tables = s.present + (p.dom_carry ? (p.topo_words + 31) / 32 : 0);
-    s.ew = p.gtab ? 0 : s.tables;
+    s.ew = s.lt + (p.gtab ? 0 : s.tables);
     s.raw = s.ew + span;
     s.iraw = s.raw + (p.n_soft > 0 ? span : 0);
     s.list = s.iraw + (ipa_raw ? span : 0);
     s.wrow = s.list + (masked ? (span + 1) / 2 : 0);
-    s.words = s.wrow + 2 * p.R + 2 + p.S;
+    s.keys = s.wrow + 2 * p.R + 2 + p.S;
+    s.words = s.keys + (key_words(p.K) > 1 ? 2 * key_words(p.K) : 0);
     return s;
 }
 
@@ -291,6 +297,7 @@ struct ScanArgs {
     const int* prev_segs;
     const int* prev_pcs;
     int* syncs;  // [5] the counted synchronisations (nullptr: not wanted)
+    const int* lt;  // the launch tables past the parameter block (common.cuh)
 };
 
 // ScanArgs from K2's and K6's pointer list: alloc, domain, valid,
@@ -300,8 +307,9 @@ struct ScanArgs {
 // t_valid, t_ew, t_ffit, t_feas, t_segs, t_pcs, sig_scores, tiers (0
 // without), then the device cursor (0: the host's p->cursor0), then with
 // p->xwave carry_map and the previous table's ew, ffit, feas, segs, pcs (0
-// without), then the sync counts [5] (0: not wanted); K6's launcher reads
-// one more, the GTAB scratch (sharded_assign.cu)
+// without), then the sync counts [5] (0: not wanted), the GTAB scratch
+// (K6's launcher reads it: sharded_assign.cu), then the launch tables (0
+// within the parameter block's)
 inline ScanArgs scan_args(void* const* ptrs) {
     ScanArgs a = {};
     a.alloc = (const int*)ptrs[0];
@@ -342,6 +350,7 @@ inline ScanArgs scan_args(void* const* ptrs) {
     a.prev_segs = (const int*)ptrs[35];
     a.prev_pcs = (const int*)ptrs[36];
     a.syncs = (int*)ptrs[37];
+    a.lt = (const int*)ptrs[39];
     return a;
 }
 
@@ -430,15 +439,18 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     const bool ipa_acc = GATED && (np > 0 || (p.ipa_active && p.ex_pref_add));  // its tables
     const bool dom_carry = GATED && p.dom_carry;
     const ScanSmem lay = scan_smem(p, slots, MASKED);
+    // the launch tables past the parameter block, staged before the
+    // prologue's first barrier (every read of them comes after it)
+    if (lay.lt) stage_launch_tables(a.lt, lay.lt);
     // the union of the filter and score IPA tables (scan_smem)
     const int union_words = lay.present - lay.uni;
     // the domain tables every block adds into: the scratch (GTAB), else
     // shared memory (rank 0's under ClusterComm)
-    int* tabs = GTAB ? a.tables : comm.tables(dyn);
+    int* tabs = GTAB ? a.tables : comm.tables(dyn + lay.lt);
     int* soft_t = tabs + lay.soft;
     int* uni_t = tabs + lay.uni;
     unsigned* present = reinterpret_cast<unsigned*>(GTAB ? a.tables + lay.present
-                                                         : comm.tables(dyn + lay.present));
+                                                         : comm.tables(dyn + lay.lt + lay.present));
     int* raw_s = dyn + lay.raw;
     int* iraw_s = dyn + lay.iraw;
     unsigned short* list = reinterpret_cast<unsigned short*>(dyn + lay.list);
@@ -597,10 +609,10 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             const int n = node_at(i);
             if (!node_valid(n)) continue;
             for (int k = 0; k < K; ++k) {
-                const int dk = p.topo_dk[k], d = domain[(size_t)n * K + k];
+                const int dk = topo_dk_at(p, k), d = domain[(size_t)n * K + k];
                 if (dk == 0 || d < 0) continue;
                 const int dc = clampi(d, 0, dk - 1);
-                const int bit = p.topo_off[k] + dc;
+                const int bit = topo_off_at(p, k) + dc;
                 atomicOr(&present[bit >> 5], 1u << (bit & 31));
                 for (int s = 0; s < S; ++s)
                     atomicAdd(&dom_counts[((size_t)k * D + dc) * S + s],
@@ -616,6 +628,13 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     int tab_sid = -1;
     bool soft_clear = true, union_clear = true;
     int pick_par = 0;
+    // the matched key mask of slot buffer b: s_flags[b][2] up to 32 key
+    // slots, past them key_words(K) words of dynamic shared memory
+    const int kw = key_words(K);
+    auto key_mask = [&](int b) -> unsigned* {
+        return kw > 1 ? reinterpret_cast<unsigned*>(dyn + lay.keys) + b * kw
+                      : reinterpret_cast<unsigned*>(&s_flags[b][2]);
+    };
     // pod q's slots into buffer q & 1, by warps 0-3 side by side (the next
     // barrier publishes them)
     auto load_slots = [&](int q) {
@@ -632,8 +651,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             const bool anyh = any_column(fq, p.f_hard_active, min(nh, p.MC));
             if (lane == 0) s_flags[b][1] = anyh;
         } else if (wid == 3) {
-            const int bits = ipa_act ? matched_key_mask(p, fq, ipa_term_key) : 0;
-            if (lane == 0) s_flags[b][2] = bits;
+            unsigned* km = key_mask(b);
+            if (ipa_act) {
+                matched_key_mask(p, fq, ipa_term_key, km);
+            } else if (lane == 0) {
+                for (int w = 0; w < kw; ++w) km[w] = 0;
+            }
         }
     };
     // what the previous step loaded ahead for pod `ahead`: its slots, its
@@ -693,7 +716,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
 #pragma unroll
             for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
                 const int key = keyv[c];
-                const bool ok = key >= 0 && key < K && p.topo_dk[key] != 0;
+                const bool ok = key >= 0 && key < K && topo_dk_at(p, key) != 0;
                 dv[c] = ok ? domain[(size_t)win * K + key] : -1;
             }
 #pragma unroll
@@ -753,8 +776,9 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         mark(0);
         const bool any_soft = s_flags[buf][0] != 0, any_hard = s_flags[buf][1] != 0;
         const bool has_fail = GATED && (any_hard || p.ipa_active);
-        const Ipa ipa = {s_anti[buf], s_aff[buf], s_pref[buf], na, nfa, np, s_flags[buf][2], D,
-                         uni_t, uni_t, ipa_counts, ipa_anti, ipa_pref, ipa_term_key};
+        const Ipa ipa = {s_anti[buf], s_aff[buf], s_pref[buf], na, nfa, np, key_mask(buf)[0],
+                         lay.keys + buf * kw, D, uni_t, uni_t, ipa_counts, ipa_anti, ipa_pref,
+                         ipa_term_key};
 
         // F. statistics over the valid nodes (PreFilter participation): the
         // hard slots' min counts, the required IPA terms' domain sums and
@@ -778,7 +802,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     const Slot s = hard[c];
                     if (!s.on || s.dk == 0) continue;
                     for (int d = tid; d < s.dk; d += SCAN_NT) {
-                        if (present_at(p.topo_off[s.key] + d))
+                        if (present_at(topo_off_at(p, s.key) + d))
                             v[c] = min(v[c], dom_counts[((size_t)s.key * D + d) * S + s.col]);
                     }
                 }
@@ -1214,7 +1238,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             if (dom_carry) {
                 for (int i = lane; i < K * S; i += 32) {
                     const int k = i / S, s = i % S, d = domain[(size_t)win * K + k];
-                    if (p.topo_dk[k] > 0 && d >= 0 && d < D)
+                    if (topo_dk_at(p, k) > 0 && d >= 0 && d < D)
                         dom_counts[((size_t)k * D + d) * S + s] += f[p.f_sig_match + s];
                 }
             }

@@ -108,24 +108,23 @@ __device__ __forceinline__ int requested_for(const P& p, int col,
 // least_allocated.go:30-52, most_allocated.go, and the RequestedToCapacity
 // Ratio piecewise line (requested_to_capacity_ratio.go)
 template <typename P>
-__device__ __forceinline__ int strategy_score(const P& p, int requested,
-                                              int capacity) {
+__device__ __forceinline__ int strategy_score(const P& p, int requested, int capacity) {
     const int cap = max(capacity, 1);
     if (p.strategy == 0) return floordiv((cap - requested) * MAX_NODE_SCORE, cap);
     if (p.strategy == 1) return floordiv(requested * MAX_NODE_SCORE, cap);
     // the first segment whose right end covers util, else the last score;
     // util at or below the first x takes y0
     const int util = floordiv(requested * 100, cap);
-    int out = p.rtc_y[p.n_rtc - 1];
+    int out = rtc_y_at(p, p.n_rtc - 1);
     for (int i = 0; i + 1 < p.n_rtc; ++i) {
-        const int x0 = p.rtc_x[i], y0 = p.rtc_y[i];
-        const int x1 = p.rtc_x[i + 1], y1 = p.rtc_y[i + 1];
+        const int x0 = rtc_x_at(p, i), y0 = rtc_y_at(p, i);
+        const int x1 = rtc_x_at(p, i + 1), y1 = rtc_y_at(p, i + 1);
         if (util <= x1) {
             out = (x1 == x0) ? y1 : y0 + floordiv((y1 - y0) * (util - x0), x1 - x0);
             break;
         }
     }
-    return util <= p.rtc_x[0] ? p.rtc_y[0] : out;
+    return util <= rtc_x_at(p, 0) ? rtc_y_at(p, 0) : out;
 }
 
 // NodeResourcesFit score (resource_allocation.go:52): weighted mean of the
@@ -136,7 +135,7 @@ __device__ __forceinline__ int fit_score(const P& p, const int* alloc_row,
                                          const int* f) {
     int total = 0, tw = 0;
     for (int i = 0; i < p.n_fit; ++i) {
-        const int col = p.fit_col[i], w = p.fit_w[i];
+        const int col = fit_col_at(p, i), w = fit_w_at(p, i);
         const int a = alloc_row[col];
         if (a > 0) {
             const int req = min(requested_for(p, col, used_row, nz_row, f), a);
@@ -222,7 +221,7 @@ __device__ __forceinline__ Slot spread_slot(const P& p, const int* f, bool hard,
     s.on = c < (hard ? p.n_hard : p.n_soft) && f[act + c] != 0;
     const int key = f[fkey + c];
     s.key = (key >= 0 && key < p.K) ? key : -1;
-    s.dk = s.key >= 0 ? p.topo_dk[s.key] : 0;
+    s.dk = s.key >= 0 ? topo_dk_at(p, s.key) : 0;
     s.col = clampi(f[fsel + c], 0, p.S - 1);
     if (hard) {
         s.a = f[p.f_hard_skew + c];
@@ -244,7 +243,7 @@ __device__ __forceinline__ Slot ipa_slot(const P& p, const int* f, const int* ip
     q.col = clampi(t, 0, p.Ta - 1);
     const int key = ipa_term_key[q.col];
     q.key = (key >= 0 && key < p.K) ? key : -1;
-    q.dk = q.key >= 0 ? p.topo_dk[q.key] : 0;
+    q.dk = q.key >= 0 ? topo_dk_at(p, q.key) : 0;
     if (kind == 1) q.a = f[p.f_ipa_aff_self + s];
     if (kind == 2) q.a = f[p.f_ipa_pref_w + s];
     return q;
@@ -274,17 +273,26 @@ __device__ __forceinline__ bool any_column(const int* f, int col, int n) {
     return __any_sync(FULL_MASK, a);
 }
 
-// key slots that some term matching the pod uses, as a bit mask; called by
-// all 32 lanes of one warp, every lane gets the mask
+// key slots that some term matching the pod uses, as a mask of
+// key_words(K) words into out[] (written by lane 0); called by all 32 lanes
+// of one warp, every lane gets whether any bit is set. Word w holds key
+// slots [32 w, 32 w + 32), each word reduced on its own, so no shift
+// reaches past a word's 32 bits at any K.
 template <typename P>
-__device__ __forceinline__ int matched_key_mask(const P& p, const int* f,
-                                                const int* ipa_term_key) {
-    unsigned bits = 0;
-    for (int t = threadIdx.x & 31; t < p.Ta; t += 32) {
-        const int k = ipa_term_key[t];
-        if (f[p.f_ipa_match + t] && k >= 0 && k < p.K) bits |= 1u << k;
+__device__ __forceinline__ bool matched_key_mask(const P& p, const int* f,
+                                                 const int* ipa_term_key, unsigned* out) {
+    unsigned any = 0;
+    for (int w = 0; w < key_words(p.K); ++w) {
+        unsigned bits = 0;
+        for (int t = threadIdx.x & 31; t < p.Ta; t += 32) {
+            const int k = ipa_term_key[t] - 32 * w;
+            if (f[p.f_ipa_match + t] && k >= 0 && k < 32 && k + 32 * w < p.K) bits |= 1u << k;
+        }
+        bits = __reduce_or_sync(FULL_MASK, bits);
+        if ((threadIdx.x & 31) == 0) out[w] = bits;
+        any |= bits;
     }
-    return (int)__reduce_or_sync(FULL_MASK, bits);
+    return any != 0;
 }
 
 // --- InterPodAffinity passes ---------------------------------------------------
@@ -302,7 +310,9 @@ __device__ __forceinline__ int term_col(const P& p, const int* row, const int* f
 }
 
 // One pod's inter-pod affinity state in a kernel: its slots (shared
-// arrays), the matched key mask, the carried planes and two table regions
+// arrays), the matched key mask (word 0 by value, past 32 key slots every
+// word in dynamic shared memory: ex_key), the carried planes and two
+// table regions
 // (shared memory, or the device-memory scratch of the instance for tables
 // past it). Filter tables: the na + nfa required terms of D words each,
 // then the existing pods' anti-affinity per key slot, key k's topo_dk[k]
@@ -312,7 +322,11 @@ struct Ipa {
     const Slot* anti;
     const Slot* aff;
     const Slot* pref;
-    int na, nfa, np, exmask, D;
+    int na, nfa, np;
+    unsigned exmask;  // key slots 0-31 of the matched key mask
+    int exo;          // past 32 key slots: the mask's key_words(K) words at
+                      // dyn_smem[exo] (dynamic shared memory)
+    int D;
     int* filt;
     int* score;
     const int* counts;  // ipa_counts [Nb, Ta]
@@ -320,6 +334,11 @@ struct Ipa {
     const int* pref_p;  // ipa_pref [Nb, Ta]
     const int* tkey;    // ipa_term_key [Ta]
 };
+
+// whether a term matching the pod uses key slot k (the matched key mask)
+__device__ __forceinline__ bool ex_key(const Ipa& q, int k) {
+    return k < 32 ? (q.exmask >> k) & 1u : ((unsigned)dyn_smem[q.exo + (k >> 5)] >> (k & 31)) & 1u;
+}
 
 // How a pass adds into a per-domain table: add(table, word, value, on),
 // on shared or device memory alike (int32 atomics on a generic address).
@@ -361,12 +380,13 @@ __device__ __forceinline__ void ipa_filter_stats(const P& p, const Ipa& q, const
     }
     if (p.ex_anti) {
         for (int k = 0; k < p.K; ++k) {
-            const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || dk == 0) continue;
+            if (!ex_key(q, k)) continue;
+            const int dk = topo_dk_at(p, k), d = dom_row[k];
+            if (dk == 0) continue;
             const bool on = live && d >= 0;
             const int col = on ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0;
-            add(q.filt + (size_t)(q.na + q.nfa) * q.D + p.topo_off[k], clampi(d, 0, dk - 1), col,
-                on && col != 0);
+            add(q.filt + (size_t)(q.na + q.nfa) * q.D + topo_off_at(p, k),
+                clampi(d, 0, dk - 1), col, on && col != 0);
         }
     }
 }
@@ -380,10 +400,12 @@ __device__ __forceinline__ void ipa_filters_at(const P& p, const Ipa& q, const i
     ipa1 = ipa2 = ipa3 = false;
     if (p.ex_anti) {
         for (int k = 0; k < p.K && !ipa1; ++k) {
-            const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || d < 0) continue;
+            if (!ex_key(q, k)) continue;
+            const int d = dom_row[k];
+            if (d < 0) continue;
+            const int dk = topo_dk_at(p, k);
             const int at = dk == 0 ? (vn ? term_col(p, q.anti_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
-                                   : q.filt[(size_t)(q.na + q.nfa) * q.D + p.topo_off[k] +
+                                   : q.filt[(size_t)(q.na + q.nfa) * q.D + topo_off_at(p, k) +
                                             clampi(d, 0, dk - 1)];
             ipa1 = at > 0;
         }
@@ -423,10 +445,11 @@ __device__ __forceinline__ void ipa_score_stats(const P& p, const Ipa& q, const 
     }
     if (p.ex_pref_add) {
         for (int k = 0; k < p.K; ++k) {
-            const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || dk == 0) continue;
+            if (!ex_key(q, k)) continue;
+            const int dk = topo_dk_at(p, k), d = dom_row[k];
+            if (dk == 0) continue;
             const bool on = live && d >= 0;
-            add(q.score + (size_t)q.np * q.D + p.topo_off[k], clampi(d, 0, dk - 1),
+            add(q.score + (size_t)q.np * q.D + topo_off_at(p, k), clampi(d, 0, dk - 1),
                 on ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0, on);
         }
     }
@@ -447,10 +470,12 @@ __device__ __forceinline__ int ipa_raw_at(const P& p, const Ipa& q, const int* f
     }
     if (p.ex_pref_add) {
         for (int k = 0; k < p.K; ++k) {
-            const int dk = p.topo_dk[k], d = dom_row[k];
-            if (!((q.exmask >> k) & 1) || d < 0) continue;
+            if (!ex_key(q, k)) continue;
+            const int d = dom_row[k];
+            if (d < 0) continue;
+            const int dk = topo_dk_at(p, k);
             const int at = dk == 0 ? (fe ? term_col(p, q.pref_p + (size_t)n * p.Ta, f, q.tkey, k) : 0)
-                                   : q.score[(size_t)q.np * q.D + p.topo_off[k] +
+                                   : q.score[(size_t)q.np * q.D + topo_off_at(p, k) +
                                              clampi(d, 0, dk - 1)];
             raw = wadd(raw, at);
         }

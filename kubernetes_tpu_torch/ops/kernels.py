@@ -127,11 +127,12 @@ def thread_launches() -> dict:
 
 class OutOfSlice(NotImplementedError):
     """The caller asks for what this port does not compute yet: a slot
-    count past the kernels' fixed capacities (more than 16 topology keys,
-    more than 4 spread constraint slots, 4 required or 8 preferred
-    inter-pod affinity term slots, more than 8 scored resources or 16
-    shape points: ROADMAP B3, B4; a key of any number of domains is
-    computed), a scan bucket past the largest thread-block cluster the card
+    count past the kernels' fixed capacities (more than 4 spread
+    constraint slots, 4 required or 8 preferred inter-pod affinity term
+    slots; any number of topology keys, of domains a key, of scored
+    resources and of shape points is computed), an empty fit resource list
+    or shape, a strategy the reference does not name, a scan bucket past
+    the largest thread-block cluster the card
     holds (scan_plan: 16 blocks of 16384 node slots where the card holds a
     cluster of 16, else 8; fewer slots a block where the scan's shared
     memory is wider), or an op the
@@ -331,9 +332,12 @@ class KernelConfig:
 
 def check_slice(cfg: KernelConfig) -> None:
     """The wave scan's gate (K1 + K2): hard spread and inter-pod affinity
-    are computed, over keys of any number of domains; raise OutOfSlice only
-    past the kernels' fixed slot capacities. Everything that passes is
-    computed bit-exactly."""
+    are computed, over any number of keys of any number of domains, with
+    any number of scored resources and shape points; raise OutOfSlice only
+    past the kernels' fixed slot capacities (4 spread constraint slots, 4
+    required and 8 preferred inter-pod affinity term slots), for an empty
+    fit resource list or shape, or an unknown strategy. Everything that
+    passes is computed bit-exactly."""
     traced = min(cfg.max_constraints, max(cfg.n_hard, cfg.n_soft))
     if traced > 4:
         raise OutOfSlice(f"{traced} spread constraint slots (max 4)")
@@ -341,8 +345,8 @@ def check_slice(cfg: KernelConfig) -> None:
 
 
 def check_fit_slice(cfg: KernelConfig) -> None:
-    """K4's gate: as the wave's, with the spread slot count taken from the
-    feature width (K4 writes a fails row per slot)."""
+    """K4's (and K7's) gate: as the wave's, with the spread slot count
+    taken from the feature width (K4 writes a fails row per slot)."""
     if cfg.max_constraints > 4:
         raise OutOfSlice(f"{cfg.max_constraints} spread constraint slots (max 4)")
     _check_common(cfg)
@@ -352,15 +356,15 @@ def _check_common(cfg: KernelConfig) -> None:
     if cfg.max_ipa_terms > 4 or cfg.max_ipa_pref > 8:
         raise OutOfSlice("inter-pod affinity term slots (max 4 required, "
                          "8 preferred)")
-    # any number of domains a key: past shared memory the tables take a
-    # device-memory scratch (scan_plan, fit_gtab)
-    if len(cfg.topo_domains) > SCAN_MAX_KEYS:
-        raise OutOfSlice(f"{len(cfg.topo_domains)} topology keys (max {SCAN_MAX_KEYS}: "
-                         "ROADMAP B4)")
+    # any number of keys and of domains a key (past shared memory the
+    # tables take a device-memory scratch: scan_plan, fit_gtab), of scored
+    # resources and of shape points (past the parameter block's arrays the
+    # launch tables: launch_tables)
     if cfg.strategy not in _STRATEGY_CODE:
         raise OutOfSlice(f"scoring strategy {cfg.strategy!r}")
-    if not 1 <= len(cfg.fit_resources) <= 8 or not 1 <= len(cfg.rtc_shape) <= 16:
-        raise OutOfSlice("fit resources (1..8) or rtc shape (1..16 points): ROADMAP B3")
+    # the kernels read the first shape point and the last
+    if not cfg.fit_resources or not cfg.rtc_shape:
+        raise OutOfSlice("an empty fit resource list or rtc shape")
 
 
 def topo_layout(topo_domains) -> tuple[list[int], int]:
@@ -372,6 +376,78 @@ def topo_layout(topo_domains) -> tuple[list[int], int]:
         offs.append(at)
         at += max(0, int(dk))
     return offs, at
+
+
+def launch_table_values(cfg: KernelConfig) -> list[int] | None:
+    """The launch tables of a configuration past the parameter block's
+    arrays (csrc/common.cuh: 8 scored resources, 16 shape points, 16 key
+    slots): fit_col, fit_w, rtc_x, rtc_y, topo_dk and topo_off, each whole,
+    as one int32 list. None within them: the block holds every entry, and
+    the launch passes a null pointer."""
+    from . import cuda
+
+    if (len(cfg.fit_resources) <= cuda.MAX_FIT and len(cfg.rtc_shape) <= cuda.MAX_RTC
+            and len(cfg.topo_domains) <= cuda.MAX_KEYS):
+        return None
+    return ([c for c, _w in cfg.fit_resources] + [w for _c, w in cfg.fit_resources]
+            + [x for x, _y in cfg.rtc_shape] + [y for _x, y in cfg.rtc_shape]
+            + [int(dk) for dk in cfg.topo_domains] + topo_layout(cfg.topo_domains)[0])
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_tables(values: tuple, device: torch.device) -> torch.Tensor:
+    t = torch.tensor(values, dtype=torch.int32, device=device)
+    if t.device.type == "cuda":
+        # the copy is done before any stream's launch reads it
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
+def launch_tables(cfg: KernelConfig, device) -> torch.Tensor | None:
+    """launch_table_values on `device`, uploaded once per distinct table
+    (memoized, as scan_plan is: the waves of one configuration launch with
+    one tensor), or None within the parameter block's arrays."""
+    vals = launch_table_values(cfg)
+    return None if vals is None else _launch_tables(tuple(vals), torch.device(device))
+
+
+def _launch_tables_ptr(cfg: KernelConfig, device) -> int:
+    t = launch_tables(cfg, device)
+    return 0 if t is None else t.data_ptr()
+
+
+def _fill_block_tables(p, cfg: KernelConfig) -> None:
+    """The parameter block's share of the tables (ScanParams, FitParams):
+    the first MAX_FIT scored resources, MAX_RTC shape points and MAX_KEYS
+    key slots. The kernels read a table within its cap from here and one
+    past it wholly from the launch tables (csrc/common.cuh)."""
+    from . import cuda
+
+    for i, (col, w) in enumerate(cfg.fit_resources[:cuda.MAX_FIT]):
+        p.fit_col[i], p.fit_w[i] = col, w
+    for i, (x, y) in enumerate(cfg.rtc_shape[:cuda.MAX_RTC]):
+        p.rtc_x[i], p.rtc_y[i] = x, y
+    offs = topo_layout(cfg.topo_domains)[0]
+    for i, (dk, off) in enumerate(zip(cfg.topo_domains[:cuda.MAX_KEYS], offs)):
+        p.topo_dk[i], p.topo_off[i] = dk, off
+
+
+def launch_table_words(p) -> int:
+    """int32 words of the launch tables a kernel stages at the start of its
+    dynamic shared memory (csrc launch_table_words) for ScanParams- or
+    FitParams-like `p`: every table whole when one is past its cap, else
+    none."""
+    from . import cuda
+
+    wide = p.n_fit > cuda.MAX_FIT or p.n_rtc > cuda.MAX_RTC or p.K > cuda.MAX_KEYS
+    return 2 * (p.n_fit + p.n_rtc + p.K) if wide else 0
+
+
+def key_words(k: int) -> int:
+    """Words of a matched-key mask over k key slots (csrc key_words): one
+    up to 32 slots, kept in a static shared word; past them the kernels
+    hold the words in dynamic shared memory."""
+    return (k + 31) // 32
 
 
 def log_weight_table(nb: int) -> np.ndarray:
@@ -1228,6 +1304,7 @@ def _cfg_scan_fields(cfg: KernelConfig) -> dict:
     dmax = max((dk for dk in cfg.topo_domains if dk > 0), default=0)
     return dict(
         K=len(cfg.topo_domains), D=max(1, dmax), topo_words=topo_layout(cfg.topo_domains)[1],
+        n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
         CT=max(1, min(cfg.max_constraints, cfg.n_soft)),
         n_hard=min(cfg.max_constraints, cfg.n_hard),
         n_soft=min(cfg.max_constraints, cfg.n_soft),
@@ -1301,7 +1378,6 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
     p = cuda.ScanParams(
         P=P, Nb=nb, R=R, S=S, F=F, MC=mc, L=tie_words.numel(), Ta=Ta, G=G,
         cursor0=int(cursor0), strategy=_STRATEGY_CODE[cfg.strategy],
-        n_fit=len(cfg.fit_resources), n_rtc=len(cfg.rtc_shape),
         bal_a=cfg.balanced_resources[0], bal_b=cfg.balanced_resources[1],
         w_fit=cfg.weight("NodeResourcesFit"),
         w_bal=cfg.weight("NodeResourcesBalancedAllocation"),
@@ -1311,12 +1387,7 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
         w_taint=cfg.weight("TaintToleration"),
         w_aff=cfg.weight("NodeAffinity"), **_cfg_scan_fields(cfg),
         **{f"f_{k}": v for k, v in offs.items()})
-    for i, (col, w) in enumerate(cfg.fit_resources):
-        p.fit_col[i], p.fit_w[i] = col, w
-    for i, (x, y) in enumerate(cfg.rtc_shape):
-        p.rtc_x[i], p.rtc_y[i] = x, y
-    for i, (dk, off) in enumerate(zip(cfg.topo_domains, topo_layout(cfg.topo_domains)[0])):
-        p.topo_dk[i], p.topo_off[i] = dk, off
+    _fill_block_tables(p, cfg)
     return p
 
 
@@ -1340,7 +1411,6 @@ SCAN_SMEM_OPTIN = 232448
 SCAN_STATIC_RESERVE = 10240
 SCAN_SMEM_BUDGET = SCAN_SMEM_OPTIN - SCAN_STATIC_RESERVE
 SCAN_KERNELS = ("assign_scan", "sharded_assign", "gang_assign")
-SCAN_MAX_KEYS = 16  # csrc SCAN_MAX_KEYS: topology keys a launch holds
 # whether the plans (scan_plan, fit_gtab) keep the domain tables in shared
 # memory wherever they fit there: the default. tables_in_device_memory()
 # clears it for a while, so that every plan takes the GTAB instances (the
@@ -1395,11 +1465,15 @@ def scan_smem_words(p, slots: int, masked: bool) -> int:
     positions: the domain tables (scan_table_words; not in the GTAB
     instance, p.gtab, whose tables live in device memory), three words per
     position at most (the total, the spread and IPA raw scores), the mask's
-    uint16 node list (K5) and the winner's rows."""
+    uint16 node list (K5), the winner's rows and, past 32 key slots, the
+    two slot buffers' matched key masks; before all of it the staged launch
+    tables (launch_table_words)."""
     ipa_raw = p.n_ipa_pref > 0 or (p.ipa_active and p.ex_pref)
-    return ((0 if p.gtab else scan_table_words(p))
+    kw = key_words(p.K)
+    return (launch_table_words(p) + (0 if p.gtab else scan_table_words(p))
             + slots + (slots if p.n_soft > 0 else 0) + (slots if ipa_raw else 0)
-            + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S)
+            + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S
+            + (2 * kw if kw > 1 else 0))
 
 
 class ScanPlan(tuple):
@@ -1754,6 +1828,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     scratch = (torch.empty(scan_table_words(p), dtype=i32, device=device) if plan.gtab
                else None)
     ptrs.append(0 if scratch is None else scratch.data_ptr())
+    ptrs.append(_launch_tables_ptr(cfg, device))
     if n_shards is None and blocks == 1 and not plan.gtab:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
@@ -1912,7 +1987,8 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
     ptrs += ([planes[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref",
                                              "ipa_term_key")]
              if cfg.ipa_active else [0] * 4)
-    ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device)]
+    ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device),
+             _launch_tables_ptr(cfg, device)]
     # the per-row cluster instances, and those whose tables live in each
     # row's work slice (gtab), are libraries of their own (ops/cuda.py)
     lib = "gang_assign_gmem" if plan.gtab else ("gang_assign_cluster" if blocks > 1 else None)
@@ -2366,7 +2442,9 @@ def fit_smem_words(p, npt: int, nt: int) -> tuple[int, int]:
     when they fit FIT_FUSED_SMEM or in the GTAB instance (p.gtab: one set
     per pod in a device-memory scratch, none of it in shared memory), the
     folded copies a small table's cluster fold gathers into, the feature
-    row, and the staged node rows when all of it fits FIT_STAGE_SMEM."""
+    row, past 32 key slots the matched key mask, and the staged node rows
+    (K words of domain among them) when all of it fits FIT_STAGE_SMEM;
+    before all of it the staged launch tables (launch_table_words)."""
     filt = ((2 * p.n_hard + p.n_ipa_anti + p.n_ipa_aff) * p.D
             + (p.topo_words if p.ex_anti else 0))
     score = (2 * p.n_soft + p.n_ipa_pref) * p.D + (p.topo_words if p.ex_pref_add else 0)
@@ -2376,7 +2454,8 @@ def fit_smem_words(p, npt: int, nt: int) -> tuple[int, int]:
     for words in (filt, score):
         if not p.gtab and fused and p.cluster > 1 and words * p.cluster <= COMM_GATHER_WORDS:
             end += words
-    stage = end + p.F
+    kw = key_words(p.K)
+    stage = launch_table_words(p) + end + p.F + (kw if kw > 1 else 0)
     row = 2 * p.R + 3 + p.T + p.Tp + p.W + p.I + p.K + p.S
     staged = 4 * (stage + row * npt * nt) <= FIT_STAGE_SMEM
     return tables, max(1, stage + row * npt * nt if staged else stage)
@@ -2448,7 +2527,8 @@ def fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
         scratch = _fit_scratch(p, packed_f.shape[0], device)
         cuda.launch("fit_and_score", p,
                     ptrs + [out.data_ptr(), _fit_syncs_ptr(syncs, device),
-                            0 if scratch is None else scratch.data_ptr()],
+                            0 if scratch is None else scratch.data_ptr(),
+                            _launch_tables_ptr(cfg, device)],
                     _stream(device), lib="fit_and_score_gmem" if p.gtab else None)
         count_launch("fit_and_score")
     return out
@@ -2508,7 +2588,8 @@ def wave_fit_and_score(cfg: KernelConfig, planes: dict, tables: dict,
         cuda.launch("wave_fit_and_score", p,
                     ptrs + [feasible.data_ptr(), total.data_ptr(), raw.data_ptr(),
                             _fit_syncs_ptr(syncs, device),
-                            0 if scratch is None else scratch.data_ptr()],
+                            0 if scratch is None else scratch.data_ptr(),
+                            _launch_tables_ptr(cfg, device)],
                     _stream(device), lib="fit_and_score_gmem" if p.gtab else "fit_and_score")
         count_launch("wave_fit_and_score")
     return feasible, total
@@ -2603,13 +2684,8 @@ def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.T
         ex_anti=int(cfg.ipa_existing_anti), ex_pref=int(cfg.ipa_existing_pref),
         ex_pref_add=int(cfg.ipa_existing_pref and not cfg.ipa_ignore_preferred_existing),
         cluster=cluster, **{f"f_{k}": v for k, v in offs.items()})
-    for i, (col, w) in enumerate(cfg.fit_resources):
-        p.fit_col[i], p.fit_w[i] = col, w
-    for i, (x, y) in enumerate(cfg.rtc_shape):
-        p.rtc_x[i], p.rtc_y[i] = x, y
-    offs, p.topo_words = topo_layout(cfg.topo_domains)
-    for i, (dk, off) in enumerate(zip(cfg.topo_domains, offs)):
-        p.topo_dk[i], p.topo_off[i] = dk, off
+    p.topo_words = topo_layout(cfg.topo_domains)[1]
+    _fill_block_tables(p, cfg)
     ptrs = [planes[k].data_ptr() for k in (
         "alloc", "used", "nonzero_used", "valid", "unsched", "group_id",
         "taints", "prefer_taints", "domain", "sel_counts", "port_words",

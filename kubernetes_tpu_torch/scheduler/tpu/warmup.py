@@ -21,7 +21,7 @@ cluster route past them, and K5's per-row blocks for each warmed gang
 shape (a fallback row over every node takes a cluster past 16384 nodes).
 
 A copy of the reference package's module
-(kubernetes_tpu/scheduler/tpu/warmup.py) for torch, with three departures:
+(kubernetes_tpu/scheduler/tpu/warmup.py) for torch, with four departures:
 
 - each bucket's first round starts from a dropped carry, so it is a
   cold-carry launch. The reference's first round of every bucket past the
@@ -38,6 +38,13 @@ A copy of the reference package's module
   launched at. With no pending pod at start() there is no shape to take,
   and traffic that arrives later meets those first uses, as the
   reference's does (ROADMAP C16);
+- the planes are synced against the snapshot before the first warm pod
+  registers, so the running pods' terms intern their topology keys first,
+  in the order the cluster holds them, and the template's keys take the
+  slots the cluster's vocabulary leaves them (any number of keys, scored
+  resources and shape points launches: a profile scoring ten resources
+  over a 21-point shape, or a fleet of 20 or 40 keys, warms the launches
+  its waves make);
 - only `OutOfSlice` (a bucket or shape this configuration refuses) is
   recorded in `summary["skipped"]` and passed over. A failed build, a
   failed library load or a launch error raises out of `start()`: a kernel
@@ -152,6 +159,8 @@ def warm_backend(backend, snapshot, wave_size: int, rng_seed: int = 0,
     rng = random.Random(rng_seed)  # throwaway: the live rng never moves
     t0 = time.perf_counter()
     with backend.recorder.phase("warmup"):
+        # the running pods' terms intern their keys before the warm pods'
+        backend.sync(snapshot)
         for b in _pow2_buckets(next_pow2(max(wave_size, 1))):
             backend.invalidate_carry()
             try:

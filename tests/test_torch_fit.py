@@ -289,7 +289,8 @@ def test_cases_reach_every_branch():
 def test_wrapper_dispatch_and_gate():
     """CPU tensors run the plain version and count no launch; a device
     other than cpu/cuda raises; the K4 gate and the wave gate both admit
-    hard spread and IPA and both refuse past the kernels' capacities."""
+    hard spread and IPA over any number of keys and both refuse past the
+    kernels' slot capacities."""
     cfg, planes, tables, f = _reference_inputs(*_hard_spread(), None)
     pcfg = tk.KernelConfig(**dataclasses.asdict(cfg))
     assert pcfg.n_hard == 1
@@ -297,10 +298,12 @@ def test_wrapper_dispatch_and_gate():
     for gate in (tk.check_fit_slice, tk.check_slice):
         gate(pcfg)
         gate(ipa)
-        # a key of 2048 domains is computed; 17 keys are past the capacity
+        # a key of 2048 domains and 17 keys (past the parameter block's 16:
+        # the launch tables) are computed; an empty shape is refused
         gate(dataclasses.replace(pcfg, topo_domains=(2048, 0)))
-        with pytest.raises(tk.OutOfSlice, match="topology keys"):
-            gate(dataclasses.replace(pcfg, topo_domains=(8,) * 17))
+        gate(dataclasses.replace(pcfg, topo_domains=(8,) * 17))
+        with pytest.raises(tk.OutOfSlice, match="rtc shape"):
+            gate(dataclasses.replace(pcfg, rtc_shape=()))
         with pytest.raises(tk.OutOfSlice, match="term slots"):
             gate(dataclasses.replace(ipa, max_ipa_pref=9))
     tk.reset_launches()

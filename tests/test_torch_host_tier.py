@@ -11,8 +11,10 @@ state and FitError diagnoses. The routes: the hybrid path
 need no storage or DRA: declared features, score isolation, the cycle
 state a FitError leaves for preemption), the nominee fast path and the
 two-pass nominated-pod protection (test_nominated_fallback's three
-scenarios), FallbackNeeded pods on the host algorithm, OutOfSlice still
-raising (single pods and gangs, on the device and the host route), the
+scenarios), FallbackNeeded pods on the host algorithm, nine scored
+resources (past the parameter block's eight) on the kernel, hybrid and
+gang routes, OutOfSlice still raising (single pods and gangs, on the
+device and the host route), the
 kernel diagnosis's set() overlays, K4's run arrays across placement
 narrowing and in-snapshot assume/forget, the gang planner's gates and
 catch-all, and PodGroupCycle against the reference's host pod-group
@@ -54,6 +56,7 @@ from kubernetes_tpu.scheduler.tpu.backend import TPUBackend, TPUSchedulingAlgori
 from kubernetes_tpu.store import Store
 from kubernetes_tpu.testing import wrappers as jw
 from kubernetes_tpu_torch.api.resource import ResourceNames as TNames
+from kubernetes_tpu_torch.ops import kernels as tkernels
 from kubernetes_tpu_torch.ops.kernels import OutOfSlice
 from kubernetes_tpu_torch.ops.planes import FallbackNeeded
 from kubernetes_tpu_torch.scheduler.cache import Cache as TCache
@@ -482,9 +485,14 @@ def _refused_pods(side):
     return out
 
 
-# NodeResourcesFit scoring nine resources: one past the kernels' 8 (B3)
+# NodeResourcesFit scoring nine resources: one past the parameter block's
+# 8 (the rest ride the kernels' launch tables)
 NINE_SCORED = {"NodeResourcesFit": {"resources": {
     "cpu": 1, "memory": 1, **{f"example.com/r{i}": 1 for i in range(7)}}}}
+
+
+def _refuse(_cfg):
+    raise OutOfSlice("injected: a shape the gate refuses")
 
 
 def test_fallback_needed_goes_to_the_host_algorithm():
@@ -497,36 +505,57 @@ def test_fallback_needed_goes_to_the_host_algorithm():
     assert all(r[0] != "fit" for r in recs)
 
 
-def test_out_of_slice_is_not_routed_to_the_host():
-    """A pod the extractor accepts whose shapes K4's gate refuses raises
-    OutOfSlice from schedule_pod with fallback_count unchanged: a backend
-    scoring nine resources (NodeResourcesFit's `resources`; K4 holds at
-    most 8, ROADMAP B3; the reference computes any count), on the kernel
-    route and on the hybrid route. A pod the extractor refuses on the same
-    cluster takes the host algorithm. A non-empty extender list is
-    accepted (extenders are ported)."""
+def test_out_of_slice_is_not_routed_to_the_host(monkeypatch):
+    """Nine scored resources (NodeResourcesFit's `resources`, one past the
+    parameter block's 8) are computed: rack-spread pods on the kernel route
+    and a declared-features pod on the hybrid route equal the reference's.
+    What K4's gate still refuses (an OutOfSlice injected there: no pod the
+    extractor accepts reaches one on the CPU) raises from schedule_pod on
+    both routes with the counters, the assumes and the rng as they were; a
+    pod the extractor refuses on the same cluster takes the host
+    algorithm. A non-empty extender list is accepted (extenders are
+    ported)."""
+    def nodes(types, meta):
+        wr = jw if types is jtypes else tw
+        out = [wr.make_node(f"node-{i}", zone=f"zone-{i % 4}", labels={"rack": f"r{i % 12}"})
+               for i in range(24)]
+        for n in out[::2]:
+            n.status.declared_features = (FEATURE,)
+        return out
+
+    def racked(wr, i):
+        return wr.with_spread(wr.make_pod(f"sb-{i}", cpu="100m", mem="50Mi",
+                                          labels={"app": "perf"}),
+                              max_skew=1, key="rack", when="ScheduleAnyway")
+
+    def pods(side):
+        wr = jw if side.pkg == "jax" else tw
+        out = [racked(wr, i) for i in range(3)]
+        out[-1].meta.annotations[NDF] = FEATURE
+        return out
+
+    recs = _drive(_sides(nodes, plugin_args=NINE_SCORED), pods)
+    assert all(r[0] != "fit" for r in recs) and recs[-1][-2:] == (3, 0)
+
     names = TNames()
     cache = TCache(names)
-    for i in range(24):
-        cache.add_node(tw.make_node(f"node-{i}", zone=f"zone-{i % 4}",
-                                    labels={"rack": f"r{i % 12}"}))
+    for n in nodes(ttypes, tmeta):
+        cache.add_node(n)
     snap = TSnapshot()
     cache.update_snapshot(snap)
     algo = TorchSchedulingAlgorithm(
         TFramework(tdefault_plugins(names), dict(TWEIGHTS)),
         TorchBackend(names, device="cpu", plugin_args=NINE_SCORED), nominator=Nominator())
-
-    def racked(i):
-        return tw.with_spread(tw.scheduling_basic_pod(i), max_skew=1, key="rack",
-                              when="ScheduleAnyway")
-
-    with pytest.raises(OutOfSlice, match="fit resources"):
-        algo.schedule_pod(TCycleState(), racked(0), snap)
-    needy = racked(1)
+    rng = algo.rng.getstate()
+    monkeypatch.setattr(tkernels, "check_fit_slice", _refuse)
+    with pytest.raises(OutOfSlice, match="injected"):
+        algo.schedule_pod(TCycleState(), racked(tw, 0), snap)
+    needy = racked(tw, 1)
     needy.meta.annotations[NDF] = FEATURE
-    with pytest.raises(OutOfSlice, match="fit resources"):
+    with pytest.raises(OutOfSlice, match="injected"):
         algo.schedule_pod(TCycleState(), needy, snap)
     assert (algo.kernel_count, algo.fallback_count) == (0, 0)
+    assert algo.rng.getstate() == rng and not any(ni.pods for ni in snap.list_nodes())
     side = SimpleNamespace(types=ttypes, pkg="port")
     got = algo.schedule_pod(TCycleState(), _refused_pods(side)[0], snap)
     assert got.suggested_host and (algo.kernel_count, algo.fallback_count) == (0, 1)
@@ -762,27 +791,44 @@ def test_gang_gates_and_catch_all(monkeypatch):
 
 @pytest.mark.parametrize("route", ["device", "host"])
 @pytest.mark.parametrize("mode", ["Required", "Preferred"])
-def test_out_of_slice_gang_is_not_routed_to_the_host(mode, route):
-    """Gang members spread by rack on a backend scoring nine resources (K1/K5
-    and K4 hold at most 8, ROADMAP B3; the reference computes any count):
-    OutOfSlice raises from schedule_pod_group on the device route (K5's
-    gate inside run_gang) and on the host route (K4's gate in a dry run of
-    a gang with a declared-features member), with every assume, placement
-    and the rng restored and no member counted on the device route."""
+def test_out_of_slice_gang_is_not_routed_to_the_host(mode, route, monkeypatch):
+    """Gang members spread by rack on a backend scoring nine resources (one
+    past the parameter block's 8) are placed as the reference places them,
+    on the device route (K1 + K5 through the gang wave) and on the host
+    route (a declared-features member: K4 dry runs). What the gates still
+    refuse (an OutOfSlice injected at K5's gate on the device route, at
+    K4's on the host route) raises from schedule_pod_group with every
+    assume, placement and the rng restored, no fallback, no gang error and
+    no member counted on the device route."""
     spec = {"nodes": [gang_node(f"node-{i}", f"zone-{int(i >= 30)}", cpu="4")
                       for i in range(31)],
             "gangs": [gang("g0", mode, [gang_member(f"m{i}", cpu="1", spread=(1, "rack"))
                                         for i in range(3)], labelled=True)]}
-    nodes = build_gang_nodes(spec, ttypes, tmeta)
-    for i, n in enumerate(nodes):
-        n.meta.labels["rack"] = f"r{i % 15}"
-    side = _Side("port", nodes, plugin_args=NINE_SCORED)
-    group, members = build_gangs(spec, ttypes, tmeta)[0]
-    if route == "host":
-        members[1].meta.annotations[NDF] = FEATURE
-    side.add_group(group, members)
+
+    def nodes(types, meta):
+        out = build_gang_nodes(spec, types, meta)
+        for i, n in enumerate(out):
+            n.meta.labels["rack"] = f"r{i % 15}"
+            n.status.declared_features = (FEATURE,) if i % 2 else ()
+        return out
+
+    def add_gang(side):
+        group, members = build_gangs(spec, side.types, side.meta)[0]
+        if route == "host":
+            members[1].meta.annotations[NDF] = FEATURE
+        side.add_group(group, members)
+        return group, members
+
+    sides = _sides(nodes, plugin_args=NINE_SCORED)
+    out = _run_groups(sides, [add_gang(side) for side in sides])
+    assert out[0][0] == "success" and out[5] == {route: 3}
+
+    side = _Side("port", nodes(ttypes, tmeta), plugin_args=NINE_SCORED)
+    group, members = add_gang(side)
     rng = side.algo.rng.getstate()
-    with pytest.raises(OutOfSlice, match="fit resources"):
+    monkeypatch.setattr(tkernels, "check_slice" if route == "device" else "check_fit_slice",
+                        _refuse)
+    with pytest.raises(OutOfSlice, match="injected"):
         PodGroupCycle(side.snapshot, side.fw, side.algo, side.names).schedule_pod_group(
             group.meta.key, [SimpleNamespace(pod=p) for p in members])
     assert side.snapshot.num_nodes() == 31

@@ -297,21 +297,27 @@ def test_wrappers_dispatch_by_device():
 
 
 def test_out_of_slice_configs_raise():
-    """The wave gate admits hard spread and IPA over keys of any number of
-    domains and refuses only past the kernels' slot capacities: 4 spread
-    slots, 4 required and 8 preferred IPA terms, 16 keys, 8 scored
-    resources."""
+    """The wave gate admits hard spread and IPA over any number of keys of
+    any number of domains, with any number of scored resources and shape
+    points, and refuses only past the kernels' slot capacities (4 spread
+    slots, 4 required and 8 preferred IPA terms), an empty resource list
+    or shape, and a strategy it does not name."""
     for cfg in (tk.KernelConfig(n_hard=1, n_soft=2),
                 tk.KernelConfig(n_hard=0, n_ipa_aff=1),
                 tk.KernelConfig(n_hard=0, ipa_existing_anti=True),
                 tk.KernelConfig(n_hard=4, n_soft=4, topo_domains=(1024,) * 16),
                 tk.KernelConfig(n_hard=0, n_soft=2, topo_domains=(8, 0)),
                 tk.KernelConfig(n_hard=0, topo_domains=(2048, 0)),
-                tk.KernelConfig(n_hard=1, n_soft=1, topo_domains=(8, 0, 8192))):
+                tk.KernelConfig(n_hard=1, n_soft=1, topo_domains=(8, 0, 8192)),
+                tk.KernelConfig(topo_domains=(8,) * 17),
+                tk.KernelConfig(n_hard=0, fit_resources=tuple((0, 1) for _ in range(9))),
+                tk.KernelConfig(strategy="RequestedToCapacityRatio",
+                                rtc_shape=tuple((5 * k, k) for k in range(21)))):
         tk.check_slice(cfg)
-    for cfg in (tk.KernelConfig(topo_domains=(8,) * 17),
-                tk.KernelConfig(max_constraints=5, n_hard=5, n_soft=0),
+    for cfg in (tk.KernelConfig(max_constraints=5, n_hard=5, n_soft=0),
                 tk.KernelConfig(n_hard=0, max_ipa_terms=5, n_ipa_aff=1),
-                tk.KernelConfig(n_hard=0, fit_resources=tuple((0, 1) for _ in range(9)))):
+                tk.KernelConfig(n_hard=0, fit_resources=()),
+                tk.KernelConfig(n_hard=0, rtc_shape=()),
+                tk.KernelConfig(n_hard=0, strategy="Balanced")):
         with pytest.raises(tk.OutOfSlice):
             tk.check_slice(cfg)

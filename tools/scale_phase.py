@@ -16,7 +16,8 @@ prints beside (a)'s, is not run here.
 The sizes are chip_smoke's module constants (SCALE_*). `--full-depth`
 runs the phase uncut, where chip_smoke cuts it to stay inside its time
 limit: gang.json's 100 PodGroups in (c) (SCALE_GANG_GROUPS, 20 in
-chip_smoke) and (d)'s bursts of 64 pods (SCALE_BURST, 32).
+chip_smoke), (d)'s bursts of 64 pods (SCALE_BURST, 32) and (b)'s 4
+bursts a sweep point (SCALE_BURSTS, 3).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def main() -> int:
     if own.full_depth:
         chip_smoke.SCALE_GANG_GROUPS = 100
         chip_smoke.SCALE_BURST = 64
+        chip_smoke.SCALE_BURSTS = 4
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
