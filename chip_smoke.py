@@ -3,9 +3,10 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the ten CUDA libraries of the seven kernels (K5's one-block and
-   per-row cluster instances apart; K4/K7's, K5's and K6's instances whose
-   domain tables live in device memory apart) from
+1. build the twelve CUDA libraries of the seven kernels (K5's one-block
+   and per-row cluster instances apart; K4/K7's, K5's and K6's instances
+   whose domain tables live in device memory apart; K5's and K6's pass
+   instances, past the card's largest cluster, apart) from
    kubernetes_tpu_torch/ops/csrc (nvcc, one process per library, all at
    once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
@@ -350,12 +351,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 29. the wave and gang scans past one block's 16384 node slots (the launch
    plan, kernels.scan_plan: a bucket past one block runs a thread-block
    cluster of blocks of at most 16384 slots, K2 through K6's cluster
-   kernel, K5 a cluster per mask row): (e) the card's cap
+   kernel, K5 a cluster per mask row; past the card's largest cluster the
+   cluster's blocks walk their ranges in passes): (e) the card's cap
    (kernels.scan_limits: the largest cluster one GPC holds), launched once
    at its full span (every row a live node) through K1 + K2, K1 + K6 on 8
    shards and K5, each equal to its plain version, K5 with a population
-   below a row's count reporting the truncated row, and one bucket past it
-   refused with OutOfSlice before any launch by each; (b) the reference's
+   below a row's count reporting the truncated row; then the pass
+   instance at SCALE_PASS_SLOTS (524288 and 1048576 slots: 2 and 4 passes
+   of 16 blocks on an H100) through K1 + K2, K1 + K6 on 8 shards and K5 (a
+   Preferred gang, its fallback row over every node, and a sparse row
+   whose nodes span past 65536 slots), and the widest configuration
+   (every spread and inter-pod affinity slot over testing/capacity.py's
+   20 keys, existing anti-affinity and preferred terms) at 524288 through
+   K2 and K5, with its tables in shared memory and in device memory, each
+   equal to its plain version on every output; K2's wave of
+   SCALE_PASS_WAVE pods (128, cut in depth from --wave's 512 for the run's
+   limit; `python3 tools/scale_phase.py --full-depth` runs 512) timed at
+   each pass width beside its latency floor and bound, and K6 on 8 shards
+   on it, the next wave chained and seeded on K2's at 524288 equal to its
+   plain version; (b) the reference's
    scale-out sweep (bench_multichip.py run_sweep) over the port's
    synthetic_cluster(n, n_zones=8) at SCALE_SWEEP nodes (25000, 50000,
    100000: buckets 32768 to 131072) on LocalContext (K2) and on
@@ -5616,12 +5630,13 @@ def equal_outputs(label, got, want):
 # (d) the card against the CPU on SCALE_CPU_NODES; (e) the cap's launch with
 # SCALE_CAP_PODS pods. SCALE_GANG_GROUPS is cut in depth from gang.json's
 # 100 to 20 (each gang re-plans 50000 nodes on the host) for chip_smoke's
-# time limit, as (d)'s SCALE_BURST and (b)'s SCALE_BURSTS (4 to 3: two
-# warm bursts still show the uploads flat) are; `python3
-# tools/scale_phase.py --full-depth` runs them uncut.
+# time limit, as (d)'s SCALE_BURST, (b)'s SCALE_BURSTS (4 to 3: two warm
+# bursts still show the uploads flat) and (a)'s measured SCALE_PODS (10000
+# to 5000, paying for (e)'s passes) are; `python3 tools/scale_phase.py
+# --full-depth` runs them uncut.
 SCALE_NODES = 50000
 SCALE_INIT_PODS = 1000
-SCALE_PODS = 10000
+SCALE_PODS = 5000
 SCALE_SWEEP = (25000, 50000, 100000)
 SCALE_BURSTS = 3
 SCALE_CHURN = 64
@@ -6147,21 +6162,274 @@ def tiled_planes(dp, dt, nb):
     return planes, tables
 
 
+# 29 (e)'s buckets past the card's largest cluster (2 and 4 passes of 16
+# blocks on an H100), and the configuration it takes to the widest: every
+# spread and inter-pod affinity slot over SCALE_WIDE_NODES nodes of
+# testing/capacity.py's 20-key fleet, tiled
+SCALE_PASS_SLOTS = (524288, 1048576)
+SCALE_WIDE_NODES = 512
+# the pods of 29 (e)'s timed wave past the cap, cut in depth from --wave's
+# 512 for the run's limit (each of its compared waves is a plain scan over
+# a million slots); `python3 tools/scale_phase.py --full-depth` runs 512
+SCALE_PASS_WAVE = 128
+
+
+def widest_pods(n, types, meta):
+    """n pods with every slot the kernels trace: four DoNotSchedule and four
+    ScheduleAnyway spread constraints, four required affinity terms (the
+    pods' own app: the first one bootstraps), four required anti-affinity
+    terms (against capacity.py's required anchor) and eight preferred terms
+    (four to the preferred anchor, four away from the batch tier), each on
+    its own key of the 20-key fleet."""
+    from kubernetes_tpu_torch.testing import capacity
+
+    keys = capacity.KEYS[20]
+    app = {"app": "widest"}
+    sel = types.LabelSelector.of(app)
+    spread = tuple(types.TopologySpreadConstraint(
+        64, keys[2 + j], "DoNotSchedule" if j < 4 else "ScheduleAnyway", sel) for j in range(8))
+    term = capacity._term
+    affinity = types.Affinity(
+        pod_affinity=types.PodAffinity(
+            required=tuple(term(types, app, keys[j]) for j in (0, 2, 3, 4)),
+            preferred=tuple(types.WeightedPodAffinityTerm(
+                5 + j, term(types, {"app": capacity.PREF_ANCHOR}, keys[10 + j]))
+                for j in range(4))),
+        pod_anti_affinity=types.PodAntiAffinity(
+            required=tuple(term(types, {"app": capacity.REQ_ANCHOR}, keys[5 + j])
+                           for j in range(4)),
+            preferred=tuple(types.WeightedPodAffinityTerm(
+                2 + j, term(types, capacity.BATCH, keys[14 + j])) for j in range(4))))
+    return [capacity._pod(types, meta, f"wide-{i}", {"cpu": "100m", "memory": "50Mi"},
+                          {**app, **capacity.BATCH}, affinity, spread) for i in range(n)]
+
+
+def cap_inputs(backend, snap, pods, pad):
+    """The wave's K1 + K2 inputs over the backend's mirror: (cfg, dp, dt,
+    packed_f, layout, signature ids, uniq rows)."""
+    from kubernetes_tpu_torch.ops.planes import pack_features, pad_features, stack_features
+
+    for p in pods:
+        backend.extractor.register(p)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features([backend.extractor.features(p, planes) for p in pods]),
+                         pad)
+    cfg = backend.kernel_config(planes, feats)
+    dp, dt = backend.device_inputs(planes)
+    rows, layout = pack_features(feats)
+    sig, uniq, _ = backend._group_wave(rows, len(pods))
+    return (cfg, dp, dt, torch.from_numpy(rows).cuda(), layout, torch.from_numpy(sig).cuda(),
+            torch.from_numpy(uniq).cuda())
+
+
+def cap_masks(nb, pass_rows):
+    """K5's mask rows: at the cap, the fallback row over every node and an
+    empty row; past it (pass_rows) a sparse row first (every 9973rd node
+    and the last 20000, so its nodes span the bucket, past 65536 slots),
+    then the fallback row and two empty rows."""
+    full = torch.ones(nb, dtype=torch.bool, device="cuda")
+    empty = torch.zeros(nb, dtype=torch.bool, device="cuda")
+    if not pass_rows:
+        return torch.stack([full, empty]), 0
+    sparse = empty.clone()
+    sparse[5::9973] = True
+    sparse[nb - 20000:] = True
+    return torch.stack([sparse, full, empty, empty]), 1
+
+
+def cap_launches(label, cfg, dp, dt, packed_f, layout, words, logtab, pass_rows, kinds,
+                 times=None, plain=None):
+    """K1 + K2, K1 + K6 on 8 shards and K5 (kinds: a subset of "265") on
+    these planes, each against its plain version on every output; with
+    `times` (a dict) K5 timed (scan + pick, profiler) beside its latency
+    floor and bound, into times["k5"]; `plain` (a dict) keeps the plain
+    versions' outputs for a later call on the same inputs (another table
+    placement). Returns the max |kernel - plain|."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    nb = dp["alloc"].shape[0]
+    plain = {} if plain is None else plain
+    f = unpack_features(packed_f, layout)
+    if "k1" not in plain:
+        plain["k1"] = kernels.static_parts_ref(dp, dt, f)
+    st = plain["k1"]
+    masks, n_con = cap_masks(nb, pass_rows)
+    calls = {}
+    if "2" in kinds:
+        calls["K1 + K2"] = lambda: kernels.batched_assign(cfg, dp, dt, packed_f, layout, words,
+                                                          logtab)
+    if "6" in kinds:
+        calls["K1 + K6 (8 shards)"] = lambda: kernels.batched_assign(
+            cfg, dp, dt, packed_f, layout, words, logtab, n_shards=8)
+    if "5" in kinds:
+        calls["K5"] = lambda: kernels.gang_assign(cfg, dp, st, packed_f, layout, masks, words,
+                                                  logtab, n_con, True, population=nb)
+    err = 0.0
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = call()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if name == "K5":
+            plan = kernels.scan_plan_for("gang_assign", cfg, dp, population=nb)
+            if "k5" not in plain:
+                plain["k5"] = kernels.gang_assign_ref(cfg, dp, st, f, masks, words, logtab,
+                                                      n_con, True)
+            want = plain["k5"]
+            if not torch.equal(got, want):
+                fail(f"29 (e) {label}: K5 differs from its plain version")
+            err = max(err, max_abs_err([(got, want)]))
+            d, p = masks.shape[0], packed_f.shape[0]
+            kernels.check_gang_rows(got[d * p + d: d * p + 2 * d].tolist())
+            if times is not None:
+                syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+                t = kernels_ms(lambda: kernels.gang_assign(
+                    cfg, dp, st, packed_f, layout, masks, words, logtab, n_con, True,
+                    syncs=syncs, population=nb), ("gang_assign_kernel", "gang_pick_kernel"), 3)
+                ms = t["gang_assign_kernel"] + t["gang_pick_kernel"]
+                fl = floor_ms(syncs, nb // plan.blocks, plan.blocks)
+                g = SimpleNamespace(fv=f, planes=SimpleNamespace(nb=nb), dp=dp, cfg=cfg,
+                                    packed_f=packed_f, masks=masks, logtab=logtab)
+                bd, by = bound_ms(*k5_work(g, st, words, got, n_con + 1)[:2])
+                times["k5"] = {"ms": ms, "floor_ms": fl, "bound_ms": bd, "bound_by": by,
+                               "blocks": plan.blocks, "passes": plan.passes}
+                print(f"29 (e) {label}: K5 {ms:.4f} ms (scan + pick) for {p} members over "
+                      f"{d} rows (mask nodes {masks.sum(dim=1).tolist()}), latency floor "
+                      f"{fl:.4f} ms (row 0), bound {bd:.5f} ms by {by}")
+        else:
+            plan = kernels.scan_plan_for(
+                "assign_scan" if name == "K1 + K2" else "sharded_assign", cfg, dp,
+                None if name == "K1 + K2" else 8)
+            if "k2" not in plain:
+                plain["k2"] = kernels.assign_scan_ref(cfg, dp, st, f, words, 0, logtab)
+            err = max(err, equal_outputs(f"29 (e) {label}: {name}", got, plain["k2"]))
+        if pass_rows and not (plan.scratch and plan.passes * plan.blocks * kernels.SCAN_MAX_SLOTS
+                              >= nb):
+            fail(f"29 (e) {label}: {name}'s plan {tuple(plan)} passes {plan.passes} scratch "
+                 f"{plan.scratch} is not the pass instance over {nb} slots")
+        print(f"29 (e) {label}: {name} equal to its plain version on every output (plan "
+              f"{plan.blocks} blocks x {plan.passes} passes, tables in "
+              f"{'device' if plan.gtab else 'shared'} memory"
+              f"{', position scratch' if plan.scratch else ''}); launches {launched}")
+    return err
+
+
+def cap_wave_time(args, backend, snap, nb, chain):
+    """K2's wave of SCALE_PASS_WAVE pods (dedup on) over nb tiled slots:
+    equal to its plain version, timed (profiler, the kernel alone) beside
+    its latency floor (the counted synchronisations with no node work) and
+    its bound; with `chain` the next wave chained on it and seeded from its
+    table, equal; then K6 on 8 shards on the first wave, equal and timed
+    beside its floor. Returns the numbers."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    wave = SCALE_PASS_WAVE
+    pods = [make_pod(f"pw-{nb}-{i}", cpu="500m", mem="512Mi", labels={"app": f"g{i % 4}"})
+            for i in range(wave)]
+    cfg, dp0, dt0, packed_f, layout, sig, uniq = cap_inputs(backend, snap, pods, wave)
+    dp, dt = tiled_planes(dp0, dt0, nb)
+    logtab = torch.from_numpy(kernels.log_weight_table(nb)).cuda()
+    words = tie_words(args.seed + 3, wave)
+    k1 = kernels.static_parts(dp, dt, packed_f, layout, rows=uniq)
+    syncs = torch.zeros(kernels.SCAN_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    kw = dict(sig_ids=sig, uniq_idx=uniq)
+    got = kernels.assign_scan(cfg, dp, k1, packed_f, layout, words, 0, logtab, syncs=syncs, **kw)
+    fv = unpack_features(packed_f, layout)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = kernels.assign_scan_ref(cfg, dp, k1, fv, words, 0, logtab, **kw)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    err = equal_outputs(f"29 (e) K2 wave of {wave} at {nb} slots", got, want)
+    plan = kernels.scan_plan_for("assign_scan", cfg, dp)
+    ms = kernel_ms(lambda: kernels.assign_scan(cfg, dp, k1, packed_f, layout, words, 0, logtab,
+                                               **kw), "sharded_assign_kernel", 3)
+    span = nb // plan.blocks
+    fl = floor_ms(syncs, span, plan.blocks)
+    w = SimpleNamespace(planes=SimpleNamespace(nb=nb, n=nb), fv=fv, sig=sig, uniq=uniq, dp=dp,
+                        cfg=cfg, packed_f=packed_f, logtab=logtab)
+    b, ops = k2_work(w, k1, words, got, True)
+    bd, by = bound_ms(b, ops)
+    if chain:
+        err = max(err, cap_chained(nb, cfg, dp, k1, packed_f, layout, fv, sig, uniq, logtab,
+                                   got, tie_words(args.seed + 4, wave)))
+    # K6 over 8 shards on the same wave: equal to the plain version, timed
+    got6 = kernels.sharded_assign(cfg, dp, k1, packed_f, layout, words, 0, logtab, 8,
+                                  syncs=syncs, **kw)
+    torch.cuda.synchronize()
+    err = max(err, equal_outputs(f"29 (e) K6 wave of {wave} at {nb} slots", got6, want))
+    plan6 = kernels.scan_plan_for("sharded_assign", cfg, dp, 8)
+    ms6 = kernel_ms(lambda: kernels.sharded_assign(cfg, dp, k1, packed_f, layout, words, 0,
+                                                   logtab, 8, **kw), "sharded_assign_kernel", 3)
+    # K2's plan and counted synchronisations: K2's floor is K6's
+    fl6 = fl if tuple(plan6) == tuple(plan) and plan6.passes == plan.passes else floor_ms(
+        syncs, nb // plan6.blocks, plan6.blocks)
+    print(f"29 (e) K6 at {nb} node slots, 8 shards: plan {plan6.blocks} blocks x "
+          f"{plan6.passes} passes; the same wave equal to the plain version on every output; "
+          f"{ms6:.4f} ms per wave, latency floor {fl6:.4f} ms")
+    print(f"29 (e) K2 at {nb} node slots: plan {plan.blocks} blocks x {plan.passes} passes; "
+          f"the wave of {wave} (dedup on) equal to its plain version on every output; "
+          f"tiers [full, replay] {got['tiers'].tolist()}; {ms:.4f} ms per wave "
+          f"({ms * 1e3 / wave:.2f} us per step), latency floor {fl:.4f} ms (counted "
+          f"barriers, folds, cluster barriers, exchanges, picks {syncs.tolist()[:5]}), plain "
+          f"{plain:.1f} ms (one call, host clock), bound {bd:.5f} ms by {by}")
+    return {"nb": nb, "wave": wave, "blocks": plan.blocks, "passes": plan.passes, "ms": ms,
+            "floor_ms": fl, "plain_ms": plain, "bound_ms": bd, "bound_by": by,
+            "max_abs_err": err, "k6_ms": ms6, "k6_floor_ms": fl6}
+
+
+def cap_chained(nb, cfg, dp, k1, packed_f, layout, fv, sig, uniq, logtab, first, words):
+    """K2's next wave chained on `first`'s outputs: its carry planes, its
+    signature table through a crafted slot map (a hit, a miss, a
+    rotation), its final cursor on the device, frame shift 5; against its
+    plain version on every output. Returns the max |kernel - plain|."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    crafted = torch.arange(uniq.shape[0], dtype=torch.int32, device="cuda")
+    crafted[2:] = torch.roll(crafted[2:], -1)
+    crafted[1] = -1
+    chained = dict(dp, **{k: first[k] for k in ("used", "nonzero_used", "sel_counts")})
+    cursor = first["packed"][-2:-1].clone()
+    kw = dict(sig_ids=sig, uniq_idx=uniq, frame_shift=5, carry_map=crafted,
+              sig_table=first["sig_table"])
+    got = kernels.assign_scan(cfg, chained, k1, packed_f, layout, words, cursor, logtab, **kw)
+    want = kernels.assign_scan_ref(cfg, chained, k1, fv, words, cursor, logtab, **kw)
+    torch.cuda.synchronize()
+    err = equal_outputs(f"29 (e) K2's chained seeded wave at {nb} slots", got, want)
+    print(f"29 (e) K2 at {nb} node slots: the next wave, chained and seeded (carry, crafted "
+          f"slot map, device cursor, frame shift 5), equal to its plain version on every "
+          f"output; tiers [full, replay] {got['tiers'].tolist()}")
+    return err
+
+
 def scale_cap(args):
     """29 (e). The plan's cap: the card's largest cluster (scan_limits) of
     16384-slot blocks, launched once at its full span (every row a live
     node) through K1 + K2 (the cluster route), K6 on 8 shards and K5 (one
     Preferred gang, its fallback row over every node) against their plain
     versions, and K5 with a population below its fallback row's count
-    reporting the truncated row; one bucket past it refused with
-    OutOfSlice by each, before any launch (every launch count still 0).
-    Returns the cap."""
+    reporting the truncated row. Then past the cap, the pass instance: at
+    each of SCALE_PASS_SLOTS the same launches (K5 with a sparse row beside
+    the fallback row, timed) and K2's and K6's wave of SCALE_PASS_WAVE pods
+    timed (at the first, the next wave chained and seeded on K2's); at the
+    first, the widest configuration through K2 and K5, its tables in shared
+    memory and (kernels.tables_in_device_memory) in device memory. Returns
+    the cap, the max |kernel - plain| and K2's timed waves."""
+    from kubernetes_tpu_torch.api import meta as tmeta
+    from kubernetes_tpu_torch.api import types as ttypes
     from kubernetes_tpu_torch.api.resource import ResourceNames
     from kubernetes_tpu_torch.ops import kernels
-    from kubernetes_tpu_torch.ops.planes import (
-        pack_features, pad_features, stack_features, unpack_features)
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
     from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
-    from kubernetes_tpu_torch.testing import synthetic_cluster
+    from kubernetes_tpu_torch.testing import capacity, synthetic_cluster
     from kubernetes_tpu_torch.testing.wrappers import make_pod
 
     t0 = time.perf_counter()
@@ -6176,77 +6444,74 @@ def scale_cap(args):
     backend = TorchBackend(names, device="cuda")
     pods = [make_pod(f"cap-{i}", cpu="500m", mem="512Mi", labels={"app": f"g{i % 4}"})
             for i in range(SCALE_CAP_PODS)]
-    for p in pods:
-        backend.extractor.register(p)
-    planes = backend.sync(snap)
-    feats = pad_features(stack_features([backend.extractor.features(p, planes) for p in pods]),
-                         SCALE_CAP_PODS)
-    cfg = backend.kernel_config(planes, feats)
-    dp0, dt0 = backend.device_inputs(planes)
-    rows, layout = pack_features(feats)
-    packed_f = torch.from_numpy(rows).cuda()
+    cfg, dp0, dt0, packed_f, layout, _, _ = cap_inputs(backend, snap, pods, SCALE_CAP_PODS)
     words = tie_words(args.seed, SCALE_CAP_PODS)
     err = 0.0
-    for nb, refuse in ((top, False), (2 * top, True)):
+    k5_times = {}
+    for nb in (top,) + SCALE_PASS_SLOTS:
         dp, dt = tiled_planes(dp0, dt0, nb)
         logtab = torch.from_numpy(kernels.log_weight_table(nb)).cuda()
-        masks = torch.ones((2, nb), dtype=torch.bool, device="cuda")
-        masks[1] = False
-        calls = {
-            "K1 + K2": lambda: kernels.batched_assign(cfg, dp, dt, packed_f, layout, words,
-                                                      logtab),
-            "K1 + K6 (8 shards)": lambda: kernels.batched_assign(cfg, dp, dt, packed_f, layout,
-                                                                 words, logtab, n_shards=8),
-            "K5": lambda: kernels.gang_assign(cfg, dp, kernels.static_parts_ref(
-                dp, dt, unpack_features(packed_f, layout)), packed_f, layout, masks, words, logtab, 0,
-                True, population=nb),
-        }
-        for label, call in calls.items():
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            if refuse:
-                try:
-                    call()
-                except kernels.OutOfSlice as e:
-                    if any(kernels.LAUNCHES.values()):
-                        fail(f"29 (e) {label} at {nb} slots launched {kernels.LAUNCHES} "
-                             f"before refusing")
-                    print(f"29 (e) {label} at {nb} node slots: OutOfSlice before any launch "
-                          f"({e})")
-                    continue
-                fail(f"29 (e) {label} at {nb} node slots was not refused")
-            got = call()
-            torch.cuda.synchronize()
-            f = unpack_features(packed_f, layout)
-            st = kernels.static_parts_ref(dp, dt, f)
-            if label == "K5":
-                want = kernels.gang_assign_ref(cfg, dp, st, f, masks, words, logtab, 0, True)
-                if not torch.equal(got, want):
-                    fail(f"29 (e) K5 at {nb} node slots differs from its plain version")
-                err = max(err, max_abs_err([(got, want)]))
-                # a population below the fallback row's count: its blocks'
-                # lists would hold part of the row; the row reports it
-                short = kernels.gang_assign(cfg, dp, st, packed_f, layout, masks, words, logtab,
-                                            0, True, population=nb // 64)
-                d, p = masks.shape[0], packed_f.shape[0]
-                ov = short[d * p + d: d * p + 2 * d].tolist()
-                try:
-                    kernels.check_gang_rows(ov)
-                except ValueError:
-                    pass
-                else:
-                    fail(f"29 (e) K5 at {nb} node slots with population {nb // 64}: overflow "
-                         f"words {ov}, the truncated row not reported")
-                print(f"29 (e) K5 at {nb} node slots with population {nb // 64} (below the "
-                      f"fallback row's {nb}): overflow words {ov}, refused by check_gang_rows")
+        times = {} if nb > top else None
+        err = max(err, cap_launches(f"{nb} node slots", cfg, dp, dt, packed_f, layout, words,
+                                    logtab, nb > top, "265", times))
+        if times:
+            k5_times[nb] = times["k5"]
+        if nb == top:
+            # a population below the fallback row's count: its blocks'
+            # lists would hold part of the row; the row reports it
+            masks, _ = cap_masks(nb, False)
+            st = kernels.static_parts(dp, dt, packed_f, layout)
+            short = kernels.gang_assign(cfg, dp, st, packed_f, layout, masks, words, logtab,
+                                        0, True, population=nb // 64)
+            d, p = masks.shape[0], packed_f.shape[0]
+            ov = short[d * p + d: d * p + 2 * d].tolist()
+            try:
+                kernels.check_gang_rows(ov)
+            except ValueError:
+                pass
             else:
-                want = kernels.assign_scan_ref(cfg, dp, st, f, words, 0, logtab)
-                err = max(err, equal_outputs(f"29 (e) {label} at {nb} node slots", got, want))
-            print(f"29 (e) {label} at {nb} node slots ({cap} blocks of the cluster"
-                  f"{', per row' if label == 'K5' else ''}): equal to its plain version; "
-                  f"launches {dict((k, v) for k, v in kernels.LAUNCHES.items() if v)}")
+                fail(f"29 (e) K5 at {nb} node slots with population {nb // 64}: overflow "
+                     f"words {ov}, the truncated row not reported")
+            print(f"29 (e) K5 at {nb} node slots with population {nb // 64} (below the "
+                  f"fallback row's {nb}): overflow words {ov}, refused by check_gang_rows")
+        del dp, dt
+    # the widest configuration: the 20-key fleet with its anchors, a wave
+    # of pods with every slot
+    wcache = Cache(names)
+    for node in capacity.capacity_nodes(SCALE_WIDE_NODES, 20, ttypes, tmeta):
+        wcache.add_node(node)
+    wback = TorchBackend(names, device="cuda")
+    for pod, node in capacity.anchor_pods(SCALE_WIDE_NODES, 20, ttypes, tmeta):
+        wback.extractor.register(pod)
+        wcache.assume_pod(pod, node)
+    wsnap = Snapshot()
+    wcache.update_snapshot(wsnap)
+    wide = cap_inputs(wback, wsnap, widest_pods(SCALE_CAP_PODS, ttypes, tmeta), SCALE_CAP_PODS)
+    wcfg = wide[0]
+    if not (wcfg.n_hard == 4 and wcfg.n_soft == 4 and wcfg.n_ipa_aff == 4
+            and wcfg.n_ipa_anti == 4 and wcfg.n_ipa_pref == 8 and wcfg.ipa_existing_anti
+            and wcfg.ipa_existing_pref):
+        fail(f"29 (e): the widest wave's configuration is not every slot: {wcfg}")
+    nb = SCALE_PASS_SLOTS[0]
+    dp, dt = tiled_planes(wide[1], wide[2], nb)
+    logtab = torch.from_numpy(kernels.log_weight_table(nb)).cuda()
+    plain = {}  # the plain versions do not depend on the table placement
+    for where in ("shared", "device"):
+        ctx = kernels.tables_in_device_memory() if where == "device" else contextlib.nullcontext()
+        with ctx:
+            err = max(err, cap_launches(f"the widest configuration at {nb} node slots, tables "
+                                        f"in {where} memory", wcfg, dp, dt, wide[3], wide[4],
+                                        words, logtab, True, "25", plain=plain))
+    del dp, dt
+    # the chained wave at the first width only: its seed does not depend on
+    # the pass count
+    waves = [cap_wave_time(args, backend, snap, nb, nb == SCALE_PASS_SLOTS[0])
+             for nb in SCALE_PASS_SLOTS]
+    for v in waves:
+        v["k5"] = k5_times[v["nb"]]
+    err = max([err] + [v["max_abs_err"] for v in waves])
     print(f"29 (e): {time.perf_counter() - t0:.1f} s")
-    return cap, err
+    return cap, err, waves
 
 
 def scale_phase(args, smi, rate22=None):
@@ -6256,8 +6521,8 @@ def scale_phase(args, smi, rate22=None):
     (d) the card against the CPU. Returns K2's and K5's numbers at the
     sweep's points."""
     t0 = time.perf_counter()
-    with watchdog("phase 29 (e) (the plan's cap)", args.phase_timeout):
-        cap, err = scale_cap(args)
+    with watchdog("phase 29 (e) (the plan's cap and the passes past it)", args.phase_timeout):
+        cap, err, waves = scale_cap(args)
     k2, clusters = {}, {}
     with watchdog("phase 29 (b) (the scale-out sweep)", args.phase_timeout):
         for n in SCALE_SWEEP:
@@ -6278,8 +6543,10 @@ def scale_phase(args, smi, rate22=None):
           + "; ".join(f"{v['nb']} slots {v['ms']:.4f}, {v['floor_ms']:.4f}, {v['blocks']}; "
                       f"{v['k6_ms']:.4f}, {v['k6_floor_ms']:.4f}, {v['k6_blocks']}"
                       for v in k2.values())
-          + f"; cap {cap} blocks; max |kernel - plain| "
-          f"{max([err] + [v['max_abs_err'] for v in k2.values()])}")
+          + f"; cap {cap} blocks; past it (blocks x passes): "
+          + "; ".join(f"{v['nb']} slots {v['ms']:.4f}, {v['floor_ms']:.4f}, "
+                      f"{v['blocks']} x {v['passes']}" for v in waves)
+          + f"; max |kernel - plain| {max([err] + [v['max_abs_err'] for v in k2.values()])}")
     print(f"phase 29: {time.perf_counter() - t0:.1f} s on {smi}")
     return k2, k5
 

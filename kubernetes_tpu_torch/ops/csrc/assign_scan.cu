@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) assign_scan_kernel(
     __shared__ ScanSyncs syncs;
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
     BlockComm comm = {0, p.Nb, red, 0, &syncs};
-    const ScanEnd end = scan_block<false, NPT, GATED, false>(p, a, comm);
+    const ScanEnd end = scan_block<false, NPT, GATED, false, false>(p, a, comm);
     if (threadIdx.x == 0) {
         out[p.P] = end.cursor;
         out[p.P + 1] = end.overflow;
@@ -68,7 +68,9 @@ extern "C" int launch_assign_scan(const ScanParams* p, void* const* ptrs,
     int* out = (int*)ptrs[19];
     int* tiers = (int*)ptrs[29];
     const size_t dyn = scan_smem_bytes(*p, p->Nb, false);
-    return scan_dispatch(p->Nb, scan_gated(*p), p->gtab != 0, [&](auto npt, auto gated, auto) {
+    // one block, one pass: the pass instance runs on K6's cluster kernel
+    return scan_dispatch(p->Nb, scan_gated(*p), p->gtab != 0, p->passes,
+                         [&](auto npt, auto gated, auto, auto) {
         auto kernel = assign_scan_kernel<decltype(npt)::value, decltype(gated)::value>;
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);

@@ -63,6 +63,14 @@ struct StaticParams {
 #else
 #define SCAN_GTAB_LIB false
 #endif
+// The same for a scan's passes: with -DSCAN_PASS a cluster library builds
+// the pass instances (p.passes > 0, past the card's largest cluster), else
+// those of one pass, so no nvcc process compiles more than four instances.
+#ifdef SCAN_PASS
+#define SCAN_PASS_LIB true
+#else
+#define SCAN_PASS_LIB false
+#endif
 
 #define SCAN_MAX_FIT 8
 #define SCAN_MAX_RTC 16
@@ -110,6 +118,9 @@ struct ScanParams {
     int walk;  // K5: the most mask nodes one block walks (0: its whole range)
     int gtab;  // the domain tables live in a device-memory scratch (the
                // instance for tables past shared memory: scan_plan)
+    int passes;  // 0: one pass, the position words in shared memory; n >= 1:
+                 // the pass instance, n passes of SCAN_MAX_SLOTS positions a
+                 // block with the position words in a device-memory scratch
 };
 
 // K4 fit_and_score: dims, feature offsets, the static KernelConfig and the

@@ -36,7 +36,13 @@
 // score on the pre-scan planes walks the same list and folds over the
 // cluster as an int32 sum. K1 runs once over the members, not per row: its
 // static_ok is the only K1 output that reads valid, and the walk holds only
-// the mask's nodes. A one-block tail launch makes the pick.
+// the mask's nodes. A one-block tail launch makes the pick. Past the card's
+// largest cluster (a row's mask population past 16 blocks of 16384 list
+// positions, or a range past SCAN_MAX_RANGE slots) each block of the row's
+// cluster walks its list in passes (the pass instance of scan_step.cuh,
+// built into the cluster libraries): its node list, held as int32 by list
+// position, and its position words live in the row's slice of a position
+// scratch (scan_pass_words per row).
 #include "scan_step.cuh"
 
 #define GANG_CPU_COL 0
@@ -78,7 +84,7 @@ __device__ __forceinline__ Comm gang_comm(int lo, int hi, int r, int m,
     else return Comm{lo, hi, red, 0, syncs};
 }
 
-template <int NPT, bool GATED, bool GTAB, typename Comm>
+template <int NPT, bool GATED, bool GTAB, bool PASS, typename Comm>
 __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     GangParams g, ScanArgs base, const uint8_t* __restrict__ masks, int* work, int* out) {
     // the fold and exchange slots, at the same address in every block
@@ -126,12 +132,13 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
         a.dom_counts = w;
         w += (size_t)p.K * p.D * p.S;
     }
-    if (GTAB) a.tables = w;
+    if (GTAB || (PASS && p.gtab)) a.tables = w;
+    if (PASS) a.pos = base.pos + (size_t)d * scan_pass_words(p, m, true);
     a.winners = out + (size_t)d * p.P;
 
     if (threadIdx.x == 0) syncs = {0, 0, 0, 0, 0};
     Comm comm = gang_comm<Comm>(lo, hi, r, m, red, xch, &syncs);
-    const ScanEnd end = scan_block<true, NPT, GATED, GTAB>(p, a, comm);
+    const ScanEnd end = scan_block<true, NPT, GATED, GTAB, PASS>(p, a, comm);
 
     // the placement score on the pre-scan planes, over the mask's list: per
     // node the mean of the cpu and memory free shares over the columns with
@@ -140,9 +147,10 @@ __global__ void __launch_bounds__(SCAN_NT, 1) gang_assign_kernel(
     // block's list was truncated, a max)
     const unsigned short* list = reinterpret_cast<const unsigned short*>(
         dyn + scan_smem(p, scan_slots(p, nbl, true), true).list);
+    const int* list32 = PASS ? a.pos + (size_t)3 * nb + lo : nullptr;  // the pass instance's
     int v[3] = {0, 0, end.truncated};  // counted nodes, their score sum, truncated
     for (int i = threadIdx.x; i < end.walked; i += SCAN_NT) {
-        const int n = lo + (int)list[i];
+        const int n = lo + (PASS ? list32[i] : (int)list[i]);
         int score = 0, parts = 0;
         for (int col = GANG_CPU_COL; col <= GANG_MEM_COL; ++col) {
             const int cap = base.alloc[(size_t)n * p.R + col];
@@ -213,10 +221,10 @@ __global__ void gang_pick_kernel(GangParams g, const int* __restrict__ feats, in
 // one launch of the rows: m = 1 one block per row (BlockComm), else one
 // cluster of m blocks per row (ClusterComm), refused when such a cluster
 // cannot be resident rather than launched smaller
-template <int NPT, bool GATED, bool GTAB, typename Comm>
+template <int NPT, bool GATED, bool GTAB, bool PASS, typename Comm>
 int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_t dyn,
                 cudaStream_t s) {
-    auto kernel = gang_assign_kernel<NPT, GATED, GTAB, Comm>;
+    auto kernel = gang_assign_kernel<NPT, GATED, GTAB, PASS, Comm>;
     const int m = g->blocks;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)dyn);
@@ -254,15 +262,17 @@ int launch_rows(const GangParams* g, const ScanArgs& a, void* const* ptrs, size_
 // ipa_counts, ipa_anti, ipa_pref, ipa_term_key (the pre-scan planes, read
 // only; IPA pointers 0 without IPA), masks, work, out, then the sync counts
 // and phase cycles of row 0's scan (0: not wanted), then the launch tables
-// (common.cuh; 0 within the parameter block's)
+// (common.cuh; 0 within the parameter block's), then the pass instance's
+// position scratch (rows x scan_pass_words; 0 in one pass)
 //
 // The file builds three times (ops/cuda.py DEFINES): without GANG_CLUSTER
 // the library launches one block per row (m = 1), with it one cluster of m
 // blocks per row (m > 1), and with GANG_CLUSTER and SCAN_GMEM a cluster of
 // m blocks per row (m >= 1) whose domain tables live in the row's work
 // slice (the GTAB instances, for tables past shared memory); each library
-// refuses the others' launches. Libraries compile side by side in the time
-// of one.
+// refuses the others' launches. With GANG_CLUSTER and SCAN_PASS the
+// library holds the pass instances (p.passes > 0), on either table
+// placement. Libraries compile side by side in the time of one.
 extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* stream) {
     const int m = g->blocks, nb = g->scan.Nb;
 #ifdef GANG_CLUSTER
@@ -270,8 +280,11 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
 #else
     constexpr bool cluster = false;
 #endif
-    if (m < 1 || m > SCAN_MAX_BLOCKS || (m & (m - 1)) || nb % m || nb / m > SCAN_MAX_RANGE
-        || (!SCAN_GTAB_LIB && (m > 1) != cluster))
+    const int passes = g->scan.passes;
+    // a one-pass block's uint16 list spans at most SCAN_MAX_RANGE slots
+    if (m < 1 || m > SCAN_MAX_BLOCKS || (m & (m - 1)) || nb % m
+        || (passes == 0 && nb / m > SCAN_MAX_RANGE)
+        || (!SCAN_GTAB_LIB && passes == 0 && (m > 1) != cluster))
         return (int)cudaErrorInvalidValue;
     const int slots = scan_slots(g->scan, nb / m, true);
     const size_t dyn = scan_smem_bytes(g->scan, slots, true);
@@ -296,16 +309,19 @@ extern "C" int launch_gang_assign(const GangParams* g, void* const* ptrs, void* 
     a.ipa_term_key = (const int*)ptrs[17];
     a.syncs = (int*)ptrs[21];
     a.lt = (const int*)ptrs[22];
+    a.pos = (int*)ptrs[23];
+    if (passes > 0 && a.pos == nullptr) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int err = scan_dispatch(slots, scan_gated(g->scan), g->scan.gtab != 0,
-                                  [&](auto npt, auto gated, auto gtab) {
+    const int err = scan_dispatch(slots, scan_gated(g->scan), g->scan.gtab != 0, passes,
+                                  [&](auto npt, auto gated, auto gtab, auto pass) {
         constexpr int N = decltype(npt)::value;
         constexpr bool G = decltype(gated)::value;
         constexpr bool T = decltype(gtab)::value;
+        constexpr bool Q = decltype(pass)::value;
 #ifdef GANG_CLUSTER
-        return launch_rows<N, G, T, ClusterComm>(g, a, ptrs, dyn, s);
+        return launch_rows<N, G, T, Q, ClusterComm>(g, a, ptrs, dyn, s);
 #else
-        return launch_rows<N, G, T, BlockComm>(g, a, ptrs, dyn, s);
+        return launch_rows<N, G, T, Q, BlockComm>(g, a, ptrs, dyn, s);
 #endif
     });
     if (err != 0) return err;

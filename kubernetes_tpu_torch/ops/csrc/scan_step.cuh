@@ -44,6 +44,32 @@
 //   relative to the range's start (a block's range is at most 65536
 //   slots), at most p.walk of them; node order, and so the tie ballots and
 //   the draw, is unchanged.
+// - Past the card's largest cluster (scan_plan in ops/kernels.py: 16
+//   blocks of 16384 slots on an H100) a block walks its range in p.passes
+//   passes of at most SCAN_MAX_SLOTS positions: the pass instance (the PASS
+//   flag, NPT 16, in the cluster libraries only). Position i of a block is
+//   pass i / (NPT * 1024), then t + 1024 j as in one pass, so walking the
+//   passes in order walks the nodes in order, and the tie ballots (one
+//   column per pass and owned position, pass-major) and the draw see them
+//   in node order: the CPython-exact draw and the words it consumes are
+//   those of one pass. The per-position words (the partial-then-whole
+//   total, the spread and IPA raw scores and, under MASKED, the node list
+//   as int32 by list position) leave shared memory for a device-memory
+//   scratch the wrapper allocates on the launch's stream (scan_pass_words,
+//   per mask row in K5), read and written only by the owning thread, so no
+//   barrier is added; so do each thread's feasibility and reject bits (one
+//   word a pass: NPT feasibility bits, then NPT reject bits) and the tie
+//   ballots of both parities (each warp also publishes its tie count in
+//   shared memory beside its maximum). Each reduction folds a thread's
+//   passes into its registers before the block fold (max, min and wrapping
+//   int32 sums do not depend on the order), so a step takes the barriers
+//   of one pass. A K5 range past SCAN_MAX_RANGE takes the pass instance
+//   too (its node list is int32 there). The pass count is a runtime field;
+//   one pass of the pass instance is a plan whose positions pass shared
+//   memory beside the tables (K5's widest configuration at 16384 slots).
+//   Its libraries build one table placement for both: where the plan puts
+//   the tables in device memory (p.gtab) the pass instance reaches them
+//   through the GTAB scratch at run time, as the GTAB instance does.
 // - Thread t of the block's 1024 owns positions t, t + 1024, ..., NPT of
 //   them (NPT a template parameter: 8 for up to 8192 node slots, 16 past
 //   that; a wider bucket takes a cluster of blocks, the launch plan of
@@ -154,8 +180,11 @@
 // or 16 (up to 16384)
 #define SCAN_MIN_NPT 8
 #define SCAN_MAX_NPT 16
-// a block's range of node slots at most under MASKED: its node list holds
-// uint16 positions relative to the range's start
+// the positions one pass of a block walks at most
+#define SCAN_MAX_SLOTS (SCAN_NT * SCAN_MAX_NPT)
+// a block's range of node slots at most under MASKED in one-pass
+// instances: their node list holds uint16 positions relative to the
+// range's start (the pass instance's holds int32)
 #define SCAN_MAX_RANGE 65536
 
 // the smallest power-of-two NPT (from SCAN_MIN_NPT) whose SCAN_NT * NPT
@@ -180,20 +209,32 @@ __host__ __device__ inline bool scan_gated(const ScanParams& p) {
 }
 
 // fn(std::integral_constant<int, NPT>, std::bool_constant<GATED>,
-// std::bool_constant<GTAB>) for the instance covering `span` positions with
-// its tables where `gtab` puts them; cudaErrorInvalidValue past
-// SCAN_MAX_NPT or for the other library's table placement (the wrappers'
-// plan never asks for either)
+// std::bool_constant<GTAB>, std::bool_constant<PASS>) for the instance
+// covering `span` positions with its tables where `gtab` puts them: in a
+// pass library (SCAN_PASS_LIB) the pass instance of p.passes > 0 passes
+// (NPT 16), which must cover span, its table placement read at run time;
+// else the one-pass instance of the smallest NPT; cudaErrorInvalidValue
+// past SCAN_MAX_NPT in one pass, or for the other libraries' table
+// placement or pass kind (the wrappers' plan never asks for any of them)
 template <typename F>
-inline int scan_dispatch(int span, bool gated, bool gtab, F&& fn) {
+inline int scan_dispatch(int span, bool gated, bool gtab, int passes, F&& fn) {
     constexpr std::bool_constant<SCAN_GTAB_LIB> g{};
-    const int npt = scan_npt(span);
-    if (gtab != SCAN_GTAB_LIB) return (int)cudaErrorInvalidValue;
-    if (npt == 8 && gated) return fn(std::integral_constant<int, 8>{}, std::true_type{}, g);
-    if (npt == 8) return fn(std::integral_constant<int, 8>{}, std::false_type{}, g);
-    if (npt == 16 && gated) return fn(std::integral_constant<int, 16>{}, std::true_type{}, g);
-    if (npt == 16) return fn(std::integral_constant<int, 16>{}, std::false_type{}, g);
-    return (int)cudaErrorInvalidValue;
+    constexpr std::bool_constant<SCAN_PASS_LIB> q{};
+    constexpr std::integral_constant<int, SCAN_MAX_NPT> wide{};
+    if ((passes > 0) != SCAN_PASS_LIB || (!SCAN_PASS_LIB && gtab != SCAN_GTAB_LIB))
+        return (int)cudaErrorInvalidValue;
+    if constexpr (SCAN_PASS_LIB) {
+        if ((long long)passes * SCAN_MAX_SLOTS < span) return (int)cudaErrorInvalidValue;
+        if (gated) return fn(wide, std::true_type{}, g, q);
+        return fn(wide, std::false_type{}, g, q);
+    } else {
+        const int npt = scan_npt(span);
+        if (npt == 8 && gated) return fn(std::integral_constant<int, 8>{}, std::true_type{}, g, q);
+        if (npt == 8) return fn(std::integral_constant<int, 8>{}, std::false_type{}, g, q);
+        if (npt == 16 && gated) return fn(wide, std::true_type{}, g, q);
+        if (npt == 16) return fn(wide, std::false_type{}, g, q);
+        return (int)cudaErrorInvalidValue;
+    }
 }
 
 // The domain tables of one scan, in int32 words: the soft spread tables
@@ -207,12 +248,13 @@ inline int scan_dispatch(int span, bool gated, bool gtab, F&& fn) {
 // the parameter block's caps), the tables (but in the GTAB instance, whose
 // tables are its scratch's `tables` words), by owned position (`span` of them:
 // scan_slots) the partial-then-whole total and the spread and IPA raw
-// scores, (MASKED) the mask's node list as uint16, the winner's rows after
-// its adds (used, alloc, nonzero_used, sel_counts) for the patch, and past
-// 32 key slots the matched key masks of the step's two slot buffers
-// (key_words(K) words each; one word stays in the static s_flags).
-// ops/kernels.py scan_smem_words and scan_table_words mirror it for the
-// launch plan.
+// scores, (MASKED) the mask's node list as uint16 (the pass instance,
+// p.passes > 0, keeps these position words in its scratch instead:
+// scan_pass_words), the winner's rows after its adds (used, alloc,
+// nonzero_used, sel_counts) for the patch, and past 32 key slots the
+// matched key masks of the step's two slot buffers (key_words(K) words
+// each; one word stays in the static s_flags). ops/kernels.py
+// scan_smem_words and scan_table_words mirror it for the launch plan.
 struct ScanSmem {
     int lt, soft, uni, present, tables, ew, raw, iraw, list, wrow, keys, words;
 };
@@ -221,6 +263,7 @@ __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, boo
     const int filt = (p.n_ipa_anti + p.n_ipa_aff) * p.D + (p.ex_anti ? p.topo_words : 0);
     const int score = p.n_ipa_pref * p.D + (p.ex_pref_add ? p.topo_words : 0);
     const bool ipa_raw = p.n_ipa_pref > 0 || (p.ipa_active && p.ex_pref);
+    const int pos = p.passes > 0 ? 0 : span;  // the position words held here
     ScanSmem s;
     s.lt = launch_table_words(p);
     s.soft = 0;  // the tables' offsets are from their base (dynamic shared
@@ -229,10 +272,10 @@ __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, boo
     s.present = s.uni + (filt > score ? filt : score);
     s.tables = s.present + (p.dom_carry ? (p.topo_words + 31) / 32 : 0);
     s.ew = s.lt + (p.gtab ? 0 : s.tables);
-    s.raw = s.ew + span;
-    s.iraw = s.raw + (p.n_soft > 0 ? span : 0);
-    s.list = s.iraw + (ipa_raw ? span : 0);
-    s.wrow = s.list + (masked ? (span + 1) / 2 : 0);
+    s.raw = s.ew + pos;
+    s.iraw = s.raw + (p.n_soft > 0 ? pos : 0);
+    s.list = s.iraw + (ipa_raw ? pos : 0);
+    s.wrow = s.list + (masked ? (pos + 1) / 2 : 0);
     s.keys = s.wrow + 2 * p.R + 2 + p.S;
     s.words = s.keys + (key_words(p.K) > 1 ? 2 * key_words(p.K) : 0);
     return s;
@@ -241,6 +284,24 @@ __host__ __device__ inline ScanSmem scan_smem(const ScanParams& p, int span, boo
 __host__ __device__ inline size_t scan_smem_bytes(const ScanParams& p, int span, bool masked) {
     const int w = scan_smem(p, span, masked).words;
     return (size_t)(w > 0 ? w : 1) * sizeof(int);
+}
+
+// The pass instance's position scratch (p.passes > 0), in int32 words, for
+// a launch of `blocks` blocks over p.Nb node slots (per mask row in K5):
+// by node slot the partial-then-whole total, the spread raw score and the
+// IPA raw score (3 Nb: a block's position i is at slot lo + i), (MASKED)
+// the node list as int32 by list position (Nb, the same indexing), then
+// per block each thread's bits per pass (passes x SCAN_NT) and the tie
+// ballots of both parities (2 x passes x SCAN_MAX_NPT columns x
+// SCAN_NWARPS warps). 0 in one-pass instances. ops/kernels.py
+// scan_pass_words mirrors it.
+__host__ __device__ inline size_t scan_pass_block_words(const ScanParams& p) {
+    return (size_t)p.passes * SCAN_NT + (size_t)2 * p.passes * SCAN_MAX_NPT * SCAN_NWARPS;
+}
+
+__host__ __device__ inline size_t scan_pass_words(const ScanParams& p, int blocks, bool masked) {
+    if (p.passes <= 0) return 0;
+    return (size_t)(masked ? 4 : 3) * p.Nb + (size_t)blocks * scan_pass_block_words(p);
 }
 
 // Thread 0's clock, split by step phase (its view of the critical path:
@@ -298,6 +359,7 @@ struct ScanArgs {
     const int* prev_pcs;
     int* syncs;  // [5] the counted synchronisations (nullptr: not wanted)
     const int* lt;  // the launch tables past the parameter block (common.cuh)
+    int* pos;  // the pass instance's position scratch (scan_pass_words)
 };
 
 // ScanArgs from K2's and K6's pointer list: alloc, domain, valid,
@@ -309,7 +371,8 @@ struct ScanArgs {
 // p->xwave carry_map and the previous table's ew, ffit, feas, segs, pcs (0
 // without), then the sync counts [5] (0: not wanted), the GTAB scratch
 // (K6's launcher reads it: sharded_assign.cu), then the launch tables (0
-// within the parameter block's)
+// within the parameter block's), then the pass instance's position scratch
+// (0 in one pass)
 inline ScanArgs scan_args(void* const* ptrs) {
     ScanArgs a = {};
     a.alloc = (const int*)ptrs[0];
@@ -351,6 +414,7 @@ inline ScanArgs scan_args(void* const* ptrs) {
     a.prev_pcs = (const int*)ptrs[36];
     a.syncs = (int*)ptrs[37];
     a.lt = (const int*)ptrs[39];
+    a.pos = (int*)ptrs[40];
     return a;
 }
 
@@ -378,11 +442,14 @@ __device__ __forceinline__ void write_syncs(int* dst, const ScanSyncs& s,
     for (int k = 0; k < SCAN_PHASES; ++k) dst[5 + k] = (int)(phase_cycles[k] / 1000);
 }
 
-template <bool MASKED, int NPT, bool GATED, bool GTAB, typename Comm>
+template <bool MASKED, int NPT, bool GATED, bool GTAB, bool PASS, typename Comm>
 __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArgs& a,
                                               Comm& comm) {
     static_assert(NPT >= 1 && NPT <= SCAN_MAX_NPT, "owned positions per thread");
     static_assert(!GTAB || Comm::kCluster, "device-memory tables run under ClusterComm");
+    static_assert(!PASS || NPT == SCAN_MAX_NPT, "the pass instance owns 16 positions a pass");
+    static_assert(!PASS || (Comm::kCluster && !GTAB), "the pass instance reads p.gtab");
+    static_assert(2 * SCAN_MAX_NPT <= 32, "a pass's feasibility and reject bits share a word");
     // K2 and K5 keep a replay's soft tables across steps; K6 reloads them
     constexpr bool kKeep = !Comm::kCluster;
     extern __shared__ int dyn[];
@@ -444,20 +511,47 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     if (lay.lt) stage_launch_tables(a.lt, lay.lt);
     // the union of the filter and score IPA tables (scan_smem)
     const int union_words = lay.present - lay.uni;
-    // the domain tables every block adds into: the scratch (GTAB), else
+    // the domain tables every block adds into: the scratch (GTAB, or the
+    // pass instance where the plan puts them in device memory), else
     // shared memory (rank 0's under ClusterComm)
-    int* tabs = GTAB ? a.tables : comm.tables(dyn + lay.lt);
+    const bool gtab = GTAB || (PASS && p.gtab != 0);
+    int* tabs = gtab ? a.tables : comm.tables(dyn + lay.lt);
     int* soft_t = tabs + lay.soft;
     int* uni_t = tabs + lay.uni;
-    unsigned* present = reinterpret_cast<unsigned*>(GTAB ? a.tables + lay.present
+    unsigned* present = reinterpret_cast<unsigned*>(gtab ? a.tables + lay.present
                                                          : comm.tables(dyn + lay.lt + lay.present));
-    int* raw_s = dyn + lay.raw;
-    int* iraw_s = dyn + lay.iraw;
+    // passes of PS positions (one outside the pass instance): position i
+    // of the block is pass i / PS, then j * SCAN_NT + t within it
+    constexpr int PS = NPT * SCAN_NT;
+    const int npass = PASS ? p.passes : 1;
+    // ew plus the image score, then the total, by owned position, and the
+    // spread and IPA raw scores: in shared memory, or (the pass instance)
+    // at the position's node slot in the scratch. Each thread reads and
+    // writes only its own positions, so neither needs a barrier
+    int* ew_s = PASS ? a.pos + lo : dyn + lay.ew;
+    int* raw_s = PASS ? a.pos + (size_t)Nb + lo : dyn + lay.raw;
+    int* iraw_s = PASS ? a.pos + (size_t)2 * Nb + lo : dyn + lay.iraw;
     unsigned short* list = reinterpret_cast<unsigned short*>(dyn + lay.list);
-    // ew plus the image score, then the total, by owned position: each
-    // thread reads and writes only its own positions, so the row needs no
-    // barrier
-    int* ew_s = dyn + lay.ew;
+    // the pass instance's node list (int32, relative to lo), this block's
+    // bits by pass and thread, and its tie ballots [parity][column][warp]
+    int* list32 = PASS && MASKED ? a.pos + (size_t)3 * Nb + lo : nullptr;
+    unsigned* bits_g =
+        PASS ? reinterpret_cast<unsigned*>(a.pos + (size_t)(MASKED ? 4 : 3) * Nb
+                                           + (size_t)comm.rank() * scan_pass_block_words(p))
+             : nullptr;
+    unsigned* pk_g = PASS ? bits_g + (size_t)npass * SCAN_NT : nullptr;
+    const int ncol = npass * NPT;  // tie ballot columns a warp publishes
+    // a pass's bits (NPT feasibility bits, then NPT reject bits): the
+    // register `reg` in one pass, the scratch word of (pass, thread) in the
+    // pass instance
+    auto load_bits = [&](int ps, unsigned reg) -> unsigned {
+        if constexpr (PASS) return bits_g[(size_t)ps * SCAN_NT + tid];
+        else return reg;
+    };
+    auto store_bits = [&](int ps, unsigned& reg, unsigned v) {
+        if constexpr (PASS) bits_g[(size_t)ps * SCAN_NT + tid] = v;
+        else reg = v;
+    };
     // the winner's rows after its adds, read by the patch after a barrier
     int* w_used = dyn + lay.wrow;
     int* w_alloc = w_used + p.R;
@@ -467,7 +561,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     auto seg = [&](int c) { return soft_t + (size_t)c * D; };
     auto pcs = [&](int c) { return soft_t + (size_t)(ns + c) * D; };
     auto node_at = [&](int i) -> int {
-        if constexpr (MASKED) return lo + (int)list[i];
+        if constexpr (MASKED && PASS) return lo + list32[i];
+        else if constexpr (MASKED) return lo + (int)list[i];
         else return lo + i;
     };
     // the one place the scan reads node validity (see the header comment)
@@ -476,16 +571,18 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
 
     // the words [a, b) of an n-word table pass (clear, reload, install)
     // this block makes: rank 0's all of them where the tables are its
-    // shared memory; under GTAB each block its share of the scratch
+    // shared memory; in the scratch each block its share of it
     auto share = [&](size_t n, size_t& a, size_t& b) {
-        if constexpr (GTAB) {
-            const size_t per = (n + comm.nb - 1) / comm.nb;
-            a = min(n, (size_t)comm.r * per);
-            b = min(n, a + per);
-        } else {
-            a = 0;
-            b = lead ? n : 0;
+        if constexpr (Comm::kCluster) {  // the scratch is cluster-only
+            if (gtab) {
+                const size_t per = (n + comm.nb - 1) / comm.nb;
+                a = min(n, (size_t)comm.r * per);
+                b = min(n, a + per);
+                return;
+            }
         }
+        a = 0;
+        b = lead ? n : 0;
     };
     auto clear_words = [&](int* t, size_t n) {
         size_t a, b;
@@ -570,24 +667,29 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             const bool in = n < span && a.mask[lo + n] != 0;
             const unsigned b = __ballot_sync(FULL_MASK, in);
             const int at = base + __popc(b & ((1u << lane) - 1u));
-            if (in && at < slots) list[at] = (unsigned short)n;
+            if (in && at < slots) {
+                if constexpr (PASS) list32[at] = n;
+                else list[at] = (unsigned short)n;
+            }
             base += __popc(b);
         }
         cnt = min(v[0], slots);
         truncated = v[0] > slots;
         tick(comm.n->fold);
     } else {
+        for (int ps = 0; ps < npass; ++ps) {
 #pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-            const int i = j * SCAN_NT + tid;
-            if (i >= span) continue;
-            const int n = lo + i;
-            bool live = a.valid[n] != 0;
-            const int* a_row = alloc + (size_t)n * p.R;
-            const int* u_row = used + (size_t)n * p.R;
-            for (int r = 0; r < p.R; ++r) live |= (a_row[r] | u_row[r]) != 0;
-            live |= (nonzero_used[(size_t)n * 2] | nonzero_used[(size_t)n * 2 + 1]) != 0;
-            if (live) last = max(last, i);
+            for (int j = 0; j < NPT; ++j) {
+                const int i = ps * PS + j * SCAN_NT + tid;
+                if (i >= span) continue;
+                const int n = lo + i;
+                bool live = a.valid[n] != 0;
+                const int* a_row = alloc + (size_t)n * p.R;
+                const int* u_row = used + (size_t)n * p.R;
+                for (int r = 0; r < p.R; ++r) live |= (a_row[r] | u_row[r]) != 0;
+                live |= (nonzero_used[(size_t)n * 2] | nonzero_used[(size_t)n * 2 + 1]) != 0;
+                if (live) last = max(last, i);
+            }
         }
         int v[1] = {last};
         comm.template reduce_local<1>(v, 1u, 0u);
@@ -602,21 +704,23 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     if (tid < SCAN_MAX_SOFT) ndom_keep[tid] = 0;
     comm.sync();
     if (dom_carry) {
+        for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
 #pragma unroll 4
-        for (int j = 0; j < NPT; ++j) {
-            const int i = j * SCAN_NT + tid;
-            if (i >= cnt) continue;
-            const int n = node_at(i);
-            if (!node_valid(n)) continue;
-            for (int k = 0; k < K; ++k) {
-                const int dk = topo_dk_at(p, k), d = domain[(size_t)n * K + k];
-                if (dk == 0 || d < 0) continue;
-                const int dc = clampi(d, 0, dk - 1);
-                const int bit = topo_off_at(p, k) + dc;
-                atomicOr(&present[bit >> 5], 1u << (bit & 31));
-                for (int s = 0; s < S; ++s)
-                    atomicAdd(&dom_counts[((size_t)k * D + dc) * S + s],
-                              sel_counts[(size_t)n * S + s]);
+            for (int j = 0; j < NPT; ++j) {
+                const int i = ps * PS + j * SCAN_NT + tid;
+                if (i >= cnt) continue;
+                const int n = node_at(i);
+                if (!node_valid(n)) continue;
+                for (int k = 0; k < K; ++k) {
+                    const int dk = topo_dk_at(p, k), d = domain[(size_t)n * K + k];
+                    if (dk == 0 || d < 0) continue;
+                    const int dc = clampi(d, 0, dk - 1);
+                    const int bit = topo_off_at(p, k) + dc;
+                    atomicOr(&present[bit >> 5], 1u << (bit & 31));
+                    for (int s = 0; s < S; ++s)
+                        atomicAdd(&dom_counts[((size_t)k * D + dc) * S + s],
+                                  sel_counts[(size_t)n * S + s]);
+                }
             }
         }
         comm.sync();
@@ -807,21 +911,23 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     }
                 }
             }
+            for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
 #pragma unroll 4
-            for (int j = 0; j < NPT; ++j) {
-                const int i = j * SCAN_NT + tid;
-                if (i >= cnt) continue;
-                const int n = node_at(i);
-                if (!node_valid(n)) continue;
-                const int* dom_row = domain + (size_t)n * K;
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    if (i >= cnt) continue;
+                    const int n = node_at(i);
+                    if (!node_valid(n)) continue;
+                    const int* dom_row = domain + (size_t)n * K;
 #pragma unroll
-                for (int c = 0; c < SCAN_MAX_SOFT; ++c) {  // a singleton key: over the nodes
-                    if (c >= nh) continue;
-                    const Slot s = hard[c];
-                    if (s.on && s.dk == 0 && dom_at(dom_row, s) >= 0)
-                        v[c] = min(v[c], sel_counts[(size_t)n * S + s.col]);
+                    for (int c = 0; c < SCAN_MAX_SOFT; ++c) {  // a singleton key: over the nodes
+                        if (c >= nh) continue;
+                        const Slot s = hard[c];
+                        if (s.on && s.dk == 0 && dom_at(dom_row, s) >= 0)
+                            v[c] = min(v[c], sel_counts[(size_t)n * S + s.col]);
+                    }
+                    if (ipa_act) ipa_filter_stats(p, ipa, f, n, dom_row, v + 4);
                 }
-                if (ipa_act) ipa_filter_stats(p, ipa, f, n, dom_row, v + 4);
             }
             comm.template reduce<8>(v, 0xF0u, 0x0Fu);
 #pragma unroll
@@ -834,43 +940,48 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // signature under hard spread or IPA, the replay gate: the row's
         // feasibility must equal the live one on every node row
         const bool check = gated && resident;
-        unsigned fail_bits = 0;
+        unsigned fail_bits = 0;  // the one pass's reject bits (at bit NPT + j)
         int refused = 0;
         if (has_fail || check) {
             int mismatch = 0;
+            for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
+                unsigned fb = 0;
 #pragma unroll 4
-            for (int j = 0; j < NPT; ++j) {
-                const int i = j * SCAN_NT + tid;
-                if (i >= cnt) continue;
-                const int n = node_at(i);
-                bool fail = false;
-                if (has_fail) {
-                    const int* dom_row = domain + (size_t)n * K;
-                    for (int c = 0; c < nh && !fail; ++c) {
-                        const Slot s = hard[c];
-                        if (!s.on) continue;
-                        const int d = dom_at(dom_row, s);
-                        if (d < 0) {
-                            fail = true;  // the node lacks the key
-                            break;
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    if (i >= cnt) continue;
+                    const int n = node_at(i);
+                    bool fail = false;
+                    if (has_fail) {
+                        const int* dom_row = domain + (size_t)n * K;
+                        for (int c = 0; c < nh && !fail; ++c) {
+                            const Slot s = hard[c];
+                            if (!s.on) continue;
+                            const int d = dom_at(dom_row, s);
+                            if (d < 0) {
+                                fail = true;  // the node lacks the key
+                                break;
+                            }
+                            const size_t dc = ((size_t)s.key * D + clampi(d, 0, D - 1)) * S;
+                            const int count = s.dk == 0 ? sel_counts[(size_t)n * S + s.col]
+                                                        : dom_counts[dc + s.col];
+                            fail = count + s.b - hmin[c] > s.a;
                         }
-                        const int count =
-                            s.dk == 0 ? sel_counts[(size_t)n * S + s.col]
-                                      : dom_counts[((size_t)s.key * D + clampi(d, 0, D - 1)) * S + s.col];
-                        fail = count + s.b - hmin[c] > s.a;
+                        if (!fail && ipa_act) {
+                            bool i1, i2, i3;
+                            ipa_filters_at(p, ipa, f, n, node_valid(n), dom_row, aff_any, i1, i2,
+                                           i3);
+                            fail = i1 || i2 || i3;
+                        }
+                        fb |= (unsigned)fail << (NPT + j);
                     }
-                    if (!fail && ipa_act) {
-                        bool i1, i2, i3;
-                        ipa_filters_at(p, ipa, f, n, node_valid(n), dom_row, aff_any, i1, i2, i3);
-                        fail = i1 || i2 || i3;
+                    if (check) {
+                        const size_t o = srow + n;
+                        const bool live = static_ok[o] && !t_ffit[o] && !fail;
+                        mismatch |= live != (t_feas[o] != 0);
                     }
-                    fail_bits |= (unsigned)fail << j;
                 }
-                if (check) {
-                    const size_t o = srow + n;
-                    const bool live = static_ok[o] && !t_ffit[o] && !fail;
-                    mismatch |= live != (t_feas[o] != 0);
-                }
+                if (has_fail) store_bits(ps, fail_bits, fb);
             }
             // one barrier: the gate, and the filter tables' last read
             refused = comm.sync_or(mismatch);
@@ -917,7 +1028,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // by the full tier; the preferred IPA terms)
         const bool has_pref = a.aff_has_pref[sid] != 0;
         const bool pts_on = ns > 0 && any_soft;
-        unsigned fe_bits = 0;
+        unsigned fe_bits = 0;  // the one pass's feasibility bits (at bit j)
         // max taint count, max aff raw, the singleton slots' domain counts,
         // the other slots' first participants (or a reload's counts)
         int w[SCAN_RED] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
@@ -931,79 +1042,90 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             // no branch waits on a loaded value, so every owned position's
             // loads are in flight together (the maxima start at 0, so an
             // infeasible node's 0 leaves them as they are)
+            for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
+                unsigned fbits = 0;
 #pragma unroll 4
-            for (int j = 0; j < NPT; ++j) {
-                const int i = j * SCAN_NT + tid;
-                if (i >= cnt) continue;
-                const int n = node_at(i);
-                const int tc = __ldg(tc_row + n), im = __ldg(img_row + n);
-                const bool fe = t_feas[srow + n] != 0;
-                // the total's parts that no normalizer scales (int32 sums
-                // wrap, so their order does not change the total)
-                ew_s[i] = wadd(t_ew[srow + n], wmul(im, p.w_img));
-                fe_bits |= (unsigned)fe << j;
-                w[0] = max(w[0], fe ? tc : 0);
-                if (has_pref) w[1] = max(w[1], fe ? __ldg(af_row + n) : 0);
-                if (pts_on) {
-                    const int* dom_row = domain + (size_t)n * K;
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    if (i >= cnt) continue;
+                    const int n = node_at(i);
+                    const int tc = __ldg(tc_row + n), im = __ldg(img_row + n);
+                    const bool fe = t_feas[srow + n] != 0;
+                    // the total's parts that no normalizer scales (int32 sums
+                    // wrap, so their order does not change the total)
+                    ew_s[i] = wadd(t_ew[srow + n], wmul(im, p.w_img));
+                    fbits |= (unsigned)fe << j;
+                    w[0] = max(w[0], fe ? tc : 0);
+                    if (has_pref) w[1] = max(w[1], fe ? __ldg(af_row + n) : 0);
+                    if (pts_on) {
+                        const int* dom_row = domain + (size_t)n * K;
 #pragma unroll
-                    for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
-                        if (c >= ns) continue;
-                        const Slot s = soft[c];
-                        w[2 + c] += fe && s.on && s.dk == 0 && dom_at(dom_row, s) >= 0;
-                    }
-                }
-                if (ipa_acc && fe) ipa_score_stats(p, ipa, f, n, domain + (size_t)n * K);
-            }
-        } else {
-#pragma unroll 4
-            for (int j = 0; j < NPT; ++j) {
-                const int i = j * SCAN_NT + tid;
-                if (i >= cnt) continue;
-                const int n = node_at(i);
-                const size_t o = srow + n;
-                const int tc = __ldg(tc_row + n), af = __ldg(af_row + n), im = __ldg(img_row + n);
-                const int* a_row = alloc + (size_t)n * p.R;
-                const int* u_row = used + (size_t)n * p.R;
-                bool ffit = too_many_pods(a_row, u_row);
-                for (int r = 0; r < p.R; ++r)
-                    ffit |= fit_insufficient(r, f[p.f_req + r], a_row[r], u_row[r]);
-                const bool fe = static_ok[o] && !ffit && !((fail_bits >> j) & 1u);
-                int ew = 0;
-                if (fe || capture) {  // the table row holds ew on every row
-                    const int* nz_row = nonzero_used + (size_t)n * 2;
-                    ew = wadd(wmul(fit_score(p, a_row, u_row, nz_row, f), p.w_fit),
-                              wmul(balanced_score(p, a_row, u_row, nz_row, f), p.w_bal));
-                }
-                if (capture) {
-                    t_ew[o] = ew;
-                    t_ffit[o] = ffit;
-                    t_feas[o] = fe;
-                }
-                ew_s[i] = wadd(ew, wmul(im, p.w_img));
-                fe_bits |= (unsigned)fe << j;
-                if (!fe) continue;
-                w[0] = max(w[0], tc);
-                w[1] = max(w[1], af);
-                if (pts_on || acc_soft) {
-                    const int* dom_row = domain + (size_t)n * K;
-#pragma unroll
-                    for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
-                        if (c >= ns) continue;
-                        const Slot s = soft[c];
-                        const int d = dom_at(dom_row, s);
-                        if (d < 0) continue;
-                        if (s.dk == 0) {
-                            if (s.on) w[2 + c] += 1;
-                        } else if (acc_soft && (s.on || capture)) {
-                            // the full tier captures every traced slot's tables
-                            const int dc = clampi(d, 0, s.dk - 1);
-                            atomicAdd(&seg(c)[dc], sel_counts[(size_t)n * S + s.col]);
-                            if (atomicAdd(&pcs(c)[dc], 1) == 0) w[6 + c] += 1;
+                        for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
+                            if (c >= ns) continue;
+                            const Slot s = soft[c];
+                            w[2 + c] += fe && s.on && s.dk == 0 && dom_at(dom_row, s) >= 0;
                         }
                     }
+                    if (ipa_acc && fe) ipa_score_stats(p, ipa, f, n, domain + (size_t)n * K);
                 }
-                if (ipa_acc) ipa_score_stats(p, ipa, f, n, domain + (size_t)n * K);
+                store_bits(ps, fe_bits, fbits);
+            }
+        } else {
+            for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
+                // this pass's reject bits (from G; none without a filter phase)
+                const unsigned fb = has_fail ? load_bits(ps, fail_bits) >> NPT : 0u;
+                unsigned fbits = 0;
+#pragma unroll 4
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    if (i >= cnt) continue;
+                    const int n = node_at(i);
+                    const size_t o = srow + n;
+                    const int tc = __ldg(tc_row + n), af = __ldg(af_row + n);
+                    const int im = __ldg(img_row + n);
+                    const int* a_row = alloc + (size_t)n * p.R;
+                    const int* u_row = used + (size_t)n * p.R;
+                    bool ffit = too_many_pods(a_row, u_row);
+                    for (int r = 0; r < p.R; ++r)
+                        ffit |= fit_insufficient(r, f[p.f_req + r], a_row[r], u_row[r]);
+                    const bool fe = static_ok[o] && !ffit && !((fb >> j) & 1u);
+                    int ew = 0;
+                    if (fe || capture) {  // the table row holds ew on every row
+                        const int* nz_row = nonzero_used + (size_t)n * 2;
+                        ew = wadd(wmul(fit_score(p, a_row, u_row, nz_row, f), p.w_fit),
+                                  wmul(balanced_score(p, a_row, u_row, nz_row, f), p.w_bal));
+                    }
+                    if (capture) {
+                        t_ew[o] = ew;
+                        t_ffit[o] = ffit;
+                        t_feas[o] = fe;
+                    }
+                    ew_s[i] = wadd(ew, wmul(im, p.w_img));
+                    fbits |= (unsigned)fe << j;
+                    if (!fe) continue;
+                    w[0] = max(w[0], tc);
+                    w[1] = max(w[1], af);
+                    if (pts_on || acc_soft) {
+                        const int* dom_row = domain + (size_t)n * K;
+#pragma unroll
+                        for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
+                            if (c >= ns) continue;
+                            const Slot s = soft[c];
+                            const int d = dom_at(dom_row, s);
+                            if (d < 0) continue;
+                            if (s.dk == 0) {
+                                if (s.on) w[2 + c] += 1;
+                            } else if (acc_soft && (s.on || capture)) {
+                                // the full tier captures every traced slot's tables
+                                const int dc = clampi(d, 0, s.dk - 1);
+                                atomicAdd(&seg(c)[dc], sel_counts[(size_t)n * S + s.col]);
+                                if (atomicAdd(&pcs(c)[dc], 1) == 0) w[6 + c] += 1;
+                            }
+                        }
+                    }
+                    if (ipa_acc) ipa_score_stats(p, ipa, f, n, domain + (size_t)n * K);
+                }
+                store_bits(ps, fe_bits, fbits);
             }
         }
         // the padding constants of a captured row past the walk
@@ -1057,36 +1179,39 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // B. the spread and IPA raw scores, their max/min over the feasible set
         int mm[4] = {-SCAN_BIG, SCAN_BIG, -SCAN_BIG, SCAN_BIG};  // spread max, min, IPA max, min
         if (pts_on || ipa_on) {
+            for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
+                const unsigned fbits = load_bits(ps, fe_bits);
 #pragma unroll 4
-            for (int j = 0; j < NPT; ++j) {
-                const int i = j * SCAN_NT + tid;
-                if (i >= cnt || !((fe_bits >> j) & 1u)) continue;
-                const int n = node_at(i);
-                const int* dom_row = domain + (size_t)n * K;
-                if (pts_on) {
-                    float cost = 0.0f;
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    if (i >= cnt || !((fbits >> j) & 1u)) continue;
+                    const int n = node_at(i);
+                    const int* dom_row = domain + (size_t)n * K;
+                    if (pts_on) {
+                        float cost = 0.0f;
 #pragma unroll
-                    for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
-                        if (c >= ns) continue;
-                        const Slot s = soft[c];
-                        const int d = dom_at(dom_row, s);
-                        if (!s.on || d < 0) continue;  // the reference adds +0.0
-                        // a replay gathers as _pts_score_carried: clip to D
-                        const int count = s.dk == 0
-                                              ? sel_counts[(size_t)n * S + s.col]
-                                              : seg(c)[clampi(d, 0, (replay ? D : s.dk) - 1)];
-                        cost = __fadd_rn(cost, __fmul_rn(__int2float_rn(count), wlog[c]));
+                        for (int c = 0; c < SCAN_MAX_SOFT; ++c) {
+                            if (c >= ns) continue;
+                            const Slot s = soft[c];
+                            const int d = dom_at(dom_row, s);
+                            if (!s.on || d < 0) continue;  // the reference adds +0.0
+                            // a replay gathers as _pts_score_carried: clip to D
+                            const int count = s.dk == 0
+                                                  ? sel_counts[(size_t)n * S + s.col]
+                                                  : seg(c)[clampi(d, 0, (replay ? D : s.dk) - 1)];
+                            cost = __fadd_rn(cost, __fmul_rn(__int2float_rn(count), wlog[c]));
+                        }
+                        const int raw = __float2int_rz(cost);
+                        raw_s[i] = raw;
+                        mm[0] = max(mm[0], raw);
+                        mm[1] = min(mm[1], raw);
                     }
-                    const int raw = __float2int_rz(cost);
-                    raw_s[i] = raw;
-                    mm[0] = max(mm[0], raw);
-                    mm[1] = min(mm[1], raw);
-                }
-                if (ipa_on) {
-                    const int raw = ipa_raw_at(p, ipa, f, n, true, dom_row);
-                    iraw_s[i] = raw;
-                    mm[2] = max(mm[2], raw);
-                    mm[3] = min(mm[3], raw);
+                    if (ipa_on) {
+                        const int raw = ipa_raw_at(p, ipa, f, n, true, dom_row);
+                        iraw_s[i] = raw;
+                        mm[2] = max(mm[2], raw);
+                        mm[3] = min(mm[3], raw);
+                    }
                 }
             }
             if (pts_on && ipa_on) {
@@ -1104,35 +1229,60 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // feasibility-gated score row. Each warp publishes its best total
         // and, per owned column, the ballot of its nodes at that best.
         int lmax = -SCAN_BIG - 1;
+        for (int ps = 0; ps < npass && ps * PS < cnt; ++ps) {
+            const unsigned fbits = load_bits(ps, fe_bits);
 #pragma unroll 4
-        for (int j = 0; j < NPT; ++j) {
-            const int i = j * SCAN_NT + tid;
-            if (i >= cnt) continue;
-            const int n = node_at(i);
-            const size_t o = srow + n;
-            if (!((fe_bits >> j) & 1u)) {
-                if (capture) sig_scores[o] = -1;
-                continue;
+            for (int j = 0; j < NPT; ++j) {
+                const int i = ps * PS + j * SCAN_NT + tid;
+                if (i >= cnt) continue;
+                const int n = node_at(i);
+                const size_t o = srow + n;
+                if (!((fbits >> j) & 1u)) {
+                    if (capture) sig_scores[o] = -1;
+                    continue;
+                }
+                const int pts = pts_on ? pts_normalized(raw_s[i], mm[0], mm[1]) : 0;
+                const int taint = maxtc > 0 ? taint_normalized(__ldg(tc_row + n), maxtc)
+                                            : MAX_NODE_SCORE;
+                const int aff_s = has_pref ? affinity_normalized(__ldg(af_row + n), maxaff) : 0;
+                int total = wadd(wadd(ew_s[i], wmul(pts, p.w_pts)),
+                                 wadd(wmul(taint, p.w_taint), wmul(aff_s, p.w_aff)));
+                if (ipa_on)
+                    total = wadd(total, wmul(ipa_normalized(iraw_s[i], mm[2], mm[3]), p.w_ipa));
+                ew_s[i] = total;
+                if (capture) sig_scores[o] = total;
+                lmax = max(lmax, total);
             }
-            const int pts = pts_on ? pts_normalized(raw_s[i], mm[0], mm[1]) : 0;
-            const int taint = maxtc > 0 ? taint_normalized(__ldg(tc_row + n), maxtc)
-                                        : MAX_NODE_SCORE;
-            const int aff_s = has_pref ? affinity_normalized(__ldg(af_row + n), maxaff) : 0;
-            int total = wadd(wadd(ew_s[i], wmul(pts, p.w_pts)),
-                             wadd(wmul(taint, p.w_taint), wmul(aff_s, p.w_aff)));
-            if (ipa_on) total = wadd(total, wmul(ipa_normalized(iraw_s[i], mm[2], mm[3]), p.w_ipa));
-            ew_s[i] = total;
-            if (capture) sig_scores[o] = total;
-            lmax = max(lmax, total);
         }
         const int wmax = __reduce_max_sync(FULL_MASK, lmax);
         unsigned (*pk)[NPT + 1] = pick_s[pick_par];
+        // the pass instance's ballots of this parity, [column][warp]
+        unsigned* pkg = PASS ? pk_g + (size_t)pick_par * ncol * SCAN_NWARPS : nullptr;
+        if constexpr (PASS) {
+            // every column, pass-major, and the warp's tie count beside its
+            // maximum (every warp's loop runs every pass: the ballots are
+            // warp-wide)
+            int tcount = 0;
+            for (int ps = 0; ps < npass; ++ps) {
+                const unsigned fbits = ps * PS < cnt ? load_bits(ps, 0u) : 0u;
+#pragma unroll 4
+                for (int j = 0; j < NPT; ++j) {
+                    const int i = ps * PS + j * SCAN_NT + tid;
+                    const bool tie = i < cnt && ((fbits >> j) & 1u) && ew_s[i] == wmax;
+                    const unsigned b = __ballot_sync(FULL_MASK, tie);
+                    tcount += __popc(b);
+                    if (lane == 0) pkg[(size_t)(ps * NPT + j) * SCAN_NWARPS + wid] = b;
+                }
+            }
+            if (lane == 0) pk[wid][1] = (unsigned)tcount;
+        } else {
 #pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-            const int i = j * SCAN_NT + tid;
-            const bool tie = i < cnt && ((fe_bits >> j) & 1u) && ew_s[i] == wmax;
-            const unsigned b = __ballot_sync(FULL_MASK, tie);
-            if (lane == 0) pk[wid][1 + j] = b;
+            for (int j = 0; j < NPT; ++j) {
+                const int i = j * SCAN_NT + tid;
+                const bool tie = i < cnt && ((fe_bits >> j) & 1u) && ew_s[i] == wmax;
+                const unsigned b = __ballot_sync(FULL_MASK, tie);
+                if (lane == 0) pk[wid][1 + j] = b;
+            }
         }
         if (lane == 0) pk[wid][0] = (unsigned)wmax;
         tick(comm.n->pick);
@@ -1144,8 +1294,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         const int wm_l = has_w ? (int)pk[lane][0] : -SCAN_BIG - 1;
         const int bb = __reduce_max_sync(FULL_MASK, wm_l);
         int mine = 0;
+        if constexpr (PASS) {
+            mine = has_w ? (int)pk[lane][1] : 0;
+        } else {
 #pragma unroll
-        for (int j = 0; j < NPT; ++j) mine += has_w ? __popc(pk[lane][1 + j]) : 0;
+            for (int j = 0; j < NPT; ++j) mine += has_w ? __popc(pk[lane][1 + j]) : 0;
+        }
         const int bc = (int)__reduce_add_sync(FULL_MASK, (unsigned)(wm_l == bb ? mine : 0));
         int best, nw, prefix;
         comm.pick(bb, bc, best, nw, prefix);
@@ -1177,18 +1331,37 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
             if (wid == kWinWarp && bb == best && r_loc >= 0 && r_loc < bc) {
                 int accn = 0, jstar = -1, rem = 0, c_sel = 0;
                 unsigned b_sel = 0;
-#pragma unroll
-                for (int j = 0; j < NPT; ++j) {
-                    const unsigned b = has_w && wm_l == bb ? pk[lane][1 + j] : 0u;
-                    const int c = __popc(b);
-                    const int t = (int)__reduce_add_sync(FULL_MASK, (unsigned)c);
-                    if (jstar < 0 && r_loc < accn + t) {
-                        jstar = j;
-                        rem = r_loc - accn;
-                        c_sel = c;
-                        b_sel = b;
+                if constexpr (PASS) {
+                    // the columns in node order until the one holding the
+                    // tie (a warp-uniform exit: t and accn are reduced)
+                    for (int col = 0; col < ncol; ++col) {
+                        const unsigned b = has_w && wm_l == bb
+                                               ? pkg[(size_t)col * SCAN_NWARPS + lane] : 0u;
+                        const int c = __popc(b);
+                        const int t = (int)__reduce_add_sync(FULL_MASK, (unsigned)c);
+                        if (r_loc < accn + t) {
+                            jstar = col;
+                            rem = r_loc - accn;
+                            c_sel = c;
+                            b_sel = b;
+                            break;
+                        }
+                        accn += t;
                     }
-                    accn += t;
+                } else {
+#pragma unroll
+                    for (int j = 0; j < NPT; ++j) {
+                        const unsigned b = has_w && wm_l == bb ? pk[lane][1 + j] : 0u;
+                        const int c = __popc(b);
+                        const int t = (int)__reduce_add_sync(FULL_MASK, (unsigned)c);
+                        if (jstar < 0 && r_loc < accn + t) {
+                            jstar = j;
+                            rem = r_loc - accn;
+                            c_sel = c;
+                            b_sel = b;
+                        }
+                        accn += t;
+                    }
                 }
                 int incl = c_sel;
 #pragma unroll

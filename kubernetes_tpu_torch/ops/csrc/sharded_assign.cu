@@ -20,7 +20,11 @@
 // past shared memory. The file builds twice (ops/cuda.py DEFINES): with
 // -DSCAN_GMEM its instances keep the domain tables in a device-memory
 // scratch (the GTAB instances of scan_step.cuh, on any cluster size, one
-// block included), else in rank 0's shared memory.
+// block included), else in rank 0's shared memory. Past the card's largest
+// cluster each block walks its range in passes (p.passes, the pass
+// instance of scan_step.cuh, built with -DSCAN_PASS for either table
+// placement), and any bucket the card's memory holds runs on the largest
+// cluster.
 //
 // What bounds it on an H100: latency, as K2: each pod step is a chain of
 // dependent reductions, each a block fold followed by a cluster barrier
@@ -41,7 +45,7 @@ struct ShardParams {
     int blocks;  // cluster size: 1, 2, 4, 8 or 16, dividing Nb
 };
 
-template <int NPT, bool GATED, bool GTAB>
+template <int NPT, bool GATED, bool GTAB, bool PASS>
 __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     ShardParams sp, ScanArgs a, int* out, int* tiers) {
     // the fold and exchange slots, at the same address in every block
@@ -54,7 +58,7 @@ __global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_kernel(
     const int r = (int)cl.block_rank(), n = (int)cl.num_blocks();
     const int nbl = p.Nb / n;
     ClusterComm comm = {r * nbl, (r + 1) * nbl, r, n, red, 0, xch, 0, &syncs};
-    const ScanEnd end = scan_block<false, NPT, GATED, GTAB>(p, a, comm);
+    const ScanEnd end = scan_block<false, NPT, GATED, GTAB, PASS>(p, a, comm);
     if (r == 0 && threadIdx.x == 0) {
         out[p.P] = end.cursor;
         out[p.P + 1] = end.overflow;
@@ -89,9 +93,10 @@ cudaLaunchConfig_t cluster_config(K kernel, int n, size_t dyn, cudaStream_t stre
     return cfg;
 }
 
-// ptrs: as scan_args() in scan_step.cuh reads them (K2's list), then the
-// GTAB instance's device-memory scratch (scan_smem's `tables` words; 0
-// where the tables live in shared memory)
+// ptrs: as scan_args() in scan_step.cuh reads them (K2's list: the GTAB
+// instance's device-memory scratch, scan_smem's `tables` words, at 38, 0
+// where the tables live in shared memory; the pass instance's position
+// scratch, scan_pass_words, at 40, 0 in one pass)
 extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
                                      void* stream) {
     const int n = sp->blocks;
@@ -102,10 +107,11 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
     ScanArgs a = scan_args(ptrs);
     a.tables = (int*)ptrs[38];
     if (sp->scan.gtab && a.tables == nullptr) return (int)cudaErrorInvalidValue;
-    return scan_dispatch(span, scan_gated(sp->scan), sp->scan.gtab != 0,
-                         [&](auto npt, auto gated, auto gtab) {
+    if (sp->scan.passes > 0 && a.pos == nullptr) return (int)cudaErrorInvalidValue;
+    return scan_dispatch(span, scan_gated(sp->scan), sp->scan.gtab != 0, sp->scan.passes,
+                         [&](auto npt, auto gated, auto gtab, auto pass) {
         auto kernel = sharded_assign_kernel<decltype(npt)::value, decltype(gated)::value,
-                                            decltype(gtab)::value>;
+                                            decltype(gtab)::value, decltype(pass)::value>;
         cudaLaunchAttribute attr[1];
         cudaError_t err;
         cudaLaunchConfig_t cfg = cluster_config(kernel, n, dyn, (cudaStream_t)stream, attr, err);
@@ -120,6 +126,7 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
     });
 }
 
+#ifndef SCAN_PASS
 // What the scan's launch plan needs from this card, asked once: out[0] the
 // largest cluster of scanning blocks (16, else 8, 4, 2, 1; 0 none) that
 // one GPC holds with `dyn` bytes of dynamic shared memory each
@@ -129,7 +136,7 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
 // memory a block may opt into on this card
 extern "C" int scan_limits(int dyn, int* out) {
     constexpr bool G = SCAN_GTAB_LIB;
-    auto widest = sharded_assign_kernel<SCAN_MAX_NPT, true, G>;
+    auto widest = sharded_assign_kernel<SCAN_MAX_NPT, true, G, false>;
     out[0] = 0;
     for (int n = SCAN_MAX_BLOCKS; n >= 1 && out[0] == 0; n /= 2) {
         cudaLaunchAttribute attr[1];
@@ -141,10 +148,10 @@ extern "C" int scan_limits(int dyn, int* out) {
         if (err != cudaSuccess) return (int)err;
         if (clusters >= 1) out[0] = n;
     }
-    const void* kernels[4] = {(const void*)sharded_assign_kernel<8, false, G>,
-                              (const void*)sharded_assign_kernel<8, true, G>,
-                              (const void*)sharded_assign_kernel<16, false, G>,
-                              (const void*)sharded_assign_kernel<16, true, G>};
+    const void* kernels[4] = {(const void*)sharded_assign_kernel<8, false, G, false>,
+                              (const void*)sharded_assign_kernel<8, true, G, false>,
+                              (const void*)sharded_assign_kernel<16, false, G, false>,
+                              (const void*)sharded_assign_kernel<16, true, G, false>};
     out[1] = 0;
     for (const void* k : kernels) {
         cudaFuncAttributes fa;
@@ -157,3 +164,4 @@ extern "C" int scan_limits(int dyn, int* out) {
     if (err != cudaSuccess) return (int)err;
     return (int)cudaDeviceGetAttribute(&out[2], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
+#endif

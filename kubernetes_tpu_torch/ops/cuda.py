@@ -27,12 +27,15 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # library name -> source file; the sources include the shared headers
 # (csrc/*.cuh). A library exports launch_<kernel> for its kernels: each
 # its own, and fit_and_score also K7's launch_wave_fit_and_score.
-# gang_assign.cu builds three times (DEFINES): its one-block instances, its
-# per-row cluster instances and (-DSCAN_GMEM) the per-row clusters whose
-# domain tables live in device memory; sharded_assign.cu and
-# fit_and_score.cu build twice, the second time with those tables (the
-# GTAB instances, for keys of thousands of domains). Each is an nvcc
-# process of its own, side by side, each as long as the other scans' builds
+# gang_assign.cu builds four times (DEFINES): its one-block instances, its
+# per-row cluster instances, (-DSCAN_GMEM) the per-row clusters whose
+# domain tables live in device memory and (-DSCAN_PASS) the per-row
+# clusters' pass instances past the card's largest cluster, which read
+# their table placement at run time; sharded_assign.cu builds three times,
+# each table placement and the pass instances, and fit_and_score.cu twice,
+# the second time with the tables in device memory (the GTAB instances,
+# for keys of thousands of domains). Each is an nvcc process of its own,
+# side by side, none compiling more than four scan instances
 SOURCES = {
     "static_parts": "static_parts.cu",
     "assign_scan": "assign_scan.cu",
@@ -42,12 +45,16 @@ SOURCES = {
     "gang_assign": "gang_assign.cu",
     "gang_assign_cluster": "gang_assign.cu",
     "gang_assign_gmem": "gang_assign.cu",
+    "gang_assign_pass": "gang_assign.cu",
     "sharded_assign": "sharded_assign.cu",
     "sharded_assign_gmem": "sharded_assign.cu",
+    "sharded_assign_pass": "sharded_assign.cu",
 }
 DEFINES = {"gang_assign_cluster": ("-DGANG_CLUSTER",),
            "gang_assign_gmem": ("-DGANG_CLUSTER", "-DSCAN_GMEM"),
+           "gang_assign_pass": ("-DGANG_CLUSTER", "-DSCAN_PASS"),
            "sharded_assign_gmem": ("-DSCAN_GMEM",),
+           "sharded_assign_pass": ("-DSCAN_PASS",),
            "fit_and_score_gmem": ("-DSCAN_GMEM",)}
 
 # a launcher's own code (beside CUDA's error codes): the scan's cluster of
@@ -278,7 +285,7 @@ class ScanParams(ctypes.Structure):
               "dom_carry") + [
         ("topo_dk", ctypes.c_int * MAX_KEYS),
         ("topo_off", ctypes.c_int * MAX_KEYS),
-    ] + _ints("topo_words", "walk", "gtab")
+    ] + _ints("topo_words", "walk", "gtab", "passes")
 
 
 class GangParams(ctypes.Structure):

@@ -131,18 +131,16 @@ class OutOfSlice(NotImplementedError):
     constraint slots, 4 required or 8 preferred inter-pod affinity term
     slots; any number of topology keys, of domains a key, of scored
     resources and of shape points is computed), an empty fit resource list
-    or shape, a strategy the reference does not name, a scan bucket past
-    the largest thread-block cluster the card
-    holds (scan_plan: 16 blocks of 16384 node slots where the card holds a
-    cluster of 16, else 8; fewer slots a block where the scan's shared
-    memory is wider), or an op the
+    or shape, a strategy the reference does not name, or an op the
     scheduler_perf harness does not build (perf/harness.py; the volume and
     claim templates, CSI nodes and resource slices are
     testing/storage_workloads.py's). Raised instead of computing an answer,
     and never routed to the host tier. A nominated pod and a pod the host
     composes (volumes, resource claims, required features, an interested
     extender) do not raise it: they take the nominee fast path and the
-    hybrid route."""
+    hybrid route. A scan's bucket of node slots is never refused: past
+    the card's largest thread-block cluster its blocks walk their ranges
+    in passes (scan_plan)."""
 
 
 # --------------------------------------------------------------------------
@@ -576,13 +574,16 @@ def scan_floor(syncs: torch.Tensor, span: int, n_blocks: int = 1,
     sharded_assign's), its tie picks over the ballots of a block walking
     `span` node slots, with no node work; on one block, or on a cluster of
     n_blocks (the launch plan's blocks, 2-16; cluster=True for a cluster of
-    one block, the GTAB instance's one-block route)."""
+    one block, the GTAB instance's one-block route). A span past one
+    pass's SCAN_MAX_SLOTS (the pass instance) picks over one pass's
+    ballots: the floor leaves out the extra columns the winner's warp
+    searches there."""
     from . import cuda
 
     if syncs.device.type != "cuda":
         raise ValueError("scan_floor runs on cuda only")
     _check(syncs, "syncs", syncs.device, torch.int32, (SCAN_SYNC_WORDS,))
-    npt = scan_npt(span)
+    npt = scan_npt(min(span, SCAN_MAX_SLOTS))
     sink = torch.empty(1, dtype=torch.int32, device=syncs.device)
     cuda.launch_floor([int(x) for x in syncs.tolist()[:5]], npt, n_blocks, sink.data_ptr(),
                       _stream(syncs.device),
@@ -1392,12 +1393,14 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
 
 
 # a scanning block's threads and the positions each owns (SCAN_NT,
-# SCAN_MIN_NPT, SCAN_MAX_NPT in csrc/scan_step.cuh): one block walks at most
-# SCAN_MAX_SLOTS node slots, and scan_plan cuts a wider bucket into the
-# blocks of one thread-block cluster, at most SCAN_MAX_BLOCKS (csrc
-# SCAN_MAX_BLOCKS; 16 is a non-portable cluster size). K5's node list holds
-# uint16 positions relative to a block's range, so a K5 block's range is at
-# most SCAN_MAX_RANGE slots.
+# SCAN_MIN_NPT, SCAN_MAX_NPT in csrc/scan_step.cuh): one pass of a block
+# walks at most SCAN_MAX_SLOTS node slots, and scan_plan cuts a wider
+# bucket into the blocks of one thread-block cluster, at most
+# SCAN_MAX_BLOCKS (csrc SCAN_MAX_BLOCKS; 16 is a non-portable cluster
+# size), past the card's largest cluster each block walking its range in
+# passes. K5's one-pass node list holds uint16 positions relative to a
+# block's range, so a one-pass K5 block's range is at most SCAN_MAX_RANGE
+# slots (the pass instance's list holds int32).
 SCAN_THREADS = 1024
 SCAN_MIN_NPT, SCAN_MAX_NPT = 8, 16
 SCAN_MAX_SLOTS = SCAN_THREADS * SCAN_MAX_NPT
@@ -1464,32 +1467,82 @@ def scan_smem_words(p, slots: int, masked: bool) -> int:
     scan_smem, field for field) for ScanParams-like `p` walking `slots`
     positions: the domain tables (scan_table_words; not in the GTAB
     instance, p.gtab, whose tables live in device memory), three words per
-    position at most (the total, the spread and IPA raw scores), the mask's
-    uint16 node list (K5), the winner's rows and, past 32 key slots, the
-    two slot buffers' matched key masks; before all of it the staged launch
-    tables (launch_table_words)."""
+    position at most (the total, the spread and IPA raw scores) and the
+    mask's uint16 node list (K5), none of them in the pass instance
+    (p.passes > 0, whose position words live in scan_pass_words' scratch),
+    the winner's rows and, past 32 key slots, the two slot buffers' matched
+    key masks; before all of it the staged launch tables
+    (launch_table_words)."""
     ipa_raw = p.n_ipa_pref > 0 or (p.ipa_active and p.ex_pref)
     kw = key_words(p.K)
+    pos = 0 if p.passes > 0 else slots
     return (launch_table_words(p) + (0 if p.gtab else scan_table_words(p))
-            + slots + (slots if p.n_soft > 0 else 0) + (slots if ipa_raw else 0)
-            + ((slots + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S
+            + pos + (pos if p.n_soft > 0 else 0) + (pos if ipa_raw else 0)
+            + ((pos + 1) // 2 if masked else 0) + 2 * p.R + 2 + p.S
             + (2 * kw if kw > 1 else 0))
 
 
-class ScanPlan(tuple):
-    """A scan's launch plan, (blocks, npt) as a tuple, and `gtab`: whether
-    its domain tables live in a device-memory scratch (the GTAB instance,
-    K6's kernel for K2 and K6, K5's gang_assign_gmem library) rather than
-    in shared memory."""
+def scan_pass_words(p, blocks: int, masked: bool) -> int:
+    """int32 words of the pass instance's position scratch (csrc
+    scan_pass_words, field for field) for ScanParams-like `p` (p.passes > 0
+    passes over p.Nb node slots) on `blocks` blocks, one launch's or one K5
+    mask row's: by node slot the total, the spread raw and the IPA raw
+    score (3 Nb), (K5) the node list as int32 by list position (Nb), and
+    per block each thread's feasibility and reject bits a pass (passes x
+    SCAN_THREADS) and the tie ballots of both parities (2 x passes x
+    SCAN_MAX_NPT columns x 32 warps). 0 for a one-pass scan."""
+    if p.passes <= 0:
+        return 0
+    per_block = p.passes * SCAN_THREADS + 2 * p.passes * SCAN_MAX_NPT * (SCAN_THREADS // 32)
+    return (4 if masked else 3) * p.Nb + blocks * per_block
 
-    def __new__(cls, blocks: int, npt: int, gtab: bool = False):
+
+class ScanPlan(tuple):
+    """A scan's launch plan, (blocks, npt) as a tuple; `gtab`: whether its
+    domain tables live in a device-memory scratch (the GTAB instance, K6's
+    kernel for K2 and K6, K5's gang_assign_gmem library) rather than in
+    shared memory; `passes`: the passes each block walks its range in, and
+    `scratch`: whether the plan runs the pass instance, its position words
+    in a device-memory scratch (scan_pass_words; past the card's largest
+    cluster, with passes 1 where one pass's positions pass shared memory).
+    A one-pass plan has passes 1 and no scratch."""
+
+    def __new__(cls, blocks: int, npt: int, gtab: bool = False, passes: int = 1,
+                scratch: bool = False):
         plan = super().__new__(cls, (blocks, npt))
         plan.gtab = bool(gtab)
+        plan.passes = int(passes)
+        plan.scratch = bool(scratch)
         return plan
 
     @property
     def blocks(self) -> int:
         return self[0]
+
+
+def plan_key(plan) -> tuple[int, int]:
+    """What makes a scan's launch another kernel instance, for the first-use
+    signatures: its blocks, and the pass count of a pass instance (0 for a
+    one-pass plan, and for a bare (blocks, npt) pair)."""
+    return plan[0], (plan.passes if getattr(plan, "scratch", False) else 0)
+
+
+def _scan_passes(p, nb: int, blocks: int, masked: bool, population) -> tuple[int, bool]:
+    """The pass instance on `blocks` blocks (the card's largest cluster):
+    the fewest power-of-two passes of SCAN_MAX_SLOTS positions that cover
+    a block's walk (its range, or under K5 min(range, population) list
+    positions), and whether the domain tables stay in shared memory
+    beside the words that are not per position (else the GTAB instance)."""
+    span = nb // blocks
+    slots = span if not masked else max(1, min(span, span if population is None
+                                                 else population))
+    passes = 1
+    while passes * SCAN_MAX_SLOTS < slots:
+        passes *= 2
+    q = type(p).from_buffer_copy(p)
+    q.passes, q.gtab = passes, 0
+    shared = _smem_tables and 4 * scan_smem_words(q, slots, masked) <= SCAN_SMEM_BUDGET
+    return passes, shared
 
 
 def _scan_blocks(p, nb: int, blocks: int, masked: bool, population) -> tuple[int, int]:
@@ -1532,11 +1585,18 @@ def scan_plan(kernel: str, cfg: KernelConfig, nb: int, n_shards: int | None = No
     of domains with several slots or terms), the plan takes the GTAB
     instance (gtab True): the same count rule with the tables in a
     device-memory scratch, on K6's cluster kernel (one block included).
+    Such a plan has passes 1 and no scratch.
 
-    max_blocks is the card's largest cluster (scan_limits); past it, and
-    wherever no block count fits, raise OutOfSlice. None: no cap (the plain
-    versions have none). Memoized: a wave's backend, batched_assign and the
-    launch read one plan."""
+    max_blocks is the card's largest cluster (scan_limits). Past it the
+    plan is max_blocks blocks of the pass instance (scratch True, npt
+    SCAN_MAX_NPT): each block walks its range (K5: min(range, population)
+    list positions) in the fewest power-of-two passes of SCAN_MAX_SLOTS
+    positions, its position words in a device-memory scratch
+    (scan_pass_words), its domain tables in shared memory where they fit
+    beside the words that are not per position, else in the GTAB scratch.
+    No bucket size is refused. None: no cap (the plain versions have
+    none). Memoized: a wave's backend, batched_assign and the launch read
+    one plan."""
     from . import cuda
 
     if kernel not in SCAN_KERNELS:
@@ -1549,11 +1609,11 @@ def scan_plan(kernel: str, cfg: KernelConfig, nb: int, n_shards: int | None = No
         p.gtab = 1
         blocks, npt = _scan_blocks(p, nb, n_shards or 1, masked, population)
     if not blocks:
-        raise OutOfSlice(f"{kernel}: no cluster of blocks covers a bucket of {nb} node "
-                         f"slots within a block's shared memory")
+        raise ValueError(f"{kernel}: no power-of-two count of blocks from {n_shards or 1} "
+                         f"divides a bucket of {nb} node slots")
     if max_blocks is not None and blocks > max_blocks:
-        raise OutOfSlice(f"{kernel}: a bucket of {nb} node slots needs a cluster of {blocks} "
-                         f"blocks of {nb // blocks} slots; this card holds {max_blocks}")
+        passes, shared = _scan_passes(p, nb, max_blocks, masked, population)
+        return ScanPlan(max_blocks, SCAN_MAX_NPT, not shared, passes, scratch=True)
     return ScanPlan(blocks, npt, gtab)
 
 
@@ -1565,9 +1625,10 @@ def scan_limits(device) -> dict:
     scan_limits), asked once per card: the largest cluster of scanning
     blocks one GPC holds with a full shared-memory budget each
     (cudaOccupancyMaxActiveClusters: 16 where the card holds a non-portable
-    cluster of 16, else 8), the scan's largest static shared memory and the
-    card's opt-in shared memory per block. Raises where the plan's budget
-    does not hold on this card."""
+    cluster of 16, else 8; past it scan_plan's blocks walk their ranges in
+    passes), the scan's largest static shared memory and the card's opt-in
+    shared memory per block. Raises where the plan's budget does not hold
+    on this card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     lim = _SCAN_LIMITS.get(idx)
@@ -1642,6 +1703,19 @@ def mask_block_lists(masks: torch.Tensor, blocks: int) -> list[list[torch.Tensor
     span = masks.shape[1] // blocks
     return [[torch.nonzero(m[r * span:(r + 1) * span]).flatten().to(torch.int32)
              for r in range(blocks)] for m in masks]
+
+
+def mask_pass_lists(masks: torch.Tensor, blocks: int, passes: int) -> list[list[list]]:
+    """K5's node lists under the pass instance (scan_plan past the card's
+    largest cluster): block r of a row lists the ascending mask nodes of
+    its range as mask_block_lists does (int32 in the position scratch, so
+    a range may pass SCAN_MAX_RANGE), and walks that list in `passes`
+    passes, pass q taking list positions [q * SCAN_MAX_SLOTS, (q + 1) *
+    SCAN_MAX_SLOTS). Rows x blocks x passes lists, relative to the range's
+    start; the passes in order are the block's list, so the tie ballots,
+    pass-major, count the nodes in node order."""
+    return [[[lst[q * SCAN_MAX_SLOTS:(q + 1) * SCAN_MAX_SLOTS] for q in range(passes)]
+             for lst in row] for row in mask_block_lists(masks, blocks)]
 
 
 def assign_scan(cfg: KernelConfig, planes: dict, static: dict,
@@ -1770,6 +1844,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
                      cursor0=0 if cursor_dev else int(cursor_init))
     p.frame_shift = int(frame_shift)
     p.gtab = int(plan.gtab)
+    p.passes = plan.passes if plan.scratch else 0
     K, S, dmax, ct = p.K, p.S, p.D, p.CT
     if xwave:
         g_prev = sig_table["ew"].shape[0]
@@ -1829,13 +1904,20 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
                else None)
     ptrs.append(0 if scratch is None else scratch.data_ptr())
     ptrs.append(_launch_tables_ptr(cfg, device))
-    if n_shards is None and blocks == 1 and not plan.gtab:
+    # the pass instance's position scratch, likewise
+    pos = (torch.empty(scan_pass_words(p, blocks, False), dtype=i32, device=device)
+           if plan.scratch else None)
+    ptrs.append(0 if pos is None else pos.data_ptr())
+    if n_shards is None and blocks == 1 and not plan.gtab and not plan.scratch:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
-        # K6's cluster kernel: the shards' blocks, K2's cluster route, or
-        # (gtab) the instance whose tables live in device memory
+        # K6's cluster kernel: the shards' blocks, K2's cluster route, (gtab)
+        # the instance whose tables live in device memory, or (scratch) the
+        # pass instance past the card's largest cluster, on either placement
+        lib = ("sharded_assign_pass" if plan.scratch
+               else "sharded_assign_gmem" if plan.gtab else "sharded_assign")
         cuda.launch("sharded_assign", cuda.ShardParams(scan=p, blocks=blocks), ptrs,
-                    _stream(device), lib="sharded_assign_gmem" if plan.gtab else None)
+                    _stream(device), lib=lib)
     count_launch(kernel)
     return out
 
@@ -1940,7 +2022,8 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
     assign_scan's. population is the most nodes any mask row holds (the
     caller builds the masks on the host and knows it; else it is counted
     here, one device-to-host copy): it sizes each row's blocks, one, or past
-    one block's slots a thread-block cluster per row (scan_plan). It must
+    one block's slots a thread-block cluster per row, and past the card's
+    largest cluster that cluster's passes (scan_plan). It must
     not be below a row's count: a block's list holds that many nodes. On
     the CPU a population below a row's count raises ValueError; on a card
     (where checking it would cost a device-to-host copy) such a row's
@@ -1975,9 +2058,13 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                      n_static=P, G=0, cursor0=0)
     p.walk = max(1, min(nb // blocks, int(population)))
     p.gtab = int(plan.gtab)
+    p.passes = plan.passes if plan.scratch else 0
     g = cuda.GangParams(scan=p, rows=D, n_constrained=int(n_constrained),
                         has_fallback=int(bool(has_fallback)), blocks=blocks)
     work = torch.empty(D * gang_work_words(p), dtype=torch.int32, device=device)
+    # the pass instance's position scratch, one slice per mask row
+    pos = (torch.empty(D * scan_pass_words(p, blocks, True), dtype=torch.int32, device=device)
+           if plan.scratch else None)
     out = torch.empty(D * P + 4 * D + 3, dtype=torch.int32, device=device)
     ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
     ptrs += [static[k].data_ptr() for k in (
@@ -1988,10 +2075,14 @@ def gang_assign(cfg: KernelConfig, planes: dict, static: dict,
                                              "ipa_term_key")]
              if cfg.ipa_active else [0] * 4)
     ptrs += [masks.data_ptr(), work.data_ptr(), out.data_ptr(), _syncs_ptr(syncs, device),
-             _launch_tables_ptr(cfg, device)]
-    # the per-row cluster instances, and those whose tables live in each
-    # row's work slice (gtab), are libraries of their own (ops/cuda.py)
-    lib = "gang_assign_gmem" if plan.gtab else ("gang_assign_cluster" if blocks > 1 else None)
+             _launch_tables_ptr(cfg, device), 0 if pos is None else pos.data_ptr()]
+    # the per-row cluster instances, those whose tables live in each row's
+    # work slice (gtab) and the pass instances on either placement
+    # (scratch) are libraries of their own (ops/cuda.py)
+    if plan.scratch:
+        lib = "gang_assign_pass"
+    else:
+        lib = "gang_assign_gmem" if plan.gtab else ("gang_assign_cluster" if blocks > 1 else None)
     cuda.launch("gang_assign", g, ptrs, _stream(device), lib=lib)
     count_launch("gang_assign")
     return out

@@ -85,6 +85,7 @@ from ...ops.kernels import (
     dedup_fast_capable,
     gang_assign,
     log_weight_table,
+    plan_key,
     scan_plan_for,
     scatter_rows,
     static_parts,
@@ -151,14 +152,17 @@ def _bucket_label(bucket_sizes) -> str:
     return "nb" + "x".join(str(b) for b in bucket_sizes)
 
 
-def _wave_label(bucket_sizes, pad: int, uniq, blocks: int = 1) -> str:
+def _wave_label(bucket_sizes, pad: int, uniq, plan) -> str:
     g = len(uniq) if uniq is not None else 0
-    return f"pad{pad}/g{g}/{_bucket_label(bucket_sizes)}" + _blocks_label(blocks)
+    return f"pad{pad}/g{g}/{_bucket_label(bucket_sizes)}" + _blocks_label(plan)
 
 
-def _blocks_label(blocks: int) -> str:
-    """A scan past one block's slots runs a cluster of blocks: "/c<blocks>"."""
-    return f"/c{blocks}" if blocks > 1 else ""
+def _blocks_label(plan) -> str:
+    """A scan's (blocks, passes) (kernels.plan_key): past the card's largest
+    cluster its blocks walk in passes, "/p<passes>"; past one block's slots
+    it runs a cluster of blocks, "/c<blocks>"."""
+    blocks, passes = plan
+    return (f"/p{passes}" if passes else "") + (f"/c{blocks}" if blocks > 1 else "")
 
 
 def _mt_stream(rng_state) -> np.random.RandomState:
@@ -760,13 +764,14 @@ class TorchBackend:
             advance_rng(rng, consumed)
         return [planes.node_names[w] if w >= 0 else None for w in winners], planes
 
-    def _scan_blocks(self, cfg: KernelConfig, dev_planes: dict) -> int:
-        """The launch plan's blocks for this wave's scan (K2, or K6 over the
-        context's shards): part of the first-use signature, since a new
-        block count is a new kernel instance. On a card a bucket past its
-        largest cluster raises OutOfSlice here, before any launch."""
+    def _scan_blocks(self, cfg: KernelConfig, dev_planes: dict) -> tuple[int, int]:
+        """The launch plan's blocks and passes for this wave's scan (K2, or
+        K6 over the context's shards; kernels.plan_key): part of the
+        first-use signature, since a new block or pass count is a new
+        kernel instance."""
         n = self._ctx.n_shards if self._ctx.is_sharded else None
-        return scan_plan_for("sharded_assign" if n else "assign_scan", cfg, dev_planes, n)[0]
+        return plan_key(scan_plan_for("sharded_assign" if n else "assign_scan", cfg,
+                                      dev_planes, n))
 
     def _group_wave(self, rows: np.ndarray, n_real: int):
         """Signature-group a (possibly padded) packed feature batch: (sig_ids
@@ -1141,10 +1146,11 @@ class TorchBackend:
         words = torch.from_numpy(tie_words.view(np.int32)).to(self.device)
         dev_masks = torch.from_numpy(masks).to(self.device)
         # the masks are host arrays: their largest row sizes K5's blocks per
-        # row with no device round trip (on a card a bucket past its
-        # largest cluster raises OutOfSlice here, before any launch)
+        # row (and past the card's largest cluster its passes) with no
+        # device round trip
         population = int(masks.sum(axis=1).max()) if n_rows else 0
-        blocks = scan_plan_for("gang_assign", cfg, dev_planes, population=population)[0]
+        blocks = plan_key(scan_plan_for("gang_assign", cfg, dev_planes,
+                                        population=population))
         t4 = time.perf_counter()
         with tel.compile_span(
                 "gang_assign",

@@ -17,8 +17,9 @@ first-use tracker, keyed on each call site's static configuration and
 the scan's launch plan) opens after it. The warm launches take the real
 path at the store's node bucket, so they run the instance the plan picks
 there (`ops.kernels.scan_plan`): K2's single block up to 16384 slots, its
-cluster route past them, and K5's per-row blocks for each warmed gang
-shape (a fallback row over every node takes a cluster past 16384 nodes).
+cluster route past them (past the card's largest cluster, its passes), and
+K5's per-row blocks for each warmed gang shape (a fallback row over every
+node takes a cluster past 16384 nodes).
 
 A copy of the reference package's module
 (kubernetes_tpu/scheduler/tpu/warmup.py) for torch, with four departures:
@@ -31,13 +32,16 @@ A copy of the reference package's module
 - the warm pods take the namespace, labels, topology spread constraints
   and affinity of a pending pod when the caller passes one (`template`;
   Scheduler._run_warmup passes the oldest pending pod in the store), else
-  the reference's label-less pods in `default`. System-default spread interns a (namespace, selector) pair
-  per label set: label-less warm pods intern one that labelled traffic
-  never uses, so SchedulingBasic's `app: perf` pods grow the selector
-  bucket on their first wave and meet plane shapes the warmup never
-  launched at. With no pending pod at start() there is no shape to take,
-  and traffic that arrives later meets those first uses, as the
-  reference's does (ROADMAP C16);
+  the reference's label-less pods in `default`. System-default spread
+  interns a (namespace, selector) pair per label set, so the first label
+  set the vocabulary has not seen (SchedulingBasic's `app: perf` after
+  label-less warm pods, over an empty backlog) grows the selector bucket
+  S to the next power of two and meets plane shapes of its own. The
+  reference's warm start leaves those first uses to the first labelled
+  waves; this one repeats every warm launch at that grown bucket too, on
+  device inputs it owns (the mirror's planes with sel_counts padded by
+  zero columns, and a host planes view of the same shapes), so traffic
+  that arrives after start() meets none (ROADMAP C16);
 - the planes are synced against the snapshot before the first warm pod
   registers, so the running pods' terms intern their topology keys first,
   in the order the cluster holds them, and the template's keys take the
@@ -52,12 +56,15 @@ A copy of the reference package's module
 
 Warmup never touches host planes or the live rng (it draws from its own
 throwaway stream), scatters device rows onto themselves (the mirror stays
-byte-identical), and ends by dropping the carry, so the first real wave
+byte-identical; at the grown selector bucket it scatters into its own
+padded copy), and ends by dropping the carry, so the first real wave
 starts from the same device state as a cold scheduler's and binds alike.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import random
 import time
 
@@ -161,24 +168,15 @@ def warm_backend(backend, snapshot, wave_size: int, rng_seed: int = 0,
     with backend.recorder.phase("warmup"):
         # the running pods' terms intern their keys before the warm pods'
         backend.sync(snapshot)
-        for b in _pow2_buckets(next_pow2(max(wave_size, 1))):
-            backend.invalidate_carry()
-            try:
-                for _ in range(2):  # cold-carry, then chained + replay
-                    fl = backend.launch_batched(
-                        _warm_pods(2, template), snapshot, rng=rng, pad_to=b)
-                    backend.collect(fl, rng=rng)
-                summary["buckets"].append(b)
-            except OutOfSlice as e:
-                backend.invalidate_carry()
-                summary["skipped"].append(f"wave{b}: {e}")
-        try:
-            backend.run(_warm_pods(1, template)[0], snapshot)
-        except OutOfSlice as e:
-            summary["skipped"].append(f"single: {e}")
-        _warm_scatter(backend, snapshot, wave_size, summary)
-        for shape in gang_shapes:
-            _warm_gang(backend, snapshot, shape, rng, summary, template)
+        _warm_launches(backend, snapshot, wave_size, rng, gang_shapes, template, summary)
+        # the same launches at the selector bucket the next new label set
+        # grows into (its own summary: the buckets and shapes it warmed)
+        grown = {"buckets": [], "scatter": [], "gangs": [], "skipped": []}
+        with _grown_selector_bucket(backend, snapshot) as s_grown:
+            if s_grown is not None:
+                _warm_launches(backend, snapshot, wave_size, rng, gang_shapes, template,
+                               grown)
+                summary["grown_selectors"] = dict(grown, S=s_grown)
         # the carry holds warmup placements no host state backs: drop it so
         # the base mirror (untouched — warmup binds nothing) stays truth
         backend.invalidate_carry()
@@ -188,6 +186,68 @@ def warm_backend(backend, snapshot, wave_size: int, rng_seed: int = 0,
     summary["compiles"] = tele.compile_count() - base_compiles
     tele.mark_warm()
     return summary
+
+
+def _warm_launches(backend, snapshot, wave_size: int, rng, gang_shapes, template,
+                   summary: dict) -> None:
+    """Every warm launch at the planes backend.sync gives: per pow2 wave
+    bucket a cold-carry and a chained + replay launch_batched/collect
+    round, one single-pod `run`, the K3 row buckets and one `run_gang` per
+    gang shape. What a bucket or shape refuses goes to summary["skipped"]."""
+    for b in _pow2_buckets(next_pow2(max(wave_size, 1))):
+        backend.invalidate_carry()
+        try:
+            for _ in range(2):  # cold-carry, then chained + replay
+                fl = backend.launch_batched(
+                    _warm_pods(2, template), snapshot, rng=rng, pad_to=b)
+                backend.collect(fl, rng=rng)
+            summary["buckets"].append(b)
+        except OutOfSlice as e:
+            backend.invalidate_carry()
+            summary["skipped"].append(f"wave{b}: {e}")
+    try:
+        backend.run(_warm_pods(1, template)[0], snapshot)
+    except OutOfSlice as e:
+        summary["skipped"].append(f"single: {e}")
+    _warm_scatter(backend, snapshot, wave_size, summary)
+    for shape in gang_shapes:
+        _warm_gang(backend, snapshot, shape, rng, summary, template)
+
+
+@contextlib.contextmanager
+def _grown_selector_bucket(backend, snapshot):
+    """Yield the selector bucket S' that the next label set the vocabulary
+    has not seen grows into (next_pow2 of one more selector), with the
+    backend reading warmup-owned inputs of that width for the duration:
+    backend.sync gives a view of the host planes with sel_counts padded by
+    zero columns and S' in its bucket sizes (the host planes stay as they
+    are), and the device mirror is a copy of the mirror's planes with
+    sel_counts padded the same way (the mirror stays as it is). Yields
+    None, and changes nothing, where one more selector keeps the bucket or
+    there is no mirror. On exit the carry is dropped and the backend reads
+    its own planes and mirror again."""
+    planes = backend.sync(snapshot)
+    dev = backend._device_planes
+    s = planes.bucket_sizes[5]
+    s_grown = next_pow2(len(backend.extractor.vocabs.selectors) + 1, 1)
+    if dev is None or s_grown == s:
+        yield None
+        return
+    view = copy.copy(planes)
+    view.sel_counts = np.pad(planes.sel_counts, ((0, 0), (0, s_grown - s)))
+    view.bucket_sizes = planes.bucket_sizes[:5] + (s_grown,) + planes.bucket_sizes[6:]
+    own = dict(dev, sel_counts=torch.nn.functional.pad(dev["sel_counts"], (0, s_grown - s)))
+    backend.invalidate_carry()
+    saved = (backend._device_planes, backend._device_buckets, backend._pending_dirty)
+    backend._device_planes, backend._device_buckets = own, view.bucket_sizes
+    backend._pending_dirty = set()
+    backend.sync = lambda _snapshot: view
+    try:
+        yield s_grown
+    finally:
+        backend.invalidate_carry()
+        del backend.sync
+        backend._device_planes, backend._device_buckets, backend._pending_dirty = saved
 
 
 def _warm_scatter(backend, snapshot, wave_size: int, summary: dict) -> None:

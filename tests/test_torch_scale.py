@@ -137,13 +137,29 @@ def _fits(cfg, R, S, nb, blocks, masked, population, gtab=False):
             and (not masked or span <= tk.SCAN_MAX_RANGE))
 
 
+def _pass_plan(cfg, R, S, nb, cap, masked, population):
+    """The pass plan on a card of `cap` blocks: (passes, gtab) — the fewest
+    power-of-two passes of SCAN_MAX_SLOTS positions covering a block's walk
+    (its range, or K5's min(range, population) list positions), and the
+    tables in device memory only where they pass the budget beside the
+    pass instance's words (none of them per position)."""
+    span = nb // cap
+    slots = span if not masked else max(1, min(span, population))
+    passes = 1
+    while passes * tk.SCAN_MAX_SLOTS < slots:
+        passes *= 2
+    p = cuda.ScanParams(R=R, S=S, passes=passes, **tk._cfg_scan_fields(cfg))
+    return passes, 4 * tk.scan_smem_words(p, slots, masked) > tk.SCAN_SMEM_BUDGET
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_scan_plan_covers_every_bucket_within_shared_memory(name):
     """For every bucket from 8 to 524288 slots and every shard count, the
     plan's blocks are the fewest powers of two (at least the shard count)
     whose block covers its range with one instance inside the opt-in shared
-    memory; the refusal comes only past the cap. The configurations the
-    port's cells run keep one block (K6: the shard count) up to 16384."""
+    memory, one pass each; past the cap the plan is the cap's blocks of the
+    pass instance (_pass_plan). The configurations the port's cells run
+    keep one block (K6: the shard count) up to 16384."""
     cfg, R, S = _config(name)
     if name == "IPA wave":
         assert cfg.ipa_active and cfg.ipa_existing_anti and cfg.n_ipa_aff and cfg.n_ipa_pref
@@ -181,14 +197,17 @@ def test_scan_plan_covers_every_bucket_within_shared_memory(name):
                     assert 4 * words + tk.SCAN_STATIC_RESERVE <= tk.SCAN_SMEM_OPTIN
                     if name != "widest" and nb <= tk.SCAN_MAX_SLOTS and not masked:
                         assert blocks == low
+                    assert plan.passes == 1 and not plan.scratch
                     for cap in (8, 16):
+                        capped = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S,
+                                              population=pop, max_blocks=cap)
                         if blocks <= cap:
-                            assert tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S,
-                                                population=pop, max_blocks=cap) == (blocks, npt)
+                            assert capped == (blocks, npt) and capped.gtab == plan.gtab
+                            assert capped.passes == 1 and not capped.scratch
                         else:
-                            with pytest.raises(tk.OutOfSlice, match="needs a cluster of"):
-                                tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S,
-                                             population=pop, max_blocks=cap)
+                            passes, gtab = _pass_plan(cfg, R, S, nb, cap, masked, pop or nb)
+                            assert capped == (cap, tk.SCAN_MAX_NPT) and capped.scratch
+                            assert (capped.passes, capped.gtab) == (passes, gtab)
     # the sweep's buckets on the cells' configurations: 16384 slots a block
     if name != "widest":
         for nb, blocks in ((32768, 2), (65536, 4), (131072, 8)):
@@ -252,25 +271,28 @@ def test_plans_keep_shared_memory_where_it_holds_the_tables(name):
                 continue
             for pop in pops:
                 low = n_shards or 1
-                try:
-                    plan = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S, population=pop,
-                                        max_blocks=16)
-                except tk.OutOfSlice:
-                    plan = None
+                plan = tk.scan_plan(kernel, cfg, nb, n_shards, R=R, S=S, population=pop,
+                                    max_blocks=16)
+                masked = kernel == "gang_assign"
                 if name in CONFIGS:
                     before = _plan_before(cfg, R, S, kernel, nb, n_shards, pop)
                     if before is None or before[0] > 16:
-                        assert plan is None or plan.gtab
+                        # past the cap: the pass plan (no refusal)
+                        assert plan.gtab or plan.scratch
                     else:
                         assert plan == before and not plan.gtab, (kernel, nb, pop)
+                    assert not plan.scratch or (plan.passes, plan.gtab) == _pass_plan(
+                        cfg, R, S, nb, 16, masked, pop or nb)
                     continue
-                shared = any(_fits(cfg, R, S, nb, b, kernel == "gang_assign", pop or nb)
+                shared = any(_fits(cfg, R, S, nb, b, masked, pop or nb)
                              for b in (1, 2, 4, 8, 16) if low <= b <= nb)
-                if plan is not None:
+                if plan.scratch:
+                    assert not shared
+                    assert (plan.passes, plan.gtab) == _pass_plan(cfg, R, S, nb, 16, masked,
+                                                                  pop or nb)
+                else:
                     assert plan.gtab == (not shared)
                     gtabs.append((kernel, nb, plan.gtab))
-                else:
-                    assert not shared
     if name in RACK_CONFIGS:
         got = {(k, nb): g for k, nb, g in gtabs}
         # 5000 nodes (bucket 8192): a rack-spread wave keeps its one
@@ -400,13 +422,19 @@ def test_scan_plan_refuses_unknown_kernels_and_undivided_buckets():
     cfg = tk.KernelConfig()
     with pytest.raises(ValueError, match="no scan kernel"):
         tk.scan_plan("fit_and_score", cfg, 1024, R=4, S=8)
-    # the widest configuration past 16 blocks is refused at any card cap
-    # (its tables in device memory, its positions 16384 a block: 32 blocks)
+    # the widest configuration past 16 blocks (its tables in device memory,
+    # its positions 16384 a block: 32 blocks) takes 16 blocks of 2 passes
+    # on a card of 16; with no position word in shared memory its tables
+    # fit there again
     wide, R, S = _config("widest")
     blocks, _ = tk.scan_plan("assign_scan", wide, 524288, R=R, S=S)
     assert blocks > tk.SCAN_MAX_BLOCKS
-    with pytest.raises(tk.OutOfSlice):
-        tk.scan_plan("assign_scan", wide, 524288, R=R, S=S, max_blocks=16)
+    assert tk.scan_plan("assign_scan", wide, 262144, R=R, S=S, max_blocks=16).gtab
+    plan = tk.scan_plan("assign_scan", wide, 524288, R=R, S=S, max_blocks=16)
+    assert plan == (16, 16) and plan.scratch and plan.passes == 2 and not plan.gtab
+    with tk.tables_in_device_memory():
+        plan = tk.scan_plan("assign_scan", wide, 524288, R=R, S=S, max_blocks=16)
+        assert plan == (16, 16) and plan.scratch and plan.passes == 2 and plan.gtab
 
 
 # --------------------------------------------------------------------------

@@ -112,19 +112,20 @@ def test_live_extent_rule():
 
 
 def test_scan_refuses_a_block_past_its_slots():
-    """A bucket (or a K6 shard) past the largest thread-block cluster the
-    card holds is refused by the launch plan with OutOfSlice, before any
-    launch; up to that cap the plan cuts it into blocks of at most
-    SCAN_MAX_SLOTS node slots, and one block takes up to SCAN_MAX_SLOTS."""
+    """One block takes up to SCAN_MAX_SLOTS node slots, and up to the
+    largest thread-block cluster the card holds the plan cuts a bucket (or
+    a K6 shard) into blocks of at most SCAN_MAX_SLOTS, one pass each. Past
+    that cap a block walks its range in passes of SCAN_MAX_SLOTS positions
+    (the pass instance) instead of being refused."""
     cfg = tk.KernelConfig()
     assert tk.scan_plan("assign_scan", cfg, tk.SCAN_MAX_SLOTS, R=4, S=8, max_blocks=8) == (1, 16)
     for cap in (8, 16):
         top = cap * tk.SCAN_MAX_SLOTS
-        assert tk.scan_plan("assign_scan", cfg, top, R=4, S=8, max_blocks=cap) == (cap, 16)
-        with pytest.raises(tk.OutOfSlice, match="needs a cluster of"):
-            tk.scan_plan("assign_scan", cfg, 2 * top, R=4, S=8, max_blocks=cap)
-        with pytest.raises(tk.OutOfSlice, match="needs a cluster of"):
-            tk.scan_plan("gang_assign", cfg, 2 * top, R=4, S=8, max_blocks=cap)
+        plan = tk.scan_plan("assign_scan", cfg, top, R=4, S=8, max_blocks=cap)
+        assert plan == (cap, 16) and plan.passes == 1 and not plan.scratch
+        for kernel in ("assign_scan", "gang_assign"):
+            plan = tk.scan_plan(kernel, cfg, 2 * top, R=4, S=8, max_blocks=cap)
+            assert plan == (cap, 16) and plan.passes == 2 and plan.scratch
 
 
 GANG_CASES = ["mixed-existing", "pads-3-words"]

@@ -7,9 +7,23 @@ versions). Both reports must be `ok`, and every field on which the
 reference agrees with itself run after run must be equal in the port's
 report (tolerance 0: counts).
 
-The soaks are driven by wall-clock ticks, sleeps and thread timing (the
-breaker's cooldown, the queue's backoff, the async dispatcher, the lease
-clocks), so some of their counts follow timing. Which fields the
+Both soaks run on one logical clock (`logical_clock`, patched in from
+this side; neither package changes): the chaos modules' `time` and the
+`Clock` of both packages' utils/clock.py (the Scheduler and its queue,
+the kubelets, the lifecycle controller, the fleet members and their
+leases) read seconds that pass only as the drive loop sleeps, so a 4.0 s
+lease, a 6.0 s grace period or a 60 s convergence deadline holds as many
+ticks on a loaded host as on an idle one. A tick also ends only when the
+async dispatchers' calls have landed, and so does every
+schedule_pending: a bind lands before the next member, kubelet or
+controller looks. Left on the host's clock: the circuit breaker's
+cooldown (its clock is bound when the module loads), retry backoffs
+inside the dispatcher and the sleeps themselves, which still pass on the
+wall clock as before; the dispatcher's own waits (time.monotonic is not
+patched: its worker threads wait on it).
+
+Some counts still follow thread timing (the breaker's cooldown, which of
+a dispatcher's 16 workers visits a fault point first). Which fields the
 reference repeats was checked by running it four times in one process
 (run_soak, run_gang_soak, run_restart_soak) and three times (run_trace_soak,
 run_fleet_soak), beside the port as often:
@@ -39,11 +53,20 @@ reference's tests/test_chaos.py.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+import types
 
 import pytest
 
+import kubernetes_tpu.scheduler.api_dispatcher as jdispatch
+import kubernetes_tpu.scheduler.scheduler as jsched
 import kubernetes_tpu.testing.chaos as jchaos
+import kubernetes_tpu.utils.clock as jclock
+import kubernetes_tpu_torch.scheduler.api_dispatcher as tdispatch
+import kubernetes_tpu_torch.scheduler.scheduler as tsched
 import kubernetes_tpu_torch.testing.chaos as tchaos
+import kubernetes_tpu_torch.utils.clock as tclock
 from kubernetes_tpu.utils import faultinject as jfi
 from kubernetes_tpu_torch.utils import faultinject as tfi
 from tests.test_torch_pipeline import _own_process_state  # noqa: F401 (autouse, C12)
@@ -62,6 +85,91 @@ VARIES = {
 }
 
 
+class LogicalClock:
+    """Seconds that pass only as the drive loop sleeps: sleep(s) first
+    waits until every open async dispatcher has landed its calls (settle),
+    then sleeps s on the wall clock, as the soaks always have, and advances
+    the logical seconds by s plus WORK_S, the host's work a tick stands for
+    (the soaks were written for ticks that take longer than their sleep: at
+    s alone the trace soak's 30-tick outage would go stale only after every
+    arrival has bound, and its outage would find nothing pending). A
+    blocking wait (the permit's wait_for) that times out advances them by
+    its timeout."""
+
+    START = 1.0e6
+    WORK_S = 0.05
+
+    def __init__(self):
+        self._now = self.START
+        self._lock = threading.Lock()
+        self.dispatchers = []
+
+    def now(self) -> float:
+        with self._lock:
+            return self._now
+
+    def advance(self, seconds: float) -> None:
+        with self._lock:
+            self._now += seconds
+
+    def settle(self, dispatchers=None, timeout: float = 30.0) -> None:
+        """Wait (wall clock, at most `timeout`) until none of `dispatchers`
+        (default: every one made since the clock started) holds a queued or
+        executing call; a closed dispatcher holds none."""
+        deadline = time.monotonic() + timeout
+        for d in self.dispatchers if dispatchers is None else dispatchers:
+            while time.monotonic() < deadline:
+                with d._lock:
+                    if d._closed or not (d._queued or d._executing):
+                        break
+                time.sleep(0.001)
+
+    def sleep(self, seconds: float) -> None:
+        self.settle()
+        time.sleep(seconds)
+        self.advance(seconds + self.WORK_S)
+
+
+@pytest.fixture
+def logical_clock(monkeypatch):
+    """Both soaks on one LogicalClock (see the module docstring)."""
+    lc = LogicalClock()
+    chaos_time = types.SimpleNamespace(monotonic=lc.now, time=lc.now, sleep=lc.sleep,
+                                       perf_counter=time.perf_counter)
+
+    def wait_for(_clock, waiter, timeout):
+        result = waiter(timeout)
+        if result is None:
+            lc.advance(timeout)
+        return result
+
+    for chaos, clock, dispatch, sched in ((jchaos, jclock, jdispatch, jsched),
+                                          (tchaos, tclock, tdispatch, tsched)):
+        monkeypatch.setattr(chaos, "time", chaos_time)
+        monkeypatch.setattr(clock.Clock, "now", lambda _clock: lc.now())
+        monkeypatch.setattr(clock.Clock, "sleep", lambda _clock, seconds: lc.sleep(seconds))
+        monkeypatch.setattr(clock.Clock, "wait_for", wait_for)
+        init = dispatch.APIDispatcher.__init__
+
+        def made(self, *a, _init=init, **k):
+            _init(self, *a, **k)
+            lc.dispatchers.append(self)
+
+        monkeypatch.setattr(dispatch.APIDispatcher, "__init__", made)
+        pending = sched.Scheduler.schedule_pending
+
+        def settled(self, *a, _pending=pending, **k):
+            try:
+                return _pending(self, *a, **k)
+            finally:
+                d = getattr(self, "api_dispatcher", None)
+                if d is not None:
+                    lc.settle([d])
+
+        monkeypatch.setattr(sched.Scheduler, "schedule_pending", settled)
+    return lc
+
+
 @pytest.fixture(autouse=True)
 def _clean_registries():
     for fi in (jfi, tfi):
@@ -72,7 +180,7 @@ def _clean_registries():
 
 
 @pytest.mark.parametrize("soak", sorted(VARIES))
-def test_soak_reports_match_the_reference(soak):
+def test_soak_reports_match_the_reference(soak, logical_clock):
     ref = getattr(jchaos, soak)(seed=7)
     port = getattr(tchaos, soak)(seed=7, device="cpu")
     assert ref.ok, ref.render()

@@ -243,9 +243,10 @@ def test_warm_start_over_an_empty_backlog(ref_cache, monkeypatch):
     """A warm start with no pending pod has no shape to give its warm pods:
     they are the reference's label-less pods in `default`. It binds as a
     cold start does and as the reference's warm start over the same empty
-    backlog does; the `app: perf` traffic that arrives after start() still
-    meets first uses (the spread selector bucket its labels grow, ROADMAP
-    C16), as many as the reference's warm start meets there."""
+    backlog does. The `app: perf` traffic that arrives after start() grows
+    the spread selector bucket, where the reference's warm start leaves
+    first uses (ROADMAP C16); the port's warmup also launched at that
+    bucket, so the traffic meets none."""
     monkeypatch.setenv("KUBE_TPU_PIPELINE_DEPTH", "2")
     out = {}
     for warm in (False, True):
@@ -266,4 +267,7 @@ def test_warm_start_over_an_empty_backlog(ref_cache, monkeypatch):
     assert (bound, rng) == out[False][:2]
     assert bound == jbound and rng == js.algorithms["default-scheduler"].rng.getstate()
     assert summary["skipped"] == [] and summary["buckets"] == [8, 16]
-    assert 0 < since <= jsince, (since, jsince)
+    assert since == 0, since
+    assert jsince > 0
+    assert summary["grown_selectors"]["S"] == 2
+    assert summary["grown_selectors"]["buckets"] == [8, 16]
