@@ -3,10 +3,11 @@
     python3 chip_smoke.py            # full size, as the check runs it
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
-1. build the twelve CUDA libraries of the seven kernels (K5's one-block
+1. build the fourteen CUDA libraries of the seven kernels (K5's one-block
    and per-row cluster instances apart; K4/K7's, K5's and K6's instances
    whose domain tables live in device memory apart; K5's and K6's pass
-   instances, past the card's largest cluster, apart) from
+   instances, past the card's largest cluster, apart; K6's and K4/K7's
+   card-level instances apart) from
    kubernetes_tpu_torch/ops/csrc (nvcc, one process per library, all at
    once);
 2. build scheduler_perf SchedulingBasic/5000Nodes_10000Pods in the port's
@@ -225,12 +226,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 25. the storage, DRA and extender half of the host tier, through the
    port's StorageWorkloadExecutor (testing/storage_workloads.py) and
    Scheduler on the card: (a) SchedulingWFFCVolumes/5000Nodes_2000Pods at
-   full size (5000 nodes, 2000 measured pods with a 5Gi
+   full width and half its depth (5000 nodes, 1000 of its 2000 measured
+   pods, WFFC_DEPTH, with a 5Gi
    WaitForFirstConsumer claim each over 10Gi volumes; node-neutral volume
    plans, so every pod on the wave route, K1 and K2 launched); (b)
-   SchedulingCSIPVs/5000Nodes_5000Pods at full width and a fifth of its
-   depth (5000 nodes with CSINode attach limits of 39; 1000 initial and
-   1000 measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
+   SchedulingCSIPVs/5000Nodes_5000Pods at full width and a tenth of its
+   depth (5000 nodes with CSINode attach limits of 39; 500 initial and
+   500 measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
    K4 once per pod, K3); (c) dra.json's SchedulingWithResourceClaims/
    500Nodes (500 nodes of 10 devices, 500 of its 1000 measured pods with
    a claim each, DRA_DEPTH; the hybrid route with DynamicResources'
@@ -383,7 +385,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    on the sweep's SCALE_NODES cluster and 128-member Preferred gangs on
    its largest (8 zone rows and the whole-cluster fallback row, a cluster
    of blocks per row), K1 and K5 equal to their plain versions on the
-   first gang of each, then SCALE_GANG_GROUPS (20: cut in depth from
+   first gang of each, then SCALE_GANG_GROUPS (10: cut in depth from
    gang.json's 100 PodGroups, `python3 tools/scale_phase.py --full-depth`
    runs them all) and SCALE_BIG_GANGS gangs placed whole through
    try_gang_wave; (a) scheduler_perf
@@ -423,16 +425,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    both instances, beside its floor and bound); (b) at RACK_B the two
    waves through K2's cluster route and K6, and K4 on the rack pods; (c)
    at RACK_C K5 on a RACK_BIG_GANG-member Preferred gang and the two waves
-   (untimed, cut in depth for the run's limit: RACK_TIME_C; `python3
+   of RACK_C_WAVE pods (128: cut from 512 for phase 32; untimed, cut in
+   depth for the run's limit: RACK_TIME_C; `python3
    tools/domains_phase.py --full-depth` times them), the scratch's and the
    signature
-   table's bytes printed; (d) RACK_LOOP_PODS rack-spread pods through
+   table's bytes printed; (d) RACK_LOOP_PODS (2500: cut in depth from
+   5000 for phase 32) rack-spread pods through
    the port's Scheduler (warm start on) over a store of RACK_B's nodes
    on LocalContext and MeshContext(8): every pod bound, rack skew <= 1,
    bindings and rng equal, no first use after the warmup, pods/s; (e)
-   RACK_CPU_PODS over RACK_A's nodes on a LogicalClock, the card against
-   device="cpu": bindings, rng, kernel/fallback counts equal. `python3
-   tools/domains_phase.py` runs phase 30 alone;
+   RACK_CPU_PODS (512: cut from 1024 for phase 32) over RACK_A's nodes on
+   a LogicalClock, the card against device="cpu": bindings, rng,
+   kernel/fallback counts equal. `python3 tools/domains_phase.py` runs
+   phase 30 alone (`--full-depth`: (d) and (e) uncut);
 31. any number of scored resources, shape points and topology keys
    (testing/capacity.py's fleet at CAP_NODES 5000 nodes, 1000 of them
    H100 nodes under MIG's mixed strategy; CAP_CONFIGS: ten scored
@@ -454,13 +459,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    counts equal; (c) K2 on a wave of --wave pods per wave and per step,
    K4 per pod at 16 blocks, K5 per gang and K7 on each configuration, K2
    and K4 beside phase 20's step times. `python3 tools/capacity_phase.py` runs phase 31 alone;
+32. the mesh over several cards (kubernetes_tpu_torch/ops/cards.py): two
+   card ranks on this card (devices [cuda:0, cuda:0], each launch refused
+   unless the card holds both ranks' blocks at once), and, where the host
+   has two cards or more, the same checks untimed on two distinct cards;
+   the phase prints which it ran. Each rank holds a contiguous range of
+   the node axis; K6, K4 and K7 exchange across ranks through peer memory
+   (csrc/comm.cuh CardComm): the card floor (1000 card exchanges with no
+   node work, every rank arriving); K1 + K6 on SchedulingBasic's 512-pod
+   wave over its 5000 nodes and on a rack-spread wave over MC_RACK's 1250
+   racks, K4 on TopologySpreading's pod (and three pods in one launch) and
+   on a rack-spread pod, K7 on MC_K7_PODS zone-spread pods, every output
+   equal to the card-level plain version (the ranks' parts joined, the
+   plain version, split back) on every rank and to one card's kernels on
+   the joined planes; K6, K4 and K7 timed beside the card-exchange floor
+   of their counted exchanges and one card's kernels; K4's launch memo
+   keyed by card (a first launch at 600 nodes, then at 5000); the
+   Scheduler over the two-rank context against one card's LocalContext
+   (MC_LOOP_INIT + MC_LOOP_PODS SchedulingBasic pods, cut in depth from
+   1000 + 10000) and TopologySpreading's single-pod cycle
+   (MC_SINGLE_PODS, cut from 1000): bindings and rng equal, K6 and K4
+   launched at the card level. `python3 tools/multicard_phase.py`, on a
+   host with four cards, runs the phase at full depth on four cards,
+   with the reference's 5000-100000-node sweep (MC_SWEEP, empty here);
 then print the card, the timings, the seconds of every phase (1 the
 build), the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
 launches on phase 6's single-pod path, where each assume dirties one
 mirror row and K3 launches most, at that path's one-row shape; K6 with its launches
 on the mesh main path, at 8 shards on the chained seeded wave; K7 with
-its launch in phase 19) and the result line.
+its launch in phase 19; K6, K4 and K7 at the card level with their
+launches in phase 32's Scheduler run, single-pod cycle and matrix call)
+and the result line.
 
 It imports nothing of the reference JAX package and never imports jax.
 """
@@ -1409,9 +1439,33 @@ def main() -> None:
              / waves7["cell"][1].packed_f.shape[0],
              "K4 (a)": k4["ms"] * 1e3}
     timed("31", capacity_phase, args, smi, steps)
+    # 32. the mesh over several cards: two card ranks on this card, and on
+    # two distinct cards where the host has them
+    with watchdog("phase 32 (the mesh over several cards)", args.phase_timeout):
+        mc = timed("32", multicard_phase, args, smi, 2, same_card=True)
+        if torch.cuda.device_count() >= 2:
+            timed("32", multicard_phase, args, smi, 2, time_it=False)
+    for name, src, repl, key in (
+            ("sharded_assign (card level)", "kubernetes_tpu_torch/ops/csrc/sharded_assign.cu",
+             "kubernetes_tpu/parallel/mesh.py:159", "k6"),
+            ("fit_and_score (card level)", "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
+             "kubernetes_tpu/ops/kernels.py:754", "k4"),
+            ("wave_fit_and_score (card level)", "kubernetes_tpu_torch/ops/csrc/fit_and_score.cu",
+             "kubernetes_tpu/parallel/mesh.py:262", "k7")):
+        r = mc[key]
+        if r["launches"] <= 0:
+            fail(f"{name} never launched on phase 32's path")
+        rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"], "library_ms": None})
+        print(f"{name} ({mc['how']}): {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']}, card-exchange floor "
+              f"{r['floor_ms']:.4f} ms, one card {r['one_ms']:.4f} ms), {r['launches']} "
+              "launches on phase 32's path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("phase seconds (1 is the build): " + json.dumps(
-        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 32))}))
+        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 33))}))
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -4123,12 +4177,14 @@ def extender_stream(n_nodes, n_pods, device, wave, binder, seed):
 # (b) 213.5 s and (c) 142.7 s of it; ~1470 s for phases 1-26 on a slower
 # host; (b) 89.7 s at 2500 pods in a run of 949.7 s before phase 30 joined
 # it; PERF.md §5p, §5s): (b) SchedulingCSIPVs/5000Nodes_5000Pods on its
-# 5000 nodes with 1000 initial and 1000 measured pods in place of 5000 and
-# 5000; (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
+# 5000 nodes with 500 initial and 500 measured pods in place of 5000 and
+# 5000 (1000 and 1000 until phase 32 needed the time); (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
 # 10 devices, 1000 measured claim pods), the 500 nodes of the
 # 5000pods_500nodes workload it stands for. The full depth runs alone:
 # tools/entrypoint_phase.py --full-depth
-CSI_DEPTH = {"initPods": 1000, "measurePods": 1000}
+CSI_DEPTH = {"initPods": 500, "measurePods": 500}
+# (a)'s measured pods halved too (2000 -> 1000, paying for phase 32)
+WFFC_DEPTH = {"measurePods": 1000}
 DRA_CUT = "dra.json:SchedulingWithResourceClaims/500Nodes"
 # and its measured claim pods halved (1000 -> 500; 25.9 s of a run of 933.0
 # s with phase 30, PERF.md §5s)
@@ -4136,12 +4192,12 @@ DRA_DEPTH = {"measurePods": 500}
 
 
 def storage_full_width(args, smi, full_depth=False):
-    """25 (a)-(d) on the card at full width (25 (b), (c) at the depth
+    """25 (a)-(d) on the card at full width (25 (a), (b), (c) at the depth
     above unless `full_depth`), each under the watchdog."""
     t0 = time.perf_counter()
     for label, workload, needs, depth in (
             ("(a)", "volumes.json:SchedulingWFFCVolumes/5000Nodes_2000Pods",
-             ("static_parts", "assign_scan"), None),
+             ("static_parts", "assign_scan"), None if full_depth else WFFC_DEPTH),
             ("(b)", "volumes.json:SchedulingCSIPVs/5000Nodes_5000Pods",
              ("fit_and_score", "scatter_rows"), None if full_depth else CSI_DEPTH),
             ("(c)", "dra.json:SchedulingWithResourceClaims/5000pods_500nodes"
@@ -5629,7 +5685,8 @@ def equal_outputs(label, got, want):
 # SCALE_BIG_GANGS 128-member Preferred gangs on the sweep's largest cluster;
 # (d) the card against the CPU on SCALE_CPU_NODES; (e) the cap's launch with
 # SCALE_CAP_PODS pods. SCALE_GANG_GROUPS is cut in depth from gang.json's
-# 100 to 20 (each gang re-plans 50000 nodes on the host) for chip_smoke's
+# 100 to 10 (each gang re-plans 50000 nodes on the host; 20 until phase 32
+# needed the time) for chip_smoke's
 # time limit, as (d)'s SCALE_BURST, (b)'s SCALE_BURSTS (4 to 3: two warm
 # bursts still show the uploads flat) and (a)'s measured SCALE_PODS (10000
 # to 5000, paying for (e)'s passes) are; `python3 tools/scale_phase.py
@@ -5640,7 +5697,7 @@ SCALE_PODS = 5000
 SCALE_SWEEP = (25000, 50000, 100000)
 SCALE_BURSTS = 3
 SCALE_CHURN = 64
-SCALE_GANG_GROUPS = 20
+SCALE_GANG_GROUPS = 10
 SCALE_BIG_GANGS = 3
 SCALE_CPU_NODES = 25000
 SCALE_CAP_PODS = 16
@@ -6568,8 +6625,10 @@ RACK_A = (5000, 4)
 RACK_B = (50000, 40)
 RACK_C = (100000, 18)
 RACK_EXISTING = 2000
-RACK_LOOP_PODS = 5000
-RACK_CPU_PODS = 1024
+# (d)'s and (e)'s pods are cut in depth from 5000 and 1024 (paying for
+# phase 32); `python3 tools/domains_phase.py --full-depth` runs them uncut
+RACK_LOOP_PODS = 2500
+RACK_CPU_PODS = 512
 RACK_KEY = "rack"
 # the members of (a)'s and (c)'s larger rack gangs: cut in depth from 128
 # for the run's limit (their plain versions scan every member on every mask
@@ -6581,6 +6640,10 @@ RACK_BIG_GANG = 32
 # the cluster route's of (b) at more slots); `python3 tools/domains_phase.py
 # --full-depth` times them
 RACK_TIME_C = False
+# (c)'s untimed waves, each compared with its plain version at 131072
+# slots: cut in depth from --wave's 512 pods to 128 (paying for phase 32);
+# `python3 tools/domains_phase.py --full-depth` runs 512, timed
+RACK_C_WAVE = 128
 
 
 def rack_node(i, per, zones=8):
@@ -6749,30 +6812,32 @@ def rack_scan(label, w, words, dedup, shards=8, timed=False):
     return out
 
 
-def rack_waves(label, cache, snap, backend, n, args, shards, both_tiers, timed):
-    """30's two waves on one cluster: a wave of --wave rack-spread pods (with
+def rack_waves(label, cache, snap, backend, n, args, shards, both_tiers, timed, wave=None):
+    """30's two waves on one cluster: a wave of `wave` (default --wave)
+    rack-spread pods (with
     both_tiers, dedup on and off), then RACK_EXISTING pods with
     anti-affinity by rack join the cluster and a mixed wave (half
     rack-spread, half phase 8's IPA pods anti-affine by rack; dedup on)
     follows. Returns {wave: rack_scan's numbers per tier}."""
     out = {}
     t0 = time.perf_counter()
-    pods = [rack_spread_pod(i) for i in range(args.wave)]
-    w = wave_inputs(backend, pods, snap, args.wave)
+    wave = wave or args.wave
+    pods = [rack_spread_pod(i) for i in range(wave)]
+    w = wave_inputs(backend, pods, snap, wave)
     if max(w.cfg.topo_domains) < 2048 or not w.cfg.n_hard:
         fail(f"30 {label}: the rack-spread wave's config {w.cfg.topo_domains}, n_hard "
              f"{w.cfg.n_hard}")
-    words = tie_words(args.seed + 30, args.wave)
+    words = tie_words(args.seed + 30, wave)
     out["spread"] = {d: rack_scan(f"{label} rack-spread wave", w, words, d, shards, timed)
                      for d in ((True, False) if both_tiers else (True,))}
     rack_existing(cache, backend, snap, n, RACK_EXISTING)
-    half = args.wave // 2
-    mixed = [p for pair in zip([rack_spread_pod(args.wave + i) for i in range(half)],
+    half = wave // 2
+    mixed = [p for pair in zip([rack_spread_pod(wave + i) for i in range(half)],
                                rack_anti_pods(half)) for p in pair]
-    w = wave_inputs(backend, mixed, snap, args.wave)
+    w = wave_inputs(backend, mixed, snap, wave)
     if not (w.cfg.ipa_existing_anti and w.cfg.n_ipa_anti and w.cfg.n_hard):
         fail(f"30 {label}: the mixed wave does not run the rack filters: {w.cfg}")
-    words = tie_words(args.seed + 31, args.wave)
+    words = tie_words(args.seed + 31, wave)
     out["mixed"] = {True: rack_scan(f"{label} mixed wave", w, words, True, shards, timed)}
     print(f"30 {label}: both waves {time.perf_counter() - t0:.1f} s")
     return out
@@ -7046,7 +7111,8 @@ def domains_phase(args, smi):
                                          ((RACK_BIG_GANG, "Preferred"),), args.seed,
                                          timed=RACK_TIME_C)
             res[key] = rack_waves(f"({key})", cache, snap, backend, n, args, 8, False,
-                                  key == "b" or RACK_TIME_C)
+                                  key == "b" or RACK_TIME_C,
+                                  wave=None if key == "b" or RACK_TIME_C else RACK_C_WAVE)
             if key == "b":
                 e, _ = rack_k4(f"({key}) rack pods", backend, snap,
                                [rack_spread_pod(10**6)] + rack_anti_pods(2)[1:])
@@ -7481,6 +7547,626 @@ def capacity_phase(args, smi, ref=None):
           + f"; beside phase 20's ({base}) on {smi}")
     print(f"phase 31: {time.perf_counter() - t0:.1f} s on {smi}")
     return res
+
+
+# --------------------------------------------------------------------------
+# 32: the mesh over several cards
+# --------------------------------------------------------------------------
+
+# phase 32's depth (the widths are SchedulingBasic's, TopologySpreading's
+# and phase 30's): K7's pods held against the plain version (cut from 512:
+# the plain version takes every pod over every node), the Scheduler's
+# measured pods (cut from 10000: the four-card runner, tools/multicard_phase.py,
+# runs the whole 11000), the single-pod cycle's measured pods (cut from
+# 1000), the rack cluster and its wave, and the node sweep (none here; the
+# runner's is 5000-100000 nodes)
+MC_K7_PODS = 64
+MC_LOOP_INIT = 1000
+MC_LOOP_PODS = 2048
+MC_SINGLE_PODS = 128
+MC_RACK = (5000, 4)
+MC_RACK_PODS = 512
+MC_SWEEP = ()
+MC_SWEEP_BURSTS = 6
+MC_SWEEP_CHURN = 32
+
+
+def mc_devices(n, same_card=False):
+    """n card ranks: n distinct cards where the host has them (and not
+    same_card), else n ranks on cuda:0 (each launch refused unless the card
+    holds them all at once). Returns (devices, how)."""
+    k = torch.cuda.device_count()
+    if k >= n and not same_card:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} distinct cards"
+    return [torch.device("cuda", 0)] * n, f"{n} card ranks on one card"
+
+
+def mc_context(devices):
+    from kubernetes_tpu_torch.parallel import MeshContext, scheduler_mesh
+
+    return MeshContext(scheduler_mesh(len(devices), devices=devices))
+
+
+def mc_wave(backend, pods, snap, pad):
+    """wave_inputs over the backend's cards: the planes, tables and log
+    table the backend put (CardTensors), the packed features, signature
+    groups on every card."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops.planes import pack_features, pad_features, stack_features
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = pad_features(stack_features(
+        [backend.extractor.features(p, planes) for p in pods]), pad)
+    dp, dt = backend.device_inputs(planes)
+    rows, layout = pack_features(feats)
+    sig, uniq, _ = backend._group_wave(rows, len(pods))
+    ctx = backend._ctx
+    return SimpleNamespace(
+        cfg=backend.kernel_config(planes, feats), planes=planes, dp=dp, dt=dt,
+        packed_f=ctx.put_replicated(torch.from_numpy(rows)), layout=layout,
+        sig=ctx.put_replicated(torch.from_numpy(sig)),
+        uniq=ctx.put_replicated(torch.from_numpy(uniq)), logtab=backend._logtab, ctx=ctx,
+        rows=rows)
+
+
+def card_pairs(got, want, prefix=""):
+    """(name, kernel part, plain part) of every output of two card-level
+    results, card by card (a copy on every card compared on each)."""
+    from kubernetes_tpu_torch.ops.cards import CardTensor
+
+    for k in sorted(set(got) | set(want)):
+        if k.startswith("_"):
+            continue
+        if k not in got or k not in want:
+            fail(f"{prefix}{k}: in one result only")
+        a, b = got[k], want[k]
+        if isinstance(a, dict):
+            yield from card_pairs(a, b, f"{prefix}{k}.")
+        elif isinstance(a, CardTensor):
+            for c, (x, y) in enumerate(zip(a.parts, b.parts)):
+                yield f"{prefix}{k}[card {c}]", x, y.to(x.device)
+        else:
+            yield f"{prefix}{k}", a, b.to(a.device)
+
+
+def card_compare(label, got, want):
+    """Every output equal card by card; returns max |kernel - plain|."""
+    pairs = list(card_pairs(got, want))
+    for name, x, y in pairs:
+        if x.shape != y.shape or not torch.equal(x, y):
+            fail(f"{label}: {name} differs from the plain version")
+    return max_abs_err((x, y) for _n, x, y in pairs)
+
+
+def mc_whole_inputs(w):
+    """The card-level wave's inputs joined on card 0 (the one-card kernels'
+    view of the same wave)."""
+    from kubernetes_tpu_torch.ops.cards import CardTensor
+
+    whole = lambda d: {k: (v.whole() if isinstance(v, CardTensor) else v)  # noqa: E731
+                       for k, v in d.items()}
+    return whole(w.dp), whole(w.dt)
+
+
+def mc_k6(label, w, words, shards, time_it=False):
+    """K1 + K6 at the card level on a wave against the plain version (the
+    parts joined, the plain scan, split back) and against one card's K1 +
+    K2 on the joined planes: every output equal (winners on every card).
+    With time_it: the card-level kernel's profiler ms, the card level's
+    latency floor (the counted card exchanges, no node work) and the one
+    card's K6/K2 ms in the same call. Returns the numbers."""
+    from kubernetes_tpu_torch.ops import cards as mc
+    from kubernetes_tpu_torch.ops import kernels
+
+    cs = w.ctx.card_set
+    C = cs.n
+    kw = dict(sig_ids=w.sig, uniq_idx=w.uniq)
+    got = mc.cards_assign(w.cfg, w.dp, w.dt, w.packed_f, w.layout, words, w.logtab, cs,
+                          shards, **kw)
+    torch.cuda.synchronize()
+    cs.check()
+    n_xch = cs.card_exchanges()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = mc.cards_assign_ref(w.cfg, w.dp, w.dt, w.packed_f, w.layout, words, w.logtab, C,
+                               shards, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain = ev[0].elapsed_time(ev[1])
+    err = card_compare(f"sharded_assign card level ({label})", got, want)
+    # the one-card kernels on the joined planes
+    dp, dt = mc_whole_inputs(w)
+    one = kernels.batched_assign(w.cfg, dp, dt, w.packed_f.parts[0], w.layout,
+                                 words.parts[0], w.logtab.parts[0], sig_ids=w.sig.parts[0],
+                                 uniq_idx=w.uniq.parts[0])
+    torch.cuda.synchronize()
+    for k in ("packed", "used", "nonzero_used", "sel_counts", "sig_scores"):
+        if not torch.equal(got[k].cpu(), one[k].cpu()):
+            fail(f"sharded_assign card level ({label}): {k} differs from one card's K2")
+    placed = int((got["packed"].parts[0][:w.packed_f.shape[0]] >= 0).sum())
+    # the bound: one card's K2 work (k2_work) over the distinct cards' rate
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    w1 = SimpleNamespace(cfg=w.cfg, planes=w.planes, dp=dp, packed_f=w.packed_f.parts[0],
+                         logtab=w.logtab.parts[0], sig=w.sig.parts[0], uniq=w.uniq.parts[0],
+                         fv=unpack_features(w.packed_f.parts[0], w.layout))
+    k1 = kernels.static_parts(dp, dt, w1.packed_f, w.layout, rows=w1.uniq)
+    b, ops = k2_work(w1, k1, words.parts[0], one, True)
+    n_cards = len({str(d) for d in cs.devices})
+    bd, by = bound_ms(b / n_cards, ops / n_cards)
+    res = {"max_abs_err": err, "plain_ms": plain, "exchanges": n_xch, "placed": placed,
+           "bound_ms": bd, "bound_by": by, "library_ms": None}
+    if time_it:
+        res["ms"] = kernel_ms(lambda: mc.cards_assign(
+            w.cfg, w.dp, w.dt, w.packed_f, w.layout, words, w.logtab, cs, shards, **kw),
+            "sharded_assign_cards_kernel", 3)
+        res["floor_ms"] = kernel_ms(lambda: mc.card_floor(cs, n_xch), "card_floor_kernel", 3)
+        res["one_ms"] = kernel_ms(lambda: kernels.batched_assign(
+            w.cfg, dp, dt, w.packed_f.parts[0], w.layout, words.parts[0], w.logtab.parts[0],
+            sig_ids=w.sig.parts[0], uniq_idx=w.uniq.parts[0]), "assign_scan_kernel", 3)
+        cs.check()
+    print(f"32 K6 card level ({label}, {C} ranks x {shards} shards): every output equal to "
+          f"the plain version on every card and to one card's K2; {placed} placed; "
+          f"{n_xch} card exchanges; plain {plain:.1f} ms; bound {bd:.5f} ms by {by}"
+          + (f"; kernel {res['ms']:.4f} ms, card-exchange floor {res['floor_ms']:.4f} ms, "
+             f"one card's K2 {res['one_ms']:.4f} ms" if time_it else ""))
+    return res
+
+
+def mc_k4(label, backend, pods, snap, time_it=False):
+    """K4 at the card level on `pods` (one launch) against the plain version
+    and one card's K4 on the joined planes: every output equal. Returns the
+    numbers."""
+    from kubernetes_tpu_torch.ops import cards as mc
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import features_from_reference, stack_features
+
+    for pod in pods:
+        backend.extractor.register(pod)
+    planes = backend.sync(snap)
+    feats = stack_features([backend.extractor.features(pod, planes) for pod in pods])
+    dp, dt = backend.device_inputs(planes)
+    cfg = backend.kernel_config(planes, feats)
+    packed_f, layout = features_from_reference(feats, "cpu")
+    ctx = backend._ctx
+    pf = ctx.put_replicated(packed_f)
+    cs = ctx.card_set
+    syncs = torch.zeros(kernels.FIT_SYNC_WORDS, dtype=torch.int32, device="cuda")
+    got = mc.cards_fit_and_score(cfg, dp, dt, pf, layout, backend._logtab, cs, syncs=syncs)
+    torch.cuda.synchronize()
+    cs.check()
+    n_xch = cs.card_exchanges()
+    want = mc.cards_fit_and_score_ref(cfg, dp, dt, pf, layout, backend._logtab)
+    torch.cuda.synchronize()
+    for c, (x, y) in enumerate(zip(got.parts, want.parts)):
+        if not torch.equal(x, y.to(x.device)):
+            fail(f"fit_and_score card level ({label}): card {c}'s outputs differ from the "
+                 "plain version")
+    err = max_abs_err(zip(got.parts, want.parts))
+    wdp, wdt = {k: v.whole() for k, v in dp.items()}, {k: v.whole() for k, v in dt.items()}
+    one = kernels.fit_and_score(cfg, wdp, wdt, pf.parts[0], layout, backend._logtab.parts[0])
+    nf = len(kernels.FILTER_NAMES) + 2 * cfg.max_constraints + 3
+    for p in range(len(pods)):
+        a = mc.fit_outputs(got, p, nf, planes.r)
+        b = kernels.unpack_fit_outputs(one[p].cpu(), planes.nb, nf, planes.r)
+        for k in ("fails", "feasible", "insufficient", "too_many_pods", "total"):
+            if not torch.equal(a[k], b[k]):
+                fail(f"fit_and_score card level ({label}): pod {p} {k} differs from one "
+                     "card's K4")
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    b, ops = k4_work(cfg, wdp, wdt, unpack_features(pf.parts[0], layout), pf.parts[0],
+                     kernels.fit_output_bytes(planes.nb, nf, planes.r)[1])
+    n_cards = len({str(d) for d in cs.devices})
+    bd, by = bound_ms(b / n_cards, ops / n_cards)
+    res = {"max_abs_err": err, "exchanges": n_xch, "bound_ms": bd, "bound_by": by,
+           "library_ms": None,
+           "feasible": int(mc.fit_outputs(got, 0, nf, planes.r)["feasible"].sum())}
+    if time_it:
+        res["ms"] = kernel_ms(lambda: mc.cards_fit_and_score(cfg, dp, dt, pf, layout,
+                                                             backend._logtab, cs),
+                              "fit_and_score_kernel", 20)
+        res["plain_ms"] = time_ms(lambda: mc.cards_fit_and_score_ref(
+            cfg, dp, dt, pf, layout, backend._logtab), 3)
+        res["floor_ms"] = kernel_ms(lambda: mc.card_floor(cs, n_xch), "card_floor_kernel", 5)
+        res["one_ms"] = kernel_ms(lambda: kernels.fit_and_score(
+            cfg, wdp, wdt, pf.parts[0], layout, backend._logtab.parts[0]),
+            "fit_and_score_kernel", 20)
+        cs.check()
+    print(f"32 K4 card level ({label}, {cs.n} ranks): every output equal to the plain "
+          f"version and to one card's K4; feasible {res['feasible']}; {n_xch} card exchanges; "
+          f"bound {bd:.5f} ms by {by}"
+          + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, card-exchange "
+             f"floor {res['floor_ms']:.4f} ms, one card's K4 {res['one_ms']:.4f} ms"
+             if time_it else ""))
+    return res
+
+
+def mc_k7(label, w, time_it=False):
+    """K7 at the card level (the mesh's wave_fit_and_score) against the plain
+    version and one card's K7 on the joined planes."""
+    from kubernetes_tpu_torch.ops import cards as mc
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import wave_fit_and_score
+
+    cs = w.ctx.card_set
+    mesh = w.ctx.mesh
+    kernels.reset_launches()
+    fe, tot = wave_fit_and_score(w.cfg, mesh, w.dp, w.dt, w.packed_f, w.layout, w.logtab,
+                                 ctx=w.ctx)
+    torch.cuda.synchronize()
+    launches = kernels.CARD_LAUNCHES["wave_fit_and_score"]
+    if launches != 1:
+        fail(f"the card-level matrix did not launch K7 once: {kernels.CARD_LAUNCHES}")
+    cs.check()
+    n_xch = cs.card_exchanges()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    wf, wt = mc.cards_wave_fit_and_score_ref(w.cfg, w.dp, w.dt, w.packed_f, w.layout,
+                                             w.logtab)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain = ev[0].elapsed_time(ev[1])
+    pairs = [(x, y.to(x.device)) for a, b in ((fe, wf), (tot, wt))
+             for x, y in zip(a.parts, b.parts)]
+    if not all(torch.equal(x, y) for x, y in pairs):
+        fail(f"wave_fit_and_score card level ({label}) differs from the plain version")
+    dp, dt = mc_whole_inputs(w)
+    of, ot = kernels.wave_fit_and_score(w.cfg, dp, dt, w.packed_f.parts[0], w.layout,
+                                        w.logtab.parts[0])
+    if not (torch.equal(fe.cpu(), of.cpu()) and torch.equal(tot.cpu(), ot.cpu())):
+        fail(f"wave_fit_and_score card level ({label}) differs from one card's K7")
+    from kubernetes_tpu_torch.ops.planes import unpack_features
+
+    nb, P = w.planes.nb, w.packed_f.shape[0]
+    fv = unpack_features(w.packed_f.parts[0], w.layout)
+    b0, ops0 = k4_work(w.cfg, dp, dt, fv, w.packed_f.parts[0], nb * 5)
+    n_cards = len({str(d) for d in cs.devices})
+    bd, by = bound_ms((b0 + (P - 1) * (w.packed_f.shape[1] * 4 + nb * 5)) / n_cards,
+                      P * ops0 / n_cards)
+    res = {"max_abs_err": max_abs_err(pairs), "plain_ms": plain, "exchanges": n_xch,
+           "launches": launches, "bound_ms": bd, "bound_by": by, "library_ms": None}
+    if time_it:
+        res["ms"] = kernel_ms(lambda: mc.cards_wave_fit_and_score(
+            w.cfg, w.dp, w.dt, w.packed_f, w.layout, w.logtab, cs),
+            "fit_and_score_kernel<false", 5)
+        res["one_ms"] = kernel_ms(lambda: kernels.wave_fit_and_score(
+            w.cfg, dp, dt, w.packed_f.parts[0], w.layout, w.logtab.parts[0]),
+            "fit_and_score_kernel<false", 5)
+        res["floor_ms"] = kernel_ms(lambda: mc.card_floor(cs, n_xch), "card_floor_kernel", 5)
+        cs.check()
+    print(f"32 K7 card level ({label}, {cs.n} ranks, {w.packed_f.shape[0]} pods): equal to "
+          f"the plain version and to one card's K7; {n_xch} card exchanges (pod 0); "
+          f"plain {plain:.1f} ms; bound {bd:.5f} ms by {by}"
+          + (f"; kernel {res['ms']:.4f} ms, one card's K7 {res['one_ms']:.4f} ms, "
+             f"card-exchange floor (pod 0) {res['floor_ms']:.4f} ms" if time_it else ""))
+    return res
+
+
+def mc_floor_check(devices, n=1000):
+    """The card level with no node work first: n card exchanges on one
+    block per card rank, every rank arriving (no spin runs out); returns
+    the profiler ms of the n exchanges."""
+    from kubernetes_tpu_torch.ops import cards as mc
+
+    cs = mc.CardSet(devices)
+    mc.card_floor(cs, n)
+    torch.cuda.synchronize()
+    cs.check()
+    ms = kernel_ms(lambda: mc.card_floor(cs, n), "card_floor_kernel", 3)
+    cs.check()
+    print(f"32 card floor: {n} card exchanges over {len(devices)} ranks, every rank "
+          f"arriving; {ms:.4f} ms ({ms * 1e3 / n:.3f} us an exchange)")
+    return ms
+
+
+def mc_memo_check(devices):
+    """The per-card launch memo: K4 at a cluster of 16 blocks with dynamic
+    shared memory past 48 KB, first on devices[0], then on a second card
+    (or, with one card, a second context's planes on the same card after a
+    smaller launch there): each launch equal to the plain version."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.planes import features_from_reference, stack_features
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, topology_spreading_pod
+
+    order = list(dict.fromkeys(devices))
+    order = order + order[:1] if len(order) == 1 else order
+    for i, dev in enumerate(order):
+        names = ResourceNames()
+        cache = Cache(names)
+        n = 600 if i == 0 and len(set(devices)) == 1 else 5000
+        for j in range(n):
+            cache.add_node(scheduling_basic_node(j, 8))
+        snap = Snapshot()
+        cache.update_snapshot(snap)
+        with torch.cuda.device(dev):
+            backend = TorchBackend(names, device=dev)
+            pod = topology_spreading_pod(i)
+            backend.extractor.register(pod)
+            planes = backend.sync(snap)
+            feats = stack_features([backend.extractor.features(pod, planes)])
+            dp, dt = backend.device_inputs(planes)
+            cfg = backend.kernel_config(planes, feats)
+            pf, layout = features_from_reference(feats, dev)
+            got = kernels.fit_and_score(cfg, dp, dt, pf, layout, backend._logtab)
+            want = kernels.fit_and_score(cfg, {k: v.cpu() for k, v in dp.items()},
+                                         {k: v.cpu() for k, v in dt.items()}, pf.cpu(), layout,
+                                         backend._logtab.cpu())
+            torch.cuda.synchronize(dev)
+        if not torch.equal(got.cpu(), want):
+            fail(f"K4 on {dev} ({n} nodes, launch {i}) differs from its plain version")
+    print(f"32 per-card launch memo: K4 at a cluster of {kernels.FIT_CLUSTER} equal to its "
+          f"plain version on {', '.join(str(d) for d in order)} in turn")
+
+
+def mc_scheduler(args, devices, n_init, n_pods, label):
+    """SchedulingBasic from the port's Store through the Scheduler over the
+    card-level context and over one card's LocalContext, same seed: equal
+    bindings and final rng state; K6 launched at the card level, K2 not.
+    Returns the card-level run's measured pods/s."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import LocalContext
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node, scheduling_basic_pod
+
+    runs = {}
+    for name, ctx in (("one card", LocalContext("cuda")), (label, mc_context(devices))):
+        store = Store()
+        for i in range(args.nodes):
+            store.create(scheduling_basic_node(i, args.zones), copy_return=False)
+        s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=args.wave)],
+                      seed=args.seed, clock=StrictClock(), device="cuda", context=ctx)
+        s.start()
+        for i in range(n_init):
+            store.create(scheduling_basic_pod(i), copy_return=False)
+        s.schedule_pending()
+        for i in range(n_pods):
+            store.create(scheduling_basic_pod(n_init + i), copy_return=False)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        n = s.schedule_pending()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, cards_l = dict(kernels.LAUNCHES), dict(kernels.CARD_LAUNCHES)
+        check_loop(f"phase 32 ({name})", s)
+        bound = {p.meta.key: p.spec.node_name for p in store.pods()}
+        if n != n_pods or not all(bound.values()):
+            fail(f"phase 32 ({name}): {n} scheduled, {sum(1 for v in bound.values() if not v)} "
+                 "unbound")
+        algo = s.algorithms["default-scheduler"]
+        runs[name] = (bound, algo.rng.getstate(), n_pods / wall, launches, cards_l,
+                      dict(algo.backend.upload_stats))
+    one, multi = runs["one card"], runs[label]
+    if one[0] != multi[0]:
+        diff = [k for k, v in one[0].items() if multi[0].get(k) != v]
+        fail(f"phase 32: the {label} Scheduler's bindings differ from one card's on "
+             f"{len(diff)} pods (first {diff[:3]})")
+    if one[1] != multi[1]:
+        fail(f"phase 32: the {label} Scheduler's final rng state differs from one card's")
+    if multi[4]["sharded_assign"] <= 0 or multi[3]["assign_scan"]:
+        fail(f"phase 32 ({label}): launches {multi[3]}, card-level {multi[4]}: K6 must launch "
+             "at the card level and K2 not")
+    print(f"32 Scheduler over {label}: {n_pods} SchedulingBasic pods (after {n_init}) bound "
+          f"exactly as on one card, rng equal; {multi[2]:.1f} pods/s (one card "
+          f"{one[2]:.1f}, same call); launches {multi[3]}, card-level {multi[4]}; "
+          f"uploads {multi[5]}")
+    return multi[2], multi[3], multi[4]
+
+
+def mc_single_pod(args, devices, n_init, n_pods, label):
+    """TopologySpreading's single-pod cycle over the card-level context and
+    over one card's: the initial pods through run_batched, then `n_pods`
+    app: spread pods one at a time through schedule_pod (K4 at the card
+    level, K3 on the owning card), assumed after each; equal nodes and rng,
+    the zone skew <= 1. Returns the card-level run's pods/s."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel import LocalContext
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import CycleState
+    from kubernetes_tpu_torch.scheduler.tpu.backend import (
+        TorchBackend, TorchSchedulingAlgorithm)
+    from kubernetes_tpu_torch.testing.wrappers import (
+        scheduling_basic_node, scheduling_basic_pod, topology_spreading_pod)
+
+    runs = {}
+    for name, ctx in (("one card", LocalContext("cuda")), (label, mc_context(devices))):
+        names = ResourceNames()
+        cache = Cache(names)
+        for i in range(args.spread_nodes):
+            cache.add_node(scheduling_basic_node(i, args.zones))
+        snap = Snapshot()
+        cache.update_snapshot(snap)
+        backend = TorchBackend(names, device="cuda", context=ctx)
+        algo = TorchSchedulingAlgorithm(default_framework(names), backend,
+                                        rng=random.Random(args.seed))
+        init = [scheduling_basic_pod(i) for i in range(n_init)]
+        place_waves(backend, cache, snap, init, args.wave, algo.rng, f"32 ({name})")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = []
+        for i in range(n_pods):
+            pod = topology_spreading_pod(i)
+            res = algo.schedule_pod(CycleState(), pod, snap)
+            cache.assume_pod(pod, res.suggested_host)
+            cache.update_snapshot(snap)
+            got.append(res.suggested_host)
+        wall = time.perf_counter() - t0
+        runs[name] = (got, algo.rng.getstate(), n_pods / wall, dict(kernels.LAUNCHES),
+                      dict(kernels.CARD_LAUNCHES))
+        check_tier(f"phase 32 single-pod ({name})", algo)
+    one, multi = runs["one card"], runs[label]
+    if one[0] != multi[0] or one[1] != multi[1]:
+        fail(f"phase 32: the single-pod cycle over {label} differs from one card's")
+    if multi[4]["fit_and_score"] != n_pods:
+        fail(f"phase 32: K4 at the card level launched {multi[4]['fit_and_score']} times for "
+             f"{n_pods} pods")
+    per_zone = [0] * args.zones
+    for node in multi[0]:
+        per_zone[int(node.split("-")[1]) % args.zones] += 1
+    if max(per_zone) - min(per_zone) > 1:
+        fail(f"phase 32: zone skew {per_zone}")
+    print(f"32 single-pod cycle over {label}: {n_pods} TopologySpreading pods (after "
+          f"{n_init}) placed as on one card, rng equal, zones {per_zone}; {multi[2]:.1f} "
+          f"pods/s (one card {one[2]:.1f}); launches {multi[3]}")
+    return multi[2], multi[4]["fit_and_score"]
+
+
+def mc_sweep(devices, nodes_list, bursts, wave, churn):
+    """The reference's bench_multichip --nodes-sweep through TorchBackend on
+    the card-level context: per node count, `bursts` launch/collect bursts
+    of `wave` pods with `churn` new running pods between them (mark_external,
+    then NeedResync, invalidate_carry and a retried launch); each card's
+    per-burst upload must be flat over the warm bursts (max/min <= 1.1).
+    Returns one row per node count."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.scheduler.tpu.backend import NeedResync, TorchBackend
+    from kubernetes_tpu_torch.testing import synthetic_cluster
+    from kubernetes_tpu_torch.testing.wrappers import make_pod
+
+    rows = []
+    for n_nodes in nodes_list:
+        names = ResourceNames()
+        cache, snap = synthetic_cluster(n_nodes, n_zones=8, names=names)
+        ctx = mc_context(devices)
+        backend = TorchBackend(names, device="cuda", context=ctx)
+        rng = random.Random(0)
+        per_card, burst_s, placed, seq = [], [], 0, 0
+        for b in range(bursts):
+            pods = [make_pod(f"b{b}-p{i}", cpu="500m", mem="512Mi",
+                             labels={"app": f"g{i % 4}"}) for i in range(wave)]
+            up0 = list(ctx.upload_bytes)
+            t0 = time.perf_counter()
+            try:
+                fl = backend.launch_batched(pods, snap, rng=rng, pad_to=wave)
+            except NeedResync:
+                backend.invalidate_carry()
+                fl = backend.launch_batched(pods, snap, rng=rng, pad_to=wave)
+            hosts, _ = backend.collect(fl, rng=rng)
+            burst_s.append(time.perf_counter() - t0)
+            per_card.append([x - y for x, y in zip(ctx.upload_bytes, up0)])
+            placed += sum(1 for h in hosts if h)
+            for k in range(churn):
+                cache.add_pod(make_pod(f"churn-{seq}", cpu="100m", mem="64Mi",
+                                       node_name=f"node-{(b * churn + k) % n_nodes}"))
+                seq += 1
+            snap = cache.update_snapshot(snap)
+            backend.mark_external()
+        warm = per_card[1:]
+        ratios = []
+        for c in range(len(devices)):
+            col = [r[c] for r in warm]
+            ratios.append(max(col) / min(col) if min(col) else None)
+        warm_s = burst_s[1:]
+        row = {"nodes": n_nodes, "cards": len(devices), "wave": wave, "bursts": bursts,
+               "churn_rows": churn, "placed": placed,
+               "pods_s": wave * len(warm_s) / sum(warm_s),
+               "upload_bytes_by_burst_and_card": per_card, "upload_flat_ratio_by_card": ratios}
+        print("32 sweep " + json.dumps(row))
+        if placed != wave * bursts:
+            fail(f"the sweep at {n_nodes} nodes placed {placed} of {wave * bursts}")
+        if any(r is None or r > 1.1 for r in ratios):
+            fail(f"the sweep at {n_nodes} nodes: a card's per-burst upload is not flat: "
+                 f"{ratios}")
+        rows.append(row)
+    return rows
+
+
+def multicard_phase(args, smi, n_ranks=2, loop_init=None, loop_pods=None, sweep=None,
+                    time_it=True, single_pods=None, same_card=False):
+    """32. The mesh over several cards: n_ranks card ranks (distinct cards
+    where the host has them, else ranks on one card), each holding a
+    contiguous range of the node axis. (a) K6 (K1 + the scan), K4 and K7
+    at the card level against their plain versions and one card's kernels:
+    SchedulingBasic's 512-pod wave on its 5000 nodes, TopologySpreading's
+    pod on its 5000 nodes, K7 on MC_K7_PODS zone-spread pods, a rack-spread
+    wave over phase 30's 1250 racks; (b) the per-card launch memo; (c) the
+    Scheduler over the card-level context against one card's; (d) with
+    single_pods, TopologySpreading's single-pod cycle; (e) the node sweep
+    (MC_SWEEP, or `sweep`). Returns the kernels-line numbers."""
+    from kubernetes_tpu_torch.api.resource import ResourceNames
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tpu.backend import TorchBackend
+    from kubernetes_tpu_torch.testing.wrappers import (
+        make_pod, scheduling_basic_node, scheduling_basic_pod, topology_spreading_pod,
+        with_spread)
+
+    t_all = time.perf_counter()
+    devices, how = mc_devices(n_ranks, same_card)
+    print(f"32: {how}: {', '.join(map(str, devices))} on {smi}")
+    floor_ms = mc_floor_check(devices)
+    # (a) SchedulingBasic's wave
+    names = ResourceNames()
+    cache = Cache(names)
+    for i in range(args.nodes):
+        cache.add_node(scheduling_basic_node(i, args.zones))
+        if i < args.init_pods:
+            cache.assume_pod(scheduling_basic_pod(i), f"node-{(7 * i) % args.nodes}")
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    kernels.reset_launches()
+    backend = TorchBackend(names, device="cuda", context=mc_context(devices))
+    pods = [scheduling_basic_pod(10**6 + i) for i in range(args.wave)]
+    w = mc_wave(backend, pods, snap, args.wave)
+    words = w.ctx.put_replicated(tie_words(args.seed + 32, args.wave).cpu())
+    k6 = mc_k6("SchedulingBasic wave", w, words, w.ctx.mesh.shards_per_card, time_it=time_it)
+    # K7 on zone-spread pods over the same cluster
+    spods = [with_spread(make_pod(f"mc-wave-{i}", cpu="1", mem="2Gi", labels={"app": "wave"}),
+                         max_skew=2, key="topology.kubernetes.io/zone", when="DoNotSchedule")
+             for i in range(MC_K7_PODS)]
+    w7 = mc_wave(backend, spods, snap, MC_K7_PODS)
+    k7 = mc_k7(f"{MC_K7_PODS} zone-spread pods", w7, time_it=time_it)
+    # K4: TopologySpreading's pod on its cluster (every node holds one of
+    # its initial pods)
+    names4 = ResourceNames()
+    cache4 = Cache(names4)
+    for i in range(args.spread_nodes):
+        cache4.add_node(scheduling_basic_node(i, args.zones))
+        cache4.assume_pod(scheduling_basic_pod(2 * 10**6 + i), f"node-{i}")
+    snap4 = Snapshot()
+    cache4.update_snapshot(snap4)
+    backend4 = TorchBackend(names4, device="cuda", context=mc_context(devices))
+    k4 = mc_k4("TopologySpreading pod", backend4, [topology_spreading_pod(0)], snap4,
+               time_it=time_it)
+    mc_k4("three pods in one launch", backend4,
+          [topology_spreading_pod(1), scheduling_basic_pod(3 * 10**6),
+           topology_spreading_pod(2)], snap4)
+    # the rack-spread wave: 1250 racks, existing rack anti-affinity
+    n, per = MC_RACK
+    rcache, rsnap, _ = rack_cluster(n, per)
+    rback = TorchBackend(rcache.names, device="cuda", context=mc_context(devices))
+    rack_existing(rcache, rback, rsnap, n, RACK_EXISTING)
+    rw = mc_wave(rback, [rack_spread_pod(i) for i in range(MC_RACK_PODS)], rsnap, MC_RACK_PODS)
+    rwords = rw.ctx.put_replicated(tie_words(args.seed + 33, MC_RACK_PODS).cpu())
+    mc_k6(f"rack-spread wave, {n // per} racks", rw, rwords, rw.ctx.mesh.shards_per_card)
+    mc_k4("rack-spread pod", rback, [rack_spread_pod(10**6)], rsnap)
+    # (b) the launch memo, (c) the Scheduler, (d) the sweep
+    mc_memo_check(devices)
+    pods_s, _l, cards_l = mc_scheduler(args, devices,
+                                       MC_LOOP_INIT if loop_init is None else loop_init,
+                                       MC_LOOP_PODS if loop_pods is None else loop_pods, how)
+    # the kernels line's launches: the Scheduler's measured run (K6), the
+    # single-pod cycle's (K4), the matrix call's (K7)
+    k6["launches"] = cards_l["sharded_assign"]
+    single_s, k4["launches"] = mc_single_pod(args, devices, args.spread_init,
+                                             MC_SINGLE_PODS if single_pods is None
+                                             else single_pods, how)
+    sweep_rows = mc_sweep(devices, MC_SWEEP if sweep is None else sweep, MC_SWEEP_BURSTS,
+                          args.wave, MC_SWEEP_CHURN)
+    print(f"phase 32: {time.perf_counter() - t_all:.1f} s ({how}) on {smi}")
+    return {"k6": k6, "k4": k4, "k7": k7, "scheduler_pods_s": pods_s, "sweep": sweep_rows,
+            "single_pod_s": single_s, "how": how, "floor_1000_ms": floor_ms}
 
 
 if __name__ == "__main__":

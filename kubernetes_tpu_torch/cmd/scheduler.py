@@ -52,7 +52,7 @@ class SchedulerServer:
 
     def __init__(self, store: Store, config: SchedulerConfiguration,
                  identity: str = "scheduler-0", fleet_size: int = 1,
-                 shard_id: int | None = None, device="cuda", clock=None):
+                 shard_id: int | None = None, device="cuda", clock=None, context=None):
         self.config = config
         self.store = store
         self.identity = identity
@@ -103,6 +103,7 @@ class SchedulerServer:
             device=device,
             warm_start=warm,
             clock=clock,
+            context=context,
         )
         # SIGUSR2 → cache dump + cache/store comparison (the reference's
         # backend/cache/debugger wiring)

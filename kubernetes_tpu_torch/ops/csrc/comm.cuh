@@ -19,7 +19,9 @@
 // barrier each block sums every block's words into a second copy of its
 // own (small tables) or the blocks sum them by slices in place (large
 // ones; fold_words). K6's are one set in rank 0's that every block adds
-// into (tables()).
+// into (tables()). CardComm, at the end of this file, wraps either policy
+// with a card level: several cards of one host, exchanging through
+// peer-mapped device memory.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -43,7 +45,7 @@ namespace cg = cooperative_groups;
 // (the scan) and table folds with their words (K4). The latency-floor
 // kernels replay these counts with no node work.
 struct ScanSyncs {
-    int bar, fold, csync, xch, pick, tfold, twords;
+    int bar, fold, csync, xch, pick, tfold, twords, card;
 };
 
 // one warp's reduction of x: max, min or a wrapping int32 sum
@@ -97,11 +99,20 @@ __device__ __forceinline__ void tick(int& c) {
 // One block owns the whole node axis (K2, K5; K7 at one block per pod).
 struct BlockComm {
     static constexpr bool kCluster = false;
+    static constexpr bool kCards = false;
     int lo, hi;  // the node range this block walks
     int (*red)[SCAN_NWARPS][SCAN_RED];
     int par;
     ScanSyncs* n;  // the synchronisations so far (shared; thread 0 counts)
     __device__ int rank() const { return 0; }
+    // whether this block writes the replicated state (the scan's lead),
+    // whether its card holds the replicated state in device memory, and
+    // the global index of its card's first node (0 but at the card level)
+    __device__ bool lead() const { return true; }
+    __device__ bool home() const { return true; }
+    __device__ int offset() const { return 0; }
+    // a pod's winner (or -1) into the results
+    __device__ void store_out(int* out, int pod, int win) const { out[pod] = win; }
     // the shared-memory domain tables the block adds into and reads
     __device__ int* tables(int* local) const { return local; }
     __device__ void sync() {
@@ -150,6 +161,7 @@ struct BlockComm {
 // kernel so that every block has it at the same address.
 struct ClusterComm {
     static constexpr bool kCluster = true;
+    static constexpr bool kCards = false;
     int lo, hi, r, nb;
     int (*red)[SCAN_NWARPS][SCAN_RED];
     int par;
@@ -157,6 +169,10 @@ struct ClusterComm {
     int xpar;
     ScanSyncs* n;
     __device__ int rank() const { return r; }
+    __device__ bool lead() const { return r == 0; }
+    __device__ bool home() const { return true; }
+    __device__ int offset() const { return 0; }
+    __device__ void store_out(int* out, int pod, int win) const { out[pod] = win; }
     __device__ int* tables(int* local) const {
         return cg::this_cluster().map_shared_rank(local, 0);
     }
@@ -299,3 +315,209 @@ struct ClusterComm {
     }
 };
 
+
+
+// ---------------------------------------------------------------------------
+// The card level: several cards of one host, each holding a contiguous range
+// of the node axis, card c's blocks a cluster (or, K7, one block per pod)
+// over its range. The reference's collectives cross chips inside its
+// shard_map scan (AxisComm, kubernetes_tpu/ops/kernels.py:107-131); here
+// they cross cards inside the kernels, through peer-mapped device memory
+// over NVLink: a launch of one instance per card, all resident at once.
+//
+// CardComm<Inner> wraps an in-card policy (ClusterComm for K6 and K4,
+// BlockComm for K7 at one block per pod). Each reduction first runs the
+// in-card one, which leaves the card's partial in every thread; then warp
+// 0's lane q of the card's rank-0 block writes that partial into card q's
+// inbox (plain stores, then the exchange's 64-bit sequence number with a
+// system-scope release), and warp 0's lane q of EVERY block spins with a
+// system-scope acquire on its own card's inbox slot of card q until that
+// sequence number arrives, reads card q's words and folds them across the
+// lanes; a block barrier hands the result to every warp. Reads are local
+// (each card's inbox is its own memory); only the writes cross NVLink.
+//
+// Slots: [group][parity][source card][CARD_SLOT words], a group per pod
+// (K4, K7) or one for the scan (K6). Exchange k of a launch writes parity
+// k & 1 with sequence number (epoch << 32) + k + 1, epoch the wrapper's
+// launch counter, so no stale word ever matches. A writer reaches exchange
+// k + 2 only after reading every card's k + 1 partial, which each card's
+// rank 0 wrote after its in-card barrier of k + 1, which every block of
+// that card passes only after its read of k: a slot is rewritten only
+// after every reader is done with it. A spin waits for a sequence number
+// at least the one it expects, so a peer already in its next launch
+// (whose numbers are larger) releases it as well.
+//
+// The replicated state (the scan's domain tables, the hard-spread counts,
+// the signature table's segs/pcs/valid; K4's and K7's domain tables) has
+// one copy, on card 0 (the home card, device memory: the GTAB instances),
+// which every card's blocks add into and read through peer pointers;
+// every thread fences at system scope before and after each card
+// exchange, so the adds made before an exchange are seen by every card
+// after it. The scan's winners are written into every card's results.
+//
+// A rank that never arrives: each spin is bounded (CARD_SPIN_CYCLES); one
+// that runs out sets the card's error word (ctl[0]) and the block's dead
+// flag, after which the block waits no more, and the wrapper raises.
+#define CARD_MAX 8
+#define CARD_SLOT 16
+#define CARD_SPIN_CYCLES (1LL << 34)
+
+// the launch's card level (ops/cuda.py CardParams, same field order)
+struct CardLink {
+    int card, cards, node_off, group0;
+    long long seq;         // epoch << 32
+    int* inbox[CARD_MAX];  // card q's inbox, peer-mapped
+    int* outs[CARD_MAX];   // card q's packed results (K6's winners go to every card)
+    int* ctl;              // this card's control words: [0] error, [1] card exchanges
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const void* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+__device__ __forceinline__ void st_release_sys(void* p, unsigned long long v) {
+    asm volatile("st.release.sys.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ void fence_sys() {
+    asm volatile("fence.acq_rel.sys;\n" ::: "memory");
+}
+
+template <class Inner>
+struct CardComm : Inner {
+    static constexpr bool kCards = true;
+    const CardLink* link;  // the launch's link (a shared copy)
+    int group;             // this pod's slot group (K6: 0)
+    int k;                 // card exchanges so far (every thread counts alike)
+    int (*cres)[SCAN_RED];  // shared [2][SCAN_RED]: the folded result, by parity
+    int cpar;
+    int* dead;  // shared: a spin of this block ran out
+
+    __device__ bool lead() const { return Inner::lead() && link->card == 0; }
+    __device__ bool home() const { return link->card == 0; }
+    __device__ int offset() const { return link->node_off; }
+    // the winner's global index into every card's results
+    __device__ void store_out(int*, int pod, int win) const {
+        const int v = win >= 0 ? win + link->node_off : win;
+        for (int q = 0; q < link->cards; ++q) link->outs[q][pod] = v;
+    }
+    __device__ int* slot(int q, int par, int src) const {
+        return link->inbox[q] +
+               ((size_t)((link->group0 + group) * 2 + par) * CARD_MAX + src) * CARD_SLOT;
+    }
+    // one card exchange of this card's N words `mine` (the same in every
+    // block): in warp 0, lane q < cards gets card q's words in x (its own
+    // card's from mine). Every thread calls it
+    template <int N>
+    __device__ void card_round(const int (&mine)[N], int (&x)[N]) {
+        const int me = link->card, C = link->cards, par = k & 1;
+        const unsigned long long seq = (unsigned long long)link->seq + (unsigned)k + 1u;
+        ++k;
+        tick(Inner::n->card);
+        if (threadIdx.x < 32) {
+            const int lane = threadIdx.x;
+#pragma unroll
+            for (int i = 0; i < N; ++i) x[i] = mine[i];
+            if (Inner::rank() == 0 && lane < C && lane != me) {
+                int* s = slot(lane, par, me);
+#pragma unroll
+                for (int i = 0; i < N; ++i) s[2 + i] = mine[i];
+                st_release_sys(s, seq);
+            }
+            if (lane < C && lane != me && !*(volatile int*)dead) {
+                const int* s = slot(me, par, lane);
+                const long long t0 = clock64();
+                bool ok = true;
+                while (ld_acquire_sys(s) < seq) {
+                    if (clock64() - t0 > CARD_SPIN_CYCLES) {
+                        ok = false;
+                        atomicExch(link->ctl, 1);
+                        *(volatile int*)dead = 1;
+                        break;
+                    }
+                }
+                if (ok) {
+#pragma unroll
+                    for (int i = 0; i < N; ++i) x[i] = ((volatile const int*)s)[2 + i];
+                }
+            }
+        }
+    }
+    // fold N words over the cards (every thread holds its card's v)
+    template <int N>
+    __device__ void card_fold(int (&v)[N], unsigned maxmask, unsigned minmask) {
+        int x[N];
+        card_round<N>(v, x);
+        int* res = cres[cpar];
+        cpar ^= 1;
+        if (threadIdx.x < 32) {
+            const int lane = threadIdx.x;
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+                const int y = fold_op(lane < link->cards ? x[i] : fold_id(maxmask, minmask, i),
+                                      maxmask, minmask, i);
+                if (lane == 0) res[i] = y;
+            }
+        }
+        __syncthreads();
+        fence_sys();
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[i] = res[i];
+    }
+    template <int N>
+    __device__ void reduce(int (&v)[N], unsigned maxmask, unsigned minmask) {
+        fence_sys();
+        Inner::template reduce<N>(v, maxmask, minmask);
+        card_fold<N>(v, maxmask, minmask);
+    }
+    template <int N>
+    __device__ void exchange(int (&v)[N], unsigned maxmask, unsigned minmask) {
+        fence_sys();
+        Inner::template exchange<N>(v, maxmask, minmask);
+        card_fold<N>(v, maxmask, minmask);
+    }
+    // a barrier over every block of every card
+    __device__ void sync() {
+        fence_sys();
+        Inner::sync();
+        int v[1] = {0};
+        card_fold<1>(v, 1u, 0u);
+    }
+    __device__ int sync_or(int x) {
+        fence_sys();
+        int v[1] = {Inner::sync_or(x)};
+        card_fold<1>(v, 1u, 0u);
+        return v[0];
+    }
+    // the cards' best and tie count, and the ties before this block: those
+    // of the earlier cards at the best score, then the in-card prefix (node
+    // order is card-major, then block, then pass)
+    __device__ void pick(int bb, int bc, int& best, int& ties, int& prefix) {
+        int cb, ct, cp;
+        Inner::pick(bb, bc, cb, ct, cp);
+        const int mine[2] = {cb, ct};
+        int x[2];
+        card_round<2>(mine, x);
+        int* res = cres[cpar];
+        cpar ^= 1;
+        if (threadIdx.x < 32) {
+            const int lane = threadIdx.x;
+            const int qb = lane < link->cards ? x[0] : -SCAN_BIG - 1;
+            const int qc = lane < link->cards ? x[1] : 0;
+            const int b = __reduce_max_sync(FULL_MASK, qb);
+            const int c = qb == b ? qc : 0;
+            const int t = (int)__reduce_add_sync(FULL_MASK, (unsigned)c);
+            const int pre = (int)__reduce_add_sync(FULL_MASK,
+                                                   (unsigned)(lane < link->card ? c : 0));
+            if (lane == 0) {
+                res[0] = b;
+                res[1] = t;
+                res[2] = pre;
+            }
+        }
+        __syncthreads();
+        best = res[0];
+        ties = res[1];
+        prefix = res[2] + (cb == best ? cp : 0);
+    }
+};

@@ -140,7 +140,20 @@ struct FitArgs {
     int* syncs;         // [FIT_COUNTS + FIT_PHASES] or nullptr
     int* tables;        // GTAB: [P, fit_smem().tables] the pods' domain tables
     const int* lt;      // the launch tables past the parameter block (common.cuh)
+    CardLink link;      // the card level (CardComm instances only)
 };
+
+// the in-card part of a kernel's reduction scope (a card-level policy's
+// card fields are set by the kernel)
+__device__ __forceinline__ void init_comm(BlockComm& c, int, int, int (*red)[SCAN_NWARPS][SCAN_RED],
+                                          int*, ScanSyncs* s) {
+    c = {0, 0, red, 0, s};
+}
+__device__ __forceinline__ void init_comm(ClusterComm& c, int r, int C,
+                                          int (*red)[SCAN_NWARPS][SCAN_RED], int* xch,
+                                          ScanSyncs* s) {
+    c = {0, 0, r, C, red, 0, xch, 0, s};
+}
 
 // The dynamic shared memory of one block, in int32 words: the staged
 // launch tables (launch_table_words, 0 within the parameter block's caps;
@@ -268,19 +281,33 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
     __shared__ int xch[3 * SCAN_RED];
     __shared__ ScanSyncs syncs;
     __shared__ long long clk[FIT_PHASES + 1];
+    // the card level's result slots, link and dead flag (CardComm only)
+    __shared__ int cres[2][SCAN_RED];
+    __shared__ CardLink lk;
+    __shared__ int dead;
 
     const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
     const int Nb = p.Nb, D = p.D;
     int r = 0, C = 1, pod = blockIdx.x;
-    Comm comm;
     if constexpr (Comm::kCluster) {
         cg::cluster_group cl = cg::this_cluster();
         r = (int)cl.block_rank();
         C = (int)cl.num_blocks();
         pod = blockIdx.x / C;
-        comm = {0, 0, r, C, red, 0, xch, 0, &syncs};
-    } else {
-        comm = {0, 0, red, 0, &syncs};
+    }
+    Comm comm{};
+    init_comm(comm, r, C, red, xch, &syncs);
+    if constexpr (Comm::kCards) {
+        if (tid == 0) {
+            lk = a.link;
+            dead = 0;
+        }
+        comm.link = &lk;
+        comm.group = pod;
+        comm.k = 0;
+        comm.cres = cres;
+        comm.cpar = 0;
+        comm.dead = &dead;
     }
     FitClock timer = {clk, tid == 0 && pod == 0 && r == 0};
     if (tid == 0) {
@@ -288,6 +315,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         for (int k = 0; k < FIT_PHASES; ++k) clk[k] = 0;
         clk[FIT_PHASES] = clock64();
     }
+    if constexpr (Comm::kCards) __syncthreads();  // the link before any card exchange
 
     const int* fg = a.feats + (size_t)pod * p.F;  // the pod's feature row
     // FULL (K4): one packed buffer per pod. Else (K7): feasible and total
@@ -340,7 +368,7 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         if (lane == 0) any_soft_s = anys;
     }
     const int table_words = lay.fused ? lay.filt_words + lay.score_words : lay.filt_words;
-    if (GTAB) {  // the pod's set, each block a slice
+    if (GTAB && comm.home()) {  // the pod's set (card 0's at the card level), each block a slice
         const int per = (table_words + C - 1) / C;
         for (int i = r * per + tid; i < min(table_words, (r + 1) * per); i += NT) tabs[i] = 0;
     } else {
@@ -800,6 +828,9 @@ __global__ void __launch_bounds__(NT, 1) fit_and_score_kernel(FitParams p, FitAr
         for (int k = 0; k < FIT_COUNTS; ++k) a.syncs[k] = counts[k];
         for (int k = 0; k < FIT_PHASES; ++k) a.syncs[FIT_COUNTS + k] = (int)clk[k];
     }
+    if constexpr (Comm::kCards) {
+        if (tid == 0 && pod == 0 && r == 0) a.link.ctl[1] = syncs.card;
+    }
 }
 
 // The latency floor of a K4 or K7 launch: per pod, the counted folds, block
@@ -846,20 +877,26 @@ __global__ void __launch_bounds__(SCAN_NT, 1) fit_floor_kernel(ScanSyncs n, int*
 // what a launcher learned about one kernel: the dynamic shared memory it
 // may use, and for each cluster size the largest dynamic shared memory at
 // which a cluster was found resident
+// (per card: a function attribute is set on the calling thread's current
+// device only, so a memo shared by the cards would leave a second card's
+// kernel without its dynamic shared memory)
 struct LaunchMemo {
     const void* kernel;
+    int device;
     size_t dyn_set;
     size_t fits_dyn[FIT_MAX_CLUSTER + 1];
 };
 
 inline LaunchMemo* launch_memo(const void* kernel) {
-    static LaunchMemo memo[16];
+    static LaunchMemo memo[64];
     static int used = 0;
+    int dev = -1;
+    if (cudaGetDevice(&dev) != cudaSuccess) return nullptr;
     for (int i = 0; i < used; ++i) {
-        if (memo[i].kernel == kernel) return &memo[i];
+        if (memo[i].kernel == kernel && memo[i].device == dev) return &memo[i];
     }
-    if (used == 16) return nullptr;
-    memo[used] = LaunchMemo{kernel, 0, {}};
+    if (used == 64) return nullptr;
+    memo[used] = LaunchMemo{kernel, dev, 0, {}};
     return &memo[used++];
 }
 
@@ -870,7 +907,7 @@ inline LaunchMemo* launch_memo(const void* kernel) {
 template <class Comm, class K, class... Args>
 int launch_clusters(K kernel, int P, int C, int threads, size_t dyn, void* stream,
                     Args... args) {
-    LaunchMemo scratch = {(const void*)kernel, 0, {}};
+    LaunchMemo scratch = {(const void*)kernel, -1, 0, {}};
     LaunchMemo* memo = launch_memo((const void*)kernel);
     if (!memo) memo = &scratch;
     cudaError_t err;
@@ -953,6 +990,7 @@ inline FitArgs fit_args(void* const* ptrs) {
     return a;
 }
 
+#ifndef SCAN_CARDS
 // ptrs: alloc, used, nonzero_used, valid, unsched, group_id, taints,
 // prefer_taints, domain, sel_counts, port_words, image_kib, ipa_counts,
 // ipa_anti, ipa_pref, ipa_term_key, aff_match, aff_pref, aff_allow,
@@ -1017,3 +1055,115 @@ extern "C" int launch_fit_floor(const int* counts, int P, int C, int threads,
     return launch_clusters<BlockComm>(fit_floor_kernel<BlockComm>, P, 1, threads, dyn, stream,
                                       n, out);
 }
+
+#endif
+
+#ifdef SCAN_CARDS
+// The card level of K4 and K7 (comm.cuh CardComm): on each card the pods
+// against the card's range of the node axis (its planes; the pods' feature
+// rows with NodeName and the affinity pin shifted into the card's range by
+// the wrapper), the folds crossing cards, the domain tables one set per pod
+// on card 0 (GTAB: this library builds with -DSCAN_GMEM). Every pod of a
+// launch must be resident on every card at once (a pod's blocks wait at
+// each card exchange for the same pod on the other cards), so the launcher
+// cuts the pods into launches of what the card holds at once, divided by
+// the card ranks this card carries (two ranks on one card run side by side
+// on two streams). ptrs as launch_fit_and_score's / launch_wave_fit_and_score's.
+template <bool FULL, int NT, int NPT, class Comm>
+int launch_cards_npt(const FitParams* p, FitArgs a, int ranks, void* stream, long long per_pod) {
+    auto kernel = fit_and_score_kernel<FULL, NT, NPT, true, Comm>;
+    const int C = p->cluster;
+    const FitSmem lay = fit_smem(*p, NPT, NT);
+    const size_t dyn = (size_t)lay.words * sizeof(int);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+    int resident = 0;
+    if (Comm::kCluster) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(C, 1, 1);
+        cfg.blockDim = dim3(NT, 1, 1);
+        cfg.dynamicSmemBytes = dyn;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = C;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);
+        if (err != cudaSuccess) return (int)err;
+    } else {
+        int per_sm = 0, dev = 0, sms = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, dyn);
+        if (err == cudaSuccess) err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+        resident = per_sm * sms;
+    }
+    const int chunk = resident / ranks;
+    if (chunk < 1) return FIT_CLUSTER_DOES_NOT_FIT;
+    int* syncs = a.syncs;
+    for (int pod0 = 0; pod0 < p->P; pod0 += chunk) {
+        FitParams q = *p;
+        q.P = min(chunk, p->P - pod0);
+        FitArgs b = a;
+        b.feats = a.feats + (size_t)pod0 * p->F;
+        if (FULL) {
+            b.out = a.out + (size_t)pod0 * per_pod;
+        } else {
+            b.feas_out = a.feas_out + (size_t)pod0 * p->Nb;
+            b.total_out = a.total_out + (size_t)pod0 * p->Nb;
+            b.raw_out = a.raw_out + (size_t)pod0 * 2 * p->Nb;
+        }
+        b.tables = a.tables + (size_t)pod0 * lay.tables;
+        b.link.group0 = a.link.group0 + pod0;
+        b.syncs = pod0 == 0 ? syncs : nullptr;
+        const int code = launch_clusters<Comm>(kernel, q.P, C, NT, dyn, stream, q, b);
+        if (code != 0) return code;
+    }
+    return 0;
+}
+
+extern "C" int launch_fit_and_score_cards(const FitParams* p, void* const* ptrs,
+                                          const CardLink* link, int ranks, void* stream) {
+    const int C = p->cluster;
+    if (C < 1 || C > FIT_MAX_CLUSTER || (C & (C - 1)) || !p->gtab || !ptrs[24] || ranks < 1 ||
+        link->cards < 1 || link->cards > CARD_MAX)
+        return (int)cudaErrorInvalidValue;
+    FitArgs a = fit_args(ptrs);
+    a.out = (uint8_t*)ptrs[22];
+    a.syncs = (int*)ptrs[23];
+    a.tables = (int*)ptrs[24];
+    a.lt = (const int*)ptrs[25];
+    a.link = *link;
+    const long long per_pod =
+        (long long)(p->NF + p->R + 2) * p->Nb + (long long)(1 + N_PLUGINS) * p->Nb * 4;
+    using CC = CardComm<ClusterComm>;
+    switch (fit_npt(p, FIT_NT, 4)) {
+        case 1: return launch_cards_npt<true, FIT_NT, 1, CC>(p, a, ranks, stream, per_pod);
+        case 2: return launch_cards_npt<true, FIT_NT, 2, CC>(p, a, ranks, stream, per_pod);
+        default: return launch_cards_npt<true, FIT_NT, 4, CC>(p, a, ranks, stream, per_pod);
+    }
+}
+
+// K7 at the card level: one block per pod (BlockComm within the card)
+extern "C" int launch_wave_fit_and_score_cards(const FitParams* p, void* const* ptrs,
+                                               const CardLink* link, int ranks, void* stream) {
+    if (p->cluster != 1 || !p->gtab || !ptrs[26] || ranks < 1 || link->cards < 1 ||
+        link->cards > CARD_MAX)
+        return (int)cudaErrorInvalidValue;
+    FitArgs a = fit_args(ptrs);
+    a.feas_out = (uint8_t*)ptrs[22];
+    a.total_out = (int*)ptrs[23];
+    a.raw_out = (int*)ptrs[24];
+    a.syncs = (int*)ptrs[25];
+    a.tables = (int*)ptrs[26];
+    a.lt = (const int*)ptrs[27];
+    a.link = *link;
+    return launch_cards_npt<false, SCAN_NT, 1, CardComm<BlockComm>>(p, a, ranks, stream, 0);
+}
+#endif

@@ -495,7 +495,8 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     // positions it walks at most, and whether it writes the replicated state
     const int lo = comm.lo, span = comm.hi - comm.lo;
     const int slots = scan_slots(p, span, MASKED);
-    const bool lead = comm.rank() == 0;
+    // (at the card level: rank 0 of card 0, whose device memory holds it)
+    const bool lead = comm.lead();
     const int nh = p.n_hard, ns = p.n_soft;
     const int na = p.n_ipa_anti, nfa = p.n_ipa_aff, np = p.n_ipa_pref;
     const bool dedup = p.G > 0;
@@ -575,6 +576,12 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
     auto share = [&](size_t n, size_t& a, size_t& b) {
         if constexpr (Comm::kCluster) {  // the scratch is cluster-only
             if (gtab) {
+                // at the card level the scratch is the home card's, and
+                // only that card's blocks clear and install it
+                if (!comm.home()) {
+                    a = b = 0;
+                    return;
+                }
                 const size_t per = (n + comm.nb - 1) / comm.nb;
                 a = min(n, (size_t)comm.r * per);
                 b = min(n, a + per);
@@ -853,7 +860,7 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
         // and draws nothing; with dedup it is its own signature and still
         // takes its tier (table row and sig_scores row)
         if (!dedup && !active) {
-            if (lead && tid == 0) out[pod] = -1;
+            if (lead && tid == 0) comm.store_out(out, pod, -1);
             continue;
         }
         const int buf = pod & 1;
@@ -1379,10 +1386,10 @@ __device__ __forceinline__ ScanEnd scan_block(const ScanParams& p, const ScanArg
                     node = node_at(jstar * SCAN_NT + lstar * 32 + __ffs(bits) - 1);
                 }
                 win = __shfl_sync(FULL_MASK, node, lstar);
-                if (lane == 0) out[pod] = win;
+                if (lane == 0) comm.store_out(out, pod, win);
             }
         } else if (lead && tid == 0) {  // nothing feasible, or a pad slot
-            out[pod] = -1;
+            comm.store_out(out, pod, -1);
         }
 
         mark(6);

@@ -93,10 +93,84 @@ cudaLaunchConfig_t cluster_config(K kernel, int n, size_t dyn, cudaStream_t stre
     return cfg;
 }
 
+#ifdef SCAN_CARDS
+// The card level of K6 (comm.cuh CardComm): one instance per card, each a
+// cluster of `blocks` blocks over the card's contiguous range of the node
+// axis (the planes, K1's outputs, the carry and the signature table's
+// columns are the card's own tensors; node indices are card-local but in
+// the results, which take the card's offset), the reference's collectives
+// crossing cards through peer memory. Always the GTAB instance: the domain
+// tables, the hard-spread counts and the signature table's segs/pcs/valid
+// are one copy on card 0 that every card's blocks add into and read. The
+// exit barrier keeps every card in the kernel until no peer can still
+// write its memory (the last step's winner adds and patches).
+template <int NPT, bool GATED>
+__global__ void __launch_bounds__(SCAN_NT, 1) sharded_assign_cards_kernel(
+    ShardParams sp, ScanArgs a, CardLink link, int* tiers) {
+    __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
+    __shared__ int xch[3 * SCAN_RED];
+    __shared__ int cres[2][SCAN_RED];
+    __shared__ CardLink lk;
+    __shared__ int dead;
+    __shared__ ScanSyncs syncs;
+    if (threadIdx.x == 0) {
+        syncs = {};
+        lk = link;
+        dead = 0;
+    }
+    __syncthreads();
+    cg::cluster_group cl = cg::this_cluster();
+    const ScanParams& p = sp.scan;
+    const int r = (int)cl.block_rank(), n = (int)cl.num_blocks();
+    const int nbl = p.Nb / n;
+    CardComm<ClusterComm> comm = {{r * nbl, (r + 1) * nbl, r, n, red, 0, xch, 0, &syncs},
+                                  &lk, 0, 0, cres, 0, &dead};
+    const ScanEnd end = scan_block<false, NPT, GATED, true, false>(p, a, comm);
+    comm.sync();
+    if (r == 0 && threadIdx.x == 0) {
+        a.winners[p.P] = end.cursor;
+        a.winners[p.P + 1] = end.overflow;
+        if (p.G > 0) {
+            tiers[0] = end.n_full;
+            tiers[1] = end.n_replay;
+        }
+        if (link.card == 0) write_syncs(a.syncs, end.syncs, end.phase_cycles);
+        link.ctl[1] = end.syncs.card;
+    }
+    cl.sync();
+}
+
+// The card level's latency floor: n card exchanges of four words (each a
+// block fold and a card fold, fenced as the kernels' are) on one block per
+// card, with no node work
+__global__ void __launch_bounds__(SCAN_NT, 1) card_floor_kernel(CardLink link, int n, int* out) {
+    __shared__ int red[2][SCAN_NWARPS][SCAN_RED];
+    __shared__ int cres[2][SCAN_RED];
+    __shared__ CardLink lk;
+    __shared__ int dead;
+    __shared__ ScanSyncs syncs;
+    if (threadIdx.x == 0) {
+        syncs = {};
+        lk = link;
+        dead = 0;
+    }
+    __syncthreads();
+    CardComm<BlockComm> comm = {{0, 0, red, 0, &syncs}, &lk, 0, 0, cres, 0, &dead};
+    int acc = threadIdx.x;
+    for (int i = 0; i < n; ++i) {
+        int v[4] = {acc, acc, acc, acc};
+        comm.template reduce<4>(v, 0x1u, 0x2u);
+        acc += v[0] & 1;
+    }
+    if (threadIdx.x == 0) out[0] = acc;
+}
+#endif
+
 // ptrs: as scan_args() in scan_step.cuh reads them (K2's list: the GTAB
 // instance's device-memory scratch, scan_smem's `tables` words, at 38, 0
 // where the tables live in shared memory; the pass instance's position
 // scratch, scan_pass_words, at 40, 0 in one pass)
+#ifndef SCAN_CARDS
 extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
                                      void* stream) {
     const int n = sp->blocks;
@@ -126,7 +200,83 @@ extern "C" int launch_sharded_assign(const ShardParams* sp, void* const* ptrs,
     });
 }
 
-#ifndef SCAN_PASS
+#endif
+
+#ifdef SCAN_CARDS
+// K6 on one card of a card-level launch: ptrs as launch_sharded_assign's
+// (the GTAB tables at 38, on card 0; the signature table's segs/pcs/valid,
+// the hard-spread counts likewise card 0's), `link` the launch's card
+// level; `ranks` the card ranks this launch's card holds (two ranks on one
+// card run side by side on two streams): the launch is refused where fewer
+// clusters than that can be resident at once
+extern "C" int launch_sharded_assign_cards(const ShardParams* sp, void* const* ptrs,
+                                           const CardLink* link, int ranks, void* stream) {
+    const int n = sp->blocks;
+    if (n < 1 || n > SCAN_MAX_BLOCKS || (n & (n - 1)) || sp->scan.Nb % n || !sp->scan.gtab ||
+        sp->scan.passes > 0 || link->cards < 1 || link->cards > CARD_MAX || ranks < 1 ||
+        ptrs[38] == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int span = sp->scan.Nb / n;
+    const size_t dyn = scan_smem_bytes(sp->scan, span, false);
+    ScanArgs a = scan_args(ptrs);
+    a.tables = (int*)ptrs[38];
+    return scan_dispatch(span, scan_gated(sp->scan), true, 0,
+                         [&](auto npt, auto gated, auto, auto) {
+        auto kernel = sharded_assign_cards_kernel<decltype(npt)::value, decltype(gated)::value>;
+        cudaLaunchAttribute attr[1];
+        cudaError_t err;
+        cudaLaunchConfig_t cfg = cluster_config(kernel, n, dyn, (cudaStream_t)stream, attr, err);
+        if (err != cudaSuccess) return (int)err;
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+        if (err != cudaSuccess) return (int)err;
+        if (clusters < ranks) return SHARD_CLUSTER_DOES_NOT_FIT;
+        err = cudaLaunchKernelEx(&cfg, kernel, *sp, a, *link, (int*)ptrs[29]);
+        if (err != cudaSuccess) return (int)err;
+        return (int)cudaGetLastError();
+    });
+}
+
+extern "C" int launch_card_floor(const CardLink* link, int n, int* out, void* stream) {
+    if (link->cards < 1 || link->cards > CARD_MAX || n < 0) return (int)cudaErrorInvalidValue;
+    card_floor_kernel<<<1, SCAN_NT, 0, (cudaStream_t)stream>>>(*link, n, out);
+    return (int)cudaGetLastError();
+}
+
+// A stream of the calling thread's card that never waits for the legacy
+// default stream (cudaStreamNonBlocking): a second card rank on one card
+// runs there, side by side with the first on the card's current stream
+extern "C" int create_nonblocking_stream(void** out) {
+    cudaStream_t s = nullptr;
+    const cudaError_t err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+    *out = (void*)s;
+    return (int)err;
+}
+
+// Peer access from the calling thread's card to card `peer` (both directions
+// are asked by the wrapper, once per pair): cudaErrorPeerAccessUnsupported
+// where the pair has none; an access already enabled is no error
+extern "C" int enable_peer_access(int dev, int peer) {
+    int cur = 0;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err != cudaSuccess) return (int)err;
+    int can = 0;
+    err = cudaDeviceCanAccessPeer(&can, dev, peer);
+    if (err != cudaSuccess) return (int)err;
+    if (!can) return (int)cudaErrorPeerAccessUnsupported;
+    err = cudaSetDevice(dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();
+        err = cudaSuccess;
+    }
+    const cudaError_t back = cudaSetDevice(cur);
+    return (int)(err != cudaSuccess ? err : back);
+}
+#endif
+
+#if !defined(SCAN_PASS) && !defined(SCAN_CARDS)
 // What the scan's launch plan needs from this card, asked once: out[0] the
 // largest cluster of scanning blocks (16, else 8, 4, 2, 1; 0 none) that
 // one GPC holds with `dyn` bytes of dynamic shared memory each

@@ -34,7 +34,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # their table placement at run time; sharded_assign.cu builds three times,
 # each table placement and the pass instances, and fit_and_score.cu twice,
 # the second time with the tables in device memory (the GTAB instances,
-# for keys of thousands of domains). Each is an nvcc process of its own,
+# for keys of thousands of domains); both build once more with
+# -DSCAN_CARDS (sharded_assign_cards, fit_and_score_cards), the card-level
+# instances of K6, K4 and K7 (comm.cuh CardComm, their tables in device
+# memory) and nothing else. Each is an nvcc process of its own,
 # side by side, none compiling more than four scan instances
 SOURCES = {
     "static_parts": "static_parts.cu",
@@ -49,13 +52,17 @@ SOURCES = {
     "sharded_assign": "sharded_assign.cu",
     "sharded_assign_gmem": "sharded_assign.cu",
     "sharded_assign_pass": "sharded_assign.cu",
+    "sharded_assign_cards": "sharded_assign.cu",
+    "fit_and_score_cards": "fit_and_score.cu",
 }
 DEFINES = {"gang_assign_cluster": ("-DGANG_CLUSTER",),
            "gang_assign_gmem": ("-DGANG_CLUSTER", "-DSCAN_GMEM"),
            "gang_assign_pass": ("-DGANG_CLUSTER", "-DSCAN_PASS"),
            "sharded_assign_gmem": ("-DSCAN_GMEM",),
            "sharded_assign_pass": ("-DSCAN_PASS",),
-           "fit_and_score_gmem": ("-DSCAN_GMEM",)}
+           "fit_and_score_gmem": ("-DSCAN_GMEM",),
+           "sharded_assign_cards": ("-DSCAN_GMEM", "-DSCAN_CARDS"),
+           "fit_and_score_cards": ("-DSCAN_GMEM", "-DSCAN_CARDS")}
 
 # a launcher's own code (beside CUDA's error codes): the scan's cluster of
 # n blocks (K2's cluster route, K5's per row, K6), or K4's and K7's cluster
@@ -156,6 +163,74 @@ def launch(name: str, params: ctypes.Structure, ptrs: list[int], stream: int,
     if code != 0:
         msg = dll.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def launch_cards(name: str, params: ctypes.Structure, ptrs: list[int], link: "CardParams",
+                 ranks: int, stream: int) -> None:
+    """launch_<name>_cards(&params, ptrs, &link, ranks, stream) of the card
+    library (sharded_assign_cards for K6, fit_and_score_cards for K4 and
+    K7): one card's instance of a card-level launch, `ranks` the card ranks
+    this card carries; raise on a refused launch."""
+    dll = load("sharded_assign_cards" if name == "sharded_assign" else "fit_and_score_cards")
+    fn = getattr(dll, f"launch_{name}_cards")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+    code = fn(ctypes.addressof(params), ctypes.addressof(arr), ctypes.addressof(link),
+              int(ranks), stream)
+    if code == CLUSTER_DOES_NOT_FIT:
+        raise RuntimeError(f"{name} (card level): the {ranks} card ranks on card "
+                           f"{link.card}'s device cannot all be resident at once "
+                           "(cudaOccupancyMaxActiveClusters)")
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"{name} (card level) launch failed: CUDA error {code} ({msg})")
+
+
+def launch_card_floor(link: "CardParams", n: int, out_ptr: int, stream: int) -> None:
+    """launch_card_floor of the sharded_assign_cards library: n card
+    exchanges with no node work on one block of this card (every card of
+    the link must be launched alike)."""
+    dll = load("sharded_assign_cards")
+    fn = dll.launch_card_floor
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(ctypes.addressof(link), int(n), out_ptr, stream)
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"card_floor launch failed: CUDA error {code} ({msg})")
+
+
+def create_nonblocking_stream() -> int:
+    """A new cudaStreamNonBlocking stream of the current card (the card
+    level's second rank on a card: a stream the legacy default stream never
+    orders against); its handle."""
+    dll = load("sharded_assign_cards")
+    fn = dll.create_nonblocking_stream
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_void_p()
+    code = fn(ctypes.addressof(out))
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"stream creation failed: CUDA error {code} ({msg})")
+    return out.value
+
+
+def enable_peer_access(dev: int, peer: int) -> None:
+    """Peer access from card `dev` to card `peer` (cudaDeviceCanAccessPeer,
+    cudaDeviceEnablePeerAccess); raises where the pair has none: the card
+    level never stages through host memory."""
+    dll = load("sharded_assign_cards")
+    fn = dll.enable_peer_access
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    code = fn(int(dev), int(peer))
+    if code != 0:
+        msg = dll.kernel_error_string(code).decode()
+        raise RuntimeError(f"cards {dev} and {peer} have no peer access: CUDA error "
+                           f"{code} ({msg}); the card level needs every pair")
 
 
 def launch_floor(counts: list[int], npt: int, n_blocks: int, out_ptr: int,
@@ -329,4 +404,18 @@ class ScatterParams(ctypes.Structure):
         ("units", ctypes.c_int * MAX_PLANES),
         ("dst", ctypes.c_longlong * MAX_PLANES),
         ("src", ctypes.c_longlong * MAX_PLANES),
+    ]
+
+
+CARD_MAX = 8
+
+
+class CardParams(ctypes.Structure):
+    """csrc/comm.cuh CardLink: one card's part of a card-level launch."""
+
+    _fields_ = _ints("card", "cards", "node_off", "group0") + [
+        ("seq", ctypes.c_longlong),
+        ("inbox", ctypes.c_void_p * CARD_MAX),
+        ("outs", ctypes.c_void_p * CARD_MAX),
+        ("ctl", ctypes.c_void_p),
     ]

@@ -80,6 +80,9 @@ _INT32_MAX = 2**31 - 1
 LAUNCHES = {"static_parts": 0, "assign_scan": 0, "scatter_rows": 0,
             "fit_and_score": 0, "gang_assign": 0, "sharded_assign": 0,
             "wave_fit_and_score": 0}
+# the card-level launches among them (ops/cards.py: K6, K4 and K7 over
+# several cards' node ranges, one call launching every card)
+CARD_LAUNCHES = {"sharded_assign": 0, "fit_and_score": 0, "wave_fit_and_score": 0}
 _LAUNCH_LOCK = threading.Lock()
 _THREAD_LAUNCHES = threading.local()
 
@@ -107,6 +110,8 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for k in CARD_LAUNCHES:
+            CARD_LAUNCHES[k] = 0
     _THREAD_LAUNCHES.counts = {}
 
 
@@ -1320,7 +1325,8 @@ def _cfg_scan_fields(cfg: KernelConfig) -> dict:
 
 def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
                  packed_f: torch.Tensor, layout, tie_words: torch.Tensor,
-                 logtab: torch.Tensor, n_static: int, G: int, cursor0: int):
+                 logtab: torch.Tensor, n_static: int, G: int, cursor0: int,
+                 log_nb: int | None = None):
     """Check the inputs K2 and K5 share (the row planes, K1's n_static rows,
     the packed features, tie words, log table) and build their ScanParams.
     G is the signature row count (0: the non-dedup tier)."""
@@ -1351,7 +1357,9 @@ def _scan_params(cfg: KernelConfig, planes: dict, static: dict,
     ):
         _check(static[name], name, device, dt, shape)
     _check(tie_words, "tie_words", device, i32)
-    _check(logtab, "logtab", device, torch.float32, (nb + 1,))
+    # (at the card level the planes hold one card's range, the log table
+    # the whole axis's counts: log_nb)
+    _check(logtab, "logtab", device, torch.float32, ((log_nb or nb) + 1,))
     if tie_words.numel() == 0:
         raise ValueError("tie_words is empty")
     if len(cfg.topo_domains) != K:
@@ -1795,12 +1803,19 @@ def sharded_assign(cfg: KernelConfig, planes: dict, static: dict,
 
 def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logtab,
             n_shards, sig_ids, uniq_idx, frame_shift, carry_map, sig_table,
-            syncs=None, plan=None) -> dict:
+            syncs=None, plan=None, home=None, packed=None, launch=True, log_nb=None):
     """K2 (n_shards None) or K6: the checks, the plain version on the CPU,
     else the outputs' allocation and the launch: one block (K2), or the
     plan's cluster of blocks (K2 past one block's slots, K6), with the
     domain tables in a device-memory scratch where the plan says (gtab,
-    K6's GTAB instance); `plan` the plan, where the caller has it."""
+    K6's GTAB instance); `plan` the plan, where the caller has it.
+
+    For one card of a card-level launch (ops/cards.py) launch is False: the
+    outputs are allocated (packed given: the card's results) and the call
+    returns (params, outputs, pointers, home state) without launching; on
+    the cards after the first, `home` holds card 0's state that every card
+    reads and writes in place of its own (dom, t_valid, the signature
+    table's segs/pcs, the GTAB tables), and sig_table's segs/pcs lie there."""
     from .planes import unpack_features
 
     check_slice(cfg)
@@ -1841,7 +1856,7 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
             raise ValueError("cursor_init must hold one word")
     p = _scan_params(cfg, planes, static, packed_f, layout, tie_words, logtab,
                      n_static=Ps, G=Ps if fast else 0,
-                     cursor0=0 if cursor_dev else int(cursor_init))
+                     cursor0=0 if cursor_dev else int(cursor_init), log_nb=log_nb)
     p.frame_shift = int(frame_shift)
     p.gtab = int(plan.gtab)
     p.passes = plan.passes if plan.scratch else 0
@@ -1852,18 +1867,22 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
         for name, dt, shape in (("ew", i32, (g_prev, nb)), ("ffit", b8, (g_prev, nb)),
                                 ("feas", b8, (g_prev, nb)), ("segs", i32, (g_prev, ct, dmax)),
                                 ("pcs", i32, (g_prev, ct, dmax))):
-            _check(sig_table[name], f"sig_table.{name}", device, dt, shape)
+            at = sig_table[name].device if home is not None and name in ("segs", "pcs") \
+                else device
+            _check(sig_table[name], f"sig_table.{name}", at, dt, shape)
         if g_prev == 0:
             raise ValueError("sig_table has no rows")
         p.xwave, p.G_prev = 1, g_prev
-    out = {"packed": torch.empty(P + 2, dtype=i32, device=device)}
+    out = {"packed": torch.empty(P + 2, dtype=i32, device=device) if packed is None
+           else packed}
     carried = ["used", "nonzero_used", "sel_counts"]
     if cfg.ipa_active:
         carried += ["ipa_counts", "ipa_anti", "ipa_pref"]
     for k in carried:
         out[k] = planes[k].clone()
     empty = torch.empty(0, dtype=i32, device=device)
-    dom = (torch.empty((K, dmax, S), dtype=i32, device=device) if p.dom_carry
+    dom = (home["dom"] if home is not None
+           else torch.empty((K, dmax, S), dtype=i32, device=device) if p.dom_carry
            else empty)
     if fast:
         out["sig_scores"] = torch.full((Ps, nb), -1, dtype=i32, device=device)
@@ -1871,12 +1890,16 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
         alloc_tab = torch.empty if xwave else torch.zeros
         tab = {"ew": alloc_tab((Ps, nb), dtype=i32, device=device),
                "ffit": alloc_tab((Ps, nb), dtype=b8, device=device),
-               "feas": alloc_tab((Ps, nb), dtype=b8, device=device),
-               "segs": alloc_tab((Ps, ct, dmax), dtype=i32, device=device),
-               "pcs": alloc_tab((Ps, ct, dmax), dtype=i32, device=device)}
+               "feas": alloc_tab((Ps, nb), dtype=b8, device=device)}
+        if home is not None:
+            tab["segs"], tab["pcs"] = home["segs"], home["pcs"]
+        else:
+            tab["segs"] = alloc_tab((Ps, ct, dmax), dtype=i32, device=device)
+            tab["pcs"] = alloc_tab((Ps, ct, dmax), dtype=i32, device=device)
         out["sig_table"] = tab
         out["tiers"] = torch.zeros(2, dtype=i32, device=device)
-        t_valid = alloc_tab(Ps, dtype=b8, device=device)
+        t_valid = home["t_valid"] if home is not None else alloc_tab(Ps, dtype=b8,
+                                                                    device=device)
     ipa_ptrs = ([out[k].data_ptr() for k in ("ipa_counts", "ipa_anti", "ipa_pref")]
                 + [planes["ipa_term_key"].data_ptr()] if cfg.ipa_active else [0] * 4)
     ptrs = [planes[k].data_ptr() for k in ("alloc", "domain", "valid")]
@@ -1900,7 +1923,8 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     ptrs.append(_syncs_ptr(syncs, device))
     # the GTAB instance's tables: allocated here on the launch's device and
     # stream, cleared by the kernel
-    scratch = (torch.empty(scan_table_words(p), dtype=i32, device=device) if plan.gtab
+    scratch = (home["tables"] if home is not None
+               else torch.empty(scan_table_words(p), dtype=i32, device=device) if plan.gtab
                else None)
     ptrs.append(0 if scratch is None else scratch.data_ptr())
     ptrs.append(_launch_tables_ptr(cfg, device))
@@ -1908,6 +1932,11 @@ def _assign(cfg, planes, static, packed_f, layout, tie_words, cursor_init, logta
     pos = (torch.empty(scan_pass_words(p, blocks, False), dtype=i32, device=device)
            if plan.scratch else None)
     ptrs.append(0 if pos is None else pos.data_ptr())
+    if not launch:
+        state = {"dom": dom, "tables": scratch}
+        if fast:
+            state.update(t_valid=t_valid, segs=tab["segs"], pcs=tab["pcs"])
+        return p, out, ptrs, state
     if n_shards is None and blocks == 1 and not plan.gtab and not plan.scratch:
         cuda.launch("assign_scan", p, ptrs, _stream(device))
     else:
@@ -2706,7 +2735,8 @@ def fit_floor(syncs: torch.Tensor, n_pods: int = 1, cluster: int = FIT_CLUSTER,
 
 
 def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.Tensor,
-                layout, logtab: torch.Tensor, nf: int, cluster: int):
+                layout, logtab: torch.Tensor, nf: int, cluster: int,
+                log_nb: int | None = None):
     """Check K4's and K7's inputs; their FitParams and input pointers."""
     from . import cuda
 
@@ -2739,7 +2769,9 @@ def _fit_inputs(cfg: KernelConfig, planes: dict, tables: dict, packed_f: torch.T
         ("aff_allow", b8, (A, nb)), ("aff_has_pref", b8, (A,)),
     ):
         _check(tables[name], name, device, dt, shape)
-    _check(logtab, "logtab", device, torch.float32, (nb + 1,))
+    # (at the card level the planes hold one card's range, the log table
+    # the whole axis's counts: log_nb)
+    _check(logtab, "logtab", device, torch.float32, ((log_nb or nb) + 1,))
     if len(cfg.topo_domains) != K:
         raise ValueError(f"config has {len(cfg.topo_domains)} topology keys, "
                          f"planes {K}")

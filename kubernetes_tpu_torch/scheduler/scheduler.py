@@ -119,6 +119,7 @@ class Scheduler:
         tracer=None,
         device="cuda",
         warm_start: bool = False,
+        context=None,
     ):
         from ..utils.clock import Clock
         from .tpu.waverecorder import WaveRecorder
@@ -186,7 +187,8 @@ class Scheduler:
                            clock=self.clock, handle=handle, metrics=metrics)
             self.frameworks[prof.name] = fw
             backend = TorchBackend(self.names, plugin_args=prof.plugin_args,
-                                   device=device, recorder=self.flight_recorder)
+                                   device=device, recorder=self.flight_recorder,
+                                   context=context)
             # the nominator is wired below once the queue exists
             self.algorithms[prof.name] = TorchSchedulingAlgorithm(
                 fw, backend, rng=random.Random(seed),

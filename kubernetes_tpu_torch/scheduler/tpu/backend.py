@@ -68,6 +68,7 @@ wave-phase names.
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import numpy as np
@@ -76,9 +77,11 @@ import torch
 from ...api.resource import ResourceNames
 from ...api.storage import pod_claim_names
 from ...api.types import Pod, Taint
+from ...ops.cards import CardTensor, card_scan_plan, fit_outputs
 from ...ops.kernels import (
     FILTER_NAMES,
     MAX_TIE_DRAWS,
+    SCAN_MAX_BLOCKS,
     ZERO_TIE_WORDS,
     KernelConfig,
     check_gang_rows,
@@ -86,6 +89,7 @@ from ...ops.kernels import (
     gang_assign,
     log_weight_table,
     plan_key,
+    scan_limits,
     scan_plan_for,
     scatter_rows,
     static_parts,
@@ -158,11 +162,30 @@ def _wave_label(bucket_sizes, pad: int, uniq, plan) -> str:
 
 
 def _blocks_label(plan) -> str:
-    """A scan's (blocks, passes) (kernels.plan_key): past the card's largest
-    cluster its blocks walk in passes, "/p<passes>"; past one block's slots
-    it runs a cluster of blocks, "/c<blocks>"."""
-    blocks, passes = plan
-    return (f"/p{passes}" if passes else "") + (f"/c{blocks}" if blocks > 1 else "")
+    """A scan's (blocks, passes) (kernels.plan_key), and over several cards
+    their count: past the card's largest cluster its blocks walk in passes,
+    "/p<passes>"; past one block's slots it runs a cluster of blocks,
+    "/c<blocks>"; at the card level, "/x<cards>"."""
+    blocks, passes = plan[:2]
+    cards = plan[2] if len(plan) > 2 else 1
+    return ((f"/p{passes}" if passes else "") + (f"/c{blocks}" if blocks > 1 else "")
+            + (f"/x{cards}" if cards > 1 else ""))
+
+
+def _same_card(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: a CUDA device without an index is the
+    current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device() if (a.index is None or b.index is None) else 0
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
+def _first(x):
+    """A card-level output's card-0 part (CardTensor), else x."""
+    return x.parts[0] if isinstance(x, CardTensor) else x
 
 
 def _mt_stream(rng_state) -> np.random.RandomState:
@@ -328,8 +351,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _CardEvents:
+    """A card-level wave's result event on card 0 and each card's control
+    words copied behind it (TorchBackend._fetch_async)."""
+
+    def __init__(self, events, ctls):
+        self.events, self.ctls = events, ctls
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+    def check(self, ctx) -> None:
+        bad = [c for c, h in enumerate(self.ctls) if int(h[0])]
+        if bad:
+            ctx.check()
+            raise RuntimeError(f"card level: a card rank never arrived at an exchange "
+                               f"(cards {bad})")
+
+
 class TorchBackend:
-    """Planes + features + device-state bookkeeping for one cluster."""
+    """Planes + features + device-state bookkeeping for one cluster.
+
+    Over several cards (a MeshContext whose mesh spans them) every node
+    plane of the mirror, the carry and the signature table's columns is a
+    CardTensor (ops/cards.py), one contiguous node range per card; dirty
+    rows go to the card that owns them (_scatter_cards); a wave's results
+    are read from card 0, with each card's control words beside them."""
 
     def __init__(self, names: ResourceNames, plugin_args: dict | None = None,
                  device="cuda", context=None, recorder=None):
@@ -349,9 +397,12 @@ class TorchBackend:
         # (KUBE_TPU_MESH_DEVICES when none is passed); every upload and
         # kernel entry goes through it
         self._ctx = context if context is not None else context_from_env(device=self.device)
-        if self._ctx.device != self.device:
+        if not _same_card(self._ctx.device, self.device):
             raise ValueError(f"the context runs on {self._ctx.device}, the "
                              f"backend on {self.device}")
+        # the node axis's cards (a MeshContext over several cards: every
+        # plane's node axis cut into the cards' ranges, ops/cards.py)
+        self.cards = getattr(self._ctx, "cards", 1)
         args = (plugin_args or {}).get("NodeResourcesFit", {})
         ipa_args = (plugin_args or {}).get("InterPodAffinity", {})
         self.ipa_ignore_preferred_existing = bool(
@@ -534,6 +585,9 @@ class TorchBackend:
             self._cold_start_upload(planes, rec)
             # the only upload that changes the mirror's size
             tel.note_resident("planes", tree_nbytes(self._device_planes), rec)
+        elif self._pending_dirty and self.cards > 1:
+            idx = np.array(sorted(self._pending_dirty), np.int32)
+            self._scatter_cards(planes, idx, rec)
         elif self._pending_dirty:
             idx = np.array(sorted(self._pending_dirty), np.int32)
             rows = self._upload_rows(planes.as_dict(), idx, rec)
@@ -555,6 +609,31 @@ class TorchBackend:
             tel.account_upload("log_weights", table.nbytes, rec)
             self._logtab = self._ctx.put_replicated(table)
         return self._overlay({})
+
+    def _scatter_cards(self, planes, idx: np.ndarray, rec=None) -> None:
+        """The dirty rows over several cards: each row to the card that owns
+        it, at its card-local index; per card one packed copy and one K3
+        launch on that card's planes (a card none of whose rows is dirty
+        gets nothing)."""
+        tel = self.telemetry
+        host = planes.as_dict()
+        for c, (lo, hi) in enumerate(self._ctx.ranges(planes.nb)):
+            own = idx[(idx >= lo) & (idx < hi)]
+            if not own.size:
+                continue
+            local = (own - lo).astype(np.int32)
+            rows = self._upload_rows(host, own, rec, card=c)
+            tel.account_upload("delta_idx", local.nbytes, rec)
+            n = next_pow2(len(own), floor=8)
+            dst = {k: self._device_planes[k].parts[c] for k in SLICE_PLANES}
+            with torch.cuda.device(dst["alloc"].device) if dst["alloc"].is_cuda \
+                    else contextlib.nullcontext():
+                with tel.compile_span("scatter_rows",
+                                      ("scatter", planes.bucket_sizes, n, self.cards),
+                                      label=f"rows{n}/x{self.cards}", record=rec):
+                    scatter_rows(dst, rows, self._pinned_copy(local, card=c))
+            self.upload_stats["scatter"] += 1
+        self.upload_stats["rows"] += len(idx)
 
     def _cold_start_upload(self, planes, rec=None) -> None:
         """The full put of the node planes: cold start, bucket reshape, lost
@@ -626,18 +705,24 @@ class TorchBackend:
             self.invalidate_carry()
         return self.device_inputs(planes)
 
-    def _pinned_copy(self, a: np.ndarray) -> torch.Tensor:
-        """One host array on the backend's device. To a card: through a
+    def _pinned_copy(self, a: np.ndarray, card: int | None = None):
+        """One host array on the backend's device (over several cards: a copy
+        on every card, or on card `card` alone). To a card: through a
         pinned buffer and a non-blocking copy (a copy from pageable memory
         would block the host until every kernel queued before it is done);
         the buffer stays referenced in _staging until its wave is
         collected. On the CPU: the array itself."""
         a = np.ascontiguousarray(a)
         if self.device.type != "cuda":
-            return torch.from_numpy(a)
-        host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
-        host.numpy()[...] = a
-        self._staging.append(host)
+            host = torch.from_numpy(a)
+        else:
+            host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+            host.numpy()[...] = a
+            self._staging.append(host)
+        if card is not None:
+            return self._ctx.put_card(host, card)
+        if self.device.type != "cuda" and self.cards == 1:
+            return host
         return self._ctx.put_replicated(host)
 
     def _stage(self, parts: list[np.ndarray]) -> list[torch.Tensor]:
@@ -652,22 +737,37 @@ class TorchBackend:
             off += a.size
         return out
 
-    def _fetch_async(self, t: torch.Tensor):
+    def _fetch_async(self, t):
         """(host tensor, event): t's copy to pinned host memory enqueued
         right behind the kernel that writes it, and the event collect waits
-        on. On the CPU: (t, None)."""
+        on. On the CPU: (t, None). Over several cards t is card 0's copy,
+        and the event (_CardEvents) also waits for each card's control
+        words, copied behind the launch on that card, which collect
+        checks: a card rank that never arrived raises there."""
         if self.device.type != "cuda":
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+            return _first(t), None
+        t0 = _first(t)
+        host = torch.empty(t0.shape, dtype=t0.dtype, pin_memory=True)
+        host.copy_(t0, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
+        ev.record(torch.cuda.current_stream(t0.device))
+        if self.cards == 1:
+            return host, ev
+        evs, ctls = [ev], []
+        for c, ctl in enumerate(self._ctx.card_set.ctl):
+            h = torch.empty(ctl.shape, dtype=ctl.dtype, pin_memory=True)
+            h.copy_(ctl, non_blocking=True)
+            e = torch.cuda.Event()
+            e.record(torch.cuda.current_stream(ctl.device))
+            evs.append(e)
+            ctls.append(h)
+        return host, _CardEvents(evs, ctls)
 
-    def _upload_rows(self, host: dict, idx: np.ndarray, rec=None) -> dict:
+    def _upload_rows(self, host: dict, idx: np.ndarray, rec=None, card: int | None = None) -> dict:
         """Gather the dirty rows of every mirrored plane into one byte
         buffer (16-byte aligned per plane), copy it to the device once, and
-        return per-plane views of it in the device planes' dtypes."""
+        return per-plane views of it in the device planes' dtypes (over
+        several cards: to card `card` alone, which owns every row)."""
         parts, offs, off = [], {}, 0
         for k in SLICE_PLANES:
             b = np.ascontiguousarray(host[k][idx]).view(np.uint8).reshape(-1)
@@ -678,11 +778,13 @@ class TorchBackend:
         for o, b in parts:
             buf[o: o + b.size] = b
         self.telemetry.account_upload("delta_rows", buf.nbytes, rec)
-        dev = self._pinned_copy(buf)
+        dev = self._pinned_copy(buf, card=card)
         rows = {}
         for k in SLICE_PLANES:
             o, size = offs[k]
             t = self._device_planes[k]
+            if card is not None:
+                t = t.parts[card]
             rows[k] = dev[o: o + size].view(t.dtype).view((len(idx),) + tuple(t.shape[1:]))
         return rows
 
@@ -744,10 +846,11 @@ class TorchBackend:
                                            words, self._logtab, sig_ids=sig_ids,
                                            uniq_idx=uniq)
         if "tiers" in out:
-            self.tier_steps += out["tiers"]
+            self.tier_steps += _first(out["tiers"])
         t4 = time.perf_counter()
         # ONE device→host copy: winners ++ [tie_consumed, tie_overflow]
         packed = self.telemetry.accounted_fetch("results", out["packed"]).numpy()
+        self._ctx_check()
         self._staging = []
         t5 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
@@ -764,11 +867,24 @@ class TorchBackend:
             advance_rng(rng, consumed)
         return [planes.node_names[w] if w >= 0 else None for w in winners], planes
 
+    def _ctx_check(self) -> None:
+        """Over several cards: raise where a card rank never arrived."""
+        if self.cards > 1:
+            self._ctx.check()
+
     def _scan_blocks(self, cfg: KernelConfig, dev_planes: dict) -> tuple[int, int]:
         """The launch plan's blocks and passes for this wave's scan (K2, or
-        K6 over the context's shards; kernels.plan_key): part of the
-        first-use signature, since a new block or pass count is a new
-        kernel instance."""
+        K6 over the context's shards; kernels.plan_key), and over several
+        cards their count: part of the first-use signature, since a new
+        block, pass or card count is a new kernel instance."""
+        if self.cards > 1:
+            nb, R = dev_planes["alloc"].shape
+            dev = dev_planes["alloc"].device
+            cap = (scan_limits(dev)["max_blocks"] if dev.type == "cuda"
+                   else SCAN_MAX_BLOCKS)
+            plan = card_scan_plan(cfg, nb // self.cards, self._ctx.mesh.shards_per_card, R,
+                                  dev_planes["sel_counts"].shape[1], cap)
+            return plan_key(plan) + (self.cards,)
         n = self._ctx.n_shards if self._ctx.is_sharded else None
         return plan_key(scan_plan_for("sharded_assign" if n else "assign_scan", cfg,
                                       dev_planes, n))
@@ -956,7 +1072,7 @@ class TorchBackend:
                 sig_ids=sig_ids, uniq_idx=uniq, carry_map=dev_map, sig_table=sig_table)
         host_packed, ready = self._fetch_async(info["packed"])
         if "tiers" in info:
-            self.tier_steps += info["tiers"]
+            self.tier_steps += _first(info["tiers"])
         if xw_key is not None and "sig_table" in info:
             if carry_map is None:
                 # nothing replayed (cold cache, fresh upload, reuse off):
@@ -1036,6 +1152,8 @@ class TorchBackend:
         if fl.ready is not None:
             fl.ready.synchronize()
         packed = fl.host_packed.numpy()
+        if isinstance(fl.ready, _CardEvents):
+            fl.ready.check(self._ctx)
         fl.staged = []  # every copy of this wave is done
         t1 = time.perf_counter()
         # the result copy enqueued at launch has landed: count its bytes
@@ -1233,6 +1351,8 @@ class TorchBackend:
         cfg = self.kernel_config(planes, f)
         t4 = time.perf_counter()
         packed_f, layout = features_from_reference(stack_features([f]), self.device)
+        if self.cards > 1:
+            packed_f = self._ctx.put_replicated(packed_f)
         self.telemetry.account_upload("features", packed_f.nbytes)
         t5 = time.perf_counter()
         with self.telemetry.compile_span(
@@ -1241,15 +1361,22 @@ class TorchBackend:
             packed = self._ctx.fit_and_score(cfg, dev_planes, dev_tables, packed_f,
                                              layout, self._logtab)
         t6 = time.perf_counter()
-        host = self.telemetry.accounted_fetch("scores", packed[0])
+        n_fails = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
+        if self.cards > 1:
+            # each card's outputs over its range, joined on the host
+            out = fit_outputs(packed, 0, n_fails, planes.r)
+            self.telemetry.account_fetch("scores", sum(int(t[0].numel()) for t in packed.parts))
+            self._ctx_check()
+        else:
+            host = self.telemetry.accounted_fetch("scores", packed[0])
         self._staging = []
         t7 = time.perf_counter()
         for k, a, b in (("sync", t0, t1), ("features", t1, t2), ("upload", t2, t3),
                         ("config", t3, t4), ("upload", t4, t5), ("launch", t5, t6),
                         ("wait", t6, t7)):
             self.run_phase_s[k] += b - a
-        n_fails = len(FILTER_NAMES) + 2 * cfg.max_constraints + 3
-        out = unpack_fit_outputs(host, planes.nb, n_fails, planes.r)
+        if self.cards == 1:
+            out = unpack_fit_outputs(host, planes.nb, n_fails, planes.r)
         return planes, {k: out[k].numpy() for k in RUN_OUTPUTS}
 
     # -- the FitError diagnosis ----------------------------------------------

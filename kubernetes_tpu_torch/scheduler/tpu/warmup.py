@@ -54,6 +54,13 @@ A copy of the reference package's module
   failed library load or a launch error raises out of `start()`: a kernel
   that fails must not stay hidden until the first real wave.
 
+Over several cards (a MeshContext whose mesh spans them) the warm
+launches are the card level's: K1 and K6 on every card through the real
+launch/collect path, K4 through `run`, K3 on every card's range of rows
+under the key the backend's routed scatter opens; gang shapes are skipped
+(recorded in `summary["skipped"]`), since a mesh backend sends every gang
+to the host cycle.
+
 Warmup never touches host planes or the live rng (it draws from its own
 throwaway stream), scatters device rows onto themselves (the mirror stays
 byte-identical; at the grown selector bucket it scatters into its own
@@ -71,6 +78,7 @@ import time
 import numpy as np
 import torch
 
+from ...ops.cards import CardTensor
 from ...ops.kernels import OutOfSlice, scatter_rows
 from ...ops.planes import SLICE_PLANES
 from ...ops.vocab import next_pow2
@@ -236,7 +244,9 @@ def _grown_selector_bucket(backend, snapshot):
     view = copy.copy(planes)
     view.sel_counts = np.pad(planes.sel_counts, ((0, 0), (0, s_grown - s)))
     view.bucket_sizes = planes.bucket_sizes[:5] + (s_grown,) + planes.bucket_sizes[6:]
-    own = dict(dev, sel_counts=torch.nn.functional.pad(dev["sel_counts"], (0, s_grown - s)))
+    pad = lambda t: torch.nn.functional.pad(t, (0, s_grown - s))  # noqa: E731
+    sel = dev["sel_counts"]
+    own = dict(dev, sel_counts=sel.map(pad) if isinstance(sel, CardTensor) else pad(sel))
     backend.invalidate_carry()
     saved = (backend._device_planes, backend._device_buckets, backend._pending_dirty)
     backend._device_planes, backend._device_buckets = own, view.bucket_sizes
@@ -265,6 +275,21 @@ def _warm_scatter(backend, snapshot, wave_size: int, summary: dict) -> None:
     # binds dirty up to ~wave_size rows between uploads; one extra bucket
     # covers a wave of stragglers accumulating on top
     for size in _pow2_buckets(2 * next_pow2(max(wave_size, 1))):
+        if backend.cards > 1:
+            # K3 on every card, each on its own range's rows, under the key
+            # TorchBackend._scatter_cards opens
+            for c in range(backend.cards):
+                part = {k: dev[k].parts[c] for k in SLICE_PLANES}
+                nbc = part["alloc"].shape[0]
+                idx_np = (np.arange(size) % max(1, min(planes.n, nbc))).astype(np.int32)
+                idx = torch.from_numpy(idx_np).to(part["alloc"].device)
+                rows = {k: part[k].index_select(0, idx.long()) for k in SLICE_PLANES}
+                with tel.compile_span("scatter_rows",
+                                      ("scatter", planes.bucket_sizes, size, backend.cards),
+                                      label=f"rows{size}/x{backend.cards}"):
+                    scatter_rows(part, rows, idx)
+            summary["scatter"].append(size)
+            continue
         idx_np = (np.arange(size) % planes.n).astype(np.int32)
         idx = torch.from_numpy(idx_np).to(backend.device)
         rows = {k: dev[k].index_select(0, idx.long()) for k in SLICE_PLANES}
@@ -282,6 +307,10 @@ def _warm_gang(backend, snapshot, shape, rng, summary: dict, template=None) -> N
     from ..cache.snapshot import Placement
 
     n_pods, n_constrained, has_fallback = shape
+    if backend.cards > 1:
+        # a mesh backend sends every gang to the host cycle (gangplanner)
+        summary["skipped"].append(f"gang{shape}: the host cycle on a mesh")
+        return
     names = [ni.name for ni in snapshot.list_nodes()]
     placements = [Placement(f"warm-d{i}", names) for i in range(n_constrained)]
     if has_fallback:

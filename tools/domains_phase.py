@@ -2,7 +2,8 @@
 domains, on the card), after building the kernels.
 
     python3 tools/domains_phase.py                # phase 30 as chip_smoke runs it
-    python3 tools/domains_phase.py --full-depth   # (c) timed, gangs of 128
+    python3 tools/domains_phase.py --full-depth   # (c) timed at 512, gangs of 128,
+                                                  # (d) 5000 and (e) 1024 pods
 
 A short call after a change to the domain tables: it builds every library
 (`cuda.build_all`, printing ptxas's registers, spills and shared memory of
@@ -41,13 +42,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full-depth", action="store_true",
                     help="time (c)'s K2 and K5, which chip_smoke leaves untimed, "
-                         "on gangs of 128 (RACK_BIG_GANG, 32 in chip_smoke)")
+                         "on gangs of 128 (RACK_BIG_GANG, 32 in chip_smoke), with (c)'s "
+                         "waves of 512, (d)'s 5000 and (e)'s 1024 pods (128, 2500 and "
+                         "512 in chip_smoke)")
     own = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("this tool needs a CUDA card")
     chip_smoke.RACK_TIME_C = own.full_depth
     if own.full_depth:
         chip_smoke.RACK_BIG_GANG = 128
+        chip_smoke.RACK_LOOP_PODS = 5000
+        chip_smoke.RACK_CPU_PODS = 1024
+        chip_smoke.RACK_C_WAVE = 512
     args = chip_smoke.build_parser().parse_args([])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
