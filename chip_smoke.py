@@ -390,8 +390,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    runs them all) and SCALE_BIG_GANGS gangs placed whole through
    try_gang_wave; (a) scheduler_perf
    SchedulingBasic's workload template at initNodes SCALE_NODES (bucket
-   65536) with its 1000 initial and 10000 measured pods through the
-   port's harness (WorkloadExecutor, waves of --wave), warmed once its
+   65536) with its 1000 initial and SCALE_PODS measured pods (cut in
+   depth from 10000 to 2500) through the port's harness (WorkloadExecutor, waves of --wave), warmed once its
    nodes exist, on LocalContext and over MeshContext(8) in the same call:
    every pod bound once, compile_count_since_warm() 0, K2's cluster route
    (its block count from the first-use labels), bindings and rng equal,
@@ -482,6 +482,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    launched at the card level. `python3 tools/multicard_phase.py`, on a
    host with four cards, runs the phase at full depth on four cards,
    with the reference's 5000-100000-node sweep (MC_SWEEP, empty here);
+33. the API server (kubernetes_tpu_torch/apiserver/): (a) the port's
+   APIServer(store, admission=default_admission_chain(store)) on
+   127.0.0.1 and the Scheduler on that Store on the card with waves of
+   256 (bootstrap's Profile(backend="tpu", wave_size=256)); a
+   PriorityClass, SchedulingBasic's 5000 nodes and API_PODS of its pods
+   (cut in depth from 11000 to 256; every fifth names the PriorityClass, which
+   the priority admission resolves) created through RESTStore, every
+   other object as a CBOR body; every pod bound, read back through
+   RESTStore.list, a RESTWatch from revision 0 sees one binding MODIFIED
+   per pod, the admitted priorities on the pods, bindings and the final
+   rng state equal to the same Scheduler fed the same objects in the
+   same order on a plain in-process Store in this call, K1 and K2
+   launched; `kubectl get pods` and `kubectl apply -f` of a Pod manifest
+   through the port's cmd/kubectl.main, the applied pod then bound;
+   creates/s through the API and pods/s from the first pod's create to
+   the last bind printed; (b) Scheduler(RESTStore(url),
+   Profile(wave_size=0)) on the card, informers list/watching over HTTP:
+   API_REST_PODS (128) more pods through the per-pod cycle (K4
+   + K3), each bound by a PUT of the pod, bindings and rng equal to the
+   per-pod Scheduler on an in-process Store holding the same objects, K4
+   once per pod. The native CBOR transcoder's build is reported.
+   `python3 tools/apiserver_phase.py --full-depth` runs (a) with
+   SchedulingBasic's 11000 pods;
 then print the card, the timings, the seconds of every phase (1 the
 build), the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
@@ -1463,9 +1486,12 @@ def main() -> None:
               f"{r['bound_ms']:.5f} ms by {r['bound_by']}, card-exchange floor "
               f"{r['floor_ms']:.4f} ms, one card {r['one_ms']:.4f} ms), {r['launches']} "
               "launches on phase 32's path")
+    # 33. the API server in front of the Scheduler
+    with watchdog("phase 33 (the API server)", args.phase_timeout):
+        timed("33", apiserver_phase, args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("phase seconds (1 is the build): " + json.dumps(
-        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 33))}))
+        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 34))}))
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -5689,11 +5715,11 @@ def equal_outputs(label, got, want):
 # needed the time) for chip_smoke's
 # time limit, as (d)'s SCALE_BURST, (b)'s SCALE_BURSTS (4 to 3: two warm
 # bursts still show the uploads flat) and (a)'s measured SCALE_PODS (10000
-# to 5000, paying for (e)'s passes) are; `python3 tools/scale_phase.py
-# --full-depth` runs them uncut.
+# to 5000, paying for (e)'s passes, then to 2500 for phase 33) are;
+# `python3 tools/scale_phase.py --full-depth` runs them uncut.
 SCALE_NODES = 50000
 SCALE_INIT_PODS = 1000
-SCALE_PODS = 5000
+SCALE_PODS = 2500
 SCALE_SWEEP = (25000, 50000, 100000)
 SCALE_BURSTS = 3
 SCALE_CHURN = 64
@@ -8167,6 +8193,279 @@ def multicard_phase(args, smi, n_ranks=2, loop_init=None, loop_pods=None, sweep=
     print(f"phase 32: {time.perf_counter() - t_all:.1f} s ({how}) on {smi}")
     return {"k6": k6, "k4": k4, "k7": k7, "scheduler_pods_s": pods_s, "sweep": sweep_rows,
             "single_pod_s": single_s, "how": how, "floor_1000_ms": floor_ms}
+
+
+# --------------------------------------------------------------------------
+# 33: the API server in front of the Scheduler
+# --------------------------------------------------------------------------
+
+# (a)'s pods, cut in depth from SchedulingBasic's 11000 to one wave for the
+# run's limit (each create is an HTTP round trip: ~205-230 creates/s on the
+# card's host, so the 5000 nodes alone take ~20 s; `tools/apiserver_phase.py
+# --full-depth` runs 11000), and (b)'s (each pod ~4 round trips: its GET and
+# PUT and its event's)
+API_PODS = 256
+API_REST_PODS = 128
+API_WAVE = 256  # bootstrap's Profile(backend="tpu", wave_size=256)
+API_PRIORITY = 1000
+
+
+def api_pod(i):
+    """SchedulingBasic's pod i; every fifth names the PriorityClass."""
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_pod
+
+    p = scheduling_basic_pod(i)
+    if i % 5 == 0:
+        p.spec.priority_class_name = "high"
+    return p
+
+
+def api_objects(args, n_pods):
+    """(the PriorityClass and the nodes, the pods) in creation order."""
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import PriorityClass
+    from kubernetes_tpu_torch.testing.wrappers import scheduling_basic_node
+
+    head = [PriorityClass(meta=ObjectMeta(name="high", namespace=""), value=API_PRIORITY)]
+    head += [scheduling_basic_node(i, args.zones) for i in range(args.nodes)]
+    return head, [api_pod(i) for i in range(n_pods)]
+
+
+def api_create(clients, objs):
+    """Create through the API, alternating JSON and CBOR bodies; returns
+    the seconds it took."""
+    t0 = time.perf_counter()
+    for i, obj in enumerate(objs):
+        clients[i % 2].create(obj)
+    return time.perf_counter() - t0
+
+
+def api_admitted(pod):
+    """What the priority admission resolves on a pod (the twin's input)."""
+    if pod.spec.priority_class_name == "high":
+        pod.spec.priority = API_PRIORITY
+    return pod
+
+
+def api_twin(args, head, pods, wave, bound=()):
+    """The same Scheduler on a plain in-process Store fed the same objects
+    in the same order (with `bound`, pods already on their nodes before
+    the scheduler starts); returns (bindings, rng state, launches)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+
+    store = Store()
+    for obj in head:
+        store.create(obj)
+    for pod in bound:
+        store.create(pod)
+    s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=wave)],
+                  seed=args.seed, clock=StrictClock(), device="cuda")
+    s.start()
+    for pod in pods:
+        store.create(api_admitted(pod))
+    kernels.reset_launches()
+    s.schedule_pending()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_loop("phase 33 (the in-process twin)", s)
+    names = {p.meta.name for p in pods}
+    got = {p.meta.key: p.spec.node_name for p in store.pods() if p.meta.name in names}
+    return got, s.algorithms["default-scheduler"].rng.getstate(), launches
+
+
+def api_watch_binds(client, n_pods, timeout=60.0):
+    """A RESTWatch from revision 0: the binding MODIFIED events per pod
+    (a MODIFIED event whose pod has a node, after its ADDED)."""
+    from kubernetes_tpu_torch.store.store import ADDED, MODIFIED
+
+    w = client.watch("Pod", from_revision=0)
+    added, binds = 0, {}
+    give_up = time.monotonic() + timeout
+    try:
+        while (added < n_pods or sum(binds.values()) < n_pods) \
+                and time.monotonic() < give_up:
+            ev = w.next(timeout=1.0)
+            if ev is None:
+                continue
+            if ev.type == ADDED:
+                added += 1
+            elif ev.type == MODIFIED and ev.obj.spec.node_name:
+                binds[ev.obj.meta.key] = binds.get(ev.obj.meta.key, 0) + 1
+    finally:
+        w.stop()
+    return added, binds
+
+
+def api_kubectl(url, tmpdir):
+    """`kubectl get pods` and `kubectl apply -f` of a Pod manifest through
+    the port's cmd/kubectl.main; returns the applied pod's key."""
+    import contextlib
+    import io
+
+    from kubernetes_tpu_torch.api.serialization import encode
+    from kubernetes_tpu_torch.cmd.kubectl import main as kubectl
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = kubectl(["-s", url, "get", "pods"])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or len(lines) < 2 or "NAME" not in lines[0]:
+        fail(f"phase 33: kubectl get pods gave rc {rc}, {len(lines)} lines")
+    manifest = os.path.join(tmpdir, "pod.json")
+    pod = api_pod(10**7)
+    pod.meta.name = "applied-by-kubectl"
+    with open(manifest, "w") as f:
+        json.dump(encode(pod), f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = kubectl(["-s", url, "apply", "-f", manifest])
+    if rc != 0 or "applied-by-kubectl" not in out.getvalue():
+        fail(f"phase 33: kubectl apply -f gave rc {rc}: {out.getvalue().strip()}")
+    print(f"33 (a) kubectl: get pods listed {len(lines) - 1} pods; apply -f: "
+          f"{out.getvalue().strip()}")
+    return f"{pod.meta.namespace}/{pod.meta.name}"
+
+
+def apiserver_phase(args, smi, n_pods=None):
+    """33. The API server: (a) the Scheduler behind it, (b) the Scheduler
+    over the REST client. Returns the printed rates."""
+    import tempfile
+
+    from kubernetes_tpu_torch.apiserver import APIServer
+    from kubernetes_tpu_torch.apiserver.admission import default_admission_chain
+    from kubernetes_tpu_torch.client.rest import RESTStore
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+    from kubernetes_tpu_torch.utils import nativelib
+
+    n_pods = API_PODS if n_pods is None else n_pods
+    n_rest = API_REST_PODS
+    t_all = time.perf_counter()
+    parts, mark = {}, [t_all]
+
+    def lap(name):
+        now = time.perf_counter()
+        parts[name] = round(now - mark[0], 2)
+        mark[0] = now
+
+    native = nativelib.load_native("libcbor_core.so")
+    print("33: the native CBOR transcoder " + (
+        "built from native/cbor_core.cpp" if native is not None else
+        f"did not build, the pure codec serves: {nativelib.build_errors}"))
+    store = Store()
+    server = APIServer(store, admission=default_admission_chain(store))
+    server.serve(0)
+    try:
+        url = server.url
+        clients = (RESTStore(url), RESTStore(url, wire_format="cbor"))
+        head, pods = api_objects(args, n_pods)
+        t_head = api_create(clients, head)
+        lap("nodes through the API")
+        s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=API_WAVE)],
+                      seed=args.seed, clock=StrictClock(), device="cuda")
+        s.start()
+        lap("(a) start()")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        t_pods = api_create(clients, pods)
+        n = s.schedule_pending()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lap("(a) pods created and bound")
+        launches = dict(kernels.LAUNCHES)
+        check_loop("phase 33 (a)", s)
+        listed, _ = clients[0].list("Pod")
+        got = {p.meta.key: p.spec.node_name for p in listed}
+        if n != n_pods or len(got) != n_pods or not all(got.values()):
+            fail(f"phase 33 (a): {n} scheduled, {sum(1 for v in got.values() if not v)} "
+                 f"of {len(got)} unbound")
+        prios = {p.meta.key: p.spec.priority for p in listed}
+        want_p = {p.meta.key: API_PRIORITY if p.spec.priority_class_name else 0 for p in pods}
+        if prios != want_p:
+            fail("phase 33 (a): the admitted priorities did not reach the pods")
+        if launches["static_parts"] <= 0 or launches["assign_scan"] <= 0:
+            fail(f"phase 33 (a): launches {launches}: K1 and K2 must launch behind the server")
+        rng = s.algorithms["default-scheduler"].rng.getstate()
+        lap("(a) list and checks")
+        added, binds = api_watch_binds(clients[1], n_pods)
+        lap("(a) watch")
+        if added != n_pods or binds != {k: 1 for k in got}:
+            fail(f"phase 33 (a): the watch from revision 0 saw {added} ADDED and "
+                 f"{sum(binds.values())} binding MODIFIED events for {n_pods} pods "
+                 f"({sum(1 for v in binds.values() if v != 1)} pods not exactly once)")
+        head_t, pods_t = api_objects(args, n_pods)
+        twin, twin_rng, twin_l = api_twin(args, head_t, pods_t, API_WAVE)
+        lap("(a) twin")
+        if twin != got:
+            diff = [k for k, v in got.items() if twin.get(k) != v]
+            fail(f"phase 33 (a): bindings differ from the in-process twin's on "
+                 f"{len(diff)} pods (first {diff[:3]})")
+        if twin_rng != rng:
+            fail("phase 33 (a): the final rng state differs from the in-process twin's")
+        creates = (len(head) + n_pods) / (t_head + t_pods)
+        print(f"33 (a) behind the server: {len(head)} objects ({args.nodes} nodes) and "
+              f"{n_pods} SchedulingBasic pods created through RESTStore (JSON and CBOR "
+              f"bodies) at {creates:.1f} creates/s (pods {n_pods / t_pods:.1f}/s); every pod "
+              f"bound in waves of {API_WAVE}, {n_pods / wall:.1f} pods/s from the first "
+              f"create to the last bind (scheduling alone {n_pods / (wall - t_pods):.1f} "
+              f"pods/s); the watch from revision 0 saw one binding per pod; bindings and rng "
+              f"equal to the in-process twin's (launches {twin_l}); launches {launches} on "
+              f"{smi}")
+        with tempfile.TemporaryDirectory() as tmpdir:
+            key = api_kubectl(url, tmpdir)
+        s.schedule_pending()
+        applied = clients[0].get("Pod", key)
+        if not applied.spec.node_name:
+            fail("phase 33 (a): the pod kubectl applied was not bound")
+        s.informers.stop_all()
+        lap("(a) kubectl")
+        # (b) the Scheduler over the REST client, per pod
+        rest_pods = [api_pod(2 * 10**6 + i) for i in range(n_rest)]
+        bound = clients[0].list("Pod")[0]
+        api_create(clients, rest_pods)
+        lap("(b) pods through the API")
+        t0 = time.perf_counter()
+        rs = Scheduler(RESTStore(url), profiles=[Profile(backend="tpu", wave_size=0)],
+                       seed=args.seed, clock=StrictClock(), device="cuda")
+        rs.start()
+        t_start = time.perf_counter() - t0
+        lap("(b) start(): the informers' list")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = rs.schedule_pending()
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        lap("(b) per-pod cycles")
+        launches_b = dict(kernels.LAUNCHES)
+        check_loop("phase 33 (b)", rs)
+        rng_b = rs.algorithms["default-scheduler"].rng.getstate()
+        rs.informers.stop_all()
+        names = {p.meta.name for p in rest_pods}
+        got_b = {p.meta.key: p.spec.node_name for p in clients[0].list("Pod")[0]
+                 if p.meta.name in names}
+        if m != n_rest or not all(got_b.values()):
+            fail(f"phase 33 (b): {m} scheduled, {sum(1 for v in got_b.values() if not v)} "
+                 f"of {n_rest} unbound")
+        if launches_b["fit_and_score"] != n_rest or launches_b["scatter_rows"] <= 0:
+            fail(f"phase 33 (b): launches {launches_b}: K4 must launch once per pod, K3 too")
+        head_t, _ = api_objects(args, 0)
+        rest_t = [api_pod(2 * 10**6 + i) for i in range(n_rest)]
+        twin_b, twin_rng_b, _ = api_twin(args, head_t, rest_t, 0, bound=bound)
+        lap("(b) twin")
+        if twin_b != got_b or twin_rng_b != rng_b:
+            fail(f"phase 33 (b): bindings ({sum(1 for k, v in got_b.items() if twin_b.get(k) != v)}"
+                 f" differ) or rng differ from the in-process twin's")
+        print(f"33 (b) over the REST client: {n_rest} pods through the per-pod cycle (K4 + K3), "
+              f"each bound by a PUT of the pod, {n_rest / wall_b:.1f} pods/s (informers' "
+              f"first list over HTTP {t_start:.2f} s); bindings and rng equal to the "
+              f"in-process twin's; launches {launches_b} on {smi}")
+    finally:
+        server.shutdown()
+    print(f"phase 33: {time.perf_counter() - t_all:.1f} s; by part (s): {json.dumps(parts)}")
+    return {"creates_s": creates, "pods_s": n_pods / wall, "rest_pods_s": n_rest / wall_b}
 
 
 if __name__ == "__main__":

@@ -2,6 +2,8 @@
 
 Reference: staging/src/k8s.io/apimachinery/pkg/labels (Selector, Requirement)
 and meta/v1 LabelSelector. Operators: In, NotIn, Exists, DoesNotExist, Gt, Lt.
+
+A copy of the reference package's module (kubernetes_tpu/api/labels.py).
 """
 
 from __future__ import annotations
@@ -86,3 +88,20 @@ class LabelSelector:
         for r in self.match_expressions:
             parts.append(f"{r.key} {r.operator} ({','.join(sorted(r.values))})")
         return ",".join(parts)
+
+
+def labels_subset(selector: Mapping[str, str],
+                  labels: Mapping[str, str]) -> bool:
+    """match_labels semantics: every selector pair present in labels
+    (shared by the controllers that select pods by a plain label dict)."""
+    return all(labels.get(k) == v for k, v in selector.items())
+
+
+def matches_selector(sel: LabelSelector | None, labels: Mapping[str, str]) -> bool:
+    if sel is None:
+        return False
+    return sel.matches(labels)
+
+
+def format_labels(labels: Mapping[str, str]) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted(labels.items()))

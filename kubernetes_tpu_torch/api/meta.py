@@ -1,13 +1,15 @@
-"""Object metadata — the subset of metav1.ObjectMeta the scheduler and the
-store read.
+"""Object metadata — the subset of metav1.ObjectMeta the framework uses.
 
 Reference: staging/src/k8s.io/apimachinery/pkg/apis/meta/v1/types.go.
+
+A copy of the reference package's module (kubernetes_tpu/api/meta.py).
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field, replace
+from typing import Any
 
 _uid_counter = itertools.count(1)
 
@@ -29,15 +31,17 @@ class ObjectMeta:
     name: str = ""
     namespace: str = "default"
     uid: str = ""
+    resource_version: int = 0
+    generation: int = 0
     labels: dict[str, str] = field(default_factory=dict)
     annotations: dict[str, str] = field(default_factory=dict)
-    deletion_timestamp: float | None = None
-    # stamped by the store on every write
-    resource_version: int = 0
     creation_timestamp: float = 0.0
-    # who owns the object: VolumeBinding reads a generic ephemeral claim's
-    # owner pod (ephemeral.VolumeIsForPod)
+    deletion_timestamp: float | None = None
     owner_references: list[OwnerReference] = field(default_factory=list)
+    # server-side apply field ownership (metadata.managedFields): entries
+    # {"manager", "operation", "fields": [dotted paths]} maintained by
+    # apiserver/apply.py
+    managed_fields: list[dict] = field(default_factory=list)
 
     @property
     def key(self) -> str:
@@ -45,6 +49,15 @@ class ObjectMeta:
         return f"{self.namespace}/{self.name}" if self.namespace else self.name
 
     def copy(self) -> "ObjectMeta":
-        return replace(self, labels=dict(self.labels),
-                       annotations=dict(self.annotations),
-                       owner_references=list(self.owner_references))
+        return replace(
+            self,
+            labels=dict(self.labels),
+            annotations=dict(self.annotations),
+            owner_references=list(self.owner_references),
+            managed_fields=[dict(e) for e in self.managed_fields],
+        )
+
+
+def obj_key(obj: Any) -> str:
+    """namespace/name key of any API object with .meta."""
+    return obj.meta.key

@@ -1,10 +1,12 @@
-"""Core API object types: the Pod, Node, PodGroup and
-PodDisruptionBudget subset the port schedules.
+"""Core API object types: Pod, Node, PodGroup, Binding and their sub-structs.
 
 Reference: staging/src/k8s.io/api/core/v1/types.go (Pod at :4604, Node, Taint,
-Toleration, Affinity, TopologySpreadConstraint). Only the scheduling-relevant
-subset is modeled; everything is a plain dataclass, treated as immutable
-once written to the store.
+Toleration, Affinity, TopologySpreadConstraint) and
+staging/src/k8s.io/api/scheduling/v1alpha2/types.go (PodGroup :191).
+Only the scheduling-relevant subset is modeled; everything is a plain
+dataclass, treated as immutable once written to the store.
+
+A copy of the reference package's module (kubernetes_tpu/api/types.py).
 """
 
 from __future__ import annotations
@@ -16,12 +18,22 @@ from typing import Mapping
 from .labels import LabelSelector, Requirement
 from .meta import ObjectMeta
 
+# --- scheduling constants -------------------------------------------------
+
 MAX_NODE_SCORE = 100  # staging/.../framework/interface.go MaxNodeScore
+MIN_NODE_SCORE = 0
+MAX_TOTAL_SCORE = (1 << 63) - 1
 
 # Taint effects
 NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
+
+# Pod phases
+PENDING = "Pending"
+RUNNING = "Running"
+SUCCEEDED = "Succeeded"
+FAILED = "Failed"
 
 # TopologySpread whenUnsatisfiable
 DO_NOT_SCHEDULE = "DoNotSchedule"
@@ -29,19 +41,15 @@ SCHEDULE_ANYWAY = "ScheduleAnyway"
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 
-# Pod phases (the pod latency ledger's status_ack edge: Running; the
-# hollow kubelet's runs end in Succeeded)
-PENDING = "Pending"
-RUNNING = "Running"
-SUCCEEDED = "Succeeded"
-FAILED = "Failed"
-
 
 # --- node selectors / affinity -------------------------------------------
 
 
 @dataclass(frozen=True)
 class NodeSelectorRequirement:
+    """Same operators as labels.Requirement; kept distinct because node-selector
+    requirements support Gt/Lt and match node *fields* in the reference."""
+
     key: str
     operator: str
     values: tuple[str, ...] = ()
@@ -63,7 +71,8 @@ class NodeSelectorTerm:
 
 @dataclass(frozen=True)
 class NodeSelector:
-    """OR of terms (each term an AND). Empty term list matches nothing."""
+    """OR of terms (each term an AND). Empty term list matches nothing
+    (reference: nodeaffinity.NewNodeSelector)."""
 
     terms: tuple[NodeSelectorTerm, ...] = ()
 
@@ -131,6 +140,7 @@ class Toleration:
     operator: str = "Equal"  # Equal | Exists
     value: str = ""
     effect: str = ""  # empty -> all effects
+    toleration_seconds: int | None = None
 
     def tolerates(self, taint: Taint) -> bool:
         """Reference: component-helpers/scheduling/corev1 Toleration.ToleratesTaint."""
@@ -166,14 +176,49 @@ class ContainerPort:
     host_ip: str = ""
 
 
+@dataclass(frozen=True)
+class KeyRef:
+    """configMapKeyRef / secretKeyRef: one key of a named config object."""
+
+    name: str
+    key: str
+    optional: bool = False
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    """core/v1 EnvVar: literal value, or a reference resolved by the
+    kubelet at container start (missing non-optional refs block the start
+    with CreateContainerConfigError)."""
+
+    name: str
+    value: str = ""
+    config_map_key_ref: KeyRef | None = None
+    secret_key_ref: KeyRef | None = None
+
+
+@dataclass(frozen=True)
+class Probe:
+    """core/v1 Probe subset: cadence + thresholds. The probe ACTION
+    (exec/http/tcp) is the node agent's prober hook — spec carries only
+    the policy, as the scheduler/controllers never look inside actions."""
+
+    period_s: float = 10.0
+    initial_delay_s: float = 0.0
+    failure_threshold: int = 3
+    success_threshold: int = 1
+
+
 @dataclass
 class Container:
     name: str = "c"
     image: str = ""
     requests: dict[str, object] = field(default_factory=dict)
-    ports: tuple[ContainerPort, ...] = ()
-    # read by an HTTP extender's managed-resources interest test
     limits: dict[str, object] = field(default_factory=dict)
+    ports: tuple[ContainerPort, ...] = ()
+    liveness_probe: Probe | None = None
+    readiness_probe: Probe | None = None
+    env: tuple[EnvVar, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -200,11 +245,20 @@ class PodSpec:
     tolerations: tuple[Toleration, ...] = ()
     topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
     priority: int = 0
+    priority_class_name: str = ""
     preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     scheduling_gates: tuple[str, ...] = ()
     scheduling_group: SchedulingGroup | None = None
     resource_claims: tuple = ()  # tuple[dra.PodResourceClaim, ...]
-    restart_policy: str = "Always"  # the hollow kubelet's run-to-completion
+    host_network: bool = False
+    termination_grace_period_seconds: int = 30
+    restart_policy: str = "Always"
+    # kubelet fails the pod this many seconds after it starts Running
+    # (kubelet_pods.go activeDeadlineHandler); None = no deadline
+    active_deadline_seconds: int | None = None
+    # in-cluster identity (core/v1 serviceAccountName); defaulted to
+    # "default" by the serviceaccount admission plugin
+    service_account_name: str = ""
 
 
 @dataclass
@@ -217,16 +271,11 @@ class PodCondition:
 
 @dataclass
 class PodStatus:
-    """The part of core/v1 PodStatus the scheduler reads and writes: the
-    node a preemption nominated for the pod, the PodScheduled condition of
-    a pod that fits nowhere, and the phase a kubelet reports (Running
-    closes the pod latency ledger's status_ack edge)."""
-
-    nominated_node_name: str = ""
-    conditions: list[PodCondition] = field(default_factory=list)
     phase: str = PENDING
-    start_time: float | None = None  # set by the hollow kubelet
-    pod_ip: str = ""  # set by the hollow kubelet once the sandbox has a network
+    conditions: list[PodCondition] = field(default_factory=list)
+    nominated_node_name: str = ""
+    start_time: float | None = None
+    pod_ip: str = ""  # set by the kubelet once the sandbox has a network
 
 
 @dataclass
@@ -259,6 +308,7 @@ class ContainerImage:
 class NodeSpec:
     unschedulable: bool = False
     taints: tuple[Taint, ...] = ()
+    pod_cidr: str = ""
 
 
 @dataclass
@@ -271,12 +321,12 @@ class NodeCondition:
 class NodeStatus:
     capacity: dict[str, object] = field(default_factory=dict)
     allocatable: dict[str, object] = field(default_factory=dict)
-    # the node agent's Ready condition, which the lifecycle controller
-    # turns Unknown when its lease goes stale
     conditions: list[NodeCondition] = field(default_factory=list)
     images: list[ContainerImage] = field(default_factory=list)
-    # node features the node declares (NodeDeclaredFeatures)
     declared_features: tuple[str, ...] = ()
+    # daemonEndpoints.kubeletEndpoint.Port: where this node's kubelet
+    # serves /containerLogs etc. (the apiserver's log proxy dials it)
+    daemon_endpoint_port: int = 0
 
 
 @dataclass
@@ -330,7 +380,22 @@ class PodGroup:
     kind = "PodGroup"
 
 
-# --- disruption budgets -----------------------------------------------------
+# --- disruption budgets ---------------------------------------------------
+
+
+@dataclass
+class PriorityClass:
+    """scheduling.k8s.io/v1 PriorityClass: a named priority value resolved
+    onto pods at admission (the reference's priority admission plugin,
+    plugin/pkg/admission/priority). Cluster-scoped."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+    global_default: bool = False
+    preemption_policy: str = "PreemptLowerPriority"
+    description: str = ""
+
+    kind = "PriorityClass"
 
 
 @dataclass
@@ -338,8 +403,9 @@ class PodDisruptionBudgetSpec:
     """policy/v1 PodDisruptionBudgetSpec (scheduling-relevant subset).
 
     Exactly one of min_available / max_unavailable is meaningful; both are
-    absolute counts (the reference also accepts percentages, which the
-    disruption controller resolves before the scheduler reads them)."""
+    absolute counts (the reference also accepts percentages — resolved by
+    the disruption controller before the scheduler ever reads them, so the
+    scheduler-side contract is identical)."""
 
     selector: LabelSelector | None = None  # None matches nothing
     min_available: int | None = None
@@ -348,16 +414,16 @@ class PodDisruptionBudgetSpec:
 
 @dataclass
 class PodDisruptionBudgetStatus:
-    """policy/v1 PodDisruptionBudgetStatus: the scheduler reads only
-    disruptions_allowed and disrupted_pods (default_preemption.go:380
+    """policy/v1 PodDisruptionBudgetStatus — the scheduler reads ONLY
+    disruptions_allowed + disrupted_pods (default_preemption.go:380
     filterPodsWithPDBViolation)."""
 
     disruptions_allowed: int = 0
     current_healthy: int = 0
     desired_healthy: int = 0
     expected_pods: int = 0
-    # pod name -> eviction time; a disruption already recorded does not
-    # count against the budget again
+    # pod name -> eviction time; already-processed disruptions don't count
+    # against the budget again
     disrupted_pods: dict = field(default_factory=dict)
 
 
@@ -372,13 +438,28 @@ class PodDisruptionBudget:
     kind = "PodDisruptionBudget"
 
 
+# --- binding --------------------------------------------------------------
+
+
+@dataclass
+class Binding:
+    """POST pods/<name>/binding payload (reference: core/v1 Binding)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    target_node: str = ""
+
+    kind = "Binding"
+
+
 # --- fast deepcopy hooks --------------------------------------------------
 #
-# The store isolates what it holds by deepcopying objects on every write
-# (store/store.py); generic copy.deepcopy recurses through every field of a
-# Pod. These hooks keep the copy semantics while sharing the immutable
-# fragments: every frozen dataclass here holds only str/int/tuples of
-# frozen values, so returning self is a correct deepcopy.
+# The store's etcd-style isolation deepcopies objects on every write and
+# event emit (store/store.py); generic copy.deepcopy recurses ~100 frames
+# per Pod and dominated the full-pipeline profile. These hooks keep the
+# exact copy semantics while sharing the immutable fragments: every
+# frozen dataclass here holds only str/int/tuples of frozen values, so
+# returning self is a correct deepcopy (the client-go convention — spec
+# fragments are never mutated in place, new values replace them).
 
 
 def _identity_deepcopy(self, memo):
@@ -391,16 +472,18 @@ for _frozen in (
     WeightedPodAffinityTerm, PodAffinity, PodAntiAffinity, Affinity,
     Taint, Toleration, TopologySpreadConstraint, ContainerPort,
     SchedulingGroup, ContainerImage, GangPolicy, TopologyConstraint,
-    SchedulingConstraints,
+    SchedulingConstraints, Probe, EnvVar, KeyRef,
 ):
     _frozen.__deepcopy__ = _identity_deepcopy  # type: ignore[attr-defined]
 
 
 def _container_deepcopy(self: Container, memo) -> Container:
-    # keep in sync with Container's fields: a dropped field would silently
-    # truncate every object that passes through the store
-    return Container(self.name, self.image, dict(self.requests), self.ports,
-                     dict(self.limits))
+    # probes/env are frozen → shareable; keep this hook in sync with the
+    # Container field list (a dropped field silently truncates every
+    # object that passes through the store)
+    return Container(self.name, self.image, dict(self.requests),
+                     dict(self.limits), self.ports,
+                     self.liveness_probe, self.readiness_probe, self.env)
 
 
 def _podspec_deepcopy(self: PodSpec, memo) -> PodSpec:
@@ -428,6 +511,7 @@ def _nodestatus_deepcopy(self: NodeStatus, memo) -> NodeStatus:
     s = copy_mod.copy(self)
     s.capacity = dict(self.capacity)
     s.allocatable = dict(self.allocatable)
+    s.conditions = [copy_mod.copy(c) for c in self.conditions]
     s.images = list(self.images)  # ContainerImage is frozen: share entries
     return s
 

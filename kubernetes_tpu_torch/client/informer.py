@@ -8,20 +8,38 @@ list (sync local cache, emit Adds) + watch (pump events to handlers).
 
 Determinism: `pump()` drains available events synchronously — tests and the
 single-threaded scheduler loop call it at well-defined points instead of
-racing a background goroutine.
+racing a background goroutine. `run_background()` gives the threaded mode.
 
-A copy of the reference package's module (kubernetes_tpu/client/informer.py)
-less its cache-mutation detector, its threaded pump and its branches for
-store facades other than the port's Store.
+A copy of the reference package's module (kubernetes_tpu/client/informer.py).
+It runs on the port's Store and on a RESTStore (client/rest.py), whose
+watch carries no sequence numbers and which has no sync_watch or revision
+probes.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable
 
 from ..store.store import Store, Event, ADDED, MODIFIED, DELETED
 
 Handler = Callable[[str, Any, Any], None]  # (event_type, old_obj, new_obj)
+
+
+class CacheMutationDetected(Exception):
+    """An informer-cache object was mutated in place. Informer caches are
+    shared read-only state (client-go's contract); a consumer that edits a
+    cached object corrupts every other consumer's view. The reference's
+    detector (client-go/tools/cache/mutation_detector.go, enabled by
+    KUBE_CACHE_MUTATION_DETECTOR) panics the process; we raise."""
+
+
+def _mutation_detector_enabled() -> bool:
+    import os
+
+    return os.environ.get("KUBERNETES_TPU_CACHE_MUTATION_DETECTOR", "") not in (
+        "", "0", "false",
+    )
 
 
 class SharedInformer:
@@ -32,6 +50,12 @@ class SharedInformer:
         self._handlers: list[Handler] = []
         self._watch = None
         self._synced = False
+        self._mu = threading.Lock()
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        # mutation detector: pristine deepcopies to compare against
+        self._detect = _mutation_detector_enabled()
+        self._pristine: dict[str, Any] = {}
         # revision-continuity tracking (partition detection):
         #   _last_rev  — store revision this cache is known current through
         #   _last_seq  — per-kind event seq of the last delivered event
@@ -71,10 +95,14 @@ class SharedInformer:
                 continue
         for obj in objs:
             self._cache[obj.meta.key] = obj
+            if self._detect:
+                import copy as _copy
+
+                self._pristine[obj.meta.key] = _copy.deepcopy(obj)
             for h in self._handlers:
                 h(ADDED, None, obj)
         self._last_rev = rev
-        self._last_seq = self._watch.start_seq
+        self._last_seq = getattr(self._watch, "start_seq", None)
         self._synced = True
 
     def has_synced(self) -> bool:
@@ -84,9 +112,11 @@ class SharedInformer:
         """Drain all currently queued watch events; returns count processed."""
         if self._watch is None:
             return 0
+        if self._detect:
+            self.check_mutations()
         n = 0
         for ev in self._watch.drain():
-            seq = ev.seq
+            seq = getattr(ev, "seq", 0)
             if self._last_seq is not None and seq:
                 if seq > self._last_seq + 1 and not self._gap:
                     # interior gap: events between _last_seq and this one
@@ -115,7 +145,20 @@ class SharedInformer:
             return 0
         # drain the old stream first so the diff only covers true losses
         self.pump()
-        refs, new_watch, rev = self._store.sync_watch(self.kind)
+        sync = getattr(self._store, "sync_watch", None)
+        if sync is not None:
+            res = sync(self.kind)
+            if len(res) == 3:
+                refs, new_watch, rev = res
+            else:  # pre-revision facade
+                refs, new_watch = res
+                rev = None
+        else:
+            # facade without the primitive: non-atomic list+watch; events
+            # landing in between replay through the new watch, which is
+            # harmless (MODIFIED re-dispatch) but not gap-free in theory
+            refs, rev = self._store.list(self.kind)
+            new_watch = self._store.watch(self.kind, from_revision=rev)
         old_watch, self._watch = self._watch, new_watch
         if old_watch is not None:
             old_watch.stop()
@@ -123,8 +166,9 @@ class SharedInformer:
         # under the SAME lock as the relist, so neither under- nor
         # overshoots: an earlier value would re-flag the diff-repaired
         # events as a gap forever, a later one would hide real losses
-        self._last_rev = rev
-        self._last_seq = new_watch.start_seq
+        if rev is not None:
+            self._last_rev = rev
+        self._last_seq = getattr(new_watch, "start_seq", None)
         self._gap = False
         self._gap_rev = 0
         n = 0
@@ -172,12 +216,18 @@ class SharedInformer:
             return 0
         self.pump()
         gap_rev: int | None = self._gap_rev if self._gap else None
-        if gap_rev is None and self._store.latest_revision(self.kind) > self._last_rev:
-            gap_rev = self._last_rev
+        if gap_rev is None:
+            probe = getattr(self._store, "latest_revision", None)
+            if probe is not None and probe(self.kind) > self._last_rev:
+                gap_rev = self._last_rev
         if gap_rev is None:
             return 0
-        hit = self._store.first_event_after(self.kind, gap_rev)
-        lost_ts = hit[1] if hit is not None else None
+        lost_ts: float | None = None
+        first = getattr(self._store, "first_event_after", None)
+        if first is not None:
+            hit = first(self.kind, gap_rev)
+            if hit is not None:
+                lost_ts = hit[1]
         repaired = self.resync()  # clears _gap, re-bookmarks atomically
         self.partitions_detected += 1
         latency_s = 0.0
@@ -189,25 +239,62 @@ class SharedInformer:
             self._partition_observer(self.kind, repaired, latency_s)
         return repaired
 
+    def check_mutations(self) -> None:
+        """Compare every cached object against its pristine copy; raises
+        CacheMutationDetected on any in-place edit. Called automatically
+        per pump when the detector env is set; tests may call directly."""
+        for key, obj in self._cache.items():
+            pristine = self._pristine.get(key)
+            if pristine is not None and obj != pristine:
+                raise CacheMutationDetected(
+                    f"{self.kind} {key} was mutated in the informer cache"
+                )
+
     def _dispatch(self, ev) -> None:
+        import copy as _copy
+
         key = ev.obj.meta.key
         if ev.type == DELETED:
             old = self._cache.pop(key, None)
+            self._pristine.pop(key, None)
             for h in self._handlers:
                 h(DELETED, old if old is not None else ev.obj, ev.obj)
         elif key in self._cache:
             old = self._cache[key]
             self._cache[key] = ev.obj
+            if self._detect:
+                self._pristine[key] = _copy.deepcopy(ev.obj)
             for h in self._handlers:
                 h(MODIFIED, old, ev.obj)
         else:
             self._cache[key] = ev.obj
+            if self._detect:
+                self._pristine[key] = _copy.deepcopy(ev.obj)
             for h in self._handlers:
                 h(ADDED, None, ev.obj)
 
+    def run_background(self, poll_interval: float = 0.002) -> None:
+        """Threaded pump, for components that want push-style delivery."""
+        if self._thread is not None:
+            return
+
+        def loop():
+            while not self._stop.is_set():
+                ev = self._watch.next(timeout=poll_interval)
+                if ev is not None:
+                    with self._mu:
+                        self._dispatch(ev)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
     def stop(self) -> None:
+        self._stop.set()
         if self._watch is not None:
             self._watch.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=1)
+            self._thread = None
 
     # local read interface (client-go Lister)
     def get(self, key: str) -> Any | None:
@@ -245,7 +332,10 @@ class InformerFactory:
         return sum(inf.pump() for inf in self._informers.values())
 
     def stop_all(self) -> None:
-        """Tear down every informer's watch stream."""
+        """Tear down every informer's watch stream. The chaos restart
+        driver uses this as its stand-in for process death: a crashed
+        scheduler's watch connections drop server-side, so the store must
+        stop queueing deliveries for a consumer that no longer exists."""
         for inf in self._informers.values():
             inf.stop()
 

@@ -8,12 +8,12 @@ minting a new object for repeats); this recorder buffers and aggregates the
 same way and flushes batches to the store, so the hot binding path only
 appends to a list.
 
-A copy of the reference package's module (kubernetes_tpu/scheduler/events.py)
-less its branches for store facades other than the port's Store.
+A copy of the reference package's module (kubernetes_tpu/scheduler/events.py).
 """
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 
@@ -45,6 +45,11 @@ class EventRecorder:
                  max_buffer: int = 4096):
         self.store = store
         self.component = component
+        # the in-process Store returns no copy when asked; a RESTStore
+        # takes no copy_return
+        self._create_kw = ({"copy_return": False}
+                           if "copy_return" in inspect.signature(
+                               store.create).parameters else {})
         self._mu = threading.Lock()
         # (involved, type, reason, message) -> pending Event
         self._pending: dict[tuple, Event] = {}
@@ -160,8 +165,9 @@ class EventRecorder:
                 else:
                     # copy_return=False: the returned copy is discarded, and
                     # at one event per bound pod the deepcopy is a
-                    # measurable slice of scheduling wall time
-                    self.store.create(ev, copy_return=False)
+                    # measurable slice of scheduling wall time (a RESTStore
+                    # takes no copy_return)
+                    self.store.create(ev, **self._create_kw)
                 n += 1
             except Exception:  # noqa: BLE001 - events are best-effort
                 pass
@@ -183,7 +189,10 @@ class EventRecorder:
         try:
             # read-only scan (list_refs): a deepcopying list() would grow
             # O(stored-events) per sweep
-            events = self.store.list_refs("Event")
+            if hasattr(self.store, "list_refs"):
+                events = self.store.list_refs("Event")
+            else:
+                events, _ = self.store.list("Event")
             expired = [ev.meta.key for ev in events
                        if ev.last_timestamp < cutoff]
             for key in expired:

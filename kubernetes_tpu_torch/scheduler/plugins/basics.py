@@ -248,8 +248,15 @@ class DefaultBinder(Plugin):
         from ...store.store import ConflictError, NotFoundError
 
         try:
-            # the binding subresource, the reference's API shape
-            self._store.bind_pod(pod.meta.key, node_name)
+            bind_sub = getattr(self._store, "bind_pod", None)
+            if bind_sub is not None:
+                # the binding subresource, the reference's API shape
+                bind_sub(pod.meta.key, node_name)
+            else:
+                # a RESTStore: the pod written back with its node (PUT)
+                cur = self._store.get("Pod", pod.meta.key)
+                cur.spec.node_name = node_name
+                self._store.update(cur, check_version=False)
         except (NotFoundError, ConflictError) as e:
             return Status.as_error(e, self.name)
         return Status()

@@ -465,13 +465,21 @@ class Scheduler:
 
         self.cache.update_snapshot(self.snapshot)
         sf = self.shard_filter
-        template = next((p for p in self.store.list_refs("Pod")
+        template = next((p for p in self._list_refs("Pod")
                          if not p.is_scheduled and (sf is None or sf(p))), None)
         self.warmup_summaries = [
             warm_backend(algo.backend, self.snapshot, self.wave_size,
                          template=template)
             for algo in self.algorithms.values()]
         return self.warmup_summaries
+
+    def _list_refs(self, kind: str) -> list:
+        """Read-only listing duck-typed against the narrower RESTStore
+        surface (list() only), so a scheduler fronted by the API server
+        reconciles the same way as one on the in-process Store."""
+        if hasattr(self.store, "list_refs"):
+            return self.store.list_refs(kind)
+        return self.store.list(kind)[0]
 
     def reconcile(self, shard_pred=None, kind_prefix: str = "") -> dict:
         """Startup crash recovery: resolve every piece of mid-flight state a
@@ -528,11 +536,11 @@ class Scheduler:
         # -- sweep 2: half-bound PodGroups against store truth ------------
         gang_adopt = gang_release = 0
         members: dict[str, list] = {}
-        for p in self.store.list_refs("Pod"):
+        for p in self._list_refs("Pod"):
             gk = self._group_key(p)
             if gk is not None:
                 members.setdefault(gk, []).append(p)
-        for g in self.store.list_refs("PodGroup"):
+        for g in self._list_refs("PodGroup"):
             gk = g.meta.key
             mem = members.get(gk, [])
             # gangs shard by group key: one member decides the whole gang
@@ -595,7 +603,7 @@ class Scheduler:
         count on restart_recoveries{kind="<kind_prefix>*"}."""
         stats = self.reconcile(shard_pred=shard_pred, kind_prefix=kind_prefix)
         pending = 0
-        for pod in self.store.list_refs("Pod"):
+        for pod in self._list_refs("Pod"):
             if pod.is_scheduled or not shard_pred(pod):
                 continue
             key = pod.meta.key

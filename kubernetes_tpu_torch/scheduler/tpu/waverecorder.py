@@ -632,7 +632,13 @@ def _demo() -> WaveRecorder:
             rec.stall_profiler.mark_gap(wr, "flush")
         with rec.phase("kernel", wr):
             if i == 4:
-                time.sleep(0.12)  # trip the watchdog once
+                # trip the watchdog once: hold the wave open until the timer
+                # has fired and attached its profile (a fixed sleep raced
+                # the timer thread on a loaded host)
+                give_up = time.monotonic() + 10.0
+                while (rec.slow_wave_captures == 0
+                       and time.monotonic() < give_up):
+                    time.sleep(0.01)
         rec.count_wave()
         rec.end_wave(wr, fallback_reason=(
             "tie-break draw overflow" if i == 7 else None

@@ -25,3 +25,10 @@ def try_delete(store: Store, kind: str, key: str):
         return store.delete(kind, key)
     except NotFoundError:
         return None
+
+
+def iter_kind(store: Store, kind: str):
+    """The objects of one kind, copies as Store.list gives them (the
+    reference store's iter_kind; a RESTStore's list has the same shape)."""
+    objs, _ = store.list(kind)
+    return iter(objs)

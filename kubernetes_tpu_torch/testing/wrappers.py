@@ -50,6 +50,7 @@ from ..api.types import (
     PodSpec,
     SchedulingGroup,
     Taint,
+    Toleration,
     TopologySpreadConstraint,
 )
 
@@ -94,6 +95,11 @@ def make_node(name: str, cpu: str = "32", mem: str = "64Gi", pods: int = 110,
         status=NodeStatus(capacity=dict(alloc), allocatable=dict(alloc),
                           declared_features=tuple(declared_features)),
     )
+
+
+def with_tolerations(pod: Pod, *tols: Toleration) -> Pod:
+    pod.spec.tolerations = tuple(pod.spec.tolerations) + tols
+    return pod
 
 
 def with_spread(pod: Pod, max_skew: int = 1, key: str = ZONE_LABEL,

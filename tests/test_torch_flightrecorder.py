@@ -435,6 +435,22 @@ class TestCli:
         assert "tie-break draw overflow" in out
         assert "summary:" in out
 
+    def test_demo_waits_for_a_slow_profile(self, capsys, monkeypatch):
+        """The watchdog's capture may finish long after its deadline (a
+        loaded host): the demo's slow wave stays open until the capture
+        lands, so the dump always shows it. A fixed sleep shorter than the
+        profile lost it."""
+        import kubernetes_tpu_torch.utils.pprof as tpprof
+
+        def slow_profile(seconds=1.0, **kw):
+            time.sleep(0.3)
+            return "slow stacks"
+
+        monkeypatch.setattr(tpprof, "take_profile", slow_profile)
+        assert fr_main(["--demo"]) == 0
+        out = capsys.readouterr().out
+        assert "[profile captured]" in out
+
     def test_schema_lists_public_fields_only(self, capsys):
         assert fr_main(["--schema"]) == 0
         fields = capsys.readouterr().out.split()

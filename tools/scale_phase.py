@@ -21,7 +21,7 @@ runs the phase uncut, where chip_smoke cuts it to stay inside its time
 limit: gang.json's 100 PodGroups in (c) (SCALE_GANG_GROUPS, 20 in
 chip_smoke), (d)'s bursts of 64 pods (SCALE_BURST, 32), (b)'s 4 bursts
 a sweep point (SCALE_BURSTS, 3), (a)'s 10000 measured pods (SCALE_PODS,
-5000) and (e)'s timed waves of 512 pods (SCALE_PASS_WAVE, 128).
+2500) and (e)'s timed waves of 512 pods (SCALE_PASS_WAVE, 128).
 """
 
 from __future__ import annotations
