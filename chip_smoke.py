@@ -206,11 +206,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    card: 5000 nodes, 20000 priority-0 victims of 3 CPU / 1Gi and
    priority-100 preemptors of 25 CPU / 2Gi, evictions on the async
    dispatcher; the preemptors cut in depth (never width) from 5000 to
-   --preempt-pods (100: the host's cost per preemptor grows with the
+   --preempt-pods (50: the host's cost per preemptor grows with the
    backlog, and the run's 1200 s limit holds phases 1-30 only so: 500
    preemptors took 74.4 s of a run of 949.7 s before phase 30 joined it,
-   PERF.md §5s; the full depth: tools/preemption_scaling.py --pods 5000,
-   the cut's: --pods 100); every preemptor
+   PERF.md §5s; 100 until phase 34 needed the time, 9.0 s of measured
+   span, PERF.md §5x; the full depth: tools/preemption_scaling.py --pods
+   5000, the cut's: --pods 50); every preemptor
    bound, every
    evicted pod of lower priority than the preemptor on its node, no node
    over its CPU, memory or pod count; K4 launched at least once per preemptor and K1 and K2 launched
@@ -230,12 +231,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    pods, WFFC_DEPTH, with a 5Gi
    WaitForFirstConsumer claim each over 10Gi volumes; node-neutral volume
    plans, so every pod on the wave route, K1 and K2 launched); (b)
-   SchedulingCSIPVs/5000Nodes_5000Pods at full width and a tenth of its
-   depth (5000 nodes with CSINode attach limits of 39; 500 initial and
-   500 measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid route:
-   K4 once per pod, K3); (c) dra.json's SchedulingWithResourceClaims/
-   500Nodes (500 nodes of 10 devices, 500 of its 1000 measured pods with
-   a claim each, DRA_DEPTH; the hybrid route with DynamicResources'
+   SchedulingCSIPVs/5000Nodes_5000Pods at full width and a twentieth of
+   its depth (5000 nodes with CSINode attach limits of 39; 250 initial
+   and 250 measured pods in place of 5000 and 5000, CSI_DEPTH; the hybrid
+   route: K4 once per pod, K3); (c) dra.json's
+   SchedulingWithResourceClaims/500Nodes (500 nodes of 10 devices, 250 of
+   its 1000 measured pods with a claim each, DRA_DEPTH; the hybrid route
+   with DynamicResources'
    allocation) in place of its 5000pods_500nodes workload on the same 500
    nodes (DRA_CUT). Both
    cuts keep the run inside its 1200 s limit (25 (b) 213.5 s and (c)
@@ -429,8 +431,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    depth for the run's limit: RACK_TIME_C; `python3
    tools/domains_phase.py --full-depth` times them), the scratch's and the
    signature
-   table's bytes printed; (d) RACK_LOOP_PODS (2500: cut in depth from
-   5000 for phase 32) rack-spread pods through
+   table's bytes printed; (d) RACK_LOOP_PODS (1250: cut in depth from
+   5000 for phases 32 and 34) rack-spread pods through
    the port's Scheduler (warm start on) over a store of RACK_B's nodes
    on LocalContext and MeshContext(8): every pod bound, rack skew <= 1,
    bindings and rng equal, no first use after the warmup, pods/s; (e)
@@ -499,12 +501,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    creates/s through the API and pods/s from the first pod's create to
    the last bind printed; (b) Scheduler(RESTStore(url),
    Profile(wave_size=0)) on the card, informers list/watching over HTTP:
-   API_REST_PODS (128) more pods through the per-pod cycle (K4
+   API_REST_PODS (64: cut in depth from 128 for phase 34) more pods
+   through the per-pod cycle (K4
    + K3), each bound by a PUT of the pod, bindings and rng equal to the
    per-pod Scheduler on an in-process Store holding the same objects, K4
    once per pod. The native CBOR transcoder's build is reported.
    `python3 tools/apiserver_phase.py --full-depth` runs (a) with
-   SchedulingBasic's 11000 pods;
+   SchedulingBasic's 11000 pods and (b) with 128;
+34. kubeadm init (kubernetes_tpu_torch/cmd/bootstrap.py): (a)
+   ClusterBootstrap(nodes=BOOT_NODES, device="cuda").init() at
+   SchedulingBasic's width (5000 hollow nodes of 8 CPU / 32Gi over 8
+   zones, a kubelet and a proxy each; the API server, the controller
+   manager and the Scheduler on the card with bootstrap's
+   Profile(backend="tpu", wave_size=256)), then a ClusterIP Service and a
+   Deployment of BOOT_PODS replicas (64: cut in depth from 1024, since
+   every kubelet lists every pod each round; `python3
+   tools/bootstrap_phase.py --full-depth` runs 1024) through the admin
+   client, and converge() a round at a time until the cluster settles,
+   the cluster on a logical clock (boot_clock: its leases follow the
+   order of events, not the host's speed):
+   every pod bound exactly once (a watch on the store) and Running, the
+   Deployment and its ReplicaSet ready, every node's proxy resolving the
+   Service's VIP to exactly the pods' IPs, K1 and K2 launched, bindings
+   and the final rng equal to a twin (the same profile on a plain
+   in-process Store on the card, fed the nodes and the pods the
+   controllers made, in the same order); init() seconds, each round's
+   seconds by tier (controllers, scheduler, kubelets, proxies) and pods/s
+   from the Deployment's create to the last Running printed; (b) `python
+   -m kubernetes_tpu_torch.cmd.bootstrap --nodes 3 --port 0` (the threaded
+   run(), on the card) in a child process: over RESTStore a Deployment, a
+   DaemonSet, a Job and a StatefulSet until every pod runs and the Job
+   completes; `python -m kubernetes_tpu_torch.cmd.controller_manager
+   --server URL --leader-elect --port P` against it answers /healthz and
+   holds the controller manager's Lease; the bootstrap child exits 0 on
+   SIGINT. `python3 tools/bootstrap_phase.py` runs phase 34 alone;
 then print the card, the timings, the seconds of every phase (1 the
 build), the kernels line (K1 and K2 with their
 launches on the pipelined main path, K2 at its seeded shape; K3 with its
@@ -1072,9 +1102,9 @@ def build_parser() -> argparse.ArgumentParser:
     # width: its 5000 nodes and 20000 victims stay): the host cost per
     # preemptor grows with the backlog, 2000 already take more than 300 s
     # (PERF.md §5m), and 500 took 74.4 s of a run of 949.7 s before phase
-    # 30 joined it (PERF.md §5s). The full depth runs alone:
-    # tools/preemption_scaling.py --pods 5000
-    ap.add_argument("--preempt-pods", type=int, default=100)
+    # 30 joined it (PERF.md §5s); 100 until phase 34 (PERF.md §5x). The
+    # full depth runs alone: tools/preemption_scaling.py --pods 5000
+    ap.add_argument("--preempt-pods", type=int, default=50)
     ap.add_argument("--preempt-cpu-workloads",
                     default="PreemptionBasic/20Nodes,PreemptionBasic/500Nodes")
     # phase 24 (a) may run past --phase-timeout
@@ -1489,9 +1519,12 @@ def main() -> None:
     # 33. the API server in front of the Scheduler
     with watchdog("phase 33 (the API server)", args.phase_timeout):
         timed("33", apiserver_phase, args, smi)
+    # 34. kubeadm init: the bootstrapped cluster and the operator's binaries
+    with watchdog("phase 34 (kubeadm init)", args.phase_timeout):
+        timed("34", bootstrap_phase, args, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print("phase seconds (1 is the build): " + json.dumps(
-        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 34))}))
+        {k: round(PHASE_S.get(k, 0.0), 1) for k in map(str, range(1, 35))}))
 
     print(json.dumps({"kernels": rows_out}))
     print(smi)
@@ -4203,18 +4236,19 @@ def extender_stream(n_nodes, n_pods, device, wave, binder, seed):
 # (b) 213.5 s and (c) 142.7 s of it; ~1470 s for phases 1-26 on a slower
 # host; (b) 89.7 s at 2500 pods in a run of 949.7 s before phase 30 joined
 # it; PERF.md §5p, §5s): (b) SchedulingCSIPVs/5000Nodes_5000Pods on its
-# 5000 nodes with 500 initial and 500 measured pods in place of 5000 and
-# 5000 (1000 and 1000 until phase 32 needed the time); (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
+# 5000 nodes with 250 initial and 250 measured pods in place of 5000 and
+# 5000 (1000 and 1000 until phase 32 needed the time, 500 and 500 until
+# phase 34 did); (c) dra.json's SchedulingWithResourceClaims/500Nodes (500 nodes of
 # 10 devices, 1000 measured claim pods), the 500 nodes of the
 # 5000pods_500nodes workload it stands for. The full depth runs alone:
 # tools/entrypoint_phase.py --full-depth
-CSI_DEPTH = {"initPods": 500, "measurePods": 500}
+CSI_DEPTH = {"initPods": 250, "measurePods": 250}
 # (a)'s measured pods halved too (2000 -> 1000, paying for phase 32)
 WFFC_DEPTH = {"measurePods": 1000}
 DRA_CUT = "dra.json:SchedulingWithResourceClaims/500Nodes"
-# and its measured claim pods halved (1000 -> 500; 25.9 s of a run of 933.0
-# s with phase 30, PERF.md §5s)
-DRA_DEPTH = {"measurePods": 500}
+# and its measured claim pods cut (1000 -> 500; 25.9 s of a run of 933.0
+# s with phase 30, PERF.md §5s; -> 250 for phase 34, PERF.md §5x)
+DRA_DEPTH = {"measurePods": 250}
 
 
 def storage_full_width(args, smi, full_depth=False):
@@ -6652,8 +6686,9 @@ RACK_B = (50000, 40)
 RACK_C = (100000, 18)
 RACK_EXISTING = 2000
 # (d)'s and (e)'s pods are cut in depth from 5000 and 1024 (paying for
-# phase 32); `python3 tools/domains_phase.py --full-depth` runs them uncut
-RACK_LOOP_PODS = 2500
+# phase 32; (d) 2500 -> 1250 for phase 34); `python3
+# tools/domains_phase.py --full-depth` runs them uncut
+RACK_LOOP_PODS = 1250
 RACK_CPU_PODS = 512
 RACK_KEY = "rack"
 # the members of (a)'s and (c)'s larger rack gangs: cut in depth from 128
@@ -8203,9 +8238,11 @@ def multicard_phase(args, smi, n_ranks=2, loop_init=None, loop_pods=None, sweep=
 # run's limit (each create is an HTTP round trip: ~205-230 creates/s on the
 # card's host, so the 5000 nodes alone take ~20 s; `tools/apiserver_phase.py
 # --full-depth` runs 11000), and (b)'s (each pod ~4 round trips: its GET and
-# PUT and its event's)
+# PUT and its event's; 128 until phase 34 needed the time, which
+# `--full-depth` runs)
 API_PODS = 256
-API_REST_PODS = 128
+API_REST_PODS = 64
+API_REST_PODS_FULL = 128
 API_WAVE = 256  # bootstrap's Profile(backend="tpu", wave_size=256)
 API_PRIORITY = 1000
 
@@ -8466,6 +8503,412 @@ def apiserver_phase(args, smi, n_pods=None):
         server.shutdown()
     print(f"phase 33: {time.perf_counter() - t_all:.1f} s; by part (s): {json.dumps(parts)}")
     return {"creates_s": creates, "pods_s": n_pods / wall, "rest_pods_s": n_rest / wall_b}
+
+
+# --------------------------------------------------------------------------
+# 34: kubeadm init, the bootstrapped cluster
+# --------------------------------------------------------------------------
+
+# (a)'s cluster is SchedulingBasic's width: BOOT_NODES hollow nodes of 8
+# CPU / 32Gi over 8 zones, a kubelet and a proxy each. Its Deployment's
+# replicas are cut in depth from 1024 (four waves of 256) to BOOT_PODS for
+# the run's limit: every hollow kubelet lists every pod of the store each
+# round, so a round costs O(nodes x pods) on the host (~6 s a round at 64
+# replicas, the phase 33.4 s: PERF.md §5x; `tools/bootstrap_phase.py
+# --full-depth` runs 1024). (b)'s child cluster has BOOT_CHILD_NODES
+# nodes; it is spawned before (a) runs, so its interpreter start overlaps
+# (a).
+BOOT_NODES = 5000
+BOOT_PODS = 32
+BOOT_FULL_PODS = 1024
+BOOT_WAVE = 256  # bootstrap's Profile(backend="tpu", wave_size=256)
+BOOT_ROUNDS = 12  # converge() rounds (a) may take before it fails
+BOOT_VIP = "10.96.0.80"
+BOOT_CHILD_NODES = 3
+BOOT_CHILD_TIMEOUT = 120.0
+
+
+def boot_clock():
+    """The cluster's clock: logical, 1 us a reading from the wall clock at
+    its creation. Readings never repeat, so the pods one informer pump
+    queues keep their store order on the bootstrapped Scheduler and on its
+    twin alike; and the leases' staleness follows the order of events,
+    not the host's speed: at 1024 replicas a kubelet round took ~200 s on
+    the card's host, past the lifecycle controller's 40 s grace period,
+    and on the wall clock the nodes whose kubelets renewed early in the
+    round went stale before the next (PERF.md §5x). The phase's seconds
+    are time.perf_counter's."""
+    from kubernetes_tpu_torch.utils.clock import Clock
+
+    class BootClock(Clock):
+        def __init__(self):
+            self._now = time.time()
+            self._mu = threading.Lock()
+
+        def now(self) -> float:
+            with self._mu:
+                self._now += 1e-6
+                return self._now
+
+    return BootClock()
+
+
+def boot_template(labels, cpu="100m"):
+    from kubernetes_tpu_torch.api.types import Container, PodSpec
+    from kubernetes_tpu_torch.api.workloads import PodTemplateSpec
+
+    return PodTemplateSpec(labels=dict(labels), spec=PodSpec(
+        containers=[Container(requests={"cpu": cpu, "memory": "64Mi"})]))
+
+
+def boot_twin(nodes, pods, device):
+    """The bootstrapped Scheduler's profile on a plain in-process Store fed
+    the same nodes and the pods the controllers made, in the same order;
+    returns (bindings, rng state, launches)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.scheduler import Profile, Scheduler
+    from kubernetes_tpu_torch.store import Store
+
+    store = Store()
+    for node in nodes:
+        store.create(node)
+    s = Scheduler(store, profiles=[Profile(backend="tpu", wave_size=BOOT_WAVE)],
+                  clock=boot_clock(), device=device)
+    s.start()
+    for pod in pods:
+        store.create(pod)
+    kernels.reset_launches()
+    s.schedule_pending()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_loop("phase 34 (a) (the in-process twin)", s)
+    s.informers.stop_all()
+    got = {p.meta.key: p.spec.node_name for p in store.pods()}
+    return got, s.algorithms["default-scheduler"].rng.getstate(), launches
+
+
+def boot_cluster(n_nodes, n_pods, smi, device="cuda"):
+    """34 (a): ClusterBootstrap(nodes=n_nodes).init(), then a ClusterIP
+    Service and a Deployment of n_pods replicas through the admin client,
+    driven by converge() a round at a time until every pod runs. On the
+    CPU (a rehearsal) the plain versions count no launch."""
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import RUNNING
+    from kubernetes_tpu_torch.api.workloads import (
+        Deployment, DeploymentSpec, Service, ServicePort, ServiceSpec)
+    from kubernetes_tpu_torch.cmd.bootstrap import ClusterBootstrap
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.store.store import ADDED, DELETED, MODIFIED
+
+    t0 = time.perf_counter()
+    boot = ClusterBootstrap(nodes=n_nodes, clock=boot_clock(), device=device)
+    boot.init()
+    t_init = time.perf_counter() - t0
+    try:
+        client = boot.client()
+        if len(boot.kubelets) != n_nodes or len(boot.proxiers) != n_nodes:
+            fail(f"phase 34 (a): {len(boot.kubelets)} kubelets, {len(boot.proxiers)} "
+                 f"proxies for {n_nodes} nodes")
+        nodes, _ = boot.store.list("Node")
+        if len(nodes) != n_nodes:
+            fail(f"phase 34 (a): {len(nodes)} nodes registered of {n_nodes}")
+        _, rev = boot.store.list("Pod")
+        watch = boot.store.watch("Pod", from_revision=rev)
+        kernels.reset_launches()
+        t_create = time.perf_counter()
+        client.create(Service(
+            meta=ObjectMeta(name="boot"),
+            spec=ServiceSpec(selector={"app": "boot"}, cluster_ip=BOOT_VIP,
+                             ports=(ServicePort(port=80, target_port=8080),))))
+        client.create(Deployment(meta=ObjectMeta(name="boot"), spec=DeploymentSpec(
+            replicas=n_pods, template=boot_template({"app": "boot"}))))
+        t_running = None
+        for r in range(BOOT_ROUNDS):
+            boot.converge(rounds=1)
+            pods = boot.store.pods()
+            print(f"34 (a) round {r + 1}: {sum(1 for p in pods if p.status.phase == RUNNING)}"
+                  f" of {n_pods} pods Running; seconds "
+                  f"{json.dumps({k: round(v, 3) for k, v in boot.round_seconds[-1].items()})}")
+            if (t_running is None and len(pods) == n_pods
+                    and all(p.status.phase == RUNNING for p in pods)):
+                t_running = time.perf_counter()
+            dep = boot.store.get("Deployment", "default/boot")
+            rule = boot.proxiers[-1].dataplane.rules().get((BOOT_VIP, 80, "TCP"))
+            # settled: the Deployment ready and the last node's proxy
+            # programmed with every pod (the checks below read them all)
+            if (t_running is not None and dep.status.ready_replicas == n_pods
+                    and rule is not None and len(rule.backends) == n_pods):
+                break
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_done = time.perf_counter()
+        launches = dict(kernels.LAUNCHES)
+        check_loop("phase 34 (a)", boot.scheduler)
+        if t_running is None:
+            fail(f"phase 34 (a): not every pod Running after {BOOT_ROUNDS} rounds: "
+                 f"{sum(1 for p in boot.store.pods() if p.status.phase == RUNNING)} of "
+                 f"{n_pods}")
+        # every pod bound exactly once: its node set once, never changed
+        created, node_of, binds = [], {}, {}
+        for ev in watch.drain():
+            key = ev.obj.meta.key
+            if ev.type == ADDED:
+                created.append(ev.obj)
+                node_of[key] = ev.obj.spec.node_name
+            elif ev.type == MODIFIED and ev.obj.spec.node_name != node_of.get(key):
+                if node_of.get(key):
+                    fail(f"phase 34 (a): {key} moved from {node_of[key]} to "
+                         f"{ev.obj.spec.node_name}")
+                node_of[key] = ev.obj.spec.node_name
+                binds[key] = binds.get(key, 0) + 1
+            elif ev.type == DELETED:
+                fail(f"phase 34 (a): {key} was deleted")
+        watch.stop()
+        pods = boot.store.pods()
+        if len(created) != n_pods or any(p.spec.node_name for p in created):
+            fail(f"phase 34 (a): the controllers made {len(created)} pods of {n_pods}")
+        if binds != {p.meta.key: 1 for p in pods}:
+            fail(f"phase 34 (a): {sum(binds.values())} bindings of {len(pods)} pods "
+                 f"({sum(1 for v in binds.values() if v != 1)} not exactly once)")
+        dep = boot.store.get("Deployment", "default/boot")
+        (rs,) = boot.store.list("ReplicaSet")[0]
+        if (dep.status.ready_replicas, dep.status.replicas, rs.status.ready_replicas) != \
+                (n_pods, n_pods, n_pods):
+            fail(f"phase 34 (a): the Deployment reports {dep.status}, its ReplicaSet "
+                 f"{rs.status}, for {n_pods} replicas")
+        ips = {p.status.pod_ip for p in pods}
+        if len(ips) != n_pods:
+            fail(f"phase 34 (a): {len(ips)} distinct pod IPs for {n_pods} pods")
+        for proxy in boot.proxiers:
+            rule = proxy.dataplane.rules().get((BOOT_VIP, 80, "TCP"))
+            got_ips = None if rule is None else {b.address for b in rule.backends}
+            if got_ips != ips:
+                fail(f"phase 34 (a): node {proxy.node_name}'s proxy resolves {BOOT_VIP}:80 to "
+                     f"{None if got_ips is None else len(got_ips)} backends, not the "
+                     f"{n_pods} pods' IPs")
+            if proxy.dataplane.resolve(BOOT_VIP, 80) is None:
+                fail(f"phase 34 (a): node {proxy.node_name}'s proxy resolves no backend")
+        if device == "cuda" and (launches["static_parts"] <= 0 or launches["assign_scan"] <= 0):
+            fail(f"phase 34 (a): launches {launches}: K1 and K2 must launch in the cluster")
+        got = {p.meta.key: p.spec.node_name for p in pods}
+        rng = boot.scheduler.algorithms["default-scheduler"].rng.getstate()
+        rounds = [dict(r) for r in boot.round_seconds]
+    finally:
+        boot.scheduler.informers.stop_all()
+        boot.shutdown()
+    twin, twin_rng, twin_l = boot_twin(nodes, created, device)
+    if twin != got:
+        diff = [k for k, v in got.items() if twin.get(k) != v]
+        fail(f"phase 34 (a): bindings differ from the twin's on {len(diff)} pods "
+             f"(first {diff[:3]})")
+    if twin_rng != rng:
+        fail("phase 34 (a): the final rng state differs from the twin's")
+    split = {k: round(sum(r[k] for r in rounds), 3)
+             for k in ("controllers", "scheduler", "kubelets", "proxies")}
+    per_round = [{k: round(v, 3) for k, v in r.items()} for r in rounds]
+    print(f"34 (a) ClusterBootstrap(nodes={n_nodes}).init(): {t_init:.2f} s (API server, "
+          f"Scheduler, controller manager, {n_nodes} hollow kubelets and proxies); a "
+          f"Service and a Deployment of {n_pods} replicas through the admin client, "
+          f"{len(rounds)} converge() rounds, {t_done - t_create:.2f} s in all: every pod bound "
+          f"once and Running {t_running - t_create:.2f} s after the create "
+          f"({n_pods / (t_running - t_create):.2f} pods/s), the Deployment and its ReplicaSet "
+          f"ready, {n_nodes} proxies resolving {BOOT_VIP}:80 to the {n_pods} pods; bindings "
+          f"and rng equal to the twin's (launches {twin_l}); launches {launches} on {smi}")
+    print(f"34 (a) converge() seconds by tier, all rounds: {json.dumps(split)}; per round: "
+          f"{json.dumps(per_round)}")
+    return {"init_s": t_init, "pods_s": n_pods / (t_running - t_create), "split": split,
+            "rounds": len(rounds)}
+
+
+def boot_get(url, timeout=5.0):
+    """(status, body) of a GET; (None, reason) while nothing listens."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except (urllib.error.URLError, OSError) as e:
+        return None, str(e)
+
+
+class BootChild:
+    """34 (b)'s `python -m kubernetes_tpu_torch.cmd.bootstrap --nodes 3
+    --port 0` in a child process, its stderr in a file; a thread reads the
+    kubeconfig line it prints and stamps when it came."""
+
+    def __init__(self, device="cuda"):
+        import tempfile
+
+        self.logs = tempfile.TemporaryDirectory()
+        self.err_path = os.path.join(self.logs.name, "bootstrap.err")
+        self.t0 = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "kubernetes_tpu_torch.cmd.bootstrap", "--nodes",
+                 str(BOOT_CHILD_NODES), "--port", "0", "--device", device],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        self.line, self.t_line = "", None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        self.line = self.proc.stdout.readline()
+        self.t_line = time.perf_counter()
+
+    def tail(self, path=None):
+        with open(path or self.err_path) as f:
+            return f.read()[-3000:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.logs.cleanup()
+
+
+def boot_children(smi, child, device="cuda"):
+    """34 (b): the bootstrap child (`BootChild`, the threaded run()); a
+    Deployment, a DaemonSet, a Job and a StatefulSet over RESTStore until
+    every pod runs and the Job completes; `python -m
+    kubernetes_tpu_torch.cmd.controller_manager --leader-elect` against it
+    answers /healthz and holds the Lease; the bootstrap child exits 0 on
+    SIGINT."""
+    import signal
+    import socket
+
+    from kubernetes_tpu_torch.api.meta import ObjectMeta
+    from kubernetes_tpu_torch.api.types import RUNNING, SUCCEEDED
+    from kubernetes_tpu_torch.api.workloads import (
+        DaemonSet, DaemonSetSpec, Deployment, DeploymentSpec, Job, JobSpec, StatefulSet,
+        StatefulSetSpec)
+    from kubernetes_tpu_torch.client.rest import RESTStore
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    boot, t0 = child.proc, child.t0
+    kcm_path = os.path.join(child.logs.name, "kcm.err")
+    tail = child.tail
+    kcm = None
+    try:
+        child.reader.join(timeout=BOOT_CHILD_TIMEOUT)
+        try:
+            cfg = json.loads(child.line)
+        except ValueError:
+            cfg = {}
+        if "server" not in cfg:
+            boot.wait(timeout=30)
+            fail(f"phase 34 (b): the bootstrap child printed {child.line!r}, exit "
+                 f"{boot.returncode}: {tail()}")
+        t_cfg = child.t_line
+        client = RESTStore(cfg["server"], token=cfg.get("token", ""))
+        client.create(Deployment(meta=ObjectMeta(name="web"), spec=DeploymentSpec(
+            replicas=2, template=boot_template({"app": "web"}))))
+        client.create(DaemonSet(meta=ObjectMeta(name="agent"), spec=DaemonSetSpec(
+            template=boot_template({"app": "agent"}, "50m"))))
+        client.create(Job(meta=ObjectMeta(name="batch"), spec=JobSpec(
+            completions=2, parallelism=2, template=boot_template({"job": "batch"}))))
+        client.create(StatefulSet(meta=ObjectMeta(name="db"), spec=StatefulSetSpec(
+            replicas=2, template=boot_template({"app": "db"}))))
+        want = {"web": 2, "agent": BOOT_CHILD_NODES, "db": 2}
+        t_create = time.perf_counter()
+        deadline = t_create + BOOT_CHILD_TIMEOUT
+        t_running = None
+        while True:
+            if boot.poll() is not None:
+                fail(f"phase 34 (b): the bootstrap child exited {boot.returncode}: "
+                     f"{tail()}")
+            pods = client.list("Pod")[0]
+            for p in pods:
+                # the hollow runtime's run duration is a pod annotation,
+                # which a pod template does not carry: the Job's pods get it
+                if (p.meta.labels.get("job") == "batch"
+                        and "kubemark.io/run-seconds" not in p.meta.annotations):
+                    p.meta.annotations["kubemark.io/run-seconds"] = "1"
+                    with contextlib.suppress(Exception):
+                        client.update(p, check_version=False)
+            running = {app: sum(1 for p in pods if p.meta.labels.get("app") == app
+                                and p.status.phase == RUNNING and p.spec.node_name)
+                       for app in want}
+            job = client.get("Job", "default/batch")
+            if running == want and t_running is None:
+                t_running = time.perf_counter()
+            if running == want and job.status.completed:
+                break
+            if time.perf_counter() > deadline:
+                fail(f"phase 34 (b): after {BOOT_CHILD_TIMEOUT:.0f} s running {running} of "
+                     f"{want}, the Job {job.status}")
+            time.sleep(0.05)
+        t_done = time.perf_counter()
+        done = sum(1 for p in client.list("Pod")[0]
+                   if p.meta.labels.get("job") == "batch" and p.status.phase == SUCCEEDED)
+        # the controller manager's own binary against the child's server
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        with open(kcm_path, "w") as err:
+            kcm = subprocess.Popen(
+                [sys.executable, "-m", "kubernetes_tpu_torch.cmd.controller_manager",
+                 "--server", cfg["server"], "--leader-elect", "--port", str(port)],
+                cwd=root, stdout=subprocess.DEVNULL, stderr=err, text=True)
+        t_kcm = time.perf_counter()
+        lease = None
+        while True:
+            if kcm.poll() is not None:
+                fail(f"phase 34 (b): the controller manager exited {kcm.returncode}: "
+                     f"{tail(kcm_path)}")
+            health = boot_get(f"http://127.0.0.1:{port}/healthz")
+            lease = client.try_get("Lease", "kube-system/kube-controller-manager")
+            if health == (200, "ok") and lease is not None \
+                    and lease.spec.holder_identity == "kcm-0":
+                break
+            if time.perf_counter() - t_kcm > 60:
+                fail(f"phase 34 (b): the controller manager's /healthz {health}, its Lease "
+                     f"{None if lease is None else lease.spec}")
+            time.sleep(0.05)
+        t_lease = time.perf_counter() - t_kcm
+        kcm.terminate()
+        kcm.wait(timeout=30)
+        t_sig = time.perf_counter()
+        boot.send_signal(signal.SIGINT)
+        boot.communicate(timeout=60)
+        if boot.returncode != 0:
+            fail(f"phase 34 (b): the bootstrap child exited {boot.returncode} on SIGINT: "
+                 f"{tail()}")
+        t_exit = time.perf_counter() - t_sig
+    finally:
+        if kcm is not None and kcm.poll() is None:
+            kcm.kill()
+            kcm.wait()
+        child.close()
+    print(f"34 (b) `python -m kubernetes_tpu_torch.cmd.bootstrap --nodes {BOOT_CHILD_NODES} "
+          f"--port 0` (run(), {device}): kubeconfig {t_cfg - t0:.2f} s after spawn "
+          f"(spawned before (a)); a Deployment, a DaemonSet, a Job and a StatefulSet over "
+          f"RESTStore, every pod Running {t_running - t_create:.2f} s after the first "
+          f"create, the Job Complete ({done} pods Succeeded) at {t_done - t_create:.2f} s; "
+          f"`python -m "
+          f"kubernetes_tpu_torch.cmd.controller_manager --leader-elect`: /healthz ok and "
+          f"the Lease held {t_lease:.2f} s after spawn; exit 0 on SIGINT "
+          f"({t_exit:.2f} s); on {smi}")
+    return {"to_running_s": t_running - t_create, "spawn_to_config_s": t_cfg - t0}
+
+
+def bootstrap_phase(args, smi, n_pods=None, device="cuda"):
+    """34. kubeadm init: (a) the bootstrapped cluster at SchedulingBasic's
+    width, (b) the operator's entry points in child processes."""
+    t0 = time.perf_counter()
+    child = BootChild(device)
+    try:
+        a = boot_cluster(BOOT_NODES, BOOT_PODS if n_pods is None else n_pods, smi, device)
+        gc.collect()
+        b = boot_children(smi, child, device)
+    finally:
+        child.close()
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s")
+    return {"a": a, "b": b}
 
 
 if __name__ == "__main__":

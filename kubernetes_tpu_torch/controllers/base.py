@@ -1,18 +1,17 @@
 """Controller base: informer event handlers -> workqueue -> reconcile loop.
 
 Reference: the universal controller pattern of pkg/controller/* — shared
-informers feed keys into a rate-limited workqueue; workers pop keys and
-reconcile actual state toward desired state, requeueing on error.
+informers feed keys into a rate-limited workqueue; worker goroutines pop keys
+and reconcile actual state toward desired state, requeueing on error. This
+base runs single-threaded-deterministic (sync_once) or threaded (run).
 
-A copy of the part of the reference package's Controller
-(kubernetes_tpu/controllers/base.py) that the port's controllers need:
-the handlers, the workqueue (on an injectable clock for time-driven
-controllers), the controller.reconcile fault point and the deterministic
-sync_once drive. Left out: the threaded run() and the ControllerManager,
-which no path of the port runs.
+A copy of the reference package's module
+(kubernetes_tpu/controllers/base.py).
 """
 
 from __future__ import annotations
+
+import threading
 
 from ..client.informer import InformerFactory
 from ..client.workqueue import WorkQueue
@@ -24,9 +23,10 @@ class Controller:
     implement `reconcile(key) -> None` (raise to retry with backoff) and
     `key_of(kind, obj) -> str | None` (None = ignore event).
 
-    Time-driven controllers set `clocked_queue = True`: their workqueue's
-    delayed-add timers tick on the controller's `clock` (injectable), the
-    shared pattern for staleness/TTL self-requeues."""
+    Time-driven controllers set `clocked_queue = True`: they get a `clock`
+    (injectable) and a workqueue whose delayed-add timers tick on that same
+    clock — the shared pattern for schedule-time/TTL/stabilization
+    self-requeues."""
 
     name = "controller"
     watches: tuple[str, ...] = ()
@@ -95,3 +95,63 @@ class Controller:
             n += 1
             self.informers.pump_all()
         return n
+
+    def run(self, stop_event: threading.Event, workers: int = 1,
+            poll: float = 0.02) -> list[threading.Thread]:
+        """Threaded mode (the reference's N worker goroutines)."""
+        self.start()
+
+        def pump_loop():
+            while not stop_event.is_set():
+                self.informers.pump_all()
+                stop_event.wait(poll)
+
+        def worker():
+            while not stop_event.is_set():
+                key = self.queue.get(timeout=poll)
+                if key is None:
+                    continue
+                try:
+                    # chaos: same contract as sync_once — DROP requeues,
+                    # ERROR takes the normal backoff path
+                    if faultinject.fire("controller.reconcile"):
+                        self.queue.add_rate_limited(key)
+                    else:
+                        self.reconcile(key)
+                        self.queue.forget(key)
+                except Exception:  # noqa: BLE001
+                    self.queue.add_rate_limited(key)
+                finally:
+                    self.queue.done(key)
+
+        threads = [threading.Thread(target=pump_loop, daemon=True)]
+        threads += [threading.Thread(target=worker, daemon=True) for _ in range(workers)]
+        for t in threads:
+            t.start()
+        return threads
+
+
+class ControllerManager:
+    """cmd/kube-controller-manager — owns the controller set and one shared
+    informer factory."""
+
+    def __init__(self, store, controllers: list[Controller] | None = None):
+        self.store = store
+        self.controllers: list[Controller] = list(controllers or [])
+
+    def add(self, controller: Controller) -> None:
+        self.controllers.append(controller)
+
+    def sync_once(self, rounds: int = 10) -> int:
+        """Drain every controller to quiescence (deterministic tests)."""
+        total = 0
+        for _ in range(rounds):
+            n = sum(c.sync_once() for c in self.controllers)
+            total += n
+            if n == 0:
+                break
+        return total
+
+    def run(self, stop_event: threading.Event) -> None:
+        for c in self.controllers:
+            c.run(stop_event)

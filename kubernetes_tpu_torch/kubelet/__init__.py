@@ -1,7 +1,8 @@
-"""Node agent layer: the kubemark hollow form the chaos soaks run
-(HollowKubelet — fake runtime, lease heartbeat, batch sync; pkg/kubemark).
-The reference's full-shaped agent (CRI runtime, PLEG, eviction manager,
-pod workers) is not ported: no scheduler path runs it."""
+"""Node agent layer: the kubemark hollow form the chaos soaks and the
+bootstrapped cluster run (HollowKubelet — fake runtime, lease heartbeat,
+batch sync, a threaded sync loop; pkg/kubemark). The reference's
+full-shaped agent (CRI runtime, PLEG, eviction manager, pod workers) is
+not ported yet (ROADMAP A16)."""
 
 from .hollow import FakeRuntime, HollowKubelet, start_hollow_nodes
 

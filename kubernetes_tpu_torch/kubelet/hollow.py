@@ -7,14 +7,12 @@ loop here is the same shape: watch pods assigned to this node, drive them
 through a fake runtime (Pending -> Running -> Succeeded), report NodeStatus,
 heartbeat a Lease, and finalize deletions.
 
-A copy of the reference package's module (kubernetes_tpu/kubelet/hollow.py),
-with the reference's stable pod address (utils/net.py) inlined; its
-threaded run() is left out (the soaks drive sync_once).
+A copy of the reference package's module (kubernetes_tpu/kubelet/hollow.py).
 """
 
 from __future__ import annotations
 
-import zlib
+import threading
 
 from ..api.types import (
     Node,
@@ -26,14 +24,8 @@ from ..api.types import (
 from ..store import try_delete
 from ..store.store import ConflictError, NotFoundError
 from ..utils import faultinject
+from ..utils.net import stable_pod_ip
 from .agent import NodeAgentBase
-
-
-def stable_pod_ip(uid: str) -> str:
-    """A hollow pod's address: 10.128.0.0/9 keyed by a 23-bit crc32 of the
-    uid, stable across processes (the reference's utils/net.py)."""
-    h = zlib.crc32(uid.encode()) & 0x7FFFFF  # 23 bits
-    return f"10.{128 + (h >> 16)}.{(h >> 8) & 0xFF}.{h & 0xFF}"
 
 
 class FakeRuntime:
@@ -148,6 +140,16 @@ class HollowKubelet(NodeAgentBase):
             self.store.update(pod, check_version=False)
         except (ConflictError, NotFoundError):
             pass
+
+    def run(self, stop_event: threading.Event, sync_period: float = 0.05) -> threading.Thread:
+        def loop():
+            while not stop_event.is_set():
+                self.sync_once()
+                stop_event.wait(sync_period)
+
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+        return t
 
 
 def start_hollow_nodes(store, n: int, clock=None, cpu: str = "32",

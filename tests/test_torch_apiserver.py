@@ -8,10 +8,9 @@ reference.
    of the reference package turned into the port's (`tests.wrappers` into
    `kubernetes_tpu_torch.testing.wrappers`), and executed into this
    module, so every case of those suites is collected here as a case of
-   the port. The few cases that need a module the port does not have yet
-   (`cmd/bootstrap.py`, queued as ROADMAP A15) are listed in NOT_PORTED
-   and left out; the scheduler the suites run over HTTP takes
-   `device="cpu"` (the port has no host-only profile).
+   the port (tests/torch_suites.py); the Scheduler and ClusterBootstrap
+   the suites run take `device="cpu"` (the port has no host-only
+   profile).
 2. A differential test: one seeded sequence of REST requests sent to both
    packages' servers, each over its own Store, gives equal status codes
    and equal bodies (uid, timestamps and the serving address masked). The
@@ -26,47 +25,23 @@ import json
 import re
 import urllib.error
 import urllib.request
-from pathlib import Path
 
 import numpy as np
 import pytest
 
 from kubernetes_tpu_torch.api import cbor
-from kubernetes_tpu_torch.store import iter_kind
-
-_TESTS = Path(__file__).resolve().parent
+from tests.torch_suites import load_suites
 
 # suite -> case names (Class.method or function) that need a module the port
-# does not have yet; every other case of the suite runs on the port
-NOT_PORTED = {
-    "test_quota": {
-        # cmd/bootstrap.py's ClusterBootstrap (A15)
-        "TestQuotaEndToEnd.test_bootstrap_cluster_enforces_quota",
-    },
-    "test_tls": {
-        "TestTLSServing.test_bootstrap_tls_cluster_end_to_end",  # ClusterBootstrap (A15)
-    },
-}
+# does not have yet; every case of these suites runs on the port
+NOT_PORTED: dict[str, set[str]] = {}
 
 SUITES = ("test_apiserver", "test_apiserver_auth", "test_apply", "test_cbor",
           "test_versioning", "test_extensions", "test_aggregation",
           "test_quota", "test_tls")
 
 
-def _translate(suite: str, src: str) -> str:
-    src = re.sub(r"\bkubernetes_tpu\.", "kubernetes_tpu_torch.", src)
-    src = src.replace("from tests.wrappers import",
-                      "from kubernetes_tpu_torch.testing.wrappers import")
-    # the port's Scheduler runs its device backend; on the CPU it is asked
-    # for the plain versions
-    src = src.replace("Scheduler(client)", 'Scheduler(client, device="cpu")')
-    # the port's Store keeps the reference's iter_kind as a helper beside
-    # it (store/__init__.py)
-    src = src.replace("store.iter_kind(", "_iter_kind(store, ")
-    if suite == "test_tls":
-        src = src.replace(
-            "from kubernetes_tpu_torch.cmd.bootstrap import ClusterBootstrap\n",
-            "")
+def _edit(suite: str, src: str) -> str:
     if suite == "test_aggregation":
         # both test_extensions and test_aggregation name a fixture `cluster`
         src, n = re.subn(r"(?<![-\w\"'./])cluster(?![-\w\"'])",
@@ -75,33 +50,7 @@ def _translate(suite: str, src: str) -> str:
     return src
 
 
-def _load_suites() -> None:
-    g = globals()
-    for suite in SUITES:
-        src = _translate(suite, (_TESTS / f"{suite}.py").read_text())
-        ns: dict = {"__name__": f"{__name__}.{suite}", "__file__": __file__,
-                    "_iter_kind": iter_kind}
-        exec(compile(src, str(_TESTS / f"{suite}.py"), "exec"), ns)
-        skip = NOT_PORTED.get(suite, set())
-        for name, obj in ns.items():
-            if not name.startswith(("Test", "test_")):
-                # fixtures and helpers; a suite's own cases read theirs
-                # from the suite's namespace
-                if not name.startswith("__"):
-                    g.setdefault(name, obj)
-                continue
-            assert name not in g, f"{suite}: {name} collides"
-            if isinstance(obj, type):
-                for case in skip:
-                    cls, _, meth = case.partition(".")
-                    if cls == name:
-                        delattr(obj, meth)
-            elif name in skip:
-                continue
-            g[name] = obj
-
-
-_load_suites()
+load_suites(globals(), SUITES, NOT_PORTED, _edit)
 
 
 # ------------------------------------------------------- the differential

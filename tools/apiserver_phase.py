@@ -2,7 +2,7 @@
 Scheduler on the card), after building the kernels.
 
     python3 tools/apiserver_phase.py                 # phase 33 at chip_smoke's depth
-    python3 tools/apiserver_phase.py --full-depth    # (a) with 11000 pods
+    python3 tools/apiserver_phase.py --full-depth    # (a) with 11000 pods, (b) 128
 
 It builds the CUDA libraries (`cuda.build_all`) and runs
 `chip_smoke.apiserver_phase`: (a) the port's APIServer with the default
@@ -12,7 +12,8 @@ held against an in-process twin, kubectl through the port's
 cmd/kubectl.main; (b) the Scheduler over the REST client, per pod. The
 nodes are always SchedulingBasic's 5000; chip_smoke cuts (a)'s pods to
 API_PODS for its time limit, `--full-depth` runs SchedulingBasic's
-11000 (1000 initial + 10000 measured).
+11000 (1000 initial + 10000 measured); it cuts (b)'s pods to
+API_REST_PODS (64), `--full-depth` runs 128.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ def main() -> int:
     cuda.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     pods = args.init_pods + args.pods if own.full_depth else None
+    if own.full_depth:
+        chip_smoke.API_REST_PODS = chip_smoke.API_REST_PODS_FULL
     chip_smoke.apiserver_phase(args, smi, n_pods=pods)
     print(f"total: {time.perf_counter() - t0:.1f} s")
     return 0
